@@ -1,0 +1,306 @@
+"""Glow-TTS generation graph (glow_tts_train_tpu models/glow_tts.py):
+text encoder + duration predictor + inverse flow decoder.
+
+:class:`GlowTTS` holds one parameter per leaf of the JAX param tree,
+named by its path (``encoder.attn.q.w`` is the JAX ``encoder/attn/q/w``,
+stacked ``[n_layers, ...]``/``[n_blocks, ...]`` as there).
+:func:`store_inverse` folds everything the serving path needs once, at
+load — the flow blocks' inverses and weight norms included — into
+:class:`ServingWeights`; :func:`forward_gen` runs on those.
+
+Device rule, in place of the JAX package's TPU resolvers: each kernel
+wrapper (``ops/*_cuda.py``) launches its CUDA kernel for CUDA tensors and
+runs its plain PyTorch version for CPU tensors.  Encoder configurations
+the kernel does not take (``window_size=None`` or ``block_length`` set)
+run op by op on the CPU and raise on CUDA.
+"""
+
+import dataclasses
+import math
+import typing
+
+import torch
+from torch import nn
+
+from ..ops import attention, encoder_cuda, flows, text_cuda
+from ..ops.conv import conv1d
+from ..ops.masks import generate_path, time_mask
+from ..tree import tree_index, tree_map
+
+Params = typing.Dict[str, typing.Any]
+
+
+class GlowTTSHyper(typing.NamedTuple):
+    """Model hyperparameters (the JAX GlowTTSHyper's model fields)."""
+
+    n_vocab: int
+    hidden_channels: int
+    filter_channels: int
+    filter_channels_dp: int
+    out_channels: int
+    kernel_size: int = 3
+    n_heads: int = 2
+    n_layers_enc: int = 6
+    n_blocks_dec: int = 12
+    kernel_size_dec: int = 5
+    dilation_rate: int = 1
+    n_block_layers: int = 4
+    n_speakers: int = 0
+    gin_channels: int = 0
+    n_split: int = 4
+    n_sqz: int = 2
+    sigmoid_scale: bool = False
+    window_size: typing.Optional[int] = 4
+    block_length: typing.Optional[int] = None
+    mean_only: bool = False
+    hidden_channels_enc: typing.Optional[int] = None
+    hidden_channels_dec: typing.Optional[int] = None
+    prenet: bool = False
+
+    @property
+    def h_enc(self) -> int:
+        return self.hidden_channels_enc or self.hidden_channels
+
+    @property
+    def h_dec(self) -> int:
+        return self.hidden_channels_dec or self.hidden_channels
+
+    @property
+    def encoder_kernel_fits(self) -> bool:
+        """The CUDA encoder kernel takes this configuration (rel-pos window
+        set, no block_length — the reference's only shipped one)."""
+        return self.window_size is not None and self.block_length is None
+
+
+def hyper_from_config(config) -> GlowTTSHyper:
+    """TrainingConfig -> GlowTTSHyper."""
+    m = config.model
+    return GlowTTSHyper(
+        n_vocab=m.num_symbols,
+        hidden_channels=m.hidden_channels,
+        filter_channels=m.filter_channels,
+        filter_channels_dp=m.filter_channels_dp,
+        out_channels=config.audio.mel_channels,
+        kernel_size=m.kernel_size,
+        n_heads=m.n_heads,
+        n_layers_enc=m.n_layers_enc,
+        n_blocks_dec=m.n_blocks_dec,
+        kernel_size_dec=m.kernel_size_dec,
+        dilation_rate=m.dilation_rate,
+        n_block_layers=m.n_block_layers,
+        n_speakers=m.n_speakers,
+        gin_channels=m.gin_channels,
+        n_split=m.n_split,
+        n_sqz=m.n_sqz,
+        sigmoid_scale=m.sigmoid_scale,
+        window_size=m.window_size,
+        block_length=m.block_length,
+        mean_only=m.mean_only,
+        hidden_channels_enc=m.hidden_channels_enc,
+        hidden_channels_dec=m.hidden_channels_dec,
+        prenet=m.prenet,
+    )
+
+
+class _Node(nn.Module):
+    """An inner node of the parameter tree."""
+
+
+class GlowTTS(nn.Module):
+    """Parameters named by their JAX tree paths; ``shapes`` maps
+    ``"a/b/c"`` paths to shapes (``checkpoint.param_shapes`` without the
+    ``model/`` prefix).  Values are uninitialized until loaded."""
+
+    def __init__(self, shapes: typing.Mapping[str, typing.Sequence[int]]):
+        super().__init__()
+        for path, shape in shapes.items():
+            *parents, leaf = path.split("/")
+            node: nn.Module = self
+            for name in parents:
+                if not hasattr(node, name):
+                    node.add_module(name, _Node())
+                node = getattr(node, name)
+            node.register_parameter(
+                leaf, nn.Parameter(torch.empty(tuple(shape)), requires_grad=False)
+            )
+
+    def tree(self) -> Params:
+        """The parameters as the JAX package's nested dict."""
+        out: Params = {}
+        for name, p in self.named_parameters():
+            *parents, leaf = name.split(".")
+            node = out
+            for k in parents:
+                node = node.setdefault(k, {})
+            node[leaf] = p.detach()
+        return out
+
+
+@dataclasses.dataclass
+class ServingWeights:
+    """Everything :func:`forward_gen` reads, folded once by
+    :func:`store_inverse`."""
+
+    emb: torch.Tensor
+    prenet: typing.Optional[tuple]  # text_cuda.prenet_weights
+    # per layer: encoder_cuda.fold_encoder_layer's tuple when the encoder
+    # kernel takes the config, else the raw layer params (op-by-op path)
+    encoder: typing.List[typing.Any]
+    proj_m: Params
+    proj_s: typing.Optional[Params]
+    dp: tuple  # text_cuda.dp_weights
+    dp_proj: Params
+    emb_g: typing.Optional[torch.Tensor]
+    blocks: typing.List[dict]  # block_cuda.fold_block_params_inverse
+    cond: typing.Optional[typing.List[Params]]  # per-block effective cond conv
+
+    def to(self, device) -> "ServingWeights":
+        return ServingWeights(
+            **{
+                f.name: tree_map(lambda a: a.to(device), getattr(self, f.name))
+                for f in dataclasses.fields(self)
+            }
+        )
+
+
+def store_inverse(model: GlowTTS, hp: GlowTTSHyper) -> ServingWeights:
+    """Fold all serving weights once (the JAX package folds per call inside
+    its jitted graph): block inverses, weight norms, kernel layouts."""
+    p = tree_map(lambda a: a.to(torch.float32), model.tree())
+    layers = [tree_index(p["encoder"], i) for i in range(hp.n_layers_enc)]
+    if hp.encoder_kernel_fits:
+        layers = [encoder_cuda.fold_encoder_layer(layer) for layer in layers]
+    blocks, cond = flows.decoder_store_inverse(
+        p["decoder"]["blocks"], hp.n_block_layers, hp.n_split
+    )
+    return ServingWeights(
+        emb=p["emb"],
+        prenet=text_cuda.prenet_weights(p["prenet"]) if hp.prenet else None,
+        encoder=layers,
+        proj_m=p["proj_m"],
+        proj_s=None if hp.mean_only else p["proj_s"],
+        dp=text_cuda.dp_weights(p["proj_w"]),
+        dp_proj=p["proj_w"]["proj"],
+        emb_g=p.get("emb_g"),
+        blocks=blocks,
+        cond=cond,
+    )
+
+
+def _speaker_vector(
+    emb_g: typing.Optional[torch.Tensor], g_ids: typing.Optional[torch.Tensor]
+) -> typing.Optional[torch.Tensor]:
+    """L2-normalized speaker embedding [b] -> [b, 1, gin]."""
+    if g_ids is None:
+        return None
+    g = emb_g[g_ids]
+    norm = torch.sqrt(torch.sum(torch.square(g), dim=-1, keepdim=True))
+    return (g / torch.clamp(norm, min=1e-12))[:, None, :]
+
+
+def duration_predictor_apply(
+    w: ServingWeights, x: torch.Tensor, x_mask: torch.Tensor
+) -> torch.Tensor:
+    """x: [b, t, c] -> log-durations [b, t, 1]."""
+    return text_cuda.duration_predictor(w.dp, w.dp_proj, x, x_mask)
+
+
+def encoder_forward(
+    w: ServingWeights,
+    hp: GlowTTSHyper,
+    x: torch.Tensor,
+    x_lengths: torch.Tensor,
+    g: typing.Optional[torch.Tensor] = None,
+):
+    """x: [b, t_x] phoneme ids; g: optional [b, 1, gin] speaker vector.
+    Returns (x_m, x_logs, logw, x_mask), channels-last."""
+    t_x = x.shape[1]
+    xh = w.emb[x] * math.sqrt(hp.h_enc)
+    x_mask = time_mask(x_lengths, t_x)
+    if hp.prenet:
+        xh = text_cuda.prenet(w.prenet, xh, x_mask)
+    if hp.encoder_kernel_fits:
+        for layer in w.encoder:
+            xh = encoder_cuda.encoder_layer(
+                layer, xh, x_mask, hp.n_heads, hp.window_size
+            )
+        xh = xh * x_mask
+    elif xh.device.type == "cpu":
+        xh = attention.encoder_apply(
+            w.encoder, xh, x_mask, hp.n_heads, hp.window_size, hp.block_length
+        )
+    else:
+        raise NotImplementedError(
+            "the CUDA encoder kernel needs window_size set and block_length "
+            "unset; other encoder configurations run on the CPU only "
+            "(ROADMAP, queue 1: encoder configurations)"
+        )
+    x_dp = xh
+    if g is not None:
+        x_dp = torch.cat([xh, g.expand(-1, t_x, -1)], dim=-1)
+    x_m = conv1d(xh, w.proj_m) * x_mask
+    x_logs = torch.zeros_like(x_m) if hp.mean_only else conv1d(xh, w.proj_s) * x_mask
+    logw = duration_predictor_apply(w, x_dp, x_mask)
+    return x_m, x_logs, logw, x_mask
+
+
+def forward_gen(
+    w: ServingWeights,
+    hp: GlowTTSHyper,
+    x: torch.Tensor,
+    x_lengths: torch.Tensor,
+    y_max_length: int,
+    noise_scale: float = 1.0,
+    length_scale: float = 1.0,
+    g_ids: typing.Optional[torch.Tensor] = None,
+    generator: typing.Optional[torch.Generator] = None,
+    eps: typing.Optional[torch.Tensor] = None,
+    encoder_out: typing.Optional[tuple] = None,
+):
+    """Generation into a ``y_max_length`` frame budget, as the JAX
+    ``forward_gen``.  The noise is ``eps`` when given (shape of z_m), else
+    drawn from ``generator``.  ``encoder_out``: a precomputed
+    :func:`encoder_forward` result, so callers that sized the budget with
+    it do not run the encoder twice.
+
+    Returns ((y, z_m, z_logs, z_mask), (x_m, x_logs, x_mask),
+    (attn, logw, logw_), y_lengths)."""
+    g = _speaker_vector(w.emb_g, g_ids)
+    if encoder_out is None:
+        encoder_out = encoder_forward(w, hp, x, x_lengths, g=g)
+    x_m, x_logs, logw, x_mask = encoder_out
+
+    dur = torch.exp(logw.to(torch.float32)) * x_mask * length_scale
+    w_ceil = torch.ceil(dur)
+    y_lengths = torch.clamp(torch.sum(w_ceil, dim=(1, 2)), min=1.0).to(torch.int32)
+    y_lengths = torch.clamp(y_lengths, max=y_max_length)
+    t_y = (y_max_length // hp.n_sqz) * hp.n_sqz
+    y_lengths = (y_lengths // hp.n_sqz) * hp.n_sqz
+
+    z_mask = time_mask(y_lengths, t_y)
+    attn_mask = x_mask[:, :, 0][:, :, None] * z_mask[:, :, 0][:, None, :]
+    attn = generate_path(w_ceil[:, :, 0], attn_mask)
+    z_m = torch.einsum("bxy,bxd->byd", attn, x_m)
+    z_logs = torch.einsum("bxy,bxd->byd", attn, x_logs)
+    logw_ = torch.log(1e-8 + torch.sum(attn, dim=2))[:, :, None] * x_mask
+
+    if eps is None:
+        eps = torch.randn(
+            z_m.shape, generator=generator, device=z_m.device, dtype=z_m.dtype
+        )
+    z = (z_m + torch.exp(z_logs) * eps * noise_scale) * z_mask
+    g_all = None
+    if w.cond is not None and g is not None:
+        L, h = hp.n_block_layers, hp.h_dec
+        g_all = [conv1d(g, c).reshape(g.shape[0], L, 2 * h).contiguous() for c in w.cond]
+    y = flows.decoder_inv(
+        w.blocks, z, z_mask,
+        kernel_size=hp.kernel_size_dec, dilation_rate=hp.dilation_rate,
+        n_sqz=hp.n_sqz, sigmoid_scale=hp.sigmoid_scale, g_all=g_all,
+    )
+    return (
+        (y, z_m, z_logs, z_mask),
+        (x_m, x_logs, x_mask),
+        (attn, logw, logw_),
+        y_lengths,
+    )

@@ -1,0 +1,185 @@
+"""The CUDA kernels of glow_tts_train_tpu_torch on a GPU, against their
+plain PyTorch versions on the same inputs, and the kernel path of
+``forward_gen`` against the plain path on the CPU.
+
+Every test here needs an NVIDIA GPU (the kernels have no CPU mode) and
+skips without one.  The file imports no jax, so on a GPU machine without
+the JAX package's dependencies it runs alone:
+
+    python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
+
+Tolerances: kernel vs plain version 1e-5 max abs error on O(1) outputs
+(f32 both, summation order only; TF32 off for the plain version's cuBLAS
+and cuDNN calls); the whole mel 1e-4 (two inverse flow blocks each
+scaling by exp(-logs)).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from glow_tts_train_tpu_torch import checkpoint, kernels
+from glow_tts_train_tpu_torch.models import glow_tts as model
+from glow_tts_train_tpu_torch.ops import block_cuda, encoder_cuda, text_cuda
+from glow_tts_train_tpu_torch.tree import tree_index, tree_map
+
+from helpers import tiny_config
+
+pytestmark = pytest.mark.cuda
+
+ATOL = 1e-5
+MEL_ATOL = 1e-4
+
+# tiny widths (h = 16: every GEMM narrower than one 64-column tile), and
+# the base widths of configs/base.json (h = 192, f = 768, f_dp = 256,
+# 80 mel channels) with 2 layers and 2 blocks
+TINY = {}
+BASE = dict(
+    hidden_channels=192, hidden_channels_enc=192, hidden_channels_dec=192,
+    filter_channels=768, filter_channels_dp=256, n_block_layers=4,
+)
+VARIANTS = {
+    "tiny": (TINY, 8),
+    "tiny_sigmoid_gin_dilation2": (
+        dict(sigmoid_scale=True, n_speakers=3, gin_channels=8, dilation_rate=2), 8
+    ),
+    "base_width": (BASE, 80),
+    "base_width_sigmoid_gin_dilation2": (
+        dict(BASE, sigmoid_scale=True, n_speakers=3, gin_channels=256, dilation_rate=2),
+        80,
+    ),
+}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _config(over, n_mel):
+    config = tiny_config(**over)
+    config.audio.mel_channels = n_mel
+    return config
+
+
+def _tree(hp, seed=0):
+    """The torch param tree of one random checkpoint (all leaves non-zero)."""
+    tree: dict = {}
+    for key, a in checkpoint.random_params(hp, seed).items():
+        *parents, leaf = key[len("model/"):].split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = torch.from_numpy(a)
+    return tree
+
+
+def _inputs(b, t, c, dev, seed=1):
+    """x [b, t, c] and a ragged mask [b, t, 1] (sample 0 full length, one
+    sample of length 1: fully masked query rows)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, t, c)).astype(np.float32)).to(dev)
+    lengths = torch.tensor([t, max(1, t // 2), 1][:b], device=dev)
+    mask = (torch.arange(t, device=dev)[None, :] < lengths[:, None]).float()[..., None]
+    return x, mask
+
+
+def _close(port, ref, atol=ATOL):
+    np.testing.assert_allclose(port.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+def test_kernels_match_plain(dev, name):
+    """Each of the four kernels against its plain version on the same CUDA
+    inputs; t = 37 is no multiple of any tile; each wrapper launches once."""
+    over, n_mel = VARIANTS[name]
+    hp = model.hyper_from_config(_config(over, n_mel))
+    tt = tree_map(lambda a: a.to(dev), _tree(hp))
+    x, mask = _inputs(3, 37, hp.h_enc, dev)
+    before = kernels.launch_counts()
+
+    pw = text_cuda.prenet_weights(tt["prenet"])
+    _close(text_cuda.prenet(pw, x, mask), text_cuda.prenet_plain(pw, x, mask))
+    ew = encoder_cuda.fold_encoder_layer(tree_index(tt["encoder"], 0))
+    _close(
+        encoder_cuda.encoder_layer(ew, x, mask, hp.n_heads, hp.window_size),
+        encoder_cuda.encoder_layer_plain(ew, x, mask, hp.n_heads, hp.window_size),
+    )
+    dw = text_cuda.dp_weights(tt["proj_w"])
+    xd = torch.cat([x, torch.ones(3, 37, hp.gin_channels, device=dev)], -1)
+    _close(text_cuda.duration_stack(dw, xd, mask), text_cuda.duration_stack_plain(dw, xd, mask))
+    L, h = hp.n_block_layers, hp.h_dec
+    bw = block_cuda.fold_block_params_inverse(
+        tree_index(tt["decoder"]["blocks"], 0), L, hp.n_split
+    )
+    xb = torch.randn(3, 37, 2 * hp.out_channels, device=dev) * mask
+    g_all = torch.randn(3, L, 2 * h, device=dev) if hp.gin_channels else None
+    args = (bw, g_all, xb, mask, hp.kernel_size_dec, hp.dilation_rate, hp.sigmoid_scale)
+    _close(block_cuda.block_inverse(*args), block_cuda.block_inverse_plain(*args))
+
+    after = kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "prenet": 1, "encoder_layer": 1, "duration_stack": 1, "block_inverse": 1
+    }
+
+
+@pytest.mark.parametrize(
+    "over",
+    [{}, {"mean_only": False, "n_speakers": 3, "gin_channels": 8, "sigmoid_scale": True},
+     {"prenet": False, "dilation_rate": 2}],
+    ids=["base", "multispeaker_mean_sigmoid", "no_prenet_dilation2"],
+)
+def test_forward_gen_kernel_path_matches_plain_path(dev, over):
+    """forward_gen with the kernels (CUDA tensors) against the plain path
+    (CPU tensors): same weights, ids and eps; y_lengths identical."""
+    hp = model.hyper_from_config(tiny_config(**over))
+    w_cpu = model.store_inverse(checkpoint.params_from_numpy(
+        checkpoint.random_params(hp, 0), hp), hp)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.integers(1, hp.n_vocab, size=(3, 11)))
+    xl = torch.tensor([11, 6, 9])
+    x[1, 6:] = 0
+    x[2, 9:] = 0
+    g_ids = torch.tensor([0, 2, 1]) if hp.n_speakers > 1 else None
+    eps = torch.from_numpy(rng.standard_normal((3, 72, hp.out_channels)).astype(np.float32))
+    outs = []
+    for d, w in ((dev, w_cpu.to(dev)), (torch.device("cpu"), w_cpu)):
+        out = model.forward_gen(
+            w, hp, x.to(d), xl.to(d), 72, noise_scale=0.667, length_scale=1.1,
+            g_ids=None if g_ids is None else g_ids.to(d), eps=eps.to(d),
+        )
+        outs.append(out)
+    (cu, cpu) = outs
+    # a duration within 1e-4 of an integer could ceil differently
+    dur = (torch.exp(cpu[2][1]) * 1.1)[:, :, 0]
+    valid = torch.arange(11)[None] < xl[:, None]
+    assert (dur - dur.round()).abs()[valid].min() > 1e-4, "pick another seed"
+    assert torch.equal(cu[3].cpu(), cpu[3])
+    _close(cu[2][1], cpu[2][1])  # logw
+    _close(cu[0][0], cpu[0][0], MEL_ATOL)  # mel
+    assert torch.isfinite(cu[0][0]).all()
+
+
+def test_cuda_raises_for_configs_the_encoder_kernel_does_not_take(dev):
+    hp = model.hyper_from_config(tiny_config(window_size=None))
+    w = model.store_inverse(checkpoint.params_from_numpy(
+        checkpoint.random_params(hp, 0), hp), hp).to(dev)
+    x = torch.tensor([[3, 7, 12]], device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model.encoder_forward(w, hp, x, torch.tensor([3], device=dev))
+
+
+def test_wrappers_check_their_operands(dev):
+    hp = model.hyper_from_config(tiny_config())
+    pw = text_cuda.prenet_weights(tree_map(lambda a: a.to(dev), _tree(hp))["prenet"])
+    x, mask = _inputs(2, 9, hp.h_enc, dev)
+    with pytest.raises(ValueError, match="not contiguous"):
+        text_cuda.prenet(pw, x.transpose(0, 1).contiguous().transpose(0, 1), mask)
+    with pytest.raises(ValueError, match="float32"):
+        text_cuda.prenet(pw, x.double(), mask)
+    with pytest.raises(ValueError, match="x_mask"):
+        text_cuda.prenet(pw, x, mask[:, :5].contiguous())
