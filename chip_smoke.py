@@ -21,7 +21,20 @@ Phases, each fatal on failure:
 5. times each kernel against its plain version with CUDA events;
 6. times whole syntheses through ``build_synthesizer`` (the CLI's synth
    without stdin or JSON), kernel path against plain path on the card,
-   and profiles one to read the device's busy time and idle share.
+   and profiles one to read the device's busy time and idle share;
+7. trains at the full width of ``configs/base.json`` (``encoder_fuse:
+   false``, ``fp16_run: false``, batch 16, dropout on) through the port's
+   train CLI entry point, ``glow_tts_train_tpu_torch.__main__.main``, on a
+   64-utterance corpus from ``scripts/make-synthetic-corpus.py``: DDI,
+   then 2 epochs of 4 steps; checks every loss and grad norm, each
+   training kernel's launch count (WN forward once per block in DDI,
+   block forward-save and backward-store once per block and step, MAS
+   once per step), and
+   serves one request from the last checkpoint through the infer CLI;
+8. holds each training kernel against its plain version on inputs that
+   run recorded (the backward against autograd of the plain forward with
+   the same dropout seed; MAS bit for bit, also at a long shape the TPU
+   streams) and times both with CUDA events, and the train step.
 
 Prints the GPU's name and power limit, a ``{"kernels": [...]}`` JSON line,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU
@@ -61,6 +74,16 @@ SERVE_BATCHES = {
 SYNTH_RUNS = 10
 PROFILED = ("b1_250", "b4_mix")
 
+# training: 64 utterances, batch 16, 2 epochs -> 8 steps after DDI
+TRAIN_UTTERANCES = 64
+TRAIN_OVERRIDE = {
+    "encoder_fuse": False, "fp16_run": False, "batch_size": 16, "epochs": 2,
+    "warmup_steps": 50,
+}
+TRAIN_STEPS = 8
+# a shape the TPU kernel streams through VMEM (mas_pallas.py :254/:264)
+MAS_LONG = (2, 400, 2600)
+
 KERNEL_META = {
     "prenet": ("glow_tts_train_tpu_torch/csrc/text.cu",
                "glow_tts_train_tpu/ops/text_pallas.py:118"),
@@ -70,6 +93,14 @@ KERNEL_META = {
                        "glow_tts_train_tpu/ops/text_pallas.py:212"),
     "block_inverse": ("glow_tts_train_tpu_torch/csrc/block.cu",
                       "glow_tts_train_tpu/ops/block_pallas.py:714"),
+    "wn_forward": ("glow_tts_train_tpu_torch/csrc/block_train.cu",
+                   "glow_tts_train_tpu/ops/wn_pallas.py:188"),
+    "block_fwd_save": ("glow_tts_train_tpu_torch/csrc/block_train.cu",
+                       "glow_tts_train_tpu/ops/block_pallas.py:172"),
+    "block_bwd_store": ("glow_tts_train_tpu_torch/csrc/block_train.cu",
+                        "glow_tts_train_tpu/ops/block_pallas.py:271"),
+    "mas": ("glow_tts_train_tpu_torch/csrc/mas.cu",
+            "glow_tts_train_tpu/ops/mas_pallas.py:41"),
 }
 
 
@@ -148,7 +179,9 @@ def serve(ckpt: Path, config_path: Path, stdin_text: str, batch_size: int, n_mel
 
 
 class Recorder:
-    """Wraps a kernel wrapper to keep the arguments of one call."""
+    """Wraps a kernel wrapper to keep a copy of the arguments of one call
+    (copies: a training step later updates the parameters in place, and
+    some folded weights are views of them)."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
@@ -159,20 +192,22 @@ class Recorder:
 
     def __call__(self, *args, **kwargs):
         if self.armed and self.args is None:
-            self.args = (args, kwargs)
+            from glow_tts_train_tpu_torch.tree import tree_map
+
+            self.args = tree_map(lambda a: a.detach().clone(), (args, kwargs))
         return self.fn(*args, **kwargs)
 
     def restore(self):
         setattr(self.module, self.name, self.fn)
 
 
-def time_ms(fn, args, kwargs) -> float:
+def time_ms(fn, args, kwargs, runs: int = TIMED_RUNS) -> float:
     import torch
 
     for _ in range(5):
         fn(*args, **kwargs)
     times = []
-    for _ in range(TIMED_RUNS):
+    for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -270,6 +305,290 @@ def serving_times(ckpt: Path, config, hp, device_line: str) -> list:
     return rows
 
 
+def rel_err(name: str, port, ref, rtol: float) -> tuple:
+    """(max abs err, max |ref|); fails past rtol * max |ref|."""
+    err = (port - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    if not math.isfinite(err) or err > rtol * max(scale, 1e-6):
+        fail(f"{name}: max abs err {err} vs max |ref| {scale} (tolerance {rtol} relative)")
+    return err, scale
+
+
+def train(workdir: Path, repo: Path, config_path: Path, device_line: str):
+    """The train CLI in-process on a synthetic corpus -> (launch counts of
+    the run, recorders of the training kernels, per-step rows, the last
+    checkpoint and its config)."""
+    import torch
+
+    from glow_tts_train_tpu_torch import __main__ as train_cli
+    from glow_tts_train_tpu_torch import kernels, training
+    from glow_tts_train_tpu_torch.config import load_config
+    from glow_tts_train_tpu_torch.ops import block_cuda, mas_cuda, wn_cuda
+
+    corpus = workdir / "corpus"
+    proc = subprocess.run(
+        [sys.executable, str(repo / "scripts" / "make-synthetic-corpus.py"), str(corpus),
+         str(TRAIN_UTTERANCES), str(SEED)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        fail(f"make-synthetic-corpus.py: {proc.stderr[-2000:]}")
+    manifest = json.loads((corpus / "manifest.json").read_text())
+    override = workdir / "train_override.json"
+    override.write_text(json.dumps(dict(TRAIN_OVERRIDE, model={"num_symbols": manifest["num_symbols"]})))
+    n_blocks = load_config([config_path, override]).model.n_blocks_dec
+    print(f"train: corpus {manifest['n_utterances']} utterances, phonemes "
+          f"{manifest['phonemes_min_max']}, frames {manifest['frames_min_max']}")
+
+    steps = []
+    last = {}  # the last step's function, state and batch, for the profile
+    make_step = training.make_train_step
+
+    def timed_make_train_step(config):
+        step_fn = make_step(config)
+
+        def timed(state, batch, *args):
+            # the block and MAS kernels are held to their plain versions on
+            # the last step's inputs: by then the zero-initialised end convs
+            # have moved, so no gradient of the block is zero by construction
+            for name in ("block_fwd_save", "block_bwd_store", "mas"):
+                recorders[name].armed = len(steps) == TRAIN_STEPS - 1
+            last.update(step_fn=step_fn, state=state, batch=batch, args=args)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            metrics = step_fn(state, batch, *args)
+            torch.cuda.synchronize()
+            steps.append({
+                "seconds": time.perf_counter() - start,
+                "shape": [list(batch["x"].shape), list(batch["y"].shape)],
+                **{k: float(v) for k, v in metrics.items()},
+            })
+            return metrics
+
+        return timed
+
+    recorders = {
+        "wn_forward": Recorder(wn_cuda, "wn_stack"),
+        "block_fwd_save": Recorder(block_cuda, "block_fwd_save"),
+        "block_bwd_store": Recorder(block_cuda, "block_bwd_store"),
+        "mas": Recorder(mas_cuda, "maximum_path"),
+    }
+    recorders["wn_forward"].armed = True  # DDI, before the first step
+    training.make_train_step = timed_make_train_step
+    out = workdir / "model"
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    try:
+        train_cli.main([
+            "--output", str(out), "--dataset", "0", str(corpus / "phonemes.csv"),
+            str(corpus / "mels"), "--mels-dir", "--config", str(config_path),
+            "--config", str(override), "--metrics-file", str(workdir / "train.jsonl"),
+            "--platform", PLATFORM,
+        ])
+        torch.cuda.synchronize()
+    finally:
+        training.make_train_step = make_step
+        for rec in recorders.values():
+            rec.restore()
+    seconds = time.perf_counter() - start
+    launches = kernels.launch_counts()
+
+    if len(steps) != TRAIN_STEPS:
+        fail(f"train: {len(steps)} steps, expected {TRAIN_STEPS}")
+    # DDI runs each block's WN stack once; each step each block once
+    want = {"wn_forward": n_blocks, "block_fwd_save": n_blocks * TRAIN_STEPS,
+            "block_bwd_store": n_blocks * TRAIN_STEPS, "mas": TRAIN_STEPS}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"train: launches {got}, expected {want}")
+    for i, row in enumerate(steps):
+        if not all(math.isfinite(row[k]) for k in ("loss", "mle_loss", "duration_loss")):
+            fail(f"train step {i + 1}: non-finite loss {row}")
+        if not (math.isfinite(row["grad_norm"]) and row["grad_norm"] > 0):
+            fail(f"train step {i + 1}: grad_norm {row['grad_norm']}")
+    epochs = [json.loads(line) for line in (workdir / "train.jsonl").read_text().splitlines()]
+    ckpt = out / f"checkpoint_{1 + TRAIN_STEPS}.npz"
+    if len(epochs) != 2 or not ckpt.exists():
+        fail(f"train: {len(epochs)} epoch lines, checkpoint {ckpt.name} exists: {ckpt.exists()}")
+    for i, row in enumerate(steps):
+        print(f"train step {i + 1}: x {row['shape'][0]} y {row['shape'][1]} loss {row['loss']:.4f} "
+              f"(mle {row['mle_loss']:.4f}, dur {row['duration_loss']:.4f}) grad_norm "
+              f"{row['grad_norm']:.4f}, {row['seconds'] * 1e3:.1f} ms [{device_line}]")
+    step_ms = statistics.median(r["seconds"] for r in steps[1:]) * 1e3
+    print(f"train: CLI {seconds:.1f} s (corpus load, DDI, 8 steps, 2 checkpoints); median "
+          f"step after the first {step_ms:.1f} ms; epochs {epochs}; launches {got}")
+    profile = profile_step(last, device_line)
+    return launches, recorders, steps, step_ms, profile, ckpt, out / f"config_{1 + TRAIN_STEPS}.json"
+
+
+def profile_step(last: dict, device_line: str) -> dict:
+    """One more step on the last batch under torch.profiler: wall time,
+    device busy time (the kernels' and copies' self time; one stream, so
+    they add up), idle share, kernel launches, and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def step():
+        last["step_fn"](last["state"], last["batch"], *last["args"])
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    by_kernel, launches = {}, 0
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA":
+            by_kernel[e.key] = e.self_device_time_total / 1e3
+            launches += e.count
+    busy_ms = sum(by_kernel.values())
+    block = sum(v for k, v in by_kernel.items()
+                if any(n in k for n in ("conv_gemm_kernel", "wgrad_kernel", "col_sum_kernel")))
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    row = {
+        "batch_x": list(last["batch"]["x"].shape), "batch_y": list(last["batch"]["y"].shape),
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "idle_share": 1.0 - busy_ms / wall_ms if busy_ms > 0 else None,
+        "device_launches": launches, "gemm_wgrad_colsum_ms": block,
+        "top_ms": {k[:70]: v for k, v in top},
+    }
+    print(f"train profiled step: x {row['batch_x']} y {row['batch_y']} wall {wall_ms:.1f} ms, "
+          f"device busy {busy_ms:.1f} ms, idle share {row['idle_share']}, {launches} device "
+          f"operations, conv_gemm+wgrad+col_sum {block:.1f} ms [{device_line}]")
+    for k, v in top:
+        print(f"  {v:9.3f} ms  {k[:100]}")
+    return row
+
+
+def serve_trained(ckpt: Path, config: Path, n_mel: int) -> None:
+    """One request through the infer CLI from the trained checkpoint."""
+    import numpy as np
+
+    from glow_tts_train_tpu_torch import infer
+
+    out = io.StringIO()
+    old_stdin = sys.stdin
+    sys.stdin = io.StringIO("3 7 12 5 9 14 2 21 30 4 8 11\n")
+    try:
+        with contextlib.redirect_stdout(out):
+            infer.main([str(ckpt), "--config", str(config), "--platform", PLATFORM])
+    finally:
+        sys.stdin = old_stdin
+    mel = np.asarray(json.loads(out.getvalue().splitlines()[0])["mel"], np.float32)
+    if mel.ndim != 2 or mel.shape[0] != n_mel or not np.isfinite(mel).all():
+        fail(f"serving the trained checkpoint: mel shape {mel.shape}")
+    print(f"train: the trained checkpoint {ckpt.name} serves a 12-phoneme request: mel {list(mel.shape)}")
+
+
+def training_kernels(recorders: dict, launches: dict, device_line: str) -> list:
+    """Each training kernel against its plain version on the recorded
+    inputs, and both timed."""
+    import numpy as np
+    import torch
+
+    from glow_tts_train_tpu_torch.ops import block_cuda, mas_cuda, wn_cuda
+
+    report = []
+
+    def entry(name, err, scale, ms, plain_ms, shape, **extra):
+        source, replaces = KERNEL_META[name]
+        report.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "shape": shape, "max_abs_ref": scale, **extra,
+        })
+        print(f"kernel {name}: {shape} err {err:.3e} (max|ref| {scale:.3e}) kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms {extra or ''}[{device_line}]")
+
+    # WN forward (DDI)
+    args, kwargs = recorders["wn_forward"].args
+    with torch.no_grad():
+        err, scale = rel_err("wn_forward", recorders["wn_forward"].fn(*args, **kwargs),
+                             wn_cuda.wn_stack_plain(*args, **kwargs), KERNEL_RTOL)
+        entry("wn_forward", err, scale, time_ms(recorders["wn_forward"].fn, args, kwargs),
+              time_ms(wn_cuda.wn_stack_plain, args, kwargs), list(args[2].shape))
+
+    # block forward-save: z, ld and every saved residual
+    args, kwargs = recorders["block_fwd_save"].args
+    folded, g_all, x, x_mask, *cfg = args
+    with torch.no_grad():
+        z, ld, saves = block_cuda.block_fwd_save(*args, **kwargs)
+        ref_saves: dict = {}
+        z_p, ld_p = block_cuda.block_forward_plain(folded, g_all, x, x_mask, *cfg, saves=ref_saves)
+        errs = [rel_err("block_fwd_save z", z, z_p, KERNEL_RTOL),
+                rel_err("block_fwd_save ld", ld, ld_p, KERNEL_RTOL)]
+        for k in ("zp", "skipm"):
+            errs.append(rel_err(f"block_fwd_save {k}", saves[k], ref_saves[k], KERNEL_RTOL))
+        for k in ("xs", "th", "sg"):
+            errs.append(rel_err(f"block_fwd_save {k}", saves[k], torch.stack(ref_saves[k]), KERNEL_RTOL))
+        err, scale = errs[0]
+        ms = time_ms(block_cuda.block_fwd_save, args, kwargs)
+        plain_ms = time_ms(block_cuda.block_forward_plain, (folded, g_all, x, x_mask, *cfg), {})
+    entry("block_fwd_save", err, scale, ms, plain_ms, list(x.shape),
+          p_dropout=cfg[3], max_abs_err_ld=errs[1][0], max_abs_err_saves=max(e for e, _ in errs[2:]))
+
+    # block backward-store: every gradient against autograd of the plain forward
+    args, kwargs = recorders["block_bwd_store"].args
+    folded, with_g, x, x_mask, saves, dz, dld, *cfg = args
+    # the backward is linear in (dz, dld): scaled to max |dz| = 1, the
+    # gradients are O(1) instead of O(1 / frames) as the mean loss makes them
+    unit = dz.abs().max().clamp_min(1e-30)
+    dz, dld = dz / unit, dld / unit
+    args = (folded, with_g, x, x_mask, saves, dz, dld, *cfg)
+    grads = block_cuda.block_bwd_store(*args, **kwargs)
+    fp = {k: v.detach().clone().requires_grad_(True) for k, v in folded.items()}
+    xp = x.detach().clone().requires_grad_(True)
+    inputs = [xp] + [fp[k] for k in block_cuda.FOLD_KEYS]
+    z_p, ld_p = block_cuda.block_forward_plain(fp, None, xp, x_mask, *cfg)
+    if with_g:
+        fail("block_bwd_store: the base config has no speaker conditioning")
+    loss = (z_p * dz).sum() + (ld_p * dld).sum()
+    ref = torch.autograd.grad(loss, inputs, retain_graph=True)
+    worst = (0.0, 1.0)
+    for n, r in zip(["dx"] + ["d" + k for k in block_cuda.FOLD_KEYS], ref):
+        e, sc = rel_err(f"block_bwd_store {n}", grads[n], r, KERNEL_RTOL)
+        if e / max(sc, 1e-6) > worst[0] / max(worst[1], 1e-6):
+            worst = (e, sc)
+    dx_err, dx_scale = rel_err("block_bwd_store dx", grads["dx"], ref[0], KERNEL_RTOL)
+    ms = time_ms(block_cuda.block_bwd_store, args, kwargs)
+    plain_ms = time_ms(lambda: torch.autograd.grad(loss, inputs, retain_graph=True), (), {})
+    entry("block_bwd_store", dx_err, dx_scale, ms, plain_ms, list(x.shape),
+          worst_rel_err_grad=worst[0] / max(worst[1], 1e-6),
+          max_abs_w_e=folded["W_e"].abs().max().item())
+
+    # MAS, bit for bit: the training shape, then a long one the TPU streams
+    def mas_err(logp, mask, shape_name):
+        path = mas_cuda.maximum_path(logp, mask)
+        plain = mas_cuda.maximum_path_plain(logp, mask)
+        if not torch.equal(path, plain):
+            fail(f"mas: path differs from the plain version at {shape_name}")
+        err, scale = (path - plain).abs().max().item(), plain.abs().max().item()
+        if scale != 1.0:  # a 0/1 path with at least one step
+            fail(f"mas: max |path| {scale} at {shape_name}")
+        return err, scale
+
+    args, kwargs = recorders["mas"].args
+    logp, mask = args
+    err, scale = mas_err(logp, mask, list(logp.shape))
+    ms = time_ms(mas_cuda.maximum_path, args, kwargs)
+    plain_ms = time_ms(mas_cuda.maximum_path_plain, args, kwargs, runs=20)
+    rng = np.random.default_rng(SEED + 3)
+    b, t_x, t_y = MAS_LONG
+    long_logp = torch.from_numpy(rng.standard_normal(MAS_LONG).astype(np.float32) * 3).to(PLATFORM)
+    long_mask = torch.zeros(MAS_LONG, device=PLATFORM)
+    long_mask[0] = 1.0
+    long_mask[1, : t_x - 37, : t_y - 411] = 1.0
+    long_err, long_scale = mas_err(long_logp, long_mask, list(MAS_LONG))
+    long_ms = time_ms(mas_cuda.maximum_path, (long_logp, long_mask), {})
+    long_plain_ms = time_ms(mas_cuda.maximum_path_plain, (long_logp, long_mask), {}, runs=20)
+    entry("mas", err, scale, ms, plain_ms, list(logp.shape), long_shape=list(MAS_LONG),
+          long_err=long_err, long_max_abs_ref=long_scale, long_ms=long_ms,
+          long_plain_ms=long_plain_ms)
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -297,10 +616,10 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        return run(Path(workdir), config_path, device_line)
+        return run(Path(workdir), repo, config_path, device_line)
 
 
-def run(workdir: Path, config_path: Path, device_line: str) -> int:
+def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
     import numpy as np
     import torch
 
@@ -423,7 +742,16 @@ def run(workdir: Path, config_path: Path, device_line: str) -> int:
 
     serve_rows = serving_times(ckpt, config, hp, device_line)
 
+    # ---- main path 2: training through the train CLI ----
+    train_launches, train_recorders, steps, step_ms, train_profile, trained, trained_config = train(
+        workdir, repo, config_path, device_line
+    )
+    serve_trained(trained, trained_config, hp.out_channels)
+    report += training_kernels(train_recorders, train_launches, device_line)
+
     print(json.dumps({"serve": serve_rows}))
+    print(json.dumps({"train": {"steps": steps, "median_step_ms_after_first": step_ms,
+                                "profiled_step": train_profile}}))
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,11 +5,11 @@ Format: one ``.npz`` whose ``model/<path>`` arrays are the param tree's
 leaves (conv weights ``[k, c_in, c_out]``, per-layer/per-block leaves
 stacked on a leading axis) and whose ``__meta__`` entry is UTF-8 JSON
 (``global_step``, ``learning_rate``, ``version``).  Optimizer leaves
-(``opt/...``) are ignored: this package serves.
+(``opt/...``) are neither read nor written: the JAX package guards them
+with a jax treedef string, so a checkpoint of the port holds params only,
+and both trainers start Adam fresh from it.
 
 Loading is strict: a missing, extra or mis-shaped ``model/`` key raises.
-(The JAX loader's tolerant merge with a fresh init comes with the
-trainer.)
 """
 
 import io
@@ -186,3 +186,24 @@ def load_checkpoint(path: Path, hp: GlowTTSHyper) -> typing.Tuple[GlowTTS, dict]
         raise ValueError(f"{path}: only .npz checkpoints load in this package")
     flat, meta = read_npz(path)
     return params_from_numpy(flat, hp), meta
+
+
+def save_checkpoint(
+    params: typing.Mapping[str, torch.Tensor],
+    path: Path,
+    global_step: int,
+    learning_rate: float,
+    version: int = 1,
+) -> None:
+    """Write ``{"a/b/c": tensor}`` params as a JAX ``.npz`` checkpoint
+    (``model/<path>`` f32 arrays and the ``__meta__`` JSON), readable by
+    the JAX ``load_checkpoint`` and both infer CLIs."""
+    flat = {
+        PREFIX + k: v.detach().to("cpu", torch.float32).numpy() for k, v in params.items()
+    }
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    save_npz(
+        path, flat,
+        {"global_step": int(global_step), "learning_rate": float(learning_rate),
+         "version": int(version)},
+    )

@@ -49,31 +49,10 @@ extern "C" int gtt_block_inverse(
     g.out = xcur; g.ldo = h; g.mask = mask;
     if ((err = conv_gemm(g, stream)) != cudaSuccess) return (int)err;
   }
-  int dilation = 1;
-  for (int l = 0; l < n_layers; ++l) {
-    {  // acts = tanh(u + g_u) * sigmoid(v + g_v), [u | v] = conv(xcur) + b_in
-      ConvGemm g;
-      g.a = xcur; g.lda = h; g.c_in = h; g.taps = taps; g.dilation = dilation;
-      g.batch = batch; g.t = t;
-      g.w = w_in + (long)l * taps * h * 2 * h; g.bias = b_in + l * 2 * h;
-      g.n = 2 * h; g.split = h; g.epilogue = kGate; g.out = acts; g.ldo = h;
-      if (g_all) {
-        g.aux = g_all + l * 2 * h;
-        g.ld_aux = g_stride;
-      }
-      if ((err = conv_gemm(g, stream)) != cudaSuccess) return (int)err;
-    }
-    {  // xcur = (xcur + rs[:, :h]) * mask; skip += rs[:, h:]
-      ConvGemm g;
-      g.a = acts; g.lda = h; g.c_in = h; g.batch = batch; g.t = t;
-      g.w = w_rs + (long)l * h * 2 * h; g.bias = b_rs + l * 2 * h;
-      g.n = 2 * h; g.split = h; g.epilogue = kResSkip;
-      g.out = xcur; g.ldo = h; g.mask = mask; g.out2 = skip; g.ldo2 = h;
-      g.flag = l < n_layers - 1;  // the last layer's residual half is zero
-      if ((err = conv_gemm(g, stream)) != cudaSuccess) return (int)err;
-    }
-    dilation *= dilation_rate;
-  }
+  if ((err = wn_layers(xcur, acts, skip, mask, w_in, b_in, w_rs, b_rs, g_all,
+                       g_stride, batch, t, h, n_layers, taps, dilation_rate,
+                       stream)) != cudaSuccess)
+    return (int)err;
   {  // z1 = (x1 - m) * exp(-logs) * mask, written over zbuf[:, c2:]
     ConvGemm g;
     g.a = skip; g.lda = h; g.c_in = h; g.a_mask = mask; g.batch = batch; g.t = t;

@@ -1,4 +1,4 @@
-// conv_gemm and layer_norm (see common.cuh).
+// conv_gemm, wgrad, col_sum and layer_norm (see common.cuh).
 //
 // conv_gemm is a shared-memory SGEMM: a 64x64 output tile per block of 256
 // threads, a 4x4 accumulator per thread, 32-deep K slices double-buffered
@@ -16,6 +16,8 @@
 
 #include <math.h>
 
+#include <algorithm>
+
 namespace gtt {
 namespace {
 
@@ -29,12 +31,44 @@ __device__ __forceinline__ float sigmoidf(float x) {
 }
 
 __device__ __forceinline__ bool paired(int epilogue) {
-  return epilogue == kGate || epilogue == kCouplingInv;
+  return epilogue == kGate || epilogue == kCouplingInv ||
+         epilogue == kGateSave || epilogue == kCouplingFwd;
 }
 
 // Logical output column -> column of B / bias.
 __device__ __forceinline__ int physical_col(const ConvGemm& g, int n) {
   return paired(g.epilogue) ? (n >> 1) + (n & 1) * g.split : n;
+}
+
+__device__ __forceinline__ float bias_at(const ConvGemm& g, int n) {
+  return g.bias ? g.bias[n] : 0.f;
+}
+
+// The portable counter hash of wn_pallas.py _portable_bits (uint32 wrap).
+__device__ __forceinline__ unsigned portable_bits(unsigned seed, unsigned idx) {
+  unsigned x = idx ^ (seed * 2654435761u);
+  x = (x ^ (x >> 13)) * 0x9E3779B1u;
+  x = (x ^ (x >> 15)) * 0x85EBCA6Bu;
+  return x ^ (x >> 16);
+}
+
+// Keep bit of row m, JAX column col of the [t, 2 * split] pre-gate tensor.
+__device__ __forceinline__ bool keep_bit(const ConvGemm& g, int m, int col) {
+  const int b = m / g.t;
+  const unsigned seed =
+      ((g.seed + (unsigned)b) * (unsigned)g.n_layers) + (unsigned)g.layer;
+  const unsigned idx = (unsigned)(m - b * g.t) * (unsigned)(2 * g.split) + col;
+  return portable_bits(seed, idx) >= g.threshold;
+}
+
+// JAX: xin * keepf * scale
+__device__ __forceinline__ float dropped(const ConvGemm& g, int m, int col, float v) {
+  if (!g.drop) return v;
+  return keep_bit(g, m, col) ? v * g.scale : 0.f;
+}
+
+__device__ __forceinline__ float coupling_logs(const ConvGemm& g, float raw) {
+  return g.flag ? logf(1e-6f + sigmoidf(raw + 2.f)) : raw;
 }
 
 __device__ __forceinline__ void epilogue_row(const ConvGemm& g, int m, int n0,
@@ -43,26 +77,39 @@ __device__ __forceinline__ void epilogue_row(const ConvGemm& g, int m, int n0,
   float* out = g.out + (long)m * g.ldo;
   switch (g.epilogue) {
     case kGate:
-    case kCouplingInv: {
+    case kGateSave:
+    case kCouplingInv:
+    case kCouplingFwd: {
       // acc[2p], acc[2p + 1] are the pair (j, j + split), j = (n0 + 2p) / 2
       for (int p = 0; p < 2; ++p) {
         const int n = n0 + 2 * p;
         if (n >= g.n) break;
         const int j = n >> 1;
-        const float lo = acc[2 * p] + g.bias[j];
-        const float hi = acc[2 * p + 1] + g.bias[j + g.split];
-        if (g.epilogue == kGate) {
-          float gu = 0.f, gv = 0.f;
+        float lo = acc[2 * p] + bias_at(g, j);
+        float hi = acc[2 * p + 1] + bias_at(g, j + g.split);
+        if (g.epilogue == kGate || g.epilogue == kGateSave) {
+          if (g.epilogue == kGateSave) {
+            lo = dropped(g, m, j, lo);
+            hi = dropped(g, m, j + g.split, hi);
+          }
           if (g.aux) {
             const float* gb = g.aux + (long)(m / g.t) * g.ld_aux;
-            gu = gb[j];
-            gv = gb[j + g.split];
+            lo += gb[j];
+            hi += gb[j + g.split];
           }
-          out[j] = tanhf(lo + gu) * sigmoidf(hi + gv);
-        } else {
-          const float logs =
-              g.flag ? logf(1e-6f + sigmoidf(hi + 2.f)) : hi;
-          out[j] = (out[j] - lo) * expf(-logs) * rm;
+          const float th = tanhf(lo);
+          const float sg = sigmoidf(hi);
+          out[j] = th * sg;
+          if (g.epilogue == kGateSave) {
+            g.out2[(long)m * g.ldo2 + j] = th;
+            g.out3[(long)m * g.ldo3 + j] = sg;
+          }
+        } else if (g.epilogue == kCouplingInv) {
+          out[j] = (out[j] - lo) * expf(-coupling_logs(g, hi)) * rm;
+        } else {  // kCouplingFwd: out holds x1
+          const float logs = coupling_logs(g, hi);
+          out[j] = (lo + expf(logs) * out[j]) * rm;
+          g.out2[(long)m * g.ldo2 + j] = logs * rm;
         }
       }
       break;
@@ -71,12 +118,69 @@ __device__ __forceinline__ void epilogue_row(const ConvGemm& g, int m, int n0,
       for (int e = 0; e < 4; ++e) {
         const int n = n0 + e;
         if (n >= g.n) break;
-        const float v = acc[e] + g.bias[n];
+        const float v = acc[e] + bias_at(g, n);
         if (n < g.split) {
-          if (g.flag) out[n] = (out[n] + v) * rm;
+          if (g.flag) {
+            const float base = g.aux ? g.aux[(long)m * g.ld_aux + n] : out[n];
+            out[n] = (base + v) * rm;
+          }
         } else {
-          g.out2[(long)m * g.ldo2 + n - g.split] += v;
+          float* s = g.out2 + (long)m * g.ldo2 + n - g.split;
+          *s = g.skip_mask ? (*s + v) * rm : *s + v;
         }
+      }
+      break;
+    }
+    case kCouplingBwd: {
+      // acc = logs_raw of column split + j (B and bias start there);
+      // aux = dz, aux2 = zp (x1), aux3 = dld [batch]; out = dout, out2 = dzp
+      const float dld = g.aux3[m / g.t];
+      for (int e = 0; e < 4; ++e) {
+        const int j = n0 + e;
+        if (j >= g.n) break;
+        const float raw = acc[e] + bias_at(g, j);
+        const float logs = coupling_logs(g, raw);
+        const float el = expf(logs);
+        const long at = (long)m * g.ld_aux + g.split + j;
+        const float dz1m = g.aux[at] * rm;
+        float dlogs = dz1m * el * g.aux2[at] + dld * rm;
+        if (g.flag) {
+          const float s = sigmoidf(raw + 2.f);
+          dlogs = dlogs * (s * (1.f - s)) / (1e-6f + s);
+        }
+        out[j] = dz1m;
+        out[g.split + j] = dlogs;
+        g.out2[(long)m * g.ldo2 + g.split + j] = dz1m * el * rm;
+      }
+      break;
+    }
+    case kGateBwd: {
+      // acc = da; aux = tanh, aux2 = sigmoid [rows, ld_aux]; out = d_in_act
+      // and out2 = d_xin [rows, 2 * split], out3 = acts
+      for (int e = 0; e < 4; ++e) {
+        const int j = n0 + e;
+        if (j >= g.n) break;
+        const float da = acc[e];
+        const float th = g.aux[(long)m * g.ld_aux + j];
+        const float sg = g.aux2[(long)m * g.ld_aux + j];
+        const float du = da * sg * (1.f - th * th);
+        const float dv = da * th * sg * (1.f - sg);
+        out[j] = du;
+        out[g.split + j] = dv;
+        float* dx = g.out2 + (long)m * g.ldo2;
+        dx[j] = dropped(g, m, j, du);
+        dx[g.split + j] = dropped(g, m, g.split + j, dv);
+        g.out3[(long)m * g.ldo3 + j] = th * sg;
+      }
+      break;
+    }
+    case kAccumMask: {
+      for (int e = 0; e < 4; ++e) {
+        const int n = n0 + e;
+        if (n >= g.n) break;
+        const float v = out[n] * rm + acc[e];
+        out[n] = v;
+        if (g.out2) g.out2[(long)m * g.ldo2 + n] = v * rm;
       }
       break;
     }
@@ -84,7 +188,7 @@ __device__ __forceinline__ void epilogue_row(const ConvGemm& g, int m, int n0,
       for (int e = 0; e < 4; ++e) {
         const int n = n0 + e;
         if (n >= g.n) break;
-        float v = acc[e] + g.bias[n];
+        float v = acc[e] + bias_at(g, n);
         if (g.epilogue == kBiasRelu) v = fmaxf(v, 0.f);
         if (g.epilogue == kResidMask) v = (g.aux[(long)m * g.ld_aux + n] + v) * rm;
         if (g.epilogue == kBiasMask) v *= rm;
@@ -132,6 +236,7 @@ __global__ void __launch_bounds__(kBM * 4) conv_gemm_kernel(const ConvGemm g) {
   const int b_k0 = tid / kBN;
   const bool b_ok = n0 + b_nn < g.n;
   const int b_col = b_ok ? physical_col(g, n0 + b_nn) : 0;
+  const int ldb = g.ldb ? g.ldb : g.n;
 
   float ra[kALoads];
   float rb[kBLoads];
@@ -140,7 +245,7 @@ __global__ void __launch_bounds__(kBM * 4) conv_gemm_kernel(const ConvGemm g) {
     const bool k_ok = kidx < kdim;
     const int tap = k_ok ? kidx / g.c_in : 0;
     const int c = kidx - tap * g.c_in;
-    const int off = (tap - half_taps) * g.dilation;
+    const int off = g.tap_sign * (tap - half_taps) * g.dilation;
 #pragma unroll
     for (int i = 0; i < kALoads; ++i) {
       const int ts = a_t[i] + off;
@@ -155,7 +260,7 @@ __global__ void __launch_bounds__(kBM * 4) conv_gemm_kernel(const ConvGemm g) {
 #pragma unroll
     for (int i = 0; i < kBLoads; ++i) {
       const int kid = k0 + b_k0 + kBRowStep * i;
-      rb[i] = (b_ok && kid < kdim) ? g.w[(long)kid * g.n + b_col] : 0.f;
+      rb[i] = (b_ok && kid < kdim) ? g.w[(long)kid * ldb + b_col] : 0.f;
     }
   };
   auto store = [&](int buf) {
@@ -211,6 +316,120 @@ __global__ void __launch_bounds__(kBM * 4) conv_gemm_kernel(const ConvGemm g) {
   }
 }
 
+// Weight gradient: a 64 (kk) x 64 (n) output tile per block of 256
+// threads, 4 x 4 per thread, reducing over this block's split of the rows
+// in slices of 32 staged through shared memory.
+constexpr int kWK = 64;
+constexpr int kWN = 64;
+constexpr int kWM = 32;
+
+__global__ void __launch_bounds__(256) wgrad_kernel(const WGrad w, int rows_per_split,
+                                                    float* dst) {
+  __shared__ __align__(16) float as[kWM][kWK + 4];
+  __shared__ __align__(16) float bs[kWM][kWN];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int n0 = blockIdx.x * kWN;
+  const int k0 = blockIdx.y * kWK;
+  const int rows = w.batch * w.t;
+  const int kdim = w.taps * w.c_in;
+  const int m_begin = blockIdx.z * rows_per_split;
+  const int m_end = min(rows, m_begin + rows_per_split);
+  const int half_taps = w.taps / 2;
+  // staging: column tid % 64 of rows tid / 64 + 4 * i
+  const int s_col = tid % 64;
+  const int s_row = tid / 64;
+  const int kk = k0 + s_col;
+  const bool k_ok = kk < kdim;
+  const int tap = k_ok ? kk / w.c_in : 0;
+  const int c = kk - tap * w.c_in;
+  const int off = (tap - half_taps) * w.dilation;
+  const bool n_ok = n0 + s_col < w.n;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int m0 = m_begin; m0 < m_end; m0 += kWM) {
+#pragma unroll
+    for (int i = 0; i < kWM / 4; ++i) {
+      const int r = s_row + 4 * i;
+      const int m = m0 + r;
+      float va = 0.f, vb = 0.f;
+      if (m < m_end) {
+        const int b = m / w.t;
+        const int ts = m - b * w.t + off;
+        if (k_ok && ts >= 0 && ts < w.t) {
+          const long src = (long)b * w.t + ts;
+          va = w.a[src * w.lda + c];
+          if (w.a_mask) va *= w.a_mask[src];
+        }
+        if (n_ok) {
+          vb = w.dy[(long)m * w.ldy + n0 + s_col];
+          if (w.dy_mask) vb *= w.dy_mask[m];
+        }
+      }
+      as[r][s_col] = va;
+      bs[r][s_col] = vb;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int mm = 0; mm < kWM; ++mm) {
+      const float4 a4 = *reinterpret_cast<const float4*>(&as[mm][ty * 4]);
+      const float4 b4 = *reinterpret_cast<const float4*>(&bs[mm][tx * 4]);
+      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[i][0] = fmaf(a[i], b4.x, acc[i][0]);
+        acc[i][1] = fmaf(a[i], b4.y, acc[i][1]);
+        acc[i][2] = fmaf(a[i], b4.z, acc[i][2]);
+        acc[i][3] = fmaf(a[i], b4.w, acc[i][3]);
+      }
+    }
+    __syncthreads();
+  }
+  float* out = dst + (long)blockIdx.z * kdim * w.n;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = k0 + ty * 4 + i;
+    if (k >= kdim) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n < w.n) out[(long)k * w.n + n] = acc[i][j];
+    }
+  }
+}
+
+// One column per threadIdx.x, 8 row groups per column, summed in a fixed
+// order through shared memory.
+__global__ void col_sum_kernel(const float* x, int ld, int n, const float* mask,
+                               int T, float* out, int ldo) {
+  __shared__ float part[8][33];
+  const int j = blockIdx.x * 32 + threadIdx.x;
+  const int s = blockIdx.y;
+  float v = 0.f;
+  if (j < n) {
+    for (int r = threadIdx.y; r < T; r += 8) {
+      const long row = (long)s * T + r;
+      float e = x[row * ld + j];
+      if (mask) e *= mask[row];
+      v += e;
+    }
+  }
+  part[threadIdx.y][threadIdx.x] = v;
+  __syncthreads();
+  if (threadIdx.y == 0 && j < n) {
+    float total = 0.f;
+#pragma unroll
+    for (int y = 0; y < 8; ++y) total += part[y][threadIdx.x];
+    out[(long)s * ldo + j] = total;
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -262,6 +481,88 @@ cudaError_t conv_gemm(const ConvGemm& g, cudaStream_t stream) {
     conv_gemm_kernel<32><<<dim3(n_tiles, (rows + 31) / 32), 128, 0, stream>>>(g);
   }
   return cudaGetLastError();
+}
+
+cudaError_t col_sum(const float* x, int ld, int n, const float* mask, int n_seg,
+                    int T, float* out, int ldo, cudaStream_t stream) {
+  if (n <= 0 || n_seg <= 0) return cudaSuccess;
+  col_sum_kernel<<<dim3((n + 31) / 32, n_seg), dim3(32, 8), 0, stream>>>(
+      x, ld, n, mask, T, out, ldo);
+  return cudaGetLastError();
+}
+
+cudaError_t bias_grad(const float* x, int ld, int n, const float* mask,
+                      int batch, int t, float* part, float* out,
+                      cudaStream_t stream) {
+  cudaError_t err = col_sum(x, ld, n, mask, batch, t, part, n, stream);
+  if (err != cudaSuccess) return err;
+  return col_sum(part, n, n, nullptr, 1, batch, out, n, stream);
+}
+
+cudaError_t wgrad(const WGrad& w, cudaStream_t stream) {
+  const int rows = w.batch * w.t;
+  const int kdim = w.taps * w.c_in;
+  if (kdim <= 0 || w.n <= 0) return cudaSuccess;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int tiles = ((w.n + kWN - 1) / kWN) * ((kdim + kWK - 1) / kWK);
+  const long per_split = (long)kdim * w.n;
+  // about four waves of blocks, at least 64 rows a split, within scratch
+  long splits = (4 * sms + tiles - 1) / tiles;
+  splits = std::min(splits, std::max(1L, (rows + 63L) / 64));
+  splits = std::min(splits, std::max(1L, w.scratch_floats / per_split));
+  if (w.scratch == nullptr) splits = 1;
+  int rows_per_split = (int)((rows + splits - 1) / splits);
+  rows_per_split = ((rows_per_split + kWM - 1) / kWM) * kWM;
+  splits = std::max(1, (rows + rows_per_split - 1) / rows_per_split);
+  const dim3 grid((w.n + kWN - 1) / kWN, (kdim + kWK - 1) / kWK, (unsigned)splits);
+  if (splits == 1) {
+    wgrad_kernel<<<grid, 256, 0, stream>>>(w, rows_per_split, w.out);
+    return cudaGetLastError();
+  }
+  wgrad_kernel<<<grid, 256, 0, stream>>>(w, rows_per_split, w.scratch);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // the splits' partial sums, added in split order
+  return col_sum(w.scratch, (int)per_split, (int)per_split, nullptr, 1, (int)splits,
+                 w.out, (int)per_split, stream);
+}
+
+cudaError_t wn_layers(float* xcur, float* acts, float* skip, const float* mask,
+                      const float* w_in, const float* b_in, const float* w_rs,
+                      const float* b_rs, const float* g_all, int g_stride,
+                      int batch, int t, int h, int n_layers, int taps,
+                      int dilation_rate, cudaStream_t stream) {
+  int dilation = 1;
+  for (int l = 0; l < n_layers; ++l) {
+    {  // acts = tanh(u + g_u) * sigmoid(v + g_v), [u | v] = conv(xcur) + b_in
+      ConvGemm g;
+      g.a = xcur; g.lda = h; g.c_in = h; g.taps = taps; g.dilation = dilation;
+      g.batch = batch; g.t = t;
+      g.w = w_in + (long)l * taps * h * 2 * h; g.bias = b_in + l * 2 * h;
+      g.n = 2 * h; g.split = h; g.epilogue = kGate; g.out = acts; g.ldo = h;
+      if (g_all) {
+        g.aux = g_all + l * 2 * h;
+        g.ld_aux = g_stride;
+      }
+      cudaError_t err = conv_gemm(g, stream);
+      if (err != cudaSuccess) return err;
+    }
+    {  // xcur = (xcur + rs[:, :h]) * mask; skip += rs[:, h:]
+      ConvGemm g;
+      g.a = acts; g.lda = h; g.c_in = h; g.batch = batch; g.t = t;
+      g.w = w_rs + (long)l * h * 2 * h; g.bias = b_rs + l * 2 * h;
+      g.n = 2 * h; g.split = h; g.epilogue = kResSkip;
+      g.out = xcur; g.ldo = h; g.mask = mask; g.out2 = skip; g.ldo2 = h;
+      g.flag = l < n_layers - 1;  // the last layer's residual half is zero
+      cudaError_t err = conv_gemm(g, stream);
+      if (err != cudaSuccess) return err;
+    }
+    dilation *= dilation_rate;
+  }
+  return cudaSuccess;
 }
 
 cudaError_t layer_norm(const LayerNorm& a, cudaStream_t stream) {

@@ -1,16 +1,31 @@
-// Shared device building blocks of the serving kernels (f32 throughout).
+// Shared device building blocks of the kernels (f32 throughout).
 //
-// Every TPU kernel of the serving path (prenet, encoder layer, duration
-// predictor, inverse flow block) is a chain of the same two pieces here plus,
-// for the encoder, the attention core in encoder.cu:
+// Every ported TPU kernel (prenet, encoder layer, duration predictor, the
+// flow block in both directions, the WN stack) is a chain of the pieces here
+// plus, for the encoder, the attention core in encoder.cu:
 //
 //  * conv_gemm: a tiled f32 GEMM whose A operand is an im2col view gathered
-//    on load (tap offsets dilation*(k - K/2), zeros outside [0, t), optional
-//    input mask), with the elementwise tail of each TPU kernel fused into its
-//    epilogue (bias, ReLU, mask, residual, WaveNet gate, residual/skip split,
-//    inverse affine coupling).
+//    on load (tap offsets tap_sign*dilation*(k - K/2), zeros outside [0, t),
+//    optional input mask), with the elementwise tail of each TPU kernel fused
+//    into its epilogue (bias, ReLU, mask, residual, WaveNet gate with
+//    dropout, residual/skip split, affine coupling both ways, and the
+//    backward tails of the gate and the coupling).  With tap_sign -1 and
+//    per-tap transposed weights it is the input gradient of a dilated conv.
+//  * wgrad: the weight gradient im2col(A)^T dY of a conv or 1x1, a
+//    reduction over all batch * t rows, split over rows into partial sums
+//    that a second pass adds in a fixed order (no float atomics, so the
+//    gradients are the same bits from run to run).
+//  * col_sum: deterministic per-segment column sums (bias gradients, the
+//    per-sample conditioning gradient, the coupling logdet).
+//  * wn_layers: the WN stack's 2 conv_gemm launches per layer (gate, then
+//    res/skip), shared by the inverse block and the WN forward.
 //  * layer_norm: one warp per row over the channel axis (eps 1e-4, biased
 //    variance), with an optional masked residual sum and ReLU before or after.
+//
+// Dropout keep masks are the JAX kernels' portable counter hash
+// (wn_pallas.py _portable_bits): keep = hash(seed_l, row * 2h + col) >=
+// threshold, seed_l = (seed + sample) * n_layers + layer in 32-bit
+// wrap-around, col the JAX column of the [t, 2h] pre-gate tensor (u | v).
 //
 // Activations are channels-last [batch * t, channels] row-major; weights are
 // the JAX folds' [taps * c_in, n] row-major matrices, so no weight is
@@ -29,6 +44,12 @@ enum Epilogue : int {
   kGate = 4,         // out[:, j] = tanh(u_j + b + g) * sigmoid(v_j + b + g)
   kResSkip = 5,      // out[:, :split] = (out + acc + b) * mask; out2 += acc + b
   kCouplingInv = 6,  // out[:, j] = (out[:, j] - m_j) * exp(-logs_j) * mask
+  kGateSave = 7,     // kGate after dropout; out = acts, out2 = tanh, out3 = sigmoid
+  kCouplingFwd = 8,  // out[:, j] = (m_j + exp(logs_j) * out[:, j]) * mask;
+                     // out2[:, j] = logs_j * mask
+  kCouplingBwd = 9,  // from logs_raw: out = [dm | dlogs], out2[:, split + j] = dx1
+  kGateBwd = 10,     // from da: out = d_in_act, out2 = d_xin (dropped), out3 = acts
+  kAccumMask = 11,   // out = out * mask + acc; out2 = that * mask
 };
 
 struct ConvGemm {
@@ -43,8 +64,10 @@ struct ConvGemm {
   int dilation = 1;
   int batch = 0;
   int t = 0;
-  // B: [taps * c_in, n] row-major, bias [n].
+  int tap_sign = 1;  // -1: taps at the negated offsets (transposed conv)
+  // B: [taps * c_in, n] with row stride ldb (0: n), bias [n] or null (0).
   const float* w = nullptr;
+  int ldb = 0;
   const float* bias = nullptr;
   int n = 0;
   // kGate / kCouplingInv read output pairs (j, j + split) of B side by side
@@ -61,11 +84,70 @@ struct ConvGemm {
   int ld_aux = 0;
   float* out2 = nullptr;  // kResSkip skip accumulator [batch * t, ldo2]
   int ldo2 = 0;
-  // kResSkip: update the residual half; kCouplingInv: sigmoid_scale.
+  // kResSkip: update the residual half; kCoupling*: sigmoid_scale.
   int flag = 0;
+  // kResSkip: multiply the skip sum by the mask after this layer's add
+  int skip_mask = 0;
+  // further operands of the training epilogues (see block_train.cu)
+  const float* aux2 = nullptr;
+  const float* aux3 = nullptr;
+  float* out3 = nullptr;
+  int ldo3 = 0;
+  // dropout of kGateSave / kGateBwd (keep mask replayed from the seed)
+  int drop = 0;
+  unsigned seed = 0;
+  int layer = 0;
+  int n_layers = 1;
+  unsigned threshold = 0;
+  float scale = 1.f;
 };
 
 cudaError_t conv_gemm(const ConvGemm& g, cudaStream_t stream);
+
+struct WGrad {
+  // out[kk, n] = sum over rows m of A_im2col[m, kk] * dY[m, n], A gathered
+  // as conv_gemm gathers it (kk = tap * c_in + c), optional row masks.
+  const float* a = nullptr;
+  int lda = 0;
+  int c_in = 0;
+  const float* a_mask = nullptr;
+  int taps = 1;
+  int dilation = 1;
+  int batch = 0;
+  int t = 0;
+  const float* dy = nullptr;
+  int ldy = 0;
+  int n = 0;
+  const float* dy_mask = nullptr;
+  float* out = nullptr;      // [taps * c_in, n]
+  float* scratch = nullptr;  // partial sums of the row splits
+  long scratch_floats = 0;
+};
+
+cudaError_t wgrad(const WGrad& w, cudaStream_t stream);
+
+// out[s * ldo + j] = sum_{r < T} x[(s * T + r) * ld + j] * mask[s * T + r]
+// (mask optional), for segments s < n_seg and columns j < n; fixed order.
+cudaError_t col_sum(const float* x, int ld, int n, const float* mask, int n_seg,
+                    int T, float* out, int ldo, cudaStream_t stream);
+
+// Column sums over all batch * t rows (a bias gradient), through the
+// per-sample partial sums part [batch, n].
+cudaError_t bias_grad(const float* x, int ld, int n, const float* mask,
+                      int batch, int t, float* part, float* out,
+                      cudaStream_t stream);
+
+// The WN stack's layers without dropout or saves (the inverse block and the
+// WN forward): per layer the dilated in-conv with the gate (+ g_all, row b
+// at g_all + b * g_stride, layer l at column l * 2h, or null), then the 1x1
+// res/skip, xcur = (xcur + res) * mask and skip += its skip half.  xcur
+// [batch * t, h] holds the input and is overwritten; skip must start at 0;
+// acts is [batch * t, h] scratch.
+cudaError_t wn_layers(float* xcur, float* acts, float* skip, const float* mask,
+                      const float* w_in, const float* b_in, const float* w_rs,
+                      const float* b_rs, const float* g_all, int g_stride,
+                      int batch, int t, int h, int n_layers, int taps,
+                      int dilation_rate, cudaStream_t stream);
 
 struct LayerNorm {
   // out = LN(relu_before? (x * x_mask + resid)) [relu_after], per row

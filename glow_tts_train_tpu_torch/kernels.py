@@ -35,10 +35,10 @@ else:
     ) / "glow_tts_train_tpu_torch"
 _ARCH = "arch=compute_90a,code=sm_90a"
 # sources in link order; every .cu and .cuh under csrc/ feeds the hash
-_SOURCES = ("common.cu", "text.cu", "encoder.cu", "block.cu")
+_SOURCES = ("common.cu", "text.cu", "encoder.cu", "block.cu", "block_train.cu", "mas.cu")
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
+# argument kinds of the C signatures: pointer, int, unsigned int, float
+_KINDS = {"p": ctypes.c_void_p, "i": ctypes.c_int, "u": ctypes.c_uint, "f": ctypes.c_float}
 
 _lib: typing.Optional[ctypes.CDLL] = None
 
@@ -130,13 +130,15 @@ class Entry:
 
     ``launches`` goes up by one each time the entry point runs its kernels
     without a launch error, and nowhere else.  Arguments are tensors
-    (passed as device pointers; ``None`` as a null pointer) and Python ints
-    in the C signature's order; the stream is the current CUDA stream."""
+    (passed as device pointers; ``None`` as a null pointer) and Python
+    numbers in the C signature's order; the stream is the current CUDA
+    stream.  ``signature`` spells the C arguments before the stream, one
+    letter each: ``p`` pointer, ``i`` int, ``u`` unsigned int, ``f``
+    float."""
 
-    def __init__(self, symbol: str, n_pointers: int, n_ints: int):
+    def __init__(self, symbol: str, signature: str):
         self.symbol = symbol
-        # pointers, then ints, then the stream
-        self.argtypes = [_P] * n_pointers + [_I] * n_ints + [_P]
+        self.argtypes = [_KINDS[k] for k in signature] + [ctypes.c_void_p]
         self.launches = 0
         self._fn = None
 
@@ -158,17 +160,25 @@ class Entry:
         self.launches += 1
 
 
-# C signatures: pointer arguments first, then ints (csrc/*.cu)
-PRENET = Entry("gtt_prenet", n_pointers=11, n_ints=5)
-DURATION_STACK = Entry("gtt_duration_stack", n_pointers=12, n_ints=5)
-ENCODER_LAYER = Entry("gtt_encoder_layer", n_pointers=25, n_ints=7)
-BLOCK_INVERSE = Entry("gtt_block_inverse", n_pointers=18, n_ints=9)
+# C signatures (csrc/*.cu): pointer arguments first, then numbers
+PRENET = Entry("gtt_prenet", "p" * 11 + "i" * 5)
+DURATION_STACK = Entry("gtt_duration_stack", "p" * 12 + "i" * 5)
+ENCODER_LAYER = Entry("gtt_encoder_layer", "p" * 25 + "i" * 7)
+BLOCK_INVERSE = Entry("gtt_block_inverse", "p" * 18 + "i" * 9)
+WN_FORWARD = Entry("gtt_wn_forward", "p" * 10 + "i" * 7)
+BLOCK_FWD_SAVE = Entry("gtt_block_fwd_save", "p" * 23 + "i" * 11 + "uf")
+BLOCK_BWD_STORE = Entry("gtt_block_bwd_store", "p" * 37 + "i" * 12 + "uf")
+MAS = Entry("gtt_mas", "p" * 4 + "i" * 3)
 
 ENTRIES = {
     "prenet": PRENET,
     "encoder_layer": ENCODER_LAYER,
     "duration_stack": DURATION_STACK,
     "block_inverse": BLOCK_INVERSE,
+    "wn_forward": WN_FORWARD,
+    "block_fwd_save": BLOCK_FWD_SAVE,
+    "block_bwd_store": BLOCK_BWD_STORE,
+    "mas": MAS,
 }
 
 

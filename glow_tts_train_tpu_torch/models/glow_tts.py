@@ -1,5 +1,5 @@
-"""Glow-TTS generation graph (glow_tts_train_tpu models/glow_tts.py):
-text encoder + duration predictor + inverse flow decoder.
+"""Glow-TTS graph (glow_tts_train_tpu models/glow_tts.py): text encoder,
+duration predictor and flow decoder, for generation and for training.
 
 :class:`GlowTTS` holds one parameter per leaf of the JAX param tree,
 named by its path (``encoder.attn.q.w`` is the JAX ``encoder/attn/q/w``,
@@ -7,12 +7,17 @@ stacked ``[n_layers, ...]``/``[n_blocks, ...]`` as there).
 :func:`store_inverse` folds everything the serving path needs once, at
 load — the flow blocks' inverses and weight norms included — into
 :class:`ServingWeights`; :func:`forward_gen` runs on those.
+:func:`forward_train` is the training graph on the raw param tree:
+the encoder op by op (``encoder_fuse: false``), the flow decoder through
+the training block kernel, the f32 pairwise log-likelihood, MAS, and the
+expansion of the text statistics to frames.
 
 Device rule, in place of the JAX package's TPU resolvers: each kernel
 wrapper (``ops/*_cuda.py``) launches its CUDA kernel for CUDA tensors and
 runs its plain PyTorch version for CPU tensors.  Encoder configurations
 the kernel does not take (``window_size=None`` or ``block_length`` set)
-run op by op on the CPU and raise on CUDA.
+run op by op on the CPU and raise on CUDA; so does training with
+``encoder_fuse`` true, whose backward kernels are not ported yet.
 """
 
 import dataclasses
@@ -22,10 +27,10 @@ import typing
 import torch
 from torch import nn
 
-from ..ops import attention, encoder_cuda, flows, text_cuda
+from ..ops import attention, encoder_cuda, flows, mas_cuda, text_cuda
 from ..ops.conv import conv1d
 from ..ops.masks import generate_path, time_mask
-from ..tree import tree_index, tree_map
+from ..tree import tree_index, tree_map, unflatten
 
 Params = typing.Dict[str, typing.Any]
 
@@ -41,10 +46,12 @@ class GlowTTSHyper(typing.NamedTuple):
     kernel_size: int = 3
     n_heads: int = 2
     n_layers_enc: int = 6
+    p_dropout: float = 0.0
     n_blocks_dec: int = 12
     kernel_size_dec: int = 5
     dilation_rate: int = 1
     n_block_layers: int = 4
+    p_dropout_dec: float = 0.05
     n_speakers: int = 0
     gin_channels: int = 0
     n_split: int = 4
@@ -56,6 +63,9 @@ class GlowTTSHyper(typing.NamedTuple):
     hidden_channels_enc: typing.Optional[int] = None
     hidden_channels_dec: typing.Optional[int] = None
     prenet: bool = False
+    # training encoder: the fused text kernels (True; their backward
+    # kernels are not ported yet) or op by op (False)
+    encoder_fuse: bool = False
 
     @property
     def h_enc(self) -> int:
@@ -73,8 +83,13 @@ class GlowTTSHyper(typing.NamedTuple):
 
 
 def hyper_from_config(config) -> GlowTTSHyper:
-    """TrainingConfig -> GlowTTSHyper."""
+    """TrainingConfig -> GlowTTSHyper.  ``encoder_fuse`` "auto" resolves to
+    whether the encoder kernel takes the configuration; an explicit bool
+    wins (JAX ``_resolve_encoder_fuse``, with the CUDA kernels in place of
+    the TPU backend)."""
     m = config.model
+    encoder_fuse = getattr(config, "encoder_fuse", "auto")
+    kernel_fits = m.window_size is not None and m.block_length is None
     return GlowTTSHyper(
         n_vocab=m.num_symbols,
         hidden_channels=m.hidden_channels,
@@ -84,10 +99,12 @@ def hyper_from_config(config) -> GlowTTSHyper:
         kernel_size=m.kernel_size,
         n_heads=m.n_heads,
         n_layers_enc=m.n_layers_enc,
+        p_dropout=m.p_dropout,
         n_blocks_dec=m.n_blocks_dec,
         kernel_size_dec=m.kernel_size_dec,
         dilation_rate=m.dilation_rate,
         n_block_layers=m.n_block_layers,
+        p_dropout_dec=m.p_dropout_dec,
         n_speakers=m.n_speakers,
         gin_channels=m.gin_channels,
         n_split=m.n_split,
@@ -99,6 +116,7 @@ def hyper_from_config(config) -> GlowTTSHyper:
         hidden_channels_enc=m.hidden_channels_enc,
         hidden_channels_dec=m.hidden_channels_dec,
         prenet=m.prenet,
+        encoder_fuse=kernel_fits if encoder_fuse == "auto" else bool(encoder_fuse),
     )
 
 
@@ -109,9 +127,12 @@ class _Node(nn.Module):
 class GlowTTS(nn.Module):
     """Parameters named by their JAX tree paths; ``shapes`` maps
     ``"a/b/c"`` paths to shapes (``checkpoint.param_shapes`` without the
-    ``model/`` prefix).  Values are uninitialized until loaded."""
+    ``model/`` prefix).  Values are uninitialized until loaded;
+    ``requires_grad`` makes them trainable."""
 
-    def __init__(self, shapes: typing.Mapping[str, typing.Sequence[int]]):
+    def __init__(
+        self, shapes: typing.Mapping[str, typing.Sequence[int]], requires_grad: bool = False
+    ):
         super().__init__()
         for path, shape in shapes.items():
             *parents, leaf = path.split("/")
@@ -121,19 +142,17 @@ class GlowTTS(nn.Module):
                     node.add_module(name, _Node())
                 node = getattr(node, name)
             node.register_parameter(
-                leaf, nn.Parameter(torch.empty(tuple(shape)), requires_grad=False)
+                leaf, nn.Parameter(torch.empty(tuple(shape)), requires_grad=requires_grad)
             )
 
-    def tree(self) -> Params:
-        """The parameters as the JAX package's nested dict."""
-        out: Params = {}
-        for name, p in self.named_parameters():
-            *parents, leaf = name.split(".")
-            node = out
-            for k in parents:
-                node = node.setdefault(k, {})
-            node[leaf] = p.detach()
-        return out
+    def flat(self) -> typing.Dict[str, nn.Parameter]:
+        """{"a/b/c": parameter} in registration order."""
+        return {name.replace(".", "/"): p for name, p in self.named_parameters()}
+
+    def tree(self, detach: bool = True) -> Params:
+        """The parameters as the JAX package's nested dict (the parameters
+        themselves with ``detach=False``, for autograd)."""
+        return unflatten({k: p.detach() if detach else p for k, p in self.flat().items()})
 
 
 @dataclasses.dataclass
@@ -303,4 +322,183 @@ def forward_gen(
         (x_m, x_logs, x_mask),
         (attn, logw, logw_),
         y_lengths,
+    )
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+ENCODER_FUSE_REFUSAL = (
+    "training with encoder_fuse true needs the backward kernels of the "
+    "encoder layer, prenet and duration predictor, which are not ported yet "
+    "(ROADMAP, queue 2 items 1-2); set encoder_fuse to false"
+)
+
+
+@torch.no_grad()
+def init_model(hp: GlowTTSHyper, generator: torch.Generator) -> typing.Dict[str, torch.Tensor]:
+    """Fresh params, {"a/b/c": tensor} with the keys and shapes of
+    ``checkpoint.param_shapes`` (without ``model/``), initialised as the
+    JAX ``init_model`` does: torch conv init U(+-1/sqrt(fan_in)), Xavier
+    for the q/k/v projections, weight norm with g = ||v||, zero coupling
+    ``end`` and prenet ``proj``, zero actnorm, orthogonal invconv with a
+    positive determinant, N(0, h^-0.5) embeddings, U(-0.1, 0.1) speakers.
+    Values differ from JAX's (another generator); the distributions do
+    not."""
+    from ..checkpoint import PREFIX, param_shapes
+
+    def uniform(shape, bound):
+        return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
+
+    out: typing.Dict[str, torch.Tensor] = {}
+    for key, shape in param_shapes(hp).items():
+        key = key[len(PREFIX):]
+        group, leaf = key.rsplit("/", 1) if "/" in key else ("", key)
+        weight = out.get(f"{group}/w", out.get(f"{group}/v"))
+        if group.endswith(("coupling/end", "prenet/proj")) or "/actnorm/" in f"/{key}":
+            a = torch.zeros(shape)
+        elif key == "emb":
+            a = torch.randn(shape, generator=generator) * hp.h_enc ** -0.5
+        elif "emb_rel" in key:
+            a = torch.randn(shape, generator=generator) * shape[-1] ** -0.5
+        elif key == "emb_g":
+            a = uniform(shape, 0.1)
+        elif key.endswith("invconv/weight"):
+            mats = []
+            for _ in range(shape[0]):
+                q = torch.linalg.qr(torch.randn(shape[1:], generator=generator))[0]
+                if torch.linalg.det(q) < 0:
+                    q[:, 0] = -q[:, 0]
+                mats.append(q)
+            a = torch.stack(mats)
+        elif leaf == "gamma":
+            a = torch.ones(shape)
+        elif leaf == "beta":
+            a = torch.zeros(shape)
+        elif leaf == "g":  # weight norm: g = ||v|| over (k, c_in)
+            a = torch.sqrt(torch.sum(weight * weight, dim=(-3, -2)))
+        elif leaf == "b":
+            a = uniform(shape, (weight.shape[-3] * weight.shape[-2]) ** -0.5)
+        elif group.split("/")[-1] in ("q", "k", "v") and group.startswith("encoder/attn"):
+            k, c_in, c_out = shape[-3:]
+            a = uniform(shape, math.sqrt(6.0 / (c_in * k + c_out * k)))
+        else:  # conv weights w / v
+            a = uniform(shape, (shape[-3] * shape[-2]) ** -0.5)
+        out[key] = a.to(torch.float32)
+    return out
+
+
+def encoder_forward_train(
+    params: Params,
+    hp: GlowTTSHyper,
+    x: torch.Tensor,
+    x_lengths: torch.Tensor,
+    g: typing.Optional[torch.Tensor] = None,
+    generator: typing.Optional[torch.Generator] = None,
+):
+    """The text side op by op on the raw param tree, with dropout drawn
+    from ``generator`` (none without one): prenet, encoder, projections,
+    and the duration predictor on the detached encoder output (plus the
+    speaker vector).  Returns (x_m, x_logs, logw, x_mask)."""
+    t_x = x.shape[1]
+    xh = params["emb"][x] * math.sqrt(hp.h_enc)
+    x_mask = time_mask(x_lengths, t_x)
+    if hp.prenet:
+        xh = text_cuda.prenet_plain(
+            text_cuda.prenet_weights(params["prenet"]), xh, x_mask, 0.5, generator
+        )
+    layers = [tree_index(params["encoder"], i) for i in range(hp.n_layers_enc)]
+    xh = attention.encoder_apply(
+        layers, xh, x_mask, hp.n_heads, hp.window_size, hp.block_length,
+        hp.p_dropout, generator,
+    )
+    x_dp = xh.detach()
+    if g is not None:
+        x_dp = torch.cat([x_dp, g.expand(-1, t_x, -1)], dim=-1)
+    x_m = conv1d(xh, params["proj_m"]) * x_mask
+    x_logs = torch.zeros_like(x_m) if hp.mean_only else conv1d(xh, params["proj_s"]) * x_mask
+    dp = text_cuda.duration_stack_plain(
+        text_cuda.dp_weights(params["proj_w"]), x_dp, x_mask, hp.p_dropout, generator
+    )
+    logw = conv1d(dp * x_mask, params["proj_w"]["proj"]) * x_mask
+    return x_m, x_logs, logw, x_mask
+
+
+def _decoder_kwargs(hp: GlowTTSHyper) -> dict:
+    return dict(
+        hidden_channels=hp.h_dec, kernel_size=hp.kernel_size_dec,
+        dilation_rate=hp.dilation_rate, n_layers=hp.n_block_layers,
+        n_sqz=hp.n_sqz, sigmoid_scale=hp.sigmoid_scale,
+    )
+
+
+def forward_train(
+    params: Params,
+    hp: GlowTTSHyper,
+    x: torch.Tensor,
+    x_lengths: torch.Tensor,
+    y: torch.Tensor,
+    y_lengths: torch.Tensor,
+    g_ids: typing.Optional[torch.Tensor] = None,
+    generator: typing.Optional[torch.Generator] = None,
+    seed_generator: typing.Optional[torch.Generator] = None,
+):
+    """Training graph (JAX ``forward_train``): encoder -> flow forward ->
+    f32 pairwise log-likelihood -> MAS (no gradient) -> expansion.  x [b,
+    t_x] ids, y [b, t_y, n_mel].  Dropout is on when generators are given:
+    ``generator`` (on x's device) draws the encoder's masks,
+    ``seed_generator`` (CPU) the flow blocks' seeds.
+
+    Returns ((z, z_m, z_logs, logdet, z_mask), (x_m, x_logs, x_mask),
+    (attn, logw, logw_))."""
+    if hp.encoder_fuse and x.is_cuda:
+        raise NotImplementedError(ENCODER_FUSE_REFUSAL)
+    g = _speaker_vector(params.get("emb_g"), g_ids)
+    x_m, x_logs, logw, x_mask = encoder_forward_train(params, hp, x, x_lengths, g, generator)
+
+    t_y = (y.shape[1] // hp.n_sqz) * hp.n_sqz
+    y = y[:, :t_y].to(torch.float32)
+    y_lengths = (y_lengths // hp.n_sqz) * hp.n_sqz
+    z_mask = time_mask(y_lengths, t_y)
+    attn_mask = x_mask[:, :, 0][:, :, None] * z_mask[:, :, 0][:, None, :]
+    z, logdet = flows.decoder_fwd(
+        params["decoder"]["blocks"], y, z_mask, n_split=hp.n_split, g=g,
+        p_dropout=hp.p_dropout_dec, seed_generator=seed_generator, **_decoder_kwargs(hp),
+    )
+
+    with torch.no_grad():  # the path carries no gradient (JAX stop_gradient)
+        x_m32, x_logs32, z32 = x_m.float(), x_logs.float(), z.float()
+        x_s_sq_r = torch.exp(-2.0 * x_logs32)
+        logp1 = torch.sum(-0.5 * math.log(2 * math.pi) - x_logs32, dim=-1)[:, :, None]
+        logp2 = torch.einsum("bxd,byd->bxy", x_s_sq_r, -0.5 * torch.square(z32))
+        logp3 = torch.einsum("bxd,byd->bxy", x_m32 * x_s_sq_r, z32)
+        logp4 = torch.sum(-0.5 * torch.square(x_m32) * x_s_sq_r, dim=-1)[:, :, None]
+        logp = logp1 + logp2 + logp3 + logp4
+        attn = mas_cuda.maximum_path(logp.contiguous(), attn_mask.contiguous())
+
+    z_m = torch.einsum("bxy,bxd->byd", attn, x_m)
+    z_logs = torch.einsum("bxy,bxd->byd", attn, x_logs)
+    logw_ = torch.log(1e-8 + torch.sum(attn, dim=2))[:, :, None] * x_mask
+    return (z, z_m, z_logs, logdet, z_mask), (x_m, x_logs, x_mask), (attn, logw, logw_)
+
+
+@torch.no_grad()
+def ddi_init(
+    params: Params,
+    hp: GlowTTSHyper,
+    y: torch.Tensor,
+    y_lengths: torch.Tensor,
+    g_ids: typing.Optional[torch.Tensor] = None,
+) -> Params:
+    """Data-dependent ActNorm init from one batch's mels (JAX ``ddi_init``;
+    deterministic, no dropout) -> the decoder's new actnorm
+    {"logs", "bias"} [n_blocks, c]."""
+    g = _speaker_vector(params.get("emb_g"), g_ids)
+    t_y = (y.shape[1] // hp.n_sqz) * hp.n_sqz
+    y = y[:, :t_y].to(torch.float32)
+    y_lengths = (y_lengths // hp.n_sqz) * hp.n_sqz
+    z_mask = time_mask(y_lengths, t_y)
+    return flows.decoder_ddi(
+        params["decoder"]["blocks"], y, z_mask, g=g, **_decoder_kwargs(hp)
     )

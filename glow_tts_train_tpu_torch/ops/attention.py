@@ -5,10 +5,15 @@ param layout: 1x1 convs ``{"w": [1, c, c], "b"}``, rel-pos tables
 
 These are the plain paths: the CPU path of encoder configurations the
 CUDA encoder kernel does not take (``window_size=None``, ``block_length``
-set), and, through :func:`attention_core`, the attention of the encoder
-kernel's plain version.  Inference only: no dropout.  Masked scores are
-filled with -1e4, not -inf: a fully masked (padded) query row then gets a
-uniform softmax instead of NaN.
+set), through :func:`attention_core` the attention of the encoder
+kernel's plain version, and the training encoder (``encoder_fuse: false``),
+with the JAX package's dropout sites: attention probabilities, attention
+output, FFN hidden and FFN output (the training prenet and duration
+predictor are ``text_cuda``'s plain versions with :func:`dropout`).
+Masks come from an explicit ``torch.Generator`` (JAX draws from
+``jax.random``, a different stream).  Masked scores are filled with -1e4,
+not -inf: a fully masked (padded) query row then gets a uniform softmax
+instead of NaN.
 """
 
 import math
@@ -21,6 +26,18 @@ from .conv import conv1d
 from .norms import layer_norm
 
 Params = typing.Dict[str, typing.Any]
+
+
+def dropout(
+    x: torch.Tensor, p: float, generator: typing.Optional[torch.Generator]
+) -> torch.Tensor:
+    """Inverted dropout (torch semantics): keep with probability 1 - p and
+    scale by 1 / (1 - p); identity when ``generator`` is None or p == 0.
+    The keep mask is drawn on ``generator``'s device."""
+    if generator is None or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=generator.device) >= p
+    return x * keep.to(device=x.device, dtype=x.dtype) * (1.0 / (1.0 - p))
 
 
 def get_relative_embeddings(
@@ -61,11 +78,13 @@ def attention_core(
     rel_v: typing.Optional[torch.Tensor] = None,
     window_size: typing.Optional[int] = None,
     block_length: typing.Optional[int] = None,
+    p_dropout: float = 0.0,
+    generator: typing.Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Self-attention of projected q, k, v [b, t, ch] -> [b, t, ch] (heads
     concatenated, before the output projection).  attn_mask [b, t, t],
     1 = attend.  rel_k/rel_v [heads_rel, 2w+1, d] when ``window_size`` is
-    set."""
+    set.  Dropout on the attention probabilities."""
     b, t, ch = q.shape
     d = ch // n_heads
 
@@ -86,7 +105,7 @@ def attention_core(
         idx = torch.arange(t, device=q.device)
         band = (idx[:, None] - idx[None, :]).abs() <= block_length
         scores = torch.where(band[None, None], scores, fill)
-    p_attn = torch.softmax(scores, dim=-1)
+    p_attn = dropout(torch.softmax(scores, dim=-1), p_dropout, generator)
     out = torch.einsum("bhts,bhsd->bhtd", p_attn, v)
     if window_size is not None:
         rv = get_relative_embeddings(rel_v.to(q.dtype), t, window_size)
@@ -103,6 +122,8 @@ def mha_apply(
     n_heads: int,
     window_size: typing.Optional[int] = None,
     block_length: typing.Optional[int] = None,
+    p_dropout: float = 0.0,
+    generator: typing.Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Self-attention of x [b, t, ch] with its q/k/v/o projections."""
     out = attention_core(
@@ -115,12 +136,20 @@ def mha_apply(
         params.get("emb_rel_v"),
         window_size,
         block_length,
+        p_dropout,
+        generator,
     )
     return conv1d(out, params["o"])
 
 
-def ffn_apply(params: Params, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
-    x = torch.relu(conv1d(x * x_mask, params["conv_1"]))
+def ffn_apply(
+    params: Params,
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    p_dropout: float = 0.0,
+    generator: typing.Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    x = dropout(torch.relu(conv1d(x * x_mask, params["conv_1"])), p_dropout, generator)
     return conv1d(x * x_mask, params["conv_2"]) * x_mask
 
 
@@ -131,15 +160,19 @@ def encoder_layer_apply(
     n_heads: int,
     window_size: typing.Optional[int] = None,
     block_length: typing.Optional[int] = None,
+    p_dropout: float = 0.0,
+    generator: typing.Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """One encoder layer: attention -> residual LN -> FFN -> residual LN."""
     m = x_mask[:, :, 0]
     attn_mask = m[:, None, :] * m[:, :, None]
     x = x * x_mask
-    y = mha_apply(params["attn"], x, attn_mask, n_heads, window_size, block_length)
-    x = layer_norm(x + y, params["norm_1"])
-    y = ffn_apply(params["ffn"], x, x_mask)
-    return layer_norm(x + y, params["norm_2"])
+    y = mha_apply(
+        params["attn"], x, attn_mask, n_heads, window_size, block_length, p_dropout, generator
+    )
+    x = layer_norm(x + dropout(y, p_dropout, generator), params["norm_1"])
+    y = ffn_apply(params["ffn"], x, x_mask, p_dropout, generator)
+    return layer_norm(x + dropout(y, p_dropout, generator), params["norm_2"])
 
 
 def encoder_apply(
@@ -149,10 +182,14 @@ def encoder_apply(
     n_heads: int,
     window_size: typing.Optional[int] = None,
     block_length: typing.Optional[int] = None,
+    p_dropout: float = 0.0,
+    generator: typing.Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """The encoder stack over per-layer params; x: [b, t, c], x_mask
     [b, t, 1]."""
     for layer in layers:
-        x = encoder_layer_apply(layer, x, x_mask, n_heads, window_size, block_length)
+        x = encoder_layer_apply(
+            layer, x, x_mask, n_heads, window_size, block_length, p_dropout, generator
+        )
     return x * x_mask
 

@@ -1,20 +1,33 @@
-"""Inverse of one flow block: CUDA kernel (``csrc/block.cu``) and its plain
-PyTorch version.
+"""One flow block (ActNorm -> InvConvNear -> affine coupling) in both
+directions: CUDA kernels (``csrc/block.cu``, ``csrc/block_train.cu``) and
+their plain PyTorch versions.
 
 :func:`block_inverse` replaces ``glow_tts_train_tpu/ops/block_pallas.py::
 _block_inv_kernel``: start 1x1 of x0, the L-layer WN gated stack, end 1x1
 -> (m, logs), z1 = (x1 - m) * exp(-logs), then the folded inverse of
 InvConvNear and ActNorm as one [c, c] affine.
 
-Bound on the card: f32 FMA throughput of the in-layer conv GEMM (80% of
-the block's FLOPs: rows = batch * t_y/2, K = 5 * 192, N = 384).  The
-TPU kernel holds the whole block with its 7 MB of weights in VMEM; here
-each GEMM streams its weights from L2 (227 KB of shared memory cannot hold
-them), gathers the dilated taps while staging, and fuses the gate, the
-residual/skip split and the coupling inverse into its epilogue, so only
-[rows, h] and [rows, c] activations reach device memory.
+:func:`block_forward` is the training direction.  Its CUDA path is
+:class:`FlowBlockTrain`: the forward replaces ``_block_fwd_save_kernel``
+(zp = (x @ A + bA) * mask, start 1x1, WN stack with dropout, end 1x1,
+z1 = (m + e^logs * x1) * mask, ld = sum(logs * mask), saving zp, skipm and
+the per-layer WN inputs and gates), the backward ``_block_bwd_store_kernel``
+(coupling and end conv -> WN reverse walk with the keep masks replayed
+from the seed -> start conv -> folded A).  Saved residuals are laid out
+layer-major, ``[L, b, t, h]``, so each layer's slice is one [rows, h]
+GEMM operand.
 
-Weights are ``fold_block_params_inverse``'s dict, the JAX fold's layout.
+Bound on the card: f32 FMA throughput of the in-layer conv GEMMs (80% of
+the block's FLOPs: rows = batch * t_y/2, K = 5 * 192, N = 384; backward
+runs three such products per layer).  The TPU kernels hold a sample's
+whole block with its 7 MB of weights in VMEM; here each GEMM streams its
+weights from L2 (227 KB of shared memory cannot hold them), gathers the
+dilated taps while staging, and fuses the gate, the residual/skip split
+and the coupling into its epilogue, so only [rows, h] and [rows, c]
+activations reach device memory.
+
+Weights are the JAX folds' layout (``fold_block_params`` and
+``fold_block_params_inverse``).
 """
 
 import typing
@@ -23,8 +36,8 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .conv import weight_norm_effective
-from .wn_cuda import fold_wn_weights, wn_stack_plain
+from .conv import conv1d, weight_norm_effective
+from .wn_cuda import drop_threshold, fold_wn_weights, wn_stack_plain
 
 Params = typing.Dict[str, typing.Any]
 
@@ -151,3 +164,289 @@ def block_inverse(
         batch, t, c, h, n_layers, kernel_size, dilation_rate, int(sigmoid_scale),
     )
     return y
+
+
+# ---------------------------------------------------------------------------
+# training direction
+# ---------------------------------------------------------------------------
+
+FOLD_KEYS = ("A", "bA", "W_s", "b_s", "W_e", "b_e", "W_in", "b_in", "W_rs", "b_rs")
+
+
+def fold_block_params(block: Params, n_layers: int, n_split: int) -> dict:
+    """Block params -> the training-direction kernel weights
+    (``block_pallas.fold_block_params``), in fp32 and differentiable:
+
+        zp = (x @ A + bA) * mask,  A = diag(e^logs) M^T,  bA = bias M^T
+
+    with M the dense [c, c] expansion of the s x s mix.  Autograd carries
+    the folded-weight gradients back to the actnorm logs/bias, the s x s
+    invconv weight and the weight-normed g/v."""
+    f32 = torch.float32
+    an, inv, cp = block["actnorm"], block["invconv"], block["coupling"]
+    ws_full = weight_norm_effective(cp["start"])  # [1, c/2, h]
+    c = 2 * ws_full.shape[1]
+    m = invconv_dense(inv["weight"].to(f32), c, n_split)
+    scale = torch.exp(an["logs"].to(f32))
+    W_in, b_in, W_rs, b_rs = fold_wn_weights(cp["wn"], n_layers)
+    return {
+        "A": (scale[:, None] * m.T).contiguous(),
+        "bA": (an["bias"].to(f32) @ m.T).reshape(1, c).contiguous(),
+        "W_s": ws_full[0].contiguous(),
+        "b_s": cp["start"]["b"].to(f32).reshape(1, -1).contiguous(),
+        "W_e": cp["end"]["w"][0].to(f32).contiguous(),
+        "b_e": cp["end"]["b"].to(f32).reshape(1, -1).contiguous(),
+        "W_in": W_in,
+        "b_in": b_in,
+        "W_rs": W_rs,
+        "b_rs": b_rs,
+    }
+
+
+def fold_blocks_stacked(
+    blocks: Params,
+    n_layers: int,
+    n_split: int,
+    g: typing.Optional[torch.Tensor],
+    hidden_channels: int,
+) -> tuple:
+    """All stacked blocks folded once per step (``block_pallas.
+    fold_blocks_stacked``) -> (per-block folds, logs_sum [nb], logabsdet
+    [nb], per-block conditioning [b, L, 2h] or None).  logs_sum is the
+    actnorm logdet coefficient, logabsdet = log|det W| the invconv's
+    (slogdet: ARCHITECTURE.md, Known divergences)."""
+    from ..tree import tree_index
+
+    f32 = torch.float32
+    n_blocks = blocks["actnorm"]["logs"].shape[0]
+    folded, g_all = [], []
+    for i in range(n_blocks):
+        bp = tree_index(blocks, i)
+        folded.append(fold_block_params(bp, n_layers, n_split))
+        if g is not None:
+            cond = conv1d(g, bp["coupling"]["wn"]["cond"])
+            g_all.append(cond.reshape(g.shape[0], n_layers, 2 * hidden_channels).contiguous())
+    logs_sum = torch.sum(blocks["actnorm"]["logs"].to(f32), dim=-1)
+    logabsdet = torch.linalg.slogdet(blocks["invconv"]["weight"].to(f32))[1]
+    return folded, logs_sum, logabsdet, (g_all if g is not None else None)
+
+
+def block_forward_plain(
+    folded: dict,
+    g_all: typing.Optional[torch.Tensor],
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    kernel_size: int,
+    dilation_rate: int,
+    sigmoid_scale: bool = False,
+    p_dropout: float = 0.0,
+    seed: int = 0,
+    saves: typing.Optional[dict] = None,
+) -> typing.Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the training forward (``block_pallas.
+    _block_fwd_math``): x [b, t, c] -> (z [b, t, c], ld [b] = sum(logs *
+    mask)).  Dropout uses the portable keep masks of ``seed`` (sample i:
+    ``seed + i``), as the kernel does.  ``saves``: a dict that receives the
+    store-mode residuals (zp, skipm, and lists xs/th/sg)."""
+    c2 = x.shape[-1] // 2
+    zp = (x @ folded["A"] + folded["bA"]) * x_mask
+    x0, x1 = zp[..., :c2], zp[..., c2:]
+    h0 = (x0 @ folded["W_s"] + folded["b_s"]) * x_mask
+    skip = wn_stack_plain(
+        (folded["W_in"], folded["b_in"], folded["W_rs"], folded["b_rs"]),
+        g_all, h0, x_mask, kernel_size, dilation_rate, p_dropout, seed, saves,
+    )
+    skipm = skip * x_mask
+    out = skipm @ folded["W_e"] + folded["b_e"]
+    m, logs = out[..., :c2], out[..., c2:]
+    if sigmoid_scale:
+        logs = torch.log(1e-6 + torch.sigmoid(logs + 2.0))
+    z1 = (m + torch.exp(logs) * x1) * x_mask
+    if saves is not None:
+        saves["zp"], saves["skipm"] = zp, skipm
+    return torch.cat([x0, z1], dim=-1), torch.sum(logs * x_mask, dim=(1, 2))
+
+
+def _check_train_operands(folded, g_all, x, x_mask, kernel_size):
+    batch, t, c = x.shape
+    n_layers, kh, h2 = folded["W_in"].shape
+    h = h2 // 2
+    kernels.check_operands(x.device, x=x, x_mask=x_mask, g_all=g_all, **folded)
+    kernels.check_shape("x_mask", x_mask, (batch, t, 1))
+    kernels.check_shape("W_in", folded["W_in"], (n_layers, kernel_size * h, 2 * h))
+    kernels.check_shape("W_rs", folded["W_rs"], (n_layers, h, 2 * h))
+    kernels.check_shape("W_s", folded["W_s"], (c // 2, h))
+    kernels.check_shape("W_e", folded["W_e"], (h, c))
+    kernels.check_shape("A", folded["A"], (c, c))
+    if g_all is not None:
+        kernels.check_shape("g_all", g_all, (batch, n_layers, 2 * h))
+    return batch, t, c, h, n_layers
+
+
+def _drop_args(p_dropout: float) -> tuple:
+    """(drop flag, uint32 threshold, f32 scale) of the kernels' dropout."""
+    if p_dropout <= 0.0:
+        return 0, 0, 1.0
+    return 1, drop_threshold(p_dropout), 1.0 / (1.0 - p_dropout)
+
+
+def block_fwd_save(
+    folded: dict,
+    g_all: typing.Optional[torch.Tensor],
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    kernel_size: int,
+    dilation_rate: int,
+    sigmoid_scale: bool = False,
+    p_dropout: float = 0.0,
+    seed: int = 0,
+) -> typing.Tuple[torch.Tensor, torch.Tensor, dict]:
+    """The forward-save kernel on CUDA tensors -> (z, ld [b], saves): zp
+    [b, t, c], skipm [b, t, h], xs/th/sg [L, b, t, h]."""
+    batch, t, c, h, n_layers = _check_train_operands(folded, g_all, x, x_mask, kernel_size)
+    z = torch.empty_like(x)
+    ld = x.new_empty((batch,))
+    zp = torch.empty_like(x)
+    skipm = x.new_empty((batch, t, h))
+    xs = x.new_empty((n_layers, batch, t, h))
+    th = torch.empty_like(xs)
+    sg = torch.empty_like(xs)
+    acts = x.new_empty((batch, t, h))
+    logsm = x.new_empty((batch, t, c // 2))
+    ld_part = x.new_empty((batch, c // 2))
+    f = folded
+    drop, threshold, scale = _drop_args(p_dropout)
+    kernels.BLOCK_FWD_SAVE(
+        x, x_mask, f["A"], f["bA"], f["W_s"], f["b_s"], f["W_e"], f["b_e"],
+        f["W_in"], f["b_in"], f["W_rs"], f["b_rs"], g_all,
+        z, ld, zp, skipm, xs, th, sg, acts, logsm, ld_part,
+        0 if g_all is None else n_layers * 2 * h,
+        batch, t, c, h, n_layers, kernel_size, dilation_rate, int(sigmoid_scale),
+        drop, int(seed), threshold, scale,
+    )
+    return z, ld, {"zp": zp, "skipm": skipm, "xs": xs, "th": th, "sg": sg}
+
+
+def block_bwd_store(
+    folded: dict,
+    with_g: bool,
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    saves: dict,
+    dz: torch.Tensor,
+    dld: torch.Tensor,
+    kernel_size: int,
+    dilation_rate: int,
+    sigmoid_scale: bool = False,
+    p_dropout: float = 0.0,
+    seed: int = 0,
+) -> dict:
+    """The backward-store kernel on CUDA tensors -> the gradients of x and
+    of every folded weight (keys ``dx`` and ``d<name>``, each shaped as
+    its primal) and ``dg`` [b, L, 2h] when ``with_g``."""
+    batch, t, c, h, n_layers = _check_train_operands(folded, None, x, x_mask, kernel_size)
+    kernels.check_operands(x.device, dz=dz, dld=dld, **saves)
+    kernels.check_shape("dz", dz, x.shape)
+    kernels.check_shape("dld", dld, (batch,))
+    kernels.check_shape("xs", saves["xs"], (n_layers, batch, t, h))
+    f = folded
+    # per-tap transposed weights (layout copies for the transposed products)
+    w_in_t = (
+        f["W_in"].reshape(n_layers, kernel_size, h, 2 * h).transpose(2, 3)
+        .reshape(n_layers, kernel_size * 2 * h, h).contiguous()
+    )
+    w_rs_t = f["W_rs"].transpose(1, 2).contiguous()
+    w_e_t = f["W_e"].T.contiguous()
+    w_s_t = f["W_s"].T.contiguous()
+    a_t = f["A"].T.contiguous()
+    grads = {
+        "dx": torch.empty_like(x),
+        "dA": torch.empty_like(f["A"]),
+        "dbA": torch.empty_like(f["bA"]),
+        "dW_s": torch.empty_like(f["W_s"]),
+        "db_s": torch.empty_like(f["b_s"]),
+        "dW_e": torch.empty_like(f["W_e"]),
+        "db_e": torch.empty_like(f["b_e"]),
+        "dW_in": torch.empty_like(f["W_in"]),
+        "db_in": torch.empty_like(f["b_in"]),
+        "dW_rs": torch.empty_like(f["W_rs"]),
+        "db_rs": torch.empty_like(f["b_rs"]),
+        "dg": x.new_empty((batch, n_layers, 2 * h)) if with_g else None,
+    }
+    rows = batch * t
+    dout = x.new_empty((rows, c))
+    dzp = x.new_empty((rows, c))
+    g_rs = x.new_empty((rows, 2 * h))
+    dia = x.new_empty((rows, 2 * h))
+    dxin = x.new_empty((rows, 2 * h))
+    acts = x.new_empty((rows, h))
+    gx = x.new_empty((rows, h))
+    col_part = x.new_empty((batch, max(c, 2 * h)))
+    wg_scratch = x.new_empty((max(1 << 22, kernel_size * h * 2 * h),))
+    drop, threshold, scale = _drop_args(p_dropout)
+    s = saves
+    kernels.BLOCK_BWD_STORE(
+        x, x_mask, f["W_e"], f["b_e"], a_t, w_s_t, w_e_t, w_in_t, w_rs_t,
+        s["zp"], s["skipm"], s["xs"], s["th"], s["sg"], dz, dld,
+        grads["dx"], grads["dA"], grads["dbA"], grads["dW_s"], grads["db_s"],
+        grads["dW_e"], grads["db_e"], grads["dW_in"], grads["db_in"],
+        grads["dW_rs"], grads["db_rs"], grads["dg"],
+        dout, dzp, g_rs, dia, dxin, acts, gx, col_part, wg_scratch,
+        wg_scratch.numel(), batch, t, c, h, n_layers, kernel_size, dilation_rate,
+        int(sigmoid_scale), drop, int(seed), int(with_g),
+        threshold, scale,
+    )
+    return grads
+
+
+class FlowBlockTrain(torch.autograd.Function):
+    """One flow block's training forward on the card: the forward-save
+    kernel forward, the backward-store kernel backward.  The saved
+    residuals live from forward to backward only (freed with the graph)."""
+
+    @staticmethod
+    def forward(ctx, x, x_mask, g_all, cfg, *weights):
+        folded = dict(zip(FOLD_KEYS, weights))
+        z, ld, saves = block_fwd_save(folded, g_all, x, x_mask, *cfg)
+        ctx.cfg = cfg
+        ctx.with_g = g_all is not None
+        ctx.save_for_backward(
+            x, x_mask, *weights, saves["zp"], saves["skipm"], saves["xs"], saves["th"], saves["sg"]
+        )
+        return z, ld
+
+    @staticmethod
+    def backward(ctx, dz, dld):
+        x, x_mask, *rest = ctx.saved_tensors
+        weights, (zp, skipm, xs, th, sg) = rest[: len(FOLD_KEYS)], rest[len(FOLD_KEYS):]
+        folded = dict(zip(FOLD_KEYS, weights))
+        saves = {"zp": zp, "skipm": skipm, "xs": xs, "th": th, "sg": sg}
+        grads = block_bwd_store(
+            folded, ctx.with_g, x, x_mask, saves, dz.contiguous(), dld.contiguous(), *ctx.cfg
+        )
+        return (grads["dx"], None, grads["dg"], None, *(grads["d" + k] for k in FOLD_KEYS))
+
+
+def block_forward(
+    folded: dict,
+    g_all: typing.Optional[torch.Tensor],
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    kernel_size: int,
+    dilation_rate: int,
+    sigmoid_scale: bool = False,
+    p_dropout: float = 0.0,
+    seed: int = 0,
+) -> typing.Tuple[torch.Tensor, torch.Tensor]:
+    """One flow block, training direction: x [b, t, c], x_mask [b, t, 1],
+    g_all [b, L, 2h] or None -> (z [b, t, c], ld [b] = sum(logs * mask)).
+    CUDA tensors run :class:`FlowBlockTrain`; CPU tensors the plain
+    version, whose autograd backward is the plain version of the
+    backward kernel."""
+    if kernels.route(x) == "plain":
+        return block_forward_plain(
+            folded, g_all, x, x_mask, kernel_size, dilation_rate, sigmoid_scale,
+            p_dropout, seed,
+        )
+    cfg = (kernel_size, dilation_rate, bool(sigmoid_scale), float(p_dropout), int(seed))
+    return FlowBlockTrain.apply(x, x_mask, g_all, cfg, *(folded[k] for k in FOLD_KEYS))

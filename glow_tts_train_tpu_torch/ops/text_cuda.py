@@ -22,6 +22,7 @@ import typing
 import torch
 
 from .. import kernels
+from .attention import dropout
 from .conv import conv1d, conv_taps
 from .norms import layer_norm_affine
 
@@ -68,14 +69,22 @@ def dp_weights(params: Params) -> tuple:
     )
 
 
-def prenet_plain(weights: tuple, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`prenet` (text_pallas.py ``_prenet_fwd_math``)."""
+def prenet_plain(
+    weights: tuple,
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    p_dropout: float = 0.0,
+    generator: typing.Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Plain version of :func:`prenet` (text_pallas.py ``_prenet_fwd_math``);
+    differentiable, and with dropout after each ReLU when ``generator`` is
+    given (the training encoder, ``encoder_fuse: false``)."""
     w, b, gamma, beta, wp, bp = weights
     taps = w.shape[1] // x.shape[-1]
     cur = x
     for l in range(w.shape[0]):
         pre = conv_taps(cur * x_mask, w[l], b[l], taps)
-        cur = torch.relu(layer_norm_affine(pre, gamma[l], beta[l]))
+        cur = dropout(torch.relu(layer_norm_affine(pre, gamma[l], beta[l])), p_dropout, generator)
     return (x + cur @ wp + bp) * x_mask
 
 
@@ -103,15 +112,21 @@ def prenet(weights: tuple, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tenso
 
 
 def duration_stack_plain(
-    weights: tuple, x: torch.Tensor, x_mask: torch.Tensor
+    weights: tuple,
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    p_dropout: float = 0.0,
+    generator: typing.Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Plain version of :func:`duration_stack` (text_pallas.py
-    ``_dp_fwd_math``)."""
+    ``_dp_fwd_math``); differentiable, and with dropout after each
+    LayerNorm when ``generator`` is given."""
     w1, b1, g1, be1, w2, b2, g2, be2 = weights
     taps = w1.shape[0] // x.shape[-1]
     cur = x
     for w, b, g, be in ((w1, b1, g1, be1), (w2, b2, g2, be2)):
         cur = layer_norm_affine(torch.relu(conv_taps(cur * x_mask, w, b, taps)), g, be)
+        cur = dropout(cur, p_dropout, generator)
     return cur
 
 

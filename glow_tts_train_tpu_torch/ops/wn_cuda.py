@@ -1,28 +1,78 @@
 """The WaveNet gated stack in the kernels' folded form (glow_tts_train_tpu
-ops/wn_pallas.py ``fold_wn_weights`` and ``_layer_fwd``).
+ops/wn_pallas.py ``fold_wn_weights``, ``_layer_fwd``, the dropout bits
+``_portable_bits``/``_regen_keep``), and the WN forward kernel.
 
-On the serving path the stack runs inside the inverse flow block's CUDA
-kernel (``csrc/block.cu``), as on the TPU it runs inside
-``_block_inv_kernel``; this module holds the fold and the plain layer math
-that the block's plain version uses.  The standalone WN kernels
-(``wn_pallas.py`` ``_fwd_kernel`` and the training kernels) are not ported
-yet (ROADMAP).
+:func:`wn_stack` replaces ``wn_pallas.py::_fwd_kernel``: the L-layer gated
+stack -> skip sum, no dropout and no saves.  The JAX package runs it in
+data-dependent init (DDI, ``flows.py:694-721``), once per training run.
+On the card it is the inverse flow block's WN loop without the coupling
+(``csrc/block_train.cu`` ``gtt_wn_forward``): per layer one conv-GEMM with
+the gate in its epilogue and one 1x1 GEMM with the residual/skip split in
+its epilogue (``csrc/common.cu``).  Bound: f32 FMA throughput of the
+in-layer conv (K = 5 * 192, N = 384); the gather-on-load taps keep the
+im2col matrix out of device memory.
+
+Dropout keep masks are the JAX kernels' portable counter hash, bit for
+bit: the bits of flat index ``row * 2h + col`` of one sample's ``[t, 2h]``
+pre-gate tensor (``col`` in JAX's ``[u | v]`` layout, ``t`` the padded
+length), seeded by ``(seed + sample) * n_layers + layer`` in int32
+wrap-around; keep where ``bits >= round(p * 2**32)``.  CPU torch has
+little uint32 arithmetic, so the hash runs in int64 masked to 32 bits.
 """
 
 import typing
 
 import torch
 
+from .. import kernels
 from .conv import conv_taps, weight_norm_effective
 
 Params = typing.Dict[str, typing.Any]
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """x * c mod 2**32 for x < 2**32, in int64 without overflow (c split
+    into 16-bit halves)."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def portable_bits(seed, shape: typing.Tuple[int, int], device=None) -> torch.Tensor:
+    """The uint32 counter hash of ``wn_pallas._portable_bits`` as int64:
+    ``seed`` (an int or an int tensor of any shape S, taken mod 2**32) ->
+    bits [*S, t, n] of the flat index ``row * n + col``."""
+    t, n = shape
+    seed = torch.as_tensor(seed, dtype=torch.int64, device=device) & _MASK32
+    x = torch.arange(t * n, dtype=torch.int64, device=seed.device).reshape(t, n)
+    x = x ^ _mul32(seed[..., None, None], 2654435761)
+    x = _mul32(x ^ (x >> 13), 0x9E3779B1)
+    x = _mul32(x ^ (x >> 15), 0x85EBCA6B)
+    return x ^ (x >> 16)
+
+
+def drop_threshold(p: float) -> int:
+    """The uint32 keep threshold of a dropout rate (wn_pallas ``st``)."""
+    return min(round(p * 2 ** 32), 2 ** 32 - 1)
+
+
+def regen_keep(seed, l: int, n_layers: int, shape, p: float, device=None) -> torch.Tensor:
+    """Layer ``l``'s f32 0/1 keep mask (``wn_pallas._regen_keep``):
+    ``seed`` is the per-sample seed (int or int tensor [b]) -> [*S, t, n]."""
+    seed = torch.as_tensor(seed, dtype=torch.int64, device=device)
+    layer_seed = (seed * n_layers + l) & _MASK32
+    bits = portable_bits(layer_seed, shape)
+    return (bits >= drop_threshold(p)).to(torch.float32)
 
 
 def fold_wn_weights(params: Params, n_layers: int) -> tuple:
     """Stacked WN params -> (W_in [L, K*h, 2h], b_in [L, 2h],
     W_rs [L, h, 2h], b_rs [L, 2h]) in fp32, weight norm folded; the last
     layer's h-wide res/skip conv is padded to 2h with zeros on the
-    residual half."""
+    residual half.  Differentiable: autograd carries the folded-weight
+    gradients back to v, g and b (the padding gets none)."""
 
     def fold(p):
         return (weight_norm_effective(p) if "v" in p else p["w"]), p["b"]
@@ -64,16 +114,21 @@ def wn_layer_plain(
     x_mask: torch.Tensor,
     kernel_size: int,
     dilation: int,
-) -> typing.Tuple[torch.Tensor, torch.Tensor]:
+    keep: typing.Optional[torch.Tensor] = None,
+    scale: float = 1.0,
+) -> typing.Tuple[torch.Tensor, torch.Tensor, tuple]:
     """One gated layer on folded weights: returns (next residual state,
-    skip increment).  g_l: [b, 2h] conditioning of this layer, or None."""
+    skip increment, (tanh gate, sigmoid gate)).  g_l: [b, 2h] conditioning
+    of this layer, or None; keep: [b, t, 2h] 0/1 dropout mask, or None."""
     h = xcur.shape[-1]
     xin = conv_taps(xcur, w_in, b_in, kernel_size, dilation)
+    if keep is not None:
+        xin = xin * keep * scale
     if g_l is not None:
         xin = xin + g_l[:, None, :]
-    acts = torch.tanh(xin[..., :h]) * torch.sigmoid(xin[..., h:])
-    rs = acts @ w_rs + b_rs
-    return (xcur + rs[..., :h]) * x_mask, rs[..., h:]
+    th, sg = torch.tanh(xin[..., :h]), torch.sigmoid(xin[..., h:])
+    rs = (th * sg) @ w_rs + b_rs
+    return (xcur + rs[..., :h]) * x_mask, rs[..., h:], (th, sg)
 
 
 def wn_stack_plain(
@@ -83,16 +138,69 @@ def wn_stack_plain(
     x_mask: torch.Tensor,
     kernel_size: int,
     dilation_rate: int,
+    p_dropout: float = 0.0,
+    seed: int = 0,
+    saves: typing.Optional[dict] = None,
 ) -> torch.Tensor:
     """The L-layer stack on folded weights -> skip sum [b, t, h] (not
-    masked).  g_all: [b, L, 2h] or None."""
+    masked).  g_all: [b, L, 2h] or None.  With ``p_dropout`` > 0 each
+    layer's pre-gate tensor is dropped with the portable keep masks of
+    ``seed`` (sample i uses ``seed + i``).  ``saves``: a dict that
+    receives the per-layer inputs and gates as lists ``xs``/``th``/``sg``
+    (the store-mode residuals)."""
     w_in, b_in, w_rs, b_rs = folded
+    n_layers = w_in.shape[0]
+    b, t, h = x.shape
+    sample_seeds = seed + torch.arange(b, dtype=torch.int64)
     skip = torch.zeros_like(x)
-    for l in range(w_in.shape[0]):
-        x, inc = wn_layer_plain(
+    for l in range(n_layers):
+        keep = None
+        if p_dropout > 0.0:
+            keep = regen_keep(sample_seeds, l, n_layers, (t, 2 * h), p_dropout, x.device)
+        if saves is not None:
+            saves.setdefault("xs", []).append(x)
+        x, inc, (th, sg) = wn_layer_plain(
             x, w_in[l], b_in[l], w_rs[l], b_rs[l],
             None if g_all is None else g_all[:, l],
             x_mask, kernel_size, dilation_rate ** l,
+            keep, 1.0 / (1.0 - p_dropout),
         )
+        if saves is not None:
+            saves.setdefault("th", []).append(th)
+            saves.setdefault("sg", []).append(sg)
         skip = skip + inc
+    return skip
+
+
+def wn_stack(
+    folded: tuple,
+    g_all: typing.Optional[torch.Tensor],
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    kernel_size: int,
+    dilation_rate: int,
+) -> torch.Tensor:
+    """The WN stack forward, no dropout: x [b, t, h], x_mask [b, t, 1],
+    g_all [b, L, 2h] or None -> skip sum [b, t, h] (not masked)."""
+    if kernels.route(x) == "plain":
+        return wn_stack_plain(folded, g_all, x, x_mask, kernel_size, dilation_rate)
+    w_in, b_in, w_rs, b_rs = folded
+    batch, t, h = x.shape
+    n_layers = w_in.shape[0]
+    kernels.check_operands(
+        x.device, x=x, x_mask=x_mask, g_all=g_all, w_in=w_in, b_in=b_in, w_rs=w_rs, b_rs=b_rs
+    )
+    kernels.check_shape("x_mask", x_mask, (batch, t, 1))
+    kernels.check_shape("w_in", w_in, (n_layers, kernel_size * h, 2 * h))
+    kernels.check_shape("w_rs", w_rs, (n_layers, h, 2 * h))
+    if g_all is not None:
+        kernels.check_shape("g_all", g_all, (batch, n_layers, 2 * h))
+    skip = torch.empty_like(x)
+    xcur = torch.empty_like(x)
+    acts = torch.empty_like(x)
+    kernels.WN_FORWARD(
+        x, x_mask, w_in, b_in, w_rs, b_rs, g_all, skip, xcur, acts,
+        0 if g_all is None else n_layers * 2 * h,
+        batch, t, h, n_layers, kernel_size, dilation_rate,
+    )
     return skip

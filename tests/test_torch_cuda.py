@@ -1,6 +1,8 @@
 """The CUDA kernels of glow_tts_train_tpu_torch on a GPU, against their
-plain PyTorch versions on the same inputs, and the kernel path of
-``forward_gen`` against the plain path on the CPU.
+plain PyTorch versions on the same inputs, the kernel path of
+``forward_gen`` against the plain path on the CPU, and the training
+kernels (WN forward, flow block forward-save and backward-store, MAS)
+against their plain versions and autograd.
 
 Every test here needs an NVIDIA GPU (the kernels have no CPU mode) and
 skips without one.  The file imports no jax, so on a GPU machine without
@@ -11,7 +13,8 @@ the JAX package's dependencies it runs alone:
 Tolerances: kernel vs plain version 1e-5 max abs error on O(1) outputs
 (f32 both, summation order only; TF32 off for the plain version's cuBLAS
 and cuDNN calls); the whole mel 1e-4 (two inverse flow blocks each
-scaling by exp(-logs)).
+scaling by exp(-logs)); block gradients 1e-4 of the gradient's max
+magnitude (reductions over all rows in another order); MAS paths exactly.
 """
 
 import numpy as np
@@ -20,7 +23,7 @@ import torch
 
 from glow_tts_train_tpu_torch import checkpoint, kernels
 from glow_tts_train_tpu_torch.models import glow_tts as model
-from glow_tts_train_tpu_torch.ops import block_cuda, encoder_cuda, text_cuda
+from glow_tts_train_tpu_torch.ops import block_cuda, encoder_cuda, mas_cuda, text_cuda, wn_cuda
 from glow_tts_train_tpu_torch.tree import tree_index, tree_map
 
 from helpers import tiny_config
@@ -122,9 +125,8 @@ def test_kernels_match_plain(dev, name):
     _close(block_cuda.block_inverse(*args), block_cuda.block_inverse_plain(*args))
 
     after = kernels.launch_counts()
-    assert {k: after[k] - before[k] for k in after} == {
-        "prenet": 1, "encoder_layer": 1, "duration_stack": 1, "block_inverse": 1
-    }
+    serving = ("prenet", "encoder_layer", "duration_stack", "block_inverse")
+    assert {k: after[k] - before[k] for k in serving} == {k: 1 for k in serving}
 
 
 @pytest.mark.parametrize(
@@ -183,3 +185,120 @@ def test_wrappers_check_their_operands(dev):
         text_cuda.prenet(pw, x.double(), mask)
     with pytest.raises(ValueError, match="x_mask"):
         text_cuda.prenet(pw, x, mask[:, :5].contiguous())
+
+
+def _rel_close(name, port, ref, rtol):
+    err = (port - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    assert err <= rtol * max(scale, 1e-6), f"{name}: max abs err {err} vs max |ref| {scale}"
+
+
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+@pytest.mark.parametrize("p_dropout", [0.0, 0.3])
+def test_training_block_kernels_match_plain(dev, name, p_dropout):
+    """The WN forward against its plain version; the block forward-save
+    (z, ld and every saved residual) against the plain forward and the
+    backward-store (every gradient) against autograd of the plain forward,
+    with the same dropout seed; the autograd Function end to end."""
+    over, n_mel = VARIANTS[name]
+    hp = model.hyper_from_config(_config(over, n_mel))
+    tt = tree_map(lambda a: a.to(dev), _tree(hp))
+    L, h, c = hp.n_block_layers, hp.h_dec, 2 * hp.out_channels
+    folded = {
+        k: v.detach().contiguous()
+        for k, v in block_cuda.fold_block_params(
+            tree_index(tt["decoder"]["blocks"], 0), L, hp.n_split
+        ).items()
+    }
+    x, mask = _inputs(3, 37, c, dev)
+    x = (x * mask).contiguous()
+    g_all = torch.randn(3, L, 2 * h, device=dev) if hp.gin_channels else None
+    args = (hp.kernel_size_dec, hp.dilation_rate, hp.sigmoid_scale, p_dropout, 2 ** 31 - 3)
+    before = kernels.launch_counts()
+
+    wn = (folded["W_in"], folded["b_in"], folded["W_rs"], folded["b_rs"])
+    xh = (torch.randn(3, 37, h, device=dev) * mask).contiguous()
+    _close(
+        wn_cuda.wn_stack(wn, g_all, xh, mask, hp.kernel_size_dec, hp.dilation_rate),
+        wn_cuda.wn_stack_plain(wn, g_all, xh, mask, hp.kernel_size_dec, hp.dilation_rate),
+    )
+
+    z, ld, saves = block_cuda.block_fwd_save(folded, g_all, x, mask, *args)
+    ref_saves: dict = {}
+    z_p, ld_p = block_cuda.block_forward_plain(folded, g_all, x, mask, *args, saves=ref_saves)
+    _rel_close("z", z, z_p, 1e-5)
+    _rel_close("ld", ld, ld_p, 1e-5)
+    for k in ("zp", "skipm"):
+        _rel_close(k, saves[k], ref_saves[k], 1e-5)
+    for k in ("xs", "th", "sg"):
+        _rel_close(k, saves[k], torch.stack(ref_saves[k]), 1e-5)
+
+    fp = {k: v.clone().requires_grad_(True) for k, v in folded.items()}
+    xp = x.clone().requires_grad_(True)
+    gp = None if g_all is None else g_all.clone().requires_grad_(True)
+    zz, ll = block_cuda.block_forward_plain(fp, gp, xp, mask, *args)
+    dz = torch.randn_like(zz)
+    dld = torch.randn_like(ll)
+    inputs = [xp] + [fp[k] for k in block_cuda.FOLD_KEYS] + ([gp] if gp is not None else [])
+    ref = torch.autograd.grad((zz * dz).sum() + (ll * dld).sum(), inputs)
+    grads = block_cuda.block_bwd_store(folded, g_all is not None, x, mask, saves, dz, dld, *args)
+    names = ["dx"] + ["d" + k for k in block_cuda.FOLD_KEYS] + (["dg"] if gp is not None else [])
+    for n, r in zip(names, ref):
+        _rel_close(n, grads[n], r, 1e-4)
+
+    fk = {k: v.clone().requires_grad_(True) for k, v in folded.items()}
+    xk = x.clone().requires_grad_(True)
+    zk, lk = block_cuda.block_forward(fk, g_all, xk, mask, *args)
+    gk = torch.autograd.grad((zk * dz).sum() + (lk * dld).sum(), [xk, fk["W_in"]])
+    _rel_close("fn dx", gk[0], ref[0], 1e-4)
+    _rel_close("fn dW_in", gk[1], ref[1 + block_cuda.FOLD_KEYS.index("W_in")], 1e-4)
+
+    after = kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in ("wn_forward", "block_fwd_save", "block_bwd_store")} == {
+        "wn_forward": 1, "block_fwd_save": 2, "block_bwd_store": 2
+    }
+
+
+@pytest.mark.parametrize("shape", [(4, 7, 13), (3, 16, 16), (2, 25, 80), (1, 1, 1), (16, 60, 300), (2, 1100, 2300)])
+def test_mas_kernel_matches_plain(dev, shape):
+    """Paths equal bit for bit, ragged lengths and integer (tied) logp
+    included, t_x > 1024 (threads loop) and the extreme-negative case."""
+    b, t_x, t_y = shape
+    rng = np.random.default_rng(t_x)
+    for case in ("normal", "ties", "extreme"):
+        logp = rng.standard_normal((b, t_x, t_y)).astype(np.float32) * 3.0
+        if case == "ties":
+            logp = np.round(logp)
+        if case == "extreme":
+            logp = logp - np.float32(2e8)
+        t_xs = rng.integers(1, t_x + 1, size=b)
+        t_ys = np.maximum(rng.integers(1, t_y + 1, size=b), t_xs)
+        t_ys[0], t_xs[0] = t_y, min(t_x, t_y)
+        mask = np.zeros((b, t_x, t_y), np.float32)
+        for i in range(b):
+            mask[i, : t_xs[i], : t_ys[i]] = 1.0
+        lp, mk = torch.from_numpy(logp), torch.from_numpy(mask)
+        got = mas_cuda.maximum_path(lp.to(dev), mk.to(dev)).cpu()
+        if t_x * t_y <= 60 * 300:
+            expected = mas_cuda.maximum_path_plain(lp, mk)
+        else:  # the plain loop is slow at this size; the kernel's own structure
+            expected = None
+            p = got.numpy()
+            for i in range(b):
+                rows = p[i, : t_xs[i], : t_ys[i]].argmax(0)
+                assert (p[i].sum(0)[: t_ys[i]] == 1).all()
+                assert rows[0] == 0 and rows[-1] == t_xs[i] - 1
+                assert ((np.diff(rows) >= 0) & (np.diff(rows) <= 1)).all()
+        if expected is not None:
+            assert torch.equal(got, expected), case
+
+
+def test_training_refuses_what_is_not_ported(dev):
+    """On CUDA: encoder_fuse true raises naming the ROADMAP item."""
+    hp = model.hyper_from_config(tiny_config(prenet=False))
+    assert hp.encoder_fuse
+    tt = tree_map(lambda a: a.to(dev), _tree(hp))
+    x = torch.tensor([[3, 7, 12]], device=dev)
+    y = torch.randn(1, 8, hp.out_channels, device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model.forward_train(tt, hp, x, torch.tensor([3], device=dev), y, torch.tensor([8], device=dev))
