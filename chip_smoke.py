@@ -23,18 +23,33 @@ Phases, each fatal on failure:
    without stdin or JSON), kernel path against plain path on the card,
    and profiles one to read the device's busy time and idle share;
 7. trains at the full width of ``configs/base.json`` (``encoder_fuse:
-   false``, ``fp16_run: false``, batch 16, dropout on) through the port's
-   train CLI entry point, ``glow_tts_train_tpu_torch.__main__.main``, on a
-   64-utterance corpus from ``scripts/make-synthetic-corpus.py``: DDI,
-   then 2 epochs of 4 steps; checks every loss and grad norm, each
-   training kernel's launch count (WN forward once per block in DDI,
-   block forward-save and backward-store once per block and step, MAS
-   once per step), and
-   serves one request from the last checkpoint through the infer CLI;
+   "auto"``, which resolves to the text kernels; ``fp16_run: false``,
+   batch 16, dropout on) through the port's train CLI entry point,
+   ``glow_tts_train_tpu_torch.__main__.main``, on a 64-utterance corpus
+   from ``scripts/make-synthetic-corpus.py``: DDI, then 2 epochs of 4
+   steps; checks every loss and grad norm, that the loss falls, each
+   training kernel's launch count (WN forward once per block in DDI; per
+   step the block forward-save and backward-store once per block, MAS
+   once, the prenet and the duration stack forward and backward once each,
+   the encoder layer forward and backward once per layer), and serves one
+   request from the last checkpoint through the infer CLI; then 2 steps
+   with ``encoder_fuse: false`` (the op-by-op text side; 2 encoder layers,
+   4 blocks), which launch no text kernel;
 8. holds each training kernel against its plain version on inputs that
-   run recorded (the backward against autograd of the plain forward with
-   the same dropout seed; MAS bit for bit, also at a long shape the TPU
-   streams) and times both with CUDA events, and the train step.
+   run recorded in its last step (a backward against autograd of the plain
+   forward with the same dropout seed and, for the text stacks, at the
+   kernel's own ReLU gates, which are themselves compared; the text
+   stacks' forward kernels again with dropout on; MAS bit for bit, also at
+   a long shape the TPU streams) and times both with CUDA events, and the
+   train step.
+
+Each kernel's line in ``{"kernels": [...]}`` carries its bound on this
+card: the larger of its bytes (every input read once, every output written
+once, from the tensors of the timed call) over 3.35 TB/s and its f32
+operations (from the shapes of that call, ``kernel_flops``) over 67
+TFLOP/s; and ``library_ms`` null: no single PyTorch call computes any of
+these functions (a whole conv/LayerNorm stack, a layer with rel-pos band
+terms, a flow block, a monotonic alignment).
 
 Prints the GPU's name and power limit, a ``{"kernels": [...]}`` JSON line,
 and last ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU
@@ -76,11 +91,24 @@ PROFILED = ("b1_250", "b4_mix")
 
 # training: 64 utterances, batch 16, 2 epochs -> 8 steps after DDI
 TRAIN_UTTERANCES = 64
-TRAIN_OVERRIDE = {
-    "encoder_fuse": False, "fp16_run": False, "batch_size": 16, "epochs": 2,
-    "warmup_steps": 50,
-}
+TRAIN_OVERRIDE = {"fp16_run": False, "batch_size": 16, "epochs": 2, "warmup_steps": 50}
 TRAIN_STEPS = 8
+# the op-by-op text side keeps working: 1 epoch of 2 steps at batch 32, depth cut
+UNFUSED_OVERRIDE = {
+    "encoder_fuse": False, "fp16_run": False, "batch_size": 32, "epochs": 1,
+    "warmup_steps": 50, "model": {"n_layers_enc": 2, "n_blocks_dec": 4},
+}
+UNFUSED_STEPS = 2
+# kernel vs plain forward with dropout on: the keep masks are equal bit for
+# bit, so the outputs differ by summation order only
+DROPOUT_FWD_RTOL = 1e-5
+# a ReLU gate may differ between kernel and plain version only where the
+# ReLU's input is within this share of its max (rounding of a value at zero)
+GATE_TIE_RTOL = 1e-5
+# the card's published peaks (NVIDIA H100 SXM data sheet): f32 outside the
+# tensor cores and HBM3 bandwidth
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 # a shape the TPU kernel streams through VMEM (mas_pallas.py :254/:264)
 MAS_LONG = (2, 400, 2600)
 
@@ -101,7 +129,79 @@ KERNEL_META = {
                         "glow_tts_train_tpu/ops/block_pallas.py:271"),
     "mas": ("glow_tts_train_tpu_torch/csrc/mas.cu",
             "glow_tts_train_tpu/ops/mas_pallas.py:41"),
+    "prenet_bwd": ("glow_tts_train_tpu_torch/csrc/text_train.cu",
+                   "glow_tts_train_tpu/ops/text_pallas.py:126"),
+    "encoder_layer_bwd": ("glow_tts_train_tpu_torch/csrc/encoder_train.cu",
+                          "glow_tts_train_tpu/ops/encoder_pallas.py:257"),
+    "duration_stack_bwd": ("glow_tts_train_tpu_torch/csrc/text_train.cu",
+                           "glow_tts_train_tpu/ops/text_pallas.py:220"),
 }
+
+
+def kernel_flops(name: str, args) -> float:
+    """f32 operations (2 per multiply-add) of one call of kernel ``name``,
+    from the shapes of its wrapper's arguments: every matrix product the
+    function is made of, padded rows included.  A backward that recomputes
+    its forward counts it: forward plus, per product, the weight and the
+    input gradient (3 x forward)."""
+    base = name[:-4] if name.endswith("_bwd") else name
+    if base == "prenet":
+        w, x = args[0][0], args[1]
+        rows, h = x.shape[0] * x.shape[1], x.shape[2]
+        flops = 2.0 * rows * (w.shape[0] * w.shape[1] * h + h * h)
+    elif base == "duration_stack":
+        (w1, _, _, _, w2, *_), x = args[0], args[1]
+        flops = 2.0 * x.shape[0] * x.shape[1] * (w1.numel() + w2.numel())
+    elif base == "encoder_layer":
+        weights, x = args[0], args[1]
+        b, t, h = x.shape
+        band = weights[8].shape[0]
+        # 4 projections, q.k and p.v per head (+ both band terms), 2 FFN convs
+        flops = 2.0 * b * t * (4 * h * h + 2 * t * h + 2 * band * h
+                               + weights[14].numel() + weights[16].numel())
+    elif name == "mas":
+        # per cell a masked add and a compare-select going forward, and the
+        # backtrack's one choice per frame
+        flops = 3.0 * args[0].numel()
+    else:  # the flow block and the WN stack
+        folded = args[0] if isinstance(args[0], dict) else dict(zip(("W_in", "b_in", "W_rs", "b_rs"), args[0]))
+        x = args[2]
+        rows = x.shape[0] * x.shape[1]
+        flops = 2.0 * rows * (folded["W_in"].numel() + folded["W_rs"].numel())
+        if "W_s" in folded:  # the block: folded actnorm/invconv, start and end convs
+            flops += 2.0 * rows * (folded["A"].numel() + folded["W_s"].numel() + folded["W_e"].numel())
+        if name == "block_bwd_store":  # from saves: no recompute but the end conv's logs
+            flops = 2.0 * flops + 2.0 * rows * folded["W_e"].numel() / 2
+        return flops
+    return 3.0 * flops if name.endswith("_bwd") else flops
+
+
+def tensor_bytes(tree) -> int:
+    """Bytes of every tensor in a nest of tuples, lists and dicts."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(tensor_bytes(v) for v in tree)
+    return 0
+
+
+def bound(name: str, args, kwargs, outputs) -> dict:
+    """The least time this card could take for one call: bytes (inputs read
+    once, outputs written once) over the memory rate, or operations over
+    the f32 peak, whichever is larger."""
+    n_bytes = tensor_bytes((args, kwargs)) + tensor_bytes(outputs)
+    flops = kernel_flops(name, args)
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_flops = flops / PEAK_F32_FLOPS * 1e3
+    return {
+        "bound_ms": max(by_bytes, by_flops),
+        "bound_by": "bytes" if by_bytes >= by_flops else "operations",
+        "bytes": n_bytes, "flops": flops, "library_ms": None,
+    }
 
 
 def fail(msg: str) -> None:
@@ -314,17 +414,10 @@ def rel_err(name: str, port, ref, rtol: float) -> tuple:
     return err, scale
 
 
-def train(workdir: Path, repo: Path, config_path: Path, device_line: str):
-    """The train CLI in-process on a synthetic corpus -> (launch counts of
-    the run, recorders of the training kernels, per-step rows, the last
-    checkpoint and its config)."""
-    import torch
+TEXT_KERNELS = ("prenet", "encoder_layer", "duration_stack")
 
-    from glow_tts_train_tpu_torch import __main__ as train_cli
-    from glow_tts_train_tpu_torch import kernels, training
-    from glow_tts_train_tpu_torch.config import load_config
-    from glow_tts_train_tpu_torch.ops import block_cuda, mas_cuda, wn_cuda
 
+def make_corpus(workdir: Path, repo: Path) -> tuple:
     corpus = workdir / "corpus"
     proc = subprocess.run(
         [sys.executable, str(repo / "scripts" / "make-synthetic-corpus.py"), str(corpus),
@@ -334,12 +427,24 @@ def train(workdir: Path, repo: Path, config_path: Path, device_line: str):
     if proc.returncode != 0:
         fail(f"make-synthetic-corpus.py: {proc.stderr[-2000:]}")
     manifest = json.loads((corpus / "manifest.json").read_text())
-    override = workdir / "train_override.json"
-    override.write_text(json.dumps(dict(TRAIN_OVERRIDE, model={"num_symbols": manifest["num_symbols"]})))
-    n_blocks = load_config([config_path, override]).model.n_blocks_dec
     print(f"train: corpus {manifest['n_utterances']} utterances, phonemes "
           f"{manifest['phonemes_min_max']}, frames {manifest['frames_min_max']}")
+    return corpus, manifest
 
+
+def run_train_cli(workdir: Path, corpus: Path, manifest: dict, config_path: Path,
+                  override: dict, tag: str, n_steps: int, recorders: dict):
+    """The train CLI in-process on the corpus -> (launch counts of the run,
+    per-step rows, the last step's function, state and batch, the output
+    directory, seconds).  ``recorders`` are armed for the last step."""
+    import torch
+
+    from glow_tts_train_tpu_torch import __main__ as train_cli
+    from glow_tts_train_tpu_torch import kernels, training
+
+    override_path = workdir / f"{tag}_override.json"
+    model_over = dict(override.get("model", {}), num_symbols=manifest["num_symbols"])
+    override_path.write_text(json.dumps(dict(override, model=model_over)))
     steps = []
     last = {}  # the last step's function, state and batch, for the profile
     make_step = training.make_train_step
@@ -348,11 +453,11 @@ def train(workdir: Path, repo: Path, config_path: Path, device_line: str):
         step_fn = make_step(config)
 
         def timed(state, batch, *args):
-            # the block and MAS kernels are held to their plain versions on
-            # the last step's inputs: by then the zero-initialised end convs
-            # have moved, so no gradient of the block is zero by construction
-            for name in ("block_fwd_save", "block_bwd_store", "mas"):
-                recorders[name].armed = len(steps) == TRAIN_STEPS - 1
+            # kernels are held to their plain versions on the last step's
+            # inputs: by then the zero-initialised end convs and prenet
+            # projection have moved, so no gradient is zero by construction
+            for rec in recorders.values():
+                rec.armed = rec.armed or len(steps) == n_steps - 1
             last.update(step_fn=step_fn, state=state, batch=batch, args=args)
             torch.cuda.synchronize()
             start = time.perf_counter()
@@ -367,22 +472,15 @@ def train(workdir: Path, repo: Path, config_path: Path, device_line: str):
 
         return timed
 
-    recorders = {
-        "wn_forward": Recorder(wn_cuda, "wn_stack"),
-        "block_fwd_save": Recorder(block_cuda, "block_fwd_save"),
-        "block_bwd_store": Recorder(block_cuda, "block_bwd_store"),
-        "mas": Recorder(mas_cuda, "maximum_path"),
-    }
-    recorders["wn_forward"].armed = True  # DDI, before the first step
     training.make_train_step = timed_make_train_step
-    out = workdir / "model"
+    out = workdir / f"model_{tag}"
     kernels.reset_launch_counts()
     start = time.perf_counter()
     try:
         train_cli.main([
             "--output", str(out), "--dataset", "0", str(corpus / "phonemes.csv"),
             str(corpus / "mels"), "--mels-dir", "--config", str(config_path),
-            "--config", str(override), "--metrics-file", str(workdir / "train.jsonl"),
+            "--config", str(override_path), "--metrics-file", str(workdir / f"{tag}.jsonl"),
             "--platform", PLATFORM,
         ])
         torch.cuda.synchronize()
@@ -392,32 +490,81 @@ def train(workdir: Path, repo: Path, config_path: Path, device_line: str):
             rec.restore()
     seconds = time.perf_counter() - start
     launches = kernels.launch_counts()
+    if len(steps) != n_steps:
+        fail(f"train {tag}: {len(steps)} steps, expected {n_steps}")
+    for i, row in enumerate(steps):
+        if not all(math.isfinite(row[k]) for k in ("loss", "mle_loss", "duration_loss")):
+            fail(f"train {tag} step {i + 1}: non-finite loss {row}")
+        if not (math.isfinite(row["grad_norm"]) and row["grad_norm"] > 0):
+            fail(f"train {tag} step {i + 1}: grad_norm {row['grad_norm']}")
+    return launches, steps, last, out, seconds
 
-    if len(steps) != TRAIN_STEPS:
-        fail(f"train: {len(steps)} steps, expected {TRAIN_STEPS}")
-    # DDI runs each block's WN stack once; each step each block once
+
+def train(workdir: Path, repo: Path, config_path: Path, device_line: str):
+    """Both training runs -> (launch counts of the main run, recorders of the
+    training kernels, per-step rows, median step ms, the profiled step, the
+    last checkpoint and its config)."""
+    from glow_tts_train_tpu_torch.config import load_config
+    from glow_tts_train_tpu_torch.ops import block_cuda, encoder_cuda, mas_cuda, text_cuda, wn_cuda
+
+    corpus, manifest = make_corpus(workdir, repo)
+    config = load_config([config_path])
+    n_blocks, n_layers = config.model.n_blocks_dec, config.model.n_layers_enc
+
+    recorders = {
+        "wn_forward": Recorder(wn_cuda, "wn_stack"),
+        "block_fwd_save": Recorder(block_cuda, "block_fwd_save"),
+        "block_bwd_store": Recorder(block_cuda, "block_bwd_store"),
+        "mas": Recorder(mas_cuda, "maximum_path"),
+        "prenet": Recorder(text_cuda, "prenet"),
+        "prenet_bwd": Recorder(text_cuda, "prenet_bwd"),
+        "encoder_layer": Recorder(encoder_cuda, "encoder_layer"),
+        "encoder_layer_bwd": Recorder(encoder_cuda, "encoder_layer_bwd"),
+        "duration_stack": Recorder(text_cuda, "duration_stack"),
+        "duration_stack_bwd": Recorder(text_cuda, "duration_stack_bwd"),
+    }
+    recorders["wn_forward"].armed = True  # DDI, before the first step
+    launches, steps, last, out, seconds = run_train_cli(
+        workdir, corpus, manifest, config_path, TRAIN_OVERRIDE, "fused", TRAIN_STEPS, recorders
+    )
+    # DDI runs each block's WN stack once; each step each block once, MAS
+    # once, and the text side's kernels forward and backward
     want = {"wn_forward": n_blocks, "block_fwd_save": n_blocks * TRAIN_STEPS,
-            "block_bwd_store": n_blocks * TRAIN_STEPS, "mas": TRAIN_STEPS}
+            "block_bwd_store": n_blocks * TRAIN_STEPS, "mas": TRAIN_STEPS,
+            "prenet": TRAIN_STEPS, "prenet_bwd": TRAIN_STEPS,
+            "encoder_layer": n_layers * TRAIN_STEPS, "encoder_layer_bwd": n_layers * TRAIN_STEPS,
+            "duration_stack": TRAIN_STEPS, "duration_stack_bwd": TRAIN_STEPS}
     got = {k: launches[k] for k in want}
     if got != want:
         fail(f"train: launches {got}, expected {want}")
-    for i, row in enumerate(steps):
-        if not all(math.isfinite(row[k]) for k in ("loss", "mle_loss", "duration_loss")):
-            fail(f"train step {i + 1}: non-finite loss {row}")
-        if not (math.isfinite(row["grad_norm"]) and row["grad_norm"] > 0):
-            fail(f"train step {i + 1}: grad_norm {row['grad_norm']}")
-    epochs = [json.loads(line) for line in (workdir / "train.jsonl").read_text().splitlines()]
+    epochs = [json.loads(line) for line in (workdir / "fused.jsonl").read_text().splitlines()]
     ckpt = out / f"checkpoint_{1 + TRAIN_STEPS}.npz"
     if len(epochs) != 2 or not ckpt.exists():
         fail(f"train: {len(epochs)} epoch lines, checkpoint {ckpt.name} exists: {ckpt.exists()}")
+    if not epochs[1]["avg_loss"] < epochs[0]["avg_loss"]:
+        fail(f"train: the loss did not fall over the epochs: {epochs}")
     for i, row in enumerate(steps):
         print(f"train step {i + 1}: x {row['shape'][0]} y {row['shape'][1]} loss {row['loss']:.4f} "
               f"(mle {row['mle_loss']:.4f}, dur {row['duration_loss']:.4f}) grad_norm "
               f"{row['grad_norm']:.4f}, {row['seconds'] * 1e3:.1f} ms [{device_line}]")
     step_ms = statistics.median(r["seconds"] for r in steps[1:]) * 1e3
-    print(f"train: CLI {seconds:.1f} s (corpus load, DDI, 8 steps, 2 checkpoints); median "
-          f"step after the first {step_ms:.1f} ms; epochs {epochs}; launches {got}")
+    print(f"train: CLI {seconds:.1f} s (corpus load, DDI, 8 steps, 2 checkpoints), encoder_fuse auto; "
+          f"median step after the first {step_ms:.1f} ms; epochs {epochs}; launches {got}")
     profile = profile_step(last, device_line)
+
+    # the op-by-op text side still trains, and launches none of the text kernels
+    u_launches, u_steps, _, _, u_seconds = run_train_cli(
+        workdir, corpus, manifest, config_path, UNFUSED_OVERRIDE, "unfused", UNFUSED_STEPS, {}
+    )
+    u_blocks = UNFUSED_OVERRIDE["model"]["n_blocks_dec"]
+    u_want = {"wn_forward": u_blocks, "block_fwd_save": u_blocks * UNFUSED_STEPS,
+              "block_bwd_store": u_blocks * UNFUSED_STEPS, "mas": UNFUSED_STEPS,
+              **{k: 0 for name in TEXT_KERNELS for k in (name, name + "_bwd")}}
+    u_got = {k: u_launches[k] for k in u_want}
+    if u_got != u_want:
+        fail(f"train encoder_fuse false: launches {u_got}, expected {u_want}")
+    print(f"train: encoder_fuse false, {UNFUSED_OVERRIDE['model']}: {UNFUSED_STEPS} steps in "
+          f"{u_seconds:.1f} s, losses {[round(r['loss'], 4) for r in u_steps]}, launches {u_got}")
     return launches, recorders, steps, step_ms, profile, ckpt, out / f"config_{1 + TRAIN_STEPS}.json"
 
 
@@ -446,17 +593,21 @@ def profile_step(last: dict, device_line: str) -> dict:
     busy_ms = sum(by_kernel.values())
     block = sum(v for k, v in by_kernel.items()
                 if any(n in k for n in ("conv_gemm_kernel", "wgrad_kernel", "col_sum_kernel")))
+    attention = sum(v for k, v in by_kernel.items() if "attention_kernel" in k or "attn_bwd" in k)
+    norms = sum(v for k, v in by_kernel.items() if "layer_norm" in k)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     row = {
         "batch_x": list(last["batch"]["x"].shape), "batch_y": list(last["batch"]["y"].shape),
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms if busy_ms > 0 else None,
         "device_launches": launches, "gemm_wgrad_colsum_ms": block,
+        "attention_ms": attention, "layer_norm_ms": norms,
         "top_ms": {k[:70]: v for k, v in top},
     }
     print(f"train profiled step: x {row['batch_x']} y {row['batch_y']} wall {wall_ms:.1f} ms, "
           f"device busy {busy_ms:.1f} ms, idle share {row['idle_share']}, {launches} device "
-          f"operations, conv_gemm+wgrad+col_sum {block:.1f} ms [{device_line}]")
+          f"operations, conv_gemm+wgrad+col_sum {block:.1f} ms, attention fwd+bwd "
+          f"{attention:.1f} ms, layer_norm fwd+bwd {norms:.1f} ms [{device_line}]")
     for k, v in top:
         print(f"  {v:9.3f} ms  {k[:100]}")
     return row
@@ -482,9 +633,10 @@ def serve_trained(ckpt: Path, config: Path, n_mel: int) -> None:
     print(f"train: the trained checkpoint {ckpt.name} serves a 12-phoneme request: mel {list(mel.shape)}")
 
 
-def training_kernels(recorders: dict, launches: dict, device_line: str) -> list:
+def training_kernels(recorders: dict, launches: dict, device_line: str) -> tuple:
     """Each training kernel against its plain version on the recorded
-    inputs, and both timed."""
+    inputs, and both timed -> (the kernels' report entries, the text
+    stacks' forward kernels held again with dropout on)."""
     import numpy as np
     import torch
 
@@ -492,23 +644,25 @@ def training_kernels(recorders: dict, launches: dict, device_line: str) -> list:
 
     report = []
 
-    def entry(name, err, scale, ms, plain_ms, shape, **extra):
+    def entry(name, err, scale, ms, plain_ms, shape, roof, **extra):
         source, replaces = KERNEL_META[name]
         report.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "shape": shape, "max_abs_ref": scale, **extra,
+            **roof, "shape": shape, "max_abs_ref": scale, **extra,
         })
         print(f"kernel {name}: {shape} err {err:.3e} (max|ref| {scale:.3e}) kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms {extra or ''}[{device_line}]")
+              f"plain {plain_ms:.4f} ms, bound {roof['bound_ms']:.4f} ms by {roof['bound_by']} "
+              f"{extra or ''}[{device_line}]")
 
     # WN forward (DDI)
     args, kwargs = recorders["wn_forward"].args
     with torch.no_grad():
-        err, scale = rel_err("wn_forward", recorders["wn_forward"].fn(*args, **kwargs),
-                             wn_cuda.wn_stack_plain(*args, **kwargs), KERNEL_RTOL)
+        skip = recorders["wn_forward"].fn(*args, **kwargs)
+        err, scale = rel_err("wn_forward", skip, wn_cuda.wn_stack_plain(*args, **kwargs), KERNEL_RTOL)
         entry("wn_forward", err, scale, time_ms(recorders["wn_forward"].fn, args, kwargs),
-              time_ms(wn_cuda.wn_stack_plain, args, kwargs), list(args[2].shape))
+              time_ms(wn_cuda.wn_stack_plain, args, kwargs), list(args[2].shape),
+              bound("wn_forward", args, kwargs, skip))
 
     # block forward-save: z, ld and every saved residual
     args, kwargs = recorders["block_fwd_save"].args
@@ -527,7 +681,7 @@ def training_kernels(recorders: dict, launches: dict, device_line: str) -> list:
         ms = time_ms(block_cuda.block_fwd_save, args, kwargs)
         plain_ms = time_ms(block_cuda.block_forward_plain, (folded, g_all, x, x_mask, *cfg), {})
     entry("block_fwd_save", err, scale, ms, plain_ms, list(x.shape),
-          p_dropout=cfg[3], max_abs_err_ld=errs[1][0], max_abs_err_saves=max(e for e, _ in errs[2:]))
+          bound("block_fwd_save", args, kwargs, (z, ld, saves)), p_dropout=cfg[3], max_abs_err_ld=errs[1][0], max_abs_err_saves=max(e for e, _ in errs[2:]))
 
     # block backward-store: every gradient against autograd of the plain forward
     args, kwargs = recorders["block_bwd_store"].args
@@ -555,7 +709,7 @@ def training_kernels(recorders: dict, launches: dict, device_line: str) -> list:
     ms = time_ms(block_cuda.block_bwd_store, args, kwargs)
     plain_ms = time_ms(lambda: torch.autograd.grad(loss, inputs, retain_graph=True), (), {})
     entry("block_bwd_store", dx_err, dx_scale, ms, plain_ms, list(x.shape),
-          worst_rel_err_grad=worst[0] / max(worst[1], 1e-6),
+          bound("block_bwd_store", args, kwargs, grads), worst_rel_err_grad=worst[0] / max(worst[1], 1e-6),
           max_abs_w_e=folded["W_e"].abs().max().item())
 
     # MAS, bit for bit: the training shape, then a long one the TPU streams
@@ -583,10 +737,104 @@ def training_kernels(recorders: dict, launches: dict, device_line: str) -> list:
     long_err, long_scale = mas_err(long_logp, long_mask, list(MAS_LONG))
     long_ms = time_ms(mas_cuda.maximum_path, (long_logp, long_mask), {})
     long_plain_ms = time_ms(mas_cuda.maximum_path_plain, (long_logp, long_mask), {}, runs=20)
-    entry("mas", err, scale, ms, plain_ms, list(logp.shape), long_shape=list(MAS_LONG),
+    entry("mas", err, scale, ms, plain_ms, list(logp.shape),
+          bound("mas", args, kwargs, mas_cuda.maximum_path(*args, **kwargs)),
+          long_shape=list(MAS_LONG),
+          long_bound_ms=bound("mas", (long_logp, long_mask), {},
+                              mas_cuda.maximum_path(long_logp, long_mask))["bound_ms"],
           long_err=long_err, long_max_abs_ref=long_scale, long_ms=long_ms,
           long_plain_ms=long_plain_ms)
-    return report
+    return report, text_kernels(recorders, launches, entry)
+
+
+def text_kernels(recorders: dict, launches: dict, entry) -> list:
+    """The text side's training kernels on the last step's recorded inputs:
+    each forward kernel with dropout on against its plain version (equal
+    keep masks), and each backward kernel against autograd of the plain
+    version: first its ReLU gates against the plain version's (they may
+    differ only at ties, GATE_TIE_RTOL), then dx and every weight gradient,
+    with the cotangent scaled to max 1, at those gates."""
+    import torch
+
+    from glow_tts_train_tpu_torch.ops import encoder_cuda, text_cuda
+
+    plain_fwd = {
+        "prenet": lambda w, x, m, p, seed: text_cuda.prenet_plain(w, x, m, p, seed=seed),
+        "encoder_layer": encoder_cuda.encoder_layer_plain,
+        "duration_stack": lambda w, x, m, p, seed: text_cuda.duration_stack_plain(w, x, m, p, seed=seed),
+    }
+    plain_bwd = {
+        "prenet": text_cuda.prenet_bwd_plain,
+        "encoder_layer": encoder_cuda.encoder_layer_bwd_plain,
+        "duration_stack": text_cuda.duration_stack_bwd_plain,
+    }
+    forward_rows = []
+    for name in TEXT_KERNELS:
+        # forward, dropout on
+        args, kwargs = recorders[name].args
+        p_dropout = args[-2]
+        if not p_dropout > 0.0:
+            fail(f"{name}: the recorded training call has no dropout ({args[3:]})")
+        with torch.no_grad():
+            out_k = recorders[name].fn(*args, **kwargs)
+            out_p = plain_fwd[name](*args, **kwargs)
+            err, scale = rel_err(f"{name} with dropout", out_k, out_p, DROPOUT_FWD_RTOL)
+            ms = time_ms(recorders[name].fn, args, kwargs)
+            plain_ms = time_ms(plain_fwd[name], args, kwargs)
+        forward_rows.append({
+            "name": name, "train_launches": launches[name], "train_shape": list(args[1].shape),
+            "train_p_dropout": p_dropout, "train_max_abs_err": err, "train_max_abs_ref": scale,
+            "train_ms": ms, "train_plain_ms": plain_ms,
+            **{"train_" + k: v for k, v in bound(name, args, kwargs, out_k).items()},
+        })
+        print(f"kernel {name} (training, p_dropout {p_dropout}): {list(args[1].shape)} err {err:.3e} "
+              f"(max|ref| {scale:.3e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"{launches[name]} launches in training")
+
+        # backward
+        bwd = name + "_bwd"
+        args, kwargs = recorders[bwd].args
+        weights, x, mask, dout, *cfg = args
+        dout = dout / dout.abs().max().clamp_min(1e-30)  # the backward is linear in dout
+        args = (weights, x, mask, dout, *cfg)
+        saves, plain_saves = {}, {}
+        grads = recorders[bwd].fn(*args, saves=saves, **kwargs)
+        plain_bwd[name](*args, saves=plain_saves, **kwargs)
+        ties = 0
+        for l, (gk, gp, pre) in enumerate(zip(saves["gates"], plain_saves["gates"], plain_saves["pre"])):
+            differ = gk != gp
+            ties += int(differ.sum())
+            if differ.any() and not pre[differ].abs().max() <= GATE_TIE_RTOL * pre.abs().max():
+                fail(f"{bwd}: layer {l}: a ReLU gate differs from the plain version's where "
+                     f"|input| is {pre[differ].abs().max().item()} (max {pre.abs().max().item()})")
+        if ties > 64:
+            fail(f"{bwd}: {ties} ReLU gates differ from the plain version's")
+        ref = plain_bwd[name](*args, gates=saves["gates"], **kwargs)
+        worst = (0.0, 1.0)
+        for i, (g, r) in enumerate(zip(grads, ref)):
+            # encoder layer: the key bias's gradient (index 4) is zero but for
+            # rounding, a row's scores all shift alike: held to the query bias's scale
+            floor = ref[2].abs().max().item() if (name, i) == ("encoder_layer", 4) else 1e-6
+            e = (g - r).abs().max().item()
+            sc = max(r.abs().max().item(), floor)
+            if not math.isfinite(e) or e > KERNEL_RTOL * sc:
+                fail(f"{bwd}: gradient {i} max abs err {e} vs max |ref| {sc} "
+                     f"(tolerance {KERNEL_RTOL} relative)")
+            if i > 0 and r.abs().max().item() == 0.0 and (name, i) != ("encoder_layer", 4):
+                fail(f"{bwd}: gradient {i} is zero in the plain version: nothing was compared")
+            if e / sc > worst[0] / worst[1]:
+                worst = (e, sc)
+        again = recorders[bwd].fn(*args, **kwargs)
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            fail(f"{bwd}: two runs gave different bits")
+        dx_err = (grads[0] - ref[0]).abs().max().item()
+        dx_scale = ref[0].abs().max().item()
+        ms = time_ms(recorders[bwd].fn, args, kwargs)
+        plain_ms = time_ms(plain_bwd[name], args, kwargs)
+        entry(bwd, dx_err, dx_scale, ms, plain_ms, list(x.shape), bound(bwd, args, kwargs, grads),
+              p_dropout=cfg[-2], worst_rel_err_grad=worst[0] / worst[1], n_gradients=len(grads),
+              relu_ties=ties, same_bits_twice=True)
+    return forward_rows
 
 
 def main() -> int:
@@ -694,13 +942,15 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
             plain_ms = time_ms(plains[name], args, kwargs)
         x = next(a for a in args if isinstance(a, torch.Tensor) and a.dim() == 3)
         source, replaces = KERNEL_META[name]
+        roof = bound(name, args, kwargs, out_k)
         report.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "shape": list(x.shape), "max_abs_ref": scale,
+            "plain_ms": plain_ms, **roof, "shape": list(x.shape), "max_abs_ref": scale,
         })
         print(f"kernel {name}: x {list(x.shape)} err {err:.3e} (max|ref| {scale:.3f}) "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{device_line}]")
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {roof['bound_ms']:.4f} ms "
+              f"by {roof['bound_by']} [{device_line}]")
 
     # ---- the whole mel: kernel path on the card vs plain path on the CPU ----
     rng = np.random.default_rng(SEED + 1)
@@ -747,7 +997,10 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
         workdir, repo, config_path, device_line
     )
     serve_trained(trained, trained_config, hp.out_channels)
-    report += training_kernels(train_recorders, train_launches, device_line)
+    train_report, forward_rows = training_kernels(train_recorders, train_launches, device_line)
+    report += train_report
+    for row in forward_rows:  # the text stacks' forward kernels, training shape and dropout
+        next(r for r in report if r["name"] == row["name"]).update(row)
 
     print(json.dumps({"serve": serve_rows}))
     print(json.dumps({"train": {"steps": steps, "median_step_ms_after_first": step_ms,

@@ -12,7 +12,7 @@ cpu`` runs their plain PyTorch versions.  Without --checkpoint the model
 is initialised fresh and ActNorm data-dependently on the first batch; a
 --checkpoint (``.npz``, params) starts Adam fresh, as the JAX CLI does for
 a checkpoint without optimizer state.  The corpus and batches come from
-the JAX package's jax-free ``glow_tts_train_tpu.data``.  Single device:
+the package's own ``data`` pipeline (numpy).  Single device:
 the mesh and multi-host flags are not taken.
 """
 
@@ -67,7 +67,9 @@ def main(argv=None):
 
     import torch
 
-    from glow_tts_train_tpu.data import (
+    from .checkpoint import read_npz
+    from .config import load_config
+    from .data import (
         CorpusError,
         DataPipeline,
         MissingMelsError,
@@ -75,9 +77,6 @@ def main(argv=None):
         build_dataset,
         detect_num_symbols,
     )
-
-    from .checkpoint import read_npz
-    from .config import load_config
     from .models import hyper_from_config
     from .training import TrainState, batch_to, check_trainable, initialize_model, train, trainable_model
 
@@ -87,7 +86,7 @@ def main(argv=None):
     _LOGGER.debug(config)
     # refused up front, before the corpus loads or a kernel builds
     try:
-        check_trainable(config, args.platform)
+        check_trainable(config)
     except NotImplementedError as err:
         parser.error(str(err))
     if args.platform == "cuda" and not torch.cuda.is_available():

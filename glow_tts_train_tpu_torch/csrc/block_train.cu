@@ -121,8 +121,7 @@ extern "C" int gtt_block_fwd_save(
     g.taps = taps; g.dilation = dilation; g.split = h;
     g.out2 = th + l * rh; g.ldo2 = h; g.out3 = sg + l * rh; g.ldo3 = h;
     if (g_all) { g.aux = g_all + l * 2 * h; g.ld_aux = g_stride; }
-    g.drop = drop; g.seed = (unsigned)seed; g.layer = l; g.n_layers = n_layers;
-    g.threshold = threshold; g.scale = scale;
+    g.drop = make_dropout(drop, seed, n_layers, threshold, scale).at(l);
     GTT_TRY(conv_gemm(g, stream));
     const bool last = l == n_layers - 1;
     ConvGemm r = rows_gemm(acts, h, h, batch, t, w_rs + (long)l * h * 2 * h,
@@ -190,8 +189,7 @@ extern "C" int gtt_block_bwd_store(
                              nullptr, h, kGateBwd, dia, h2, nullptr);
       g.split = h; g.aux = th + l * rh; g.aux2 = sg + l * rh; g.ld_aux = h;
       g.out2 = dxin; g.ldo2 = h2; g.out3 = acts; g.ldo3 = h;
-      g.drop = drop; g.seed = (unsigned)seed; g.layer = l; g.n_layers = n_layers;
-      g.threshold = threshold; g.scale = scale;
+      g.drop = make_dropout(drop, seed, n_layers, threshold, scale).at(l);
       GTT_TRY(conv_gemm(g, stream));
     }
     GTT_TRY(wgrad(wgrad_of(acts, h, h, batch, t, g_rs, h2, h2,

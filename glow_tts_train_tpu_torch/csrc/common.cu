@@ -1,4 +1,4 @@
-// conv_gemm, wgrad, col_sum and layer_norm (see common.cuh).
+// conv_gemm, wgrad, col_sum, layer_norm and layer_norm_bwd (see common.cuh).
 //
 // conv_gemm is a shared-memory SGEMM: a 64x64 output tile per block of 256
 // threads, a 4x4 accumulator per thread, 32-deep K slices double-buffered
@@ -44,27 +44,10 @@ __device__ __forceinline__ float bias_at(const ConvGemm& g, int n) {
   return g.bias ? g.bias[n] : 0.f;
 }
 
-// The portable counter hash of wn_pallas.py _portable_bits (uint32 wrap).
-__device__ __forceinline__ unsigned portable_bits(unsigned seed, unsigned idx) {
-  unsigned x = idx ^ (seed * 2654435761u);
-  x = (x ^ (x >> 13)) * 0x9E3779B1u;
-  x = (x ^ (x >> 15)) * 0x85EBCA6Bu;
-  return x ^ (x >> 16);
-}
-
-// Keep bit of row m, JAX column col of the [t, 2 * split] pre-gate tensor.
-__device__ __forceinline__ bool keep_bit(const ConvGemm& g, int m, int col) {
-  const int b = m / g.t;
-  const unsigned seed =
-      ((g.seed + (unsigned)b) * (unsigned)g.n_layers) + (unsigned)g.layer;
-  const unsigned idx = (unsigned)(m - b * g.t) * (unsigned)(2 * g.split) + col;
-  return portable_bits(seed, idx) >= g.threshold;
-}
-
-// JAX: xin * keepf * scale
+// Dropout of row m, JAX column col of the [t, 2 * split] pre-gate tensor.
 __device__ __forceinline__ float dropped(const ConvGemm& g, int m, int col, float v) {
-  if (!g.drop) return v;
-  return keep_bit(g, m, col) ? v * g.scale : 0.f;
+  const int b = m / g.t;
+  return site_drop(g.drop, b, m - b * g.t, 2 * g.split, col, v);
 }
 
 __device__ __forceinline__ float coupling_logs(const ConvGemm& g, float raw) {
@@ -184,7 +167,25 @@ __device__ __forceinline__ void epilogue_row(const ConvGemm& g, int m, int n0,
       }
       break;
     }
+    case kMaskReluBwd: {
+      const float sc = g.drop.on ? g.drop.scale * rm : rm;
+      for (int e = 0; e < 4; ++e) {
+        const int n = n0 + e;
+        if (n >= g.n) break;
+        out[n] = g.aux[(long)m * g.ld_aux + n] > 0.f ? acc[e] * sc : 0.f;
+      }
+      break;
+    }
+    case kMaskAdd: {
+      for (int e = 0; e < 4; ++e) {
+        const int n = n0 + e;
+        if (n >= g.n) break;
+        out[n] = acc[e] * rm + g.aux[(long)m * g.ld_aux + n];
+      }
+      break;
+    }
     default: {
+      const int b = m / g.t;
       for (int e = 0; e < 4; ++e) {
         const int n = n0 + e;
         if (n >= g.n) break;
@@ -192,6 +193,7 @@ __device__ __forceinline__ void epilogue_row(const ConvGemm& g, int m, int n0,
         if (g.epilogue == kBiasRelu) v = fmaxf(v, 0.f);
         if (g.epilogue == kResidMask) v = (g.aux[(long)m * g.ld_aux + n] + v) * rm;
         if (g.epilogue == kBiasMask) v *= rm;
+        if (g.epilogue != kResidMask) v = site_drop(g.drop, b, m - b * g.t, g.n, n, v);
         out[n] = v;
       }
     }
@@ -406,8 +408,8 @@ __global__ void __launch_bounds__(256) wgrad_kernel(const WGrad w, int rows_per_
 
 // One column per threadIdx.x, 8 row groups per column, summed in a fixed
 // order through shared memory.
-__global__ void col_sum_kernel(const float* x, int ld, int n, const float* mask,
-                               int T, float* out, int ldo) {
+__global__ void col_sum_kernel(const float* x, const float* mul, int ld, int n,
+                               const float* mask, int T, float* out, int ldo) {
   __shared__ float part[8][33];
   const int j = blockIdx.x * 32 + threadIdx.x;
   const int s = blockIdx.y;
@@ -416,6 +418,7 @@ __global__ void col_sum_kernel(const float* x, int ld, int n, const float* mask,
     for (int r = threadIdx.y; r < T; r += 8) {
       const long row = (long)s * T + r;
       float e = x[row * ld + j];
+      if (mul) e *= mul[row * ld + j];
       if (mask) e *= mask[row];
       v += e;
     }
@@ -457,10 +460,48 @@ __global__ void layer_norm_kernel(const LayerNorm a) {
     q += d * d;
   }
   const float rstd = rsqrtf(warp_sum(q) / a.n + 1e-4f);
+  if (a.rstd && lane == 0) a.rstd[row] = rstd;
+  const int b = a.t > 0 ? row / a.t : 0;
+  const int tr = row - b * a.t;
   for (int c = lane; c < a.n; c += 32) {
-    float y = (load(c) - mean) * rstd * a.gamma[c] + a.beta[c];
+    const float xh = (load(c) - mean) * rstd;
+    if (a.xhat) a.xhat[base + c] = xh;
+    float y = xh * a.gamma[c] + a.beta[c];
     if (a.relu_after) y = fmaxf(y, 0.f);
-    a.out[base + c] = y;
+    a.out[base + c] = site_drop(a.drop, b, tr, a.n, c, y);
+  }
+}
+
+__global__ void layer_norm_bwd_kernel(const LayerNormBwd a) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= a.rows) return;
+  const long base = (long)row * a.n;
+  const int b = a.t > 0 ? row / a.t : 0;
+  const int tr = row - b * a.t;
+  auto dy_eff = [&](int c) {
+    float v = site_drop(a.drop, b, tr, a.n, c, a.dy[base + c]);
+    if (a.relu_after && a.xhat[base + c] * a.gamma[c] + a.beta[c] <= 0.f) v = 0.f;
+    return v;
+  };
+  float s1 = 0.f, s2 = 0.f;
+  for (int c = lane; c < a.n; c += 32) {
+    const float g = dy_eff(c) * a.gamma[c];
+    s1 += g;
+    s2 += g * a.xhat[base + c];
+  }
+  const float m1 = warp_sum(s1) / a.n;
+  const float m2 = warp_sum(s2) / a.n;
+  const float rstd = a.rstd[row];
+  const float rm2 = a.mask2 ? a.mask2[row] : 1.f;
+  for (int c = lane; c < a.n; c += 32) {
+    const float de = dy_eff(c);  // before any aliased store below
+    const float xh = a.xhat[base + c];
+    float dx = (de * a.gamma[c] - m1 - xh * m2) * rstd;
+    if (a.relu_src && a.relu_src[base + c] <= 0.f) dx = 0.f;
+    if (a.dyeff) a.dyeff[base + c] = de;
+    a.dx[base + c] = dx;
+    if (a.dx2) a.dx2[base + c] = site_drop(a.drop2, b, tr, a.n, c, dx) * rm2;
   }
 }
 
@@ -487,8 +528,21 @@ cudaError_t col_sum(const float* x, int ld, int n, const float* mask, int n_seg,
                     int T, float* out, int ldo, cudaStream_t stream) {
   if (n <= 0 || n_seg <= 0) return cudaSuccess;
   col_sum_kernel<<<dim3((n + 31) / 32, n_seg), dim3(32, 8), 0, stream>>>(
-      x, ld, n, mask, T, out, ldo);
+      x, nullptr, ld, n, mask, T, out, ldo);
   return cudaGetLastError();
+}
+
+cudaError_t ln_param_grads(const float* dy, const float* xhat, int n, int batch,
+                           int t, float* part, float* dgamma, float* dbeta,
+                           cudaStream_t stream) {
+  if (n <= 0 || batch <= 0) return cudaSuccess;
+  col_sum_kernel<<<dim3((n + 31) / 32, batch), dim3(32, 8), 0, stream>>>(
+      dy, xhat, n, n, nullptr, t, part, n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if ((err = col_sum(part, n, n, nullptr, 1, batch, dgamma, n, stream)) != cudaSuccess)
+    return err;
+  return bias_grad(dy, n, n, nullptr, batch, t, part, dbeta, stream);
 }
 
 cudaError_t bias_grad(const float* x, int ld, int n, const float* mask,
@@ -570,6 +624,14 @@ cudaError_t layer_norm(const LayerNorm& a, cudaStream_t stream) {
   const int rows_per_block = 8;
   const int blocks = (a.rows + rows_per_block - 1) / rows_per_block;
   layer_norm_kernel<<<blocks, rows_per_block * 32, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t layer_norm_bwd(const LayerNormBwd& a, cudaStream_t stream) {
+  if (a.rows <= 0) return cudaSuccess;
+  const int rows_per_block = 8;
+  const int blocks = (a.rows + rows_per_block - 1) / rows_per_block;
+  layer_norm_bwd_kernel<<<blocks, rows_per_block * 32, 0, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -20,12 +20,20 @@
 //  * wn_layers: the WN stack's 2 conv_gemm launches per layer (gate, then
 //    res/skip), shared by the inverse block and the WN forward.
 //  * layer_norm: one warp per row over the channel axis (eps 1e-4, biased
-//    variance), with an optional masked residual sum and ReLU before or after.
+//    variance), with an optional masked residual sum and ReLU before or after;
+//    in training it drops its result and keeps the normalised input and the
+//    inverse std.
+//  * layer_norm_bwd: the closed-form LayerNorm backward, dx per row by one
+//    warp, with the neighbouring ReLU and dropout tails; ln_param_grads:
+//    dgamma and dbeta as deterministic column sums.
 //
 // Dropout keep masks are the JAX kernels' portable counter hash
-// (wn_pallas.py _portable_bits): keep = hash(seed_l, row * 2h + col) >=
-// threshold, seed_l = (seed + sample) * n_layers + layer in 32-bit
-// wrap-around, col the JAX column of the [t, 2h] pre-gate tensor (u | v).
+// (wn_pallas.py _portable_bits, encoder_pallas.py _drop_keep): keep =
+// hash(seed_s, row * n_cols + col) >= threshold, seed_s = (seed + sample) *
+// n_sites + site in 32-bit wrap-around, over one sample's padded [t, n_cols]
+// tensor.  The WN stack's sites are its layers and its tensor the [t, 2h]
+// pre-gate (u | v); the text kernels' sites are listed in encoder.cu and
+// text.cu.
 //
 // Activations are channels-last [batch * t, channels] row-major; weights are
 // the JAX folds' [taps * c_in, n] row-major matrices, so no weight is
@@ -35,6 +43,55 @@
 #include <cuda_runtime.h>
 
 namespace gtt {
+
+struct Dropout {
+  int on = 0;
+  unsigned seed = 0;  // the call's seed; sample b draws from seed + b
+  int site = 0;
+  int n_sites = 1;
+  unsigned threshold = 0;  // keep where bits >= threshold
+  float scale = 1.f;       // 1 / (1 - p)
+  __host__ __device__ Dropout at(int s) const {
+    Dropout d = *this;
+    d.site = s;
+    return d;
+  }
+};
+
+// The portable counter hash of wn_pallas.py _portable_bits (uint32 wrap).
+__device__ __forceinline__ unsigned portable_bits(unsigned seed, unsigned idx) {
+  unsigned x = idx ^ (seed * 2654435761u);
+  x = (x ^ (x >> 13)) * 0x9E3779B1u;
+  x = (x ^ (x >> 15)) * 0x85EBCA6Bu;
+  return x ^ (x >> 16);
+}
+
+// Keep bit of element (row, col) of sample `sample`'s [t, n_cols] tensor.
+__device__ __forceinline__ bool site_keep(const Dropout& d, int sample, int row,
+                                          int n_cols, int col) {
+  const unsigned seed =
+      (d.seed + (unsigned)sample) * (unsigned)d.n_sites + (unsigned)d.site;
+  return portable_bits(seed, (unsigned)row * (unsigned)n_cols + (unsigned)col) >=
+         d.threshold;
+}
+
+// JAX: x * keepf * scale; the identity when the site is off.
+__device__ __forceinline__ float site_drop(const Dropout& d, int sample, int row,
+                                           int n_cols, int col, float v) {
+  if (!d.on) return v;
+  return site_keep(d, sample, row, n_cols, col) ? v * d.scale : 0.f;
+}
+
+inline Dropout make_dropout(int on, int seed, int n_sites, unsigned threshold,
+                            float scale) {
+  Dropout d;
+  d.on = on;
+  d.seed = (unsigned)seed;
+  d.n_sites = n_sites;
+  d.threshold = threshold;
+  d.scale = scale;
+  return d;
+}
 
 enum Epilogue : int {
   kBias = 0,         // out = acc + bias
@@ -50,7 +107,12 @@ enum Epilogue : int {
   kCouplingBwd = 9,  // from logs_raw: out = [dm | dlogs], out2[:, split + j] = dx1
   kGateBwd = 10,     // from da: out = d_in_act, out2 = d_xin (dropped), out3 = acts
   kAccumMask = 11,   // out = out * mask + acc; out2 = that * mask
+  kMaskReluBwd = 12, // out = aux > 0 ? acc * mask * drop.scale : 0 (aux: the
+                     // dropped ReLU output, > 0 exactly where kept and active)
+  kMaskAdd = 13,     // out = acc * mask + aux
 };
+// kBias, kBiasRelu and kBiasMask drop their result when drop.on (site
+// drop.site over the [t, n] output).
 
 struct ConvGemm {
   // A: rows of a channels-last source [batch * t, lda]; the im2col column
@@ -93,13 +155,9 @@ struct ConvGemm {
   const float* aux3 = nullptr;
   float* out3 = nullptr;
   int ldo3 = 0;
-  // dropout of kGateSave / kGateBwd (keep mask replayed from the seed)
-  int drop = 0;
-  unsigned seed = 0;
-  int layer = 0;
-  int n_layers = 1;
-  unsigned threshold = 0;
-  float scale = 1.f;
+  // dropout of kGateSave / kGateBwd (the site is the WN layer) and of the
+  // plain epilogues; keep masks are replayed from the seed
+  Dropout drop;
 };
 
 cudaError_t conv_gemm(const ConvGemm& g, cudaStream_t stream);
@@ -137,6 +195,13 @@ cudaError_t bias_grad(const float* x, int ld, int n, const float* mask,
                       int batch, int t, float* part, float* out,
                       cudaStream_t stream);
 
+// dgamma[j] = sum_rows dy[r, j] * xhat[r, j] and dbeta[j] = sum_rows dy[r, j]
+// over all batch * t rows of two [rows, n] tensors, per-sample partials in
+// part [batch, n] added in sample order.
+cudaError_t ln_param_grads(const float* dy, const float* xhat, int n, int batch,
+                           int t, float* part, float* dgamma, float* dbeta,
+                           cudaStream_t stream);
+
 // The WN stack's layers without dropout or saves (the inverse block and the
 // WN forward): per layer the dilated in-conv with the gate (+ g_all, row b
 // at g_all + b * g_stride, layer l at column l * 2h, or null), then the 1x1
@@ -161,8 +226,42 @@ struct LayerNorm {
   int n = 0;
   int relu_before = 0;
   int relu_after = 0;
+  // training: drop the result (after the ReLU; site over [t, n], rows of t
+  // per sample) and keep the normalised input and the inverse std
+  int t = 0;
+  Dropout drop;
+  float* xhat = nullptr;  // [rows, n] or null
+  float* rstd = nullptr;  // [rows] or null
 };
 
 cudaError_t layer_norm(const LayerNorm& a, cudaStream_t stream);
+
+struct LayerNormBwd {
+  // Backward of y = drop(relu_after?(LN(relu_src? relu(pre) : x))): with
+  // dyeff = dy * keep * scale * [xhat * gamma + beta > 0 if relu_after],
+  //   dx = (g - mean(g) - xhat * mean(g * xhat)) * rstd,  g = dyeff * gamma,
+  // times [relu_src > 0] when the forward's ReLU came before the norm
+  // (encoder_pallas.py _ln_bwd).  dyeff is written for ln_param_grads.
+  const float* dy = nullptr;
+  const float* xhat = nullptr;
+  const float* rstd = nullptr;
+  const float* gamma = nullptr;
+  const float* beta = nullptr;      // read when relu_after
+  const float* relu_src = nullptr;  // [rows, n] or null
+  float* dyeff = nullptr;           // [rows, n] or null; may alias dy
+  float* dx = nullptr;              // [rows, n]; may alias dy
+  // optional second result dx2 = dx * keep2 * scale2 * mask2 (the cotangent
+  // of a dropped, masked branch that fed the norm's input)
+  float* dx2 = nullptr;
+  Dropout drop2;
+  const float* mask2 = nullptr;  // [rows] or null
+  int rows = 0;
+  int n = 0;
+  int t = 0;
+  int relu_after = 0;
+  Dropout drop;
+};
+
+cudaError_t layer_norm_bwd(const LayerNormBwd& a, cudaStream_t stream);
 
 }  // namespace gtt

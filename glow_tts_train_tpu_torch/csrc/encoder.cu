@@ -19,17 +19,22 @@
 // of q.rel_k added to the scores, and the band of the probabilities times
 // rel_v added to the output; the raw band scores are kept per row so the
 // band probabilities come out of the final max and sum.
+//
+// Training dropout is the TPU kernel's per-site keep mask (sites in
+// encoder.cuh).  In the streaming softmax the keep mask scales only the
+// numerator (the weighted sum of v and the band term), never the running
+// sum: the softmax is of the undropped scores.
 #include <math.h>
 
-#include "common.cuh"
+#include "encoder.cuh"
 
 namespace gtt {
 namespace {
 
 constexpr int kQT = 16;       // query rows per block
 constexpr int kKT = 32;       // keys per shared-memory tile (one per lane)
-constexpr int kMaxD = 128;    // head width
-constexpr int kMaxBand = 33;  // 2 * window + 1
+constexpr int kMaxD = kAttnMaxD;
+constexpr int kMaxBand = kAttnMaxBand;
 constexpr int kWarps = 4;
 constexpr int kRowsPerWarp = kQT / kWarps;
 constexpr int kDPerLane = kMaxD / 32;
@@ -45,8 +50,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 __global__ void __launch_bounds__(kWarps * 32)
     attention_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
                      const float* __restrict__ rel_k, const float* __restrict__ rel_v,
-                     float* __restrict__ out, int t, int n_heads, int d,
-                     int window, float scale) {
+                     float* __restrict__ out, float* __restrict__ stat_m,
+                     float* __restrict__ stat_linv, int t, int n_heads, int d,
+                     int window, float scale, const Dropout drop_all) {
   __shared__ float qs[kQT][kMaxD];
   __shared__ float ks[kKT][kMaxD + 1];  // +1: lane j reads row j, no bank conflict
   __shared__ float vs[kKT][kMaxD];
@@ -65,6 +71,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
+  const Dropout drop = drop_all.at(hd);  // over this head's [t, t] probabilities
 
   for (int i = tid; i < kQT * d; i += kWarps * 32) {
     const int r = i / d, c = i % d;
@@ -151,6 +158,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       const float alpha = expf(m_run[rr] - m_new);
       p[rr] = expf(s[rr] - m_new);
       ps[rr] = p[rr];
+      if (drop.on && key < t) p[rr] = site_drop(drop, b, qi[rr], t, key, p[rr]);
       m_run[rr] = m_new;
       l_run[rr] *= alpha;
 #pragma unroll
@@ -189,6 +197,11 @@ __global__ void __launch_bounds__(kWarps * 32)
     const int r = warp * kRowsPerWarp + rr;
     if (qi[rr] >= t) continue;
     const float inv = 1.f / l_run[rr];
+    if (stat_m && lane == 0) {
+      const long at = ((long)b * n_heads + hd) * t + qi[rr];
+      stat_m[at] = m_run[rr];
+      stat_linv[at] = inv;
+    }
 #pragma unroll
     for (int e = 0; e < kDPerLane; ++e) {
       const int c = lane + 32 * e;
@@ -198,7 +211,7 @@ __global__ void __launch_bounds__(kWarps * 32)
         const int key = qi[rr] + o - window;
         if (key < 0 || key >= t) continue;
         const float pb = expf(band[r][o] - m_run[rr]) * inv;
-        v = fmaf(pb, rel_v[o * d + c], v);
+        v = fmaf(site_drop(drop, b, qi[rr], t, key, pb), rel_v[o * d + c], v);
       }
       out[((long)b * t + qi[rr]) * h + hd * d + c] = v;
     }
@@ -206,6 +219,72 @@ __global__ void __launch_bounds__(kWarps * 32)
 }
 
 }  // namespace
+
+cudaError_t encoder_forward(const EncoderArgs& a, cudaStream_t stream) {
+  const int h = a.h, batch = a.batch, t = a.t;
+  const int H = a.n_heads;
+  const int d = h / H;
+  if (d > kMaxD || 2 * a.window + 1 > kMaxBand) return cudaErrorInvalidValue;
+  const int rows = batch * t;
+  cudaError_t err;
+
+  const float* wqkv[3] = {a.wq, a.wk, a.wv};
+  const float* bqkv[3] = {a.bq, a.bk, a.bv};
+  for (int i = 0; i < 3; ++i) {
+    ConvGemm g;
+    g.a = a.x; g.lda = h; g.c_in = h; g.a_mask = a.mask;
+    g.batch = batch; g.t = t;
+    g.w = wqkv[i]; g.bias = bqkv[i]; g.n = h;
+    g.epilogue = kBias; g.out = a.qkv + i * h; g.ldo = 3 * h;
+    if ((err = conv_gemm(g, stream)) != cudaSuccess) return err;
+  }
+
+  const dim3 grid((t + kQT - 1) / kQT, H, batch);
+  attention_kernel<<<grid, kWarps * 32, 0, stream>>>(
+      a.qkv, a.mask, a.rel_k, a.rel_v, a.att, a.stat_m, a.stat_linv, t, H, d,
+      a.window, 1.f / sqrtf((float)d), a.drop);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  {  // y = drop(att @ wo + bo), staged in `out`
+    ConvGemm g;
+    g.a = a.att; g.lda = h; g.c_in = h; g.batch = batch; g.t = t;
+    g.w = a.wo; g.bias = a.bo; g.n = h; g.epilogue = kBias; g.out = a.out; g.ldo = h;
+    g.drop = a.drop.at(H);
+    if ((err = conv_gemm(g, stream)) != cudaSuccess) return err;
+  }
+  {  // x1 = LN(x * mask + y)
+    LayerNorm ln;
+    ln.x = a.x; ln.x_mask = a.mask; ln.resid = a.out; ln.gamma = a.gamma1;
+    ln.beta = a.beta1; ln.out = a.x1; ln.rows = rows; ln.n = h;
+    ln.xhat = a.xhat1; ln.rstd = a.rstd1;
+    if ((err = layer_norm(ln, stream)) != cudaSuccess) return err;
+  }
+  {  // ffn = drop(relu(conv(x1 * mask) + c1))
+    ConvGemm g;
+    g.a = a.x1; g.lda = h; g.c_in = h; g.a_mask = a.mask; g.taps = a.taps;
+    g.batch = batch; g.t = t; g.w = a.w1; g.bias = a.c1; g.n = a.f;
+    g.epilogue = kBiasRelu; g.out = a.ffn; g.ldo = a.f;
+    g.drop = a.drop.at(H + 1);
+    if ((err = conv_gemm(g, stream)) != cudaSuccess) return err;
+  }
+  {  // y2 = drop((conv(ffn * mask) + c2) * mask), staged in `out`
+    ConvGemm g;
+    g.a = a.ffn; g.lda = a.f; g.c_in = a.f; g.a_mask = a.mask; g.taps = a.taps;
+    g.batch = batch; g.t = t; g.w = a.w2; g.bias = a.c2; g.n = h;
+    g.epilogue = kBiasMask; g.out = a.out; g.ldo = h; g.mask = a.mask;
+    g.drop = a.drop.at(H + 2);
+    if ((err = conv_gemm(g, stream)) != cudaSuccess) return err;
+  }
+  {  // out = LN(x1 + y2)
+    LayerNorm ln;
+    ln.x = a.x1; ln.resid = a.out; ln.gamma = a.gamma2; ln.beta = a.beta2;
+    ln.out = a.out; ln.rows = rows; ln.n = h;
+    ln.xhat = a.xhat2; ln.rstd = a.rstd2;
+    if ((err = layer_norm(ln, stream)) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace gtt
 
 extern "C" int gtt_encoder_layer(
@@ -216,61 +295,17 @@ extern "C" int gtt_encoder_layer(
     const float* beta2, const float* w1, const float* c1, const float* w2,
     const float* c2, float* out, float* qkv, float* att, float* x1,
     float* ffn, int batch, int t, int h, int n_heads, int window, int f,
-    int taps, cudaStream_t stream) {
-  using namespace gtt;
-  const int d = h / n_heads;
-  if (d > kMaxD || 2 * window + 1 > kMaxBand) return (int)cudaErrorInvalidValue;
-  const int rows = batch * t;
-  cudaError_t err;
-
-  const float* wqkv[3] = {wq, wk, wv};
-  const float* bqkv[3] = {bq, bk, bv};
-  for (int i = 0; i < 3; ++i) {
-    ConvGemm g;
-    g.a = x; g.lda = h; g.c_in = h; g.a_mask = mask;
-    g.batch = batch; g.t = t;
-    g.w = wqkv[i]; g.bias = bqkv[i]; g.n = h;
-    g.epilogue = kBias; g.out = qkv + i * h; g.ldo = 3 * h;
-    if ((err = conv_gemm(g, stream)) != cudaSuccess) return (int)err;
-  }
-
-  const dim3 grid((t + kQT - 1) / kQT, n_heads, batch);
-  attention_kernel<<<grid, kWarps * 32, 0, stream>>>(
-      qkv, mask, rel_k, rel_v, att, t, n_heads, d, window,
-      1.f / sqrtf((float)d));
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  {  // y = att @ wo + bo, staged in `out`
-    ConvGemm g;
-    g.a = att; g.lda = h; g.c_in = h; g.batch = batch; g.t = t;
-    g.w = wo; g.bias = bo; g.n = h; g.epilogue = kBias; g.out = out; g.ldo = h;
-    if ((err = conv_gemm(g, stream)) != cudaSuccess) return (int)err;
-  }
-  {  // x1 = LN(x * mask + y)
-    LayerNorm ln;
-    ln.x = x; ln.x_mask = mask; ln.resid = out; ln.gamma = gamma1; ln.beta = beta1;
-    ln.out = x1; ln.rows = rows; ln.n = h;
-    if ((err = layer_norm(ln, stream)) != cudaSuccess) return (int)err;
-  }
-  {  // ffn = relu(conv(x1 * mask) + c1)
-    ConvGemm g;
-    g.a = x1; g.lda = h; g.c_in = h; g.a_mask = mask; g.taps = taps;
-    g.batch = batch; g.t = t; g.w = w1; g.bias = c1; g.n = f;
-    g.epilogue = kBiasRelu; g.out = ffn; g.ldo = f;
-    if ((err = conv_gemm(g, stream)) != cudaSuccess) return (int)err;
-  }
-  {  // y2 = (conv(ffn * mask) + c2) * mask, staged in `out`
-    ConvGemm g;
-    g.a = ffn; g.lda = f; g.c_in = f; g.a_mask = mask; g.taps = taps;
-    g.batch = batch; g.t = t; g.w = w2; g.bias = c2; g.n = h;
-    g.epilogue = kBiasMask; g.out = out; g.ldo = h; g.mask = mask;
-    if ((err = conv_gemm(g, stream)) != cudaSuccess) return (int)err;
-  }
-  {  // out = LN(x1 + y2)
-    LayerNorm ln;
-    ln.x = x1; ln.resid = out; ln.gamma = gamma2; ln.beta = beta2;
-    ln.out = out; ln.rows = rows; ln.n = h;
-    if ((err = layer_norm(ln, stream)) != cudaSuccess) return (int)err;
-  }
-  return (int)cudaGetLastError();
+    int taps, int drop, int seed, unsigned threshold, float scale,
+    cudaStream_t stream) {
+  gtt::EncoderArgs a;
+  a.x = x; a.mask = mask; a.wq = wq; a.bq = bq; a.wk = wk; a.bk = bk;
+  a.wv = wv; a.bv = bv; a.wo = wo; a.bo = bo; a.rel_k = rel_k; a.rel_v = rel_v;
+  a.gamma1 = gamma1; a.beta1 = beta1; a.gamma2 = gamma2; a.beta2 = beta2;
+  a.w1 = w1; a.c1 = c1; a.w2 = w2; a.c2 = c2;
+  a.out = out; a.qkv = qkv; a.att = att; a.x1 = x1; a.ffn = ffn;
+  a.batch = batch; a.t = t; a.h = h; a.n_heads = n_heads; a.window = window;
+  a.f = f; a.taps = taps;
+  a.drop = gtt::make_dropout(drop, seed, n_heads + 3, threshold, scale);
+  const cudaError_t err = gtt::encoder_forward(a, stream);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }

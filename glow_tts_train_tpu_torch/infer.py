@@ -115,16 +115,10 @@ def main(argv=None):
         parser.error("--platform cuda: no CUDA device is available")
     device = torch.device(args.platform)
 
-    from glow_tts_train_tpu.utils.stdio import (
-        exit_if_skipped,
-        make_emitter,
-        stdin_utterances,
-        validate_speaker,
-    )
-
     from .checkpoint import load_checkpoint
     from .config import load_config
     from .models import hyper_from_config, store_inverse
+    from .utils.stdio import exit_if_skipped, make_emitter, stdin_utterances, validate_speaker
 
     config = load_config(args.config or ())
     if args.num_symbols is not None:

@@ -1,9 +1,10 @@
 """Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
 
 At first use the sources are compiled with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, named by
-a hash of the sources so an edited source never loads a stale build, and
-loaded with ctypes.  Nothing is compiled or loaded at import time.  The
+(``sm_90a``), one compiler process per source file and all of them at
+once, and linked into one shared library with a plain C interface, named
+by a hash of the sources so an edited source never loads a stale build,
+and loaded with ctypes.  Nothing is compiled or loaded at import time.  The
 library goes under ``build/torch_kernels/`` at the root of a checkout;
 an installed package builds under ``$TORCH_EXTENSIONS_DIR`` (default
 ``~/.cache/torch_extensions``) instead.
@@ -35,7 +36,10 @@ else:
     ) / "glow_tts_train_tpu_torch"
 _ARCH = "arch=compute_90a,code=sm_90a"
 # sources in link order; every .cu and .cuh under csrc/ feeds the hash
-_SOURCES = ("common.cu", "text.cu", "encoder.cu", "block.cu", "block_train.cu", "mas.cu")
+_SOURCES = (
+    "common.cu", "text.cu", "text_train.cu", "encoder.cu", "encoder_train.cu",
+    "block.cu", "block_train.cu", "mas.cu",
+)
 
 # argument kinds of the C signatures: pointer, int, unsigned int, float
 _KINDS = {"p": ctypes.c_void_p, "i": ctypes.c_int, "u": ctypes.c_uint, "f": ctypes.c_float}
@@ -73,17 +77,34 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", _ARCH, "-std=c++17", "-O3", "-lineinfo",
-        "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-        "-o", str(tmp), *(str(_CSRC / s) for s in _SOURCES),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
+    nvcc = _nvcc()
+    objects = [_BUILD_DIR / f"{Path(s).stem}.{os.getpid()}.o" for s in _SOURCES]
+    compiles = [
+        subprocess.Popen(
+            [nvcc, "-gencode", _ARCH, "-std=c++17", "-O3", "-lineinfo", "-Xptxas", "-v",
+             "-Xcompiler", "-fPIC", "-c", "-o", str(obj), str(_CSRC / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+        for src, obj in zip(_SOURCES, objects)
+    ]
+    logs = [proc.communicate()[0] for proc in compiles]
+    failed = [(s, log) for s, proc, log in zip(_SOURCES, compiles, logs) if proc.returncode != 0]
+    link = None
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-gencode", _ARCH, "-shared", "-o", str(tmp), *map(str, objects)],
+            capture_output=True, text=True,
+        )
+        logs.append(link.stdout + link.stderr)
+    lib_path.with_suffix(".log").write_text("".join(logs))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(
+            "nvcc failed:\n" + "\n".join(f"{s}:\n{log[-4000:]}" for s, log in failed)
+        )
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr[-4000:]}")
     os.replace(tmp, lib_path)  # atomic: concurrent builders never see half a file
     return lib_path
 
@@ -148,6 +169,10 @@ class Entry:
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
+        if len(args) != len(self.argtypes) - 1:
+            raise TypeError(
+                f"{self.symbol}: {len(args)} arguments for {len(self.argtypes) - 1} in its signature"
+            )
         device = next(a.device for a in args if isinstance(a, torch.Tensor))
         stream = torch.cuda.current_stream(device).cuda_stream
         c_args = [
@@ -161,9 +186,12 @@ class Entry:
 
 
 # C signatures (csrc/*.cu): pointer arguments first, then numbers
-PRENET = Entry("gtt_prenet", "p" * 11 + "i" * 5)
-DURATION_STACK = Entry("gtt_duration_stack", "p" * 12 + "i" * 5)
-ENCODER_LAYER = Entry("gtt_encoder_layer", "p" * 25 + "i" * 7)
+PRENET = Entry("gtt_prenet", "p" * 11 + "i" * 7 + "uf")
+DURATION_STACK = Entry("gtt_duration_stack", "p" * 12 + "i" * 7 + "uf")
+ENCODER_LAYER = Entry("gtt_encoder_layer", "p" * 25 + "i" * 9 + "uf")
+PRENET_BWD = Entry("gtt_prenet_bwd", "p" * 27 + "i" * 8 + "uf")
+DURATION_STACK_BWD = Entry("gtt_duration_stack_bwd", "p" * 31 + "i" * 8 + "uf")
+ENCODER_LAYER_BWD = Entry("gtt_encoder_layer_bwd", "p" * 69 + "i" * 10 + "uf")
 BLOCK_INVERSE = Entry("gtt_block_inverse", "p" * 18 + "i" * 9)
 WN_FORWARD = Entry("gtt_wn_forward", "p" * 10 + "i" * 7)
 BLOCK_FWD_SAVE = Entry("gtt_block_fwd_save", "p" * 23 + "i" * 11 + "uf")
@@ -179,6 +207,9 @@ ENTRIES = {
     "block_fwd_save": BLOCK_FWD_SAVE,
     "block_bwd_store": BLOCK_BWD_STORE,
     "mas": MAS,
+    "prenet_bwd": PRENET_BWD,
+    "encoder_layer_bwd": ENCODER_LAYER_BWD,
+    "duration_stack_bwd": DURATION_STACK_BWD,
 }
 
 

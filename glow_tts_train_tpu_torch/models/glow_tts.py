@@ -8,16 +8,18 @@ stacked ``[n_layers, ...]``/``[n_blocks, ...]`` as there).
 load — the flow blocks' inverses and weight norms included — into
 :class:`ServingWeights`; :func:`forward_gen` runs on those.
 :func:`forward_train` is the training graph on the raw param tree:
-the encoder op by op (``encoder_fuse: false``), the flow decoder through
-the training block kernel, the f32 pairwise log-likelihood, MAS, and the
-expansion of the text statistics to frames.
+the text side through its kernels (``encoder_fuse`` true: prenet, encoder
+layers and duration stack, each a ``torch.autograd.Function`` over its
+forward and backward kernel) or op by op (``encoder_fuse: false``), the
+flow decoder through the training block kernel, the f32 pairwise
+log-likelihood, MAS, and the expansion of the text statistics to frames.
 
 Device rule, in place of the JAX package's TPU resolvers: each kernel
 wrapper (``ops/*_cuda.py``) launches its CUDA kernel for CUDA tensors and
 runs its plain PyTorch version for CPU tensors.  Encoder configurations
 the kernel does not take (``window_size=None`` or ``block_length`` set)
-run op by op on the CPU and raise on CUDA; so does training with
-``encoder_fuse`` true, whose backward kernels are not ported yet.
+run op by op: in training on either device, as in the JAX package; in
+serving on the CPU only (CUDA raises).
 """
 
 import dataclasses
@@ -63,8 +65,7 @@ class GlowTTSHyper(typing.NamedTuple):
     hidden_channels_enc: typing.Optional[int] = None
     hidden_channels_dec: typing.Optional[int] = None
     prenet: bool = False
-    # training encoder: the fused text kernels (True; their backward
-    # kernels are not ported yet) or op by op (False)
+    # training text side: through its kernels (True) or op by op (False)
     encoder_fuse: bool = False
 
     @property
@@ -329,13 +330,6 @@ def forward_gen(
 # training
 # ---------------------------------------------------------------------------
 
-ENCODER_FUSE_REFUSAL = (
-    "training with encoder_fuse true needs the backward kernels of the "
-    "encoder layer, prenet and duration predictor, which are not ported yet "
-    "(ROADMAP, queue 2 items 1-2); set encoder_fuse to false"
-)
-
-
 @torch.no_grad()
 def init_model(hp: GlowTTSHyper, generator: torch.Generator) -> typing.Dict[str, torch.Tensor]:
     """Fresh params, {"a/b/c": tensor} with the keys and shapes of
@@ -396,31 +390,49 @@ def encoder_forward_train(
     x_lengths: torch.Tensor,
     g: typing.Optional[torch.Tensor] = None,
     generator: typing.Optional[torch.Generator] = None,
+    seed_generator: typing.Optional[torch.Generator] = None,
 ):
-    """The text side op by op on the raw param tree, with dropout drawn
-    from ``generator`` (none without one): prenet, encoder, projections,
+    """The text side on the raw param tree: prenet, encoder, projections,
     and the duration predictor on the detached encoder output (plus the
-    speaker vector).  Returns (x_m, x_logs, logw, x_mask)."""
+    speaker vector).  With ``hp.encoder_fuse`` each stack runs its kernel
+    pair (``PrenetTrain``, ``EncoderLayerTrain``, ``DurationStackTrain``;
+    their plain versions on CPU tensors) and dropout is on when
+    ``seed_generator`` (CPU) is given, one seed per stack and layer drawn
+    from it; otherwise op by op with masks drawn from ``generator``.
+    Returns (x_m, x_logs, logw, x_mask)."""
     t_x = x.shape[1]
     xh = params["emb"][x] * math.sqrt(hp.h_enc)
-    x_mask = time_mask(x_lengths, t_x)
+    x_mask = time_mask(x_lengths, t_x).contiguous()
+    fused = hp.encoder_fuse
+    drop = seed_generator is not None
+
+    def rate_and_seed(p):
+        on = drop and p > 0.0
+        return (p, attention.draw_seed(seed_generator)) if on else (0.0, 0)
+
     if hp.prenet:
-        xh = text_cuda.prenet_plain(
-            text_cuda.prenet_weights(params["prenet"]), xh, x_mask, 0.5, generator
-        )
+        pw = text_cuda.prenet_weights(params["prenet"])
+        if fused:
+            xh = text_cuda.prenet_train(pw, xh.contiguous(), x_mask, *rate_and_seed(0.5))
+        else:
+            xh = text_cuda.prenet_plain(pw, xh, x_mask, 0.5, generator)
     layers = [tree_index(params["encoder"], i) for i in range(hp.n_layers_enc)]
     xh = attention.encoder_apply(
-        layers, xh, x_mask, hp.n_heads, hp.window_size, hp.block_length,
-        hp.p_dropout, generator,
+        layers, xh.contiguous(), x_mask, hp.n_heads, hp.window_size, hp.block_length,
+        hp.p_dropout, generator, fused=fused, seed_generator=seed_generator,
     )
     x_dp = xh.detach()
     if g is not None:
         x_dp = torch.cat([x_dp, g.expand(-1, t_x, -1)], dim=-1)
     x_m = conv1d(xh, params["proj_m"]) * x_mask
     x_logs = torch.zeros_like(x_m) if hp.mean_only else conv1d(xh, params["proj_s"]) * x_mask
-    dp = text_cuda.duration_stack_plain(
-        text_cuda.dp_weights(params["proj_w"]), x_dp, x_mask, hp.p_dropout, generator
-    )
+    dw = text_cuda.dp_weights(params["proj_w"])
+    if fused:
+        dp = text_cuda.duration_stack_train(
+            dw, x_dp.contiguous(), x_mask, *rate_and_seed(hp.p_dropout)
+        )
+    else:
+        dp = text_cuda.duration_stack_plain(dw, x_dp, x_mask, hp.p_dropout, generator)
     logw = conv1d(dp * x_mask, params["proj_w"]["proj"]) * x_mask
     return x_m, x_logs, logw, x_mask
 
@@ -452,10 +464,10 @@ def forward_train(
 
     Returns ((z, z_m, z_logs, logdet, z_mask), (x_m, x_logs, x_mask),
     (attn, logw, logw_))."""
-    if hp.encoder_fuse and x.is_cuda:
-        raise NotImplementedError(ENCODER_FUSE_REFUSAL)
     g = _speaker_vector(params.get("emb_g"), g_ids)
-    x_m, x_logs, logw, x_mask = encoder_forward_train(params, hp, x, x_lengths, g, generator)
+    x_m, x_logs, logw, x_mask = encoder_forward_train(
+        params, hp, x, x_lengths, g, generator, seed_generator
+    )
 
     t_y = (y.shape[1] // hp.n_sqz) * hp.n_sqz
     y = y[:, :t_y].to(torch.float32)

@@ -3,15 +3,16 @@ stack, op by op (glow_tts_train_tpu ops/attention.py), on the JAX
 param layout: 1x1 convs ``{"w": [1, c, c], "b"}``, rel-pos tables
 ``[heads_rel, 2w+1, d]``.
 
-These are the plain paths: the CPU path of encoder configurations the
-CUDA encoder kernel does not take (``window_size=None``, ``block_length``
-set), through :func:`attention_core` the attention of the encoder
-kernel's plain version, and the training encoder (``encoder_fuse: false``),
-with the JAX package's dropout sites: attention probabilities, attention
+These are the plain paths: encoder configurations the CUDA encoder kernel
+does not take (``window_size=None``, ``block_length`` set), through
+:func:`attention_core` the attention of the encoder kernel's plain
+version, and the op-by-op training encoder (``encoder_fuse: false``), with
+the JAX package's dropout sites: attention probabilities, attention
 output, FFN hidden and FFN output (the training prenet and duration
 predictor are ``text_cuda``'s plain versions with :func:`dropout`).
 Masks come from an explicit ``torch.Generator`` (JAX draws from
-``jax.random``, a different stream).  Masked scores are filled with -1e4,
+``jax.random``, a different stream).  :func:`encoder_apply` with
+``fused=True`` is the training encoder through the kernels.  Masked scores are filled with -1e4,
 not -inf: a fully masked (padded) query row then gets a uniform softmax
 instead of NaN.
 """
@@ -80,11 +81,14 @@ def attention_core(
     block_length: typing.Optional[int] = None,
     p_dropout: float = 0.0,
     generator: typing.Optional[torch.Generator] = None,
+    drop_probs: typing.Optional[typing.Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Self-attention of projected q, k, v [b, t, ch] -> [b, t, ch] (heads
     concatenated, before the output projection).  attn_mask [b, t, t],
     1 = attend.  rel_k/rel_v [heads_rel, 2w+1, d] when ``window_size`` is
-    set.  Dropout on the attention probabilities."""
+    set.  Dropout on the attention probabilities [b, heads, t, t]: drawn
+    from ``generator``, or ``drop_probs`` applied to them (the encoder
+    kernel's per-head keep masks)."""
     b, t, ch = q.shape
     d = ch // n_heads
 
@@ -106,6 +110,8 @@ def attention_core(
         band = (idx[:, None] - idx[None, :]).abs() <= block_length
         scores = torch.where(band[None, None], scores, fill)
     p_attn = dropout(torch.softmax(scores, dim=-1), p_dropout, generator)
+    if drop_probs is not None:
+        p_attn = drop_probs(p_attn)
     out = torch.einsum("bhts,bhsd->bhtd", p_attn, v)
     if window_size is not None:
         rv = get_relative_embeddings(rel_v.to(q.dtype), t, window_size)
@@ -175,6 +181,14 @@ def encoder_layer_apply(
     return layer_norm(x + dropout(y, p_dropout, generator), params["norm_2"])
 
 
+def draw_seed(seed_generator: typing.Optional[torch.Generator]) -> int:
+    """One int32 dropout seed for a kernel from the CPU ``seed_generator``
+    (JAX draws it from its rng, a different stream); 0 without one."""
+    if seed_generator is None:
+        return 0
+    return int(torch.randint(0, 2 ** 31 - 1, (), generator=seed_generator))
+
+
 def encoder_apply(
     layers: typing.Sequence[Params],
     x: torch.Tensor,
@@ -184,12 +198,32 @@ def encoder_apply(
     block_length: typing.Optional[int] = None,
     p_dropout: float = 0.0,
     generator: typing.Optional[torch.Generator] = None,
+    fused: bool = False,
+    seed_generator: typing.Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """The encoder stack over per-layer params; x: [b, t, c], x_mask
-    [b, t, 1]."""
+    [b, t, 1].
+
+    ``fused``: each layer through the encoder kernel with its hand-written
+    backward (``encoder_cuda.encoder_layer_train``): all layers folded
+    once (reshapes, so autograd carries the kernels' folded gradients back
+    to the raw params), dropout on when ``seed_generator`` (a CPU
+    generator) is given, one seed per layer drawn from it.  Configurations
+    the kernel does not take (``window_size=None``, ``block_length`` set)
+    run op by op, as in the JAX package."""
+    if fused and window_size is not None and block_length is None:
+        from . import encoder_cuda
+
+        folded = [encoder_cuda.fold_encoder_layer(layer) for layer in layers]
+        drop = seed_generator is not None and p_dropout > 0.0
+        for weights in folded:
+            x = encoder_cuda.encoder_layer_train(
+                weights, x, x_mask, n_heads, window_size,
+                p_dropout if drop else 0.0, draw_seed(seed_generator) if drop else 0,
+            )
+        return x * x_mask
     for layer in layers:
         x = encoder_layer_apply(
             layer, x, x_mask, n_heads, window_size, block_length, p_dropout, generator
         )
     return x * x_mask
-

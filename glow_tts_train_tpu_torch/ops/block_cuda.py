@@ -37,7 +37,7 @@ import torch
 
 from .. import kernels
 from .conv import conv1d, weight_norm_effective
-from .wn_cuda import drop_threshold, fold_wn_weights, wn_stack_plain
+from .wn_cuda import drop_args, fold_wn_weights, wn_stack_plain
 
 Params = typing.Dict[str, typing.Any]
 
@@ -283,13 +283,6 @@ def _check_train_operands(folded, g_all, x, x_mask, kernel_size):
     return batch, t, c, h, n_layers
 
 
-def _drop_args(p_dropout: float) -> tuple:
-    """(drop flag, uint32 threshold, f32 scale) of the kernels' dropout."""
-    if p_dropout <= 0.0:
-        return 0, 0, 1.0
-    return 1, drop_threshold(p_dropout), 1.0 / (1.0 - p_dropout)
-
-
 def block_fwd_save(
     folded: dict,
     g_all: typing.Optional[torch.Tensor],
@@ -315,7 +308,7 @@ def block_fwd_save(
     logsm = x.new_empty((batch, t, c // 2))
     ld_part = x.new_empty((batch, c // 2))
     f = folded
-    drop, threshold, scale = _drop_args(p_dropout)
+    drop, threshold, scale = drop_args(p_dropout)
     kernels.BLOCK_FWD_SAVE(
         x, x_mask, f["A"], f["bA"], f["W_s"], f["b_s"], f["W_e"], f["b_e"],
         f["W_in"], f["b_in"], f["W_rs"], f["b_rs"], g_all,
@@ -383,7 +376,7 @@ def block_bwd_store(
     gx = x.new_empty((rows, h))
     col_part = x.new_empty((batch, max(c, 2 * h)))
     wg_scratch = x.new_empty((max(1 << 22, kernel_size * h * 2 * h),))
-    drop, threshold, scale = _drop_args(p_dropout)
+    drop, threshold, scale = drop_args(p_dropout)
     s = saves
     kernels.BLOCK_BWD_STORE(
         x, x_mask, f["W_e"], f["b_e"], a_t, w_s_t, w_e_t, w_in_t, w_rs_t,

@@ -1,10 +1,23 @@
-"""One text-encoder layer: CUDA kernel (``csrc/encoder.cu``) and its plain
-PyTorch version.
+"""One text-encoder layer: CUDA kernels (``csrc/encoder.cu``,
+``csrc/encoder_train.cu``) and their plain PyTorch versions.
 
 :func:`encoder_layer` replaces ``glow_tts_train_tpu/ops/encoder_pallas.py::
 _fwd_kernel`` (math ``_layer_fwd_math``): masked input -> Q/K/V -> per head
 softmax(q.k^T/sqrt(d) + banded rel-k, -1e4 fill) . v + banded rel-v ->
 output projection -> residual LN -> conv FFN -> residual LN.
+:func:`encoder_layer_bwd` replaces ``::_bwd_kernel``: from (weights, x,
+mask, seed) and the output cotangent it recomputes the layer and returns
+dx and the 18 weight gradients.  :class:`EncoderLayerTrain` joins the two
+as a ``torch.autograd.Function`` that saves only (weights, x, mask).
+
+Dropout is the JAX kernel's per-site keep mask (``wn_cuda.regen_keep``)
+at its ``pack = 1`` numbering, ``H + 3`` sites for ``H`` heads: site
+``hd`` on head ``hd``'s probabilities ``[t, t]``, site ``H`` on the
+attention output ``[t, h]`` after its projection, ``H + 1`` on the FFN's
+ReLU ``[t, f]``, ``H + 2`` on the FFN's masked output ``[t, h]``; sample
+``i`` draws from ``seed + i``.  The TPU kernel's sample packing
+(``_pick_pack``), which renumbers the sites, is a TPU device and is not
+ported.
 
 Bound on the card: at serving sizes (t_x of tens to hundreds, h = 192,
 f = 768) the FFN GEMMs hold most of the FLOPs but every piece is small,
@@ -12,9 +25,9 @@ so launch latency and the attention core's per-(sample, head) parallelism
 bound it.  The design keeps the TPU kernel's banded rel-pos form (2w+1
 diagonals instead of the [t, 2t-1] pad/reshape) and streams keys through
 shared memory with an online softmax, so no [t, t] score matrix is
-written; the GEMMs gather conv taps on load and fuse bias/ReLU/mask.
-The TPU kernel's sample packing (``_pick_pack``) is a TPU device and is
-not ported.
+written, forward or backward (the backward rebuilds the probabilities
+tile by tile from the saved row statistics); the GEMMs gather conv taps
+on load and fuse bias/ReLU/mask and their backward tails.
 
 Weights are ``fold_encoder_layer``'s tuple, the JAX fold's order and
 layout.
@@ -28,6 +41,8 @@ from .. import kernels
 from .attention import attention_core
 from .conv import conv_taps
 from .norms import layer_norm_affine
+from .text_cuda import plain_grads, taps_transposed, wgrad_scratch
+from .wn_cuda import drop_args, site_dropout
 
 Params = typing.Dict[str, typing.Any]
 
@@ -65,33 +80,44 @@ def fold_encoder_layer(layer: Params) -> tuple:
 
 def encoder_layer_plain(
     weights: tuple, x: torch.Tensor, x_mask: torch.Tensor, n_heads: int,
-    window_size: int,
+    window_size: int, p_dropout: float = 0.0, seed: int = 0,
+    gates: typing.Optional[typing.Sequence[torch.Tensor]] = None,
+    saves: typing.Optional[dict] = None,
 ) -> torch.Tensor:
-    """Plain version of :func:`encoder_layer`."""
+    """Plain version of :func:`encoder_layer`; differentiable.  With
+    ``p_dropout`` > 0 the kernel's keep masks of ``seed``.  ``gates`` (one
+    tensor: where the FFN's dropped ReLU output is positive) replace that
+    ReLU and its keep mask; ``saves`` receives the ReLU's input and this
+    run's gate (see ``text_cuda``)."""
     (wq, bq, wk, bk, wv, bv, wo, bo, rel_k, rel_v,
      g1, be1, g2, be2, w1, c1, w2, c2) = weights
     taps = w1.shape[0] // x.shape[-1]
+    n_sites = n_heads + 3
+
+    def drop(a, site):
+        return site_dropout(a, seed, site, n_sites, p_dropout)
+
     m = x_mask[:, :, 0]
     xm = x * x_mask
     att = attention_core(
         xm @ wq + bq, xm @ wk + bk, xm @ wv + bv,
         m[:, None, :] * m[:, :, None], n_heads,
         rel_k[None], rel_v[None], window_size,
+        drop_probs=lambda p: drop(p, 0),
     )
-    x1 = layer_norm_affine(xm + (att @ wo + bo), g1, be1)
-    r = torch.relu(conv_taps(x1 * x_mask, w1, c1, taps))
-    y2 = conv_taps(r * x_mask, w2, c2, taps) * x_mask
+    x1 = layer_norm_affine(xm + drop(att @ wo + bo, n_heads), g1, be1)
+    pre = conv_taps(x1 * x_mask, w1, c1, taps)
+    if gates is not None:
+        r = pre * gates[0] * drop_args(p_dropout)[2]
+    else:
+        r = drop(torch.relu(pre), n_heads + 1)
+    if saves is not None:
+        saves["pre"], saves["gates"] = [pre.detach()], [r.detach() > 0]
+    y2 = drop(conv_taps(r * x_mask, w2, c2, taps) * x_mask, n_heads + 2)
     return layer_norm_affine(x1 + y2, g2, be2)
 
 
-def encoder_layer(
-    weights: tuple, x: torch.Tensor, x_mask: torch.Tensor, n_heads: int,
-    window_size: int,
-) -> torch.Tensor:
-    """One encoder layer, x [b, t, h], x_mask [b, t, 1] -> [b, t, h]
-    (unmasked, like the JAX layer; the stack masks its output)."""
-    if kernels.route(x) == "plain":
-        return encoder_layer_plain(weights, x, x_mask, n_heads, window_size)
+def _check_layer(weights, x, x_mask, n_heads, window_size):
     (wq, bq, wk, bk, wv, bv, wo, bo, rel_k, rel_v,
      g1, be1, g2, be2, w1, c1, w2, c2) = weights
     batch, t, h = x.shape
@@ -110,16 +136,126 @@ def encoder_layer(
     )
     kernels.check_shape("x_mask", x_mask, (batch, t, 1))
     kernels.check_shape("rel_k", rel_k, (2 * window_size + 1, d))
+    kernels.check_shape("rel_v", rel_v, (2 * window_size + 1, d))
     kernels.check_shape("w1", w1, (taps * h, f))
     kernels.check_shape("w2", w2, (taps * f, h))
+    return batch, t, h, d, f, taps
+
+
+def encoder_layer(
+    weights: tuple, x: torch.Tensor, x_mask: torch.Tensor, n_heads: int,
+    window_size: int, p_dropout: float = 0.0, seed: int = 0,
+) -> torch.Tensor:
+    """One encoder layer, x [b, t, h], x_mask [b, t, 1] -> [b, t, h]
+    (unmasked, like the JAX layer; the stack masks its output); with
+    ``p_dropout`` > 0 the keep masks of ``seed``."""
+    if kernels.route(x) == "plain":
+        return encoder_layer_plain(weights, x, x_mask, n_heads, window_size, p_dropout, seed)
+    batch, t, h, d, f, taps = _check_layer(weights, x, x_mask, n_heads, window_size)
     out = torch.empty_like(x)
     qkv = x.new_empty((batch, t, 3 * h))
     att = torch.empty_like(x)
     x1 = torch.empty_like(x)
     ffn = x.new_empty((batch, t, f))
+    drop, threshold, scale = drop_args(p_dropout)
     kernels.ENCODER_LAYER(
-        x, x_mask, wq, bq, wk, bk, wv, bv, wo, bo, rel_k, rel_v,
-        g1, be1, g2, be2, w1, c1, w2, c2, out, qkv, att, x1, ffn,
-        batch, t, h, n_heads, window_size, f, taps,
+        x, x_mask, *weights, out, qkv, att, x1, ffn,
+        batch, t, h, n_heads, window_size, f, taps, drop, int(seed), threshold, scale,
     )
     return out
+
+
+def encoder_layer_bwd_plain(
+    weights: tuple, x: torch.Tensor, x_mask: torch.Tensor, dout: torch.Tensor,
+    n_heads: int, window_size: int, p_dropout: float = 0.0, seed: int = 0,
+    gates=None, saves=None,
+) -> tuple:
+    """Plain version of :func:`encoder_layer_bwd`: autograd of
+    :func:`encoder_layer_plain` with the same keep masks (at the given
+    ``gates``, if any)."""
+    return plain_grads(
+        lambda w, xx: encoder_layer_plain(
+            w, xx, x_mask, n_heads, window_size, p_dropout, seed, gates, saves
+        ),
+        weights, x, dout,
+    )
+
+
+def encoder_layer_bwd(
+    weights: tuple, x: torch.Tensor, x_mask: torch.Tensor, dout: torch.Tensor,
+    n_heads: int, window_size: int, p_dropout: float = 0.0, seed: int = 0,
+    saves: typing.Optional[dict] = None,
+) -> tuple:
+    """The layer's backward from (weights, x, mask, seed): recomputes the
+    forward, then -> (dx, *dweights) in ``fold_encoder_layer``'s order, each
+    shaped as its primal.  ``saves`` receives the recomputed forward's FFN
+    gate."""
+    if kernels.route(x) == "plain":
+        return encoder_layer_bwd_plain(
+            weights, x, x_mask, dout, n_heads, window_size, p_dropout, seed, saves=saves
+        )
+    batch, t, h, d, f, taps = _check_layer(weights, x, x_mask, n_heads, window_size)
+    kernels.check_operands(x.device, dout=dout)
+    kernels.check_shape("dout", dout, x.shape)
+    wq, _, wk, _, wv, _, wo = weights[:7]
+    w1, w2 = weights[14], weights[16]
+    # transposed weights (layout copies for the transposed products)
+    wqkv_t = torch.cat([wq.T, wk.T, wv.T], dim=0).contiguous()
+    wo_t = wo.T.contiguous()
+    w1_t = taps_transposed(w1, taps)
+    w2_t = taps_transposed(w2, taps)
+    grads = tuple(torch.empty_like(a) for a in (x, *weights))
+    rows = batch * t
+    nb = 2 * window_size + 1
+
+    def buf(*shape):
+        return x.new_empty(shape)
+
+    out, att, x1, xhat1, xhat2, da, db, dc, datt = (buf(rows, h) for _ in range(9))
+    qkv, dqkv = buf(rows, 3 * h), buf(rows, 3 * h)
+    ffn, dffn = buf(rows, f), buf(rows, f)
+    rstd1, rstd2 = buf(rows), buf(rows)
+    stat_m, stat_linv = buf(batch, n_heads, t), buf(batch, n_heads, t)
+    qrel, dorv, dqrel, pb = (buf(rows, n_heads * nb) for _ in range(4))
+    dsum = buf(rows, n_heads)
+    rel_part = buf(n_heads, nb, d)
+    col_part = buf(batch, max(f, h))
+    wg_scratch = wgrad_scratch(x, taps * h * f)
+    drop, threshold, scale = drop_args(p_dropout)
+    kernels.ENCODER_LAYER_BWD(
+        x, x_mask, *weights, wqkv_t, wo_t, w1_t, w2_t, dout, *grads,
+        out, qkv, att, x1, ffn, xhat1, rstd1, xhat2, rstd2, stat_m, stat_linv,
+        da, db, dc, datt, dffn, dqkv, qrel, dorv, dqrel, pb, dsum, rel_part,
+        col_part, wg_scratch, wg_scratch.numel(),
+        batch, t, h, n_heads, window_size, f, taps, drop, int(seed), threshold, scale,
+    )
+    if saves is not None:
+        saves["gates"] = [ffn.reshape(batch, t, f) > 0]
+    return grads
+
+
+class EncoderLayerTrain(torch.autograd.Function):
+    """One training encoder layer: :func:`encoder_layer` forward,
+    :func:`encoder_layer_bwd` backward.  Saves (weights, x, mask) only; the
+    backward recomputes, as the JAX custom VJP does."""
+
+    @staticmethod
+    def forward(ctx, x, x_mask, cfg, *weights):
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, x_mask, *weights)
+        return encoder_layer(weights, x, x_mask, *cfg)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, x_mask, *weights = ctx.saved_tensors
+        grads = encoder_layer_bwd(tuple(weights), x, x_mask, dout.contiguous(), *ctx.cfg)
+        return (grads[0], None, None, *grads[1:])
+
+
+def encoder_layer_train(
+    weights: tuple, x: torch.Tensor, x_mask: torch.Tensor, n_heads: int,
+    window_size: int, p_dropout: float = 0.0, seed: int = 0,
+) -> torch.Tensor:
+    """:func:`encoder_layer` with its hand-written backward."""
+    cfg = (int(n_heads), int(window_size), float(p_dropout), int(seed))
+    return EncoderLayerTrain.apply(x, x_mask, cfg, *weights)

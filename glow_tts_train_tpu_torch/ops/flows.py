@@ -21,6 +21,7 @@ import typing
 import torch
 
 from . import block_cuda, wn_cuda
+from .attention import draw_seed
 from .conv import conv1d, weight_norm_effective
 from ..tree import tree_index
 
@@ -221,9 +222,7 @@ def decoder_fwd(
     drop = seed_generator is not None and p_dropout > 0.0
     logdet = torch.zeros_like(x_len)
     for i, fold in enumerate(folded):
-        seed = 0
-        if drop:
-            seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=seed_generator))
+        seed = draw_seed(seed_generator) if drop else 0
         ld1 = logs_sum[i] * x_len
         ld2 = logabsdet[i] * (c / n_split) * x_len
         x, ld3 = block_cuda.block_forward(

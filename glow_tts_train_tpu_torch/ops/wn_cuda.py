@@ -13,11 +13,14 @@ in-layer conv (K = 5 * 192, N = 384); the gather-on-load taps keep the
 im2col matrix out of device memory.
 
 Dropout keep masks are the JAX kernels' portable counter hash, bit for
-bit: the bits of flat index ``row * 2h + col`` of one sample's ``[t, 2h]``
-pre-gate tensor (``col`` in JAX's ``[u | v]`` layout, ``t`` the padded
-length), seeded by ``(seed + sample) * n_layers + layer`` in int32
-wrap-around; keep where ``bits >= round(p * 2**32)``.  CPU torch has
-little uint32 arithmetic, so the hash runs in int64 masked to 32 bits.
+bit, in its site form (``encoder_pallas._drop_keep``): the bits of flat
+index ``row * n_cols + col`` of one sample's padded ``[t, n_cols]``
+tensor, seeded by ``(seed + sample) * n_sites + site`` in int32
+wrap-around; keep where ``bits >= round(p * 2**32)``.  The WN stack's
+sites are its layers and its tensor the ``[t, 2h]`` pre-gate (``col`` in
+JAX's ``[u | v]`` layout); the text kernels' sites are listed in
+``text_cuda`` and ``encoder_cuda``.  CPU torch has little uint32
+arithmetic, so the hash runs in int64 masked to 32 bits.
 """
 
 import typing
@@ -58,13 +61,43 @@ def drop_threshold(p: float) -> int:
     return min(round(p * 2 ** 32), 2 ** 32 - 1)
 
 
-def regen_keep(seed, l: int, n_layers: int, shape, p: float, device=None) -> torch.Tensor:
-    """Layer ``l``'s f32 0/1 keep mask (``wn_pallas._regen_keep``):
-    ``seed`` is the per-sample seed (int or int tensor [b]) -> [*S, t, n]."""
+def drop_args(p_dropout: float) -> tuple:
+    """(drop flag, uint32 threshold, f32 scale) of the kernels' dropout."""
+    if p_dropout <= 0.0:
+        return 0, 0, 1.0
+    return 1, drop_threshold(p_dropout), 1.0 / (1.0 - p_dropout)
+
+
+def regen_keep(seed, site: int, n_sites: int, shape, p: float, device=None) -> torch.Tensor:
+    """The f32 0/1 keep mask of dropout site ``site`` of ``n_sites``
+    (``wn_pallas._regen_keep``, ``encoder_pallas._drop_keep``): ``seed`` is
+    the per-sample seed (int or int tensor [b]), ``shape`` the sample's
+    padded (t, n_cols) -> [*S, t, n_cols]."""
     seed = torch.as_tensor(seed, dtype=torch.int64, device=device)
-    layer_seed = (seed * n_layers + l) & _MASK32
-    bits = portable_bits(layer_seed, shape)
+    site_seed = (_mul32(seed & _MASK32, n_sites) + site) & _MASK32
+    bits = portable_bits(site_seed, shape)
     return (bits >= drop_threshold(p)).to(torch.float32)
+
+
+def site_dropout(
+    x: torch.Tensor, seed: int, site: int, n_sites: int, p: float
+) -> torch.Tensor:
+    """Inverted dropout of x [b, t, n] (or [b, heads, t, n] with one site
+    per head, ``site`` then the first head's) with the portable keep masks:
+    sample i draws from ``seed + i``.  The identity when p == 0."""
+    if p <= 0.0:
+        return x
+    b = x.shape[0]
+    seeds = seed + torch.arange(b, dtype=torch.int64, device=x.device)
+    shape = tuple(x.shape[-2:])
+    if x.dim() == 4:
+        keep = torch.stack(
+            [regen_keep(seeds, site + hd, n_sites, shape, p, x.device) for hd in range(x.shape[1])],
+            dim=1,
+        )
+    else:
+        keep = regen_keep(seeds, site, n_sites, shape, p, x.device)
+    return x * keep * (1.0 / (1.0 - p))
 
 
 def fold_wn_weights(params: Params, n_layers: int) -> tuple:

@@ -3,11 +3,12 @@ and the epoch loop (glow_tts_train_tpu training.py).
 
 One step: the training graph (``models.forward_train``), the MLE and
 duration losses, backward, the global gradient norm, then value clip and
-Noam-scheduled Adam (``optimize.py``).  On CUDA tensors the flow blocks
-and MAS run the hand-written kernels; the encoder runs op by op
-(``encoder_fuse: false``).  Not ported yet, and refused with the ROADMAP
-item named: ``fp16_run`` (bf16 compute), ``grad_accum_steps`` > 1, and
-``encoder_fuse`` true on CUDA.
+Noam-scheduled Adam (``optimize.py``).  On CUDA tensors the flow blocks,
+MAS and (``encoder_fuse`` true, what "auto" resolves to for the shipped
+encoder configuration) the text side run the hand-written kernels, forward
+and backward; ``encoder_fuse: false`` runs the text side op by op.  Not
+ported yet, and refused with the ROADMAP item named: ``fp16_run`` (bf16
+compute) and ``grad_accum_steps`` > 1.
 """
 
 import json
@@ -21,7 +22,6 @@ import torch
 
 from .checkpoint import param_shapes, save_checkpoint
 from .models.glow_tts import (
-    ENCODER_FUSE_REFUSAL,
     GlowTTS,
     ddi_init,
     forward_train,
@@ -59,7 +59,7 @@ def trainable_model(flat: typing.Mapping[str, torch.Tensor], hp, device) -> Glow
 
 
 def batch_to(batch: typing.Mapping[str, np.ndarray], device) -> dict:
-    """Host batch (numpy, from ``glow_tts_train_tpu.data``) -> tensors on
+    """Host batch (numpy, from the package's ``data`` pipeline) -> tensors on
     ``device``: ids and lengths int64, mels f32."""
     out = {}
     for k, v in batch.items():
@@ -87,11 +87,8 @@ def initialize_model(config, batch: dict, device) -> GlowTTS:
     return model
 
 
-def check_trainable(config, device=None) -> None:
-    """Refuse what this trainer does not do yet, naming the ROADMAP item;
-    ``encoder_fuse`` (after "auto" resolves) only when ``device`` is CUDA."""
-    if device is not None and torch.device(device).type == "cuda" and hyper_from_config(config).encoder_fuse:
-        raise NotImplementedError(ENCODER_FUSE_REFUSAL)
+def check_trainable(config) -> None:
+    """Refuse what this trainer does not do yet, naming the ROADMAP item."""
     if config.fp16_run:
         raise NotImplementedError(
             "fp16_run (bf16 training) is not ported yet (ROADMAP, queue 1 "

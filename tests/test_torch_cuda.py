@@ -1,8 +1,9 @@
 """The CUDA kernels of glow_tts_train_tpu_torch on a GPU, against their
 plain PyTorch versions on the same inputs, the kernel path of
 ``forward_gen`` against the plain path on the CPU, and the training
-kernels (WN forward, flow block forward-save and backward-store, MAS)
-against their plain versions and autograd.
+kernels (WN forward, flow block forward-save and backward-store, MAS, and
+the text side's forward kernels with dropout and backward kernels: prenet,
+encoder layer, duration stack) against their plain versions and autograd.
 
 Every test here needs an NVIDIA GPU (the kernels have no CPU mode) and
 skips without one.  The file imports no jax, so on a GPU machine without
@@ -15,6 +16,12 @@ Tolerances: kernel vs plain version 1e-5 max abs error on O(1) outputs
 and cuDNN calls); the whole mel 1e-4 (two inverse flow blocks each
 scaling by exp(-logs)); block gradients 1e-4 of the gradient's max
 magnitude (reductions over all rows in another order); MAS paths exactly.
+The text kernels with dropout on: outputs 1e-5 of the output's max (the
+keep masks are equal bit for bit, so no element differs by a dropped
+value), every gradient 1e-4 of its own max at equal ReLU gates (a ReLU
+input within rounding of zero may open in one version only; the gates
+themselves are compared, see ``ops/text_cuda.py``); two runs of a backward
+kernel give the same bits (fixed-order reductions, no atomics).
 """
 
 import numpy as np
@@ -22,13 +29,30 @@ import pytest
 import torch
 
 from glow_tts_train_tpu_torch import checkpoint, kernels
+from glow_tts_train_tpu_torch.config import AudioConfig, ModelConfig, TrainingConfig
 from glow_tts_train_tpu_torch.models import glow_tts as model
 from glow_tts_train_tpu_torch.ops import block_cuda, encoder_cuda, mas_cuda, text_cuda, wn_cuda
 from glow_tts_train_tpu_torch.tree import tree_index, tree_map
 
-from helpers import tiny_config
-
 pytestmark = pytest.mark.cuda
+
+
+def tiny_config(**model_overrides) -> TrainingConfig:
+    """The tests' tiny model (the widths of tests/helpers.py, which imports
+    the JAX package's config and so is not used here)."""
+    model_config = ModelConfig(
+        num_symbols=20, hidden_channels=16, filter_channels=32, filter_channels_dp=16,
+        kernel_size=3, p_dropout=0.1, n_blocks_dec=2, n_layers_enc=2, n_heads=2,
+        p_dropout_dec=0.05, dilation_rate=1, kernel_size_dec=5, n_block_layers=2, n_sqz=2,
+        prenet=True, mean_only=True, hidden_channels_enc=16, hidden_channels_dec=16,
+        window_size=4, n_speakers=1, n_split=4,
+    )
+    for k, v in model_overrides.items():
+        setattr(model_config, k, v)
+    return TrainingConfig(
+        model=model_config, audio=AudioConfig(mel_channels=8), batch_size=4,
+        bucket_size_text=1, bucket_size_mel=1,
+    )
 
 ATOL = 1e-5
 MEL_ATOL = 1e-4
@@ -187,10 +211,12 @@ def test_wrappers_check_their_operands(dev):
         text_cuda.prenet(pw, x, mask[:, :5].contiguous())
 
 
-def _rel_close(name, port, ref, rtol):
+def _rel_close(name, port, ref, rtol, floor=1e-6):
+    """max abs err within rtol of max |ref| (or of ``floor``, for a gradient
+    that is zero but for rounding)."""
     err = (port - ref).abs().max().item()
     scale = ref.abs().max().item()
-    assert err <= rtol * max(scale, 1e-6), f"{name}: max abs err {err} vs max |ref| {scale}"
+    assert err <= rtol * max(scale, floor), f"{name}: max abs err {err} vs max |ref| {scale}"
 
 
 @pytest.mark.parametrize("name", sorted(VARIANTS))
@@ -293,12 +319,137 @@ def test_mas_kernel_matches_plain(dev, shape):
             assert torch.equal(got, expected), case
 
 
-def test_training_refuses_what_is_not_ported(dev):
-    """On CUDA: encoder_fuse true raises naming the ROADMAP item."""
-    hp = model.hyper_from_config(tiny_config(prenet=False))
-    assert hp.encoder_fuse
+def _gates_agree(name, kernel_gates, plain_saves):
+    """The kernel's ReLU gates against the plain version's: they may differ
+    only where the ReLU's input is within rounding of zero (1e-5 of its
+    max), and at no more than a handful of elements."""
+    assert len(kernel_gates) == len(plain_saves["gates"])
+    for l, (gk, gp, pre) in enumerate(zip(kernel_gates, plain_saves["gates"], plain_saves["pre"])):
+        differ = gk != gp
+        assert int(differ.sum()) <= 8, f"{name} layer {l}: {int(differ.sum())} gates differ"
+        if differ.any():
+            assert pre[differ].abs().max() <= 1e-5 * pre.abs().max(), f"{name} layer {l}"
+
+
+def _check_text_kernel(name, fwd, fwd_plain, bwd, bwd_plain, weights, x, mask, dout, cfg):
+    """Forward kernel vs plain (1e-5 of max); the backward's gates vs the
+    plain version's; every gradient vs autograd of the plain version at the
+    kernel's gates (1e-4 of its max); and the backward's bits twice."""
+    _rel_close(f"{name} out", fwd(weights, x, mask, *cfg), fwd_plain(weights, x, mask, *cfg), 1e-5)
+    saves, plain_saves = {}, {}
+    grads = bwd(weights, x, mask, dout, *cfg, saves=saves)
+    bwd_plain(weights, x, mask, dout, *cfg, saves=plain_saves)
+    _gates_agree(name, saves["gates"], plain_saves)
+    ref = bwd_plain(weights, x, mask, dout, *cfg, gates=saves["gates"])
+    assert len(grads) == len(ref) == 1 + len(weights)
+    for i, (g, r) in enumerate(zip(grads, ref)):
+        assert g.shape == r.shape
+        # the key bias shifts every score of a row alike, so its gradient
+        # is zero but for rounding: held to the query bias's scale
+        floor = ref[2].abs().max().item() if (name, i) == ("encoder_layer", 4) else 1e-6
+        _rel_close(f"{name} grad {i}", g, r, 1e-4, floor)
+    again = bwd(weights, x, mask, dout, *cfg)
+    for i, (g, r) in enumerate(zip(grads, again)):
+        assert torch.equal(g, r), f"{name} grad {i} differs between two runs"
+
+
+@pytest.mark.parametrize("t", [37, 64])
+@pytest.mark.parametrize("p_dropout", [0.0, 0.5])
+@pytest.mark.parametrize("name", ["tiny", "base_width", "base_width_sigmoid_gin_dilation2"])
+def test_text_train_kernels_match_plain(dev, name, p_dropout, t):
+    """Prenet, encoder layer and duration stack: forward with dropout and
+    the backward kernels against their plain versions, and each
+    autograd.Function end to end (raw-tree gradients through the folds)."""
+    over, n_mel = VARIANTS[name]
+    hp = model.hyper_from_config(_config(over, n_mel))
     tt = tree_map(lambda a: a.to(dev), _tree(hp))
-    x = torch.tensor([[3, 7, 12]], device=dev)
-    y = torch.randn(1, 8, hp.out_channels, device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.forward_train(tt, hp, x, torch.tensor([3], device=dev), y, torch.tensor([8], device=dev))
+    x, mask = _inputs(3, t, hp.h_enc, dev)  # the last sample is one frame long
+    rng = np.random.default_rng(5)
+    seed = 2 ** 31 - 5
+
+    def cot(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    before = kernels.launch_counts()
+    pw = text_cuda.prenet_weights(tt["prenet"])
+    _check_text_kernel(
+        "prenet", text_cuda.prenet, lambda w, a, m, p, s: text_cuda.prenet_plain(w, a, m, p, seed=s),
+        text_cuda.prenet_bwd, text_cuda.prenet_bwd_plain, pw, x, mask, cot(*x.shape),
+        (p_dropout, seed),
+    )
+    ew = encoder_cuda.fold_encoder_layer(tree_index(tt["encoder"], 1))
+    _check_text_kernel(
+        "encoder_layer",
+        lambda w, a, m, *c: encoder_cuda.encoder_layer(w, a, m, hp.n_heads, hp.window_size, *c),
+        lambda w, a, m, *c: encoder_cuda.encoder_layer_plain(w, a, m, hp.n_heads, hp.window_size, *c),
+        lambda w, a, m, d, *c, **k: encoder_cuda.encoder_layer_bwd(
+            w, a, m, d, hp.n_heads, hp.window_size, *c, **k),
+        lambda w, a, m, d, *c, **k: encoder_cuda.encoder_layer_bwd_plain(
+            w, a, m, d, hp.n_heads, hp.window_size, *c, **k),
+        ew, x, mask, cot(*x.shape), (p_dropout, seed),
+    )
+    dw = text_cuda.dp_weights(tt["proj_w"])
+    xd = torch.cat([x, torch.ones(3, t, hp.gin_channels, device=dev)], -1).contiguous()
+    _check_text_kernel(
+        "duration_stack", text_cuda.duration_stack,
+        lambda w, a, m, p, s: text_cuda.duration_stack_plain(w, a, m, p, seed=s),
+        text_cuda.duration_stack_bwd, text_cuda.duration_stack_bwd_plain, dw, xd, mask,
+        cot(3, t, hp.filter_channels_dp), (p_dropout, seed),
+    )
+    after = kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in (
+        "prenet", "prenet_bwd", "encoder_layer", "encoder_layer_bwd",
+        "duration_stack", "duration_stack_bwd")} == {
+        "prenet": 1, "prenet_bwd": 2, "encoder_layer": 1, "encoder_layer_bwd": 2,
+        "duration_stack": 1, "duration_stack_bwd": 2}
+
+
+@pytest.mark.parametrize("p_dropout", [0.0, 0.1])
+def test_forward_train_fused_text_side_matches_cpu(dev, p_dropout):
+    """forward_train with encoder_fuse on the card (text kernels, block
+    kernels, MAS) against the same graph on the CPU (plain versions), same
+    seeds: outputs and every raw-param gradient of a scalar of them."""
+    hp = model.hyper_from_config(tiny_config(p_dropout=p_dropout, p_dropout_dec=p_dropout))
+    assert hp.encoder_fuse
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.integers(1, hp.n_vocab, size=(3, 11)))
+    xl = torch.tensor([11, 6, 9])
+    y = torch.from_numpy(rng.standard_normal((3, 40, hp.out_channels)).astype(np.float32))
+    yl = torch.tensor([40, 26, 34])
+    outs = []
+    before = kernels.launch_counts()
+    for d in (dev, torch.device("cpu")):
+        tt = tree_map(lambda a: a.to(d).requires_grad_(True), _tree(hp))
+        (z, z_m, z_logs, logdet, z_mask), _, (attn, logw, logw_) = model.forward_train(
+            tt, hp, x.to(d), xl.to(d), y.to(d), yl.to(d),
+            seed_generator=torch.Generator().manual_seed(7) if p_dropout else None,
+        )
+        loss = (z * z).mean() + (z_m * z_m).mean() + logdet.mean() + ((logw - logw_) ** 2).mean()
+        flat = dict(_flatten(tt))
+        grads = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
+        outs.append((z, z_m, logw, attn, dict(zip(flat, grads))))
+    after = kernels.launch_counts()
+    cu, cpu = outs
+    assert torch.equal(cu[3].cpu(), cpu[3])
+    for i in range(3):
+        _rel_close(f"output {i}", cu[i].cpu(), cpu[i], 1e-4)
+    for k, g in cpu[4].items():
+        if g is None:
+            assert cu[4][k] is None, k
+        else:  # attn/k/b: zero but for rounding, see _check_text_kernel
+            floor = cpu[4]["encoder/attn/q/b"].abs().max().item() if k == "encoder/attn/k/b" else 1e-6
+            _rel_close(k, cu[4][k].cpu(), g, 1e-3, floor)
+    n = hp.n_layers_enc
+    assert {k: after[k] - before[k] for k in (
+        "prenet", "prenet_bwd", "encoder_layer", "encoder_layer_bwd",
+        "duration_stack", "duration_stack_bwd")} == {
+        "prenet": 1, "prenet_bwd": 1, "encoder_layer": n, "encoder_layer_bwd": n,
+        "duration_stack": 1, "duration_stack_bwd": 1}
+
+
+def _flatten(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v

@@ -7,15 +7,18 @@ Dropout is off on both sides so that the two frameworks' different
 random streams do not enter: p_dropout = p_dropout_dec = 0, and the
 JAX prenet's fixed p = 0.5 is patched to 0 at run time for the
 trajectory (the port's step takes no generator, hence no dropout), the
-CLI runs use ``prenet: false``.  Both sides use ``encoder_fuse: false``
-(op-by-op encoder) and f32 (``fp16_run: false``); JAX runs its XLA
-decoder and scan MAS.
+CLI runs use ``prenet: false``.  Both sides run once with ``encoder_fuse:
+false`` (op-by-op text side) and once with ``encoder_fuse: true`` (the
+text kernels: JAX in Pallas interpret mode, the port through its
+``autograd.Function``s on their plain versions), in f32 (``fp16_run:
+false``); JAX runs its XLA decoder and scan MAS.
 """
 
 import json
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -45,16 +48,30 @@ TRAJECTORY = {
 }
 
 
-def _train_config(over):
+def _train_config(over, encoder_fuse=False):
     config = tiny_config(**over)
     config.model.p_dropout = 0.0
     config.model.p_dropout_dec = 0.0
-    config.encoder_fuse = False
+    config.encoder_fuse = encoder_fuse
     return config
 
 
 @pytest.mark.parametrize("name", sorted(TRAJECTORY))
 def test_train_step_trajectory_matches_jax(tmp_path, monkeypatch, name):
+    """The 3-step trajectory (:func:`_trajectory`) with the op-by-op text
+    side."""
+    _trajectory(tmp_path, monkeypatch, name, encoder_fuse=False)
+
+
+@pytest.mark.parametrize("name", sorted(TRAJECTORY))
+def test_train_step_trajectory_matches_jax_with_encoder_fuse(tmp_path, monkeypatch, name):
+    """The 3-step trajectory with ``encoder_fuse: true`` on both sides: the
+    prenet, every encoder layer and the duration stack through the text
+    kernels' custom backward (JAX: Pallas interpret mode)."""
+    _trajectory(tmp_path, monkeypatch, name, encoder_fuse=True)
+
+
+def _trajectory(tmp_path, monkeypatch, name, encoder_fuse):
     """Three steps from the same params on the same batches: per step
     loss, mle and duration loss and grad_norm within 1e-5 relative and
     the MAS path identical; after the steps both Adam moments within atol
@@ -68,9 +85,10 @@ def test_train_step_trajectory_matches_jax(tmp_path, monkeypatch, name):
     monkeypatch.setattr(
         jax_model, "prenet_apply", lambda *a, **k: orig_prenet(*a, **dict(k, p_dropout=0.0))
     )
-    config = _train_config(TRAJECTORY[name])
+    config = _train_config(TRAJECTORY[name], encoder_fuse)
     config.learning_rate = LR_TRAJECTORY
     hp = model.hyper_from_config(config)
+    assert hp.encoder_fuse == encoder_fuse
     ms = hp.n_speakers > 1
     path = tmp_path / "checkpoint.npz"
     checkpoint.save_npz(path, checkpoint.random_params(hp, 1))
@@ -85,6 +103,7 @@ def test_train_step_trajectory_matches_jax(tmp_path, monkeypatch, name):
     jstep = jax_training.make_train_step(config, mas_impl="scan", donate=False)
     step = training.make_train_step(config)
     jhp = jax_model.hyper_from_config(config)
+    assert jhp.encoder_fuse == encoder_fuse
     rng = np.random.default_rng(4)
     for i in range(3):
         batch = random_batch(config, rng, multispeaker=ms)
@@ -181,32 +200,52 @@ def _train(module, corpus, out, *extra):
     )
 
 
+def _both_clis(corpus, tag, *extra):
+    """Both train CLIs from the same JAX-initialised checkpoint (so neither
+    does DDI), 2 epochs of 3 steps: the per-epoch avg_loss lines agree
+    within 1e-4 relative.  -> (the config, the port's output directory)."""
+    from glow_tts_train_tpu.config import TrainingConfig
+
+    configs = [corpus / "config.json", *(Path(e) for e in extra[1::2])]
+    config = TrainingConfig.load_and_merge(TrainingConfig(), configs)
+    params = jax_model.init_model(jax.random.PRNGKey(3), jax_model.hyper_from_config(config))
+    init = corpus / f"init_{tag}.npz"
+    jax_checkpoint.save_checkpoint(
+        jax_checkpoint.Checkpoint(params=params, learning_rate=1.0, global_step=1, version=1), init
+    )
+    jproc = _train("glow_tts_train_tpu", corpus, f"jax_{tag}", "--checkpoint", str(init),
+                   "--platform", "cpu", "--no-mesh", "--mas-impl", "scan", *extra)
+    assert jproc.returncode == 0, jproc.stderr[-3000:]
+    tproc = _train("glow_tts_train_tpu_torch", corpus, f"port_{tag}", "--checkpoint", str(init),
+                   "--platform", "cpu", *extra)
+    assert tproc.returncode == 0, tproc.stderr[-3000:]
+    jlines = [json.loads(l) for l in open(corpus / f"jax_{tag}.jsonl")]
+    tlines = [json.loads(l) for l in open(corpus / f"port_{tag}.jsonl")]
+    assert [l["global_step"] for l in tlines] == [l["global_step"] for l in jlines] == [4, 7]
+    for t, j in zip(tlines, jlines):
+        assert t["avg_loss"] == pytest.approx(j["avg_loss"], rel=1e-4)
+        assert t["learning_rate"] == pytest.approx(j["learning_rate"], rel=1e-6)
+    return config, corpus / f"port_{tag}"
+
+
+def test_train_clis_match_from_one_checkpoint_with_encoder_fuse(corpus, tmp_path):
+    """Both CLIs with ``encoder_fuse: true`` (the encoder layers and the
+    duration stack through the text kernels on both sides; no prenet, whose
+    fixed p = 0.5 dropout the two frameworks draw from different streams):
+    the epoch lines agree."""
+    override = tmp_path / "fuse.json"
+    override.write_text(json.dumps({"encoder_fuse": True}))
+    config, _ = _both_clis(corpus, "fuse", "--config", str(override))
+    assert config.encoder_fuse is True
+
+
 def test_train_clis_match_from_one_checkpoint(corpus):
     """Both CLIs from the same JAX-initialised checkpoint (so neither does
     DDI), 2 epochs of 3 steps: the per-epoch avg_loss lines agree within
     1e-4 relative; the port's checkpoint loads in JAX's loader and serves
     through the port's infer CLI."""
-    from glow_tts_train_tpu.config import TrainingConfig
-
-    config = TrainingConfig.load_and_merge(TrainingConfig(), [corpus / "config.json"])
-    params = jax_model.init_model(jax.random.PRNGKey(3), jax_model.hyper_from_config(config))
-    init = corpus / "init.npz"
-    jax_checkpoint.save_checkpoint(
-        jax_checkpoint.Checkpoint(params=params, learning_rate=1.0, global_step=1, version=1), init
-    )
-    jproc = _train("glow_tts_train_tpu", corpus, "jax", "--checkpoint", str(init),
-                   "--platform", "cpu", "--no-mesh", "--mas-impl", "scan")
-    assert jproc.returncode == 0, jproc.stderr[-3000:]
-    tproc = _train("glow_tts_train_tpu_torch", corpus, "port", "--checkpoint", str(init),
-                   "--platform", "cpu")
-    assert tproc.returncode == 0, tproc.stderr[-3000:]
-    jlines = [json.loads(l) for l in open(corpus / "jax.jsonl")]
-    tlines = [json.loads(l) for l in open(corpus / "port.jsonl")]
-    assert [l["global_step"] for l in tlines] == [l["global_step"] for l in jlines] == [4, 7]
-    for t, j in zip(tlines, jlines):
-        assert t["avg_loss"] == pytest.approx(j["avg_loss"], rel=1e-4)
-        assert t["learning_rate"] == pytest.approx(j["learning_rate"], rel=1e-6)
-    ckpt = corpus / "port" / "checkpoint_7.npz"
+    config, out = _both_clis(corpus, "plain")
+    ckpt = out / "checkpoint_7.npz"
     loaded = jax_checkpoint.load_checkpoint(ckpt, config, load_optimizer=False)
     assert loaded.global_step == 7
     saved, _ = checkpoint.read_npz(ckpt)
@@ -214,10 +253,10 @@ def test_train_clis_match_from_one_checkpoint(corpus):
     assert set(loaded_flat) == set(saved)
     for k, v in saved.items():
         np.testing.assert_array_equal(np.asarray(loaded_flat[k]), v)
-    assert (corpus / "port" / "config_7.json").exists()
+    assert (out / "config_7.json").exists()
     proc = subprocess.run(
         [sys.executable, "-m", "glow_tts_train_tpu_torch.infer", str(ckpt),
-         "--config", str(corpus / "port" / "config_7.json"), "--platform", "cpu"],
+         "--config", str(out / "config_7.json"), "--platform", "cpu"],
         input="3 7 12 5 9\n", env=_env(), capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
@@ -256,16 +295,20 @@ def test_train_cli_cuda_without_gpu_and_unported_options_exit_non_zero(corpus, t
 @pytest.mark.parametrize("encoder_fuse", [True, "auto"])
 def test_train_cli_refuses_encoder_fuse_on_cuda(corpus, tmp_path, encoder_fuse):
     """encoder_fuse true ("auto" resolves to true for this rel-pos config)
-    is refused at CLI start on --platform cuda, before the corpus loads
-    or any GPU is needed, naming the ROADMAP item; the CPU accepts it."""
+    trains through the text kernels on --platform cuda, so on a machine
+    without a GPU the CLI refuses the platform (exit 2, "no CUDA device")
+    and never runs on the CPU instead; nothing about encoder_fuse itself
+    is refused any more, on either platform."""
     override = tmp_path / "encoder_fuse.json"
     override.write_text(json.dumps({"encoder_fuse": encoder_fuse}))
+    config = load_config([corpus / "config.json", override])
+    assert model.hyper_from_config(config).encoder_fuse
+    training.check_trainable(config)
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: --platform cuda would train")
     proc = _train("glow_tts_train_tpu_torch", corpus, "fuse", "--platform", "cuda",
                   "--config", str(override))
     assert proc.returncode == 2, proc.stderr[-2000:]
-    assert "encoder_fuse" in proc.stderr and "ROADMAP" in proc.stderr, proc.stderr[-2000:]
-    assert "no CUDA device" not in proc.stderr
-    config = load_config([corpus / "config.json", override])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        training.check_trainable(config, "cuda")
-    training.check_trainable(config, "cpu")
+    assert "no CUDA device" in proc.stderr, proc.stderr[-2000:]
+    assert "ROADMAP" not in proc.stderr
+    assert not (corpus / "fuse.jsonl").exists() and not list((corpus / "fuse").glob("*.npz"))
