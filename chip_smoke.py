@@ -41,7 +41,26 @@ Phases, each fatal on failure:
    kernel's own ReLU gates, which are themselves compared; the text
    stacks' forward kernels again with dropout on; MAS bit for bit, also at
    a long shape the TPU streams) and times both with CUDA events, and the
-   train step.
+   train step;
+9. trains the same 8 steps (same corpus, seed and dropout seeds) through
+   the train CLI in each of the decoder's other modes: the fused block
+   with ``wn_residuals: recompute`` (per step the block forward and the
+   recompute backward once per block, no forward-save or backward-store),
+   ``flow_block_fuse: false`` with ``wn_residuals: store`` (the WN
+   forward-save and backward-store once per block) and with ``recompute``
+   (the WN forward with dropout and the WN recompute backward once per
+   block); checks the launch counts, that the loss falls over the epochs,
+   and every step's loss against the main run's (the modes compute one
+   function: recompute against store to the bit, op by op against fused
+   within MODE_LOSS_RTOL); serves one of those checkpoints through the
+   infer CLI;
+10. holds each of those kernels against its plain version on the inputs
+    the runs recorded in their last step, a recompute backward also
+    against the store backward on the same inputs (equal bits), and times
+    them;
+11. times the train step and reads its peak device memory in the four
+    decoder configurations, from one init in one process, in turns, and
+    holds the four loss trajectories together as in 9.
 
 Each kernel's line in ``{"kernels": [...]}`` carries its bound on this
 card: the larger of its bytes (every input read once, every output written
@@ -51,12 +70,13 @@ TFLOP/s; and ``library_ms`` null: no single PyTorch call computes any of
 these functions (a whole conv/LayerNorm stack, a layer with rel-pos band
 terms, a flow block, a monotonic alignment).
 
-Prints the GPU's name and power limit, a ``{"kernels": [...]}`` JSON line,
-and last ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU
+Prints the GPU's name and power limit, a ``{"decoder_modes": {...}}`` and
+a ``{"kernels": [...]}`` JSON line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU
 or outside a checkout of the repository.
 """
 
 import contextlib
+import copy
 import io
 import json
 import math
@@ -99,6 +119,33 @@ UNFUSED_OVERRIDE = {
     "warmup_steps": 50, "model": {"n_layers_enc": 2, "n_blocks_dec": 4},
 }
 UNFUSED_STEPS = 2
+# the decoder's other modes train the main run's steps again
+DECODER_MODES = {
+    "fused_recompute": {"flow_block_fuse": True, "wn_residuals": "recompute"},
+    "unfused_store": {"flow_block_fuse": False, "wn_residuals": "store"},
+    "unfused_recompute": {"flow_block_fuse": False, "wn_residuals": "recompute"},
+}
+# launches per block and step of each decoder kernel in each mode (the default
+# mode, fused_store, is the main training run)
+MODE_LAUNCHES = {
+    "fused_store": {"block_fwd_save": 1, "block_bwd_store": 1},
+    "fused_recompute": {"block_fwd": 1, "block_bwd": 1},
+    "unfused_store": {"wn_fwd_save": 1, "wn_bwd_store": 1},
+    "unfused_recompute": {"wn_forward": 1, "wn_bwd": 1},
+}
+DECODER_KERNELS = ("wn_forward", "wn_fwd_save", "wn_bwd_store", "wn_bwd",
+                   "block_fwd", "block_fwd_save", "block_bwd_store", "block_bwd")
+# the loss of a step in two modes from one init, batch and dropout seeds:
+# store against recompute (same launches on the same inputs) is equal to the
+# bit; the op-by-op decoder against the fused block differs by the
+# summation order of the folds, and the difference grows with the updates,
+# so it is held over the first steps only
+MODE_LOSS_RTOL = 1e-4
+MODE_LOSS_STEPS = 4
+# step time and peak memory of the four modes: turns of MODE_TURN_STEPS steps,
+# MODE_ROUNDS rounds of (a, b, c, d, d, c, b, a), after 2 warm-up steps each
+MODE_TURN_STEPS = 4
+MODE_ROUNDS = 4
 # kernel vs plain forward with dropout on: the keep masks are equal bit for
 # bit, so the outputs differ by summation order only
 DROPOUT_FWD_RTOL = 1e-5
@@ -123,6 +170,18 @@ KERNEL_META = {
                       "glow_tts_train_tpu/ops/block_pallas.py:714"),
     "wn_forward": ("glow_tts_train_tpu_torch/csrc/block_train.cu",
                    "glow_tts_train_tpu/ops/wn_pallas.py:188"),
+    "wn_forward_dropout": ("glow_tts_train_tpu_torch/csrc/block_train.cu",
+                           "glow_tts_train_tpu/ops/wn_pallas.py:188"),
+    "wn_fwd_save": ("glow_tts_train_tpu_torch/csrc/block_train.cu",
+                    "glow_tts_train_tpu/ops/wn_pallas.py:202"),
+    "wn_bwd": ("glow_tts_train_tpu_torch/csrc/block_train.cu",
+               "glow_tts_train_tpu/ops/wn_pallas.py:285"),
+    "wn_bwd_store": ("glow_tts_train_tpu_torch/csrc/block_train.cu",
+                     "glow_tts_train_tpu/ops/wn_pallas.py:330"),
+    "block_fwd": ("glow_tts_train_tpu_torch/csrc/block_train.cu",
+                  "glow_tts_train_tpu/ops/block_pallas.py:144"),
+    "block_bwd": ("glow_tts_train_tpu_torch/csrc/block_train.cu",
+                  "glow_tts_train_tpu/ops/block_pallas.py:327"),
     "block_fwd_save": ("glow_tts_train_tpu_torch/csrc/block_train.cu",
                        "glow_tts_train_tpu/ops/block_pallas.py:172"),
     "block_bwd_store": ("glow_tts_train_tpu_torch/csrc/block_train.cu",
@@ -164,14 +223,24 @@ def kernel_flops(name: str, args) -> float:
         # backtrack's one choice per frame
         flops = 3.0 * args[0].numel()
     else:  # the flow block and the WN stack
-        folded = args[0] if isinstance(args[0], dict) else dict(zip(("W_in", "b_in", "W_rs", "b_rs"), args[0]))
-        x = args[2]
+        if name == "wn_bwd_store":  # (w_in, w_rs, with_g, x_mask, saves, dout, ...)
+            folded, x = {"W_in": args[0], "W_rs": args[1]}, args[5]
+        else:
+            folded = args[0] if isinstance(args[0], dict) else dict(zip(("W_in", "b_in", "W_rs", "b_rs"), args[0]))
+            x = args[2]
         rows = x.shape[0] * x.shape[1]
-        flops = 2.0 * rows * (folded["W_in"].numel() + folded["W_rs"].numel())
+        h = folded["W_rs"].shape[1]  # the last layer has no residual half: h x h
+        flops = 2.0 * rows * (folded["W_in"].numel() + folded["W_rs"].numel() - h * h)
+        end_conv = 0.0
         if "W_s" in folded:  # the block: folded actnorm/invconv, start and end convs
             flops += 2.0 * rows * (folded["A"].numel() + folded["W_s"].numel() + folded["W_e"].numel())
-        if name == "block_bwd_store":  # from saves: no recompute but the end conv's logs
-            flops = 2.0 * flops + 2.0 * rows * folded["W_e"].numel() / 2
+            end_conv = 2.0 * rows * folded["W_e"].numel() / 2  # logs rebuilt from skipm
+        # a backward from saves: the weight and the input gradient of every
+        # product (2 x forward), the block's also rebuilds logs; a recompute
+        # backward runs the forward first, which leaves it logs
+        passes = {"block_bwd_store": 2.0, "wn_bwd_store": 2.0, "block_bwd": 3.0, "wn_bwd": 3.0}
+        if name in passes:
+            flops = passes[name] * flops + (end_conv if name == "block_bwd_store" else 0.0)
         return flops
     return 3.0 * flops if name.endswith("_bwd") else flops
 
@@ -456,8 +525,9 @@ def run_train_cli(workdir: Path, corpus: Path, manifest: dict, config_path: Path
             # kernels are held to their plain versions on the last step's
             # inputs: by then the zero-initialised end convs and prenet
             # projection have moved, so no gradient is zero by construction
+            arm = len(steps) == n_steps - 1
             for rec in recorders.values():
-                rec.armed = rec.armed or len(steps) == n_steps - 1
+                rec.armed = rec.armed or arm
             last.update(step_fn=step_fn, state=state, batch=batch, args=args)
             torch.cuda.synchronize()
             start = time.perf_counter()
@@ -568,21 +638,16 @@ def train(workdir: Path, repo: Path, config_path: Path, device_line: str):
     return launches, recorders, steps, step_ms, profile, ckpt, out / f"config_{1 + TRAIN_STEPS}.json"
 
 
-def profile_step(last: dict, device_line: str) -> dict:
-    """One more step on the last batch under torch.profiler: wall time,
-    device busy time (the kernels' and copies' self time; one stream, so
-    they add up), idle share, kernel launches, and the top kernels."""
+def profiled(fn) -> tuple:
+    """``fn()`` once under torch.profiler -> (wall ms, the device's self time
+    in ms by kernel or copy, its count of device operations)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    def step():
-        last["step_fn"](last["state"], last["batch"], *last["args"])
-
-    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        step()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     by_kernel, launches = {}, 0
@@ -590,6 +655,19 @@ def profile_step(last: dict, device_line: str) -> dict:
         if e.device_type.name == "CUDA":
             by_kernel[e.key] = e.self_device_time_total / 1e3
             launches += e.count
+    return wall_ms, by_kernel, launches
+
+
+def profile_step(last: dict, device_line: str) -> dict:
+    """One more step on the last batch under torch.profiler: wall time,
+    device busy time (the kernels' and copies' self time; one stream, so
+    they add up), idle share, kernel launches, and the top kernels."""
+
+    def step():
+        last["step_fn"](last["state"], last["batch"], *last["args"])
+
+    step()
+    wall_ms, by_kernel, launches = profiled(step)
     busy_ms = sum(by_kernel.values())
     block = sum(v for k, v in by_kernel.items()
                 if any(n in k for n in ("conv_gemm_kernel", "wgrad_kernel", "col_sum_kernel")))
@@ -633,16 +711,10 @@ def serve_trained(ckpt: Path, config: Path, n_mel: int) -> None:
     print(f"train: the trained checkpoint {ckpt.name} serves a 12-phoneme request: mel {list(mel.shape)}")
 
 
-def training_kernels(recorders: dict, launches: dict, device_line: str) -> tuple:
-    """Each training kernel against its plain version on the recorded
-    inputs, and both timed -> (the kernels' report entries, the text
-    stacks' forward kernels held again with dropout on)."""
-    import numpy as np
-    import torch
-
-    from glow_tts_train_tpu_torch.ops import block_cuda, mas_cuda, wn_cuda
-
-    report = []
+def entry_writer(report: list, launches: dict, device_line: str):
+    """-> entry(name, err, scale, ms, plain_ms, shape, roof, **extra): appends
+    one kernel's line to ``report`` (its launches from ``launches``) and
+    prints it."""
 
     def entry(name, err, scale, ms, plain_ms, shape, roof, **extra):
         source, replaces = KERNEL_META[name]
@@ -654,6 +726,33 @@ def training_kernels(recorders: dict, launches: dict, device_line: str) -> tuple
         print(f"kernel {name}: {shape} err {err:.3e} (max|ref| {scale:.3e}) kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {roof['bound_ms']:.4f} ms by {roof['bound_by']} "
               f"{extra or ''}[{device_line}]")
+
+    return entry
+
+
+def held_gradients(name: str, grads: dict, names: list, ref) -> float:
+    """Every gradient ``grads[n]`` against ``ref`` within KERNEL_RTOL of its
+    max -> the worst error relative to its gradient's max."""
+    worst = 0.0
+    for n, r in zip(names, ref):
+        e, sc = rel_err(f"{name} {n}", grads[n], r, KERNEL_RTOL)
+        if r.abs().max().item() == 0.0:
+            fail(f"{name}: {n} is zero in the plain version: nothing was compared")
+        worst = max(worst, e / max(sc, 1e-6))
+    return worst
+
+
+def training_kernels(recorders: dict, launches: dict, device_line: str) -> tuple:
+    """Each training kernel against its plain version on the recorded
+    inputs, and both timed -> (the kernels' report entries, the text
+    stacks' forward kernels held again with dropout on)."""
+    import numpy as np
+    import torch
+
+    from glow_tts_train_tpu_torch.ops import block_cuda, mas_cuda, wn_cuda
+
+    report = []
+    entry = entry_writer(report, launches, device_line)
 
     # WN forward (DDI)
     args, kwargs = recorders["wn_forward"].args
@@ -700,16 +799,14 @@ def training_kernels(recorders: dict, launches: dict, device_line: str) -> tuple
         fail("block_bwd_store: the base config has no speaker conditioning")
     loss = (z_p * dz).sum() + (ld_p * dld).sum()
     ref = torch.autograd.grad(loss, inputs, retain_graph=True)
-    worst = (0.0, 1.0)
-    for n, r in zip(["dx"] + ["d" + k for k in block_cuda.FOLD_KEYS], ref):
-        e, sc = rel_err(f"block_bwd_store {n}", grads[n], r, KERNEL_RTOL)
-        if e / max(sc, 1e-6) > worst[0] / max(worst[1], 1e-6):
-            worst = (e, sc)
+    worst = held_gradients(
+        "block_bwd_store", grads, ["dx"] + ["d" + k for k in block_cuda.FOLD_KEYS], ref
+    )
     dx_err, dx_scale = rel_err("block_bwd_store dx", grads["dx"], ref[0], KERNEL_RTOL)
     ms = time_ms(block_cuda.block_bwd_store, args, kwargs)
     plain_ms = time_ms(lambda: torch.autograd.grad(loss, inputs, retain_graph=True), (), {})
     entry("block_bwd_store", dx_err, dx_scale, ms, plain_ms, list(x.shape),
-          bound("block_bwd_store", args, kwargs, grads), worst_rel_err_grad=worst[0] / max(worst[1], 1e-6),
+          bound("block_bwd_store", args, kwargs, grads), worst_rel_err_grad=worst,
           max_abs_w_e=folded["W_e"].abs().max().item())
 
     # MAS, bit for bit: the training shape, then a long one the TPU streams
@@ -835,6 +932,361 @@ def text_kernels(recorders: dict, launches: dict, entry) -> list:
               p_dropout=cfg[-2], worst_rel_err_grad=worst[0] / worst[1], n_gradients=len(grads),
               relu_ties=ties, same_bits_twice=True)
     return forward_rows
+
+
+def held_losses(name: str, losses: list, ref: list, exact: bool) -> float:
+    """The per-step losses of one decoder mode against another's from the
+    same init, batches and dropout seeds -> the largest relative
+    difference.  ``exact``: every step to the bit; else the first
+    MODE_LOSS_STEPS steps within MODE_LOSS_RTOL."""
+    if len(losses) != len(ref):
+        fail(f"{name}: {len(losses)} steps against {len(ref)}")
+    n = len(ref) if exact else MODE_LOSS_STEPS
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses[:n], ref[:n]))
+    if not worst <= (0.0 if exact else MODE_LOSS_RTOL):
+        fail(f"{name}: the loss differs by {worst} relative in the first {n} steps "
+             f"({'equal bits expected' if exact else MODE_LOSS_RTOL}): {losses[:n]} vs {ref[:n]}")
+    return worst
+
+
+def decoder_modes(workdir: Path, config_path: Path, main_steps: list, device_line: str) -> tuple:
+    """The decoder's other training modes through the train CLI, each the
+    main run's steps again -> (launch counts by mode, recorders of the
+    modes' kernels, the per-mode rows).  One of the checkpoints then
+    serves."""
+    from glow_tts_train_tpu_torch.config import load_config
+    from glow_tts_train_tpu_torch.ops import block_cuda, wn_cuda
+
+    corpus = workdir / "corpus"
+    manifest = json.loads((corpus / "manifest.json").read_text())
+    config = load_config([config_path])
+    n_blocks = config.model.n_blocks_dec
+    recorded = {
+        "fused_recompute": {"block_fwd": (block_cuda, "block_fwd"), "block_bwd": (block_cuda, "block_bwd")},
+        "unfused_store": {"wn_fwd_save": (wn_cuda, "wn_fwd_save"),
+                          "wn_bwd_store": (wn_cuda, "wn_bwd_store")},
+        "unfused_recompute": {"wn_forward_dropout": (wn_cuda, "wn_stack"), "wn_bwd": (wn_cuda, "wn_bwd")},
+    }
+    main_losses = [r["loss"] for r in main_steps]
+    launches_by_mode, recorders, rows = {}, {}, {}
+    for mode, keys in DECODER_MODES.items():
+        recs = {name: Recorder(module, attr) for name, (module, attr) in recorded[mode].items()}
+        launches, steps, _, out, seconds = run_train_cli(
+            workdir, corpus, manifest, config_path, dict(TRAIN_OVERRIDE, **keys), mode,
+            TRAIN_STEPS, recs,
+        )
+        for name, rec in recs.items():
+            if rec.args is None:
+                fail(f"train {mode}: no call of {name} was recorded in the last step")
+        want = {k: MODE_LAUNCHES[mode].get(k, 0) * n_blocks * TRAIN_STEPS for k in DECODER_KERNELS}
+        want["wn_forward"] += n_blocks  # DDI, before the first step
+        got = {k: launches[k] for k in want}
+        if got != want:
+            fail(f"train {mode}: launches {got}, expected {want}")
+        epochs = [json.loads(line) for line in (workdir / f"{mode}.jsonl").read_text().splitlines()]
+        ckpt = out / f"checkpoint_{1 + TRAIN_STEPS}.npz"
+        if len(epochs) != 2 or not ckpt.exists():
+            fail(f"train {mode}: {len(epochs)} epoch lines, checkpoint {ckpt.name} exists: {ckpt.exists()}")
+        if not epochs[1]["avg_loss"] < epochs[0]["avg_loss"]:
+            fail(f"train {mode}: the loss did not fall over the epochs: {epochs}")
+        losses = [r["loss"] for r in steps]
+        print(f"train {mode} {keys}: {TRAIN_STEPS} steps in {seconds:.1f} s (DDI and checkpoints "
+              f"included), losses {losses} against the main run's {main_losses}, step ms "
+              f"{[round(r['seconds'] * 1e3, 1) for r in steps]}, launches {got} [{device_line}]")
+        worst = held_losses(f"train {mode} vs the main run", losses, main_losses,
+                            exact=keys["flow_block_fuse"])
+        launches_by_mode[mode] = launches
+        recorders.update(recs)
+        rows[mode] = {"config": keys, "steps": steps, "launches": got,
+                      "epoch_avg_loss": [e["avg_loss"] for e in epochs],
+                      "loss_rel_diff_vs_main_run": worst}
+
+    held_losses("train unfused_recompute vs unfused_store",
+                [r["loss"] for r in rows["unfused_recompute"]["steps"]],
+                [r["loss"] for r in rows["unfused_store"]["steps"]], exact=True)
+
+    # serving from a checkpoint trained op by op
+    out = workdir / "model_unfused_recompute"
+    serve_trained(out / f"checkpoint_{1 + TRAIN_STEPS}.npz", out / f"config_{1 + TRAIN_STEPS}.json",
+                  config.audio.mel_channels)
+    return launches_by_mode, recorders, rows
+
+
+def decoder_mode_kernels(recorders: dict, launches_by_mode: dict, device_line: str) -> list:
+    """The kernels of the decoder's other modes on the inputs their runs
+    recorded in the last step: each against its plain version (a backward
+    against autograd of the plain forward with the same seed, its cotangent
+    scaled to max 1), a recompute backward also against the store backward
+    on the same inputs (equal bits), and all timed."""
+    import torch
+
+    from glow_tts_train_tpu_torch.ops import block_cuda, wn_cuda
+
+    n_blocks = launches_by_mode["unfused_recompute"]["wn_bwd"] // TRAIN_STEPS
+    launches = {
+        "block_fwd": launches_by_mode["fused_recompute"]["block_fwd"],
+        "block_bwd": launches_by_mode["fused_recompute"]["block_bwd"],
+        "wn_fwd_save": launches_by_mode["unfused_store"]["wn_fwd_save"],
+        "wn_bwd_store": launches_by_mode["unfused_store"]["wn_bwd_store"],
+        "wn_bwd": launches_by_mode["unfused_recompute"]["wn_bwd"],
+        # the launches with dropout: all but DDI's one per block
+        "wn_forward_dropout": launches_by_mode["unfused_recompute"]["wn_forward"] - n_blocks,
+    }
+    report: list = []
+    entry = entry_writer(report, launches, device_line)
+
+    def unit(t):  # a backward is linear in its cotangent
+        return t / t.abs().max().clamp_min(1e-30)
+
+    def dropout_on(name, p_dropout):
+        if not p_dropout > 0.0:
+            fail(f"{name}: the recorded training call has no dropout")
+
+    # ---- block forward, nothing saved ----
+    args, kwargs = recorders["block_fwd"].args
+    folded, g_all, x, x_mask, *cfg = args
+    dropout_on("block_fwd", cfg[3])
+    with torch.no_grad():
+        z, ld = block_cuda.block_fwd(*args, **kwargs)
+        z_p, ld_p = block_cuda.block_forward_plain(*args, **kwargs)
+        err, scale = rel_err("block_fwd z", z, z_p, KERNEL_RTOL)
+        ld_err, _ = rel_err("block_fwd ld", ld, ld_p, KERNEL_RTOL)
+        z_s, ld_s, _ = block_cuda.block_fwd_save(*args, **kwargs)
+        if not (torch.equal(z, z_s) and torch.equal(ld, ld_s)):
+            fail("block_fwd: z or ld differ from the forward-save kernel's bits")
+        entry("block_fwd", err, scale, time_ms(block_cuda.block_fwd, args, kwargs),
+              time_ms(block_cuda.block_forward_plain, args, kwargs), list(x.shape),
+              bound("block_fwd", args, kwargs, (z, ld)), p_dropout=cfg[3], max_abs_err_ld=ld_err,
+              equals_fwd_save=True)
+
+    # ---- block recompute backward ----
+    args, kwargs = recorders["block_bwd"].args
+    folded, g_all, x, x_mask, dz, dld, *cfg = args
+    dropout_on("block_bwd", cfg[3])
+    if g_all is not None:
+        fail("block_bwd: the base config has no speaker conditioning")
+    scale_by = dz.abs().max().clamp_min(1e-30)
+    dz, dld = dz / scale_by, dld / scale_by
+    args = (folded, g_all, x, x_mask, dz, dld, *cfg)
+    grads = block_cuda.block_bwd(*args, **kwargs)
+    fp = {k: v.detach().clone().requires_grad_(True) for k, v in folded.items()}
+    xp = x.detach().clone().requires_grad_(True)
+    inputs = [xp] + [fp[k] for k in block_cuda.FOLD_KEYS]
+    z_p, ld_p = block_cuda.block_forward_plain(fp, None, xp, x_mask, *cfg)
+    loss = (z_p * dz).sum() + (ld_p * dld).sum()
+    names = ["dx"] + ["d" + k for k in block_cuda.FOLD_KEYS]
+    ref = torch.autograd.grad(loss, inputs, retain_graph=True)
+    worst = held_gradients("block_bwd", grads, names, ref)
+    _, _, saves = block_cuda.block_fwd_save(folded, g_all, x, x_mask, *cfg)
+    store = block_cuda.block_bwd_store(folded, False, x, x_mask, saves, dz, dld, *cfg)
+    for n in names:
+        if not torch.equal(grads[n], store[n]):
+            fail(f"block_bwd: {n} differs from the store backward's bits")
+    dx_err, dx_scale = rel_err("block_bwd dx", grads["dx"], ref[0], KERNEL_RTOL)
+    entry("block_bwd", dx_err, dx_scale, time_ms(block_cuda.block_bwd, args, kwargs),
+          time_ms(lambda: torch.autograd.grad(loss, inputs, retain_graph=True), (), {}),
+          list(x.shape), bound("block_bwd", args, kwargs, grads), p_dropout=cfg[3],
+          worst_rel_err_grad=worst, equals_store=True,
+          store_ms=time_ms(block_cuda.block_bwd_store,
+                           (folded, False, x, x_mask, saves, dz, dld, *cfg), {}))
+    del saves, store
+
+    # ---- WN forward-save ----
+    args, kwargs = recorders["wn_fwd_save"].args
+    wn, g_all, x, x_mask, *cfg = args
+    dropout_on("wn_fwd_save", cfg[2])
+    with torch.no_grad():
+        skip, saves = wn_cuda.wn_fwd_save(*args, **kwargs)
+        ref_saves: dict = {}
+        skip_p = wn_cuda.wn_stack_plain(*args, saves=ref_saves, **kwargs)
+        err, scale = rel_err("wn_fwd_save skip", skip, skip_p, KERNEL_RTOL)
+        save_err = max(
+            rel_err(f"wn_fwd_save {k}", saves[k], torch.stack(ref_saves[k]), KERNEL_RTOL)[0]
+            for k in ("xs", "th", "sg")
+        )
+        del ref_saves
+        entry("wn_fwd_save", err, scale, time_ms(wn_cuda.wn_fwd_save, args, kwargs),
+              time_ms(wn_cuda.wn_stack_plain, args, kwargs), list(x.shape),
+              bound("wn_fwd_save", args, kwargs, (skip, saves)), p_dropout=cfg[2],
+              max_abs_err_saves=save_err)
+
+    def wn_reference(wn, g_all, x, x_mask, dout, cfg):
+        """Autograd of the plain stack -> (loss, inputs, gradient names)."""
+        if g_all is not None:
+            fail("the base config has no speaker conditioning")
+        wp = [w.detach().clone().requires_grad_(True) for w in wn]
+        xp = x.detach().clone().requires_grad_(True)
+        loss = (wn_cuda.wn_stack_plain(tuple(wp), None, xp, x_mask, *cfg) * dout).sum()
+        return loss, [xp, *wp], ["dx", "dW_in", "db_in", "dW_rs", "db_rs"]
+
+    # ---- WN backward-store: the residuals of the recorded forward (the
+    # step's first block), the cotangent of the recorded backward (its last) ----
+    (w_in, w_rs, with_g, _, _, dout, *bwd_cfg), kwargs = recorders["wn_bwd_store"].args
+    if list(bwd_cfg[:3]) != list(cfg[:3]) or dout.shape != x.shape:  # all but the block's seed
+        fail(f"wn_bwd_store: recorded with {bwd_cfg} at {list(dout.shape)}, the forward with {cfg}")
+    dout = unit(dout)
+    args = (wn[0], wn[2], False, x_mask, saves, dout, *cfg)
+    grads = wn_cuda.wn_bwd_store(*args, **kwargs)
+    loss, inputs, names = wn_reference(wn, g_all, x, x_mask, dout, cfg)
+    ref = torch.autograd.grad(loss, inputs, retain_graph=True)
+    worst = held_gradients("wn_bwd_store", grads, names, ref)
+    again = wn_cuda.wn_bwd_store(*args, **kwargs)
+    if not all(torch.equal(grads[n], again[n]) for n in names):
+        fail("wn_bwd_store: two runs gave different bits")
+    dx_err, dx_scale = rel_err("wn_bwd_store dx", grads["dx"], ref[0], KERNEL_RTOL)
+    entry("wn_bwd_store", dx_err, dx_scale, time_ms(wn_cuda.wn_bwd_store, args, kwargs),
+          time_ms(lambda: torch.autograd.grad(loss, inputs, retain_graph=True), (), {}),
+          list(x.shape), bound("wn_bwd_store", args, kwargs, grads), p_dropout=cfg[2],
+          worst_rel_err_grad=worst, same_bits_twice=True)
+    del saves, grads, again, loss, inputs, ref
+
+    # ---- WN forward with dropout (the forward of recompute mode) ----
+    args, kwargs = recorders["wn_forward_dropout"].args
+    wn, g_all, x, x_mask, *cfg = args
+    dropout_on("wn_forward_dropout", cfg[2])
+    with torch.no_grad():
+        skip = wn_cuda.wn_stack(*args, **kwargs)
+        err, scale = rel_err("wn_forward_dropout", skip, wn_cuda.wn_stack_plain(*args, **kwargs),
+                             KERNEL_RTOL)
+        entry("wn_forward_dropout", err, scale, time_ms(wn_cuda.wn_stack, args, kwargs),
+              time_ms(wn_cuda.wn_stack_plain, args, kwargs), list(x.shape),
+              bound("wn_forward", args, kwargs, skip), p_dropout=cfg[2])
+
+    # ---- WN recompute backward ----
+    args, kwargs = recorders["wn_bwd"].args
+    wn, g_all, x, x_mask, dout, *cfg = args
+    dropout_on("wn_bwd", cfg[2])
+    dout = unit(dout)
+    args = (wn, g_all, x, x_mask, dout, *cfg)
+    grads = wn_cuda.wn_bwd(*args, **kwargs)
+    loss, inputs, names = wn_reference(wn, g_all, x, x_mask, dout, cfg)
+    ref = torch.autograd.grad(loss, inputs, retain_graph=True)
+    worst = held_gradients("wn_bwd", grads, names, ref)
+    _, saves = wn_cuda.wn_fwd_save(wn, g_all, x, x_mask, *cfg)
+    store = wn_cuda.wn_bwd_store(wn[0], wn[2], False, x_mask, saves, dout, *cfg)
+    for n in names:
+        if not torch.equal(grads[n], store[n]):
+            fail(f"wn_bwd: {n} differs from the store backward's bits")
+    dx_err, dx_scale = rel_err("wn_bwd dx", grads["dx"], ref[0], KERNEL_RTOL)
+    entry("wn_bwd", dx_err, dx_scale, time_ms(wn_cuda.wn_bwd, args, kwargs),
+          time_ms(lambda: torch.autograd.grad(loss, inputs, retain_graph=True), (), {}),
+          list(x.shape), bound("wn_bwd", args, kwargs, grads), p_dropout=cfg[2],
+          worst_rel_err_grad=worst, equals_store=True)
+    return report
+
+
+def decoder_mode_steps(workdir: Path, config_path: Path, device_line: str) -> dict:
+    """Train-step wall time and peak device memory of the four decoder
+    configurations in one process: each from the same fresh init (DDI on
+    the first batch) on the 64-utterance corpus's four batch shapes, 2
+    warm-up steps, then turns of MODE_TURN_STEPS steps in the order a, b,
+    c, d, d, c, b, a, a device sync on each side of a step.  Peak memory is
+    ``max_memory_allocated`` of a step (reset before it), also over what
+    was allocated when the step began (all four models and their Adam
+    moments stay resident).  Every mode takes the same steps (batches,
+    dropout seeds), so the loss trajectories are held together
+    (``held_losses``): recompute against store in either form, and the
+    op-by-op decoder against the fused block."""
+    import torch
+
+    from glow_tts_train_tpu_torch import data, kernels, training
+    from glow_tts_train_tpu_torch.config import load_config
+
+    corpus = workdir / "corpus"
+    config = load_config([config_path, workdir / "fused_override.json"])
+    dataset = data.build_dataset(
+        [data.SpeakerSource(0, corpus / "phonemes.csv", corpus / "mels")], config,
+        mels_are_dirs=True, skip_missing_mels=False, multispeaker=False,
+    )
+    pipeline = data.DataPipeline(dataset, config, batch_size=config.batch_size)
+    batches = [training.batch_to(b, PLATFORM) for b in pipeline.batches()]
+    modes = {"fused_store": {"flow_block_fuse": True, "wn_residuals": "store"}, **DECODER_MODES}
+    variants = {}
+    for name, keys in modes.items():
+        cfg = copy.deepcopy(config)
+        for key, value in keys.items():
+            setattr(cfg, key, value)
+        variants[name] = {
+            "step": training.make_train_step(cfg),
+            "state": training.TrainState(training.initialize_model(cfg, batches[0], PLATFORM)),
+            "generator": torch.Generator(device=PLATFORM).manual_seed(cfg.seed),
+            "seeds": torch.Generator().manual_seed(cfg.seed),
+            "n": 0, "ms": [], "peak": [], "over_resident": [], "loss": [],
+        }
+
+    def run_step(v, timed=True):
+        batch = batches[v["n"] % len(batches)]
+        v["n"] += 1
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        start = time.perf_counter()
+        metrics = v["step"](v["state"], batch, v["generator"], v["seeds"])
+        torch.cuda.synchronize()
+        if timed:
+            v["ms"].append((time.perf_counter() - start) * 1e3)
+            v["peak"].append(torch.cuda.max_memory_allocated())
+            v["over_resident"].append(torch.cuda.max_memory_allocated() - resident)
+        return float(metrics["loss"])
+
+    for v in variants.values():  # the warm-up steps are the trajectory's first
+        v["loss"] += [run_step(v, timed=False), run_step(v, timed=False)]
+    order = list(variants)
+    for _ in range(MODE_ROUNDS):
+        for name in order + order[::-1]:
+            for _ in range(MODE_TURN_STEPS):
+                variants[name]["loss"].append(run_step(variants[name]))
+    out = {"gpu": device_line, "batch_shapes": [[list(b["x"].shape), list(b["y"].shape)] for b in batches],
+           "steps_per_turn": MODE_TURN_STEPS, "turns": 2 * MODE_ROUNDS, "modes": {}}
+    largest = max(range(len(batches)), key=lambda i: batches[i]["y"].shape[1])
+    for name, v in variants.items():
+        if not all(math.isfinite(x) for x in v["loss"]):
+            fail(f"decoder mode {name}: non-finite loss {v['loss']}")
+    ref = variants["fused_store"]["loss"]
+    loss_rel_diff = {
+        "fused_recompute": held_losses("decoder mode fused_recompute vs fused_store",
+                                       variants["fused_recompute"]["loss"], ref, exact=True),
+        "unfused_recompute": held_losses("decoder mode unfused_recompute vs unfused_store",
+                                         variants["unfused_recompute"]["loss"],
+                                         variants["unfused_store"]["loss"], exact=True),
+        "unfused_store": held_losses("decoder mode unfused_store vs fused_store",
+                                     variants["unfused_store"]["loss"], ref, exact=False),
+    }
+    out["loss_rel_diff"] = loss_rel_diff
+    print(f"decoder modes: {len(ref)} steps each; largest relative loss difference, recompute "
+          f"against store over all steps and op by op against fused over the first "
+          f"{MODE_LOSS_STEPS}: {loss_rel_diff}; fused_store losses {ref}")
+    for name, v in variants.items():
+        before = kernels.launch_counts()
+        v["n"] = largest  # one more step on the largest batch, then the same under the profiler
+        run_step(v)
+        after = kernels.launch_counts()
+        largest_ms, largest_peak = v["ms"].pop(), v["over_resident"].pop()
+        v["peak"].pop()
+        v["n"] = largest
+        wall_ms, by_kernel, operations = profiled(lambda: run_step(v, timed=False))
+        turns = [v["ms"][i:i + MODE_TURN_STEPS] for i in range(0, len(v["ms"]), MODE_TURN_STEPS)]
+        out["modes"][name] = {
+            "config": modes[name], "median_step_ms": statistics.median(v["ms"]),
+            "turn_median_ms": [statistics.median(t) for t in turns], "all_steps_ms": v["ms"],
+            "max_memory_allocated": max(v["peak"]),
+            "max_memory_over_resident": max(v["over_resident"]),
+            "largest_batch": [list(batches[largest]["x"].shape), list(batches[largest]["y"].shape)],
+            "largest_batch_step_ms": largest_ms,
+            "largest_batch_memory_over_resident": largest_peak,
+            "profiled_wall_ms": wall_ms, "device_busy_ms": sum(by_kernel.values()),
+            "device_operations": operations,
+            "decoder_launches_per_step": {k: after[k] - before[k] for k in DECODER_KERNELS
+                                          if after[k] != before[k]},
+        }
+        row = out["modes"][name]
+        print(f"decoder mode {name}: median step {row['median_step_ms']:.1f} ms (turns "
+              f"{[round(t, 1) for t in row['turn_median_ms']]}), max_memory_allocated "
+              f"{row['max_memory_allocated'] / 2**20:.0f} MiB ({row['max_memory_over_resident'] / 2**20:.0f} "
+              f"MiB over what was resident), launches per step {row['decoder_launches_per_step']}; "
+              f"largest batch: step {largest_ms:.1f} ms, device busy {row['device_busy_ms']:.1f} ms in "
+              f"{operations} device operations [{device_line}]")
+    return out
 
 
 def main() -> int:
@@ -1001,10 +1453,21 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
     report += train_report
     for row in forward_rows:  # the text stacks' forward kernels, training shape and dropout
         next(r for r in report if r["name"] == row["name"]).update(row)
+    del train_recorders
+
+    # ---- main path 3: the decoder's other training modes ----
+    launches_by_mode, mode_recorders, mode_rows = decoder_modes(
+        workdir, config_path, steps, device_line
+    )
+    report += decoder_mode_kernels(mode_recorders, launches_by_mode, device_line)
+    del mode_recorders
+    torch.cuda.empty_cache()
+    mode_steps = decoder_mode_steps(workdir, config_path, device_line)
 
     print(json.dumps({"serve": serve_rows}))
     print(json.dumps({"train": {"steps": steps, "median_step_ms_after_first": step_ms,
                                 "profiled_step": train_profile}}))
+    print(json.dumps({"decoder_modes": {"runs": mode_rows, "steps": mode_steps}}))
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,11 +5,13 @@ The port's own copy of the JAX package's schema
 nested structure, so one JSON file configures both packages and
 ``dataclasses.asdict`` of the two loads is equal.  Stdlib ``dataclasses``
 only.  Fields that steer the JAX package's TPU graph (``unroll_blocks``,
-``remat_*``, ``prng_impl``, ``wn_impl``, ``mesh_axis``,
-``scoped_vmem_limit_kib``, ``checkpoint_format``,
-``flow_block_fuse_reverse``) are carried so configs round-trip; the port
-reads ``encoder_fuse``, ``fp16_run``, ``grad_accum_steps`` and the shared
-training, bucketing and data fields.
+``remat_*``, ``prng_impl``, ``mesh_axis``, ``scoped_vmem_limit_kib``,
+``checkpoint_format``) are carried so configs round-trip; the port reads
+``encoder_fuse``, the decoder-mode keys ``wn_residuals`` and
+``flow_block_fuse`` (``models.hyper_from_config`` resolves their "auto",
+and refuses ``wn_impl: "xla"`` and ``flow_block_fuse_reverse: false``,
+which the port has no second path for), ``fp16_run``,
+``grad_accum_steps`` and the shared training, bucketing and data fields.
 """
 
 import collections.abc
@@ -137,12 +139,18 @@ class TrainingConfig:
     # Batches to prepare (mel loads, collate, host-to-device copy) ahead
     # of the step on a background thread; 0 disables prefetch.
     prefetch_batches: int = 2
+    # The WN stack of the op-by-op decoder: "pallas" (the port's WN
+    # kernels; "auto").  The port refuses "xla".
     wn_impl: str = "auto"
-    # Backward of the WN stack inside a flow block: "store" saves the
-    # per-layer inputs and gates in forward, "recompute" re-runs the stack.
+    # Backward of the WN stack, alone or inside a flow block: "store" ("auto")
+    # saves the per-layer inputs and gates in forward, "recompute" re-runs
+    # the forward inside the backward and holds one block's at a time.
     wn_residuals: str = "auto"
-    # Each training-forward flow block as one kernel.
+    # Each training-forward flow block as one kernel ("auto": true); false
+    # runs ActNorm, InvConvNear and the coupling op by op around the WN stack.
     flow_block_fuse: typing.Union[bool, str] = "auto"
+    # Each inverse (serving) flow block as one kernel ("auto": true); the
+    # port refuses false.
     flow_block_fuse_reverse: typing.Union[bool, str] = "auto"
     # The text side through its kernels: each encoder layer, the prenet and
     # the duration-predictor stack.  "auto" -> true when the model uses the

@@ -49,10 +49,15 @@ extern "C" int gtt_block_inverse(
     g.out = xcur; g.ldo = h; g.mask = mask;
     if ((err = conv_gemm(g, stream)) != cudaSuccess) return (int)err;
   }
-  if ((err = wn_layers(xcur, acts, skip, mask, w_in, b_in, w_rs, b_rs, g_all,
-                       g_stride, batch, t, h, n_layers, taps, dilation_rate,
-                       stream)) != cudaSuccess)
-    return (int)err;
+  {  // skip = WN stack of h0, no dropout, nothing saved
+    WnLayers wn;
+    wn.x = xcur; wn.acts = acts; wn.skip = skip; wn.mask = mask;
+    wn.w_in = w_in; wn.b_in = b_in; wn.w_rs = w_rs; wn.b_rs = b_rs;
+    wn.g_all = g_all; wn.g_stride = g_stride; wn.batch = batch; wn.t = t;
+    wn.h = h; wn.n_layers = n_layers; wn.taps = taps;
+    wn.dilation_rate = dilation_rate;
+    if ((err = wn_layers(wn, stream)) != cudaSuccess) return (int)err;
+  }
   {  // z1 = (x1 - m) * exp(-logs) * mask, written over zbuf[:, c2:]
     ConvGemm g;
     g.a = skip; g.lda = h; g.c_in = h; g.a_mask = mask; g.batch = batch; g.t = t;

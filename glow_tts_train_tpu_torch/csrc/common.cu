@@ -32,7 +32,7 @@ __device__ __forceinline__ float sigmoidf(float x) {
 
 __device__ __forceinline__ bool paired(int epilogue) {
   return epilogue == kGate || epilogue == kCouplingInv ||
-         epilogue == kGateSave || epilogue == kCouplingFwd;
+         epilogue == kCouplingFwd;
 }
 
 // Logical output column -> column of B / bias.
@@ -60,7 +60,6 @@ __device__ __forceinline__ void epilogue_row(const ConvGemm& g, int m, int n0,
   float* out = g.out + (long)m * g.ldo;
   switch (g.epilogue) {
     case kGate:
-    case kGateSave:
     case kCouplingInv:
     case kCouplingFwd: {
       // acc[2p], acc[2p + 1] are the pair (j, j + split), j = (n0 + 2p) / 2
@@ -70,11 +69,9 @@ __device__ __forceinline__ void epilogue_row(const ConvGemm& g, int m, int n0,
         const int j = n >> 1;
         float lo = acc[2 * p] + bias_at(g, j);
         float hi = acc[2 * p + 1] + bias_at(g, j + g.split);
-        if (g.epilogue == kGate || g.epilogue == kGateSave) {
-          if (g.epilogue == kGateSave) {
-            lo = dropped(g, m, j, lo);
-            hi = dropped(g, m, j + g.split, hi);
-          }
+        if (g.epilogue == kGate) {
+          lo = dropped(g, m, j, lo);
+          hi = dropped(g, m, j + g.split, hi);
           if (g.aux) {
             const float* gb = g.aux + (long)(m / g.t) * g.ld_aux;
             lo += gb[j];
@@ -83,7 +80,7 @@ __device__ __forceinline__ void epilogue_row(const ConvGemm& g, int m, int n0,
           const float th = tanhf(lo);
           const float sg = sigmoidf(hi);
           out[j] = th * sg;
-          if (g.epilogue == kGateSave) {
+          if (g.out2) {
             g.out2[(long)m * g.ldo2 + j] = th;
             g.out3[(long)m * g.ldo3 + j] = sg;
           }
@@ -584,37 +581,45 @@ cudaError_t wgrad(const WGrad& w, cudaStream_t stream) {
                  w.out, (int)per_split, stream);
 }
 
-cudaError_t wn_layers(float* xcur, float* acts, float* skip, const float* mask,
-                      const float* w_in, const float* b_in, const float* w_rs,
-                      const float* b_rs, const float* g_all, int g_stride,
-                      int batch, int t, int h, int n_layers, int taps,
-                      int dilation_rate, cudaStream_t stream) {
+cudaError_t wn_layers(const WnLayers& a, cudaStream_t stream) {
+  const int h = a.h;
+  const long rh = (long)a.batch * a.t * h;
+  const bool save = a.th != nullptr;
   int dilation = 1;
-  for (int l = 0; l < n_layers; ++l) {
-    {  // acts = tanh(u + g_u) * sigmoid(v + g_v), [u | v] = conv(xcur) + b_in
+  for (int l = 0; l < a.n_layers; ++l) {
+    float* x_l = save ? a.x + l * rh : a.x;
+    const bool last = l == a.n_layers - 1;
+    {  // acts = tanh(u + g_u) * sigmoid(v + g_v), [u | v] = drop(conv(x_l) + b_in)
       ConvGemm g;
-      g.a = xcur; g.lda = h; g.c_in = h; g.taps = taps; g.dilation = dilation;
-      g.batch = batch; g.t = t;
-      g.w = w_in + (long)l * taps * h * 2 * h; g.bias = b_in + l * 2 * h;
-      g.n = 2 * h; g.split = h; g.epilogue = kGate; g.out = acts; g.ldo = h;
-      if (g_all) {
-        g.aux = g_all + l * 2 * h;
-        g.ld_aux = g_stride;
+      g.a = x_l; g.lda = h; g.c_in = h; g.taps = a.taps; g.dilation = dilation;
+      g.batch = a.batch; g.t = a.t;
+      g.w = a.w_in + (long)l * a.taps * h * 2 * h; g.bias = a.b_in + l * 2 * h;
+      g.n = 2 * h; g.split = h; g.epilogue = kGate; g.out = a.acts; g.ldo = h;
+      if (save) {
+        g.out2 = a.th + l * rh; g.ldo2 = h;
+        g.out3 = a.sg + l * rh; g.ldo3 = h;
       }
+      if (a.g_all) {
+        g.aux = a.g_all + l * 2 * h;
+        g.ld_aux = a.g_stride;
+      }
+      g.drop = a.drop.at(l);
       cudaError_t err = conv_gemm(g, stream);
       if (err != cudaSuccess) return err;
     }
-    {  // xcur = (xcur + rs[:, :h]) * mask; skip += rs[:, h:]
+    {  // x_next = (x_l + rs[:, :h]) * mask; skip += rs[:, h:]
       ConvGemm g;
-      g.a = acts; g.lda = h; g.c_in = h; g.batch = batch; g.t = t;
-      g.w = w_rs + (long)l * h * 2 * h; g.bias = b_rs + l * 2 * h;
+      g.a = a.acts; g.lda = h; g.c_in = h; g.batch = a.batch; g.t = a.t;
+      g.w = a.w_rs + (long)l * h * 2 * h; g.bias = a.b_rs + l * 2 * h;
       g.n = 2 * h; g.split = h; g.epilogue = kResSkip;
-      g.out = xcur; g.ldo = h; g.mask = mask; g.out2 = skip; g.ldo2 = h;
-      g.flag = l < n_layers - 1;  // the last layer's residual half is zero
+      g.out = save && !last ? x_l + rh : x_l; g.ldo = h; g.mask = a.mask;
+      g.aux = x_l; g.ld_aux = h; g.out2 = a.skip; g.ldo2 = h;
+      g.flag = !last;  // the last layer's residual half is zero
+      g.skip_mask = last && a.skip_mask;
       cudaError_t err = conv_gemm(g, stream);
       if (err != cudaSuccess) return err;
     }
-    dilation *= dilation_rate;
+    dilation *= a.dilation_rate;
   }
   return cudaSuccess;
 }

@@ -18,7 +18,8 @@
 //  * col_sum: deterministic per-segment column sums (bias gradients, the
 //    per-sample conditioning gradient, the coupling logdet).
 //  * wn_layers: the WN stack's 2 conv_gemm launches per layer (gate, then
-//    res/skip), shared by the inverse block and the WN forward.
+//    res/skip), with or without dropout and the per-layer saves, shared by
+//    the flow block in both directions and the WN stack's own kernels.
 //  * layer_norm: one warp per row over the channel axis (eps 1e-4, biased
 //    variance), with an optional masked residual sum and ReLU before or after;
 //    in training it drops its result and keeps the normalised input and the
@@ -98,10 +99,10 @@ enum Epilogue : int {
   kBiasRelu = 1,     // out = max(acc + bias, 0)
   kBiasMask = 2,     // out = (acc + bias) * mask
   kResidMask = 3,    // out = (aux + acc + bias) * mask
-  kGate = 4,         // out[:, j] = tanh(u_j + b + g) * sigmoid(v_j + b + g)
+  kGate = 4,         // out[:, j] = tanh(drop(u_j + b) + g) * sigmoid(drop(v_j + b) + g);
+                     // out2 = tanh, out3 = sigmoid where given
   kResSkip = 5,      // out[:, :split] = (out + acc + b) * mask; out2 += acc + b
   kCouplingInv = 6,  // out[:, j] = (out[:, j] - m_j) * exp(-logs_j) * mask
-  kGateSave = 7,     // kGate after dropout; out = acts, out2 = tanh, out3 = sigmoid
   kCouplingFwd = 8,  // out[:, j] = (m_j + exp(logs_j) * out[:, j]) * mask;
                      // out2[:, j] = logs_j * mask
   kCouplingBwd = 9,  // from logs_raw: out = [dm | dlogs], out2[:, split + j] = dx1
@@ -155,7 +156,7 @@ struct ConvGemm {
   const float* aux3 = nullptr;
   float* out3 = nullptr;
   int ldo3 = 0;
-  // dropout of kGateSave / kGateBwd (the site is the WN layer) and of the
+  // dropout of kGate / kGateBwd (the site is the WN layer) and of the
   // plain epilogues; keep masks are replayed from the seed
   Dropout drop;
 };
@@ -202,17 +203,39 @@ cudaError_t ln_param_grads(const float* dy, const float* xhat, int n, int batch,
                            int t, float* part, float* dgamma, float* dbeta,
                            cudaStream_t stream);
 
-// The WN stack's layers without dropout or saves (the inverse block and the
-// WN forward): per layer the dilated in-conv with the gate (+ g_all, row b
-// at g_all + b * g_stride, layer l at column l * 2h, or null), then the 1x1
-// res/skip, xcur = (xcur + res) * mask and skip += its skip half.  xcur
-// [batch * t, h] holds the input and is overwritten; skip must start at 0;
-// acts is [batch * t, h] scratch.
-cudaError_t wn_layers(float* xcur, float* acts, float* skip, const float* mask,
-                      const float* w_in, const float* b_in, const float* w_rs,
-                      const float* b_rs, const float* g_all, int g_stride,
-                      int batch, int t, int h, int n_layers, int taps,
-                      int dilation_rate, cudaStream_t stream);
+// The WN stack's layers: per layer the dilated in-conv with the gate (its
+// pre-gate tensor dropped at site l, then + g_all), then the 1x1 res/skip,
+// x_next = (x + res) * mask and skip += its skip half.
+struct WnLayers {
+  // Without saves (th null) x [batch * t, h] holds the input and is
+  // overwritten layer by layer.  With saves x is layer-major [L, batch * t,
+  // h]: slice 0 holds the input, layer l reads slice l and writes slice
+  // l + 1 (the last layer writes none), and th / sg [L, batch * t, h]
+  // receive each layer's tanh and sigmoid gates.
+  float* x = nullptr;
+  float* th = nullptr;
+  float* sg = nullptr;
+  float* acts = nullptr;  // [batch * t, h] scratch
+  float* skip = nullptr;  // [batch * t, h] skip sum; must start at 0
+  int skip_mask = 0;      // multiply the finished skip sum by the mask
+  const float* mask = nullptr;
+  const float* w_in = nullptr;   // [L, taps * h, 2h]
+  const float* b_in = nullptr;   // [L, 2h]
+  const float* w_rs = nullptr;   // [L, h, 2h], the last layer's residual half zero
+  const float* b_rs = nullptr;   // [L, 2h]
+  // conditioning: row b at g_all + b * g_stride, layer l at column l * 2h; or null
+  const float* g_all = nullptr;
+  int g_stride = 0;
+  int batch = 0;
+  int t = 0;
+  int h = 0;
+  int n_layers = 0;
+  int taps = 1;
+  int dilation_rate = 1;
+  Dropout drop;  // n_sites = n_layers; the site is set per layer
+};
+
+cudaError_t wn_layers(const WnLayers& a, cudaStream_t stream);
 
 struct LayerNorm {
   // out = LN(relu_before? (x * x_mask + resid)) [relu_after], per row

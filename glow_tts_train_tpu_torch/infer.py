@@ -11,7 +11,9 @@ stdout, the same contract as ``python -m glow_tts_train_tpu.infer``:
 
 ``--platform cuda`` (the default) runs the hand-written CUDA kernels and
 exits with an error when no GPU is present; ``--platform cpu`` runs their
-plain PyTorch versions.  Only ``.npz`` checkpoints load.
+plain PyTorch versions.  Each inverse flow block is one kernel:
+``flow_block_fuse_reverse: false`` in the config is refused.  Only ``.npz``
+checkpoints load.
 """
 
 import argparse
@@ -128,8 +130,11 @@ def main(argv=None):
     if args.speaker is not None:
         validate_speaker(parser, config.model.n_speakers, args.speaker)
 
+    try:
+        hp = hyper_from_config(config)
+    except ValueError as err:  # a decoder-mode key the port cannot honour
+        parser.error(str(err))
     start_time = time.perf_counter()
-    hp = hyper_from_config(config)
     model, meta = load_checkpoint(Path(args.checkpoint), hp)
     weights = store_inverse(model, hp).to(device)
     _LOGGER.info(

@@ -193,9 +193,14 @@ PRENET_BWD = Entry("gtt_prenet_bwd", "p" * 27 + "i" * 8 + "uf")
 DURATION_STACK_BWD = Entry("gtt_duration_stack_bwd", "p" * 31 + "i" * 8 + "uf")
 ENCODER_LAYER_BWD = Entry("gtt_encoder_layer_bwd", "p" * 69 + "i" * 10 + "uf")
 BLOCK_INVERSE = Entry("gtt_block_inverse", "p" * 18 + "i" * 9)
-WN_FORWARD = Entry("gtt_wn_forward", "p" * 10 + "i" * 7)
+WN_FORWARD = Entry("gtt_wn_forward", "p" * 10 + "i" * 9 + "uf")
+WN_FWD_SAVE = Entry("gtt_wn_fwd_save", "p" * 12 + "i" * 9 + "uf")
+WN_BWD_STORE = Entry("gtt_wn_bwd_store", "p" * 19 + "i" * 9 + "uf")
+WN_BWD = Entry("gtt_wn_bwd", "p" * 25 + "i" * 10 + "uf")
+BLOCK_FWD = Entry("gtt_block_fwd", "p" * 20 + "i" * 11 + "uf")
 BLOCK_FWD_SAVE = Entry("gtt_block_fwd_save", "p" * 23 + "i" * 11 + "uf")
-BLOCK_BWD_STORE = Entry("gtt_block_bwd_store", "p" * 37 + "i" * 12 + "uf")
+BLOCK_BWD_STORE = Entry("gtt_block_bwd_store", "p" * 37 + "i" * 11 + "uf")
+BLOCK_BWD = Entry("gtt_block_bwd", "p" * 46 + "i" * 12 + "uf")
 MAS = Entry("gtt_mas", "p" * 4 + "i" * 3)
 
 ENTRIES = {
@@ -204,8 +209,13 @@ ENTRIES = {
     "duration_stack": DURATION_STACK,
     "block_inverse": BLOCK_INVERSE,
     "wn_forward": WN_FORWARD,
+    "wn_fwd_save": WN_FWD_SAVE,
+    "wn_bwd_store": WN_BWD_STORE,
+    "wn_bwd": WN_BWD,
+    "block_fwd": BLOCK_FWD,
     "block_fwd_save": BLOCK_FWD_SAVE,
     "block_bwd_store": BLOCK_BWD_STORE,
+    "block_bwd": BLOCK_BWD,
     "mas": MAS,
     "prenet_bwd": PRENET_BWD,
     "encoder_layer_bwd": ENCODER_LAYER_BWD,

@@ -11,8 +11,10 @@ load — the flow blocks' inverses and weight norms included — into
 the text side through its kernels (``encoder_fuse`` true: prenet, encoder
 layers and duration stack, each a ``torch.autograd.Function`` over its
 forward and backward kernel) or op by op (``encoder_fuse: false``), the
-flow decoder through the training block kernel, the f32 pairwise
-log-likelihood, MAS, and the expansion of the text statistics to frames.
+flow decoder through the fused block kernels (``block_fuse``) or op by op
+around the WN stack's kernels, either with stored or recomputed residuals
+(``wn_residuals``), the f32 pairwise log-likelihood, MAS, and the
+expansion of the text statistics to frames.
 
 Device rule, in place of the JAX package's TPU resolvers: each kernel
 wrapper (``ops/*_cuda.py``) launches its CUDA kernel for CUDA tensors and
@@ -23,6 +25,7 @@ serving on the CPU only (CUDA raises).
 """
 
 import dataclasses
+import json
 import math
 import typing
 
@@ -65,6 +68,11 @@ class GlowTTSHyper(typing.NamedTuple):
     hidden_channels_enc: typing.Optional[int] = None
     hidden_channels_dec: typing.Optional[int] = None
     prenet: bool = False
+    # backward of the block / WN kernels: "store" or "recompute"
+    wn_residuals: str = "store"
+    # each training-forward flow block as one kernel pair (True), or op by
+    # op around the WN stack's kernels (False)
+    block_fuse: bool = True
     # training text side: through its kernels (True) or op by op (False)
     encoder_fuse: bool = False
 
@@ -83,14 +91,44 @@ class GlowTTSHyper(typing.NamedTuple):
         return self.window_size is not None and self.block_length is None
 
 
+def _resolve(value, auto, choices: tuple, key: str):
+    """An "auto" config value -> ``auto``; any other must be one of
+    ``choices`` (bools are spelled as JSON spells them)."""
+    if value == "auto":
+        return auto
+    if value not in choices or (isinstance(value, bool) != isinstance(choices[0], bool)):
+        raise ValueError(
+            f"{key}: expected \"auto\" or {' or '.join(json.dumps(c) for c in choices)}; "
+            f"got {json.dumps(value)}"
+        )
+    return value
+
+
 def hyper_from_config(config) -> GlowTTSHyper:
-    """TrainingConfig -> GlowTTSHyper.  ``encoder_fuse`` "auto" resolves to
-    whether the encoder kernel takes the configuration; an explicit bool
-    wins (JAX ``_resolve_encoder_fuse``, with the CUDA kernels in place of
-    the TPU backend)."""
+    """TrainingConfig -> GlowTTSHyper.  An explicit value wins; "auto"
+    resolves as the JAX package resolves it on its accelerator, with the
+    CUDA kernels in place of the TPU's:
+
+    * ``flow_block_fuse`` -> true;
+    * ``wn_residuals`` -> "store": the port always unrolls its blocks, the
+      case in which JAX resolves to store (``_resolve_wn_residuals``);
+    * ``encoder_fuse`` -> whether the encoder kernel takes the
+      configuration (JAX ``_resolve_encoder_fuse``).
+
+    ``wn_impl`` and ``flow_block_fuse_reverse`` pick nothing here: the WN
+    stack runs through the port's kernels ("pallas"; their plain versions
+    serve CPU tensors only) and each inverse block is one kernel (true).
+    "auto" and that value are accepted, "xla" and false refused.
+
+    A value outside the key's choices raises ``ValueError``."""
     m = config.model
     encoder_fuse = getattr(config, "encoder_fuse", "auto")
     kernel_fits = m.window_size is not None and m.block_length is None
+    flags = (True, False)
+    _resolve(getattr(config, "wn_impl", "auto"), "pallas", ("pallas",), "wn_impl")
+    _resolve(
+        getattr(config, "flow_block_fuse_reverse", "auto"), True, (True,), "flow_block_fuse_reverse"
+    )
     return GlowTTSHyper(
         n_vocab=m.num_symbols,
         hidden_channels=m.hidden_channels,
@@ -117,6 +155,10 @@ def hyper_from_config(config) -> GlowTTSHyper:
         hidden_channels_enc=m.hidden_channels_enc,
         hidden_channels_dec=m.hidden_channels_dec,
         prenet=m.prenet,
+        wn_residuals=_resolve(
+            getattr(config, "wn_residuals", "auto"), "store", ("store", "recompute"), "wn_residuals"
+        ),
+        block_fuse=_resolve(getattr(config, "flow_block_fuse", "auto"), True, flags, "flow_block_fuse"),
         encoder_fuse=kernel_fits if encoder_fuse == "auto" else bool(encoder_fuse),
     )
 
@@ -476,7 +518,9 @@ def forward_train(
     attn_mask = x_mask[:, :, 0][:, :, None] * z_mask[:, :, 0][:, None, :]
     z, logdet = flows.decoder_fwd(
         params["decoder"]["blocks"], y, z_mask, n_split=hp.n_split, g=g,
-        p_dropout=hp.p_dropout_dec, seed_generator=seed_generator, **_decoder_kwargs(hp),
+        p_dropout=hp.p_dropout_dec, seed_generator=seed_generator,
+        block_fuse=hp.block_fuse, wn_residuals=hp.wn_residuals,
+        **_decoder_kwargs(hp),
     )
 
     with torch.no_grad():  # the path carries no gradient (JAX stop_gradient)

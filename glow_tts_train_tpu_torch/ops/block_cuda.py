@@ -8,14 +8,22 @@ _block_inv_kernel``: start 1x1 of x0, the L-layer WN gated stack, end 1x1
 InvConvNear and ActNorm as one [c, c] affine.
 
 :func:`block_forward` is the training direction.  Its CUDA path is
-:class:`FlowBlockTrain`: the forward replaces ``_block_fwd_save_kernel``
-(zp = (x @ A + bA) * mask, start 1x1, WN stack with dropout, end 1x1,
-z1 = (m + e^logs * x1) * mask, ld = sum(logs * mask), saving zp, skipm and
-the per-layer WN inputs and gates), the backward ``_block_bwd_store_kernel``
-(coupling and end conv -> WN reverse walk with the keep masks replayed
-from the seed -> start conv -> folded A).  Saved residuals are laid out
-layer-major, ``[L, b, t, h]``, so each layer's slice is one [rows, h]
-GEMM operand.
+:class:`FlowBlockTrain`.  With ``residuals="store"`` the forward replaces
+``_block_fwd_save_kernel`` (zp = (x @ A + bA) * mask, start 1x1, WN stack
+with dropout, end 1x1, z1 = (m + e^logs * x1) * mask, ld = sum(logs *
+mask), saving zp, skipm and the per-layer WN inputs and gates), the
+backward ``_block_bwd_store_kernel`` (coupling and end conv -> WN reverse
+walk with the keep masks replayed from the seed -> start conv -> folded
+A).  Saved residuals are laid out layer-major, ``[L, b, t, h]``, so each
+layer's slice is one [rows, h] GEMM operand.  With
+``residuals="recompute"`` the forward replaces ``_block_fwd_kernel``
+(:func:`block_fwd`: the same chain, nothing saved; also what any forward
+that is not differentiated runs) and the backward ``_block_bwd_kernel``
+(:func:`block_bwd`: the forward-save chain again into scratch that lives
+for that call only, then the store backward's chain, so its gradients
+equal store mode's bit for bit, and at most one block's residuals are
+alive at a time: 3 L b t h floats, where store mode holds every block's
+from its forward to its backward).
 
 Bound on the card: f32 FMA throughput of the in-layer conv GEMMs (80% of
 the block's FLOPs: rows = batch * t_y/2, K = 5 * 192, N = 384; backward
@@ -37,7 +45,10 @@ import torch
 
 from .. import kernels
 from .conv import conv1d, weight_norm_effective
-from .wn_cuda import drop_args, fold_wn_weights, wn_stack_plain
+from .wn_cuda import (
+    check_residuals, drop_args, fold_wn_weights, needs_grad, transposed_wn_weights,
+    wn_stack_plain, wn_walk_buffers,
+)
 
 Params = typing.Dict[str, typing.Any]
 
@@ -320,6 +331,63 @@ def block_fwd_save(
     return z, ld, {"zp": zp, "skipm": skipm, "xs": xs, "th": th, "sg": sg}
 
 
+def block_fwd(
+    folded: dict,
+    g_all: typing.Optional[torch.Tensor],
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    kernel_size: int,
+    dilation_rate: int,
+    sigmoid_scale: bool = False,
+    p_dropout: float = 0.0,
+    seed: int = 0,
+) -> typing.Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel that saves nothing, on CUDA tensors -> (z, ld [b])."""
+    batch, t, c, h, n_layers = _check_train_operands(folded, g_all, x, x_mask, kernel_size)
+    z = torch.empty_like(x)
+    ld = x.new_empty((batch,))
+    skipm = x.new_empty((batch, t, h))
+    xcur = x.new_empty((batch, t, h))
+    acts = x.new_empty((batch, t, h))
+    logsm = x.new_empty((batch, t, c // 2))
+    ld_part = x.new_empty((batch, c // 2))
+    f = folded
+    drop, threshold, scale = drop_args(p_dropout)
+    kernels.BLOCK_FWD(
+        x, x_mask, f["A"], f["bA"], f["W_s"], f["b_s"], f["W_e"], f["b_e"],
+        f["W_in"], f["b_in"], f["W_rs"], f["b_rs"], g_all,
+        z, ld, skipm, xcur, acts, logsm, ld_part,
+        0 if g_all is None else n_layers * 2 * h,
+        batch, t, c, h, n_layers, kernel_size, dilation_rate, int(sigmoid_scale),
+        drop, int(seed), threshold, scale,
+    )
+    return z, ld
+
+
+def _backward_operands(folded: dict, x: torch.Tensor, with_g: bool, kernel_size: int):
+    """What both backward kernels take besides their residuals: the
+    transposed weights (layout copies for the transposed products), the
+    gradient tensors (keys ``dx`` and ``d<name>``, each shaped as its
+    primal, and ``dg`` [b, L, 2h] or None) and the scratch."""
+    batch, t, c = x.shape
+    f = folded
+    n_layers, _, h2 = f["W_in"].shape
+    h = h2 // 2
+    w_in_t, w_rs_t = transposed_wn_weights(f["W_in"], f["W_rs"], kernel_size)
+    transposed = (
+        f["A"].T.contiguous(), f["W_s"].T.contiguous(), f["W_e"].T.contiguous(), w_in_t, w_rs_t
+    )
+    grads = {"dx": torch.empty_like(x)}
+    grads.update({"d" + k: torch.empty_like(f[k]) for k in FOLD_KEYS})
+    grads["dg"] = x.new_empty((batch, n_layers, 2 * h)) if with_g else None
+    rows = batch * t
+    buf = wn_walk_buffers(x, batch, t, h, kernel_size, max(c, 2 * h))
+    buf.update(
+        dout=x.new_empty((rows, c)), dzp=x.new_empty((rows, c)), gx=x.new_empty((rows, h))
+    )
+    return transposed, grads, buf
+
+
 def block_bwd_store(
     folded: dict,
     with_g: bool,
@@ -343,80 +411,101 @@ def block_bwd_store(
     kernels.check_shape("dld", dld, (batch,))
     kernels.check_shape("xs", saves["xs"], (n_layers, batch, t, h))
     f = folded
-    # per-tap transposed weights (layout copies for the transposed products)
-    w_in_t = (
-        f["W_in"].reshape(n_layers, kernel_size, h, 2 * h).transpose(2, 3)
-        .reshape(n_layers, kernel_size * 2 * h, h).contiguous()
-    )
-    w_rs_t = f["W_rs"].transpose(1, 2).contiguous()
-    w_e_t = f["W_e"].T.contiguous()
-    w_s_t = f["W_s"].T.contiguous()
-    a_t = f["A"].T.contiguous()
-    grads = {
-        "dx": torch.empty_like(x),
-        "dA": torch.empty_like(f["A"]),
-        "dbA": torch.empty_like(f["bA"]),
-        "dW_s": torch.empty_like(f["W_s"]),
-        "db_s": torch.empty_like(f["b_s"]),
-        "dW_e": torch.empty_like(f["W_e"]),
-        "db_e": torch.empty_like(f["b_e"]),
-        "dW_in": torch.empty_like(f["W_in"]),
-        "db_in": torch.empty_like(f["b_in"]),
-        "dW_rs": torch.empty_like(f["W_rs"]),
-        "db_rs": torch.empty_like(f["b_rs"]),
-        "dg": x.new_empty((batch, n_layers, 2 * h)) if with_g else None,
-    }
-    rows = batch * t
-    dout = x.new_empty((rows, c))
-    dzp = x.new_empty((rows, c))
-    g_rs = x.new_empty((rows, 2 * h))
-    dia = x.new_empty((rows, 2 * h))
-    dxin = x.new_empty((rows, 2 * h))
-    acts = x.new_empty((rows, h))
-    gx = x.new_empty((rows, h))
-    col_part = x.new_empty((batch, max(c, 2 * h)))
-    wg_scratch = x.new_empty((max(1 << 22, kernel_size * h * 2 * h),))
+    transposed, grads, buf = _backward_operands(folded, x, with_g, kernel_size)
     drop, threshold, scale = drop_args(p_dropout)
     s = saves
     kernels.BLOCK_BWD_STORE(
-        x, x_mask, f["W_e"], f["b_e"], a_t, w_s_t, w_e_t, w_in_t, w_rs_t,
+        x, x_mask, f["W_e"], f["b_e"], *transposed,
         s["zp"], s["skipm"], s["xs"], s["th"], s["sg"], dz, dld,
-        grads["dx"], grads["dA"], grads["dbA"], grads["dW_s"], grads["db_s"],
-        grads["dW_e"], grads["db_e"], grads["dW_in"], grads["db_in"],
-        grads["dW_rs"], grads["db_rs"], grads["dg"],
-        dout, dzp, g_rs, dia, dxin, acts, gx, col_part, wg_scratch,
-        wg_scratch.numel(), batch, t, c, h, n_layers, kernel_size, dilation_rate,
-        int(sigmoid_scale), drop, int(seed), int(with_g),
-        threshold, scale,
+        grads["dx"], *(grads["d" + k] for k in FOLD_KEYS), grads["dg"],
+        buf["dout"], buf["dzp"], buf["g_rs"], buf["dia"], buf["dxin"], buf["acts"], buf["gx"],
+        buf["col_part"], buf["wg_scratch"], buf["wg_scratch"].numel(),
+        batch, t, c, h, n_layers, kernel_size, dilation_rate,
+        int(sigmoid_scale), drop, int(seed), threshold, scale,
+    )
+    return grads
+
+
+def block_bwd(
+    folded: dict,
+    g_all: typing.Optional[torch.Tensor],
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    dz: torch.Tensor,
+    dld: torch.Tensor,
+    kernel_size: int,
+    dilation_rate: int,
+    sigmoid_scale: bool = False,
+    p_dropout: float = 0.0,
+    seed: int = 0,
+) -> dict:
+    """The recompute backward kernel on CUDA tensors: the block forward
+    again from its inputs (same seed, so the same keep masks) into scratch
+    that lives for this call only, then the backward -> the gradients of
+    :func:`block_bwd_store`."""
+    batch, t, c, h, n_layers = _check_train_operands(folded, g_all, x, x_mask, kernel_size)
+    kernels.check_operands(x.device, dz=dz, dld=dld)
+    kernels.check_shape("dz", dz, x.shape)
+    kernels.check_shape("dld", dld, (batch,))
+    f = folded
+    transposed, grads, buf = _backward_operands(folded, x, g_all is not None, kernel_size)
+    zp = torch.empty_like(x)
+    skipm = x.new_empty((batch, t, h))
+    xs = x.new_empty((n_layers, batch, t, h))
+    th = torch.empty_like(xs)
+    sg = torch.empty_like(xs)
+    drop, threshold, scale = drop_args(p_dropout)
+    kernels.BLOCK_BWD(
+        x, x_mask, f["A"], f["bA"], f["W_s"], f["b_s"], f["W_e"], f["b_e"],
+        f["W_in"], f["b_in"], f["W_rs"], f["b_rs"], g_all, *transposed, dz, dld,
+        grads["dx"], *(grads["d" + k] for k in FOLD_KEYS), grads["dg"],
+        zp, skipm, xs, th, sg,
+        buf["dout"], buf["dzp"], buf["g_rs"], buf["dia"], buf["dxin"], buf["acts"], buf["gx"],
+        buf["col_part"], buf["wg_scratch"], buf["wg_scratch"].numel(),
+        0 if g_all is None else n_layers * 2 * h,
+        batch, t, c, h, n_layers, kernel_size, dilation_rate,
+        int(sigmoid_scale), drop, int(seed), threshold, scale,
     )
     return grads
 
 
 class FlowBlockTrain(torch.autograd.Function):
-    """One flow block's training forward on the card: the forward-save
-    kernel forward, the backward-store kernel backward.  The saved
-    residuals live from forward to backward only (freed with the graph)."""
+    """One flow block's training forward on the card.  ``cfg`` =
+    (kernel_size, dilation_rate, sigmoid_scale, p_dropout, seed,
+    residuals).  "store": the forward-save kernel forward, the
+    backward-store kernel backward; the saved residuals live from forward
+    to backward only (freed with the graph).  "recompute": the forward
+    kernel that saves nothing, keeping x, the mask, the weights and g_all,
+    and the recompute backward kernel."""
 
     @staticmethod
     def forward(ctx, x, x_mask, g_all, cfg, *weights):
+        *args, residuals = cfg
         folded = dict(zip(FOLD_KEYS, weights))
-        z, ld, saves = block_fwd_save(folded, g_all, x, x_mask, *cfg)
         ctx.cfg = cfg
         ctx.with_g = g_all is not None
-        ctx.save_for_backward(
-            x, x_mask, *weights, saves["zp"], saves["skipm"], saves["xs"], saves["th"], saves["sg"]
-        )
+        if residuals == "store":
+            z, ld, saves = block_fwd_save(folded, g_all, x, x_mask, *args)
+            ctx.save_for_backward(
+                x, x_mask, *weights, saves["zp"], saves["skipm"], saves["xs"], saves["th"], saves["sg"]
+            )
+        else:
+            z, ld = block_fwd(folded, g_all, x, x_mask, *args)
+            ctx.save_for_backward(x, x_mask, *weights, *([g_all] if ctx.with_g else []))
         return z, ld
 
     @staticmethod
     def backward(ctx, dz, dld):
+        *args, residuals = ctx.cfg
         x, x_mask, *rest = ctx.saved_tensors
-        weights, (zp, skipm, xs, th, sg) = rest[: len(FOLD_KEYS)], rest[len(FOLD_KEYS):]
-        folded = dict(zip(FOLD_KEYS, weights))
-        saves = {"zp": zp, "skipm": skipm, "xs": xs, "th": th, "sg": sg}
-        grads = block_bwd_store(
-            folded, ctx.with_g, x, x_mask, saves, dz.contiguous(), dld.contiguous(), *ctx.cfg
-        )
+        folded = dict(zip(FOLD_KEYS, rest[: len(FOLD_KEYS)]))
+        rest = rest[len(FOLD_KEYS):]
+        dz, dld = dz.contiguous(), dld.contiguous()
+        if residuals == "store":
+            saves = dict(zip(("zp", "skipm", "xs", "th", "sg"), rest))
+            grads = block_bwd_store(folded, ctx.with_g, x, x_mask, saves, dz, dld, *args)
+        else:
+            grads = block_bwd(folded, rest[0] if rest else None, x, x_mask, dz, dld, *args)
         return (grads["dx"], None, grads["dg"], None, *(grads["d" + k] for k in FOLD_KEYS))
 
 
@@ -430,16 +519,23 @@ def block_forward(
     sigmoid_scale: bool = False,
     p_dropout: float = 0.0,
     seed: int = 0,
+    residuals: str = "store",
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
     """One flow block, training direction: x [b, t, c], x_mask [b, t, 1],
     g_all [b, L, 2h] or None -> (z [b, t, c], ld [b] = sum(logs * mask)).
-    CUDA tensors run :class:`FlowBlockTrain`; CPU tensors the plain
-    version, whose autograd backward is the plain version of the
-    backward kernel."""
+    CUDA tensors run :class:`FlowBlockTrain` in the ``residuals`` mode, or
+    :func:`block_fwd` alone when nothing is differentiated; CPU tensors the
+    plain version, whose autograd backward is the plain version of both
+    backward kernels."""
+    check_residuals(residuals)
     if kernels.route(x) == "plain":
         return block_forward_plain(
             folded, g_all, x, x_mask, kernel_size, dilation_rate, sigmoid_scale,
             p_dropout, seed,
         )
-    cfg = (kernel_size, dilation_rate, bool(sigmoid_scale), float(p_dropout), int(seed))
-    return FlowBlockTrain.apply(x, x_mask, g_all, cfg, *(folded[k] for k in FOLD_KEYS))
+    args = (kernel_size, dilation_rate, bool(sigmoid_scale), float(p_dropout), int(seed))
+    if not needs_grad(x, g_all, *folded.values()):
+        return block_fwd(folded, g_all, x, x_mask, *args)
+    return FlowBlockTrain.apply(
+        x, x_mask, g_all, (*args, residuals), *(folded[k] for k in FOLD_KEYS)
+    )

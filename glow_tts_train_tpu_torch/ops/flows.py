@@ -7,13 +7,17 @@ CUDA tensors, its plain version for CPU tensors), then unsqueeze.  Each
 block's bijectors (coupling, InvConvNear and ActNorm inverses) run in the
 folded form of :func:`block_cuda.fold_block_params_inverse`.
 
-:func:`decoder_fwd` is the training direction in its fused form: the
-blocks folded once per step (:func:`block_cuda.fold_blocks_stacked`), then
-each block through :func:`block_cuda.block_forward`, with the actnorm and
-invconv logdets (weights and lengths only) kept outside, as JAX's
-``decoder_fwd`` does.  :func:`decoder_ddi` is data-dependent actnorm init:
-the forward bijectors op by op, the WN stack through
-:func:`wn_cuda.wn_stack`.
+:func:`decoder_fwd` is the training direction.  Fused (``block_fuse``):
+the blocks folded once per step (:func:`block_cuda.fold_blocks_stacked`),
+then each block through :func:`block_cuda.block_forward`, with the actnorm
+and invconv logdets (weights and lengths only) kept outside, as JAX's
+``decoder_fwd`` does.  Op by op (``flow_block_fuse: false``): ActNorm,
+InvConvNear and the coupling under autograd, the coupling's WN stack
+through :func:`wn_cuda.wn_stack_train` (the WN kernels for CUDA tensors).
+``wn_residuals`` picks the backward of either form's kernels: "store" or
+"recompute".
+:func:`decoder_ddi` is data-dependent actnorm init: the forward bijectors
+op by op, the WN stack through :func:`wn_cuda.wn_stack`.
 """
 
 import typing
@@ -111,8 +115,8 @@ def actnorm_ddi_stats(x: torch.Tensor, x_mask: torch.Tensor) -> Params:
 
 
 def invconv_apply(params: Params, x: torch.Tensor, x_mask: torch.Tensor):
-    """InvConvNear forward: the s x s group mix as its dense [c, c] map;
-    logdet = log|det W| * (c / s) * frames."""
+    """InvConvNear: the s x s group mix as its dense [c, c] map; logdet =
+    log|det W| * (c / s) * frames."""
     c = x.shape[-1]
     w = params["weight"].to(torch.float32)
     s = w.shape[0]
@@ -132,10 +136,16 @@ def coupling_apply(
     dilation_rate: int,
     n_layers: int,
     sigmoid_scale: bool = False,
+    p_dropout: float = 0.0,
+    seed: int = 0,
+    wn_residuals: str = "store",
 ):
-    """Affine coupling forward, no dropout: start 1x1 of x0, the WN stack
-    (:func:`wn_cuda.wn_stack`), end 1x1 -> (m, logs), z1 = (m + e^logs *
-    x1) * mask; logdet = sum(logs * mask)."""
+    """Affine coupling, identity on the first half: start 1x1 of x0, the WN
+    stack, end 1x1 -> (m, logs); z1 = (m + e^logs * x1) * mask with logdet
+    = sum(logs * mask).  The stack runs through
+    :func:`wn_cuda.wn_stack_train` (the WN kernels on CUDA tensors,
+    backward per ``wn_residuals``) and drops its pre-gate tensors with the
+    portable keep masks of ``seed`` when ``p_dropout`` > 0."""
     c2 = x.shape[-1] // 2
     x0, x1 = x[..., :c2], x[..., c2:]
     hidden = (conv1d(x0, params["start"]) * x_mask).contiguous()
@@ -144,11 +154,11 @@ def coupling_apply(
     if g is not None:
         g_all = conv1d(g, wn["cond"]).reshape(g.shape[0], n_layers, 2 * hidden_channels)
         g_all = g_all.contiguous()
-    hidden = wn_cuda.wn_stack(
-        wn_cuda.fold_wn_weights(wn, n_layers), g_all, hidden, x_mask,
-        kernel_size, dilation_rate,
-    ) * x_mask
-    out = conv1d(hidden, params["end"])
+    skip = wn_cuda.wn_stack_train(
+        wn_cuda.fold_wn_weights(wn, n_layers), g_all, hidden, x_mask, kernel_size,
+        dilation_rate, p_dropout, seed, wn_residuals,
+    )
+    out = conv1d(skip * x_mask, params["end"])
     m, logs = out[..., :c2], out[..., c2:]
     if sigmoid_scale:
         logs = torch.log(1e-6 + torch.sigmoid(logs + 2.0))
@@ -206,20 +216,42 @@ def decoder_fwd(
     g: typing.Optional[torch.Tensor] = None,
     p_dropout: float = 0.0,
     seed_generator: typing.Optional[torch.Generator] = None,
+    block_fuse: bool = True,
+    wn_residuals: str = "store",
 ):
-    """mel -> (z, logdet [b]): squeeze, the blocks folded once, each block
-    through :func:`block_cuda.block_forward`, unsqueeze.  Dropout is on
-    when ``seed_generator`` (a CPU generator) is given and ``p_dropout`` >
-    0: each block draws its int32 seed from it (JAX draws it from its rng,
-    a different stream)."""
+    """mel -> (z, logdet [b]): squeeze, the blocks, unsqueeze.  With
+    ``block_fuse`` the blocks are folded once and each runs through
+    :func:`block_cuda.block_forward`; without, each runs its three
+    bijectors op by op (:func:`actnorm_fwd`, :func:`invconv_apply`,
+    :func:`coupling_apply`).  Dropout is on when ``seed_generator`` (a CPU
+    generator) is given and ``p_dropout`` > 0: each block draws its int32
+    seed from it, in either form (JAX draws it from its rng, a different
+    stream)."""
     x, x_mask = squeeze(x, x_mask, n_sqz)
     x_mask = x_mask.contiguous()
+    drop = seed_generator is not None and p_dropout > 0.0
+    p_dropout = p_dropout if drop else 0.0
+    n_blocks = blocks["actnorm"]["logs"].shape[0]
+    if not block_fuse:
+        logdet = 0.0
+        for i in range(n_blocks):
+            bp = tree_index(blocks, i)
+            seed = draw_seed(seed_generator) if drop else 0
+            x, ld1 = actnorm_fwd(bp["actnorm"], x, x_mask)
+            x, ld2 = invconv_apply(bp["invconv"], x, x_mask)
+            x, ld3 = coupling_apply(
+                bp["coupling"], x, x_mask, g, hidden_channels, kernel_size,
+                dilation_rate, n_layers, sigmoid_scale, p_dropout=p_dropout, seed=seed,
+                wn_residuals=wn_residuals,
+            )
+            logdet = logdet + ld1 + ld2 + ld3
+        x, _ = unsqueeze(x, x_mask, n_sqz)
+        return x, logdet
     c = x.shape[-1]
     x_len = torch.sum(x_mask.to(torch.float32), dim=(1, 2))
     folded, logs_sum, logabsdet, g_all = block_cuda.fold_blocks_stacked(
         blocks, n_layers, n_split, g, hidden_channels
     )
-    drop = seed_generator is not None and p_dropout > 0.0
     logdet = torch.zeros_like(x_len)
     for i, fold in enumerate(folded):
         seed = draw_seed(seed_generator) if drop else 0
@@ -227,8 +259,7 @@ def decoder_fwd(
         ld2 = logabsdet[i] * (c / n_split) * x_len
         x, ld3 = block_cuda.block_forward(
             fold, None if g_all is None else g_all[i], x, x_mask,
-            kernel_size, dilation_rate, sigmoid_scale,
-            p_dropout if drop else 0.0, seed,
+            kernel_size, dilation_rate, sigmoid_scale, p_dropout, seed, wn_residuals,
         )
         logdet = logdet + ld1 + ld2 + ld3
     x, _ = unsqueeze(x, x_mask, n_sqz)

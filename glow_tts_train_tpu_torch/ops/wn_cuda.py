@@ -1,16 +1,29 @@
 """The WaveNet gated stack in the kernels' folded form (glow_tts_train_tpu
 ops/wn_pallas.py ``fold_wn_weights``, ``_layer_fwd``, the dropout bits
-``_portable_bits``/``_regen_keep``), and the WN forward kernel.
+``_portable_bits``/``_regen_keep``), and the WN stack's own kernels.
 
 :func:`wn_stack` replaces ``wn_pallas.py::_fwd_kernel``: the L-layer gated
-stack -> skip sum, no dropout and no saves.  The JAX package runs it in
-data-dependent init (DDI, ``flows.py:694-721``), once per training run.
+stack -> skip sum, with in-kernel dropout when training, nothing saved.
+It runs wherever the stack is not differentiated (data-dependent init, the
+op-by-op inverse decoder) and as the forward of ``residuals="recompute"``.
 On the card it is the inverse flow block's WN loop without the coupling
 (``csrc/block_train.cu`` ``gtt_wn_forward``): per layer one conv-GEMM with
 the gate in its epilogue and one 1x1 GEMM with the residual/skip split in
 its epilogue (``csrc/common.cu``).  Bound: f32 FMA throughput of the
 in-layer conv (K = 5 * 192, N = 384); the gather-on-load taps keep the
 im2col matrix out of device memory.
+
+:class:`WNStackTrain` is the differentiable stack of the op-by-op decoder
+(``wn_pallas.wn_stack_fused``).  ``residuals="store"``: :func:`wn_fwd_save`
+(``_fwd_save_kernel``) writes the per-layer inputs and gates, layer-major
+``[L, b, t, h]`` so each layer's slice is one GEMM operand, and
+:func:`wn_bwd_store` (``_bwd_store_kernel``) walks the layers back from
+them.  ``residuals="recompute"``: the forward saves only its inputs and
+:func:`wn_bwd` (``_bwd_kernel``) re-runs the forward-save chain into
+scratch that lives for that call only, then the same walk, so its
+gradients equal store mode's bit for bit.  Keep masks are never stored:
+every pass replays them from the seed.  The backward is bound like the
+forward: three K = 5 * 192 products per layer in f32.
 
 Dropout keep masks are the JAX kernels' portable counter hash, bit for
 bit, in its site form (``encoder_pallas._drop_keep``): the bits of flat
@@ -205,18 +218,7 @@ def wn_stack_plain(
     return skip
 
 
-def wn_stack(
-    folded: tuple,
-    g_all: typing.Optional[torch.Tensor],
-    x: torch.Tensor,
-    x_mask: torch.Tensor,
-    kernel_size: int,
-    dilation_rate: int,
-) -> torch.Tensor:
-    """The WN stack forward, no dropout: x [b, t, h], x_mask [b, t, 1],
-    g_all [b, L, 2h] or None -> skip sum [b, t, h] (not masked)."""
-    if kernels.route(x) == "plain":
-        return wn_stack_plain(folded, g_all, x, x_mask, kernel_size, dilation_rate)
+def _check_wn_operands(folded, g_all, x, x_mask, kernel_size):
     w_in, b_in, w_rs, b_rs = folded
     batch, t, h = x.shape
     n_layers = w_in.shape[0]
@@ -228,12 +230,262 @@ def wn_stack(
     kernels.check_shape("w_rs", w_rs, (n_layers, h, 2 * h))
     if g_all is not None:
         kernels.check_shape("g_all", g_all, (batch, n_layers, 2 * h))
+    return batch, t, h, n_layers
+
+
+def wn_stack(
+    folded: tuple,
+    g_all: typing.Optional[torch.Tensor],
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    kernel_size: int,
+    dilation_rate: int,
+    p_dropout: float = 0.0,
+    seed: int = 0,
+) -> torch.Tensor:
+    """The WN stack forward, not differentiable: x [b, t, h], x_mask
+    [b, t, 1], g_all [b, L, 2h] or None -> skip sum [b, t, h] (not
+    masked).  ``p_dropout`` > 0 drops each layer's pre-gate tensor with the
+    portable keep masks of ``seed``."""
+    if kernels.route(x) == "plain":
+        return wn_stack_plain(
+            folded, g_all, x, x_mask, kernel_size, dilation_rate, p_dropout, seed
+        )
+    batch, t, h, n_layers = _check_wn_operands(folded, g_all, x, x_mask, kernel_size)
+    w_in, b_in, w_rs, b_rs = folded
     skip = torch.empty_like(x)
     xcur = torch.empty_like(x)
     acts = torch.empty_like(x)
+    drop, threshold, scale = drop_args(p_dropout)
     kernels.WN_FORWARD(
         x, x_mask, w_in, b_in, w_rs, b_rs, g_all, skip, xcur, acts,
         0 if g_all is None else n_layers * 2 * h,
         batch, t, h, n_layers, kernel_size, dilation_rate,
+        drop, int(seed), threshold, scale,
     )
     return skip
+
+
+def wn_fwd_save(
+    folded: tuple,
+    g_all: typing.Optional[torch.Tensor],
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    kernel_size: int,
+    dilation_rate: int,
+    p_dropout: float = 0.0,
+    seed: int = 0,
+) -> typing.Tuple[torch.Tensor, dict]:
+    """The forward-save kernel on CUDA tensors -> (skip sum [b, t, h], not
+    masked; saves: xs/th/sg [L, b, t, h], the per-layer inputs and gates)."""
+    batch, t, h, n_layers = _check_wn_operands(folded, g_all, x, x_mask, kernel_size)
+    w_in, b_in, w_rs, b_rs = folded
+    skip = torch.empty_like(x)
+    xs = x.new_empty((n_layers, batch, t, h))
+    th = torch.empty_like(xs)
+    sg = torch.empty_like(xs)
+    acts = torch.empty_like(x)
+    drop, threshold, scale = drop_args(p_dropout)
+    kernels.WN_FWD_SAVE(
+        x, x_mask, w_in, b_in, w_rs, b_rs, g_all, skip, xs, th, sg, acts,
+        0 if g_all is None else n_layers * 2 * h,
+        batch, t, h, n_layers, kernel_size, dilation_rate,
+        drop, int(seed), threshold, scale,
+    )
+    return skip, {"xs": xs, "th": th, "sg": sg}
+
+
+def transposed_wn_weights(w_in: torch.Tensor, w_rs: torch.Tensor, kernel_size: int) -> tuple:
+    """Layout copies for the backward's transposed products: W_in per tap
+    [L, K * 2h, h] and W_rs [L, 2h, h]."""
+    n_layers, kh, h2 = w_in.shape
+    h = h2 // 2
+    w_in_t = (
+        w_in.reshape(n_layers, kernel_size, h, h2).transpose(2, 3)
+        .reshape(n_layers, kernel_size * h2, h).contiguous()
+    )
+    return w_in_t, w_rs.transpose(1, 2).contiguous()
+
+
+def wn_walk_buffers(x_like: torch.Tensor, batch: int, t: int, h: int, kernel_size: int,
+                    width: int) -> dict:
+    """Scratch of the WN reverse walk: the res/skip cotangent, the gate
+    cotangents before and after dropout, the gate product, the per-sample
+    partial column sums (``width`` columns) and the weight-gradient GEMM's
+    split partial sums."""
+    rows = batch * t
+    return {
+        "g_rs": x_like.new_empty((rows, 2 * h)),
+        "dia": x_like.new_empty((rows, 2 * h)),
+        "dxin": x_like.new_empty((rows, 2 * h)),
+        "acts": x_like.new_empty((rows, h)),
+        "col_part": x_like.new_empty((batch, width)),
+        "wg_scratch": x_like.new_empty((max(1 << 22, kernel_size * h * 2 * h),)),
+    }
+
+
+def _wn_grads(folded_like: tuple, x_like: torch.Tensor, with_g: bool) -> dict:
+    w_in, w_rs = folded_like
+    n_layers, _, h2 = w_in.shape
+    return {
+        "dx": torch.empty_like(x_like),
+        "dW_in": torch.empty_like(w_in),
+        "db_in": w_in.new_empty((n_layers, h2)),
+        "dW_rs": torch.empty_like(w_rs),
+        "db_rs": w_in.new_empty((n_layers, h2)),
+        "dg": x_like.new_empty((x_like.shape[0], n_layers, h2)) if with_g else None,
+    }
+
+
+def wn_bwd_store(
+    w_in: torch.Tensor,
+    w_rs: torch.Tensor,
+    with_g: bool,
+    x_mask: torch.Tensor,
+    saves: dict,
+    dout: torch.Tensor,
+    kernel_size: int,
+    dilation_rate: int,
+    p_dropout: float = 0.0,
+    seed: int = 0,
+) -> dict:
+    """The backward-store kernel on CUDA tensors: from the saved per-layer
+    inputs and gates and the skip sum's cotangent ``dout`` [b, t, h] -> the
+    gradients ``dx``, ``dW_in``, ``db_in``, ``dW_rs``, ``db_rs`` and ``dg``
+    [b, L, 2h] (None unless ``with_g``)."""
+    n_layers, batch, t, h = saves["xs"].shape
+    kernels.check_operands(dout.device, x_mask=x_mask, w_in=w_in, w_rs=w_rs, dout=dout, **saves)
+    kernels.check_shape("x_mask", x_mask, (batch, t, 1))
+    kernels.check_shape("dout", dout, (batch, t, h))
+    kernels.check_shape("w_in", w_in, (n_layers, kernel_size * h, 2 * h))
+    kernels.check_shape("w_rs", w_rs, (n_layers, h, 2 * h))
+    for k in ("th", "sg"):
+        kernels.check_shape(k, saves[k], (n_layers, batch, t, h))
+    w_in_t, w_rs_t = transposed_wn_weights(w_in, w_rs, kernel_size)
+    grads = _wn_grads((w_in, w_rs), dout, with_g)
+    buf = wn_walk_buffers(dout, batch, t, h, kernel_size, 2 * h)
+    drop, threshold, scale = drop_args(p_dropout)
+    kernels.WN_BWD_STORE(
+        x_mask, w_in_t, w_rs_t, saves["xs"], saves["th"], saves["sg"], dout,
+        grads["dx"], grads["dW_in"], grads["db_in"], grads["dW_rs"], grads["db_rs"], grads["dg"],
+        buf["g_rs"], buf["dia"], buf["dxin"], buf["acts"], buf["col_part"], buf["wg_scratch"],
+        buf["wg_scratch"].numel(), batch, t, h, n_layers, kernel_size, dilation_rate,
+        drop, int(seed), threshold, scale,
+    )
+    return grads
+
+
+def wn_bwd(
+    folded: tuple,
+    g_all: typing.Optional[torch.Tensor],
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    dout: torch.Tensor,
+    kernel_size: int,
+    dilation_rate: int,
+    p_dropout: float = 0.0,
+    seed: int = 0,
+) -> dict:
+    """The recompute backward kernel on CUDA tensors: the forward again
+    from its inputs into scratch that lives for this call only, then the
+    walk -> the gradients of :func:`wn_bwd_store`."""
+    batch, t, h, n_layers = _check_wn_operands(folded, g_all, x, x_mask, kernel_size)
+    kernels.check_operands(x.device, dout=dout)
+    kernels.check_shape("dout", dout, x.shape)
+    w_in, b_in, w_rs, b_rs = folded
+    w_in_t, w_rs_t = transposed_wn_weights(w_in, w_rs, kernel_size)
+    grads = _wn_grads((w_in, w_rs), x, g_all is not None)
+    buf = wn_walk_buffers(x, batch, t, h, kernel_size, 2 * h)
+    xs = x.new_empty((n_layers, batch, t, h))
+    th = torch.empty_like(xs)
+    sg = torch.empty_like(xs)
+    drop, threshold, scale = drop_args(p_dropout)
+    kernels.WN_BWD(
+        x, x_mask, w_in, b_in, w_rs, b_rs, g_all, w_in_t, w_rs_t, dout,
+        grads["dx"], grads["dW_in"], grads["db_in"], grads["dW_rs"], grads["db_rs"], grads["dg"],
+        xs, th, sg,
+        buf["g_rs"], buf["dia"], buf["dxin"], buf["acts"], buf["col_part"], buf["wg_scratch"],
+        buf["wg_scratch"].numel(), 0 if g_all is None else n_layers * 2 * h,
+        batch, t, h, n_layers, kernel_size, dilation_rate,
+        drop, int(seed), threshold, scale,
+    )
+    return grads
+
+
+class WNStackTrain(torch.autograd.Function):
+    """The differentiable WN stack on the card.  ``cfg`` = (kernel_size,
+    dilation_rate, p_dropout, seed, residuals).  "store": the forward-save
+    kernel, keeping W_in, W_rs, the mask and xs/th/sg (not x, the biases or
+    g_all) until the backward-store kernel has run; "recompute": the plain
+    forward kernel, keeping only the inputs, and the recompute backward
+    kernel."""
+
+    @staticmethod
+    def forward(ctx, x, x_mask, g_all, cfg, w_in, b_in, w_rs, b_rs):
+        *args, residuals = cfg
+        folded = (w_in, b_in, w_rs, b_rs)
+        ctx.cfg = cfg
+        ctx.with_g = g_all is not None
+        if residuals == "store":
+            skip, saves = wn_fwd_save(folded, g_all, x, x_mask, *args)
+            ctx.save_for_backward(x_mask, w_in, w_rs, saves["xs"], saves["th"], saves["sg"])
+        else:
+            skip = wn_stack(folded, g_all, x, x_mask, *args)
+            ctx.save_for_backward(x, x_mask, w_in, b_in, w_rs, b_rs, *([g_all] if ctx.with_g else []))
+        return skip
+
+    @staticmethod
+    def backward(ctx, dout):
+        *args, residuals = ctx.cfg
+        dout = dout.contiguous()
+        if residuals == "store":
+            x_mask, w_in, w_rs, xs, th, sg = ctx.saved_tensors
+            grads = wn_bwd_store(
+                w_in, w_rs, ctx.with_g, x_mask, {"xs": xs, "th": th, "sg": sg}, dout, *args
+            )
+        else:
+            x, x_mask, w_in, b_in, w_rs, b_rs, *g_all = ctx.saved_tensors
+            grads = wn_bwd(
+                (w_in, b_in, w_rs, b_rs), g_all[0] if g_all else None, x, x_mask, dout, *args
+            )
+        return (grads["dx"], None, grads["dg"], None,
+                grads["dW_in"], grads["db_in"], grads["dW_rs"], grads["db_rs"])
+
+
+def check_residuals(residuals: str) -> None:
+    if residuals not in ("store", "recompute"):
+        raise ValueError(f'residuals must be "store" or "recompute", got {residuals!r}')
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd will differentiate a function of ``tensors``."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    )
+
+
+def wn_stack_train(
+    folded: tuple,
+    g_all: typing.Optional[torch.Tensor],
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    kernel_size: int,
+    dilation_rate: int,
+    p_dropout: float = 0.0,
+    seed: int = 0,
+    residuals: str = "store",
+) -> torch.Tensor:
+    """The differentiable WN stack -> skip sum [b, t, h] (not masked; the
+    caller multiplies).  CUDA tensors run :class:`WNStackTrain` (or, when
+    nothing is differentiated, :func:`wn_stack`); CPU tensors the plain
+    version, whose autograd backward is the plain version of both backward
+    kernels."""
+    check_residuals(residuals)
+    if kernels.route(x) == "plain":
+        return wn_stack_plain(
+            folded, g_all, x, x_mask, kernel_size, dilation_rate, p_dropout, seed
+        )
+    if not needs_grad(x, g_all, *folded):
+        return wn_stack(folded, g_all, x, x_mask, kernel_size, dilation_rate, p_dropout, seed)
+    cfg = (kernel_size, dilation_rate, float(p_dropout), int(seed), residuals)
+    return WNStackTrain.apply(x, x_mask, g_all, cfg, *folded)

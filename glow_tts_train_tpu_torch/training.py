@@ -6,9 +6,13 @@ duration losses, backward, the global gradient norm, then value clip and
 Noam-scheduled Adam (``optimize.py``).  On CUDA tensors the flow blocks,
 MAS and (``encoder_fuse`` true, what "auto" resolves to for the shipped
 encoder configuration) the text side run the hand-written kernels, forward
-and backward; ``encoder_fuse: false`` runs the text side op by op.  Not
-ported yet, and refused with the ROADMAP item named: ``fp16_run`` (bf16
-compute) and ``grad_accum_steps`` > 1.
+and backward; ``encoder_fuse: false`` runs the text side op by op.  The
+decoder runs in the mode the config picks (``models.hyper_from_config``):
+``flow_block_fuse`` (each block one kernel pair, the default) or op by op
+around the WN stack's kernels, with ``wn_residuals`` "store" (the default)
+or "recompute" (a block's residuals live only inside its backward).  Not ported yet, and
+refused with the ROADMAP item named: ``fp16_run`` (bf16 compute) and
+``grad_accum_steps`` > 1.
 """
 
 import json
@@ -88,7 +92,11 @@ def initialize_model(config, batch: dict, device) -> GlowTTS:
 
 
 def check_trainable(config) -> None:
-    """Refuse what this trainer does not do yet, naming the ROADMAP item."""
+    """Refuse what this trainer does not do yet, naming the ROADMAP item
+    (``NotImplementedError``), and a decoder-mode key (``wn_impl``,
+    ``wn_residuals``, ``flow_block_fuse``, ``flow_block_fuse_reverse``)
+    whose value it cannot honour (``ValueError``)."""
+    hyper_from_config(config)
     if config.fp16_run:
         raise NotImplementedError(
             "fp16_run (bf16 training) is not ported yet (ROADMAP, queue 1 "

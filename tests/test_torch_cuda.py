@@ -1,9 +1,13 @@
 """The CUDA kernels of glow_tts_train_tpu_torch on a GPU, against their
 plain PyTorch versions on the same inputs, the kernel path of
 ``forward_gen`` against the plain path on the CPU, and the training
-kernels (WN forward, flow block forward-save and backward-store, MAS, and
-the text side's forward kernels with dropout and backward kernels: prenet,
-encoder layer, duration stack) against their plain versions and autograd.
+kernels (the WN stack forward with dropout, forward-save, backward-store
+and recompute backward; the flow block forward, forward-save,
+backward-store and recompute backward; MAS; and the text side's forward
+kernels with dropout and backward kernels: prenet, encoder layer, duration
+stack) against their plain versions and autograd, a recompute backward's
+gradients equal to the store backward's bit for bit, and the training
+graph in every decoder mode against the same graph on the CPU.
 
 Every test here needs an NVIDIA GPU (the kernels have no CPU mode) and
 skips without one.  The file imports no jax, so on a GPU machine without
@@ -31,7 +35,10 @@ import torch
 from glow_tts_train_tpu_torch import checkpoint, kernels
 from glow_tts_train_tpu_torch.config import AudioConfig, ModelConfig, TrainingConfig
 from glow_tts_train_tpu_torch.models import glow_tts as model
-from glow_tts_train_tpu_torch.ops import block_cuda, encoder_cuda, mas_cuda, text_cuda, wn_cuda
+from glow_tts_train_tpu_torch.ops import (
+    block_cuda, encoder_cuda, flows, mas_cuda, text_cuda, wn_cuda,
+)
+from glow_tts_train_tpu_torch.ops.conv import conv1d
 from glow_tts_train_tpu_torch.tree import tree_index, tree_map
 
 pytestmark = pytest.mark.cuda
@@ -285,6 +292,147 @@ def test_training_block_kernels_match_plain(dev, name, p_dropout):
     }
 
 
+def _block_inputs(dev, name, requires_g=True):
+    over, n_mel = VARIANTS[name]
+    hp = model.hyper_from_config(_config(over, n_mel))
+    tt = tree_map(lambda a: a.to(dev), _tree(hp))
+    L, h, c = hp.n_block_layers, hp.h_dec, 2 * hp.out_channels
+    folded = {
+        k: v.detach().contiguous()
+        for k, v in block_cuda.fold_block_params(
+            tree_index(tt["decoder"]["blocks"], 0), L, hp.n_split
+        ).items()
+    }
+    x, mask = _inputs(3, 37, c, dev)
+    g_all = torch.randn(3, L, 2 * h, device=dev) if hp.gin_channels else None
+    return hp, folded, (x * mask).contiguous(), mask, g_all
+
+
+def _launched(before, names):
+    after = kernels.launch_counts()
+    return {k: after[k] - before[k] for k in names}
+
+
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+@pytest.mark.parametrize("p_dropout", [0.0, 0.3])
+def test_wn_train_kernels_match_plain(dev, name, p_dropout):
+    """The WN stack's kernels: the forward with dropout and the
+    forward-save (skip sum and every saved residual) against the plain
+    stack; the backward-store (dx, dW_in, db_in, dW_rs, db_rs, dg) against
+    autograd of the plain stack with the same seed; the recompute backward
+    equal to it bit for bit; and the autograd Function in both modes."""
+    hp, folded, _, mask, g_all = _block_inputs(dev, name)
+    L, h = hp.n_block_layers, hp.h_dec
+    wn = (folded["W_in"], folded["b_in"], folded["W_rs"], folded["b_rs"])
+    x = (torch.randn(3, 37, h, device=dev) * mask).contiguous()
+    args = (hp.kernel_size_dec, hp.dilation_rate, p_dropout, 2 ** 31 - 3)
+    before = kernels.launch_counts()
+
+    ref_saves: dict = {}
+    skip_p = wn_cuda.wn_stack_plain(wn, g_all, x, mask, *args, saves=ref_saves)
+    _rel_close("skip", wn_cuda.wn_stack(wn, g_all, x, mask, *args), skip_p, 1e-5)
+    skip, saves = wn_cuda.wn_fwd_save(wn, g_all, x, mask, *args)
+    _rel_close("skip (save)", skip, skip_p, 1e-5)
+    for k in ("xs", "th", "sg"):
+        _rel_close(k, saves[k], torch.stack(ref_saves[k]), 1e-5)
+
+    wp = [w.clone().requires_grad_(True) for w in wn]
+    xp = x.clone().requires_grad_(True)
+    gp = None if g_all is None else g_all.clone().requires_grad_(True)
+    dout = torch.randn_like(x)
+    inputs = [xp, *wp] + ([gp] if gp is not None else [])
+    ref = torch.autograd.grad(
+        (wn_cuda.wn_stack_plain(tuple(wp), gp, xp, mask, *args) * dout).sum(), inputs
+    )
+    store = wn_cuda.wn_bwd_store(wn[0], wn[2], g_all is not None, mask, saves, dout, *args)
+    names = ["dx", "dW_in", "db_in", "dW_rs", "db_rs"] + (["dg"] if gp is not None else [])
+    for n, r in zip(names, ref):
+        _rel_close(n, store[n], r, 1e-4)
+    recompute = wn_cuda.wn_bwd(wn, g_all, x, mask, dout, *args)
+    for n in names:
+        assert torch.equal(recompute[n], store[n]), f"{n}: recompute differs from store"
+    assert recompute["dg"] is None or gp is not None
+
+    for residuals in ("store", "recompute"):
+        wk = [w.clone().requires_grad_(True) for w in wn]
+        xk = x.clone().requires_grad_(True)
+        out = wn_cuda.wn_stack_train(tuple(wk), g_all, xk, mask, *args, residuals)
+        gk = torch.autograd.grad((out * dout).sum(), [xk, *wk])
+        for n, g in zip(names, gk):
+            assert torch.equal(g, store[n]), f"{residuals} {n}"
+    with torch.no_grad():  # nothing to differentiate: the forward kernel alone
+        wn_cuda.wn_stack_train(wn, g_all, x, mask, *args, "store")
+    assert _launched(before, ("wn_forward", "wn_fwd_save", "wn_bwd_store", "wn_bwd")) == {
+        "wn_forward": 3, "wn_fwd_save": 2, "wn_bwd_store": 2, "wn_bwd": 2}
+
+
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+@pytest.mark.parametrize("p_dropout", [0.0, 0.3])
+def test_block_recompute_kernels_match_store(dev, name, p_dropout):
+    """The block forward that saves nothing gives the forward-save kernel's
+    z and ld bit for bit (and the plain version's within 1e-5); the
+    recompute backward gives the backward-store kernel's gradients bit for
+    bit (same launches on the same inputs); the autograd Function in
+    recompute mode, and a forward with gradients off, launch those two."""
+    hp, folded, x, mask, g_all = _block_inputs(dev, name)
+    args = (hp.kernel_size_dec, hp.dilation_rate, hp.sigmoid_scale, p_dropout, 2 ** 31 - 3)
+    before = kernels.launch_counts()
+    z_s, ld_s, saves = block_cuda.block_fwd_save(folded, g_all, x, mask, *args)
+    z, ld = block_cuda.block_fwd(folded, g_all, x, mask, *args)
+    assert torch.equal(z, z_s) and torch.equal(ld, ld_s)
+    z_p, ld_p = block_cuda.block_forward_plain(folded, g_all, x, mask, *args)
+    _rel_close("z", z, z_p, 1e-5)
+    _rel_close("ld", ld, ld_p, 1e-5)
+    dz, dld = torch.randn_like(z), torch.randn_like(ld)
+    store = block_cuda.block_bwd_store(folded, g_all is not None, x, mask, saves, dz, dld, *args)
+    recompute = block_cuda.block_bwd(folded, g_all, x, mask, dz, dld, *args)
+    assert set(store) == set(recompute)
+    for n, g in store.items():
+        if g is None:
+            assert recompute[n] is None and g_all is None, n
+        else:
+            assert torch.equal(recompute[n], g), f"{n}: recompute differs from store"
+
+    fk = {k: v.clone().requires_grad_(True) for k, v in folded.items()}
+    xk = x.clone().requires_grad_(True)
+    zk, lk = block_cuda.block_forward(fk, g_all, xk, mask, *args, "recompute")
+    gk = torch.autograd.grad((zk * dz).sum() + (lk * dld).sum(), [xk, *fk.values()])
+    assert torch.equal(gk[0], store["dx"])
+    for k, g in zip(fk, gk[1:]):
+        assert torch.equal(g, store["d" + k]), k
+    with torch.no_grad():
+        zn, _ = block_cuda.block_forward(fk, g_all, xk, mask, *args, "store")
+    assert torch.equal(zn, z)
+    assert _launched(before, ("block_fwd", "block_fwd_save", "block_bwd", "block_bwd_store")) == {
+        "block_fwd": 3, "block_fwd_save": 1, "block_bwd": 2, "block_bwd_store": 1}
+
+
+def test_recompute_holds_one_blocks_residuals(dev):
+    """Peak memory of forward + backward through 6 blocks at base width:
+    store mode holds every block's xs/th/sg (3 L b t h floats each) until
+    its backward; recompute mode holds them inside one backward call only."""
+    hp, folded, _, _, _ = _block_inputs(dev, "base_width")
+    b, t, c, n_blocks = 8, 256, 2 * hp.out_channels, 6
+    x0 = torch.randn(b, t, c, device=dev)
+    mask = torch.ones(b, t, 1, device=dev)
+    args = (hp.kernel_size_dec, hp.dilation_rate, hp.sigmoid_scale, 0.05, 5)
+    residual_bytes = 3 * hp.n_block_layers * b * t * hp.h_dec * 4
+    peaks = {}
+    for residuals in ("store", "recompute"):
+        fk = {k: v.clone().requires_grad_(True) for k, v in folded.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        x = x0
+        for _ in range(n_blocks):
+            x, _ = block_cuda.block_forward(fk, None, x, mask, *args, residuals)
+        torch.autograd.grad(x.sum(), list(fk.values()))
+        torch.cuda.synchronize()
+        peaks[residuals] = torch.cuda.max_memory_allocated() - base
+    assert peaks["store"] >= n_blocks * residual_bytes
+    assert peaks["store"] - peaks["recompute"] >= (n_blocks - 2) * residual_bytes, peaks
+
+
 @pytest.mark.parametrize("shape", [(4, 7, 13), (3, 16, 16), (2, 25, 80), (1, 1, 1), (16, 60, 300), (2, 1100, 2300)])
 def test_mas_kernel_matches_plain(dev, shape):
     """Paths equal bit for bit, ragged lengths and integer (tied) logp
@@ -404,31 +552,33 @@ def test_text_train_kernels_match_plain(dev, name, p_dropout, t):
         "duration_stack": 1, "duration_stack_bwd": 2}
 
 
-@pytest.mark.parametrize("p_dropout", [0.0, 0.1])
-def test_forward_train_fused_text_side_matches_cpu(dev, p_dropout):
-    """forward_train with encoder_fuse on the card (text kernels, block
-    kernels, MAS) against the same graph on the CPU (plain versions), same
-    seeds: outputs and every raw-param gradient of a scalar of them."""
-    hp = model.hyper_from_config(tiny_config(p_dropout=p_dropout, p_dropout_dec=p_dropout))
-    assert hp.encoder_fuse
+def _forward_train_on_both(dev, config, p_dropout):
+    """forward_train on the card and on the CPU from the same params, batch
+    and seeds -> (hp, card outputs, CPU outputs, launches on the card)."""
+    hp = model.hyper_from_config(config)
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.integers(1, hp.n_vocab, size=(3, 11)))
     xl = torch.tensor([11, 6, 9])
     y = torch.from_numpy(rng.standard_normal((3, 40, hp.out_channels)).astype(np.float32))
     yl = torch.tensor([40, 26, 34])
+    g_ids = torch.tensor([0, 2, 1]) if hp.n_speakers > 1 else None
     outs = []
-    before = kernels.launch_counts()
+    launches = None
     for d in (dev, torch.device("cpu")):
+        before = kernels.launch_counts()
         tt = tree_map(lambda a: a.to(d).requires_grad_(True), _tree(hp))
         (z, z_m, z_logs, logdet, z_mask), _, (attn, logw, logw_) = model.forward_train(
             tt, hp, x.to(d), xl.to(d), y.to(d), yl.to(d),
+            g_ids=None if g_ids is None else g_ids.to(d),
             seed_generator=torch.Generator().manual_seed(7) if p_dropout else None,
         )
         loss = (z * z).mean() + (z_m * z_m).mean() + logdet.mean() + ((logw - logw_) ** 2).mean()
         flat = dict(_flatten(tt))
         grads = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
         outs.append((z, z_m, logw, attn, dict(zip(flat, grads))))
-    after = kernels.launch_counts()
+        if launches is None:
+            after = kernels.launch_counts()
+            launches = {k: after[k] - before[k] for k in after}
     cu, cpu = outs
     assert torch.equal(cu[3].cpu(), cpu[3])
     for i in range(3):
@@ -439,12 +589,85 @@ def test_forward_train_fused_text_side_matches_cpu(dev, p_dropout):
         else:  # attn/k/b: zero but for rounding, see _check_text_kernel
             floor = cpu[4]["encoder/attn/q/b"].abs().max().item() if k == "encoder/attn/k/b" else 1e-6
             _rel_close(k, cu[4][k].cpu(), g, 1e-3, floor)
+    return hp, launches
+
+
+@pytest.mark.parametrize("p_dropout", [0.0, 0.1])
+def test_forward_train_fused_text_side_matches_cpu(dev, p_dropout):
+    """forward_train with encoder_fuse on the card (text kernels, block
+    kernels, MAS) against the same graph on the CPU (plain versions), same
+    seeds: outputs and every raw-param gradient of a scalar of them."""
+    hp, launches = _forward_train_on_both(
+        dev, tiny_config(p_dropout=p_dropout, p_dropout_dec=p_dropout), p_dropout
+    )
+    assert hp.encoder_fuse
     n = hp.n_layers_enc
-    assert {k: after[k] - before[k] for k in (
-        "prenet", "prenet_bwd", "encoder_layer", "encoder_layer_bwd",
-        "duration_stack", "duration_stack_bwd")} == {
+    text = ("prenet", "prenet_bwd", "encoder_layer", "encoder_layer_bwd",
+            "duration_stack", "duration_stack_bwd")
+    assert {k: launches[k] for k in text} == {
         "prenet": 1, "prenet_bwd": 1, "encoder_layer": n, "encoder_layer_bwd": n,
         "duration_stack": 1, "duration_stack_bwd": 1}
+
+
+DECODER_MODES = {
+    "fused_store": ({}, {"block_fwd_save": 1, "block_bwd_store": 1}),
+    "fused_recompute": ({"wn_residuals": "recompute"}, {"block_fwd": 1, "block_bwd": 1}),
+    "unfused_store": ({"flow_block_fuse": False}, {"wn_fwd_save": 1, "wn_bwd_store": 1}),
+    "unfused_recompute": (
+        {"flow_block_fuse": False, "wn_residuals": "recompute"}, {"wn_forward": 1, "wn_bwd": 1}),
+}
+
+
+@pytest.mark.parametrize("over", [{}, {"n_speakers": 3, "gin_channels": 8, "sigmoid_scale": True}],
+                         ids=["base", "gin_sigmoid"])
+@pytest.mark.parametrize("mode", sorted(DECODER_MODES))
+def test_forward_train_decoder_modes_match_cpu(dev, mode, over):
+    """forward_train in each decoder mode on the card against the same
+    graph on the CPU, dropout on with the same seeds; the mode's kernels
+    launch once per block and the other modes' kernels not at all."""
+    keys, per_block = DECODER_MODES[mode]
+    config = tiny_config(p_dropout=0.1, p_dropout_dec=0.1, **over)
+    for key, value in keys.items():
+        setattr(config, key, value)
+    hp, launches = _forward_train_on_both(dev, config, 0.1)
+    decoder = ("wn_forward", "wn_fwd_save", "wn_bwd_store", "wn_bwd",
+               "block_fwd", "block_fwd_save", "block_bwd_store", "block_bwd")
+    assert {k: launches[k] for k in decoder} == {
+        k: per_block.get(k, 0) * hp.n_blocks_dec for k in decoder}
+
+
+@pytest.mark.parametrize("over", [{}, {"n_speakers": 3, "gin_channels": 8, "dilation_rate": 2}],
+                         ids=["base", "gin_dilation2"])
+def test_decoder_inv_inverts_the_op_by_op_forward_on_the_card(dev, over):
+    """The inverse block kernels give back y from the z of the op-by-op
+    decoder_fwd (gradients off: the WN forward kernel, once per block)."""
+    hp = model.hyper_from_config(tiny_config(**over))
+    tree = checkpoint.params_from_numpy(checkpoint.random_params(hp, 0), hp).to(dev).tree()
+    blocks = tree["decoder"]["blocks"]
+    rng = np.random.default_rng(1)
+    y = torch.from_numpy(rng.standard_normal((2, 64, hp.out_channels)).astype(np.float32)).to(dev)
+    mask = (torch.arange(64, device=dev)[None, :] < torch.tensor([64, 40], device=dev)[:, None])
+    mask = mask.to(torch.float32)[..., None]
+    y = y * mask
+    g = None
+    if hp.gin_channels:
+        g = torch.from_numpy(rng.standard_normal((2, 1, hp.gin_channels)).astype(np.float32)).to(dev)
+    n, L, h = hp.n_blocks_dec, hp.n_block_layers, hp.h_dec
+    before = kernels.launch_counts()
+    with torch.inference_mode():
+        z, _ = flows.decoder_fwd(blocks, y, mask, g=g, n_split=hp.n_split, block_fuse=False,
+                                 **model._decoder_kwargs(hp))
+        folded, cond = flows.decoder_store_inverse(blocks, L, hp.n_split)
+        g_all = None
+        if g is not None:
+            g_all = [conv1d(g, c).reshape(2, L, 2 * h).contiguous() for c in cond]
+        y_back = flows.decoder_inv(
+            folded, z, mask, kernel_size=hp.kernel_size_dec, dilation_rate=hp.dilation_rate,
+            n_sqz=hp.n_sqz, sigmoid_scale=hp.sigmoid_scale, g_all=g_all,
+        )
+    assert _launched(before, ("block_inverse", "wn_forward", "wn_fwd_save")) == {
+        "block_inverse": n, "wn_forward": n, "wn_fwd_save": 0}
+    _close(y_back, y, MEL_ATOL)
 
 
 def _flatten(tree, prefix=""):

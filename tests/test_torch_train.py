@@ -48,11 +48,24 @@ TRAJECTORY = {
 }
 
 
-def _train_config(over, encoder_fuse=False):
+# the decoder's other training configurations: the fused block with
+# recomputed residuals, and the op-by-op decoder around the WN kernels in
+# both residual modes.  wn_impl is spelled out for JAX, whose "auto" is
+# "xla" on the CPU; "pallas" runs its kernels in interpret mode.
+DECODER_MODES = {
+    "fused_recompute": {"wn_impl": "pallas", "flow_block_fuse": True, "wn_residuals": "recompute"},
+    "unfused_store": {"wn_impl": "pallas", "flow_block_fuse": False, "wn_residuals": "store"},
+    "unfused_recompute": {"wn_impl": "pallas", "flow_block_fuse": False, "wn_residuals": "recompute"},
+}
+
+
+def _train_config(over, encoder_fuse=False, decoder_mode=None):
     config = tiny_config(**over)
     config.model.p_dropout = 0.0
     config.model.p_dropout_dec = 0.0
     config.encoder_fuse = encoder_fuse
+    for key, value in (decoder_mode or {}).items():
+        setattr(config, key, value)
     return config
 
 
@@ -71,7 +84,17 @@ def test_train_step_trajectory_matches_jax_with_encoder_fuse(tmp_path, monkeypat
     _trajectory(tmp_path, monkeypatch, name, encoder_fuse=True)
 
 
-def _trajectory(tmp_path, monkeypatch, name, encoder_fuse):
+@pytest.mark.parametrize("name", ["base", "multispeaker"])
+@pytest.mark.parametrize("mode", sorted(DECODER_MODES))
+def test_train_step_trajectory_matches_jax_in_decoder_mode(tmp_path, monkeypatch, mode, name):
+    """The 3-step trajectory in each of :data:`DECODER_MODES` on both sides
+    (JAX: the block or WN Pallas kernels in interpret mode with that
+    backward; the port: the same graph over the plain versions), op-by-op
+    text side, same tolerances."""
+    _trajectory(tmp_path, monkeypatch, name, encoder_fuse=False, decoder_mode=DECODER_MODES[mode])
+
+
+def _trajectory(tmp_path, monkeypatch, name, encoder_fuse, decoder_mode=None):
     """Three steps from the same params on the same batches: per step
     loss, mle and duration loss and grad_norm within 1e-5 relative and
     the MAS path identical; after the steps both Adam moments within atol
@@ -85,7 +108,7 @@ def _trajectory(tmp_path, monkeypatch, name, encoder_fuse):
     monkeypatch.setattr(
         jax_model, "prenet_apply", lambda *a, **k: orig_prenet(*a, **dict(k, p_dropout=0.0))
     )
-    config = _train_config(TRAJECTORY[name], encoder_fuse)
+    config = _train_config(TRAJECTORY[name], encoder_fuse, decoder_mode)
     config.learning_rate = LR_TRAJECTORY
     hp = model.hyper_from_config(config)
     assert hp.encoder_fuse == encoder_fuse
@@ -104,6 +127,9 @@ def _trajectory(tmp_path, monkeypatch, name, encoder_fuse):
     step = training.make_train_step(config)
     jhp = jax_model.hyper_from_config(config)
     assert jhp.encoder_fuse == encoder_fuse
+    for key in ("wn_residuals", "block_fuse"):
+        if decoder_mode is not None:  # both packages resolved the keys alike
+            assert getattr(hp, key) == getattr(jhp, key), key
     rng = np.random.default_rng(4)
     for i in range(3):
         batch = random_batch(config, rng, multispeaker=ms)

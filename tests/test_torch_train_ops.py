@@ -137,6 +137,18 @@ def test_block_forward_and_grads_match_jax(tmp_path, name):
     (actnorm, invconv weight, weight-norm g/v, biases, cond) and of x and
     g.  Tolerances: outputs 1e-5, gradients 1e-4 of their max magnitude
     (f32 in both, different summation orders and a 4x4 slogdet/inverse)."""
+    _block_against_jax(tmp_path, name, "store")
+
+
+@pytest.mark.parametrize("name", sorted(BLOCK_CASES))
+def test_block_recompute_forward_and_grads_match_jax(tmp_path, name):
+    """The same with ``residuals="recompute"`` on both sides: JAX runs
+    ``_block_fwd_kernel`` forward and ``_block_bwd_kernel`` (forward
+    recompute, then the walk) backward; same tolerances."""
+    _block_against_jax(tmp_path, name, "recompute")
+
+
+def _block_against_jax(tmp_path, name, residuals):
     over, p = BLOCK_CASES[name]
     config = tiny_config(**over)
     jparams, tmodel, hp = _checkpoint(tmp_path, config)
@@ -154,7 +166,7 @@ def test_block_forward_and_grads_match_jax(tmp_path, name):
             bp, xx, jnp.asarray(mask), gg, hidden_channels=h,
             dilation_rate=hp.dilation_rate, n_layers=L, n_split=hp.n_split,
             sigmoid_scale=hp.sigmoid_scale, p_dropout=p, rng=key,
-            deterministic=False, interpret=True, residuals="store",
+            deterministic=False, interpret=True, residuals=residuals,
         )
 
     gj = None if g is None else jnp.asarray(g)
@@ -176,7 +188,7 @@ def test_block_forward_and_grads_match_jax(tmp_path, name):
         g_all = conv.conv1d(gt, bp_t["coupling"]["wn"]["cond"]).reshape(3, L, 2 * h)
     z_t, ld_t = block_cuda.block_forward(
         folded, g_all, xt, _t(mask), hp.kernel_size_dec, hp.dilation_rate,
-        hp.sigmoid_scale, p, seed,
+        hp.sigmoid_scale, p, seed, residuals,
     )
 
     def close(name, port, ref, rtol):
