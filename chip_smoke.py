@@ -7,14 +7,20 @@ NVIDIA GPU.
 Phases, each fatal on failure:
 
 1. builds the CUDA kernels from ``glow_tts_train_tpu_torch/csrc`` with
-   nvcc for sm_90a;
+   nvcc for sm_90a; then holds the two tensor-core device kernels alone
+   (``csrc/tc_gemm.cu``: the wgmma conv-GEMM and the wgmma
+   weight-gradient GEMM, both 3xTF32) at every product of one flow block at
+   [16, 704, .]: against float64 of the same operands within PRODUCT_RTOL
+   and against the plain emulation of the split, beside the CUDA-core
+   kernel's error and time, with ms and achieved TFLOP/s;
 2. writes a checkpoint at the full width of ``configs/base.json`` in the
    JAX package's ``.npz`` format, with random non-zero weights from a
    numpy seed (duration bias log 6: about 6 frames per phoneme);
 3. serves 4 requests (48, 96, 160 and 250 phonemes) through the port's
    inference CLI entry point, ``glow_tts_train_tpu_torch.infer.main``,
    once at ``--batch-size 1`` and once at ``--batch-size 4``; checks the
-   mels (finite, [80, t]) and each kernel's launch count;
+   mels (finite, [80, t]) and each kernel's launch count, and prints which
+   device kernel each pass's products took;
 4. holds each kernel against its plain PyTorch version on the card, on the
    inputs the batch-4 pass gave it, and the whole batch-4 mel of the
    kernel path against the plain path on the CPU;
@@ -62,16 +68,24 @@ Phases, each fatal on failure:
     decoder configurations, from one init in one process, in turns, and
     holds the four loss trajectories together as in 9.
 
+The profiled train step also counts its device products: every product the
+block chains send to the tensor cores must run there (10 conv-GEMMs per
+block forward, 12 conv-GEMMs and 11 weight gradients per block backward),
+none declined.
+
 Each kernel's line in ``{"kernels": [...]}`` carries its bound on this
 card: the larger of its bytes (every input read once, every output written
-once, from the tensors of the timed call) over 3.35 TB/s and its f32
-operations (from the shapes of that call, ``kernel_flops``) over 67
-TFLOP/s; and ``library_ms`` null: no single PyTorch call computes any of
+once, from the tensors of the timed call) over 3.35 TB/s and its
+operations (from the shapes of that call, ``kernel_flops``) over 165
+TFLOP/s where the call's products ran on the tensor cores (a third of the
+TF32 peak: three passes a product; ``bound_by`` "operations, 3xTF32") or
+over the 67 TFLOP/s of the CUDA cores where they did not; a kernel faster
+than its bound fails the run; and ``library_ms`` null: no single PyTorch call computes any of
 these functions (a whole conv/LayerNorm stack, a layer with rel-pos band
 terms, a flow block, a monotonic alignment).
 
-Prints the GPU's name and power limit, a ``{"decoder_modes": {...}}`` and
-a ``{"kernels": [...]}`` JSON line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU
+Prints the GPU's name and power limit, a ``{"products": [...]}``, a
+``{"decoder_modes": {...}}`` and a ``{"kernels": [...]}`` JSON line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU
 or outside a checkout of the repository.
 """
 
@@ -153,7 +167,8 @@ DROPOUT_FWD_RTOL = 1e-5
 # ReLU's input is within this share of its max (rounding of a value at zero)
 GATE_TIE_RTOL = 1e-5
 # the card's published peaks (NVIDIA H100 SXM data sheet): f32 outside the
-# tensor cores and HBM3 bandwidth
+# tensor cores and HBM3 bandwidth (PEAK_3XTF32_FLOPS, below: a third of the
+# 495 TFLOP/s of dense TF32)
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # a shape the TPU kernel streams through VMEM (mas_pallas.py :254/:264)
@@ -258,19 +273,157 @@ def tensor_bytes(tree) -> int:
     return 0
 
 
-def bound(name: str, args, kwargs, outputs) -> dict:
+def bound(name: str, args, kwargs, outputs, fn=None) -> dict:
     """The least time this card could take for one call: bytes (inputs read
     once, outputs written once) over the memory rate, or operations over
-    the f32 peak, whichever is larger."""
+    the peak of the unit that does them, whichever is larger.  ``fn`` (the
+    kernel's wrapper) is called once more, under torch.profiler and between
+    two reads of the product counters: where its products ran on the tensor
+    cores the peak is a third of the TF32 rate (three passes a product),
+    else the f32 rate of the CUDA cores; ``device_ms`` is the time its
+    device operations took without the host's gaps between them."""
+    from glow_tts_train_tpu_torch import kernels
+
     n_bytes = tensor_bytes((args, kwargs)) + tensor_bytes(outputs)
     flops = kernel_flops(name, args)
+    products = device = None
+    if fn is not None:
+        kernels.product_counts(reset=True)
+        fn(*args, **kwargs)
+        products = kernels.product_counts(reset=True)
+        device = {"device_ms": device_ms(lambda: fn(*args, **kwargs), runs=3)}
+    on_tensor_cores = bool(products and products["tc_gemm"] + products["tc_wgrad"])
     by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    by_flops = flops / PEAK_F32_FLOPS * 1e3
+    by_flops = flops / (PEAK_3XTF32_FLOPS if on_tensor_cores else PEAK_F32_FLOPS) * 1e3
+    by = "operations, 3xTF32" if on_tensor_cores else "operations"
+    if device and (device["device_ms"] or 0.0) < max(by_bytes, by_flops):
+        device["device_ms"] = None  # below the bound: a trace short of records
     return {
         "bound_ms": max(by_bytes, by_flops),
-        "bound_by": "bytes" if by_bytes >= by_flops else "operations",
+        "bound_by": "bytes" if by_bytes >= by_flops else by,
         "bytes": n_bytes, "flops": flops, "library_ms": None,
+        **({"products": products, **device} if products else {}),
     }
+
+
+def held_to_bound(name: str, ms: float, roof: dict) -> None:
+    """A kernel faster than the least time the card could take is a fault
+    of the operation count or of the timing."""
+    if not ms >= roof["bound_ms"]:
+        fail(f"{name}: {ms} ms is below its bound of {roof['bound_ms']} ms by {roof['bound_by']}")
+
+
+# the two tensor-core device kernels alone, at the products of one block at
+# [16, 704, .]: (name, c_in, taps, dilation, tap_sign, n)
+PRODUCT_ROWS = (16, 704)
+CONV_PRODUCTS = (
+    ("in_conv_d1", 192, 5, 1, 1, 384), ("in_conv_d4", 192, 5, 4, 1, 384),
+    ("res_skip", 192, 1, 1, 1, 384), ("in_conv_transposed", 384, 5, 2, -1, 192),
+    ("fold_a", 160, 1, 1, 1, 160), ("start", 80, 1, 1, 1, 192), ("end", 192, 1, 1, 1, 160),
+)
+# (name, c_in, taps, dilation, n) -> out [taps * c_in, n]
+WGRAD_PRODUCTS = (
+    ("dW_in", 192, 5, 2, 384), ("dW_rs", 192, 1, 1, 384), ("dW_e", 192, 1, 1, 160),
+    ("dA", 160, 1, 1, 160),
+)
+# a bare product against float64 of the same operands, relative to max |ref|:
+# the 3xTF32 split drops terms below 2^-20 of each product term
+PRODUCT_RTOL = 5e-6
+# and against the plain emulation of the split (ops/tc_gemm.py
+# matmul_3xtf32_plain), which differs from the kernel only in the f32
+# accumulation order of the tensor cores
+EMULATION_RTOL = 2e-6
+PEAK_3XTF32_FLOPS = 495e12 / 3
+
+
+def bare_products(device_line: str) -> list:
+    """The tensor-core conv-GEMM and weight-gradient GEMM alone (bare
+    epilogue), each product of one block at PRODUCT_ROWS: against float64
+    of the same operands within PRODUCT_RTOL, against the plain emulation of
+    the 3xTF32 split, with the CUDA-core kernel's error and time on the same
+    operands beside them, the weight gradients' bits equal across two runs,
+    and the weights' K-major split against its plain version bit for bit."""
+    import numpy as np
+    import torch
+
+    from glow_tts_train_tpu_torch import kernels
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    rng = np.random.default_rng(SEED + 5)
+    batch, t = PRODUCT_ROWS
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(PLATFORM)
+
+    w = randn(960, 384)
+    if not torch.equal(tc_gemm.split_weights(w), tc_gemm.split_weights_plain(w)):
+        fail("split_weights: the kernel's K-major split differs from the plain version's bits")
+
+    rows = []
+
+    def held(kind, name, shape, flops, run, ref64, emulated):
+        kernels.product_counts(reset=True)
+        out_tc = run("tc")
+        counts = kernels.product_counts(reset=True)
+        want = {"tc_gemm": int(kind == "conv_gemm"), "tc_wgrad": int(kind == "wgrad")}
+        if {k: counts[k] for k in want} != want or counts["core_gemm"] + counts["core_wgrad"]:
+            fail(f"{kind} {name}: product counts {counts}")
+        out_auto, out_core = run("auto"), run("core")
+        if not torch.equal(out_auto, out_tc):
+            fail(f"{kind} {name}: the dispatch did not take the tensor-core kernel at {shape}")
+        scale = ref64.abs().max().item()
+        err = (out_tc.double() - ref64).abs().max().item()
+        core_err = (out_core.double() - ref64).abs().max().item()
+        emu_err = (out_tc - emulated).abs().max().item()
+        if not (math.isfinite(err) and err <= PRODUCT_RTOL * scale):
+            fail(f"{kind} {name}: max abs err {err} vs float64, max |ref| {scale} "
+                 f"(tolerance {PRODUCT_RTOL} relative)")
+        if not emu_err <= EMULATION_RTOL * scale:
+            fail(f"{kind} {name}: max abs err {emu_err} vs the plain 3xTF32 emulation, "
+                 f"max |ref| {scale} (tolerance {EMULATION_RTOL} relative)")
+        if kind == "wgrad" and not torch.equal(out_tc, run("tc")):
+            fail(f"wgrad {name}: two runs gave different bits")
+        # the wrapper's time by CUDA events (at these sizes mostly the host's)
+        # and the device's own: the product's launches (the weights' split or
+        # the column sum of the row splits included) under torch.profiler
+        ms = time_ms(lambda: run("tc"), (), {})
+        # (where the traces do not agree or read below the bound, the events' time)
+        floor = flops / PEAK_3XTF32_FLOPS * 1e3
+        on_device = {}
+        for mode in ("tc", "core"):
+            traced = device_ms(lambda: run(mode), runs=10)
+            traced_ok = traced is not None and traced >= floor
+            on_device[mode] = traced if traced_ok else time_ms(lambda: run(mode), (), {})
+        row = {"kernel": kind, "name": name, "shape": shape, "max_abs_err_f64": err,
+               "max_abs_ref": scale, "core_max_abs_err_f64": core_err,
+               "max_abs_err_emulation": emu_err, "ms": ms, "device_ms": on_device["tc"],
+               "tflops": flops / on_device["tc"] / 1e9, "core_device_ms": on_device["core"],
+               "core_tflops": flops / on_device["core"] / 1e9,
+               "bound_ms": floor}
+        if not on_device["tc"] >= floor:
+            fail(f"{kind} {name}: {on_device['tc']} ms is below its bound of {floor} ms")
+        rows.append(row)
+        print(f"product {kind} {name}: {shape} err vs float64 {err:.3e} (CUDA-core kernel "
+              f"{core_err:.3e}, vs 3xTF32 emulation {emu_err:.3e}; max|ref| {scale:.3e}), "
+              f"{on_device['tc']:.4f} ms on the device = {row['tflops']:.1f} TFLOP/s ({ms:.4f} ms "
+              f"by events; CUDA-core kernel {on_device['core']:.4f} ms = "
+              f"{row['core_tflops']:.1f} TFLOP/s), bound {row['bound_ms']:.4f} ms at 165 TFLOP/s "
+              f"[{device_line}]")
+
+    for name, c_in, taps, dilation, tap_sign, n in CONV_PRODUCTS:
+        a, w = randn(batch, t, c_in), randn(taps * c_in, n) / math.sqrt(taps * c_in)
+        cols = tc_gemm.im2col_plain(a, taps, dilation, tap_sign)
+        held("conv_gemm", name, [batch * t, taps * c_in, n], 2.0 * batch * t * taps * c_in * n,
+             lambda mode: tc_gemm.conv_product(a, w, taps, dilation, tap_sign, mode=mode),
+             cols.double() @ w.double(), tc_gemm.matmul_3xtf32_plain(cols, w))
+    for name, c_in, taps, dilation, n in WGRAD_PRODUCTS:
+        a, dy = randn(batch, t, c_in), randn(batch, t, n)
+        cols = tc_gemm.im2col_plain(a, taps, dilation).reshape(batch * t, -1)
+        dy2 = dy.reshape(batch * t, n)
+        held("wgrad", name, [taps * c_in, batch * t, n], 2.0 * batch * t * taps * c_in * n,
+             lambda mode: tc_gemm.weight_gradient(a, dy, taps, dilation, mode=mode),
+             cols.double().T @ dy2.double(), tc_gemm.matmul_3xtf32_plain(cols.T, dy2))
+    return rows
 
 
 def fail(msg: str) -> None:
@@ -620,7 +773,7 @@ def train(workdir: Path, repo: Path, config_path: Path, device_line: str):
     step_ms = statistics.median(r["seconds"] for r in steps[1:]) * 1e3
     print(f"train: CLI {seconds:.1f} s (corpus load, DDI, 8 steps, 2 checkpoints), encoder_fuse auto; "
           f"median step after the first {step_ms:.1f} ms; epochs {epochs}; launches {got}")
-    profile = profile_step(last, device_line)
+    profile = profile_step(last, device_line, n_blocks, config.model.n_block_layers)
 
     # the op-by-op text side still trains, and launches none of the text kernels
     u_launches, u_steps, _, _, u_seconds = run_train_cli(
@@ -640,25 +793,47 @@ def train(workdir: Path, repo: Path, config_path: Path, device_line: str):
 
 def profiled(fn) -> tuple:
     """``fn()`` once under torch.profiler -> (wall ms, the device's self time
-    in ms by kernel or copy, its count of device operations)."""
+    in ms by kernel or copy, its count of device operations).  A trace
+    that comes back without a device record (seen once in the forty-odd
+    traces of one run of this script) is taken again, at most twice; see
+    also ``device_ms``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - start) * 1e3
-    by_kernel, launches = {}, 0
-    for e in prof.key_averages():
-        if e.device_type.name == "CUDA":
-            by_kernel[e.key] = e.self_device_time_total / 1e3
-            launches += e.count
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - start) * 1e3
+        by_kernel, launches = {}, 0
+        for e in prof.key_averages():
+            if e.device_type.name == "CUDA":
+                by_kernel[e.key] = e.self_device_time_total / 1e3
+                launches += e.count
+        if launches:
+            break
     return wall_ms, by_kernel, launches
 
 
-def profile_step(last: dict, device_line: str) -> dict:
+def device_ms(fn, runs: int = 1):
+    """The device's own time for one call of ``fn`` in ms: the self time of
+    its kernels and copies under torch.profiler, mean of ``runs`` calls in
+    one trace.  A trace can come back short of some device records, so two
+    traces in a row must count the same device operations (the smaller
+    time of the two is taken); None where four traces do not agree."""
+    last = None
+    for _ in range(4):
+        _, by_kernel, operations = profiled(lambda: [fn() for _ in range(runs)])
+        total = sum(by_kernel.values())
+        if operations and last is not None and last[0] == operations:
+            return min(last[1], total) / runs
+        last = (operations, total)
+    return None
+
+
+def profile_step(last: dict, device_line: str, n_blocks: int, n_layers: int) -> dict:
     """One more step on the last batch under torch.profiler: wall time,
     device busy time (the kernels' and copies' self time; one stream, so
     they add up), idle share, kernel launches, and the top kernels."""
@@ -666,11 +841,23 @@ def profile_step(last: dict, device_line: str) -> dict:
     def step():
         last["step_fn"](last["state"], last["batch"], *last["args"])
 
+    from glow_tts_train_tpu_torch import kernels
+
+    # the step's device products: every product of the 12 block forward and
+    # 12 block backward chains on the tensor cores, none of them declined
+    # (the text side's chains do not ask and stay on the CUDA cores)
+    kernels.product_counts(reset=True)
     step()
+    products = kernels.product_counts(reset=True)
+    want = block_products(n_layers, forward=n_blocks, backward=n_blocks)
+    if {k: products[k] for k in want} != want:
+        fail(f"train step: device products {products}, expected {want}")
     wall_ms, by_kernel, launches = profiled(step)
     busy_ms = sum(by_kernel.values())
-    block = sum(v for k, v in by_kernel.items()
-                if any(n in k for n in ("conv_gemm_kernel", "wgrad_kernel", "col_sum_kernel")))
+    tc = {name: sum(v for k, v in by_kernel.items() if name in k)
+          for name in ("conv_gemm_tc_kernel", "wgrad_tc_kernel", "split_weights_kernel",
+                       "conv_gemm_kernel", "wgrad_kernel", "col_sum_kernel")}
+    block = sum(tc.values())
     attention = sum(v for k, v in by_kernel.items() if "attention_kernel" in k or "attn_bwd" in k)
     norms = sum(v for k, v in by_kernel.items() if "layer_norm" in k)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
@@ -679,12 +866,14 @@ def profile_step(last: dict, device_line: str) -> dict:
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms if busy_ms > 0 else None,
         "device_launches": launches, "gemm_wgrad_colsum_ms": block,
+        "device_products": products, "device_ms_by_kernel": tc,
         "attention_ms": attention, "layer_norm_ms": norms,
         "top_ms": {k[:70]: v for k, v in top},
     }
     print(f"train profiled step: x {row['batch_x']} y {row['batch_y']} wall {wall_ms:.1f} ms, "
           f"device busy {busy_ms:.1f} ms, idle share {row['idle_share']}, {launches} device "
-          f"operations, conv_gemm+wgrad+col_sum {block:.1f} ms, attention fwd+bwd "
+          f"operations, device products {products}, conv_gemm+wgrad+col_sum of both kinds "
+          f"{block:.1f} ms ({ {k: round(v, 2) for k, v in tc.items()} }), attention fwd+bwd "
           f"{attention:.1f} ms, layer_norm fwd+bwd {norms:.1f} ms [{device_line}]")
     for k, v in top:
         print(f"  {v:9.3f} ms  {k[:100]}")
@@ -717,14 +906,16 @@ def entry_writer(report: list, launches: dict, device_line: str):
     prints it."""
 
     def entry(name, err, scale, ms, plain_ms, shape, roof, **extra):
+        held_to_bound(name, ms, roof)
         source, replaces = KERNEL_META[name]
         report.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             **roof, "shape": shape, "max_abs_ref": scale, **extra,
         })
-        print(f"kernel {name}: {shape} err {err:.3e} (max|ref| {scale:.3e}) kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {roof['bound_ms']:.4f} ms by {roof['bound_by']} "
+        on_device = f" ({roof['device_ms']:.4f} on the device)" if roof.get("device_ms") else ""
+        print(f"kernel {name}: {shape} err {err:.3e} (max|ref| {scale:.3e}) kernel {ms:.4f} ms"
+              f"{on_device}, plain {plain_ms:.4f} ms, bound {roof['bound_ms']:.4f} ms by {roof['bound_by']} "
               f"{extra or ''}[{device_line}]")
 
     return entry
@@ -740,6 +931,32 @@ def held_gradients(name: str, grads: dict, names: list, ref) -> float:
             fail(f"{name}: {n} is zero in the plain version: nothing was compared")
         worst = max(worst, e / max(sc, 1e-6))
     return worst
+
+
+def block_products(n_layers: int, forward: int, backward: int) -> dict:
+    """Tensor-core products of ``forward`` block forward chains and
+    ``backward`` block backward chains (csrc/block_train.cu), none of the
+    products that ask for the tensor cores declined.  Forward: the start
+    conv, per WN layer the in-conv and the res/skip conv, the end conv (the
+    folded A's product does not ask: it stays on the CUDA cores, see
+    block_fwd_chain).  Backward: the coupling's rebuilt logs, dskip, per
+    layer da and the transposed in-conv, the start conv's and the folded A's
+    input gradients; weight gradients dW_e, per layer dW_rs and dW_in, dW_s,
+    dA."""
+    return {
+        "tc_gemm": forward * (2 + 2 * n_layers) + backward * (4 + 2 * n_layers),
+        "tc_wgrad": backward * (3 + 2 * n_layers),
+        "declined_gemm": 0, "declined_wgrad": 0,
+    }
+
+
+def held_products(name: str, roof: dict, forward: int, backward: int, n_layers: int) -> None:
+    """The products of one call of a block kernel: on the tensor cores but
+    for the forward's folded A."""
+    want = dict(block_products(n_layers, forward, backward), core_gemm=forward, core_wgrad=0)
+    got = {k: roof["products"][k] for k in want}
+    if got != want:
+        fail(f"{name}: device products {roof['products']}, expected {want}")
 
 
 def training_kernels(recorders: dict, launches: dict, device_line: str) -> tuple:
@@ -761,7 +978,7 @@ def training_kernels(recorders: dict, launches: dict, device_line: str) -> tuple
         err, scale = rel_err("wn_forward", skip, wn_cuda.wn_stack_plain(*args, **kwargs), KERNEL_RTOL)
         entry("wn_forward", err, scale, time_ms(recorders["wn_forward"].fn, args, kwargs),
               time_ms(wn_cuda.wn_stack_plain, args, kwargs), list(args[2].shape),
-              bound("wn_forward", args, kwargs, skip))
+              bound("wn_forward", args, kwargs, skip, recorders["wn_forward"].fn))
 
     # block forward-save: z, ld and every saved residual
     args, kwargs = recorders["block_fwd_save"].args
@@ -779,8 +996,9 @@ def training_kernels(recorders: dict, launches: dict, device_line: str) -> tuple
         err, scale = errs[0]
         ms = time_ms(block_cuda.block_fwd_save, args, kwargs)
         plain_ms = time_ms(block_cuda.block_forward_plain, (folded, g_all, x, x_mask, *cfg), {})
-    entry("block_fwd_save", err, scale, ms, plain_ms, list(x.shape),
-          bound("block_fwd_save", args, kwargs, (z, ld, saves)), p_dropout=cfg[3], max_abs_err_ld=errs[1][0], max_abs_err_saves=max(e for e, _ in errs[2:]))
+        roof = bound("block_fwd_save", args, kwargs, (z, ld, saves), block_cuda.block_fwd_save)
+    held_products("block_fwd_save", roof, n_layers=folded["W_in"].shape[0], forward=1, backward=0)
+    entry("block_fwd_save", err, scale, ms, plain_ms, list(x.shape), roof, p_dropout=cfg[3], max_abs_err_ld=errs[1][0], max_abs_err_saves=max(e for e, _ in errs[2:]))
 
     # block backward-store: every gradient against autograd of the plain forward
     args, kwargs = recorders["block_bwd_store"].args
@@ -805,8 +1023,10 @@ def training_kernels(recorders: dict, launches: dict, device_line: str) -> tuple
     dx_err, dx_scale = rel_err("block_bwd_store dx", grads["dx"], ref[0], KERNEL_RTOL)
     ms = time_ms(block_cuda.block_bwd_store, args, kwargs)
     plain_ms = time_ms(lambda: torch.autograd.grad(loss, inputs, retain_graph=True), (), {})
-    entry("block_bwd_store", dx_err, dx_scale, ms, plain_ms, list(x.shape),
-          bound("block_bwd_store", args, kwargs, grads), worst_rel_err_grad=worst,
+    roof = bound("block_bwd_store", args, kwargs, grads, block_cuda.block_bwd_store)
+    held_products("block_bwd_store", roof, n_layers=folded["W_in"].shape[0], forward=0, backward=1)
+    entry("block_bwd_store", dx_err, dx_scale, ms, plain_ms, list(x.shape), roof,
+          worst_rel_err_grad=worst,
           max_abs_w_e=folded["W_e"].abs().max().item())
 
     # MAS, bit for bit: the training shape, then a long one the TPU streams
@@ -835,7 +1055,7 @@ def training_kernels(recorders: dict, launches: dict, device_line: str) -> tuple
     long_ms = time_ms(mas_cuda.maximum_path, (long_logp, long_mask), {})
     long_plain_ms = time_ms(mas_cuda.maximum_path_plain, (long_logp, long_mask), {}, runs=20)
     entry("mas", err, scale, ms, plain_ms, list(logp.shape),
-          bound("mas", args, kwargs, mas_cuda.maximum_path(*args, **kwargs)),
+          bound("mas", args, kwargs, mas_cuda.maximum_path(*args, **kwargs), mas_cuda.maximum_path),
           long_shape=list(MAS_LONG),
           long_bound_ms=bound("mas", (long_logp, long_mask), {},
                               mas_cuda.maximum_path(long_logp, long_mask))["bound_ms"],
@@ -878,14 +1098,17 @@ def text_kernels(recorders: dict, launches: dict, entry) -> list:
             err, scale = rel_err(f"{name} with dropout", out_k, out_p, DROPOUT_FWD_RTOL)
             ms = time_ms(recorders[name].fn, args, kwargs)
             plain_ms = time_ms(plain_fwd[name], args, kwargs)
+            roof = bound(name, args, kwargs, out_k, recorders[name].fn)
+        held_to_bound(f"{name} with dropout", ms, roof)
         forward_rows.append({
             "name": name, "train_launches": launches[name], "train_shape": list(args[1].shape),
             "train_p_dropout": p_dropout, "train_max_abs_err": err, "train_max_abs_ref": scale,
             "train_ms": ms, "train_plain_ms": plain_ms,
-            **{"train_" + k: v for k, v in bound(name, args, kwargs, out_k).items()},
+            **{"train_" + k: v for k, v in roof.items()},
         })
         print(f"kernel {name} (training, p_dropout {p_dropout}): {list(args[1].shape)} err {err:.3e} "
-              f"(max|ref| {scale:.3e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"(max|ref| {scale:.3e}) kernel {ms:.4f} ms ({roof['device_ms']} on the device), "
+              f"plain {plain_ms:.4f} ms, bound {roof['bound_ms']:.4f} ms, "
               f"{launches[name]} launches in training")
 
         # backward
@@ -928,7 +1151,8 @@ def text_kernels(recorders: dict, launches: dict, entry) -> list:
         dx_scale = ref[0].abs().max().item()
         ms = time_ms(recorders[bwd].fn, args, kwargs)
         plain_ms = time_ms(plain_bwd[name], args, kwargs)
-        entry(bwd, dx_err, dx_scale, ms, plain_ms, list(x.shape), bound(bwd, args, kwargs, grads),
+        entry(bwd, dx_err, dx_scale, ms, plain_ms, list(x.shape),
+              bound(bwd, args, kwargs, grads, recorders[bwd].fn),
               p_dropout=cfg[-2], worst_rel_err_grad=worst[0] / worst[1], n_gradients=len(grads),
               relu_ties=ties, same_bits_twice=True)
     return forward_rows
@@ -1056,7 +1280,7 @@ def decoder_mode_kernels(recorders: dict, launches_by_mode: dict, device_line: s
             fail("block_fwd: z or ld differ from the forward-save kernel's bits")
         entry("block_fwd", err, scale, time_ms(block_cuda.block_fwd, args, kwargs),
               time_ms(block_cuda.block_forward_plain, args, kwargs), list(x.shape),
-              bound("block_fwd", args, kwargs, (z, ld)), p_dropout=cfg[3], max_abs_err_ld=ld_err,
+              bound("block_fwd", args, kwargs, (z, ld), block_cuda.block_fwd), p_dropout=cfg[3], max_abs_err_ld=ld_err,
               equals_fwd_save=True)
 
     # ---- block recompute backward ----
@@ -1085,7 +1309,7 @@ def decoder_mode_kernels(recorders: dict, launches_by_mode: dict, device_line: s
     dx_err, dx_scale = rel_err("block_bwd dx", grads["dx"], ref[0], KERNEL_RTOL)
     entry("block_bwd", dx_err, dx_scale, time_ms(block_cuda.block_bwd, args, kwargs),
           time_ms(lambda: torch.autograd.grad(loss, inputs, retain_graph=True), (), {}),
-          list(x.shape), bound("block_bwd", args, kwargs, grads), p_dropout=cfg[3],
+          list(x.shape), bound("block_bwd", args, kwargs, grads, block_cuda.block_bwd), p_dropout=cfg[3],
           worst_rel_err_grad=worst, equals_store=True,
           store_ms=time_ms(block_cuda.block_bwd_store,
                            (folded, False, x, x_mask, saves, dz, dld, *cfg), {}))
@@ -1107,7 +1331,7 @@ def decoder_mode_kernels(recorders: dict, launches_by_mode: dict, device_line: s
         del ref_saves
         entry("wn_fwd_save", err, scale, time_ms(wn_cuda.wn_fwd_save, args, kwargs),
               time_ms(wn_cuda.wn_stack_plain, args, kwargs), list(x.shape),
-              bound("wn_fwd_save", args, kwargs, (skip, saves)), p_dropout=cfg[2],
+              bound("wn_fwd_save", args, kwargs, (skip, saves), wn_cuda.wn_fwd_save), p_dropout=cfg[2],
               max_abs_err_saves=save_err)
 
     def wn_reference(wn, g_all, x, x_mask, dout, cfg):
@@ -1136,7 +1360,7 @@ def decoder_mode_kernels(recorders: dict, launches_by_mode: dict, device_line: s
     dx_err, dx_scale = rel_err("wn_bwd_store dx", grads["dx"], ref[0], KERNEL_RTOL)
     entry("wn_bwd_store", dx_err, dx_scale, time_ms(wn_cuda.wn_bwd_store, args, kwargs),
           time_ms(lambda: torch.autograd.grad(loss, inputs, retain_graph=True), (), {}),
-          list(x.shape), bound("wn_bwd_store", args, kwargs, grads), p_dropout=cfg[2],
+          list(x.shape), bound("wn_bwd_store", args, kwargs, grads, wn_cuda.wn_bwd_store), p_dropout=cfg[2],
           worst_rel_err_grad=worst, same_bits_twice=True)
     del saves, grads, again, loss, inputs, ref
 
@@ -1150,7 +1374,7 @@ def decoder_mode_kernels(recorders: dict, launches_by_mode: dict, device_line: s
                              KERNEL_RTOL)
         entry("wn_forward_dropout", err, scale, time_ms(wn_cuda.wn_stack, args, kwargs),
               time_ms(wn_cuda.wn_stack_plain, args, kwargs), list(x.shape),
-              bound("wn_forward", args, kwargs, skip), p_dropout=cfg[2])
+              bound("wn_forward", args, kwargs, skip, wn_cuda.wn_stack), p_dropout=cfg[2])
 
     # ---- WN recompute backward ----
     args, kwargs = recorders["wn_bwd"].args
@@ -1170,7 +1394,7 @@ def decoder_mode_kernels(recorders: dict, launches_by_mode: dict, device_line: s
     dx_err, dx_scale = rel_err("wn_bwd dx", grads["dx"], ref[0], KERNEL_RTOL)
     entry("wn_bwd", dx_err, dx_scale, time_ms(wn_cuda.wn_bwd, args, kwargs),
           time_ms(lambda: torch.autograd.grad(loss, inputs, retain_graph=True), (), {}),
-          list(x.shape), bound("wn_bwd", args, kwargs, grads), p_dropout=cfg[2],
+          list(x.shape), bound("wn_bwd", args, kwargs, grads, wn_cuda.wn_bwd), p_dropout=cfg[2],
           worst_rel_err_grad=worst, equals_store=True)
     return report
 
@@ -1328,6 +1552,7 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
     from glow_tts_train_tpu_torch.models import encoder_forward, forward_gen, store_inverse
     from glow_tts_train_tpu_torch.ops import block_cuda, encoder_cuda, text_cuda
 
+    products = bare_products(device_line)
     ckpt, config, hp = make_checkpoint(workdir, config_path)
     stdin_text = requests()
 
@@ -1340,12 +1565,20 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
 
     # ---- main path: the CLI at batch 1, then batch 4 ----
     kernels.reset_launch_counts()
+    kernels.product_counts(reset=True)
     mels_b1, sec_b1 = serve(ckpt, config_path, stdin_text, 1, hp.out_channels)
     after_b1 = kernels.launch_counts()
+    products_b1 = kernels.product_counts(reset=True)
     for rec in recorders.values():
         rec.armed = True
     mels_b4, sec_b4 = serve(ckpt, config_path, stdin_text, 4, hp.out_channels)
     launches = kernels.launch_counts()
+    products_b4 = kernels.product_counts(reset=True)
+    # which kernel the inverse blocks' products took: at b=1 the short
+    # requests have too few 128-row tiles for the tensor-core kernel
+    print(f"serve: device products at b=1 {products_b1}, at b=4 {products_b4}")
+    if not products_b4["tc_gemm"] > 0:
+        fail(f"serve: no product of the b=4 pass ran on the tensor cores: {products_b4}")
     for rec in recorders.values():
         rec.restore()
     n = len(REQUEST_LENGTHS)
@@ -1394,7 +1627,9 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
             plain_ms = time_ms(plains[name], args, kwargs)
         x = next(a for a in args if isinstance(a, torch.Tensor) and a.dim() == 3)
         source, replaces = KERNEL_META[name]
-        roof = bound(name, args, kwargs, out_k)
+        with torch.inference_mode():
+            roof = bound(name, args, kwargs, out_k, kernel_fn)
+        held_to_bound(name, ms, roof)
         report.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err, "ms": ms,
@@ -1464,6 +1699,7 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
     torch.cuda.empty_cache()
     mode_steps = decoder_mode_steps(workdir, config_path, device_line)
 
+    print(json.dumps({"products": products}))
     print(json.dumps({"serve": serve_rows}))
     print(json.dumps({"train": {"steps": steps, "median_step_ms_after_first": step_ms,
                                 "profiled_step": train_profile}}))

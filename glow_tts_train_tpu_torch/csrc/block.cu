@@ -26,7 +26,8 @@ extern "C" int gtt_block_inverse(
     const float* ba_inv, const float* w_s, const float* b_s, const float* w_e,
     const float* b_e, const float* w_in, const float* b_in, const float* w_rs,
     const float* b_rs, const float* g_all, float* y, float* zbuf,
-    float* xcur, float* acts, float* skip, int g_stride, int batch, int t,
+    float* xcur, float* acts, float* skip, float* tc_scratch,
+    int tc_scratch_floats, int g_stride, int batch, int t,
     int c, int h, int n_layers, int taps, int dilation_rate,
     int sigmoid_scale, cudaStream_t stream) {
   using namespace gtt;
@@ -47,6 +48,7 @@ extern "C" int gtt_block_inverse(
     g.a = x; g.lda = c; g.c_in = c2; g.batch = batch; g.t = t;
     g.w = w_s; g.bias = b_s; g.n = h; g.epilogue = kBiasMask;
     g.out = xcur; g.ldo = h; g.mask = mask;
+    g.tc_scratch = tc_scratch; g.tc_scratch_floats = tc_scratch_floats;
     if ((err = conv_gemm(g, stream)) != cudaSuccess) return (int)err;
   }
   {  // skip = WN stack of h0, no dropout, nothing saved
@@ -56,6 +58,7 @@ extern "C" int gtt_block_inverse(
     wn.g_all = g_all; wn.g_stride = g_stride; wn.batch = batch; wn.t = t;
     wn.h = h; wn.n_layers = n_layers; wn.taps = taps;
     wn.dilation_rate = dilation_rate;
+    wn.tc_scratch = tc_scratch; wn.tc_scratch_floats = tc_scratch_floats;
     if ((err = wn_layers(wn, stream)) != cudaSuccess) return (int)err;
   }
   {  // z1 = (x1 - m) * exp(-logs) * mask, written over zbuf[:, c2:]
@@ -63,6 +66,7 @@ extern "C" int gtt_block_inverse(
     g.a = skip; g.lda = h; g.c_in = h; g.a_mask = mask; g.batch = batch; g.t = t;
     g.w = w_e; g.bias = b_e; g.n = c; g.split = c2; g.epilogue = kCouplingInv;
     g.out = zbuf + c2; g.ldo = c; g.mask = mask; g.flag = sigmoid_scale;
+    g.tc_scratch = tc_scratch; g.tc_scratch_floats = tc_scratch_floats;
     if ((err = conv_gemm(g, stream)) != cudaSuccess) return (int)err;
   }
   {  // y = (z @ A_inv + bA_inv) * mask
@@ -70,6 +74,7 @@ extern "C" int gtt_block_inverse(
     g.a = zbuf; g.lda = c; g.c_in = c; g.batch = batch; g.t = t;
     g.w = a_inv; g.bias = ba_inv; g.n = c; g.epilogue = kBiasMask;
     g.out = y; g.ldo = c; g.mask = mask;
+    g.tc_scratch = tc_scratch; g.tc_scratch_floats = tc_scratch_floats;
     if ((err = conv_gemm(g, stream)) != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();

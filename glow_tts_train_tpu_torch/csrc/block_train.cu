@@ -50,12 +50,24 @@
 // a fixed order, bias gradients by per-sample column sums: no float
 // atomics, so a gradient is the same bits from run to run.
 //
-// Bound on the card: f32 FMA throughput of the in-layer conv products
-// (forward one, backward three per layer at K = 5 * 192, N = 384); the TPU
-// kernels keep a sample's block and its weight-gradient accumulators in
-// VMEM, here every product streams its operands through L2 and only the
-// [rows, h] / [rows, 2h] activations and the saved residuals reach device
-// memory.
+// Bound on the card: the operations of the in-layer conv products
+// (forward one, backward three per layer at K = 5 * 192, N = 384).  Every
+// product of these chains but one asks for the tensor cores (tc_gemm.cu):
+// conv-GEMMs and weight gradients run as wgmma TF32 products, f32-accurate
+// by the 3xTF32 split, so the bound is their operations over a third of
+// the TF32 peak (165 TFLOP/s)
+// where the shape fits and over the f32 CUDA-core peak where it does not
+// (narrow test widths, a few hundred rows).  The one is the forward's
+// zp = x @ A: a tensor-core product reads 1e-7 low in every output alike,
+// and the ActNorm scale's gradient is a small difference of large sums of
+// zp's squares (block_fwd_chain says more); it is 1.4% of a block's
+// operations.  The TPU kernels keep a
+// sample's block and its weight-gradient accumulators in VMEM; here every
+// product streams its operands through L2 and only the [rows, h] /
+// [rows, 2h] activations and the saved residuals reach device memory.  A
+// forward call brings scratch for the weights' K-major split; a backward
+// shares its weight-gradient scratch with it (the launches are in stream
+// order, each product's split written just before its GEMM reads it).
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -70,16 +82,28 @@ namespace {
     if (err_ != cudaSuccess) return (int)err_;      \
   } while (0)
 
-ConvGemm rows_gemm(const float* a, int lda, int c_in, int batch, int t,
+// Sizes and the dropout of one call.
+struct Dims {
+  int batch, t, c, h, n_layers, taps, dilation_rate;
+  Dropout drop;
+  // scratch of the tensor-core conv-GEMM's weight split (ConvGemm::tc_scratch)
+  float* tc_scratch;
+  long tc_scratch_floats;
+};
+
+// A product over the call's rows, on the tensor cores where it fits.
+ConvGemm rows_gemm(const Dims& d, const float* a, int lda, int c_in,
                    const float* w, const float* bias, int n, int epilogue,
                    float* out, int ldo, const float* mask) {
   ConvGemm g;
-  g.a = a; g.lda = lda; g.c_in = c_in; g.batch = batch; g.t = t;
+  g.a = a; g.lda = lda; g.c_in = c_in; g.batch = d.batch; g.t = d.t;
   g.w = w; g.bias = bias; g.n = n; g.epilogue = epilogue;
   g.out = out; g.ldo = ldo; g.mask = mask;
+  g.tc_scratch = d.tc_scratch; g.tc_scratch_floats = d.tc_scratch_floats;
   return g;
 }
 
+// A weight gradient over the call's rows, on the tensor cores where it fits.
 WGrad wgrad_of(const float* a, int lda, int c_in, int batch, int t,
                const float* dy, int ldy, int n, float* out,
                float* scratch, long scratch_floats) {
@@ -87,14 +111,9 @@ WGrad wgrad_of(const float* a, int lda, int c_in, int batch, int t,
   w.a = a; w.lda = lda; w.c_in = c_in; w.batch = batch; w.t = t;
   w.dy = dy; w.ldy = ldy; w.n = n; w.out = out;
   w.scratch = scratch; w.scratch_floats = scratch_floats;
+  w.tc = 1;
   return w;
 }
-
-// Sizes and the dropout of one call.
-struct Dims {
-  int batch, t, c, h, n_layers, taps, dilation_rate;
-  Dropout drop;
-};
 
 // The WN stack's weights and conditioning as the forward reads them.
 struct WnWeights {
@@ -111,6 +130,7 @@ WnLayers wn_stack(const Dims& d, const WnWeights& w, const float* mask, float* x
   a.g_all = w.g_all; a.g_stride = w.g_stride;
   a.batch = d.batch; a.t = d.t; a.h = d.h; a.n_layers = d.n_layers;
   a.taps = d.taps; a.dilation_rate = d.dilation_rate; a.drop = d.drop;
+  a.tc_scratch = d.tc_scratch; a.tc_scratch_floats = d.tc_scratch_floats;
   return a;
 }
 
@@ -129,16 +149,24 @@ int block_fwd_chain(const Dims& d, const float* x, const float* mask,
   const int c2 = c / 2;
   GTT_TRY(cudaMemsetAsync(skipm, 0, sizeof(float) * rows * h, stream));
   // zp = (x @ A + bA) * mask
-  GTT_TRY(conv_gemm(rows_gemm(x, c, c, batch, t, a, ba, c, kBiasMask, zp, c, mask), stream));
+  {
+    // On the CUDA cores: a tensor-core product is short by about 1e-7 of
+    // each output (its accumulator rounds toward zero), all outputs alike,
+    // and the ActNorm scale's gradient is the small difference of sum(z^2)
+    // and the frame count, which turns that into 1e-3 of the gradient.
+    ConvGemm g = rows_gemm(d, x, c, c, a, ba, c, kBiasMask, zp, c, mask);
+    g.tc_scratch = nullptr;
+    GTT_TRY(conv_gemm(g, stream));
+  }
   // xs[0] = (x0 @ W_s + b_s) * mask
-  GTT_TRY(conv_gemm(rows_gemm(zp, c, c2, batch, t, w_s, b_s, h, kBiasMask, xs, h, mask), stream));
+  GTT_TRY(conv_gemm(rows_gemm(d, zp, c, c2, w_s, b_s, h, kBiasMask, xs, h, mask), stream));
   // skipm = skip * mask once the sum is complete
   GTT_TRY(wn_layers(wn_stack(d, wn, mask, xs, th, sg, acts, skipm, 1), stream));
   if (z == nullptr) return (int)cudaGetLastError();
   // z = [x0 | (m + e^logs * x1) * mask], logsm = logs * mask
   if (z != zp)
     GTT_TRY(cudaMemcpyAsync(z, zp, sizeof(float) * rows * c, cudaMemcpyDeviceToDevice, stream));
-  ConvGemm e = rows_gemm(skipm, h, h, batch, t, w_e, b_e, c, kCouplingFwd, z + c2, c, mask);
+  ConvGemm e = rows_gemm(d, skipm, h, h, w_e, b_e, c, kCouplingFwd, z + c2, c, mask);
   e.split = c2; e.flag = sigmoid_scale; e.out2 = logsm; e.ldo2 = c2;
   GTT_TRY(conv_gemm(e, stream));
   // ld[b] = sum over the sample's rows and columns of logs * mask
@@ -166,7 +194,7 @@ int wn_reverse_walk(const Dims& d, const WnWalk& w, cudaStream_t stream) {
   for (int l = 0; l < d.n_layers - 1; ++l) dilation *= d.dilation_rate;
   for (int l = d.n_layers - 1; l >= 0; --l) {
     {  // da = g_rs @ W_rs^T, gate backward in the epilogue
-      ConvGemm g = rows_gemm(w.g_rs, h2, h2, batch, t, w.w_rs_t + (long)l * h2 * h,
+      ConvGemm g = rows_gemm(d, w.g_rs, h2, h2, w.w_rs_t + (long)l * h2 * h,
                              nullptr, h, kGateBwd, w.dia, h2, nullptr);
       g.split = h; g.aux = w.th + l * rh; g.aux2 = w.sg + l * rh; g.ld_aux = h;
       g.out2 = w.dxin; g.ldo2 = h2; g.out3 = w.acts; g.ldo3 = h;
@@ -187,7 +215,7 @@ int wn_reverse_walk(const Dims& d, const WnWalk& w, cudaStream_t stream) {
       GTT_TRY(wgrad(g, stream));
     }
     {  // gx = gx * mask + transposed conv of d_xin; g_rs[:, :h] = gx * mask
-      ConvGemm g = rows_gemm(w.dxin, h2, h2, batch, t, w.w_in_t + (long)l * taps * h2 * h,
+      ConvGemm g = rows_gemm(d, w.dxin, h2, h2, w.w_in_t + (long)l * taps * h2 * h,
                              nullptr, h, kAccumMask, w.gx, h, w.mask);
       g.taps = taps; g.dilation = dilation; g.tap_sign = -1;
       g.out2 = w.g_rs; g.ldo2 = h2;
@@ -229,7 +257,7 @@ int block_bwd_chain(const Dims& d, const WnWalk& w, const float* x, const float*
 
   // ---- coupling + end conv: logs rebuilt from skipm, then its backward ----
   {
-    ConvGemm g = rows_gemm(skipm, h, h, batch, t, w_e + c2, b_e + c2, c2,
+    ConvGemm g = rows_gemm(d, skipm, h, h, w_e + c2, b_e + c2, c2,
                            kCouplingBwd, dout, c, mask);
     g.ldb = c; g.split = c2; g.flag = sigmoid_scale;
     g.aux = dz; g.ld_aux = c; g.aux2 = zp; g.aux3 = dld; g.out2 = dzp; g.ldo2 = c;
@@ -239,7 +267,7 @@ int block_bwd_chain(const Dims& d, const WnWalk& w, const float* x, const float*
                          w.wg_scratch_floats), stream));
   GTT_TRY(bias_grad(dout, c, c, nullptr, batch, t, w.col_part, dbe, stream));
   // dskip = (dout @ W_e^T) * mask -> the skip half of g_rs
-  GTT_TRY(conv_gemm(rows_gemm(dout, c, c, batch, t, w_e_t, nullptr, h, kBiasMask,
+  GTT_TRY(conv_gemm(rows_gemm(d, dout, c, c, w_e_t, nullptr, h, kBiasMask,
                               w.g_rs + h, h2, mask), stream));
 
   {
@@ -255,7 +283,7 @@ int block_bwd_chain(const Dims& d, const WnWalk& w, const float* x, const float*
   }
   GTT_TRY(bias_grad(gx, h, h, mask, batch, t, w.col_part, dbs, stream));
   {  // dzp[:, :c2] = (dz0 + d_pre @ W_s^T) * mask
-    ConvGemm g = rows_gemm(gx, h, h, batch, t, w_s_t, nullptr, c2, kResidMask, dzp, c, mask);
+    ConvGemm g = rows_gemm(d, gx, h, h, w_s_t, nullptr, c2, kResidMask, dzp, c, mask);
     g.a_mask = mask; g.aux = dz; g.ld_aux = c;
     GTT_TRY(conv_gemm(g, stream));
   }
@@ -264,7 +292,7 @@ int block_bwd_chain(const Dims& d, const WnWalk& w, const float* x, const float*
   GTT_TRY(wgrad(wgrad_of(x, c, c, batch, t, dzp, c, c, da, w.wg_scratch, w.wg_scratch_floats),
                 stream));
   GTT_TRY(bias_grad(dzp, c, c, nullptr, batch, t, w.col_part, dba, stream));
-  GTT_TRY(conv_gemm(rows_gemm(dzp, c, c, batch, t, a_t, nullptr, c, kBias, dx, c, nullptr),
+  GTT_TRY(conv_gemm(rows_gemm(d, dzp, c, c, a_t, nullptr, c, kBias, dx, c, nullptr),
                     stream));
   return (int)cudaGetLastError();
 }
@@ -278,11 +306,13 @@ int block_bwd_chain(const Dims& d, const WnWalk& w, const float* x, const float*
 extern "C" int gtt_wn_forward(
     const float* x, const float* mask, const float* w_in, const float* b_in,
     const float* w_rs, const float* b_rs, const float* g_all, float* skip,
-    float* xcur, float* acts, int g_stride, int batch, int t, int h,
+    float* xcur, float* acts, float* tc_scratch, int tc_scratch_floats,
+    int g_stride, int batch, int t, int h,
     int n_layers, int taps, int dilation_rate, int drop, int seed,
     unsigned threshold, float scale, cudaStream_t stream) {
   const Dims d{batch, t, 0, h, n_layers, taps, dilation_rate,
-               make_dropout(drop, seed, n_layers, threshold, scale)};
+               make_dropout(drop, seed, n_layers, threshold, scale),
+               tc_scratch, tc_scratch_floats};
   const WnWeights wn{w_in, b_in, w_rs, b_rs, g_all, g_stride};
   const long rh = (long)batch * t * h;
   GTT_TRY(cudaMemcpyAsync(xcur, x, sizeof(float) * rh, cudaMemcpyDeviceToDevice, stream));
@@ -294,11 +324,13 @@ extern "C" int gtt_wn_forward(
 extern "C" int gtt_wn_fwd_save(
     const float* x, const float* mask, const float* w_in, const float* b_in,
     const float* w_rs, const float* b_rs, const float* g_all, float* skip,
-    float* xs, float* th, float* sg, float* acts, int g_stride, int batch,
+    float* xs, float* th, float* sg, float* acts, float* tc_scratch, int tc_scratch_floats,
+    int g_stride, int batch,
     int t, int h, int n_layers, int taps, int dilation_rate, int drop, int seed,
     unsigned threshold, float scale, cudaStream_t stream) {
   const Dims d{batch, t, 0, h, n_layers, taps, dilation_rate,
-               make_dropout(drop, seed, n_layers, threshold, scale)};
+               make_dropout(drop, seed, n_layers, threshold, scale),
+               tc_scratch, tc_scratch_floats};
   const WnWeights wn{w_in, b_in, w_rs, b_rs, g_all, g_stride};
   const long rh = (long)batch * t * h;
   GTT_TRY(cudaMemcpyAsync(xs, x, sizeof(float) * rh, cudaMemcpyDeviceToDevice, stream));
@@ -316,7 +348,8 @@ extern "C" int gtt_wn_bwd_store(
     int dilation_rate, int drop, int seed, unsigned threshold, float scale,
     cudaStream_t stream) {
   const Dims d{batch, t, 0, h, n_layers, taps, dilation_rate,
-               make_dropout(drop, seed, n_layers, threshold, scale)};
+               make_dropout(drop, seed, n_layers, threshold, scale),
+               wg_scratch, wg_scratch_floats};
   const WnWalk w{mask, w_in_t, w_rs_t, xs, th, sg, g_rs, dia, dxin, acts, dx,
                  col_part, wg_scratch, wg_scratch_floats, dwin, dbin, dwrs, dbrs, dg};
   return wn_bwd_chain(d, w, dout, stream);
@@ -335,7 +368,8 @@ extern "C" int gtt_wn_bwd(
     int batch, int t, int h, int n_layers, int taps, int dilation_rate,
     int drop, int seed, unsigned threshold, float scale, cudaStream_t stream) {
   const Dims d{batch, t, 0, h, n_layers, taps, dilation_rate,
-               make_dropout(drop, seed, n_layers, threshold, scale)};
+               make_dropout(drop, seed, n_layers, threshold, scale),
+               wg_scratch, wg_scratch_floats};
   const WnWeights wn{w_in, b_in, w_rs, b_rs, g_all, g_stride};
   const long rh = (long)batch * t * h;
   GTT_TRY(cudaMemcpyAsync(xs, x, sizeof(float) * rh, cudaMemcpyDeviceToDevice, stream));
@@ -355,11 +389,13 @@ extern "C" int gtt_block_fwd(
     const float* w_s, const float* b_s, const float* w_e, const float* b_e,
     const float* w_in, const float* b_in, const float* w_rs, const float* b_rs,
     const float* g_all, float* z, float* ld, float* skipm, float* xcur,
-    float* acts, float* logsm, float* ld_part, int g_stride, int batch, int t,
+    float* acts, float* logsm, float* ld_part, float* tc_scratch, int tc_scratch_floats,
+    int g_stride, int batch, int t,
     int c, int h, int n_layers, int taps, int dilation_rate, int sigmoid_scale,
     int drop, int seed, unsigned threshold, float scale, cudaStream_t stream) {
   const Dims d{batch, t, c, h, n_layers, taps, dilation_rate,
-               make_dropout(drop, seed, n_layers, threshold, scale)};
+               make_dropout(drop, seed, n_layers, threshold, scale),
+               tc_scratch, tc_scratch_floats};
   const WnWeights wn{w_in, b_in, w_rs, b_rs, g_all, g_stride};
   // zp is written into z: its first half is z's, the coupling rewrites the second
   return block_fwd_chain(d, x, mask, a, ba, w_s, b_s, w_e, b_e, wn, sigmoid_scale, z, ld,
@@ -372,11 +408,13 @@ extern "C" int gtt_block_fwd_save(
     const float* w_in, const float* b_in, const float* w_rs, const float* b_rs,
     const float* g_all, float* z, float* ld, float* zp, float* skipm, float* xs,
     float* th, float* sg, float* acts, float* logsm, float* ld_part,
+    float* tc_scratch, int tc_scratch_floats,
     int g_stride, int batch, int t, int c, int h, int n_layers, int taps,
     int dilation_rate, int sigmoid_scale, int drop, int seed,
     unsigned threshold, float scale, cudaStream_t stream) {
   const Dims d{batch, t, c, h, n_layers, taps, dilation_rate,
-               make_dropout(drop, seed, n_layers, threshold, scale)};
+               make_dropout(drop, seed, n_layers, threshold, scale),
+               tc_scratch, tc_scratch_floats};
   const WnWeights wn{w_in, b_in, w_rs, b_rs, g_all, g_stride};
   return block_fwd_chain(d, x, mask, a, ba, w_s, b_s, w_e, b_e, wn, sigmoid_scale, z, ld,
                          zp, skipm, xs, th, sg, acts, logsm, ld_part, stream);
@@ -395,7 +433,8 @@ extern "C" int gtt_block_bwd_store(
     int n_layers, int taps, int dilation_rate, int sigmoid_scale, int drop,
     int seed, unsigned threshold, float scale, cudaStream_t stream) {
   const Dims d{batch, t, c, h, n_layers, taps, dilation_rate,
-               make_dropout(drop, seed, n_layers, threshold, scale)};
+               make_dropout(drop, seed, n_layers, threshold, scale),
+               wg_scratch, wg_scratch_floats};
   const WnWalk w{mask, w_in_t, w_rs_t, xs, th, sg, g_rs, dia, dxin, acts, gx,
                  col_part, wg_scratch, wg_scratch_floats, dwin, dbin, dwrs, dbrs, dg};
   return block_bwd_chain(d, w, x, w_e, b_e, a_t, w_s_t, w_e_t, zp, skipm, dz, dld,
@@ -419,7 +458,8 @@ extern "C" int gtt_block_bwd(
     int sigmoid_scale, int drop, int seed, unsigned threshold, float scale,
     cudaStream_t stream) {
   const Dims d{batch, t, c, h, n_layers, taps, dilation_rate,
-               make_dropout(drop, seed, n_layers, threshold, scale)};
+               make_dropout(drop, seed, n_layers, threshold, scale),
+               wg_scratch, wg_scratch_floats};
   const WnWeights wn{w_in, b_in, w_rs, b_rs, g_all, g_stride};
   const int err = block_fwd_chain(d, x, mask, a, ba, w_s, b_s, w_e, b_e, wn, sigmoid_scale,
                                   nullptr, nullptr, zp, skipm, xs, th, sg, acts, nullptr,

@@ -1,18 +1,34 @@
 // conv_gemm, wgrad, col_sum, layer_norm and layer_norm_bwd (see common.cuh).
 //
-// conv_gemm is a shared-memory SGEMM: a 64x64 output tile per block of 256
-// threads, a 4x4 accumulator per thread, 32-deep K slices double-buffered
-// in shared memory with the next slice's global loads in flight while the
-// current one is multiplied. At serving shapes (M = batch * t rows of a few
-// hundred to a few thousand, N <= 768, K <= 2304) one launch is a single
-// wave of at most ~100 blocks, so its time is the length of one block's
-// serial K walk: latency, not FLOPs or bytes (every operand fits in L2).
-// Hence the prefetch and the deep slices. The im2col gather happens while
-// staging A, so the [rows, taps * c_in] matrix the TPU kernel builds in
-// VMEM never exists in device memory, and the epilogue applies each TPU
-// kernel's elementwise tail before the one store. Tensor cores (wgmma,
-// TF32/bf16) and split-K for more blocks at b=1 are later work.
+// conv_gemm and wgrad each dispatch between two device kernels.  A chain
+// that asks for the tensor cores (the flow block's and the WN stack's:
+// block_train.cu, block.cu) gets conv_gemm_tc_kernel / wgrad_tc_kernel of
+// tc_gemm.cu where the shape fits (conv_gemm_tc_fits, wgrad_tc_fits:
+// 16-byte alignable operands, at least 64 / 32 columns, 32 deep, enough
+// rows); everything else (the text side's chains, narrow widths, a single
+// short sentence) runs the two kernels of this file on the CUDA cores.
+// product_counts says which way the products of a run went.
+//
+// conv_gemm_kernel is a shared-memory SGEMM: a 64x64 output tile per block
+// of 256 threads, a 4x4 accumulator per thread, 32-deep K slices
+// double-buffered in shared memory with the next slice's global loads in
+// flight while the current one is multiplied. At serving shapes (M = batch
+// * t rows of a few hundred to a few thousand, N <= 768, K <= 2304) one
+// launch is a single wave of at most ~100 blocks, so its time is the length
+// of one block's serial K walk: latency, not FLOPs or bytes (every operand
+// fits in L2). Hence the prefetch, the deep slices and, below one wave of
+// 64-row tiles, 32-row tiles. The im2col gather happens while staging A, so
+// the [rows, taps * c_in] matrix the TPU kernel builds in VMEM never exists
+// in device memory, and the epilogue (epilogue.cuh) applies each TPU
+// kernel's elementwise tail before the one store. At training shapes it is
+// bound by shared-memory bandwidth at about a third of the f32 peak (64 FMAs
+// for 8 float4 loads a thread); split-K for more blocks at b=1 is later work.
+//
+// wgrad_kernel: a 64x64 output tile per block over one split of the rows,
+// about four waves of blocks, the splits' partial sums added in split order
+// by col_sum.
 #include "common.cuh"
+#include "epilogue.cuh"
 
 #include <math.h>
 
@@ -25,177 +41,6 @@ namespace {
 // when 64-row tiles would leave SMs idle (small batch).
 constexpr int kBN = 64;
 constexpr int kBK = 32;
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-__device__ __forceinline__ bool paired(int epilogue) {
-  return epilogue == kGate || epilogue == kCouplingInv ||
-         epilogue == kCouplingFwd;
-}
-
-// Logical output column -> column of B / bias.
-__device__ __forceinline__ int physical_col(const ConvGemm& g, int n) {
-  return paired(g.epilogue) ? (n >> 1) + (n & 1) * g.split : n;
-}
-
-__device__ __forceinline__ float bias_at(const ConvGemm& g, int n) {
-  return g.bias ? g.bias[n] : 0.f;
-}
-
-// Dropout of row m, JAX column col of the [t, 2 * split] pre-gate tensor.
-__device__ __forceinline__ float dropped(const ConvGemm& g, int m, int col, float v) {
-  const int b = m / g.t;
-  return site_drop(g.drop, b, m - b * g.t, 2 * g.split, col, v);
-}
-
-__device__ __forceinline__ float coupling_logs(const ConvGemm& g, float raw) {
-  return g.flag ? logf(1e-6f + sigmoidf(raw + 2.f)) : raw;
-}
-
-__device__ __forceinline__ void epilogue_row(const ConvGemm& g, int m, int n0,
-                             const float (&acc)[4]) {
-  const float rm = g.mask ? g.mask[m] : 1.f;
-  float* out = g.out + (long)m * g.ldo;
-  switch (g.epilogue) {
-    case kGate:
-    case kCouplingInv:
-    case kCouplingFwd: {
-      // acc[2p], acc[2p + 1] are the pair (j, j + split), j = (n0 + 2p) / 2
-      for (int p = 0; p < 2; ++p) {
-        const int n = n0 + 2 * p;
-        if (n >= g.n) break;
-        const int j = n >> 1;
-        float lo = acc[2 * p] + bias_at(g, j);
-        float hi = acc[2 * p + 1] + bias_at(g, j + g.split);
-        if (g.epilogue == kGate) {
-          lo = dropped(g, m, j, lo);
-          hi = dropped(g, m, j + g.split, hi);
-          if (g.aux) {
-            const float* gb = g.aux + (long)(m / g.t) * g.ld_aux;
-            lo += gb[j];
-            hi += gb[j + g.split];
-          }
-          const float th = tanhf(lo);
-          const float sg = sigmoidf(hi);
-          out[j] = th * sg;
-          if (g.out2) {
-            g.out2[(long)m * g.ldo2 + j] = th;
-            g.out3[(long)m * g.ldo3 + j] = sg;
-          }
-        } else if (g.epilogue == kCouplingInv) {
-          out[j] = (out[j] - lo) * expf(-coupling_logs(g, hi)) * rm;
-        } else {  // kCouplingFwd: out holds x1
-          const float logs = coupling_logs(g, hi);
-          out[j] = (lo + expf(logs) * out[j]) * rm;
-          g.out2[(long)m * g.ldo2 + j] = logs * rm;
-        }
-      }
-      break;
-    }
-    case kResSkip: {
-      for (int e = 0; e < 4; ++e) {
-        const int n = n0 + e;
-        if (n >= g.n) break;
-        const float v = acc[e] + bias_at(g, n);
-        if (n < g.split) {
-          if (g.flag) {
-            const float base = g.aux ? g.aux[(long)m * g.ld_aux + n] : out[n];
-            out[n] = (base + v) * rm;
-          }
-        } else {
-          float* s = g.out2 + (long)m * g.ldo2 + n - g.split;
-          *s = g.skip_mask ? (*s + v) * rm : *s + v;
-        }
-      }
-      break;
-    }
-    case kCouplingBwd: {
-      // acc = logs_raw of column split + j (B and bias start there);
-      // aux = dz, aux2 = zp (x1), aux3 = dld [batch]; out = dout, out2 = dzp
-      const float dld = g.aux3[m / g.t];
-      for (int e = 0; e < 4; ++e) {
-        const int j = n0 + e;
-        if (j >= g.n) break;
-        const float raw = acc[e] + bias_at(g, j);
-        const float logs = coupling_logs(g, raw);
-        const float el = expf(logs);
-        const long at = (long)m * g.ld_aux + g.split + j;
-        const float dz1m = g.aux[at] * rm;
-        float dlogs = dz1m * el * g.aux2[at] + dld * rm;
-        if (g.flag) {
-          const float s = sigmoidf(raw + 2.f);
-          dlogs = dlogs * (s * (1.f - s)) / (1e-6f + s);
-        }
-        out[j] = dz1m;
-        out[g.split + j] = dlogs;
-        g.out2[(long)m * g.ldo2 + g.split + j] = dz1m * el * rm;
-      }
-      break;
-    }
-    case kGateBwd: {
-      // acc = da; aux = tanh, aux2 = sigmoid [rows, ld_aux]; out = d_in_act
-      // and out2 = d_xin [rows, 2 * split], out3 = acts
-      for (int e = 0; e < 4; ++e) {
-        const int j = n0 + e;
-        if (j >= g.n) break;
-        const float da = acc[e];
-        const float th = g.aux[(long)m * g.ld_aux + j];
-        const float sg = g.aux2[(long)m * g.ld_aux + j];
-        const float du = da * sg * (1.f - th * th);
-        const float dv = da * th * sg * (1.f - sg);
-        out[j] = du;
-        out[g.split + j] = dv;
-        float* dx = g.out2 + (long)m * g.ldo2;
-        dx[j] = dropped(g, m, j, du);
-        dx[g.split + j] = dropped(g, m, g.split + j, dv);
-        g.out3[(long)m * g.ldo3 + j] = th * sg;
-      }
-      break;
-    }
-    case kAccumMask: {
-      for (int e = 0; e < 4; ++e) {
-        const int n = n0 + e;
-        if (n >= g.n) break;
-        const float v = out[n] * rm + acc[e];
-        out[n] = v;
-        if (g.out2) g.out2[(long)m * g.ldo2 + n] = v * rm;
-      }
-      break;
-    }
-    case kMaskReluBwd: {
-      const float sc = g.drop.on ? g.drop.scale * rm : rm;
-      for (int e = 0; e < 4; ++e) {
-        const int n = n0 + e;
-        if (n >= g.n) break;
-        out[n] = g.aux[(long)m * g.ld_aux + n] > 0.f ? acc[e] * sc : 0.f;
-      }
-      break;
-    }
-    case kMaskAdd: {
-      for (int e = 0; e < 4; ++e) {
-        const int n = n0 + e;
-        if (n >= g.n) break;
-        out[n] = acc[e] * rm + g.aux[(long)m * g.ld_aux + n];
-      }
-      break;
-    }
-    default: {
-      const int b = m / g.t;
-      for (int e = 0; e < 4; ++e) {
-        const int n = n0 + e;
-        if (n >= g.n) break;
-        float v = acc[e] + bias_at(g, n);
-        if (g.epilogue == kBiasRelu) v = fmaxf(v, 0.f);
-        if (g.epilogue == kResidMask) v = (g.aux[(long)m * g.ld_aux + n] + v) * rm;
-        if (g.epilogue == kBiasMask) v *= rm;
-        if (g.epilogue != kResidMask) v = site_drop(g.drop, b, m - b * g.t, g.n, n, v);
-        out[n] = v;
-      }
-    }
-  }
-}
 
 template <int kBM>
 __global__ void __launch_bounds__(kBM * 4) conv_gemm_kernel(const ConvGemm g) {
@@ -311,7 +156,7 @@ __global__ void __launch_bounds__(kBM * 4) conv_gemm_kernel(const ConvGemm g) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + ty * 4 + i;
-    if (m < rows) epilogue_row(g, m, n0 + tx * 4, acc[i]);
+    if (m < rows) epilogue_row<4>(g, m, n0 + tx * 4, acc[i]);
   }
 }
 
@@ -504,6 +349,11 @@ __global__ void layer_norm_bwd_kernel(const LayerNormBwd a) {
 
 }  // namespace
 
+ProductCounts& product_counts() {
+  static ProductCounts counts;
+  return counts;
+}
+
 cudaError_t conv_gemm(const ConvGemm& g, cudaStream_t stream) {
   const int rows = g.batch * g.t;
   if (rows <= 0 || g.n <= 0) return cudaSuccess;
@@ -512,6 +362,14 @@ cudaError_t conv_gemm(const ConvGemm& g, cudaStream_t stream) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
+  if (g.tc_scratch != nullptr) {
+    if (conv_gemm_tc_fits(g, sms)) {
+      ++product_counts().tc_gemm;
+      return conv_gemm_tc(g, stream);
+    }
+    ++product_counts().declined_gemm;
+  }
+  ++product_counts().core_gemm;
   const int n_tiles = (g.n + kBN - 1) / kBN;
   if (((rows + 63) / 64) * n_tiles >= sms) {
     conv_gemm_kernel<64><<<dim3(n_tiles, (rows + 63) / 64), 256, 0, stream>>>(g);
@@ -559,6 +417,14 @@ cudaError_t wgrad(const WGrad& w, cudaStream_t stream) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
+  if (w.tc) {
+    if (wgrad_tc_fits(w)) {
+      ++product_counts().tc_wgrad;
+      return wgrad_tc(w, sms, stream);
+    }
+    ++product_counts().declined_wgrad;
+  }
+  ++product_counts().core_wgrad;
   const int tiles = ((w.n + kWN - 1) / kWN) * ((kdim + kWK - 1) / kWK);
   const long per_split = (long)kdim * w.n;
   // about four waves of blocks, at least 64 rows a split, within scratch
@@ -604,6 +470,7 @@ cudaError_t wn_layers(const WnLayers& a, cudaStream_t stream) {
         g.ld_aux = a.g_stride;
       }
       g.drop = a.drop.at(l);
+      g.tc_scratch = a.tc_scratch; g.tc_scratch_floats = a.tc_scratch_floats;
       cudaError_t err = conv_gemm(g, stream);
       if (err != cudaSuccess) return err;
     }
@@ -616,6 +483,7 @@ cudaError_t wn_layers(const WnLayers& a, cudaStream_t stream) {
       g.aux = x_l; g.ld_aux = h; g.out2 = a.skip; g.ldo2 = h;
       g.flag = !last;  // the last layer's residual half is zero
       g.skip_mask = last && a.skip_mask;
+      g.tc_scratch = a.tc_scratch; g.tc_scratch_floats = a.tc_scratch_floats;
       cudaError_t err = conv_gemm(g, stream);
       if (err != cudaSuccess) return err;
     }

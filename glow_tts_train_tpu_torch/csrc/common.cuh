@@ -4,7 +4,9 @@
 // flow block in both directions, the WN stack) is a chain of the pieces here
 // plus, for the encoder, the attention core in encoder.cu:
 //
-//  * conv_gemm: a tiled f32 GEMM whose A operand is an im2col view gathered
+//  * conv_gemm: a tiled f32 GEMM (on the tensor cores by the 3xTF32 split
+//    where a chain asks for it and the shape fits, see tc_gemm.cu; else on
+//    the CUDA cores) whose A operand is an im2col view gathered
 //    on load (tap offsets tap_sign*dilation*(k - K/2), zeros outside [0, t),
 //    optional input mask), with the elementwise tail of each TPU kernel fused
 //    into its epilogue (bias, ReLU, mask, residual, WaveNet gate with
@@ -37,8 +39,8 @@
 // text.cu.
 //
 // Activations are channels-last [batch * t, channels] row-major; weights are
-// the JAX folds' [taps * c_in, n] row-major matrices, so no weight is
-// re-laid-out for the card.
+// the JAX folds' [taps * c_in, n] row-major matrices; the tensor-core
+// conv-GEMM lays each out K-major, split in two TF32 parts, per product.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -159,9 +161,27 @@ struct ConvGemm {
   // dropout of kGate / kGateBwd (the site is the WN layer) and of the
   // plain epilogues; keep masks are replayed from the seed
   Dropout drop;
+  // Set by a chain to ask for the tensor-core kernel (tc_gemm.cu): scratch
+  // of at least 2 * taps * c_in * n floats for the K-major 3xTF32 split of
+  // B, written and read in stream order (it may be shared between the
+  // products of one chain).  conv_gemm takes the tensor-core kernel when
+  // this is set and conv_gemm_tc_fits says yes, else the CUDA-core kernel.
+  float* tc_scratch = nullptr;
+  long tc_scratch_floats = 0;
 };
 
 cudaError_t conv_gemm(const ConvGemm& g, cudaStream_t stream);
+
+// The tensor-core conv-GEMM (tc_gemm.cu).  `can`: what the kernel needs
+// (16-byte copies: c_in, lda and taps * c_in multiples of 4, A 16-byte
+// aligned; a_mask only without taps; the scratch holds the split).  `fits`
+// adds what makes it worth taking: at least 64 columns, 32 deep, and
+// enough 128-row tiles to occupy a quarter of the SMs (below that one
+// block's serial K walk decides, and the CUDA-core kernel's 32-row tiles
+// win).
+bool conv_gemm_tc_can(const ConvGemm& g);
+bool conv_gemm_tc_fits(const ConvGemm& g, int sms);
+cudaError_t conv_gemm_tc(const ConvGemm& g, cudaStream_t stream);
 
 struct WGrad {
   // out[kk, n] = sum over rows m of A_im2col[m, kk] * dY[m, n], A gathered
@@ -181,9 +201,28 @@ struct WGrad {
   float* out = nullptr;      // [taps * c_in, n]
   float* scratch = nullptr;  // partial sums of the row splits
   long scratch_floats = 0;
+  // Set by a chain to ask for the tensor-core kernel (tc_gemm.cu); wgrad
+  // takes it when wgrad_tc_fits says yes, else the CUDA-core kernel.
+  int tc = 0;
 };
 
 cudaError_t wgrad(const WGrad& w, cudaStream_t stream);
+
+// The tensor-core weight-gradient GEMM (tc_gemm.cu).  `can`: c_in, lda, n
+// and ldy multiples of 4 with 16-byte aligned operands, a_mask only
+// without taps; `fits` adds at least 32 x 32 outputs over 256 rows.
+bool wgrad_tc_can(const WGrad& w);
+bool wgrad_tc_fits(const WGrad& w);
+cudaError_t wgrad_tc(const WGrad& w, int sms, cudaStream_t stream);
+
+// Products launched since the last reset, by kernel: tensor-core and
+// CUDA-core conv-GEMMs and weight gradients, and of the CUDA-core ones
+// those whose caller had asked for the tensor-core kernel.
+struct ProductCounts {
+  long long tc_gemm = 0, tc_wgrad = 0, core_gemm = 0, core_wgrad = 0;
+  long long declined_gemm = 0, declined_wgrad = 0;
+};
+ProductCounts& product_counts();
 
 // out[s * ldo + j] = sum_{r < T} x[(s * T + r) * ld + j] * mask[s * T + r]
 // (mask optional), for segments s < n_seg and columns j < n; fixed order.
@@ -233,6 +272,9 @@ struct WnLayers {
   int taps = 1;
   int dilation_rate = 1;
   Dropout drop;  // n_sites = n_layers; the site is set per layer
+  // the tensor-core conv-GEMM's scratch (ConvGemm::tc_scratch), or null
+  float* tc_scratch = nullptr;
+  long tc_scratch_floats = 0;
 };
 
 cudaError_t wn_layers(const WnLayers& a, cudaStream_t stream);

@@ -1,0 +1,884 @@
+// The flow block's products on the H100's tensor cores, f32-accurate by the
+// 3xTF32 split: the tensor-core conv-GEMM behind gtt::conv_gemm and the
+// tensor-core weight-gradient GEMM behind gtt::wgrad (common.cuh).  The
+// launch chains of block_train.cu and block.cu ask for them; they serve
+// every TPU kernel those chains replace (block_pallas.py _block_fwd_kernel,
+// _block_fwd_save_kernel, _block_bwd_kernel, _block_bwd_store_kernel,
+// _block_inv_kernel; wn_pallas.py _fwd_kernel, _fwd_save_kernel,
+// _bwd_kernel, _bwd_store_kernel).
+//
+// Arithmetic.  A TF32 operand keeps 10 mantissa bits.  Each f32 value v is
+// split into big = v rounded to 10 bits and small = the exact remainder
+// v - big cut to 10 bits, and a product accumulates small_a * big_b +
+// big_a * small_b + big_a * big_b, small terms first, into f32
+// accumulators; what is dropped is below 2^-21 of each term.  It costs
+// three tensor-core products for one: an effective peak of 495 / 3 = 165
+// TFLOP/s against 67 on the CUDA cores.  Two things the hardware does
+// shape the rest:
+//  * The tensor cores round toward zero when they add into their f32
+//    accumulator.  Over a K walk of 960 that alone costs 1e-5 of the
+//    largest output, more than the split saves.  So a chain of products is
+//    kept short: those of one 32-deep slice start from zero in a second
+//    accumulator set (`part`), and the slices are added on the CUDA cores,
+//    rounding to nearest.  A product then stays within 7e-7 of its largest
+//    output against float64 (chip_smoke.py measures it), closer than the
+//    CUDA-core kernel's FMA chain, where one TF32 pass is off by 1e-3.
+//  * What remains is a lean: every output reads about 1e-7 low, all alike
+//    (9e-8 for the conv-GEMM, 2e-7 for the weight gradient; 5e-7 when big
+//    was truncated instead of rounded).  One product does not mind; a
+//    gradient that is a small difference of large sums does, which is why
+//    block_fwd_chain keeps one product on the CUDA cores.
+//
+// conv_gemm_tc_kernel: a 128 x kBN output tile per block of two
+// warpgroups, each owning 64 rows: wgmma.mma_async m64n{kBN}k8 with .tf32
+// operands, A from registers, B from shared memory, kBN / 2 f32
+// accumulators a thread and as many again for `part`.  kBN is 128 where
+// that divides the width (N = 384: two waves of 264 blocks at [16, 704]),
+// else 64.  K is walked in slices of 32 through a ring
+// of 4 (kBN 128) or 3 stages in dynamic shared memory filled by 16-byte
+// cp.async copies.  The loop is software-pipelined: a slice's twelve
+// wgmmas are issued, and while they run the thread waits for the next
+// slice's copies, passes the block's one barrier, issues the copies of a
+// later slice and loads and splits the next slice's A fragments into a
+// second register set; then it waits for the wgmmas and adds `part`.
+//  * B.  wgmma takes TF32 operands K-major only, and reads a raw f32 as its
+//    top 19 bits, so `small` has to exist in memory: split_weights_kernel
+//    lays a product's [K, N] weights out [N, K] as two arrays, big and
+//    small, into the caller's scratch before the GEMM (weights are at most
+//    960 x 384; the pass takes 2.5 us).  A stage holds both as 128-byte
+//    rows in the 128-byte swizzle wgmma's descriptor names (16-byte chunk
+//    index XOR row mod 8, 8-row groups 1024 bytes apart), which the copies
+//    apply to their destination address.  Paired epilogues (kGate,
+//    kCoupling*) want columns (j, j + split) side by side: the copies read
+//    row physical_col(n) of the K-major weights into tile row n, so a pair
+//    is two neighbouring columns of the tile.
+//  * A.  The im2col gather is done by the copies: a 16-byte chunk is 4
+//    channels of one tap's source row (c_in is a multiple of 4), zero-filled
+//    (cp.async src-size 0) outside [0, t), past the last row and past K.
+//    Rows are padded to 36 floats, so a warp's fragment loads touch 32
+//    banks.  a_mask multiplies the fragment before the split (only without
+//    taps: the source row is the output row).
+//  * Epilogue.  The accumulators go through shared memory, and each thread
+//    takes 4 neighbouring columns of one row to epilogue_cols<4>
+//    (epilogue.cuh), one thread per element, so the in-place epilogues need
+//    no ordering.  Straight from the fragments (2 columns of 16 rows a
+//    thread) the epilogue took a third of the kernel: its branches are a
+//    long dependent chain per call, and two warps a scheduler hide none of
+//    it.
+// What bounds it: at [11264, 960, 384] it reaches 65-73 TFLOP/s of the 165.
+// Without its wgmmas and its epilogue the loop alone takes 78 us of the
+// bound's 50: its copies move 380 MB from L2 to shared memory (every block
+// its own A tile and both parts of B), 4.9 TB/s, which is what L2 gives.
+// Splitting B inside the kernel from one raw copy (a third less traffic)
+// cost a second barrier a slice and was slower; a 192-wide tile (A read
+// once for N = 192) ran at 255 registers and was no faster.  The k8
+// instruction is the other limit: 12 wgmmas of 64 clocks a warpgroup and
+// slice, each paying its issue.
+//
+// wgrad_tc_kernel: out[k, n] = sum_m A_im2col[m, k] dY[m, n].  Both
+// operands are contiguous along the non-reduced dimension, so neither is
+// K-major for wgmma.  The A operand does not have to be: it comes from
+// registers, and a thread loads its fragment (rows = im2col columns, k =
+// the slice's rows) from the raw tile as it lies.  dY is transposed on the
+// way: a block of two warpgroups owns a 128 (im2col columns) x kBN (dY
+// columns, 128 where that divides the width, else 64) output tile over one
+// split of the rows, walked in slices of 32 rows.  The raw slices (A
+// gathered by source address, zero fill as above; dY; the two row masks)
+// come through a ring of 3 stages of 16-byte cp.async copies; each thread
+// then takes 4 neighbouring rows of one dY column, multiplies the row
+// masks in, splits, and writes one 16-byte chunk each of the big and the
+// small K-major tile in wgmma's 128-byte swizzle (conflict-free both ways:
+// a warp reads 32 neighbouring columns and a quarter warp writes 8
+// different chunk positions).  Those tiles are double-buffered, so the
+// transposition of slice s + 1 and the split of its A fragments run under
+// the twelve wgmmas of slice s, with one barrier a slice.  A slice's
+// products start from zero and are added to the accumulators on the CUDA
+// cores, as above.  (The first version was mma.sync.m16n8k8 with both
+// operands split in registers by every warp that used them: 203-209 us at
+// dW_in [960, 384] over 11,264 rows, where this one takes 158.)
+// Determinism: no atomics; the rows are cut into a fixed number of splits,
+// as many as fill one wave of one block an SM (a second, partly filled
+// wave would double the time) with at least 256 rows each; every split
+// writes its partial tile to scratch and col_sum adds them in split order,
+// so a gradient is the same bits from run to run.  Scratch traffic at dW_in
+// [960, 384] over 11,264 rows: 5 splits, 7.4 MB written and read (8.8 MB
+// with the CUDA-core kernel's 6).  It reaches 53 TFLOP/s of the 165 there,
+// a slice taking about as long as one of the conv-GEMM's: the same twelve
+// k8 wgmmas a warpgroup, and per slice 32 KB from L2 and about 200 KB of
+// shared-memory traffic (the tensor cores read B twelve times).
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
+
+#include "common.cuh"
+#include "epilogue.cuh"
+
+namespace gtt {
+namespace {
+
+constexpr uint32_t kTf32Mask = 0xffffe000u;
+
+constexpr uint32_t kTf32Half = 0x1000u;  // half of the last kept bit
+
+// v = big + small + (less than 2^-21 of v), both parts exact TF32 values:
+// big is v rounded to nearest (ties away from zero: half of the last kept
+// bit added to the magnitude, then the low bits cleared; two integer
+// operations, where cvt.rna.tf32.f32 issues at a quarter of their rate),
+// small the exact remainder v - big with its low bits cleared.  Truncating big would
+// do for the accuracy of one product, but it shrinks every term the same
+// way: a bias of 5e-7 of each output, which a gradient that is a small
+// difference of large sums turns into a relative error of 1e-3.  The
+// remainder of a rounded big has either sign, so clearing its low bits
+// leans neither way.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(v) + kTf32Half) & kTf32Mask;
+  small = __float_as_uint(v - __uint_as_float(big)) & kTf32Mask;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy global -> shared; `bytes` 0 fills zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// K-major 3xTF32 split of a weight matrix
+// ---------------------------------------------------------------------------
+
+// w [kdim, n] (row stride ldb) -> big, small [n, kdim]
+__global__ void split_weights_kernel(const float* w, int ldb, int kdim, int n, float* big,
+                                     float* small) {
+  __shared__ float tile[32][33];
+  const int k0 = blockIdx.y * 32;
+  const int n0 = blockIdx.x * 32;
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int k = k0 + r, col = n0 + threadIdx.x;
+    tile[r][threadIdx.x] = (k < kdim && col < n) ? w[(long)k * ldb + col] : 0.f;
+  }
+  __syncthreads();
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int col = n0 + r, k = k0 + threadIdx.x;
+    if (col < n && k < kdim) {
+      uint32_t b, s;
+      split_tf32(tile[threadIdx.x][r], b, s);
+      big[(long)col * kdim + k] = __uint_as_float(b);
+      small[(long)col * kdim + k] = __uint_as_float(s);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the tensor-core conv-GEMM
+// ---------------------------------------------------------------------------
+
+constexpr int kTM = 128;      // rows a block (64 a warpgroup)
+constexpr int kTK = 32;       // K slice: one 128-byte swizzled row of B
+constexpr int kAStride = 36;  // floats a row of the A tile
+constexpr int kATileBytes = kTM * kAStride * 4;
+
+// d = a @ b + (scale_d ? d : 0): A [64, 8] from registers, B [kBN, 8]
+// K-major from shared memory
+template <int kBN>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31, "
+        " %32, %33, %34, %35, %36, %37, %38, %39, "
+        " %40, %41, %42, %43, %44, %45, %46, %47, "
+        " %48, %49, %50, %51, %52, %53, %54, %55, "
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Shared-memory descriptor of a K-major B tile in the 128-byte swizzle:
+// start address, leading offset 1 (unused by this layout), 1024 bytes
+// between 8-row groups, layout type 1 (128-byte swizzle).
+__device__ __forceinline__ uint64_t b_descriptor(uint32_t addr) {
+  return (uint64_t)((addr & 0x3ffffu) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// Stages of the ring: 4 at 128 columns, 3 at 64 (either way one block an
+// SM: 244 and 186 registers a thread).
+template <int kBN>
+__host__ __device__ constexpr int conv_gemm_tc_stages() {
+  return kBN == 128 ? 4 : 3;
+}
+
+template <int kBN>
+constexpr int conv_gemm_tc_smem() {
+  return conv_gemm_tc_stages<kBN>() * (2 * kBN * 128 + kATileBytes) + 1024;
+}
+
+template <int kBN>
+__global__ void __launch_bounds__(256, 1)
+    conv_gemm_tc_kernel(const ConvGemm g, const float* __restrict__ w_big) {
+  constexpr int kStages = conv_gemm_tc_stages<kBN>();
+  constexpr int kBTileBytes = kBN * 128;
+  constexpr int kACopies = kTM * 8 / 256;  // 16-byte copies a thread, A
+  constexpr int kBRows = kBN / 32;         // B tile rows a thread copies, big and small each
+  extern __shared__ unsigned char smem_raw[];
+  // B tiles first, 1024-byte aligned for the swizzle; then the A tiles
+  const uint32_t smem_base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t b_base = smem_base;
+  const uint32_t a_base = smem_base + kStages * 2 * kBTileBytes;
+  const float* a_tiles = reinterpret_cast<const float*>(smem_raw + (a_base - smem_addr(smem_raw)));
+
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * kTM;
+  const int n0 = blockIdx.x * kBN;
+  const int rows = g.batch * g.t;
+  const int kdim = g.taps * g.c_in;
+  const int half_taps = g.taps / 2;
+  const int n_slices = (kdim + kTK - 1) / kTK;
+  const long small_off = (long)kdim * g.n;  // the small part follows the big one
+
+  // staging: this thread copies 16-byte chunk `cc` of tile rows tid / 8 + 32 i
+  const int cc = tid & 7;
+  const int r0 = tid >> 3;
+  int a_row0[kACopies];  // b * t of the row's sample, -1 past the last row
+  int a_t[kACopies];
+#pragma unroll
+  for (int i = 0; i < kACopies; ++i) {
+    const int m = m0 + r0 + 32 * i;
+    const int b = m / g.t;
+    a_row0[i] = m < rows ? b * g.t : -1;
+    a_t[i] = m - b * g.t;
+  }
+  long b_row[kBRows];  // offset of the K-major row this tile row reads, -1 past n
+#pragma unroll
+  for (int i = 0; i < kBRows; ++i) {
+    const int n = n0 + r0 + 32 * i;
+    b_row[i] = n < g.n ? (long)physical_col(g, n) * kdim : -1;
+  }
+  const uint32_t a_dst0 = a_base + (r0 * kAStride + 4 * cc) * 4;
+  // rows r0 + 32 i share r0's swizzle phase (32 is a multiple of 8)
+  const uint32_t b_dst0 = b_base + r0 * 128 + ((cc ^ (r0 & 7)) << 4);
+
+  auto load_slice = [&](int slice, int stage) {
+    const int kidx = slice * kTK + 4 * cc;
+    const bool k_ok = kidx < kdim;
+    const int tap = k_ok ? kidx / g.c_in : 0;
+    const int c = kidx - tap * g.c_in;
+    const int off = g.tap_sign * (tap - half_taps) * g.dilation;
+    const uint32_t a_dst = a_dst0 + stage * kATileBytes;
+#pragma unroll
+    for (int i = 0; i < kACopies; ++i) {
+      const int ts = a_t[i] + off;
+      const bool ok = k_ok && a_row0[i] >= 0 && ts >= 0 && ts < g.t;
+      const float* src = ok ? g.a + ((long)a_row0[i] + ts) * g.lda + c : g.a;
+      cp_async16(a_dst + 32 * i * kAStride * 4, src, ok ? 16 : 0);
+    }
+    const uint32_t b_dst = b_dst0 + stage * 2 * kBTileBytes;
+#pragma unroll
+    for (int i = 0; i < kBRows; ++i) {
+      const bool ok = k_ok && b_row[i] >= 0;
+      const float* src = ok ? w_big + b_row[i] + kidx : w_big;
+      cp_async16(b_dst + i * 32 * 128, src, ok ? 16 : 0);
+      cp_async16(b_dst + kBTileBytes + i * 32 * 128, ok ? src + small_off : w_big, ok ? 16 : 0);
+    }
+  };
+
+  // this thread's fragment rows: frag_row and frag_row + 8 of its warp's 16
+  const int wg = tid >> 7;
+  const int warp_in_wg = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int frag_row = wg * 64 + warp_in_wg * 16 + (lane >> 2);
+  const int frag_col = lane & 3;
+  const int m_lo = m0 + frag_row;
+  const int m_hi = m_lo + 8;
+  float mask_lo = 1.f, mask_hi = 1.f;
+  if (g.a_mask) {
+    mask_lo = m_lo < rows ? g.a_mask[m_lo] : 0.f;
+    mask_hi = m_hi < rows ? g.a_mask[m_hi] : 0.f;
+  }
+
+  // The slice's A fragments, split: [k8 step][a0..a3], a0 (row, k), a1
+  // (row + 8, k), a2 (row, k + 4), a3 (row + 8, k + 4).
+  auto load_fragments = [&](int stage, uint32_t (&big)[4][4], uint32_t (&small)[4][4]) {
+    const float* at = a_tiles + stage * (kATileBytes / 4) + frag_row * kAStride + frag_col;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      float v0 = at[ks * 8];
+      float v1 = at[ks * 8 + 8 * kAStride];
+      float v2 = at[ks * 8 + 4];
+      float v3 = at[ks * 8 + 8 * kAStride + 4];
+      if (g.a_mask) { v0 *= mask_lo; v1 *= mask_hi; v2 *= mask_lo; v3 *= mask_hi; }
+      split_tf32(v0, big[ks][0], small[ks][0]);
+      split_tf32(v1, big[ks][1], small[ks][1]);
+      split_tf32(v2, big[ks][2], small[ks][2]);
+      split_tf32(v3, big[ks][3], small[ks][3]);
+    }
+  };
+
+  // The tensor cores add into their f32 accumulator rounding toward zero,
+  // which over a long K walk costs more than the split saves (measured: 1e-5
+  // of max |out| at K = 960).  So each slice's twelve products start from
+  // zero in `part`, and `acc` adds the slices on the CUDA cores, rounding
+  // to nearest.
+  float acc[kBN / 2], part[kBN / 2];
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+
+  // One slice: its twelve wgmmas run while this thread waits for the next
+  // slice's copies, issues the copies of the one after and splits the next
+  // slice's A fragments into the other register set.
+  auto step = [&](int slice, uint32_t (&big)[4][4], uint32_t (&small)[4][4],
+                  uint32_t (&next_big)[4][4], uint32_t (&next_small)[4][4]) {
+    const int stage = slice % kStages;
+    const uint64_t d_big = b_descriptor(b_base + (stage * 2) * kBTileBytes);
+    const uint64_t d_small = b_descriptor(b_base + (stage * 2 + 1) * kBTileBytes);
+    wgmma_fence();
+    // The slice's eight small products first, then its four big ones: each
+    // addition into the accumulator rounds toward zero by up to an ulp of
+    // what it holds, and it holds little until the big products come.  (A
+    // k8 step is 32 bytes along the swizzled row: 2 in the address field.)
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      Wgmma<kBN>::run(part, small[ks], d_big + 2 * ks, ks > 0);
+      Wgmma<kBN>::run(part, big[ks], d_small + 2 * ks, 1);
+    }
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) Wgmma<kBN>::run(part, big[ks], d_big + 2 * ks, 1);
+    wgmma_commit();
+    cp_async_wait<kStages - 3>();  // this thread's copies of slice + 1 have landed
+    // make them visible to the tensor cores' reads of shared memory
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    // everyone's have landed, and everyone has waited for the wgmmas of
+    // slice - 1, whose stage the copies below overwrite
+    __syncthreads();
+    if (slice + kStages - 1 < n_slices)
+      load_slice(slice + kStages - 1, (slice + kStages - 1) % kStages);
+    cp_async_commit();
+    if (slice + 1 < n_slices) load_fragments((slice + 1) % kStages, next_big, next_small);
+    wgmma_wait();
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) acc[i] += part[i];
+  };
+
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_slices) load_slice(st, st);
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 2>();  // slice 0
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  uint32_t big0[4][4], small0[4][4], big1[4][4], small1[4][4];
+  load_fragments(0, big0, small0);
+  for (int slice = 0; slice < n_slices; slice += 2) {
+    step(slice, big0, small0, big1, small1);
+    if (slice + 1 < n_slices) step(slice + 1, big1, small1, big0, small0);
+  }
+
+  // Epilogue through shared memory, so that a warp writes 32 neighbouring
+  // columns of one row (a fragment holds 2 columns of 16 rows: stored as it
+  // lies, a row's 32-byte sectors would each take four partial writes).
+  // Accumulator fragment: acc[4 j + {0, 1}] are columns 8 j + 2 t + {0, 1}
+  // of row frag_row, acc[4 j + {2, 3}] the same columns of row frag_row + 8.
+  constexpr int kCStride = kBN + 8;  // floats a row: conflict-free 8-byte stores
+  float* c_tile = reinterpret_cast<float*>(smem_raw + (smem_base - smem_addr(smem_raw)));
+  __syncthreads();  // the last slice's fragment loads are done
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    float* at = c_tile + frag_row * kCStride + 8 * j + 2 * frag_col;
+    *reinterpret_cast<float2*>(at) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(at + 8 * kCStride) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  __syncthreads();
+  // a lane takes 4 neighbouring columns (two pairs of a paired epilogue) of
+  // one row, a warp 128 / kBN rows at a time: the epilogue's branches are a
+  // long dependent chain, which 4 elements a call amortise
+  constexpr int kLanesPerRow = kBN / 4;
+  const int warp = tid >> 5;
+  const int col = 4 * (lane % kLanesPerRow);
+  for (int r = warp * (32 / kLanesPerRow) + lane / kLanesPerRow; r < kTM;
+       r += 8 * (32 / kLanesPerRow)) {
+    const int m = m0 + r;
+    if (m >= rows || n0 + col >= g.n) continue;
+    const float4 v = *reinterpret_cast<const float4*>(c_tile + r * kCStride + col);
+    const float four[4] = {v.x, v.y, v.z, v.w};
+    epilogue_cols<4>(g, epilogue_row_of(g, m), n0 + col, four);
+  }
+}
+
+template <int kBN>
+cudaError_t launch_conv_gemm_tc(const ConvGemm& g, const float* big, cudaStream_t stream) {
+  // per device, so set on every launch: a process may drive several
+  cudaError_t err = cudaFuncSetAttribute(conv_gemm_tc_kernel<kBN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         conv_gemm_tc_smem<kBN>());
+  if (err != cudaSuccess) return err;
+  const int rows = g.batch * g.t;
+  const dim3 grid((g.n + kBN - 1) / kBN, (rows + kTM - 1) / kTM);
+  conv_gemm_tc_kernel<kBN><<<grid, 256, conv_gemm_tc_smem<kBN>(), stream>>>(g, big);
+  return cudaGetLastError();
+}
+
+// 128-column tiles where they divide the width, else 64
+int conv_gemm_tc_bn(int n) { return n % 128 == 0 ? 128 : 64; }
+
+// ---------------------------------------------------------------------------
+// the tensor-core weight-gradient GEMM
+// ---------------------------------------------------------------------------
+
+constexpr int kGK = 128;        // output tile: im2col columns (64 a warpgroup)
+constexpr int kGM = 32;         // rows a slice: one 128-byte swizzled row of dY^T
+constexpr int kGAStride = 136;  // floats a row of the raw A tile
+constexpr int kGStages = 3;     // raw slices in flight
+
+// floats of one raw stage: A [kGM, kGAStride], dY [kGM, kBN + 8], two row masks
+template <int kBN>
+__host__ __device__ constexpr int wgrad_tc_stage_floats() {
+  return kGM * kGAStride + kGM * (kBN + 8) + 2 * kGM;
+}
+
+// two buffers of dY^T (big and small), the raw ring, room to align
+template <int kBN>
+constexpr int wgrad_tc_smem() {
+  return 4 * kBN * 128 + kGStages * wgrad_tc_stage_floats<kBN>() * 4 + 1024;
+}
+
+template <int kBN>
+__global__ void __launch_bounds__(256, 1)
+    wgrad_tc_kernel(const WGrad w, int rows_per_split, float* dst) {
+  constexpr int kBTileBytes = kBN * 128;
+  constexpr int kYStride = kBN + 8;
+  constexpr int kYChunks = kBN / 4;  // 16-byte chunks a row of the raw dY tile
+  constexpr int kStageFloats = wgrad_tc_stage_floats<kBN>();
+  extern __shared__ unsigned char smem_raw[];
+  // dY^T tiles first, 1024-byte aligned for the swizzle; then the raw ring
+  const uint32_t smem_base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (smem_base - smem_addr(smem_raw));
+  const uint32_t raw_base = smem_base + 4 * kBTileBytes;
+  const float* raw = reinterpret_cast<const float*>(smem + 4 * kBTileBytes);
+
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * kBN;
+  const int k0 = blockIdx.y * kGK;
+  const int rows = w.batch * w.t;
+  const int kdim = w.taps * w.c_in;
+  const int m_begin = blockIdx.z * rows_per_split;
+  const int m_end = min(rows, m_begin + rows_per_split);
+  const int n_slices = (m_end - m_begin + kGM - 1) / kGM;
+
+  // staging: A's 16-byte chunk tid % 32 of tile rows tid / 32 + 8 i, dY's
+  // chunk tid % kYChunks of rows tid / kYChunks + (256 / kYChunks) i
+  const int cc_a = tid & 31;
+  const int kk = k0 + 4 * cc_a;
+  const bool k_ok = kk < kdim;
+  const int tap = k_ok ? kk / w.c_in : 0;
+  const int c = kk - tap * w.c_in;
+  const int off = (tap - w.taps / 2) * w.dilation;
+  const int cc_b = tid % kYChunks;
+  const int ncol = n0 + 4 * cc_b;
+  const bool n_ok = ncol < w.n;
+
+  auto load_slice = [&](int slice, int stage) {
+    const int m_first = m_begin + slice * kGM;
+    const int b_first = m_first / w.t;
+    const uint32_t a_dst = raw_base + (stage * kStageFloats + (tid >> 5) * kGAStride + 4 * cc_a) * 4;
+#pragma unroll
+    for (int i = 0; i < kGM / 8; ++i) {
+      const int m = m_first + (tid >> 5) + 8 * i;
+      int b = b_first, tr = m - b_first * w.t;  // the row's sample and time index
+      while (tr >= w.t) { tr -= w.t; ++b; }
+      const int ts = tr + off;
+      const bool ok = m < m_end && k_ok && ts >= 0 && ts < w.t;
+      const float* src = ok ? w.a + ((long)b * w.t + ts) * w.lda + c : w.a;
+      cp_async16(a_dst + 8 * i * kGAStride * 4, src, ok ? 16 : 0);
+    }
+    constexpr int kYRows = 256 / kYChunks;  // rows one pass of the block covers
+    const uint32_t y_dst = raw_base + (stage * kStageFloats + kGM * kGAStride +
+                                       (tid / kYChunks) * kYStride + 4 * cc_b) * 4;
+#pragma unroll
+    for (int i = 0; i < kGM / kYRows; ++i) {
+      const int m = m_first + tid / kYChunks + kYRows * i;
+      const bool ok = m < m_end && n_ok;
+      const float* src = ok ? w.dy + (long)m * w.ldy + ncol : w.dy;
+      cp_async16(y_dst + kYRows * i * kYStride * 4, src, ok ? 16 : 0);
+    }
+    if (tid < kGM) {  // the slice's row masks (null: ones are used instead)
+      const int m = m_first + tid;
+      const uint32_t m_dst =
+          raw_base + (stage * kStageFloats + kGM * kGAStride + kGM * kYStride + tid) * 4;
+      if (w.dy_mask) cp_async4(m_dst, m < m_end ? w.dy_mask + m : w.dy_mask, m < m_end ? 4 : 0);
+      if (w.a_mask) cp_async4(m_dst + kGM * 4, m < m_end ? w.a_mask + m : w.a_mask, m < m_end ? 4 : 0);
+    }
+  };
+
+  // dY^T of a raw slice, masked and split, into buffer `buf`: a thread takes
+  // 4 neighbouring rows of one column, one 16-byte chunk of the K-major tile
+  // (rows of 128 bytes in the 128-byte swizzle, as conv_gemm_tc_kernel's B)
+  auto transpose_dy = [&](int stage, int buf) {
+    const float* ys = raw + stage * kStageFloats + kGM * kGAStride;
+    const float* dy_mask = ys + kGM * kYStride;
+    const float* a_mask = dy_mask + kGM;
+    unsigned char* tile = smem + buf * 2 * kBTileBytes;
+#pragma unroll
+    for (int i = 0; i < kBN * 8 / 256; ++i) {
+      const int q = tid + 256 * i;
+      const int n = q % kBN, mc = q / kBN;
+      uint32_t big[4], small[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 4 * mc + e;
+        float v = ys[r * kYStride + n];
+        if (w.dy_mask) v *= dy_mask[r];
+        if (w.a_mask) v *= a_mask[r];
+        split_tf32(v, big[e], small[e]);
+      }
+      unsigned char* at = tile + n * 128 + ((mc ^ (n & 7)) << 4);
+      *reinterpret_cast<uint4*>(at) = make_uint4(big[0], big[1], big[2], big[3]);
+      *reinterpret_cast<uint4*>(at + kBTileBytes) =
+          make_uint4(small[0], small[1], small[2], small[3]);
+    }
+  };
+
+  // this thread's fragment rows (im2col columns of the tile): frag_row and
+  // frag_row + 8 of its warp's 16; the fragment's k runs over the slice's rows
+  const int wg = tid >> 7;
+  const int warp_in_wg = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int frag_row = wg * 64 + warp_in_wg * 16 + (lane >> 2);
+  const int tig = lane & 3;
+  auto load_fragments = [&](int stage, uint32_t (&big)[4][4], uint32_t (&small)[4][4]) {
+    const float* at = raw + stage * kStageFloats + tig * kGAStride + frag_row;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      split_tf32(at[ks * 8 * kGAStride], big[ks][0], small[ks][0]);
+      split_tf32(at[ks * 8 * kGAStride + 8], big[ks][1], small[ks][1]);
+      split_tf32(at[(ks * 8 + 4) * kGAStride], big[ks][2], small[ks][2]);
+      split_tf32(at[(ks * 8 + 4) * kGAStride + 8], big[ks][3], small[ks][3]);
+    }
+  };
+
+  // a slice's products start from zero in `part` and are added to `acc` on
+  // the CUDA cores (see conv_gemm_tc_kernel)
+  float acc[kBN / 2], part[kBN / 2];
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+
+  // One slice: its twelve wgmmas run while this thread issues the copies of
+  // a later slice and prepares the next one (dY^T into the other buffer, the
+  // A fragments into the other register set).  The one barrier says that
+  // everyone's copies of slice + 1 have landed, everyone's part of this
+  // slice's dY^T is written, and everyone is done with the wgmmas of
+  // slice - 1 (whose dY^T buffer the next one overwrites) and with the raw
+  // stage of this slice (which the copies below overwrite).
+  auto step = [&](int slice, uint32_t (&big)[4][4], uint32_t (&small)[4][4],
+                  uint32_t (&next_big)[4][4], uint32_t (&next_small)[4][4]) {
+    const int buf = slice & 1;
+    const uint64_t d_big = b_descriptor(smem_base + (buf * 2) * kBTileBytes);
+    const uint64_t d_small = b_descriptor(smem_base + (buf * 2 + 1) * kBTileBytes);
+    cp_async_wait<1>();
+    __syncthreads();
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      Wgmma<kBN>::run(part, small[ks], d_big + 2 * ks, ks > 0);
+      Wgmma<kBN>::run(part, big[ks], d_small + 2 * ks, 1);
+    }
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) Wgmma<kBN>::run(part, big[ks], d_big + 2 * ks, 1);
+    wgmma_commit();
+    if (slice + kGStages < n_slices) load_slice(slice + kGStages, slice % kGStages);
+    cp_async_commit();
+    if (slice + 1 < n_slices) {
+      transpose_dy((slice + 1) % kGStages, buf ^ 1);
+      // make the tile visible to the tensor cores' reads of shared memory
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      load_fragments((slice + 1) % kGStages, next_big, next_small);
+    }
+    wgmma_wait();
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) acc[i] += part[i];
+  };
+
+#pragma unroll
+  for (int s = 0; s < kGStages; ++s) {
+    if (s < n_slices) load_slice(s, s);
+    cp_async_commit();
+  }
+  uint32_t big0[4][4], small0[4][4], big1[4][4], small1[4][4];
+  if (n_slices > 0) {
+    cp_async_wait<kGStages - 1>();  // slice 0
+    __syncthreads();
+    transpose_dy(0, 0);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    load_fragments(0, big0, small0);
+  }
+  for (int slice = 0; slice < n_slices; slice += 2) {
+    step(slice, big0, small0, big1, small1);
+    if (slice + 1 < n_slices) step(slice + 1, big1, small1, big0, small0);
+  }
+
+  // accumulator fragment: acc[4 j + {0, 1}] are columns 8 j + 2 tig + {0, 1}
+  // of row frag_row, acc[4 j + {2, 3}] the same columns of row frag_row + 8;
+  // four lanes write one 32-byte sector
+  float* out = dst + (long)blockIdx.z * kdim * w.n;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int n = n0 + 8 * j + 2 * tig;
+    if (n >= w.n) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int k = k0 + frag_row + 8 * half;
+      if (k < kdim)
+        *reinterpret_cast<float2*>(out + (long)k * w.n + n) =
+            make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+template <int kBN>
+cudaError_t launch_wgrad_tc(const WGrad& w, int rows_per_split, int splits, float* dst,
+                            cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(wgrad_tc_kernel<kBN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         wgrad_tc_smem<kBN>());
+  if (err != cudaSuccess) return err;
+  const int kdim = w.taps * w.c_in;
+  const dim3 grid((w.n + kBN - 1) / kBN, (kdim + kGK - 1) / kGK, (unsigned)splits);
+  wgrad_tc_kernel<kBN><<<grid, 256, wgrad_tc_smem<kBN>(), stream>>>(w, rows_per_split, dst);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// dispatch
+// ---------------------------------------------------------------------------
+
+bool conv_gemm_tc_can(const ConvGemm& g) {
+  const long kdim = (long)g.taps * g.c_in;
+  return g.c_in % 4 == 0 && g.lda % 4 == 0 && aligned16(g.a) && kdim > 0 &&
+         (g.a_mask == nullptr || g.taps == 1) && g.tc_scratch != nullptr &&
+         aligned16(g.tc_scratch) && 2 * kdim * g.n <= g.tc_scratch_floats;
+}
+
+bool conv_gemm_tc_fits(const ConvGemm& g, int sms) {
+  if (!conv_gemm_tc_can(g) || g.n < 64 || g.taps * g.c_in < 32) return false;
+  const int bn = conv_gemm_tc_bn(g.n);
+  const long tiles = (long)((g.batch * g.t + kTM - 1) / kTM) * ((g.n + bn - 1) / bn);
+  return 4 * tiles >= sms;
+}
+
+cudaError_t split_weights(const float* w, int ldb, int kdim, int n, float* big, float* small,
+                          cudaStream_t stream) {
+  split_weights_kernel<<<dim3((n + 31) / 32, (kdim + 31) / 32), dim3(32, 8), 0, stream>>>(
+      w, ldb, kdim, n, big, small);
+  return cudaGetLastError();
+}
+
+cudaError_t conv_gemm_tc(const ConvGemm& g, cudaStream_t stream) {
+  if (!conv_gemm_tc_can(g)) return cudaErrorInvalidValue;
+  const int kdim = g.taps * g.c_in;
+  float* big = g.tc_scratch;
+  float* small = big + (long)kdim * g.n;
+  cudaError_t err = split_weights(g.w, g.ldb ? g.ldb : g.n, kdim, g.n, big, small, stream);
+  if (err != cudaSuccess) return err;
+  return conv_gemm_tc_bn(g.n) == 128 ? launch_conv_gemm_tc<128>(g, big, stream)
+                                     : launch_conv_gemm_tc<64>(g, big, stream);
+}
+
+bool wgrad_tc_can(const WGrad& w) {
+  return w.c_in % 4 == 0 && w.lda % 4 == 0 && w.n % 4 == 0 && w.ldy % 4 == 0 &&
+         aligned16(w.a) && aligned16(w.dy) && aligned16(w.out) && aligned16(w.scratch) &&
+         (w.a_mask == nullptr || w.taps == 1);
+}
+
+bool wgrad_tc_fits(const WGrad& w) {
+  return wgrad_tc_can(w) && w.n >= 32 && w.taps * w.c_in >= 32 && w.batch * w.t >= 256;
+}
+
+cudaError_t wgrad_tc(const WGrad& w, int sms, cudaStream_t stream) {
+  if (!wgrad_tc_can(w)) return cudaErrorInvalidValue;
+  const int rows = w.batch * w.t;
+  const int kdim = w.taps * w.c_in;
+  const int bn = conv_gemm_tc_bn(w.n);
+  const int tiles = ((w.n + bn - 1) / bn) * ((kdim + kGK - 1) / kGK);
+  const long per_split = (long)kdim * w.n;
+  // one wave of one block an SM (a second, partly filled wave would double
+  // the time), at least 256 rows a split, within scratch
+  long splits = std::max(1, sms / tiles);
+  splits = std::min(splits, std::max(1L, rows / 256L));
+  splits = std::min(splits, std::max(1L, w.scratch_floats / per_split));
+  if (w.scratch == nullptr) splits = 1;
+  int rows_per_split = (int)((rows + splits - 1) / splits);
+  rows_per_split = ((rows_per_split + kGM - 1) / kGM) * kGM;
+  splits = std::max(1, (rows + rows_per_split - 1) / rows_per_split);
+  float* dst = splits == 1 ? w.out : w.scratch;
+  cudaError_t err = bn == 128 ? launch_wgrad_tc<128>(w, rows_per_split, (int)splits, dst, stream)
+                              : launch_wgrad_tc<64>(w, rows_per_split, (int)splits, dst, stream);
+  if (err != cudaSuccess || splits == 1) return err;
+  // the splits' partial sums, added in split order
+  return col_sum(w.scratch, (int)per_split, (int)per_split, nullptr, 1, (int)splits, w.out,
+                 (int)per_split, stream);
+}
+
+}  // namespace gtt
+
+// ---------------------------------------------------------------------------
+// the two device kernels alone, and the counters
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// mode 0: as the chains run it (the tensor-core kernel where it fits);
+// 1: the tensor-core kernel, or an error where it cannot run; 2: CUDA cores
+template <typename Product, typename Can, typename Tc, typename Auto>
+int run_mode(Product& p, int mode, Can can, Tc tc, Auto dispatch) {
+  if (mode == 1) {
+    if (!can(p)) return (int)cudaErrorInvalidValue;
+    return (int)tc(p);
+  }
+  return (int)dispatch(p);
+}
+
+}  // namespace
+
+// out [batch * t, n] = im2col(a) @ w: the bare product (kBias, no bias).
+extern "C" int gtt_tc_conv_gemm(const float* a, const float* w, const float* a_mask, float* out,
+                                float* scratch, int scratch_floats, int batch, int t, int c_in,
+                                int lda, int taps, int dilation, int tap_sign, int n, int mode,
+                                cudaStream_t stream) {
+  using namespace gtt;
+  ConvGemm g;
+  g.a = a; g.lda = lda; g.c_in = c_in; g.a_mask = a_mask; g.taps = taps;
+  g.dilation = dilation; g.batch = batch; g.t = t; g.tap_sign = tap_sign;
+  g.w = w; g.n = n; g.epilogue = kBias; g.out = out; g.ldo = n;
+  if (mode != 2) { g.tc_scratch = scratch; g.tc_scratch_floats = scratch_floats; }
+  return run_mode(
+      g, mode, [](const ConvGemm& p) { return conv_gemm_tc_can(p); },
+      [&](const ConvGemm& p) { ++product_counts().tc_gemm; return conv_gemm_tc(p, stream); },
+      [&](const ConvGemm& p) { return conv_gemm(p, stream); });
+}
+
+// out [taps * c_in, n] = im2col(a)^T @ dy: the bare weight gradient.
+extern "C" int gtt_tc_wgrad(const float* a, const float* dy, const float* a_mask,
+                            const float* dy_mask, float* out, float* scratch, int scratch_floats,
+                            int batch, int t, int c_in, int lda, int taps, int dilation, int n,
+                            int ldy, int mode, cudaStream_t stream) {
+  using namespace gtt;
+  WGrad w;
+  w.a = a; w.lda = lda; w.c_in = c_in; w.a_mask = a_mask; w.taps = taps; w.dilation = dilation;
+  w.batch = batch; w.t = t; w.dy = dy; w.ldy = ldy; w.n = n; w.dy_mask = dy_mask;
+  w.out = out; w.scratch = scratch; w.scratch_floats = scratch_floats; w.tc = mode != 2;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  return run_mode(
+      w, mode, [](const WGrad& p) { return wgrad_tc_can(p); },
+      [&](const WGrad& p) { ++product_counts().tc_wgrad; return wgrad_tc(p, sms, stream); },
+      [&](const WGrad& p) { return wgrad(p, stream); });
+}
+
+// big, small [n, kdim] = the K-major 3xTF32 split of w [kdim, n].
+extern "C" int gtt_split_weights(const float* w, float* big, float* small, int kdim, int n,
+                                 cudaStream_t stream) {
+  return (int)gtt::split_weights(w, n, kdim, n, big, small, stream);
+}
+
+// counts [6] = tensor-core conv-GEMMs, tensor-core weight gradients,
+// CUDA-core conv-GEMMs, CUDA-core weight gradients, and of those last two
+// the ones whose chain had asked for the tensor cores; `reset` zeroes them
+// after the read.
+extern "C" void gtt_product_counts(long long* counts, int reset) {
+  gtt::ProductCounts& c = gtt::product_counts();
+  counts[0] = c.tc_gemm; counts[1] = c.tc_wgrad; counts[2] = c.core_gemm;
+  counts[3] = c.core_wgrad; counts[4] = c.declined_gemm; counts[5] = c.declined_wgrad;
+  if (reset) c = gtt::ProductCounts();
+}

@@ -37,7 +37,7 @@ else:
 _ARCH = "arch=compute_90a,code=sm_90a"
 # sources in link order; every .cu and .cuh under csrc/ feeds the hash
 _SOURCES = (
-    "common.cu", "text.cu", "text_train.cu", "encoder.cu", "encoder_train.cu",
+    "common.cu", "tc_gemm.cu", "text.cu", "text_train.cu", "encoder.cu", "encoder_train.cu",
     "block.cu", "block_train.cu", "mas.cu",
 )
 
@@ -192,16 +192,21 @@ ENCODER_LAYER = Entry("gtt_encoder_layer", "p" * 25 + "i" * 9 + "uf")
 PRENET_BWD = Entry("gtt_prenet_bwd", "p" * 27 + "i" * 8 + "uf")
 DURATION_STACK_BWD = Entry("gtt_duration_stack_bwd", "p" * 31 + "i" * 8 + "uf")
 ENCODER_LAYER_BWD = Entry("gtt_encoder_layer_bwd", "p" * 69 + "i" * 10 + "uf")
-BLOCK_INVERSE = Entry("gtt_block_inverse", "p" * 18 + "i" * 9)
-WN_FORWARD = Entry("gtt_wn_forward", "p" * 10 + "i" * 9 + "uf")
-WN_FWD_SAVE = Entry("gtt_wn_fwd_save", "p" * 12 + "i" * 9 + "uf")
+BLOCK_INVERSE = Entry("gtt_block_inverse", "p" * 19 + "i" * 10)
+WN_FORWARD = Entry("gtt_wn_forward", "p" * 11 + "i" * 10 + "uf")
+WN_FWD_SAVE = Entry("gtt_wn_fwd_save", "p" * 13 + "i" * 10 + "uf")
 WN_BWD_STORE = Entry("gtt_wn_bwd_store", "p" * 19 + "i" * 9 + "uf")
 WN_BWD = Entry("gtt_wn_bwd", "p" * 25 + "i" * 10 + "uf")
-BLOCK_FWD = Entry("gtt_block_fwd", "p" * 20 + "i" * 11 + "uf")
-BLOCK_FWD_SAVE = Entry("gtt_block_fwd_save", "p" * 23 + "i" * 11 + "uf")
+BLOCK_FWD = Entry("gtt_block_fwd", "p" * 21 + "i" * 12 + "uf")
+BLOCK_FWD_SAVE = Entry("gtt_block_fwd_save", "p" * 24 + "i" * 12 + "uf")
 BLOCK_BWD_STORE = Entry("gtt_block_bwd_store", "p" * 37 + "i" * 11 + "uf")
 BLOCK_BWD = Entry("gtt_block_bwd", "p" * 46 + "i" * 12 + "uf")
 MAS = Entry("gtt_mas", "p" * 4 + "i" * 3)
+# the two tensor-core device kernels alone (csrc/tc_gemm.cu), and the
+# weights' K-major split
+TC_CONV_GEMM = Entry("gtt_tc_conv_gemm", "p" * 5 + "i" * 10)
+TC_WGRAD = Entry("gtt_tc_wgrad", "p" * 6 + "i" * 10)
+SPLIT_WEIGHTS = Entry("gtt_split_weights", "p" * 3 + "i" * 2)
 
 ENTRIES = {
     "prenet": PRENET,
@@ -220,7 +225,28 @@ ENTRIES = {
     "prenet_bwd": PRENET_BWD,
     "encoder_layer_bwd": ENCODER_LAYER_BWD,
     "duration_stack_bwd": DURATION_STACK_BWD,
+    "tc_conv_gemm": TC_CONV_GEMM,
+    "tc_wgrad": TC_WGRAD,
+    "split_weights": SPLIT_WEIGHTS,
 }
+
+PRODUCT_COUNT_NAMES = (
+    "tc_gemm", "tc_wgrad", "core_gemm", "core_wgrad", "declined_gemm", "declined_wgrad",
+)
+
+
+def product_counts(reset: bool = False) -> typing.Dict[str, int]:
+    """Device products launched by the built library since the last reset:
+    conv-GEMMs and weight gradients on the tensor cores (``tc_*``) and on the
+    CUDA cores (``core_*``), and of the latter those whose launch chain had
+    asked for the tensor-core kernel and was declined (``declined_*``: the
+    shape did not fit).  ``reset`` zeroes the counters after the read."""
+    fn = library().gtt_product_counts
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
+    fn.restype = None
+    counts = (ctypes.c_longlong * len(PRODUCT_COUNT_NAMES))()
+    fn(counts, int(reset))
+    return dict(zip(PRODUCT_COUNT_NAMES, counts))
 
 
 def launch_counts() -> typing.Dict[str, int]:

@@ -25,14 +25,16 @@ equal store mode's bit for bit, and at most one block's residuals are
 alive at a time: 3 L b t h floats, where store mode holds every block's
 from its forward to its backward).
 
-Bound on the card: f32 FMA throughput of the in-layer conv GEMMs (80% of
-the block's FLOPs: rows = batch * t_y/2, K = 5 * 192, N = 384; backward
-runs three such products per layer).  The TPU kernels hold a sample's
-whole block with its 7 MB of weights in VMEM; here each GEMM streams its
-weights from L2 (227 KB of shared memory cannot hold them), gathers the
-dilated taps while staging, and fuses the gate, the residual/skip split
-and the coupling into its epilogue, so only [rows, h] and [rows, c]
-activations reach device memory.
+Bound on the card: the operations of the in-layer conv GEMMs (80% of the
+block's: rows = batch * t_y/2, K = 5 * 192, N = 384; backward runs three
+such products per layer), on the tensor cores by the 3xTF32 split
+(``csrc/tc_gemm.cu``: wgmma conv-GEMM and weight gradient, both
+f32-accurate) where the shape fits, else f32 on the CUDA cores.  The TPU
+kernels hold a sample's whole block with its 7 MB of weights in VMEM;
+here each GEMM streams its weights from L2 (227 KB of shared memory
+cannot hold them), gathers the dilated taps while staging, and fuses the
+gate, the residual/skip split and the coupling into its epilogue, so only
+[rows, h] and [rows, c] activations reach device memory.
 
 Weights are the JAX folds' layout (``fold_block_params`` and
 ``fold_block_params_inverse``).
@@ -46,7 +48,7 @@ import torch
 from .. import kernels
 from .conv import conv1d, weight_norm_effective
 from .wn_cuda import (
-    check_residuals, drop_args, fold_wn_weights, needs_grad, transposed_wn_weights,
+    check_residuals, drop_args, fold_wn_weights, needs_grad, tc_scratch, transposed_wn_weights,
     wn_stack_plain, wn_walk_buffers,
 )
 
@@ -134,6 +136,10 @@ def block_inverse_plain(
     return (z @ folded["A"] + folded["bA"]) * x_mask
 
 
+def _block_tc_scratch(x_like: torch.Tensor, folded: dict) -> torch.Tensor:
+    return tc_scratch(x_like, *(folded[k] for k in ("A", "W_s", "W_e", "W_in", "W_rs")))
+
+
 def block_inverse(
     folded: dict,
     g_all: typing.Optional[torch.Tensor],
@@ -167,11 +173,12 @@ def block_inverse(
     acts = x.new_empty((batch, t, h))
     skip = x.new_empty((batch, t, h))
     f = folded
+    tc = _block_tc_scratch(x, f)
     kernels.BLOCK_INVERSE(
         x, x_mask, f["A"], f["bA"], f["W_s"], f["b_s"], f["W_e"], f["b_e"],
         f["W_in"], f["b_in"], f["W_rs"], f["b_rs"], g_all,
-        y, zbuf, xcur, acts, skip,
-        0 if g_all is None else n_layers * 2 * h,
+        y, zbuf, xcur, acts, skip, tc,
+        tc.numel(), 0 if g_all is None else n_layers * 2 * h,
         batch, t, c, h, n_layers, kernel_size, dilation_rate, int(sigmoid_scale),
     )
     return y
@@ -320,11 +327,12 @@ def block_fwd_save(
     ld_part = x.new_empty((batch, c // 2))
     f = folded
     drop, threshold, scale = drop_args(p_dropout)
+    tc = _block_tc_scratch(x, f)
     kernels.BLOCK_FWD_SAVE(
         x, x_mask, f["A"], f["bA"], f["W_s"], f["b_s"], f["W_e"], f["b_e"],
         f["W_in"], f["b_in"], f["W_rs"], f["b_rs"], g_all,
-        z, ld, zp, skipm, xs, th, sg, acts, logsm, ld_part,
-        0 if g_all is None else n_layers * 2 * h,
+        z, ld, zp, skipm, xs, th, sg, acts, logsm, ld_part, tc,
+        tc.numel(), 0 if g_all is None else n_layers * 2 * h,
         batch, t, c, h, n_layers, kernel_size, dilation_rate, int(sigmoid_scale),
         drop, int(seed), threshold, scale,
     )
@@ -353,11 +361,12 @@ def block_fwd(
     ld_part = x.new_empty((batch, c // 2))
     f = folded
     drop, threshold, scale = drop_args(p_dropout)
+    tc = _block_tc_scratch(x, f)
     kernels.BLOCK_FWD(
         x, x_mask, f["A"], f["bA"], f["W_s"], f["b_s"], f["W_e"], f["b_e"],
         f["W_in"], f["b_in"], f["W_rs"], f["b_rs"], g_all,
-        z, ld, skipm, xcur, acts, logsm, ld_part,
-        0 if g_all is None else n_layers * 2 * h,
+        z, ld, skipm, xcur, acts, logsm, ld_part, tc,
+        tc.numel(), 0 if g_all is None else n_layers * 2 * h,
         batch, t, c, h, n_layers, kernel_size, dilation_rate, int(sigmoid_scale),
         drop, int(seed), threshold, scale,
     )

@@ -9,9 +9,11 @@ op-by-op inverse decoder) and as the forward of ``residuals="recompute"``.
 On the card it is the inverse flow block's WN loop without the coupling
 (``csrc/block_train.cu`` ``gtt_wn_forward``): per layer one conv-GEMM with
 the gate in its epilogue and one 1x1 GEMM with the residual/skip split in
-its epilogue (``csrc/common.cu``).  Bound: f32 FMA throughput of the
-in-layer conv (K = 5 * 192, N = 384); the gather-on-load taps keep the
-im2col matrix out of device memory.
+its epilogue (``csrc/common.cu``; on the tensor cores, f32-accurate by
+the 3xTF32 split, where the shape fits: ``csrc/tc_gemm.cu``).  Bound: the
+operations of the in-layer conv (K = 5 * 192, N = 384) over a third of
+the TF32 peak; the gather-on-load taps keep the im2col matrix out of
+device memory.
 
 :class:`WNStackTrain` is the differentiable stack of the op-by-op decoder
 (``wn_pallas.wn_stack_fused``).  ``residuals="store"``: :func:`wn_fwd_save`
@@ -23,7 +25,8 @@ them.  ``residuals="recompute"``: the forward saves only its inputs and
 scratch that lives for that call only, then the same walk, so its
 gradients equal store mode's bit for bit.  Keep masks are never stored:
 every pass replays them from the seed.  The backward is bound like the
-forward: three K = 5 * 192 products per layer in f32.
+forward: three K = 5 * 192 products per layer, the weight gradient among
+them on the tensor cores too.
 
 Dropout keep masks are the JAX kernels' portable counter hash, bit for
 bit, in its site form (``encoder_pallas._drop_keep``): the bits of flat
@@ -233,6 +236,13 @@ def _check_wn_operands(folded, g_all, x, x_mask, kernel_size):
     return batch, t, h, n_layers
 
 
+def tc_scratch(x_like: torch.Tensor, *weights: torch.Tensor) -> torch.Tensor:
+    """Scratch of the tensor-core conv-GEMM: room for the K-major 3xTF32
+    split (two parts) of the largest of ``weights``' ``[..., K, N]``
+    matrices; the products of one call use it in turn."""
+    return x_like.new_empty((2 * max(w.shape[-2] * w.shape[-1] for w in weights),))
+
+
 def wn_stack(
     folded: tuple,
     g_all: typing.Optional[torch.Tensor],
@@ -257,9 +267,10 @@ def wn_stack(
     xcur = torch.empty_like(x)
     acts = torch.empty_like(x)
     drop, threshold, scale = drop_args(p_dropout)
+    tc = tc_scratch(x, w_in, w_rs)
     kernels.WN_FORWARD(
-        x, x_mask, w_in, b_in, w_rs, b_rs, g_all, skip, xcur, acts,
-        0 if g_all is None else n_layers * 2 * h,
+        x, x_mask, w_in, b_in, w_rs, b_rs, g_all, skip, xcur, acts, tc,
+        tc.numel(), 0 if g_all is None else n_layers * 2 * h,
         batch, t, h, n_layers, kernel_size, dilation_rate,
         drop, int(seed), threshold, scale,
     )
@@ -286,9 +297,10 @@ def wn_fwd_save(
     sg = torch.empty_like(xs)
     acts = torch.empty_like(x)
     drop, threshold, scale = drop_args(p_dropout)
+    tc = tc_scratch(x, w_in, w_rs)
     kernels.WN_FWD_SAVE(
-        x, x_mask, w_in, b_in, w_rs, b_rs, g_all, skip, xs, th, sg, acts,
-        0 if g_all is None else n_layers * 2 * h,
+        x, x_mask, w_in, b_in, w_rs, b_rs, g_all, skip, xs, th, sg, acts, tc,
+        tc.numel(), 0 if g_all is None else n_layers * 2 * h,
         batch, t, h, n_layers, kernel_size, dilation_rate,
         drop, int(seed), threshold, scale,
     )
@@ -312,7 +324,9 @@ def wn_walk_buffers(x_like: torch.Tensor, batch: int, t: int, h: int, kernel_siz
     """Scratch of the WN reverse walk: the res/skip cotangent, the gate
     cotangents before and after dropout, the gate product, the per-sample
     partial column sums (``width`` columns) and the weight-gradient GEMM's
-    split partial sums."""
+    split partial sums, which the tensor-core conv-GEMMs of the same call
+    use in turn for their weights' K-major split (twice the largest
+    matrix)."""
     rows = batch * t
     return {
         "g_rs": x_like.new_empty((rows, 2 * h)),
@@ -320,7 +334,9 @@ def wn_walk_buffers(x_like: torch.Tensor, batch: int, t: int, h: int, kernel_siz
         "dxin": x_like.new_empty((rows, 2 * h)),
         "acts": x_like.new_empty((rows, h)),
         "col_part": x_like.new_empty((batch, width)),
-        "wg_scratch": x_like.new_empty((max(1 << 22, kernel_size * h * 2 * h),)),
+        "wg_scratch": x_like.new_empty(
+            (max(1 << 22, 2 * kernel_size * h * 2 * h, 2 * width * width),)
+        ),
     }
 
 

@@ -1,0 +1,199 @@
+#!/usr/bin/env python3
+"""The default-mode train step and the flow block's two training kernels of
+one checkout of glow_tts_train_tpu_torch on one GPU, as one JSON object.
+
+    python scripts/torch-block-step-probe.py [--repo DIR] [--steps 24]
+
+To compare two commits on one card, unpack the other one beside this
+checkout (``git archive <commit> | tar -x -C DIR``) and run the script once
+per tree in turns, in one shell command: parent, change, change, parent.
+``--repo`` names the checkout whose package is imported and whose kernels
+are built (default: the one this file lies in).
+
+Base width (``configs/base.json``, ``fp16_run: false``), batch 16, dropout
+on, the fused block in store mode (the default), the four batch shapes of a
+64-utterance synthetic corpus (``scripts/make-synthetic-corpus.py``), a
+fresh init with DDI on the first batch.  After 4 warm-up steps, ``--steps``
+steps with a device sync on each side of a step; then the largest batch
+once unprofiled and once under ``torch.profiler`` for the device's busy
+time, its count of device operations and its time by GEMM kernel.  Then
+``block_fwd_save`` and ``block_bwd_store`` alone at [16, 704, 160] on random
+non-zero weights (dropout 0.05), timed with CUDA events (median of 30 calls
+after 5) and by the device's own time under the profiler (mean of 10).  Prints the GPU's name and power limit with the numbers.
+"""
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+GEMM_KERNELS = ("conv_gemm_tc_kernel", "wgrad_tc_kernel", "split_weights_kernel",
+                "conv_gemm_kernel", "wgrad_kernel", "col_sum_kernel")
+
+
+def event_ms(fn, runs: int = 30) -> float:
+    import torch
+
+    for _ in range(5):
+        fn()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, runs: int = 10) -> float:
+    """The device's own time for one call of ``fn``: the self time of its
+    kernels and copies under torch.profiler, without the host's gaps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / 1e3 / runs
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--repo", type=Path, default=HERE, help="the checkout to measure")
+    parser.add_argument("--steps", type=int, default=24, help="timed steps")
+    args = parser.parse_args()
+    repo = args.repo.resolve()
+    sys.path.insert(0, str(repo))
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("no CUDA device available", file=sys.stderr)
+        return 2
+    from glow_tts_train_tpu_torch import checkpoint, data, kernels, training
+    from glow_tts_train_tpu_torch.config import load_config
+    from glow_tts_train_tpu_torch.models import hyper_from_config
+    from glow_tts_train_tpu_torch.ops import block_cuda
+    from glow_tts_train_tpu_torch.tree import tree_index, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gpu = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    start = time.perf_counter()
+    kernels.library()
+    build_s = time.perf_counter() - start
+
+    with tempfile.TemporaryDirectory(prefix="block_probe_") as tmp:
+        corpus = Path(tmp) / "corpus"
+        subprocess.run(
+            [sys.executable, str(repo / "scripts" / "make-synthetic-corpus.py"), str(corpus), "64", "0"],
+            check=True, capture_output=True,
+        )
+        manifest = json.loads((corpus / "manifest.json").read_text())
+        over = Path(tmp) / "over.json"
+        over.write_text(json.dumps({
+            "fp16_run": False, "batch_size": 16, "warmup_steps": 50,
+            "model": {"num_symbols": manifest["num_symbols"]},
+        }))
+        config = load_config([repo / "configs" / "base.json", over])
+        dataset = data.build_dataset(
+            [data.SpeakerSource(0, corpus / "phonemes.csv", corpus / "mels")], config,
+            mels_are_dirs=True, skip_missing_mels=False, multispeaker=False,
+        )
+        pipeline = data.DataPipeline(dataset, config, batch_size=config.batch_size)
+        batches = [training.batch_to(b, "cuda") for b in pipeline.batches()]
+
+    state = training.TrainState(training.initialize_model(config, batches[0], "cuda"))
+    step = training.make_train_step(config)
+    generator = torch.Generator(device="cuda").manual_seed(config.seed)
+    seeds = torch.Generator().manual_seed(config.seed)
+
+    def run_step(batch) -> float:
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        step(state, batch, generator, seeds)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - begin) * 1e3
+
+    for i in range(4):
+        run_step(batches[i % len(batches)])
+    steps_ms = [run_step(batches[i % len(batches)]) for i in range(args.steps)]
+    largest = max(batches, key=lambda b: b["y"].shape[1])
+    run_step(largest)
+    unprofiled = run_step(largest)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled_wall = run_step(largest)
+    busy, ops, by_kernel = 0.0, 0, {name: 0.0 for name in GEMM_KERNELS}
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA":
+            busy += e.self_device_time_total / 1e3
+            ops += e.count
+            for name in GEMM_KERNELS:
+                if name in e.key:
+                    by_kernel[name] += e.self_device_time_total / 1e3
+
+    # the block's two training kernels alone, on random non-zero weights
+    hp = hyper_from_config(config)
+    tree: dict = {}
+    for key, a in checkpoint.random_params(hp, 0).items():
+        *parents, leaf = key[len("model/"):].split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = torch.from_numpy(a)
+    tree = tree_map(lambda a: a.to("cuda"), tree)
+    folded = {
+        k: v.detach().contiguous()
+        for k, v in block_cuda.fold_block_params(
+            tree_index(tree["decoder"]["blocks"], 0), hp.n_block_layers, hp.n_split
+        ).items()
+    }
+    rng = np.random.default_rng(0)
+    batch, t, c = 16, 704, 2 * hp.out_channels
+    lengths = torch.from_numpy(rng.integers(t // 2, t + 1, size=batch)).to("cuda")
+    mask = (torch.arange(t, device="cuda")[None, :] < lengths[:, None]).float()[..., None].contiguous()
+    x = (torch.from_numpy(rng.standard_normal((batch, t, c)).astype(np.float32)).to("cuda") * mask).contiguous()
+    cfg = (hp.kernel_size_dec, hp.dilation_rate, hp.sigmoid_scale, 0.05, 1234)
+    z, ld, saves = block_cuda.block_fwd_save(folded, None, x, mask, *cfg)
+    dz = (torch.from_numpy(rng.standard_normal((batch, t, c)).astype(np.float32)).to("cuda") * mask).contiguous()
+    dld = torch.ones_like(ld)
+    fwd_ms = event_ms(lambda: block_cuda.block_fwd_save(folded, None, x, mask, *cfg))
+    bwd_ms = event_ms(lambda: block_cuda.block_bwd_store(folded, False, x, mask, saves, dz, dld, *cfg))
+    fwd_device_ms = device_ms(lambda: block_cuda.block_fwd_save(folded, None, x, mask, *cfg))
+    bwd_device_ms = device_ms(
+        lambda: block_cuda.block_bwd_store(folded, False, x, mask, saves, dz, dld, *cfg))
+
+    print(json.dumps({
+        "repo": str(repo), "gpu": gpu, "build_s": build_s,
+        "batch_shapes": [[list(b["x"].shape), list(b["y"].shape)] for b in batches],
+        "steps_ms": steps_ms, "median_step_ms": statistics.median(steps_ms),
+        "largest_batch": [list(largest["x"].shape), list(largest["y"].shape)],
+        "largest_batch_step_ms": unprofiled, "profiled_wall_ms": profiled_wall,
+        "device_busy_ms": busy, "device_operations": ops,
+        "idle_share_unprofiled": 1.0 - busy / unprofiled,
+        "device_ms_by_gemm_kernel": by_kernel,
+        "block_fwd_save_ms": fwd_ms, "block_bwd_store_ms": bwd_ms,
+        "block_fwd_save_device_ms": fwd_device_ms, "block_bwd_store_device_ms": bwd_device_ms,
+        "block_shape": [batch, t, c],
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

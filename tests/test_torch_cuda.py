@@ -676,3 +676,208 @@ def _flatten(tree, prefix=""):
             yield from _flatten(v, f"{prefix}{k}/")
         else:
             yield f"{prefix}{k}", v
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core conv-GEMM and weight-gradient GEMM (csrc/tc_gemm.cu)
+# ---------------------------------------------------------------------------
+
+# a 3xTF32 product against float64 of the same operands, relative to the
+# largest output (each term loses what lies below 2^-20 of it)
+PRODUCT_RTOL = 5e-6
+
+# (batch, t, c_in, taps, dilation, tap_sign, n, a_mask): tiny and ragged
+# shapes (rows not a multiple of 64, widths below and off the tile sizes,
+# K not a multiple of the 32-deep slice), then the base width's products
+CONV_CASES = {
+    "tiny": (2, 50, 8, 1, 1, 1, 8, False),
+    "ragged_rows": (3, 37, 16, 3, 1, 1, 24, False),
+    "n80": (2, 75, 192, 1, 1, 1, 80, False),
+    "k80_masked": (2, 131, 80, 1, 1, 1, 192, True),
+    "dilation2": (2, 90, 12, 5, 2, 1, 40, False),
+    "transposed": (2, 90, 24, 5, 2, -1, 12, False),
+    "base_in_conv": (4, 704, 192, 5, 1, 1, 384, False),
+    "base_in_conv_dilation4": (4, 704, 192, 5, 4, 1, 384, False),
+    "base_res_skip": (4, 704, 192, 1, 1, 1, 384, False),
+    "base_transposed": (4, 704, 384, 5, 1, -1, 192, False),
+    "base_fold": (4, 704, 160, 1, 1, 1, 160, False),
+    "base_end_masked": (4, 704, 192, 1, 1, 1, 160, True),
+}
+
+
+def _product_inputs(dev, seed, batch, t, c_in, n, k):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.standard_normal((batch, t, c_in)).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)).to(dev)
+    lengths = torch.tensor([t, max(1, t // 2), 1, t - 3][:batch], device=dev)
+    mask = (torch.arange(t, device=dev)[None, :] < lengths[:, None]).float()[..., None].contiguous()
+    return a, w, mask
+
+
+@pytest.mark.parametrize("name", sorted(CONV_CASES))
+def test_tc_conv_product_matches_float64(dev, name):
+    """The tensor-core conv-GEMM alone against float64 of the same operands
+    and against the CUDA-core kernel."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    batch, t, c_in, taps, dilation, tap_sign, n, masked = CONV_CASES[name]
+    a, w, mask = _product_inputs(dev, 7, batch, t, c_in, n, taps * c_in)
+    a_mask = mask if masked else None
+    ref = tc_gemm.im2col_plain(a, taps, dilation, tap_sign, a_mask).double() @ w.double()
+    kernels.product_counts(reset=True)
+    got = tc_gemm.conv_product(a, w, taps, dilation, tap_sign, a_mask, mode="tc")
+    counts = kernels.product_counts(reset=True)
+    assert (counts["tc_gemm"], counts["core_gemm"]) == (1, 0)
+    core = tc_gemm.conv_product(a, w, taps, dilation, tap_sign, a_mask, mode="core")
+    assert kernels.product_counts(reset=True)["core_gemm"] == 1
+    scale = ref.abs().max().item()
+    assert (got.double() - ref).abs().max().item() <= PRODUCT_RTOL * scale
+    assert (got - core).abs().max().item() <= 1e-5 * scale
+    emulated = tc_gemm.matmul_3xtf32_plain(
+        tc_gemm.im2col_plain(a, taps, dilation, tap_sign, a_mask).reshape(batch * t, -1), w
+    ).reshape(batch, t, n)
+    assert (got - emulated).abs().max().item() <= 2e-6 * scale
+
+
+def test_tc_dispatch_by_shape(dev):
+    """As the chains dispatch: the tensor-core kernel at the base width's
+    products from a few thousand rows on, the CUDA-core kernel for a width
+    below one tile and for a few hundred rows; a shape the tensor-core
+    kernel cannot take (channels not a multiple of 4) is refused when
+    asked for outright."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    def counts_of(fn):
+        kernels.product_counts(reset=True)
+        fn()
+        c = kernels.product_counts(reset=True)
+        return c["tc_gemm"] + c["tc_wgrad"], c["declined_gemm"] + c["declined_wgrad"]
+
+    a, w, _ = _product_inputs(dev, 8, 4, 704, 192, 384, 192)
+    assert counts_of(lambda: tc_gemm.conv_product(a, w)) == (1, 0)
+    assert counts_of(lambda: tc_gemm.weight_gradient(a, a)) == (1, 0)
+    narrow = w[:, :16].contiguous()
+    assert counts_of(lambda: tc_gemm.conv_product(a, narrow)) == (0, 1)
+    assert counts_of(lambda: tc_gemm.weight_gradient(a, a[..., :16].contiguous())) == (0, 1)
+    few = a[:1, :300].contiguous()
+    assert counts_of(lambda: tc_gemm.conv_product(few, w)) == (0, 1)
+    assert counts_of(lambda: tc_gemm.weight_gradient(few[:, :200].contiguous(), few[:, :200].contiguous())) == (0, 1)
+    odd_a, odd_w, _ = _product_inputs(dev, 9, 2, 40, 6, 8, 6)
+    with pytest.raises(RuntimeError):
+        tc_gemm.conv_product(odd_a, odd_w, mode="tc")
+    np.testing.assert_allclose(
+        tc_gemm.conv_product(odd_a, odd_w).cpu().numpy(), (odd_a @ odd_w).cpu().numpy(), atol=1e-5
+    )
+
+
+# (batch, t, c_in, taps, dilation, n, a_mask, dy_mask)
+WGRAD_CASES = {
+    "tiny": (2, 50, 8, 1, 1, 8, False, False),
+    "ragged_rows_dy_mask": (3, 37, 16, 3, 1, 24, False, True),
+    "n80_both_masks": (2, 300, 192, 1, 1, 80, True, True),
+    "dilation2": (2, 90, 12, 5, 2, 40, False, False),
+    "base_dW_in": (4, 704, 192, 5, 1, 384, False, False),
+    "base_dW_rs": (4, 704, 192, 1, 1, 384, False, False),
+    "base_dW_s_dy_mask": (4, 704, 80, 1, 1, 192, False, True),
+    "base_dA": (4, 704, 160, 1, 1, 160, False, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WGRAD_CASES))
+def test_tc_weight_gradient_matches_float64_and_repeats(dev, name):
+    """The tensor-core weight-gradient GEMM alone against float64 and the
+    CUDA-core kernel; two runs give the same bits (fixed split order, no
+    atomics)."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    batch, t, c_in, taps, dilation, n, a_masked, dy_masked = WGRAD_CASES[name]
+    a, _, mask = _product_inputs(dev, 11, batch, t, c_in, n, taps * c_in)
+    dy = torch.from_numpy(
+        np.random.default_rng(12).standard_normal((batch, t, n)).astype(np.float32)
+    ).to(dev)
+    a_mask, dy_mask = (mask if a_masked else None), (mask if dy_masked else None)
+    cols = tc_gemm.im2col_plain(a, taps, dilation, 1, a_mask).reshape(batch * t, -1)
+    dym = dy if dy_mask is None else dy * dy_mask
+    ref = cols.double().T @ dym.reshape(batch * t, n).double()
+    kernels.product_counts(reset=True)
+    got = tc_gemm.weight_gradient(a, dy, taps, dilation, a_mask, dy_mask, mode="tc")
+    counts = kernels.product_counts(reset=True)
+    assert (counts["tc_wgrad"], counts["core_wgrad"]) == (1, 0)
+    again = tc_gemm.weight_gradient(a, dy, taps, dilation, a_mask, dy_mask, mode="tc")
+    assert torch.equal(got, again)
+    core = tc_gemm.weight_gradient(a, dy, taps, dilation, a_mask, dy_mask, mode="core")
+    scale = ref.abs().max().item()
+    assert (got.double() - ref).abs().max().item() <= PRODUCT_RTOL * scale
+    assert (got - core).abs().max().item() <= 1e-5 * scale
+
+
+def test_split_weights_kernel_matches_plain(dev):
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    for k, n in ((960, 384), (80, 192), (37, 50)):
+        w = torch.randn(k, n, device=dev)
+        assert torch.equal(tc_gemm.split_weights(w), tc_gemm.split_weights_plain(w))
+
+
+@pytest.mark.parametrize("name", ["base_width", "base_width_sigmoid_gin_dilation2"])
+def test_block_kernels_on_the_tensor_cores_match_plain(dev, name):
+    """The flow block's kernels at a shape whose every product runs on the
+    tensor cores ([4, 704, 160], dropout on): forward-save and the inverse
+    against their plain versions, backward-store against autograd of the
+    plain forward, the recompute backward equal to store's bits, and the
+    product counters."""
+    over, n_mel = VARIANTS[name]
+    hp = model.hyper_from_config(_config(over, n_mel))
+    tt = tree_map(lambda a: a.to(dev), _tree(hp))
+    L, h, c = hp.n_block_layers, hp.h_dec, 2 * hp.out_channels
+    block = tree_index(tt["decoder"]["blocks"], 0)
+    folded = {k: v.detach().contiguous()
+              for k, v in block_cuda.fold_block_params(block, L, hp.n_split).items()}
+    x, mask = _inputs(4, 704, c, dev)
+    lengths = torch.tensor([704, 352, 1, 701], device=dev)
+    mask = (torch.arange(704, device=dev)[None, :] < lengths[:, None]).float()[..., None].contiguous()
+    x = (x * mask).contiguous()
+    g_all = torch.randn(4, L, 2 * h, device=dev) if hp.gin_channels else None
+    args = (hp.kernel_size_dec, hp.dilation_rate, hp.sigmoid_scale, 0.3, 12345)
+
+    kernels.product_counts(reset=True)
+    z, ld, saves = block_cuda.block_fwd_save(folded, g_all, x, mask, *args)
+    counts = kernels.product_counts(reset=True)
+    # all but the folded A's product, which stays on the CUDA cores
+    assert (counts["tc_gemm"], counts["core_gemm"], counts["declined_gemm"]) == (2 + 2 * L, 1, 0)
+    ref_saves: dict = {}
+    z_p, ld_p = block_cuda.block_forward_plain(folded, g_all, x, mask, *args, saves=ref_saves)
+    _rel_close("z", z, z_p, 1e-5)
+    _rel_close("ld", ld, ld_p, 1e-5)
+    for k in ("zp", "skipm"):
+        _rel_close(k, saves[k], ref_saves[k], 1e-5)
+    for k in ("xs", "th", "sg"):
+        _rel_close(k, saves[k], torch.stack(ref_saves[k]), 1e-5)
+
+    fp = {k: v.clone().requires_grad_(True) for k, v in folded.items()}
+    xp = x.clone().requires_grad_(True)
+    gp = None if g_all is None else g_all.clone().requires_grad_(True)
+    zz, ll = block_cuda.block_forward_plain(fp, gp, xp, mask, *args)
+    dz, dld = torch.randn_like(zz), torch.randn_like(ll)
+    inputs = [xp] + [fp[k] for k in block_cuda.FOLD_KEYS] + ([gp] if gp is not None else [])
+    ref = torch.autograd.grad((zz * dz).sum() + (ll * dld).sum(), inputs)
+    kernels.product_counts(reset=True)
+    grads = block_cuda.block_bwd_store(folded, g_all is not None, x, mask, saves, dz, dld, *args)
+    counts = kernels.product_counts(reset=True)
+    assert (counts["tc_gemm"], counts["tc_wgrad"]) == (4 + 2 * L, 3 + 2 * L)
+    assert counts["core_gemm"] + counts["core_wgrad"] == 0
+    names = ["dx"] + ["d" + k for k in block_cuda.FOLD_KEYS] + (["dg"] if gp is not None else [])
+    for n, r in zip(names, ref):
+        _rel_close(n, grads[n], r, 1e-4)
+    recomputed = block_cuda.block_bwd(folded, g_all, x, mask, dz, dld, *args)
+    for n in names:
+        assert torch.equal(recomputed[n], grads[n]), n
+
+    inv = block_cuda.fold_block_params_inverse(block, L, hp.n_split)
+    inv = {k: v.detach().contiguous() for k, v in inv.items()}
+    inv_args = (hp.kernel_size_dec, hp.dilation_rate, hp.sigmoid_scale)
+    kernels.product_counts(reset=True)
+    y = block_cuda.block_inverse(inv, g_all, x, mask, *inv_args)
+    counts = kernels.product_counts(reset=True)
+    assert (counts["tc_gemm"], counts["core_gemm"]) == (3 + 2 * L, 0)
+    _rel_close("inverse", y, block_cuda.block_inverse_plain(inv, g_all, x, mask, *inv_args), 1e-5)
