@@ -12,7 +12,12 @@ Phases, each fatal on failure:
    weight-gradient GEMM, both 3xTF32) at every product of one flow block at
    [16, 704, .]: against float64 of the same operands within PRODUCT_RTOL
    and against the plain emulation of the split, beside the CUDA-core
-   kernel's error and time, with ms and achieved TFLOP/s;
+   kernel's error and time, with ms and achieved TFLOP/s; and the
+   conv-GEMM at the encoder layer's products at [16, 192, .], [16, 64, .]
+   and serving b=4 [4, 250, .] three ways (the tensor cores over the whole
+   K walk, what the text chains take: split-K where it makes fewer waves,
+   and the CUDA cores), each against float64 (max and mean signed error)
+   with its device time;
 2. writes a checkpoint at the full width of ``configs/base.json`` in the
    JAX package's ``.npz`` format, with random non-zero weights from a
    numpy seed (duration bias log 6: about 6 frames per phoneme);
@@ -71,7 +76,11 @@ Phases, each fatal on failure:
 The profiled train step also counts its device products: every product the
 block chains send to the tensor cores must run there (10 conv-GEMMs per
 block forward, 12 conv-GEMMs and 11 weight gradients per block backward),
-none declined.
+none declined, and the encoder layers' where the batch's rows fill the card
+(4 conv-GEMMs per forward, 8 and 4 weight gradients per backward at
+[16, 192]); the encoder layer's forward and backward kernels are held to the
+same counts per call and the backward's recomputed output to the forward
+kernel's bits.
 
 Each kernel's line in ``{"kernels": [...]}`` carries its bound on this
 card: the larger of its bytes (every input read once, every output written
@@ -227,12 +236,14 @@ def kernel_flops(name: str, args) -> float:
         (w1, _, _, _, w2, *_), x = args[0], args[1]
         flops = 2.0 * x.shape[0] * x.shape[1] * (w1.numel() + w2.numel())
     elif base == "encoder_layer":
-        weights, x = args[0], args[1]
+        from glow_tts_train_tpu_torch.ops import encoder_cuda
+
+        weights, x = encoder_cuda.merge_qkv(args[0]) if len(args[0]) == 18 else args[0], args[1]
         b, t, h = x.shape
-        band = weights[8].shape[0]
+        band = weights[4].shape[0]
         # 4 projections, q.k and p.v per head (+ both band terms), 2 FFN convs
         flops = 2.0 * b * t * (4 * h * h + 2 * t * h + 2 * band * h
-                               + weights[14].numel() + weights[16].numel())
+                               + weights[10].numel() + weights[12].numel())
     elif name == "mas":
         # per cell a masked add and a compare-select going forward, and the
         # backtrack's one choice per frame
@@ -291,7 +302,8 @@ def bound(name: str, args, kwargs, outputs, fn=None) -> dict:
         kernels.product_counts(reset=True)
         fn(*args, **kwargs)
         products = kernels.product_counts(reset=True)
-        device = {"device_ms": device_ms(lambda: fn(*args, **kwargs), runs=3)}
+        traced = device_profile(lambda: fn(*args, **kwargs), runs=3)
+        device = {"device_ms": traced[0], "device_operations": traced[1]}
     on_tensor_cores = bool(products and products["tc_gemm"] + products["tc_wgrad"])
     by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     by_flops = flops / (PEAK_3XTF32_FLOPS if on_tensor_cores else PEAK_F32_FLOPS) * 1e3
@@ -423,6 +435,93 @@ def bare_products(device_line: str) -> list:
         held("wgrad", name, [taps * c_in, batch * t, n], 2.0 * batch * t * taps * c_in * n,
              lambda mode: tc_gemm.weight_gradient(a, dy, taps, dilation, mode=mode),
              cols.double().T @ dy2.double(), tc_gemm.matmul_3xtf32_plain(cols.T, dy2))
+    return rows
+
+
+# the encoder layer's products: (name, c_in, taps, n, w_t) -> [rows, taps *
+# c_in, n]; w_t: the transposed product, read from the forward's weights; at
+# the training shape [16, 192, .] (t_x <= 192: short, deep products), the
+# shortest training bucket [16, 64, .] and serving b=4 [4, 250, .]
+TEXT_PRODUCT_ROWS = ((16, 192), (16, 64), (4, 250))
+TEXT_PRODUCTS = (
+    ("ffn2", 768, 3, 192, False), ("ffn1", 192, 3, 768, False),
+    ("dx_qkv_transposed", 576, 1, 192, True), ("qkv", 192, 1, 576, False),
+    ("out_proj", 192, 1, 192, False), ("db_ffn_transposed", 768, 3, 192, True),
+)
+# the tensor-core conv-GEMM over the whole K walk, what the text chains
+# take (split-K where it makes fewer waves), the CUDA cores
+TEXT_MODES = ("tc", "text", "core")
+
+
+def text_products(device_line: str) -> list:
+    """The conv-GEMM at the encoder's shapes three ways: the tensor cores
+    over the whole K walk ("tc"), what the text chains take ("text":
+    ``tc_gemm.text_product_plan`` says which unit and how many K shares,
+    held against the product counters) and the CUDA-core kernel, each
+    against float64 of the same operands (max error within PRODUCT_RTOL of
+    max |ref|, and the lean: the error along the sign of the reference over
+    its mean magnitude), with the device's own time and TFLOP/s; the text
+    chains' bits the same twice."""
+    import numpy as np
+    import torch
+
+    from glow_tts_train_tpu_torch import kernels
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    rng = np.random.default_rng(SEED + 6)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for batch, t in TEXT_PRODUCT_ROWS:
+        for name, c_in, taps, n, w_t in TEXT_PRODUCTS:
+            a = torch.from_numpy(rng.standard_normal((batch, t, c_in)).astype(np.float32)).to(PLATFORM)
+            shape = (taps * n, c_in) if w_t else (taps * c_in, n)
+            w = torch.from_numpy(
+                (rng.standard_normal(shape) / math.sqrt(taps * c_in)).astype(np.float32)).to(PLATFORM)
+            tap_sign = -1 if w_t else 1
+            b = tc_gemm.transposed_weights_plain(w, taps) if w_t else w
+            ref = tc_gemm.im2col_plain(a, taps, 1, tap_sign).double() @ b.double()
+            scale = ref.abs().max().item()
+            flops = 2.0 * batch * t * taps * c_in * n
+            on_tc, splits = tc_gemm.text_product_plan(batch * t, taps * c_in, n, sms)
+            row = {"kernel": "conv_gemm", "name": name, "shape": [batch * t, taps * c_in, n],
+                   "w_t": w_t, "max_abs_ref": scale,
+                   "text_takes": f"tensor cores, {splits} K shares" if on_tc else "CUDA cores",
+                   "bound_ms": flops / PEAK_3XTF32_FLOPS * 1e3}
+            outs = {}
+            for mode in TEXT_MODES:
+                run = lambda: tc_gemm.conv_product(a, w, taps, 1, tap_sign, mode=mode, w_t=w_t)
+                kernels.product_counts(reset=True)
+                outs[mode] = out = run()
+                counts = kernels.product_counts(reset=True)
+                unit = "core_gemm" if mode == "core" or (mode == "text" and not on_tc) else "tc_gemm"
+                if counts[unit] != 1:
+                    fail(f"text product {name} {row['shape']} {mode}: product counts {counts}, "
+                         f"expected one {unit}")
+                err = out.double() - ref
+                # the lean: the error along the sign of the reference, over the
+                # mean magnitude (negative: the outputs shrink alike)
+                max_err = err.abs().max().item()
+                lean = (err * ref.sign()).mean().item() / ref.abs().mean().item()
+                rtol = 1e-5 if unit == "core_gemm" else PRODUCT_RTOL
+                if not (math.isfinite(max_err) and max_err <= rtol * scale):
+                    fail(f"text product {name} {row['shape']} {mode}: max abs err {max_err} vs "
+                         f"float64, max |ref| {scale} (tolerance {rtol} relative)")
+                traced = device_ms(run, runs=10)
+                ok = traced is not None and traced >= row["bound_ms"]
+                on_device = traced if ok else time_ms(run, (), {})
+                row[mode] = {"device_ms": on_device, "tflops": flops / on_device / 1e9,
+                             "max_abs_err_f64": max_err, "lean_f64": lean}
+            if on_tc and splits == 1 and not torch.equal(outs["text"], outs["tc"]):
+                fail(f"text product {name} {row['shape']}: one K share, yet not the whole-K bits")
+            again = tc_gemm.conv_product(a, w, taps, 1, tap_sign, mode="text", w_t=w_t)
+            if not torch.equal(outs["text"], again):
+                fail(f"text product {name} {row['shape']}: different bits twice")
+            rows.append(row)
+            print(f"product conv_gemm {name}: {row['shape']} text chains take {row['text_takes']}; "
+                  + ", ".join(
+                      f"{m} {row[m]['device_ms'] * 1e3:.1f} us ({row[m]['tflops']:.1f} TFLOP/s, err "
+                      f"{row[m]['max_abs_err_f64'] / scale:.2e} of max|ref|, lean "
+                      f"{row[m]['lean_f64']:+.2e})" for m in TEXT_MODES) + f" [{device_line}]")
     return rows
 
 
@@ -773,7 +872,7 @@ def train(workdir: Path, repo: Path, config_path: Path, device_line: str):
     step_ms = statistics.median(r["seconds"] for r in steps[1:]) * 1e3
     print(f"train: CLI {seconds:.1f} s (corpus load, DDI, 8 steps, 2 checkpoints), encoder_fuse auto; "
           f"median step after the first {step_ms:.1f} ms; epochs {epochs}; launches {got}")
-    profile = profile_step(last, device_line, n_blocks, config.model.n_block_layers)
+    profile = profile_step(last, device_line, config.model)
 
     # the op-by-op text side still trains, and launches none of the text kernels
     u_launches, u_steps, _, _, u_seconds = run_train_cli(
@@ -817,23 +916,29 @@ def profiled(fn) -> tuple:
     return wall_ms, by_kernel, launches
 
 
-def device_ms(fn, runs: int = 1):
-    """The device's own time for one call of ``fn`` in ms: the self time of
-    its kernels and copies under torch.profiler, mean of ``runs`` calls in
-    one trace.  A trace can come back short of some device records, so two
-    traces in a row must count the same device operations (the smaller
-    time of the two is taken); None where four traces do not agree."""
-    last = None
-    for _ in range(4):
+def device_profile(fn, runs: int = 1) -> tuple:
+    """(the device's own time for one call of ``fn`` in ms, its device
+    operations a call): the self time of its kernels and copies under
+    torch.profiler, mean of ``runs`` calls in one trace.  A trace can come
+    back short of some device records, so two of up to six traces must
+    count the same device operations (the smaller time of those is taken);
+    (None, None) where none agree."""
+    seen = {}
+    for _ in range(6):
         _, by_kernel, operations = profiled(lambda: [fn() for _ in range(runs)])
         total = sum(by_kernel.values())
-        if operations and last is not None and last[0] == operations:
-            return min(last[1], total) / runs
-        last = (operations, total)
-    return None
+        if operations and operations in seen:
+            return min(seen[operations], total) / runs, operations / runs
+        seen[operations] = total
+    return None, None
 
 
-def profile_step(last: dict, device_line: str, n_blocks: int, n_layers: int) -> dict:
+def device_ms(fn, runs: int = 1):
+    """The device's own time for one call of ``fn`` in ms (``device_profile``)."""
+    return device_profile(fn, runs)[0]
+
+
+def profile_step(last: dict, device_line: str, model) -> dict:
     """One more step on the last batch under torch.profiler: wall time,
     device busy time (the kernels' and copies' self time; one stream, so
     they add up), idle share, kernel launches, and the top kernels."""
@@ -844,12 +949,19 @@ def profile_step(last: dict, device_line: str, n_blocks: int, n_layers: int) -> 
     from glow_tts_train_tpu_torch import kernels
 
     # the step's device products: every product of the 12 block forward and
-    # 12 block backward chains on the tensor cores, none of them declined
-    # (the text side's chains do not ask and stay on the CUDA cores)
+    # 12 block backward chains on the tensor cores, none of them declined,
+    # and the encoder layers' where the batch's rows fill the card (the
+    # prenet's and the duration stack's chains do not ask)
     kernels.product_counts(reset=True)
     step()
     products = kernels.product_counts(reset=True)
-    want = block_products(n_layers, forward=n_blocks, backward=n_blocks)
+    n_blocks, n_layers = model.n_blocks_dec, model.n_layers_enc
+    block = block_products(model.n_block_layers, forward=n_blocks, backward=n_blocks)
+    text = encoder_products(
+        last["batch"]["x"].numel(), model.hidden_channels_enc or model.hidden_channels,
+        model.filter_channels, model.kernel_size, forward=n_layers, backward=n_layers,
+    )
+    want = {k: block[k] + text[k] for k in block}
     if {k: products[k] for k in want} != want:
         fail(f"train step: device products {products}, expected {want}")
     wall_ms, by_kernel, launches = profiled(step)
@@ -858,7 +970,8 @@ def profile_step(last: dict, device_line: str, n_blocks: int, n_layers: int) -> 
           for name in ("conv_gemm_tc_kernel", "wgrad_tc_kernel", "split_weights_kernel",
                        "conv_gemm_kernel", "wgrad_kernel", "col_sum_kernel")}
     block = sum(tc.values())
-    attention = sum(v for k, v in by_kernel.items() if "attention_kernel" in k or "attn_bwd" in k)
+    attention = sum(v for k, v in by_kernel.items()
+                    if any(a in k for a in ("attention_tc_kernel", "attn_bwd", "rel_grads")))
     norms = sum(v for k, v in by_kernel.items() if "layer_norm" in k)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     row = {
@@ -913,10 +1026,11 @@ def entry_writer(report: list, launches: dict, device_line: str):
             "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             **roof, "shape": shape, "max_abs_ref": scale, **extra,
         })
-        on_device = f" ({roof['device_ms']:.4f} on the device)" if roof.get("device_ms") else ""
+        on_device = (f" ({roof['device_ms']:.4f} on the device, {roof['device_operations']} device "
+                     f"operations a call)" if roof.get("device_ms") else "")
         print(f"kernel {name}: {shape} err {err:.3e} (max|ref| {scale:.3e}) kernel {ms:.4f} ms"
-              f"{on_device}, plain {plain_ms:.4f} ms, bound {roof['bound_ms']:.4f} ms by {roof['bound_by']} "
-              f"{extra or ''}[{device_line}]")
+              f"{on_device}, plain {plain_ms:.4f} ms, bound {roof['bound_ms']:.4f} ms by "
+              f"{roof['bound_by']}, products {roof.get('products')} {extra or ''}[{device_line}]")
 
     return entry
 
@@ -948,6 +1062,39 @@ def block_products(n_layers: int, forward: int, backward: int) -> dict:
         "tc_wgrad": backward * (3 + 2 * n_layers),
         "declined_gemm": 0, "declined_wgrad": 0,
     }
+
+
+def encoder_products(rows: int, h: int, f: int, taps: int, forward: int, backward: int) -> dict:
+    """Device products of ``forward`` encoder-layer forward chains and
+    ``backward`` backward chains (each recomputes the forward) over ``rows``
+    rows (csrc/encoder.cu, csrc/encoder_train.cu): every product asks for
+    the tensor cores and takes them where ``conv_gemm_tc_fits`` /
+    ``wgrad_tc_fits`` say so (``tc_gemm.text_product_plan``: at least 64
+    columns and blocks for a quarter of the SMs, 128-row tiles times K
+    shares; 256 rows), else it is declined to the CUDA cores.  Forward:
+    Q/K/V, the output projection, the FFN's two convs; backward: those
+    again, the FFN's two transposed convs, the projection's and Q/K/V's
+    input gradients, and four weight gradients."""
+    import torch
+
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # (K, N) of each conv-GEMM
+    fwd = ((h, 3 * h), (h, h), (taps * h, f), (taps * f, h))
+    bwd = fwd + ((taps * h, f), (taps * f, h), (h, h), (3 * h, h))
+    counts = dict(tc_gemm=0, tc_wgrad=0, core_gemm=0, core_wgrad=0,
+                  declined_gemm=0, declined_wgrad=0)
+    for chains, products in ((forward, fwd), (backward, bwd)):
+        for k, n in products:
+            on = tc_gemm.text_product_plan(rows, k, n, sms)[0]
+            counts["tc_gemm"] += chains * on
+            counts["core_gemm"] += chains * (not on)
+            counts["declined_gemm"] += chains * (not on)
+    on = rows >= 256
+    counts["tc_wgrad" if on else "core_wgrad"] += 4 * backward
+    counts["declined_wgrad"] += 0 if on else 4 * backward
+    return counts
 
 
 def held_products(name: str, roof: dict, forward: int, backward: int, n_layers: int) -> None:
@@ -1100,16 +1247,25 @@ def text_kernels(recorders: dict, launches: dict, entry) -> list:
             plain_ms = time_ms(plain_fwd[name], args, kwargs)
             roof = bound(name, args, kwargs, out_k, recorders[name].fn)
         held_to_bound(f"{name} with dropout", ms, roof)
+        extra = {}
+        if name == "encoder_layer":
+            x = args[1]
+            want = encoder_products(x.shape[0] * x.shape[1], x.shape[2], args[0][-4].shape[1],
+                                    args[0][-4].shape[0] // x.shape[2], forward=1, backward=0)
+            if roof["products"] != want:
+                fail(f"encoder_layer (training): device products {roof['products']}, "
+                     f"expected {want}")
         forward_rows.append({
             "name": name, "train_launches": launches[name], "train_shape": list(args[1].shape),
             "train_p_dropout": p_dropout, "train_max_abs_err": err, "train_max_abs_ref": scale,
             "train_ms": ms, "train_plain_ms": plain_ms,
-            **{"train_" + k: v for k, v in roof.items()},
+            **{"train_" + k: v for k, v in roof.items()}, **extra,
         })
         print(f"kernel {name} (training, p_dropout {p_dropout}): {list(args[1].shape)} err {err:.3e} "
-              f"(max|ref| {scale:.3e}) kernel {ms:.4f} ms ({roof['device_ms']} on the device), "
-              f"plain {plain_ms:.4f} ms, bound {roof['bound_ms']:.4f} ms, "
-              f"{launches[name]} launches in training")
+              f"(max|ref| {scale:.3e}) kernel {ms:.4f} ms ({roof['device_ms']} on the device, "
+              f"{roof['device_operations']} device operations a call), plain {plain_ms:.4f} ms, "
+              f"bound {roof['bound_ms']:.4f} ms by {roof['bound_by']}, products {roof['products']}, "
+              f"{launches[name]} launches in training {extra}")
 
         # backward
         bwd = name + "_bwd"
@@ -1131,16 +1287,19 @@ def text_kernels(recorders: dict, launches: dict, entry) -> list:
             fail(f"{bwd}: {ties} ReLU gates differ from the plain version's")
         ref = plain_bwd[name](*args, gates=saves["gates"], **kwargs)
         worst = (0.0, 1.0)
+        # encoder layer in the JAX fold's 18 weights: the key bias's gradient
+        # (index 4) is zero but for rounding, a row's scores all shift alike:
+        # held to the query bias's scale (the merged layout's Q/K/V bias
+        # holds both)
+        key_bias = 4 if name == "encoder_layer" and len(weights) == 18 else None
         for i, (g, r) in enumerate(zip(grads, ref)):
-            # encoder layer: the key bias's gradient (index 4) is zero but for
-            # rounding, a row's scores all shift alike: held to the query bias's scale
-            floor = ref[2].abs().max().item() if (name, i) == ("encoder_layer", 4) else 1e-6
+            floor = ref[2].abs().max().item() if i == key_bias else 1e-6
             e = (g - r).abs().max().item()
             sc = max(r.abs().max().item(), floor)
             if not math.isfinite(e) or e > KERNEL_RTOL * sc:
                 fail(f"{bwd}: gradient {i} max abs err {e} vs max |ref| {sc} "
                      f"(tolerance {KERNEL_RTOL} relative)")
-            if i > 0 and r.abs().max().item() == 0.0 and (name, i) != ("encoder_layer", 4):
+            if i > 0 and r.abs().max().item() == 0.0 and i != key_bias:
                 fail(f"{bwd}: gradient {i} is zero in the plain version: nothing was compared")
             if e / sc > worst[0] / worst[1]:
                 worst = (e, sc)
@@ -1151,10 +1310,22 @@ def text_kernels(recorders: dict, launches: dict, entry) -> list:
         dx_scale = ref[0].abs().max().item()
         ms = time_ms(recorders[bwd].fn, args, kwargs)
         plain_ms = time_ms(plain_bwd[name], args, kwargs)
-        entry(bwd, dx_err, dx_scale, ms, plain_ms, list(x.shape),
-              bound(bwd, args, kwargs, grads, recorders[bwd].fn),
+        roof = bound(bwd, args, kwargs, grads, recorders[bwd].fn)
+        extra = {}
+        if name == "encoder_layer":
+            # the recompute is the forward's chain: its output equals the
+            # forward kernel's bit for bit (and so do the ReLU gates)
+            if not torch.equal(saves["out"], recorders[name].fn(weights, x, mask, *cfg, **kwargs)):
+                fail("encoder_layer_bwd: the recomputed forward differs from the forward "
+                     "kernel's bits")
+            want = encoder_products(x.shape[0] * x.shape[1], x.shape[2], weights[-4].shape[1],
+                                    weights[-4].shape[0] // x.shape[2], forward=0, backward=1)
+            if roof["products"] != want:
+                fail(f"encoder_layer_bwd: device products {roof['products']}, expected {want}")
+            extra = {"recompute_equals_forward": True}
+        entry(bwd, dx_err, dx_scale, ms, plain_ms, list(x.shape), roof,
               p_dropout=cfg[-2], worst_rel_err_grad=worst[0] / worst[1], n_gradients=len(grads),
-              relu_ties=ties, same_bits_twice=True)
+              relu_ties=ties, same_bits_twice=True, **extra)
     return forward_rows
 
 
@@ -1552,7 +1723,7 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
     from glow_tts_train_tpu_torch.models import encoder_forward, forward_gen, store_inverse
     from glow_tts_train_tpu_torch.ops import block_cuda, encoder_cuda, text_cuda
 
-    products = bare_products(device_line)
+    products = bare_products(device_line) + text_products(device_line)
     ckpt, config, hp = make_checkpoint(workdir, config_path)
     stdin_text = requests()
 
@@ -1636,8 +1807,10 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
             "plain_ms": plain_ms, **roof, "shape": list(x.shape), "max_abs_ref": scale,
         })
         print(f"kernel {name}: x {list(x.shape)} err {err:.3e} (max|ref| {scale:.3f}) "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {roof['bound_ms']:.4f} ms "
-              f"by {roof['bound_by']} [{device_line}]")
+              f"kernel {ms:.4f} ms ({roof.get('device_ms')} on the device, "
+              f"{roof.get('device_operations')} device operations a call), plain {plain_ms:.4f} ms, "
+              f"bound {roof['bound_ms']:.4f} ms by {roof['bound_by']}, products {roof.get('products')} "
+              f"[{device_line}]")
 
     # ---- the whole mel: kernel path on the card vs plain path on the CPU ----
     rng = np.random.default_rng(SEED + 1)

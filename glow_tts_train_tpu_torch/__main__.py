@@ -11,7 +11,8 @@ kernels and exits with an error when no GPU is present; ``--platform
 cpu`` runs their plain PyTorch versions.  Without --checkpoint the model
 is initialised fresh and ActNorm data-dependently on the first batch; a
 --checkpoint (``.npz``, params) starts Adam fresh, as the JAX CLI does for
-a checkpoint without optimizer state.  The corpus and batches come from
+a checkpoint without optimizer state, and warns when the file holds
+optimizer state (``opt/`` keys), which this CLI does not read yet.  The corpus and batches come from
 the package's own ``data`` pipeline (numpy).  Single device:
 the mesh and multi-host flags are not taken.
 """
@@ -129,7 +130,14 @@ def main(argv=None):
     hp = hyper_from_config(config)
 
     if args.checkpoint:
-        flat, meta = read_npz(Path(args.checkpoint))
+        dropped: list = []
+        flat, meta = read_npz(Path(args.checkpoint), dropped)
+        if dropped:
+            _LOGGER.warning(
+                "%s: dropped %s optimizer-state (opt/) keys; Adam starts fresh at count 0 "
+                "(its learning rate from the start of the schedule)",
+                args.checkpoint, len(dropped),
+            )
         model = trainable_model({k[len("model/"):]: v for k, v in flat.items()}, hp, device)
         state = TrainState(model, step=int(meta.get("global_step", 1)))
         # continue the data order: epoch e shuffles with seed + e, and a

@@ -7,7 +7,8 @@ stacked on a leading axis) and whose ``__meta__`` entry is UTF-8 JSON
 (``global_step``, ``learning_rate``, ``version``).  Optimizer leaves
 (``opt/...``) are neither read nor written: the JAX package guards them
 with a jax treedef string, so a checkpoint of the port holds params only,
-and both trainers start Adam fresh from it.
+and both trainers start Adam fresh from it (the port's train CLI warns,
+counting the ``opt/`` keys it drops: :func:`read_npz`'s ``dropped``).
 
 Loading is strict: a missing, extra or mis-shaped ``model/`` key raises.
 """
@@ -145,11 +146,19 @@ def save_npz(
     Path(path).write_bytes(buf.getvalue())
 
 
-def read_npz(path: Path) -> typing.Tuple[typing.Dict[str, np.ndarray], dict]:
-    """-> (``model/...`` arrays, meta)."""
+OPT_PREFIX = "opt/"
+
+
+def read_npz(
+    path: Path, dropped: typing.Optional[typing.List[str]] = None
+) -> typing.Tuple[typing.Dict[str, np.ndarray], dict]:
+    """-> (``model/...`` arrays, meta); ``dropped`` receives the names of
+    the optimizer-state keys (``opt/...``) that were not read."""
     with np.load(path, allow_pickle=False) as data:
         flat = {k: data[k] for k in data.files if k.startswith(PREFIX)}
         meta = json.loads(bytes(data[META_KEY]).decode("utf-8")) if META_KEY in data.files else {}
+        if dropped is not None:
+            dropped.extend(k for k in data.files if k.startswith(OPT_PREFIX))
     return flat, meta
 
 

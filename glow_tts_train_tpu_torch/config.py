@@ -5,8 +5,9 @@ The port's own copy of the JAX package's schema
 nested structure, so one JSON file configures both packages and
 ``dataclasses.asdict`` of the two loads is equal.  Stdlib ``dataclasses``
 only.  Fields that steer the JAX package's TPU graph (``unroll_blocks``,
-``remat_*``, ``prng_impl``, ``mesh_axis``, ``scoped_vmem_limit_kib``,
-``checkpoint_format``) are carried so configs round-trip; the port reads
+``remat_*``, ``prng_impl``, ``mesh_axis``, ``scoped_vmem_limit_kib``)
+are carried so configs round-trip; the port reads ``checkpoint_format``
+(the trainer refuses any value but "npz"),
 ``encoder_fuse``, the decoder-mode keys ``wn_residuals`` and
 ``flow_block_fuse`` (``models.hyper_from_config`` resolves their "auto",
 and refuses ``wn_impl: "xla"`` and ``flow_block_fuse_reverse: false``,

@@ -2,12 +2,14 @@
 //
 // conv_gemm and wgrad each dispatch between two device kernels.  A chain
 // that asks for the tensor cores (the flow block's and the WN stack's:
-// block_train.cu, block.cu) gets conv_gemm_tc_kernel / wgrad_tc_kernel of
-// tc_gemm.cu where the shape fits (conv_gemm_tc_fits, wgrad_tc_fits:
-// 16-byte alignable operands, at least 64 / 32 columns, 32 deep, enough
-// rows); everything else (the text side's chains, narrow widths, a single
-// short sentence) runs the two kernels of this file on the CUDA cores.
-// product_counts says which way the products of a run went.
+// block_train.cu, block.cu; the encoder layer's: encoder.cu,
+// encoder_train.cu, which also allow split-K) gets conv_gemm_tc_kernel /
+// wgrad_tc_kernel of tc_gemm.cu where the shape fits (conv_gemm_tc_fits,
+// wgrad_tc_fits: 16-byte alignable operands, at least 64 / 32 columns, 32
+// deep, enough blocks or rows); everything else (the prenet's and the
+// duration predictor's chains, narrow widths, a single short sentence)
+// runs the two kernels of this file on the CUDA cores.  product_counts
+// says which way the products of a run went.
 //
 // conv_gemm_kernel is a shared-memory SGEMM: a 64x64 output tile per block
 // of 256 threads, a 4x4 accumulator per thread, 32-deep K slices
@@ -42,7 +44,9 @@ namespace {
 constexpr int kBN = 64;
 constexpr int kBK = 32;
 
-template <int kBM>
+// kWT: B is read through ConvGemm::w_t's per-tap transpose (a separate
+// instantiation, so the plain one keeps its loads)
+template <int kBM, bool kWT>
 __global__ void __launch_bounds__(kBM * 4) conv_gemm_kernel(const ConvGemm g) {
   constexpr int kThreads = kBM * 4;
   constexpr int kALoads = kBM * kBK / kThreads;  // A elements staged per thread
@@ -104,7 +108,14 @@ __global__ void __launch_bounds__(kBM * 4) conv_gemm_kernel(const ConvGemm g) {
 #pragma unroll
     for (int i = 0; i < kBLoads; ++i) {
       const int kid = k0 + b_k0 + kBRowStep * i;
-      rb[i] = (b_ok && kid < kdim) ? g.w[(long)kid * ldb + b_col] : 0.f;
+      if (kWT) {  // B[tap * c_in + j, col] = w[tap * n + col, j]
+        const int tap_b = kid / g.c_in;
+        rb[i] = (b_ok && kid < kdim)
+                    ? g.w[((long)tap_b * g.n + b_col) * g.c_in + (kid - tap_b * g.c_in)]
+                    : 0.f;
+      } else {
+        rb[i] = (b_ok && kid < kdim) ? g.w[(long)kid * ldb + b_col] : 0.f;
+      }
     }
   };
   auto store = [&](int buf) {
@@ -275,6 +286,47 @@ __global__ void col_sum_kernel(const float* x, const float* mul, int ld, int n,
   }
 }
 
+// One block per 8 columns and 128 row groups (a warp: 8 neighbouring
+// columns of 4 rows), so that a 192-wide sum still spreads over 24 SMs;
+// eight rows in flight a thread in independent sums; everything combined
+// in a fixed order.
+constexpr int kSumCols = 8, kSumGroups = 128;
+
+__global__ void __launch_bounds__(kSumCols * kSumGroups)
+    column_sums_kernel(const float* x, int ld, int n, const float* mul, int rows, float* out,
+                       float* out2) {
+  __shared__ float part[2][kSumGroups][kSumCols + 1];
+  const int j = blockIdx.x * kSumCols + threadIdx.x;
+  float a8[8] = {}, b8[8] = {};
+  if (j < n)
+    for (int r0 = 8 * threadIdx.y; r0 < rows; r0 += 8 * kSumGroups) {
+      float v[8], m[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const bool ok = r0 + i < rows;
+        const long at = (long)(r0 + i) * ld + j;
+        v[i] = ok ? x[at] : 0.f;
+        m[i] = ok && mul ? mul[at] : 1.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        a8[i] = fmaf(v[i], m[i], a8[i]);
+        b8[i] += v[i];
+      }
+    }
+  part[0][threadIdx.y][threadIdx.x] = ((a8[0] + a8[1]) + (a8[2] + a8[3])) +
+                                      ((a8[4] + a8[5]) + (a8[6] + a8[7]));
+  part[1][threadIdx.y][threadIdx.x] = ((b8[0] + b8[1]) + (b8[2] + b8[3])) +
+                                      ((b8[4] + b8[5]) + (b8[6] + b8[7]));
+  __syncthreads();
+  if (threadIdx.y < 2 && j < n && (threadIdx.y == 0 || out2)) {
+    float total = 0.f;
+#pragma unroll 8
+    for (int y = 0; y < kSumGroups; ++y) total += part[threadIdx.y][y][threadIdx.x];
+    (threadIdx.y == 0 ? out : out2)[j] = total;
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -310,7 +362,9 @@ __global__ void layer_norm_kernel(const LayerNorm a) {
     if (a.xhat) a.xhat[base + c] = xh;
     float y = xh * a.gamma[c] + a.beta[c];
     if (a.relu_after) y = fmaxf(y, 0.f);
-    a.out[base + c] = site_drop(a.drop, b, tr, a.n, c, y);
+    y = site_drop(a.drop, b, tr, a.n, c, y);
+    a.out[base + c] = y;
+    if (a.out_masked) a.out_masked[base + c] = y * a.out_mask[row];
   }
 }
 
@@ -365,16 +419,20 @@ cudaError_t conv_gemm(const ConvGemm& g, cudaStream_t stream) {
   if (g.tc_scratch != nullptr) {
     if (conv_gemm_tc_fits(g, sms)) {
       ++product_counts().tc_gemm;
-      return conv_gemm_tc(g, stream);
+      return conv_gemm_tc(g, sms, stream);
     }
     ++product_counts().declined_gemm;
   }
   ++product_counts().core_gemm;
   const int n_tiles = (g.n + kBN - 1) / kBN;
-  if (((rows + 63) / 64) * n_tiles >= sms) {
-    conv_gemm_kernel<64><<<dim3(n_tiles, (rows + 63) / 64), 256, 0, stream>>>(g);
+  const bool tall = ((rows + 63) / 64) * n_tiles >= sms;
+  const dim3 grid(n_tiles, tall ? (rows + 63) / 64 : (rows + 31) / 32);
+  if (tall) {
+    if (g.w_t) conv_gemm_kernel<64, true><<<grid, 256, 0, stream>>>(g);
+    else conv_gemm_kernel<64, false><<<grid, 256, 0, stream>>>(g);
   } else {
-    conv_gemm_kernel<32><<<dim3(n_tiles, (rows + 31) / 32), 128, 0, stream>>>(g);
+    if (g.w_t) conv_gemm_kernel<32, true><<<grid, 128, 0, stream>>>(g);
+    else conv_gemm_kernel<32, false><<<grid, 128, 0, stream>>>(g);
   }
   return cudaGetLastError();
 }
@@ -398,6 +456,14 @@ cudaError_t ln_param_grads(const float* dy, const float* xhat, int n, int batch,
   if ((err = col_sum(part, n, n, nullptr, 1, batch, dgamma, n, stream)) != cudaSuccess)
     return err;
   return bias_grad(dy, n, n, nullptr, batch, t, part, dbeta, stream);
+}
+
+cudaError_t column_sums(const float* x, int ld, int n, const float* mul, int rows, float* out,
+                        float* out2, cudaStream_t stream) {
+  if (n <= 0 || rows <= 0) return cudaSuccess;
+  column_sums_kernel<<<(n + kSumCols - 1) / kSumCols, dim3(kSumCols, kSumGroups), 0, stream>>>(
+      x, ld, n, mul, rows, out, out2);
+  return cudaGetLastError();
 }
 
 cudaError_t bias_grad(const float* x, int ld, int n, const float* mask,

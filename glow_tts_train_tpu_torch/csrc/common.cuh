@@ -18,7 +18,9 @@
 //    that a second pass adds in a fixed order (no float atomics, so the
 //    gradients are the same bits from run to run).
 //  * col_sum: deterministic per-segment column sums (bias gradients, the
-//    per-sample conditioning gradient, the coupling logdet).
+//    per-sample conditioning gradient, the coupling logdet); column_sums:
+//    the same over all rows in one launch (the encoder layer's bias and
+//    norm gradients).
 //  * wn_layers: the WN stack's 2 conv_gemm launches per layer (gate, then
 //    res/skip), with or without dropout and the per-layer saves, shared by
 //    the flow block in both directions and the WN stack's own kernels.
@@ -113,9 +115,10 @@ enum Epilogue : int {
   kMaskReluBwd = 12, // out = aux > 0 ? acc * mask * drop.scale : 0 (aux: the
                      // dropped ReLU output, > 0 exactly where kept and active)
   kMaskAdd = 13,     // out = acc * mask + aux
+  kBiasReluMask = 14,  // out = max(acc + bias, 0) * mask
 };
-// kBias, kBiasRelu and kBiasMask drop their result when drop.on (site
-// drop.site over the [t, n] output).
+// kBias, kBiasRelu, kBiasMask and kBiasReluMask drop their result when
+// drop.on (site drop.site over the [t, n] output).
 
 struct ConvGemm {
   // A: rows of a channels-last source [batch * t, lda]; the im2col column
@@ -131,8 +134,12 @@ struct ConvGemm {
   int t = 0;
   int tap_sign = 1;  // -1: taps at the negated offsets (transposed conv)
   // B: [taps * c_in, n] with row stride ldb (0: n), bias [n] or null (0).
+  // w_t: w is a forward conv's [taps * n, c_in] and B its per-tap
+  // transpose, B[tap * c_in + j, c] = w[tap * n + c, j] (the input
+  // gradient of that conv, read without a transposed copy; ldb unused).
   const float* w = nullptr;
   int ldb = 0;
+  int w_t = 0;
   const float* bias = nullptr;
   int n = 0;
   // kGate / kCouplingInv read output pairs (j, j + split) of B side by side
@@ -168,20 +175,61 @@ struct ConvGemm {
   // this is set and conv_gemm_tc_fits says yes, else the CUDA-core kernel.
   float* tc_scratch = nullptr;
   long tc_scratch_floats = 0;
+  // Set by a chain (the text side's) to allow split-K on the tensor cores
+  // (conv_gemm_tc_splits): room for the partial sums, kSplitKCols floats a
+  // row ([splits, batch * t, n], splits * n <= kSplitKCols).  Null: the
+  // whole K walk a block, as the flow chains run it.
+  float* part = nullptr;
+  // B's K-major 3xTF32 split made beforehand (presplit_weights: big [n, K],
+  // small after it), or null: the tensor-core kernel splits B into
+  // tc_scratch first
+  const float* w_split = nullptr;
 };
 
 cudaError_t conv_gemm(const ConvGemm& g, cudaStream_t stream);
 
+// The K-major 3xTF32 split of weight matrices in one launch
+// (tc_gemm.cu): big and small [n, kdim] of B [kdim, n], B being w [kdim, n]
+// (row stride ldb) or, with w_t, the per-tap transpose of a forward conv's
+// w [taps * n, c_in].
+constexpr int kMaxSplits = 8;
+struct WeightSplit {
+  const float* w = nullptr;
+  int ldb = 0, kdim = 0, n = 0, c_in = 1, w_t = 0;
+  float* big = nullptr;
+  float* small = nullptr;
+};
+struct WeightSplits {
+  WeightSplit job[kMaxSplits];
+  int count = 0;
+};
+cudaError_t split_weights(const WeightSplits& s, cudaStream_t stream);
+
+// Split, in one launch into `scratch`, the weights of those of the given
+// products that will take the tensor cores (conv_gemm_tc_fits), and point
+// their w_split there; none fits: no launch.
+cudaError_t presplit_weights(ConvGemm* const* gs, int count, float* scratch, long floats,
+                             cudaStream_t stream);
+
+// Split-K's partial sums a row, all shares together: their round trip
+// through memory is the variant's cost, so a product of n columns takes at
+// most kSplitKCols / n shares (2 for the FFN's 768 columns, the most for
+// the 192-wide products at base width).
+constexpr int kSplitKCols = 1536;
+
 // The tensor-core conv-GEMM (tc_gemm.cu).  `can`: what the kernel needs
 // (16-byte copies: c_in, lda and taps * c_in multiples of 4, A 16-byte
-// aligned; a_mask only without taps; the scratch holds the split).  `fits`
-// adds what makes it worth taking: at least 64 columns, 32 deep, and
-// enough 128-row tiles to occupy a quarter of the SMs (below that one
+// aligned; a_mask only without taps; the scratch holds the split).
+// `splits`: the K shares a product takes (1 unless the chain gave split-K
+// scratch and the product is short and deep).  `fits` adds what makes it
+// worth taking: at least 64 columns, 32 deep, and enough blocks (128-row
+// tiles times K shares) to occupy a quarter of the SMs (below that one
 // block's serial K walk decides, and the CUDA-core kernel's 32-row tiles
 // win).
 bool conv_gemm_tc_can(const ConvGemm& g);
+int conv_gemm_tc_splits(const ConvGemm& g, int sms);
 bool conv_gemm_tc_fits(const ConvGemm& g, int sms);
-cudaError_t conv_gemm_tc(const ConvGemm& g, cudaStream_t stream);
+cudaError_t conv_gemm_tc(const ConvGemm& g, int sms, cudaStream_t stream);
 
 struct WGrad {
   // out[kk, n] = sum over rows m of A_im2col[m, kk] * dY[m, n], A gathered
@@ -234,6 +282,13 @@ cudaError_t col_sum(const float* x, int ld, int n, const float* mask, int n_seg,
 cudaError_t bias_grad(const float* x, int ld, int n, const float* mask,
                       int batch, int t, float* part, float* out,
                       cudaStream_t stream);
+
+// Column sums over all `rows` rows in one launch, in a fixed order:
+// out[j] = sum_r x[r, j] * mul[r, j] (mul null: x alone) and, when out2 is
+// given, out2[j] = sum_r x[r, j].  A bias gradient (mul null) or a norm's
+// dgamma and dbeta (mul = xhat) without per-sample partials.
+cudaError_t column_sums(const float* x, int ld, int n, const float* mul, int rows, float* out,
+                        float* out2, cudaStream_t stream);
 
 // dgamma[j] = sum_rows dy[r, j] * xhat[r, j] and dbeta[j] = sum_rows dy[r, j]
 // over all batch * t rows of two [rows, n] tensors, per-sample partials in
@@ -297,6 +352,9 @@ struct LayerNorm {
   Dropout drop;
   float* xhat = nullptr;  // [rows, n] or null
   float* rstd = nullptr;  // [rows] or null
+  // a second copy of the result times out_mask [rows], or null
+  float* out_masked = nullptr;
+  const float* out_mask = nullptr;
 };
 
 cudaError_t layer_norm(const LayerNorm& a, cudaStream_t stream);

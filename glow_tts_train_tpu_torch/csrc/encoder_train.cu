@@ -3,45 +3,55 @@
 //
 // Like the TPU kernel it saves nothing from the forward: it recomputes the
 // layer from (weights, x, mask, seed) with the forward's own chain
-// (encoder.cu), keeping q/k/v, the heads' outputs, both norms' normalised
-// inputs and inverse stds, the FFN's dropped ReLU output and the softmax's
-// row max and inverse row sum; replays every dropout keep mask from the
-// seed; then walks back: second norm, FFN (two transposed conv products with
-// the ReLU/keep and residual tails in their epilogues), first norm, output
-// projection, attention core, Q/K/V projections.
+// (encoder.cu, the same launches and dispatch, so the recomputed output and
+// ReLU gates are the forward's bits), keeping q/k/v, the heads' outputs,
+// both norms' normalised inputs and inverse stds, the FFN's dropped ReLU
+// output and the softmax's row max and inverse row sum; replays every
+// dropout keep mask from the seed; then walks back: second norm, FFN (two
+// transposed conv products with the ReLU/keep and residual tails in their
+// epilogues), first norm, output projection, attention core, the Q/K/V
+// projection (one [h, 3h] product: one weight and one bias gradient).  The
+// transposed products read the forward's weights as they lie
+// (ConvGemm::w_t), and every buffer comes from the caller's one scratch
+// block (encoder_scratch).  The products run on the tensor cores where the
+// shape fits (text_product); the gradient sums whose lean matters stay on
+// the CUDA cores: the norms' dgamma = sum dy * xhat and mean(g * xhat)
+// (column_sums, layer_norm_bwd) and the softmax backward's dsum.
 //
-// Attention core.  The probabilities are never written: as in a streaming
-// attention backward they are rebuilt tile by tile from q, k and the saved
-// row statistics.  With pd the dropped probabilities, the softmax backward's
-// row term sum_j pd_ij * dpd_ij equals dout_i . out_i (the rel-v band term
-// included), so it comes from the forward's output.  Two kernels share the
-// per-pair math (pair_grad): attn_bwd_q owns 8 query rows per block and
-// streams the keys (dq, and per row the band sums dqrel = ds on the 2w+1
-// diagonals and pb = pd on them); attn_bwd_kv owns 8 keys and streams the
-// queries (dk, dv).  ds is zero where the attend mask is zero, so a padded
-// query row (uniform softmax over -1e4 scores) contributes to dv and the
-// rel-v table only, as in the TPU kernel.  The rel-pos tables are shared by
-// the heads: d rel_k[o] = sum_i dqrel_i[o] q_i and d rel_v[o] = sum_i
-// pb_i[o] dout_i are wgrad products per head over all rows, added in head
-// order: no atomics, the same bits from run to run.
+// Attention core, each (query tile, key tile)'s q.k^T and dout.v^T
+// computed once (five [t, t, d] products where the streaming design took
+// seven).  With pd the dropped probabilities, the softmax backward's row
+// term sum_j pd_ij * dpd_ij equals dout_i . out_i (the rel-v band term
+// included), so it comes from the forward's output.
+//  * attn_bwd_scores_tc_kernel: a block owns 32 query rows of one (sample,
+//    head) and streams the keys; q.k^T and dout.v^T on the tensor cores
+//    (3xTF32 mma.sync, as the forward's core); per pair the dropped
+//    probability pd and the score cotangent ds (pair_grad), written to
+//    [batch, heads, t, t] scratch (4.7 MB each at [16, 2, 192, 192]), and
+//    per row the band sums dqrel = ds * scale and pb = pd on the 2w+1
+//    diagonals.
+//  * attn_bwd_products_kernel: dq = scale ds k + dqrel rel_k, dk = scale
+//    ds^T q, dv = pd^T dout, three batched 3xTF32 products in one launch,
+//    each output element owned by one thread: no atomics.
+//  * rel_grads_kernel: both rel-pos tables' gradients, shared by the heads,
+//    d rel_k[o] = sum dqrel[., o] q and d rel_v[o] = sum pb[., o] dout over
+//    rows and heads in a fixed order, one launch.
+// ds is zero where the attend mask is zero, so a padded query row (uniform
+// softmax over -1e4 scores) contributes to dv and the rel-v table only, as
+// in the TPU kernel.
 //
-// Bound on the card: f32 FMA throughput of the FFN's products (recompute,
-// weight gradient and transposed conv, each 2 * rows * 576 * 768 * 2 FLOPs)
-// when rows = batch * t fills the card; at t_x of a hundred or two the
-// attention kernels' (sample, head, 8-row) blocks and the two dozen small
-// launches make it latency-bound.
+// Bound on the card: the operations of the FFN's products (recompute,
+// weight gradient and transposed conv); at t_x of a hundred or two the
+// products are short and deep, which is what the split-K variant is for.
 #include <math.h>
 
+#include <algorithm>
+
+#include "attention_tc.cuh"
 #include "encoder.cuh"
 
 namespace gtt {
 namespace {
-
-constexpr int kOwn = 8;      // rows a block owns (queries in _q, keys in _kv)
-constexpr int kTile = 32;    // streamed rows per shared-memory tile (one per lane)
-constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = kOwn / kWarps;
-constexpr int kDPerLane = kAttnMaxD / 32;
 
 struct AttnBwd {
   const float* qkv = nullptr;        // [rows, 3h]
@@ -53,23 +63,17 @@ struct AttnBwd {
   const float* stat_m = nullptr;     // [batch, heads, t] softmax row max
   const float* stat_linv = nullptr;  // and inverse row sum
   float* dqkv = nullptr;             // [rows, 3h]
-  // per row and head, [rows, heads * nb]: q . rel_k and datt . rel_v (written
-  // by attn_bwd_q, read by attn_bwd_kv), and the band sums dqrel and pb
-  float* qrel = nullptr;
-  float* dorv = nullptr;
+  // the band sums dqrel and pb per row and head, [rows, heads * nb]
   float* dqrel = nullptr;
   float* pb = nullptr;
-  float* dsum = nullptr;  // [rows, heads] datt_i . att_i
+  // the score pass's score cotangents and dropped probabilities,
+  // [batch, heads, t, t]
+  float* ds = nullptr;
+  float* pd = nullptr;
   int t = 0, n_heads = 0, d = 0, window = 0;
   float scale = 1.f;
   Dropout drop;
 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // One (query, key) pair of head hd: the dropped probability pd and the
 // score cotangent ds, from q.k, dout.v, the band terms (when |key - query|
@@ -91,266 +95,302 @@ __device__ __forceinline__ void pair_grad(const AttnBwd& a, int b, int hd, int q
   ds = attend ? p * (dpd * keep_scale - dsum) : 0.f;
 }
 
-__global__ void __launch_bounds__(kWarps * 32) attn_bwd_q_kernel(const AttnBwd a) {
-  __shared__ float qs[kOwn][kAttnMaxD];
-  __shared__ float dos[kOwn][kAttnMaxD];
-  __shared__ float ks[kTile][kAttnMaxD + 1];  // +1: lane j reads row j
-  __shared__ float vs[kTile][kAttnMaxD + 1];
-  __shared__ float qrel[kOwn][kAttnMaxBand];
-  __shared__ float dorv[kOwn][kAttnMaxBand];
-  __shared__ float dqr[kOwn][kAttnMaxBand];
-  __shared__ float pbs[kOwn][kAttnMaxBand];
-  __shared__ float kmask[kTile];
+// ---------------------------------------------------------------------------
+// the attention backward on the tensor cores
+// ---------------------------------------------------------------------------
 
+constexpr int kKeyChunk = 64;  // keys a block of the score pass walks
+constexpr int kScoresSmem = (2 * kTcQ + 2 * kTcKeys) * kTcStride * 4 +
+                            4 * kTcQ * kAttnMaxBand * 4 + kTcKeys * 4 + kTcQ * 4;
+
+// A block owns 32 query rows of one (sample, head) and one chunk of 64 keys
+// (blockIdx.x = query tile * chunks + chunk): the pairs are independent,
+// so more blocks, and no combining.  dqrel and pb start at zero (the
+// caller clears them); a block writes the band entries whose key it owns.
+__global__ void __launch_bounds__(64) attn_bwd_scores_tc_kernel(const AttnBwd a) {
+  extern __shared__ float4 smem4[];
+  float* qt = reinterpret_cast<float*>(smem4);  // [kTcQ][kTcStride]
+  float* ot = qt + kTcQ * kTcStride;            // dout
+  float* kt = ot + kTcQ * kTcStride;            // [kTcKeys][kTcStride]
+  float* vt = kt + kTcKeys * kTcStride;
+  float* qrel = vt + kTcKeys * kTcStride;  // [kTcQ][kAttnMaxBand]
+  float* dorv = qrel + kTcQ * kAttnMaxBand;
+  float* dqr = dorv + kTcQ * kAttnMaxBand;
+  float* pbs = dqr + kTcQ * kAttnMaxBand;
+  float* kmask = pbs + kTcQ * kAttnMaxBand;
+  float* row_dsum = kmask + kTcKeys;
+
+  const int t = a.t, d = a.d;
+  const int chunks = (t + kKeyChunk - 1) / kKeyChunk;
   const int b = blockIdx.z;
   const int hd = blockIdx.y;
-  const int q0 = blockIdx.x * kOwn;
-  const int t = a.t, d = a.d;
+  const int q0 = (blockIdx.x / chunks) * kTcQ;
+  const int key_lo = (blockIdx.x % chunks) * kKeyChunk;
+  const int key_hi = min(t, key_lo + kKeyChunk);
   const int h = a.n_heads * d;
   const int ld = 3 * h;
   const int nb = 2 * a.window + 1;
   const int hb = a.n_heads * nb;
+  const int nd = d / 8;
   const float* base = a.qkv + (long)b * t * ld;
+  const float* dbase = a.datt + (long)b * t * h;
   const float* mrow = a.mask + (long)b * t;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
+  const int g = lane >> 2, qd = lane & 3;
+  const long z = (long)b * a.n_heads + hd;
+  float* ds_out = a.ds + z * t * t;
+  float* pd_out = a.pd + z * t * t;
 
-  for (int i = tid; i < kOwn * d; i += kWarps * 32) {
-    const int r = i / d, c = i % d;
-    const int qi = q0 + r;
-    const bool ok = qi < t;
-    qs[r][c] = ok ? base[(long)qi * ld + hd * d + c] : 0.f;
-    dos[r][c] = ok ? a.datt[((long)b * t + qi) * h + hd * d + c] : 0.f;
+  stage_rows(base + hd * d, ld, q0, kTcQ, t, d, qt, tid, 64);
+  stage_rows(dbase + hd * d, h, q0, kTcQ, t, d, ot, tid, 64);
+  // per row (CUDA cores, a lane a (row, offset)): q . rel_k and dout . rel_v
+  // where the band's key lies in this chunk; dsum = dout . out, two lanes a row
+  for (int i = lane; i < 16 * nb; i += 32) {
+    const int r = warp * 16 + i / nb, o = i - (i / nb) * nb;
+    const int qi = q0 + r, key = qi + o - a.window;
+    float pk = 0.f, pv = 0.f;
+    if (qi < t && key >= key_lo && key < key_hi) {
+      pk = row_dot(base + (long)qi * ld + hd * d, a.rel_k + o * d, d);
+      pv = row_dot(dbase + (long)qi * h + hd * d, a.rel_v + o * d, d);
+    }
+    qrel[r * kAttnMaxBand + o] = pk;
+    dorv[r * kAttnMaxBand + o] = pv;
+    dqr[r * kAttnMaxBand + o] = 0.f;
+    pbs[r * kAttnMaxBand + o] = 0.f;
   }
-  __syncthreads();
-
-  int qi[kRowsPerWarp];
-  float qm[kRowsPerWarp], m[kRowsPerWarp], linv[kRowsPerWarp], dsum[kRowsPerWarp];
-  float acc[kRowsPerWarp][kDPerLane];
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int r = warp * kRowsPerWarp + rr;
-    qi[rr] = q0 + r;
-    const bool ok = qi[rr] < t;
-    for (int o = 0; o < nb; ++o) {
-      float pk = 0.f, pv = 0.f;
-      for (int c = lane; c < d; c += 32) {
-        pk = fmaf(qs[r][c], a.rel_k[o * d + c], pk);
-        pv = fmaf(dos[r][c], a.rel_v[o * d + c], pv);
-      }
-      pk = warp_sum(pk);
-      pv = warp_sum(pv);
-      if (lane == 0) {
-        qrel[r][o] = pk;
-        dorv[r][o] = pv;
-        dqr[r][o] = 0.f;
-        pbs[r][o] = 0.f;
-      }
+  {
+    const int r = warp * 16 + lane / 2, qi = q0 + r, half = d / 2;
+    float dsr = 0.f;
+    if (qi < t) {
+      const float* o_row = dbase + (long)qi * h + hd * d + (lane & 1) * half;
+      const float* a_row = a.att + ((long)b * t + qi) * h + hd * d + (lane & 1) * half;
+      for (int c = 0; c < half; ++c) dsr = fmaf(o_row[c], a_row[c], dsr);
     }
-    float ds_row = 0.f;
-    if (ok)
-      for (int c = lane; c < d; c += 32)
-        ds_row = fmaf(dos[r][c], a.att[((long)b * t + qi[rr]) * h + hd * d + c], ds_row);
-    dsum[rr] = warp_sum(ds_row);
-    const long at = ((long)b * a.n_heads + hd) * t + qi[rr];
-    qm[rr] = ok ? mrow[qi[rr]] : 0.f;
-    m[rr] = ok ? a.stat_m[at] : 0.f;
-    linv[rr] = ok ? a.stat_linv[at] : 0.f;
-#pragma unroll
-    for (int e = 0; e < kDPerLane; ++e) acc[rr][e] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < t; k0 += kTile) {
-    __syncthreads();  // previous tile consumed (and the band rows written)
-    for (int i = tid; i < kTile * d; i += kWarps * 32) {
-      const int j = i / d, c = i % d;
-      const int key = k0 + j;
-      const bool ok = key < t;
-      ks[j][c] = ok ? base[(long)key * ld + h + hd * d + c] : 0.f;
-      vs[j][c] = ok ? base[(long)key * ld + 2 * h + hd * d + c] : 0.f;
-    }
-    if (tid < kTile) kmask[tid] = k0 + tid < t ? mrow[k0 + tid] : 0.f;
-    __syncthreads();
-
-    const int key = k0 + lane;
-    float dot_qk[kRowsPerWarp] = {}, dot_dv[kRowsPerWarp] = {};
-    for (int c = 0; c < d; ++c) {
-      const float kc = ks[lane][c];
-      const float vc = vs[lane][c];
-#pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-        const int r = warp * kRowsPerWarp + rr;
-        dot_qk[rr] = fmaf(qs[r][c], kc, dot_qk[rr]);
-        dot_dv[rr] = fmaf(dos[r][c], vc, dot_dv[rr]);
-      }
-    }
-    float ds[kRowsPerWarp];
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int r = warp * kRowsPerWarp + rr;
-      ds[rr] = 0.f;
-      if (key < t && qi[rr] < t) {
-        const int o = key - qi[rr] + a.window;
-        const bool in_band = o >= 0 && o < nb;
-        const bool attend = qm[rr] != 0.f && kmask[lane] != 0.f;
-        float pd;
-        pair_grad(a, b, hd, qi[rr], key, dot_qk[rr], dot_dv[rr], in_band,
-                  in_band ? qrel[r][o] : 0.f, in_band ? dorv[r][o] : 0.f, m[rr],
-                  linv[rr], dsum[rr], attend, pd, ds[rr]);
-        if (in_band) {  // one lane per (row, offset) over the whole walk
-          dqr[r][o] = ds[rr] * a.scale;
-          pbs[r][o] = pd;
-        }
-      }
-    }
-    const int n_keys = min(kTile, t - k0);
-    for (int j = 0; j < n_keys; ++j) {
-#pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-        const float dsj = __shfl_sync(0xffffffffu, ds[rr], j);
-#pragma unroll
-        for (int e = 0; e < kDPerLane; ++e) {
-          const int c = lane + 32 * e;
-          if (c < d) acc[rr][e] = fmaf(dsj, ks[j][c], acc[rr][e]);
-        }
-      }
-    }
+    dsr += __shfl_xor_sync(0xffffffffu, dsr, 1);
+    if ((lane & 1) == 0) row_dsum[r] = dsr;
   }
   __syncwarp();
+  int rloc[2], qi[2];
+  float qm[2], m[2], linv[2], dsum[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    rloc[e] = warp * 16 + g + 8 * e;
+    qi[e] = q0 + rloc[e];
+    const bool ok = qi[e] < t;
+    const long at = z * t + qi[e];
+    qm[e] = ok ? mrow[qi[e]] : 0.f;
+    m[e] = ok ? a.stat_m[at] : 0.f;
+    linv[e] = ok ? a.stat_linv[at] : 0.f;
+    dsum[e] = row_dsum[rloc[e]];
+  }
 
+  for (int k0 = key_lo; k0 < key_hi; k0 += kTcKeys) {
+    __syncthreads();  // previous tile consumed (and the row terms written)
+    stage_rows(base + h + hd * d, ld, k0, kTcKeys, t, d, kt, tid, 64);
+    stage_rows(base + 2 * h + hd * d, ld, k0, kTcKeys, t, d, vt, tid, 64);
+    if (tid < kTcKeys) kmask[tid] = k0 + tid < t ? mrow[k0 + tid] : 0.f;
+    __syncthreads();
+    float qk[4][4], dv[4][4];
+    tile_scores(qk, qt, kt, rloc[0], g, qd, nd);
+    tile_scores(dv, ot, vt, rloc[0], g, qd, nd);
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int r = warp * kRowsPerWarp + rr;
-    if (qi[rr] >= t) continue;
-    const long row = (long)b * t + qi[rr];
+    for (int n = 0; n < 4; ++n)
 #pragma unroll
-    for (int e = 0; e < kDPerLane; ++e) {
-      const int c = lane + 32 * e;
-      if (c >= d) continue;
-      float v = acc[rr][e] * a.scale;
-      for (int o = 0; o < nb; ++o) v = fmaf(dqr[r][o], a.rel_k[o * d + c], v);
-      a.dqkv[row * ld + hd * d + c] = v;
-    }
-    for (int o = lane; o < nb; o += 32) {
-      const long at = row * hb + hd * nb + o;
-      a.qrel[at] = qrel[r][o];
-      a.dorv[at] = dorv[r][o];
-      a.dqrel[at] = dqr[r][o];
-      a.pb[at] = pbs[r][o];
-    }
-    if (lane == 0) a.dsum[row * a.n_heads + hd] = dsum[rr];
+      for (int e = 0; e < 4; ++e) {
+        const int row = e >> 1;
+        const int key = k0 + n * 8 + 2 * qd + (e & 1);
+        if (key >= key_hi || qi[row] >= t) continue;
+        const int r = rloc[row];
+        const int o = key - qi[row] + a.window;
+        const bool in_band = o >= 0 && o < nb;
+        float pd, ds;
+        pair_grad(a, b, hd, qi[row], key, qk[n][e], dv[n][e], in_band,
+                  in_band ? qrel[r * kAttnMaxBand + o] : 0.f,
+                  in_band ? dorv[r * kAttnMaxBand + o] : 0.f, m[row], linv[row], dsum[row],
+                  qm[row] != 0.f && kmask[key - k0] != 0.f, pd, ds);
+        if (in_band) {  // one thread per (row, offset) over the whole walk
+          dqr[r * kAttnMaxBand + o] = ds * a.scale;
+          pbs[r * kAttnMaxBand + o] = pd;
+        }
+        const long at = (long)qi[row] * t + key;
+        ds_out[at] = ds;
+        pd_out[at] = pd;
+      }
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * nb; i += 32) {
+    const int r = warp * 16 + i / nb, o = i - (i / nb) * nb;
+    const int key = q0 + r + o - a.window;
+    if (q0 + r >= t || key < key_lo || key >= key_hi) continue;
+    const long at = ((long)b * t + q0 + r) * hb + hd * nb + o;
+    a.dqrel[at] = dqr[r * kAttnMaxBand + o];
+    a.pb[at] = pbs[r * kAttnMaxBand + o];
   }
 }
 
-__global__ void __launch_bounds__(kWarps * 32) attn_bwd_kv_kernel(const AttnBwd a) {
-  __shared__ float ks[kOwn][kAttnMaxD];
-  __shared__ float vs[kOwn][kAttnMaxD];
-  __shared__ float qs[kTile][kAttnMaxD + 1];  // +1: lane i reads row i
-  __shared__ float dos[kTile][kAttnMaxD + 1];
+// dq, dk and dv of every (sample, head): blockIdx.z = product * batch *
+// heads + sample * heads + head; a block owns 64 output rows x 32 columns
+// (a warp 16 rows), the K walk over t in slices of 32 through shared memory
+// split on the way in, 3xTF32, each slice started from zero.
+//   product 0: dq = scale * ds k + dqrel rel_k   (A = ds [t, t] as it lies)
+//   product 1: dk = scale * ds^T q                (A = ds transposed)
+//   product 2: dv = pd^T dout                     (A = pd transposed)
+constexpr int kPM = 64, kPN = 32, kPK = 32;
+constexpr int kPAStride = 36;  // A [m][k] as it lies; transposed [k][m] at 72
+constexpr int kPBStride = 40;  // B [k][n]
 
-  const int b = blockIdx.z;
-  const int hd = blockIdx.y;
-  const int j0 = blockIdx.x * kOwn;
-  const int t = a.t, d = a.d;
-  const int h = a.n_heads * d;
-  const int ld = 3 * h;
-  const int nb = 2 * a.window + 1;
-  const int hb = a.n_heads * nb;
-  const float* base = a.qkv + (long)b * t * ld;
-  const float* mrow = a.mask + (long)b * t;
+__global__ void __launch_bounds__(128) attn_bwd_products_kernel(const AttnBwd a) {
+  __shared__ uint32_t a_big[kPM * kPAStride], a_small[kPM * kPAStride];
+  __shared__ uint32_t b_big[kPK * kPBStride], b_small[kPK * kPBStride];
+  const int t = a.t, d = a.d, H = a.n_heads;
+  const int h = H * d;
+  const int bh = gridDim.z / 3;
+  const int product = blockIdx.z / bh;
+  const int zz = blockIdx.z - product * bh;
+  const int b = zz / H, hd = zz - (zz / H) * H;
+  const int m0 = blockIdx.y * kPM, n0 = blockIdx.x * kPN;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-
-  for (int i = tid; i < kOwn * d; i += kWarps * 32) {
-    const int r = i / d, c = i % d;
-    const int key = j0 + r;
-    const bool ok = key < t;
-    ks[r][c] = ok ? base[(long)key * ld + h + hd * d + c] : 0.f;
-    vs[r][c] = ok ? base[(long)key * ld + 2 * h + hd * d + c] : 0.f;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, qd = lane & 3;
+  const bool trans = product != 0;
+  const float* src_a = (product == 2 ? a.pd : a.ds) + (long)zz * t * t;
+  const float* src_b;
+  long ldb;
+  if (product == 0) {
+    src_b = a.qkv + (long)b * t * 3 * h + h + hd * d;  // k
+    ldb = 3 * h;
+  } else if (product == 1) {
+    src_b = a.qkv + (long)b * t * 3 * h + hd * d;  // q
+    ldb = 3 * h;
+  } else {
+    src_b = a.datt + (long)b * t * h + hd * d;  // dout
+    ldb = h;
   }
 
-  int key[kRowsPerWarp];
-  float km[kRowsPerWarp];
-  float acc_k[kRowsPerWarp][kDPerLane], acc_v[kRowsPerWarp][kDPerLane];
+  float acc[4][4];
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    key[rr] = j0 + warp * kRowsPerWarp + rr;
-    km[rr] = key[rr] < t ? mrow[key[rr]] : 0.f;
+  for (int n = 0; n < 4; ++n)
 #pragma unroll
-    for (int e = 0; e < kDPerLane; ++e) acc_k[rr][e] = acc_v[rr][e] = 0.f;
-  }
-
-  for (int i0 = 0; i0 < t; i0 += kTile) {
-    __syncthreads();  // previous tile consumed (and ks, vs written)
-    for (int i = tid; i < kTile * d; i += kWarps * 32) {
-      const int r = i / d, c = i % d;
-      const int qi = i0 + r;
-      const bool ok = qi < t;
-      qs[r][c] = ok ? base[(long)qi * ld + hd * d + c] : 0.f;
-      dos[r][c] = ok ? a.datt[((long)b * t + qi) * h + hd * d + c] : 0.f;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const int r_lo = warp * 16 + g;
+  for (int k0 = 0; k0 < t; k0 += kPK) {
+    __syncthreads();
+    for (int i = tid; i < kPM * kPK; i += 128) {
+      int mm, kk;
+      float v = 0.f;
+      if (trans) {  // read along m: A[m][k] = src[k][m]
+        mm = i % kPM; kk = i / kPM;
+        if (m0 + mm < t && k0 + kk < t) v = src_a[(long)(k0 + kk) * t + m0 + mm];
+        split_tf32(v, a_big[kk * 72 + mm], a_small[kk * 72 + mm]);
+      } else {
+        mm = i / kPK; kk = i % kPK;
+        if (m0 + mm < t && k0 + kk < t) v = src_a[(long)(m0 + mm) * t + k0 + kk];
+        split_tf32(v, a_big[mm * kPAStride + kk], a_small[mm * kPAStride + kk]);
+      }
+    }
+    for (int i = tid; i < kPK * kPN; i += 128) {
+      const int kk = i / kPN, nn = i % kPN;
+      const float v = k0 + kk < t && n0 + nn < d ? src_b[(long)(k0 + kk) * ldb + n0 + nn] : 0.f;
+      split_tf32(v, b_big[kk * kPBStride + nn], b_small[kk * kPBStride + nn]);
     }
     __syncthreads();
-
-    // lane = query
-    const int qi = i0 + lane;
-    const bool q_ok = qi < t;
-    const long row = (long)b * t + qi;
-    const long at = ((long)b * a.n_heads + hd) * t + qi;
-    const float qm = q_ok ? mrow[qi] : 0.f;
-    const float m = q_ok ? a.stat_m[at] : 0.f;
-    const float linv = q_ok ? a.stat_linv[at] : 0.f;
-    const float dsum = q_ok ? a.dsum[row * a.n_heads + hd] : 0.f;
-    float ds[kRowsPerWarp], pd[kRowsPerWarp];
+    float part[4][4];
 #pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int r = warp * kRowsPerWarp + rr;
-      float dot_qk = 0.f, dot_dv = 0.f;
-      for (int c = 0; c < d; ++c) {
-        dot_qk = fmaf(qs[lane][c], ks[r][c], dot_qk);
-        dot_dv = fmaf(dos[lane][c], vs[r][c], dot_dv);
-      }
-      ds[rr] = 0.f;
-      pd[rr] = 0.f;
-      if (q_ok && key[rr] < t) {
-        const int o = key[rr] - qi + a.window;
-        const bool in_band = o >= 0 && o < nb;
-        const long band_at = row * hb + hd * nb + o;
-        pair_grad(a, b, hd, qi, key[rr], dot_qk, dot_dv, in_band,
-                  in_band ? a.qrel[band_at] : 0.f, in_band ? a.dorv[band_at] : 0.f,
-                  m, linv, dsum, qm != 0.f && km[rr] != 0.f, pd[rr], ds[rr]);
-      }
-    }
-    const int n_q = min(kTile, t - i0);
-    for (int i = 0; i < n_q; ++i) {
+    for (int n = 0; n < 4; ++n)
 #pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-        const float dsi = __shfl_sync(0xffffffffu, ds[rr], i);
-        const float pdi = __shfl_sync(0xffffffffu, pd[rr], i);
+      for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
 #pragma unroll
-        for (int e = 0; e < kDPerLane; ++e) {
-          const int c = lane + 32 * e;
-          if (c < d) {
-            acc_k[rr][e] = fmaf(dsi, qs[i][c], acc_k[rr][e]);
-            acc_v[rr][e] = fmaf(pdi, dos[i][c], acc_v[rr][e]);
+    for (int pass = 0; pass < 2; ++pass)
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const int kc = ks * 8 + qd;
+        int i0, i1, i2, i3;  // a0 (r, k), a1 (r + 8, k), a2 (r, k + 4), a3 (r + 8, k + 4)
+        if (trans) {
+          i0 = kc * 72 + r_lo; i1 = i0 + 8; i2 = (kc + 4) * 72 + r_lo; i3 = i2 + 8;
+        } else {
+          i0 = r_lo * kPAStride + kc; i1 = i0 + 8 * kPAStride; i2 = i0 + 4; i3 = i1 + 4;
+        }
+        const uint32_t ab[4] = {a_big[i0], a_big[i1], a_big[i2], a_big[i3]};
+        const uint32_t as[4] = {a_small[i0], a_small[i1], a_small[i2], a_small[i3]};
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int bi = kc * kPBStride + n * 8 + g;
+          const uint32_t bb[2] = {b_big[bi], b_big[bi + 4 * kPBStride]};
+          if (pass == 0) {
+            const uint32_t bs[2] = {b_small[bi], b_small[bi + 4 * kPBStride]};
+            mma_small_terms(part[n], ab, as, bb, bs);
+          } else {
+            mma_tf32(part[n], ab, bb);
           }
         }
       }
-    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
   }
 
+  const int nb = 2 * a.window + 1;
+  const int hb = H * nb;
+  const float sc = product == 2 ? 1.f : a.scale;
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    if (key[rr] >= t) continue;
-    const long row = (long)b * t + key[rr];
+  for (int n = 0; n < 4; ++n)
 #pragma unroll
-    for (int e = 0; e < kDPerLane; ++e) {
-      const int c = lane + 32 * e;
-      if (c >= d) continue;
-      a.dqkv[row * ld + h + hd * d + c] = acc_k[rr][e] * a.scale;
-      a.dqkv[row * ld + 2 * h + hd * d + c] = acc_v[rr][e];
+    for (int e = 0; e < 4; ++e) {
+      const int m = m0 + r_lo + 8 * (e >> 1);
+      const int c = n0 + n * 8 + 2 * qd + (e & 1);
+      if (m >= t || c >= d) continue;
+      const long row = (long)b * t + m;
+      float v = acc[n][e] * sc;
+      if (product == 0)
+        for (int o = 0; o < nb; ++o) v = fmaf(a.dqrel[row * hb + hd * nb + o], a.rel_k[o * d + c], v);
+      a.dqkv[row * 3 * h + product * h + hd * d + c] = v;
     }
+}
+
+// d rel_k[o, c] = sum over rows and heads of dqrel[row, head, o] q[row,
+// head, c] (table 0) and d rel_v[o, c] = sum of pb[row, head, o] dout[row,
+// head, c] (table 1): one block per (8 columns, offset, table) and 128 row
+// groups (a warp: 8 neighbouring columns of 4 rows), per head eight rows in
+// flight a thread in independent sums, combined in a fixed order.
+constexpr int kRelCols = 8, kRelGroups = 128;
+
+__global__ void __launch_bounds__(kRelCols * kRelGroups)
+    rel_grads_kernel(const AttnBwd a, int rows, float* drk, float* drv) {
+  __shared__ float part[kRelGroups][kRelCols + 1];
+  const int H = a.n_heads, d = a.d, h = H * d;
+  const int nb = 2 * a.window + 1;
+  const int o = blockIdx.y;
+  const int table = blockIdx.z;
+  const int c = blockIdx.x * kRelCols + threadIdx.x;
+  const float* coef = (table ? a.pb : a.dqrel) + o;
+  const float* val = table ? a.datt : a.qkv;
+  const long ld = table ? h : 3 * h;
+  float acc8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (c < d)
+    for (int hd = 0; hd < H; ++hd)
+      for (int r0 = 8 * threadIdx.y; r0 < rows; r0 += 8 * kRelGroups) {
+        float cf[8], v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int row = r0 + j;
+          const bool ok = row < rows;
+          cf[j] = ok ? coef[((long)row * H + hd) * nb] : 0.f;
+          v[j] = ok ? val[row * ld + hd * d + c] : 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc8[j] = fmaf(cf[j], v[j], acc8[j]);
+      }
+  part[threadIdx.y][threadIdx.x] = ((acc8[0] + acc8[1]) + (acc8[2] + acc8[3])) +
+                                   ((acc8[4] + acc8[5]) + (acc8[6] + acc8[7]));
+  __syncthreads();
+  if (threadIdx.y == 0 && c < d) {
+    float total = 0.f;
+#pragma unroll 8
+    for (int y = 0; y < kRelGroups; ++y) total += part[y][threadIdx.x];
+    (table ? drv : drk)[o * d + c] = total;
   }
 }
 
@@ -360,157 +400,137 @@ __global__ void __launch_bounds__(kWarps * 32) attn_bwd_kv_kernel(const AttnBwd 
     if (err_ != cudaSuccess) return (int)err_;      \
   } while (0)
 
-WGrad rows_wgrad(const float* a, int lda, int c_in, const float* a_mask, int taps,
-                 int batch, int t, const float* dy, int ldy, int n, float* out,
-                 float* scratch, long scratch_floats) {
+WGrad text_wgrad(const EncoderScratch& s, const float* a, int lda, int c_in, const float* a_mask,
+                 int taps, int batch, int t, const float* dy, int ldy, int n, float* out) {
   WGrad w;
   w.a = a; w.lda = lda; w.c_in = c_in; w.a_mask = a_mask; w.taps = taps;
   w.batch = batch; w.t = t; w.dy = dy; w.ldy = ldy; w.n = n; w.out = out;
-  w.scratch = scratch; w.scratch_floats = scratch_floats;
+  w.scratch = s.wg; w.scratch_floats = s.wg_floats; w.tc = 1;
   return w;
 }
 
 }  // namespace
 }  // namespace gtt
 
-// Transposed weights from the wrapper: wqkv_t [3h, h] = [wq^T; wk^T; wv^T],
-// wo_t [h, h], w1_t [taps * f, h] and w2_t [taps * h, f] per tap the
-// transposed block.  Scratch: the forward chain's buffers and saves
-// (encoder.cuh); da, db, dc, datt [rows, h]; dffn [rows, f]; dqkv [rows, 3h];
-// qrel, dorv, dqrel, pb [rows, heads * nb]; dsum [rows, heads]; rel_part
-// [heads, nb, d]; col_part [batch, max(f, h)]; wg_scratch for wgrad.
+// Weights: the merged [h, 3h] Q/K/V projection and the rest of the layer
+// (encoder.cuh).  Outputs: dx and the 14 weight gradients, the recomputed
+// forward's output `out` and its FFN activation `ffn` [rows, f] (the
+// dropped, masked ReLU output; the backward's ReLU gates are where it is
+// positive).  Scratch: one block of gtt_encoder_scratch_floats(..., 1)
+// floats.
 extern "C" int gtt_encoder_layer_bwd(
-    const float* x, const float* mask, const float* wq, const float* bq,
-    const float* wk, const float* bk, const float* wv, const float* bv,
-    const float* wo, const float* bo, const float* rel_k, const float* rel_v,
-    const float* gamma1, const float* beta1, const float* gamma2,
-    const float* beta2, const float* w1, const float* c1, const float* w2,
-    const float* c2, const float* wqkv_t, const float* wo_t, const float* w1_t,
-    const float* w2_t, const float* dout, float* dx, float* dwq, float* dbq,
-    float* dwk, float* dbk, float* dwv, float* dbv, float* dwo, float* dbo,
-    float* drk, float* drv, float* dg1, float* dbe1, float* dg2, float* dbe2,
-    float* dw1, float* dc1, float* dw2, float* dc2, float* out, float* qkv,
-    float* att, float* x1, float* ffn, float* xhat1, float* rstd1, float* xhat2,
-    float* rstd2, float* stat_m, float* stat_linv, float* da, float* db,
-    float* dc, float* datt, float* dffn, float* dqkv, float* qrel, float* dorv,
-    float* dqrel, float* pb, float* dsum, float* rel_part, float* col_part,
-    float* wg_scratch, int wg_scratch_floats, int batch, int t, int h,
-    int n_heads, int window, int f, int taps, int drop, int seed,
-    unsigned threshold, float scale, cudaStream_t stream) {
+    const float* x, const float* mask, const float* wqkv, const float* bqkv, const float* wo,
+    const float* bo, const float* rel_k, const float* rel_v, const float* gamma1,
+    const float* beta1, const float* gamma2, const float* beta2, const float* w1,
+    const float* c1, const float* w2, const float* c2, const float* dout, float* dx,
+    float* dwqkv, float* dbqkv, float* dwo, float* dbo, float* drk, float* drv, float* dg1,
+    float* dbe1, float* dg2, float* dbe2, float* dw1, float* dc1, float* dw2, float* dc2,
+    float* out, float* ffn, float* scratch, long long scratch_floats, int batch, int t, int h,
+    int n_heads, int window, int f, int taps, int drop, int seed, unsigned threshold,
+    float scale, cudaStream_t stream) {
   using namespace gtt;
   const int H = n_heads;
   const int d = h / H;
-  const int nb = 2 * window + 1;
   const int rows = batch * t;
-  const long wgf = wg_scratch_floats;
 
   EncoderArgs a;
-  a.x = x; a.mask = mask; a.wq = wq; a.bq = bq; a.wk = wk; a.bk = bk;
-  a.wv = wv; a.bv = bv; a.wo = wo; a.bo = bo; a.rel_k = rel_k; a.rel_v = rel_v;
+  a.x = x; a.mask = mask; a.wqkv = wqkv; a.bqkv = bqkv; a.wo = wo; a.bo = bo;
+  a.rel_k = rel_k; a.rel_v = rel_v;
   a.gamma1 = gamma1; a.beta1 = beta1; a.gamma2 = gamma2; a.beta2 = beta2;
-  a.w1 = w1; a.c1 = c1; a.w2 = w2; a.c2 = c2;
-  a.out = out; a.qkv = qkv; a.att = att; a.x1 = x1; a.ffn = ffn;
-  a.xhat1 = xhat1; a.rstd1 = rstd1; a.xhat2 = xhat2; a.rstd2 = rstd2;
-  a.stat_m = stat_m; a.stat_linv = stat_linv;
-  a.batch = batch; a.t = t; a.h = h; a.n_heads = H; a.window = window;
-  a.f = f; a.taps = taps;
+  a.w1 = w1; a.c1 = c1; a.w2 = w2; a.c2 = c2; a.out = out;
+  a.dims.batch = batch; a.dims.t = t; a.dims.h = h; a.dims.n_heads = H;
+  a.dims.window = window; a.dims.f = f; a.dims.taps = taps;
+  a.save = true;
+  if (encoder_scratch(scratch, a.dims, true, ffn, &a.s) > scratch_floats)
+    return (int)cudaErrorInvalidValue;
   a.drop = make_dropout(drop, seed, H + 3, threshold, scale);
   GTT_TRY(encoder_forward(a, stream));
+  const EncoderScratch& s = a.s;
+
+  // the four transposed products (reading the forward's weights as they
+  // lie), their weights split for the tensor cores in one launch
+  ConvGemm dffn_g = text_product(s);  // dffn = (conv^T db) * mask * keep * [ffn > 0]
+  dffn_g.a = s.db; dffn_g.lda = h; dffn_g.c_in = h; dffn_g.taps = taps; dffn_g.tap_sign = -1;
+  dffn_g.batch = batch; dffn_g.t = t; dffn_g.w = w2; dffn_g.w_t = 1; dffn_g.n = f;
+  dffn_g.epilogue = kMaskReluBwd; dffn_g.out = s.dffn; dffn_g.ldo = f; dffn_g.mask = mask;
+  dffn_g.aux = ffn; dffn_g.ld_aux = f; dffn_g.drop = a.drop.at(H + 1);
+  ConvGemm dx1_g = text_product(s);  // db = d(x1) = da + (conv^T dffn) * mask
+  dx1_g.a = s.dffn; dx1_g.lda = f; dx1_g.c_in = f; dx1_g.taps = taps; dx1_g.tap_sign = -1;
+  dx1_g.batch = batch; dx1_g.t = t; dx1_g.w = w1; dx1_g.w_t = 1; dx1_g.n = h;
+  dx1_g.epilogue = kMaskAdd; dx1_g.out = s.db; dx1_g.ldo = h; dx1_g.mask = mask;
+  dx1_g.aux = s.da; dx1_g.ld_aux = h;
+  ConvGemm datt_g = text_product(s);  // datt = dc wo^T
+  datt_g.a = s.dc; datt_g.lda = h; datt_g.c_in = h; datt_g.batch = batch; datt_g.t = t;
+  datt_g.w = wo; datt_g.w_t = 1; datt_g.n = h; datt_g.epilogue = kBias; datt_g.out = s.datt;
+  datt_g.ldo = h;
+  ConvGemm dx_g = text_product(s);  // dx = (da + dqkv wqkv^T) * mask
+  dx_g.a = s.dqkv; dx_g.lda = 3 * h; dx_g.c_in = 3 * h; dx_g.batch = batch; dx_g.t = t;
+  dx_g.w = wqkv; dx_g.w_t = 1; dx_g.n = h; dx_g.epilogue = kResidMask; dx_g.out = dx;
+  dx_g.ldo = h; dx_g.mask = mask; dx_g.aux = s.da; dx_g.ld_aux = h;
+  ConvGemm* const products[4] = {&dffn_g, &dx1_g, &datt_g, &dx_g};
+  GTT_TRY(presplit_weights(products, 4, s.tc + s.tc_floats / 2, s.tc_floats / 2, stream));
 
   // ---- second norm: da = d(x1 + y2), db = its dropped, masked FFN branch ----
   {
     LayerNormBwd ln;
-    ln.dy = dout; ln.xhat = xhat2; ln.rstd = rstd2; ln.gamma = gamma2;
-    ln.dx = da; ln.dx2 = db; ln.drop2 = a.drop.at(H + 2); ln.mask2 = mask;
+    ln.dy = dout; ln.xhat = s.xhat2; ln.rstd = s.rstd2; ln.gamma = gamma2;
+    ln.dx = s.da; ln.dx2 = s.db; ln.drop2 = a.drop.at(H + 2); ln.mask2 = mask;
     ln.rows = rows; ln.n = h; ln.t = t;
     GTT_TRY(layer_norm_bwd(ln, stream));
   }
-  GTT_TRY(ln_param_grads(dout, xhat2, h, batch, t, col_part, dg2, dbe2, stream));
+  GTT_TRY(column_sums(dout, h, h, s.xhat2, rows, dg2, dbe2, stream));
 
-  // ---- FFN ----
-  GTT_TRY(wgrad(rows_wgrad(ffn, f, f, mask, taps, batch, t, db, h, h, dw2,
-                           wg_scratch, wgf), stream));
-  GTT_TRY(bias_grad(db, h, h, nullptr, batch, t, col_part, dc2, stream));
-  {  // dffn = d(pre-ReLU) = (transposed conv of db) * mask * keep * [pre > 0]
-    ConvGemm g;
-    g.a = db; g.lda = h; g.c_in = h; g.taps = taps; g.tap_sign = -1;
-    g.batch = batch; g.t = t; g.w = w2_t; g.n = f; g.epilogue = kMaskReluBwd;
-    g.out = dffn; g.ldo = f; g.mask = mask; g.aux = ffn; g.ld_aux = f;
-    g.drop = a.drop.at(H + 1);
-    GTT_TRY(conv_gemm(g, stream));
-  }
-  GTT_TRY(wgrad(rows_wgrad(x1, h, h, mask, taps, batch, t, dffn, f, f, dw1,
-                           wg_scratch, wgf), stream));
-  GTT_TRY(bias_grad(dffn, f, f, nullptr, batch, t, col_part, dc1, stream));
-  {  // db = d(x1) = da + (transposed conv of dffn) * mask
-    ConvGemm g;
-    g.a = dffn; g.lda = f; g.c_in = f; g.taps = taps; g.tap_sign = -1;
-    g.batch = batch; g.t = t; g.w = w1_t; g.n = h; g.epilogue = kMaskAdd;
-    g.out = db; g.ldo = h; g.mask = mask; g.aux = da; g.ld_aux = h;
-    GTT_TRY(conv_gemm(g, stream));
-  }
+  // ---- FFN (ffn is masked: no input mask on its products) ----
+  GTT_TRY(wgrad(text_wgrad(s, ffn, f, f, nullptr, taps, batch, t, s.db, h, h, dw2), stream));
+  GTT_TRY(column_sums(s.db, h, h, nullptr, rows, dc2, nullptr, stream));
+  GTT_TRY(conv_gemm(dffn_g, stream));
+  GTT_TRY(wgrad(text_wgrad(s, s.x1m, h, h, nullptr, taps, batch, t, s.dffn, f, f, dw1), stream));
+  GTT_TRY(column_sums(s.dffn, f, f, nullptr, rows, dc1, nullptr, stream));
+  GTT_TRY(conv_gemm(dx1_g, stream));
 
   // ---- first norm: da = d(x * mask + y), dc = dy (dropped) ----
   {
     LayerNormBwd ln;
-    ln.dy = db; ln.xhat = xhat1; ln.rstd = rstd1; ln.gamma = gamma1;
-    ln.dx = da; ln.dx2 = dc; ln.drop2 = a.drop.at(H);
+    ln.dy = s.db; ln.xhat = s.xhat1; ln.rstd = s.rstd1; ln.gamma = gamma1;
+    ln.dx = s.da; ln.dx2 = s.dc; ln.drop2 = a.drop.at(H);
     ln.rows = rows; ln.n = h; ln.t = t;
     GTT_TRY(layer_norm_bwd(ln, stream));
   }
-  GTT_TRY(ln_param_grads(db, xhat1, h, batch, t, col_part, dg1, dbe1, stream));
+  GTT_TRY(column_sums(s.db, h, h, s.xhat1, rows, dg1, dbe1, stream));
 
   // ---- output projection ----
-  GTT_TRY(bias_grad(dc, h, h, nullptr, batch, t, col_part, dbo, stream));
-  GTT_TRY(wgrad(rows_wgrad(att, h, h, nullptr, 1, batch, t, dc, h, h, dwo,
-                           wg_scratch, wgf), stream));
-  {
-    ConvGemm g;
-    g.a = dc; g.lda = h; g.c_in = h; g.batch = batch; g.t = t;
-    g.w = wo_t; g.n = h; g.epilogue = kBias; g.out = datt; g.ldo = h;
-    GTT_TRY(conv_gemm(g, stream));
-  }
+  GTT_TRY(column_sums(s.dc, h, h, nullptr, rows, dbo, nullptr, stream));
+  GTT_TRY(wgrad(text_wgrad(s, s.att, h, h, nullptr, 1, batch, t, s.dc, h, h, dwo), stream));
+  GTT_TRY(conv_gemm(datt_g, stream));
 
   // ---- attention core ----
   {
     AttnBwd ab;
-    ab.qkv = qkv; ab.mask = mask; ab.rel_k = rel_k; ab.rel_v = rel_v;
-    ab.att = att; ab.datt = datt; ab.stat_m = stat_m; ab.stat_linv = stat_linv;
-    ab.dqkv = dqkv; ab.qrel = qrel; ab.dorv = dorv; ab.dqrel = dqrel; ab.pb = pb;
-    ab.dsum = dsum; ab.t = t; ab.n_heads = H; ab.d = d; ab.window = window;
+    ab.qkv = s.qkv; ab.mask = mask; ab.rel_k = rel_k; ab.rel_v = rel_v;
+    ab.att = s.att; ab.datt = s.datt; ab.stat_m = s.stat_m; ab.stat_linv = s.stat_linv;
+    ab.dqkv = s.dqkv; ab.dqrel = s.dqrel; ab.pb = s.pb; ab.ds = s.ds; ab.pd = s.pd;
+    ab.t = t; ab.n_heads = H; ab.d = d; ab.window = window;
     ab.scale = 1.f / sqrtf((float)d); ab.drop = a.drop;
-    const dim3 grid((t + kOwn - 1) / kOwn, H, batch);
-    attn_bwd_q_kernel<<<grid, kWarps * 32, 0, stream>>>(ab);
+    GTT_TRY(cudaFuncSetAttribute(attn_bwd_scores_tc_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kScoresSmem));
+    // dqrel and pb (adjacent in the scratch) start at zero
+    GTT_TRY(cudaMemsetAsync(s.dqrel, 0, (s.pb - s.dqrel) * 2 * sizeof(float), stream));
+    const int chunks = (t + kKeyChunk - 1) / kKeyChunk;
+    attn_bwd_scores_tc_kernel<<<dim3((t + kTcQ - 1) / kTcQ * chunks, H, batch), 64,
+                                kScoresSmem, stream>>>(ab);
     GTT_TRY(cudaGetLastError());
-    attn_bwd_kv_kernel<<<grid, kWarps * 32, 0, stream>>>(ab);
+    attn_bwd_products_kernel<<<dim3((d + kPN - 1) / kPN, (t + kPM - 1) / kPM, 3 * batch * H),
+                               128, 0, stream>>>(ab);
+    GTT_TRY(cudaGetLastError());
+    // the tables are shared by the heads: one launch for both
+    rel_grads_kernel<<<dim3((d + kRelCols - 1) / kRelCols, 2 * window + 1, 2),
+                       dim3(kRelCols, kRelGroups), 0, stream>>>(ab, rows, drk, drv);
     GTT_TRY(cudaGetLastError());
   }
-  // the tables are shared by the heads: one product per head, added in order
-  for (int hd = 0; hd < H; ++hd)
-    GTT_TRY(wgrad(rows_wgrad(dqrel + hd * nb, H * nb, nb, nullptr, 1, batch, t,
-                             qkv + hd * d, 3 * h, d, rel_part + (long)hd * nb * d,
-                             wg_scratch, wgf), stream));
-  GTT_TRY(col_sum(rel_part, nb * d, nb * d, nullptr, 1, H, drk, nb * d, stream));
-  for (int hd = 0; hd < H; ++hd)
-    GTT_TRY(wgrad(rows_wgrad(pb + hd * nb, H * nb, nb, nullptr, 1, batch, t,
-                             datt + hd * d, h, d, rel_part + (long)hd * nb * d,
-                             wg_scratch, wgf), stream));
-  GTT_TRY(col_sum(rel_part, nb * d, nb * d, nullptr, 1, H, drv, nb * d, stream));
 
-  // ---- Q/K/V projections ----
-  float* dws[3] = {dwq, dwk, dwv};
-  float* dbs[3] = {dbq, dbk, dbv};
-  for (int i = 0; i < 3; ++i) {
-    GTT_TRY(wgrad(rows_wgrad(x, h, h, mask, 1, batch, t, dqkv + i * h, 3 * h, h,
-                             dws[i], wg_scratch, wgf), stream));
-    GTT_TRY(bias_grad(dqkv + i * h, 3 * h, h, nullptr, batch, t, col_part, dbs[i], stream));
-  }
-  {  // dx = (da + dq wq^T + dk wk^T + dv wv^T) * mask
-    ConvGemm g;
-    g.a = dqkv; g.lda = 3 * h; g.c_in = 3 * h; g.batch = batch; g.t = t;
-    g.w = wqkv_t; g.n = h; g.epilogue = kResidMask; g.out = dx; g.ldo = h;
-    g.mask = mask; g.aux = da; g.ld_aux = h;
-    GTT_TRY(conv_gemm(g, stream));
-  }
+  // ---- the Q/K/V projection: one weight and one bias gradient ----
+  GTT_TRY(wgrad(text_wgrad(s, x, h, h, mask, 1, batch, t, s.dqkv, 3 * h, 3 * h, dwqkv), stream));
+  GTT_TRY(column_sums(s.dqkv, 3 * h, 3 * h, nullptr, rows, dbqkv, nullptr, stream));
+  GTT_TRY(conv_gemm(dx_g, stream));
   return (int)cudaGetLastError();
 }

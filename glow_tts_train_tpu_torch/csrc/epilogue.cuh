@@ -190,9 +190,9 @@ __device__ __forceinline__ void epilogue_cols(const ConvGemm& g, const EpilogueR
         const int n = n0 + e;
         if (n >= g.n) break;
         float v = acc[e] + bias_at(g, n);
-        if (g.epilogue == kBiasRelu) v = fmaxf(v, 0.f);
+        if (g.epilogue == kBiasRelu || g.epilogue == kBiasReluMask) v = fmaxf(v, 0.f);
         if (g.epilogue == kResidMask) v = (g.aux[(long)m * g.ld_aux + n] + v) * rm;
-        if (g.epilogue == kBiasMask) v *= rm;
+        if (g.epilogue == kBiasMask || g.epilogue == kBiasReluMask) v *= rm;
         if (g.epilogue != kResidMask) v = site_drop(g.drop, r.b, r.tr, g.n, n, v);
         out[n] = v;
       }

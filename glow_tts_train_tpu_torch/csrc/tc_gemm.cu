@@ -1,11 +1,10 @@
-// The flow block's products on the H100's tensor cores, f32-accurate by the
-// 3xTF32 split: the tensor-core conv-GEMM behind gtt::conv_gemm and the
+// The products on the H100's tensor cores, f32-accurate by the 3xTF32
+// split: the tensor-core conv-GEMM behind gtt::conv_gemm and the
 // tensor-core weight-gradient GEMM behind gtt::wgrad (common.cuh).  The
-// launch chains of block_train.cu and block.cu ask for them; they serve
-// every TPU kernel those chains replace (block_pallas.py _block_fwd_kernel,
-// _block_fwd_save_kernel, _block_bwd_kernel, _block_bwd_store_kernel,
-// _block_inv_kernel; wn_pallas.py _fwd_kernel, _fwd_save_kernel,
-// _bwd_kernel, _bwd_store_kernel).
+// launch chains of block_train.cu and block.cu ask for them (every TPU
+// kernel of block_pallas.py and wn_pallas.py), and so do the encoder
+// layer's (encoder.cu, encoder_train.cu: encoder_pallas.py _fwd_kernel,
+// _bwd_kernel), which also allow the short-shape variants below.
 //
 // Arithmetic.  A TF32 operand keeps 10 mantissa bits.  Each f32 value v is
 // split into big = v rounded to 10 bits and small = the exact remainder
@@ -30,7 +29,12 @@
 //    block_fwd_chain keeps one product on the CUDA cores.
 //
 // conv_gemm_tc_kernel: a 128 x kBN output tile per block of two
-// warpgroups, each owning 64 rows: wgmma.mma_async m64n{kBN}k8 with .tf32
+// warpgroups, each owning 64 rows, over the whole K walk or over one share
+// of it (split-K, for the text chains' short, deep products: [3072, 2304,
+// 192] at t_x 192 has 72 tiles for 132 SMs; the shares' raw sums go to
+// scratch and splitk_reduce_kernel adds them in split order and runs the
+// epilogue: no atomics, the same bits from run to run; conv_gemm_tc_splits
+// picks the count from the waves it makes).  wgmma.mma_async m64n{kBN}k8 with .tf32
 // operands, A from registers, B from shared memory, kBN / 2 f32
 // accumulators a thread and as many again for `part`.  kBN is 128 where
 // that divides the width (N = 384: two waves of 264 blocks at [16, 704]),
@@ -45,7 +49,8 @@
 //    top 19 bits, so `small` has to exist in memory: split_weights_kernel
 //    lays a product's [K, N] weights out [N, K] as two arrays, big and
 //    small, into the caller's scratch before the GEMM (weights are at most
-//    960 x 384; the pass takes 2.5 us).  A stage holds both as 128-byte
+//    960 x 384; the pass takes 2.5 us), or a chain splits all of its
+//    weights in one launch first (presplit_weights, ConvGemm::w_split).  A stage holds both as 128-byte
 //    rows in the 128-byte swizzle wgmma's descriptor names (16-byte chunk
 //    index XOR row mod 8, 8-row groups 1024 bytes apart), which the copies
 //    apply to their destination address.  Paired epilogues (kGate,
@@ -113,28 +118,10 @@
 
 #include "common.cuh"
 #include "epilogue.cuh"
+#include "mma.cuh"
 
 namespace gtt {
 namespace {
-
-constexpr uint32_t kTf32Mask = 0xffffe000u;
-
-constexpr uint32_t kTf32Half = 0x1000u;  // half of the last kept bit
-
-// v = big + small + (less than 2^-21 of v), both parts exact TF32 values:
-// big is v rounded to nearest (ties away from zero: half of the last kept
-// bit added to the magnitude, then the low bits cleared; two integer
-// operations, where cvt.rna.tf32.f32 issues at a quarter of their rate),
-// small the exact remainder v - big with its low bits cleared.  Truncating big would
-// do for the accuracy of one product, but it shrinks every term the same
-// way: a bias of 5e-7 of each output, which a gradient that is a small
-// difference of large sums turns into a relative error of 1e-3.  The
-// remainder of a rounded big has either sign, so clearing its low bits
-// leans neither way.
-__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
-  big = (__float_as_uint(v) + kTf32Half) & kTf32Mask;
-  small = __float_as_uint(v - __uint_as_float(big)) & kTf32Mask;
-}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -164,24 +151,40 @@ __device__ __forceinline__ void cp_async_wait() {
 // K-major 3xTF32 split of a weight matrix
 // ---------------------------------------------------------------------------
 
-// w [kdim, n] (row stride ldb) -> big, small [n, kdim]
-__global__ void split_weights_kernel(const float* w, int ldb, int kdim, int n, float* big,
-                                     float* small) {
-  __shared__ float tile[32][33];
-  const int k0 = blockIdx.y * 32;
-  const int n0 = blockIdx.x * 32;
+// The K-major 3xTF32 splits of up to kMaxSplits weight matrices, one 32 x
+// 32 tile a block (blockIdx.y: the matrix): big, small [n, kdim] of B
+// [kdim, n].  B is w [kdim, n] (row stride ldb), or with w_t the per-tap
+// transpose of the forward conv's w [taps * n, c_in], B[tap * c_in + j, c]
+// = w[tap * n + c, j], read along its rows.  Both go through shared memory
+// so that reads and writes are coalesced.
+__global__ void split_weights_kernel(const WeightSplits s) {
+  __shared__ float tile[32][33];  // [k][c]
+  const WeightSplit& job = s.job[blockIdx.y];
+  const int tiles_k = (job.kdim + 31) / 32;
+  if ((int)blockIdx.x >= tiles_k * ((job.n + 31) / 32)) return;
+  const int c0 = (blockIdx.x / tiles_k) * 32, k0 = (blockIdx.x % tiles_k) * 32;
   for (int r = threadIdx.y; r < 32; r += 8) {
-    const int k = k0 + r, col = n0 + threadIdx.x;
-    tile[r][threadIdx.x] = (k < kdim && col < n) ? w[(long)k * ldb + col] : 0.f;
+    if (job.w_t) {  // lanes along k: contiguous within a tap
+      const int k = k0 + threadIdx.x, c = c0 + r;
+      float v = 0.f;
+      if (k < job.kdim && c < job.n) {
+        const int tap = k / job.c_in;
+        v = job.w[((long)tap * job.n + c) * job.c_in + (k - tap * job.c_in)];
+      }
+      tile[threadIdx.x][r] = v;
+    } else {  // lanes along c
+      const int k = k0 + r, c = c0 + threadIdx.x;
+      tile[r][threadIdx.x] = (k < job.kdim && c < job.n) ? job.w[(long)k * job.ldb + c] : 0.f;
+    }
   }
   __syncthreads();
   for (int r = threadIdx.y; r < 32; r += 8) {
-    const int col = n0 + r, k = k0 + threadIdx.x;
-    if (col < n && k < kdim) {
-      uint32_t b, s;
-      split_tf32(tile[threadIdx.x][r], b, s);
-      big[(long)col * kdim + k] = __uint_as_float(b);
-      small[(long)col * kdim + k] = __uint_as_float(s);
+    const int c = c0 + r, k = k0 + threadIdx.x;
+    if (c < job.n && k < job.kdim) {
+      uint32_t b, sm;
+      split_tf32(tile[threadIdx.x][r], b, sm);
+      job.big[(long)c * job.kdim + k] = __uint_as_float(b);
+      job.small[(long)c * job.kdim + k] = __uint_as_float(sm);
     }
   }
 }
@@ -299,9 +302,13 @@ constexpr int conv_gemm_tc_smem() {
   return conv_gemm_tc_stages<kBN>() * (2 * kBN * 128 + kATileBytes) + 1024;
 }
 
+// `part_out` null: the epilogue; else the block's raw sums go to
+// part_out[blockIdx.z] ([rows, n]) and the block walks only its share of
+// the K slices (split-K, added by splitk_reduce_kernel).
 template <int kBN>
 __global__ void __launch_bounds__(256, 1)
-    conv_gemm_tc_kernel(const ConvGemm g, const float* __restrict__ w_big) {
+    conv_gemm_tc_kernel(const ConvGemm g, const float* __restrict__ w_big,
+                        float* __restrict__ part_out, int slices_per_split) {
   constexpr int kStages = conv_gemm_tc_stages<kBN>();
   constexpr int kBTileBytes = kBN * 128;
   constexpr int kACopies = kTM * 8 / 256;  // 16-byte copies a thread, A
@@ -319,7 +326,9 @@ __global__ void __launch_bounds__(256, 1)
   const int rows = g.batch * g.t;
   const int kdim = g.taps * g.c_in;
   const int half_taps = g.taps / 2;
-  const int n_slices = (kdim + kTK - 1) / kTK;
+  // this block's slices: [slice0, slice0 + n_slices)
+  const int slice0 = blockIdx.z * slices_per_split;
+  const int n_slices = min((kdim + kTK - 1) / kTK - slice0, slices_per_split);
   const long small_off = (long)kdim * g.n;  // the small part follows the big one
 
   // staging: this thread copies 16-byte chunk `cc` of tile rows tid / 8 + 32 i
@@ -345,7 +354,7 @@ __global__ void __launch_bounds__(256, 1)
   const uint32_t b_dst0 = b_base + r0 * 128 + ((cc ^ (r0 & 7)) << 4);
 
   auto load_slice = [&](int slice, int stage) {
-    const int kidx = slice * kTK + 4 * cc;
+    const int kidx = (slice0 + slice) * kTK + 4 * cc;
     const bool k_ok = kidx < kdim;
     const int tap = k_ok ? kidx / g.c_in : 0;
     const int c = kidx - tap * g.c_in;
@@ -463,6 +472,7 @@ __global__ void __launch_bounds__(256, 1)
   // Epilogue through shared memory, so that a warp writes 32 neighbouring
   // columns of one row (a fragment holds 2 columns of 16 rows: stored as it
   // lies, a row's 32-byte sectors would each take four partial writes).
+  // Split-K: the raw sums go to this split's partial tile instead.
   // Accumulator fragment: acc[4 j + {0, 1}] are columns 8 j + 2 t + {0, 1}
   // of row frag_row, acc[4 j + {2, 3}] the same columns of row frag_row + 8.
   constexpr int kCStride = kBN + 8;  // floats a row: conflict-free 8-byte stores
@@ -486,21 +496,53 @@ __global__ void __launch_bounds__(256, 1)
     const int m = m0 + r;
     if (m >= rows || n0 + col >= g.n) continue;
     const float4 v = *reinterpret_cast<const float4*>(c_tile + r * kCStride + col);
+    if (part_out != nullptr) {  // n is a multiple of 4 here
+      *reinterpret_cast<float4*>(part_out + ((long)blockIdx.z * rows + m) * g.n + n0 + col) = v;
+      continue;
+    }
     const float four[4] = {v.x, v.y, v.z, v.w};
     epilogue_cols<4>(g, epilogue_row_of(g, m), n0 + col, four);
   }
 }
 
+// Split-K: the splits' partial sums of 4 neighbouring columns of one row,
+// added in split order, then the epilogue, one thread per 4 elements.
+__global__ void splitk_reduce_kernel(const ConvGemm g, const float* __restrict__ part,
+                                     int splits) {
+  const int rows = g.batch * g.t;
+  const int n4 = g.n / 4;
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long)rows * n4) return;
+  const int m = (int)(i / n4);
+  const int col = 4 * (int)(i - (long)m * n4);
+  const long split_stride = (long)rows * g.n;
+  float4 v = *reinterpret_cast<const float4*>(part + (long)m * g.n + col);
+  for (int z = 1; z < splits; ++z) {
+    const float4 p = *reinterpret_cast<const float4*>(part + z * split_stride + (long)m * g.n + col);
+    v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
+  }
+  const float four[4] = {v.x, v.y, v.z, v.w};
+  epilogue_cols<4>(g, epilogue_row_of(g, m), col, four);
+}
+
 template <int kBN>
-cudaError_t launch_conv_gemm_tc(const ConvGemm& g, const float* big, cudaStream_t stream) {
+cudaError_t launch_conv_gemm_tc(const ConvGemm& g, const float* big, int splits,
+                                cudaStream_t stream) {
   // per device, so set on every launch: a process may drive several
   cudaError_t err = cudaFuncSetAttribute(conv_gemm_tc_kernel<kBN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          conv_gemm_tc_smem<kBN>());
   if (err != cudaSuccess) return err;
   const int rows = g.batch * g.t;
-  const dim3 grid((g.n + kBN - 1) / kBN, (rows + kTM - 1) / kTM);
-  conv_gemm_tc_kernel<kBN><<<grid, 256, conv_gemm_tc_smem<kBN>(), stream>>>(g, big);
+  const int n_slices = (g.taps * g.c_in + kTK - 1) / kTK;
+  const int per_split = (n_slices + splits - 1) / splits;
+  splits = (n_slices + per_split - 1) / per_split;  // no empty split
+  const dim3 grid((g.n + kBN - 1) / kBN, (rows + kTM - 1) / kTM, splits);
+  conv_gemm_tc_kernel<kBN><<<grid, 256, conv_gemm_tc_smem<kBN>(), stream>>>(
+      g, big, splits > 1 ? g.part : nullptr, per_split);
+  if ((err = cudaGetLastError()) != cudaSuccess || splits == 1) return err;
+  const long threads = (long)rows * (g.n / 4);
+  splitk_reduce_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(g, g.part, splits);
   return cudaGetLastError();
 }
 
@@ -743,34 +785,104 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 
 bool conv_gemm_tc_can(const ConvGemm& g) {
   const long kdim = (long)g.taps * g.c_in;
+  const bool b_ok = g.w_split != nullptr
+                        ? aligned16(g.w_split)
+                        : aligned16(g.tc_scratch) && 2 * kdim * g.n <= g.tc_scratch_floats;
   return g.c_in % 4 == 0 && g.lda % 4 == 0 && aligned16(g.a) && kdim > 0 &&
-         (g.a_mask == nullptr || g.taps == 1) && g.tc_scratch != nullptr &&
-         aligned16(g.tc_scratch) && 2 * kdim * g.n <= g.tc_scratch_floats;
+         (g.a_mask == nullptr || g.taps == 1) && g.tc_scratch != nullptr && b_ok;
+}
+
+// Split-K, for a chain that gives scratch for the partial sums (the text
+// side's): the count of K shares, at most kMaxSplitK with at least
+// kMinSplitSlices slices each and within kSplitKCols, whose waves of blocks
+// times slices a block, ceil(tiles s / sms) ceil(slices / s), is least
+// (ties go to fewer shares).  Wave quantisation is what a short, deep
+// product loses: at [3072, 2304, 192] 72 tiles walk 72 slices in one
+// wave, where 3 shares walk 24 in two.  A share walks at least 128 deep:
+// the 192-deep products lost more to their partial sums' round trip than
+// the waves gave back (PERF.md).  Only for products of at least
+// kSplitKMinRows rows: a lone short sentence (b=1) keeps the dispatch it
+// had.
+constexpr long kMaxSplitK = 4;
+constexpr long kMinSplitSlices = 4;
+constexpr long kSplitKMinRows = 512;
+
+int conv_gemm_tc_splits(const ConvGemm& g, int sms) {
+  const long rows = (long)g.batch * g.t;
+  if (g.part == nullptr || g.n % 4 || rows < kSplitKMinRows) return 1;
+  const int bn = conv_gemm_tc_bn(g.n);
+  const long tiles = ((rows + kTM - 1) / kTM) * ((g.n + bn - 1) / bn);
+  const long n_slices = (g.taps * g.c_in + kTK - 1) / kTK;
+  long best = 1, best_cost = ((tiles + sms - 1) / sms) * n_slices;
+  for (long s = 2; s <= kMaxSplitK; ++s) {
+    const long per_split = (n_slices + s - 1) / s;
+    const long splits = (n_slices + per_split - 1) / per_split;  // no empty share
+    if (per_split < kMinSplitSlices || splits * g.n > kSplitKCols) break;
+    const long cost = ((tiles * splits + sms - 1) / sms) * per_split;
+    if (cost < best_cost) { best = splits; best_cost = cost; }
+  }
+  return (int)best;
 }
 
 bool conv_gemm_tc_fits(const ConvGemm& g, int sms) {
   if (!conv_gemm_tc_can(g) || g.n < 64 || g.taps * g.c_in < 32) return false;
   const int bn = conv_gemm_tc_bn(g.n);
   const long tiles = (long)((g.batch * g.t + kTM - 1) / kTM) * ((g.n + bn - 1) / bn);
-  return 4 * tiles >= sms;
+  return 4 * tiles * conv_gemm_tc_splits(g, sms) >= sms;
 }
 
-cudaError_t split_weights(const float* w, int ldb, int kdim, int n, float* big, float* small,
-                          cudaStream_t stream) {
-  split_weights_kernel<<<dim3((n + 31) / 32, (kdim + 31) / 32), dim3(32, 8), 0, stream>>>(
-      w, ldb, kdim, n, big, small);
+cudaError_t split_weights(const WeightSplits& s, cudaStream_t stream) {
+  if (s.count <= 0) return cudaSuccess;
+  int tiles = 0;
+  for (int i = 0; i < s.count; ++i)
+    tiles = std::max(tiles, ((s.job[i].kdim + 31) / 32) * ((s.job[i].n + 31) / 32));
+  split_weights_kernel<<<dim3(tiles, s.count), dim3(32, 8), 0, stream>>>(s);
   return cudaGetLastError();
 }
 
-cudaError_t conv_gemm_tc(const ConvGemm& g, cudaStream_t stream) {
-  if (!conv_gemm_tc_can(g)) return cudaErrorInvalidValue;
-  const int kdim = g.taps * g.c_in;
-  float* big = g.tc_scratch;
-  float* small = big + (long)kdim * g.n;
-  cudaError_t err = split_weights(g.w, g.ldb ? g.ldb : g.n, kdim, g.n, big, small, stream);
+namespace {
+
+WeightSplit split_job(const ConvGemm& g, float* big) {
+  WeightSplit job;
+  job.w = g.w; job.ldb = g.ldb ? g.ldb : g.n; job.kdim = g.taps * g.c_in; job.n = g.n;
+  job.c_in = g.c_in; job.w_t = g.w_t; job.big = big; job.small = big + (long)job.kdim * g.n;
+  return job;
+}
+
+}  // namespace
+
+cudaError_t presplit_weights(ConvGemm* const* gs, int count, float* scratch, long floats,
+                             cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  return conv_gemm_tc_bn(g.n) == 128 ? launch_conv_gemm_tc<128>(g, big, stream)
-                                     : launch_conv_gemm_tc<64>(g, big, stream);
+  WeightSplits s;
+  long used = 0;
+  for (int i = 0; i < count && s.count < kMaxSplits; ++i) {
+    ConvGemm& g = *gs[i];
+    const long need = 2L * g.taps * g.c_in * g.n;
+    if (used + need > floats || !conv_gemm_tc_fits(g, sms)) continue;
+    s.job[s.count++] = split_job(g, scratch + used);
+    g.w_split = scratch + used;
+    used += (need + 3) / 4 * 4;
+  }
+  return split_weights(s, stream);
+}
+
+cudaError_t conv_gemm_tc(const ConvGemm& g, int sms, cudaStream_t stream) {
+  if (!conv_gemm_tc_can(g)) return cudaErrorInvalidValue;
+  const float* big = g.w_split;
+  if (big == nullptr) {  // split here, into the chain's scratch
+    WeightSplits s;
+    s.job[s.count++] = split_job(g, g.tc_scratch);
+    const cudaError_t err = split_weights(s, stream);
+    if (err != cudaSuccess) return err;
+    big = g.tc_scratch;
+  }
+  const int splits = conv_gemm_tc_splits(g, sms);
+  return conv_gemm_tc_bn(g.n) == 128 ? launch_conv_gemm_tc<128>(g, big, splits, stream)
+                                     : launch_conv_gemm_tc<64>(g, big, splits, stream);
 }
 
 bool wgrad_tc_can(const WGrad& w) {
@@ -814,36 +926,37 @@ cudaError_t wgrad_tc(const WGrad& w, int sms, cudaStream_t stream) {
 // the two device kernels alone, and the counters
 // ---------------------------------------------------------------------------
 
-namespace {
-
-// mode 0: as the chains run it (the tensor-core kernel where it fits);
-// 1: the tensor-core kernel, or an error where it cannot run; 2: CUDA cores
-template <typename Product, typename Can, typename Tc, typename Auto>
-int run_mode(Product& p, int mode, Can can, Tc tc, Auto dispatch) {
-  if (mode == 1) {
-    if (!can(p)) return (int)cudaErrorInvalidValue;
-    return (int)tc(p);
-  }
-  return (int)dispatch(p);
-}
-
-}  // namespace
-
 // out [batch * t, n] = im2col(a) @ w: the bare product (kBias, no bias).
+// mode 0: as the flow chains run it; 1: the tensor-core kernel over the
+// whole K walk (an error where it cannot run); 2: CUDA cores; 3: as the
+// text chains run it (split-K allowed).  The scratch holds the weights'
+// split, then the split-K partial sums (kSplitKCols floats a row).  w_t:
+// w is the forward conv's [taps * n, c_in] and the product its per-tap
+// transpose.
 extern "C" int gtt_tc_conv_gemm(const float* a, const float* w, const float* a_mask, float* out,
-                                float* scratch, int scratch_floats, int batch, int t, int c_in,
-                                int lda, int taps, int dilation, int tap_sign, int n, int mode,
-                                cudaStream_t stream) {
+                                float* scratch, long long scratch_floats, int batch, int t,
+                                int c_in, int lda, int taps, int dilation, int tap_sign, int n,
+                                int w_t, int mode, cudaStream_t stream) {
   using namespace gtt;
   ConvGemm g;
   g.a = a; g.lda = lda; g.c_in = c_in; g.a_mask = a_mask; g.taps = taps;
   g.dilation = dilation; g.batch = batch; g.t = t; g.tap_sign = tap_sign;
-  g.w = w; g.n = n; g.epilogue = kBias; g.out = out; g.ldo = n;
-  if (mode != 2) { g.tc_scratch = scratch; g.tc_scratch_floats = scratch_floats; }
-  return run_mode(
-      g, mode, [](const ConvGemm& p) { return conv_gemm_tc_can(p); },
-      [&](const ConvGemm& p) { ++product_counts().tc_gemm; return conv_gemm_tc(p, stream); },
-      [&](const ConvGemm& p) { return conv_gemm(p, stream); });
+  g.w = w; g.w_t = w_t; g.n = n; g.epilogue = kBias; g.out = out; g.ldo = n;
+  if (mode != 2) {
+    const long split_floats = ((2L * taps * c_in * n + 3) / 4) * 4;
+    g.tc_scratch = scratch; g.tc_scratch_floats = split_floats;
+    if (split_floats + (mode == 3 ? (long)kSplitKCols * batch * t : 0) > scratch_floats)
+      return (int)cudaErrorInvalidValue;
+    if (mode == 3) g.part = scratch + split_floats;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (mode != 1) return (int)conv_gemm(g, stream);
+  if (!conv_gemm_tc_can(g)) return (int)cudaErrorInvalidValue;
+  ++product_counts().tc_gemm;
+  return (int)conv_gemm_tc(g, sms, stream);
 }
 
 // out [taps * c_in, n] = im2col(a)^T @ dy: the bare weight gradient.
@@ -860,16 +973,22 @@ extern "C" int gtt_tc_wgrad(const float* a, const float* dy, const float* a_mask
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  return run_mode(
-      w, mode, [](const WGrad& p) { return wgrad_tc_can(p); },
-      [&](const WGrad& p) { ++product_counts().tc_wgrad; return wgrad_tc(p, sms, stream); },
-      [&](const WGrad& p) { return wgrad(p, stream); });
+  // mode 0: as the chains run it; 1: the tensor-core kernel (an error
+  // where it cannot run); 2: CUDA cores
+  if (mode != 1) return (int)wgrad(w, stream);
+  if (!wgrad_tc_can(w)) return (int)cudaErrorInvalidValue;
+  ++product_counts().tc_wgrad;
+  return (int)wgrad_tc(w, sms, stream);
 }
 
 // big, small [n, kdim] = the K-major 3xTF32 split of w [kdim, n].
 extern "C" int gtt_split_weights(const float* w, float* big, float* small, int kdim, int n,
                                  cudaStream_t stream) {
-  return (int)gtt::split_weights(w, n, kdim, n, big, small, stream);
+  gtt::WeightSplits s;
+  gtt::WeightSplit& job = s.job[s.count++];
+  job.w = w; job.ldb = n; job.kdim = kdim; job.n = n; job.c_in = kdim; job.big = big;
+  job.small = small;
+  return (int)gtt::split_weights(s, stream);
 }
 
 // counts [6] = tensor-core conv-GEMMs, tensor-core weight gradients,

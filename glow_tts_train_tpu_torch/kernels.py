@@ -41,8 +41,12 @@ _SOURCES = (
     "block.cu", "block_train.cu", "mas.cu",
 )
 
-# argument kinds of the C signatures: pointer, int, unsigned int, float
-_KINDS = {"p": ctypes.c_void_p, "i": ctypes.c_int, "u": ctypes.c_uint, "f": ctypes.c_float}
+# argument kinds of the C signatures: pointer, int, 64-bit int, unsigned
+# int, float
+_KINDS = {
+    "p": ctypes.c_void_p, "i": ctypes.c_int, "L": ctypes.c_longlong, "u": ctypes.c_uint,
+    "f": ctypes.c_float,
+}
 
 _lib: typing.Optional[ctypes.CDLL] = None
 
@@ -154,8 +158,8 @@ class Entry:
     (passed as device pointers; ``None`` as a null pointer) and Python
     numbers in the C signature's order; the stream is the current CUDA
     stream.  ``signature`` spells the C arguments before the stream, one
-    letter each: ``p`` pointer, ``i`` int, ``u`` unsigned int, ``f``
-    float."""
+    letter each: ``p`` pointer, ``i`` int, ``L`` 64-bit int, ``u``
+    unsigned int, ``f`` float."""
 
     def __init__(self, symbol: str, signature: str):
         self.symbol = symbol
@@ -188,10 +192,10 @@ class Entry:
 # C signatures (csrc/*.cu): pointer arguments first, then numbers
 PRENET = Entry("gtt_prenet", "p" * 11 + "i" * 7 + "uf")
 DURATION_STACK = Entry("gtt_duration_stack", "p" * 12 + "i" * 7 + "uf")
-ENCODER_LAYER = Entry("gtt_encoder_layer", "p" * 25 + "i" * 9 + "uf")
+ENCODER_LAYER = Entry("gtt_encoder_layer", "p" * 18 + "L" + "i" * 9 + "uf")
 PRENET_BWD = Entry("gtt_prenet_bwd", "p" * 27 + "i" * 8 + "uf")
 DURATION_STACK_BWD = Entry("gtt_duration_stack_bwd", "p" * 31 + "i" * 8 + "uf")
-ENCODER_LAYER_BWD = Entry("gtt_encoder_layer_bwd", "p" * 69 + "i" * 10 + "uf")
+ENCODER_LAYER_BWD = Entry("gtt_encoder_layer_bwd", "p" * 35 + "L" + "i" * 9 + "uf")
 BLOCK_INVERSE = Entry("gtt_block_inverse", "p" * 19 + "i" * 10)
 WN_FORWARD = Entry("gtt_wn_forward", "p" * 11 + "i" * 10 + "uf")
 WN_FWD_SAVE = Entry("gtt_wn_fwd_save", "p" * 13 + "i" * 10 + "uf")
@@ -204,7 +208,7 @@ BLOCK_BWD = Entry("gtt_block_bwd", "p" * 46 + "i" * 12 + "uf")
 MAS = Entry("gtt_mas", "p" * 4 + "i" * 3)
 # the two tensor-core device kernels alone (csrc/tc_gemm.cu), and the
 # weights' K-major split
-TC_CONV_GEMM = Entry("gtt_tc_conv_gemm", "p" * 5 + "i" * 10)
+TC_CONV_GEMM = Entry("gtt_tc_conv_gemm", "p" * 5 + "L" + "i" * 10)
 TC_WGRAD = Entry("gtt_tc_wgrad", "p" * 6 + "i" * 10)
 SPLIT_WEIGHTS = Entry("gtt_split_weights", "p" * 3 + "i" * 2)
 
@@ -247,6 +251,17 @@ def product_counts(reset: bool = False) -> typing.Dict[str, int]:
     counts = (ctypes.c_longlong * len(PRODUCT_COUNT_NAMES))()
     fn(counts, int(reset))
     return dict(zip(PRODUCT_COUNT_NAMES, counts))
+
+
+def encoder_scratch_floats(
+    batch: int, t: int, h: int, n_heads: int, window: int, f: int, taps: int, backward: bool
+) -> int:
+    """Floats of the one scratch block a call of the encoder layer's
+    forward (or backward) entry point carves its buffers from."""
+    fn = library().gtt_encoder_scratch_floats
+    fn.argtypes = [ctypes.c_int] * 8
+    fn.restype = ctypes.c_longlong
+    return int(fn(batch, t, h, n_heads, window, f, taps, int(backward)))
 
 
 def launch_counts() -> typing.Dict[str, int]:

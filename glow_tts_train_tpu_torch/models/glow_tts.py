@@ -205,7 +205,7 @@ class ServingWeights:
 
     emb: torch.Tensor
     prenet: typing.Optional[tuple]  # text_cuda.prenet_weights
-    # per layer: encoder_cuda.fold_encoder_layer's tuple when the encoder
+    # per layer: encoder_cuda.merge_qkv's tuple (the kernels' layout) when the encoder
     # kernel takes the config, else the raw layer params (op-by-op path)
     encoder: typing.List[typing.Any]
     proj_m: Params
@@ -231,7 +231,9 @@ def store_inverse(model: GlowTTS, hp: GlowTTSHyper) -> ServingWeights:
     p = tree_map(lambda a: a.to(torch.float32), model.tree())
     layers = [tree_index(p["encoder"], i) for i in range(hp.n_layers_enc)]
     if hp.encoder_kernel_fits:
-        layers = [encoder_cuda.fold_encoder_layer(layer) for layer in layers]
+        layers = [
+            encoder_cuda.merge_qkv(encoder_cuda.fold_encoder_layer(layer)) for layer in layers
+        ]
     blocks, cond = flows.decoder_store_inverse(
         p["decoder"]["blocks"], hp.n_block_layers, hp.n_split
     )

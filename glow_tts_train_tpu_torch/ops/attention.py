@@ -206,7 +206,8 @@ def encoder_apply(
 
     ``fused``: each layer through the encoder kernel with its hand-written
     backward (``encoder_cuda.encoder_layer_train``): all layers folded
-    once (reshapes, so autograd carries the kernels' folded gradients back
+    once, Q/K/V merged into one [h, 3h] weight (reshapes and a
+    concatenation, so autograd carries the kernels' folded gradients back
     to the raw params), dropout on when ``seed_generator`` (a CPU
     generator) is given, one seed per layer drawn from it.  Configurations
     the kernel does not take (``window_size=None``, ``block_length`` set)
@@ -214,7 +215,9 @@ def encoder_apply(
     if fused and window_size is not None and block_length is None:
         from . import encoder_cuda
 
-        folded = [encoder_cuda.fold_encoder_layer(layer) for layer in layers]
+        folded = [
+            encoder_cuda.merge_qkv(encoder_cuda.fold_encoder_layer(layer)) for layer in layers
+        ]
         drop = seed_generator is not None and p_dropout > 0.0
         for weights in folded:
             x = encoder_cuda.encoder_layer_train(

@@ -15,9 +15,12 @@ output.  Bound: operations over a third of the TF32 peak.
 :func:`conv_product` and :func:`weight_gradient` run one device kernel
 with the bare epilogue, for tests and ``chip_smoke.py``; nothing on the
 model's path calls them (the chains reach the kernels in C).  ``mode``:
-"auto" as the chains dispatch (the tensor-core kernel where the shape
-fits, else the CUDA-core one), "tc" the tensor-core kernel or an error,
-"core" the CUDA-core kernel.
+"auto" as the flow chains dispatch (the tensor-core kernel's 128-row tile
+where the shape fits, else the CUDA-core kernel), "text" as the text
+chains dispatch (split-K allowed: shares of the K walk added in split
+order by a second pass, where that makes fewer waves), "tc" the
+tensor-core kernel over the whole K walk or an error, "core" the CUDA-core
+kernel.
 
 The layout helpers are the plain versions of what the kernels do to the
 weights: :func:`split_weights_plain` the K-major 3xTF32 split that
@@ -33,7 +36,10 @@ import torch
 from .. import kernels
 from .conv import _shifted, offsets
 
-_MODES = {"auto": 0, "tc": 1, "core": 2}
+_MODES = {"auto": 0, "tc": 1, "core": 2, "text": 3}
+# split-K's limits (csrc/common.cuh kSplitKCols, csrc/tc_gemm.cu): partial
+# sums a row over all shares, shares, 32-deep slices a share, rows
+SPLIT_K_COLS, SPLIT_K_MAX, SPLIT_K_MIN_SLICES, SPLIT_K_MIN_ROWS = 1536, 4, 4, 512
 _TF32_MASK = -8192  # 0xffffe000 as int32: clears the low 13 mantissa bits
 _TF32_HALF = 0x1000  # half of the last kept bit
 
@@ -51,19 +57,64 @@ def tf32_split(v: torch.Tensor) -> typing.Tuple[torch.Tensor, torch.Tensor]:
     return big, small
 
 
-def matmul_3xtf32_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def matmul_3xtf32_plain(
+    a: torch.Tensor, b: torch.Tensor, slice_k: typing.Optional[int] = None, splits: int = 1
+) -> torch.Tensor:
     """``a @ b`` as the tensor-core kernels compute it: both operands split
     by :func:`tf32_split`, three products added small terms first (each
-    product exact in float64, the sum rounded to f32 once)."""
+    product exact in float64, the sum rounded to f32 once).  ``slice_k``:
+    each ``slice_k``-deep slice of the K walk summed alone and rounded to
+    f32, the slices added in f32 in order (the kernels' short chains);
+    ``splits``: the K walk's slices cut into that many shares, each summed
+    so, the shares added in f32 in split order (split-K's second pass)."""
     a_big, a_small = (t.double() for t in tf32_split(a))
     b_big, b_small = (t.double() for t in tf32_split(b))
-    return (a_small @ b_big + a_big @ b_small + a_big @ b_big).to(torch.float32)
+    if slice_k is None and splits == 1:
+        return (a_small @ b_big + a_big @ b_small + a_big @ b_big).to(torch.float32)
+    k = a.shape[-1]
+    step = slice_k or k
+    n_slices = -(-k // step)
+    per_split = -(-n_slices // splits)
+    total = None
+    for s0 in range(0, n_slices, per_split):
+        acc = None
+        for sl in range(s0, min(s0 + per_split, n_slices)):
+            ks = slice(sl * step, min((sl + 1) * step, k))
+            part = (a_small[..., ks] @ b_big[ks] + a_big[..., ks] @ b_small[ks]
+                    + a_big[..., ks] @ b_big[ks]).to(torch.float32)
+            acc = part if acc is None else acc + part
+        total = acc if total is None else total + acc
+    return total
 
 
 def matmul_1xtf32_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with both operands rounded to TF32 once: what a single
     tensor-core pass computes at best, for comparison."""
     return (tf32_split(a)[0].double() @ tf32_split(b)[0].double()).to(torch.float32)
+
+
+def text_product_plan(rows: int, kdim: int, n: int, sms: int) -> typing.Tuple[bool, int]:
+    """A text chain's conv-GEMM of ``rows`` x ``kdim`` x ``n`` (operands the
+    tensor-core kernel can take) -> (whether it takes the tensor cores, its
+    K shares): the plain version of ``conv_gemm_tc_fits`` and
+    ``conv_gemm_tc_splits``.  Shares: the count, within the limits above,
+    whose waves of 128-row blocks times 32-deep slices a block is least
+    (ties to fewer); the tensor cores: at least 64 columns, 32 deep, and
+    blocks for a quarter of the ``sms``."""
+    bn = 128 if n % 128 == 0 else 64
+    tiles = -(-rows // 128) * -(-n // bn)
+    slices = -(-kdim // 32)
+    best, best_cost = 1, -(-tiles // sms) * slices
+    if rows >= SPLIT_K_MIN_ROWS and n % 4 == 0:
+        for s in range(2, SPLIT_K_MAX + 1):
+            per = -(-slices // s)
+            splits = -(-slices // per)
+            if per < SPLIT_K_MIN_SLICES or splits * n > SPLIT_K_COLS:
+                break
+            cost = -(-tiles * splits // sms) * per
+            if cost < best_cost:
+                best, best_cost = splits, cost
+    return n >= 64 and kdim >= 32 and 4 * tiles * best >= sms, best
 
 
 def split_weights_plain(w: torch.Tensor) -> torch.Tensor:
@@ -93,8 +144,20 @@ def im2col_plain(
     return torch.cat([_shifted(a, tap_sign * o) for o in offsets(taps, dilation)], dim=-1)
 
 
-def conv_product_plain(a, w, taps=1, dilation=1, tap_sign=1, a_mask=None) -> torch.Tensor:
+def transposed_weights_plain(w: torch.Tensor, taps: int) -> torch.Tensor:
+    """A forward conv's w [taps * n, c] -> [taps * c, n], per tap the
+    transposed block: the B of its input gradient, which the kernels read
+    from ``w`` as it lies."""
+    n = w.shape[0] // taps
+    return w.reshape(taps, n, -1).transpose(1, 2).reshape(-1, n)
+
+
+def conv_product_plain(
+    a, w, taps=1, dilation=1, tap_sign=1, a_mask=None, w_t=False
+) -> torch.Tensor:
     """Plain version of :func:`conv_product`."""
+    if w_t:
+        w = transposed_weights_plain(w, taps)
     return im2col_plain(a, taps, dilation, tap_sign, a_mask) @ w
 
 
@@ -118,23 +181,26 @@ def conv_product(
     tap_sign: int = 1,
     a_mask: typing.Optional[torch.Tensor] = None,
     mode: str = "auto",
+    w_t: bool = False,
 ) -> torch.Tensor:
     """a [b, t, c], w [taps * c, n] -> im2col(a) @ w [b, t, n] by one
-    conv-GEMM launch (no bias, no tail).  CPU tensors take the plain
-    version."""
+    conv-GEMM launch (no bias, no tail); with ``w_t`` w is a forward conv's
+    [taps * n, c] and the product's B its per-tap transpose.  CPU tensors
+    take the plain version."""
     if kernels.route(a) == "plain":
-        return conv_product_plain(a, w, taps, dilation, tap_sign, a_mask)
+        return conv_product_plain(a, w, taps, dilation, tap_sign, a_mask, w_t)
     batch, t, c = a.shape
     kernels.check_operands(a.device, a=a, w=w, a_mask=a_mask)
-    kernels.check_shape("w", w, (taps * c, w.shape[1]))
+    n = w.shape[0] // taps if w_t else w.shape[1]
+    kernels.check_shape("w", w, (taps * n, c) if w_t else (taps * c, n))
     if a_mask is not None:
         kernels.check_shape("a_mask", a_mask, (batch, t, 1))
-    n = w.shape[1]
     out = a.new_empty((batch, t, n))
-    scratch = _scratch(a, 2 * w.numel())
+    # the weights' split, then split-K's partial sums (kSplitKCols a row)
+    scratch = _scratch(a, 2 * w.numel() + 4 + SPLIT_K_COLS * batch * t)
     kernels.TC_CONV_GEMM(
         a, w, a_mask, out, scratch, scratch.numel(), batch, t, c, c, taps, dilation,
-        tap_sign, n, _MODES[mode],
+        tap_sign, n, int(w_t), _MODES[mode],
     )
     return out
 

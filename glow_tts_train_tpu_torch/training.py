@@ -33,7 +33,7 @@ from .models.glow_tts import (
     init_model,
 )
 from .models.losses import duration_loss, mle_loss
-from .optimize import AdamState, adam_init, adam_update, current_lr
+from .optimize import AdamState, adam_init, adam_update, learning_rate_fn
 from .tree import unflatten
 
 _LOGGER = logging.getLogger("glow_tts_train_tpu_torch")
@@ -106,6 +106,11 @@ def check_trainable(config) -> None:
         raise NotImplementedError(
             "grad_accum_steps > 1 is not ported yet (ROADMAP, queue 1 item 6)"
         )
+    if config.checkpoint_format != "npz":
+        raise ValueError(
+            f"checkpoint_format {config.checkpoint_format!r}: this trainer writes .npz "
+            "checkpoints only; set checkpoint_format to \"npz\""
+        )
 
 
 def make_train_step(config):
@@ -142,6 +147,14 @@ def make_train_step(config):
         }
 
     return step_fn
+
+
+def dropout_seed(seed: int, step: int) -> int:
+    """The seed of both dropout generators at 1-indexed global step
+    ``step``: ``seed`` at step 1, then a 64-bit odd-constant stride per
+    step, so that a run resumed at step s draws what an uninterrupted run
+    draws there."""
+    return (int(seed) + (int(step) - 1) * 0x9E3779B97F4A7C15) % (1 << 64)
 
 
 def _host_rss_mb() -> typing.Optional[float]:
@@ -216,10 +229,19 @@ def train(
     Each epoch appends one JSON line to ``metrics_path`` (epoch,
     global_step, avg_loss, learning_rate, epoch_seconds, host_rss_mb);
     every ``checkpoint_epochs`` epochs writes ``checkpoint_<step>.npz``
-    (params, JAX format) and ``config_<step>.json``."""
+    (params, JAX format) and ``config_<step>.json``.  The learning rate
+    written is the one the next update applies, ``lr(count)``.
+
+    Dropout: before each step both generators, ``generator`` on
+    ``device`` (the op-by-op text side's masks) and ``seed_generator`` on
+    the host (the kernels' seeds), are seeded with
+    ``dropout_seed(config.seed, global step)``; a step's masks depend on
+    (seed, step) alone, so a run resumed from ``checkpoint_<s>.npz`` draws
+    at step s what an uninterrupted run draws there."""
     step_fn = make_train_step(config)
-    generator = torch.Generator(device=device).manual_seed(config.seed)
-    seed_generator = torch.Generator().manual_seed(config.seed)
+    lr_at = learning_rate_fn(config)
+    generator = torch.Generator(device=device)
+    seed_generator = torch.Generator()
 
     def prepare(b):
         return batch_to(b, device)
@@ -233,6 +255,8 @@ def train(
             else (prepare(b) for b in batches())
         )
         for batch in epoch_batches:
+            generator.manual_seed(dropout_seed(config.seed, state.step))
+            seed_generator.manual_seed(dropout_seed(config.seed, state.step))
             metrics = step_fn(state, batch, generator, seed_generator)
             losses.append(metrics["loss"])
             if state.step % _LOG_EVERY == 0 and _LOGGER.isEnabledFor(logging.DEBUG):
@@ -248,7 +272,7 @@ def train(
                             "epoch": epoch,
                             "global_step": state.step,
                             "avg_loss": avg,
-                            "learning_rate": current_lr(config, state.step),
+                            "learning_rate": lr_at(state.opt.count),
                             "epoch_seconds": epoch_seconds,
                             "host_rss_mb": _host_rss_mb(),
                         },
@@ -259,7 +283,7 @@ def train(
             checkpoint_path = Path(model_dir) / f"checkpoint_{state.step}.npz"
             save_checkpoint(
                 state.model.flat(), checkpoint_path, state.step,
-                current_lr(config, state.step), config.version,
+                lr_at(state.opt.count), config.version,
             )
             with open(Path(model_dir) / f"config_{state.step}.json", "w") as config_file:
                 config.save(config_file)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The default-mode train step and the flow block's two training kernels of
-one checkout of glow_tts_train_tpu_torch on one GPU, as one JSON object.
+"""The default-mode train step, the flow block's two training kernels and the
+text encoder layer's two kernels of one checkout of glow_tts_train_tpu_torch
+on one GPU, as one JSON object.
 
     python scripts/torch-block-step-probe.py [--repo DIR] [--steps 24]
 
@@ -18,8 +19,15 @@ steps with a device sync on each side of a step; then the largest batch
 once unprofiled and once under ``torch.profiler`` for the device's busy
 time, its count of device operations and its time by GEMM kernel.  Then
 ``block_fwd_save`` and ``block_bwd_store`` alone at [16, 704, 160] on random
-non-zero weights (dropout 0.05), timed with CUDA events (median of 30 calls
-after 5) and by the device's own time under the profiler (mean of 10).  Prints the GPU's name and power limit with the numbers.
+non-zero weights (dropout 0.05); then ``encoder_layer`` and
+``encoder_layer_bwd`` (layer 1 of the same weights, in the layout the tree's
+main path passes: Q/K/V merged where the tree has ``encoder_cuda.merge_qkv``)
+at the training shape [16, 192, 192] with dropout 0.1 and ragged lengths, and
+``encoder_layer`` at serving b=4 [4, 250, 192] (requests of 48, 96, 160 and
+250 phonemes).  Each kernel is timed with CUDA events (median of 30 calls
+after 5) and by the device's own time under the profiler (mean of 10), with
+its device operations a call.  Prints the GPU's name and power limit with the
+numbers.
 """
 
 import argparse
@@ -52,9 +60,10 @@ def event_ms(fn, runs: int = 30) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, runs: int = 10) -> float:
-    """The device's own time for one call of ``fn``: the self time of its
-    kernels and copies under torch.profiler, without the host's gaps."""
+def device_ms(fn, runs: int = 10) -> tuple:
+    """(the device's own time for one call of ``fn``: the self time of its
+    kernels and copies under torch.profiler, without the host's gaps; its
+    device operations a call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -64,8 +73,9 @@ def device_ms(fn, runs: int = 10) -> float:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type.name == "CUDA") / 1e3 / runs
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    return (sum(e.self_device_time_total for e in events) / 1e3 / runs,
+            sum(e.count for e in events) / runs)
 
 
 def main() -> int:
@@ -86,7 +96,7 @@ def main() -> int:
     from glow_tts_train_tpu_torch import checkpoint, data, kernels, training
     from glow_tts_train_tpu_torch.config import load_config
     from glow_tts_train_tpu_torch.models import hyper_from_config
-    from glow_tts_train_tpu_torch.ops import block_cuda
+    from glow_tts_train_tpu_torch.ops import block_cuda, encoder_cuda
     from glow_tts_train_tpu_torch.tree import tree_index, tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -175,9 +185,35 @@ def main() -> int:
     dld = torch.ones_like(ld)
     fwd_ms = event_ms(lambda: block_cuda.block_fwd_save(folded, None, x, mask, *cfg))
     bwd_ms = event_ms(lambda: block_cuda.block_bwd_store(folded, False, x, mask, saves, dz, dld, *cfg))
-    fwd_device_ms = device_ms(lambda: block_cuda.block_fwd_save(folded, None, x, mask, *cfg))
+    fwd_device_ms = device_ms(lambda: block_cuda.block_fwd_save(folded, None, x, mask, *cfg))[0]
     bwd_device_ms = device_ms(
-        lambda: block_cuda.block_bwd_store(folded, False, x, mask, saves, dz, dld, *cfg))
+        lambda: block_cuda.block_bwd_store(folded, False, x, mask, saves, dz, dld, *cfg))[0]
+
+    # the encoder layer's two kernels
+    weights = encoder_cuda.fold_encoder_layer(tree_index(tree["encoder"], 1))
+    if hasattr(encoder_cuda, "merge_qkv"):
+        weights = encoder_cuda.merge_qkv(weights)
+
+    def text_inputs(lengths, t):
+        m = (torch.arange(t)[None, :] < torch.tensor(lengths)[:, None]).float()[..., None]
+        xx = torch.from_numpy(rng.standard_normal((len(lengths), t, hp.h_enc)).astype(np.float32))
+        return xx.to("cuda").contiguous(), m.to("cuda").contiguous()
+
+    xe, mask_e = text_inputs([192] + rng.integers(64, 193, size=15).tolist(), 192)
+    dout = torch.from_numpy(rng.standard_normal(xe.shape).astype(np.float32)).to("cuda")
+    xs, mask_s = text_inputs([48, 96, 160, 250], 250)
+    ecfg = (hp.n_heads, hp.window_size, 0.1, 1234)
+    encoder = {}
+    for name, fn in {
+        "encoder_layer_train": lambda: encoder_cuda.encoder_layer(weights, xe, mask_e, *ecfg),
+        "encoder_layer_bwd_train":
+            lambda: encoder_cuda.encoder_layer_bwd(weights, xe, mask_e, dout, *ecfg),
+        "encoder_layer_serve_b4":
+            lambda: encoder_cuda.encoder_layer(weights, xs, mask_s, hp.n_heads, hp.window_size),
+    }.items():
+        ms = event_ms(fn)
+        dev_ms, dev_ops = device_ms(fn)
+        encoder[name] = {"ms": ms, "device_ms": dev_ms, "device_operations": dev_ops}
 
     print(json.dumps({
         "repo": str(repo), "gpu": gpu, "build_s": build_s,
@@ -191,6 +227,7 @@ def main() -> int:
         "block_fwd_save_ms": fwd_ms, "block_bwd_store_ms": bwd_ms,
         "block_fwd_save_device_ms": fwd_device_ms, "block_bwd_store_device_ms": bwd_device_ms,
         "block_shape": [batch, t, c],
+        "encoder_shapes": {"train": list(xe.shape), "serve_b4": list(xs.shape)}, **encoder,
     }))
     return 0
 

@@ -881,3 +881,143 @@ def test_block_kernels_on_the_tensor_cores_match_plain(dev, name):
     counts = kernels.product_counts(reset=True)
     assert (counts["tc_gemm"], counts["core_gemm"]) == (3 + 2 * L, 0)
     _rel_close("inverse", y, block_cuda.block_inverse_plain(inv, g_all, x, mask, *inv_args), 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the text side's products and the encoder layer on the tensor cores
+# ---------------------------------------------------------------------------
+
+# the encoder layer's products at t_x < 256: (batch, t, c_in, taps, n, w_t);
+# w_t: the transposed product reads the forward conv's weights as they lie
+SHORT_CONV_CASES = {
+    "ffn1_t64": (16, 64, 192, 3, 768, False),
+    "ffn2_t100_ragged": (16, 100, 768, 3, 192, False),
+    "ffn2_t192": (16, 192, 768, 3, 192, False),
+    "ffn1_t192_transposed": (16, 192, 192, 3, 768, True),
+    "qkv_t192": (16, 192, 192, 1, 576, False),
+    "dx_t100_transposed": (16, 100, 576, 1, 192, True),
+}
+# the tensor cores over the whole K walk; as the text chains dispatch
+# (split-K where it makes fewer waves)
+SHORT_MODES = ("tc", "text")
+# the lean of a product: its error along the sign of float64's output,
+# relative to the mean magnitude (the tensor cores' accumulator rounds
+# toward zero, so a long chain shrinks every output alike): the 3xTF32
+# recipe (32-deep slices from zero, big rounded to nearest, small terms
+# first) keeps it near 1e-7 (PERF.md)
+LEAN_RTOL = 5e-7
+
+
+def _lean(got, ref):
+    return ((got.double() - ref) * ref.sign()).mean().item() / ref.abs().mean().item()
+
+
+@pytest.mark.parametrize("name", sorted(SHORT_CONV_CASES))
+def test_tc_short_conv_variants_match_float64(dev, name):
+    """The tensor-core conv-GEMM at the encoder's short, deep shapes, over
+    the whole K walk and as the text chains take it (on the unit and with
+    the K shares ``text_product_plan`` gives), against float64 of the same
+    operands within PRODUCT_RTOL of max |ref|, its lean within LEAN_RTOL,
+    and the text chains' bits the same twice (split-K's shares are added in
+    a fixed order)."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    batch, t, c_in, taps, n, w_t = SHORT_CONV_CASES[name]
+    a, _, _ = _product_inputs(dev, 21, batch, t, c_in, n, taps * c_in)
+    rng = np.random.default_rng(22)
+    shape = (taps * n, c_in) if w_t else (taps * c_in, n)
+    w = (rng.standard_normal(shape) / np.sqrt(taps * c_in)).astype(np.float32)
+    w = torch.from_numpy(w).to(dev)
+    tap_sign = -1 if w_t else 1
+    b = tc_gemm.transposed_weights_plain(w, taps) if w_t else w
+    ref = tc_gemm.im2col_plain(a, taps, 1, tap_sign).double() @ b.double()
+    scale = ref.abs().max().item()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    on_tc, splits = tc_gemm.text_product_plan(batch * t, taps * c_in, n, sms)
+    assert on_tc
+    outs = {}
+    for mode in SHORT_MODES:
+        kernels.product_counts(reset=True)
+        outs[mode] = got = tc_gemm.conv_product(a, w, taps, 1, tap_sign, mode=mode, w_t=w_t)
+        counts = kernels.product_counts(reset=True)
+        assert (counts["tc_gemm"], counts["core_gemm"]) == (1, 0), (mode, counts)
+        assert (got.double() - ref).abs().max().item() <= PRODUCT_RTOL * scale, mode
+        assert abs(_lean(got, ref)) <= LEAN_RTOL, mode
+    if splits == 1:
+        assert torch.equal(outs["text"], outs["tc"])
+    assert torch.equal(outs["text"],
+                       tc_gemm.conv_product(a, w, taps, 1, tap_sign, mode="text", w_t=w_t))
+    core = tc_gemm.conv_product(a, w, taps, 1, tap_sign, mode="core", w_t=w_t)
+    assert (core.double() - ref).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("t", [64, 100, 192])
+@pytest.mark.parametrize("c_in,n", [(192, 768), (768, 192)])
+def test_tc_short_weight_gradients_match_float64(dev, t, c_in, n):
+    """The FFN's weight gradients (K 576 and 2304) over 16 x t rows on the
+    tensor cores: within PRODUCT_RTOL of float64, the lean within
+    LEAN_RTOL, the same bits twice."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    a, _, _ = _product_inputs(dev, 23, 16, t, c_in, n, 3 * c_in)
+    dy = np.random.default_rng(24).standard_normal((16, t, n)).astype(np.float32)
+    dy = torch.from_numpy(dy).to(dev)
+    cols = tc_gemm.im2col_plain(a, 3, 1).reshape(16 * t, -1)
+    ref = cols.double().T @ dy.reshape(16 * t, n).double()
+    kernels.product_counts(reset=True)
+    got = tc_gemm.weight_gradient(a, dy, 3, 1)
+    assert kernels.product_counts(reset=True)["tc_wgrad"] == 1
+    scale = ref.abs().max().item()
+    assert (got.double() - ref).abs().max().item() <= PRODUCT_RTOL * scale
+    assert abs(_lean(got, ref)) <= LEAN_RTOL
+    assert torch.equal(got, tc_gemm.weight_gradient(a, dy, 3, 1))
+
+
+def _base_layer(dev, batch, t, seed=4):
+    """Base-width encoder layer weights (the kernels' merged layout), x and
+    a ragged mask (one sample at full length, one of a single frame)."""
+    hp = model.hyper_from_config(_config(BASE, 80))
+    tt = tree_map(lambda a: a.to(dev), _tree(hp, seed))
+    weights = encoder_cuda.merge_qkv(encoder_cuda.fold_encoder_layer(tree_index(tt["encoder"], 1)))
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((batch, t, hp.h_enc)).astype(np.float32)).to(dev)
+    lengths = rng.integers(t // 3, t + 1, size=batch)
+    lengths[0], lengths[-1] = t, 1
+    mask = (torch.arange(t, device=dev)[None, :] < torch.from_numpy(lengths).to(dev)[:, None])
+    dout = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32)).to(dev)
+    return hp, weights, x, mask.float()[..., None].contiguous(), dout
+
+
+def test_encoder_layer_on_the_tensor_cores_matches_plain(dev):
+    """The encoder layer at the training shape [16, 192, 192] (f 768,
+    dropout 0.1): every product of the forward (4) and of the backward (4
+    recomputed, 4 more and 4 weight gradients) on the tensor cores, none
+    declined; the forward within 1e-5 of the plain version's max; the
+    backward's recompute equal to the forward bit for bit; every gradient
+    within 1e-4 of its max of autograd of the plain version at the kernel's
+    ReLU gates; the same bits twice."""
+    hp, weights, x, mask, dout = _base_layer(dev, 16, 192)
+    cfg = (hp.n_heads, hp.window_size, 0.1, 2 ** 31 - 7)
+    kernels.product_counts(reset=True)
+    out = encoder_cuda.encoder_layer(weights, x, mask, *cfg)
+    fwd_counts = kernels.product_counts(reset=True)
+    assert fwd_counts == dict(tc_gemm=4, tc_wgrad=0, core_gemm=0, core_wgrad=0,
+                              declined_gemm=0, declined_wgrad=0)
+    plain = encoder_cuda.encoder_layer_plain(weights, x, mask, *cfg)
+    _rel_close("encoder_layer out", out, plain, 1e-5)
+    saves, plain_saves = {}, {}
+    grads = encoder_cuda.encoder_layer_bwd(weights, x, mask, dout, *cfg, saves=saves)
+    bwd_counts = kernels.product_counts(reset=True)
+    assert bwd_counts == dict(tc_gemm=8, tc_wgrad=4, core_gemm=0, core_wgrad=0,
+                              declined_gemm=0, declined_wgrad=0)
+    assert torch.equal(saves["out"], out)
+    encoder_cuda.encoder_layer_bwd_plain(weights, x, mask, dout, *cfg, saves=plain_saves)
+    _gates_agree("encoder_layer", saves["gates"], plain_saves)
+    ref = encoder_cuda.encoder_layer_bwd_plain(weights, x, mask, dout, *cfg, gates=saves["gates"])
+    assert len(grads) == len(ref) == 15
+    for i, (g, r) in enumerate(zip(grads, ref)):
+        assert g.shape == r.shape
+        _rel_close(f"encoder_layer grad {i}", g, r, 1e-4)
+    again = encoder_cuda.encoder_layer_bwd(weights, x, mask, dout, *cfg)
+    for i, (g, r) in enumerate(zip(grads, again)):
+        assert torch.equal(g, r), f"grad {i} differs between two runs"

@@ -432,3 +432,13 @@ def test_clis_refuse_a_decoder_mode_they_cannot_honour(corpus, cli, key, value):
         )
         assert proc.stdout == ""
     assert proc.returncode == 2 and key in proc.stderr, proc.stderr[-2000:]
+
+
+def test_train_cli_refuses_a_checkpoint_format_it_cannot_write(corpus):
+    """``checkpoint_format`` is read: any value but "npz" (the only format
+    this trainer writes) exits 2 with the key named, before the corpus
+    loads or a step trains."""
+    proc = _train_cli(corpus, "refuse_orbax", {"checkpoint_format": "orbax"}, corpus / "init.npz")
+    assert proc.returncode == 2 and "checkpoint_format" in proc.stderr, proc.stderr[-2000:]
+    assert not (corpus / "refuse_orbax.jsonl").exists()
+    assert not (corpus / "refuse_orbax").exists() or not list((corpus / "refuse_orbax").iterdir())

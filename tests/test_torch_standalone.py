@@ -63,12 +63,13 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 @pytest.mark.parametrize(
     "path",
     ["chip_smoke.py", "tests/test_torch_cuda.py"]
+    + sorted(str(p.relative_to(REPO)) for p in (REPO / "scripts").glob("torch-*.py"))
     + sorted(str(p.relative_to(REPO)) for p in (REPO / "glow_tts_train_tpu_torch").rglob("*.py")),
 )
 def test_source_names_no_jax_import(path):
-    """No import statement of the port's sources, its GPU smoke script or
-    its GPU test file names jax or the JAX package (any depth: lazy
-    imports inside functions count)."""
+    """No import statement of the port's sources, its GPU smoke script, its
+    GPU test file or its measurement scripts names jax or the JAX package
+    (any depth: lazy imports inside functions count)."""
     tree = ast.parse((REPO / path).read_text())
     names = []
     for node in ast.walk(tree):

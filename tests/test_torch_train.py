@@ -338,3 +338,84 @@ def test_train_cli_refuses_encoder_fuse_on_cuda(corpus, tmp_path, encoder_fuse):
     assert "no CUDA device" in proc.stderr, proc.stderr[-2000:]
     assert "ROADMAP" not in proc.stderr
     assert not (corpus / "fuse.jsonl").exists() and not list((corpus / "fuse").glob("*.npz"))
+
+
+# ---------------------------------------------------------------------------
+# resuming through the train CLI: what is written, what is drawn
+# ---------------------------------------------------------------------------
+
+
+def test_train_cli_warns_of_dropped_optimizer_state_and_writes_the_applied_lr(corpus):
+    """A --checkpoint that holds optimizer state (``opt/`` keys, as the JAX
+    trainer writes them) warns with the number of keys it drops, and Adam
+    starts at count 0: the metrics lines and the checkpoint meta write the
+    learning rate of the next update, lr(count), not lr(global step - 1)."""
+    config = load_config([corpus / "config.json"])
+    hp = model.hyper_from_config(config)
+    flat = checkpoint.random_params(hp, 4)
+    opt = {"opt/1/count": np.array(40, np.int32), "opt/2/count": np.array(40, np.int32),
+           "opt/1/mu/emb": np.zeros_like(flat["model/emb"])}
+    init = corpus / "with_opt.npz"
+    checkpoint.save_npz(init, {**flat, **opt}, {"global_step": 41})
+    proc = _train("glow_tts_train_tpu_torch", corpus, "with_opt", "--checkpoint", str(init),
+                  "--platform", "cpu")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert f"dropped {len(opt)} optimizer-state (opt/) keys" in proc.stderr, proc.stderr[-3000:]
+    lr = training.learning_rate_fn(config)
+    lines = [json.loads(l) for l in open(corpus / "with_opt.jsonl")]
+    counts = [line["global_step"] - 41 for line in lines]
+    assert counts == [3, 6]
+    for line, count in zip(lines, counts):
+        assert line["learning_rate"] == lr(count)
+        assert line["learning_rate"] != current_lr(config, line["global_step"])
+    _, meta = checkpoint.read_npz(corpus / "with_opt" / "checkpoint_47.npz")
+    assert meta["global_step"] == 47 and meta["learning_rate"] == lr(6)
+
+
+def test_train_cli_resumed_run_draws_the_dropout_seeds_of_an_uninterrupted_run(
+    corpus, tmp_path, monkeypatch
+):
+    """Two epochs in one run against one epoch, a checkpoint, and a second
+    epoch resumed from it: both dropout generators (the device's and the
+    host's) hold the same state at every step of the second epoch, and
+    differ from step to step."""
+    from glow_tts_train_tpu_torch import __main__ as train_cli
+
+    override = tmp_path / "dropout.json"
+    override.write_text(json.dumps({"encoder_fuse": True, "model": {"p_dropout": 0.1}}))
+    make_step = training.make_train_step
+    drawn: dict = {}
+
+    def recording_make_train_step(config):
+        step_fn = make_step(config)
+
+        def step(state, batch, generator=None, seed_generator=None):
+            drawn[state.step] = (generator.get_state().clone(), seed_generator.get_state().clone())
+            return step_fn(state, batch, generator, seed_generator)
+
+        return step
+
+    monkeypatch.setattr(training, "make_train_step", recording_make_train_step)
+
+    def run(out, epochs, *extra):
+        epochs_over = tmp_path / f"{out}_epochs.json"
+        epochs_over.write_text(json.dumps({"epochs": epochs}))
+        drawn.clear()
+        train_cli.main([
+            "--output", str(tmp_path / out), "--dataset", "0", str(corpus / "phonemes.csv"),
+            str(corpus / "mels"), "--mels-dir", "--config", str(corpus / "config.json"),
+            "--config", str(override), "--config", str(epochs_over), "--platform", "cpu", *extra,
+        ])
+        return dict(drawn)
+
+    whole = run("whole", 2)
+    first = run("first", 1)
+    (ckpt,) = (tmp_path / "first").glob("checkpoint_*.npz")
+    resumed = run("resumed", 1, "--checkpoint", str(ckpt))
+    assert sorted(whole) == sorted({**first, **resumed}) and set(first).isdisjoint(resumed)
+    assert len(resumed) >= 2
+    for step, (device_state, host_state) in resumed.items():
+        assert torch.equal(device_state, whole[step][0]), step
+        assert torch.equal(host_state, whole[step][1]), step
+    states = [host for _, host in whole.values()]
+    assert all(not torch.equal(a, b) for a, b in zip(states, states[1:]))
