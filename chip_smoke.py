@@ -51,8 +51,9 @@ Phases, each fatal on failure:
    forward with the same dropout seed and, for the text stacks, at the
    kernel's own ReLU gates, which are themselves compared; the text
    stacks' forward kernels again with dropout on; MAS bit for bit, also at
-   a long shape the TPU streams) and times both with CUDA events, and the
-   train step;
+   a long shape the TPU streams and with tied scores at text widths around
+   its lanes and bands, and its cost a mel frame) and times both with CUDA
+   events, and the train step;
 9. trains the same 8 steps (same corpus, seed and dropout seeds) through
    the train CLI in each of the decoder's other modes: the fused block
    with ``wn_residuals: recompute`` (per step the block forward and the
@@ -76,15 +77,18 @@ Phases, each fatal on failure:
 The profiled train step also counts its device products: every product the
 block chains send to the tensor cores must run there (10 conv-GEMMs per
 block forward, 12 conv-GEMMs and 11 weight gradients per block backward),
-none declined, and the encoder layers' where the batch's rows fill the card
-(4 conv-GEMMs per forward, 8 and 4 weight gradients per backward at
-[16, 192]); the encoder layer's forward and backward kernels are held to the
-same counts per call and the backward's recomputed output to the forward
+none declined, and the encoder layers' and the prenet's where the batch's
+rows fill the card (encoder: 4 conv-GEMMs per forward, 8 and 4 weight
+gradients per backward; prenet: 4, and 8 and 4, at [16, 192]); the encoder
+layer's and the prenet's forward and backward kernels are held to the same
+counts per call and each backward's recomputed output to its forward
 kernel's bits.
 
 Each kernel's line in ``{"kernels": [...]}`` carries its bound on this
 card: the larger of its bytes (every input read once, every output written
-once, from the tensors of the timed call) over 3.35 TB/s and its
+once, from the tensors of the timed call; for MAS what the data needs:
+logp in the samples' length rectangles, the mask's first column and row,
+the whole path) over 3.35 TB/s and its
 operations (from the shapes of that call, ``kernel_flops``) over 165
 TFLOP/s where the call's products ran on the tensor cores (a third of the
 TF32 peak: three passes a product; ``bound_by`` "operations, 3xTF32") or
@@ -182,6 +186,12 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # a shape the TPU kernel streams through VMEM (mas_pallas.py :254/:264)
 MAS_LONG = (2, 400, 2600)
+# MAS with integer (tied) scores at text widths around the kernel's edges:
+# a warp's 32 lanes, a lane's rows (6 at 192), one warp's 512 rows
+MAS_TIE_WIDTHS = (32, 33, 193, 513)
+# the MAS scan's cost a mel frame: the training shape's samples at these
+# frame counts, all lengths full
+MAS_SCAN_FRAMES = (704, 1408, 2816)
 
 KERNEL_META = {
     "prenet": ("glow_tts_train_tpu_torch/csrc/text.cu",
@@ -245,9 +255,9 @@ def kernel_flops(name: str, args) -> float:
         flops = 2.0 * b * t * (4 * h * h + 2 * t * h + 2 * band * h
                                + weights[10].numel() + weights[12].numel())
     elif name == "mas":
-        # per cell a masked add and a compare-select going forward, and the
-        # backtrack's one choice per frame
-        flops = 3.0 * args[0].numel()
+        # per cell of the length rectangles an add and a compare-select
+        # going forward, and the backtrack's one choice per frame
+        flops = 3.0 * mas_cells(args[1])
     else:  # the flow block and the WN stack
         if name == "wn_bwd_store":  # (w_in, w_rs, with_g, x_mask, saves, dout, ...)
             folded, x = {"W_in": args[0], "W_rs": args[1]}, args[5]
@@ -269,6 +279,12 @@ def kernel_flops(name: str, args) -> float:
             flops = passes[name] * flops + (end_conv if name == "block_bwd_store" else 0.0)
         return flops
     return 3.0 * flops if name.endswith("_bwd") else flops
+
+
+def mas_cells(mask) -> int:
+    """Cells of the samples' length rectangles (the mask is rectangular per
+    sample: lengths from its first column and first row)."""
+    return int((mask[:, :, 0].sum(1) * mask[:, 0, :].sum(1)).sum().item())
 
 
 def tensor_bytes(tree) -> int:
@@ -295,7 +311,13 @@ def bound(name: str, args, kwargs, outputs, fn=None) -> dict:
     device operations took without the host's gaps between them."""
     from glow_tts_train_tpu_torch import kernels
 
-    n_bytes = tensor_bytes((args, kwargs)) + tensor_bytes(outputs)
+    if name == "mas":  # what this data needs: logp in the rectangles, the mask's
+        # first column and row, the whole path
+        mask = args[1]
+        n_bytes = 4 * (mas_cells(mask) + mask.shape[0] * (mask.shape[1] + mask.shape[2]))
+        n_bytes += tensor_bytes(outputs)
+    else:
+        n_bytes = tensor_bytes((args, kwargs)) + tensor_bytes(outputs)
     flops = kernel_flops(name, args)
     products = device = None
     if fn is not None:
@@ -901,7 +923,9 @@ def profiled(fn) -> tuple:
 
     for _ in range(3):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the device's records only: with the host's on too, traces of the
+        # text kernels' calls came back short of device records
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             start = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -921,12 +945,15 @@ def device_profile(fn, runs: int = 1) -> tuple:
     operations a call): the self time of its kernels and copies under
     torch.profiler, mean of ``runs`` calls in one trace.  A trace can come
     back short of some device records, so two of up to six traces must
-    count the same device operations (the smaller time of those is taken);
+    count the same device operations, a multiple of ``runs`` (every call
+    issues the same operations; the smaller time of those is taken);
     (None, None) where none agree."""
     seen = {}
     for _ in range(6):
         _, by_kernel, operations = profiled(lambda: [fn() for _ in range(runs)])
         total = sum(by_kernel.values())
+        if operations % runs:
+            continue  # a trace short of records
         if operations and operations in seen:
             return min(seen[operations], total) / runs, operations / runs
         seen[operations] = total
@@ -947,21 +974,29 @@ def profile_step(last: dict, device_line: str, model) -> dict:
         last["step_fn"](last["state"], last["batch"], *last["args"])
 
     from glow_tts_train_tpu_torch import kernels
+    from glow_tts_train_tpu_torch.ops import text_cuda
 
+    if not model.prenet:
+        fail("train: the base config has a prenet")
     # the step's device products: every product of the 12 block forward and
     # 12 block backward chains on the tensor cores, none of them declined,
-    # and the encoder layers' where the batch's rows fill the card (the
-    # prenet's and the duration stack's chains do not ask)
+    # and the encoder layers' and the prenet's where the batch's rows fill
+    # the card (the duration stack's chains do not ask)
     kernels.product_counts(reset=True)
     step()
     products = kernels.product_counts(reset=True)
     n_blocks, n_layers = model.n_blocks_dec, model.n_layers_enc
+    rows = last["batch"]["x"].numel()
     block = block_products(model.n_block_layers, forward=n_blocks, backward=n_blocks)
     text = encoder_products(
-        last["batch"]["x"].numel(), model.hidden_channels_enc or model.hidden_channels,
+        rows, model.hidden_channels_enc or model.hidden_channels,
         model.filter_channels, model.kernel_size, forward=n_layers, backward=n_layers,
     )
-    want = {k: block[k] + text[k] for k in block}
+    prenet = prenet_products(
+        rows, text_cuda.prenet_weights(last["state"].model.tree()["prenet"]), forward=1,
+        backward=1,
+    )
+    want = {k: block[k] + text[k] + prenet[k] for k in block}
     if {k: products[k] for k in want} != want:
         fail(f"train step: device products {products}, expected {want}")
     wall_ms, by_kernel, launches = profiled(step)
@@ -1097,6 +1132,22 @@ def encoder_products(rows: int, h: int, f: int, taps: int, forward: int, backwar
     return counts
 
 
+def prenet_products(rows: int, weights: tuple, forward: int, backward: int) -> dict:
+    """Device products of ``forward`` prenet forward chains and ``backward``
+    backward chains over ``rows`` rows (``tc_gemm.prenet_products``, the
+    plan of ``tc_gemm.text_product_plan`` on this card's SMs): the convs and
+    the projection on the tensor cores where the rows fill the card, split-K
+    for the short, deep ones; at b=1 declined to the CUDA cores."""
+    import torch
+
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    w = weights[0]
+    n_layers, h = w.shape[0], w.shape[2]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return tc_gemm.prenet_products(rows, h, n_layers, w.shape[1] // h, sms, forward, backward)
+
+
 def held_products(name: str, roof: dict, forward: int, backward: int, n_layers: int) -> None:
     """The products of one call of a block kernel: on the tensor cores but
     for the forward's folded A."""
@@ -1201,14 +1252,60 @@ def training_kernels(recorders: dict, launches: dict, device_line: str) -> tuple
     long_err, long_scale = mas_err(long_logp, long_mask, list(MAS_LONG))
     long_ms = time_ms(mas_cuda.maximum_path, (long_logp, long_mask), {})
     long_plain_ms = time_ms(mas_cuda.maximum_path_plain, (long_logp, long_mask), {}, runs=20)
-    entry("mas", err, scale, ms, plain_ms, list(logp.shape),
-          bound("mas", args, kwargs, mas_cuda.maximum_path(*args, **kwargs), mas_cuda.maximum_path),
-          long_shape=list(MAS_LONG),
-          long_bound_ms=bound("mas", (long_logp, long_mask), {},
-                              mas_cuda.maximum_path(long_logp, long_mask))["bound_ms"],
-          long_err=long_err, long_max_abs_ref=long_scale, long_ms=long_ms,
-          long_plain_ms=long_plain_ms)
+    long_roof = bound("mas", (long_logp, long_mask), {}, mas_cuda.maximum_path(long_logp, long_mask),
+                      mas_cuda.maximum_path)
+    # integer (tied) scores at widths around the kernel's lane and band
+    # edges: 32 rows a warp's lanes, 16 a lane, then bands of warps
+    for t_x in MAS_TIE_WIDTHS:
+        shape = (2, t_x, t_x + 301)
+        tied = torch.from_numpy(np.round(rng.standard_normal(shape) * 3).astype(np.float32))
+        tie_mask = torch.zeros(shape)
+        tie_mask[0] = 1.0
+        tie_mask[1, : t_x - 5, : t_x + 200] = 1.0
+        mas_err(tied.to(PLATFORM), tie_mask.to(PLATFORM), f"{list(shape)}, tied")
+    scan = mas_scan_times(logp)
+    roof = bound("mas", args, kwargs, mas_cuda.maximum_path(*args, **kwargs), mas_cuda.maximum_path)
+    entry("mas", err, scale, ms, plain_ms, list(logp.shape), roof,
+          long_shape=list(MAS_LONG), long_bound_ms=long_roof["bound_ms"],
+          long_device_ms=long_roof.get("device_ms"), long_err=long_err,
+          long_max_abs_ref=long_scale, long_ms=long_ms, long_plain_ms=long_plain_ms,
+          tied_widths=list(MAS_TIE_WIDTHS), **scan)
     return report, text_kernels(recorders, launches, entry)
+
+
+# the text kernels whose chains ask for the tensor cores
+TEXT_TC_KERNELS = ("prenet", "encoder_layer")
+
+
+def chain_products(name: str, weights: tuple, x, forward: int, backward: int) -> dict:
+    """The device products of ``forward`` and ``backward`` calls of the
+    prenet's or the encoder layer's kernels on ``x`` [b, t, h]."""
+    rows, h = x.shape[0] * x.shape[1], x.shape[2]
+    if name == "prenet":
+        return prenet_products(rows, weights, forward, backward)
+    w1 = weights[-4]  # the FFN's first conv [taps * h, f]
+    return encoder_products(rows, h, w1.shape[1], w1.shape[0] // h, forward, backward)
+
+
+def mas_scan_times(logp) -> dict:
+    """MAS's serial floor on this card: the kernel's time (events, median)
+    at the recorded batch and text width with every length full, at
+    MAS_SCAN_FRAMES frames, and the slope: the cost of one mel frame of
+    the column scan, which no parallelism removes."""
+    import torch
+
+    from glow_tts_train_tpu_torch.ops import mas_cuda
+
+    b, t_x, _ = logp.shape
+    gen = torch.Generator(device=logp.device).manual_seed(SEED)
+    times = {}
+    for t_y in MAS_SCAN_FRAMES:
+        lp = torch.randn((b, t_x, t_y), device=logp.device, generator=gen)
+        times[t_y] = time_ms(mas_cuda.maximum_path, (lp, torch.ones_like(lp)), {})
+    lo, hi = MAS_SCAN_FRAMES[0], MAS_SCAN_FRAMES[-1]
+    us = (times[hi] - times[lo]) / (hi - lo) * 1e3
+    print(f"mas scan: [{b}, {t_x}, t_y] full lengths, ms by t_y {times}: {us:.4f} us a mel frame")
+    return {"scan_ms_by_frames": times, "scan_us_per_frame": us}
 
 
 def text_kernels(recorders: dict, launches: dict, entry) -> list:
@@ -1248,13 +1345,10 @@ def text_kernels(recorders: dict, launches: dict, entry) -> list:
             roof = bound(name, args, kwargs, out_k, recorders[name].fn)
         held_to_bound(f"{name} with dropout", ms, roof)
         extra = {}
-        if name == "encoder_layer":
-            x = args[1]
-            want = encoder_products(x.shape[0] * x.shape[1], x.shape[2], args[0][-4].shape[1],
-                                    args[0][-4].shape[0] // x.shape[2], forward=1, backward=0)
+        if name in TEXT_TC_KERNELS:
+            want = chain_products(name, args[0], args[1], forward=1, backward=0)
             if roof["products"] != want:
-                fail(f"encoder_layer (training): device products {roof['products']}, "
-                     f"expected {want}")
+                fail(f"{name} (training): device products {roof['products']}, expected {want}")
         forward_rows.append({
             "name": name, "train_launches": launches[name], "train_shape": list(args[1].shape),
             "train_p_dropout": p_dropout, "train_max_abs_err": err, "train_max_abs_ref": scale,
@@ -1312,16 +1406,14 @@ def text_kernels(recorders: dict, launches: dict, entry) -> list:
         plain_ms = time_ms(plain_bwd[name], args, kwargs)
         roof = bound(bwd, args, kwargs, grads, recorders[bwd].fn)
         extra = {}
-        if name == "encoder_layer":
+        if name in TEXT_TC_KERNELS:
             # the recompute is the forward's chain: its output equals the
             # forward kernel's bit for bit (and so do the ReLU gates)
             if not torch.equal(saves["out"], recorders[name].fn(weights, x, mask, *cfg, **kwargs)):
-                fail("encoder_layer_bwd: the recomputed forward differs from the forward "
-                     "kernel's bits")
-            want = encoder_products(x.shape[0] * x.shape[1], x.shape[2], weights[-4].shape[1],
-                                    weights[-4].shape[0] // x.shape[2], forward=0, backward=1)
+                fail(f"{bwd}: the recomputed forward differs from the forward kernel's bits")
+            want = chain_products(name, weights, x, forward=0, backward=1)
             if roof["products"] != want:
-                fail(f"encoder_layer_bwd: device products {roof['products']}, expected {want}")
+                fail(f"{bwd}: device products {roof['products']}, expected {want}")
             extra = {"recompute_equals_forward": True}
         entry(bwd, dx_err, dx_scale, ms, plain_ms, list(x.shape), roof,
               p_dropout=cfg[-2], worst_rel_err_grad=worst[0] / worst[1], n_gradients=len(grads),
@@ -1801,6 +1893,10 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
         with torch.inference_mode():
             roof = bound(name, args, kwargs, out_k, kernel_fn)
         held_to_bound(name, ms, roof)
+        if name == "prenet":  # serving b=4: the convs on the tensor cores
+            want = chain_products(name, args[0], x, forward=1, backward=0)
+            if roof["products"] != want:
+                fail(f"prenet (serving): device products {roof['products']}, expected {want}")
         report.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err, "ms": ms,

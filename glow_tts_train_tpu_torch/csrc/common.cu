@@ -363,7 +363,7 @@ __global__ void layer_norm_kernel(const LayerNorm a) {
     float y = xh * a.gamma[c] + a.beta[c];
     if (a.relu_after) y = fmaxf(y, 0.f);
     y = site_drop(a.drop, b, tr, a.n, c, y);
-    a.out[base + c] = y;
+    if (a.out) a.out[base + c] = y;
     if (a.out_masked) a.out_masked[base + c] = y * a.out_mask[row];
   }
 }

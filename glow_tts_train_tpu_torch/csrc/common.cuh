@@ -341,7 +341,7 @@ struct LayerNorm {
   const float* resid = nullptr;   // [rows, n] or null
   const float* gamma = nullptr;
   const float* beta = nullptr;
-  float* out = nullptr;  // may alias x or resid
+  float* out = nullptr;  // may alias x or resid; null: out_masked only
   int rows = 0;
   int n = 0;
   int relu_before = 0;

@@ -17,6 +17,7 @@ point's signature and its launch count.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -190,10 +191,10 @@ class Entry:
 
 
 # C signatures (csrc/*.cu): pointer arguments first, then numbers
-PRENET = Entry("gtt_prenet", "p" * 11 + "i" * 7 + "uf")
+PRENET = Entry("gtt_prenet", "p" * 10 + "L" + "i" * 7 + "uf")
 DURATION_STACK = Entry("gtt_duration_stack", "p" * 12 + "i" * 7 + "uf")
 ENCODER_LAYER = Entry("gtt_encoder_layer", "p" * 18 + "L" + "i" * 9 + "uf")
-PRENET_BWD = Entry("gtt_prenet_bwd", "p" * 27 + "i" * 8 + "uf")
+PRENET_BWD = Entry("gtt_prenet_bwd", "p" * 19 + "L" + "i" * 7 + "uf")
 DURATION_STACK_BWD = Entry("gtt_duration_stack_bwd", "p" * 31 + "i" * 8 + "uf")
 ENCODER_LAYER_BWD = Entry("gtt_encoder_layer_bwd", "p" * 35 + "L" + "i" * 9 + "uf")
 BLOCK_INVERSE = Entry("gtt_block_inverse", "p" * 19 + "i" * 10)
@@ -205,7 +206,7 @@ BLOCK_FWD = Entry("gtt_block_fwd", "p" * 21 + "i" * 12 + "uf")
 BLOCK_FWD_SAVE = Entry("gtt_block_fwd_save", "p" * 24 + "i" * 12 + "uf")
 BLOCK_BWD_STORE = Entry("gtt_block_bwd_store", "p" * 37 + "i" * 11 + "uf")
 BLOCK_BWD = Entry("gtt_block_bwd", "p" * 46 + "i" * 12 + "uf")
-MAS = Entry("gtt_mas", "p" * 4 + "i" * 3)
+MAS = Entry("gtt_mas", "p" * 5 + "i" * 3)
 # the two tensor-core device kernels alone (csrc/tc_gemm.cu), and the
 # weights' K-major split
 TC_CONV_GEMM = Entry("gtt_tc_conv_gemm", "p" * 5 + "L" + "i" * 10)
@@ -253,15 +254,44 @@ def product_counts(reset: bool = False) -> typing.Dict[str, int]:
     return dict(zip(PRODUCT_COUNT_NAMES, counts))
 
 
+@functools.lru_cache(maxsize=None)
+def _size_fn(symbol: str, n_dims: int):
+    fn = getattr(library(), symbol)
+    fn.argtypes = [ctypes.c_int] * n_dims
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
+@functools.lru_cache(maxsize=256)
+def _size_query(symbol: str, *dims: int) -> int:
+    """A size that depends on the shapes alone (and, for MAS, on the
+    current device's shared memory: its index is one of ``dims``)."""
+    return int(_size_fn(symbol, len(dims))(*dims))
+
+
 def encoder_scratch_floats(
     batch: int, t: int, h: int, n_heads: int, window: int, f: int, taps: int, backward: bool
 ) -> int:
     """Floats of the one scratch block a call of the encoder layer's
     forward (or backward) entry point carves its buffers from."""
-    fn = library().gtt_encoder_scratch_floats
-    fn.argtypes = [ctypes.c_int] * 8
-    fn.restype = ctypes.c_longlong
-    return int(fn(batch, t, h, n_heads, window, f, taps, int(backward)))
+    return _size_query(
+        "gtt_encoder_scratch_floats", batch, t, h, n_heads, window, f, taps, int(backward)
+    )
+
+
+def prenet_scratch_floats(
+    batch: int, t: int, h: int, n_layers: int, taps: int, backward: bool
+) -> int:
+    """Floats of the one scratch block a call of the prenet's forward (or
+    backward) entry point carves its buffers from."""
+    return _size_query("gtt_prenet_scratch_floats", batch, t, h, n_layers, taps, int(backward))
+
+
+def mas_bits_words(batch: int, t_x: int, t_y: int, device: torch.device) -> int:
+    """Words of device memory MAS needs on ``device`` for its stay bits (0:
+    they fit in shared memory; -1: the kernel does not take the shape)."""
+    with torch.cuda.device(device):
+        return _size_query("gtt_mas_bits_words", batch, t_x, t_y, torch.cuda.current_device())
 
 
 def launch_counts() -> typing.Dict[str, int]:

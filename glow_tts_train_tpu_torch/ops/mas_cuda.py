@@ -13,12 +13,20 @@ no gradient.
 :func:`maximum_path` replaces the three TPU kernels of ``mas_pallas.py``:
 ``_kernel`` (:41, shapes that fit VMEM) and the streaming pair
 ``_fwd_stream_kernel`` (:127) / ``_bwd_stream_kernel`` (:155).  On the
-card every shape takes one kernel: one thread block per sample, t_x over
-the threads (looping past 1024), the value column double-buffered in
-shared memory (8 bytes per text position), the direction bits in device
-memory ``[b, t_y, t_x]`` as uint8, one thread backtracing.  Bound: the
-serial column recurrence (one block barrier per mel frame), not FLOPs or
-bytes; ``b`` blocks run side by side.  The add is a plain f32 add (no FMA
+card every shape takes one kernel, a block a sample.  Bound: the serial
+column recurrence (t_y dependent steps), not FLOPs or bytes, so one warp
+scans a sample with its value column in registers (lane ``l`` owns 16 text
+rows at most, consecutive), a shuffle and a ballot a mel frame and no
+block barrier; wider texts take a band of rows per warp, the bands joined
+through shared memory with one barrier a frame (t_x up to about 2,400: the
+staging ring's shared memory).  Three more warps stage logp ahead into
+shared memory by ``cp.async``; the mask is read only for the lengths (its
+first column and first row: it is rectangular per sample).  The stay bits
+are the ballots, ``t_x * t_y / 8`` bytes a sample, in shared memory where
+they fit, else in a device-memory buffer (``kernels.mas_bits_words``); the
+backtrace takes a step per move, 32 columns at a time, and records each
+row's run of path columns; a second kernel writes the whole path from the
+runs, zeros included, over all SMs.  The add is a plain f32 add (no FMA
 contraction), so paths equal the numpy oracle bit for bit.
 """
 
@@ -71,7 +79,13 @@ def maximum_path(logp: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     kernels.check_operands(logp.device, logp=logp, mask=mask)
     kernels.check_shape("mask", mask, logp.shape)
     b, t_x, t_y = logp.shape
-    path = torch.zeros_like(logp)
-    direction = torch.empty((b, t_y, t_x), dtype=torch.uint8, device=logp.device)
-    kernels.MAS(logp, mask, path, direction, b, t_x, t_y)
+    words = kernels.mas_bits_words(b, t_x, t_y, logp.device)
+    if words < 0:
+        raise ValueError(f"maximum_path: the kernel's shared memory does not take t_x = {t_x}")
+    path = torch.empty_like(logp)  # every element is written
+    # the stay bits where shared memory cannot hold them; each row's run of
+    # path columns (first, last)
+    bits = torch.empty((words,), dtype=torch.int32, device=logp.device) if words else None
+    runs = torch.empty((b, 2, t_x), dtype=torch.int32, device=logp.device)
+    kernels.MAS(logp, mask, path, bits, runs, b, t_x, t_y)
     return path

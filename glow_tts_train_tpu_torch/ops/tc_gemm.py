@@ -117,6 +117,33 @@ def text_product_plan(rows: int, kdim: int, n: int, sms: int) -> typing.Tuple[bo
     return n >= 64 and kdim >= 32 and 4 * tiles * best >= sms, best
 
 
+def prenet_products(
+    rows: int, h: int, n_layers: int, taps: int, sms: int, forward: int, backward: int
+) -> typing.Dict[str, int]:
+    """Device products of ``forward`` prenet forward chains and ``backward``
+    backward chains (each recomputes the forward) over ``rows`` rows
+    (csrc/text.cu, csrc/text_train.cu), by :func:`text_product_plan`: every
+    product asks for the tensor cores and takes them where the plan says
+    so, else it is declined to the CUDA cores; a weight gradient takes them
+    from 256 rows.  Forward: the ``n_layers`` convs [rows, taps * h, h] and
+    the projection [rows, h, h]; backward: those again, as many transposed
+    products of the same shapes (the convs' input gradients, the
+    projection's), and ``n_layers + 1`` weight gradients.  Operands are
+    taken to be what the kernels can read (h a multiple of 4)."""
+    shapes = [(taps * h, h)] * n_layers + [(h, h)]
+    counts = dict(tc_gemm=0, tc_wgrad=0, core_gemm=0, core_wgrad=0,
+                  declined_gemm=0, declined_wgrad=0)
+    for kdim, n in shapes:
+        on = text_product_plan(rows, kdim, n, sms)[0]
+        chains = forward + 2 * backward
+        counts["tc_gemm" if on else "core_gemm"] += chains
+        counts["declined_gemm"] += 0 if on else chains
+        on = rows >= 256 and n >= 32 and kdim >= 32
+        counts["tc_wgrad" if on else "core_wgrad"] += backward
+        counts["declined_wgrad"] += 0 if on else backward
+    return counts
+
+
 def split_weights_plain(w: torch.Tensor) -> torch.Tensor:
     """w [K, N] -> [2, N, K]: the K-major layout the tensor-core conv-GEMM
     reads, ``[0]`` the big and ``[1]`` the small TF32 part."""

@@ -21,12 +21,19 @@ the prenet's site ``l`` of ``L`` drops layer ``l``'s ReLU output
 output ``[t, f]``; sample ``i`` draws from ``seed + i``.
 
 Bound on the card: both stacks are small f32 GEMMs (rows = batch * t_x,
-192 or 256 columns) whose time at serving sizes is launch latency and
-per-block occupancy, not FLOPs or bytes.  The kernels gather each conv's
-taps while staging the GEMM operand (no im2col buffer) and keep one
-launch per GEMM and per LayerNorm; the backward adds per layer a weight
-gradient (split partial sums added in a fixed order, so the same bits
-from run to run) and a transposed conv.
+192 or 256 columns).  The kernels gather each conv's taps while staging the
+GEMM operand (no im2col buffer) and keep one launch per GEMM and per
+LayerNorm; the backward adds per layer a weight gradient (split partial
+sums added in a fixed order, so the same bits from run to run) and a
+transposed conv.  The prenet's products run on the tensor cores (3xTF32,
+split-K for the short, deep shapes of t_x <= 192) where the rows fill the
+card: every conv input is stored masked (x * mask once, then each layer's
+output times the mask), since the tensor-core kernel takes no input mask
+on a tap gather; the transposed products read the forward's weights as
+they lie, and each call takes one scratch block
+(``kernels.prenet_scratch_floats``).  A lone short sentence (b=1) and the
+duration stack stay on the CUDA cores, where latency and per-block
+occupancy, not FLOPs, bound them.
 
 A ReLU whose input is within rounding of zero may open in one version
 and not in the other, and its gradient then differs by a whole term, so a
@@ -52,6 +59,9 @@ from .norms import layer_norm_affine
 from .wn_cuda import drop_args, site_dropout
 
 Params = typing.Dict[str, typing.Any]
+# a chain's convs and projection have their weights split in one launch
+# (csrc/text.cuh kMaxPrenetLayers)
+MAX_PRENET_LAYERS = 7
 
 
 def prenet_weights(params: Params) -> tuple:
@@ -165,6 +175,8 @@ def _check_prenet(weights, x, x_mask):
     kernels.check_shape("x_mask", x_mask, (batch, t, 1))
     kernels.check_shape("w", w, (L, taps * h, h))
     kernels.check_shape("wp", wp, (h, h))
+    if L > MAX_PRENET_LAYERS:
+        raise ValueError(f"the prenet kernels take at most {MAX_PRENET_LAYERS} layers, got {L}")
     return batch, t, h, L, taps
 
 
@@ -178,11 +190,10 @@ def prenet(
         return prenet_plain(weights, x, x_mask, p_dropout, seed=seed)
     batch, t, h, L, taps = _check_prenet(weights, x, x_mask)
     out = torch.empty_like(x)
-    pre = torch.empty_like(x)
-    cur = torch.empty_like(x)
+    scratch = x.new_empty((kernels.prenet_scratch_floats(batch, t, h, L, taps, False),))
     drop, threshold, scale = drop_args(p_dropout)
     kernels.PRENET(
-        x, x_mask, *weights, out, pre, cur, batch, t, h, L, taps,
+        x, x_mask, *weights, out, scratch, scratch.numel(), batch, t, h, L, taps,
         drop, int(seed), threshold, scale,
     )
     return out
@@ -206,31 +217,25 @@ def prenet_bwd(
 ) -> tuple:
     """The prenet's backward from (weights, x, mask, seed): recomputes the
     forward, then -> (dx, dw, db, dgamma, dbeta, dwp, dbp), each shaped as
-    its primal.  ``saves`` receives the recomputed forward's gates."""
+    its primal.  ``saves`` receives the recomputed forward's gates and
+    output (``"out"``: the forward kernel's bits)."""
     if kernels.route(x) == "plain":
         return prenet_bwd_plain(weights, x, x_mask, dout, p_dropout, seed, saves=saves)
     batch, t, h, L, taps = _check_prenet(weights, x, x_mask)
     kernels.check_operands(x.device, dout=dout)
     kernels.check_shape("dout", dout, x.shape)
-    w, b, gamma, beta, wp, bp = weights
-    w_t = torch.stack([taps_transposed(w[l], taps) for l in range(L)]) if L else w
-    wp_t = wp.T.contiguous()
     grads = tuple(torch.empty_like(a) for a in (x, *weights))
-    rows = batch * t
-    out, pre, dcur, dpre = (x.new_empty((rows, h)) for _ in range(4))
-    cur = x.new_empty((max(L, 1), rows, h))
-    xhat = x.new_empty((max(L, 1), rows, h))
-    rstd = x.new_empty((max(L, 1), rows))
-    col_part = x.new_empty((batch, h))
-    wg_scratch = wgrad_scratch(x, taps * h * h)
+    out = torch.empty_like(x)
+    cur = x.new_empty((max(L, 1), batch, t, h))
+    scratch = x.new_empty((kernels.prenet_scratch_floats(batch, t, h, L, taps, True),))
     drop, threshold, scale = drop_args(p_dropout)
     kernels.PRENET_BWD(
-        x, x_mask, *weights, w_t, wp_t, dout, *grads,
-        out, pre, cur, xhat, rstd, dcur, dpre, col_part, wg_scratch,
-        wg_scratch.numel(), batch, t, h, L, taps, drop, int(seed), threshold, scale,
+        x, x_mask, *weights, dout, *grads, out, cur, scratch, scratch.numel(),
+        batch, t, h, L, taps, drop, int(seed), threshold, scale,
     )
     if saves is not None:
-        saves["gates"] = [cur[l].reshape(batch, t, h) > 0 for l in range(L)]
+        saves["gates"] = [cur[l] > 0 for l in range(L)]
+        saves["out"] = out
     return grads
 
 

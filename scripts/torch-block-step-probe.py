@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The default-mode train step, the flow block's two training kernels and the
-text encoder layer's two kernels of one checkout of glow_tts_train_tpu_torch
-on one GPU, as one JSON object.
+"""The default-mode train step, the flow block's two training kernels, the
+text encoder layer's and the prenet's two kernels and MAS of one checkout of
+glow_tts_train_tpu_torch on one GPU, as one JSON object.
 
     python scripts/torch-block-step-probe.py [--repo DIR] [--steps 24]
 
@@ -24,7 +24,10 @@ non-zero weights (dropout 0.05); then ``encoder_layer`` and
 main path passes: Q/K/V merged where the tree has ``encoder_cuda.merge_qkv``)
 at the training shape [16, 192, 192] with dropout 0.1 and ragged lengths, and
 ``encoder_layer`` at serving b=4 [4, 250, 192] (requests of 48, 96, 160 and
-250 phonemes).  Each kernel is timed with CUDA events (median of 30 calls
+250 phonemes); the prenet's forward and backward at the same training shape
+with dropout 0.5, its forward at serving b=4 and b=1 [1, 250, 192]; MAS at
+[16, 192, 1408] (the same text lengths, 7 frames a phoneme up to 1408) and
+at [2, 400, 2600] (one sample full, one cut).  Each kernel is timed with CUDA events (median of 30 calls
 after 5) and by the device's own time under the profiler (mean of 10), with
 its device operations a call.  Prints the GPU's name and power limit with the
 numbers.
@@ -96,7 +99,7 @@ def main() -> int:
     from glow_tts_train_tpu_torch import checkpoint, data, kernels, training
     from glow_tts_train_tpu_torch.config import load_config
     from glow_tts_train_tpu_torch.models import hyper_from_config
-    from glow_tts_train_tpu_torch.ops import block_cuda, encoder_cuda
+    from glow_tts_train_tpu_torch.ops import block_cuda, encoder_cuda, mas_cuda, text_cuda
     from glow_tts_train_tpu_torch.tree import tree_index, tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -215,6 +218,33 @@ def main() -> int:
         dev_ms, dev_ops = device_ms(fn)
         encoder[name] = {"ms": ms, "device_ms": dev_ms, "device_operations": dev_ops}
 
+    # the prenet's two kernels (training, serving b=4 and b=1) and MAS at the
+    # training shape and a long one
+    pw = text_cuda.prenet_weights(tree["prenet"])
+    x1, mask_1 = text_inputs([250], 250)
+    t_y = 1408
+    x_len = mask_e[:, :, 0].sum(1).long()
+    y_len = torch.clamp(x_len * 7, max=t_y)
+    y_len[0] = t_y
+    mask_m = ((torch.arange(192, device="cuda")[None, :, None] < x_len[:, None, None])
+              & (torch.arange(t_y, device="cuda")[None, None, :] < y_len[:, None, None])).float()
+    logp = torch.from_numpy(rng.standard_normal((16, 192, t_y)).astype(np.float32)).to("cuda")
+    logp_long = torch.from_numpy(rng.standard_normal((2, 400, 2600)).astype(np.float32)).to("cuda")
+    mask_long = torch.zeros_like(logp_long)
+    mask_long[0] = 1.0
+    mask_long[1, :363, :2189] = 1.0
+    for name, fn in {
+        "prenet_train": lambda: text_cuda.prenet(pw, xe, mask_e, 0.5, 1234),
+        "prenet_bwd_train": lambda: text_cuda.prenet_bwd(pw, xe, mask_e, dout, 0.5, 1234),
+        "prenet_serve_b4": lambda: text_cuda.prenet(pw, xs, mask_s),
+        "prenet_serve_b1": lambda: text_cuda.prenet(pw, x1, mask_1),
+        "mas_train": lambda: mas_cuda.maximum_path(logp, mask_m),
+        "mas_long": lambda: mas_cuda.maximum_path(logp_long, mask_long),
+    }.items():
+        ms = event_ms(fn)
+        dev_ms, dev_ops = device_ms(fn)
+        encoder[name] = {"ms": ms, "device_ms": dev_ms, "device_operations": dev_ops}
+
     print(json.dumps({
         "repo": str(repo), "gpu": gpu, "build_s": build_s,
         "batch_shapes": [[list(b["x"].shape), list(b["y"].shape)] for b in batches],
@@ -227,7 +257,9 @@ def main() -> int:
         "block_fwd_save_ms": fwd_ms, "block_bwd_store_ms": bwd_ms,
         "block_fwd_save_device_ms": fwd_device_ms, "block_bwd_store_device_ms": bwd_device_ms,
         "block_shape": [batch, t, c],
-        "encoder_shapes": {"train": list(xe.shape), "serve_b4": list(xs.shape)}, **encoder,
+        "encoder_shapes": {"train": list(xe.shape), "serve_b4": list(xs.shape),
+                           "serve_b1": list(x1.shape)},
+        "mas_shapes": {"train": list(logp.shape), "long": list(logp_long.shape)}, **encoder,
     }))
     return 0
 

@@ -433,10 +433,15 @@ def test_recompute_holds_one_blocks_residuals(dev):
     assert peaks["store"] - peaks["recompute"] >= (n_blocks - 2) * residual_bytes, peaks
 
 
-@pytest.mark.parametrize("shape", [(4, 7, 13), (3, 16, 16), (2, 25, 80), (1, 1, 1), (16, 60, 300), (2, 1100, 2300)])
+@pytest.mark.parametrize("shape", [
+    (4, 7, 13), (3, 16, 16), (2, 25, 80), (1, 1, 1), (16, 60, 300), (2, 1100, 2300),
+    (3, 31, 40), (3, 33, 50), (2, 65, 90), (2, 512, 600), (2, 513, 600),
+])
 def test_mas_kernel_matches_plain(dev, shape):
     """Paths equal bit for bit, ragged lengths and integer (tied) logp
-    included, t_x > 1024 (threads loop) and the extreme-negative case."""
+    included, the extreme-negative case, text widths around a warp's 32
+    lanes, one warp's 512 rows (16 a lane) and 513 (two warps' bands), and
+    t_x 1100 (three bands, the stay bits in device memory)."""
     b, t_x, t_y = shape
     rng = np.random.default_rng(t_x)
     for case in ("normal", "ties", "extreme"):
@@ -453,7 +458,7 @@ def test_mas_kernel_matches_plain(dev, shape):
             mask[i, : t_xs[i], : t_ys[i]] = 1.0
         lp, mk = torch.from_numpy(logp), torch.from_numpy(mask)
         got = mas_cuda.maximum_path(lp.to(dev), mk.to(dev)).cpu()
-        if t_x * t_y <= 60 * 300:
+        if t_x * t_y <= 513 * 600:
             expected = mas_cuda.maximum_path_plain(lp, mk)
         else:  # the plain loop is slow at this size; the kernel's own structure
             expected = None

@@ -257,11 +257,14 @@ def _mas_case(rng, b, t_x, t_y, kind):
 
 
 @pytest.mark.parametrize("kind", ["ragged", "ties", "extreme", "full"])
-@pytest.mark.parametrize("shape", [(4, 7, 13), (3, 12, 12), (2, 1, 9), (2, 12, 40)])
+@pytest.mark.parametrize(
+    "shape", [(4, 7, 13), (3, 12, 12), (2, 1, 9), (2, 12, 40), (2, 31, 40), (2, 33, 50), (2, 65, 90)]
+)
 def test_maximum_path_equals_oracle_and_jax_scan(kind, shape):
     """mas_cuda.maximum_path (plain, CPU) is exactly the numpy oracle and
     the JAX column scan: ragged lengths, integer (tied) logp, extreme
-    negative scores, t_x == t_y and t_x == 1."""
+    negative scores, t_x == t_y and t_x == 1, and text widths around the
+    kernel's 32 lanes a warp (31, 33, 65)."""
     rng = np.random.default_rng(sum(shape))
     logp, mask = _mas_case(rng, *shape, kind)
     port = mas_cuda.maximum_path(_t(logp), _t(mask)).numpy()
