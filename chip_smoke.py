@@ -14,21 +14,29 @@ Phases, each fatal on failure:
    and against the plain emulation of the split, beside the CUDA-core
    kernel's error and time, with ms and achieved TFLOP/s; and the
    conv-GEMM at the encoder layer's products at [16, 192, .], [16, 64, .]
-   and serving b=4 [4, 250, .] three ways (the tensor cores over the whole
-   K walk, what the text chains take: split-K where it makes fewer waves,
-   and the CUDA cores), each against float64 (max and mean signed error)
-   with its device time;
+   and serving b=4 [4, 250, .], and at the serving flow block's products
+   at b=1 [160, .] and [832, .], three ways (the tensor cores over the
+   whole K walk, what the chain takes: split-K where it makes fewer waves,
+   for the serving chain at any row count and in 64-row tiles where
+   128-row ones are too few blocks, and the CUDA cores), each against
+   float64 (max and mean signed error) with its device time;
 2. writes a checkpoint at the full width of ``configs/base.json`` in the
    JAX package's ``.npz`` format, with random non-zero weights from a
    numpy seed (duration bias log 6: about 6 frames per phoneme);
 3. serves 4 requests (48, 96, 160 and 250 phonemes) through the port's
    inference CLI entry point, ``glow_tts_train_tpu_torch.infer.main``,
    once at ``--batch-size 1`` and once at ``--batch-size 4``; checks the
-   mels (finite, [80, t]) and each kernel's launch count, and prints which
-   device kernel each pass's products took;
+   mels (finite, [80, t]) and each kernel's launch count, prints which
+   device kernel each pass's products took, and checks that no product
+   split its weights during a synthesis (the serving blocks' weights are
+   split once at load, the text chains' once a call);
 4. holds each kernel against its plain PyTorch version on the card, on the
    inputs the batch-4 pass gave it, and the whole batch-4 mel of the
-   kernel path against the plain path on the CPU;
+   kernel path against the plain path on the CPU; the serving flow block
+   also on the inputs of the first and the last b=1 request (48 and 250
+   phonemes), each call's products against the serving plan
+   (``tc_gemm.block_inverse_products``), and its weights' splits made at
+   load against the split kernel's bits;
 5. times each kernel against its plain version with CUDA events;
 6. times whole syntheses through ``build_synthesizer`` (the CLI's synth
    without stdin or JSON), kernel path against plain path on the card,
@@ -77,12 +85,12 @@ Phases, each fatal on failure:
 The profiled train step also counts its device products: every product the
 block chains send to the tensor cores must run there (10 conv-GEMMs per
 block forward, 12 conv-GEMMs and 11 weight gradients per block backward),
-none declined, and the encoder layers' and the prenet's where the batch's
-rows fill the card (encoder: 4 conv-GEMMs per forward, 8 and 4 weight
-gradients per backward; prenet: 4, and 8 and 4, at [16, 192]); the encoder
-layer's and the prenet's forward and backward kernels are held to the same
-counts per call and each backward's recomputed output to its forward
-kernel's bits.
+none declined, and the encoder layers', the prenet's and the duration
+stack's where the batch's rows fill the card (encoder: 4 conv-GEMMs per
+forward, 8 and 4 weight gradients per backward; prenet: 4, and 8 and 4;
+duration stack: 2, and 4 and 2, at [16, 192]); the text stacks' forward
+and backward kernels are held to the same counts per call and each
+backward's recomputed output to its forward kernel's bits.
 
 Each kernel's line in ``{"kernels": [...]}`` carries its bound on this
 card: the larger of its bytes (every input read once, every output written
@@ -134,7 +142,7 @@ SERVE_BATCHES = {
     "b1_48": (48,), "b1_250": (250,), "b4_mix": REQUEST_LENGTHS, "b8_160": (160,) * 8,
 }
 SYNTH_RUNS = 10
-PROFILED = ("b1_250", "b4_mix")
+PROFILED = ("b1_48", "b1_250", "b4_mix")
 
 # training: 64 utterances, batch 16, 2 epochs -> 8 steps after DDI
 TRAIN_UTTERANCES = 64
@@ -316,6 +324,9 @@ def bound(name: str, args, kwargs, outputs, fn=None) -> dict:
         mask = args[1]
         n_bytes = 4 * (mas_cells(mask) + mask.shape[0] * (mask.shape[1] + mask.shape[2]))
         n_bytes += tensor_bytes(outputs)
+    elif name == "block_inverse":  # the weights once: their splits are a second copy
+        folded = {k: v for k, v in args[0].items() if not k.endswith("_split")}
+        n_bytes = tensor_bytes((folded, args[1:], kwargs)) + tensor_bytes(outputs)
     else:
         n_bytes = tensor_bytes((args, kwargs)) + tensor_bytes(outputs)
     flops = kernel_flops(name, args)
@@ -470,20 +481,25 @@ TEXT_PRODUCTS = (
     ("dx_qkv_transposed", 576, 1, 192, True), ("qkv", 192, 1, 576, False),
     ("out_proj", 192, 1, 192, False), ("db_ffn_transposed", 768, 3, 192, True),
 )
-# the tensor-core conv-GEMM over the whole K walk, what the text chains
-# take (split-K where it makes fewer waves), the CUDA cores
-TEXT_MODES = ("tc", "text", "core")
+# the serving flow block's products at b=1: a 48-phoneme request (160
+# rows) and a 250-phoneme one (832 rows)
+SERVE_PRODUCT_ROWS = ((1, 160), (1, 832))
+SERVE_PRODUCTS = (
+    ("in_conv", 192, 5, 384, False), ("res_skip", 192, 1, 384, False),
+    ("start", 80, 1, 192, False), ("end", 192, 1, 160, False), ("fold_a", 160, 1, 160, False),
+)
 
 
 def text_products(device_line: str) -> list:
-    """The conv-GEMM at the encoder's shapes three ways: the tensor cores
-    over the whole K walk ("tc"), what the text chains take ("text":
-    ``tc_gemm.text_product_plan`` says which unit and how many K shares,
-    held against the product counters) and the CUDA-core kernel, each
-    against float64 of the same operands (max error within PRODUCT_RTOL of
-    max |ref|, and the lean: the error along the sign of the reference over
-    its mean magnitude), with the device's own time and TFLOP/s; the text
-    chains' bits the same twice."""
+    """The conv-GEMM at the encoder's shapes and at the serving flow block's
+    b=1 shapes three ways: the tensor cores over the whole K walk ("tc"),
+    what the chain takes ("text": ``tc_gemm.text_product_plan``, "serve":
+    ``tc_gemm.inverse_product_plan``, which say which unit, tile and how
+    many K shares, held against the product counters) and the CUDA-core
+    kernel, each against float64 of the same operands (max error within
+    PRODUCT_RTOL of max |ref|, and the lean: the error along the sign of
+    the reference over its mean magnitude), with the device's own time and
+    TFLOP/s; the chain's bits the same twice."""
     import numpy as np
     import torch
 
@@ -492,58 +508,70 @@ def text_products(device_line: str) -> list:
 
     rng = np.random.default_rng(SEED + 6)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def text_plan(rows, kdim, n):
+        on_tc, splits = tc_gemm.text_product_plan(rows, kdim, n, sms)
+        return on_tc, splits, f"tensor cores, {splits} K shares"
+
+    def serve_plan(rows, kdim, n):
+        tile, splits = tc_gemm.inverse_product_plan(rows, kdim, n, sms)
+        return tile > 0, splits, f"tensor cores, {tile}-row tiles, {splits} K shares"
+
+    cases = [("text", text_plan, rows, p) for rows in TEXT_PRODUCT_ROWS for p in TEXT_PRODUCTS]
+    cases += [("serve", serve_plan, rows, p) for rows in SERVE_PRODUCT_ROWS for p in SERVE_PRODUCTS]
     rows = []
-    for batch, t in TEXT_PRODUCT_ROWS:
-        for name, c_in, taps, n, w_t in TEXT_PRODUCTS:
-            a = torch.from_numpy(rng.standard_normal((batch, t, c_in)).astype(np.float32)).to(PLATFORM)
-            shape = (taps * n, c_in) if w_t else (taps * c_in, n)
-            w = torch.from_numpy(
-                (rng.standard_normal(shape) / math.sqrt(taps * c_in)).astype(np.float32)).to(PLATFORM)
-            tap_sign = -1 if w_t else 1
-            b = tc_gemm.transposed_weights_plain(w, taps) if w_t else w
-            ref = tc_gemm.im2col_plain(a, taps, 1, tap_sign).double() @ b.double()
-            scale = ref.abs().max().item()
-            flops = 2.0 * batch * t * taps * c_in * n
-            on_tc, splits = tc_gemm.text_product_plan(batch * t, taps * c_in, n, sms)
-            row = {"kernel": "conv_gemm", "name": name, "shape": [batch * t, taps * c_in, n],
-                   "w_t": w_t, "max_abs_ref": scale,
-                   "text_takes": f"tensor cores, {splits} K shares" if on_tc else "CUDA cores",
-                   "bound_ms": flops / PEAK_3XTF32_FLOPS * 1e3}
-            outs = {}
-            for mode in TEXT_MODES:
-                run = lambda: tc_gemm.conv_product(a, w, taps, 1, tap_sign, mode=mode, w_t=w_t)
-                kernels.product_counts(reset=True)
-                outs[mode] = out = run()
-                counts = kernels.product_counts(reset=True)
-                unit = "core_gemm" if mode == "core" or (mode == "text" and not on_tc) else "tc_gemm"
-                if counts[unit] != 1:
-                    fail(f"text product {name} {row['shape']} {mode}: product counts {counts}, "
-                         f"expected one {unit}")
-                err = out.double() - ref
-                # the lean: the error along the sign of the reference, over the
-                # mean magnitude (negative: the outputs shrink alike)
-                max_err = err.abs().max().item()
-                lean = (err * ref.sign()).mean().item() / ref.abs().mean().item()
-                rtol = 1e-5 if unit == "core_gemm" else PRODUCT_RTOL
-                if not (math.isfinite(max_err) and max_err <= rtol * scale):
-                    fail(f"text product {name} {row['shape']} {mode}: max abs err {max_err} vs "
-                         f"float64, max |ref| {scale} (tolerance {rtol} relative)")
-                traced = device_ms(run, runs=10)
-                ok = traced is not None and traced >= row["bound_ms"]
-                on_device = traced if ok else time_ms(run, (), {})
-                row[mode] = {"device_ms": on_device, "tflops": flops / on_device / 1e9,
-                             "max_abs_err_f64": max_err, "lean_f64": lean}
-            if on_tc and splits == 1 and not torch.equal(outs["text"], outs["tc"]):
-                fail(f"text product {name} {row['shape']}: one K share, yet not the whole-K bits")
-            again = tc_gemm.conv_product(a, w, taps, 1, tap_sign, mode="text", w_t=w_t)
-            if not torch.equal(outs["text"], again):
-                fail(f"text product {name} {row['shape']}: different bits twice")
-            rows.append(row)
-            print(f"product conv_gemm {name}: {row['shape']} text chains take {row['text_takes']}; "
-                  + ", ".join(
-                      f"{m} {row[m]['device_ms'] * 1e3:.1f} us ({row[m]['tflops']:.1f} TFLOP/s, err "
-                      f"{row[m]['max_abs_err_f64'] / scale:.2e} of max|ref|, lean "
-                      f"{row[m]['lean_f64']:+.2e})" for m in TEXT_MODES) + f" [{device_line}]")
+    for chain, plan, (batch, t), (name, c_in, taps, n, w_t) in cases:
+        modes = ("tc", chain, "core")
+        a = torch.from_numpy(rng.standard_normal((batch, t, c_in)).astype(np.float32)).to(PLATFORM)
+        shape = (taps * n, c_in) if w_t else (taps * c_in, n)
+        w = torch.from_numpy(
+            (rng.standard_normal(shape) / math.sqrt(taps * c_in)).astype(np.float32)).to(PLATFORM)
+        tap_sign = -1 if w_t else 1
+        b = tc_gemm.transposed_weights_plain(w, taps) if w_t else w
+        ref = tc_gemm.im2col_plain(a, taps, 1, tap_sign).double() @ b.double()
+        scale = ref.abs().max().item()
+        flops = 2.0 * batch * t * taps * c_in * n
+        on_tc, splits, takes = plan(batch * t, taps * c_in, n)
+        row = {"kernel": "conv_gemm", "chain": chain, "name": name,
+               "shape": [batch * t, taps * c_in, n], "w_t": w_t, "max_abs_ref": scale,
+               "chain_takes": takes if on_tc else "CUDA cores",
+               "bound_ms": flops / PEAK_3XTF32_FLOPS * 1e3}
+        outs = {}
+        for mode in modes:
+            run = lambda: tc_gemm.conv_product(a, w, taps, 1, tap_sign, mode=mode, w_t=w_t)
+            kernels.product_counts(reset=True)
+            outs[mode] = out = run()
+            counts = kernels.product_counts(reset=True)
+            unit = "core_gemm" if mode == "core" or (mode == chain and not on_tc) else "tc_gemm"
+            if counts[unit] != 1:
+                fail(f"{chain} product {name} {row['shape']} {mode}: product counts {counts}, "
+                     f"expected one {unit}")
+            err = out.double() - ref
+            # the lean: the error along the sign of the reference, over the
+            # mean magnitude (negative: the outputs shrink alike)
+            max_err = err.abs().max().item()
+            lean = (err * ref.sign()).mean().item() / ref.abs().mean().item()
+            rtol = 1e-5 if unit == "core_gemm" else PRODUCT_RTOL
+            if not (math.isfinite(max_err) and max_err <= rtol * scale):
+                fail(f"{chain} product {name} {row['shape']} {mode}: max abs err {max_err} vs "
+                     f"float64, max |ref| {scale} (tolerance {rtol} relative)")
+            traced = device_ms(run, runs=10)
+            ok = traced is not None and traced >= row["bound_ms"]
+            on_device = traced if ok else time_ms(run, (), {})
+            row[mode] = {"device_ms": on_device, "tflops": flops / on_device / 1e9,
+                         "max_abs_err_f64": max_err, "lean_f64": lean}
+        # one share: each output is the whole-K walk's sum, whatever the tile
+        if on_tc and splits == 1 and not torch.equal(outs[chain], outs["tc"]):
+            fail(f"{chain} product {name} {row['shape']}: one K share, yet not the whole-K bits")
+        again = tc_gemm.conv_product(a, w, taps, 1, tap_sign, mode=chain, w_t=w_t)
+        if not torch.equal(outs[chain], again):
+            fail(f"{chain} product {name} {row['shape']}: different bits twice")
+        rows.append(row)
+        print(f"product conv_gemm {chain} {name}: {row['shape']} the chain takes "
+              f"{row['chain_takes']}; " + ", ".join(
+                  f"{m} {row[m]['device_ms'] * 1e3:.1f} us ({row[m]['tflops']:.1f} TFLOP/s, err "
+                  f"{row[m]['max_abs_err_f64'] / scale:.2e} of max|ref|, lean "
+                  f"{row[m]['lean_f64']:+.2e})" for m in modes) + f" [{device_line}]")
     return rows
 
 
@@ -622,22 +650,27 @@ def serve(ckpt: Path, config_path: Path, stdin_text: str, batch_size: int, n_mel
 
 
 class Recorder:
-    """Wraps a kernel wrapper to keep a copy of the arguments of one call
-    (copies: a training step later updates the parameters in place, and
-    some folded weights are views of them)."""
+    """Wraps a kernel wrapper to keep a copy of the arguments of its first
+    call while armed (``args``) and, with ``keep_last``, of its last
+    (``last``) (copies: a training step later updates the parameters in
+    place, and some folded weights are views of them)."""
 
-    def __init__(self, module, name):
+    def __init__(self, module, name, keep_last=False):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
-        self.args = None
+        self.args = self.last = None
         self.armed = False
+        self.keep_last = keep_last
         setattr(module, name, self)
 
     def __call__(self, *args, **kwargs):
-        if self.armed and self.args is None:
+        if self.armed and (self.args is None or self.keep_last):
             from glow_tts_train_tpu_torch.tree import tree_map
 
-            self.args = tree_map(lambda a: a.detach().clone(), (args, kwargs))
+            copy = tree_map(lambda a: a.detach().clone(), (args, kwargs))
+            if self.args is None:
+                self.args = copy
+            self.last = copy
         return self.fn(*args, **kwargs)
 
     def restore(self):
@@ -676,9 +709,10 @@ def plain_path_on_card():
 
 
 def serving_times(ckpt: Path, config, hp, device_line: str) -> list:
-    """Synthesis wall time per batch, kernel path vs plain path on the
-    card, with the real-time factor (synth seconds / audio seconds) of
-    each; then the device's busy time and idle share of one profiled
+    """The device memory the serving blocks' weight splits hold; then
+    synthesis wall time per batch, kernel path vs plain path on the card,
+    with the real-time factor (synth seconds / audio seconds) of each; then
+    the device's busy time, idle share and operations of one profiled
     synthesis on the kernel path."""
     import numpy as np
     import torch
@@ -690,6 +724,12 @@ def serving_times(ckpt: Path, config, hp, device_line: str) -> list:
 
     model, _ = load_checkpoint(ckpt, hp)
     weights = store_inverse(model, hp).to(PLATFORM)
+    split_bytes = tensor_bytes([{k: v for k, v in b.items() if k.endswith("_split")}
+                                for b in weights.blocks])
+    print(f"serve: the serving blocks' weight splits made at load hold {split_bytes} bytes "
+          f"({split_bytes / 2 ** 20:.1f} MiB) of device memory, "
+          f"{torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB allocated with every serving weight "
+          f"[{device_line}]")
     synth = build_synthesizer(weights, hp, config, noise_scale=0.333, length_scale=1.0)
     rng = np.random.default_rng(SEED + 2)
     lengths = sorted({n for batch in SERVE_BATCHES.values() for n in batch})
@@ -728,13 +768,16 @@ def serving_times(ckpt: Path, config, hp, device_line: str) -> list:
                 synth(batch)
                 wall_ms = (time.perf_counter() - start) * 1e3
             # device kernels run on one stream, so their times add up
-            by_kernel = {
-                e.key: e.self_device_time_total / 1e3
-                for e in prof.key_averages() if e.device_type.name == "CUDA"
-            }
+            events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+            by_kernel = {e.key: e.self_device_time_total / 1e3 for e in events}
             busy_ms = sum(by_kernel.values())
             row["profiled_wall_ms"] = wall_ms
             row["device_busy_ms"] = busy_ms
+            row["device_operations"] = sum(e.count for e in events)
+            # the text chains' once-a-call weight splits (the serving
+            # blocks' were made at load)
+            row["split_weights_launches"] = sum(
+                e.count for e in events if "split_weights_kernel" in e.key)
             row["idle_share"] = 1.0 - busy_ms / wall_ms if busy_ms > 0 else None
             top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4]
             row["top_kernels_ms"] = {k[:60]: v for k, v in top}
@@ -744,7 +787,9 @@ def serving_times(ckpt: Path, config, hp, device_line: str) -> list:
               f"{row['rtf_plain']:.3e} [{device_line}]")
         if case in PROFILED:
             print(f"  profiled: wall {row['profiled_wall_ms']:.3f} ms, device busy "
-                  f"{busy_ms:.3f} ms, idle share {row['idle_share']}, top {row['top_kernels_ms']}")
+                  f"{busy_ms:.3f} ms, idle share {row['idle_share']}, {row['device_operations']} "
+                  f"device operations ({row['split_weights_launches']} weight-split launches), "
+                  f"top {row['top_kernels_ms']}")
     return rows
 
 
@@ -980,8 +1025,8 @@ def profile_step(last: dict, device_line: str, model) -> dict:
         fail("train: the base config has a prenet")
     # the step's device products: every product of the 12 block forward and
     # 12 block backward chains on the tensor cores, none of them declined,
-    # and the encoder layers' and the prenet's where the batch's rows fill
-    # the card (the duration stack's chains do not ask)
+    # and the encoder layers', the prenet's and the duration stack's where
+    # the batch's rows fill the card
     kernels.product_counts(reset=True)
     step()
     products = kernels.product_counts(reset=True)
@@ -992,11 +1037,10 @@ def profile_step(last: dict, device_line: str, model) -> dict:
         rows, model.hidden_channels_enc or model.hidden_channels,
         model.filter_channels, model.kernel_size, forward=n_layers, backward=n_layers,
     )
-    prenet = prenet_products(
-        rows, text_cuda.prenet_weights(last["state"].model.tree()["prenet"]), forward=1,
-        backward=1,
-    )
-    want = {k: block[k] + text[k] + prenet[k] for k in block}
+    tree = last["state"].model.tree()
+    prenet = prenet_products(rows, text_cuda.prenet_weights(tree["prenet"]), forward=1, backward=1)
+    duration = duration_products(rows, text_cuda.dp_weights(tree["proj_w"]), forward=1, backward=1)
+    want = {k: block[k] + text[k] + prenet[k] + duration[k] for k in block}
     if {k: products[k] for k in want} != want:
         fail(f"train step: device products {products}, expected {want}")
     wall_ms, by_kernel, launches = profiled(step)
@@ -1148,6 +1192,89 @@ def prenet_products(rows: int, weights: tuple, forward: int, backward: int) -> d
     return tc_gemm.prenet_products(rows, h, n_layers, w.shape[1] // h, sms, forward, backward)
 
 
+def held_inverse_plan(name: str, args, roof: dict) -> dict:
+    """The products of one serving block call against its plan
+    (``tc_gemm.block_inverse_products`` on this card's SMs: each product on
+    the tensor cores where the plan puts it, in its tile and K shares, the
+    rest declined to the CUDA cores) -> the plan."""
+    import torch
+
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    folded, x = args[0], args[2]
+    n_layers, kh, h2 = folded["W_in"].shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = tc_gemm.block_inverse_products(
+        x.shape[0] * x.shape[1], x.shape[2], h2 // 2, n_layers, kh * 2 // h2, sms)
+    want = dict(tc_gemm.plan_counts(plan), tc_wgrad=0, core_wgrad=0, declined_wgrad=0)
+    if roof["products"] != want:
+        fail(f"{name} {list(x.shape)}: device products {roof['products']}, expected {want} "
+             f"by the plan {plan}")
+    return plan
+
+
+def held_inverse_splits(folded: dict) -> None:
+    """The serving weights' splits made at load (on the CPU, by the plain
+    version) equal the split kernel's own on the card, bit for bit."""
+    import torch
+
+    from glow_tts_train_tpu_torch.ops import block_cuda, tc_gemm
+
+    for key in block_cuda.INVERSE_SPLIT_KEYS:
+        w = folded[key]
+        on_card = torch.stack([tc_gemm.split_weights(wl) for wl in w]) if w.dim() == 3 else \
+            tc_gemm.split_weights(w)
+        if not torch.equal(on_card, folded[key + "_split"]):
+            fail(f"block_inverse: the split of {key} made at load differs from the kernel's bits")
+
+
+def serving_block_b1(args, phonemes: int, device_line: str) -> dict:
+    """The serving block on the inputs of a b=1 request: against its plain
+    version (KERNEL_RTOL), times by events and on the device, its device
+    operations, its products against the plan, its bound."""
+    import torch
+
+    from glow_tts_train_tpu_torch.ops import block_cuda
+
+    args, kwargs = args
+    with torch.inference_mode():
+        out_k = block_cuda.block_inverse(*args, **kwargs)
+        out_p = block_cuda.block_inverse_plain(*args, **kwargs)
+        err, scale = rel_err(f"block_inverse b=1 {phonemes} phonemes", out_k, out_p, KERNEL_RTOL)
+        ms = time_ms(block_cuda.block_inverse, args, kwargs)
+        plain_ms = time_ms(block_cuda.block_inverse_plain, args, kwargs)
+        roof = bound("block_inverse", args, kwargs, out_k, block_cuda.block_inverse)
+    held_to_bound(f"block_inverse b=1 {phonemes} phonemes", ms, roof)
+    plan = held_inverse_plan(f"block_inverse b=1 {phonemes} phonemes", args, roof)
+    row = {"shape": list(args[2].shape), "max_abs_err": err, "max_abs_ref": scale, "ms": ms,
+           "plain_ms": plain_ms, **roof,
+           "plan": [f"{p['name']} {p['tile_rows']}x{p['splits']}" for p in plan]}
+    print(f"kernel block_inverse b=1 ({phonemes} phonemes): x {row['shape']} err {err:.3e} "
+          f"(max|ref| {scale:.3f}) kernel {ms:.4f} ms ({roof.get('device_ms')} on the device, "
+          f"{roof.get('device_operations')} device operations a call), plain {plain_ms:.4f} ms, "
+          f"bound {roof['bound_ms']:.4f} ms by {roof['bound_by']}, products {roof['products']}, "
+          f"plan (tile rows x K shares; 0: CUDA cores) {row['plan']} [{device_line}]")
+    return row
+
+
+def duration_products(rows: int, weights: tuple, forward: int, backward: int) -> dict:
+    """Device products of ``forward`` duration-stack forward chains and
+    ``backward`` backward chains over ``rows`` rows
+    (``tc_gemm.duration_products`` on this card's SMs): both convs, their
+    transposed convs and weight gradients on the tensor cores where the
+    rows fill the card, split-K for the short, deep ones; at b=1 declined
+    to the CUDA cores."""
+    import torch
+
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    w1, w2 = weights[0], weights[4]
+    f = w1.shape[1]
+    taps = w2.shape[0] // f
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return tc_gemm.duration_products(rows, w1.shape[0] // taps, f, taps, sms, forward, backward)
+
+
 def held_products(name: str, roof: dict, forward: int, backward: int, n_layers: int) -> None:
     """The products of one call of a block kernel: on the tensor cores but
     for the forward's folded A."""
@@ -1274,15 +1401,18 @@ def training_kernels(recorders: dict, launches: dict, device_line: str) -> tuple
 
 
 # the text kernels whose chains ask for the tensor cores
-TEXT_TC_KERNELS = ("prenet", "encoder_layer")
+TEXT_TC_KERNELS = ("prenet", "encoder_layer", "duration_stack")
 
 
 def chain_products(name: str, weights: tuple, x, forward: int, backward: int) -> dict:
     """The device products of ``forward`` and ``backward`` calls of the
-    prenet's or the encoder layer's kernels on ``x`` [b, t, h]."""
+    prenet's, the encoder layer's or the duration stack's kernels on ``x``
+    [b, t, h]."""
     rows, h = x.shape[0] * x.shape[1], x.shape[2]
     if name == "prenet":
         return prenet_products(rows, weights, forward, backward)
+    if name == "duration_stack":
+        return duration_products(rows, weights, forward, backward)
     w1 = weights[-4]  # the FFN's first conv [taps * h, f]
     return encoder_products(rows, h, w1.shape[1], w1.shape[0] // h, forward, backward)
 
@@ -1819,29 +1949,42 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
     ckpt, config, hp = make_checkpoint(workdir, config_path)
     stdin_text = requests()
 
+    # ---- main path: the CLI at batch 1, then batch 4 ----
+    # the serving block's inputs at b=1: the first request's (48 phonemes)
+    # and the last one's (250)
+    b1_block = Recorder(block_cuda, "block_inverse", keep_last=True)
+    b1_block.armed = True
+    kernels.reset_launch_counts()
+    kernels.product_counts(reset=True)
+    kernels.product_splits(reset=True)
+    mels_b1, sec_b1 = serve(ckpt, config_path, stdin_text, 1, hp.out_channels)
+    after_b1 = kernels.launch_counts()
+    products_b1 = kernels.product_counts(reset=True)
+    splits_b1 = kernels.product_splits(reset=True)
+    b1_block.restore()
     recorders = {
         "prenet": Recorder(text_cuda, "prenet"),
         "encoder_layer": Recorder(encoder_cuda, "encoder_layer"),
         "duration_stack": Recorder(text_cuda, "duration_stack"),
         "block_inverse": Recorder(block_cuda, "block_inverse"),
     }
-
-    # ---- main path: the CLI at batch 1, then batch 4 ----
-    kernels.reset_launch_counts()
-    kernels.product_counts(reset=True)
-    mels_b1, sec_b1 = serve(ckpt, config_path, stdin_text, 1, hp.out_channels)
-    after_b1 = kernels.launch_counts()
-    products_b1 = kernels.product_counts(reset=True)
     for rec in recorders.values():
         rec.armed = True
     mels_b4, sec_b4 = serve(ckpt, config_path, stdin_text, 4, hp.out_channels)
     launches = kernels.launch_counts()
     products_b4 = kernels.product_counts(reset=True)
-    # which kernel the inverse blocks' products took: at b=1 the short
-    # requests have too few 128-row tiles for the tensor-core kernel
-    print(f"serve: device products at b=1 {products_b1}, at b=4 {products_b4}")
-    if not products_b4["tc_gemm"] > 0:
-        fail(f"serve: no product of the b=4 pass ran on the tensor cores: {products_b4}")
+    splits_b4 = kernels.product_splits(reset=True)
+    # which kernel each pass's products took: at b=1 the serving blocks'
+    # products by their plan (split-K, 64-row tiles; below that the CUDA
+    # cores), the text side's declined to the CUDA cores; and no product
+    # split its weights itself (the serving blocks' were split at load, the
+    # text chains' once a call)
+    print(f"serve: device products at b=1 {products_b1}, at b=4 {products_b4}; weight splits "
+          f"launched by products: {splits_b1} (b=1), {splits_b4} (b=4)")
+    if not products_b4["tc_gemm"] > 0 or not products_b1["tc_gemm"] > 0:
+        fail(f"serve: no product of a pass ran on the tensor cores: {products_b1}, {products_b4}")
+    if splits_b1 or splits_b4:
+        fail(f"serve: products split their weights during a synthesis: {splits_b1}, {splits_b4}")
     for rec in recorders.values():
         rec.restore()
     n = len(REQUEST_LENGTHS)
@@ -1893,14 +2036,21 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
         with torch.inference_mode():
             roof = bound(name, args, kwargs, out_k, kernel_fn)
         held_to_bound(name, ms, roof)
-        if name == "prenet":  # serving b=4: the convs on the tensor cores
+        extra = {}
+        if name in TEXT_TC_KERNELS:  # serving b=4: the convs on the tensor cores
             want = chain_products(name, args[0], x, forward=1, backward=0)
             if roof["products"] != want:
-                fail(f"prenet (serving): device products {roof['products']}, expected {want}")
+                fail(f"{name} (serving): device products {roof['products']}, expected {want}")
+        if name == "block_inverse":
+            held_inverse_plan("block_inverse b=4", args, roof)
+            held_inverse_splits(args[0])
+            extra = {"b1_" + str(n): serving_block_b1(rec_args, n, device_line)
+                     for n, rec_args in ((min(REQUEST_LENGTHS), b1_block.args),
+                                         (max(REQUEST_LENGTHS), b1_block.last))}
         report.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, **roof, "shape": list(x.shape), "max_abs_ref": scale,
+            "plain_ms": plain_ms, **roof, "shape": list(x.shape), "max_abs_ref": scale, **extra,
         })
         print(f"kernel {name}: x {list(x.shape)} err {err:.3e} (max|ref| {scale:.3f}) "
               f"kernel {ms:.4f} ms ({roof.get('device_ms')} on the device, "

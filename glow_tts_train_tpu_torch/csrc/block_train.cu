@@ -147,7 +147,6 @@ int block_fwd_chain(const Dims& d, const float* x, const float* mask,
   const int batch = d.batch, t = d.t, c = d.c, h = d.h;
   const int rows = batch * t;
   const int c2 = c / 2;
-  GTT_TRY(cudaMemsetAsync(skipm, 0, sizeof(float) * rows * h, stream));
   // zp = (x @ A + bA) * mask
   {
     // On the CUDA cores: a tensor-core product is short by about 1e-7 of
@@ -316,7 +315,6 @@ extern "C" int gtt_wn_forward(
   const WnWeights wn{w_in, b_in, w_rs, b_rs, g_all, g_stride};
   const long rh = (long)batch * t * h;
   GTT_TRY(cudaMemcpyAsync(xcur, x, sizeof(float) * rh, cudaMemcpyDeviceToDevice, stream));
-  GTT_TRY(cudaMemsetAsync(skip, 0, sizeof(float) * rh, stream));
   GTT_TRY(wn_layers(wn_stack(d, wn, mask, xcur, nullptr, nullptr, acts, skip, 0), stream));
   return (int)cudaGetLastError();
 }
@@ -334,7 +332,6 @@ extern "C" int gtt_wn_fwd_save(
   const WnWeights wn{w_in, b_in, w_rs, b_rs, g_all, g_stride};
   const long rh = (long)batch * t * h;
   GTT_TRY(cudaMemcpyAsync(xs, x, sizeof(float) * rh, cudaMemcpyDeviceToDevice, stream));
-  GTT_TRY(cudaMemsetAsync(skip, 0, sizeof(float) * rh, stream));
   GTT_TRY(wn_layers(wn_stack(d, wn, mask, xs, th, sg, acts, skip, 0), stream));
   return (int)cudaGetLastError();
 }
@@ -373,7 +370,6 @@ extern "C" int gtt_wn_bwd(
   const WnWeights wn{w_in, b_in, w_rs, b_rs, g_all, g_stride};
   const long rh = (long)batch * t * h;
   GTT_TRY(cudaMemcpyAsync(xs, x, sizeof(float) * rh, cudaMemcpyDeviceToDevice, stream));
-  GTT_TRY(cudaMemsetAsync(dia, 0, sizeof(float) * rh, stream));
   GTT_TRY(wn_layers(wn_stack(d, wn, mask, xs, th, sg, acts, dia, 0), stream));
   const WnWalk w{mask, w_in_t, w_rs_t, xs, th, sg, g_rs, dia, dxin, acts, dx,
                  col_part, wg_scratch, wg_scratch_floats, dwin, dbin, dwrs, dbrs, dg};

@@ -2,14 +2,16 @@
 //
 // conv_gemm and wgrad each dispatch between two device kernels.  A chain
 // that asks for the tensor cores (the flow block's and the WN stack's:
-// block_train.cu, block.cu; the encoder layer's: encoder.cu,
-// encoder_train.cu, which also allow split-K) gets conv_gemm_tc_kernel /
-// wgrad_tc_kernel of tc_gemm.cu where the shape fits (conv_gemm_tc_fits,
-// wgrad_tc_fits: 16-byte alignable operands, at least 64 / 32 columns, 32
-// deep, enough blocks or rows); everything else (the prenet's and the
-// duration predictor's chains, narrow widths, a single short sentence)
-// runs the two kernels of this file on the CUDA cores.  product_counts
-// says which way the products of a run went.
+// block_train.cu, block.cu; the text side's: encoder.cu, encoder_train.cu,
+// text.cu, text_train.cu, which also allow split-K; the serving inverse,
+// which also allows split-K at any row count and 64-row tiles) gets
+// conv_gemm_tc_kernel / wgrad_tc_kernel of tc_gemm.cu where the shape fits
+// (conv_gemm_tc_fits, wgrad_tc_fits: 16-byte alignable operands, at least
+// 64 / 32 columns, 32 deep, enough blocks or rows); everything else
+// (narrow widths, the text side's products of a single short sentence,
+// the serving block's 1x1 products at 160 rows, the folded A's forward
+// product in training) runs the two kernels of this file on the CUDA
+// cores.  product_counts says which way the products of a run went.
 //
 // conv_gemm_kernel is a shared-memory SGEMM: a 64x64 output tile per block
 // of 256 threads, a 4x4 accumulator per thread, 32-deep K slices
@@ -19,12 +21,14 @@
 // launch is a single wave of at most ~100 blocks, so its time is the length
 // of one block's serial K walk: latency, not FLOPs or bytes (every operand
 // fits in L2). Hence the prefetch, the deep slices and, below one wave of
-// 64-row tiles, 32-row tiles. The im2col gather happens while staging A, so
+// 64-row tiles, 32-row tiles (the products that take the tensor cores at
+// b=1 get more blocks from split-K there instead). The im2col gather
+// happens while staging A, so
 // the [rows, taps * c_in] matrix the TPU kernel builds in VMEM never exists
 // in device memory, and the epilogue (epilogue.cuh) applies each TPU
 // kernel's elementwise tail before the one store. At training shapes it is
 // bound by shared-memory bandwidth at about a third of the f32 peak (64 FMAs
-// for 8 float4 loads a thread); split-K for more blocks at b=1 is later work.
+// for 8 float4 loads a thread).
 //
 // wgrad_kernel: a 64x64 output tile per block over one split of the rows,
 // about four waves of blocks, the splits' partial sums added in split order
@@ -261,8 +265,8 @@ __global__ void __launch_bounds__(256) wgrad_kernel(const WGrad w, int rows_per_
 
 // One column per threadIdx.x, 8 row groups per column, summed in a fixed
 // order through shared memory.
-__global__ void col_sum_kernel(const float* x, const float* mul, int ld, int n,
-                               const float* mask, int T, float* out, int ldo) {
+__global__ void col_sum_kernel(const float* x, int ld, int n, const float* mask, int T,
+                               float* out, int ldo) {
   __shared__ float part[8][33];
   const int j = blockIdx.x * 32 + threadIdx.x;
   const int s = blockIdx.y;
@@ -271,7 +275,6 @@ __global__ void col_sum_kernel(const float* x, const float* mul, int ld, int n,
     for (int r = threadIdx.y; r < T; r += 8) {
       const long row = (long)s * T + r;
       float e = x[row * ld + j];
-      if (mul) e *= mul[row * ld + j];
       if (mask) e *= mask[row];
       v += e;
     }
@@ -408,6 +411,11 @@ ProductCounts& product_counts() {
   return counts;
 }
 
+long long& product_splits() {
+  static long long count = 0;
+  return count;
+}
+
 cudaError_t conv_gemm(const ConvGemm& g, cudaStream_t stream) {
   const int rows = g.batch * g.t;
   if (rows <= 0 || g.n <= 0) return cudaSuccess;
@@ -416,7 +424,7 @@ cudaError_t conv_gemm(const ConvGemm& g, cudaStream_t stream) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  if (g.tc_scratch != nullptr) {
+  if (g.tc_scratch != nullptr || g.w_split != nullptr) {  // the chain asks
     if (conv_gemm_tc_fits(g, sms)) {
       ++product_counts().tc_gemm;
       return conv_gemm_tc(g, sms, stream);
@@ -441,21 +449,8 @@ cudaError_t col_sum(const float* x, int ld, int n, const float* mask, int n_seg,
                     int T, float* out, int ldo, cudaStream_t stream) {
   if (n <= 0 || n_seg <= 0) return cudaSuccess;
   col_sum_kernel<<<dim3((n + 31) / 32, n_seg), dim3(32, 8), 0, stream>>>(
-      x, nullptr, ld, n, mask, T, out, ldo);
+      x, ld, n, mask, T, out, ldo);
   return cudaGetLastError();
-}
-
-cudaError_t ln_param_grads(const float* dy, const float* xhat, int n, int batch,
-                           int t, float* part, float* dgamma, float* dbeta,
-                           cudaStream_t stream) {
-  if (n <= 0 || batch <= 0) return cudaSuccess;
-  col_sum_kernel<<<dim3((n + 31) / 32, batch), dim3(32, 8), 0, stream>>>(
-      dy, xhat, n, n, nullptr, t, part, n);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if ((err = col_sum(part, n, n, nullptr, 1, batch, dgamma, n, stream)) != cudaSuccess)
-    return err;
-  return bias_grad(dy, n, n, nullptr, batch, t, part, dbeta, stream);
 }
 
 cudaError_t column_sums(const float* x, int ld, int n, const float* mul, int rows, float* out,
@@ -537,6 +532,8 @@ cudaError_t wn_layers(const WnLayers& a, cudaStream_t stream) {
       }
       g.drop = a.drop.at(l);
       g.tc_scratch = a.tc_scratch; g.tc_scratch_floats = a.tc_scratch_floats;
+      if (a.w_in_split) g.w_split = a.w_in_split + (long)l * 2 * a.taps * h * 2 * h;
+      g.part = a.part; g.small_batch = a.small_batch;
       cudaError_t err = conv_gemm(g, stream);
       if (err != cudaSuccess) return err;
     }
@@ -549,7 +546,10 @@ cudaError_t wn_layers(const WnLayers& a, cudaStream_t stream) {
       g.aux = x_l; g.ld_aux = h; g.out2 = a.skip; g.ldo2 = h;
       g.flag = !last;  // the last layer's residual half is zero
       g.skip_mask = last && a.skip_mask;
+      g.skip_init = l == 0;
       g.tc_scratch = a.tc_scratch; g.tc_scratch_floats = a.tc_scratch_floats;
+      if (a.w_rs_split) g.w_split = a.w_rs_split + (long)l * 2 * h * 2 * h;
+      g.part = a.part; g.small_batch = a.small_batch;
       cudaError_t err = conv_gemm(g, stream);
       if (err != cudaSuccess) return err;
     }

@@ -29,8 +29,8 @@
 //    in training it drops its result and keeps the normalised input and the
 //    inverse std.
 //  * layer_norm_bwd: the closed-form LayerNorm backward, dx per row by one
-//    warp, with the neighbouring ReLU and dropout tails; ln_param_grads:
-//    dgamma and dbeta as deterministic column sums.
+//    warp, with the neighbouring ReLU and dropout tails (dgamma and dbeta
+//    are column_sums of its outputs).
 //
 // Dropout keep masks are the JAX kernels' portable counter hash
 // (wn_pallas.py _portable_bits, encoder_pallas.py _drop_keep): keep =
@@ -106,7 +106,9 @@ enum Epilogue : int {
   kGate = 4,         // out[:, j] = tanh(drop(u_j + b) + g) * sigmoid(drop(v_j + b) + g);
                      // out2 = tanh, out3 = sigmoid where given
   kResSkip = 5,      // out[:, :split] = (out + acc + b) * mask; out2 += acc + b
-  kCouplingInv = 6,  // out[:, j] = (out[:, j] - m_j) * exp(-logs_j) * mask
+                     // (out2 = acc + b with skip_init)
+  kCouplingInv = 6,  // out[:, j] = aux[:, j] (x0), out[:, split + j] =
+                     // (aux[:, split + j] - m_j) * exp(-logs_j) * mask
   kCouplingFwd = 8,  // out[:, j] = (m_j + exp(logs_j) * out[:, j]) * mask;
                      // out2[:, j] = logs_j * mask
   kCouplingBwd = 9,  // from logs_raw: out = [dm | dlogs], out2[:, split + j] = dx1
@@ -175,15 +177,23 @@ struct ConvGemm {
   // this is set and conv_gemm_tc_fits says yes, else the CUDA-core kernel.
   float* tc_scratch = nullptr;
   long tc_scratch_floats = 0;
-  // Set by a chain (the text side's) to allow split-K on the tensor cores
-  // (conv_gemm_tc_splits): room for the partial sums, kSplitKCols floats a
-  // row ([splits, batch * t, n], splits * n <= kSplitKCols).  Null: the
-  // whole K walk a block, as the flow chains run it.
+  // Set by a chain (the text side's, the serving inverse's) to allow
+  // split-K on the tensor cores (conv_gemm_tc_plan): room for the partial
+  // sums, kSplitKCols floats a row ([splits, batch * t, n], splits * n <=
+  // kSplitKCols).  Null: the whole K walk a block, as the flow training
+  // chains run it.
   float* part = nullptr;
-  // B's K-major 3xTF32 split made beforehand (presplit_weights: big [n, K],
-  // small after it), or null: the tensor-core kernel splits B into
-  // tc_scratch first
+  // Set by the serving inverse chain: every product on the tensor cores,
+  // in 128- or 64-row tiles, a lone sentence's K walk cut finer
+  // (kLoneSplitKCols floats a row of `part`; conv_gemm_tc_plan).
+  int small_batch = 0;
+  // B's K-major 3xTF32 split made beforehand (presplit_weights, or once at
+  // load for serving: big [n, K], small after it), or null: the
+  // tensor-core kernel splits B into tc_scratch first.  A chain asks for
+  // the tensor cores by giving tc_scratch or w_split.
   const float* w_split = nullptr;
+  // kResSkip: the skip sum starts here (written, not added to)
+  int skip_init = 0;
 };
 
 cudaError_t conv_gemm(const ConvGemm& g, cudaStream_t stream);
@@ -216,18 +226,26 @@ cudaError_t presplit_weights(ConvGemm* const* gs, int count, float* scratch, lon
 // most kSplitKCols / n shares (2 for the FFN's 768 columns, the most for
 // the 192-wide products at base width).
 constexpr int kSplitKCols = 1536;
+// The serving chain's for a lone sentence (conv_gemm_tc_plan): up to 8
+// shares of the in-layer conv's 384 columns.
+constexpr int kLoneSplitKCols = 2 * kSplitKCols;
 
 // The tensor-core conv-GEMM (tc_gemm.cu).  `can`: what the kernel needs
 // (16-byte copies: c_in, lda and taps * c_in multiples of 4, A 16-byte
-// aligned; a_mask only without taps; the scratch holds the split).
-// `splits`: the K shares a product takes (1 unless the chain gave split-K
-// scratch and the product is short and deep).  `fits` adds what makes it
-// worth taking: at least 64 columns, 32 deep, and enough blocks (128-row
-// tiles times K shares) to occupy a quarter of the SMs (below that one
-// block's serial K walk decides, and the CUDA-core kernel's 32-row tiles
-// win).
+// aligned; a_mask only without taps; the scratch holds the split, or B was
+// split beforehand).  `plan`: the rows of a block's tile and the K shares a
+// product takes (1 share unless the chain gave split-K scratch and the
+// product is short and deep); tile_rows 0 where 128-row tiles times K
+// shares do not occupy a quarter of the SMs (below that one block's serial
+// K walk decides, and the CUDA-core kernel's 32-row tiles win).  The
+// serving chain's products always take the tensor cores, in 128- or 64-row
+// tiles.  `fits` adds at least 64 columns and 32 deep.
+struct TcPlan {
+  int tile_rows = 0;
+  int splits = 1;
+};
 bool conv_gemm_tc_can(const ConvGemm& g);
-int conv_gemm_tc_splits(const ConvGemm& g, int sms);
+TcPlan conv_gemm_tc_plan(const ConvGemm& g, int sms);
 bool conv_gemm_tc_fits(const ConvGemm& g, int sms);
 cudaError_t conv_gemm_tc(const ConvGemm& g, int sms, cudaStream_t stream);
 
@@ -272,6 +290,10 @@ struct ProductCounts {
 };
 ProductCounts& product_counts();
 
+// Weight splits a tensor-core conv-GEMM launched for itself (its B not
+// split beforehand, by presplit_weights or at load) since the last reset.
+long long& product_splits();
+
 // out[s * ldo + j] = sum_{r < T} x[(s * T + r) * ld + j] * mask[s * T + r]
 // (mask optional), for segments s < n_seg and columns j < n; fixed order.
 cudaError_t col_sum(const float* x, int ld, int n, const float* mask, int n_seg,
@@ -290,13 +312,6 @@ cudaError_t bias_grad(const float* x, int ld, int n, const float* mask,
 cudaError_t column_sums(const float* x, int ld, int n, const float* mul, int rows, float* out,
                         float* out2, cudaStream_t stream);
 
-// dgamma[j] = sum_rows dy[r, j] * xhat[r, j] and dbeta[j] = sum_rows dy[r, j]
-// over all batch * t rows of two [rows, n] tensors, per-sample partials in
-// part [batch, n] added in sample order.
-cudaError_t ln_param_grads(const float* dy, const float* xhat, int n, int batch,
-                           int t, float* part, float* dgamma, float* dbeta,
-                           cudaStream_t stream);
-
 // The WN stack's layers: per layer the dilated in-conv with the gate (its
 // pre-gate tensor dropped at site l, then + g_all), then the 1x1 res/skip,
 // x_next = (x + res) * mask and skip += its skip half.
@@ -310,7 +325,7 @@ struct WnLayers {
   float* th = nullptr;
   float* sg = nullptr;
   float* acts = nullptr;  // [batch * t, h] scratch
-  float* skip = nullptr;  // [batch * t, h] skip sum; must start at 0
+  float* skip = nullptr;  // [batch * t, h] skip sum, written by layer 0
   int skip_mask = 0;      // multiply the finished skip sum by the mask
   const float* mask = nullptr;
   const float* w_in = nullptr;   // [L, taps * h, 2h]
@@ -330,6 +345,13 @@ struct WnLayers {
   // the tensor-core conv-GEMM's scratch (ConvGemm::tc_scratch), or null
   float* tc_scratch = nullptr;
   long tc_scratch_floats = 0;
+  // the serving chain: the weights' K-major splits made at load (layer l
+  // at w_in_split + l * 2 * taps * h * 2h, w_rs_split + l * 2 * h * 2h),
+  // split-K scratch and ConvGemm::small_batch; or null / 0
+  const float* w_in_split = nullptr;
+  const float* w_rs_split = nullptr;
+  float* part = nullptr;
+  int small_batch = 0;
 };
 
 cudaError_t wn_layers(const WnLayers& a, cudaStream_t stream);
@@ -364,7 +386,8 @@ struct LayerNormBwd {
   // dyeff = dy * keep * scale * [xhat * gamma + beta > 0 if relu_after],
   //   dx = (g - mean(g) - xhat * mean(g * xhat)) * rstd,  g = dyeff * gamma,
   // times [relu_src > 0] when the forward's ReLU came before the norm
-  // (encoder_pallas.py _ln_bwd).  dyeff is written for ln_param_grads.
+  // (encoder_pallas.py _ln_bwd).  dyeff is written for the norm's
+  // parameter gradients (column_sums).
   const float* dy = nullptr;
   const float* xhat = nullptr;
   const float* rstd = nullptr;

@@ -71,7 +71,7 @@ struct EncoderArgs {
 cudaError_t encoder_forward(const EncoderArgs& a, cudaStream_t stream);
 
 // A product of the text chains: on the tensor cores where the shape fits,
-// split-K allowed (conv_gemm_tc_splits).
+// split-K allowed (conv_gemm_tc_plan).
 ConvGemm text_product(const EncoderScratch& s);
 
 }  // namespace gtt

@@ -88,8 +88,10 @@ __device__ __forceinline__ void epilogue_cols(const ConvGemm& g, const EpilogueR
             g.out2[(long)m * g.ldo2 + j] = th;
             g.out3[(long)m * g.ldo3 + j] = sg;
           }
-        } else if (g.epilogue == kCouplingInv) {
-          out[j] = (out[j] - lo) * expf(-coupling_logs(g, hi)) * rm;
+        } else if (g.epilogue == kCouplingInv) {  // aux holds x = [x0 | x1]
+          const float* x = g.aux + (long)m * g.ld_aux;
+          out[j] = x[j];
+          out[g.split + j] = (x[g.split + j] - lo) * expf(-coupling_logs(g, hi)) * rm;
         } else {  // kCouplingFwd: out holds x1
           const float logs = coupling_logs(g, hi);
           out[j] = (lo + expf(logs) * out[j]) * rm;
@@ -110,7 +112,8 @@ __device__ __forceinline__ void epilogue_cols(const ConvGemm& g, const EpilogueR
           }
         } else {
           float* s = g.out2 + (long)m * g.ldo2 + n - g.split;
-          *s = g.skip_mask ? (*s + v) * rm : *s + v;
+          const float sum = g.skip_init ? v : *s + v;
+          *s = g.skip_mask ? sum * rm : sum;
         }
       }
       break;

@@ -2,9 +2,11 @@
 // split: the tensor-core conv-GEMM behind gtt::conv_gemm and the
 // tensor-core weight-gradient GEMM behind gtt::wgrad (common.cuh).  The
 // launch chains of block_train.cu and block.cu ask for them (every TPU
-// kernel of block_pallas.py and wn_pallas.py), and so do the encoder
-// layer's (encoder.cu, encoder_train.cu: encoder_pallas.py _fwd_kernel,
-// _bwd_kernel), which also allow the short-shape variants below.
+// kernel of block_pallas.py and wn_pallas.py), and so do the text side's
+// (encoder.cu, encoder_train.cu, text.cu, text_train.cu: encoder_pallas.py
+// _fwd_kernel, _bwd_kernel, text_pallas.py's four), which also allow
+// split-K, and the serving inverse's (block.cu), which allows split-K at
+// any row count and a 64-row tile.
 //
 // Arithmetic.  A TF32 operand keeps 10 mantissa bits.  Each f32 value v is
 // split into big = v rounded to 10 bits and small = the exact remainder
@@ -30,11 +32,15 @@
 //
 // conv_gemm_tc_kernel: a 128 x kBN output tile per block of two
 // warpgroups, each owning 64 rows, over the whole K walk or over one share
-// of it (split-K, for the text chains' short, deep products: [3072, 2304,
-// 192] at t_x 192 has 72 tiles for 132 SMs; the shares' raw sums go to
-// scratch and splitk_reduce_kernel adds them in split order and runs the
-// epilogue: no atomics, the same bits from run to run; conv_gemm_tc_splits
-// picks the count from the waves it makes).  wgmma.mma_async m64n{kBN}k8 with .tf32
+// of it (split-K, for the short, deep products of the text chains and of
+// serving: [3072, 2304, 192] at t_x 192 has 72 tiles for 132 SMs, the
+// in-layer conv of a lone 250-phoneme request [832, 960, 384] 21; the
+// shares' raw sums go to scratch and splitk_reduce_kernel adds them in
+// split order and runs the epilogue: no atomics, the same bits from run to
+// run; conv_gemm_tc_plan picks the count from the waves it makes).  The
+// serving chain may take a 64 x kBN tile instead, one warpgroup a block:
+// twice the row tiles, the same loop (a lone sentence's 1x1 products: 7
+// row tiles of 128 at 832 rows, 2 at 160).  wgmma.mma_async m64n{kBN}k8 with .tf32
 // operands, A from registers, B from shared memory, kBN / 2 f32
 // accumulators a thread and as many again for `part`.  kBN is 128 where
 // that divides the width (N = 384: two waves of 264 blocks at [16, 704]),
@@ -193,10 +199,8 @@ __global__ void split_weights_kernel(const WeightSplits s) {
 // the tensor-core conv-GEMM
 // ---------------------------------------------------------------------------
 
-constexpr int kTM = 128;      // rows a block (64 a warpgroup)
 constexpr int kTK = 32;       // K slice: one 128-byte swizzled row of B
 constexpr int kAStride = 36;  // floats a row of the A tile
-constexpr int kATileBytes = kTM * kAStride * 4;
 
 // d = a @ b + (scale_d ? d : 0): A [64, 8] from registers, B [kBN, 8]
 // K-major from shared memory
@@ -297,22 +301,27 @@ __host__ __device__ constexpr int conv_gemm_tc_stages() {
   return kBN == 128 ? 4 : 3;
 }
 
-template <int kBN>
+template <int kBN, int kTM>
 constexpr int conv_gemm_tc_smem() {
-  return conv_gemm_tc_stages<kBN>() * (2 * kBN * 128 + kATileBytes) + 1024;
+  return conv_gemm_tc_stages<kBN>() * (2 * kBN * 128 + kTM * kAStride * 4) + 1024;
 }
 
+// A kTM x kBN output tile per block of kTM / 64 warpgroups (kTM 128, or 64
+// for the serving chain's short products: twice the row tiles).
 // `part_out` null: the epilogue; else the block's raw sums go to
 // part_out[blockIdx.z] ([rows, n]) and the block walks only its share of
 // the K slices (split-K, added by splitk_reduce_kernel).
-template <int kBN>
-__global__ void __launch_bounds__(256, 1)
+template <int kBN, int kTM>
+__global__ void __launch_bounds__(2 * kTM, 1)
     conv_gemm_tc_kernel(const ConvGemm g, const float* __restrict__ w_big,
                         float* __restrict__ part_out, int slices_per_split) {
+  constexpr int kThreads = 2 * kTM;
+  constexpr int kRowStep = kThreads / 8;  // tile rows one pass of 16-byte copies covers
+  constexpr int kATileBytes = kTM * kAStride * 4;
   constexpr int kStages = conv_gemm_tc_stages<kBN>();
   constexpr int kBTileBytes = kBN * 128;
-  constexpr int kACopies = kTM * 8 / 256;  // 16-byte copies a thread, A
-  constexpr int kBRows = kBN / 32;         // B tile rows a thread copies, big and small each
+  constexpr int kACopies = kTM / kRowStep;  // 16-byte copies a thread, A
+  constexpr int kBRows = kBN / kRowStep;    // B tile rows a thread copies, big and small each
   extern __shared__ unsigned char smem_raw[];
   // B tiles first, 1024-byte aligned for the swizzle; then the A tiles
   const uint32_t smem_base = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -331,14 +340,15 @@ __global__ void __launch_bounds__(256, 1)
   const int n_slices = min((kdim + kTK - 1) / kTK - slice0, slices_per_split);
   const long small_off = (long)kdim * g.n;  // the small part follows the big one
 
-  // staging: this thread copies 16-byte chunk `cc` of tile rows tid / 8 + 32 i
+  // staging: this thread copies 16-byte chunk `cc` of tile rows tid / 8 +
+  // kRowStep i
   const int cc = tid & 7;
   const int r0 = tid >> 3;
   int a_row0[kACopies];  // b * t of the row's sample, -1 past the last row
   int a_t[kACopies];
 #pragma unroll
   for (int i = 0; i < kACopies; ++i) {
-    const int m = m0 + r0 + 32 * i;
+    const int m = m0 + r0 + kRowStep * i;
     const int b = m / g.t;
     a_row0[i] = m < rows ? b * g.t : -1;
     a_t[i] = m - b * g.t;
@@ -346,11 +356,11 @@ __global__ void __launch_bounds__(256, 1)
   long b_row[kBRows];  // offset of the K-major row this tile row reads, -1 past n
 #pragma unroll
   for (int i = 0; i < kBRows; ++i) {
-    const int n = n0 + r0 + 32 * i;
+    const int n = n0 + r0 + kRowStep * i;
     b_row[i] = n < g.n ? (long)physical_col(g, n) * kdim : -1;
   }
   const uint32_t a_dst0 = a_base + (r0 * kAStride + 4 * cc) * 4;
-  // rows r0 + 32 i share r0's swizzle phase (32 is a multiple of 8)
+  // rows r0 + kRowStep i share r0's swizzle phase (kRowStep is a multiple of 8)
   const uint32_t b_dst0 = b_base + r0 * 128 + ((cc ^ (r0 & 7)) << 4);
 
   auto load_slice = [&](int slice, int stage) {
@@ -365,15 +375,16 @@ __global__ void __launch_bounds__(256, 1)
       const int ts = a_t[i] + off;
       const bool ok = k_ok && a_row0[i] >= 0 && ts >= 0 && ts < g.t;
       const float* src = ok ? g.a + ((long)a_row0[i] + ts) * g.lda + c : g.a;
-      cp_async16(a_dst + 32 * i * kAStride * 4, src, ok ? 16 : 0);
+      cp_async16(a_dst + kRowStep * i * kAStride * 4, src, ok ? 16 : 0);
     }
     const uint32_t b_dst = b_dst0 + stage * 2 * kBTileBytes;
 #pragma unroll
     for (int i = 0; i < kBRows; ++i) {
       const bool ok = k_ok && b_row[i] >= 0;
       const float* src = ok ? w_big + b_row[i] + kidx : w_big;
-      cp_async16(b_dst + i * 32 * 128, src, ok ? 16 : 0);
-      cp_async16(b_dst + kBTileBytes + i * 32 * 128, ok ? src + small_off : w_big, ok ? 16 : 0);
+      cp_async16(b_dst + i * kRowStep * 128, src, ok ? 16 : 0);
+      cp_async16(b_dst + kBTileBytes + i * kRowStep * 128, ok ? src + small_off : w_big,
+                 ok ? 16 : 0);
     }
   };
 
@@ -492,7 +503,7 @@ __global__ void __launch_bounds__(256, 1)
   const int warp = tid >> 5;
   const int col = 4 * (lane % kLanesPerRow);
   for (int r = warp * (32 / kLanesPerRow) + lane / kLanesPerRow; r < kTM;
-       r += 8 * (32 / kLanesPerRow)) {
+       r += (kThreads / 32) * (32 / kLanesPerRow)) {
     const int m = m0 + r;
     if (m >= rows || n0 + col >= g.n) continue;
     const float4 v = *reinterpret_cast<const float4*>(c_tile + r * kCStride + col);
@@ -525,20 +536,20 @@ __global__ void splitk_reduce_kernel(const ConvGemm g, const float* __restrict__
   epilogue_cols<4>(g, epilogue_row_of(g, m), col, four);
 }
 
-template <int kBN>
+template <int kBN, int kTM>
 cudaError_t launch_conv_gemm_tc(const ConvGemm& g, const float* big, int splits,
                                 cudaStream_t stream) {
   // per device, so set on every launch: a process may drive several
-  cudaError_t err = cudaFuncSetAttribute(conv_gemm_tc_kernel<kBN>,
+  cudaError_t err = cudaFuncSetAttribute(conv_gemm_tc_kernel<kBN, kTM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         conv_gemm_tc_smem<kBN>());
+                                         conv_gemm_tc_smem<kBN, kTM>());
   if (err != cudaSuccess) return err;
   const int rows = g.batch * g.t;
   const int n_slices = (g.taps * g.c_in + kTK - 1) / kTK;
   const int per_split = (n_slices + splits - 1) / splits;
   splits = (n_slices + per_split - 1) / per_split;  // no empty split
   const dim3 grid((g.n + kBN - 1) / kBN, (rows + kTM - 1) / kTM, splits);
-  conv_gemm_tc_kernel<kBN><<<grid, 256, conv_gemm_tc_smem<kBN>(), stream>>>(
+  conv_gemm_tc_kernel<kBN, kTM><<<grid, 2 * kTM, conv_gemm_tc_smem<kBN, kTM>(), stream>>>(
       g, big, splits > 1 ? g.part : nullptr, per_split);
   if ((err = cudaGetLastError()) != cudaSuccess || splits == 1) return err;
   const long threads = (long)rows * (g.n / 4);
@@ -789,46 +800,94 @@ bool conv_gemm_tc_can(const ConvGemm& g) {
                         ? aligned16(g.w_split)
                         : aligned16(g.tc_scratch) && 2 * kdim * g.n <= g.tc_scratch_floats;
   return g.c_in % 4 == 0 && g.lda % 4 == 0 && aligned16(g.a) && kdim > 0 &&
-         (g.a_mask == nullptr || g.taps == 1) && g.tc_scratch != nullptr && b_ok;
+         (g.a_mask == nullptr || g.taps == 1) &&
+         (g.tc_scratch != nullptr || g.w_split != nullptr) && b_ok;
 }
 
 // Split-K, for a chain that gives scratch for the partial sums (the text
-// side's): the count of K shares, at most kMaxSplitK with at least
-// kMinSplitSlices slices each and within kSplitKCols, whose waves of blocks
-// times slices a block, ceil(tiles s / sms) ceil(slices / s), is least
-// (ties go to fewer shares).  Wave quantisation is what a short, deep
-// product loses: at [3072, 2304, 192] 72 tiles walk 72 slices in one
-// wave, where 3 shares walk 24 in two.  A share walks at least 128 deep:
-// the 192-deep products lost more to their partial sums' round trip than
-// the waves gave back (PERF.md).  Only for products of at least
-// kSplitKMinRows rows: a lone short sentence (b=1) keeps the dispatch it
-// had.
-constexpr long kMaxSplitK = 4;
-constexpr long kMinSplitSlices = 4;
+// side's and the serving inverse's): the count of K shares, at most
+// max_splits with at least min_slices slices each and within max_cols
+// partial sums a row, whose waves of blocks times slices a block,
+// ceil(tiles s / sms) ceil(slices / s), is least (ties go to fewer
+// shares).  Wave quantisation is what a short, deep product loses: at
+// [3072, 2304, 192] 72 tiles walk 72 slices in one wave, where 3 shares
+// walk 24 in two.  A chain's share walks at least 128 deep: the 192-deep
+// products lost more to their partial sums' round trip than the waves gave
+// back (PERF.md).  Only for products of at least kSplitKMinRows rows: a
+// lone short sentence of the text side keeps the dispatch it had.
+struct SplitLimits {
+  long max_splits, min_slices, max_cols;
+};
+constexpr SplitLimits kChainSplits{4, 4, kSplitKCols};
 constexpr long kSplitKMinRows = 512;
+// The serving chain (ConvGemm::small_batch) takes the tensor cores for
+// every product, in 128- or 64-row tiles, whichever with its best share
+// count makes the fewest waves times slices a block (ties to fewer shares,
+// then to the 64-row tile).  Below kLoneSentenceRows rows (a lone sentence
+// of up to about 340 phonemes) every product is latency-bound, one block's
+// serial K walk and the launch, and its partial sums are few, so the K
+// walk may be cut as fine as 64 deep into up to 8 shares; a batch keeps
+// the chains' limits.  Measured at base width
+// (scripts/torch-serve-plan-sweep.py, PERF.md): within 3% of the best
+// tile and share count at 160 and 832 rows, where the chains' limits on
+// 128-row tiles lost 25-30%, and within 1% at 3,328 and 4,352.
+constexpr SplitLimits kLoneSplits{8, 2, kLoneSplitKCols};
+constexpr long kLoneSentenceRows = 1024;
 
-int conv_gemm_tc_splits(const ConvGemm& g, int sms) {
-  const long rows = (long)g.batch * g.t;
-  if (g.part == nullptr || g.n % 4 || rows < kSplitKMinRows) return 1;
+namespace {
+
+long row_tiles(const ConvGemm& g, int tile_rows) {
+  return ((long)g.batch * g.t + tile_rows - 1) / tile_rows;
+}
+
+// (waves times slices a block, shares) of the best share count
+void best_shares(const ConvGemm& g, int sms, int tile_rows, const SplitLimits& lim,
+                 long* cost, int* splits) {
   const int bn = conv_gemm_tc_bn(g.n);
-  const long tiles = ((rows + kTM - 1) / kTM) * ((g.n + bn - 1) / bn);
+  const long tiles = row_tiles(g, tile_rows) * ((g.n + bn - 1) / bn);
   const long n_slices = (g.taps * g.c_in + kTK - 1) / kTK;
   long best = 1, best_cost = ((tiles + sms - 1) / sms) * n_slices;
-  for (long s = 2; s <= kMaxSplitK; ++s) {
-    const long per_split = (n_slices + s - 1) / s;
-    const long splits = (n_slices + per_split - 1) / per_split;  // no empty share
-    if (per_split < kMinSplitSlices || splits * g.n > kSplitKCols) break;
-    const long cost = ((tiles * splits + sms - 1) / sms) * per_split;
-    if (cost < best_cost) { best = splits; best_cost = cost; }
+  if (g.part != nullptr && g.n % 4 == 0) {
+    for (long s = 2; s <= lim.max_splits; ++s) {
+      const long per_split = (n_slices + s - 1) / s;
+      const long shares = (n_slices + per_split - 1) / per_split;  // no empty share
+      if (per_split < lim.min_slices || shares * g.n > lim.max_cols) break;
+      const long c = ((tiles * shares + sms - 1) / sms) * per_split;
+      if (c < best_cost) { best = shares; best_cost = c; }
+    }
   }
-  return (int)best;
+  *cost = best_cost;
+  *splits = (int)best;
+}
+
+}  // namespace
+
+TcPlan conv_gemm_tc_plan(const ConvGemm& g, int sms) {
+  TcPlan p;
+  const long rows = (long)g.batch * g.t;
+  if (g.small_batch) {  // the serving chain
+    const SplitLimits& lim = rows < kLoneSentenceRows ? kLoneSplits : kChainSplits;
+    long cost64, cost128;
+    int splits64, splits128;
+    best_shares(g, sms, 64, lim, &cost64, &splits64);
+    best_shares(g, sms, 128, lim, &cost128, &splits128);
+    const bool take64 = cost64 < cost128 || (cost64 == cost128 && splits64 <= splits128);
+    p.tile_rows = take64 ? 64 : 128;
+    p.splits = take64 ? splits64 : splits128;
+    return p;
+  }
+  long cost;
+  if (rows >= kSplitKMinRows) best_shares(g, sms, 128, kChainSplits, &cost, &p.splits);
+  // blocks for a quarter of the SMs: below that one block's serial K walk
+  // decides, and the CUDA-core kernel's 32-row tiles win
+  const int bn = conv_gemm_tc_bn(g.n);
+  if (4 * row_tiles(g, 128) * ((g.n + bn - 1) / bn) * p.splits >= sms) p.tile_rows = 128;
+  return p;
 }
 
 bool conv_gemm_tc_fits(const ConvGemm& g, int sms) {
-  if (!conv_gemm_tc_can(g) || g.n < 64 || g.taps * g.c_in < 32) return false;
-  const int bn = conv_gemm_tc_bn(g.n);
-  const long tiles = (long)((g.batch * g.t + kTM - 1) / kTM) * ((g.n + bn - 1) / bn);
-  return 4 * tiles * conv_gemm_tc_splits(g, sms) >= sms;
+  return conv_gemm_tc_can(g) && g.n >= 64 && g.taps * g.c_in >= 32 &&
+         conv_gemm_tc_plan(g, sms).tile_rows > 0;
 }
 
 cudaError_t split_weights(const WeightSplits& s, cudaStream_t stream) {
@@ -878,11 +937,17 @@ cudaError_t conv_gemm_tc(const ConvGemm& g, int sms, cudaStream_t stream) {
     s.job[s.count++] = split_job(g, g.tc_scratch);
     const cudaError_t err = split_weights(s, stream);
     if (err != cudaSuccess) return err;
+    ++product_splits();
     big = g.tc_scratch;
   }
-  const int splits = conv_gemm_tc_splits(g, sms);
-  return conv_gemm_tc_bn(g.n) == 128 ? launch_conv_gemm_tc<128>(g, big, splits, stream)
-                                     : launch_conv_gemm_tc<64>(g, big, splits, stream);
+  // a plan that declines (the bare kernel forced on a shape): 128-row tiles
+  const TcPlan p = conv_gemm_tc_plan(g, sms);
+  const bool bn128 = conv_gemm_tc_bn(g.n) == 128;
+  if (p.tile_rows == 64)
+    return bn128 ? launch_conv_gemm_tc<128, 64>(g, big, p.splits, stream)
+                 : launch_conv_gemm_tc<64, 64>(g, big, p.splits, stream);
+  return bn128 ? launch_conv_gemm_tc<128, 128>(g, big, p.splits, stream)
+               : launch_conv_gemm_tc<64, 128>(g, big, p.splits, stream);
 }
 
 bool wgrad_tc_can(const WGrad& w) {
@@ -927,12 +992,13 @@ cudaError_t wgrad_tc(const WGrad& w, int sms, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 
 // out [batch * t, n] = im2col(a) @ w: the bare product (kBias, no bias).
-// mode 0: as the flow chains run it; 1: the tensor-core kernel over the
-// whole K walk (an error where it cannot run); 2: CUDA cores; 3: as the
-// text chains run it (split-K allowed).  The scratch holds the weights'
-// split, then the split-K partial sums (kSplitKCols floats a row).  w_t:
-// w is the forward conv's [taps * n, c_in] and the product its per-tap
-// transpose.
+// mode 0: as the flow training chains run it; 1: the tensor-core kernel
+// over the whole K walk (an error where it cannot run); 2: CUDA cores; 3:
+// as the text chains run it (split-K allowed); 4: as the serving inverse
+// chain runs it (finer split-K for a lone sentence, 64-row tiles).  The
+// scratch holds the weights' split, then the split-K partial sums
+// (kSplitKCols floats a row, kLoneSplitKCols in mode 4).  w_t: w is the forward conv's [taps * n, c_in] and the
+// product its per-tap transpose.
 extern "C" int gtt_tc_conv_gemm(const float* a, const float* w, const float* a_mask, float* out,
                                 float* scratch, long long scratch_floats, int batch, int t,
                                 int c_in, int lda, int taps, int dilation, int tap_sign, int n,
@@ -945,9 +1011,12 @@ extern "C" int gtt_tc_conv_gemm(const float* a, const float* w, const float* a_m
   if (mode != 2) {
     const long split_floats = ((2L * taps * c_in * n + 3) / 4) * 4;
     g.tc_scratch = scratch; g.tc_scratch_floats = split_floats;
-    if (split_floats + (mode == 3 ? (long)kSplitKCols * batch * t : 0) > scratch_floats)
+    const long part_cols = mode == 4 ? kLoneSplitKCols : mode == 3 ? kSplitKCols : 0;
+    if (split_floats + part_cols * batch * t > scratch_floats)
       return (int)cudaErrorInvalidValue;
-    if (mode == 3) g.part = scratch + split_floats;
+    const bool split_k = part_cols > 0;
+    if (split_k) g.part = scratch + split_floats;
+    g.small_batch = mode == 4;
   }
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -957,6 +1026,38 @@ extern "C" int gtt_tc_conv_gemm(const float* a, const float* w, const float* a_m
   if (!conv_gemm_tc_can(g)) return (int)cudaErrorInvalidValue;
   ++product_counts().tc_gemm;
   return (int)conv_gemm_tc(g, sms, stream);
+}
+
+// out [batch * t, n] = im2col(a) @ w on the tensor cores in a given tile
+// (tile_rows 128 or 64) and K shares, whatever the plan would take: for
+// sweeping the serving chain's plan.  Scratch as gtt_tc_conv_gemm's mode 4.
+extern "C" int gtt_tc_conv_gemm_tiled(const float* a, const float* w, float* out,
+                                      float* scratch, long long scratch_floats, int batch,
+                                      int t, int c_in, int taps, int n, int tile_rows,
+                                      int splits, cudaStream_t stream) {
+  using namespace gtt;
+  ConvGemm g;
+  g.a = a; g.lda = c_in; g.c_in = c_in; g.taps = taps; g.batch = batch; g.t = t;
+  g.w = w; g.n = n; g.epilogue = kBias; g.out = out; g.ldo = n;
+  const long split_floats = ((2L * taps * c_in * n + 3) / 4) * 4;
+  if (split_floats + (long)splits * n * batch * t > scratch_floats ||
+      (tile_rows != 128 && tile_rows != 64) || splits < 1 || (splits > 1 && n % 4))
+    return (int)cudaErrorInvalidValue;
+  g.tc_scratch = scratch; g.tc_scratch_floats = split_floats; g.part = scratch + split_floats;
+  if (!conv_gemm_tc_can(g)) return (int)cudaErrorInvalidValue;
+  WeightSplits s;
+  s.job[s.count++] = split_job(g, scratch);
+  cudaError_t err = split_weights(s, stream);
+  if (err != cudaSuccess) return (int)err;
+  g.w_split = scratch;
+  const bool bn128 = conv_gemm_tc_bn(n) == 128;
+  if (tile_rows == 64)
+    err = bn128 ? launch_conv_gemm_tc<128, 64>(g, scratch, splits, stream)
+                : launch_conv_gemm_tc<64, 64>(g, scratch, splits, stream);
+  else
+    err = bn128 ? launch_conv_gemm_tc<128, 128>(g, scratch, splits, stream)
+                : launch_conv_gemm_tc<64, 128>(g, scratch, splits, stream);
+  return (int)err;
 }
 
 // out [taps * c_in, n] = im2col(a)^T @ dy: the bare weight gradient.
@@ -1000,4 +1101,12 @@ extern "C" void gtt_product_counts(long long* counts, int reset) {
   counts[0] = c.tc_gemm; counts[1] = c.tc_wgrad; counts[2] = c.core_gemm;
   counts[3] = c.core_wgrad; counts[4] = c.declined_gemm; counts[5] = c.declined_wgrad;
   if (reset) c = gtt::ProductCounts();
+}
+
+// The weight splits tensor-core conv-GEMMs launched for themselves since
+// the last reset; `reset` zeroes the count after the read.
+extern "C" long long gtt_product_splits(int reset) {
+  const long long n = gtt::product_splits();
+  if (reset) gtt::product_splits() = 0;
+  return n;
 }

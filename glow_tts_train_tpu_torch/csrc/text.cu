@@ -18,7 +18,11 @@
 // it was, up to the tensor cores' rounding.  The chain's weights are split
 // in one launch (presplit_weights).  A lone short sentence (b=1) has too
 // few row tiles: its products are declined to the CUDA cores, as before.
-// The duration stack's products (K = 3 * 256) stay on the CUDA cores.
+// The duration stack's products (M = batch * t, K = 3 * (192 + gin) and
+// 3 * 256, N = 256) take the same design: x * mask once, layer 0's
+// LayerNorm writes its output times the mask (layer 1's conv input), the
+// two convs' weights split in one launch, split-K by the text chains' plan,
+// one scratch block a call (gtt_duration_scratch_floats).
 //
 // Training dropout is the TPU kernels' per-site keep mask, applied in the
 // LayerNorm's store: the prenet's site l (of L) drops layer l's ReLU output
@@ -43,14 +47,6 @@ __global__ void mask_rows_kernel(const float* x, const float* mask, float* out, 
 long round4(long floats) { return (floats + 3) / 4 * 4; }
 
 }  // namespace
-
-ConvGemm prenet_product(const PrenetScratch& s) {
-  ConvGemm g;
-  g.tc_scratch = s.tc;
-  g.tc_scratch_floats = s.tc_floats;
-  g.part = s.part;
-  return g;
-}
 
 long prenet_scratch(float* base, const PrenetDims& d, bool backward, PrenetScratch* s) {
   long used = 0;
@@ -93,7 +89,7 @@ cudaError_t prenet_forward(const PrenetArgs& a, cudaStream_t stream) {
   ConvGemm g[kMaxPrenetLayers + 1];
   ConvGemm* products[kMaxPrenetLayers + 1];
   for (int l = 0; l <= L; ++l) {
-    g[l] = prenet_product(s);
+    g[l] = text_chain_product(s);
     g[l].lda = h; g[l].c_in = h; g[l].batch = d.batch; g[l].t = d.t; g[l].n = h;
     g[l].ldo = h;
     products[l] = &g[l];
@@ -129,31 +125,72 @@ cudaError_t prenet_forward(const PrenetArgs& a, cudaStream_t stream) {
   return conv_gemm(proj, stream);
 }
 
+long duration_scratch(float* base, const DurationDims& d, bool backward, DurationScratch* s) {
+  long used = 0;
+  auto take = [&](float*& p, long floats) {
+    p = base ? base + used : nullptr;
+    used += round4(floats);
+  };
+  const long rows = d.rows(), f = d.f;
+  const long conv_weights = (long)d.taps * (d.c_in + f) * f;
+  take(s->xm, rows * d.c_in);
+  take(s->pre, rows * f);
+  take(s->curm, rows * f);
+  // the K-major splits of the two convs' weights, and in the backward of
+  // the two transposed convs' too (16 floats of alignment each), and the
+  // split-K partial sums
+  s->tc_floats = 2 * (2 * conv_weights + 2 * 16);
+  take(s->tc, s->tc_floats);
+  take(s->part, kSplitKCols * rows);
+  if (backward) {
+    take(s->xhat, 2 * rows * f);
+    take(s->rstd, 2 * rows);
+    take(s->dcur, rows * f);
+    take(s->dpre, rows * f);
+    s->wg_floats = std::max(1L << 22, (long)d.taps * std::max(d.c_in, d.f) * f);
+    take(s->wg, s->wg_floats);
+  }
+  return used;
+}
+
+void duration_convs(const DurationArgs& a, ConvGemm (&g)[2]) {
+  const DurationDims& d = a.dims;
+  for (int l = 0; l < 2; ++l) {  // relu = max(conv(input * mask) + b, 0)
+    const int width = l ? d.f : d.c_in;
+    ConvGemm& p = g[l] = text_chain_product(a.s);
+    p.a = l ? a.s.curm : a.s.xm; p.lda = width; p.c_in = width; p.taps = d.taps;
+    p.batch = d.batch; p.t = d.t; p.w = a.w[l]; p.bias = a.b[l]; p.n = d.f;
+    p.epilogue = kBiasRelu; p.out = a.save ? a.relu + l * d.rows() * d.f : a.s.pre;
+    p.ldo = d.f;
+  }
+}
+
 // Duration-predictor stack without its 1-channel projection:
 // 2 x [conv(x * mask) -> ReLU -> LN -> drop].
-cudaError_t duration_forward(const DurationArgs& a, cudaStream_t stream) {
+cudaError_t duration_forward(const DurationArgs& a, const ConvGemm (&g)[2],
+                             cudaStream_t stream) {
+  const DurationDims& d = a.dims;
+  const DurationScratch& s = a.s;
+  const long rows = d.rows();
   cudaError_t err;
-  const long rows = (long)a.batch * a.t;
-  const bool save = a.xhat != nullptr;
-  const float* src = a.x;
-  int width = a.c_in;
+  const long n = rows * d.c_in;
+  mask_rows_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(a.x, a.mask, s.xm, rows,
+                                                                   d.c_in);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   for (int l = 0; l < 2; ++l) {
-    float* relu = save ? a.relu + l * rows * a.f : a.relu;
-    ConvGemm g;
-    g.a = src; g.lda = width; g.c_in = width; g.a_mask = a.mask; g.taps = a.taps;
-    g.batch = a.batch; g.t = a.t; g.w = a.w[l]; g.bias = a.b[l]; g.n = a.f;
-    g.epilogue = kBiasRelu; g.out = relu; g.ldo = a.f;
-    if ((err = conv_gemm(g, stream)) != cudaSuccess) return err;
-    // without saves layer 0 writes `out`, which layer 1's conv reads before
-    // layer 1's norm overwrites it
-    float* dst = (save && l == 0) ? a.mid : a.out;
+    if ((err = conv_gemm(g[l], stream)) != cudaSuccess) return err;
+    // layer 0 writes only its masked output, layer 1's conv input; layer 1
+    // the stack's output
     LayerNorm ln;
-    ln.x = relu; ln.gamma = a.gamma[l]; ln.beta = a.beta[l]; ln.out = dst;
-    ln.rows = (int)rows; ln.n = a.f; ln.t = a.t; ln.drop = a.drop.at(l);
-    if (save) { ln.xhat = a.xhat + l * rows * a.f; ln.rstd = a.rstd + l * rows; }
+    ln.x = g[l].out; ln.gamma = a.gamma[l]; ln.beta = a.beta[l];
+    if (l == 0) {
+      ln.out_masked = s.curm; ln.out_mask = a.mask;
+    } else {
+      ln.out = a.out;
+    }
+    ln.rows = (int)rows; ln.n = d.f; ln.t = d.t; ln.drop = a.drop.at(l);
+    if (a.save) { ln.xhat = s.xhat + l * rows * d.f; ln.rstd = s.rstd + l * rows; }
     if ((err = layer_norm(ln, stream)) != cudaSuccess) return err;
-    src = dst;
-    width = a.f;
   }
   return cudaSuccess;
 }
@@ -197,22 +234,39 @@ extern "C" int gtt_prenet(const float* x, const float* mask, const float* w,
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+// Floats of one call's scratch block (backward 0: gtt_duration_stack, 1:
+// gtt_duration_stack_bwd).
+extern "C" long long gtt_duration_scratch_floats(int batch, int t, int c_in, int f, int taps,
+                                                 int backward) {
+  gtt::DurationDims d;
+  d.batch = batch; d.t = t; d.c_in = c_in; d.f = f; d.taps = taps;
+  gtt::DurationScratch s;
+  return gtt::duration_scratch(nullptr, d, backward != 0, &s);
+}
+
+// Scratch: one block of gtt_duration_scratch_floats(..., 0) floats.
 extern "C" int gtt_duration_stack(const float* x, const float* mask,
                                   const float* w1, const float* b1,
                                   const float* gamma1, const float* beta1,
                                   const float* w2, const float* b2,
                                   const float* gamma2, const float* beta2,
-                                  float* out, float* pre, int batch, int t,
-                                  int c_in, int f, int taps, int drop, int seed,
-                                  unsigned threshold, float scale,
+                                  float* out, float* scratch, long long scratch_floats,
+                                  int batch, int t, int c_in, int f, int taps, int drop,
+                                  int seed, unsigned threshold, float scale,
                                   cudaStream_t stream) {
   gtt::DurationArgs a;
   a.x = x; a.mask = mask;
   a.w[0] = w1; a.b[0] = b1; a.gamma[0] = gamma1; a.beta[0] = beta1;
   a.w[1] = w2; a.b[1] = b2; a.gamma[1] = gamma2; a.beta[1] = beta2;
-  a.out = out; a.relu = pre;
-  a.batch = batch; a.t = t; a.c_in = c_in; a.f = f; a.taps = taps;
+  a.out = out;
+  a.dims.batch = batch; a.dims.t = t; a.dims.c_in = c_in; a.dims.f = f; a.dims.taps = taps;
+  if (gtt::duration_scratch(scratch, a.dims, false, &a.s) > scratch_floats)
+    return (int)cudaErrorInvalidValue;
   a.drop = gtt::make_dropout(drop, seed, 2, threshold, scale);
-  const cudaError_t err = gtt::duration_forward(a, stream);
+  gtt::ConvGemm g[2];
+  gtt::duration_convs(a, g);
+  gtt::ConvGemm* products[2] = {&g[0], &g[1]};
+  cudaError_t err = gtt::presplit_weights(products, 2, a.s.tc, a.s.tc_floats, stream);
+  if (err == cudaSuccess) err = gtt::duration_forward(a, g, stream);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }

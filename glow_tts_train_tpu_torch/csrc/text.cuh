@@ -32,9 +32,6 @@ struct PrenetScratch {
 // base null, only count.
 long prenet_scratch(float* base, const PrenetDims& d, bool backward, PrenetScratch* s);
 
-// A product of the prenet's chains: on the tensor cores where the shape
-// fits, split-K allowed (conv_gemm_tc_splits).
-ConvGemm prenet_product(const PrenetScratch& s);
 
 // A chain's L convs and projection have their weights split in one launch
 // (presplit_weights), which takes at most kMaxSplits products.
@@ -62,6 +59,40 @@ struct PrenetArgs {
 
 cudaError_t prenet_forward(const PrenetArgs& a, cudaStream_t stream);
 
+// The duration stack's shapes, and every buffer of one call carved from
+// the caller's one scratch block (duration_scratch).  Forward: x * mask,
+// the conv's ReLU output (the ReLU outputs go to the caller's `relu` when
+// saving), layer 0's masked output (layer 1's conv input), the products'
+// tensor-core scratch (the K-major splits of the two convs' weights and,
+// for the backward, of its two transposed convs) and the split-K partial
+// sums; the backward adds the norms' saves and its own buffers.
+struct DurationDims {
+  int batch = 0, t = 0, c_in = 0, f = 0, taps = 1;
+  long rows() const { return (long)batch * t; }
+};
+
+struct DurationScratch {
+  float *xm = nullptr, *pre = nullptr, *curm = nullptr;
+  float *tc = nullptr, *part = nullptr;
+  long tc_floats = 0;
+  // backward
+  float *xhat = nullptr, *rstd = nullptr, *dcur = nullptr, *dpre = nullptr, *wg = nullptr;
+  long wg_floats = 0;
+};
+
+long duration_scratch(float* base, const DurationDims& d, bool backward, DurationScratch* s);
+
+// A product of the prenet's or the duration stack's chains: on the tensor
+// cores where the shape fits, split-K allowed (conv_gemm_tc_plan).
+template <class Scratch>
+ConvGemm text_chain_product(const Scratch& s) {
+  ConvGemm g;
+  g.tc_scratch = s.tc;
+  g.tc_scratch_floats = s.tc_floats;
+  g.part = s.part;
+  return g;
+}
+
 struct DurationArgs {
   const float* x = nullptr;  // [batch * t, c_in]
   const float* mask = nullptr;
@@ -70,16 +101,23 @@ struct DurationArgs {
   const float* gamma[2] = {nullptr, nullptr};
   const float* beta[2] = {nullptr, nullptr};
   float* out = nullptr;  // [batch * t, f]
-  // ReLU outputs: one [batch * t, f] buffer, or [2, batch * t, f] when xhat
-  // is given
+  // when saving: the ReLU outputs [2, batch * t, f] (the backward's ReLU
+  // gates, handed out) and the norms' normalised inputs and inverse stds
+  // (s.xhat, s.rstd)
   float* relu = nullptr;
-  float* mid = nullptr;   // [batch * t, f]: layer 0's output when saving, else unused
-  float* xhat = nullptr;  // [2, batch * t, f] or null
-  float* rstd = nullptr;  // [2, batch * t] or null
-  int batch = 0, t = 0, c_in = 0, f = 0, taps = 1;
+  bool save = false;
+  DurationScratch s;
+  DurationDims dims;
   Dropout drop;  // site l of 2 over [t, f], after layer l's LayerNorm
 };
 
-cudaError_t duration_forward(const DurationArgs& a, cudaStream_t stream);
+// The stack's two convs as its chain runs them: each reads its input
+// stored masked (x * mask, then layer 0's masked output), on the tensor
+// cores where the shape fits, split-K allowed.  The caller splits their
+// weights (presplit_weights) before duration_forward runs them.
+void duration_convs(const DurationArgs& a, ConvGemm (&g)[2]);
+
+cudaError_t duration_forward(const DurationArgs& a, const ConvGemm (&g)[2],
+                             cudaStream_t stream);
 
 }  // namespace gtt

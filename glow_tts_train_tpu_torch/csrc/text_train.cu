@@ -24,20 +24,23 @@
 // -> LN -> drop): dy = dcur * keep * scale, dr = LN backward, dpre = dr *
 // [pre > 0], the rest alike.
 //
-// The prenet's products run on the tensor cores where the shape fits, as
+// Both stacks' products run on the tensor cores where the shape fits, as
 // the forward's do: the recompute, the weight gradients (their inputs are
-// the forward's masked layer outputs, so no input mask on the gather) and
+// the forward's masked layer inputs, so no input mask on the gather) and
 // the transposed convs, which read the forward's weights as they lie
-// (ConvGemm::w_t), split in one launch; every buffer comes from the
-// caller's one scratch block (prenet_scratch).  The sums stay on the CUDA
-// cores: the norms' dgamma = sum dy * xhat and the bias gradients
-// (column_sums, one launch each), where a tensor-core product's lean would
-// show.  The duration stack's products stay on the CUDA cores.
+// (ConvGemm::w_t); every buffer comes from the caller's one scratch block
+// (prenet_scratch, duration_scratch).  The prenet splits its transposed
+// products' weights in one launch after its forward's; the duration stack
+// splits all four of its products' weights in one launch before the
+// recompute.  The sums stay on the CUDA cores: the norms' dgamma = sum dy
+// * xhat and dbeta and the bias gradients (column_sums, one launch each),
+// where a tensor-core product's lean would show.
 //
 // Bound on the card: the operations of three products per layer (the
 // recompute, the weight gradient, the transposed conv) at K = 5 * 192 or
-// 3 * 256; at training sizes (rows = 16 * 192) every launch is a wave or two
-// of blocks, so launch latency shares the time.
+// 3 * 256, by the 3xTF32 peak where they take the tensor cores; at training
+// sizes (rows = 16 * 192) every launch is a wave or two of blocks, so
+// launch latency shares the time.
 #include "text.cuh"
 
 namespace {
@@ -49,30 +52,6 @@ using namespace gtt;
     const cudaError_t err_ = (expr);                \
     if (err_ != cudaSuccess) return (int)err_;      \
   } while (0)
-
-WGrad conv_wgrad(const float* a, int c_in, const float* a_mask, int taps,
-                 int batch, int t, const float* dy, int n, float* out,
-                 float* scratch, long scratch_floats) {
-  WGrad w;
-  w.a = a; w.lda = c_in; w.c_in = c_in; w.a_mask = a_mask; w.taps = taps;
-  w.batch = batch; w.t = t; w.dy = dy; w.ldy = n; w.n = n; w.out = out;
-  w.scratch = scratch; w.scratch_floats = scratch_floats;
-  return w;
-}
-
-// out = (transposed k-tap conv of dpre [rows, n] with w_t [taps * n, c]) *
-// mask, plus resid * mask when given.
-ConvGemm conv_input_grad(const float* dpre, int n, const float* w_t, int c,
-                         int taps, int batch, int t, const float* mask,
-                         const float* resid, float* out) {
-  ConvGemm g;
-  g.a = dpre; g.lda = n; g.c_in = n; g.taps = taps; g.tap_sign = -1;
-  g.batch = batch; g.t = t; g.w = w_t; g.n = c;
-  g.epilogue = resid ? kResidMask : kBiasMask;
-  g.aux = resid; g.ld_aux = c;
-  g.out = out; g.ldo = c; g.mask = mask;
-  return g;
-}
 
 }  // namespace
 
@@ -110,7 +89,7 @@ extern "C" int gtt_prenet_bwd(
   ConvGemm g[kMaxPrenetLayers + 1];
   ConvGemm* products[kMaxPrenetLayers + 1];
   for (int l = 0; l <= L; ++l) {
-    ConvGemm& p = g[l] = prenet_product(s);
+    ConvGemm& p = g[l] = text_chain_product(s);
     p.lda = h; p.c_in = h; p.batch = batch; p.t = t; p.w_t = 1; p.n = h; p.ldo = h;
     p.mask = mask;
     p.epilogue = l == 0 ? kResidMask : kBiasMask; p.out = l == 0 ? dx : s.dcur;
@@ -155,51 +134,66 @@ extern "C" int gtt_prenet_bwd(
   return (int)cudaGetLastError();
 }
 
-// w1_t: [taps * f, c_in], w2_t: [taps * f, f], per tap the transposed block.
-// relu, xhat: [2, rows, f]; rstd: [2, rows]; mid, out, dcur, dpre: [rows, f];
-// col_part: [batch, f].
+// Outputs: dx and the 8 weight gradients, the recomputed forward's output
+// `out` and its ReLU outputs `relu` [2, rows, f] (the ReLU gates: where
+// positive).  Scratch: one block of gtt_duration_scratch_floats(..., 1)
+// floats.
 extern "C" int gtt_duration_stack_bwd(
     const float* x, const float* mask, const float* w1, const float* b1,
     const float* gamma1, const float* beta1, const float* w2, const float* b2,
-    const float* gamma2, const float* beta2, const float* w1_t,
-    const float* w2_t, const float* dout, float* dx, float* dw1, float* db1,
-    float* dgamma1, float* dbeta1, float* dw2, float* db2, float* dgamma2,
-    float* dbeta2, float* out, float* relu, float* mid, float* xhat,
-    float* rstd, float* dcur, float* dpre, float* col_part, float* wg_scratch,
-    int wg_scratch_floats, int batch, int t, int c_in, int f, int taps,
-    int drop, int seed, unsigned threshold, float scale, cudaStream_t stream) {
+    const float* gamma2, const float* beta2, const float* dout, float* dx, float* dw1,
+    float* db1, float* dgamma1, float* dbeta1, float* dw2, float* db2, float* dgamma2,
+    float* dbeta2, float* out, float* relu, float* scratch, long long scratch_floats,
+    int batch, int t, int c_in, int f, int taps, int drop, int seed, unsigned threshold,
+    float scale, cudaStream_t stream) {
   using namespace gtt;
   const long rows = (long)batch * t;
   DurationArgs a;
   a.x = x; a.mask = mask;
   a.w[0] = w1; a.b[0] = b1; a.gamma[0] = gamma1; a.beta[0] = beta1;
   a.w[1] = w2; a.b[1] = b2; a.gamma[1] = gamma2; a.beta[1] = beta2;
-  a.out = out; a.relu = relu; a.mid = mid; a.xhat = xhat; a.rstd = rstd;
-  a.batch = batch; a.t = t; a.c_in = c_in; a.f = f; a.taps = taps;
+  a.out = out; a.relu = relu; a.save = true;
+  a.dims.batch = batch; a.dims.t = t; a.dims.c_in = c_in; a.dims.f = f; a.dims.taps = taps;
+  if (duration_scratch(scratch, a.dims, true, &a.s) > scratch_floats)
+    return (int)cudaErrorInvalidValue;
   a.drop = make_dropout(drop, seed, 2, threshold, scale);
-  GTT_TRY(duration_forward(a, stream));
+  const DurationScratch& s = a.s;
 
-  const float* w_t[2] = {w1_t, w2_t};
+  // the recompute's two convs and the two transposed convs, reading the
+  // forward's weights as they lie: d(input) = (transposed conv of dpre) *
+  // mask, into dcur (layer 1) or dx; all four weights split in one launch
+  ConvGemm g[2], gt[2];
+  duration_convs(a, g);
+  for (int l = 0; l < 2; ++l) {
+    ConvGemm& p = gt[l] = text_chain_product(s);
+    p.a = s.dpre; p.lda = f; p.c_in = f; p.taps = taps; p.tap_sign = -1;
+    p.batch = batch; p.t = t; p.w = a.w[l]; p.w_t = 1; p.n = g[l].c_in;
+    p.epilogue = kBiasMask; p.out = l ? s.dcur : dx; p.ldo = g[l].c_in; p.mask = mask;
+  }
+  ConvGemm* products[4] = {&g[0], &g[1], &gt[0], &gt[1]};
+  GTT_TRY(presplit_weights(products, 4, s.tc, s.tc_floats, stream));
+  GTT_TRY(duration_forward(a, g, stream));
+
   float* dws[2] = {dw1, dw2};
   float* dbs[2] = {db1, db2};
   float* dgs[2] = {dgamma1, dgamma2};
   float* dbes[2] = {dbeta1, dbeta2};
   for (int l = 1; l >= 0; --l) {
     LayerNormBwd ln;
-    ln.dy = l == 1 ? dout : dcur; ln.xhat = xhat + l * rows * f;
-    ln.rstd = rstd + l * rows; ln.gamma = a.gamma[l];
+    ln.dy = l == 1 ? dout : s.dcur; ln.xhat = s.xhat + l * rows * f;
+    ln.rstd = s.rstd + l * rows; ln.gamma = a.gamma[l];
     ln.relu_src = relu + l * rows * f;
-    ln.dyeff = dcur; ln.dx = dpre; ln.rows = (int)rows; ln.n = f; ln.t = t;
+    ln.dyeff = s.dcur; ln.dx = s.dpre; ln.rows = (int)rows; ln.n = f; ln.t = t;
     ln.drop = a.drop.at(l);
     GTT_TRY(layer_norm_bwd(ln, stream));
-    GTT_TRY(ln_param_grads(dcur, ln.xhat, f, batch, t, col_part, dgs[l], dbes[l], stream));
-    const float* src = l == 1 ? mid : x;
-    const int width = l == 1 ? f : c_in;
-    GTT_TRY(wgrad(conv_wgrad(src, width, mask, taps, batch, t, dpre, f, dws[l],
-                             wg_scratch, wg_scratch_floats), stream));
-    GTT_TRY(bias_grad(dpre, f, f, nullptr, batch, t, col_part, dbs[l], stream));
-    GTT_TRY(conv_gemm(conv_input_grad(dpre, f, w_t[l], width, taps, batch, t, mask,
-                                      nullptr, l == 1 ? dcur : dx), stream));
+    GTT_TRY(column_sums(s.dcur, f, f, ln.xhat, (int)rows, dgs[l], dbes[l], stream));
+    WGrad wg;  // the conv's input, stored masked: no mask on the gather
+    wg.a = g[l].a; wg.lda = g[l].lda; wg.c_in = g[l].c_in; wg.taps = taps;
+    wg.batch = batch; wg.t = t; wg.dy = s.dpre; wg.ldy = f; wg.n = f; wg.out = dws[l];
+    wg.scratch = s.wg; wg.scratch_floats = s.wg_floats; wg.tc = 1;
+    GTT_TRY(wgrad(wg, stream));
+    GTT_TRY(column_sums(s.dpre, f, f, nullptr, (int)rows, dbs[l], nullptr, stream));
+    GTT_TRY(conv_gemm(gt[l], stream));
   }
   return (int)cudaGetLastError();
 }

@@ -192,12 +192,12 @@ class Entry:
 
 # C signatures (csrc/*.cu): pointer arguments first, then numbers
 PRENET = Entry("gtt_prenet", "p" * 10 + "L" + "i" * 7 + "uf")
-DURATION_STACK = Entry("gtt_duration_stack", "p" * 12 + "i" * 7 + "uf")
+DURATION_STACK = Entry("gtt_duration_stack", "p" * 12 + "L" + "i" * 7 + "uf")
 ENCODER_LAYER = Entry("gtt_encoder_layer", "p" * 18 + "L" + "i" * 9 + "uf")
 PRENET_BWD = Entry("gtt_prenet_bwd", "p" * 19 + "L" + "i" * 7 + "uf")
-DURATION_STACK_BWD = Entry("gtt_duration_stack_bwd", "p" * 31 + "i" * 8 + "uf")
+DURATION_STACK_BWD = Entry("gtt_duration_stack_bwd", "p" * 23 + "L" + "i" * 7 + "uf")
 ENCODER_LAYER_BWD = Entry("gtt_encoder_layer_bwd", "p" * 35 + "L" + "i" * 9 + "uf")
-BLOCK_INVERSE = Entry("gtt_block_inverse", "p" * 19 + "i" * 10)
+BLOCK_INVERSE = Entry("gtt_block_inverse", "p" * 20 + "L" + "i" * 9)
 WN_FORWARD = Entry("gtt_wn_forward", "p" * 11 + "i" * 10 + "uf")
 WN_FWD_SAVE = Entry("gtt_wn_fwd_save", "p" * 13 + "i" * 10 + "uf")
 WN_BWD_STORE = Entry("gtt_wn_bwd_store", "p" * 19 + "i" * 9 + "uf")
@@ -210,6 +210,7 @@ MAS = Entry("gtt_mas", "p" * 5 + "i" * 3)
 # the two tensor-core device kernels alone (csrc/tc_gemm.cu), and the
 # weights' K-major split
 TC_CONV_GEMM = Entry("gtt_tc_conv_gemm", "p" * 5 + "L" + "i" * 10)
+TC_CONV_GEMM_TILED = Entry("gtt_tc_conv_gemm_tiled", "p" * 4 + "L" + "i" * 7)
 TC_WGRAD = Entry("gtt_tc_wgrad", "p" * 6 + "i" * 10)
 SPLIT_WEIGHTS = Entry("gtt_split_weights", "p" * 3 + "i" * 2)
 
@@ -231,6 +232,7 @@ ENTRIES = {
     "encoder_layer_bwd": ENCODER_LAYER_BWD,
     "duration_stack_bwd": DURATION_STACK_BWD,
     "tc_conv_gemm": TC_CONV_GEMM,
+    "tc_conv_gemm_tiled": TC_CONV_GEMM_TILED,
     "tc_wgrad": TC_WGRAD,
     "split_weights": SPLIT_WEIGHTS,
 }
@@ -252,6 +254,17 @@ def product_counts(reset: bool = False) -> typing.Dict[str, int]:
     counts = (ctypes.c_longlong * len(PRODUCT_COUNT_NAMES))()
     fn(counts, int(reset))
     return dict(zip(PRODUCT_COUNT_NAMES, counts))
+
+
+def product_splits(reset: bool = False) -> int:
+    """Weight splits that tensor-core conv-GEMMs launched for themselves
+    since the last reset: products whose weights were not split beforehand
+    (once a chain call by ``presplit_weights``, or once at load for
+    serving).  ``reset`` zeroes the count after the read."""
+    fn = library().gtt_product_splits
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return int(fn(int(reset)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -285,6 +298,19 @@ def prenet_scratch_floats(
     """Floats of the one scratch block a call of the prenet's forward (or
     backward) entry point carves its buffers from."""
     return _size_query("gtt_prenet_scratch_floats", batch, t, h, n_layers, taps, int(backward))
+
+
+def block_inverse_scratch_floats(batch: int, t: int, c: int, h: int) -> int:
+    """Floats of the one scratch block a call of the serving flow block's
+    entry point carves its buffers from."""
+    return _size_query("gtt_block_inverse_scratch_floats", batch, t, c, h)
+
+
+def duration_scratch_floats(batch: int, t: int, c_in: int, f: int, taps: int,
+                            backward: bool) -> int:
+    """Floats of the one scratch block a call of the duration stack's
+    forward (or backward) entry point carves its buffers from."""
+    return _size_query("gtt_duration_scratch_floats", batch, t, c_in, f, taps, int(backward))
 
 
 def mas_bits_words(batch: int, t_x: int, t_y: int, device: torch.device) -> int:

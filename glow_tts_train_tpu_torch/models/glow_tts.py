@@ -213,7 +213,7 @@ class ServingWeights:
     dp: tuple  # text_cuda.dp_weights
     dp_proj: Params
     emb_g: typing.Optional[torch.Tensor]
-    blocks: typing.List[dict]  # block_cuda.fold_block_params_inverse
+    blocks: typing.List[dict]  # fold_block_params_inverse + split_inverse_weights
     cond: typing.Optional[typing.List[Params]]  # per-block effective cond conv
 
     def to(self, device) -> "ServingWeights":

@@ -5,7 +5,12 @@ their plain PyTorch versions.
 :func:`block_inverse` replaces ``glow_tts_train_tpu/ops/block_pallas.py::
 _block_inv_kernel``: start 1x1 of x0, the L-layer WN gated stack, end 1x1
 -> (m, logs), z1 = (x1 - m) * exp(-logs), then the folded inverse of
-InvConvNear and ActNorm as one [c, c] affine.
+InvConvNear and ActNorm as one [c, c] affine.  Its products read their
+weights' K-major 3xTF32 splits, made once at load
+(:func:`split_inverse_weights`, which ``flows.decoder_store_inverse``
+applies), and take the tensor cores by the serving chain's plan
+(``tc_gemm.inverse_product_plan``): split-K at any row count and 64-row
+tiles, so a lone sentence's products fill the card too.
 
 :func:`block_forward` is the training direction.  Its CUDA path is
 :class:`FlowBlockTrain`.  With ``residuals="store"`` the forward replaces
@@ -140,6 +145,30 @@ def _block_tc_scratch(x_like: torch.Tensor, folded: dict) -> torch.Tensor:
     return tc_scratch(x_like, *(folded[k] for k in ("A", "W_s", "W_e", "W_in", "W_rs")))
 
 
+# the serving block's products' weights, in the order of the C entry point
+INVERSE_SPLIT_KEYS = ("A", "W_s", "W_e", "W_in", "W_rs")
+
+
+def split_inverse_weights(folded: dict) -> dict:
+    """``folded`` (:func:`fold_block_params_inverse`) with, beside each
+    product's weights, their K-major 3xTF32 split (``tc_gemm.split_weights``:
+    the kernel on a CUDA tensor, its plain version, the same bits, on a CPU
+    one) under ``<key>_split``: [2, N, K] of a [K, N] matrix, [L, 2, N, K]
+    of the WN stack's per-layer ones.  Made once at load; the serving
+    block's products read them and split nothing at serve time (about
+    twice the folded weights' memory: 3.6 M floats a block at base
+    width)."""
+    from .tc_gemm import split_weights
+
+    out = dict(folded)
+    for key in INVERSE_SPLIT_KEYS:
+        w = folded[key].detach().contiguous()
+        out[key + "_split"] = (
+            torch.stack([split_weights(wl) for wl in w]) if w.dim() == 3 else split_weights(w)
+        )
+    return out
+
+
 def block_inverse(
     folded: dict,
     g_all: typing.Optional[torch.Tensor],
@@ -150,7 +179,8 @@ def block_inverse(
     sigmoid_scale: bool = False,
 ) -> torch.Tensor:
     """One inverse flow block, x [b, t, c], x_mask [b, t, 1] -> [b, t, c].
-    g_all: [b, L, 2h] per-layer speaker conditioning, or None."""
+    g_all: [b, L, 2h] per-layer speaker conditioning, or None.  On a CUDA
+    tensor ``folded`` must carry its splits (:func:`split_inverse_weights`)."""
     if kernels.route(x) == "plain":
         return block_inverse_plain(
             folded, g_all, x, x_mask, kernel_size, dilation_rate, sigmoid_scale
@@ -167,18 +197,23 @@ def block_inverse(
     kernels.check_shape("A", folded["A"], (c, c))
     if g_all is not None:
         kernels.check_shape("g_all", g_all, (batch, n_layers, 2 * h))
+    missing = [k for k in INVERSE_SPLIT_KEYS if k + "_split" not in folded]
+    if missing:
+        raise ValueError(
+            f"block_inverse: no weight splits for {missing}: fold with split_inverse_weights"
+        )
+    for key in INVERSE_SPLIT_KEYS:
+        w = folded[key]
+        split = (w.shape[0], 2, w.shape[2], w.shape[1]) if w.dim() == 3 else (2, w.shape[1], w.shape[0])
+        kernels.check_shape(key + "_split", folded[key + "_split"], split)
     y = torch.empty_like(x)
-    zbuf = torch.empty_like(x)
-    xcur = x.new_empty((batch, t, h))
-    acts = x.new_empty((batch, t, h))
-    skip = x.new_empty((batch, t, h))
+    scratch = x.new_empty((kernels.block_inverse_scratch_floats(batch, t, c, h),))
     f = folded
-    tc = _block_tc_scratch(x, f)
     kernels.BLOCK_INVERSE(
         x, x_mask, f["A"], f["bA"], f["W_s"], f["b_s"], f["W_e"], f["b_e"],
         f["W_in"], f["b_in"], f["W_rs"], f["b_rs"], g_all,
-        y, zbuf, xcur, acts, skip, tc,
-        tc.numel(), 0 if g_all is None else n_layers * 2 * h,
+        *(f[k + "_split"] for k in INVERSE_SPLIT_KEYS), y, scratch, scratch.numel(),
+        0 if g_all is None else n_layers * 2 * h,
         batch, t, c, h, n_layers, kernel_size, dilation_rate, int(sigmoid_scale),
     )
     return y

@@ -57,12 +57,14 @@ def unsqueeze(
 def decoder_store_inverse(blocks: Params, n_layers: int, n_split: int):
     """Stacked block params -> (per-block inverse folds, per-block
     effective speaker-conditioning convs or None), all folded once here:
-    the s x s inverses, weight norm, and the actnorm/invconv affine."""
+    the s x s inverses, weight norm, the actnorm/invconv affine, and the
+    products' weight splits of the serving kernel."""
     n_blocks = blocks["actnorm"]["logs"].shape[0]
     folded, cond = [], []
     for i in range(n_blocks):
         bp = tree_index(blocks, i)
-        folded.append(block_cuda.fold_block_params_inverse(bp, n_layers, n_split))
+        folded.append(block_cuda.split_inverse_weights(
+            block_cuda.fold_block_params_inverse(bp, n_layers, n_split)))
         if "cond" in bp["coupling"]["wn"]:
             c = bp["coupling"]["wn"]["cond"]
             cond.append(

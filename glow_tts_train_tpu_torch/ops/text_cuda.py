@@ -25,15 +25,15 @@ Bound on the card: both stacks are small f32 GEMMs (rows = batch * t_x,
 GEMM operand (no im2col buffer) and keep one launch per GEMM and per
 LayerNorm; the backward adds per layer a weight gradient (split partial
 sums added in a fixed order, so the same bits from run to run) and a
-transposed conv.  The prenet's products run on the tensor cores (3xTF32,
+transposed conv.  Both stacks' products run on the tensor cores (3xTF32,
 split-K for the short, deep shapes of t_x <= 192) where the rows fill the
 card: every conv input is stored masked (x * mask once, then each layer's
 output times the mask), since the tensor-core kernel takes no input mask
 on a tap gather; the transposed products read the forward's weights as
 they lie, and each call takes one scratch block
-(``kernels.prenet_scratch_floats``).  A lone short sentence (b=1) and the
-duration stack stay on the CUDA cores, where latency and per-block
-occupancy, not FLOPs, bound them.
+(``kernels.prenet_scratch_floats``, ``kernels.duration_scratch_floats``).
+A lone short sentence (b=1) stays on the CUDA cores, where latency and
+per-block occupancy, not FLOPs, bound it (``tc_gemm.text_product_plan``).
 
 A ReLU whose input is within rounding of zero may open in one version
 and not in the other, and its gradient then differs by a whole term, so a
@@ -102,18 +102,6 @@ def dp_weights(params: Params) -> tuple:
         *conv(params["conv_1"]), *norm(params["norm_1"]),
         *conv(params["conv_2"]), *norm(params["norm_2"]),
     )
-
-
-def taps_transposed(w: torch.Tensor, taps: int) -> torch.Tensor:
-    """[taps * c_in, n] -> [taps * n, c_in]: per tap the transposed block
-    (the operand of the transposed conv; a layout copy)."""
-    c_in = w.shape[0] // taps
-    return w.reshape(taps, c_in, -1).transpose(1, 2).reshape(-1, c_in).contiguous()
-
-
-def wgrad_scratch(x: torch.Tensor, largest: int) -> torch.Tensor:
-    """Room for the weight gradients' split partial sums."""
-    return x.new_empty((max(1 << 22, largest),))
 
 
 def plain_grads(fn, weights: tuple, x: torch.Tensor, dout: torch.Tensor) -> tuple:
@@ -321,10 +309,10 @@ def duration_stack(
         return duration_stack_plain(weights, x, x_mask, p_dropout, seed=seed)
     batch, t, c, f, taps = _check_duration(weights, x, x_mask)
     out = x.new_empty((batch, t, f))
-    pre = x.new_empty((batch, t, f))
+    scratch = x.new_empty((kernels.duration_scratch_floats(batch, t, c, f, taps, False),))
     drop, threshold, scale = drop_args(p_dropout)
     kernels.DURATION_STACK(
-        x, x_mask, *weights, out, pre, batch, t, c, f, taps,
+        x, x_mask, *weights, out, scratch, scratch.numel(), batch, t, c, f, taps,
         drop, int(seed), threshold, scale,
     )
     return out
@@ -352,30 +340,25 @@ def duration_stack_bwd(
     """The duration stack's backward from (weights, x, mask, seed):
     recomputes the forward, then -> (dx, dw1, db1, dgamma1, dbeta1, dw2,
     db2, dgamma2, dbeta2), each shaped as its primal.  ``saves`` receives
-    the recomputed forward's gates."""
+    the recomputed forward's gates and output (``"out"``: the forward
+    kernel's bits)."""
     if kernels.route(x) == "plain":
         return duration_stack_bwd_plain(weights, x, x_mask, dout, p_dropout, seed, saves=saves)
     batch, t, c, f, taps = _check_duration(weights, x, x_mask)
     kernels.check_operands(x.device, dout=dout)
     kernels.check_shape("dout", dout, (batch, t, f))
-    w1_t = taps_transposed(weights[0], taps)
-    w2_t = taps_transposed(weights[4], taps)
     grads = tuple(torch.empty_like(a) for a in (x, *weights))
-    rows = batch * t
-    out, mid, dcur, dpre = (x.new_empty((rows, f)) for _ in range(4))
-    relu = x.new_empty((2, rows, f))
-    xhat = x.new_empty((2, rows, f))
-    rstd = x.new_empty((2, rows))
-    col_part = x.new_empty((batch, f))
-    wg_scratch = wgrad_scratch(x, taps * max(c, f) * f)
+    out = x.new_empty((batch, t, f))
+    relu = x.new_empty((2, batch, t, f))
+    scratch = x.new_empty((kernels.duration_scratch_floats(batch, t, c, f, taps, True),))
     drop, threshold, scale = drop_args(p_dropout)
     kernels.DURATION_STACK_BWD(
-        x, x_mask, *weights, w1_t, w2_t, dout, *grads,
-        out, relu, mid, xhat, rstd, dcur, dpre, col_part, wg_scratch,
-        wg_scratch.numel(), batch, t, c, f, taps, drop, int(seed), threshold, scale,
+        x, x_mask, *weights, dout, *grads, out, relu, scratch, scratch.numel(),
+        batch, t, c, f, taps, drop, int(seed), threshold, scale,
     )
     if saves is not None:
-        saves["gates"] = [relu[l].reshape(batch, t, f) > 0 for l in range(2)]
+        saves["gates"] = [relu[l] > 0 for l in range(2)]
+        saves["out"] = out
     return grads
 
 

@@ -147,9 +147,9 @@ def test_kernels_match_plain(dev, name):
     xd = torch.cat([x, torch.ones(3, 37, hp.gin_channels, device=dev)], -1)
     _close(text_cuda.duration_stack(dw, xd, mask), text_cuda.duration_stack_plain(dw, xd, mask))
     L, h = hp.n_block_layers, hp.h_dec
-    bw = block_cuda.fold_block_params_inverse(
+    bw = block_cuda.split_inverse_weights(block_cuda.fold_block_params_inverse(
         tree_index(tt["decoder"]["blocks"], 0), L, hp.n_split
-    )
+    ))
     xb = torch.randn(3, 37, 2 * hp.out_channels, device=dev) * mask
     g_all = torch.randn(3, L, 2 * h, device=dev) if hp.gin_channels else None
     args = (bw, g_all, xb, mask, hp.kernel_size_dec, hp.dilation_rate, hp.sigmoid_scale)
@@ -879,7 +879,7 @@ def test_block_kernels_on_the_tensor_cores_match_plain(dev, name):
         assert torch.equal(recomputed[n], grads[n]), n
 
     inv = block_cuda.fold_block_params_inverse(block, L, hp.n_split)
-    inv = {k: v.detach().contiguous() for k, v in inv.items()}
+    inv = block_cuda.split_inverse_weights({k: v.detach().contiguous() for k, v in inv.items()})
     inv_args = (hp.kernel_size_dec, hp.dilation_rate, hp.sigmoid_scale)
     kernels.product_counts(reset=True)
     y = block_cuda.block_inverse(inv, g_all, x, mask, *inv_args)
@@ -1026,3 +1026,153 @@ def test_encoder_layer_on_the_tensor_cores_matches_plain(dev):
     again = encoder_cuda.encoder_layer_bwd(weights, x, mask, dout, *cfg)
     for i, (g, r) in enumerate(zip(grads, again)):
         assert torch.equal(g, r), f"grad {i} differs between two runs"
+
+
+# ---------------------------------------------------------------------------
+# the serving flow block and the duration stack on the tensor cores
+# ---------------------------------------------------------------------------
+
+# (batch, t): a lone 48-phoneme request, a lone 250-phoneme one, an odd
+# length, and four requests at the longest one's length (ragged)
+SERVE_BLOCK_CASES = {
+    "b1_t160": (1, 160), "b1_t832": (1, 832), "b1_t417": (1, 417), "b4_t832_ragged": (4, 832),
+}
+
+
+def _base_inverse_fold(dev, seed=0):
+    hp = model.hyper_from_config(_config(BASE, 80))
+    tt = tree_map(lambda a: a.to(dev), _tree(hp, seed))
+    folded = block_cuda.fold_block_params_inverse(
+        tree_index(tt["decoder"]["blocks"], 0), hp.n_block_layers, hp.n_split)
+    return hp, block_cuda.split_inverse_weights({k: v.contiguous() for k, v in folded.items()})
+
+
+@pytest.mark.parametrize("g", [False, True], ids=["no_g", "g_all"])
+@pytest.mark.parametrize("name", sorted(SERVE_BLOCK_CASES))
+def test_serving_block_inverse_takes_its_plan(dev, name, g):
+    """The serving flow block at base width: each product on the tile and
+    K shares the serving plan gives it (``tc_gemm.inverse_product_plan``),
+    no weight split at call time (the weights were split at load), the
+    output within 1e-4 of the plain version's max, the same bits twice."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    hp, folded = _base_inverse_fold(dev)
+    L, h, c = hp.n_block_layers, hp.h_dec, 2 * hp.out_channels
+    batch, t = SERVE_BLOCK_CASES[name]
+    rng = np.random.default_rng(31)
+    lengths = torch.tensor([t, t // 2 + 1, 37, t - 5][:batch], device=dev)
+    mask = (torch.arange(t, device=dev)[None, :] < lengths[:, None]).float()[..., None].contiguous()
+    x = torch.from_numpy(rng.standard_normal((batch, t, c)).astype(np.float32)).to(dev)
+    x = (x * mask).contiguous()
+    g_all = None
+    if g:
+        g_all = torch.from_numpy(
+            rng.standard_normal((batch, L, 2 * h)).astype(np.float32)).to(dev)
+    args = (hp.kernel_size_dec, hp.dilation_rate, hp.sigmoid_scale)
+    kernels.product_counts(reset=True)
+    kernels.product_splits(reset=True)
+    y = block_cuda.block_inverse(folded, g_all, x, mask, *args)
+    counts = kernels.product_counts(reset=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = tc_gemm.block_inverse_products(batch * t, c, h, L, hp.kernel_size_dec, sms)
+    want = tc_gemm.plan_counts(plan)
+    assert {k: counts[k] for k in want} == want
+    assert kernels.product_splits(reset=True) == 0
+    _rel_close("block_inverse", y, block_cuda.block_inverse_plain(folded, g_all, x, mask, *args),
+               1e-4)
+    assert torch.equal(y, block_cuda.block_inverse(folded, g_all, x, mask, *args))
+
+
+def test_inverse_weight_splits_at_load_equal_the_kernels(dev):
+    """The serving weights' splits as ``store_inverse`` makes them on the
+    CPU (the plain split, then moved to the card) equal the split kernel's
+    own on the card, bit for bit, for each of the block's products."""
+    hp = model.hyper_from_config(_config(BASE, 80))
+    folded = block_cuda.fold_block_params_inverse(
+        tree_index(_tree(hp)["decoder"]["blocks"], 1), hp.n_block_layers, hp.n_split)
+    on_cpu = block_cuda.split_inverse_weights(folded)
+    on_card = block_cuda.split_inverse_weights({k: v.to(dev) for k, v in folded.items()})
+    for key in block_cuda.INVERSE_SPLIT_KEYS:
+        assert torch.equal(on_cpu[key + "_split"].to(dev), on_card[key + "_split"]), key
+
+
+# the serving chain's products alone, as it takes them: (batch, t, c_in,
+# taps, n); a lone sentence's (160 and 832 rows, an odd count) in 64- and
+# 128-row tiles and K shares as short as 64 deep
+SERVE_CONV_CASES = {
+    "start_t160": (1, 160, 80, 1, 192),
+    "in_conv_t160": (1, 160, 192, 5, 384),
+    "in_conv_t832": (1, 832, 192, 5, 384),
+    "res_skip_t832": (1, 832, 192, 1, 384),
+    "end_t417": (1, 417, 192, 1, 160),
+    "fold_t832": (1, 832, 160, 1, 160),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SERVE_CONV_CASES))
+def test_tc_serving_products_match_float64(dev, name):
+    """The conv-GEMM as the serving chain dispatches it (``mode="serve"``)
+    on the unit and tile ``inverse_product_plan`` gives, against float64 of
+    the same operands within PRODUCT_RTOL of max |ref|, its lean within
+    LEAN_RTOL on the tensor cores, the bits of the same tile and shares
+    forced (``conv_product_tiled``), the same bits twice."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    batch, t, c_in, taps, n = SERVE_CONV_CASES[name]
+    a, w, _ = _product_inputs(dev, 33, batch, t, c_in, n, taps * c_in)
+    ref = tc_gemm.im2col_plain(a, taps, 1).double() @ w.double()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tile_rows, shares = tc_gemm.inverse_product_plan(batch * t, taps * c_in, n, sms)
+    kernels.product_counts(reset=True)
+    got = tc_gemm.conv_product(a, w, taps, mode="serve")
+    counts = kernels.product_counts(reset=True)
+    assert (counts["tc_gemm"], counts["core_gemm"]) == ((1, 0) if tile_rows else (0, 1))
+    scale = ref.abs().max().item()
+    assert (got.double() - ref).abs().max().item() <= PRODUCT_RTOL * scale
+    if tile_rows:
+        assert abs(_lean(got, ref)) <= LEAN_RTOL
+        # the forced tile and share count the plan sweep runs: the same bits
+        assert torch.equal(got, tc_gemm.conv_product_tiled(a, w, taps, tile_rows, shares))
+    assert torch.equal(got, tc_gemm.conv_product(a, w, taps, mode="serve"))
+
+
+@pytest.mark.parametrize("gin", [0, 256])
+def test_duration_stack_on_the_tensor_cores_matches_plain(dev, gin):
+    """The duration stack at the training shape [16, 192] (f 256, dropout
+    0.1; with a 256-channel speaker input the first conv is [3072, 1344,
+    256]): the forward's 2 products and the backward's 4 and 2 weight
+    gradients on the tensor cores by ``tc_gemm.duration_products``; the
+    forward within 1e-5 of the plain version's max; the backward's
+    recompute equal to the forward bit for bit; every gradient within 1e-4
+    of its max of autograd of the plain version at the kernel's ReLU
+    gates; the same bits twice."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    over = dict(BASE, n_speakers=3, gin_channels=gin) if gin else BASE
+    hp = model.hyper_from_config(_config(over, 80))
+    tt = tree_map(lambda a: a.to(dev), _tree(hp, 6))
+    dw = text_cuda.dp_weights(tt["proj_w"])
+    rng = np.random.default_rng(6)
+    c, f, taps = hp.h_enc + gin, dw[0].shape[1], dw[0].shape[0] // (hp.h_enc + gin)
+    lengths = rng.integers(64, 193, size=16)
+    lengths[0], lengths[-1] = 192, 1
+    mask = (torch.arange(192, device=dev)[None, :] < torch.from_numpy(lengths).to(dev)[:, None])
+    mask = mask.float()[..., None].contiguous()
+    x = torch.from_numpy(rng.standard_normal((16, 192, c)).astype(np.float32)).to(dev)
+    dout = torch.from_numpy(rng.standard_normal((16, 192, f)).astype(np.float32)).to(dev)
+    cfg = (0.1, 2 ** 31 - 9)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    kernels.product_counts(reset=True)
+    out = text_cuda.duration_stack(dw, x, mask, *cfg)
+    assert kernels.product_counts(reset=True) == tc_gemm.duration_products(
+        16 * 192, c, f, taps, sms, forward=1, backward=0)
+    saves = {}
+    text_cuda.duration_stack_bwd(dw, x, mask, dout, *cfg, saves=saves)
+    assert kernels.product_counts(reset=True) == tc_gemm.duration_products(
+        16 * 192, c, f, taps, sms, forward=0, backward=1)
+    assert torch.equal(saves["out"], out)
+    _check_text_kernel(
+        "duration_stack", text_cuda.duration_stack,
+        lambda w, a, m, p, s: text_cuda.duration_stack_plain(w, a, m, p, seed=s),
+        text_cuda.duration_stack_bwd, text_cuda.duration_stack_bwd_plain, dw, x, mask, dout, cfg,
+    )
