@@ -77,7 +77,13 @@ Phases, each fatal on failure:
 10. holds each of those kernels against its plain version on the inputs
     the runs recorded in their last step, a recompute backward also
     against the store backward on the same inputs (equal bits), and times
-    them;
+    them; the four backwards of the flow decoder (rows 7, 8, 11, 12: the WN
+    reverse walk alone or in the block) are held to their plan
+    (``tc_gemm.walk_products``: device operations a call and products, the
+    tap-staged transposed convs, the bias rows, dW_in from d_xin's split),
+    and a profiled ``wn_bwd_store`` call gives the device time of one
+    layer's four walk products (``product wn_walk`` lines) and fails the run
+    if a weight split (beyond the call's one) or a column sum runs in it;
 11. times the train step and reads its peak device memory in the four
     decoder configurations, from one init in one process, in turns, and
     holds the four loss trajectories together as in 9.
@@ -1046,7 +1052,8 @@ def profile_step(last: dict, device_line: str, model) -> dict:
     wall_ms, by_kernel, launches = profiled(step)
     busy_ms = sum(by_kernel.values())
     tc = {name: sum(v for k, v in by_kernel.items() if name in k)
-          for name in ("conv_gemm_tc_kernel", "wgrad_tc_kernel", "split_weights_kernel",
+          for name in ("conv_gemm_tc_kernel", "conv_gemm_tap_kernel", "wgrad_tc_kernel",
+                       "wgrad_tc_split_kernel", "wgrad_reduce_kernel", "split_weights_kernel",
                        "conv_gemm_kernel", "wgrad_kernel", "col_sum_kernel")}
     block = sum(tc.values())
     attention = sum(v for k, v in by_kernel.items()
@@ -1163,7 +1170,7 @@ def encoder_products(rows: int, h: int, f: int, taps: int, forward: int, backwar
     fwd = ((h, 3 * h), (h, h), (taps * h, f), (taps * f, h))
     bwd = fwd + ((taps * h, f), (taps * f, h), (h, h), (3 * h, h))
     counts = dict(tc_gemm=0, tc_wgrad=0, core_gemm=0, core_wgrad=0,
-                  declined_gemm=0, declined_wgrad=0)
+                  declined_gemm=0, declined_wgrad=0, **tc_gemm.WALK_MODES_NONE)
     for chains, products in ((forward, fwd), (backward, bwd)):
         for k, n in products:
             on = tc_gemm.text_product_plan(rows, k, n, sms)[0]
@@ -1206,7 +1213,8 @@ def held_inverse_plan(name: str, args, roof: dict) -> dict:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plan = tc_gemm.block_inverse_products(
         x.shape[0] * x.shape[1], x.shape[2], h2 // 2, n_layers, kh * 2 // h2, sms)
-    want = dict(tc_gemm.plan_counts(plan), tc_wgrad=0, core_wgrad=0, declined_wgrad=0)
+    want = dict(tc_gemm.plan_counts(plan), tc_wgrad=0, core_wgrad=0, declined_wgrad=0,
+                **tc_gemm.WALK_MODES_NONE)
     if roof["products"] != want:
         fail(f"{name} {list(x.shape)}: device products {roof['products']}, expected {want} "
              f"by the plan {plan}")
@@ -1273,6 +1281,130 @@ def duration_products(rows: int, weights: tuple, forward: int, backward: int) ->
     taps = w2.shape[0] // f
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return tc_gemm.duration_products(rows, w1.shape[0] // taps, f, taps, sms, forward, backward)
+
+
+def held_walk_plan(name: str, fn, roof: dict, rows: int, c: int, folded_in, taps: int,
+                   rate: int, recompute: bool, with_g: bool) -> dict:
+    """A backward of the flow decoder (the WN walk alone, c 0, or in the
+    block) against its plan (``tc_gemm.walk_products`` on this card's SMs):
+    its product counts (``roof``, from the call ``bound`` made) and the
+    device operations of one call of ``fn`` (``bracketed_trace``) -> the
+    plan, with ``device_ms``: the call's device time in that trace."""
+    import torch
+
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    n_layers, kh, h2 = folded_in.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = tc_gemm.walk_products(rows, c, h2 // 2, n_layers, taps, rate, sms, recompute, with_g)
+    if roof["products"] != plan["counts"]:
+        fail(f"{name}: device products {roof['products']}, expected {plan['counts']} by its plan")
+    ops = bracketed_trace(fn, calls=1)
+    if len(ops) != plan["launches"]:
+        fail(f"{name}: {len(ops)} device operations a call, expected {plan['launches']} by its "
+             f"plan: {[n[:60] for n, _ in ops]}")
+    on_device = sum(us for _, us in ops) / 1e3
+    print(f"kernel {name}: {len(ops)} device operations a call as its plan has them, "
+          f"{on_device:.4f} ms on the device")
+    return dict(plan, device_ms=on_device)
+
+
+def bracketed_trace(fn, calls: int) -> list:
+    """The device operations of ``calls`` calls of ``fn`` in launch order,
+    [(name, device us)], from one trace under torch.profiler in which they
+    stand between spin kernels (``torch.cuda._sleep``), 16 launched before
+    the calls and 16 after.  Traces late in this script come back short of
+    records at an edge (1 to 4 seen, the first or the last ones), so a
+    trace counts only where a spin kernel is left on each side of the
+    calls' operations (up to 4 are taken)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    seen = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(16):
+                torch.cuda._sleep(1000)
+            for _ in range(calls):
+                fn()
+            for _ in range(16):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        ops = sorted((e for e in prof.events() if e.device_type.name == "CUDA"),
+                     key=lambda e: e.time_range.start)
+        spin = ["spin" in e.name for e in ops]
+        inner = [i for i, is_spin in enumerate(spin) if not is_spin]
+        if inner and any(spin[:inner[0]]) and any(spin[inner[-1]:]):
+            if not any(spin[inner[0]:inner[-1]]):
+                return [(ops[i].name, ops[i].time_range.elapsed_us()) for i in inner]
+        seen.append((sum(spin[:inner[0]]) if inner else sum(spin), len(inner),
+                     sum(spin[inner[-1]:]) if inner else 0))
+    fail("bracketed trace: no trace of 4 held a spin kernel on each side of the calls' operations "
+         f"(spins before, operations, spins after): {seen}")
+
+
+def walk_trace(fn, operations: int, calls: int = 3) -> list:
+    """``calls`` calls of ``fn`` in one bracketed trace -> each call's
+    device operations in launch order, [(name, device us)] a call.  Fails
+    unless each call holds ``operations`` of them, its one weight-split
+    launch first and no column sum."""
+    ops = bracketed_trace(fn, calls)
+    if len(ops) != calls * operations:
+        fail(f"walk trace: {len(ops)} device operations in {calls} calls, {operations} a call "
+             "expected")
+    per_call = [ops[i * operations:(i + 1) * operations] for i in range(calls)]
+    for call in per_call:
+        splits = [i for i, (n, _) in enumerate(call) if "split_weights_kernel" in n]
+        if splits != [0]:
+            fail(f"walk trace: weight split launches at {splits} of a call's operations "
+                 "(one, first, expected)")
+        if any("col_sum_kernel" in n for n, _ in call):
+            fail("walk trace: a column-sum launch inside the walk without dg")
+    return per_call
+
+
+# the walk's products by the device kernel each launches (a second pass
+# belongs to the weight gradient before it)
+WALK_KERNELS = (("conv_gemm_tap_kernel", "transposed_conv"), ("conv_gemm_tc_kernel", "gate_bwd"),
+                ("wgrad_tc_split_kernel", "dW_in"), ("wgrad_tc_kernel", "dW_rs"))
+
+
+def walk_product_lines(fn, plan: dict, n_layers: int, device_line: str) -> dict:
+    """One layer's four walk products of a ``wn_bwd_store`` call (no dg) by
+    the device's own time, from a trace of 3 calls in launch order: the
+    transposed conv (its mode and tile), dW_in and dW_rs with their bias
+    rows and second passes, the gate backward.  Fails if the call splits a
+    weight beyond its one split launch or runs a column sum."""
+    calls = walk_trace(fn, plan["launches"])
+    total = {k: 0.0 for _, k in WALK_KERNELS}
+    for ops in calls:
+        last = None
+        for name, us in ops:
+            kind = next((k for key, k in WALK_KERNELS if key in name), None)
+            if kind is not None:
+                last = kind
+            elif "wgrad_reduce_kernel" in name and last in ("dW_in", "dW_rs"):
+                kind = last
+            if kind is not None:
+                total[kind] += us
+    per_layer = {k: v / (len(calls) * n_layers) for k, v in total.items()}
+    by_name = {p["name"].rsplit("_", 1)[0]: p for p in plan["products"]}
+    rows = {}
+    for kind, us in per_layer.items():
+        p = by_name["transposed" if kind == "transposed_conv" else
+                    "gate" if kind == "gate_bwd" else kind]
+        flops = 2.0 * math.prod(p["shape"])  # [rows, K, N] or [K, rows, N]
+        rows[kind] = {"shape": p["shape"], "mode": p["mode"], "tile_rows": p["tile_rows"],
+                      "splits": p["splits"], "bias_row": p["bias"], "device_us": us,
+                      "tflops": flops / us / 1e6, "bound_us": flops / PEAK_3XTF32_FLOPS * 1e6}
+        print(f"product wn_walk {kind}: {p['shape']} {p['mode']}, {p['tile_rows']}-row tiles"
+              f"{', bias row' if p['bias'] else ''}"
+              f"{', %d row splits' % p['splits'] if p['kind'] == 'wgrad' else ''}: "
+              f"{us:.1f} us on the device a layer = {rows[kind]['tflops']:.1f} TFLOP/s, bound "
+              f"{rows[kind]['bound_us']:.1f} us at 165 TFLOP/s [{device_line}]")
+    return rows
 
 
 def held_products(name: str, roof: dict, forward: int, backward: int, n_layers: int) -> None:
@@ -1350,8 +1482,12 @@ def training_kernels(recorders: dict, launches: dict, device_line: str) -> tuple
     plain_ms = time_ms(lambda: torch.autograd.grad(loss, inputs, retain_graph=True), (), {})
     roof = bound("block_bwd_store", args, kwargs, grads, block_cuda.block_bwd_store)
     held_products("block_bwd_store", roof, n_layers=folded["W_in"].shape[0], forward=0, backward=1)
+    plan = held_walk_plan("block_bwd_store", lambda: block_cuda.block_bwd_store(*args, **kwargs),
+                          roof, x.shape[0] * x.shape[1], x.shape[2], folded["W_in"], cfg[0], cfg[1],
+                          recompute=False, with_g=with_g)
     entry("block_bwd_store", dx_err, dx_scale, ms, plain_ms, list(x.shape), roof,
-          worst_rel_err_grad=worst,
+          device_operations_plan=plan["launches"],
+          device_ms_whole_traces=plan["device_ms"], worst_rel_err_grad=worst,
           max_abs_w_e=folded["W_e"].abs().max().item())
 
     # MAS, bit for bit: the training shape, then a long one the TPU streams
@@ -1700,9 +1836,14 @@ def decoder_mode_kernels(recorders: dict, launches_by_mode: dict, device_line: s
         if not torch.equal(grads[n], store[n]):
             fail(f"block_bwd: {n} differs from the store backward's bits")
     dx_err, dx_scale = rel_err("block_bwd dx", grads["dx"], ref[0], KERNEL_RTOL)
+    roof = bound("block_bwd", args, kwargs, grads, block_cuda.block_bwd)
+    plan = held_walk_plan("block_bwd", lambda: block_cuda.block_bwd(*args, **kwargs), roof,
+                          x.shape[0] * x.shape[1], x.shape[2], folded["W_in"], cfg[0], cfg[1],
+                          recompute=True, with_g=False)
     entry("block_bwd", dx_err, dx_scale, time_ms(block_cuda.block_bwd, args, kwargs),
           time_ms(lambda: torch.autograd.grad(loss, inputs, retain_graph=True), (), {}),
-          list(x.shape), bound("block_bwd", args, kwargs, grads, block_cuda.block_bwd), p_dropout=cfg[3],
+          list(x.shape), roof, p_dropout=cfg[3], device_operations_plan=plan["launches"],
+          device_ms_whole_traces=plan["device_ms"],
           worst_rel_err_grad=worst, equals_store=True,
           store_ms=time_ms(block_cuda.block_bwd_store,
                            (folded, False, x, x_mask, saves, dz, dld, *cfg), {}))
@@ -1751,10 +1892,17 @@ def decoder_mode_kernels(recorders: dict, launches_by_mode: dict, device_line: s
     if not all(torch.equal(grads[n], again[n]) for n in names):
         fail("wn_bwd_store: two runs gave different bits")
     dx_err, dx_scale = rel_err("wn_bwd_store dx", grads["dx"], ref[0], KERNEL_RTOL)
+    roof = bound("wn_bwd_store", args, kwargs, grads, wn_cuda.wn_bwd_store)
+    plan = held_walk_plan("wn_bwd_store", lambda: wn_cuda.wn_bwd_store(*args, **kwargs), roof,
+                          x.shape[0] * x.shape[1], 0, wn[0], cfg[0], cfg[1], recompute=False,
+                          with_g=False)
+    walk = walk_product_lines(lambda: wn_cuda.wn_bwd_store(*args, **kwargs), plan, wn[0].shape[0],
+                              device_line)
     entry("wn_bwd_store", dx_err, dx_scale, time_ms(wn_cuda.wn_bwd_store, args, kwargs),
           time_ms(lambda: torch.autograd.grad(loss, inputs, retain_graph=True), (), {}),
-          list(x.shape), bound("wn_bwd_store", args, kwargs, grads, wn_cuda.wn_bwd_store), p_dropout=cfg[2],
-          worst_rel_err_grad=worst, same_bits_twice=True)
+          list(x.shape), roof, p_dropout=cfg[2], device_operations_plan=plan["launches"],
+          device_ms_whole_traces=plan["device_ms"],
+          walk_products=walk, worst_rel_err_grad=worst, same_bits_twice=True)
     del saves, grads, again, loss, inputs, ref
 
     # ---- WN forward with dropout (the forward of recompute mode) ----
@@ -1785,9 +1933,14 @@ def decoder_mode_kernels(recorders: dict, launches_by_mode: dict, device_line: s
         if not torch.equal(grads[n], store[n]):
             fail(f"wn_bwd: {n} differs from the store backward's bits")
     dx_err, dx_scale = rel_err("wn_bwd dx", grads["dx"], ref[0], KERNEL_RTOL)
+    roof = bound("wn_bwd", args, kwargs, grads, wn_cuda.wn_bwd)
+    plan = held_walk_plan("wn_bwd", lambda: wn_cuda.wn_bwd(*args, **kwargs), roof,
+                          x.shape[0] * x.shape[1], 0, wn[0], cfg[0], cfg[1], recompute=True,
+                          with_g=False)
     entry("wn_bwd", dx_err, dx_scale, time_ms(wn_cuda.wn_bwd, args, kwargs),
           time_ms(lambda: torch.autograd.grad(loss, inputs, retain_graph=True), (), {}),
-          list(x.shape), bound("wn_bwd", args, kwargs, grads, wn_cuda.wn_bwd), p_dropout=cfg[2],
+          list(x.shape), roof, p_dropout=cfg[2], device_operations_plan=plan["launches"],
+          device_ms_whole_traces=plan["device_ms"],
           worst_rel_err_grad=worst, equals_store=True)
     return report
 

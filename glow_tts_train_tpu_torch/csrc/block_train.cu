@@ -13,7 +13,7 @@
 // of _layer_fwd, _reverse_walk and _block_bwd_math: the forward chain
 // (with or without the saves), the WN reverse walk, and the block backward
 // around it.  A recompute backward runs the forward-save chain into scratch
-// and then the store backward's chain: the same launches on the same
+// and then the store backward's chain: the same products on the same
 // inputs as store mode, so its gradients are store mode's bit for bit.
 //
 // Forward of one block (per row of the [batch * t, c] activations):
@@ -34,21 +34,44 @@
 //
 // Backward (the TPU kernel's order): the end conv's logs are rebuilt from
 // skipm with one GEMM whose epilogue is the coupling backward (dm, dlogs
-// with dld, dx1); dW_e, db_e; dskip = (dout @ W_e^T) * mask; then the WN
+// with dld, dx1); dW_e and db_e; dskip = (dout @ W_e^T) * mask; then the WN
 // reverse walk from layer L-1 down, per layer
 //
 //   da      = [gx * mask | dskip] @ W_rs^T  -> gate backward in the epilogue
-//             (d_in_act, d_xin = drop(d_in_act), acts = th * sg)
-//   dW_rs  += acts^T [gx * mask | dskip];  db_rs, dg (per sample), db_in
-//   dW_in  += im2col(xs[l])^T d_xin
+//             (d_xin = drop(d_in_act), acts = th * sg; d_in_act only for
+//             the conditioned model's dg, per-sample sums)
+//   dW_rs, db_rs = [acts | 1]^T [gx * mask | dskip]
+//   dW_in, db_in = [im2col(xs[l]) | 1]^T d_xin
 //   gx      = gx * mask + sum_k d_xin[t - off_k] W_k^T   (transposed conv)
 //
 // then the start conv (dW_s, db_s, dx0 = dz0 + (gx * mask) @ W_s^T) and the
-// folded A (dA = x^T dzp, dbA, dx = dzp @ A^T).  The transposed products
-// read weights the wrapper laid out transposed (per tap for W_in).  Weight
-// gradients reduce over all rows by split partial sums and a second pass in
-// a fixed order, bias gradients by per-sample column sums: no float
-// atomics, so a gradient is the same bits from run to run.
+// folded A (dA, dbA, dx = dzp @ A^T).
+//
+// The backward's design (the WN walk's; the block chain takes it by
+// calling the walk):
+//  * Weights as the forward holds them.  Every transposed product (W_rs^T,
+//    W_in^T per tap, W_e^T, W_s^T, A^T) reads the forward's weights through
+//    ConvGemm::w_t, and the K-major 3xTF32 splits of all of a call's
+//    products, a recompute's forward ones included, are made in one
+//    presplit_weights launch at its start: no layout copy on the host, no
+//    split launch inside the chain.
+//  * Bias gradients inside the weight-gradient products.  A bias gradient
+//    is the weight gradient of an input column of ones (WGrad::bias_out):
+//    the tensor-core kernel fills one spare im2col column with ones and
+//    writes that output row, through its own split-ordered second pass, to
+//    the bias gradient.  No column-sum launch and no second read of g_rs,
+//    d_xin, dout, gx or dzp; the gate backward writes d_in_act only for dg.
+//  * The transposed conv stages A once for all taps (conv_gemm_tap_kernel,
+//    ConvGemm::tap_staged): K walked channel slice outer and tap inner, a
+//    tile's rows and their dilated halo copied once a channel slice.
+//  * dW_in reads d_xin's K-major split (WGrad::dy_t), which the gate
+//    backward's epilogue writes beside d_xin (ConvGemm::out4), as the
+//    conv-GEMM reads its weights: no transposition and no split of dY in
+//    the weight-gradient kernel.
+// Weight gradients reduce over all rows by split partial sums and a second
+// pass in a fixed order: no float atomics, so a gradient is the same bits
+// from run to run.  Every buffer of a backward call comes from the caller's
+// one scratch block (bwd_scratch).
 //
 // Bound on the card: the operations of the in-layer conv products
 // (forward one, backward three per layer at K = 5 * 192, N = 384).  Every
@@ -65,10 +88,12 @@
 // sample's block and its weight-gradient accumulators in VMEM; here every
 // product streams its operands through L2 and only the [rows, h] /
 // [rows, 2h] activations and the saved residuals reach device memory.  A
-// forward call brings scratch for the weights' K-major split; a backward
-// shares its weight-gradient scratch with it (the launches are in stream
-// order, each product's split written just before its GEMM reads it).
+// forward call brings scratch for the weights' K-major split, each
+// product's split written just before its GEMM reads it.
 #include <cuda_runtime.h>
+
+#include <algorithm>
+#include <vector>
 
 #include "common.cuh"
 
@@ -134,9 +159,50 @@ WnLayers wn_stack(const Dims& d, const WnWeights& w, const float* mask, float* x
   return a;
 }
 
-// Forward of one block.  With saves (th set) xs / th / sg are layer-major
-// [L, rows, h]; without, xs is the [rows, h] WN state.  zp may be z itself
-// (nothing kept); z null stops after skipm (a backward's recompute).
+// The WN stack's 2L products in order (wn_layers' launches).
+void wn_products(const WnLayers& a, std::vector<ConvGemm>* out) {
+  int dilation = 1;
+  for (int l = 0; l < a.n_layers; ++l) {
+    ConvGemm in, rs;
+    wn_layer_products(a, l, dilation, &in, &rs);
+    out->push_back(in);
+    out->push_back(rs);
+    dilation *= a.dilation_rate;
+  }
+}
+
+int run_products(const std::vector<ConvGemm>& gs, cudaStream_t stream) {
+  for (const ConvGemm& g : gs) GTT_TRY(conv_gemm(g, stream));
+  return 0;
+}
+
+void add_products(std::vector<ConvGemm*>* list, std::vector<ConvGemm>* gs) {
+  for (ConvGemm& g : *gs) list->push_back(&g);
+}
+
+// The block forward's products up to skipm: zp = (x @ A + bA) * mask, xs[0]
+// = (x0 @ W_s + b_s) * mask, the WN layers (skipm = skip * mask once the
+// sum is complete).  With saves (th set) xs / th / sg are layer-major [L,
+// rows, h]; without, xs is the [rows, h] WN state.
+void block_fwd_products(const Dims& d, const float* x, const float* mask, const float* a,
+                        const float* ba, const float* w_s, const float* b_s,
+                        const WnWeights& wn, float* zp, float* skipm, float* xs, float* th,
+                        float* sg, float* acts, std::vector<ConvGemm>* out) {
+  const int c = d.c, h = d.h;
+  {
+    // On the CUDA cores: a tensor-core product is short by about 1e-7 of
+    // each output (its accumulator rounds toward zero), all outputs alike,
+    // and the ActNorm scale's gradient is the small difference of sum(z^2)
+    // and the frame count, which turns that into 1e-3 of the gradient.
+    ConvGemm g = rows_gemm(d, x, c, c, a, ba, c, kBiasMask, zp, c, mask);
+    g.tc_scratch = nullptr;
+    out->push_back(g);
+  }
+  out->push_back(rows_gemm(d, zp, c, c / 2, w_s, b_s, h, kBiasMask, xs, h, mask));
+  wn_products(wn_stack(d, wn, mask, xs, th, sg, acts, skipm, 1), out);
+}
+
+// Forward of one block.  zp may be z itself (nothing kept).
 int block_fwd_chain(const Dims& d, const float* x, const float* mask,
                     const float* a, const float* ba, const float* w_s,
                     const float* b_s, const float* w_e, const float* b_e,
@@ -147,21 +213,12 @@ int block_fwd_chain(const Dims& d, const float* x, const float* mask,
   const int batch = d.batch, t = d.t, c = d.c, h = d.h;
   const int rows = batch * t;
   const int c2 = c / 2;
-  // zp = (x @ A + bA) * mask
+  std::vector<ConvGemm> fwd;
+  block_fwd_products(d, x, mask, a, ba, w_s, b_s, wn, zp, skipm, xs, th, sg, acts, &fwd);
   {
-    // On the CUDA cores: a tensor-core product is short by about 1e-7 of
-    // each output (its accumulator rounds toward zero), all outputs alike,
-    // and the ActNorm scale's gradient is the small difference of sum(z^2)
-    // and the frame count, which turns that into 1e-3 of the gradient.
-    ConvGemm g = rows_gemm(d, x, c, c, a, ba, c, kBiasMask, zp, c, mask);
-    g.tc_scratch = nullptr;
-    GTT_TRY(conv_gemm(g, stream));
+    const int err = run_products(fwd, stream);
+    if (err != 0) return err;
   }
-  // xs[0] = (x0 @ W_s + b_s) * mask
-  GTT_TRY(conv_gemm(rows_gemm(d, zp, c, c2, w_s, b_s, h, kBiasMask, xs, h, mask), stream));
-  // skipm = skip * mask once the sum is complete
-  GTT_TRY(wn_layers(wn_stack(d, wn, mask, xs, th, sg, acts, skipm, 1), stream));
-  if (z == nullptr) return (int)cudaGetLastError();
   // z = [x0 | (m + e^logs * x1) * mask], logsm = logs * mask
   if (z != zp)
     GTT_TRY(cudaMemcpyAsync(z, zp, sizeof(float) * rows * c, cudaMemcpyDeviceToDevice, stream));
@@ -174,125 +231,242 @@ int block_fwd_chain(const Dims& d, const float* x, const float* mask,
   return (int)cudaGetLastError();
 }
 
-// Operands of the WN reverse walk (wn_pallas._reverse_walk).  On entry
-// g_rs [rows, 2h] holds zeros in its residual half and the skip cotangent
-// in its skip half, and gx [rows, h] zeros; on return gx holds the
-// stack-input cotangent g_x * mask + dx_conv of layer 0 (not masked again).
+long round4(long floats) { return (floats + 3) / 4 * 4; }
+
+// Every buffer of one backward call, carved from the caller's one block
+// (bwd_scratch): the walk's res/skip cotangent g_rs, d_in_act (dia, for dg
+// only), d_xin and its K-major split (big [2h, ldt], small after it), the
+// gate product acts, the weight gradients' split partial sums (wg, also
+// what a product would split its own weights into: none does) and the
+// K-major splits of every product's weights; the block's dout, dzp [rows,
+// c] and the stack-input cotangent gx [rows, h]; a recompute's forward
+// residuals xs / th / sg [L, rows, h] and the block's zp [rows, c] and
+// skipm [rows, h].
+struct BwdScratch {
+  float *g_rs = nullptr, *dia = nullptr, *dxin = nullptr, *dxin_t = nullptr, *acts = nullptr;
+  float *wg = nullptr, *splits = nullptr;
+  long ldt = 0, wg_floats = 0, split_floats = 0;
+  float *dout = nullptr, *dzp = nullptr, *gx = nullptr;
+  float *xs = nullptr, *th = nullptr, *sg = nullptr, *zp = nullptr, *skipm = nullptr;
+};
+
+// c 0: the WN stack alone.
+long bwd_scratch(float* base, int batch, int t, int c, int h, int n_layers, int taps,
+                 bool recompute, bool with_g, BwdScratch* s) {
+  const long rows = (long)batch * t;
+  const long h2 = 2L * h, c2 = c / 2, L = n_layers;
+  long used = 0;
+  auto take = [&](float*& p, long floats) {
+    p = base ? base + used : nullptr;
+    used += round4(floats);
+  };
+  s->ldt = round4(rows);
+  // the splits, product by product as presplit_weights lays them out
+  long splits = L * (round4(2 * h2 * h) + round4(2 * taps * h2 * h));
+  if (recompute) splits += L * (round4(2 * taps * h * h2) + round4(2 * h * h2));
+  if (c > 0) {
+    splits += round4(2 * h * c2) + round4(2L * c * h) + round4(2 * h * c2) + round4(2L * c * c);
+    if (recompute) splits += round4(2 * c2 * h);
+  }
+  s->split_floats = splits;
+  s->wg_floats = std::max(1L << 22, 2L * (taps * h + 1) * h2);
+  take(s->g_rs, rows * h2);
+  if (with_g) take(s->dia, rows * h2);
+  take(s->dxin, rows * h2);
+  take(s->dxin_t, 2 * h2 * s->ldt);
+  take(s->acts, rows * h);
+  take(s->wg, s->wg_floats);
+  take(s->splits, s->split_floats);
+  if (c > 0) {
+    take(s->dout, rows * c);
+    take(s->dzp, rows * c);
+    take(s->gx, rows * h);
+  }
+  if (recompute) {
+    take(s->xs, L * rows * h);
+    take(s->th, L * rows * h);
+    take(s->sg, L * rows * h);
+    if (c > 0) {
+      take(s->zp, rows * c);
+      take(s->skipm, rows * h);
+    }
+  }
+  return used;
+}
+
+// Operands of the WN reverse walk (wn_pallas._reverse_walk): the forward's
+// weights and residuals, the stack-input cotangent gx [rows, h] (on return
+// g_x * mask + dx_conv of layer 0, not masked again) and the gradients.
 struct WnWalk {
-  const float *mask, *w_in_t, *w_rs_t, *xs, *th, *sg;
-  float *g_rs, *dia, *dxin, *acts, *gx, *col_part, *wg_scratch;
-  long wg_scratch_floats;
+  const float *mask, *w_in, *w_rs, *xs, *th, *sg;
+  float* gx;
   float *dwin, *dbin, *dwrs, *dbrs, *dg;  // dg null: unconditioned
 };
 
-int wn_reverse_walk(const Dims& d, const WnWalk& w, cudaStream_t stream) {
-  const int batch = d.batch, t = d.t, h = d.h, taps = d.taps;
-  const int h2 = 2 * h;
+// The walk's products, by layer: the gate backward and the transposed conv
+// (conv-GEMMs, their weights split by the call's presplit_weights) and the
+// two weight gradients with their bias rows.
+struct WalkProducts {
+  std::vector<ConvGemm> gate, tconv;
+  std::vector<WGrad> drs, din;
+};
+
+cudaError_t walk_products(const Dims& d, const WnWalk& w, const BwdScratch& s, WalkProducts* p) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int batch = d.batch, t = d.t, h = d.h, taps = d.taps, h2 = 2 * h;
   const long rh = (long)batch * t * h;
   int dilation = 1;
-  for (int l = 0; l < d.n_layers - 1; ++l) dilation *= d.dilation_rate;
-  for (int l = d.n_layers - 1; l >= 0; --l) {
-    {  // da = g_rs @ W_rs^T, gate backward in the epilogue
-      ConvGemm g = rows_gemm(d, w.g_rs, h2, h2, w.w_rs_t + (long)l * h2 * h,
-                             nullptr, h, kGateBwd, w.dia, h2, nullptr);
+  for (int l = 0; l < d.n_layers; ++l) {
+    {  // da = g_rs @ W_rs^T, the gate backward in the epilogue
+      ConvGemm g = rows_gemm(d, s.g_rs, h2, h2, w.w_rs + (long)l * h * h2, nullptr, h, kGateBwd,
+                             w.dg ? s.dia : nullptr, h2, nullptr);
+      g.w_t = 1;
       g.split = h; g.aux = w.th + l * rh; g.aux2 = w.sg + l * rh; g.ld_aux = h;
-      g.out2 = w.dxin; g.ldo2 = h2; g.out3 = w.acts; g.ldo3 = h;
+      g.out2 = s.dxin; g.ldo2 = h2; g.out3 = s.acts; g.ldo3 = h;
       g.drop = d.drop.at(l);
-      GTT_TRY(conv_gemm(g, stream));
-    }
-    GTT_TRY(wgrad(wgrad_of(w.acts, h, h, batch, t, w.g_rs, h2, h2,
-                           w.dwrs + (long)l * h * h2, w.wg_scratch, w.wg_scratch_floats),
-                  stream));
-    GTT_TRY(bias_grad(w.g_rs, h2, h2, nullptr, batch, t, w.col_part, w.dbrs + l * h2, stream));
-    if (w.dg)
-      GTT_TRY(col_sum(w.dia, h2, h2, nullptr, batch, t, w.dg + l * h2, d.n_layers * h2, stream));
-    GTT_TRY(bias_grad(w.dxin, h2, h2, nullptr, batch, t, w.col_part, w.dbin + l * h2, stream));
-    {
-      WGrad g = wgrad_of(w.xs + l * rh, h, h, batch, t, w.dxin, h2, h2,
-                         w.dwin + (long)l * taps * h * h2, w.wg_scratch, w.wg_scratch_floats);
-      g.taps = taps; g.dilation = dilation;
-      GTT_TRY(wgrad(g, stream));
+      p->gate.push_back(g);
     }
     {  // gx = gx * mask + transposed conv of d_xin; g_rs[:, :h] = gx * mask
-      ConvGemm g = rows_gemm(d, w.dxin, h2, h2, w.w_in_t + (long)l * taps * h2 * h,
-                             nullptr, h, kAccumMask, w.gx, h, w.mask);
-      g.taps = taps; g.dilation = dilation; g.tap_sign = -1;
-      g.out2 = w.g_rs; g.ldo2 = h2;
-      GTT_TRY(conv_gemm(g, stream));
+      ConvGemm g = rows_gemm(d, s.dxin, h2, h2, w.w_in + (long)l * taps * h * h2, nullptr, h,
+                             kAccumMask, w.gx, h, w.mask);
+      g.w_t = 1; g.taps = taps; g.dilation = dilation; g.tap_sign = -1; g.tap_staged = 1;
+      g.out2 = s.g_rs; g.ldo2 = h2;
+      p->tconv.push_back(g);
     }
-    if (d.dilation_rate > 0) dilation /= d.dilation_rate;
+    WGrad rs = wgrad_of(s.acts, h, h, batch, t, s.g_rs, h2, h2, w.dwrs + (long)l * h * h2,
+                        s.wg, s.wg_floats);
+    rs.bias_out = w.dbrs + l * h2;
+    p->drs.push_back(rs);
+    WGrad in = wgrad_of(w.xs + l * rh, h, h, batch, t, s.dxin, h2, h2,
+                        w.dwin + (long)l * taps * h * h2, s.wg, s.wg_floats);
+    in.taps = taps; in.dilation = dilation; in.bias_out = w.dbin + l * h2;
+    p->din.push_back(in);
+    dilation *= d.dilation_rate;
+  }
+  // dW_in from d_xin's K-major split where the gate backward that writes it
+  // and dW_in both take the tensor cores: at [960, 11264, 384] 123 us on
+  // the device against 162 reading d_xin raw (scripts/torch-wn-walk-sweep.py,
+  // PERF.md)
+  for (int l = 0; l < d.n_layers; ++l) {
+    ConvGemm g = p->gate[l];
+    g.out4 = s.dxin_t; g.ldo4 = s.ldt;
+    WGrad in = p->din[l];
+    in.dy_t = s.dxin_t; in.ldt = s.ldt;
+    if (conv_gemm_tc_fits(g, sms) && wgrad_tc_fits(in)) {
+      p->gate[l] = g;
+      p->din[l] = in;
+    }
+  }
+  return cudaSuccess;
+}
+
+int wn_reverse_walk(const Dims& d, const WnWalk& w, const BwdScratch& s, const WalkProducts& p,
+                    cudaStream_t stream) {
+  const int h2 = 2 * d.h;
+  for (int l = d.n_layers - 1; l >= 0; --l) {
+    GTT_TRY(conv_gemm(p.gate[l], stream));
+    GTT_TRY(wgrad(p.drs[l], stream));
+    if (w.dg)
+      GTT_TRY(col_sum(s.dia, h2, h2, nullptr, d.batch, d.t, w.dg + l * h2, d.n_layers * h2,
+                      stream));
+    GTT_TRY(wgrad(p.din[l], stream));
+    GTT_TRY(conv_gemm(p.tconv[l], stream));
   }
   return (int)cudaGetLastError();
 }
 
 // The WN stack's backward from per-layer residuals: dout [rows, h] is the
-// skip sum's cotangent, w.gx the returned dx.
-int wn_bwd_chain(const Dims& d, const WnWalk& w, const float* dout, cudaStream_t stream) {
+// skip sum's cotangent into g_rs's skip half; w.gx the returned dx.
+int wn_bwd_chain(const Dims& d, const WnWalk& w, const BwdScratch& s, const WalkProducts& p,
+                 const float* dout, cudaStream_t stream) {
   const int rows = d.batch * d.t;
   const int h = d.h;
-  GTT_TRY(cudaMemsetAsync(w.g_rs, 0, sizeof(float) * rows * 2 * h, stream));
+  GTT_TRY(cudaMemsetAsync(s.g_rs, 0, sizeof(float) * rows * 2 * h, stream));
   GTT_TRY(cudaMemsetAsync(w.gx, 0, sizeof(float) * rows * h, stream));
-  GTT_TRY(cudaMemcpy2DAsync(w.g_rs + h, sizeof(float) * 2 * h, dout, sizeof(float) * h,
+  GTT_TRY(cudaMemcpy2DAsync(s.g_rs + h, sizeof(float) * 2 * h, dout, sizeof(float) * h,
                             sizeof(float) * h, rows, cudaMemcpyDeviceToDevice, stream));
-  return wn_reverse_walk(d, w, stream);
+  return wn_reverse_walk(d, w, s, p, stream);
 }
 
-// Backward of one block from zp, skipm and the WN residuals (the math of
-// block_pallas._block_bwd_math).
-int block_bwd_chain(const Dims& d, const WnWalk& w, const float* x, const float* w_e,
-                    const float* b_e, const float* a_t, const float* w_s_t,
-                    const float* w_e_t, const float* zp, const float* skipm,
-                    const float* dz, const float* dld, int sigmoid_scale, float* dx,
-                    float* da, float* dba, float* dws, float* dbs, float* dwe,
-                    float* dbe, float* dout, float* dzp, cudaStream_t stream) {
+// The block backward's products around the walk (block_pallas.
+// _block_bwd_math): the coupling's logs rebuilt from skipm and its
+// backward, dskip = (dout @ W_e^T) * mask, dzp's first half = (dz0 + d_pre @
+// W_s^T) * mask with d_pre = gx * mask, dx = dzp @ A^T; the weight
+// gradients dW_e, dW_s (dY = gx, masked) and dA, each with its bias row.
+struct BlockBwdProducts {
+  ConvGemm coupling, dskip, dzp, dx;
+  WGrad dwe, dws, da;
+  WalkProducts walk;
+};
+
+struct BlockBwdArgs {
+  const float *x, *a, *w_s, *w_e, *b_e, *zp, *skipm, *dz, *dld;
+  int sigmoid_scale;
+  float *dx, *da, *dba, *dws, *dbs, *dwe, *dbe;
+};
+
+cudaError_t block_bwd_products(const Dims& d, const WnWalk& w, const BwdScratch& s,
+                               const BlockBwdArgs& b, BlockBwdProducts* p) {
   const int batch = d.batch, t = d.t, c = d.c, h = d.h;
-  const int rows = batch * t;
-  const int c2 = c / 2;
-  const int h2 = 2 * h;
+  const int c2 = c / 2, h2 = 2 * h;
   const float* mask = w.mask;
-  float* gx = w.gx;
-  GTT_TRY(cudaMemsetAsync(w.g_rs, 0, sizeof(float) * rows * h2, stream));
-  GTT_TRY(cudaMemsetAsync(gx, 0, sizeof(float) * rows * h, stream));
-
-  // ---- coupling + end conv: logs rebuilt from skipm, then its backward ----
   {
-    ConvGemm g = rows_gemm(d, skipm, h, h, w_e + c2, b_e + c2, c2,
-                           kCouplingBwd, dout, c, mask);
-    g.ldb = c; g.split = c2; g.flag = sigmoid_scale;
-    g.aux = dz; g.ld_aux = c; g.aux2 = zp; g.aux3 = dld; g.out2 = dzp; g.ldo2 = c;
-    GTT_TRY(conv_gemm(g, stream));
+    ConvGemm& g = p->coupling = rows_gemm(d, b.skipm, h, h, b.w_e + c2, b.b_e + c2, c2,
+                                          kCouplingBwd, s.dout, c, mask);
+    g.ldb = c; g.split = c2; g.flag = b.sigmoid_scale;
+    g.aux = b.dz; g.ld_aux = c; g.aux2 = b.zp; g.aux3 = b.dld; g.out2 = s.dzp; g.ldo2 = c;
   }
-  GTT_TRY(wgrad(wgrad_of(skipm, h, h, batch, t, dout, c, c, dwe, w.wg_scratch,
-                         w.wg_scratch_floats), stream));
-  GTT_TRY(bias_grad(dout, c, c, nullptr, batch, t, w.col_part, dbe, stream));
-  // dskip = (dout @ W_e^T) * mask -> the skip half of g_rs
-  GTT_TRY(conv_gemm(rows_gemm(d, dout, c, c, w_e_t, nullptr, h, kBiasMask,
-                              w.g_rs + h, h2, mask), stream));
-
+  {  // -> the skip half of g_rs
+    ConvGemm& g = p->dskip =
+        rows_gemm(d, s.dout, c, c, b.w_e, nullptr, h, kBiasMask, s.g_rs + h, h2, mask);
+    g.w_t = 1;
+  }
+  {  // dzp[:, :c2] = (dz0 + d_pre @ W_s^T) * mask
+    ConvGemm& g = p->dzp = rows_gemm(d, s.gx, h, h, b.w_s, nullptr, c2, kResidMask, s.dzp, c, mask);
+    g.w_t = 1; g.a_mask = mask; g.aux = b.dz; g.ld_aux = c;
+  }
   {
-    const int err = wn_reverse_walk(d, w, stream);
+    ConvGemm& g = p->dx = rows_gemm(d, s.dzp, c, c, b.a, nullptr, c, kBias, b.dx, c, nullptr);
+    g.w_t = 1;
+  }
+  p->dwe = wgrad_of(b.skipm, h, h, batch, t, s.dout, c, c, b.dwe, s.wg, s.wg_floats);
+  p->dwe.bias_out = b.dbe;
+  p->dws = wgrad_of(b.zp, c, c2, batch, t, s.gx, h, h, b.dws, s.wg, s.wg_floats);
+  p->dws.dy_mask = mask; p->dws.bias_out = b.dbs;
+  p->da = wgrad_of(b.x, c, c, batch, t, s.dzp, c, c, b.da, s.wg, s.wg_floats);
+  p->da.bias_out = b.dba;
+  return walk_products(d, w, s, &p->walk);
+}
+
+// The conv-GEMMs of a block backward in launch order, for presplit_weights.
+void block_bwd_split_list(BlockBwdProducts* p, std::vector<ConvGemm*>* list) {
+  list->push_back(&p->coupling);
+  list->push_back(&p->dskip);
+  add_products(list, &p->walk.gate);
+  add_products(list, &p->walk.tconv);
+  list->push_back(&p->dzp);
+  list->push_back(&p->dx);
+}
+
+int block_bwd_chain(const Dims& d, const WnWalk& w, const BwdScratch& s,
+                    const BlockBwdProducts& p, cudaStream_t stream) {
+  const int rows = d.batch * d.t;
+  GTT_TRY(cudaMemsetAsync(s.g_rs, 0, sizeof(float) * rows * 2 * d.h, stream));
+  GTT_TRY(cudaMemsetAsync(s.gx, 0, sizeof(float) * rows * d.h, stream));
+  GTT_TRY(conv_gemm(p.coupling, stream));
+  GTT_TRY(wgrad(p.dwe, stream));
+  GTT_TRY(conv_gemm(p.dskip, stream));
+  {
+    const int err = wn_reverse_walk(d, w, s, p.walk, stream);
     if (err != 0) return err;
   }
-
-  // ---- start conv: d_pre = gx * mask ----
-  {
-    WGrad g = wgrad_of(zp, c, c2, batch, t, gx, h, h, dws, w.wg_scratch, w.wg_scratch_floats);
-    g.dy_mask = mask;
-    GTT_TRY(wgrad(g, stream));
-  }
-  GTT_TRY(bias_grad(gx, h, h, mask, batch, t, w.col_part, dbs, stream));
-  {  // dzp[:, :c2] = (dz0 + d_pre @ W_s^T) * mask
-    ConvGemm g = rows_gemm(d, gx, h, h, w_s_t, nullptr, c2, kResidMask, dzp, c, mask);
-    g.a_mask = mask; g.aux = dz; g.ld_aux = c;
-    GTT_TRY(conv_gemm(g, stream));
-  }
-
-  // ---- folded actnorm/invconv: zp = (x @ A + bA) * mask ----
-  GTT_TRY(wgrad(wgrad_of(x, c, c, batch, t, dzp, c, c, da, w.wg_scratch, w.wg_scratch_floats),
-                stream));
-  GTT_TRY(bias_grad(dzp, c, c, nullptr, batch, t, w.col_part, dba, stream));
-  GTT_TRY(conv_gemm(rows_gemm(d, dzp, c, c, a_t, nullptr, c, kBias, dx, c, nullptr),
-                    stream));
+  GTT_TRY(wgrad(p.dws, stream));
+  GTT_TRY(conv_gemm(p.dzp, stream));
+  GTT_TRY(wgrad(p.da, stream));
+  GTT_TRY(conv_gemm(p.dx, stream));
   return (int)cudaGetLastError();
 }
 
@@ -336,44 +510,80 @@ extern "C" int gtt_wn_fwd_save(
   return (int)cudaGetLastError();
 }
 
+// Floats of the one scratch block a call of the WN stack's backward
+// (recompute 0: from saves, 1: recomputing the forward) carves its buffers
+// from; with_g: the model is conditioned (dg).
+extern "C" long long gtt_wn_bwd_scratch_floats(int batch, int t, int h, int n_layers, int taps,
+                                               int recompute, int with_g) {
+  BwdScratch s;
+  return bwd_scratch(nullptr, batch, t, 0, h, n_layers, taps, recompute, with_g, &s);
+}
+
+extern "C" long long gtt_block_bwd_scratch_floats(int batch, int t, int c, int h, int n_layers,
+                                                  int taps, int recompute, int with_g) {
+  BwdScratch s;
+  return bwd_scratch(nullptr, batch, t, c, h, n_layers, taps, recompute, with_g, &s);
+}
+
+// W_in [L, taps * h, 2h] and W_rs [L, h, 2h] as the forward reads them.
+// Scratch: one block of gtt_wn_bwd_scratch_floats(..., 0, dg != null).
 extern "C" int gtt_wn_bwd_store(
-    const float* mask, const float* w_in_t, const float* w_rs_t, const float* xs,
+    const float* mask, const float* w_in, const float* w_rs, const float* xs,
     const float* th, const float* sg, const float* dout, float* dx, float* dwin,
-    float* dbin, float* dwrs, float* dbrs, float* dg, float* g_rs, float* dia,
-    float* dxin, float* acts, float* col_part, float* wg_scratch,
-    int wg_scratch_floats, int batch, int t, int h, int n_layers, int taps,
-    int dilation_rate, int drop, int seed, unsigned threshold, float scale,
-    cudaStream_t stream) {
+    float* dbin, float* dwrs, float* dbrs, float* dg, float* scratch, long long scratch_floats,
+    int batch, int t, int h, int n_layers, int taps, int dilation_rate, int drop, int seed,
+    unsigned threshold, float scale, cudaStream_t stream) {
+  BwdScratch s;
+  if (bwd_scratch(scratch, batch, t, 0, h, n_layers, taps, false, dg != nullptr, &s) >
+      scratch_floats)
+    return (int)cudaErrorInvalidValue;
   const Dims d{batch, t, 0, h, n_layers, taps, dilation_rate,
-               make_dropout(drop, seed, n_layers, threshold, scale),
-               wg_scratch, wg_scratch_floats};
-  const WnWalk w{mask, w_in_t, w_rs_t, xs, th, sg, g_rs, dia, dxin, acts, dx,
-                 col_part, wg_scratch, wg_scratch_floats, dwin, dbin, dwrs, dbrs, dg};
-  return wn_bwd_chain(d, w, dout, stream);
+               make_dropout(drop, seed, n_layers, threshold, scale), s.wg, s.wg_floats};
+  const WnWalk w{mask, w_in, w_rs, xs, th, sg, dx, dwin, dbin, dwrs, dbrs, dg};
+  WalkProducts p;
+  GTT_TRY(walk_products(d, w, s, &p));
+  std::vector<ConvGemm*> list;
+  add_products(&list, &p.gate);
+  add_products(&list, &p.tconv);
+  GTT_TRY(presplit_weights(list.data(), (int)list.size(), s.splits, s.split_floats, stream));
+  return wn_bwd_chain(d, w, s, p, dout, stream);
 }
 
 // Recompute: the forward-save chain into scratch (xs / th / sg), then the
-// same walk.  The TPU kernel also keeps the keep masks in scratch; here
-// they are replayed from the seed.  dia serves as the recompute's skip sum.
+// same walk; all their products' weights split in one launch first.  The
+// TPU kernel also keeps the keep masks in scratch; here they are replayed
+// from the seed.  g_rs serves as the recompute's skip sum.  Scratch: one
+// block of gtt_wn_bwd_scratch_floats(..., 1, dg != null).
 extern "C" int gtt_wn_bwd(
     const float* x, const float* mask, const float* w_in, const float* b_in,
-    const float* w_rs, const float* b_rs, const float* g_all,
-    const float* w_in_t, const float* w_rs_t, const float* dout, float* dx,
-    float* dwin, float* dbin, float* dwrs, float* dbrs, float* dg, float* xs,
-    float* th, float* sg, float* g_rs, float* dia, float* dxin, float* acts,
-    float* col_part, float* wg_scratch, int wg_scratch_floats, int g_stride,
-    int batch, int t, int h, int n_layers, int taps, int dilation_rate,
-    int drop, int seed, unsigned threshold, float scale, cudaStream_t stream) {
+    const float* w_rs, const float* b_rs, const float* g_all, const float* dout, float* dx,
+    float* dwin, float* dbin, float* dwrs, float* dbrs, float* dg, float* scratch,
+    long long scratch_floats, int g_stride, int batch, int t, int h, int n_layers, int taps,
+    int dilation_rate, int drop, int seed, unsigned threshold, float scale, cudaStream_t stream) {
+  BwdScratch s;
+  if (bwd_scratch(scratch, batch, t, 0, h, n_layers, taps, true, dg != nullptr, &s) >
+      scratch_floats)
+    return (int)cudaErrorInvalidValue;
   const Dims d{batch, t, 0, h, n_layers, taps, dilation_rate,
-               make_dropout(drop, seed, n_layers, threshold, scale),
-               wg_scratch, wg_scratch_floats};
+               make_dropout(drop, seed, n_layers, threshold, scale), s.wg, s.wg_floats};
   const WnWeights wn{w_in, b_in, w_rs, b_rs, g_all, g_stride};
+  std::vector<ConvGemm> fwd;
+  wn_products(wn_stack(d, wn, mask, s.xs, s.th, s.sg, s.acts, s.g_rs, 0), &fwd);
+  const WnWalk w{mask, w_in, w_rs, s.xs, s.th, s.sg, dx, dwin, dbin, dwrs, dbrs, dg};
+  WalkProducts p;
+  GTT_TRY(walk_products(d, w, s, &p));
+  std::vector<ConvGemm*> list;
+  add_products(&list, &fwd);
+  add_products(&list, &p.gate);
+  add_products(&list, &p.tconv);
+  GTT_TRY(presplit_weights(list.data(), (int)list.size(), s.splits, s.split_floats, stream));
   const long rh = (long)batch * t * h;
-  GTT_TRY(cudaMemcpyAsync(xs, x, sizeof(float) * rh, cudaMemcpyDeviceToDevice, stream));
-  GTT_TRY(wn_layers(wn_stack(d, wn, mask, xs, th, sg, acts, dia, 0), stream));
-  const WnWalk w{mask, w_in_t, w_rs_t, xs, th, sg, g_rs, dia, dxin, acts, dx,
-                 col_part, wg_scratch, wg_scratch_floats, dwin, dbin, dwrs, dbrs, dg};
-  return wn_bwd_chain(d, w, dout, stream);
+  GTT_TRY(cudaMemcpyAsync(s.xs, x, sizeof(float) * rh, cudaMemcpyDeviceToDevice, stream));
+  {
+    const int err = run_products(fwd, stream);
+    if (err != 0) return err;
+  }
+  return wn_bwd_chain(d, w, s, p, dout, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -416,53 +626,72 @@ extern "C" int gtt_block_fwd_save(
                          zp, skipm, xs, th, sg, acts, logsm, ld_part, stream);
 }
 
+// The forward's weights as it reads them (A, W_s, W_e, W_in, W_rs).
+// Scratch: one block of gtt_block_bwd_scratch_floats(..., 0, dg != null).
 extern "C" int gtt_block_bwd_store(
-    const float* x, const float* mask, const float* w_e, const float* b_e,
-    const float* a_t, const float* w_s_t, const float* w_e_t,
-    const float* w_in_t, const float* w_rs_t, const float* zp,
+    const float* x, const float* mask, const float* a, const float* w_s, const float* w_e,
+    const float* b_e, const float* w_in, const float* w_rs, const float* zp,
     const float* skipm, const float* xs, const float* th, const float* sg,
     const float* dz, const float* dld, float* dx, float* da, float* dba,
     float* dws, float* dbs, float* dwe, float* dbe, float* dwin, float* dbin,
-    float* dwrs, float* dbrs, float* dg, float* dout, float* dzp, float* g_rs,
-    float* dia, float* dxin, float* acts, float* gx, float* col_part,
-    float* wg_scratch, int wg_scratch_floats, int batch, int t, int c, int h,
-    int n_layers, int taps, int dilation_rate, int sigmoid_scale, int drop,
-    int seed, unsigned threshold, float scale, cudaStream_t stream) {
+    float* dwrs, float* dbrs, float* dg, float* scratch, long long scratch_floats,
+    int batch, int t, int c, int h, int n_layers, int taps, int dilation_rate,
+    int sigmoid_scale, int drop, int seed, unsigned threshold, float scale,
+    cudaStream_t stream) {
+  BwdScratch s;
+  if (bwd_scratch(scratch, batch, t, c, h, n_layers, taps, false, dg != nullptr, &s) >
+      scratch_floats)
+    return (int)cudaErrorInvalidValue;
   const Dims d{batch, t, c, h, n_layers, taps, dilation_rate,
-               make_dropout(drop, seed, n_layers, threshold, scale),
-               wg_scratch, wg_scratch_floats};
-  const WnWalk w{mask, w_in_t, w_rs_t, xs, th, sg, g_rs, dia, dxin, acts, gx,
-                 col_part, wg_scratch, wg_scratch_floats, dwin, dbin, dwrs, dbrs, dg};
-  return block_bwd_chain(d, w, x, w_e, b_e, a_t, w_s_t, w_e_t, zp, skipm, dz, dld,
-                         sigmoid_scale, dx, da, dba, dws, dbs, dwe, dbe, dout, dzp, stream);
+               make_dropout(drop, seed, n_layers, threshold, scale), s.wg, s.wg_floats};
+  const WnWalk w{mask, w_in, w_rs, xs, th, sg, s.gx, dwin, dbin, dwrs, dbrs, dg};
+  const BlockBwdArgs b{x, a, w_s, w_e, b_e, zp, skipm, dz, dld, sigmoid_scale,
+                       dx, da, dba, dws, dbs, dwe, dbe};
+  BlockBwdProducts p;
+  GTT_TRY(block_bwd_products(d, w, s, b, &p));
+  std::vector<ConvGemm*> list;
+  block_bwd_split_list(&p, &list);
+  GTT_TRY(presplit_weights(list.data(), (int)list.size(), s.splits, s.split_floats, stream));
+  return block_bwd_chain(d, w, s, p, stream);
 }
 
 // Recompute: the forward-save chain into scratch (zp, skipm, xs / th / sg;
-// no z, no ld), then the store backward's chain on it.
+// no z, no ld), then the store backward's chain on it; the products of
+// both split in one launch first.  Scratch: one block of
+// gtt_block_bwd_scratch_floats(..., 1, dg != null).
 extern "C" int gtt_block_bwd(
     const float* x, const float* mask, const float* a, const float* ba,
     const float* w_s, const float* b_s, const float* w_e, const float* b_e,
     const float* w_in, const float* b_in, const float* w_rs, const float* b_rs,
-    const float* g_all, const float* a_t, const float* w_s_t, const float* w_e_t,
-    const float* w_in_t, const float* w_rs_t, const float* dz, const float* dld,
+    const float* g_all, const float* dz, const float* dld,
     float* dx, float* da, float* dba, float* dws, float* dbs, float* dwe,
     float* dbe, float* dwin, float* dbin, float* dwrs, float* dbrs, float* dg,
-    float* zp, float* skipm, float* xs, float* th, float* sg, float* dout,
-    float* dzp, float* g_rs, float* dia, float* dxin, float* acts, float* gx,
-    float* col_part, float* wg_scratch, int wg_scratch_floats, int g_stride,
+    float* scratch, long long scratch_floats, int g_stride,
     int batch, int t, int c, int h, int n_layers, int taps, int dilation_rate,
     int sigmoid_scale, int drop, int seed, unsigned threshold, float scale,
     cudaStream_t stream) {
+  BwdScratch s;
+  if (bwd_scratch(scratch, batch, t, c, h, n_layers, taps, true, dg != nullptr, &s) >
+      scratch_floats)
+    return (int)cudaErrorInvalidValue;
   const Dims d{batch, t, c, h, n_layers, taps, dilation_rate,
-               make_dropout(drop, seed, n_layers, threshold, scale),
-               wg_scratch, wg_scratch_floats};
+               make_dropout(drop, seed, n_layers, threshold, scale), s.wg, s.wg_floats};
   const WnWeights wn{w_in, b_in, w_rs, b_rs, g_all, g_stride};
-  const int err = block_fwd_chain(d, x, mask, a, ba, w_s, b_s, w_e, b_e, wn, sigmoid_scale,
-                                  nullptr, nullptr, zp, skipm, xs, th, sg, acts, nullptr,
-                                  nullptr, stream);
-  if (err != 0) return err;
-  const WnWalk w{mask, w_in_t, w_rs_t, xs, th, sg, g_rs, dia, dxin, acts, gx,
-                 col_part, wg_scratch, wg_scratch_floats, dwin, dbin, dwrs, dbrs, dg};
-  return block_bwd_chain(d, w, x, w_e, b_e, a_t, w_s_t, w_e_t, zp, skipm, dz, dld,
-                         sigmoid_scale, dx, da, dba, dws, dbs, dwe, dbe, dout, dzp, stream);
+  std::vector<ConvGemm> fwd;
+  block_fwd_products(d, x, mask, a, ba, w_s, b_s, wn, s.zp, s.skipm, s.xs, s.th, s.sg, s.acts,
+                     &fwd);
+  const WnWalk w{mask, w_in, w_rs, s.xs, s.th, s.sg, s.gx, dwin, dbin, dwrs, dbrs, dg};
+  const BlockBwdArgs b{x, a, w_s, w_e, b_e, s.zp, s.skipm, dz, dld, sigmoid_scale,
+                       dx, da, dba, dws, dbs, dwe, dbe};
+  BlockBwdProducts p;
+  GTT_TRY(block_bwd_products(d, w, s, b, &p));
+  std::vector<ConvGemm*> list;
+  add_products(&list, &fwd);
+  block_bwd_split_list(&p, &list);
+  GTT_TRY(presplit_weights(list.data(), (int)list.size(), s.splits, s.split_floats, stream));
+  {
+    const int err = run_products(fwd, stream);
+    if (err != 0) return err;
+  }
+  return block_bwd_chain(d, w, s, p, stream);
 }

@@ -486,6 +486,12 @@ cudaError_t wgrad(const WGrad& w, cudaStream_t stream) {
     ++product_counts().declined_wgrad;
   }
   ++product_counts().core_wgrad;
+  if (w.bias_out) {  // the bias gradient: one column-sum launch
+    if (w.a_mask) return cudaErrorInvalidValue;
+    if ((err = col_sum(w.dy, w.ldy, w.n, w.dy_mask, 1, rows, w.bias_out, w.n, stream)) !=
+        cudaSuccess)
+      return err;
+  }
   const int tiles = ((w.n + kWN - 1) / kWN) * ((kdim + kWK - 1) / kWK);
   const long per_split = (long)kdim * w.n;
   // about four waves of blocks, at least 64 rows a split, within scratch
@@ -508,51 +514,55 @@ cudaError_t wgrad(const WGrad& w, cudaStream_t stream) {
                  w.out, (int)per_split, stream);
 }
 
-cudaError_t wn_layers(const WnLayers& a, cudaStream_t stream) {
+void wn_layer_products(const WnLayers& a, int l, int dilation, ConvGemm* in, ConvGemm* rs) {
   const int h = a.h;
   const long rh = (long)a.batch * a.t * h;
   const bool save = a.th != nullptr;
+  float* x_l = save ? a.x + l * rh : a.x;
+  const bool last = l == a.n_layers - 1;
+  {  // acts = tanh(u + g_u) * sigmoid(v + g_v), [u | v] = drop(conv(x_l) + b_in)
+    ConvGemm& g = *in = ConvGemm();
+    g.a = x_l; g.lda = h; g.c_in = h; g.taps = a.taps; g.dilation = dilation;
+    g.batch = a.batch; g.t = a.t;
+    g.w = a.w_in + (long)l * a.taps * h * 2 * h; g.bias = a.b_in + l * 2 * h;
+    g.n = 2 * h; g.split = h; g.epilogue = kGate; g.out = a.acts; g.ldo = h;
+    if (save) {
+      g.out2 = a.th + l * rh; g.ldo2 = h;
+      g.out3 = a.sg + l * rh; g.ldo3 = h;
+    }
+    if (a.g_all) {
+      g.aux = a.g_all + l * 2 * h;
+      g.ld_aux = a.g_stride;
+    }
+    g.drop = a.drop.at(l);
+    g.tc_scratch = a.tc_scratch; g.tc_scratch_floats = a.tc_scratch_floats;
+    if (a.w_in_split) g.w_split = a.w_in_split + (long)l * 2 * a.taps * h * 2 * h;
+    g.part = a.part; g.small_batch = a.small_batch;
+  }
+  {  // x_next = (x_l + rs[:, :h]) * mask; skip += rs[:, h:]
+    ConvGemm& g = *rs = ConvGemm();
+    g.a = a.acts; g.lda = h; g.c_in = h; g.batch = a.batch; g.t = a.t;
+    g.w = a.w_rs + (long)l * h * 2 * h; g.bias = a.b_rs + l * 2 * h;
+    g.n = 2 * h; g.split = h; g.epilogue = kResSkip;
+    g.out = save && !last ? x_l + rh : x_l; g.ldo = h; g.mask = a.mask;
+    g.aux = x_l; g.ld_aux = h; g.out2 = a.skip; g.ldo2 = h;
+    g.flag = !last;  // the last layer's residual half is zero
+    g.skip_mask = last && a.skip_mask;
+    g.skip_init = l == 0;
+    g.tc_scratch = a.tc_scratch; g.tc_scratch_floats = a.tc_scratch_floats;
+    if (a.w_rs_split) g.w_split = a.w_rs_split + (long)l * 2 * h * 2 * h;
+    g.part = a.part; g.small_batch = a.small_batch;
+  }
+}
+
+cudaError_t wn_layers(const WnLayers& a, cudaStream_t stream) {
   int dilation = 1;
   for (int l = 0; l < a.n_layers; ++l) {
-    float* x_l = save ? a.x + l * rh : a.x;
-    const bool last = l == a.n_layers - 1;
-    {  // acts = tanh(u + g_u) * sigmoid(v + g_v), [u | v] = drop(conv(x_l) + b_in)
-      ConvGemm g;
-      g.a = x_l; g.lda = h; g.c_in = h; g.taps = a.taps; g.dilation = dilation;
-      g.batch = a.batch; g.t = a.t;
-      g.w = a.w_in + (long)l * a.taps * h * 2 * h; g.bias = a.b_in + l * 2 * h;
-      g.n = 2 * h; g.split = h; g.epilogue = kGate; g.out = a.acts; g.ldo = h;
-      if (save) {
-        g.out2 = a.th + l * rh; g.ldo2 = h;
-        g.out3 = a.sg + l * rh; g.ldo3 = h;
-      }
-      if (a.g_all) {
-        g.aux = a.g_all + l * 2 * h;
-        g.ld_aux = a.g_stride;
-      }
-      g.drop = a.drop.at(l);
-      g.tc_scratch = a.tc_scratch; g.tc_scratch_floats = a.tc_scratch_floats;
-      if (a.w_in_split) g.w_split = a.w_in_split + (long)l * 2 * a.taps * h * 2 * h;
-      g.part = a.part; g.small_batch = a.small_batch;
-      cudaError_t err = conv_gemm(g, stream);
-      if (err != cudaSuccess) return err;
-    }
-    {  // x_next = (x_l + rs[:, :h]) * mask; skip += rs[:, h:]
-      ConvGemm g;
-      g.a = a.acts; g.lda = h; g.c_in = h; g.batch = a.batch; g.t = a.t;
-      g.w = a.w_rs + (long)l * h * 2 * h; g.bias = a.b_rs + l * 2 * h;
-      g.n = 2 * h; g.split = h; g.epilogue = kResSkip;
-      g.out = save && !last ? x_l + rh : x_l; g.ldo = h; g.mask = a.mask;
-      g.aux = x_l; g.ld_aux = h; g.out2 = a.skip; g.ldo2 = h;
-      g.flag = !last;  // the last layer's residual half is zero
-      g.skip_mask = last && a.skip_mask;
-      g.skip_init = l == 0;
-      g.tc_scratch = a.tc_scratch; g.tc_scratch_floats = a.tc_scratch_floats;
-      if (a.w_rs_split) g.w_split = a.w_rs_split + (long)l * 2 * h * 2 * h;
-      g.part = a.part; g.small_batch = a.small_batch;
-      cudaError_t err = conv_gemm(g, stream);
-      if (err != cudaSuccess) return err;
-    }
+    ConvGemm in, rs;
+    wn_layer_products(a, l, dilation, &in, &rs);
+    cudaError_t err = conv_gemm(in, stream);
+    if (err == cudaSuccess) err = conv_gemm(rs, stream);
+    if (err != cudaSuccess) return err;
     dilation *= a.dilation_rate;
   }
   return cudaSuccess;

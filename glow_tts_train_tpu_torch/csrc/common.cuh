@@ -112,7 +112,9 @@ enum Epilogue : int {
   kCouplingFwd = 8,  // out[:, j] = (m_j + exp(logs_j) * out[:, j]) * mask;
                      // out2[:, j] = logs_j * mask
   kCouplingBwd = 9,  // from logs_raw: out = [dm | dlogs], out2[:, split + j] = dx1
-  kGateBwd = 10,     // from da: out = d_in_act, out2 = d_xin (dropped), out3 = acts
+  kGateBwd = 10,     // from da: out = d_in_act (where given), out2 = d_xin
+                     // (dropped), out3 = acts; on the tensor cores out4 = d_xin's
+                     // K-major 3xTF32 split where given
   kAccumMask = 11,   // out = out * mask + acc; out2 = that * mask
   kMaskReluBwd = 12, // out = aux > 0 ? acc * mask * drop.scale : 0 (aux: the
                      // dropped ReLU output, > 0 exactly where kept and active)
@@ -194,6 +196,17 @@ struct ConvGemm {
   const float* w_split = nullptr;
   // kResSkip: the skip sum starts here (written, not added to)
   int skip_init = 0;
+  // kGateBwd on the tensor cores: d_xin also written K-major and split, big
+  // [2 * split, ldo4] and small after it (ldo4 a multiple of 4 and at least
+  // batch * t; rows past batch * t written as zeros): the B operand of the
+  // WN reverse walk's dW_in (WGrad::dy_t)
+  float* out4 = nullptr;
+  long ldo4 = 0;
+  // Set by the WN reverse walk for its transposed conv: the tap-staged
+  // tensor-core kernel where conv_gemm_tc_plan takes it (K walked channel
+  // slice outer, tap inner, a tile's rows and their dilated halo staged
+  // once a channel slice for all taps)
+  int tap_staged = 0;
 };
 
 cudaError_t conv_gemm(const ConvGemm& g, cudaStream_t stream);
@@ -201,8 +214,9 @@ cudaError_t conv_gemm(const ConvGemm& g, cudaStream_t stream);
 // The K-major 3xTF32 split of weight matrices in one launch
 // (tc_gemm.cu): big and small [n, kdim] of B [kdim, n], B being w [kdim, n]
 // (row stride ldb) or, with w_t, the per-tap transpose of a forward conv's
-// w [taps * n, c_in].
-constexpr int kMaxSplits = 8;
+// w [taps * n, c_in].  A launch takes up to kMaxSplits matrices: every
+// product of a flow block's recompute backward at 4 WN layers (21).
+constexpr int kMaxSplits = 24;
 struct WeightSplit {
   const float* w = nullptr;
   int ldb = 0, kdim = 0, n = 0, c_in = 1, w_t = 0;
@@ -215,9 +229,10 @@ struct WeightSplits {
 };
 cudaError_t split_weights(const WeightSplits& s, cudaStream_t stream);
 
-// Split, in one launch into `scratch`, the weights of those of the given
-// products that will take the tensor cores (conv_gemm_tc_fits), and point
-// their w_split there; none fits: no launch.
+// Split, in one launch into `scratch` (one more for every further
+// kMaxSplits), the weights of those of the given products that will take
+// the tensor cores (conv_gemm_tc_fits), and point their w_split there, in
+// the order given; none fits: no launch.
 cudaError_t presplit_weights(ConvGemm* const* gs, int count, float* scratch, long floats,
                              cudaStream_t stream);
 
@@ -243,6 +258,7 @@ constexpr int kLoneSplitKCols = 2 * kSplitKCols;
 struct TcPlan {
   int tile_rows = 0;
   int splits = 1;
+  int tap_staged = 0;  // the tap-staged kernel (ConvGemm::tap_staged)
 };
 bool conv_gemm_tc_can(const ConvGemm& g);
 TcPlan conv_gemm_tc_plan(const ConvGemm& g, int sms);
@@ -270,6 +286,17 @@ struct WGrad {
   // Set by a chain to ask for the tensor-core kernel (tc_gemm.cu); wgrad
   // takes it when wgrad_tc_fits says yes, else the CUDA-core kernel.
   int tc = 0;
+  // The bias gradient [n], or null: the column sums of dY (times dy_mask),
+  // on the tensor cores the weight gradient of one more im2col column, of
+  // ones on the rows (its output row goes through the same split-ordered
+  // second pass); on the CUDA cores one column-sum launch.  Not with a_mask.
+  float* bias_out = nullptr;
+  // dY's K-major 3xTF32 split, big [n, ldt] and small after it (the gate
+  // backward's out4), or null: the tensor-core kernel reads B as the
+  // conv-GEMM does, without transposing or splitting dY.  dy (row-major) is
+  // still given, for the CUDA-core kernel.  Not with either mask.
+  const float* dy_t = nullptr;
+  long ldt = 0;
 };
 
 cudaError_t wgrad(const WGrad& w, cudaStream_t stream);
@@ -283,10 +310,14 @@ cudaError_t wgrad_tc(const WGrad& w, int sms, cudaStream_t stream);
 
 // Products launched since the last reset, by kernel: tensor-core and
 // CUDA-core conv-GEMMs and weight gradients, and of the CUDA-core ones
-// those whose caller had asked for the tensor-core kernel.
+// those whose caller had asked for the tensor-core kernel; of the
+// tensor-core ones, those in the WN reverse walk's modes: tap-staged
+// conv-GEMMs, weight gradients with a bias row, weight gradients reading
+// dY's K-major split.
 struct ProductCounts {
   long long tc_gemm = 0, tc_wgrad = 0, core_gemm = 0, core_wgrad = 0;
   long long declined_gemm = 0, declined_wgrad = 0;
+  long long tap_staged_gemm = 0, bias_wgrad = 0, split_dy_wgrad = 0;
 };
 ProductCounts& product_counts();
 
@@ -355,6 +386,11 @@ struct WnLayers {
 };
 
 cudaError_t wn_layers(const WnLayers& a, cudaStream_t stream);
+
+// The two products of WN layer l at `dilation` as wn_layers runs them (the
+// gated in-conv, then the res/skip 1x1), for a chain that splits their
+// weights together with its own before running them.
+void wn_layer_products(const WnLayers& a, int l, int dilation, ConvGemm* in, ConvGemm* rs);
 
 struct LayerNorm {
   // out = LN(relu_before? (x * x_mask + resid)) [relu_after], per row

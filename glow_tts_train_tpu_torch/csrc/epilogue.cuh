@@ -52,6 +52,30 @@ __device__ __forceinline__ float coupling_logs(const ConvGemm& g, float raw) {
   return g.flag ? logf(1e-6f + sigmoidf(raw + 2.f)) : raw;
 }
 
+// kGateBwd at column j of row r: acc = da; aux = tanh, aux2 = sigmoid
+// [rows, ld_aux]; out = d_in_act (where given; the per-sample conditioning
+// gradient's input) and out2 = d_xin [rows, 2 * split], out3 = acts.
+// du_x, dv_x: d_xin's two elements, for a caller that also lays them out
+// K-major (conv_gemm_tc_kernel, ConvGemm::out4).
+__device__ __forceinline__ void gate_bwd(const ConvGemm& g, const EpilogueRow& r, int j,
+                                         float da, float& du_x, float& dv_x) {
+  const long m = r.m;
+  const float th = g.aux[m * g.ld_aux + j];
+  const float sg = g.aux2[m * g.ld_aux + j];
+  const float du = da * sg * (1.f - th * th);
+  const float dv = da * th * sg * (1.f - sg);
+  if (g.out) {
+    g.out[m * g.ldo + j] = du;
+    g.out[m * g.ldo + g.split + j] = dv;
+  }
+  du_x = dropped(g, r, j, du);
+  dv_x = dropped(g, r, g.split + j, dv);
+  float* dx = g.out2 + m * g.ldo2;
+  dx[j] = du_x;
+  dx[g.split + j] = dv_x;
+  g.out3[m * g.ldo3 + j] = th * sg;
+}
+
 // The elementwise tail of one output row's kW consecutive logical columns
 // n0 .. n0 + kW - 1 (kW even; a pair of the paired epilogues is two
 // neighbouring columns).  One thread owns each element it reads and writes,
@@ -142,22 +166,11 @@ __device__ __forceinline__ void epilogue_cols(const ConvGemm& g, const EpilogueR
       break;
     }
     case kGateBwd: {
-      // acc = da; aux = tanh, aux2 = sigmoid [rows, ld_aux]; out = d_in_act
-      // and out2 = d_xin [rows, 2 * split], out3 = acts
+      float du, dv;
       for (int e = 0; e < kW; ++e) {
         const int j = n0 + e;
         if (j >= g.n) break;
-        const float da = acc[e];
-        const float th = g.aux[(long)m * g.ld_aux + j];
-        const float sg = g.aux2[(long)m * g.ld_aux + j];
-        const float du = da * sg * (1.f - th * th);
-        const float dv = da * th * sg * (1.f - sg);
-        out[j] = du;
-        out[g.split + j] = dv;
-        float* dx = g.out2 + (long)m * g.ldo2;
-        dx[j] = dropped(g, r, j, du);
-        dx[g.split + j] = dropped(g, r, g.split + j, dv);
-        g.out3[(long)m * g.ldo3 + j] = th * sg;
+        gate_bwd(g, r, j, acc[e], du, dv);
       }
       break;
     }

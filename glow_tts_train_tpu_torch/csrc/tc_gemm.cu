@@ -117,6 +117,15 @@
 // a slice taking about as long as one of the conv-GEMM's: the same twelve
 // k8 wgmmas a warpgroup, and per slice 32 KB from L2 and about 200 KB of
 // shared-memory traffic (the tensor cores read B twelve times).
+//
+// The WN reverse walk's modes (block_train.cu): conv_gemm_tap_kernel,
+// the transposed conv with A staged once a channel slice for all taps;
+// wgrad_tc_split_kernel, a weight gradient reading dY's K-major split that
+// the gate backward's epilogue writes (tile_epilogue, ConvGemm::out4), as
+// the conv-GEMM reads its weights (123 against 162 us at dW_in [960, 11264,
+// 384]); and in both weight-gradient kernels a bias row (WGrad::bias_out),
+// the output row of one more im2col column, of ones, added through
+// wgrad_reduce_kernel's split-ordered pass.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -292,6 +301,108 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ uint64_t b_descriptor(uint32_t addr) {
   return (uint64_t)((addr & 0x3ffffu) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
          ((uint64_t)1 << 62);
+}
+
+// The block's kTM x kBN output tile from the accumulators (the fragment
+// layout of conv_gemm_tc_kernel's wgmmas) through shared memory at
+// smem_base, so that a warp writes 32 neighbouring columns of one row (a
+// fragment holds 2 columns of 16 rows: stored as it lies, a row's 32-byte
+// sectors would each take four partial writes).  Split-K: the raw sums go to
+// this split's partial tile instead.
+//
+// kGateBwd with out4 (the WN reverse walk): each element's two d_xin values
+// (the u and the v half, dropped) also go to a second staging tile [2 kBN]
+// [kTM] (d_xin columns by rows, 4-row chunks XOR-swizzled by column / 4: the
+// row pass's stores meet two-way bank conflicts at most, the column pass's
+// 16-byte loads none), and a second pass writes them out K-major, split in
+// big and small, a warp 128 neighbouring rows of one column: dW_in's B
+// operand, read as the conv-GEMM reads its weights.  The staging needs
+// (kTM (kBN + 8) + 2 kBN kTM) floats: within every instantiation's shared
+// memory (conv_gemm_tc_can).
+template <int kBN, int kTM>
+__device__ __forceinline__ void tile_epilogue(const ConvGemm& g, const float (&acc)[kBN / 2],
+                                              unsigned char* smem_raw, uint32_t smem_base,
+                                              float* __restrict__ part_out, int m0, int n0,
+                                              int frag_row, int frag_col) {
+  constexpr int kThreads = 2 * kTM;
+  constexpr int kCStride = kBN + 8;  // floats a row: conflict-free 8-byte stores
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int rows = g.batch * g.t;
+  float* c_tile = reinterpret_cast<float*>(smem_raw + (smem_base - smem_addr(smem_raw)));
+  // Accumulator fragment: acc[4 j + {0, 1}] are columns 8 j + 2 t + {0, 1}
+  // of row frag_row, acc[4 j + {2, 3}] the same columns of row frag_row + 8.
+  __syncthreads();  // the last slice's fragment loads are done
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    float* at = c_tile + frag_row * kCStride + 8 * j + 2 * frag_col;
+    *reinterpret_cast<float2*>(at) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(at + 8 * kCStride) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  __syncthreads();
+  const bool stash = g.epilogue == kGateBwd && g.out4 != nullptr;  // alike in the block
+  float* tt = c_tile + kTM * kCStride;
+  auto tt_at = [](int jj, int r) {
+    return jj * kTM + ((((r >> 2) ^ ((jj >> 2) & 7)) << 2) | (r & 3));
+  };
+  // a lane takes 4 neighbouring columns (two pairs of a paired epilogue) of
+  // one row, a warp 128 / kBN rows at a time: the epilogue's branches are a
+  // long dependent chain, which 4 elements a call amortise
+  constexpr int kLanesPerRow = kBN / 4;
+  const int warp = tid >> 5;
+  const int col = 4 * (lane % kLanesPerRow);
+  for (int r = warp * (32 / kLanesPerRow) + lane / kLanesPerRow; r < kTM;
+       r += (kThreads / 32) * (32 / kLanesPerRow)) {
+    const int m = m0 + r;
+    if (m >= rows || n0 + col >= g.n) {
+      if (stash) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          tt[tt_at(col + e, r)] = 0.f;
+          tt[tt_at(kBN + col + e, r)] = 0.f;
+        }
+      }
+      continue;
+    }
+    const float4 v = *reinterpret_cast<const float4*>(c_tile + r * kCStride + col);
+    if (part_out != nullptr) {  // n is a multiple of 4 here
+      *reinterpret_cast<float4*>(part_out + ((long)blockIdx.z * rows + m) * g.n + n0 + col) = v;
+      continue;
+    }
+    const float four[4] = {v.x, v.y, v.z, v.w};
+    if (stash) {
+      const EpilogueRow er = epilogue_row_of(g, m);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float du = 0.f, dv = 0.f;
+        if (n0 + col + e < g.n) gate_bwd(g, er, n0 + col + e, four[e], du, dv);
+        tt[tt_at(col + e, r)] = du;
+        tt[tt_at(kBN + col + e, r)] = dv;
+      }
+    } else {
+      epilogue_cols<4>(g, epilogue_row_of(g, m), n0 + col, four);
+    }
+  }
+  if (!stash) return;
+  __syncthreads();
+  constexpr int kChunks = kTM / 4;  // 16-byte chunks a staged column
+  const long small_off = 2L * g.split * g.ldo4;  // d_xin has 2 * split columns
+  for (int q = tid; q < 2 * kBN * kChunks; q += kThreads) {
+    const int jj = q / kChunks, c4 = q - jj * kChunks;
+    const int cl = jj < kBN ? jj : jj - kBN;  // the column within the tile
+    const int m = m0 + 4 * c4;
+    if (n0 + cl >= g.n || m >= g.ldo4) continue;
+    const float4 v =
+        *reinterpret_cast<const float4*>(tt + jj * kTM + ((c4 ^ ((jj >> 2) & 7)) << 2));
+    uint32_t big[4], small[4];
+    split_tf32(v.x, big[0], small[0]);
+    split_tf32(v.y, big[1], small[1]);
+    split_tf32(v.z, big[2], small[2]);
+    split_tf32(v.w, big[3], small[3]);
+    float* dst = g.out4 + (long)((jj < kBN ? 0 : g.split) + n0 + cl) * g.ldo4 + m;
+    *reinterpret_cast<uint4*>(dst) = make_uint4(big[0], big[1], big[2], big[3]);
+    *reinterpret_cast<uint4*>(dst + small_off) = make_uint4(small[0], small[1], small[2], small[3]);
+  }
 }
 
 // Stages of the ring: 4 at 128 columns, 3 at 64 (either way one block an
@@ -480,40 +591,7 @@ __global__ void __launch_bounds__(2 * kTM, 1)
     if (slice + 1 < n_slices) step(slice + 1, big1, small1, big0, small0);
   }
 
-  // Epilogue through shared memory, so that a warp writes 32 neighbouring
-  // columns of one row (a fragment holds 2 columns of 16 rows: stored as it
-  // lies, a row's 32-byte sectors would each take four partial writes).
-  // Split-K: the raw sums go to this split's partial tile instead.
-  // Accumulator fragment: acc[4 j + {0, 1}] are columns 8 j + 2 t + {0, 1}
-  // of row frag_row, acc[4 j + {2, 3}] the same columns of row frag_row + 8.
-  constexpr int kCStride = kBN + 8;  // floats a row: conflict-free 8-byte stores
-  float* c_tile = reinterpret_cast<float*>(smem_raw + (smem_base - smem_addr(smem_raw)));
-  __syncthreads();  // the last slice's fragment loads are done
-#pragma unroll
-  for (int j = 0; j < kBN / 8; ++j) {
-    float* at = c_tile + frag_row * kCStride + 8 * j + 2 * frag_col;
-    *reinterpret_cast<float2*>(at) = make_float2(acc[4 * j], acc[4 * j + 1]);
-    *reinterpret_cast<float2*>(at + 8 * kCStride) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
-  }
-  __syncthreads();
-  // a lane takes 4 neighbouring columns (two pairs of a paired epilogue) of
-  // one row, a warp 128 / kBN rows at a time: the epilogue's branches are a
-  // long dependent chain, which 4 elements a call amortise
-  constexpr int kLanesPerRow = kBN / 4;
-  const int warp = tid >> 5;
-  const int col = 4 * (lane % kLanesPerRow);
-  for (int r = warp * (32 / kLanesPerRow) + lane / kLanesPerRow; r < kTM;
-       r += (kThreads / 32) * (32 / kLanesPerRow)) {
-    const int m = m0 + r;
-    if (m >= rows || n0 + col >= g.n) continue;
-    const float4 v = *reinterpret_cast<const float4*>(c_tile + r * kCStride + col);
-    if (part_out != nullptr) {  // n is a multiple of 4 here
-      *reinterpret_cast<float4*>(part_out + ((long)blockIdx.z * rows + m) * g.n + n0 + col) = v;
-      continue;
-    }
-    const float four[4] = {v.x, v.y, v.z, v.w};
-    epilogue_cols<4>(g, epilogue_row_of(g, m), n0 + col, four);
-  }
+  tile_epilogue<kBN, kTM>(g, acc, smem_raw, smem_base, part_out, m0, n0, frag_row, frag_col);
 }
 
 // Split-K: the splits' partial sums of 4 neighbouring columns of one row,
@@ -561,6 +639,198 @@ cudaError_t launch_conv_gemm_tc(const ConvGemm& g, const float* big, int splits,
 int conv_gemm_tc_bn(int n) { return n % 128 == 0 ? 128 : 64; }
 
 // ---------------------------------------------------------------------------
+// the tap-staged conv-GEMM (the WN reverse walk's transposed conv)
+// ---------------------------------------------------------------------------
+
+// The B ring's stages (one (channel slice, tap) step each); A has two
+// stages, one a channel slice.  An A stage is overwritten kTapStages - 1
+// steps before its step; the last read of the stage two channel slices back
+// is taps steps earlier, so the ring needs taps >= kTapStages - 2.
+constexpr int kTapStages = 4;
+
+// Rows of a tile's A stage: the tile and its dilated halo.
+__host__ __device__ constexpr int tap_halo_rows(int tile_rows, int taps, int dilation) {
+  return tile_rows + (taps - 1) * dilation;
+}
+
+__host__ __device__ constexpr long conv_gemm_tap_smem(int bn, int tile_rows, int taps,
+                                                      int dilation) {
+  return (long)kTapStages * 2 * bn * 128 +
+         2L * tap_halo_rows(tile_rows, taps, dilation) * kAStride * 4 + 1024;
+}
+
+// conv_gemm_tc_kernel's product with K walked channel slice outer and tap
+// inner (c_in a multiple of 32): per 32-channel slice the tile's rows and
+// their (taps - 1) * dilation halo rows are copied once, and each tap's A
+// fragments are loaded from that stage at the tap's row offset (A comes
+// from registers, so the offset is an address, not a copy).  A stage row
+// is a source row of the whole batch; an output row's gather reads it only
+// where the tap stays inside the row's own sample (else zero, as the
+// tap-by-tap walk's copies zero-fill).  B keeps its ring of K-major split
+// slices, one a (channel slice, tap) step.  At the transposed conv of the
+// WN walk [11264, 5 * 384, 192] this cuts A's copies from L2 to shared
+// memory from 64 * 5 to 68 rows a channel slice in 64-row tiles (the
+// tap-by-tap walk's copies at 128 rows: A 260 MB, B 260 MB).  No split-K
+// (part_out is null); the epilogue and the software pipeline of
+// conv_gemm_tc_kernel.  (A second set of `part`, so that a step's wgmmas
+// are issued before the previous step's are added, made ptxas serialize
+// the wgmmas, C7514: 121.5 -> 159.5 us at [11264, 1920, 192]; three
+// blocks an SM at 64 rows, 168 registers, read 130.8.)
+template <int kBN, int kTM>
+__global__ void __launch_bounds__(2 * kTM, 1)
+    conv_gemm_tap_kernel(const ConvGemm g, const float* __restrict__ w_big) {
+  constexpr int kThreads = 2 * kTM;
+  constexpr int kRowStep = kThreads / 8;  // stage rows one pass of 16-byte copies covers
+  constexpr int kStages = kTapStages;
+  constexpr int kBTileBytes = kBN * 128;
+  constexpr int kBRows = kBN / kRowStep;  // B tile rows a thread copies, big and small each
+  extern __shared__ unsigned char smem_raw[];
+  // B tiles first, 1024-byte aligned for the swizzle; then the two A stages
+  const uint32_t smem_base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t b_base = smem_base;
+  const uint32_t a_base = smem_base + kStages * 2 * kBTileBytes;
+  const float* a_tiles = reinterpret_cast<const float*>(smem_raw + (a_base - smem_addr(smem_raw)));
+
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * kTM;
+  const int n0 = blockIdx.x * kBN;
+  const int rows = g.batch * g.t;
+  const int kdim = g.taps * g.c_in;
+  const int halo = (g.taps / 2) * g.dilation;  // stage rows before the tile's first
+  const int halo_rows = tap_halo_rows(kTM, g.taps, g.dilation);
+  const int a_stage_floats = halo_rows * kAStride;
+  const int n_steps = (g.c_in / kTK) * g.taps;
+  const long small_off = (long)kdim * g.n;
+
+  const int cc = tid & 7;
+  const int r0 = tid >> 3;
+  long b_row[kBRows];  // offset of the K-major row this tile row reads, -1 past n
+#pragma unroll
+  for (int i = 0; i < kBRows; ++i) {
+    const int n = n0 + r0 + kRowStep * i;
+    b_row[i] = n < g.n ? (long)physical_col(g, n) * kdim : -1;
+  }
+  const uint32_t a_dst0 = a_base + (r0 * kAStride + 4 * cc) * 4;
+  const uint32_t b_dst0 = b_base + r0 * 128 + ((cc ^ (r0 & 7)) << 4);
+
+  // step s: channel slice s / taps, tap s % taps; at tap 0 also the slice's A stage
+  auto load_step = [&](int s, int stage) {
+    const int cs = s / g.taps, tap = s - cs * g.taps;
+    if (tap == 0) {
+      const uint32_t a_dst = a_dst0 + (cs & 1) * a_stage_floats * 4;
+      for (int r = r0; r < halo_rows; r += kRowStep) {
+        const int gm = m0 - halo + r;
+        const bool ok = gm >= 0 && gm < rows;
+        const float* src = ok ? g.a + (long)gm * g.lda + cs * kTK + 4 * cc : g.a;
+        cp_async16(a_dst + (r - r0) * kAStride * 4, src, ok ? 16 : 0);
+      }
+    }
+    const int kidx = tap * g.c_in + cs * kTK + 4 * cc;
+    const uint32_t b_dst = b_dst0 + stage * 2 * kBTileBytes;
+#pragma unroll
+    for (int i = 0; i < kBRows; ++i) {
+      const bool ok = b_row[i] >= 0;
+      const float* src = ok ? w_big + b_row[i] + kidx : w_big;
+      cp_async16(b_dst + i * kRowStep * 128, src, ok ? 16 : 0);
+      cp_async16(b_dst + kBTileBytes + i * kRowStep * 128, ok ? src + small_off : w_big,
+                 ok ? 16 : 0);
+    }
+  };
+
+  // this thread's fragment rows: frag_row and frag_row + 8 of its warp's 16,
+  // and their time indices (a tap's row is read only inside the sample)
+  const int wg = tid >> 7;
+  const int warp_in_wg = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int frag_row = wg * 64 + warp_in_wg * 16 + (lane >> 2);
+  const int frag_col = lane & 3;
+  const int t_lo = (m0 + frag_row) % g.t;
+  const int t_hi = (m0 + frag_row + 8) % g.t;
+
+  auto load_fragments = [&](int s, uint32_t (&big)[4][4], uint32_t (&small)[4][4]) {
+    const int cs = s / g.taps, tap = s - cs * g.taps;
+    const int off = g.tap_sign * (tap - g.taps / 2) * g.dilation;
+    const bool ok_lo = (unsigned)(t_lo + off) < (unsigned)g.t;
+    const bool ok_hi = (unsigned)(t_hi + off) < (unsigned)g.t;
+    const float* at = a_tiles + (cs & 1) * a_stage_floats + (frag_row + off + halo) * kAStride +
+                      frag_col;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const float v0 = ok_lo ? at[ks * 8] : 0.f;
+      const float v1 = ok_hi ? at[ks * 8 + 8 * kAStride] : 0.f;
+      const float v2 = ok_lo ? at[ks * 8 + 4] : 0.f;
+      const float v3 = ok_hi ? at[ks * 8 + 8 * kAStride + 4] : 0.f;
+      split_tf32(v0, big[ks][0], small[ks][0]);
+      split_tf32(v1, big[ks][1], small[ks][1]);
+      split_tf32(v2, big[ks][2], small[ks][2]);
+      split_tf32(v3, big[ks][3], small[ks][3]);
+    }
+  };
+
+  // a step's products start from zero in `part`, added on the CUDA cores
+  float acc[kBN / 2], part[kBN / 2];
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+
+  auto step = [&](int s, uint32_t (&big)[4][4], uint32_t (&small)[4][4],
+                  uint32_t (&next_big)[4][4], uint32_t (&next_small)[4][4]) {
+    const int stage = s % kStages;
+    const uint64_t d_big = b_descriptor(b_base + (stage * 2) * kBTileBytes);
+    const uint64_t d_small = b_descriptor(b_base + (stage * 2 + 1) * kBTileBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      Wgmma<kBN>::run(part, small[ks], d_big + 2 * ks, ks > 0);
+      Wgmma<kBN>::run(part, big[ks], d_small + 2 * ks, 1);
+    }
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) Wgmma<kBN>::run(part, big[ks], d_big + 2 * ks, 1);
+    wgmma_commit();
+    cp_async_wait<kStages - 3>();  // this thread's copies of step s + 1 have landed
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    // everyone's copies of s + 1 have landed; everyone is done with the
+    // wgmmas of s - 1 (whose B stage the copies below overwrite) and with
+    // the fragment loads of s (the A stage two channel slices back)
+    __syncthreads();
+    if (s + kStages - 1 < n_steps) load_step(s + kStages - 1, (s + kStages - 1) % kStages);
+    cp_async_commit();
+    if (s + 1 < n_steps) load_fragments(s + 1, next_big, next_small);
+    wgmma_wait();
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) acc[i] += part[i];
+  };
+
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_steps) load_step(st, st);
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 2>();  // step 0
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  uint32_t big0[4][4], small0[4][4], big1[4][4], small1[4][4];
+  load_fragments(0, big0, small0);
+  for (int s = 0; s < n_steps; s += 2) {
+    step(s, big0, small0, big1, small1);
+    if (s + 1 < n_steps) step(s + 1, big1, small1, big0, small0);
+  }
+
+  tile_epilogue<kBN, kTM>(g, acc, smem_raw, smem_base, nullptr, m0, n0, frag_row, frag_col);
+}
+
+template <int kBN, int kTM>
+cudaError_t launch_conv_gemm_tap(const ConvGemm& g, const float* big, cudaStream_t stream) {
+  const int smem = (int)conv_gemm_tap_smem(kBN, kTM, g.taps, g.dilation);
+  cudaError_t err = cudaFuncSetAttribute(conv_gemm_tap_kernel<kBN, kTM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int rows = g.batch * g.t;
+  const dim3 grid((g.n + kBN - 1) / kBN, (rows + kTM - 1) / kTM);
+  conv_gemm_tap_kernel<kBN, kTM><<<grid, 2 * kTM, smem, stream>>>(g, big);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // the tensor-core weight-gradient GEMM
 // ---------------------------------------------------------------------------
 
@@ -581,9 +851,43 @@ constexpr int wgrad_tc_smem() {
   return 4 * kBN * 128 + kGStages * wgrad_tc_stage_floats<kBN>() * 4 + 1024;
 }
 
+// A weight-gradient block's output tile from its accumulators: acc[4 j +
+// {0, 1}] are columns 8 j + 2 tig + {0, 1} of output row k, acc[4 j + {2,
+// 3}] the same columns of row k + 8; four lanes write one 32-byte sector.
+// dst: this split's partial tile of kout rows (kdim, and the bias row
+// where bias_out is given), or the final [kdim, n] with the bias row to
+// bias_dst.
+template <int kBN>
+__device__ __forceinline__ void wgrad_tile_out(const WGrad& w, const float (&acc)[kBN / 2],
+                                               float* dst, float* bias_dst, int n0, int k,
+                                               int tig) {
+  const int kdim = w.taps * w.c_in;
+  const int kout = kdim + (w.bias_out != nullptr);
+  float* out = dst + (long)blockIdx.z * kout * w.n;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int n = n0 + 8 * j + 2 * tig;
+    if (n >= w.n) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int kh = k + 8 * half;
+      if (kh >= kout) continue;
+      float* at = kh == kdim && bias_dst != nullptr ? bias_dst + n : out + (long)kh * w.n + n;
+      *reinterpret_cast<float2*>(at) = make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+// The bias row (WGrad::bias_out): im2col column kdim is a column of ones on
+// the rows (zero past the last), copied from here.
+__device__ __align__(16) float kOnesChunk[4] = {1.f, 0.f, 0.f, 0.f};
+
+// dst: [splits, kout, n] partial tiles (kout = kdim, plus the bias row);
+// bias_dst: where the bias row goes when dst is the final [kdim, n] (one
+// split), else null.
 template <int kBN>
 __global__ void __launch_bounds__(256, 1)
-    wgrad_tc_kernel(const WGrad w, int rows_per_split, float* dst) {
+    wgrad_tc_kernel(const WGrad w, int rows_per_split, float* dst, float* bias_dst) {
   constexpr int kBTileBytes = kBN * 128;
   constexpr int kYStride = kBN + 8;
   constexpr int kYChunks = kBN / 4;  // 16-byte chunks a row of the raw dY tile
@@ -609,6 +913,7 @@ __global__ void __launch_bounds__(256, 1)
   const int cc_a = tid & 31;
   const int kk = k0 + 4 * cc_a;
   const bool k_ok = kk < kdim;
+  const bool ones = w.bias_out != nullptr && kk == kdim;  // the bias row's column
   const int tap = k_ok ? kk / w.c_in : 0;
   const int c = kk - tap * w.c_in;
   const int off = (tap - w.taps / 2) * w.dilation;
@@ -627,8 +932,8 @@ __global__ void __launch_bounds__(256, 1)
       while (tr >= w.t) { tr -= w.t; ++b; }
       const int ts = tr + off;
       const bool ok = m < m_end && k_ok && ts >= 0 && ts < w.t;
-      const float* src = ok ? w.a + ((long)b * w.t + ts) * w.lda + c : w.a;
-      cp_async16(a_dst + 8 * i * kGAStride * 4, src, ok ? 16 : 0);
+      const float* src = ok ? w.a + ((long)b * w.t + ts) * w.lda + c : ones ? kOnesChunk : w.a;
+      cp_async16(a_dst + 8 * i * kGAStride * 4, src, ok || (ones && m < m_end) ? 16 : 0);
     }
     constexpr int kYRows = 256 / kYChunks;  // rows one pass of the block covers
     const uint32_t y_dst = raw_base + (stage * kStageFloats + kGM * kGAStride +
@@ -755,35 +1060,186 @@ __global__ void __launch_bounds__(256, 1)
     if (slice + 1 < n_slices) step(slice + 1, big1, small1, big0, small0);
   }
 
-  // accumulator fragment: acc[4 j + {0, 1}] are columns 8 j + 2 tig + {0, 1}
-  // of row frag_row, acc[4 j + {2, 3}] the same columns of row frag_row + 8;
-  // four lanes write one 32-byte sector
-  float* out = dst + (long)blockIdx.z * kdim * w.n;
+  wgrad_tile_out<kBN>(w, acc, dst, bias_dst, n0, k0 + frag_row, tig);
+}
+
+// wgrad_tc_kernel with dY read as its K-major 3xTF32 split (WGrad::dy_t:
+// the WN reverse walk's dW_in, whose gate-backward epilogue writes d_xin so):
+// B comes through a ring of split slices by 16-byte copies into the 128-byte
+// swizzle, as conv_gemm_tc_kernel reads its weights, beside the raw A
+// slices, with the software pipeline of conv_gemm_tc_kernel: no
+// transposition, no split and no second buffer of dY^T in the kernel, one
+// barrier a slice.  No row masks.
+constexpr int kGSplitStages = 4;
+
+template <int kBN>
+constexpr int wgrad_split_smem() {
+  return kGSplitStages * (2 * kBN * 128 + kGM * kGAStride * 4) + 1024;
+}
+
+template <int kBN>
+__global__ void __launch_bounds__(256, 1)
+    wgrad_tc_split_kernel(const WGrad w, int rows_per_split, float* dst, float* bias_dst) {
+  constexpr int kStages = kGSplitStages;
+  constexpr int kBTileBytes = kBN * 128;
+  constexpr int kBRows = kBN / 32;  // dY^T tile rows a thread copies, big and small each
+  extern __shared__ unsigned char smem_raw[];
+  // dY^T tiles first, 1024-byte aligned for the swizzle; then the raw A ring
+  const uint32_t smem_base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t b_base = smem_base;
+  const uint32_t a_base = smem_base + kStages * 2 * kBTileBytes;
+  const float* a_raw = reinterpret_cast<const float*>(smem_raw + (a_base - smem_addr(smem_raw)));
+
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * kBN;
+  const int k0 = blockIdx.y * kGK;
+  const int rows = w.batch * w.t;
+  const int kdim = w.taps * w.c_in;
+  const int m_begin = blockIdx.z * rows_per_split;
+  const int m_end = min(rows, m_begin + rows_per_split);
+  const int n_slices = (m_end - m_begin + kGM - 1) / kGM;
+
+  // A staging as wgrad_tc_kernel's: chunk tid % 32 of tile rows tid / 32 + 8 i
+  const int cc_a = tid & 31;
+  const int kk = k0 + 4 * cc_a;
+  const bool k_ok = kk < kdim;
+  const bool ones = w.bias_out != nullptr && kk == kdim;
+  const int tap = k_ok ? kk / w.c_in : 0;
+  const int c = kk - tap * w.c_in;
+  const int off = (tap - w.taps / 2) * w.dilation;
+  // dY^T staging: chunk tid % 8 (4 rows) of tile rows (dY columns) tid / 8 + 32 i
+  const int cc = tid & 7;
+  const int r0 = tid >> 3;
+  long y_row[kBRows];  // offset of the K-major row this tile row reads, -1 past n
 #pragma unroll
-  for (int j = 0; j < kBN / 8; ++j) {
-    const int n = n0 + 8 * j + 2 * tig;
-    if (n >= w.n) continue;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int k = k0 + frag_row + 8 * half;
-      if (k < kdim)
-        *reinterpret_cast<float2*>(out + (long)k * w.n + n) =
-            make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
-    }
+  for (int i = 0; i < kBRows; ++i) {
+    const int n = n0 + r0 + 32 * i;
+    y_row[i] = n < w.n ? (long)n * w.ldt : -1;
   }
+  const long small_off = (long)w.n * w.ldt;
+  const uint32_t b_dst0 = b_base + r0 * 128 + ((cc ^ (r0 & 7)) << 4);
+
+  auto load_slice = [&](int slice, int stage) {
+    const int m_first = m_begin + slice * kGM;
+    const int b_first = m_first / w.t;
+    const uint32_t a_dst = a_base + (stage * kGM * kGAStride + (tid >> 5) * kGAStride + 4 * cc_a) * 4;
+#pragma unroll
+    for (int i = 0; i < kGM / 8; ++i) {
+      const int m = m_first + (tid >> 5) + 8 * i;
+      int b = b_first, tr = m - b_first * w.t;
+      while (tr >= w.t) { tr -= w.t; ++b; }
+      const int ts = tr + off;
+      const bool ok = m < m_end && k_ok && ts >= 0 && ts < w.t;
+      const float* src = ok ? w.a + ((long)b * w.t + ts) * w.lda + c : ones ? kOnesChunk : w.a;
+      cp_async16(a_dst + 8 * i * kGAStride * 4, src, ok || (ones && m < m_end) ? 16 : 0);
+    }
+    const int mc = m_first + 4 * cc;
+    const uint32_t b_dst = b_dst0 + stage * 2 * kBTileBytes;
+#pragma unroll
+    for (int i = 0; i < kBRows; ++i) {
+      const bool ok = y_row[i] >= 0 && mc < m_end;
+      const float* src = ok ? w.dy_t + y_row[i] + mc : w.dy_t;
+      cp_async16(b_dst + 32 * i * 128, src, ok ? 16 : 0);
+      cp_async16(b_dst + kBTileBytes + 32 * i * 128, ok ? src + small_off : w.dy_t, ok ? 16 : 0);
+    }
+  };
+
+  const int wg = tid >> 7;
+  const int warp_in_wg = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int frag_row = wg * 64 + warp_in_wg * 16 + (lane >> 2);
+  const int tig = lane & 3;
+  auto load_fragments = [&](int stage, uint32_t (&big)[4][4], uint32_t (&small)[4][4]) {
+    const float* at = a_raw + stage * kGM * kGAStride + tig * kGAStride + frag_row;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      split_tf32(at[ks * 8 * kGAStride], big[ks][0], small[ks][0]);
+      split_tf32(at[ks * 8 * kGAStride + 8], big[ks][1], small[ks][1]);
+      split_tf32(at[(ks * 8 + 4) * kGAStride], big[ks][2], small[ks][2]);
+      split_tf32(at[(ks * 8 + 4) * kGAStride + 8], big[ks][3], small[ks][3]);
+    }
+  };
+
+  float acc[kBN / 2], part[kBN / 2];
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+
+  auto step = [&](int slice, uint32_t (&big)[4][4], uint32_t (&small)[4][4],
+                  uint32_t (&next_big)[4][4], uint32_t (&next_small)[4][4]) {
+    const int stage = slice % kStages;
+    const uint64_t d_big = b_descriptor(b_base + (stage * 2) * kBTileBytes);
+    const uint64_t d_small = b_descriptor(b_base + (stage * 2 + 1) * kBTileBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      Wgmma<kBN>::run(part, small[ks], d_big + 2 * ks, ks > 0);
+      Wgmma<kBN>::run(part, big[ks], d_small + 2 * ks, 1);
+    }
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) Wgmma<kBN>::run(part, big[ks], d_big + 2 * ks, 1);
+    wgmma_commit();
+    cp_async_wait<kStages - 3>();  // this thread's copies of slice + 1 have landed
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (slice + kStages - 1 < n_slices)
+      load_slice(slice + kStages - 1, (slice + kStages - 1) % kStages);
+    cp_async_commit();
+    if (slice + 1 < n_slices) load_fragments((slice + 1) % kStages, next_big, next_small);
+    wgmma_wait();
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) acc[i] += part[i];
+  };
+
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_slices) load_slice(st, st);
+    cp_async_commit();
+  }
+  uint32_t big0[4][4], small0[4][4], big1[4][4], small1[4][4];
+  if (n_slices > 0) {
+    cp_async_wait<kStages - 2>();  // slice 0
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    load_fragments(0, big0, small0);
+  }
+  for (int slice = 0; slice < n_slices; slice += 2) {
+    step(slice, big0, small0, big1, small1);
+    if (slice + 1 < n_slices) step(slice + 1, big1, small1, big0, small0);
+  }
+  wgrad_tile_out<kBN>(w, acc, dst, bias_dst, n0, k0 + frag_row, tig);
 }
 
 template <int kBN>
 cudaError_t launch_wgrad_tc(const WGrad& w, int rows_per_split, int splits, float* dst,
-                            cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(wgrad_tc_kernel<kBN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         wgrad_tc_smem<kBN>());
+                            float* bias_dst, cudaStream_t stream) {
+  const bool split_dy = w.dy_t != nullptr;
+  const int smem = split_dy ? wgrad_split_smem<kBN>() : wgrad_tc_smem<kBN>();
+  cudaError_t err =
+      split_dy ? cudaFuncSetAttribute(wgrad_tc_split_kernel<kBN>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+               : cudaFuncSetAttribute(wgrad_tc_kernel<kBN>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int kdim = w.taps * w.c_in;
-  const dim3 grid((w.n + kBN - 1) / kBN, (kdim + kGK - 1) / kGK, (unsigned)splits);
-  wgrad_tc_kernel<kBN><<<grid, 256, wgrad_tc_smem<kBN>(), stream>>>(w, rows_per_split, dst);
+  const int kout = w.taps * w.c_in + (w.bias_out != nullptr);
+  const dim3 grid((w.n + kBN - 1) / kBN, (kout + kGK - 1) / kGK, (unsigned)splits);
+  if (split_dy)
+    wgrad_tc_split_kernel<kBN><<<grid, 256, smem, stream>>>(w, rows_per_split, dst, bias_dst);
+  else
+    wgrad_tc_kernel<kBN><<<grid, 256, smem, stream>>>(w, rows_per_split, dst, bias_dst);
   return cudaGetLastError();
+}
+
+// The splits' partial tiles [splits, per_split] added in split order: the
+// first out_floats to out, the rest (the bias row) to bias.
+__global__ void wgrad_reduce_kernel(const float* __restrict__ part, long per_split, int splits,
+                                    float* __restrict__ out, long out_floats,
+                                    float* __restrict__ bias) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= per_split) return;
+  float v = part[i];
+  for (int z = 1; z < splits; ++z) v += part[z * per_split + i];
+  if (i < out_floats) out[i] = v;
+  else bias[i - out_floats] = v;
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
@@ -799,9 +1255,15 @@ bool conv_gemm_tc_can(const ConvGemm& g) {
   const bool b_ok = g.w_split != nullptr
                         ? aligned16(g.w_split)
                         : aligned16(g.tc_scratch) && 2 * kdim * g.n <= g.tc_scratch_floats;
+  // d_xin's K-major split (the gate backward's out4): the whole K walk a
+  // block, 16-byte stores
+  const bool out4_ok =
+      g.out4 == nullptr || (g.epilogue == kGateBwd && g.part == nullptr && !g.small_batch &&
+                            !g.tap_staged && aligned16(g.out4) && g.ldo4 % 4 == 0 &&
+                            g.ldo4 >= (long)g.batch * g.t);
   return g.c_in % 4 == 0 && g.lda % 4 == 0 && aligned16(g.a) && kdim > 0 &&
          (g.a_mask == nullptr || g.taps == 1) &&
-         (g.tc_scratch != nullptr || g.w_split != nullptr) && b_ok;
+         (g.tc_scratch != nullptr || g.w_split != nullptr) && b_ok && out4_ok;
 }
 
 // Split-K, for a chain that gives scratch for the partial sums (the text
@@ -834,10 +1296,32 @@ constexpr long kSplitKMinRows = 512;
 constexpr SplitLimits kLoneSplits{8, 2, kLoneSplitKCols};
 constexpr long kLoneSentenceRows = 1024;
 
+// The tap-staged kernel (ConvGemm::tap_staged, the WN reverse walk's
+// transposed conv) takes 64-row tiles, one warpgroup a block and two
+// blocks an SM: at [11264, 5 * 384, 192] 121.5 us on the device against
+// 140.6 in 128-row tiles (both warpgroups of a block behind one barrier a
+// step) and 132.7 and 146.4 tap by tap; at h 256 253.9 against 263.4
+// (scripts/torch-wn-walk-sweep.py, PERF.md).  It needs 32-channel
+// slices, taps >= kTapStages - 2 (its A ring), a halo shorter than the
+// tile (else the tap-by-tap walk copies less) and the stages within a
+// block's shared memory; and, like every chain's tile, blocks for a
+// quarter of the SMs.  Else the product takes the tap-by-tap walk.
+constexpr int kTapTileRows = 64;
+constexpr long kMaxBlockSmem = 232448;
+
 namespace {
 
 long row_tiles(const ConvGemm& g, int tile_rows) {
   return ((long)g.batch * g.t + tile_rows - 1) / tile_rows;
+}
+
+bool tap_staged_takes(const ConvGemm& g, int sms) {
+  const int bn = conv_gemm_tc_bn(g.n);
+  return g.tap_staged && g.c_in % kTK == 0 && g.taps > 1 && g.taps >= kTapStages - 2 &&
+         (g.taps - 1) * g.dilation < kTapTileRows && g.a_mask == nullptr &&
+         g.out4 == nullptr && g.part == nullptr && !g.small_batch &&
+         conv_gemm_tap_smem(bn, kTapTileRows, g.taps, g.dilation) <= kMaxBlockSmem &&
+         4 * row_tiles(g, kTapTileRows) * ((g.n + bn - 1) / bn) >= sms;
 }
 
 // (waves times slices a block, shares) of the best share count
@@ -865,6 +1349,11 @@ void best_shares(const ConvGemm& g, int sms, int tile_rows, const SplitLimits& l
 TcPlan conv_gemm_tc_plan(const ConvGemm& g, int sms) {
   TcPlan p;
   const long rows = (long)g.batch * g.t;
+  if (tap_staged_takes(g, sms)) {
+    p.tile_rows = kTapTileRows;
+    p.tap_staged = 1;
+    return p;
+  }
   if (g.small_batch) {  // the serving chain
     const SplitLimits& lim = rows < kLoneSentenceRows ? kLoneSplits : kChainSplits;
     long cost64, cost128;
@@ -918,13 +1407,17 @@ cudaError_t presplit_weights(ConvGemm* const* gs, int count, float* scratch, lon
   if (err != cudaSuccess) return err;
   WeightSplits s;
   long used = 0;
-  for (int i = 0; i < count && s.count < kMaxSplits; ++i) {
+  for (int i = 0; i < count; ++i) {
     ConvGemm& g = *gs[i];
     const long need = 2L * g.taps * g.c_in * g.n;
     if (used + need > floats || !conv_gemm_tc_fits(g, sms)) continue;
     s.job[s.count++] = split_job(g, scratch + used);
     g.w_split = scratch + used;
     used += (need + 3) / 4 * 4;
+    if (s.count == kMaxSplits) {
+      if ((err = split_weights(s, stream)) != cudaSuccess) return err;
+      s = WeightSplits();
+    }
   }
   return split_weights(s, stream);
 }
@@ -943,6 +1436,11 @@ cudaError_t conv_gemm_tc(const ConvGemm& g, int sms, cudaStream_t stream) {
   // a plan that declines (the bare kernel forced on a shape): 128-row tiles
   const TcPlan p = conv_gemm_tc_plan(g, sms);
   const bool bn128 = conv_gemm_tc_bn(g.n) == 128;
+  if (p.tap_staged) {
+    ++product_counts().tap_staged_gemm;
+    return bn128 ? launch_conv_gemm_tap<128, kTapTileRows>(g, big, stream)
+                 : launch_conv_gemm_tap<64, kTapTileRows>(g, big, stream);
+  }
   if (p.tile_rows == 64)
     return bn128 ? launch_conv_gemm_tc<128, 64>(g, big, p.splits, stream)
                  : launch_conv_gemm_tc<64, 64>(g, big, p.splits, stream);
@@ -951,9 +1449,13 @@ cudaError_t conv_gemm_tc(const ConvGemm& g, int sms, cudaStream_t stream) {
 }
 
 bool wgrad_tc_can(const WGrad& w) {
+  const bool bias_ok = w.bias_out == nullptr || (w.a_mask == nullptr && aligned16(w.bias_out));
+  const bool split_ok =
+      w.dy_t == nullptr || (w.a_mask == nullptr && w.dy_mask == nullptr && aligned16(w.dy_t) &&
+                            w.ldt % 4 == 0 && w.ldt >= (long)w.batch * w.t);
   return w.c_in % 4 == 0 && w.lda % 4 == 0 && w.n % 4 == 0 && w.ldy % 4 == 0 &&
          aligned16(w.a) && aligned16(w.dy) && aligned16(w.out) && aligned16(w.scratch) &&
-         (w.a_mask == nullptr || w.taps == 1);
+         (w.a_mask == nullptr || w.taps == 1) && bias_ok && split_ok;
 }
 
 bool wgrad_tc_fits(const WGrad& w) {
@@ -964,9 +1466,10 @@ cudaError_t wgrad_tc(const WGrad& w, int sms, cudaStream_t stream) {
   if (!wgrad_tc_can(w)) return cudaErrorInvalidValue;
   const int rows = w.batch * w.t;
   const int kdim = w.taps * w.c_in;
+  const int kout = kdim + (w.bias_out != nullptr);  // the bias row: one more output row
   const int bn = conv_gemm_tc_bn(w.n);
-  const int tiles = ((w.n + bn - 1) / bn) * ((kdim + kGK - 1) / kGK);
-  const long per_split = (long)kdim * w.n;
+  const int tiles = ((w.n + bn - 1) / bn) * ((kout + kGK - 1) / kGK);
+  const long per_split = (long)kout * w.n;
   // one wave of one block an SM (a second, partly filled wave would double
   // the time), at least 256 rows a split, within scratch
   long splits = std::max(1, sms / tiles);
@@ -977,10 +1480,19 @@ cudaError_t wgrad_tc(const WGrad& w, int sms, cudaStream_t stream) {
   rows_per_split = ((rows_per_split + kGM - 1) / kGM) * kGM;
   splits = std::max(1, (rows + rows_per_split - 1) / rows_per_split);
   float* dst = splits == 1 ? w.out : w.scratch;
-  cudaError_t err = bn == 128 ? launch_wgrad_tc<128>(w, rows_per_split, (int)splits, dst, stream)
-                              : launch_wgrad_tc<64>(w, rows_per_split, (int)splits, dst, stream);
+  float* bias_dst = splits == 1 ? w.bias_out : nullptr;
+  if (w.bias_out) ++product_counts().bias_wgrad;
+  if (w.dy_t) ++product_counts().split_dy_wgrad;
+  cudaError_t err =
+      bn == 128 ? launch_wgrad_tc<128>(w, rows_per_split, (int)splits, dst, bias_dst, stream)
+                : launch_wgrad_tc<64>(w, rows_per_split, (int)splits, dst, bias_dst, stream);
   if (err != cudaSuccess || splits == 1) return err;
   // the splits' partial sums, added in split order
+  if (w.bias_out) {
+    wgrad_reduce_kernel<<<(unsigned)((per_split + 255) / 256), 256, 0, stream>>>(
+        w.scratch, per_split, (int)splits, w.out, (long)kdim * w.n, w.bias_out);
+    return cudaGetLastError();
+  }
   return col_sum(w.scratch, (int)per_split, (int)per_split, nullptr, 1, (int)splits, w.out,
                  (int)per_split, stream);
 }
@@ -993,9 +1505,11 @@ cudaError_t wgrad_tc(const WGrad& w, int sms, cudaStream_t stream) {
 
 // out [batch * t, n] = im2col(a) @ w: the bare product (kBias, no bias).
 // mode 0: as the flow training chains run it; 1: the tensor-core kernel
-// over the whole K walk (an error where it cannot run); 2: CUDA cores; 3:
-// as the text chains run it (split-K allowed); 4: as the serving inverse
-// chain runs it (finer split-K for a lone sentence, 64-row tiles).  The
+// over the whole K walk, tap by tap (an error where it cannot run); 2: CUDA
+// cores; 3: as the text chains run it (split-K allowed); 4: as the serving
+// inverse chain runs it (finer split-K for a lone sentence, 64-row tiles);
+// 5: as the WN reverse walk runs its transposed conv (tap-staged where the
+// plan takes it).  The
 // scratch holds the weights' split, then the split-K partial sums
 // (kSplitKCols floats a row, kLoneSplitKCols in mode 4).  w_t: w is the forward conv's [taps * n, c_in] and the
 // product its per-tap transpose.
@@ -1017,6 +1531,7 @@ extern "C" int gtt_tc_conv_gemm(const float* a, const float* w, const float* a_m
     const bool split_k = part_cols > 0;
     if (split_k) g.part = scratch + split_floats;
     g.small_batch = mode == 4;
+    g.tap_staged = mode == 5;
   }
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1060,16 +1575,62 @@ extern "C" int gtt_tc_conv_gemm_tiled(const float* a, const float* w, float* out
   return (int)err;
 }
 
-// out [taps * c_in, n] = im2col(a)^T @ dy: the bare weight gradient.
+// out [batch * t, n] = the transposed conv sum_k a[t - off_k] W_k^T of the
+// forward conv's w [taps * n, c_in] (the WN reverse walk's), on the tensor
+// cores in `tile_rows`-row tiles (128 or 64), tap-staged or tap by tap,
+// whatever the plan would take: for sweeping the walk's plan.  Scratch as
+// gtt_tc_conv_gemm's.
+extern "C" int gtt_tc_conv_gemm_walk(const float* a, const float* w, float* out, float* scratch,
+                                     long long scratch_floats, int batch, int t, int c_in,
+                                     int taps, int dilation, int n, int tile_rows, int tap_staged,
+                                     cudaStream_t stream) {
+  using namespace gtt;
+  ConvGemm g;
+  g.a = a; g.lda = c_in; g.c_in = c_in; g.taps = taps; g.dilation = dilation; g.tap_sign = -1;
+  g.batch = batch; g.t = t; g.w = w; g.w_t = 1; g.n = n; g.epilogue = kBias; g.out = out;
+  g.ldo = n;
+  const long split_floats = ((2L * taps * c_in * n + 3) / 4) * 4;
+  const int bn = conv_gemm_tc_bn(n);
+  if (split_floats > scratch_floats || (tile_rows != 128 && tile_rows != 64) ||
+      (tap_staged && (c_in % kTK || taps < kTapStages - 2 ||
+                      conv_gemm_tap_smem(bn, tile_rows, taps, dilation) > kMaxBlockSmem)))
+    return (int)cudaErrorInvalidValue;
+  g.tc_scratch = scratch; g.tc_scratch_floats = split_floats;
+  if (!conv_gemm_tc_can(g)) return (int)cudaErrorInvalidValue;
+  WeightSplits s;
+  s.job[s.count++] = split_job(g, scratch);
+  cudaError_t err = split_weights(s, stream);
+  if (err != cudaSuccess) return (int)err;
+  g.w_split = scratch;
+  if (tap_staged) {
+    if (tile_rows == 64)
+      return (int)(bn == 128 ? launch_conv_gemm_tap<128, 64>(g, scratch, stream)
+                             : launch_conv_gemm_tap<64, 64>(g, scratch, stream));
+    return (int)(bn == 128 ? launch_conv_gemm_tap<128, 128>(g, scratch, stream)
+                           : launch_conv_gemm_tap<64, 128>(g, scratch, stream));
+  }
+  if (tile_rows == 64)
+    return (int)(bn == 128 ? launch_conv_gemm_tc<128, 64>(g, scratch, 1, stream)
+                           : launch_conv_gemm_tc<64, 64>(g, scratch, 1, stream));
+  return (int)(bn == 128 ? launch_conv_gemm_tc<128, 128>(g, scratch, 1, stream)
+                         : launch_conv_gemm_tc<64, 128>(g, scratch, 1, stream));
+}
+
+// out [taps * c_in, n] = im2col(a)^T @ dy: the bare weight gradient; with
+// bias_out also the column sums of dy (times dy_mask) there, the weight
+// gradient's bias row; with dy_t the tensor-core kernel reads dy's K-major
+// split (big [n, ldt], small after it) instead of dy.
 extern "C" int gtt_tc_wgrad(const float* a, const float* dy, const float* a_mask,
-                            const float* dy_mask, float* out, float* scratch, int scratch_floats,
-                            int batch, int t, int c_in, int lda, int taps, int dilation, int n,
-                            int ldy, int mode, cudaStream_t stream) {
+                            const float* dy_mask, float* out, float* bias_out, const float* dy_t,
+                            float* scratch, int scratch_floats, int batch, int t, int c_in,
+                            int lda, int taps, int dilation, int n, int ldy, int ldt, int mode,
+                            cudaStream_t stream) {
   using namespace gtt;
   WGrad w;
   w.a = a; w.lda = lda; w.c_in = c_in; w.a_mask = a_mask; w.taps = taps; w.dilation = dilation;
   w.batch = batch; w.t = t; w.dy = dy; w.ldy = ldy; w.n = n; w.dy_mask = dy_mask;
   w.out = out; w.scratch = scratch; w.scratch_floats = scratch_floats; w.tc = mode != 2;
+  w.bias_out = bias_out; w.dy_t = dy_t; w.ldt = ldt;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -1092,14 +1653,16 @@ extern "C" int gtt_split_weights(const float* w, float* big, float* small, int k
   return (int)gtt::split_weights(s, stream);
 }
 
-// counts [6] = tensor-core conv-GEMMs, tensor-core weight gradients,
-// CUDA-core conv-GEMMs, CUDA-core weight gradients, and of those last two
-// the ones whose chain had asked for the tensor cores; `reset` zeroes them
-// after the read.
+// counts [9] = tensor-core conv-GEMMs, tensor-core weight gradients,
+// CUDA-core conv-GEMMs, CUDA-core weight gradients, of those last two the
+// ones whose chain had asked for the tensor cores, and of the tensor-core
+// ones the tap-staged conv-GEMMs, the weight gradients with a bias row and
+// those reading dY's K-major split; `reset` zeroes them after the read.
 extern "C" void gtt_product_counts(long long* counts, int reset) {
   gtt::ProductCounts& c = gtt::product_counts();
   counts[0] = c.tc_gemm; counts[1] = c.tc_wgrad; counts[2] = c.core_gemm;
   counts[3] = c.core_wgrad; counts[4] = c.declined_gemm; counts[5] = c.declined_wgrad;
+  counts[6] = c.tap_staged_gemm; counts[7] = c.bias_wgrad; counts[8] = c.split_dy_wgrad;
   if (reset) c = gtt::ProductCounts();
 }
 

@@ -200,18 +200,19 @@ ENCODER_LAYER_BWD = Entry("gtt_encoder_layer_bwd", "p" * 35 + "L" + "i" * 9 + "u
 BLOCK_INVERSE = Entry("gtt_block_inverse", "p" * 20 + "L" + "i" * 9)
 WN_FORWARD = Entry("gtt_wn_forward", "p" * 11 + "i" * 10 + "uf")
 WN_FWD_SAVE = Entry("gtt_wn_fwd_save", "p" * 13 + "i" * 10 + "uf")
-WN_BWD_STORE = Entry("gtt_wn_bwd_store", "p" * 19 + "i" * 9 + "uf")
-WN_BWD = Entry("gtt_wn_bwd", "p" * 25 + "i" * 10 + "uf")
+WN_BWD_STORE = Entry("gtt_wn_bwd_store", "p" * 14 + "L" + "i" * 8 + "uf")
+WN_BWD = Entry("gtt_wn_bwd", "p" * 15 + "L" + "i" * 9 + "uf")
 BLOCK_FWD = Entry("gtt_block_fwd", "p" * 21 + "i" * 12 + "uf")
 BLOCK_FWD_SAVE = Entry("gtt_block_fwd_save", "p" * 24 + "i" * 12 + "uf")
-BLOCK_BWD_STORE = Entry("gtt_block_bwd_store", "p" * 37 + "i" * 11 + "uf")
-BLOCK_BWD = Entry("gtt_block_bwd", "p" * 46 + "i" * 12 + "uf")
+BLOCK_BWD_STORE = Entry("gtt_block_bwd_store", "p" * 28 + "L" + "i" * 10 + "uf")
+BLOCK_BWD = Entry("gtt_block_bwd", "p" * 28 + "L" + "i" * 11 + "uf")
 MAS = Entry("gtt_mas", "p" * 5 + "i" * 3)
 # the two tensor-core device kernels alone (csrc/tc_gemm.cu), and the
 # weights' K-major split
 TC_CONV_GEMM = Entry("gtt_tc_conv_gemm", "p" * 5 + "L" + "i" * 10)
 TC_CONV_GEMM_TILED = Entry("gtt_tc_conv_gemm_tiled", "p" * 4 + "L" + "i" * 7)
-TC_WGRAD = Entry("gtt_tc_wgrad", "p" * 6 + "i" * 10)
+TC_CONV_GEMM_WALK = Entry("gtt_tc_conv_gemm_walk", "p" * 4 + "L" + "i" * 8)
+TC_WGRAD = Entry("gtt_tc_wgrad", "p" * 8 + "i" * 11)
 SPLIT_WEIGHTS = Entry("gtt_split_weights", "p" * 3 + "i" * 2)
 
 ENTRIES = {
@@ -233,21 +234,27 @@ ENTRIES = {
     "duration_stack_bwd": DURATION_STACK_BWD,
     "tc_conv_gemm": TC_CONV_GEMM,
     "tc_conv_gemm_tiled": TC_CONV_GEMM_TILED,
+    "tc_conv_gemm_walk": TC_CONV_GEMM_WALK,
     "tc_wgrad": TC_WGRAD,
     "split_weights": SPLIT_WEIGHTS,
 }
 
 PRODUCT_COUNT_NAMES = (
     "tc_gemm", "tc_wgrad", "core_gemm", "core_wgrad", "declined_gemm", "declined_wgrad",
+    "tap_staged_gemm", "bias_wgrad", "split_dy_wgrad",
 )
 
 
 def product_counts(reset: bool = False) -> typing.Dict[str, int]:
     """Device products launched by the built library since the last reset:
     conv-GEMMs and weight gradients on the tensor cores (``tc_*``) and on the
-    CUDA cores (``core_*``), and of the latter those whose launch chain had
+    CUDA cores (``core_*``), of the latter those whose launch chain had
     asked for the tensor-core kernel and was declined (``declined_*``: the
-    shape did not fit).  ``reset`` zeroes the counters after the read."""
+    shape did not fit), and of the tensor-core ones those in the WN reverse
+    walk's modes: tap-staged conv-GEMMs (``tap_staged_gemm``), weight
+    gradients with a bias row (``bias_wgrad``) and reading dY's K-major
+    split (``split_dy_wgrad``).  ``reset`` zeroes the counters after the
+    read."""
     fn = library().gtt_product_counts
     fn.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
     fn.restype = None
@@ -304,6 +311,23 @@ def block_inverse_scratch_floats(batch: int, t: int, c: int, h: int) -> int:
     """Floats of the one scratch block a call of the serving flow block's
     entry point carves its buffers from."""
     return _size_query("gtt_block_inverse_scratch_floats", batch, t, c, h)
+
+
+def wn_bwd_scratch_floats(batch: int, t: int, h: int, n_layers: int, taps: int,
+                          recompute: bool, with_g: bool) -> int:
+    """Floats of the one scratch block a call of the WN stack's backward
+    entry points (from saves, or recomputing the forward) carves its
+    buffers from; ``with_g``: the conditioning gradient is asked for."""
+    return _size_query("gtt_wn_bwd_scratch_floats", batch, t, h, n_layers, taps,
+                       int(recompute), int(with_g))
+
+
+def block_bwd_scratch_floats(batch: int, t: int, c: int, h: int, n_layers: int, taps: int,
+                             recompute: bool, with_g: bool) -> int:
+    """Floats of the one scratch block a call of the flow block's backward
+    entry points carves its buffers from."""
+    return _size_query("gtt_block_bwd_scratch_floats", batch, t, c, h, n_layers, taps,
+                       int(recompute), int(with_g))
 
 
 def duration_scratch_floats(batch: int, t: int, c_in: int, f: int, taps: int,

@@ -53,8 +53,7 @@ import torch
 from .. import kernels
 from .conv import conv1d, weight_norm_effective
 from .wn_cuda import (
-    check_residuals, drop_args, fold_wn_weights, needs_grad, tc_scratch, transposed_wn_weights,
-    wn_stack_plain, wn_walk_buffers,
+    check_residuals, drop_args, fold_wn_weights, needs_grad, tc_scratch, wn_stack_plain,
 )
 
 Params = typing.Dict[str, typing.Any]
@@ -408,28 +407,20 @@ def block_fwd(
     return z, ld
 
 
-def _backward_operands(folded: dict, x: torch.Tensor, with_g: bool, kernel_size: int):
+def _backward_operands(folded: dict, x: torch.Tensor, with_g: bool, kernel_size: int,
+                       recompute: bool):
     """What both backward kernels take besides their residuals: the
-    transposed weights (layout copies for the transposed products), the
     gradient tensors (keys ``dx`` and ``d<name>``, each shaped as its
-    primal, and ``dg`` [b, L, 2h] or None) and the scratch."""
+    primal, and ``dg`` [b, L, 2h] or None) and the one scratch block of the
+    call.  The kernels read the weights as the forward holds them."""
     batch, t, c = x.shape
-    f = folded
-    n_layers, _, h2 = f["W_in"].shape
-    h = h2 // 2
-    w_in_t, w_rs_t = transposed_wn_weights(f["W_in"], f["W_rs"], kernel_size)
-    transposed = (
-        f["A"].T.contiguous(), f["W_s"].T.contiguous(), f["W_e"].T.contiguous(), w_in_t, w_rs_t
-    )
+    n_layers, _, h2 = folded["W_in"].shape
     grads = {"dx": torch.empty_like(x)}
-    grads.update({"d" + k: torch.empty_like(f[k]) for k in FOLD_KEYS})
-    grads["dg"] = x.new_empty((batch, n_layers, 2 * h)) if with_g else None
-    rows = batch * t
-    buf = wn_walk_buffers(x, batch, t, h, kernel_size, max(c, 2 * h))
-    buf.update(
-        dout=x.new_empty((rows, c)), dzp=x.new_empty((rows, c)), gx=x.new_empty((rows, h))
-    )
-    return transposed, grads, buf
+    grads.update({"d" + k: torch.empty_like(folded[k]) for k in FOLD_KEYS})
+    grads["dg"] = x.new_empty((batch, n_layers, h2)) if with_g else None
+    scratch = x.new_empty((kernels.block_bwd_scratch_floats(
+        batch, t, c, h2 // 2, n_layers, kernel_size, recompute, with_g),))
+    return grads, scratch
 
 
 def block_bwd_store(
@@ -455,16 +446,14 @@ def block_bwd_store(
     kernels.check_shape("dld", dld, (batch,))
     kernels.check_shape("xs", saves["xs"], (n_layers, batch, t, h))
     f = folded
-    transposed, grads, buf = _backward_operands(folded, x, with_g, kernel_size)
+    grads, scratch = _backward_operands(folded, x, with_g, kernel_size, False)
     drop, threshold, scale = drop_args(p_dropout)
     s = saves
     kernels.BLOCK_BWD_STORE(
-        x, x_mask, f["W_e"], f["b_e"], *transposed,
+        x, x_mask, f["A"], f["W_s"], f["W_e"], f["b_e"], f["W_in"], f["W_rs"],
         s["zp"], s["skipm"], s["xs"], s["th"], s["sg"], dz, dld,
         grads["dx"], *(grads["d" + k] for k in FOLD_KEYS), grads["dg"],
-        buf["dout"], buf["dzp"], buf["g_rs"], buf["dia"], buf["dxin"], buf["acts"], buf["gx"],
-        buf["col_part"], buf["wg_scratch"], buf["wg_scratch"].numel(),
-        batch, t, c, h, n_layers, kernel_size, dilation_rate,
+        scratch, scratch.numel(), batch, t, c, h, n_layers, kernel_size, dilation_rate,
         int(sigmoid_scale), drop, int(seed), threshold, scale,
     )
     return grads
@@ -492,21 +481,13 @@ def block_bwd(
     kernels.check_shape("dz", dz, x.shape)
     kernels.check_shape("dld", dld, (batch,))
     f = folded
-    transposed, grads, buf = _backward_operands(folded, x, g_all is not None, kernel_size)
-    zp = torch.empty_like(x)
-    skipm = x.new_empty((batch, t, h))
-    xs = x.new_empty((n_layers, batch, t, h))
-    th = torch.empty_like(xs)
-    sg = torch.empty_like(xs)
+    grads, scratch = _backward_operands(folded, x, g_all is not None, kernel_size, True)
     drop, threshold, scale = drop_args(p_dropout)
     kernels.BLOCK_BWD(
         x, x_mask, f["A"], f["bA"], f["W_s"], f["b_s"], f["W_e"], f["b_e"],
-        f["W_in"], f["b_in"], f["W_rs"], f["b_rs"], g_all, *transposed, dz, dld,
+        f["W_in"], f["b_in"], f["W_rs"], f["b_rs"], g_all, dz, dld,
         grads["dx"], *(grads["d" + k] for k in FOLD_KEYS), grads["dg"],
-        zp, skipm, xs, th, sg,
-        buf["dout"], buf["dzp"], buf["g_rs"], buf["dia"], buf["dxin"], buf["acts"], buf["gx"],
-        buf["col_part"], buf["wg_scratch"], buf["wg_scratch"].numel(),
-        0 if g_all is None else n_layers * 2 * h,
+        scratch, scratch.numel(), 0 if g_all is None else n_layers * 2 * h,
         batch, t, c, h, n_layers, kernel_size, dilation_rate,
         int(sigmoid_scale), drop, int(seed), threshold, scale,
     )

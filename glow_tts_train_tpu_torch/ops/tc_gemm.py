@@ -20,8 +20,16 @@ where the shape fits, else the CUDA-core kernel), "text" as the text
 chains dispatch (split-K allowed: shares of the K walk added in split
 order by a second pass, where that makes fewer waves), "serve" as the
 serving flow block's chain dispatches (the tensor cores in 128- or 64-row
-tiles, a lone sentence's K walk in finer shares), "tc" the tensor-core
-kernel over the whole K walk or an error, "core" the CUDA-core kernel.
+tiles, a lone sentence's K walk in finer shares), "walk" as the WN reverse
+walk dispatches its transposed conv (the tap-staged kernel where
+:func:`walk_transposed_plan` takes it), "tc" the tensor-core kernel over
+the whole K walk, tap by tap, or an error, "core" the CUDA-core kernel.
+:func:`weight_gradient` also gives the bias row (the column sums of dY,
+the weight gradient of a column of ones) and reads dY's K-major split, as
+the walk's dW_in does.  :func:`walk_products` is the plan of the WN
+reverse walk and of the flow block's backward around it: every product,
+the unit and mode it takes, its tiles and splits, and the device
+operations of a call.
 
 The layout helpers are the plain versions of what the kernels do to the
 weights: :func:`split_weights_plain` the K-major 3xTF32 split that
@@ -38,7 +46,7 @@ import torch
 from .. import kernels
 from .conv import _shifted, offsets
 
-_MODES = {"auto": 0, "tc": 1, "core": 2, "text": 3, "serve": 4}
+_MODES = {"auto": 0, "tc": 1, "core": 2, "text": 3, "serve": 4, "walk": 5}
 # split-K's limits (csrc/common.cuh kSplitKCols, csrc/tc_gemm.cu): partial
 # sums a row over all shares, shares, 32-deep slices a share, rows
 SPLIT_K_COLS, SPLIT_K_MAX, SPLIT_K_MIN_SLICES, SPLIT_K_MIN_ROWS = 1536, 4, 4, 512
@@ -46,6 +54,9 @@ SPLIT_K_COLS, SPLIT_K_MAX, SPLIT_K_MIN_SLICES, SPLIT_K_MIN_ROWS = 1536, 4, 4, 51
 # (kLoneSplits, kLoneSplitKCols, kLoneSentenceRows)
 LONE_SPLIT_K_COLS, LONE_SPLIT_K_MAX, LONE_SPLIT_K_MIN_SLICES = 3072, 8, 2
 LONE_SENTENCE_ROWS = 1024
+# kernels.product_counts of the WN reverse walk's modes, for the chains
+# that ask for none of them
+WALK_MODES_NONE = {"tap_staged_gemm": 0, "bias_wgrad": 0, "split_dy_wgrad": 0}
 _TF32_MASK = -8192  # 0xffffe000 as int32: clears the low 13 mantissa bits
 _TF32_HALF = 0x1000  # half of the last kept bit
 
@@ -161,6 +172,202 @@ def inverse_product_plan(rows: int, kdim: int, n: int, sms: int) -> typing.Tuple
     return (64, s64) if (c64, s64) <= (c128, s128) else (128, s128)
 
 
+# the tap-staged conv-GEMM (csrc/tc_gemm.cu kTapStages, kTapTileRows,
+# kMaxBlockSmem, kAStride): B ring stages, tile rows, a block's shared
+# memory, floats a staged row
+TAP_STAGES, TAP_TILE_ROWS, MAX_BLOCK_SMEM, A_STRIDE = 4, 64, 232448, 36
+# the weight-gradient kernels' output tile rows (im2col columns) and rows a
+# slice; the split-dY kernel's stages and raw A row (kGK, kGM,
+# kGSplitStages, kGAStride); the conv-GEMM's stages at 128 and 64 columns
+WGRAD_TILE, WGRAD_SLICE, WGRAD_SPLIT_STAGES, WGRAD_A_STRIDE = 128, 32, 4, 136
+# the weight-gradient partial sums of a backward call (block_train.cu
+# bwd_scratch): at least 1 << 22 floats
+WALK_WG_FLOATS = 1 << 22
+
+
+def _bn(n: int) -> int:
+    return 128 if n % 128 == 0 else 64
+
+
+def tap_staged_smem(bn: int, tile_rows: int, taps: int, dilation: int) -> int:
+    """Shared memory of the tap-staged conv-GEMM (``conv_gemm_tap_smem``):
+    the B ring and two A stages of the tile's rows and their halo."""
+    return (TAP_STAGES * 2 * bn * 128 + 2 * (tile_rows + (taps - 1) * dilation) * A_STRIDE * 4
+            + 1024)
+
+
+def wgrad_split_smem(bn: int) -> int:
+    """Shared memory of the weight gradient that reads dY's K-major split
+    (``wgrad_split_smem``)."""
+    return WGRAD_SPLIT_STAGES * (2 * bn * 128 + WGRAD_SLICE * WGRAD_A_STRIDE * 4) + 1024
+
+
+def gate_stash_smem(bn: int, tile_rows: int = 128) -> int:
+    """Shared memory the gate backward's epilogue uses when it also writes
+    d_xin K-major (``tile_epilogue``): the accumulator tile and the staging
+    of d_xin's two halves, and the room to align."""
+    return 4 * (tile_rows * (bn + 8) + 2 * bn * tile_rows) + 1024
+
+
+def conv_gemm_tc_smem(bn: int, tile_rows: int = 128) -> int:
+    """Shared memory of the conv-GEMM (``conv_gemm_tc_smem``)."""
+    return (4 if bn == 128 else 3) * (2 * bn * 128 + tile_rows * A_STRIDE * 4) + 1024
+
+
+def flow_product_on_tc(rows: int, kdim: int, n: int, sms: int) -> bool:
+    """Whether a flow chain's conv-GEMM (no split-K) of operands the kernel
+    can read takes the tensor cores: at least 64 columns, 32 deep, and
+    128-row tiles for a quarter of the SMs (``conv_gemm_tc_plan``)."""
+    return n >= 64 and kdim >= 32 and 4 * -(-rows // 128) * -(-n // _bn(n)) >= sms
+
+
+def walk_transposed_plan(
+    rows: int, c_in: int, n: int, taps: int, dilation: int, sms: int
+) -> typing.Dict[str, typing.Any]:
+    """The WN reverse walk's transposed conv [rows, taps * c_in, n]
+    (``conv_gemm_tc_plan`` with ``ConvGemm::tap_staged``) -> {"mode":
+    "tap_staged", "tap_by_tap" or "core", "tile_rows", "bn", "smem"}: the
+    tap-staged kernel in 64-row tiles where the channels come in 32-wide
+    slices, the taps keep its A ring (taps >= TAP_STAGES - 2), the halo is
+    shorter than the tile, its stages fit a block and its blocks fill a
+    quarter of the SMs; else the flow chains' tap-by-tap walk, or the CUDA
+    cores where that declines."""
+    bn = _bn(n)
+    smem = tap_staged_smem(bn, TAP_TILE_ROWS, taps, dilation)
+    if (c_in % 32 == 0 and 1 < taps and taps >= TAP_STAGES - 2
+            and (taps - 1) * dilation < TAP_TILE_ROWS and smem <= MAX_BLOCK_SMEM
+            and 4 * -(-rows // TAP_TILE_ROWS) * -(-n // bn) >= sms):
+        return {"mode": "tap_staged", "tile_rows": TAP_TILE_ROWS, "bn": bn, "smem": smem}
+    if flow_product_on_tc(rows, taps * c_in, n, sms):
+        return {"mode": "tap_by_tap", "tile_rows": 128, "bn": bn, "smem": conv_gemm_tc_smem(bn)}
+    return {"mode": "core", "tile_rows": 0, "bn": 0, "smem": 0}
+
+
+def wgrad_plan(
+    rows: int, kdim: int, n: int, sms: int, bias: bool = False, on_tc: bool = True,
+    scratch_floats: int = WALK_WG_FLOATS,
+) -> typing.Tuple[int, int]:
+    """(row splits, device launches) of a weight gradient over ``rows`` rows
+    of ``kdim`` im2col columns and ``n`` dY columns (``wgrad_tc`` /
+    ``wgrad``): on the tensor cores one wave of one block an SM, at least
+    256 rows a split, within the scratch, with the bias row one more output
+    row; on the CUDA cores about four waves of 64 x 64 tiles, at least 64
+    rows a split, and the bias row one column-sum launch.  Partial sums of
+    more than one split take a second pass."""
+    if on_tc:
+        kout = kdim + int(bias)
+        tiles = -(-n // _bn(n)) * -(-kout // WGRAD_TILE)
+        per_split = kout * n
+        splits = max(1, sms // tiles)
+        splits = min(splits, max(1, rows // 256))
+    else:
+        tiles = -(-n // 64) * -(-kdim // 64)
+        per_split = kdim * n
+        splits = -(-4 * sms // tiles)
+        splits = min(splits, max(1, -(-rows // 64)))
+    splits = min(splits, max(1, scratch_floats // per_split))
+    per = -(-rows // splits)
+    per = -(-per // 32) * 32
+    splits = max(1, -(-rows // per))
+    launches = 1 + int(splits > 1) + int(bias and not on_tc)
+    return splits, launches
+
+
+def wgrad_on_tc(rows: int, kdim: int, n: int) -> bool:
+    """Whether a chain's weight gradient (operands the kernel can read)
+    takes the tensor cores (``wgrad_tc_fits``)."""
+    return n >= 32 and kdim >= 32 and rows >= 256
+
+
+def walk_products(
+    rows: int, c: int, h: int, n_layers: int, taps: int, dilation_rate: int, sms: int,
+    recompute: bool = False, with_g: bool = False,
+) -> typing.Dict[str, typing.Any]:
+    """The plan of one backward call over ``rows`` rows (csrc/block_train.cu):
+    the WN stack's alone (``c`` 0: ``gtt_wn_bwd_store``, with ``recompute``
+    ``gtt_wn_bwd``) or the flow block's (``c`` channels:
+    ``gtt_block_bwd_store``, ``gtt_block_bwd``).  -> {"products": per
+    product its name, kind ("conv_gemm"/"wgrad"), shape ([rows, K, N]; a
+    weight gradient's [K, rows, N]), unit ("tc"/"core"), mode, tile rows,
+    row splits, bias row, launches; "splits": the weight matrices split in
+    the call's one presplit launch; "launches": the device operations of a
+    call (kernels, fills and copies); "counts": ``kernels.product_counts``
+    of a call}.  Operands are taken to be what the kernels can read (h and
+    c multiples of 4).  dW_in reads d_xin's K-major split where the gate
+    backward that writes it and dW_in both take the tensor cores."""
+    h2, c2 = 2 * h, c // 2
+    products: typing.List[dict] = []
+
+    def conv(name, kdim, n, mode=None, ask=True):
+        on = ask and flow_product_on_tc(rows, kdim, n, sms)
+        p = {"name": name, "kind": "conv_gemm", "shape": [rows, kdim, n],
+             "unit": "tc" if on else "core", "mode": mode or ("whole K" if on else "core"),
+             "tile_rows": 128 if on else 0, "splits": 1, "bias": False, "launches": 1,
+             "asks": ask}
+        products.append(p)
+        return p
+
+    def wgrad(name, kdim, n, bias=True, split=False):
+        on = wgrad_on_tc(rows, kdim, n)
+        splits, launches = wgrad_plan(rows, kdim, n, sms, bias, on)
+        products.append({"name": name, "kind": "wgrad", "shape": [kdim, rows, n],
+                         "unit": "tc" if on else "core",
+                         "mode": ("split dY" if split else "whole K") if on else "core",
+                         "tile_rows": WGRAD_TILE if on else 0, "splits": splits, "bias": bias,
+                         "launches": launches, "asks": True})
+
+    fixed = 3 if c == 0 else 2  # the walk's fills (and the WN stack's dout copy)
+    if recompute:  # the forward-save chain first
+        fixed += 1 if c == 0 else 0  # x -> xs
+        if c:
+            conv("fwd zp", c, c, ask=False)
+            conv("fwd start", c2, h)
+        for l in range(n_layers):
+            conv(f"fwd in_{l}", taps * h, h2)
+            conv(f"fwd res_skip_{l}", h, h2)
+    if c:
+        conv("coupling", h, c2)
+        wgrad("dW_e", h, c)
+        conv("dskip", c, h)
+    for l in reversed(range(n_layers)):
+        gate = conv(f"gate_{l}", h2, h)
+        wgrad(f"dW_rs_{l}", h, h2)
+        # the gate backward also writes d_xin K-major where it and dW_in
+        # both take the tensor cores
+        split = gate["unit"] == "tc" and wgrad_on_tc(rows, taps * h, h2)
+        if split:
+            gate["mode"] = "whole K, d_xin K-major"
+        wgrad(f"dW_in_{l}", taps * h, h2, split=split)
+        t = walk_transposed_plan(rows, h2, h, taps, dilation_rate ** l, sms)
+        conv(f"transposed_{l}", taps * h2, h, mode=t["mode"].replace("_", " "))
+        products[-1].update(unit="core" if t["mode"] == "core" else "tc",
+                            tile_rows=t["tile_rows"])
+    if c:
+        wgrad("dW_s", c2, h)
+        conv("dzp", h, c2)
+        wgrad("dA", c, c)
+        conv("dx", c, c)
+    convs = [p for p in products if p["kind"] == "conv_gemm"]
+    split = sum(p["unit"] == "tc" for p in convs)
+    presplit = -(-split // 24)  # kMaxSplits matrices a launch
+    dg = n_layers if with_g else 0
+    counts = {
+        "tc_gemm": sum(p["unit"] == "tc" for p in convs),
+        "tc_wgrad": sum(p["unit"] == "tc" for p in products if p["kind"] == "wgrad"),
+        "core_gemm": sum(p["unit"] == "core" for p in convs),
+        "core_wgrad": sum(p["unit"] == "core" for p in products if p["kind"] == "wgrad"),
+        "declined_gemm": sum(p["unit"] == "core" and p["asks"] for p in convs),
+        "declined_wgrad": sum(p["unit"] == "core" for p in products if p["kind"] == "wgrad"),
+        "tap_staged_gemm": sum(p["mode"] == "tap staged" for p in convs),
+        "bias_wgrad": sum(p["unit"] == "tc" and p["bias"] for p in products
+                          if p["kind"] == "wgrad"),
+        "split_dy_wgrad": sum(p["mode"] == "split dY" for p in products),
+    }
+    return {"products": products, "splits": split,
+            "launches": presplit + fixed + dg + sum(p["launches"] for p in products),
+            "counts": counts}
+
+
 def block_inverse_products(
     rows: int, c: int, h: int, n_layers: int, taps: int, sms: int
 ) -> typing.List[dict]:
@@ -202,7 +409,7 @@ def _text_chain_counts(
     the plan says so, else it is declined to the CUDA cores; a weight
     gradient takes them from 256 rows, 32 columns and 32 deep."""
     counts = dict(tc_gemm=0, tc_wgrad=0, core_gemm=0, core_wgrad=0,
-                  declined_gemm=0, declined_wgrad=0)
+                  declined_gemm=0, declined_wgrad=0, **WALK_MODES_NONE)
     gemms = [(k, n, forward + backward) for k, n in convs]
     gemms += [(k, n, backward) for k, n in transposed]
     for kdim, n, chains in gemms:
@@ -288,12 +495,14 @@ def conv_product_plain(
     return im2col_plain(a, taps, dilation, tap_sign, a_mask) @ w
 
 
-def weight_gradient_plain(a, dy, taps=1, dilation=1, a_mask=None, dy_mask=None) -> torch.Tensor:
+def weight_gradient_plain(a, dy, taps=1, dilation=1, a_mask=None, dy_mask=None, bias=False):
     """Plain version of :func:`weight_gradient`."""
     cols = im2col_plain(a, taps, dilation, 1, a_mask)
     if dy_mask is not None:
         dy = dy * dy_mask
-    return cols.reshape(-1, cols.shape[-1]).T @ dy.reshape(-1, dy.shape[-1])
+    dy = dy.reshape(-1, dy.shape[-1])
+    out = cols.reshape(-1, cols.shape[-1]).T @ dy
+    return (out, dy.sum(0)) if bias else out
 
 
 def _scratch(x_like: torch.Tensor, floats: int) -> torch.Tensor:
@@ -334,6 +543,28 @@ def conv_product(
     return out
 
 
+def conv_product_walk(
+    a: torch.Tensor, w: torch.Tensor, taps: int, dilation: int, tile_rows: int, tap_staged: bool
+) -> torch.Tensor:
+    """The transposed conv of the WN reverse walk, sum_k a[t - off_k] W_k^T
+    of a forward conv's w [taps * n, c] -> [b, t, n], on the tensor cores in
+    ``tile_rows``-row tiles (128 or 64), tap-staged or tap by tap, whatever
+    :func:`walk_transposed_plan` would take (``scripts/torch-wn-walk-sweep.py``).
+    CPU tensors take the plain version."""
+    if kernels.route(a) == "plain":
+        return conv_product_plain(a, w, taps, dilation, -1, w_t=True)
+    batch, t, c = a.shape
+    kernels.check_operands(a.device, a=a, w=w)
+    n = w.shape[0] // taps
+    kernels.check_shape("w", w, (taps * n, c))
+    out = a.new_empty((batch, t, n))
+    scratch = _scratch(a, 2 * w.numel() + 4)
+    kernels.TC_CONV_GEMM_WALK(
+        a, w, out, scratch, scratch.numel(), batch, t, c, taps, dilation, n, tile_rows,
+        int(tap_staged))
+    return out
+
+
 def conv_product_tiled(
     a: torch.Tensor, w: torch.Tensor, taps: int, tile_rows: int, splits: int
 ) -> torch.Tensor:
@@ -362,26 +593,40 @@ def weight_gradient(
     a_mask: typing.Optional[torch.Tensor] = None,
     dy_mask: typing.Optional[torch.Tensor] = None,
     mode: str = "auto",
-) -> torch.Tensor:
+    bias: bool = False,
+    dy_split: typing.Optional[torch.Tensor] = None,
+):
     """a [b, t, c], dy [b, t, n] -> im2col(a)^T @ dy [taps * c, n], summed
-    over all b * t rows in a fixed order (the same bits from run to run).
-    CPU tensors take the plain version."""
+    over all b * t rows in a fixed order (the same bits from run to run);
+    with ``bias`` -> (that, the column sums of dy times dy_mask [n]: on the
+    tensor cores the bias row of the same product).  ``dy_split``: dy's
+    K-major split [2, n, ldt] (:func:`split_weights` of dy as [b * t, n],
+    zero rows after it up to ldt, a multiple of 4), which the tensor-core
+    kernel reads in place of dy.  CPU tensors take the plain version."""
     if kernels.route(a) == "plain":
-        return weight_gradient_plain(a, dy, taps, dilation, a_mask, dy_mask)
+        return weight_gradient_plain(a, dy, taps, dilation, a_mask, dy_mask, bias)
     batch, t, c = a.shape
     n = dy.shape[-1]
-    kernels.check_operands(a.device, a=a, dy=dy, a_mask=a_mask, dy_mask=dy_mask)
+    kernels.check_operands(a.device, a=a, dy=dy, a_mask=a_mask, dy_mask=dy_mask,
+                           dy_split=dy_split)
     kernels.check_shape("dy", dy, (batch, t, n))
     for name, m in (("a_mask", a_mask), ("dy_mask", dy_mask)):
         if m is not None:
             kernels.check_shape(name, m, (batch, t, 1))
+    ldt = batch * t
+    if dy_split is not None:
+        ldt = dy_split.shape[-1]
+        if ldt < batch * t:
+            raise ValueError(f"dy_split: {ldt} rows for {batch * t}")
+        kernels.check_shape("dy_split", dy_split, (2, n, ldt))
     out = a.new_empty((taps * c, n))
-    scratch = _scratch(a, taps * c * n)
+    db = a.new_empty((n,)) if bias else None
+    scratch = _scratch(a, (taps * c + 1) * n)
     kernels.TC_WGRAD(
-        a, dy, a_mask, dy_mask, out, scratch, scratch.numel(), batch, t, c, c, taps,
-        dilation, n, n, _MODES[mode],
+        a, dy, a_mask, dy_mask, out, db, dy_split, scratch, scratch.numel(), batch, t, c, c,
+        taps, dilation, n, n, ldt, _MODES[mode],
     )
-    return out
+    return (out, db) if bias else out
 
 
 def split_weights(w: torch.Tensor) -> torch.Tensor:

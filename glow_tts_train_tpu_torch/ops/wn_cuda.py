@@ -26,7 +26,12 @@ scratch that lives for that call only, then the same walk, so its
 gradients equal store mode's bit for bit.  Keep masks are never stored:
 every pass replays them from the seed.  The backward is bound like the
 forward: three K = 5 * 192 products per layer, the weight gradient among
-them on the tensor cores too.
+them on the tensor cores too.  The walk (``csrc/block_train.cu``) reads
+W_in and W_rs as the forward holds them, splits every product's weights
+in one launch a call, takes the bias gradients as the bias rows of the
+weight gradients, stages the transposed conv's A once for all taps and
+reads d_xin's K-major split in dW_in; its plan is
+``tc_gemm.walk_products``.
 
 Dropout keep masks are the JAX kernels' portable counter hash, bit for
 bit, in its site form (``encoder_pallas._drop_keep``): the bits of flat
@@ -307,39 +312,6 @@ def wn_fwd_save(
     return skip, {"xs": xs, "th": th, "sg": sg}
 
 
-def transposed_wn_weights(w_in: torch.Tensor, w_rs: torch.Tensor, kernel_size: int) -> tuple:
-    """Layout copies for the backward's transposed products: W_in per tap
-    [L, K * 2h, h] and W_rs [L, 2h, h]."""
-    n_layers, kh, h2 = w_in.shape
-    h = h2 // 2
-    w_in_t = (
-        w_in.reshape(n_layers, kernel_size, h, h2).transpose(2, 3)
-        .reshape(n_layers, kernel_size * h2, h).contiguous()
-    )
-    return w_in_t, w_rs.transpose(1, 2).contiguous()
-
-
-def wn_walk_buffers(x_like: torch.Tensor, batch: int, t: int, h: int, kernel_size: int,
-                    width: int) -> dict:
-    """Scratch of the WN reverse walk: the res/skip cotangent, the gate
-    cotangents before and after dropout, the gate product, the per-sample
-    partial column sums (``width`` columns) and the weight-gradient GEMM's
-    split partial sums, which the tensor-core conv-GEMMs of the same call
-    use in turn for their weights' K-major split (twice the largest
-    matrix)."""
-    rows = batch * t
-    return {
-        "g_rs": x_like.new_empty((rows, 2 * h)),
-        "dia": x_like.new_empty((rows, 2 * h)),
-        "dxin": x_like.new_empty((rows, 2 * h)),
-        "acts": x_like.new_empty((rows, h)),
-        "col_part": x_like.new_empty((batch, width)),
-        "wg_scratch": x_like.new_empty(
-            (max(1 << 22, 2 * kernel_size * h * 2 * h, 2 * width * width),)
-        ),
-    }
-
-
 def _wn_grads(folded_like: tuple, x_like: torch.Tensor, with_g: bool) -> dict:
     w_in, w_rs = folded_like
     n_layers, _, h2 = w_in.shape
@@ -377,15 +349,14 @@ def wn_bwd_store(
     kernels.check_shape("w_rs", w_rs, (n_layers, h, 2 * h))
     for k in ("th", "sg"):
         kernels.check_shape(k, saves[k], (n_layers, batch, t, h))
-    w_in_t, w_rs_t = transposed_wn_weights(w_in, w_rs, kernel_size)
     grads = _wn_grads((w_in, w_rs), dout, with_g)
-    buf = wn_walk_buffers(dout, batch, t, h, kernel_size, 2 * h)
+    scratch = dout.new_empty(
+        (kernels.wn_bwd_scratch_floats(batch, t, h, n_layers, kernel_size, False, with_g),))
     drop, threshold, scale = drop_args(p_dropout)
     kernels.WN_BWD_STORE(
-        x_mask, w_in_t, w_rs_t, saves["xs"], saves["th"], saves["sg"], dout,
+        x_mask, w_in, w_rs, saves["xs"], saves["th"], saves["sg"], dout,
         grads["dx"], grads["dW_in"], grads["db_in"], grads["dW_rs"], grads["db_rs"], grads["dg"],
-        buf["g_rs"], buf["dia"], buf["dxin"], buf["acts"], buf["col_part"], buf["wg_scratch"],
-        buf["wg_scratch"].numel(), batch, t, h, n_layers, kernel_size, dilation_rate,
+        scratch, scratch.numel(), batch, t, h, n_layers, kernel_size, dilation_rate,
         drop, int(seed), threshold, scale,
     )
     return grads
@@ -409,19 +380,14 @@ def wn_bwd(
     kernels.check_operands(x.device, dout=dout)
     kernels.check_shape("dout", dout, x.shape)
     w_in, b_in, w_rs, b_rs = folded
-    w_in_t, w_rs_t = transposed_wn_weights(w_in, w_rs, kernel_size)
     grads = _wn_grads((w_in, w_rs), x, g_all is not None)
-    buf = wn_walk_buffers(x, batch, t, h, kernel_size, 2 * h)
-    xs = x.new_empty((n_layers, batch, t, h))
-    th = torch.empty_like(xs)
-    sg = torch.empty_like(xs)
+    scratch = x.new_empty((kernels.wn_bwd_scratch_floats(
+        batch, t, h, n_layers, kernel_size, True, g_all is not None),))
     drop, threshold, scale = drop_args(p_dropout)
     kernels.WN_BWD(
-        x, x_mask, w_in, b_in, w_rs, b_rs, g_all, w_in_t, w_rs_t, dout,
+        x, x_mask, w_in, b_in, w_rs, b_rs, g_all, dout,
         grads["dx"], grads["dW_in"], grads["db_in"], grads["dW_rs"], grads["db_rs"], grads["dg"],
-        xs, th, sg,
-        buf["g_rs"], buf["dia"], buf["dxin"], buf["acts"], buf["col_part"], buf["wg_scratch"],
-        buf["wg_scratch"].numel(), 0 if g_all is None else n_layers * 2 * h,
+        scratch, scratch.numel(), 0 if g_all is None else n_layers * 2 * h,
         batch, t, h, n_layers, kernel_size, dilation_rate,
         drop, int(seed), threshold, scale,
     )

@@ -43,7 +43,8 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
-GEMM_KERNELS = ("conv_gemm_tc_kernel", "wgrad_tc_kernel", "split_weights_kernel",
+GEMM_KERNELS = ("conv_gemm_tc_kernel", "conv_gemm_tap_kernel", "wgrad_tc_kernel",
+                "wgrad_tc_split_kernel", "wgrad_reduce_kernel", "split_weights_kernel",
                 "conv_gemm_kernel", "wgrad_kernel", "col_sum_kernel")
 
 

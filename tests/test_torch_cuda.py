@@ -1001,20 +1001,22 @@ def test_encoder_layer_on_the_tensor_cores_matches_plain(dev):
     backward's recompute equal to the forward bit for bit; every gradient
     within 1e-4 of its max of autograd of the plain version at the kernel's
     ReLU gates; the same bits twice."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
     hp, weights, x, mask, dout = _base_layer(dev, 16, 192)
     cfg = (hp.n_heads, hp.window_size, 0.1, 2 ** 31 - 7)
     kernels.product_counts(reset=True)
     out = encoder_cuda.encoder_layer(weights, x, mask, *cfg)
     fwd_counts = kernels.product_counts(reset=True)
     assert fwd_counts == dict(tc_gemm=4, tc_wgrad=0, core_gemm=0, core_wgrad=0,
-                              declined_gemm=0, declined_wgrad=0)
+                              declined_gemm=0, declined_wgrad=0, **tc_gemm.WALK_MODES_NONE)
     plain = encoder_cuda.encoder_layer_plain(weights, x, mask, *cfg)
     _rel_close("encoder_layer out", out, plain, 1e-5)
     saves, plain_saves = {}, {}
     grads = encoder_cuda.encoder_layer_bwd(weights, x, mask, dout, *cfg, saves=saves)
     bwd_counts = kernels.product_counts(reset=True)
     assert bwd_counts == dict(tc_gemm=8, tc_wgrad=4, core_gemm=0, core_wgrad=0,
-                              declined_gemm=0, declined_wgrad=0)
+                              declined_gemm=0, declined_wgrad=0, **tc_gemm.WALK_MODES_NONE)
     assert torch.equal(saves["out"], out)
     encoder_cuda.encoder_layer_bwd_plain(weights, x, mask, dout, *cfg, saves=plain_saves)
     _gates_agree("encoder_layer", saves["gates"], plain_saves)
@@ -1176,3 +1178,222 @@ def test_duration_stack_on_the_tensor_cores_matches_plain(dev, gin):
         lambda w, a, m, p, s: text_cuda.duration_stack_plain(w, a, m, p, seed=s),
         text_cuda.duration_stack_bwd, text_cuda.duration_stack_bwd_plain, dw, x, mask, dout, cfg,
     )
+
+
+# ---------------------------------------------------------------------------
+# the WN reverse walk (rows 7, 8, 11, 12): its plan and its new modes
+# ---------------------------------------------------------------------------
+
+
+def _device_operations(fn) -> int:
+    """Kernels, fills and copies one call of ``fn`` puts on the device, by
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type.name == "CUDA")
+
+
+# (config variant, dilation rate, rows: batch x t)
+WALK_CASES = {
+    "narrow": ("tiny", 1, (3, 37)),
+    "narrow_dilation2": ("tiny", 2, (3, 37)),
+    "base": ("base_width", 1, (4, 704)),
+    "base_dilation2": ("base_width", 2, (4, 701)),
+}
+
+
+@pytest.mark.parametrize("g", [False, True], ids=["no_g", "g_all"])
+@pytest.mark.parametrize("name", sorted(WALK_CASES))
+def test_wn_walk_backwards_take_their_plan(dev, name, g):
+    """``wn_bwd_store``, ``wn_bwd``, ``block_bwd_store`` and ``block_bwd``
+    at narrow and base width, dilation 1 and 2, with and without g
+    (dropout on): every gradient within 1e-4 of its max of autograd of the
+    plain forward; the recompute backward equal to the store backward bit
+    for bit and the same bits twice; the device operations of a call and
+    its product counts (the tap-staged transposed convs, the bias rows, dW_in
+    from d_xin's split) as ``tc_gemm.walk_products`` plans them."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    variant, rate, (b, t) = WALK_CASES[name]
+    over, n_mel = VARIANTS[variant]
+    hp = model.hyper_from_config(_config(dict(over, dilation_rate=rate), n_mel))
+    tt = tree_map(lambda a: a.to(dev), _tree(hp, 3))
+    L, h, c, taps = hp.n_block_layers, hp.h_dec, 2 * hp.out_channels, hp.kernel_size_dec
+    folded = {k: v.detach().contiguous() for k, v in block_cuda.fold_block_params(
+        tree_index(tt["decoder"]["blocks"], 0), L, hp.n_split).items()}
+    x, mask = _inputs(b, t, c, dev, seed=5)
+    lengths = torch.tensor([t, t // 2, 1, t - 3][:b], device=dev)
+    mask = (torch.arange(t, device=dev)[None, :] < lengths[:, None]).float()[..., None].contiguous()
+    x = (x * mask).contiguous()
+    g_all = torch.randn(b, L, 2 * h, device=dev) if g else None
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    wn = (folded["W_in"], folded["b_in"], folded["W_rs"], folded["b_rs"])
+    xw = (torch.randn(b, t, h, device=dev) * mask).contiguous()
+    dout = torch.randn_like(xw)
+    wcfg = (taps, rate, 0.3, 2 ** 31 - 3)
+    bcfg = (taps, rate, hp.sigmoid_scale, 0.3, 2 ** 31 - 3)
+    names = ["dx", "dW_in", "db_in", "dW_rs", "db_rs"] + (["dg"] if g else [])
+
+    # the WN stack alone
+    _, saves = wn_cuda.wn_fwd_save(wn, g_all, xw, mask, *wcfg)
+    wp = [w.clone().requires_grad_(True) for w in wn]
+    xp = xw.clone().requires_grad_(True)
+    gp = None if g_all is None else g_all.clone().requires_grad_(True)
+    ref = torch.autograd.grad(
+        (wn_cuda.wn_stack_plain(tuple(wp), gp, xp, mask, *wcfg) * dout).sum(),
+        [xp, *wp] + ([gp] if gp is not None else []))
+    calls = {
+        "wn_bwd_store": (False, lambda: wn_cuda.wn_bwd_store(wn[0], wn[2], g, mask, saves, dout,
+                                                             *wcfg)),
+        "wn_bwd": (True, lambda: wn_cuda.wn_bwd(wn, g_all, xw, mask, dout, *wcfg)),
+    }
+    results = {}
+    for call, (recompute, fn) in calls.items():
+        plan = tc_gemm.walk_products(b * t, 0, h, L, taps, rate, sms, recompute, g)
+        kernels.product_counts(reset=True)
+        kernels.product_splits(reset=True)
+        results[call] = fn()
+        assert kernels.product_counts(reset=True) == plan["counts"], call
+        assert kernels.product_splits(reset=True) == 0, call
+        assert _device_operations(fn) == plan["launches"], call
+        again = fn()
+        for n in names:
+            assert torch.equal(results[call][n], again[n]), f"{call} {n}: different bits twice"
+    for n, r in zip(names, ref):
+        _rel_close(f"wn {n}", results["wn_bwd_store"][n], r, 1e-4)
+        assert torch.equal(results["wn_bwd"][n], results["wn_bwd_store"][n]), n
+
+    # the flow block
+    bargs = (folded, g_all, x, mask)
+    _, _, bsaves = block_cuda.block_fwd_save(*bargs, *bcfg)
+    fp = {k: v.clone().requires_grad_(True) for k, v in folded.items()}
+    xq = x.clone().requires_grad_(True)
+    gq = None if g_all is None else g_all.clone().requires_grad_(True)
+    zz, ll = block_cuda.block_forward_plain(fp, gq, xq, mask, *bcfg)
+    dz, dld = torch.randn_like(zz), torch.randn_like(ll)
+    bnames = ["dx"] + ["d" + k for k in block_cuda.FOLD_KEYS] + (["dg"] if g else [])
+    bref = torch.autograd.grad((zz * dz).sum() + (ll * dld).sum(),
+                               [xq] + [fp[k] for k in block_cuda.FOLD_KEYS] + ([gq] if g else []))
+    bcalls = {
+        "block_bwd_store": (False, lambda: block_cuda.block_bwd_store(
+            folded, g, x, mask, bsaves, dz, dld, *bcfg)),
+        "block_bwd": (True, lambda: block_cuda.block_bwd(folded, g_all, x, mask, dz, dld, *bcfg)),
+    }
+    for call, (recompute, fn) in bcalls.items():
+        plan = tc_gemm.walk_products(b * t, c, h, L, taps, rate, sms, recompute, g)
+        kernels.product_counts(reset=True)
+        kernels.product_splits(reset=True)
+        results[call] = fn()
+        assert kernels.product_counts(reset=True) == plan["counts"], call
+        assert kernels.product_splits(reset=True) == 0, call
+        assert _device_operations(fn) == plan["launches"], call
+        again = fn()
+        for n in bnames:
+            assert torch.equal(results[call][n], again[n]), f"{call} {n}: different bits twice"
+    for n, r in zip(bnames, bref):
+        _rel_close(f"block {n}", results["block_bwd_store"][n], r, 1e-4)
+        assert torch.equal(results["block_bwd"][n], results["block_bwd_store"][n]), n
+
+
+# (batch, t, c_in, taps, dilation, n): the walk's transposed conv
+WALK_CONV_CASES = {
+    "base": (16, 704, 384, 5, 1, 192),
+    "base_ragged_dilation4": (3, 701, 384, 5, 4, 192),
+    "large": (8, 704, 512, 5, 2, 256),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WALK_CONV_CASES))
+def test_tap_staged_transposed_conv_matches_float64(dev, name):
+    """The tap-staged conv-GEMM in 128- and 64-row tiles against float64 of
+    the same operands (samples that do not fill a tile, a halo across
+    sample edges), against the plain emulation of its K order, and the
+    walk's dispatch taking it (product counters)."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    batch, t, c_in, taps, dilation, n = WALK_CONV_CASES[name]
+    a, _, _ = _product_inputs(dev, 21, batch, t, c_in, n, taps * c_in)
+    w = torch.from_numpy((np.random.default_rng(22).standard_normal((taps * n, c_in))
+                          / np.sqrt(taps * c_in)).astype(np.float32)).to(dev)
+    b = tc_gemm.transposed_weights_plain(w, taps)
+    cols = tc_gemm.im2col_plain(a, taps, dilation, -1).reshape(batch * t, -1)
+    ref = (cols.double() @ b.double()).reshape(batch, t, n)
+    scale = ref.abs().max().item()
+    order = torch.tensor([tap * c_in + cs * 32 + j for cs in range(c_in // 32)
+                          for tap in range(taps) for j in range(32)], device=dev)
+    emulated = tc_gemm.matmul_3xtf32_plain(cols[:, order], b[order], slice_k=32)
+    for tile in (128, 64):
+        got = tc_gemm.conv_product_walk(a, w, taps, dilation, tile, True)
+        assert (got.double() - ref).abs().max().item() <= PRODUCT_RTOL * scale, tile
+        assert (got.reshape(batch * t, n) - emulated).abs().max().item() <= 2e-6 * scale, tile
+    by_tap = tc_gemm.conv_product_walk(a, w, taps, dilation, 128, False)
+    assert (by_tap.double() - ref).abs().max().item() <= PRODUCT_RTOL * scale
+    kernels.product_counts(reset=True)
+    walked = tc_gemm.conv_product(a, w, taps, dilation, -1, mode="walk", w_t=True)
+    counts = kernels.product_counts(reset=True)
+    assert (counts["tc_gemm"], counts["tap_staged_gemm"]) == (1, 1)
+    assert torch.equal(walked, tc_gemm.conv_product_walk(a, w, taps, dilation,
+                                                         tc_gemm.TAP_TILE_ROWS, True))
+
+
+# (batch, t, c_in, taps, dilation, n, dy_mask)
+BIAS_WGRAD_CASES = {
+    "dW_in": (4, 704, 192, 5, 1, 384, False),
+    "dW_in_ragged_dilation2": (3, 701, 192, 5, 2, 384, False),
+    "dW_rs": (4, 704, 192, 1, 1, 384, False),
+    "dW_s_dy_mask": (4, 704, 80, 1, 1, 192, True),
+    "large_dW_rs": (4, 704, 256, 1, 1, 512, False),
+    "narrow": (3, 37, 16, 5, 1, 32, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BIAS_WGRAD_CASES))
+def test_weight_gradient_bias_row_and_split_dy_match_float64(dev, name):
+    """The weight gradient with its bias row (the column sums of dY times
+    its mask) and, where dY has no mask, reading dY's K-major split: both
+    against float64, the same bits twice, and the weight gradient without
+    the bias row within the same tolerance (its second pass may add the
+    splits in another order, and the bias row may change the split count);
+    the product counters."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    batch, t, c_in, taps, dilation, n, masked = BIAS_WGRAD_CASES[name]
+    a, _, mask = _product_inputs(dev, 31, batch, t, c_in, n, taps * c_in)
+    dy = torch.from_numpy(
+        np.random.default_rng(32).standard_normal((batch, t, n)).astype(np.float32)).to(dev)
+    dy_mask = mask if masked else None
+    cols = tc_gemm.im2col_plain(a, taps, dilation).reshape(batch * t, -1).double()
+    dym = (dy if dy_mask is None else dy * dy_mask).reshape(batch * t, n).double()
+    ref, ref_b = cols.T @ dym, dym.sum(0)
+    on_tc = batch * t >= 256 and n >= 32
+    kernels.product_counts(reset=True)
+    got, got_b = tc_gemm.weight_gradient(a, dy, taps, dilation, dy_mask=dy_mask, bias=True)
+    counts = kernels.product_counts(reset=True)
+    assert (counts["tc_wgrad"], counts["bias_wgrad"]) == ((1, 1) if on_tc else (0, 0))
+    for out, want in ((got, ref), (got_b, ref_b)):
+        assert (out.double() - want).abs().max().item() <= PRODUCT_RTOL * want.abs().max().item()
+    plain = tc_gemm.weight_gradient(a, dy, taps, dilation, dy_mask=dy_mask)
+    assert (plain.double() - ref).abs().max().item() <= PRODUCT_RTOL * ref.abs().max().item()
+    again = tc_gemm.weight_gradient(a, dy, taps, dilation, dy_mask=dy_mask, bias=True)
+    assert torch.equal(again[0], got) and torch.equal(again[1], got_b)
+    if masked:
+        return
+    # the K-major split with its rows padded to a multiple of 4, as the gate
+    # backward lays d_xin out
+    rows = batch * t
+    padded = torch.zeros(-(-rows // 4) * 4, n, device=dev)
+    padded[:rows] = dy.reshape(rows, n)
+    dy_split = tc_gemm.split_weights(padded)
+    kernels.product_counts(reset=True)
+    got2, got2_b = tc_gemm.weight_gradient(a, dy, taps, dilation, bias=True, dy_split=dy_split)
+    counts = kernels.product_counts(reset=True)
+    assert counts["split_dy_wgrad"] == (1 if on_tc else 0)
+    for out, want in ((got2, ref), (got2_b, ref_b)):
+        assert (out.double() - want).abs().max().item() <= PRODUCT_RTOL * want.abs().max().item()
+    again = tc_gemm.weight_gradient(a, dy, taps, dilation, bias=True, dy_split=dy_split)
+    assert torch.equal(again[0], got2) and torch.equal(again[1], got2_b)

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from glow_tts_train_tpu.ops import conv as jax_conv
-from glow_tts_train_tpu_torch.ops import block_cuda, conv, tc_gemm, wn_cuda
+from glow_tts_train_tpu_torch.ops import block_cuda, conv, tc_gemm
 
 # a 3xTF32 product against float64, relative to the largest output: each
 # term loses what lies below 2^-21 of it
@@ -142,7 +142,8 @@ def test_split_layouts_reproduce_block_forward_plain(dilation_rate):
 def test_per_tap_transposed_w_in_is_the_input_gradient():
     """The backward's transposed conv: d_xin through the per-tap transposed
     W_in at negated tap offsets equals autograd's input gradient of the
-    forward conv, and its K-major split is W_in's own rows regrouped."""
+    forward conv, read from W_in as it lies (``w_t``, as the WN walk reads
+    it), and its K-major split is W_in's own rows regrouped."""
     b, t, h, taps, dilation = 2, 20, 8, 5, 2
     w_in = _randn(40, 1, taps * h, 2 * h) / np.sqrt(taps * h)
     w_rs = _randn(41, 1, h, 2 * h)
@@ -150,9 +151,11 @@ def test_per_tap_transposed_w_in_is_the_input_gradient():
     d_xin = _randn(43, b, t, 2 * h)
     y = conv.conv_taps(x, w_in[0], torch.zeros(2 * h), taps, dilation)
     (ref,) = torch.autograd.grad((y * d_xin).sum(), x)
-    w_in_t, w_rs_t = wn_cuda.transposed_wn_weights(w_in, w_rs, taps)
+    w_in_t = tc_gemm.transposed_weights_plain(w_in[0], taps)[None]
+    w_rs_t = tc_gemm.transposed_weights_plain(w_rs[0], 1)[None]
     got = tc_gemm.conv_product_plain(d_xin, w_in_t[0], taps, dilation, tap_sign=-1)
     assert _rel_err(got, ref) <= PLAIN_RTOL
+    assert torch.equal(tc_gemm.conv_product(d_xin, w_in[0], taps, dilation, -1, w_t=True), got)
     assert torch.equal(w_rs_t[0], w_rs[0].T)
     # K-major of the transposed weights: row n (an input channel), column
     # tap * 2h + j is W_in[tap * h + n, j]
