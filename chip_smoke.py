@@ -12,7 +12,9 @@ Phases, each fatal on failure:
    weight-gradient GEMM, both 3xTF32) at every product of one flow block at
    [16, 704, .]: against float64 of the same operands within PRODUCT_RTOL
    and against the plain emulation of the split, beside the CUDA-core
-   kernel's error and time, with ms and achieved TFLOP/s; and the
+   kernel's error and time, with ms and achieved TFLOP/s (the in-layer
+   conv also by the TMA-fed kernel the WN forward chains take, beside the
+   tap-by-tap one); and the
    conv-GEMM at the encoder layer's products at [16, 192, .], [16, 64, .]
    and serving b=4 [4, 250, .], and at the serving flow block's products
    at b=1 [160, .] and [832, .], three ways (the tensor cores over the
@@ -84,6 +86,11 @@ Phases, each fatal on failure:
     and a profiled ``wn_bwd_store`` call gives the device time of one
     layer's four walk products (``product wn_walk`` lines) and fails the run
     if a weight split (beyond the call's one) or a column sum runs in it;
+    the four forwards (rows 5, 6, 9, 10) are held to theirs
+    (``tc_gemm.forward_products``: device operations a call, the one
+    weight-split launch first, the TMA-fed in-layer convs), and a profiled
+    ``wn_fwd_save`` call gives the device time of one layer's two products
+    and of the call's split and copy (``product wn_fwd`` lines);
 11. times the train step and reads its peak device memory in the four
     decoder configurations, from one init in one process, in turns, and
     holds the four loss trajectories together as in 9.
@@ -369,7 +376,9 @@ def held_to_bound(name: str, ms: float, roof: dict) -> None:
 PRODUCT_ROWS = (16, 704)
 CONV_PRODUCTS = (
     ("in_conv_d1", 192, 5, 1, 1, 384), ("in_conv_d4", 192, 5, 4, 1, 384),
-    ("res_skip", 192, 1, 1, 1, 384), ("in_conv_transposed", 384, 5, 2, -1, 192),
+    ("in_conv_d1_tma", 192, 5, 1, 1, 384), ("in_conv_d4_tma", 192, 5, 4, 1, 384),
+    ("res_skip", 192, 1, 1, 1, 384), ("res_skip_tma", 192, 1, 1, 1, 384),
+    ("in_conv_transposed", 384, 5, 2, -1, 192),
     ("fold_a", 160, 1, 1, 1, 160), ("start", 80, 1, 1, 1, 192), ("end", 192, 1, 1, 1, 160),
 )
 # (name, c_in, taps, dilation, n) -> out [taps * c_in, n]
@@ -416,7 +425,8 @@ def bare_products(device_line: str) -> list:
         kernels.product_counts(reset=True)
         out_tc = run("tc")
         counts = kernels.product_counts(reset=True)
-        want = {"tc_gemm": int(kind == "conv_gemm"), "tc_wgrad": int(kind == "wgrad")}
+        want = {"tc_gemm": int(kind == "conv_gemm"), "tc_wgrad": int(kind == "wgrad"),
+                "tma_gemm": int(name.endswith("_tma"))}
         if {k: counts[k] for k in want} != want or counts["core_gemm"] + counts["core_wgrad"]:
             fail(f"{kind} {name}: product counts {counts}")
         out_auto, out_core = run("auto"), run("core")
@@ -464,8 +474,12 @@ def bare_products(device_line: str) -> list:
     for name, c_in, taps, dilation, tap_sign, n in CONV_PRODUCTS:
         a, w = randn(batch, t, c_in), randn(taps * c_in, n) / math.sqrt(taps * c_in)
         cols = tc_gemm.im2col_plain(a, taps, dilation, tap_sign)
+        # the TMA-fed kernel as the WN forward chains take it: "tc" and "auto"
+        # are the chains' dispatch ("fwd"), "core" the CUDA cores
+        fwd = name.endswith("_tma")
         held("conv_gemm", name, [batch * t, taps * c_in, n], 2.0 * batch * t * taps * c_in * n,
-             lambda mode: tc_gemm.conv_product(a, w, taps, dilation, tap_sign, mode=mode),
+             lambda mode: tc_gemm.conv_product(
+                 a, w, taps, dilation, tap_sign, mode="fwd" if fwd and mode != "core" else mode),
              cols.double() @ w.double(), tc_gemm.matmul_3xtf32_plain(cols, w))
     for name, c_in, taps, dilation, n in WGRAD_PRODUCTS:
         a, dy = randn(batch, t, c_in), randn(batch, t, n)
@@ -1052,7 +1066,8 @@ def profile_step(last: dict, device_line: str, model) -> dict:
     wall_ms, by_kernel, launches = profiled(step)
     busy_ms = sum(by_kernel.values())
     tc = {name: sum(v for k, v in by_kernel.items() if name in k)
-          for name in ("conv_gemm_tc_kernel", "conv_gemm_tap_kernel", "wgrad_tc_kernel",
+          for name in ("conv_gemm_tc_kernel", "conv_gemm_tap_kernel", "conv_gemm_tma_kernel",
+                       "wgrad_tc_kernel",
                        "wgrad_tc_split_kernel", "wgrad_reduce_kernel", "split_weights_kernel",
                        "conv_gemm_kernel", "wgrad_kernel", "col_sum_kernel")}
     block = sum(tc.values())
@@ -1309,6 +1324,90 @@ def held_walk_plan(name: str, fn, roof: dict, rows: int, c: int, folded_in, taps
     return dict(plan, device_ms=on_device)
 
 
+def held_forward_plan(name: str, fn, roof: dict, rows: int, c: int, folded_in, taps: int,
+                      rate: int, save: bool) -> dict:
+    """A forward of the flow decoder (the WN stack alone, c 0, or the flow
+    block; ``save``: the forward-save call) against its plan
+    (``tc_gemm.forward_products`` on this card's SMs): its product counts
+    (``roof``, from the call ``bound`` made) and the device operations of
+    one call of ``fn`` (``bracketed_trace``), the weight-split launch its
+    first and only one -> the plan, with ``device_ms``: the call's device
+    time in that trace."""
+    import torch
+
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    n_layers, kh, h2 = folded_in.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = tc_gemm.forward_products(rows, c, h2 // 2, n_layers, taps, rate, sms, save)
+    if roof["products"] != plan["counts"]:
+        fail(f"{name}: device products {roof['products']}, expected {plan['counts']} by its plan")
+    ops = bracketed_trace(fn, calls=1)
+    if len(ops) != plan["launches"]:
+        fail(f"{name}: {len(ops)} device operations a call, expected {plan['launches']} by its "
+             f"plan: {[n[:60] for n, _ in ops]}")
+    splits = [i for i, (n, _) in enumerate(ops) if "split_weights_kernel" in n]
+    if splits != ([0] if plan["splits"] else []):
+        fail(f"{name}: weight-split launches at {splits} of a call's operations (one, first, "
+             "expected)")
+    on_device = sum(us for _, us in ops) / 1e3
+    print(f"kernel {name}: {len(ops)} device operations a call as its plan has them, one "
+          f"weight-split launch first, {plan['counts']['tma_gemm']} TMA-fed products, "
+          f"{on_device:.4f} ms on the device")
+    return dict(plan, device_ms=on_device)
+
+
+def forward_product_lines(fn, plan: dict, n_layers: int, device_line: str) -> dict:
+    """One layer's two products of a ``wn_fwd_save`` call by the device's
+    own time (the in-layer conv and the res/skip, the call's conv-GEMMs
+    alternating in launch order), and the call's weight split and input
+    copy, from a trace of 3 calls.  Fails unless each call holds its plan's
+    device operations with one weight split, its first."""
+    calls = 3
+    ops = bracketed_trace(fn, calls)
+    per_call = plan["launches"]
+    if len(ops) != calls * per_call:
+        fail(f"forward trace: {len(ops)} device operations in {calls} calls, {per_call} a call "
+             "expected")
+    total = {"in_conv": 0.0, "res_skip": 0.0, "splits": 0.0, "copy": 0.0}
+    kernels_of = {"in_conv": set(), "res_skip": set()}
+    for c in range(calls):
+        call = ops[c * per_call:(c + 1) * per_call]
+        splits = [i for i, (n, _) in enumerate(call) if "split_weights_kernel" in n]
+        if splits != [0]:
+            fail(f"forward trace: weight-split launches at {splits} of a call's operations "
+                 "(one, first, expected)")
+        gemm = 0
+        for n, us in call:
+            if "split_weights_kernel" in n:
+                total["splits"] += us
+            elif "emcpy" in n:
+                total["copy"] += us
+            else:
+                kind = "in_conv" if gemm % 2 == 0 else "res_skip"
+                total[kind] += us
+                kernels_of[kind].add(n.split("(")[0].replace("void ", "").split("::")[-1])
+                gemm += 1
+    by_name = {p["name"]: p for p in plan["products"]}
+    rows = {}
+    for kind, p in (("in_conv", by_name["in_0"]), ("res_skip", by_name["res_skip_0"])):
+        us = total[kind] / (calls * n_layers)
+        flops = 2.0 * math.prod(p["shape"])
+        rows[kind] = {"shape": p["shape"], "mode": p["mode"], "tile_rows": p["tile_rows"],
+                      "cluster": p["cluster"], "kernels": sorted(kernels_of[kind]),
+                      "device_us": us, "tflops": flops / us / 1e6,
+                      "bound_us": flops / PEAK_3XTF32_FLOPS * 1e6}
+        print(f"product wn_fwd {kind}: {p['shape']} {p['mode']}, {p['tile_rows']}-row tiles, "
+              f"clusters of {p['cluster']} ({', '.join(rows[kind]['kernels'])}): {us:.1f} us on "
+              f"the device a layer = {rows[kind]['tflops']:.1f} TFLOP/s, bound "
+              f"{rows[kind]['bound_us']:.1f} us at 165 TFLOP/s [{device_line}]")
+    rows["splits_us"] = total["splits"] / calls
+    rows["copy_us"] = total["copy"] / calls
+    print(f"product wn_fwd splits: {rows['splits_us']:.1f} us a call in one launch; copy: "
+          f"{rows['copy_us']:.1f} us a call; {per_call} device operations a call [{device_line}]")
+    return rows
+
+
 def bracketed_trace(fn, calls: int) -> list:
     """The device operations of ``calls`` calls of ``fn`` in launch order,
     [(name, device us)], from one trace under torch.profiler in which they
@@ -1433,9 +1532,13 @@ def training_kernels(recorders: dict, launches: dict, device_line: str) -> tuple
     with torch.no_grad():
         skip = recorders["wn_forward"].fn(*args, **kwargs)
         err, scale = rel_err("wn_forward", skip, wn_cuda.wn_stack_plain(*args, **kwargs), KERNEL_RTOL)
+        roof = bound("wn_forward", args, kwargs, skip, recorders["wn_forward"].fn)
+        wn, _, x, _, *cfg = args
+        plan = held_forward_plan("wn_forward", lambda: recorders["wn_forward"].fn(*args, **kwargs),
+                                 roof, x.shape[0] * x.shape[1], 0, wn[0], cfg[0], cfg[1], False)
         entry("wn_forward", err, scale, time_ms(recorders["wn_forward"].fn, args, kwargs),
-              time_ms(wn_cuda.wn_stack_plain, args, kwargs), list(args[2].shape),
-              bound("wn_forward", args, kwargs, skip, recorders["wn_forward"].fn))
+              time_ms(wn_cuda.wn_stack_plain, args, kwargs), list(args[2].shape), roof,
+              device_operations_plan=plan["launches"], device_ms_whole_traces=plan["device_ms"])
 
     # block forward-save: z, ld and every saved residual
     args, kwargs = recorders["block_fwd_save"].args
@@ -1455,7 +1558,12 @@ def training_kernels(recorders: dict, launches: dict, device_line: str) -> tuple
         plain_ms = time_ms(block_cuda.block_forward_plain, (folded, g_all, x, x_mask, *cfg), {})
         roof = bound("block_fwd_save", args, kwargs, (z, ld, saves), block_cuda.block_fwd_save)
     held_products("block_fwd_save", roof, n_layers=folded["W_in"].shape[0], forward=1, backward=0)
-    entry("block_fwd_save", err, scale, ms, plain_ms, list(x.shape), roof, p_dropout=cfg[3], max_abs_err_ld=errs[1][0], max_abs_err_saves=max(e for e, _ in errs[2:]))
+    plan = held_forward_plan("block_fwd_save", lambda: block_cuda.block_fwd_save(*args, **kwargs),
+                             roof, x.shape[0] * x.shape[1], x.shape[2], folded["W_in"], cfg[0],
+                             cfg[1], True)
+    entry("block_fwd_save", err, scale, ms, plain_ms, list(x.shape), roof, p_dropout=cfg[3],
+          max_abs_err_ld=errs[1][0], max_abs_err_saves=max(e for e, _ in errs[2:]),
+          device_operations_plan=plan["launches"], device_ms_whole_traces=plan["device_ms"])
 
     # block backward-store: every gradient against autograd of the plain forward
     args, kwargs = recorders["block_bwd_store"].args
@@ -1807,10 +1915,14 @@ def decoder_mode_kernels(recorders: dict, launches_by_mode: dict, device_line: s
         z_s, ld_s, _ = block_cuda.block_fwd_save(*args, **kwargs)
         if not (torch.equal(z, z_s) and torch.equal(ld, ld_s)):
             fail("block_fwd: z or ld differ from the forward-save kernel's bits")
+        roof = bound("block_fwd", args, kwargs, (z, ld), block_cuda.block_fwd)
+        plan = held_forward_plan("block_fwd", lambda: block_cuda.block_fwd(*args, **kwargs), roof,
+                                 x.shape[0] * x.shape[1], x.shape[2], folded["W_in"], cfg[0],
+                                 cfg[1], False)
         entry("block_fwd", err, scale, time_ms(block_cuda.block_fwd, args, kwargs),
-              time_ms(block_cuda.block_forward_plain, args, kwargs), list(x.shape),
-              bound("block_fwd", args, kwargs, (z, ld), block_cuda.block_fwd), p_dropout=cfg[3], max_abs_err_ld=ld_err,
-              equals_fwd_save=True)
+              time_ms(block_cuda.block_forward_plain, args, kwargs), list(x.shape), roof,
+              p_dropout=cfg[3], max_abs_err_ld=ld_err, equals_fwd_save=True,
+              device_operations_plan=plan["launches"], device_ms_whole_traces=plan["device_ms"])
 
     # ---- block recompute backward ----
     args, kwargs = recorders["block_bwd"].args
@@ -1863,10 +1975,16 @@ def decoder_mode_kernels(recorders: dict, launches_by_mode: dict, device_line: s
             for k in ("xs", "th", "sg")
         )
         del ref_saves
+        roof = bound("wn_fwd_save", args, kwargs, (skip, saves), wn_cuda.wn_fwd_save)
+        plan = held_forward_plan("wn_fwd_save", lambda: wn_cuda.wn_fwd_save(*args, **kwargs),
+                                 roof, x.shape[0] * x.shape[1], 0, wn[0], cfg[0], cfg[1], True)
+        fwd_products = forward_product_lines(lambda: wn_cuda.wn_fwd_save(*args, **kwargs), plan,
+                                             wn[0].shape[0], device_line)
         entry("wn_fwd_save", err, scale, time_ms(wn_cuda.wn_fwd_save, args, kwargs),
-              time_ms(wn_cuda.wn_stack_plain, args, kwargs), list(x.shape),
-              bound("wn_fwd_save", args, kwargs, (skip, saves), wn_cuda.wn_fwd_save), p_dropout=cfg[2],
-              max_abs_err_saves=save_err)
+              time_ms(wn_cuda.wn_stack_plain, args, kwargs), list(x.shape), roof,
+              p_dropout=cfg[2], max_abs_err_saves=save_err,
+              device_operations_plan=plan["launches"], device_ms_whole_traces=plan["device_ms"],
+              forward_products=fwd_products)
 
     def wn_reference(wn, g_all, x, x_mask, dout, cfg):
         """Autograd of the plain stack -> (loss, inputs, gradient names)."""
@@ -1913,9 +2031,13 @@ def decoder_mode_kernels(recorders: dict, launches_by_mode: dict, device_line: s
         skip = wn_cuda.wn_stack(*args, **kwargs)
         err, scale = rel_err("wn_forward_dropout", skip, wn_cuda.wn_stack_plain(*args, **kwargs),
                              KERNEL_RTOL)
+        roof = bound("wn_forward", args, kwargs, skip, wn_cuda.wn_stack)
+        plan = held_forward_plan("wn_forward_dropout", lambda: wn_cuda.wn_stack(*args, **kwargs),
+                                 roof, x.shape[0] * x.shape[1], 0, wn[0], cfg[0], cfg[1], False)
         entry("wn_forward_dropout", err, scale, time_ms(wn_cuda.wn_stack, args, kwargs),
-              time_ms(wn_cuda.wn_stack_plain, args, kwargs), list(x.shape),
-              bound("wn_forward", args, kwargs, skip, wn_cuda.wn_stack), p_dropout=cfg[2])
+              time_ms(wn_cuda.wn_stack_plain, args, kwargs), list(x.shape), roof,
+              p_dropout=cfg[2], device_operations_plan=plan["launches"],
+              device_ms_whole_traces=plan["device_ms"])
 
     # ---- WN recompute backward ----
     args, kwargs = recorders["wn_bwd"].args

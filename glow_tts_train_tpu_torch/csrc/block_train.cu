@@ -87,9 +87,16 @@
 // operations.  The TPU kernels keep a
 // sample's block and its weight-gradient accumulators in VMEM; here every
 // product streams its operands through L2 and only the [rows, h] /
-// [rows, 2h] activations and the saved residuals reach device memory.  A
-// forward call brings scratch for the weights' K-major split, each
-// product's split written just before its GEMM reads it.
+// [rows, 2h] activations and the saved residuals reach device memory.
+//
+// The forward's design: every product's weights of a call are split in
+// one presplit_weights launch, its first operation, into the caller's one
+// scratch block (fwd_split_floats); the WN layers' products ask for the
+// TMA-fed kernel (ConvGemm::tma_ring: conv_gemm_tma_kernel, B and A
+// brought by TMA into an mbarrier ring, A staged once a channel slice for
+// all taps), whose split is written in tile order.  A recompute
+// backward runs the same products by the same plan, so its forward is
+// the store call's bit for bit.
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -106,6 +113,8 @@ namespace {
     const cudaError_t err_ = (expr);                \
     if (err_ != cudaSuccess) return (int)err_;      \
   } while (0)
+
+long round4(long floats) { return (floats + 3) / 4 * 4; }
 
 // Sizes and the dropout of one call.
 struct Dims {
@@ -156,10 +165,11 @@ WnLayers wn_stack(const Dims& d, const WnWeights& w, const float* mask, float* x
   a.batch = d.batch; a.t = d.t; a.h = d.h; a.n_layers = d.n_layers;
   a.taps = d.taps; a.dilation_rate = d.dilation_rate; a.drop = d.drop;
   a.tc_scratch = d.tc_scratch; a.tc_scratch_floats = d.tc_scratch_floats;
+  a.tma_ring = 1;
   return a;
 }
 
-// The WN stack's 2L products in order (wn_layers' launches).
+// The WN stack's 2L products in order.
 void wn_products(const WnLayers& a, std::vector<ConvGemm>* out) {
   int dilation = 1;
   for (int l = 0; l < a.n_layers; ++l) {
@@ -202,7 +212,18 @@ void block_fwd_products(const Dims& d, const float* x, const float* mask, const 
   wn_products(wn_stack(d, wn, mask, xs, th, sg, acts, skipm, 1), out);
 }
 
-// Forward of one block.  zp may be z itself (nothing kept).
+// Floats of a forward call's one scratch block: the K-major splits of its
+// products as presplit_weights lays them out (c 0: the WN stack alone; the
+// block's zp stays on the CUDA cores and splits nothing).
+long fwd_split_floats(int c, int h, int n_layers, int taps) {
+  const long h2 = 2L * h;
+  long floats = n_layers * (round4(2L * taps * h * h2) + round4(2L * h * h2));
+  if (c > 0) floats += round4(2L * (c / 2) * h) + round4(2L * h * c);
+  return floats;
+}
+
+// Forward of one block.  zp may be z itself (nothing kept).  Its products'
+// weights are split in one launch first, into d.tc_scratch.
 int block_fwd_chain(const Dims& d, const float* x, const float* mask,
                     const float* a, const float* ba, const float* w_s,
                     const float* b_s, const float* w_e, const float* b_e,
@@ -215,23 +236,26 @@ int block_fwd_chain(const Dims& d, const float* x, const float* mask,
   const int c2 = c / 2;
   std::vector<ConvGemm> fwd;
   block_fwd_products(d, x, mask, a, ba, w_s, b_s, wn, zp, skipm, xs, th, sg, acts, &fwd);
+  // z = [x0 | (m + e^logs * x1) * mask], logsm = logs * mask
+  ConvGemm e = rows_gemm(d, skipm, h, h, w_e, b_e, c, kCouplingFwd, z + c2, c, mask);
+  e.split = c2; e.flag = sigmoid_scale; e.out2 = logsm; e.ldo2 = c2;
+  std::vector<ConvGemm*> list;
+  add_products(&list, &fwd);
+  list.push_back(&e);
+  GTT_TRY(presplit_weights(list.data(), (int)list.size(), d.tc_scratch, d.tc_scratch_floats,
+                           stream));
   {
     const int err = run_products(fwd, stream);
     if (err != 0) return err;
   }
-  // z = [x0 | (m + e^logs * x1) * mask], logsm = logs * mask
   if (z != zp)
     GTT_TRY(cudaMemcpyAsync(z, zp, sizeof(float) * rows * c, cudaMemcpyDeviceToDevice, stream));
-  ConvGemm e = rows_gemm(d, skipm, h, h, w_e, b_e, c, kCouplingFwd, z + c2, c, mask);
-  e.split = c2; e.flag = sigmoid_scale; e.out2 = logsm; e.ldo2 = c2;
   GTT_TRY(conv_gemm(e, stream));
   // ld[b] = sum over the sample's rows and columns of logs * mask
   GTT_TRY(col_sum(logsm, c2, c2, nullptr, batch, t, ld_part, c2, stream));
   GTT_TRY(col_sum(ld_part, 1, 1, nullptr, batch, c2, ld, 1, stream));
   return (int)cudaGetLastError();
 }
-
-long round4(long floats) { return (floats + 3) / 4 * 4; }
 
 // Every buffer of one backward call, carved from the caller's one block
 // (bwd_scratch): the walk's res/skip cotangent g_rs, d_in_act (dia, for dg
@@ -476,38 +500,69 @@ int block_bwd_chain(const Dims& d, const WnWalk& w, const BwdScratch& s,
 // the WN stack alone (the unfused decoder)
 // ---------------------------------------------------------------------------
 
+namespace {
+
+// The WN stack's forward: its products' weights split in one launch, the
+// input copied into the layers' state (x, or xs's slice 0), the products.
+int wn_fwd_chain(const Dims& d, const WnWeights& wn, const float* x, const float* mask,
+                 float* state, float* th, float* sg, float* acts, float* skip,
+                 cudaStream_t stream) {
+  std::vector<ConvGemm> fwd;
+  wn_products(wn_stack(d, wn, mask, state, th, sg, acts, skip, 0), &fwd);
+  std::vector<ConvGemm*> list;
+  add_products(&list, &fwd);
+  GTT_TRY(presplit_weights(list.data(), (int)list.size(), d.tc_scratch, d.tc_scratch_floats,
+                           stream));
+  const long rh = (long)d.batch * d.t * d.h;
+  GTT_TRY(cudaMemcpyAsync(state, x, sizeof(float) * rh, cudaMemcpyDeviceToDevice, stream));
+  {
+    const int err = run_products(fwd, stream);
+    if (err != 0) return err;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Floats of the one scratch block a forward call of the WN stack (c 0) or
+// of the flow block (c channels) takes: its products' K-major splits.
+extern "C" long long gtt_wn_fwd_scratch_floats(int h, int n_layers, int taps) {
+  return fwd_split_floats(0, h, n_layers, taps);
+}
+
+extern "C" long long gtt_block_fwd_scratch_floats(int c, int h, int n_layers, int taps) {
+  return fwd_split_floats(c, h, n_layers, taps);
+}
+
+// Scratch: one block of gtt_wn_fwd_scratch_floats.
 extern "C" int gtt_wn_forward(
     const float* x, const float* mask, const float* w_in, const float* b_in,
     const float* w_rs, const float* b_rs, const float* g_all, float* skip,
-    float* xcur, float* acts, float* tc_scratch, int tc_scratch_floats,
+    float* xcur, float* acts, float* scratch, long long scratch_floats,
     int g_stride, int batch, int t, int h,
     int n_layers, int taps, int dilation_rate, int drop, int seed,
     unsigned threshold, float scale, cudaStream_t stream) {
+  const long need = fwd_split_floats(0, h, n_layers, taps);
+  if (need > scratch_floats) return (int)cudaErrorInvalidValue;
   const Dims d{batch, t, 0, h, n_layers, taps, dilation_rate,
-               make_dropout(drop, seed, n_layers, threshold, scale),
-               tc_scratch, tc_scratch_floats};
+               make_dropout(drop, seed, n_layers, threshold, scale), scratch, need};
   const WnWeights wn{w_in, b_in, w_rs, b_rs, g_all, g_stride};
-  const long rh = (long)batch * t * h;
-  GTT_TRY(cudaMemcpyAsync(xcur, x, sizeof(float) * rh, cudaMemcpyDeviceToDevice, stream));
-  GTT_TRY(wn_layers(wn_stack(d, wn, mask, xcur, nullptr, nullptr, acts, skip, 0), stream));
-  return (int)cudaGetLastError();
+  return wn_fwd_chain(d, wn, x, mask, xcur, nullptr, nullptr, acts, skip, stream);
 }
 
 extern "C" int gtt_wn_fwd_save(
     const float* x, const float* mask, const float* w_in, const float* b_in,
     const float* w_rs, const float* b_rs, const float* g_all, float* skip,
-    float* xs, float* th, float* sg, float* acts, float* tc_scratch, int tc_scratch_floats,
+    float* xs, float* th, float* sg, float* acts, float* scratch, long long scratch_floats,
     int g_stride, int batch,
     int t, int h, int n_layers, int taps, int dilation_rate, int drop, int seed,
     unsigned threshold, float scale, cudaStream_t stream) {
+  const long need = fwd_split_floats(0, h, n_layers, taps);
+  if (need > scratch_floats) return (int)cudaErrorInvalidValue;
   const Dims d{batch, t, 0, h, n_layers, taps, dilation_rate,
-               make_dropout(drop, seed, n_layers, threshold, scale),
-               tc_scratch, tc_scratch_floats};
+               make_dropout(drop, seed, n_layers, threshold, scale), scratch, need};
   const WnWeights wn{w_in, b_in, w_rs, b_rs, g_all, g_stride};
-  const long rh = (long)batch * t * h;
-  GTT_TRY(cudaMemcpyAsync(xs, x, sizeof(float) * rh, cudaMemcpyDeviceToDevice, stream));
-  GTT_TRY(wn_layers(wn_stack(d, wn, mask, xs, th, sg, acts, skip, 0), stream));
-  return (int)cudaGetLastError();
+  return wn_fwd_chain(d, wn, x, mask, xs, th, sg, acts, skip, stream);
 }
 
 // Floats of the one scratch block a call of the WN stack's backward
@@ -595,13 +650,14 @@ extern "C" int gtt_block_fwd(
     const float* w_s, const float* b_s, const float* w_e, const float* b_e,
     const float* w_in, const float* b_in, const float* w_rs, const float* b_rs,
     const float* g_all, float* z, float* ld, float* skipm, float* xcur,
-    float* acts, float* logsm, float* ld_part, float* tc_scratch, int tc_scratch_floats,
+    float* acts, float* logsm, float* ld_part, float* scratch, long long scratch_floats,
     int g_stride, int batch, int t,
     int c, int h, int n_layers, int taps, int dilation_rate, int sigmoid_scale,
     int drop, int seed, unsigned threshold, float scale, cudaStream_t stream) {
+  const long need = fwd_split_floats(c, h, n_layers, taps);
+  if (need > scratch_floats) return (int)cudaErrorInvalidValue;
   const Dims d{batch, t, c, h, n_layers, taps, dilation_rate,
-               make_dropout(drop, seed, n_layers, threshold, scale),
-               tc_scratch, tc_scratch_floats};
+               make_dropout(drop, seed, n_layers, threshold, scale), scratch, need};
   const WnWeights wn{w_in, b_in, w_rs, b_rs, g_all, g_stride};
   // zp is written into z: its first half is z's, the coupling rewrites the second
   return block_fwd_chain(d, x, mask, a, ba, w_s, b_s, w_e, b_e, wn, sigmoid_scale, z, ld,
@@ -614,13 +670,14 @@ extern "C" int gtt_block_fwd_save(
     const float* w_in, const float* b_in, const float* w_rs, const float* b_rs,
     const float* g_all, float* z, float* ld, float* zp, float* skipm, float* xs,
     float* th, float* sg, float* acts, float* logsm, float* ld_part,
-    float* tc_scratch, int tc_scratch_floats,
+    float* scratch, long long scratch_floats,
     int g_stride, int batch, int t, int c, int h, int n_layers, int taps,
     int dilation_rate, int sigmoid_scale, int drop, int seed,
     unsigned threshold, float scale, cudaStream_t stream) {
+  const long need = fwd_split_floats(c, h, n_layers, taps);
+  if (need > scratch_floats) return (int)cudaErrorInvalidValue;
   const Dims d{batch, t, c, h, n_layers, taps, dilation_rate,
-               make_dropout(drop, seed, n_layers, threshold, scale),
-               tc_scratch, tc_scratch_floats};
+               make_dropout(drop, seed, n_layers, threshold, scale), scratch, need};
   const WnWeights wn{w_in, b_in, w_rs, b_rs, g_all, g_stride};
   return block_fwd_chain(d, x, mask, a, ba, w_s, b_s, w_e, b_e, wn, sigmoid_scale, z, ld,
                          zp, skipm, xs, th, sg, acts, logsm, ld_part, stream);

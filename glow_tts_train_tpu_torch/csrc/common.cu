@@ -537,7 +537,7 @@ void wn_layer_products(const WnLayers& a, int l, int dilation, ConvGemm* in, Con
     g.drop = a.drop.at(l);
     g.tc_scratch = a.tc_scratch; g.tc_scratch_floats = a.tc_scratch_floats;
     if (a.w_in_split) g.w_split = a.w_in_split + (long)l * 2 * a.taps * h * 2 * h;
-    g.part = a.part; g.small_batch = a.small_batch;
+    g.part = a.part; g.small_batch = a.small_batch; g.tma_ring = a.tma_ring;
   }
   {  // x_next = (x_l + rs[:, :h]) * mask; skip += rs[:, h:]
     ConvGemm& g = *rs = ConvGemm();
@@ -551,7 +551,7 @@ void wn_layer_products(const WnLayers& a, int l, int dilation, ConvGemm* in, Con
     g.skip_init = l == 0;
     g.tc_scratch = a.tc_scratch; g.tc_scratch_floats = a.tc_scratch_floats;
     if (a.w_rs_split) g.w_split = a.w_rs_split + (long)l * 2 * h * 2 * h;
-    g.part = a.part; g.small_batch = a.small_batch;
+    g.part = a.part; g.small_batch = a.small_batch; g.tma_ring = a.tma_ring;
   }
 }
 

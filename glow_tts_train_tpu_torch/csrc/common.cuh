@@ -21,9 +21,11 @@
 //    per-sample conditioning gradient, the coupling logdet); column_sums:
 //    the same over all rows in one launch (the encoder layer's bias and
 //    norm gradients).
-//  * wn_layers: the WN stack's 2 conv_gemm launches per layer (gate, then
-//    res/skip), with or without dropout and the per-layer saves, shared by
-//    the flow block in both directions and the WN stack's own kernels.
+//  * wn_layer_products / wn_layers: the WN stack's 2 conv_gemm launches per
+//    layer (gate, then res/skip), with or without dropout and the per-layer
+//    saves, shared by the flow block in both directions and the WN stack's
+//    own kernels (the training chains split their weights first and run
+//    the products themselves; the serving block runs wn_layers).
 //  * layer_norm: one warp per row over the channel axis (eps 1e-4, biased
 //    variance), with an optional masked residual sum and ReLU before or after;
 //    in training it drops its result and keeps the normalised input and the
@@ -207,6 +209,12 @@ struct ConvGemm {
   // slice outer, tap inner, a tile's rows and their dilated halo staged
   // once a channel slice for all taps)
   int tap_staged = 0;
+  // Set by the WN training forward chains for their products: the TMA-fed
+  // tensor-core kernel where conv_gemm_tc_plan takes it (conv_gemm_tma_kernel:
+  // the same K order as the tap-staged one, B and A brought by TMA into an
+  // mbarrier ring, B shareable by a cluster of row tiles); its weights are
+  // split in tile order (WeightSplit::pair)
+  int tma_ring = 0;
 };
 
 cudaError_t conv_gemm(const ConvGemm& g, cudaStream_t stream);
@@ -217,9 +225,13 @@ cudaError_t conv_gemm(const ConvGemm& g, cudaStream_t stream);
 // w [taps * n, c_in].  A launch takes up to kMaxSplits matrices: every
 // product of a flow block's recompute backward at 4 WN layers (21).
 constexpr int kMaxSplits = 24;
+// pair: a paired epilogue's split (ConvGemm::split), or 0: B's column c
+// goes to row c of the split, or, with pair, to the tile row that reads it
+// (2c below pair, 2(c - pair) + 1 above: the pair (j, j + pair) side by
+// side, as the TMA-fed kernel copies rows as they lie).
 struct WeightSplit {
   const float* w = nullptr;
-  int ldb = 0, kdim = 0, n = 0, c_in = 1, w_t = 0;
+  int ldb = 0, kdim = 0, n = 0, c_in = 1, w_t = 0, pair = 0;
   float* big = nullptr;
   float* small = nullptr;
 };
@@ -259,6 +271,8 @@ struct TcPlan {
   int tile_rows = 0;
   int splits = 1;
   int tap_staged = 0;  // the tap-staged kernel (ConvGemm::tap_staged)
+  int tma = 0;         // the TMA-fed kernel (ConvGemm::tma_ring) ...
+  int cluster = 1;     // ... in clusters of this many row tiles
 };
 bool conv_gemm_tc_can(const ConvGemm& g);
 TcPlan conv_gemm_tc_plan(const ConvGemm& g, int sms);
@@ -313,11 +327,12 @@ cudaError_t wgrad_tc(const WGrad& w, int sms, cudaStream_t stream);
 // those whose caller had asked for the tensor-core kernel; of the
 // tensor-core ones, those in the WN reverse walk's modes: tap-staged
 // conv-GEMMs, weight gradients with a bias row, weight gradients reading
-// dY's K-major split.
+// dY's K-major split; and those in the WN forward's: TMA-fed conv-GEMMs.
 struct ProductCounts {
   long long tc_gemm = 0, tc_wgrad = 0, core_gemm = 0, core_wgrad = 0;
   long long declined_gemm = 0, declined_wgrad = 0;
   long long tap_staged_gemm = 0, bias_wgrad = 0, split_dy_wgrad = 0;
+  long long tma_gemm = 0;
 };
 ProductCounts& product_counts();
 
@@ -383,6 +398,9 @@ struct WnLayers {
   const float* w_rs_split = nullptr;
   float* part = nullptr;
   int small_batch = 0;
+  // the training chains: the products may take the TMA-fed kernel
+  // (ConvGemm::tma_ring)
+  int tma_ring = 0;
 };
 
 cudaError_t wn_layers(const WnLayers& a, cudaStream_t stream);

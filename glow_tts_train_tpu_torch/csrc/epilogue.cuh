@@ -12,7 +12,7 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-__device__ __forceinline__ bool paired(int epilogue) {
+__host__ __device__ __forceinline__ bool paired(int epilogue) {
   return epilogue == kGate || epilogue == kCouplingInv ||
          epilogue == kCouplingFwd;
 }

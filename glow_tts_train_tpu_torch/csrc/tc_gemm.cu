@@ -126,6 +126,18 @@
 // 384]); and in both weight-gradient kernels a bias row (WGrad::bias_out),
 // the output row of one more im2col column, of ones, added through
 // wgrad_reduce_kernel's split-ordered pass.
+//
+// The WN forward chains' mode (block_train.cu; wn_pallas.py _fwd_kernel and
+// _fwd_save_kernel, and the forward part of _bwd_kernel and of the block
+// kernels): conv_gemm_tma_kernel, conv_gemm_tap_kernel's product fed by
+// the Tensor Memory Accelerator into an mbarrier ring (one producer thread,
+// consumer warpgroups, no block-wide barrier in the K walk), its weights'
+// split written in tile order (WeightSplit::pair); B may be multicast to a
+// cluster of row tiles, which the plan does not take (no gain).  The
+// in-layer conv [11264, 960, 384] with the gate: 81 us against 122 tap by
+// tap.  TMA's tensor maps come from cuTensorMapEncodeTiled through the
+// runtime's driver entry point, so the library links no libcuda.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -168,9 +180,10 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // The K-major 3xTF32 splits of up to kMaxSplits weight matrices, one 32 x
 // 32 tile a block (blockIdx.y: the matrix): big, small [n, kdim] of B
-// [kdim, n].  B is w [kdim, n] (row stride ldb), or with w_t the per-tap
-// transpose of the forward conv's w [taps * n, c_in], B[tap * c_in + j, c]
-// = w[tap * n + c, j], read along its rows.  Both go through shared memory
+// [kdim, n], rows in tile order where a job has a pair (WeightSplit).  B
+// is w [kdim, n] (row stride ldb), or with w_t the per-tap transpose of
+// the forward conv's w [taps * n, c_in], B[tap * c_in + j, c] =
+// w[tap * n + c, j], read along its rows.  Both go through shared memory
 // so that reads and writes are coalesced.
 __global__ void split_weights_kernel(const WeightSplits s) {
   __shared__ float tile[32][33];  // [k][c]
@@ -198,8 +211,10 @@ __global__ void split_weights_kernel(const WeightSplits s) {
     if (c < job.n && k < job.kdim) {
       uint32_t b, sm;
       split_tf32(tile[threadIdx.x][r], b, sm);
-      job.big[(long)c * job.kdim + k] = __uint_as_float(b);
-      job.small[(long)c * job.kdim + k] = __uint_as_float(sm);
+      // tile order for a paired epilogue: the pair (j, j + pair) side by side
+      const long row = job.pair ? (c < job.pair ? 2 * c : 2 * (c - job.pair) + 1) : c;
+      job.big[row * job.kdim + k] = __uint_as_float(b);
+      job.small[row * job.kdim + k] = __uint_as_float(sm);
     }
   }
 }
@@ -319,7 +334,16 @@ __device__ __forceinline__ uint64_t b_descriptor(uint32_t addr) {
 // operand, read as the conv-GEMM reads its weights.  The staging needs
 // (kTM (kBN + 8) + 2 kBN kTM) floats: within every instantiation's shared
 // memory (conv_gemm_tc_can).
-template <int kBN, int kTM>
+// kConsumersOnly: the block also holds a producer warp
+// (conv_gemm_tma_kernel), so the epilogue's threads meet at a named barrier
+// of their own instead of the block's.
+template <int kThreads, bool kConsumersOnly>
+__device__ __forceinline__ void epilogue_sync() {
+  if (kConsumersOnly) asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+  else __syncthreads();
+}
+
+template <int kBN, int kTM, bool kConsumersOnly = false>
 __device__ __forceinline__ void tile_epilogue(const ConvGemm& g, const float (&acc)[kBN / 2],
                                               unsigned char* smem_raw, uint32_t smem_base,
                                               float* __restrict__ part_out, int m0, int n0,
@@ -332,14 +356,14 @@ __device__ __forceinline__ void tile_epilogue(const ConvGemm& g, const float (&a
   float* c_tile = reinterpret_cast<float*>(smem_raw + (smem_base - smem_addr(smem_raw)));
   // Accumulator fragment: acc[4 j + {0, 1}] are columns 8 j + 2 t + {0, 1}
   // of row frag_row, acc[4 j + {2, 3}] the same columns of row frag_row + 8.
-  __syncthreads();  // the last slice's fragment loads are done
+  epilogue_sync<kThreads, kConsumersOnly>();  // the last slice's fragment loads are done
 #pragma unroll
   for (int j = 0; j < kBN / 8; ++j) {
     float* at = c_tile + frag_row * kCStride + 8 * j + 2 * frag_col;
     *reinterpret_cast<float2*>(at) = make_float2(acc[4 * j], acc[4 * j + 1]);
     *reinterpret_cast<float2*>(at + 8 * kCStride) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
   }
-  __syncthreads();
+  epilogue_sync<kThreads, kConsumersOnly>();
   const bool stash = g.epilogue == kGateBwd && g.out4 != nullptr;  // alike in the block
   float* tt = c_tile + kTM * kCStride;
   auto tt_at = [](int jj, int r) {
@@ -384,7 +408,7 @@ __device__ __forceinline__ void tile_epilogue(const ConvGemm& g, const float (&a
     }
   }
   if (!stash) return;
-  __syncthreads();
+  epilogue_sync<kThreads, kConsumersOnly>();
   constexpr int kChunks = kTM / 4;  // 16-byte chunks a staged column
   const long small_off = 2L * g.split * g.ldo4;  // d_xin has 2 * split columns
   for (int q = tid; q < 2 * kBN * kChunks; q += kThreads) {
@@ -828,6 +852,391 @@ cudaError_t launch_conv_gemm_tap(const ConvGemm& g, const float* big, cudaStream
   const dim3 grid((g.n + kBN - 1) / kBN, (rows + kTM - 1) / kTM);
   conv_gemm_tap_kernel<kBN, kTM><<<grid, 2 * kTM, smem, stream>>>(g, big);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// the TMA-fed conv-GEMM (the WN training forward chains' products)
+// ---------------------------------------------------------------------------
+
+// Mbarriers in shared memory (PTX mbarrier.*), each 8 bytes.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// this thread's arrival, and `bytes` more that copies will complete
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// an arrival on the barrier at the same offset in CTA `rank` of the cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(bar),
+      "r"(rank)
+      : "memory");
+}
+
+// One box of a 2-D tensor map at (c0 along the rows, c1 rows) into shared
+// memory, its bytes completed on `bar`; multicast: into the same offset of
+// every CTA of the cluster in `ctas`, each completing its own `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_multicast(uint32_t dst, const CUtensorMap* map,
+                                                   uint32_t bar, int c0, int c1,
+                                                   uint16_t ctas) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "h"(ctas)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
+                   : "memory");
+}
+
+// B's ring: 4 stages in 128-row tiles (one block an SM), 2 in 64-row tiles
+// (two blocks an SM); a stage is one (channel slice, tap) step of both
+// parts of a 128-column B tile, 32 KB.  A: two stages, one a channel slice.
+__host__ __device__ constexpr int tma_stages(int tile_rows) { return tile_rows == 128 ? 4 : 2; }
+
+__host__ __device__ constexpr long tma_a_stage_bytes(int tile_rows, int taps, int dilation) {
+  return ((long)tap_halo_rows(tile_rows, taps, dilation) * 128 + 1023) / 1024 * 1024;
+}
+
+// the B ring, the two A stages, the barriers, the room to align
+__host__ __device__ constexpr long conv_gemm_tma_smem(int tile_rows, int taps, int dilation) {
+  return (long)tma_stages(tile_rows) * 2 * 128 * 128 + 2 * tma_a_stage_bytes(tile_rows, taps, dilation) +
+         128 + 1024;
+}
+
+// conv_gemm_tap_kernel's product (K walked channel slice outer, tap inner;
+// a tile's rows and their halo staged once a channel slice for all taps;
+// each tap's A fragments loaded from that stage at the tap's row offset),
+// its operands brought by the Tensor Memory Accelerator: one producer
+// thread issues every copy, two consumer warpgroups (one at 64 rows) run
+// the wgmmas, and no barrier of the whole block stands in the K walk.
+//  * B: the K-major split (big and small, [2n, K], rows in tile order: a
+//    paired epilogue's split is written so, WeightSplit::pair), one 2-D
+//    tensor map in the 128-byte swizzle; a stage is both parts' 128-row
+//    boxes at (k, n0) and (k, n + n0).  A cluster of kCluster row tiles
+//    shares the same B: each CTA copies its share of the stage's 256 rows
+//    with .multicast::cluster into every CTA of the cluster, so B leaves L2
+//    once a cluster.  full[s] completes on the stage's 32 KB (arrived on by
+//    the CTA's own producer, which expects them), empty[s] on every
+//    consumer warp of every CTA of the cluster (a producer refills a stage
+//    only when all the CTAs that its multicast writes into are done with it).
+//  * A: the flat [rows, c_in] source as a tensor map with boxes of 32
+//    channels by the tile's halo rows in the 128-byte swizzle (rows outside
+//    [0, rows), the first one negative where the tile starts the batch, come
+//    as zeros); the fragment loads read row r's 16-byte chunk c at chunk c
+//    XOR r mod 8 (conflict-free: 8 rows a warp); a tap that leaves the
+//    row's own sample reads zero.  Two stages, released when the last tap's
+//    fragments are loaded.
+//  * A consumer step: wait for the stage, issue its twelve wgmmas, load the
+//    next step's fragments, wait for the wgmmas, release the stage, add
+//    `part` (each step's products start from zero, as everywhere).
+//  * The producer is a warpgroup of its own (lane 0 of its first warp
+//    copies) that hands its registers to the consumers by setmaxnreg: a
+//    warp's registers come from its quarter of the SM's register file, so
+//    with a lone producer warp (9 warps, 3 on one quarter) ptxas held every
+//    thread to 168 registers and spilled 600 bytes; 40 producer and 232
+//    consumer registers fill a quarter at 128 rows (24 and 232 at 64 rows,
+//    two blocks an SM).  It waits until its CTA's stages are released by
+//    all the cluster's consumers before it exits, so no arrival or copy
+//    lands in a CTA that has left.
+//  * The epilogue is tile_epilogue's, its barriers named for the consumers.
+template <int kTM, int kCluster>
+__global__ void __launch_bounds__(2 * kTM + 128, kTM == 64 ? 2 : 1)
+    conv_gemm_tma_kernel(const ConvGemm g, const __grid_constant__ CUtensorMap a_map,
+                         const __grid_constant__ CUtensorMap b_map) {
+  constexpr int kBN = 128;
+  constexpr int kConsumers = 2 * kTM;  // threads of the consumer warpgroups
+  constexpr int kConsumerWarps = kConsumers / 32;
+  constexpr int kStages = tma_stages(kTM);
+  constexpr int kBTileBytes = kBN * 128;
+  constexpr int kStageBytes = 2 * kBTileBytes;
+  extern __shared__ unsigned char smem_raw[];
+  // B stages first, 1024-byte aligned for the swizzle; then the A stages
+  // (each 1024-byte aligned); then the barriers
+  const uint32_t smem_base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t b_base = smem_base;
+  const uint32_t a_base = b_base + kStages * kStageBytes;
+  const int halo_rows = tap_halo_rows(kTM, g.taps, g.dilation);
+  const uint32_t a_stage_bytes = (uint32_t)tma_a_stage_bytes(kTM, g.taps, g.dilation);
+  const uint32_t bar_base = a_base + 2 * a_stage_bytes;
+  auto full_b = [&](int s) { return bar_base + 8 * s; };
+  auto empty_b = [&](int s) { return bar_base + 8 * (kStages + s); };
+  auto full_a = [&](int s) { return bar_base + 8 * (2 * kStages + s); };
+  auto empty_a = [&](int s) { return bar_base + 8 * (2 * kStages + 2 + s); };
+
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * kTM;
+  const int n0 = blockIdx.x * kBN;
+  const int halo = (g.taps / 2) * g.dilation;  // stage rows before the tile's first
+  const int n_steps = (g.c_in / kTK) * g.taps;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_b(s), 1);
+      mbar_init(empty_b(s), kCluster * kConsumerWarps);
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(full_a(s), 1);
+      mbar_init(empty_a(s), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the barriers are initialised in every CTA before any copy or arrival
+  if (kCluster > 1) cluster_sync();
+  else __syncthreads();
+
+  if (tid >= kConsumers) {  // the producer warpgroup
+    if (kTM == 128) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    else asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == kConsumers) {
+      const int rank = kCluster > 1 ? (int)cluster_rank() : 0;
+      constexpr int kRowsPerCta = 2 * kBN / kCluster;  // stage rows (big, then small) it copies
+      constexpr int kBox = kRowsPerCta < kBN ? kRowsPerCta : kBN;
+      for (int s = 0; s < n_steps; ++s) {
+        const int cs = s / g.taps, tap = s - cs * g.taps;
+        if (tap == 0) {  // the channel slice's A stage
+          const int as = cs & 1;
+          mbar_wait(empty_a(as), ((cs >> 1) & 1) ^ 1);
+          mbar_expect_tx(full_a(as), (uint32_t)halo_rows * 128);
+          tma_load(a_base + as * a_stage_bytes, &a_map, full_a(as), cs * kTK, m0 - halo);
+        }
+        const int st = s % kStages;
+        mbar_wait(empty_b(st), ((s / kStages) & 1) ^ 1);
+        mbar_expect_tx(full_b(st), kStageBytes);
+        const int k = tap * g.c_in + cs * kTK;
+        for (int j = rank * kRowsPerCta; j < (rank + 1) * kRowsPerCta; j += kBox) {
+          const int row = j < kBN ? n0 + j : g.n + n0 + (j - kBN);
+          const uint32_t dst = b_base + st * kStageBytes + j * 128;
+          if (kCluster > 1)
+            tma_load_multicast(dst, &b_map, full_b(st), k, row, (uint16_t)((1 << kCluster) - 1));
+          else
+            tma_load(dst, &b_map, full_b(st), k, row);
+        }
+      }
+      // the last uses of every stage released, by every consumer of the cluster
+      for (int s = n_steps; s < n_steps + kStages; ++s)
+        mbar_wait(empty_b(s % kStages), ((s / kStages) & 1) ^ 1);
+    }
+    return;
+  }
+
+  // the consumers: this thread's fragment rows frag_row and frag_row + 8 of
+  // its warp's 16, and their time indices
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = tid >> 7;
+  const int warp_in_wg = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int frag_row = wg * 64 + warp_in_wg * 16 + (lane >> 2);
+  const int frag_col = lane & 3;
+  const int t_lo = (m0 + frag_row) % g.t;
+  const int t_hi = (m0 + frag_row + 8) % g.t;
+  const float* a_stages = reinterpret_cast<const float*>(smem_raw + (a_base - smem_addr(smem_raw)));
+
+  // step s's A fragments, split; the stage is waited for at the channel
+  // slice's first tap and released after its last
+  auto load_fragments = [&](int s, uint32_t (&big)[4][4], uint32_t (&small)[4][4]) {
+    const int cs = s / g.taps, tap = s - cs * g.taps;
+    if (tap == 0) mbar_wait(full_a(cs & 1), (cs >> 1) & 1);
+    const int off = g.tap_sign * (tap - g.taps / 2) * g.dilation;
+    const bool ok_lo = (unsigned)(t_lo + off) < (unsigned)g.t;
+    const bool ok_hi = (unsigned)(t_hi + off) < (unsigned)g.t;
+    const int r = frag_row + off + halo;  // and r + 8: the same swizzle phase
+    const int sw = r & 7;
+    const float* lo = a_stages + (cs & 1) * (a_stage_bytes / 4) + r * 32 + frag_col;
+    const float* hi = lo + 8 * 32;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const int c0 = ((2 * ks) ^ sw) << 2, c1 = ((2 * ks + 1) ^ sw) << 2;
+      const float v0 = ok_lo ? lo[c0] : 0.f;
+      const float v1 = ok_hi ? hi[c0] : 0.f;
+      const float v2 = ok_lo ? lo[c1] : 0.f;
+      const float v3 = ok_hi ? hi[c1] : 0.f;
+      split_tf32(v0, big[ks][0], small[ks][0]);
+      split_tf32(v1, big[ks][1], small[ks][1]);
+      split_tf32(v2, big[ks][2], small[ks][2]);
+      split_tf32(v3, big[ks][3], small[ks][3]);
+    }
+    if (tap == g.taps - 1) {
+      // these generic-proxy reads are ordered before the producer's next
+      // TMA write into the stage (async proxy) only through a proxy fence
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_a(cs & 1));
+    }
+  };
+
+  float acc[kBN / 2], part[kBN / 2];
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+
+  auto step = [&](int s, uint32_t (&big)[4][4], uint32_t (&small)[4][4],
+                  uint32_t (&next_big)[4][4], uint32_t (&next_small)[4][4]) {
+    const int st = s % kStages;
+    mbar_wait(full_b(st), (s / kStages) & 1);
+    const uint64_t d_big = b_descriptor(b_base + st * kStageBytes);
+    const uint64_t d_small = b_descriptor(b_base + st * kStageBytes + kBTileBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      Wgmma<kBN>::run(part, small[ks], d_big + 2 * ks, ks > 0);
+      Wgmma<kBN>::run(part, big[ks], d_small + 2 * ks, 1);
+    }
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) Wgmma<kBN>::run(part, big[ks], d_big + 2 * ks, 1);
+    wgmma_commit();
+    if (s + 1 < n_steps) load_fragments(s + 1, next_big, next_small);
+    wgmma_wait();
+    // this warp is done with stage st; every CTA of the cluster holds it
+    if (kCluster > 1) {
+      if (lane < kCluster) mbar_arrive_cluster(empty_b(st), lane);
+    } else if (lane == 0) {
+      mbar_arrive(empty_b(st));
+    }
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) acc[i] += part[i];
+  };
+
+  uint32_t big0[4][4], small0[4][4], big1[4][4], small1[4][4];
+  load_fragments(0, big0, small0);
+  for (int s = 0; s < n_steps; s += 2) {
+    step(s, big0, small0, big1, small1);
+    if (s + 1 < n_steps) step(s + 1, big1, small1, big0, small0);
+  }
+  // every consumer's last wgmmas are done before the epilogue's staging
+  // overwrites the B ring (no copy is left in flight into it)
+  tile_epilogue<kBN, kTM, true>(g, acc, smem_raw, smem_base, nullptr, m0, n0, frag_row, frag_col);
+}
+
+// cuTensorMapEncodeTiled, a driver function, through the runtime's entry
+// point query: the library links the CUDA runtime alone.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A row-major f32 [rows, cols] of row stride ld floats as boxes of 32
+// columns (128 bytes) by box_rows, in the 128-byte swizzle; zeros outside.
+cudaError_t tensor_map(CUtensorMap* map, const float* base, long rows, int cols, long ld,
+                       int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)kTK, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// big: the split in tile order, [2n, K]
+template <int kTM, int kCluster>
+cudaError_t launch_conv_gemm_tma(const ConvGemm& g, const float* big, cudaStream_t stream) {
+  const long rows = (long)g.batch * g.t;
+  const int kdim = g.taps * g.c_in;
+  CUtensorMap a_map, b_map;
+  cudaError_t err = tensor_map(&a_map, g.a, rows, g.c_in, g.lda, tap_halo_rows(kTM, g.taps, g.dilation));
+  if (err == cudaSuccess)
+    err = tensor_map(&b_map, big, 2L * g.n, kdim, kdim, 2 * 128 / kCluster < 128 ? 2 * 128 / kCluster : 128);
+  if (err != cudaSuccess) return err;
+  const int smem = (int)conv_gemm_tma_smem(kTM, g.taps, g.dilation);
+  err = cudaFuncSetAttribute(conv_gemm_tma_kernel<kTM, kCluster>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (int)((rows + kTM - 1) / kTM);
+  cudaLaunchConfig_t cfg = {};
+  // row tiles rounded up to whole clusters: a tile past the last row copies
+  // zeros and writes nothing
+  cfg.gridDim = dim3(g.n / 128, (tiles + kCluster - 1) / kCluster * kCluster);
+  cfg.blockDim = dim3(2 * kTM + 128);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = kCluster;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, conv_gemm_tma_kernel<kTM, kCluster>, g, a_map, b_map);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+cudaError_t launch_conv_gemm_tma(const ConvGemm& g, const float* big, int tile_rows, int cluster,
+                                 cudaStream_t stream) {
+  if (tile_rows == 128) {
+    if (cluster == 1) return launch_conv_gemm_tma<128, 1>(g, big, stream);
+    if (cluster == 2) return launch_conv_gemm_tma<128, 2>(g, big, stream);
+    if (cluster == 4) return launch_conv_gemm_tma<128, 4>(g, big, stream);
+  } else if (tile_rows == 64) {
+    if (cluster == 1) return launch_conv_gemm_tma<64, 1>(g, big, stream);
+    if (cluster == 2) return launch_conv_gemm_tma<64, 2>(g, big, stream);
+    if (cluster == 4) return launch_conv_gemm_tma<64, 4>(g, big, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -1309,6 +1718,22 @@ constexpr long kLoneSentenceRows = 1024;
 constexpr int kTapTileRows = 64;
 constexpr long kMaxBlockSmem = 232448;
 
+// The TMA-fed kernel (ConvGemm::tma_ring, the WN training forward chains'
+// products) in its tile and cluster: 64-row tiles, two blocks an SM, and no
+// cluster.  At the in-layer conv [11264, 960, 384] with the gate 81.3 us on
+// the device against 84.8 in 128-row tiles, 82.6 and 85.6 in clusters of 2
+// (B multicast: no gain once A is staged once a channel slice; clusters of
+// 4 read 120.6 and 125.0), and 121.9 tap by tap; at h 256 147.8 against
+// 229.0; the 1x1 res/skip product [11264, 192, 384] 32.0 against 38.5 tap by
+// tap (scripts/torch-wn-fwd-sweep.py, PERF.md), so it takes the kernel too
+// (kTmaOneTap).  It needs 32-channel slices, 128-column tiles, a halo
+// shorter than the tile, its stages within a block's shared memory, no
+// a_mask, and blocks for a quarter of the SMs.  Else the product takes the
+// tap-by-tap walk.
+constexpr int kTmaTileRows = 64;
+constexpr int kTmaCluster = 1;
+constexpr bool kTmaOneTap = true;
+
 namespace {
 
 long row_tiles(const ConvGemm& g, int tile_rows) {
@@ -1322,6 +1747,14 @@ bool tap_staged_takes(const ConvGemm& g, int sms) {
          g.out4 == nullptr && g.part == nullptr && !g.small_batch &&
          conv_gemm_tap_smem(bn, kTapTileRows, g.taps, g.dilation) <= kMaxBlockSmem &&
          4 * row_tiles(g, kTapTileRows) * ((g.n + bn - 1) / bn) >= sms;
+}
+
+bool tma_takes(const ConvGemm& g, int sms, int tile_rows) {
+  return g.tma_ring && (g.taps > 1 || kTmaOneTap) && g.c_in % kTK == 0 && g.n % 128 == 0 &&
+         g.lda % 4 == 0 && aligned16(g.a) && (g.taps - 1) * g.dilation < tile_rows &&
+         g.a_mask == nullptr && g.out4 == nullptr && g.part == nullptr && !g.small_batch &&
+         !g.tap_staged && conv_gemm_tma_smem(tile_rows, g.taps, g.dilation) <= kMaxBlockSmem &&
+         4 * row_tiles(g, tile_rows) * (g.n / 128) >= sms;
 }
 
 // (waves times slices a block, shares) of the best share count
@@ -1352,6 +1785,12 @@ TcPlan conv_gemm_tc_plan(const ConvGemm& g, int sms) {
   if (tap_staged_takes(g, sms)) {
     p.tile_rows = kTapTileRows;
     p.tap_staged = 1;
+    return p;
+  }
+  if (tma_takes(g, sms, kTmaTileRows)) {
+    p.tile_rows = kTmaTileRows;
+    p.tma = 1;
+    p.cluster = kTmaCluster;
     return p;
   }
   if (g.small_batch) {  // the serving chain
@@ -1390,10 +1829,14 @@ cudaError_t split_weights(const WeightSplits& s, cudaStream_t stream) {
 
 namespace {
 
-WeightSplit split_job(const ConvGemm& g, float* big) {
+// The split job of a product's weights, in the order its plan's kernel
+// reads them: the TMA-fed kernel copies rows as they lie, so a paired
+// epilogue's split goes in tile order.
+WeightSplit split_job(const ConvGemm& g, const TcPlan& p, float* big) {
   WeightSplit job;
   job.w = g.w; job.ldb = g.ldb ? g.ldb : g.n; job.kdim = g.taps * g.c_in; job.n = g.n;
   job.c_in = g.c_in; job.w_t = g.w_t; job.big = big; job.small = big + (long)job.kdim * g.n;
+  job.pair = p.tma && paired(g.epilogue) ? g.split : 0;
   return job;
 }
 
@@ -1411,7 +1854,7 @@ cudaError_t presplit_weights(ConvGemm* const* gs, int count, float* scratch, lon
     ConvGemm& g = *gs[i];
     const long need = 2L * g.taps * g.c_in * g.n;
     if (used + need > floats || !conv_gemm_tc_fits(g, sms)) continue;
-    s.job[s.count++] = split_job(g, scratch + used);
+    s.job[s.count++] = split_job(g, conv_gemm_tc_plan(g, sms), scratch + used);
     g.w_split = scratch + used;
     used += (need + 3) / 4 * 4;
     if (s.count == kMaxSplits) {
@@ -1424,17 +1867,21 @@ cudaError_t presplit_weights(ConvGemm* const* gs, int count, float* scratch, lon
 
 cudaError_t conv_gemm_tc(const ConvGemm& g, int sms, cudaStream_t stream) {
   if (!conv_gemm_tc_can(g)) return cudaErrorInvalidValue;
+  // a plan that declines (the bare kernel forced on a shape): 128-row tiles
+  const TcPlan p = conv_gemm_tc_plan(g, sms);
   const float* big = g.w_split;
   if (big == nullptr) {  // split here, into the chain's scratch
     WeightSplits s;
-    s.job[s.count++] = split_job(g, g.tc_scratch);
+    s.job[s.count++] = split_job(g, p, g.tc_scratch);
     const cudaError_t err = split_weights(s, stream);
     if (err != cudaSuccess) return err;
     ++product_splits();
     big = g.tc_scratch;
   }
-  // a plan that declines (the bare kernel forced on a shape): 128-row tiles
-  const TcPlan p = conv_gemm_tc_plan(g, sms);
+  if (p.tma) {
+    ++product_counts().tma_gemm;
+    return launch_conv_gemm_tma(g, big, p.tile_rows, p.cluster, stream);
+  }
   const bool bn128 = conv_gemm_tc_bn(g.n) == 128;
   if (p.tap_staged) {
     ++product_counts().tap_staged_gemm;
@@ -1509,7 +1956,8 @@ cudaError_t wgrad_tc(const WGrad& w, int sms, cudaStream_t stream) {
 // cores; 3: as the text chains run it (split-K allowed); 4: as the serving
 // inverse chain runs it (finer split-K for a lone sentence, 64-row tiles);
 // 5: as the WN reverse walk runs its transposed conv (tap-staged where the
-// plan takes it).  The
+// plan takes it); 6: as the WN forward chains run their products (TMA-fed
+// where the plan takes it).  The
 // scratch holds the weights' split, then the split-K partial sums
 // (kSplitKCols floats a row, kLoneSplitKCols in mode 4).  w_t: w is the forward conv's [taps * n, c_in] and the
 // product its per-tap transpose.
@@ -1532,6 +1980,7 @@ extern "C" int gtt_tc_conv_gemm(const float* a, const float* w, const float* a_m
     if (split_k) g.part = scratch + split_floats;
     g.small_batch = mode == 4;
     g.tap_staged = mode == 5;
+    g.tma_ring = mode == 6;
   }
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1561,7 +2010,7 @@ extern "C" int gtt_tc_conv_gemm_tiled(const float* a, const float* w, float* out
   g.tc_scratch = scratch; g.tc_scratch_floats = split_floats; g.part = scratch + split_floats;
   if (!conv_gemm_tc_can(g)) return (int)cudaErrorInvalidValue;
   WeightSplits s;
-  s.job[s.count++] = split_job(g, scratch);
+  s.job[s.count++] = split_job(g, TcPlan(), scratch);
   cudaError_t err = split_weights(s, stream);
   if (err != cudaSuccess) return (int)err;
   g.w_split = scratch;
@@ -1598,11 +2047,64 @@ extern "C" int gtt_tc_conv_gemm_walk(const float* a, const float* w, float* out,
   g.tc_scratch = scratch; g.tc_scratch_floats = split_floats;
   if (!conv_gemm_tc_can(g)) return (int)cudaErrorInvalidValue;
   WeightSplits s;
-  s.job[s.count++] = split_job(g, scratch);
+  s.job[s.count++] = split_job(g, TcPlan(), scratch);
   cudaError_t err = split_weights(s, stream);
   if (err != cudaSuccess) return (int)err;
   g.w_split = scratch;
   if (tap_staged) {
+    if (tile_rows == 64)
+      return (int)(bn == 128 ? launch_conv_gemm_tap<128, 64>(g, scratch, stream)
+                             : launch_conv_gemm_tap<64, 64>(g, scratch, stream));
+    return (int)(bn == 128 ? launch_conv_gemm_tap<128, 128>(g, scratch, stream)
+                           : launch_conv_gemm_tap<64, 128>(g, scratch, stream));
+  }
+  if (tile_rows == 64)
+    return (int)(bn == 128 ? launch_conv_gemm_tc<128, 64>(g, scratch, 1, stream)
+                           : launch_conv_gemm_tc<64, 64>(g, scratch, 1, stream));
+  return (int)(bn == 128 ? launch_conv_gemm_tc<128, 128>(g, scratch, 1, stream)
+                         : launch_conv_gemm_tc<64, 128>(g, scratch, 1, stream));
+}
+
+// The WN forward's in-layer conv on the tensor cores by a given kernel,
+// whatever the plan would take: for sweeping the forward chains' plan.
+// out [batch * t, n] = im2col(a) @ w (gate 0: the bare product, out's row
+// stride n), or with gate its gated activations tanh(u) * sigmoid(v) of the
+// pairs (u, v) = (column j, column j + n / 2), [batch * t, n / 2].
+// kernel 0: tap by tap (conv_gemm_tc_kernel), 1: tap-staged
+// (conv_gemm_tap_kernel), 2: TMA-fed (conv_gemm_tma_kernel) in clusters of
+// `cluster` row tiles, 3: tap-staged in 64-column tiles (two blocks an SM
+// at 64 rows); in `tile_rows`-row tiles (128 or 64).  The weights'
+// split is made in the order the kernel reads (scratch as gtt_tc_conv_gemm's).
+extern "C" int gtt_tc_conv_gemm_fwd(const float* a, const float* w, float* out, float* scratch,
+                                    long long scratch_floats, int batch, int t, int c_in,
+                                    int taps, int dilation, int n, int gate, int kernel,
+                                    int tile_rows, int cluster, cudaStream_t stream) {
+  using namespace gtt;
+  ConvGemm g;
+  g.a = a; g.lda = c_in; g.c_in = c_in; g.taps = taps; g.dilation = dilation;
+  g.batch = batch; g.t = t; g.w = w; g.n = n; g.out = out;
+  g.epilogue = gate ? kGate : kBias; g.ldo = gate ? n / 2 : n; g.split = gate ? n / 2 : 0;
+  const long split_floats = ((2L * taps * c_in * n + 3) / 4) * 4;
+  const int bn = kernel == 3 ? 64 : conv_gemm_tc_bn(n);
+  if (split_floats > scratch_floats || (tile_rows != 128 && tile_rows != 64) ||
+      (gate && n % 8) ||
+      ((kernel == 1 || kernel == 3) && (c_in % kTK || taps < kTapStages - 2 ||
+                       conv_gemm_tap_smem(bn, tile_rows, taps, dilation) > kMaxBlockSmem)) ||
+      (kernel == 2 && (c_in % kTK || n % 128 || (taps - 1) * dilation >= tile_rows ||
+                       conv_gemm_tma_smem(tile_rows, taps, dilation) > kMaxBlockSmem)) ||
+      kernel < 0 || kernel > 3)
+    return (int)cudaErrorInvalidValue;
+  g.tc_scratch = scratch; g.tc_scratch_floats = split_floats;
+  if (!conv_gemm_tc_can(g)) return (int)cudaErrorInvalidValue;
+  TcPlan order;
+  order.tma = kernel == 2;
+  WeightSplits s;
+  s.job[s.count++] = split_job(g, order, scratch);
+  cudaError_t err = split_weights(s, stream);
+  if (err != cudaSuccess) return (int)err;
+  g.w_split = scratch;
+  if (kernel == 2) return (int)launch_conv_gemm_tma(g, scratch, tile_rows, cluster, stream);
+  if (kernel == 1 || kernel == 3) {
     if (tile_rows == 64)
       return (int)(bn == 128 ? launch_conv_gemm_tap<128, 64>(g, scratch, stream)
                              : launch_conv_gemm_tap<64, 64>(g, scratch, stream));
@@ -1643,26 +2145,29 @@ extern "C" int gtt_tc_wgrad(const float* a, const float* dy, const float* a_mask
   return (int)wgrad_tc(w, sms, stream);
 }
 
-// big, small [n, kdim] = the K-major 3xTF32 split of w [kdim, n].
+// big, small [n, kdim] = the K-major 3xTF32 split of w [kdim, n]; with
+// pair, its rows in a paired epilogue's tile order (WeightSplit::pair).
 extern "C" int gtt_split_weights(const float* w, float* big, float* small, int kdim, int n,
-                                 cudaStream_t stream) {
+                                 int pair, cudaStream_t stream) {
   gtt::WeightSplits s;
   gtt::WeightSplit& job = s.job[s.count++];
   job.w = w; job.ldb = n; job.kdim = kdim; job.n = n; job.c_in = kdim; job.big = big;
-  job.small = small;
+  job.small = small; job.pair = pair;
   return (int)gtt::split_weights(s, stream);
 }
 
-// counts [9] = tensor-core conv-GEMMs, tensor-core weight gradients,
+// counts [10] = tensor-core conv-GEMMs, tensor-core weight gradients,
 // CUDA-core conv-GEMMs, CUDA-core weight gradients, of those last two the
 // ones whose chain had asked for the tensor cores, and of the tensor-core
-// ones the tap-staged conv-GEMMs, the weight gradients with a bias row and
-// those reading dY's K-major split; `reset` zeroes them after the read.
+// ones the tap-staged conv-GEMMs, the weight gradients with a bias row,
+// those reading dY's K-major split and the TMA-fed conv-GEMMs; `reset`
+// zeroes them after the read.
 extern "C" void gtt_product_counts(long long* counts, int reset) {
   gtt::ProductCounts& c = gtt::product_counts();
   counts[0] = c.tc_gemm; counts[1] = c.tc_wgrad; counts[2] = c.core_gemm;
   counts[3] = c.core_wgrad; counts[4] = c.declined_gemm; counts[5] = c.declined_wgrad;
   counts[6] = c.tap_staged_gemm; counts[7] = c.bias_wgrad; counts[8] = c.split_dy_wgrad;
+  counts[9] = c.tma_gemm;
   if (reset) c = gtt::ProductCounts();
 }
 

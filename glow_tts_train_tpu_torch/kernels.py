@@ -198,22 +198,23 @@ PRENET_BWD = Entry("gtt_prenet_bwd", "p" * 19 + "L" + "i" * 7 + "uf")
 DURATION_STACK_BWD = Entry("gtt_duration_stack_bwd", "p" * 23 + "L" + "i" * 7 + "uf")
 ENCODER_LAYER_BWD = Entry("gtt_encoder_layer_bwd", "p" * 35 + "L" + "i" * 9 + "uf")
 BLOCK_INVERSE = Entry("gtt_block_inverse", "p" * 20 + "L" + "i" * 9)
-WN_FORWARD = Entry("gtt_wn_forward", "p" * 11 + "i" * 10 + "uf")
-WN_FWD_SAVE = Entry("gtt_wn_fwd_save", "p" * 13 + "i" * 10 + "uf")
+WN_FORWARD = Entry("gtt_wn_forward", "p" * 11 + "L" + "i" * 9 + "uf")
+WN_FWD_SAVE = Entry("gtt_wn_fwd_save", "p" * 13 + "L" + "i" * 9 + "uf")
 WN_BWD_STORE = Entry("gtt_wn_bwd_store", "p" * 14 + "L" + "i" * 8 + "uf")
 WN_BWD = Entry("gtt_wn_bwd", "p" * 15 + "L" + "i" * 9 + "uf")
-BLOCK_FWD = Entry("gtt_block_fwd", "p" * 21 + "i" * 12 + "uf")
-BLOCK_FWD_SAVE = Entry("gtt_block_fwd_save", "p" * 24 + "i" * 12 + "uf")
+BLOCK_FWD = Entry("gtt_block_fwd", "p" * 21 + "L" + "i" * 11 + "uf")
+BLOCK_FWD_SAVE = Entry("gtt_block_fwd_save", "p" * 24 + "L" + "i" * 11 + "uf")
 BLOCK_BWD_STORE = Entry("gtt_block_bwd_store", "p" * 28 + "L" + "i" * 10 + "uf")
 BLOCK_BWD = Entry("gtt_block_bwd", "p" * 28 + "L" + "i" * 11 + "uf")
 MAS = Entry("gtt_mas", "p" * 5 + "i" * 3)
-# the two tensor-core device kernels alone (csrc/tc_gemm.cu), and the
-# weights' K-major split
+# the tensor-core device kernels alone (csrc/tc_gemm.cu), and the weights'
+# K-major split
 TC_CONV_GEMM = Entry("gtt_tc_conv_gemm", "p" * 5 + "L" + "i" * 10)
 TC_CONV_GEMM_TILED = Entry("gtt_tc_conv_gemm_tiled", "p" * 4 + "L" + "i" * 7)
 TC_CONV_GEMM_WALK = Entry("gtt_tc_conv_gemm_walk", "p" * 4 + "L" + "i" * 8)
+TC_CONV_GEMM_FWD = Entry("gtt_tc_conv_gemm_fwd", "p" * 4 + "L" + "i" * 10)
 TC_WGRAD = Entry("gtt_tc_wgrad", "p" * 8 + "i" * 11)
-SPLIT_WEIGHTS = Entry("gtt_split_weights", "p" * 3 + "i" * 2)
+SPLIT_WEIGHTS = Entry("gtt_split_weights", "p" * 3 + "i" * 3)
 
 ENTRIES = {
     "prenet": PRENET,
@@ -235,13 +236,14 @@ ENTRIES = {
     "tc_conv_gemm": TC_CONV_GEMM,
     "tc_conv_gemm_tiled": TC_CONV_GEMM_TILED,
     "tc_conv_gemm_walk": TC_CONV_GEMM_WALK,
+    "tc_conv_gemm_fwd": TC_CONV_GEMM_FWD,
     "tc_wgrad": TC_WGRAD,
     "split_weights": SPLIT_WEIGHTS,
 }
 
 PRODUCT_COUNT_NAMES = (
     "tc_gemm", "tc_wgrad", "core_gemm", "core_wgrad", "declined_gemm", "declined_wgrad",
-    "tap_staged_gemm", "bias_wgrad", "split_dy_wgrad",
+    "tap_staged_gemm", "bias_wgrad", "split_dy_wgrad", "tma_gemm",
 )
 
 
@@ -253,7 +255,8 @@ def product_counts(reset: bool = False) -> typing.Dict[str, int]:
     shape did not fit), and of the tensor-core ones those in the WN reverse
     walk's modes: tap-staged conv-GEMMs (``tap_staged_gemm``), weight
     gradients with a bias row (``bias_wgrad``) and reading dY's K-major
-    split (``split_dy_wgrad``).  ``reset`` zeroes the counters after the
+    split (``split_dy_wgrad``), and in the WN forward's: TMA-fed
+    conv-GEMMs (``tma_gemm``).  ``reset`` zeroes the counters after the
     read."""
     fn = library().gtt_product_counts
     fn.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
@@ -311,6 +314,18 @@ def block_inverse_scratch_floats(batch: int, t: int, c: int, h: int) -> int:
     """Floats of the one scratch block a call of the serving flow block's
     entry point carves its buffers from."""
     return _size_query("gtt_block_inverse_scratch_floats", batch, t, c, h)
+
+
+def wn_fwd_scratch_floats(h: int, n_layers: int, taps: int) -> int:
+    """Floats of the one scratch block a forward call of the WN stack takes:
+    the K-major splits of its products' weights."""
+    return _size_query("gtt_wn_fwd_scratch_floats", h, n_layers, taps)
+
+
+def block_fwd_scratch_floats(c: int, h: int, n_layers: int, taps: int) -> int:
+    """Floats of the one scratch block a forward call of the flow block
+    takes: the K-major splits of its products' weights."""
+    return _size_query("gtt_block_fwd_scratch_floats", c, h, n_layers, taps)
 
 
 def wn_bwd_scratch_floats(batch: int, t: int, h: int, n_layers: int, taps: int,

@@ -53,7 +53,7 @@ import torch
 from .. import kernels
 from .conv import conv1d, weight_norm_effective
 from .wn_cuda import (
-    check_residuals, drop_args, fold_wn_weights, needs_grad, tc_scratch, wn_stack_plain,
+    check_residuals, drop_args, fold_wn_weights, needs_grad, wn_stack_plain,
 )
 
 Params = typing.Dict[str, typing.Any]
@@ -138,10 +138,6 @@ def block_inverse_plain(
     z1 = (x1 - m) * torch.exp(-logs) * x_mask
     z = torch.cat([x0, z1], dim=-1)
     return (z @ folded["A"] + folded["bA"]) * x_mask
-
-
-def _block_tc_scratch(x_like: torch.Tensor, folded: dict) -> torch.Tensor:
-    return tc_scratch(x_like, *(folded[k] for k in ("A", "W_s", "W_e", "W_in", "W_rs")))
 
 
 # the serving block's products' weights, in the order of the C entry point
@@ -319,6 +315,11 @@ def block_forward_plain(
     return torch.cat([x0, z1], dim=-1), torch.sum(logs * x_mask, dim=(1, 2))
 
 
+def _fwd_scratch(x: torch.Tensor, h: int, n_layers: int, kernel_size: int) -> torch.Tensor:
+    """The one scratch block of a forward call: its products' weight splits."""
+    return x.new_empty((kernels.block_fwd_scratch_floats(x.shape[-1], h, n_layers, kernel_size),))
+
+
 def _check_train_operands(folded, g_all, x, x_mask, kernel_size):
     batch, t, c = x.shape
     n_layers, kh, h2 = folded["W_in"].shape
@@ -361,12 +362,12 @@ def block_fwd_save(
     ld_part = x.new_empty((batch, c // 2))
     f = folded
     drop, threshold, scale = drop_args(p_dropout)
-    tc = _block_tc_scratch(x, f)
+    scratch = _fwd_scratch(x, h, n_layers, kernel_size)
     kernels.BLOCK_FWD_SAVE(
         x, x_mask, f["A"], f["bA"], f["W_s"], f["b_s"], f["W_e"], f["b_e"],
         f["W_in"], f["b_in"], f["W_rs"], f["b_rs"], g_all,
-        z, ld, zp, skipm, xs, th, sg, acts, logsm, ld_part, tc,
-        tc.numel(), 0 if g_all is None else n_layers * 2 * h,
+        z, ld, zp, skipm, xs, th, sg, acts, logsm, ld_part, scratch,
+        scratch.numel(), 0 if g_all is None else n_layers * 2 * h,
         batch, t, c, h, n_layers, kernel_size, dilation_rate, int(sigmoid_scale),
         drop, int(seed), threshold, scale,
     )
@@ -395,12 +396,12 @@ def block_fwd(
     ld_part = x.new_empty((batch, c // 2))
     f = folded
     drop, threshold, scale = drop_args(p_dropout)
-    tc = _block_tc_scratch(x, f)
+    scratch = _fwd_scratch(x, h, n_layers, kernel_size)
     kernels.BLOCK_FWD(
         x, x_mask, f["A"], f["bA"], f["W_s"], f["b_s"], f["W_e"], f["b_e"],
         f["W_in"], f["b_in"], f["W_rs"], f["b_rs"], g_all,
-        z, ld, skipm, xcur, acts, logsm, ld_part, tc,
-        tc.numel(), 0 if g_all is None else n_layers * 2 * h,
+        z, ld, skipm, xcur, acts, logsm, ld_part, scratch,
+        scratch.numel(), 0 if g_all is None else n_layers * 2 * h,
         batch, t, c, h, n_layers, kernel_size, dilation_rate, int(sigmoid_scale),
         drop, int(seed), threshold, scale,
     )

@@ -22,21 +22,24 @@ order by a second pass, where that makes fewer waves), "serve" as the
 serving flow block's chain dispatches (the tensor cores in 128- or 64-row
 tiles, a lone sentence's K walk in finer shares), "walk" as the WN reverse
 walk dispatches its transposed conv (the tap-staged kernel where
-:func:`walk_transposed_plan` takes it), "tc" the tensor-core kernel over
-the whole K walk, tap by tap, or an error, "core" the CUDA-core kernel.
+:func:`walk_transposed_plan` takes it), "fwd" as the WN forward chains
+dispatch their products (the TMA-fed kernel where :func:`forward_conv_plan`
+takes it), "tc" the tensor-core kernel over the whole K walk, tap by tap,
+or an error, "core" the CUDA-core kernel.
 :func:`weight_gradient` also gives the bias row (the column sums of dY,
 the weight gradient of a column of ones) and reads dY's K-major split, as
 the walk's dW_in does.  :func:`walk_products` is the plan of the WN
-reverse walk and of the flow block's backward around it: every product,
-the unit and mode it takes, its tiles and splits, and the device
-operations of a call.
+reverse walk and of the flow block's backward around it, and
+:func:`forward_products` of the WN stack's and the flow block's forward
+calls: every product, the unit and mode it takes, its tiles and splits,
+and the device operations of a call.
 
 The layout helpers are the plain versions of what the kernels do to the
 weights: :func:`split_weights_plain` the K-major 3xTF32 split that
 ``split_weights_kernel`` writes before a chain's tensor-core conv-GEMMs
-(or once at load, for the serving flow block),
-:func:`physical_cols` the row order in which a paired epilogue's tile
-reads it.
+(or once at load, for the serving flow block), in tile order for the
+TMA-fed kernel's paired epilogue, :func:`physical_cols` the row order in
+which a paired epilogue's tile reads it.
 """
 
 import typing
@@ -46,7 +49,7 @@ import torch
 from .. import kernels
 from .conv import _shifted, offsets
 
-_MODES = {"auto": 0, "tc": 1, "core": 2, "text": 3, "serve": 4, "walk": 5}
+_MODES = {"auto": 0, "tc": 1, "core": 2, "text": 3, "serve": 4, "walk": 5, "fwd": 6}
 # split-K's limits (csrc/common.cuh kSplitKCols, csrc/tc_gemm.cu): partial
 # sums a row over all shares, shares, 32-deep slices a share, rows
 SPLIT_K_COLS, SPLIT_K_MAX, SPLIT_K_MIN_SLICES, SPLIT_K_MIN_ROWS = 1536, 4, 4, 512
@@ -54,9 +57,9 @@ SPLIT_K_COLS, SPLIT_K_MAX, SPLIT_K_MIN_SLICES, SPLIT_K_MIN_ROWS = 1536, 4, 4, 51
 # (kLoneSplits, kLoneSplitKCols, kLoneSentenceRows)
 LONE_SPLIT_K_COLS, LONE_SPLIT_K_MAX, LONE_SPLIT_K_MIN_SLICES = 3072, 8, 2
 LONE_SENTENCE_ROWS = 1024
-# kernels.product_counts of the WN reverse walk's modes, for the chains
-# that ask for none of them
-WALK_MODES_NONE = {"tap_staged_gemm": 0, "bias_wgrad": 0, "split_dy_wgrad": 0}
+# kernels.product_counts of the flow chains' modes (the WN reverse walk's
+# and the WN forward's TMA-fed conv), for the chains that ask for none of them
+WALK_MODES_NONE = {"tap_staged_gemm": 0, "bias_wgrad": 0, "split_dy_wgrad": 0, "tma_gemm": 0}
 _TF32_MASK = -8192  # 0xffffe000 as int32: clears the low 13 mantissa bits
 _TF32_HALF = 0x1000  # half of the last kept bit
 
@@ -243,6 +246,123 @@ def walk_transposed_plan(
     return {"mode": "core", "tile_rows": 0, "bn": 0, "smem": 0}
 
 
+# the TMA-fed conv-GEMM (csrc/tc_gemm.cu kTmaTileRows, kTmaCluster,
+# kTmaOneTap, tma_stages): tile rows, row tiles a cluster, whether the 1x1
+# res/skip product takes it, B stages in 128- and 64-row tiles
+TMA_TILE_ROWS, TMA_CLUSTER, TMA_ONE_TAP = 64, 1, True
+TMA_STAGES = {128: 4, 64: 2}
+
+
+def tma_smem(tile_rows: int, taps: int, dilation: int) -> int:
+    """Shared memory of the TMA-fed conv-GEMM (``conv_gemm_tma_smem``): the
+    B ring of 32 KB stages, two A stages of the tile's rows and their halo
+    (128 bytes a row, each stage 1024-byte aligned), the barriers and the
+    room to align."""
+    a_stage = -(-(tile_rows + (taps - 1) * dilation) * 128 // 1024) * 1024
+    return TMA_STAGES[tile_rows] * 2 * 128 * 128 + 2 * a_stage + 128 + 1024
+
+
+def forward_conv_plan(
+    rows: int, c_in: int, n: int, taps: int, dilation: int, sms: int
+) -> typing.Dict[str, typing.Any]:
+    """A product of the WN forward chains [rows, taps * c_in, n]
+    (``conv_gemm_tc_plan`` with ``ConvGemm::tma_ring``) -> {"mode": "tma",
+    "tap_by_tap" or "core", "tile_rows", "cluster", "bn", "smem"}: the
+    TMA-fed kernel in TMA_TILE_ROWS-row tiles and clusters of TMA_CLUSTER
+    where it has taps (or TMA_ONE_TAP), 32-channel slices, 128-column tiles,
+    a halo shorter than the tile, its stages within a block and blocks for
+    a quarter of the SMs; else the tap-by-tap walk, or the CUDA cores where
+    that declines."""
+    smem = tma_smem(TMA_TILE_ROWS, taps, dilation)
+    if ((taps > 1 or TMA_ONE_TAP) and c_in % 32 == 0 and n % 128 == 0
+            and (taps - 1) * dilation < TMA_TILE_ROWS and smem <= MAX_BLOCK_SMEM
+            and 4 * -(-rows // TMA_TILE_ROWS) * (n // 128) >= sms):
+        return {"mode": "tma", "tile_rows": TMA_TILE_ROWS, "cluster": TMA_CLUSTER, "bn": 128,
+                "smem": smem}
+    if flow_product_on_tc(rows, taps * c_in, n, sms):
+        return {"mode": "tap_by_tap", "tile_rows": 128, "cluster": 1, "bn": _bn(n),
+                "smem": conv_gemm_tc_smem(_bn(n))}
+    return {"mode": "core", "tile_rows": 0, "cluster": 0, "bn": 0, "smem": 0}
+
+
+def _forward_convs(
+    rows: int, c: int, h: int, n_layers: int, taps: int, dilation_rate: int, sms: int,
+    coupling: bool,
+) -> typing.List[dict]:
+    """The conv-GEMMs of a forward chain in launch order: the flow block's
+    zp (on the CUDA cores by design) and start product, per WN layer the
+    in-layer conv and the res/skip, and the block's coupling product."""
+    products = []
+
+    def conv(name, c_in, n, taps_=1, dilation=1, ask=True, wn=False):
+        # only the WN layers' products ask for the TMA-fed kernel
+        if wn:
+            plan = forward_conv_plan(rows, c_in, n, taps_, dilation, sms)
+        elif ask and flow_product_on_tc(rows, taps_ * c_in, n, sms):
+            plan = {"mode": "tap_by_tap", "tile_rows": 128, "cluster": 1}
+        else:
+            plan = {"mode": "core", "tile_rows": 0, "cluster": 0}
+        on = plan["mode"] != "core"
+        products.append({
+            "name": name, "kind": "conv_gemm", "shape": [rows, taps_ * c_in, n],
+            "unit": "tc" if on else "core",
+            "mode": {"tma": "TMA ring", "tap_by_tap": "whole K", "core": "core"}[plan["mode"]],
+            "tile_rows": plan["tile_rows"], "cluster": plan["cluster"], "splits": 1,
+            "bias": False, "launches": 1, "asks": ask})
+
+    if c:
+        conv("zp", c, c, ask=False)
+        conv("start", c // 2, h)
+    for l in range(n_layers):
+        conv(f"in_{l}", h, 2 * h, taps, dilation_rate ** l, wn=True)
+        conv(f"res_skip_{l}", h, 2 * h, wn=True)
+    if c and coupling:
+        conv("coupling", h, c)
+    return products
+
+
+def product_counts_of(products: typing.List[dict]) -> typing.Dict[str, int]:
+    """``kernels.product_counts`` of a call that launches ``products``."""
+    convs = [p for p in products if p["kind"] == "conv_gemm"]
+    wgrads = [p for p in products if p["kind"] == "wgrad"]
+    return {
+        "tc_gemm": sum(p["unit"] == "tc" for p in convs),
+        "tc_wgrad": sum(p["unit"] == "tc" for p in wgrads),
+        "core_gemm": sum(p["unit"] == "core" for p in convs),
+        "core_wgrad": sum(p["unit"] == "core" for p in wgrads),
+        "declined_gemm": sum(p["unit"] == "core" and p["asks"] for p in convs),
+        "declined_wgrad": sum(p["unit"] == "core" for p in wgrads),
+        "tap_staged_gemm": sum(p["mode"] == "tap staged" for p in convs),
+        "bias_wgrad": sum(p["unit"] == "tc" and p["bias"] for p in wgrads),
+        "split_dy_wgrad": sum(p["mode"] == "split dY" for p in wgrads),
+        "tma_gemm": sum(p["mode"] == "TMA ring" for p in convs),
+    }
+
+
+def forward_products(
+    rows: int, c: int, h: int, n_layers: int, taps: int, dilation_rate: int, sms: int,
+    save: bool = False,
+) -> typing.Dict[str, typing.Any]:
+    """The plan of one forward call over ``rows`` rows (csrc/block_train.cu):
+    the WN stack's (``c`` 0: ``gtt_wn_forward``, with ``save``
+    ``gtt_wn_fwd_save``, rows 5 and 6 of PERF.md's table) or the flow
+    block's (``c`` channels: ``gtt_block_fwd``, ``gtt_block_fwd_save``, rows
+    9 and 10).  -> {"products": per conv-GEMM its name, shape [rows, K, N],
+    unit ("tc"/"core"), mode ("TMA ring", "whole K" tap by tap, "core"),
+    tile rows and cluster; "splits": the weight matrices split in the call's
+    one presplit launch, its first operation; "launches": the device
+    operations of a call (the split, the WN stack's input copy, the
+    products, the block's ld sums and, saving, its z copy); "counts":
+    ``kernels.product_counts`` of a call}.  Operands are taken to be what
+    the kernels can read (h and c multiples of 4)."""
+    products = _forward_convs(rows, c, h, n_layers, taps, dilation_rate, sms, coupling=True)
+    split = sum(p["unit"] == "tc" for p in products)
+    fixed = 1 if c == 0 else 2 + int(save)  # x -> state; or ld's two sums and z <- zp
+    return {"products": products, "splits": split,
+            "launches": -(-split // 24) + fixed + len(products),
+            "counts": product_counts_of(products)}
+
+
 def wgrad_plan(
     rows: int, kdim: int, n: int, sms: int, bias: bool = False, on_tc: bool = True,
     scratch_floats: int = WALK_WG_FLOATS,
@@ -317,14 +437,10 @@ def walk_products(
                          "launches": launches, "asks": True})
 
     fixed = 3 if c == 0 else 2  # the walk's fills (and the WN stack's dout copy)
-    if recompute:  # the forward-save chain first
+    if recompute:  # the forward-save chain first, as forward_products plans it
         fixed += 1 if c == 0 else 0  # x -> xs
-        if c:
-            conv("fwd zp", c, c, ask=False)
-            conv("fwd start", c2, h)
-        for l in range(n_layers):
-            conv(f"fwd in_{l}", taps * h, h2)
-            conv(f"fwd res_skip_{l}", h, h2)
+        for p in _forward_convs(rows, c, h, n_layers, taps, dilation_rate, sms, coupling=False):
+            products.append(dict(p, name="fwd " + p["name"]))
     if c:
         conv("coupling", h, c2)
         wgrad("dW_e", h, c)
@@ -351,21 +467,9 @@ def walk_products(
     split = sum(p["unit"] == "tc" for p in convs)
     presplit = -(-split // 24)  # kMaxSplits matrices a launch
     dg = n_layers if with_g else 0
-    counts = {
-        "tc_gemm": sum(p["unit"] == "tc" for p in convs),
-        "tc_wgrad": sum(p["unit"] == "tc" for p in products if p["kind"] == "wgrad"),
-        "core_gemm": sum(p["unit"] == "core" for p in convs),
-        "core_wgrad": sum(p["unit"] == "core" for p in products if p["kind"] == "wgrad"),
-        "declined_gemm": sum(p["unit"] == "core" and p["asks"] for p in convs),
-        "declined_wgrad": sum(p["unit"] == "core" for p in products if p["kind"] == "wgrad"),
-        "tap_staged_gemm": sum(p["mode"] == "tap staged" for p in convs),
-        "bias_wgrad": sum(p["unit"] == "tc" and p["bias"] for p in products
-                          if p["kind"] == "wgrad"),
-        "split_dy_wgrad": sum(p["mode"] == "split dY" for p in products),
-    }
     return {"products": products, "splits": split,
             "launches": presplit + fixed + dg + sum(p["launches"] for p in products),
-            "counts": counts}
+            "counts": product_counts_of(products)}
 
 
 def block_inverse_products(
@@ -451,10 +555,13 @@ def duration_products(
                               [(taps * f, c_in), (taps * f, f)])
 
 
-def split_weights_plain(w: torch.Tensor) -> torch.Tensor:
+def split_weights_plain(w: torch.Tensor, pair: int = 0) -> torch.Tensor:
     """w [K, N] -> [2, N, K]: the K-major layout the tensor-core conv-GEMM
-    reads, ``[0]`` the big and ``[1]`` the small TF32 part."""
-    return torch.stack(tf32_split(w.T.contiguous()))
+    reads, ``[0]`` the big and ``[1]`` the small TF32 part; with ``pair`` (a
+    paired epilogue's split) its rows in tile order, row i holding column
+    ``physical_cols(N, pair)[i]``, as the TMA-fed kernel reads them."""
+    out = torch.stack(tf32_split(w.T.contiguous()))
+    return out[:, physical_cols(w.shape[1], pair)] if pair else out
 
 
 def physical_cols(n: int, split: int) -> torch.Tensor:
@@ -565,6 +672,43 @@ def conv_product_walk(
     return out
 
 
+FWD_KERNELS = {"tap_by_tap": 0, "tap_staged": 1, "tma": 2, "tap_staged_bn64": 3}
+
+
+def gate_plain(pre: torch.Tensor) -> torch.Tensor:
+    """The WN gate of a pre-activation [..., 2h] without bias, dropout or
+    conditioning: tanh of the first half times sigmoid of the second."""
+    h = pre.shape[-1] // 2
+    return torch.tanh(pre[..., :h]) * torch.sigmoid(pre[..., h:])
+
+
+def conv_product_fwd(
+    a: torch.Tensor, w: torch.Tensor, taps: int, dilation: int, kernel: str, tile_rows: int,
+    cluster: int = 1, gate: bool = False,
+) -> torch.Tensor:
+    """The WN forward's in-layer conv a [b, t, c], w [taps * c, n] ->
+    im2col(a) @ w [b, t, n] (with ``gate`` its gated activations [b, t,
+    n / 2]) on the tensor cores by ``kernel``: "tap_by_tap", "tap_staged"
+    (its 64-column tiles: "tap_staged_bn64") or "tma" (in clusters of
+    ``cluster`` row tiles), in ``tile_rows``-row
+    tiles (128 or 64), whatever :func:`forward_conv_plan` would take
+    (``scripts/torch-wn-fwd-sweep.py``).  CPU tensors take the plain
+    version."""
+    if kernels.route(a) == "plain":
+        out = conv_product_plain(a, w, taps, dilation)
+        return gate_plain(out) if gate else out
+    batch, t, c = a.shape
+    kernels.check_operands(a.device, a=a, w=w)
+    n = w.shape[1]
+    kernels.check_shape("w", w, (taps * c, n))
+    out = a.new_empty((batch, t, n // 2 if gate else n))
+    scratch = _scratch(a, 2 * w.numel() + 4)
+    kernels.TC_CONV_GEMM_FWD(
+        a, w, out, scratch, scratch.numel(), batch, t, c, taps, dilation, n, int(gate),
+        FWD_KERNELS[kernel], tile_rows, cluster)
+    return out
+
+
 def conv_product_tiled(
     a: torch.Tensor, w: torch.Tensor, taps: int, tile_rows: int, splits: int
 ) -> torch.Tensor:
@@ -629,13 +773,14 @@ def weight_gradient(
     return (out, db) if bias else out
 
 
-def split_weights(w: torch.Tensor) -> torch.Tensor:
-    """w [K, N] -> [2, N, K] by the kernel that runs before each
-    tensor-core conv-GEMM; CPU tensors take :func:`split_weights_plain`."""
+def split_weights(w: torch.Tensor, pair: int = 0) -> torch.Tensor:
+    """w [K, N] -> [2, N, K] by the kernel that splits a chain's weights
+    (in tile order with ``pair``); CPU tensors take
+    :func:`split_weights_plain`."""
     if kernels.route(w) == "plain":
-        return split_weights_plain(w)
+        return split_weights_plain(w, pair)
     kernels.check_operands(w.device, w=w)
     kdim, n = w.shape
     out = w.new_empty((2, n, kdim))
-    kernels.SPLIT_WEIGHTS(w, out[0], out[1], kdim, n)
+    kernels.SPLIT_WEIGHTS(w, out[0], out[1], kdim, n, pair)
     return out

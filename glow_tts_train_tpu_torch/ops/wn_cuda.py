@@ -10,10 +10,13 @@ On the card it is the inverse flow block's WN loop without the coupling
 (``csrc/block_train.cu`` ``gtt_wn_forward``): per layer one conv-GEMM with
 the gate in its epilogue and one 1x1 GEMM with the residual/skip split in
 its epilogue (``csrc/common.cu``; on the tensor cores, f32-accurate by
-the 3xTF32 split, where the shape fits: ``csrc/tc_gemm.cu``).  Bound: the
-operations of the in-layer conv (K = 5 * 192, N = 384) over a third of
-the TF32 peak; the gather-on-load taps keep the im2col matrix out of
-device memory.
+the 3xTF32 split, where the shape fits: ``csrc/tc_gemm.cu``), all their
+weights split in one launch a call into one scratch block
+(``kernels.wn_fwd_scratch_floats``), the in-layer conv fed by TMA into an
+mbarrier ring with its A staged once for all taps (its plan is
+``tc_gemm.forward_products``).  Bound: the operations of the in-layer
+conv (K = 5 * 192, N = 384) over a third of the TF32 peak; the
+gather-on-load taps keep the im2col matrix out of device memory.
 
 :class:`WNStackTrain` is the differentiable stack of the op-by-op decoder
 (``wn_pallas.wn_stack_fused``).  ``residuals="store"``: :func:`wn_fwd_save`
@@ -241,13 +244,6 @@ def _check_wn_operands(folded, g_all, x, x_mask, kernel_size):
     return batch, t, h, n_layers
 
 
-def tc_scratch(x_like: torch.Tensor, *weights: torch.Tensor) -> torch.Tensor:
-    """Scratch of the tensor-core conv-GEMM: room for the K-major 3xTF32
-    split (two parts) of the largest of ``weights``' ``[..., K, N]``
-    matrices; the products of one call use it in turn."""
-    return x_like.new_empty((2 * max(w.shape[-2] * w.shape[-1] for w in weights),))
-
-
 def wn_stack(
     folded: tuple,
     g_all: typing.Optional[torch.Tensor],
@@ -272,10 +268,10 @@ def wn_stack(
     xcur = torch.empty_like(x)
     acts = torch.empty_like(x)
     drop, threshold, scale = drop_args(p_dropout)
-    tc = tc_scratch(x, w_in, w_rs)
+    scratch = x.new_empty((kernels.wn_fwd_scratch_floats(h, n_layers, kernel_size),))
     kernels.WN_FORWARD(
-        x, x_mask, w_in, b_in, w_rs, b_rs, g_all, skip, xcur, acts, tc,
-        tc.numel(), 0 if g_all is None else n_layers * 2 * h,
+        x, x_mask, w_in, b_in, w_rs, b_rs, g_all, skip, xcur, acts, scratch,
+        scratch.numel(), 0 if g_all is None else n_layers * 2 * h,
         batch, t, h, n_layers, kernel_size, dilation_rate,
         drop, int(seed), threshold, scale,
     )
@@ -302,10 +298,10 @@ def wn_fwd_save(
     sg = torch.empty_like(xs)
     acts = torch.empty_like(x)
     drop, threshold, scale = drop_args(p_dropout)
-    tc = tc_scratch(x, w_in, w_rs)
+    scratch = x.new_empty((kernels.wn_fwd_scratch_floats(h, n_layers, kernel_size),))
     kernels.WN_FWD_SAVE(
-        x, x_mask, w_in, b_in, w_rs, b_rs, g_all, skip, xs, th, sg, acts, tc,
-        tc.numel(), 0 if g_all is None else n_layers * 2 * h,
+        x, x_mask, w_in, b_in, w_rs, b_rs, g_all, skip, xs, th, sg, acts, scratch,
+        scratch.numel(), 0 if g_all is None else n_layers * 2 * h,
         batch, t, h, n_layers, kernel_size, dilation_rate,
         drop, int(seed), threshold, scale,
     )

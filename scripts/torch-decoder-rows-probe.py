@@ -20,7 +20,12 @@ WN stack's kernels at [16, 704, 192] (``wn_stack`` with dropout, row 5;
 ``block_bwd_store``, 12).  Each is timed with CUDA events (median of 30
 calls after 5) and by the device's own time under torch.profiler (mean of
 10 calls: the self time of its kernels, fills and copies), with its device
-operations a call.  Prints the GPU's name and power limit with the numbers.
+operations a call.  Then the ``product wn_fwd`` lines: one ``wn_fwd_save``
+call's device operations by kind, from a trace of 3 calls between spin
+kernels (the in-layer conv and the res/skip product a layer, with TFLOP/s
+and bound, the weight-split launches and the input copy a call; the
+conv-GEMMs of a call alternate in-layer conv, res/skip in either tree).
+Prints the GPU's name and power limit with the numbers.
 """
 
 import argparse
@@ -64,6 +69,79 @@ def device_ms(fn, runs: int = 10) -> tuple:
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     return (sum(e.self_device_time_total for e in events) / 1e3 / runs,
             sum(e.count for e in events) / runs)
+
+
+def bracketed_ops(fn, calls: int) -> list:
+    """The device operations of ``calls`` calls of ``fn`` in launch order,
+    [(name, device us)], from a trace in which 16 spin kernels stand on
+    each side of them (a trace short of records at an edge is taken again,
+    up to 4 times)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(4):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(16):
+                torch.cuda._sleep(1000)
+            for _ in range(calls):
+                fn()
+            for _ in range(16):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        ops = sorted((e for e in prof.events() if e.device_type.name == "CUDA"),
+                     key=lambda e: e.time_range.start)
+        spin = ["spin" in e.name for e in ops]
+        inner = [i for i, is_spin in enumerate(spin) if not is_spin]
+        if (inner and any(spin[:inner[0]]) and any(spin[inner[-1]:])
+                and not any(spin[inner[0]:inner[-1]]) and len(inner) % calls == 0):
+            return [(ops[i].name, ops[i].time_range.elapsed_us()) for i in inner]
+    raise RuntimeError("no trace of 4 held the calls' operations between spin kernels")
+
+
+def forward_product_lines(fn, rows: int, h: int, taps: int, n_layers: int, gpu: str) -> dict:
+    """A ``wn_fwd_save`` call's device time by kind: per layer the in-layer
+    conv [rows, taps * h, 2h] and the res/skip product [rows, h, 2h] (the
+    call's conv-GEMM kernels in launch order alternate the two), per call
+    the weight-split launches and the input copy."""
+    calls = 3
+    ops = bracketed_ops(fn, calls)
+    per_call = len(ops) // calls
+    total = {"in_conv": 0.0, "res_skip": 0.0, "splits": 0.0, "copy": 0.0}
+    kernels_by_kind = {"in_conv": set(), "res_skip": set()}
+    splits = 0
+    for c in range(calls):
+        gemm = 0
+        for name, us in ops[c * per_call:(c + 1) * per_call]:
+            if "split_weights_kernel" in name:
+                total["splits"] += us
+                splits += 1
+            elif "Memcpy" in name or "memcpy" in name:
+                total["copy"] += us
+            else:
+                kind = "in_conv" if gemm % 2 == 0 else "res_skip"
+                total[kind] += us
+                kernels_by_kind[kind].add(name.split("(")[0].replace("void ", ""))
+                gemm += 1
+        if gemm != 2 * n_layers:
+            raise RuntimeError(f"wn_fwd_save: {gemm} conv-GEMMs in a call, {2 * n_layers} expected")
+    out = {"device_operations": per_call, "split_launches": splits // calls}
+    for kind, shape in (("in_conv", [rows, taps * h, 2 * h]), ("res_skip", [rows, h, 2 * h])):
+        us = total[kind] / (calls * n_layers)
+        flops = 2.0 * shape[0] * shape[1] * shape[2]
+        out[kind] = {"shape": shape, "device_us": us, "tflops": flops / us / 1e6,
+                     "bound_us": flops / (495e12 / 3) * 1e6,
+                     "kernels": sorted(kernels_by_kind[kind])}
+        print(f"product wn_fwd {kind}: {shape} by {', '.join(out[kind]['kernels'])}: "
+              f"{us:.1f} us on the device a layer = {out[kind]['tflops']:.1f} TFLOP/s, bound "
+              f"{out[kind]['bound_us']:.1f} us at 165 TFLOP/s [{gpu}]")
+    for kind in ("splits", "copy"):
+        out[kind + "_us"] = total[kind] / calls
+    print(f"product wn_fwd splits: {out['splits_us']:.1f} us a call in {out['split_launches']} "
+          f"launches; copy: {out['copy_us']:.1f} us a call; {per_call} device operations a "
+          f"call [{gpu}]")
+    return out
 
 
 def main() -> int:
@@ -144,6 +222,7 @@ def main() -> int:
         ms = event_ms(fn)
         dev_ms, ops = device_ms(fn)
         out[name] = {"ms": ms, "device_ms": dev_ms, "device_operations": ops}
+    out["product wn_fwd"] = forward_product_lines(rows["6 wn_fwd_save"], batch * t, h, taps, L, gpu)
     print(json.dumps(out))
     return 0
 

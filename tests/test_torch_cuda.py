@@ -1185,17 +1185,38 @@ def test_duration_stack_on_the_tensor_cores_matches_plain(dev, gin):
 # ---------------------------------------------------------------------------
 
 
-def _device_operations(fn) -> int:
-    """Kernels, fills and copies one call of ``fn`` puts on the device, by
-    torch.profiler."""
+def _device_op_names(fn) -> list:
+    """The names of the kernels, fills and copies one call of ``fn`` puts on
+    the device, in launch order, by torch.profiler, from a trace in which 16
+    spin kernels (``torch.cuda._sleep``) stand on each side of the call.  A
+    trace can come back short of records at an edge, or empty, so a trace
+    counts only where a spin kernel is left on each side of the call's
+    operations (up to 4 are taken)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(4):
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages() if e.device_type.name == "CUDA")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(16):
+                torch.cuda._sleep(1000)
+            fn()
+            for _ in range(16):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        ops = sorted((e for e in prof.events() if e.device_type.name == "CUDA"),
+                     key=lambda e: e.time_range.start)
+        spin = ["spin" in e.name for e in ops]
+        inner = [i for i, is_spin in enumerate(spin) if not is_spin]
+        if (inner and any(spin[:inner[0]]) and any(spin[inner[-1]:])
+                and not any(spin[inner[0]:inner[-1]])):
+            return [ops[i].name for i in inner]
+    raise AssertionError("no trace of 4 held a spin kernel on each side of the call's operations")
+
+
+def _device_operations(fn) -> int:
+    """Kernels, fills and copies one call of ``fn`` puts on the device."""
+    return len(_device_op_names(fn))
 
 
 # (config variant, dilation rate, rows: batch x t)
@@ -1397,3 +1418,148 @@ def test_weight_gradient_bias_row_and_split_dy_match_float64(dev, name):
         assert (out.double() - want).abs().max().item() <= PRODUCT_RTOL * want.abs().max().item()
     again = tc_gemm.weight_gradient(a, dy, taps, dilation, bias=True, dy_split=dy_split)
     assert torch.equal(again[0], got2) and torch.equal(again[1], got2_b)
+
+
+# ---------------------------------------------------------------------------
+# the WN forward chains: one weight split a call, the TMA-fed in-layer conv
+# ---------------------------------------------------------------------------
+
+
+def _held_to_forward_plan(call, fn, plan):
+    """One forward call against its plan: the product counts, no product
+    splitting its own weights, the device operations of a call with the
+    one weight-split launch first (none where nothing takes the tensor
+    cores), and the same bits twice."""
+    kernels.product_counts(reset=True)
+    kernels.product_splits(reset=True)
+    out = fn()
+    assert kernels.product_counts(reset=True) == plan["counts"], call
+    assert kernels.product_splits(reset=True) == 0, call
+    names = _device_op_names(fn)
+    assert len(names) == plan["launches"], (call, names)
+    splits = [i for i, n in enumerate(names) if "split_weights_kernel" in n]
+    assert splits == ([0] if plan["splits"] else []), (call, splits)
+    again = fn()
+    for got, want in zip(torch.utils._pytree.tree_leaves(out),
+                         torch.utils._pytree.tree_leaves(again)):
+        assert torch.equal(got, want), f"{call}: different bits twice"
+    return out
+
+
+@pytest.mark.parametrize("g", [False, True], ids=["no_g", "g_all"])
+@pytest.mark.parametrize("name", sorted(WALK_CASES))
+def test_forward_chains_take_their_plan(dev, name, g):
+    """``wn_stack``, ``wn_fwd_save``, ``block_fwd`` and ``block_fwd_save`` at
+    narrow and base width, dilation 1 and 2, with and without g (dropout
+    on): outputs and saves within 1e-4 of the plain version's max; the
+    product counts (at base width the in-layer convs TMA-fed), the device
+    operations of a call (its one weight-split launch first) as
+    ``tc_gemm.forward_products`` plans them; the same bits twice; the
+    forward that saves nothing equal to the saving one bit for bit."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    variant, rate, (b, t) = WALK_CASES[name]
+    over, n_mel = VARIANTS[variant]
+    hp = model.hyper_from_config(_config(dict(over, dilation_rate=rate), n_mel))
+    tt = tree_map(lambda a: a.to(dev), _tree(hp, 3))
+    L, h, c, taps = hp.n_block_layers, hp.h_dec, 2 * hp.out_channels, hp.kernel_size_dec
+    folded = {k: v.detach().contiguous() for k, v in block_cuda.fold_block_params(
+        tree_index(tt["decoder"]["blocks"], 0), L, hp.n_split).items()}
+    x, mask = _inputs(b, t, c, dev, seed=6)
+    lengths = torch.tensor([t, t // 2, 1, t - 3][:b], device=dev)
+    mask = (torch.arange(t, device=dev)[None, :] < lengths[:, None]).float()[..., None].contiguous()
+    x = (x * mask).contiguous()
+    g_all = torch.randn(b, L, 2 * h, device=dev) if g else None
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    wn = (folded["W_in"], folded["b_in"], folded["W_rs"], folded["b_rs"])
+    xw = (torch.randn(b, t, h, device=dev) * mask).contiguous()
+    wcfg = (taps, rate, 0.3, 2 ** 31 - 5)
+    bcfg = (taps, rate, hp.sigmoid_scale, 0.3, 2 ** 31 - 5)
+
+    plan = tc_gemm.forward_products(b * t, 0, h, L, taps, rate, sms)
+    tma = 2 * L if tc_gemm.TMA_ONE_TAP else L
+    if variant == "base_width":
+        assert plan["counts"]["tma_gemm"] == tma and plan["launches"] == 10
+    skip = _held_to_forward_plan("wn_stack", lambda: wn_cuda.wn_stack(wn, g_all, xw, mask, *wcfg),
+                                 plan)
+    save_skip, saves = _held_to_forward_plan(
+        "wn_fwd_save", lambda: wn_cuda.wn_fwd_save(wn, g_all, xw, mask, *wcfg), plan)
+    assert torch.equal(skip, save_skip)
+    ref_saves: dict = {}
+    _rel_close("wn skip", skip, wn_cuda.wn_stack_plain(wn, g_all, xw, mask, *wcfg,
+                                                       saves=ref_saves), 1e-4)
+    for k in ("xs", "th", "sg"):
+        _rel_close(f"wn {k}", saves[k], torch.stack(ref_saves[k]), 1e-4)
+
+    plan = tc_gemm.forward_products(b * t, c, h, L, taps, rate, sms)
+    z, ld = _held_to_forward_plan(
+        "block_fwd", lambda: block_cuda.block_fwd(folded, g_all, x, mask, *bcfg), plan)
+    plan = tc_gemm.forward_products(b * t, c, h, L, taps, rate, sms, save=True)
+    if variant == "base_width":
+        assert plan["counts"]["tma_gemm"] == tma and plan["launches"] == 15
+    z_s, ld_s, bsaves = _held_to_forward_plan(
+        "block_fwd_save", lambda: block_cuda.block_fwd_save(folded, g_all, x, mask, *bcfg), plan)
+    assert torch.equal(z, z_s) and torch.equal(ld, ld_s)
+    ref_saves = {}
+    z_p, ld_p = block_cuda.block_forward_plain(folded, g_all, x, mask, *bcfg, saves=ref_saves)
+    _rel_close("block z", z, z_p, 1e-4)
+    _rel_close("block ld", ld, ld_p, 1e-4)
+    for k in ("zp", "skipm"):
+        _rel_close(f"block {k}", bsaves[k], ref_saves[k], 1e-4)
+    for k in ("xs", "th", "sg"):
+        _rel_close(f"block {k}", bsaves[k], torch.stack(ref_saves[k]), 1e-4)
+
+
+def test_tile_order_split_kernel_matches_plain(dev):
+    """The weights' split in a paired epilogue's tile order, as the TMA-fed
+    kernel reads it: the plain version's bits, which are the natural
+    split's rows reordered."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    for k, n in ((960, 384), (1280, 512), (37, 50)):
+        w = torch.randn(k, n, device=dev)
+        tiled = tc_gemm.split_weights(w, n // 2)
+        assert torch.equal(tiled, tc_gemm.split_weights_plain(w, n // 2))
+        natural = tc_gemm.split_weights(w)
+        assert torch.equal(tiled, natural[:, tc_gemm.physical_cols(n, n // 2).to(dev)])
+
+
+# (batch, t, c_in, dilation): the WN forward's in-layer conv [rows, 5 c_in, 2 c_in]
+FWD_CONV_CASES = {
+    "base": (16, 704, 192, 1),
+    "ddi": (16, 576, 192, 1),
+    "base_ragged_dilation4": (3, 701, 192, 4),
+    "large_dilation2": (8, 704, 256, 2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FWD_CONV_CASES))
+def test_tma_conv_matches_float64_and_the_tap_staged_bits(dev, name):
+    """The TMA-fed conv-GEMM in 128- and 64-row tiles and clusters of 1, 2
+    and 4 row tiles, bare and with the gate's epilogue (its weights split
+    in tile order): within PRODUCT_RTOL of float64 of the same operands
+    (samples that do not fill a tile, a halo across sample edges, row tiles
+    past the last row in the last cluster), equal bit for bit to the
+    tap-staged kernel (the same K order and arithmetic); and the forward
+    chains' dispatch taking it (product counters)."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    batch, t, c_in, dilation = FWD_CONV_CASES[name]
+    taps, n = 5, 2 * c_in
+    a, w, _ = _product_inputs(dev, 23, batch, t, c_in, n, taps * c_in)
+    pre = tc_gemm.im2col_plain(a, taps, dilation).double() @ w.double()
+    for gate in (False, True):
+        ref = tc_gemm.gate_plain(pre) if gate else pre
+        scale = ref.abs().max().item()
+        staged = tc_gemm.conv_product_fwd(a, w, taps, dilation, "tap_staged", 64, gate=gate)
+        assert (staged.double() - ref).abs().max().item() <= PRODUCT_RTOL * scale
+        for tile in (128, 64):
+            for cluster in (1, 2, 4):
+                got = tc_gemm.conv_product_fwd(a, w, taps, dilation, "tma", tile, cluster, gate)
+                assert torch.equal(got, staged), (gate, tile, cluster)
+    kernels.product_counts(reset=True)
+    fwd = tc_gemm.conv_product(a, w, taps, dilation, mode="fwd")
+    counts = kernels.product_counts(reset=True)
+    assert (counts["tc_gemm"], counts["tma_gemm"]) == (1, 1)
+    assert torch.equal(fwd, tc_gemm.conv_product_fwd(a, w, taps, dilation, "tma",
+                                                     tc_gemm.TMA_TILE_ROWS, tc_gemm.TMA_CLUSTER))

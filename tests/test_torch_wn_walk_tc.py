@@ -85,6 +85,8 @@ def test_walk_plan_at_base_width(name):
         "tc_wgrad": 8 + (3 if c else 0), "core_gemm": 1 if c and recompute else 0,
         "core_wgrad": 0, "declined_gemm": 0, "declined_wgrad": 0,
         "tap_staged_gemm": 4, "bias_wgrad": 8 + (3 if c else 0), "split_dy_wgrad": 4,
+        # a recompute's forward in-layer convs take the forward chains' TMA-fed kernel
+        "tma_gemm": (8 if tc_gemm.TMA_ONE_TAP else 4) if recompute else 0,
     }
     assert plan["counts"] == want
     # the folded A's forward product stays on the CUDA cores and splits nothing
