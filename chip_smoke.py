@@ -53,7 +53,15 @@ Phases, each fatal on failure:
    step the block forward-save and backward-store once per block, MAS
    once, the prenet and the duration stack forward and backward once each,
    the encoder layer forward and backward once per layer), and serves one
-   request from the last checkpoint through the infer CLI; then 2 steps
+   request from the last checkpoint through the infer CLI; then one step
+   at ``grad_accum_steps: 2`` from a copy of the run's last state on its
+   last batch against the full-batch step from another copy (each kernel
+   launched once a slice; the paths MAS gives each way compared, and the
+   accumulation held within the JAX package's tolerances on the full
+   batch's alignment; both step times); then through the train CLI 1
+   epoch, its checkpoint and 1 epoch resumed from it (params, Adam moments
+   and count, global step) against the 2-epoch run: the checkpoints, every
+   resumed step's loss and the metrics line equal bit for bit; then 2 steps
    with ``encoder_fuse: false`` (the op-by-op text side; 2 encoder layers,
    4 blocks), which launch no text kernel;
 8. holds each training kernel against its plain version on inputs that
@@ -61,9 +69,10 @@ Phases, each fatal on failure:
    forward with the same dropout seed and, for the text stacks, at the
    kernel's own ReLU gates, which are themselves compared; the text
    stacks' forward kernels again with dropout on; MAS bit for bit, also at
-   a long shape the TPU streams and with tied scores at text widths around
-   its lanes and bands, and its cost a mel frame) and times both with CUDA
-   events, and the train step;
+   a long shape the TPU streams, with tied scores at text widths around
+   its lanes and bands, and at texts past the short path's ring (t_x 1,345,
+   2,600 and 4,096: the long path, timed against its bound), and its cost
+   a mel frame) and times both with CUDA events, and the train step;
 9. trains the same 8 steps (same corpus, seed and dropout seeds) through
    the train CLI in each of the decoder's other modes: the fused block
    with ``wn_residuals: recompute`` (per step the block forward and the
@@ -207,6 +216,24 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # a shape the TPU kernel streams through VMEM (mas_pallas.py :254/:264)
 MAS_LONG = (2, 400, 2600)
+# MAS past the short path's shared-memory ring (t_x 1,345 on): the long path,
+# the counterpart of the streamed pair (rows 17-18)
+MAS_LONG_TEXTS = ((2, 1345, 1400), (2, 2600, 2700), (1, 4096, 4200))
+# an accumulated step against the full-batch step from the same state: the
+# JAX package's tolerances (tests/test_grad_accum.py)
+ACCUM_STEPS = 2
+ACCUM_PARAM_RTOL, ACCUM_PARAM_ATOL, ACCUM_METRIC_RTOL, ACCUM_METRIC_ATOL = 3e-4, 2e-6, 3e-4, 1e-6
+# both steps timed in turns (1, n, n, 1), this many rounds, each from a fresh copy
+ACCUM_TIMED_ROUNDS = 3
+# the cells of the path matrices in which the accumulated step's own alignment
+# may differ from the full batch's, as a share of the path's cells: near-ties
+# of MAS flip with the logp product's rounding (a moved frame differs in two
+# cells); a slice taken from the wrong rows would differ almost everywhere
+ACCUM_MAX_PATH_DIFF = 0.05
+# the one leaf whose gradient is 0 up to round-off (softmax over keys is
+# invariant to q . b_k): Adam's step on it is noise of either sign, bounded
+# by the lr (as in tests/test_torch_train.py's trajectory)
+ZERO_GRADIENT_LEAF = "encoder/attn/k/b"
 # MAS with integer (tied) scores at text widths around the kernel's edges:
 # a warp's 32 lanes, a lane's rows (6 at 192), one warp's 512 rows
 MAS_TIE_WIDTHS = (32, 33, 193, 513)
@@ -697,10 +724,10 @@ class Recorder:
         setattr(self.module, self.name, self.fn)
 
 
-def time_ms(fn, args, kwargs, runs: int = TIMED_RUNS) -> float:
+def time_ms(fn, args, kwargs, runs: int = TIMED_RUNS, warmup: int = 5) -> float:
     import torch
 
-    for _ in range(5):
+    for _ in range(warmup):
         fn(*args, **kwargs)
     times = []
     for _ in range(runs):
@@ -841,10 +868,11 @@ def make_corpus(workdir: Path, repo: Path) -> tuple:
 
 
 def run_train_cli(workdir: Path, corpus: Path, manifest: dict, config_path: Path,
-                  override: dict, tag: str, n_steps: int, recorders: dict):
-    """The train CLI in-process on the corpus -> (launch counts of the run,
-    per-step rows, the last step's function, state and batch, the output
-    directory, seconds).  ``recorders`` are armed for the last step."""
+                  override: dict, tag: str, n_steps: int, recorders: dict, extra=()):
+    """The train CLI in-process on the corpus (``extra``: more of its
+    arguments) -> (launch counts of the run, per-step rows, the last step's
+    function, state and batch, the output directory, seconds).
+    ``recorders`` are armed for the last step."""
     import torch
 
     from glow_tts_train_tpu_torch import __main__ as train_cli
@@ -890,7 +918,7 @@ def run_train_cli(workdir: Path, corpus: Path, manifest: dict, config_path: Path
             "--output", str(out), "--dataset", "0", str(corpus / "phonemes.csv"),
             str(corpus / "mels"), "--mels-dir", "--config", str(config_path),
             "--config", str(override_path), "--metrics-file", str(workdir / f"{tag}.jsonl"),
-            "--platform", PLATFORM,
+            "--platform", PLATFORM, *extra,
         ])
         torch.cuda.synchronize()
     finally:
@@ -960,6 +988,8 @@ def train(workdir: Path, repo: Path, config_path: Path, device_line: str):
     print(f"train: CLI {seconds:.1f} s (corpus load, DDI, 8 steps, 2 checkpoints), encoder_fuse auto; "
           f"median step after the first {step_ms:.1f} ms; epochs {epochs}; launches {got}")
     profile = profile_step(last, device_line, config.model)
+    accum = accumulated_step(last, workdir / "fused_override.json", config_path, device_line)
+    resume = resumed_run(workdir, corpus, manifest, config_path, steps, out, want, device_line)
 
     # the op-by-op text side still trains, and launches none of the text kernels
     u_launches, u_steps, _, _, u_seconds = run_train_cli(
@@ -974,7 +1004,196 @@ def train(workdir: Path, repo: Path, config_path: Path, device_line: str):
         fail(f"train encoder_fuse false: launches {u_got}, expected {u_want}")
     print(f"train: encoder_fuse false, {UNFUSED_OVERRIDE['model']}: {UNFUSED_STEPS} steps in "
           f"{u_seconds:.1f} s, losses {[round(r['loss'], 4) for r in u_steps]}, launches {u_got}")
-    return launches, recorders, steps, step_ms, profile, ckpt, out / f"config_{1 + TRAIN_STEPS}.json"
+    return (launches, recorders, steps, step_ms, profile, ckpt,
+            out / f"config_{1 + TRAIN_STEPS}.json", {"accumulated_step": accum, "resume": resume})
+
+
+def clone_state(state, hp, device):
+    """A copy of a train state: params, Adam moments and count, step."""
+    from glow_tts_train_tpu_torch import training
+    from glow_tts_train_tpu_torch.optimize import AdamState
+
+    model = training.trainable_model(
+        {k: p.detach() for k, p in state.model.flat().items()}, hp, device
+    )
+    copy_ = training.TrainState(model, state.step)
+    copy_.opt = AdamState({k: v.clone() for k, v in state.opt.mu.items()},
+                          {k: v.clone() for k, v in state.opt.nu.items()}, state.opt.count)
+    return copy_
+
+
+def accumulated_step(last: dict, override_path: Path, config_path: Path, device_line: str) -> dict:
+    """One optimizer step at ``grad_accum_steps`` ACCUM_STEPS through the
+    kernels against the full-batch step, each from a copy of the main run's
+    state after its last step, on its last batch (b=16, dropout off: the
+    slices draw other masks than the whole batch), each kernel of the
+    default mode launched once a slice.
+
+    MAS is an argmax over cumulative sums (~1e4 at this width, ulp ~1e-3),
+    and the logp product rounds differently at b=8 and b=16 on the card, so
+    a slice's alignment may differ from the whole batch's in a few cells
+    (counted, ``path_cells_differing``, at most ACCUM_MAX_PATH_DIFF of the
+    path's cells, with that step's metric errors).  The
+    accumulation is then held on one alignment: the accumulated step again,
+    its MAS kernel launched in every slice and its path replaced by the
+    whole batch's rows: loss, mle and duration loss and grad norm within
+    ACCUM_METRIC_RTOL, every param within ACCUM_PARAM_RTOL /
+    ACCUM_PARAM_ATOL (ZERO_GRADIENT_LEAF within 2 lr: its Adam step is the
+    sign of round-off).  Then both steps timed in turns (1, n, n, 1),
+    ACCUM_TIMED_ROUNDS rounds, each from a fresh copy."""
+    import torch
+
+    from glow_tts_train_tpu_torch import kernels, training
+    from glow_tts_train_tpu_torch.config import load_config
+    from glow_tts_train_tpu_torch.models import hyper_from_config
+    from glow_tts_train_tpu_torch.ops import mas_cuda
+
+    base = last["state"]
+    batch = last["batch"]
+    configs = {}
+    for accum in (1, ACCUM_STEPS):
+        configs[accum] = load_config([config_path, override_path])
+        configs[accum].grad_accum_steps = accum
+    hp = hyper_from_config(configs[1])
+    device = batch["x"].device
+    kernel_mas = mas_cuda.maximum_path
+
+    def run(accum, pinned=None):
+        """-> (state, metrics, step ms, launch counts, the MAS paths)."""
+        paths = []
+
+        def mas(logp, mask):
+            path = kernel_mas(logp, mask)
+            if pinned is not None:
+                path = pinned[sum(p.shape[0] for p in paths):][: path.shape[0]]
+            paths.append(path)
+            return path
+
+        state = clone_state(base, hp, device)
+        step_fn = training.make_train_step(configs[accum])
+        mas_cuda.maximum_path = mas
+        try:
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - start) * 1e3
+        finally:
+            mas_cuda.maximum_path = kernel_mas
+        return state, metrics, ms, kernels.launch_counts(), torch.cat(paths)
+
+    def metric_errors(metrics, ref):
+        return {k: abs(float(metrics[k]) - float(ref[k]))
+                for k in ("loss", "mle_loss", "duration_loss", "grad_norm")}
+
+    full, full_metrics, _, full_launches, full_path = run(1)
+    _, free_metrics, _, _, free_path = run(ACCUM_STEPS)
+    differ, path_cells = int((free_path != full_path).sum().item()), int(full_path.sum().item())
+    if not differ <= ACCUM_MAX_PATH_DIFF * path_cells:
+        fail(f"accumulated step: its alignment differs from the full batch's in {differ} cells "
+             f"of {path_cells} on the path")
+    acc, acc_metrics, _, acc_launches, _ = run(ACCUM_STEPS, pinned=full_path)
+    n_blocks, n_layers = hp.n_blocks_dec, hp.n_layers_enc
+    per_slice = {"block_fwd_save": n_blocks, "block_bwd_store": n_blocks, "mas": 1, "prenet": 1,
+                 "prenet_bwd": 1, "encoder_layer": n_layers, "encoder_layer_bwd": n_layers,
+                 "duration_stack": 1, "duration_stack_bwd": 1}
+    for accum, launches in ((1, full_launches), (ACCUM_STEPS, acc_launches)):
+        want = {k: v * accum for k, v in per_slice.items()}
+        if {k: launches[k] for k in want} != want:
+            fail(f"accumulated step x{accum}: launches {launches}, expected {want}")
+    metric_err = metric_errors(acc_metrics, full_metrics)
+    for key, err in metric_err.items():
+        ref = float(full_metrics[key])
+        if not err <= ACCUM_METRIC_ATOL + ACCUM_METRIC_RTOL * abs(ref):
+            fail(f"accumulated step: {key} {float(acc_metrics[key])} against the full batch's {ref}")
+    lr = training.learning_rate_fn(configs[1])(base.opt.count)
+    full_params = full.model.flat()
+    worst, zero_leaf_err = (0.0, None), 0.0
+    for key, p in acc.model.flat().items():
+        diff = (p - full_params[key]).abs()
+        if key == ZERO_GRADIENT_LEAF:
+            zero_leaf_err = diff.max().item()
+            if not zero_leaf_err <= 2 * lr:
+                fail(f"accumulated step: {key} moved {zero_leaf_err} apart, beyond 2 lr = {2 * lr}")
+            continue
+        excess = (diff - ACCUM_PARAM_RTOL * full_params[key].abs()).max().item()
+        if not excess <= ACCUM_PARAM_ATOL:
+            fail(f"accumulated step: {key} beyond rtol {ACCUM_PARAM_RTOL} by {excess}")
+        if diff.max().item() >= worst[0]:
+            worst = (diff.max().item(), key)
+    times = {1: [], ACCUM_STEPS: []}
+    for accum in (1, ACCUM_STEPS, ACCUM_STEPS, 1) * ACCUM_TIMED_ROUNDS:
+        times[accum].append(run(accum)[2])
+    free_err = metric_errors(free_metrics, full_metrics)
+    row = {"batch_x": list(batch["x"].shape), "batch_y": list(batch["y"].shape),
+           "grad_accum_steps": ACCUM_STEPS, "metric_abs_err": metric_err,
+           "max_param_abs_err": worst[0], "worst_leaf": worst[1],
+           f"{ZERO_GRADIENT_LEAF}_abs_err": zero_leaf_err, "lr": lr,
+           "path_cells_differing": differ, "path_cells": path_cells,
+           "metric_abs_err_own_paths": free_err,
+           "step_ms_full": times[1], f"step_ms_accum_{ACCUM_STEPS}": times[ACCUM_STEPS],
+           "median_step_ms_full": statistics.median(times[1]),
+           f"median_step_ms_accum_{ACCUM_STEPS}": statistics.median(times[ACCUM_STEPS])}
+    print(f"train accumulated step: x {row['batch_x']} at grad_accum_steps {ACCUM_STEPS} against "
+          f"the full batch: with its own MAS paths {differ} cells differ ({path_cells} on the "
+          f"path), metrics abs err {free_err}; on the full batch's paths metrics abs err "
+          f"{metric_err}, params max abs err {worst[0]:.3e} ({worst[1]}), {ZERO_GRADIENT_LEAF} "
+          f"{zero_leaf_err:.3e} (lr {lr:.3e}); step ms full {[round(t, 1) for t in times[1]]} "
+          f"(median {row['median_step_ms_full']:.1f}), accumulated "
+          f"{[round(t, 1) for t in times[ACCUM_STEPS]]} (median "
+          f"{row[f'median_step_ms_accum_{ACCUM_STEPS}']:.1f}); launches "
+          f"{ {k: acc_launches[k] for k in per_slice} } [{device_line}]")
+    return row
+
+
+def resumed_run(workdir: Path, corpus: Path, manifest: dict, config_path: Path, main_steps: list,
+                main_out: Path, per_run: dict, device_line: str) -> dict:
+    """Through the train CLI: 1 epoch (fresh init, DDI), its checkpoint, and
+    1 epoch resumed from it (params, Adam moments and count, global step),
+    against the main run's 2 epochs: the first run's checkpoint equals the
+    main run's epoch-1 checkpoint bit for bit, every resumed step's loss
+    equals the main run's step, and the resumed run's last checkpoint and
+    metrics line equal the main run's; each kernel launched as the main
+    run's second epoch launched it (no DDI)."""
+    import numpy as np
+
+    half = TRAIN_STEPS // 2
+    one_epoch = dict(TRAIN_OVERRIDE, epochs=1)
+    first_launches, _, _, first_out, _ = run_train_cli(
+        workdir, corpus, manifest, config_path, one_epoch, "first", half, {}
+    )
+    mid = f"checkpoint_{1 + half}.npz"
+    launches, steps, _, out, seconds = run_train_cli(
+        workdir, corpus, manifest, config_path, one_epoch, "resumed", half, {},
+        extra=("--checkpoint", str(first_out / mid)),
+    )
+    want = {k: 0 if k == "wn_forward" else v // 2 for k, v in per_run.items()}
+    if {k: launches[k] for k in want} != want:
+        fail(f"train resumed: launches {launches}, expected {want}")
+    for name, a, b in ((mid, first_out / mid, main_out / mid),
+                       (f"checkpoint_{1 + TRAIN_STEPS}.npz", out / f"checkpoint_{1 + TRAIN_STEPS}.npz",
+                        main_out / f"checkpoint_{1 + TRAIN_STEPS}.npz")):
+        with np.load(a) as x, np.load(b) as y:
+            if sorted(x.files) != sorted(y.files) or not any(k.startswith("opt/1/mu/") for k in x.files):
+                fail(f"train resumed: {name} keys differ or hold no Adam state")
+            differ = [k for k in x.files if not np.array_equal(x[k], y[k])]
+            if differ:
+                fail(f"train resumed: {name} differs from the uninterrupted run's at {differ[:8]}")
+    losses = [row["loss"] for row in steps]
+    ref = [row["loss"] for row in main_steps[half:]]
+    if losses != ref:
+        fail(f"train resumed: step losses {losses}, the uninterrupted run's {ref}")
+    line = json.loads((workdir / "resumed.jsonl").read_text().splitlines()[-1])
+    main_line = json.loads((workdir / "fused.jsonl").read_text().splitlines()[-1])
+    keys = ("global_step", "avg_loss", "learning_rate")
+    if any(line[k] != main_line[k] for k in keys):
+        fail(f"train resumed: metrics line {line}, the uninterrupted run's {main_line}")
+    print(f"train resumed: 1 epoch, {mid}, 1 resumed epoch ({seconds:.1f} s) equal the 2-epoch run: "
+          f"step losses {[round(x, 6) for x in losses]}, checkpoints and metrics line bit for bit; "
+          f"launches {dict((k, launches[k]) for k in want)} [{device_line}]")
+    return {"step_losses": losses, "metrics_line": {k: line[k] for k in keys},
+            "first_run_launches": {k: first_launches[k] for k in want}}
 
 
 def profiled(fn) -> tuple:
@@ -1634,14 +1853,46 @@ def training_kernels(recorders: dict, launches: dict, device_line: str) -> tuple
         tie_mask[0] = 1.0
         tie_mask[1, : t_x - 5, : t_x + 200] = 1.0
         mas_err(tied.to(PLATFORM), tie_mask.to(PLATFORM), f"{list(shape)}, tied")
+    long_texts = [mas_long_text(shape, rng, mas_err, device_line) for shape in MAS_LONG_TEXTS]
     scan = mas_scan_times(logp)
     roof = bound("mas", args, kwargs, mas_cuda.maximum_path(*args, **kwargs), mas_cuda.maximum_path)
     entry("mas", err, scale, ms, plain_ms, list(logp.shape), roof,
           long_shape=list(MAS_LONG), long_bound_ms=long_roof["bound_ms"],
           long_device_ms=long_roof.get("device_ms"), long_err=long_err,
           long_max_abs_ref=long_scale, long_ms=long_ms, long_plain_ms=long_plain_ms,
-          tied_widths=list(MAS_TIE_WIDTHS), **scan)
+          tied_widths=list(MAS_TIE_WIDTHS), long_texts=long_texts, **scan)
     return report, text_kernels(recorders, launches, entry)
+
+
+def mas_long_text(shape, rng, mas_err, device_line: str) -> dict:
+    """MAS past the short path's ring (the long path, rows 17-18) at
+    ``shape``: sample 0 full, sample 1 ragged; bit for bit against the
+    plain version, timed (events; the plain version once, after the
+    comparison's call), and its bound."""
+    import torch
+
+    from glow_tts_train_tpu_torch import kernels
+    from glow_tts_train_tpu_torch.ops import mas_cuda
+
+    b, t_x, t_y = shape
+    logp = torch.from_numpy(rng.standard_normal(shape).astype("float32") * 3).to(PLATFORM)
+    mask = torch.zeros(shape, device=PLATFORM)
+    mask[0] = 1.0
+    if b > 1:
+        mask[1, : t_x - 37, : t_y - 11] = 1.0
+    err, scale = mas_err(logp, mask, list(shape))
+    ms = time_ms(mas_cuda.maximum_path, (logp, mask), {}, runs=10)
+    plain_ms = time_ms(mas_cuda.maximum_path_plain, (logp, mask), {}, runs=1, warmup=0)
+    roof = bound("mas", (logp, mask), {}, mas_cuda.maximum_path(logp, mask), mas_cuda.maximum_path)
+    held_to_bound(f"mas {list(shape)}", ms, roof)
+    words = kernels.mas_bits_words(b, t_x, t_y, logp.device)
+    row = {"shape": list(shape), "max_abs_err": err, "max_abs_ref": scale, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": roof["bound_ms"], "bound_by": roof["bound_by"],
+           "device_ms": roof.get("device_ms"), "device_words": words}
+    print(f"mas long text {list(shape)}: bit for bit, kernel {ms:.4f} ms ({roof.get('device_ms')} "
+          f"on the device), plain {plain_ms:.1f} ms, bound {roof['bound_ms']:.4f} ms by "
+          f"{roof['bound_by']}, {words} words of device memory [{device_line}]")
+    return row
 
 
 # the text kernels whose chains ask for the tensor cores
@@ -2374,9 +2625,8 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
     serve_rows = serving_times(ckpt, config, hp, device_line)
 
     # ---- main path 2: training through the train CLI ----
-    train_launches, train_recorders, steps, step_ms, train_profile, trained, trained_config = train(
-        workdir, repo, config_path, device_line
-    )
+    (train_launches, train_recorders, steps, step_ms, train_profile, trained, trained_config,
+     train_phases) = train(workdir, repo, config_path, device_line)
     serve_trained(trained, trained_config, hp.out_channels)
     train_report, forward_rows = training_kernels(train_recorders, train_launches, device_line)
     report += train_report
@@ -2396,7 +2646,7 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
     print(json.dumps({"products": products}))
     print(json.dumps({"serve": serve_rows}))
     print(json.dumps({"train": {"steps": steps, "median_step_ms_after_first": step_ms,
-                                "profiled_step": train_profile}}))
+                                "profiled_step": train_profile, **train_phases}}))
     print(json.dumps({"decoder_modes": {"runs": mode_rows, "steps": mode_steps}}))
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -3,18 +3,24 @@
 (``python -m glow_tts_train_tpu``): --output, repeatable --dataset
 <speaker_id> <phonemes_csv> <mels>, --mels-dir, --config (repeatable,
 merged in order), --batch-size, --checkpoint, --checkpoint-epochs,
---skip-missing-mels, --metrics-file, --git-commit, --debug, plus
-``--platform {cuda,cpu}``.
+--skip-missing-mels, --metrics-file, --profile-dir, --git-commit, --debug,
+plus ``--platform {cuda,cpu}``.
 
 ``--platform cuda`` (the default) trains with the hand-written CUDA
 kernels and exits with an error when no GPU is present; ``--platform
 cpu`` runs their plain PyTorch versions.  Without --checkpoint the model
-is initialised fresh and ActNorm data-dependently on the first batch; a
---checkpoint (``.npz``, params) starts Adam fresh, as the JAX CLI does for
-a checkpoint without optimizer state, and warns when the file holds
-optimizer state (``opt/`` keys), which this CLI does not read yet.  The corpus and batches come from
-the package's own ``data`` pipeline (numpy).  Single device:
-the mesh and multi-host flags are not taken.
+is initialised fresh and ActNorm data-dependently on the first batch.  A
+--checkpoint (``.npz``) resumes: its params merge into a fresh init (a
+missing or mis-shaped key keeps its fresh value, an unused one is left
+out, each with a warning), its Adam moments and count (and with them the
+Noam schedule) and its global step carry over, and the data order and
+the dropout seeds continue where the run that wrote it stopped.  Optimizer
+state that does not match this config (keys, shapes or ``opt_treedef``)
+is dropped with a warning and Adam starts fresh, as in the JAX CLI.
+``grad_accum_steps`` in the config splits each batch into that many row
+slices (exact accumulation); DDI takes the whole first batch.  The corpus
+and batches come from the package's own ``data`` pipeline (numpy).  Single
+device: the mesh and multi-host flags are not taken.
 """
 
 import argparse
@@ -54,6 +60,9 @@ def main(argv=None):
     )
     parser.add_argument("--metrics-file", help="Append per-epoch metrics as JSON lines to this file")
     parser.add_argument(
+        "--profile-dir", help="Write a torch.profiler trace of training steps 5-15 to this directory"
+    )
+    parser.add_argument(
         "--platform",
         default="cuda",
         choices=("cuda", "cpu"),
@@ -68,7 +77,7 @@ def main(argv=None):
 
     import torch
 
-    from .checkpoint import read_npz
+    from .checkpoint import merge_into, read_npz, restore_opt_state
     from .config import load_config
     from .data import (
         CorpusError,
@@ -78,7 +87,7 @@ def main(argv=None):
         build_dataset,
         detect_num_symbols,
     )
-    from .models import hyper_from_config
+    from .models import hyper_from_config, init_model
     from .training import TrainState, batch_to, check_trainable, initialize_model, train, trainable_model
 
     output = Path(args.output)
@@ -130,16 +139,24 @@ def main(argv=None):
     hp = hyper_from_config(config)
 
     if args.checkpoint:
-        dropped: list = []
-        flat, meta = read_npz(Path(args.checkpoint), dropped)
-        if dropped:
-            _LOGGER.warning(
-                "%s: dropped %s optimizer-state (opt/) keys; Adam starts fresh at count 0 "
-                "(its learning rate from the start of the schedule)",
-                args.checkpoint, len(dropped),
-            )
-        model = trainable_model({k[len("model/"):]: v for k, v in flat.items()}, hp, device)
+        saved_opt: dict = {}
+        flat, meta = read_npz(Path(args.checkpoint), saved_opt)
+        fresh = init_model(hp, torch.Generator().manual_seed(config.seed))
+        model = trainable_model(merge_into(fresh, flat), hp, device)
         state = TrainState(model, step=int(meta.get("global_step", 1)))
+        if saved_opt:
+            opt, why = restore_opt_state(
+                saved_opt, meta.get("opt_treedef"), model.flat(), config.scheduler
+            )
+            if opt is None:
+                _LOGGER.warning(
+                    "%s: dropped %s optimizer-state (opt/) keys (%s); Adam starts fresh at "
+                    "count 0 (its learning rate from the start of the schedule)",
+                    args.checkpoint, len(saved_opt), why,
+                )
+            else:
+                state.opt = opt
+                _LOGGER.info("Restored Adam state (count=%s)", opt.count)
         # continue the data order: epoch e shuffles with seed + e, and a
         # fresh run spent the epoch-0 draw on its DDI batch
         steps_per_epoch = len(pipeline)
@@ -160,6 +177,7 @@ def main(argv=None):
             pipeline.batches, config, output, state, device,
             checkpoint_epochs=args.checkpoint_epochs,
             metrics_path=Path(args.metrics_file) if args.metrics_file else None,
+            profile_dir=Path(args.profile_dir) if args.profile_dir else None,
         )
         _LOGGER.info("Training finished")
     except KeyboardInterrupt:

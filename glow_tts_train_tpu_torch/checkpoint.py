@@ -4,17 +4,25 @@ alone (``glow_tts_train_tpu/checkpoint.py`` imports jax).
 Format: one ``.npz`` whose ``model/<path>`` arrays are the param tree's
 leaves (conv weights ``[k, c_in, c_out]``, per-layer/per-block leaves
 stacked on a leading axis) and whose ``__meta__`` entry is UTF-8 JSON
-(``global_step``, ``learning_rate``, ``version``).  Optimizer leaves
-(``opt/...``) are neither read nor written: the JAX package guards them
-with a jax treedef string, so a checkpoint of the port holds params only,
-and both trainers start Adam fresh from it (the port's train CLI warns,
-counting the ``opt/`` keys it drops: :func:`read_npz`'s ``dropped``).
+(``global_step``, ``learning_rate``, ``version``, and with optimizer state
+``opt_treedef``).  The optimizer state is the JAX chain's (clip, Adam,
+schedule): ``opt/1/count`` (int32), ``opt/1/mu/<path>`` and
+``opt/1/nu/<path>`` (f32), and ``opt/2/count`` where the schedule is Noam
+(a constant lr keeps no count); ``opt_treedef`` is the string the JAX
+package's ``_opt_fingerprint`` gives for that chain over the same param
+tree (:func:`opt_treedef`, built from the param paths).  Both trainers
+read each other's state all or nothing: where keys, shapes or the
+fingerprint disagree, Adam starts fresh with a warning
+(:func:`restore_opt_state`).
 
-Loading is strict: a missing, extra or mis-shaped ``model/`` key raises.
+Loading for serving is strict (:func:`load_checkpoint`: a missing, extra
+or mis-shaped ``model/`` key raises); the train CLI's ``--checkpoint``
+merges tolerantly into a fresh init (:func:`merge_into`).
 """
 
 import io
 import json
+import logging
 import typing
 from pathlib import Path
 
@@ -22,8 +30,12 @@ import numpy as np
 import torch
 
 from .models.glow_tts import GlowTTS, GlowTTSHyper
+from .optimize import AdamState
+
+_LOGGER = logging.getLogger("glow_tts_train_tpu_torch.checkpoint")
 
 PREFIX = "model/"
+OPT_PREFIX = "opt/"
 META_KEY = "__meta__"
 
 Shapes = typing.Dict[str, typing.Tuple[int, ...]]
@@ -146,20 +158,123 @@ def save_npz(
     Path(path).write_bytes(buf.getvalue())
 
 
-OPT_PREFIX = "opt/"
-
-
 def read_npz(
-    path: Path, dropped: typing.Optional[typing.List[str]] = None
+    path: Path, opt: typing.Optional[typing.Dict[str, np.ndarray]] = None
 ) -> typing.Tuple[typing.Dict[str, np.ndarray], dict]:
-    """-> (``model/...`` arrays, meta); ``dropped`` receives the names of
-    the optimizer-state keys (``opt/...``) that were not read."""
+    """-> (``model/...`` arrays, meta); ``opt`` receives the optimizer-state
+    arrays (``opt/...`` keys, the prefix taken off)."""
     with np.load(path, allow_pickle=False) as data:
         flat = {k: data[k] for k in data.files if k.startswith(PREFIX)}
         meta = json.loads(bytes(data[META_KEY]).decode("utf-8")) if META_KEY in data.files else {}
-        if dropped is not None:
-            dropped.extend(k for k in data.files if k.startswith(OPT_PREFIX))
+        if opt is not None:
+            opt.update((k[len(OPT_PREFIX):], data[k]) for k in data.files if k.startswith(OPT_PREFIX))
     return flat, meta
+
+
+def merge_into(
+    fresh: typing.Mapping[str, torch.Tensor], saved: typing.Mapping[str, np.ndarray]
+) -> typing.Dict[str, torch.Tensor]:
+    """Tolerant merge of ``model/<path>`` arrays into fresh params ({"a/b/c":
+    tensor}), as the JAX package's ``_merge_into``: a saved value of the
+    right shape wins; a missing key or one of another shape keeps its fresh
+    value, and a saved key the model does not use is left out, each with a
+    warning."""
+    merged = {}
+    for key, value in fresh.items():
+        name = PREFIX + key
+        if name not in saved:
+            _LOGGER.warning("%s is not in the checkpoint", name)
+            merged[key] = value
+        elif tuple(saved[name].shape) != tuple(value.shape):
+            _LOGGER.warning(
+                "checkpoint key %s has shape %s but the model expects %s; keeping fresh-init values",
+                name, tuple(saved[name].shape), tuple(value.shape),
+            )
+            merged[key] = value
+        else:
+            merged[key] = torch.from_numpy(np.asarray(saved[name], np.float32))
+    for name in saved:
+        if name.startswith(PREFIX) and name[len(PREFIX):] not in fresh:
+            _LOGGER.warning("checkpoint key %s not used by the model", name)
+    return merged
+
+
+def _tree_repr(paths: typing.Iterable[str]) -> str:
+    """The nested dict of ``paths`` ("a/b/c") as a jax treedef spells it:
+    keys sorted, leaves ``*``."""
+    tree: dict = {}
+    for path in paths:
+        node = tree
+        *parents, leaf = path.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = None
+
+    def spell(node) -> str:
+        if node is None:
+            return "*"
+        return "{" + ", ".join(f"{k!r}: {spell(node[k])}" for k in sorted(node)) + "}"
+
+    return spell(tree)
+
+
+def opt_treedef(paths: typing.Iterable[str], scheduler: str) -> str:
+    """The JAX package's optimizer fingerprint (``_opt_fingerprint``: the
+    treedef string of ``optax.chain(clip, scale_by_adam,
+    scale_by_learning_rate)``'s state) over the param paths ("a/b/c"):
+    the schedule keeps a count for Noam only."""
+    tree = _tree_repr(paths)
+    schedule = (
+        "CustomNode(namedtuple[ScaleByScheduleState], [*])" if scheduler == "noam"
+        else "CustomNode(namedtuple[EmptyState], [])"
+    )
+    return (
+        "PyTreeDef((CustomNode(namedtuple[EmptyState], []), "
+        f"CustomNode(namedtuple[ScaleByAdamState], [*, {tree}, {tree}]), {schedule}))"
+    )
+
+
+def opt_state_arrays(opt: AdamState, scheduler: str) -> typing.Dict[str, np.ndarray]:
+    """``opt/...`` arrays of an Adam state as the JAX chain's leaves: the
+    counts int32, the moments f32."""
+    count = np.asarray(opt.count, np.int32)
+    arrays = {OPT_PREFIX + "1/count": count}
+    for moment, values in (("mu", opt.mu), ("nu", opt.nu)):
+        for key, value in values.items():
+            arrays[f"{OPT_PREFIX}1/{moment}/{key}"] = value.detach().to("cpu", torch.float32).numpy()
+    if scheduler == "noam":
+        arrays[OPT_PREFIX + "2/count"] = count.copy()
+    return arrays
+
+
+def restore_opt_state(
+    saved: typing.Mapping[str, np.ndarray],
+    fingerprint: typing.Optional[str],
+    params: typing.Mapping[str, torch.Tensor],
+    scheduler: str,
+) -> typing.Tuple[typing.Optional[AdamState], str]:
+    """Adam state from ``opt/`` arrays (``saved``, prefix taken off) for
+    ``params`` ({"a/b/c": tensor}), all or nothing as the JAX package's
+    ``_restore_opt_state``: -> (the state on the params' devices, "") or
+    (None, why it was not taken) where the fingerprint, the keys, a shape
+    or the counts disagree."""
+    if fingerprint != opt_treedef(params, scheduler):
+        return None, "optimizer structure differs" if fingerprint else "no opt_treedef"
+    counts = ["1/count"] + (["2/count"] if scheduler == "noam" else [])
+    moments = {f"1/{m}/{k}": (m, k) for m in ("mu", "nu") for k in params}
+    if set(saved) != set(counts) | set(moments):
+        return None, "optimizer state keys do not match"
+    if any(tuple(saved[name].shape) != tuple(params[k].shape) for name, (_, k) in moments.items()):
+        return None, "optimizer leaf shape mismatch"
+    values = {int(np.asarray(saved[name]).reshape(())) for name in counts}
+    if len(values) != 1:
+        return None, f"optimizer counts differ: {sorted(values)}"
+    state = AdamState({}, {}, values.pop())
+    for name, (moment, key) in moments.items():
+        getattr(state, moment)[key] = torch.from_numpy(
+            np.asarray(saved[name], np.float32).copy()
+        ).to(params[key].device)
+    return state, ""
 
 
 def params_from_numpy(flat: typing.Mapping[str, np.ndarray], hp: GlowTTSHyper) -> GlowTTS:
@@ -203,16 +318,21 @@ def save_checkpoint(
     global_step: int,
     learning_rate: float,
     version: int = 1,
+    opt: typing.Optional[AdamState] = None,
+    scheduler: str = "noam",
 ) -> None:
     """Write ``{"a/b/c": tensor}`` params as a JAX ``.npz`` checkpoint
     (``model/<path>`` f32 arrays and the ``__meta__`` JSON), readable by
-    the JAX ``load_checkpoint`` and both infer CLIs."""
+    the JAX ``load_checkpoint`` and both infer CLIs; with ``opt``, its Adam
+    state as the JAX chain's ``opt/`` leaves for ``scheduler``, and the
+    chain's ``opt_treedef``."""
     flat = {
         PREFIX + k: v.detach().to("cpu", torch.float32).numpy() for k, v in params.items()
     }
+    meta = {"global_step": int(global_step), "learning_rate": float(learning_rate),
+            "version": int(version)}
+    if opt is not None:
+        flat.update(opt_state_arrays(opt, scheduler))
+        meta["opt_treedef"] = opt_treedef(params, scheduler)
     Path(path).parent.mkdir(parents=True, exist_ok=True)
-    save_npz(
-        path, flat,
-        {"global_step": int(global_step), "learning_rate": float(learning_rate),
-         "version": int(version)},
-    )
+    save_npz(path, flat, meta)

@@ -49,6 +49,19 @@
 //    included (no separate fill of the output), a warp a row over the whole
 //    card in 16-byte stores: one block a sample is bound by its SM's store
 //    rate.
+//  * Texts whose staged rows overflow the ring (from t_x 1,345 on the
+//    H100's 227 KiB) take the long path: the rows go in passes of one
+//    scan warp's 32 * kMaxRows = 512, the block walking the columns once a
+//    pass (one scan warp, no barrier a column; passes of two or three
+//    banded warps read 10-30% faster on an H100 at t_x 1,345-4,096, for a
+//    barrier a column and a plan search).  A pass reads the row above it
+//    through device memory: the previous pass's lane 31 stores its last
+//    row's value a column into an edge buffer, which the staging warps copy in beside
+//    each logp tile as one more staged row (two buffers, a pass reads one
+//    and writes the other).  A pass starts at the tile of its first row's
+//    diagonal (every cell left of it is above the diagonal: -1e9 and
+//    "stay"), its stay bits go to device memory, and the backtrace writes
+//    the runs there directly.  Its time is the passes' sum.
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -69,12 +82,17 @@ struct MasArgs {
   const float* logp = nullptr;  // [batch, t_x, t_y]
   const float* mask = nullptr;
   float* path = nullptr;
-  // the stay bits [batch, t_y, scan warps * R] in device memory, or null:
-  // in shared memory after the ring
+  // the stay bits [batch, t_y, passes * scan warps * R] in device memory,
+  // or null: in shared memory after the ring
   unsigned* bits = nullptr;
   int* runs = nullptr;  // [batch, 2, t_x]: each row's first and last column of the path
+  // the long path's edge buffers [batch, 2, e_stride]: element y + 1 of
+  // one is the value of a pass's last row after column y
+  float* edge = nullptr;
+  int e_stride = 0;
   int t_x = 0, t_y = 0;
   int scan_warps = 1;
+  int passes = 1;  // passes a sample's rows take (more than one: the long path)
   int stages = 2;
   long ring_floats = 0;
 };
@@ -114,11 +132,16 @@ __device__ __forceinline__ void scan_barrier(int threads) {
 // above the diagonal in this tile (x > y), where v is -1e9.  kBands: the
 // scan warps take bands of rows and pass their last row on.  kFullTile:
 // cols == kTileCols, straight-line code (no branch between columns, so the
-// compiler overlaps one column's tail with the next one's head).
-template <int R, bool kDiag, bool kBands, bool kFullTile>
+// compiler overlaps one column's tail with the next one's head).  kLong: a
+// pass of the long path (one scan warp); row0 is the lane's first row in
+// the pass, xrow0 in the sample; the row above the pass is the staged edge
+// row (edge_in), and lane 31 stores its last row's value a column to
+// e_out.
+template <int R, bool kDiag, bool kBands, bool kFullTile, bool kLong>
 __device__ __forceinline__ void scan_tile(float (&v)[R], unsigned (&kept)[R], const float* tile,
-                                          int c0, int cols, int row0, int lane, int warp,
-                                          int scan_warps, float (*bnd)[kMaxWarps]) {
+                                          int c0, int cols, int row0, int xrow0, int lane,
+                                          int warp, int scan_warps, float (*bnd)[kMaxWarps],
+                                          const float* edge_in, float* e_out) {
   const int lane_in_group = lane - (c0 & 31);  // the column (in its 32) this lane keeps
 #pragma unroll
   for (int c4 = 0; c4 < kTileCols; c4 += 4) {
@@ -134,7 +157,11 @@ __device__ __forceinline__ void scan_tile(float (&v)[R], unsigned (&kept)[R], co
       // v[x - 1] of the lane's first row: the previous lane's last row, or
       // for lane 0 the previous band's (-1e9 for the first band)
       float left = kMaxNeg;
-      if (kBands && warp > 0) left = bnd[y & 1][warp - 1];
+      if (kLong) {
+        left = edge_in[c4 + k];
+      } else if (kBands && warp > 0) {
+        left = bnd[y & 1][warp - 1];
+      }
       float up = __shfl_up_sync(kFull, v[R - 1], 1);
       up = lane == 0 ? left : up;
       unsigned stay_words[R];
@@ -145,13 +172,14 @@ __device__ __forceinline__ void scan_tile(float (&v)[R], unsigned (&kept)[R], co
         const bool stay = vp >= v0;
         const float value = k == 0 ? val[j].x : k == 1 ? val[j].y : k == 2 ? val[j].z : val[j].w;
         float nv = __fadd_rn(stay ? vp : v0, value);
-        if (kDiag && row0 + j > y) nv = kMaxNeg;
+        if (kDiag && xrow0 + j > y) nv = kMaxNeg;
         v[j] = nv;
         stay_words[j] = __ballot_sync(kFull, stay);
       }
       const bool mine = lane_in_group == c4 + k;
 #pragma unroll
       for (int j = 0; j < R; ++j) kept[j] = mine ? stay_words[j] : kept[j];
+      if (kLong && lane == 31) e_out[y + 1] = v[R - 1];  // the pass's last row
       if (kBands) {  // the band's last row, for the next band's first
         if (lane == 31) bnd[(y + 1) & 1][warp] = v[R - 1];
         scan_barrier(32 * scan_warps);
@@ -172,7 +200,7 @@ __device__ __forceinline__ void flush_kept(const unsigned (&kept)[R], int end, i
   }
 }
 
-template <int R, bool kBands>
+template <int R, bool kBands, bool kLong>
 __global__ void __launch_bounds__(kMaxWarps * 32) mas_kernel(const MasArgs a) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float bnd[2][kMaxWarps];
@@ -182,13 +210,14 @@ __global__ void __launch_bounds__(kMaxWarps * 32) mas_kernel(const MasArgs a) {
   const int t_x = a.t_x, t_y = a.t_y;
   const long base = (long)blockIdx.x * t_x * t_y;
   const float* lp = a.logp + base;
-  const int words = scan_warps * R;
+  const int words = a.passes * scan_warps * R;
   float* ring = smem;
   // the stay bits: in device memory (a.bits) or in shared memory after the
   // ring; two pointers, so that the shared case takes shared loads
   unsigned* gbits = a.bits + (long)blockIdx.x * t_y * words;
   unsigned* sbits = reinterpret_cast<unsigned*>(smem + a.ring_floats);
   unsigned* bits = a.bits ? gbits : sbits;
+  float* edges = kLong ? a.edge + (long)blockIdx.x * 2 * a.e_stride : nullptr;
 
   // lengths as JAX takes them: sum(mask[:, :, 0]), sum(mask[:, 0, :])
   if (tid < 2) s_len[tid] = 0;
@@ -206,74 +235,118 @@ __global__ void __launch_bounds__(kMaxWarps * 32) mas_kernel(const MasArgs a) {
     atomicAdd(&s_len[1], cy);
   }
   if (tid < kMaxWarps) bnd[0][tid] = 0.f;  // v before column 0
+  if (kLong) {  // the first pass's row above: the -1e9 sentinel
+    for (int y = tid; y < a.e_stride; y += nt) edges[y] = kMaxNeg;
+  }
   __syncthreads();
   const int tx = s_len[0];
   const int ty = tx > 0 ? s_len[1] : 0;
 
-  // ---- the column scan (scan warps) fed by the staging warps ----
-  const int rows = scan_warps * 32 * R;  // rows of a stage
-  const long slot = (long)rows * kPitch;
+  // ---- the column scan (scan warps) fed by the staging warps, a pass a
+  // band set (one pass unless kLong) ----
+  const int rows = scan_warps * 32 * R;  // rows of a stage (and of a pass)
+  const long slot = (long)(kLong ? rows + 1 : rows) * kPitch;  // kLong: + the edge row
   const bool scans = warp < scan_warps;
-  const int row0 = (warp * 32 + lane) * R;  // a scan lane's first row
+  const int row0 = (warp * 32 + lane) * R;  // a scan lane's first row in its pass
   const int n_tiles = (ty + kTileCols - 1) / kTileCols;
   const bool vec = (t_y & 3) == 0 && (reinterpret_cast<unsigned long long>(lp) & 15) == 0;
   const int ptid = tid - 32 * scan_warps, pthreads = 32 * kProducers;
-  auto stage = [&](int k) {  // tile k's copies: rows < tx, columns < ty
-    if (scans || k >= n_tiles) return;
-    float* dst0 = ring + (k % a.stages) * slot;
-    const int c0 = k * kTileCols;
-    constexpr int kChunks = kTileCols / 4;
-    for (int q = ptid; q < tx * kChunks; q += pthreads) {
-      const int row = q / kChunks, c = c0 + (q % kChunks) * 4;
-      if (c >= ty) continue;
-      float* dst = dst0 + (long)row * kPitch + (c - c0);
-      const float* src = lp + (long)row * t_y + c;
-      if (vec && c + 4 <= ty) {
-        cp_async16(dst, src);
-      } else {
-        for (int j = 0; j < 4 && c + j < ty; ++j) cp_async4(dst + j, src + j);
-      }
-    }
-  };
-  float v[R];
-  unsigned kept[R];
+  const int n_passes = kLong ? (tx + rows - 1) / rows : 1;
+  for (int pass = 0; pass < n_passes; ++pass) {
+    const int r0 = pass * rows;                         // the pass's first row
+    const int band0 = pass * scan_warps;                // its first band
+    const int k0 = kLong ? r0 / kTileCols : 0;          // its first tile
+    const int pass_rows = min(rows, tx - r0);
+    const float* e_in = kLong ? edges + (pass & 1) * a.e_stride : nullptr;
+    float* e_out = kLong ? edges + ((pass + 1) & 1) * a.e_stride : nullptr;
+    if (kLong && pass > 0 && tx > ty) {
+      // left of the first tile every row of the pass lies above the
+      // diagonal: v is -1e9 and every cell stays.  Only a backtrace that
+      // starts above the diagonal (tx > ty) decides by a stay bit left of
+      // its row's diagonal, so only then are they written.
+      const int skipped = min(k0 * kTileCols, ty);
+      for (int c = tid; c < skipped; c += nt) {
+        unsigned* w = bits + (long)c * words + band0 * R;
 #pragma unroll
-  for (int j = 0; j < R; ++j) {
-    v[j] = 0.f;
-    kept[j] = 0u;
-  }
-  for (int k = 0; k < a.stages - 1; ++k) {
-    stage(k);
-    cp_async_commit();
-  }
-  for (int k = 0; k < n_tiles; ++k) {
-    cp_async_wait(a.stages - 2);
-    __syncthreads();  // tile k landed; every scan warp is done with tile k - 1's slot
-    stage(k + a.stages - 1);
-    cp_async_commit();
-    if (scans) {
-      const float* tile = ring + (k % a.stages) * slot;
-      const int c0 = k * kTileCols, cols = min(kTileCols, ty - c0);
-      const bool diag = c0 < rows - 1, full = cols == kTileCols;
-      if (!diag && full) {
-        scan_tile<R, false, kBands, true>(v, kept, tile, c0, cols, row0, lane, warp, scan_warps, bnd);
-      } else if (!diag) {
-        scan_tile<R, false, kBands, false>(v, kept, tile, c0, cols, row0, lane, warp, scan_warps, bnd);
-      } else if (full) {
-        scan_tile<R, true, kBands, true>(v, kept, tile, c0, cols, row0, lane, warp, scan_warps, bnd);
-      } else {
-        scan_tile<R, true, kBands, false>(v, kept, tile, c0, cols, row0, lane, warp, scan_warps, bnd);
+        for (int j = 0; j < R; ++j) w[j] = kFull;
       }
-      const int end = c0 + cols;
-      if ((end & 31) == 0 || end == ty) flush_kept(kept, end, lane, warp, words, bits);
     }
+    auto stage = [&](int k) {  // tile k's copies: the pass's rows < tx, columns < ty
+      if (scans || k >= n_tiles) return;
+      float* dst0 = ring + (k % a.stages) * slot;
+      const int c0 = k * kTileCols;
+      constexpr int kChunks = kTileCols / 4;
+      for (int q = ptid; q < pass_rows * kChunks; q += pthreads) {
+        const int row = q / kChunks, c = c0 + (q % kChunks) * 4;
+        if (c >= ty) continue;
+        float* dst = dst0 + (long)row * kPitch + (c - c0);
+        const float* src = lp + (long)(r0 + row) * t_y + c;
+        if (vec && c + 4 <= ty) {
+          cp_async16(dst, src);
+        } else {
+          for (int j = 0; j < 4 && c + j < ty; ++j) cp_async4(dst + j, src + j);
+        }
+      }
+      if (kLong) {  // the edge row after the pass's rows (e_stride: 16-byte rows)
+        for (int q = ptid; q < kChunks; q += pthreads) {
+          const int c = c0 + q * 4;
+          if (c >= ty) continue;
+          float* dst = dst0 + (long)rows * kPitch + q * 4;
+          if (c + 4 <= ty) {
+            cp_async16(dst, e_in + c);
+          } else {
+            for (int j = 0; c + j < ty; ++j) cp_async4(dst + j, e_in + c + j);
+          }
+        }
+      }
+    };
+    float v[R];
+    unsigned kept[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {  // a later pass starts above the diagonal
+      v[j] = kLong && pass > 0 ? kMaxNeg : 0.f;
+      kept[j] = kLong && pass > 0 ? kFull : 0u;
+    }
+    for (int k = 0; k < a.stages - 1; ++k) {
+      stage(k0 + k);
+      cp_async_commit();
+    }
+    for (int k = k0; k < n_tiles; ++k) {
+      cp_async_wait(a.stages - 2);
+      __syncthreads();  // tile k landed; every scan warp is done with tile k - 1's slot
+      stage(k + a.stages - 1);
+      cp_async_commit();
+      if (scans) {
+        const float* tile = ring + (k % a.stages) * slot;
+        const float* edge_in = tile + (long)rows * kPitch;
+        const int c0 = k * kTileCols, cols = min(kTileCols, ty - c0);
+        const bool diag = c0 < r0 + rows - 1, full = cols == kTileCols;
+        const int xrow0 = r0 + row0;
+        if (!diag && full) {
+          scan_tile<R, false, kBands, true, kLong>(v, kept, tile, c0, cols, row0, xrow0, lane, warp,
+                                                   scan_warps, bnd, edge_in, e_out);
+        } else if (!diag) {
+          scan_tile<R, false, kBands, false, kLong>(v, kept, tile, c0, cols, row0, xrow0, lane,
+                                                    warp, scan_warps, bnd, edge_in, e_out);
+        } else if (full) {
+          scan_tile<R, true, kBands, true, kLong>(v, kept, tile, c0, cols, row0, xrow0, lane, warp,
+                                                  scan_warps, bnd, edge_in, e_out);
+        } else {
+          scan_tile<R, true, kBands, false, kLong>(v, kept, tile, c0, cols, row0, xrow0, lane,
+                                                   warp, scan_warps, bnd, edge_in, e_out);
+        }
+        const int end = c0 + cols;
+        if ((end & 31) == 0 || end == ty) flush_kept(kept, end, lane, band0 + warp, words, bits);
+      }
+    }
+    cp_async_wait(0);
+    if (kLong) __threadfence();  // the edge and the stay bits, for the next pass
+    __syncthreads();  // every stay word is written
   }
-  cp_async_wait(0);
-  __syncthreads();  // every stay word is written
 
   // ---- backtrace (warp 0): each row's run of columns [first, last], in the
-  // ring (free now), then copied out ----
-  int* first = reinterpret_cast<int*>(ring);
+  // ring (free now) and then copied out, or (kLong) in the caller's runs ----
+  int* first = kLong ? a.runs + (long)blockIdx.x * 2 * t_x : reinterpret_cast<int*>(ring);
   int* last = first + t_x;
   for (int x = tid; x < t_x; x += nt) {
     first[x] = 1 << 30;
@@ -349,9 +422,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32) mas_kernel(const MasArgs a) {
     }
     if (index == 0) first[0] = 0;
   }
-  __syncthreads();
-  int* runs = a.runs + (long)blockIdx.x * 2 * t_x;
-  for (int x = tid; x < 2 * t_x; x += nt) runs[x] = first[x];
+  if (!kLong) {
+    __syncthreads();
+    int* runs = a.runs + (long)blockIdx.x * 2 * t_x;
+    for (int x = tid; x < 2 * t_x; x += nt) runs[x] = first[x];
+  }
 }
 
 // The path from each row's run of columns, zeros included: a warp a row,
@@ -381,15 +456,19 @@ __global__ void __launch_bounds__(256) mas_path_kernel(const int* runs, float* p
 }
 
 // The launch of one sample's block: scan warps, rows a lane, stages of the
-// ring and where the stay bits live, within the card's shared memory.
+// ring and where the stay bits live, within the card's shared memory; and
+// for the long path the passes and the edge buffers.
 struct MasPlan {
-  int scan_warps = 1, rows_per_lane = 1, stages = 2;
+  int scan_warps = 1, rows_per_lane = 1, stages = 2, passes = 1;
   bool bits_in_shared = true;
   long ring_floats = 0;
   size_t smem = 0;
+  long long bits_words = 0;  // stay-bit words of device memory (0: in shared memory)
+  long long edge_floats = 0;  // the long path's edge buffers (0: one pass)
+  int e_stride = 0;
 };
 
-bool mas_plan(int t_x, int t_y, int smem_limit, MasPlan* p) {
+bool mas_short_plan(int t_x, int t_y, int smem_limit, MasPlan* p) {
   p->scan_warps = (t_x + 32 * kMaxRows - 1) / (32 * kMaxRows);
   if (p->scan_warps + kProducers > kMaxWarps) return false;
   // rows a lane, rounded up to an instantiated count (6 at t_x 192)
@@ -413,12 +492,53 @@ bool mas_plan(int t_x, int t_y, int smem_limit, MasPlan* p) {
   return false;
 }
 
-template <int R, bool kBands>
+// The long path: passes of one scan warp's rows, as many stages as fit.
+bool mas_long_plan(int t_x, int smem_limit, MasPlan* p) {
+  const long staged = 32L * kMaxRows;
+  for (int stages = 4; stages >= 2; --stages) {
+    const long ring = stages * (staged + 1) * kPitch;  // + the edge row
+    if (sizeof(float) * ring <= (size_t)smem_limit) {
+      p->scan_warps = 1;
+      p->rows_per_lane = kMaxRows;
+      p->passes = (int)((t_x + staged - 1) / staged);
+      p->stages = stages;
+      p->bits_in_shared = false;
+      p->ring_floats = ring;
+      p->smem = sizeof(float) * ring;
+      return true;
+    }
+  }
+  return false;
+}
+
+// The plan of a call on the current device: the short path where its ring
+// fits, else the long one.
+bool mas_plan(int batch, int t_x, int t_y, MasPlan* p) {
+  int dev = 0, smem_limit = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess)
+    return false;
+  // room for the kernel's static shared memory (the band values, lengths)
+  smem_limit -= 1024;
+  if (!mas_short_plan(t_x, t_y, smem_limit, p) && !mas_long_plan(t_x, smem_limit, p))
+    return false;
+  const long long words = (long long)t_y * p->passes * p->scan_warps * p->rows_per_lane;
+  p->bits_words = p->bits_in_shared ? 0 : (long long)batch * words;
+  if (p->passes > 1) {  // 16-byte rows of t_y + 1 floats, after the bits
+    p->e_stride = (t_y + 1 + 3) / 4 * 4;
+    p->bits_words = (p->bits_words + 3) / 4 * 4;
+    p->edge_floats = 2LL * batch * p->e_stride;
+  }
+  return true;
+}
+
+template <int R, bool kBands, bool kLong>
 cudaError_t launch_mas(const MasArgs& a, int batch, const MasPlan& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      mas_kernel<R, kBands>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+      mas_kernel<R, kBands, kLong>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (err != cudaSuccess) return err;
-  mas_kernel<R, kBands><<<batch, 32 * (p.scan_warps + kProducers), p.smem, stream>>>(a);
+  mas_kernel<R, kBands, kLong><<<batch, 32 * (p.scan_warps + kProducers), p.smem, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   mas_path_kernel<<<dim3(std::min((a.t_x + 7) / 8, 64), batch), 256, 0, stream>>>(
       a.runs, a.path, a.t_x, a.t_y);
@@ -427,18 +547,18 @@ cudaError_t launch_mas(const MasArgs& a, int batch, const MasPlan& p, cudaStream
 
 }  // namespace
 
-// Words of device memory a call needs for the stay bits where shared
-// memory cannot hold them: [batch, t_y, words a column] (0: they fit), on
-// the current device (whose index the caller passes for its cache).
+// Words of device memory a call needs beside shared memory, on the current
+// device (whose index the caller passes for its cache): the stay bits
+// [batch, t_y, words a column] where shared memory cannot hold them, then
+// for the long path the edge buffers (0: everything fits in shared memory;
+// -1: device memory cannot hold them).
 extern "C" long long gtt_mas_bits_words(int batch, int t_x, int t_y, int /*device*/) {
-  int dev = 0, smem_limit = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
-          cudaSuccess)
-    return -1;
   MasPlan p;
-  if (!mas_plan(t_x, t_y, smem_limit - 1024, &p)) return -1;
-  return p.bits_in_shared ? 0 : (long long)batch * t_y * p.scan_warps * p.rows_per_lane;
+  size_t free_bytes = 0, total_bytes = 0;
+  if (!mas_plan(batch, t_x, t_y, &p) || cudaMemGetInfo(&free_bytes, &total_bytes) != cudaSuccess)
+    return -1;
+  const long long words = p.bits_words + p.edge_floats;
+  return 4.0 * (double)words <= (double)total_bytes ? words : -1;
 }
 
 // logp, mask [batch, t_x, t_y] -> path [batch, t_x, t_y] (every element
@@ -447,41 +567,40 @@ extern "C" long long gtt_mas_bits_words(int batch, int t_x, int t_y, int /*devic
 extern "C" int gtt_mas(const float* logp, const float* mask, float* path, unsigned* bits,
                        int* runs, int batch, int t_x, int t_y, cudaStream_t stream) {
   if (batch <= 0 || t_x <= 0 || t_y <= 0) return (int)cudaSuccess;
-  int dev = 0, smem_limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
   MasPlan p;
-  // room for the kernel's static shared memory (the band values, lengths)
-  if (!mas_plan(t_x, t_y, smem_limit - 1024, &p)) return (int)cudaErrorInvalidValue;
+  if (!mas_plan(batch, t_x, t_y, &p)) return (int)cudaErrorInvalidValue;
   if (!p.bits_in_shared && bits == nullptr) return (int)cudaErrorInvalidValue;
   MasArgs a;
   a.logp = logp; a.mask = mask; a.path = path; a.bits = p.bits_in_shared ? nullptr : bits;
   a.runs = runs;
   a.t_x = t_x; a.t_y = t_y; a.scan_warps = p.scan_warps; a.stages = p.stages;
-  a.ring_floats = p.ring_floats;
+  a.passes = p.passes; a.ring_floats = p.ring_floats;
+  if (p.passes > 1) {  // the long path: passes of one scan warp
+    a.edge = reinterpret_cast<float*>(bits + p.bits_words);
+    a.e_stride = p.e_stride;
+    return (int)launch_mas<kMaxRows, false, true>(a, batch, p, stream);
+  }
   // one scan warp: no band logic; bands of warps (t_x > 512) have at least
   // 10 rows a lane
   if (p.scan_warps == 1) switch (p.rows_per_lane) {
-    case 1: return (int)launch_mas<1, false>(a, batch, p, stream);
-    case 2: return (int)launch_mas<2, false>(a, batch, p, stream);
-    case 3: return (int)launch_mas<3, false>(a, batch, p, stream);
-    case 4: return (int)launch_mas<4, false>(a, batch, p, stream);
-    case 5: return (int)launch_mas<5, false>(a, batch, p, stream);
-    case 6: return (int)launch_mas<6, false>(a, batch, p, stream);
-    case 8: return (int)launch_mas<8, false>(a, batch, p, stream);
-    case 10: return (int)launch_mas<10, false>(a, batch, p, stream);
-    case 12: return (int)launch_mas<12, false>(a, batch, p, stream);
-    case 14: return (int)launch_mas<14, false>(a, batch, p, stream);
-    case 16: return (int)launch_mas<16, false>(a, batch, p, stream);
+    case 1: return (int)launch_mas<1, false, false>(a, batch, p, stream);
+    case 2: return (int)launch_mas<2, false, false>(a, batch, p, stream);
+    case 3: return (int)launch_mas<3, false, false>(a, batch, p, stream);
+    case 4: return (int)launch_mas<4, false, false>(a, batch, p, stream);
+    case 5: return (int)launch_mas<5, false, false>(a, batch, p, stream);
+    case 6: return (int)launch_mas<6, false, false>(a, batch, p, stream);
+    case 8: return (int)launch_mas<8, false, false>(a, batch, p, stream);
+    case 10: return (int)launch_mas<10, false, false>(a, batch, p, stream);
+    case 12: return (int)launch_mas<12, false, false>(a, batch, p, stream);
+    case 14: return (int)launch_mas<14, false, false>(a, batch, p, stream);
+    case 16: return (int)launch_mas<16, false, false>(a, batch, p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
   switch (p.rows_per_lane) {
-    case 10: return (int)launch_mas<10, true>(a, batch, p, stream);
-    case 12: return (int)launch_mas<12, true>(a, batch, p, stream);
-    case 14: return (int)launch_mas<14, true>(a, batch, p, stream);
-    case 16: return (int)launch_mas<16, true>(a, batch, p, stream);
+    case 10: return (int)launch_mas<10, true, false>(a, batch, p, stream);
+    case 12: return (int)launch_mas<12, true, false>(a, batch, p, stream);
+    case 14: return (int)launch_mas<14, true, false>(a, batch, p, stream);
+    case 16: return (int)launch_mas<16, true, false>(a, batch, p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -353,8 +353,9 @@ def duration_scratch_floats(batch: int, t: int, c_in: int, f: int, taps: int,
 
 
 def mas_bits_words(batch: int, t_x: int, t_y: int, device: torch.device) -> int:
-    """Words of device memory MAS needs on ``device`` for its stay bits (0:
-    they fit in shared memory; -1: the kernel does not take the shape)."""
+    """Words of device memory MAS needs on ``device`` for its stay bits and,
+    for texts that take several passes, its edge buffers (0: they fit in
+    shared memory; -1: device memory cannot hold them)."""
     with torch.cuda.device(device):
         return _size_query("gtt_mas_bits_words", batch, t_x, t_y, torch.cuda.current_device())
 

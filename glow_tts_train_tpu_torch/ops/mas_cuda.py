@@ -18,16 +18,21 @@ column recurrence (t_y dependent steps), not FLOPs or bytes, so one warp
 scans a sample with its value column in registers (lane ``l`` owns 16 text
 rows at most, consecutive), a shuffle and a ballot a mel frame and no
 block barrier; wider texts take a band of rows per warp, the bands joined
-through shared memory with one barrier a frame (t_x up to about 2,400: the
-staging ring's shared memory).  Three more warps stage logp ahead into
-shared memory by ``cp.async``; the mask is read only for the lengths (its
-first column and first row: it is rectangular per sample).  The stay bits
-are the ballots, ``t_x * t_y / 8`` bytes a sample, in shared memory where
-they fit, else in a device-memory buffer (``kernels.mas_bits_words``); the
-backtrace takes a step per move, 32 columns at a time, and records each
-row's run of path columns; a second kernel writes the whole path from the
-runs, zeros included, over all SMs.  The add is a plain f32 add (no FMA
-contraction), so paths equal the numpy oracle bit for bit.
+through shared memory with one barrier a frame.  Three more warps stage
+logp ahead into shared memory by ``cp.async``; the mask is read only for
+the lengths (its first column and first row: it is rectangular per
+sample).  The stay bits are the ballots, ``t_x * t_y / 8`` bytes a
+sample, in shared memory where they fit, else in a device-memory buffer
+(``kernels.mas_bits_words``); the backtrace takes a step per move, 32
+columns at a time, and records each row's run of path columns; a second
+kernel writes the whole path from the runs, zeros included, over all SMs.
+From t_x 1,345 on (H100: 227 KiB of shared memory a block) the staging
+ring cannot hold every row, and the rows go in passes of one scan warp's
+512, a pass taking the row above it from the last through an edge buffer
+in device memory (the long path, the counterpart of the streamed pair);
+only a shape whose stay bits device memory cannot hold is refused.  The
+add is a plain f32 add (no FMA contraction), so paths equal the numpy
+oracle bit for bit.
 """
 
 import torch
@@ -81,10 +86,12 @@ def maximum_path(logp: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     b, t_x, t_y = logp.shape
     words = kernels.mas_bits_words(b, t_x, t_y, logp.device)
     if words < 0:
-        raise ValueError(f"maximum_path: the kernel's shared memory does not take t_x = {t_x}")
+        raise ValueError(
+            f"maximum_path: device memory cannot hold the stay bits of [{b}, {t_x}, {t_y}]"
+        )
     path = torch.empty_like(logp)  # every element is written
-    # the stay bits where shared memory cannot hold them; each row's run of
-    # path columns (first, last)
+    # the stay bits where shared memory cannot hold them (and the long
+    # path's edge buffers); each row's run of path columns (first, last)
     bits = torch.empty((words,), dtype=torch.int32, device=logp.device) if words else None
     runs = torch.empty((b, 2, t_x), dtype=torch.int32, device=logp.device)
     kernels.MAS(logp, mask, path, bits, runs, b, t_x, t_y)

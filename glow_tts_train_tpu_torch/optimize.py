@@ -44,6 +44,9 @@ def current_lr(config, step: int) -> float:
 
 
 class AdamState(typing.NamedTuple):
+    """Adam's moments by param path and its count; a checkpoint holds them
+    as the JAX chain's leaves, the count as int32 (``checkpoint.opt_state_arrays``)."""
+
     mu: typing.Dict[str, torch.Tensor]
     nu: typing.Dict[str, torch.Tensor]
     count: int  # updates applied so far (optax's shared count)

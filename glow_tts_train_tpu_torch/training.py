@@ -3,20 +3,26 @@ and the epoch loop (glow_tts_train_tpu training.py).
 
 One step: the training graph (``models.forward_train``), the MLE and
 duration losses, backward, the global gradient norm, then value clip and
-Noam-scheduled Adam (``optimize.py``).  On CUDA tensors the flow blocks,
-MAS and (``encoder_fuse`` true, what "auto" resolves to for the shipped
-encoder configuration) the text side run the hand-written kernels, forward
-and backward; ``encoder_fuse: false`` runs the text side op by op.  The
-decoder runs in the mode the config picks (``models.hyper_from_config``):
-``flow_block_fuse`` (each block one kernel pair, the default) or op by op
-around the WN stack's kernels, with ``wn_residuals`` "store" (the default)
-or "recompute" (a block's residuals live only inside its backward).  Not ported yet, and
-refused with the ROADMAP item named: ``fp16_run`` (bf16 compute) and
-``grad_accum_steps`` > 1.
+Noam-scheduled Adam (``optimize.py``).  With ``grad_accum_steps`` n > 1 the
+batch's rows go through in n slices, each slice's loss numerators over the
+whole batch's denominators and the gradients summed, so the step equals
+the full-batch step to round-off.  On CUDA tensors the flow blocks, MAS and
+(``encoder_fuse`` true, what "auto" resolves to for the shipped encoder
+configuration) the text side run the hand-written kernels, forward and
+backward, once a slice; ``encoder_fuse: false`` runs the text side op by
+op.  The decoder runs in the mode the config picks
+(``models.hyper_from_config``): ``flow_block_fuse`` (each block one kernel
+pair, the default) or op by op around the WN stack's kernels, with
+``wn_residuals`` "store" (the default) or "recompute" (a block's residuals
+live only inside its backward).  Not ported yet, and refused with the
+ROADMAP item named by title: ``fp16_run`` (bf16 compute).  Checkpoints
+carry the Adam state (``checkpoint.save_checkpoint``), and ``profile_dir``
+writes a ``torch.profiler`` trace of steps 5-15.
 """
 
 import json
 import logging
+import math
 import time
 import typing
 from pathlib import Path
@@ -99,12 +105,7 @@ def check_trainable(config) -> None:
     hyper_from_config(config)
     if config.fp16_run:
         raise NotImplementedError(
-            "fp16_run (bf16 training) is not ported yet (ROADMAP, queue 1 "
-            "item 6); set fp16_run to false"
-        )
-    if int(getattr(config, "grad_accum_steps", 1) or 1) > 1:
-        raise NotImplementedError(
-            "grad_accum_steps > 1 is not ported yet (ROADMAP, queue 1 item 6)"
+            "fp16_run is not ported yet (ROADMAP, queue 1: bf16 training); set fp16_run to false"
         )
     if config.checkpoint_format != "npz":
         raise ValueError(
@@ -117,23 +118,66 @@ def make_train_step(config):
     """-> ``step_fn(state, batch, generator, seed_generator) -> metrics``:
     one optimizer step on ``state`` in place; metrics are 0-d tensors
     (loss, mle_loss, duration_loss, grad_norm).  Dropout is on when the
-    generators are given (``models.forward_train``)."""
+    generators are given (``models.forward_train``); the slices of an
+    accumulated step draw from them in turn.
+
+    ``grad_accum_steps`` n > 1 (the JAX package's exact accumulation): the
+    batch, whose size n must divide, goes through in n row slices; slice
+    i's numerators (the MLE loss less its 1/2 log 2 pi times its masked
+    element count, the duration loss times its phoneme count) go over the
+    whole batch's denominators, the gradients are summed, and the metrics
+    are rebuilt from the summed numerators."""
     check_trainable(config)
     hp = hyper_from_config(config)
     multispeaker = config.model.n_speakers > 1
+    accum = max(1, int(getattr(config, "grad_accum_steps", 1) or 1))
+    n_sqz, n_mel = config.model.n_sqz, config.audio.mel_channels
+    half_log_2pi = 0.5 * math.log(2.0 * math.pi)
 
-    def step_fn(state: TrainState, batch: dict, generator=None, seed_generator=None) -> dict:
-        params = state.model.flat()
+    def losses(params, batch, generator, seed_generator):
         g_ids = batch.get("speaker_ids") if multispeaker else None
         (z, z_m, z_logs, logdet, z_mask), _, (_, logw, logw_) = forward_train(
             unflatten(params), hp, batch["x"], batch["x_lengths"], batch["y"],
             batch["y_lengths"], g_ids=g_ids, generator=generator,
             seed_generator=seed_generator,
         )
-        l_mle = mle_loss(z, z_m, z_logs, logdet, z_mask)
-        l_dur = duration_loss(logw, logw_, batch["x_lengths"])
-        loss = l_mle + l_dur
-        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        return mle_loss(z, z_m, z_logs, logdet, z_mask), duration_loss(logw, logw_, batch["x_lengths"])
+
+    def den_mle(y_lengths):  # masked elements after the squeeze
+        return torch.sum(((y_lengths // n_sqz) * n_sqz).to(torch.float32)) * n_mel
+
+    def den_dur(x_lengths):
+        return torch.sum(x_lengths.to(torch.float32))
+
+    def step_fn(state: TrainState, batch: dict, generator=None, seed_generator=None) -> dict:
+        params = state.model.flat()
+        leaves = list(params.values())
+        if accum == 1:
+            l_mle, l_dur = losses(params, batch, generator, seed_generator)
+            loss = l_mle + l_dur
+            grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
+        else:
+            b = batch["x"].shape[0]
+            if b % accum:
+                raise ValueError(f"batch_size {b} must divide by grad_accum_steps {accum}")
+            mb = b // accum
+            d_mle, d_dur = den_mle(batch["y_lengths"]), den_dur(batch["x_lengths"])
+            grads = [None] * len(leaves)
+            num_mle = num_dur = 0.0
+            for i in range(accum):
+                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                m_mle, m_dur = losses(params, micro, generator, seed_generator)
+                n_mle = (m_mle - half_log_2pi) * den_mle(micro["y_lengths"])
+                n_dur = m_dur * den_dur(micro["x_lengths"])
+                micro_grads = torch.autograd.grad(
+                    n_mle / d_mle + n_dur / d_dur, leaves, allow_unused=True
+                )
+                grads = [g if acc is None else acc if g is None else acc + g
+                         for acc, g in zip(grads, micro_grads)]
+                num_mle, num_dur = num_mle + n_mle.detach(), num_dur + n_dur.detach()
+            l_mle = num_mle / d_mle + half_log_2pi
+            l_dur = num_dur / d_dur
+            loss = l_mle + l_dur
         grads = {
             k: torch.zeros_like(p) if g is None else g
             for (k, p), g in zip(params.items(), grads)
@@ -222,6 +266,7 @@ def train(
     device,
     checkpoint_epochs: int = 1,
     metrics_path: typing.Optional[Path] = None,
+    profile_dir: typing.Optional[Path] = None,
 ) -> TrainState:
     """Epoch loop with per-epoch metrics and periodic checkpoints.
     ``batches`` returns a fresh iterable of host batches each epoch.
@@ -229,8 +274,12 @@ def train(
     Each epoch appends one JSON line to ``metrics_path`` (epoch,
     global_step, avg_loss, learning_rate, epoch_seconds, host_rss_mb);
     every ``checkpoint_epochs`` epochs writes ``checkpoint_<step>.npz``
-    (params, JAX format) and ``config_<step>.json``.  The learning rate
-    written is the one the next update applies, ``lr(count)``.
+    (params and Adam state, JAX format) and ``config_<step>.json``.  The
+    learning rate written is the one the next update applies,
+    ``lr(count)``.  ``profile_dir``: a ``torch.profiler`` trace (host and,
+    on a GPU, device activity; each step a ``train_step`` range) of the
+    run's 6th to 15th steps (the JAX trainer's "steps 5-15"), written there
+    as a Chrome trace when the 15th ends or the run does.
 
     Dropout: before each step both generators, ``generator`` on
     ``device`` (the op-by-op text side's masks) and ``seed_generator`` on
@@ -246,6 +295,8 @@ def train(
     def prepare(b):
         return batch_to(b, device)
 
+    profiler = None
+    steps_done = 0
     for epoch in range(1, config.epochs + 1):
         epoch_start = time.perf_counter()
         losses = []
@@ -255,9 +306,19 @@ def train(
             else (prepare(b) for b in batches())
         )
         for batch in epoch_batches:
+            if profile_dir is not None and steps_done == 5 and profiler is None:
+                profiler = _start_profiler(device)
             generator.manual_seed(dropout_seed(config.seed, state.step))
             seed_generator.manual_seed(dropout_seed(config.seed, state.step))
-            metrics = step_fn(state, batch, generator, seed_generator)
+            if profiler is None:
+                metrics = step_fn(state, batch, generator, seed_generator)
+            else:
+                with torch.profiler.record_function("train_step"):
+                    metrics = step_fn(state, batch, generator, seed_generator)
+            steps_done += 1
+            if profiler is not None and steps_done >= 15:
+                _stop_profiler(profiler, profile_dir, device)
+                profiler, profile_dir = None, None
             losses.append(metrics["loss"])
             if state.step % _LOG_EVERY == 0 and _LOGGER.isEnabledFor(logging.DEBUG):
                 _LOGGER.debug("Loss: %s (step=%s)", float(metrics["loss"]), state.step)
@@ -283,9 +344,30 @@ def train(
             checkpoint_path = Path(model_dir) / f"checkpoint_{state.step}.npz"
             save_checkpoint(
                 state.model.flat(), checkpoint_path, state.step,
-                lr_at(state.opt.count), config.version,
+                lr_at(state.opt.count), config.version, state.opt, config.scheduler,
             )
             with open(Path(model_dir) / f"config_{state.step}.json", "w") as config_file:
                 config.save(config_file)
             _LOGGER.info("Saved checkpoint to %s", checkpoint_path)
+    if profiler is not None:
+        _stop_profiler(profiler, profile_dir, device)  # the run ended mid-capture
     return state
+
+
+def _start_profiler(device):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.__enter__()
+    return profiler
+
+
+def _stop_profiler(profiler, profile_dir: Path, device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    profiler.__exit__(None, None, None)
+    Path(profile_dir).mkdir(parents=True, exist_ok=True)
+    trace = Path(profile_dir) / "train_steps.pt.trace.json"
+    profiler.export_chrome_trace(str(trace))
+    _LOGGER.info("Wrote profiler trace to %s", trace)

@@ -472,6 +472,61 @@ def test_mas_kernel_matches_plain(dev, shape):
             assert torch.equal(got, expected), case
 
 
+def _mas_numpy(logp: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """The column scan of ``glow_tts_train_tpu/ops/mas.py`` (:193) in numpy
+    f32, vectorised over the text, one sample at a time: v[x] = max(v[x],
+    v[x - 1]) + logp[x, y] for x <= y (-1e9 above the diagonal and as
+    v[-1]), ties stay, forced to stay outside the mask; the backtrace moves
+    up a row unless the cell stays, never at row 0, always where row ==
+    column."""
+    b, t_x, t_y = logp.shape
+    neg = np.float32(-1e9)
+    rows = np.arange(t_x)
+    path = np.zeros((b, t_x, t_y), np.float32)
+    for i in range(b):
+        value = (logp[i] * mask[i]).astype(np.float32)
+        tx, ty = int(mask[i, :, 0].sum()), int(mask[i, 0, :].sum())
+        v = np.zeros(t_x, np.float32)
+        stay = np.ones((t_y, t_x), bool)
+        for y in range(t_y):
+            v0 = np.concatenate([[neg], v[:-1]])
+            s = v >= v0
+            v = np.where(rows <= y, np.where(s, v, v0) + value[:, y], neg).astype(np.float32)
+            stay[y] = np.where(mask[i, :, y] > 0, s, True)
+        index = max(tx - 1, 0)
+        for y in range(t_y - 1, -1, -1):
+            if y >= ty:
+                continue
+            path[i, index, y] = 1.0
+            move = index != 0 and (index == y or not stay[y, index])
+            index -= int(move)
+    return path * mask
+
+
+@pytest.mark.parametrize("shape", [(2, 1344, 1400), (2, 1345, 1400), (2, 2600, 2700),
+                                   (1, 4096, 4200)])
+def test_mas_kernel_takes_long_texts(dev, shape):
+    """Texts past the short path's shared-memory ring (from t_x 1,345 on
+    the H100) take the long path, rows in passes through device memory: the
+    paths equal the numpy oracle bit for bit, ragged (sample 1) and tied
+    scores included, and a sample with fewer frames than phonemes, and
+    only device memory bounds the shape."""
+    b, t_x, t_y = shape
+    rng = np.random.default_rng(t_x)
+    words = kernels.mas_bits_words(b, t_x, t_y, torch.device(dev))
+    assert words > 0 if t_x >= 1345 else words >= 0, words
+    for case in ("normal", "ties", "fewer frames than phonemes"):
+        logp = rng.standard_normal(shape).astype(np.float32) * 3.0
+        if case == "ties":
+            logp = np.round(logp)
+        mask = np.zeros(shape, np.float32)
+        mask[0] = 1.0
+        if b > 1:  # the last case's sample 1 starts its backtrace above the diagonal
+            mask[1, : t_x - 37, : t_y - 11 if case != "fewer frames than phonemes" else t_x // 2] = 1.0
+        got = mas_cuda.maximum_path(torch.from_numpy(logp).to(dev), torch.from_numpy(mask).to(dev))
+        np.testing.assert_array_equal(got.cpu().numpy(), _mas_numpy(logp, mask), err_msg=case)
+
+
 def _gates_agree(name, kernel_gates, plain_saves):
     """The kernel's ReLU gates against the plain version's: they may differ
     only where the ReLU's input is within rounding of zero (1e-5 of its

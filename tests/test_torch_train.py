@@ -301,8 +301,9 @@ def test_train_cli_fresh_init_with_ddi(corpus):
 
 
 def test_train_cli_cuda_without_gpu_and_unported_options_exit_non_zero(corpus, tmp_path):
-    """--platform cuda (the default) never drops to the CPU; fp16_run and
-    grad_accum_steps > 1 are refused with the ROADMAP item named."""
+    """--platform cuda (the default) never drops to the CPU; fp16_run is
+    refused with the ROADMAP item named (by its title, "bf16 training"),
+    and grad_accum_steps > 1, refused until it was ported, trains."""
     probe = subprocess.run(
         [sys.executable, "-c", "import torch; print(torch.cuda.is_available())"],
         capture_output=True, text=True, env=_env(), timeout=120,
@@ -310,12 +311,17 @@ def test_train_cli_cuda_without_gpu_and_unported_options_exit_non_zero(corpus, t
     if probe.stdout.strip() != "True":
         proc = _train("glow_tts_train_tpu_torch", corpus, "nogpu")
         assert proc.returncode == 2 and "no CUDA device" in proc.stderr
-    for key, value in (("fp16_run", True), ("grad_accum_steps", 2)):
+    for key, value, refused in (("fp16_run", True, True), ("grad_accum_steps", 2, False)):
         override = tmp_path / f"{key}.json"
         override.write_text(json.dumps({key: value}))
         proc = _train("glow_tts_train_tpu_torch", corpus, key, "--platform", "cpu",
                       "--config", str(override))
-        assert proc.returncode == 2 and "ROADMAP" in proc.stderr, proc.stderr[-2000:]
+        if refused:
+            assert proc.returncode == 2, proc.stderr[-2000:]
+            assert "ROADMAP, queue 1: bf16 training" in proc.stderr, proc.stderr[-2000:]
+        else:
+            assert proc.returncode == 0 and "ROADMAP" not in proc.stderr, proc.stderr[-2000:]
+            assert len(open(corpus / f"{key}.jsonl").readlines()) == 2
 
 
 @pytest.mark.parametrize("encoder_fuse", [True, "auto"])
