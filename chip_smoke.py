@@ -102,7 +102,24 @@ Phases, each fatal on failure:
     and of the call's split and copy (``product wn_fwd`` lines);
 11. times the train step and reads its peak device memory in the four
     decoder configurations, from one init in one process, in turns, and
-    holds the four loss trajectories together as in 9.
+    holds the four loss trajectories together as in 9;
+12. (between 8 and 9) trains in bf16: ``configs/base.json`` as shipped
+    (``fp16_run: true``, batch 32, full width; its epochs cut to 2)
+    through the train CLI on the same corpus: DDI (in f32, as the JAX
+    package does it), 2 epochs of 2 steps, each bf16 kernel launched once
+    a step (the 12 blocks' forward-save and backward-store, the 6 encoder
+    layers', the prenet's and the duration stack's forward and backward)
+    and no f32 training kernel; 1 epoch, its checkpoint and 1 resumed
+    epoch equal to the 2-epoch run bit for bit; one profiled bf16 step
+    (its products all on the bf16 kernels but the 12 folded-A products);
+    each bf16 kernel against its plain bf16 version on the last step's
+    inputs within BF16_KERNEL_RTOL (backwards at the kernel's own ReLU
+    gates), timed, with its bound at the dense BF16 peak; then the bf16
+    step against the f32 step from one init, on the same batches and
+    dropout seeds, step by step on the f32 step's alignment (losses within
+    BF16_LOSS_RTOL, the grad norm within BF16_GRAD_NORM_RTOL, bf16's own
+    alignment within BF16_PATH_SCORE_RTOL of f32's optimum), and both steps in turns at batch
+    32: step ms quartiles, peak device memory, a profiled step each.
 
 The profiled train step also counts its device products: every product the
 block chains send to the tensor cores must run there (10 conv-GEMMs per
@@ -122,13 +139,16 @@ the whole path) over 3.35 TB/s and its
 operations (from the shapes of that call, ``kernel_flops``) over 165
 TFLOP/s where the call's products ran on the tensor cores (a third of the
 TF32 peak: three passes a product; ``bound_by`` "operations, 3xTF32") or
-over the 67 TFLOP/s of the CUDA cores where they did not; a kernel faster
+over the 67 TFLOP/s of the CUDA cores where they did not, and for the
+bf16 kernels (``<name>_bf16``) over the dense BF16 peak, 989 TFLOP/s
+(``bound_by`` "operations, bf16"); a kernel faster
 than its bound fails the run; and ``library_ms`` null: no single PyTorch call computes any of
 these functions (a whole conv/LayerNorm stack, a layer with rel-pos band
 terms, a flow block, a monotonic alignment).
 
 Prints the GPU's name and power limit, a ``{"products": [...]}``, a
-``{"decoder_modes": {...}}`` and a ``{"kernels": [...]}`` JSON line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU
+``{"decoder_modes": {...}}``, a ``{"train_bf16": {...}}`` and a
+``{"kernels": [...]}`` JSON line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU
 or outside a checkout of the repository.
 """
 
@@ -277,6 +297,11 @@ KERNEL_META = {
     "duration_stack_bwd": ("glow_tts_train_tpu_torch/csrc/text_train.cu",
                            "glow_tts_train_tpu/ops/text_pallas.py:220"),
 }
+# the bf16 versions (fp16_run): the same TPU kernels with dtype bf16, their
+# products in csrc/bf16_gemm.cu
+BF16_KERNELS = ("prenet", "encoder_layer", "duration_stack", "block_fwd_save",
+                "prenet_bwd", "encoder_layer_bwd", "duration_stack_bwd", "block_bwd_store")
+KERNEL_META.update({name + "_bf16": KERNEL_META[name] for name in BF16_KERNELS})
 
 
 def kernel_flops(name: str, args) -> float:
@@ -391,6 +416,26 @@ def bound(name: str, args, kwargs, outputs, fn=None) -> dict:
     }
 
 
+def bf16_bound(name: str, args, kwargs, outputs, fn) -> dict:
+    """``bound`` of a bf16 kernel (``<name>_bf16``): its products run on the
+    tensor cores in bf16 (``bf16_gemm``, ``bf16_wgrad``), so the operations'
+    time is at the dense BF16 peak; the bytes are its bf16 and f32
+    tensors as they are."""
+    roof = bound(name[: -len("_bf16")], args, kwargs, outputs, fn)
+    products = roof.get("products") or {}
+    if not products.get("bf16_gemm", 0) + products.get("bf16_wgrad", 0):
+        fail(f"{name}: no product ran on the bf16 kernels: {products}")
+    by_flops = roof["flops"] / PEAK_BF16_FLOPS * 1e3
+    by_bytes = roof["bytes"] / PEAK_BYTES_PER_S * 1e3
+    roof["bound_ms"] = max(by_bytes, by_flops)
+    roof["bound_by"] = "bytes" if by_bytes >= by_flops else "operations, bf16"
+    device, operations = device_profile(lambda: fn(*args, **kwargs))
+    roof["device_operations"] = operations
+    # below the bound: a trace short of records
+    roof["device_ms"] = device if device is not None and device >= roof["bound_ms"] else None
+    return roof
+
+
 def held_to_bound(name: str, ms: float, roof: dict) -> None:
     """A kernel faster than the least time the card could take is a fault
     of the operation count or of the timing."""
@@ -421,6 +466,8 @@ PRODUCT_RTOL = 5e-6
 # accumulation order of the tensor cores
 EMULATION_RTOL = 2e-6
 PEAK_3XTF32_FLOPS = 495e12 / 3
+# the dense BF16 tensor peak (the bf16 kernels' products: one pass each)
+PEAK_BF16_FLOPS = 989e12
 
 
 def bare_products(device_line: str) -> list:
@@ -868,19 +915,24 @@ def make_corpus(workdir: Path, repo: Path) -> tuple:
 
 
 def run_train_cli(workdir: Path, corpus: Path, manifest: dict, config_path: Path,
-                  override: dict, tag: str, n_steps: int, recorders: dict, extra=()):
+                  override: dict, tag: str, n_steps: int, recorders: dict, extra=(),
+                  corpus_symbols: bool = True):
     """The train CLI in-process on the corpus (``extra``: more of its
     arguments) -> (launch counts of the run, per-step rows, the last step's
     function, state and batch, the output directory, seconds).
-    ``recorders`` are armed for the last step."""
+    ``recorders`` are armed for the last step.  ``corpus_symbols``: the
+    model's num_symbols set to the corpus's (else the config's, which must
+    cover it)."""
     import torch
 
     from glow_tts_train_tpu_torch import __main__ as train_cli
     from glow_tts_train_tpu_torch import kernels, training
 
     override_path = workdir / f"{tag}_override.json"
-    model_over = dict(override.get("model", {}), num_symbols=manifest["num_symbols"])
-    override_path.write_text(json.dumps(dict(override, model=model_over)))
+    if corpus_symbols:
+        model_over = dict(override.get("model", {}), num_symbols=manifest["num_symbols"])
+        override = dict(override, model=model_over)
+    override_path.write_text(json.dumps(override))
     steps = []
     last = {}  # the last step's function, state and batch, for the profile
     make_step = training.make_train_step
@@ -1148,7 +1200,9 @@ def accumulated_step(last: dict, override_path: Path, config_path: Path, device_
 
 
 def resumed_run(workdir: Path, corpus: Path, manifest: dict, config_path: Path, main_steps: list,
-                main_out: Path, per_run: dict, device_line: str) -> dict:
+                main_out: Path, per_run: dict, device_line: str, override: dict = TRAIN_OVERRIDE,
+                n_steps: int = TRAIN_STEPS, main_tag: str = "fused", tag: str = "",
+                corpus_symbols: bool = True) -> dict:
     """Through the train CLI: 1 epoch (fresh init, DDI), its checkpoint, and
     1 epoch resumed from it (params, Adam moments and count, global step),
     against the main run's 2 epochs: the first run's checkpoint equals the
@@ -1158,22 +1212,23 @@ def resumed_run(workdir: Path, corpus: Path, manifest: dict, config_path: Path, 
     run's second epoch launched it (no DDI)."""
     import numpy as np
 
-    half = TRAIN_STEPS // 2
-    one_epoch = dict(TRAIN_OVERRIDE, epochs=1)
+    half = n_steps // 2
+    one_epoch = dict(override, epochs=1)
     first_launches, _, _, first_out, _ = run_train_cli(
-        workdir, corpus, manifest, config_path, one_epoch, "first", half, {}
+        workdir, corpus, manifest, config_path, one_epoch, tag + "first", half, {},
+        corpus_symbols=corpus_symbols,
     )
     mid = f"checkpoint_{1 + half}.npz"
     launches, steps, _, out, seconds = run_train_cli(
-        workdir, corpus, manifest, config_path, one_epoch, "resumed", half, {},
-        extra=("--checkpoint", str(first_out / mid)),
+        workdir, corpus, manifest, config_path, one_epoch, tag + "resumed", half, {},
+        extra=("--checkpoint", str(first_out / mid)), corpus_symbols=corpus_symbols,
     )
     want = {k: 0 if k == "wn_forward" else v // 2 for k, v in per_run.items()}
     if {k: launches[k] for k in want} != want:
         fail(f"train resumed: launches {launches}, expected {want}")
+    last_ckpt = f"checkpoint_{1 + n_steps}.npz"
     for name, a, b in ((mid, first_out / mid, main_out / mid),
-                       (f"checkpoint_{1 + TRAIN_STEPS}.npz", out / f"checkpoint_{1 + TRAIN_STEPS}.npz",
-                        main_out / f"checkpoint_{1 + TRAIN_STEPS}.npz")):
+                       (last_ckpt, out / last_ckpt, main_out / last_ckpt)):
         with np.load(a) as x, np.load(b) as y:
             if sorted(x.files) != sorted(y.files) or not any(k.startswith("opt/1/mu/") for k in x.files):
                 fail(f"train resumed: {name} keys differ or hold no Adam state")
@@ -1184,12 +1239,12 @@ def resumed_run(workdir: Path, corpus: Path, manifest: dict, config_path: Path, 
     ref = [row["loss"] for row in main_steps[half:]]
     if losses != ref:
         fail(f"train resumed: step losses {losses}, the uninterrupted run's {ref}")
-    line = json.loads((workdir / "resumed.jsonl").read_text().splitlines()[-1])
-    main_line = json.loads((workdir / "fused.jsonl").read_text().splitlines()[-1])
+    line = json.loads((workdir / f"{tag}resumed.jsonl").read_text().splitlines()[-1])
+    main_line = json.loads((workdir / f"{main_tag}.jsonl").read_text().splitlines()[-1])
     keys = ("global_step", "avg_loss", "learning_rate")
     if any(line[k] != main_line[k] for k in keys):
         fail(f"train resumed: metrics line {line}, the uninterrupted run's {main_line}")
-    print(f"train resumed: 1 epoch, {mid}, 1 resumed epoch ({seconds:.1f} s) equal the 2-epoch run: "
+    print(f"train {tag}resumed: 1 epoch, {mid}, 1 resumed epoch ({seconds:.1f} s) equal the 2-epoch run: "
           f"step losses {[round(x, 6) for x in losses]}, checkpoints and metrics line bit for bit; "
           f"launches {dict((k, launches[k]) for k in want)} [{device_line}]")
     return {"step_losses": losses, "metrics_line": {k: line[k] for k in keys},
@@ -2046,6 +2101,368 @@ def text_kernels(recorders: dict, launches: dict, entry) -> list:
     return forward_rows
 
 
+# a bf16 kernel against its plain bf16 version on the same inputs, relative
+# to max |ref| of each output and gradient: both round to bf16 at the JAX
+# kernels' casts, so they differ where an f32 sum in another order rounds to
+# the neighbouring bf16 value (one bf16 step, 2^-8 relative, at a few
+# elements) and where that difference travels on; the encoder layer's
+# streaming softmax also rounds its running (unnormalised) probabilities
+# where JAX rounds the final ones.  The JAX package's own bf16 against f32
+# is 4.8e-3 to 6.3e-3 of max |z| on the CPU (tests/test_torch_bf16.py).
+BF16_KERNEL_RTOL = 2e-2
+
+
+def bf16_kernels(recorders: dict, launches: dict, device_line: str) -> list:
+    """Each bf16 kernel of the main path against its plain bf16 version on
+    the card, on the inputs it got in the bf16 run (``recorders``: the
+    first call of each wrapper): the forwards (dropout on, equal keep
+    masks), the backwards at the kernel's own ReLU gates with the
+    cotangent scaled to max 1; each within BF16_KERNEL_RTOL, timed against
+    its plain version, with its bound at the BF16 peak."""
+    import torch
+
+    from glow_tts_train_tpu_torch.ops import block_cuda, encoder_cuda, text_cuda
+
+    report = []
+    entry = entry_writer(report, launches, device_line)
+
+    def unit(t):  # a backward is linear in its cotangent
+        return (t / t.abs().max().clamp_min(1e-30)).to(t.dtype).contiguous()
+
+    def held_all(name, port, ref):
+        worst, scale = 0.0, 0.0
+        for i, (a, b) in enumerate(zip(port, ref)):
+            if b is None:
+                continue
+            e, sc = rel_err(f"{name} [{i}]", a.float(), b.float(), BF16_KERNEL_RTOL)
+            if i and b.abs().max().item() == 0.0:
+                fail(f"{name} [{i}] is zero in the plain version: nothing was compared")
+            worst, scale = max(worst, e / max(sc, 1e-6)), max(scale, sc)
+        return worst, scale
+
+    plain_fwd = {
+        "prenet": text_cuda.prenet_plain_bf16,
+        "duration_stack": text_cuda.duration_stack_plain_bf16,
+        "encoder_layer": encoder_cuda.encoder_layer_plain_bf16,
+    }
+    plain_bwd = {
+        "prenet": text_cuda.prenet_bwd_plain,
+        "duration_stack": text_cuda.duration_stack_bwd_plain,
+        "encoder_layer": encoder_cuda.encoder_layer_bwd_plain,
+    }
+    for name in TEXT_KERNELS:
+        args, kwargs = recorders[name].args
+        kernel_fn = recorders[name].fn
+        x = args[1]
+        with torch.inference_mode():
+            out_k = kernel_fn(*args, **kwargs)
+            out_p = plain_fwd[name](*args, **kwargs)
+        torch.cuda.synchronize()
+        err, scale = rel_err(f"{name}_bf16", out_k.float(), out_p.float(), BF16_KERNEL_RTOL)
+        with torch.inference_mode():
+            ms = time_ms(kernel_fn, args, kwargs, runs=10, warmup=2)
+            plain_ms = time_ms(plain_fwd[name], args, kwargs, runs=3, warmup=1)
+            roof = bf16_bound(name + "_bf16", args, kwargs, out_k, kernel_fn)
+        entry(name + "_bf16", err, scale, ms, plain_ms, list(x.shape), roof)
+
+        bname = name + "_bwd"
+        bargs, bkwargs = recorders[bname].args
+        bkernel = recorders[bname].fn
+        weights, x, x_mask, dout, *cfg = bargs
+        dout = unit(dout)
+        saves = {}
+        grads_k = bkernel(weights, x, x_mask, dout, *cfg, saves=saves)
+        grads_p = plain_bwd[name](weights, x, x_mask, dout, *cfg, gates=saves["gates"])
+        torch.cuda.synchronize()
+        worst, scale = held_all(name + "_bwd_bf16", grads_k, grads_p)
+        call = (weights, x, x_mask, dout, *cfg)
+        ms = time_ms(bkernel, call, {}, runs=10, warmup=2)
+        plain_ms = time_ms(lambda *a: plain_bwd[name](*a, gates=saves["gates"]), call, {},
+                           runs=3, warmup=1)
+        roof = bf16_bound(bname + "_bf16", call, {}, grads_k, bkernel)
+        entry(bname + "_bf16", worst * scale, scale, ms, plain_ms, list(x.shape), roof,
+              worst_relative=worst)
+
+    # the flow block: forward-save, then backward-store from its saves
+    args, kwargs = recorders["block_fwd_save"].args
+    fwd = recorders["block_fwd_save"].fn
+    folded, g_all, x, x_mask, *cfg = args
+    z_k, ld_k, saves = fwd(*args, **kwargs)
+    z_p, ld_p = block_cuda.block_forward_plain_bf16(folded, g_all, x, x_mask, *cfg)
+    torch.cuda.synchronize()
+    err, scale = rel_err("block_fwd_save_bf16 z", z_k.float(), z_p.float(), BF16_KERNEL_RTOL)
+    rel_err("block_fwd_save_bf16 ld", ld_k, ld_p, BF16_KERNEL_RTOL)
+    ms = time_ms(fwd, args, kwargs, runs=10, warmup=2)
+    plain_ms = time_ms(block_cuda.block_forward_plain_bf16, (folded, g_all, x, x_mask, *cfg), {},
+                       runs=3, warmup=1)
+    roof = bf16_bound("block_fwd_save_bf16", args, kwargs, (z_k, ld_k, saves), fwd)
+    entry("block_fwd_save_bf16", err, scale, ms, plain_ms, list(x.shape), roof)
+
+    bargs, bkwargs = recorders["block_bwd_store"].args
+    bwd = recorders["block_bwd_store"].fn
+    folded, with_g, x, x_mask, saves, dz, dld, *cfg = bargs
+    dz, dld = unit(dz), unit(dld)
+    call = (folded, with_g, x, x_mask, saves, dz, dld, *cfg)
+    grads_k = bwd(*call)
+    with torch.enable_grad():
+        leaves = {k: v.detach().requires_grad_(True) for k, v in folded.items()}
+        xl = x.detach().requires_grad_(True)
+        z, ld = block_cuda.block_forward_plain_bf16(leaves, None, xl, x_mask, *cfg)
+        ref = torch.autograd.grad((z, ld), [xl, *leaves.values()], (dz, dld))
+    names = ["dx"] + ["d" + k for k in leaves]
+    worst, scale = held_all("block_bwd_store_bf16", [grads_k[n] for n in names], ref)
+    ms = time_ms(bwd, call, {}, runs=10, warmup=2)
+
+    def plain_bwd_store():  # autograd of the plain forward: the plain backward's cost
+        with torch.enable_grad():
+            z, ld = block_cuda.block_forward_plain_bf16(leaves, None, xl, x_mask, *cfg)
+            return torch.autograd.grad((z, ld), [xl, *leaves.values()], (dz, dld))
+
+    plain_ms = time_ms(plain_bwd_store, (), {}, runs=3, warmup=1)
+    roof = bf16_bound("block_bwd_store_bf16", call, {}, grads_k, bwd)
+    entry("block_bwd_store_bf16", worst * scale, scale, ms, plain_ms, list(x.shape), roof,
+          worst_relative=worst)
+    return report
+
+
+# bf16 training (fp16_run): configs/base.json as shipped (fp16_run true,
+# batch 32, full width), its epochs cut to 2: 64 utterances at batch 32
+# are 2 steps an epoch
+BF16_OVERRIDE = {"epochs": 2}
+BF16_STEPS = 4
+# the bf16 run against an f32 run from the same init, data and dropout
+# seeds, step by step, the bf16 step on the f32 step's alignment: every
+# loss within BF16_LOSS_RTOL of the f32 step's and the grad norm within
+# BF16_GRAD_NORM_RTOL: the CPU measurement (tests/test_torch_bf16.py: the
+# JAX package's own bf16 against f32 on the tiny config's 3-step
+# trajectory, losses 1.2e-3 relative at most and the grad norm 4.5e-3),
+# widened for the base width's depth (12 blocks of 4 WN layers and 6
+# encoder layers against 2, 2 and 2: about ten times the roundings along a
+# path) and for 4 steps.
+BF16_LOSS_RTOL = 2e-2
+BF16_GRAD_NORM_RTOL = 5e-2
+# bf16's own alignment against f32's: the cells it moves are counted, and
+# its log-likelihood under f32's logp must be within
+# BF16_PATH_SCORE_RTOL of the f32 path's (the maximum MAS finds).  An
+# untrained model's logp is flat: on the H100 bf16 moves 9-14% of the
+# path's cells at init, each move a near-tie (2.5e-5 below f32's score at
+# most), so the cells are reported and the score is bounded.
+BF16_PATH_SCORE_RTOL = 1e-3
+BF16_TIMED_ROUNDS = 3
+
+
+def bf16_train(workdir: Path, config_path: Path, device_line: str) -> tuple:
+    """bf16 training, ``configs/base.json`` as shipped (2 epochs), through
+    the train CLI on the 64-utterance corpus: DDI (f32, as in JAX), 2 epochs
+    of 2 steps, each bf16 kernel's launches, 1 epoch + 1 resumed epoch equal
+    to the 2 epochs bit for bit (``resumed_run``), each bf16 kernel against
+    its plain bf16 version on the last step's inputs (``bf16_kernels``),
+    then the bf16 run against f32 (``bf16_against_f32``) -> (kernel report
+    entries, the phase's row)."""
+    from glow_tts_train_tpu_torch.config import load_config
+    from glow_tts_train_tpu_torch.ops import block_cuda, encoder_cuda, text_cuda
+
+    corpus = workdir / "corpus"
+    manifest = json.loads((corpus / "manifest.json").read_text())
+    config = load_config([config_path])
+    if not config.fp16_run or config.batch_size != 32:
+        fail(f"{config_path}: fp16_run {config.fp16_run}, batch {config.batch_size}: "
+             "not the shipped config this phase trains")
+    n_blocks, n_layers = config.model.n_blocks_dec, config.model.n_layers_enc
+    modules = {"block_fwd_save": block_cuda, "block_bwd_store": block_cuda,
+               "prenet": text_cuda, "prenet_bwd": text_cuda, "duration_stack": text_cuda,
+               "duration_stack_bwd": text_cuda, "encoder_layer": encoder_cuda,
+               "encoder_layer_bwd": encoder_cuda}
+    recorders = {name: Recorder(module, name) for name, module in modules.items()}
+    launches, steps, last, out, seconds = run_train_cli(
+        workdir, corpus, manifest, config_path, BF16_OVERRIDE, "bf16", BF16_STEPS, recorders,
+        corpus_symbols=False,
+    )
+    per_step = {"block_fwd_save": n_blocks, "block_bwd_store": n_blocks, "prenet": 1,
+                "prenet_bwd": 1, "encoder_layer": n_layers, "encoder_layer_bwd": n_layers,
+                "duration_stack": 1, "duration_stack_bwd": 1}
+    want = {"wn_forward": n_blocks, "mas": BF16_STEPS,
+            **{k + "_bf16": v * BF16_STEPS for k, v in per_step.items()}, **dict.fromkeys(per_step, 0)}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"train bf16: launches {got}, expected {want}")
+    epochs = [json.loads(line) for line in (workdir / "bf16.jsonl").read_text().splitlines()]
+    if len(epochs) != 2 or not (out / f"checkpoint_{1 + BF16_STEPS}.npz").exists():
+        fail(f"train bf16: {len(epochs)} epoch lines, no checkpoint_{1 + BF16_STEPS}.npz")
+    for i, row in enumerate(steps):
+        print(f"train bf16 step {i + 1}: x {row['shape'][0]} y {row['shape'][1]} loss "
+              f"{row['loss']:.4f} (mle {row['mle_loss']:.4f}, dur {row['duration_loss']:.4f}) "
+              f"grad_norm {row['grad_norm']:.4f}, {row['seconds'] * 1e3:.1f} ms [{device_line}]")
+    print(f"train bf16: CLI {seconds:.1f} s ({config_path.name} as shipped, fp16_run true, batch "
+          f"{config.batch_size}, epochs cut to 2: DDI, {BF16_STEPS} steps, 2 checkpoints); "
+          f"epochs {epochs}; launches {got} [{device_line}]")
+    resume = resumed_run(workdir, corpus, manifest, config_path, steps, out,
+                         {k: v for k, v in want.items() if v}, device_line,
+                         override=BF16_OVERRIDE, n_steps=BF16_STEPS, main_tag="bf16",
+                         tag="bf16_", corpus_symbols=False)
+    profile = profile_bf16_step(last, device_line)
+    report = bf16_kernels(recorders, launches, device_line)
+    del recorders, last
+    against = bf16_against_f32(workdir, config_path, device_line)
+    return report, {"steps": steps, "epochs": epochs, "resumed": resume,
+                    "profiled_step": profile, "against_f32": against}
+
+
+def profile_bf16_step(last: dict, device_line: str) -> dict:
+    """One more bf16 step on the last batch under torch.profiler: its device
+    products (every one on the bf16 kernels but the 12 folded-A products),
+    wall, device busy, idle share, device operations, top kernels."""
+    from glow_tts_train_tpu_torch import kernels
+
+    def step():
+        last["step_fn"](last["state"], last["batch"], *last["args"])
+
+    kernels.product_counts(reset=True)
+    step()
+    products = kernels.product_counts(reset=True)
+    unexpected = {k: v for k, v in products.items()
+                  if v and k not in ("bf16_gemm", "bf16_wgrad", "core_gemm")}
+    if unexpected or not products.get("bf16_gemm") or not products.get("bf16_wgrad"):
+        fail(f"train bf16 step: device products {products}")
+    wall_ms, by_kernel, launches = profiled(step)
+    busy_ms = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    row = {"batch_x": list(last["batch"]["x"].shape), "batch_y": list(last["batch"]["y"].shape),
+           "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "idle_share": 1.0 - busy_ms / wall_ms if busy_ms > 0 else None,
+           "device_operations": launches, "device_products": products,
+           "bf16_products_ms": sum(v for k, v in by_kernel.items() if "bf16" in k),
+           "top_ms": {k[:70]: v for k, v in top}}
+    print(f"train bf16 profiled step: x {row['batch_x']} y {row['batch_y']} wall {wall_ms:.1f} ms, "
+          f"device busy {busy_ms:.1f} ms, idle share {row['idle_share']}, {launches} device "
+          f"operations, products {products}, bf16 product kernels {row['bf16_products_ms']:.1f} ms "
+          f"[{device_line}]")
+    for k, v in top:
+        print(f"  {v:8.2f} ms  {k[:110]}")
+    return row
+
+
+def bf16_against_f32(workdir: Path, config_path: Path, device_line: str) -> dict:
+    """The bf16 step against the f32 step in one process, both from the same
+    fresh init (DDI, f32, on the first batch) on the corpus's batches with
+    the same dropout seeds: BF16_STEPS steps (2 epochs), each pair on the
+    f32 step's alignment (the bf16 step's MAS kernel runs, its path is
+    replaced by f32's; the cells its own path moves are counted, and its
+    log-likelihood under f32's logp held within BF16_PATH_SCORE_RTOL of the
+    f32 path's), every loss within BF16_LOSS_RTOL and
+    the grad norm within BF16_GRAD_NORM_RTOL of f32's.  Then both go on
+    training in turns (f32, bf16, bf16, f32; BF16_TIMED_ROUNDS rounds, one
+    step a turn): step ms quartiles and peak device memory of a step
+    (``max_memory_allocated``, reset before it), and one profiled step of
+    each (device busy, idle share, device operations)."""
+    import torch
+
+    from glow_tts_train_tpu_torch import data, training
+    from glow_tts_train_tpu_torch.config import load_config
+    from glow_tts_train_tpu_torch.ops import mas_cuda
+
+    corpus = workdir / "corpus"
+    configs = {}
+    for fp16 in (False, True):
+        configs[fp16] = load_config([config_path, workdir / "bf16_override.json"])
+        configs[fp16].fp16_run = fp16
+    dataset = data.build_dataset(
+        [data.SpeakerSource(0, corpus / "phonemes.csv", corpus / "mels")], configs[True],
+        mels_are_dirs=True, skip_missing_mels=False, multispeaker=False,
+    )
+    pipeline = data.DataPipeline(dataset, configs[True], batch_size=configs[True].batch_size)
+    batches = [training.batch_to(b, PLATFORM) for b in pipeline.batches()]
+    runs = {}
+    for fp16, cfg in configs.items():
+        runs[fp16] = {
+            "step": training.make_train_step(cfg),
+            "state": training.TrainState(training.initialize_model(cfg, batches[0], PLATFORM)),
+            "generator": torch.Generator(device=PLATFORM).manual_seed(cfg.seed),
+            "seeds": torch.Generator().manual_seed(cfg.seed), "n": 0,
+        }
+    kernel_mas = mas_cuda.maximum_path
+
+    def step(fp16, pinned=None):
+        r = runs[fp16]
+        batch = batches[r["n"] % len(batches)]
+        r["n"] += 1
+        paths = []
+
+        def mas(logp, mask):
+            path = kernel_mas(logp, mask)
+            paths.append((logp, path))
+            return path if pinned is None else pinned
+
+        mas_cuda.maximum_path = mas
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            start = time.perf_counter()
+            metrics = r["step"](r["state"], batch, r["generator"], r["seeds"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - start) * 1e3
+        finally:
+            mas_cuda.maximum_path = kernel_mas
+        peak = torch.cuda.max_memory_allocated()
+        return ({k: float(v) for k, v in metrics.items()}, paths[0], ms, peak, peak - resident,
+                list(batch["y"].shape))
+
+    pairs = []
+    for i in range(BF16_STEPS):
+        m32, (logp32, path32), *_ = step(False)
+        m16, (_, path16), *_, shape = step(True, pinned=path32)
+        differ, cells = int((path16 != path32).sum().item()), int(path32.sum().item())
+        best = torch.sum(logp32 * path32).item()
+        deficit = (best - torch.sum(logp32 * path16).item()) / abs(best)
+        rel = {k: abs(m16[k] - m32[k]) / abs(m32[k]) for k in m32}
+        pairs.append({"f32": m32, "bf16": m16, "rel_diff": rel, "path_cells_differing": differ,
+                      "path_cells": cells, "path_score_deficit": deficit, "batch_y": shape})
+        print(f"train bf16 vs f32 step {i + 1}: y {shape} f32 {m32} bf16 {m16} relative "
+              f"{ {k: f'{v:.2e}' for k, v in rel.items()} }; bf16's own path moves {differ} of "
+              f"{cells} cells, its log-likelihood under f32's logp {deficit:.2e} below f32's "
+              f"path [{device_line}]")
+        if not all(math.isfinite(v) for v in m16.values()):
+            fail(f"train bf16 vs f32 step {i + 1}: non-finite {m16}")
+        for k in ("loss", "mle_loss", "duration_loss"):
+            if not rel[k] <= BF16_LOSS_RTOL:
+                fail(f"train bf16 vs f32 step {i + 1}: {k} {m16[k]} against {m32[k]} "
+                     f"(bound {BF16_LOSS_RTOL} relative)")
+        if not rel["grad_norm"] <= BF16_GRAD_NORM_RTOL:
+            fail(f"train bf16 vs f32 step {i + 1}: grad_norm {m16['grad_norm']} against "
+                 f"{m32['grad_norm']} (bound {BF16_GRAD_NORM_RTOL} relative)")
+        if not -1e-6 <= deficit <= BF16_PATH_SCORE_RTOL:
+            fail(f"train bf16 vs f32 step {i + 1}: bf16's alignment scores {deficit} below f32's "
+                 f"under f32's logp (bound {BF16_PATH_SCORE_RTOL})")
+    timed = {False: [], True: []}
+    for fp16 in (False, True, True, False) * BF16_TIMED_ROUNDS:
+        _, _, ms, peak, over, shape = step(fp16)
+        timed[fp16].append({"ms": ms, "peak_bytes": peak, "over_resident_bytes": over,
+                            "batch_y": shape})
+    out = {"gpu": device_line, "steps": pairs, "loss_rtol": BF16_LOSS_RTOL,
+           "grad_norm_rtol": BF16_GRAD_NORM_RTOL}
+    for fp16, name in ((False, "f32"), (True, "bf16")):
+        r = runs[fp16]
+        wall_ms, by_kernel, operations = profiled(lambda: step(fp16))
+        busy = sum(by_kernel.values())
+        ms = [t["ms"] for t in timed[fp16]]
+        out[name] = {
+            "step_ms": ms, "step_ms_quartiles": statistics.quantiles(ms, n=4),
+            "peak_bytes": max(t["peak_bytes"] for t in timed[fp16]),
+            "over_resident_bytes": max(t["over_resident_bytes"] for t in timed[fp16]),
+            "profiled": {"wall_ms": wall_ms, "device_busy_ms": busy,
+                         "idle_share": 1.0 - busy / wall_ms if busy > 0 else None,
+                         "device_operations": operations},
+        }
+        print(f"train {name} at batch 32 in turns: step ms {[round(x, 1) for x in ms]} "
+              f"(quartiles {[round(q, 1) for q in out[name]['step_ms_quartiles']]}), peak "
+              f"{out[name]['peak_bytes'] / 2 ** 30:.2f} GiB ({out[name]['over_resident_bytes'] / 2 ** 30:.2f} "
+              f"over resident); profiled step wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
+              f"{operations} device operations [{device_line}]")
+    del runs, batches
+    return out
+
+
 def held_losses(name: str, losses: list, ref: list, exact: bool) -> float:
     """The per-step losses of one decoder mode against another's from the
     same init, batches and dropout seeds -> the largest relative
@@ -2634,6 +3051,11 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
         next(r for r in report if r["name"] == row["name"]).update(row)
     del train_recorders
 
+    # ---- main path 4: bf16 training, configs/base.json as shipped ----
+    bf16_report, bf16_row = bf16_train(workdir, config_path, device_line)
+    report += bf16_report
+    torch.cuda.empty_cache()
+
     # ---- main path 3: the decoder's other training modes ----
     launches_by_mode, mode_recorders, mode_rows = decoder_modes(
         workdir, config_path, steps, device_line
@@ -2648,6 +3070,7 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
     print(json.dumps({"train": {"steps": steps, "median_step_ms_after_first": step_ms,
                                 "profiled_step": train_profile, **train_phases}}))
     print(json.dumps({"decoder_modes": {"runs": mode_rows, "steps": mode_steps}}))
+    print(json.dumps({"train_bf16": bf16_row}))
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

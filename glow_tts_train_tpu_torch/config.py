@@ -117,7 +117,7 @@ class TrainingConfig:
     warmup_steps: int = 4000
     scheduler: str = "noam"
     batch_size: int = 32
-    fp16_run: bool = False  # bf16 compute; the port's kernels are f32 and refuse it
+    fp16_run: bool = False  # bf16 compute: bf16 activations and products, f32 params and losses
     min_seq_length: typing.Optional[int] = None
     max_seq_length: typing.Optional[int] = None
     audio: AudioConfig = field(default_factory=AudioConfig)

@@ -40,6 +40,11 @@ __device__ __forceinline__ uint32_t tf32_big(float v) {
   return (__float_as_uint(v) + kTf32Half) & kTf32Mask;
 }
 
+// dot(x[0:d], rel[o * d : o * d + d]) of an f32 row and a rel-pos table's
+// row of f32 or (kB16) bf16, in order
+template <bool kB16>
+__device__ __forceinline__ float rel_dot(const float* x, const float* rel, int o, int d);
+
 // dot(x[0:d], y[0:d]) of two 16-byte aligned rows, in order
 __device__ __forceinline__ float row_dot(const float* x, const float* y, int d) {
   float acc = 0.f;
@@ -52,6 +57,20 @@ __device__ __forceinline__ float row_dot(const float* x, const float* y, int d) 
     acc = fmaf(a.w, b.w, acc);
   }
   return acc;
+}
+
+template <bool kB16>
+__device__ __forceinline__ float rel_dot(const float* x, const float* rel, int o, int d) {
+  if (!kB16) return row_dot(x, rel + o * d, d);
+  float acc = 0.f;
+  for (int c = 0; c < d; ++c) acc = fmaf(x[c], ld_act(rel, (long)o * d + c, true), acc);
+  return acc;
+}
+
+// Element (o, c) of a rel-pos table of f32 or (kB16) bf16.
+template <bool kB16>
+__device__ __forceinline__ float rel_at(const float* rel, int o, int d, int c) {
+  return ld_act(rel, (long)o * d + c, kB16);
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -67,7 +86,10 @@ __device__ __forceinline__ float quad_sum(float v) {
 // acc[n] (this warp's 16 rows x 8 keys of n-tile n) = the rows staged at
 // a (fragment rows r_lo, r_lo + 8) dotted with the key rows 8 n + g staged
 // at b, over the head width: 32-deep slices started from zero (small terms
-// first, then big x big), added in f32.
+// first, then big x big), added in f32.  kOnePass (the bf16 layer: both
+// tiles hold bf16 values, which TF32 holds exactly): the big x big pass
+// alone.
+template <bool kOnePass = false>
 __device__ __forceinline__ void tile_scores(float (&acc)[4][4], const float* a, const float* b,
                                             int r_lo, int g, int qd, int nd) {
 #pragma unroll
@@ -81,7 +103,7 @@ __device__ __forceinline__ void tile_scores(float (&acc)[4][4], const float* a, 
 #pragma unroll
       for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
 #pragma unroll
-    for (int pass = 0; pass < 2; ++pass) {
+    for (int pass = kOnePass ? 1 : 0; pass < 2; ++pass) {
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         if (s0 + kk >= nd) break;

@@ -123,7 +123,16 @@ struct Dims {
   // scratch of the tensor-core conv-GEMM's weight split (ConvGemm::tc_scratch)
   float* tc_scratch;
   long tc_scratch_floats;
+  // a bf16 call (fp16_run): x, zp, skipm, xs / th / sg, z, dz, dx, g_all
+  // and the products' weights and their gradients bf16, the rest f32; the
+  // forward's skip sum [rows, h] f32
+  int bf16 = 0;
+  float* skip = nullptr;
 };
+
+// The bf16 bits of a product of call d: kBf16 and `bits` in a bf16 call,
+// nothing in an f32 one.
+unsigned b16(const Dims& d, unsigned bits) { return d.bf16 ? kBf16 | bits : 0u; }
 
 // A product over the call's rows, on the tensor cores where it fits.
 ConvGemm rows_gemm(const Dims& d, const float* a, int lda, int c_in,
@@ -206,10 +215,17 @@ void block_fwd_products(const Dims& d, const float* x, const float* mask, const 
     // and the frame count, which turns that into 1e-3 of the gradient.
     ConvGemm g = rows_gemm(d, x, c, c, a, ba, c, kBiasMask, zp, c, mask);
     g.tc_scratch = nullptr;
+    g.bf16 = b16(d, kBf16Core | kA16 | kW16 | kOut16);
     out->push_back(g);
   }
-  out->push_back(rows_gemm(d, zp, c, c / 2, w_s, b_s, h, kBiasMask, xs, h, mask));
-  wn_products(wn_stack(d, wn, mask, xs, th, sg, acts, skipm, 1), out);
+  ConvGemm start = rows_gemm(d, zp, c, c / 2, w_s, b_s, h, kBiasMask, xs, h, mask);
+  start.bf16 = b16(d, kA16 | kW16 | kOut16);
+  out->push_back(start);
+  // bf16: the skip sum in f32 (d.skip), skipm its masked, rounded copy
+  WnLayers layers = wn_stack(d, wn, mask, xs, th, sg, acts, d.bf16 ? d.skip : skipm, 1);
+  layers.bf16 = d.bf16;
+  layers.skipm = skipm;
+  wn_products(layers, out);
 }
 
 // Floats of a forward call's one scratch block: the K-major splits of its
@@ -237,8 +253,10 @@ int block_fwd_chain(const Dims& d, const float* x, const float* mask,
   std::vector<ConvGemm> fwd;
   block_fwd_products(d, x, mask, a, ba, w_s, b_s, wn, zp, skipm, xs, th, sg, acts, &fwd);
   // z = [x0 | (m + e^logs * x1) * mask], logsm = logs * mask
-  ConvGemm e = rows_gemm(d, skipm, h, h, w_e, b_e, c, kCouplingFwd, z + c2, c, mask);
+  ConvGemm e = rows_gemm(d, skipm, h, h, w_e, b_e, c, kCouplingFwd, elem_at(z, c2, d.bf16),
+                         c, mask);
   e.split = c2; e.flag = sigmoid_scale; e.out2 = logsm; e.ldo2 = c2;
+  e.bf16 = b16(d, kA16 | kW16 | kOut16);
   std::vector<ConvGemm*> list;
   add_products(&list, &fwd);
   list.push_back(&e);
@@ -249,7 +267,8 @@ int block_fwd_chain(const Dims& d, const float* x, const float* mask,
     if (err != 0) return err;
   }
   if (z != zp)
-    GTT_TRY(cudaMemcpyAsync(z, zp, sizeof(float) * rows * c, cudaMemcpyDeviceToDevice, stream));
+    GTT_TRY(cudaMemcpyAsync(z, zp, (d.bf16 ? 2 : 4) * (long)rows * c, cudaMemcpyDeviceToDevice,
+                            stream));
   GTT_TRY(conv_gemm(e, stream));
   // ld[b] = sum over the sample's rows and columns of logs * mask
   GTT_TRY(col_sum(logsm, c2, c2, nullptr, batch, t, ld_part, c2, stream));
@@ -276,7 +295,7 @@ struct BwdScratch {
 
 // c 0: the WN stack alone.
 long bwd_scratch(float* base, int batch, int t, int c, int h, int n_layers, int taps,
-                 bool recompute, bool with_g, BwdScratch* s) {
+                 bool recompute, bool with_g, BwdScratch* s, bool bf16 = false) {
   const long rows = (long)batch * t;
   const long h2 = 2L * h, c2 = c / 2, L = n_layers;
   long used = 0;
@@ -292,12 +311,13 @@ long bwd_scratch(float* base, int batch, int t, int c, int h, int n_layers, int 
     splits += round4(2 * h * c2) + round4(2L * c * h) + round4(2 * h * c2) + round4(2L * c * c);
     if (recompute) splits += round4(2 * c2 * h);
   }
-  s->split_floats = splits;
+  // bf16: no weight splits, and dW_in reads d_xin as it lies
+  s->split_floats = bf16 ? 0 : splits;
   s->wg_floats = std::max(1L << 22, 2L * (taps * h + 1) * h2);
   take(s->g_rs, rows * h2);
   if (with_g) take(s->dia, rows * h2);
   take(s->dxin, rows * h2);
-  take(s->dxin_t, 2 * h2 * s->ldt);
+  if (!bf16) take(s->dxin_t, 2 * h2 * s->ldt);
   take(s->acts, rows * h);
   take(s->wg, s->wg_floats);
   take(s->splits, s->split_floats);
@@ -342,34 +362,41 @@ cudaError_t walk_products(const Dims& d, const WnWalk& w, const BwdScratch& s, W
   if (err != cudaSuccess) return err;
   const int batch = d.batch, t = d.t, h = d.h, taps = d.taps, h2 = 2 * h;
   const long rh = (long)batch * t * h;
+  const bool bf = d.bf16 != 0;
   int dilation = 1;
   for (int l = 0; l < d.n_layers; ++l) {
     {  // da = g_rs @ W_rs^T, the gate backward in the epilogue
-      ConvGemm g = rows_gemm(d, s.g_rs, h2, h2, w.w_rs + (long)l * h * h2, nullptr, h, kGateBwd,
-                             w.dg ? s.dia : nullptr, h2, nullptr);
+      ConvGemm g = rows_gemm(d, s.g_rs, h2, h2, elem_at(w.w_rs, (long)l * h * h2, bf), nullptr,
+                             h, kGateBwd, w.dg ? s.dia : nullptr, h2, nullptr);
       g.w_t = 1;
-      g.split = h; g.aux = w.th + l * rh; g.aux2 = w.sg + l * rh; g.ld_aux = h;
+      g.split = h; g.aux = elem_at(w.th, l * rh, bf); g.aux2 = elem_at(w.sg, l * rh, bf);
+      g.ld_aux = h;
       g.out2 = s.dxin; g.ldo2 = h2; g.out3 = s.acts; g.ldo3 = h;
       g.drop = d.drop.at(l);
+      g.bf16 = b16(d, kW16 | kAux16 | kAux2_16);
       p->gate.push_back(g);
     }
     {  // gx = gx * mask + transposed conv of d_xin; g_rs[:, :h] = gx * mask
-      ConvGemm g = rows_gemm(d, s.dxin, h2, h2, w.w_in + (long)l * taps * h * h2, nullptr, h,
-                             kAccumMask, w.gx, h, w.mask);
+      ConvGemm g = rows_gemm(d, s.dxin, h2, h2, elem_at(w.w_in, (long)l * taps * h * h2, bf),
+                             nullptr, h, kAccumMask, w.gx, h, w.mask);
       g.w_t = 1; g.taps = taps; g.dilation = dilation; g.tap_sign = -1; g.tap_staged = 1;
       g.out2 = s.g_rs; g.ldo2 = h2;
+      g.bf16 = b16(d, kW16);
       p->tconv.push_back(g);
     }
-    WGrad rs = wgrad_of(s.acts, h, h, batch, t, s.g_rs, h2, h2, w.dwrs + (long)l * h * h2,
-                        s.wg, s.wg_floats);
+    WGrad rs = wgrad_of(s.acts, h, h, batch, t, s.g_rs, h2, h2,
+                        elem_at(w.dwrs, (long)l * h * h2, bf), s.wg, s.wg_floats);
     rs.bias_out = w.dbrs + l * h2;
+    rs.bf16 = b16(d, kOut16);
     p->drs.push_back(rs);
-    WGrad in = wgrad_of(w.xs + l * rh, h, h, batch, t, s.dxin, h2, h2,
-                        w.dwin + (long)l * taps * h * h2, s.wg, s.wg_floats);
+    WGrad in = wgrad_of(elem_at(w.xs, l * rh, bf), h, h, batch, t, s.dxin, h2, h2,
+                        elem_at(w.dwin, (long)l * taps * h * h2, bf), s.wg, s.wg_floats);
     in.taps = taps; in.dilation = dilation; in.bias_out = w.dbin + l * h2;
+    in.bf16 = b16(d, kA16 | kOut16);
     p->din.push_back(in);
     dilation *= d.dilation_rate;
   }
+  if (bf) return cudaSuccess;  // no K-major split of d_xin: dW_in reads it as it lies
   // dW_in from d_xin's K-major split where the gate backward that writes it
   // and dW_in both take the tensor cores: at [960, 11264, 384] 123 us on
   // the device against 162 reading d_xin raw (scripts/torch-wn-walk-sweep.py,
@@ -394,8 +421,8 @@ int wn_reverse_walk(const Dims& d, const WnWalk& w, const BwdScratch& s, const W
     GTT_TRY(conv_gemm(p.gate[l], stream));
     GTT_TRY(wgrad(p.drs[l], stream));
     if (w.dg)
-      GTT_TRY(col_sum(s.dia, h2, h2, nullptr, d.batch, d.t, w.dg + l * h2, d.n_layers * h2,
-                      stream));
+      GTT_TRY(col_sum(s.dia, h2, h2, nullptr, d.batch, d.t, elem_at(w.dg, (long)l * h2, d.bf16),
+                      d.n_layers * h2, stream, false, d.bf16 != 0));
     GTT_TRY(wgrad(p.din[l], stream));
     GTT_TRY(conv_gemm(p.tconv[l], stream));
   }
@@ -437,24 +464,29 @@ cudaError_t block_bwd_products(const Dims& d, const WnWalk& w, const BwdScratch&
   const int batch = d.batch, t = d.t, c = d.c, h = d.h;
   const int c2 = c / 2, h2 = 2 * h;
   const float* mask = w.mask;
+  const bool bf = d.bf16 != 0;
   {
-    ConvGemm& g = p->coupling = rows_gemm(d, b.skipm, h, h, b.w_e + c2, b.b_e + c2, c2,
-                                          kCouplingBwd, s.dout, c, mask);
+    ConvGemm& g = p->coupling = rows_gemm(d, b.skipm, h, h, elem_at(b.w_e, c2, bf), b.b_e + c2,
+                                          c2, kCouplingBwd, s.dout, c, mask);
     g.ldb = c; g.split = c2; g.flag = b.sigmoid_scale;
     g.aux = b.dz; g.ld_aux = c; g.aux2 = b.zp; g.aux3 = b.dld; g.out2 = s.dzp; g.ldo2 = c;
+    g.bf16 = b16(d, kA16 | kW16 | kAux16 | kAux2_16);
   }
-  {  // -> the skip half of g_rs
+  {  // -> the skip half of g_rs (bf16: rounded, as the walk takes it)
     ConvGemm& g = p->dskip =
         rows_gemm(d, s.dout, c, c, b.w_e, nullptr, h, kBiasMask, s.g_rs + h, h2, mask);
     g.w_t = 1;
+    g.bf16 = b16(d, kW16 | kRoundOut);
   }
   {  // dzp[:, :c2] = (dz0 + d_pre @ W_s^T) * mask
     ConvGemm& g = p->dzp = rows_gemm(d, s.gx, h, h, b.w_s, nullptr, c2, kResidMask, s.dzp, c, mask);
     g.w_t = 1; g.a_mask = mask; g.aux = b.dz; g.ld_aux = c;
+    g.bf16 = b16(d, kW16 | kAux16);
   }
   {
     ConvGemm& g = p->dx = rows_gemm(d, s.dzp, c, c, b.a, nullptr, c, kBias, b.dx, c, nullptr);
     g.w_t = 1;
+    g.bf16 = b16(d, kW16 | kOut16);
   }
   p->dwe = wgrad_of(b.skipm, h, h, batch, t, s.dout, c, c, b.dwe, s.wg, s.wg_floats);
   p->dwe.bias_out = b.dbe;
@@ -462,6 +494,7 @@ cudaError_t block_bwd_products(const Dims& d, const WnWalk& w, const BwdScratch&
   p->dws.dy_mask = mask; p->dws.bias_out = b.dbs;
   p->da = wgrad_of(b.x, c, c, batch, t, s.dzp, c, c, b.da, s.wg, s.wg_floats);
   p->da.bias_out = b.dba;
+  p->dwe.bf16 = p->dws.bf16 = p->da.bf16 = b16(d, kA16 | kOut16);
   return walk_products(d, w, s, &p->walk);
 }
 
@@ -750,5 +783,66 @@ extern "C" int gtt_block_bwd(
     const int err = run_products(fwd, stream);
     if (err != 0) return err;
   }
+  return block_bwd_chain(d, w, s, p, stream);
+}
+
+// ---------------------------------------------------------------------------
+// the fused flow block in bf16 (fp16_run): the same chains, bf16 at the
+// entry points (block_pallas with dtype bf16)
+// ---------------------------------------------------------------------------
+
+// x, z, zp, skipm, xs / th / sg, g_all and A, W_s, W_e, W_in, W_rs bf16;
+// the biases, mask, ld and the f32 buffers acts and skip [rows, h] (the
+// skip sum), logsm [rows, c / 2], ld_part [batch, c / 2]: no scratch (the
+// products read their weights as they lie).
+extern "C" int gtt_block_fwd_save_bf16(
+    const float* x, const float* mask, const float* a, const float* ba,
+    const float* w_s, const float* b_s, const float* w_e, const float* b_e,
+    const float* w_in, const float* b_in, const float* w_rs, const float* b_rs,
+    const float* g_all, float* z, float* ld, float* zp, float* skipm, float* xs,
+    float* th, float* sg, float* acts, float* skip, float* logsm, float* ld_part,
+    int g_stride, int batch, int t, int c, int h, int n_layers, int taps,
+    int dilation_rate, int sigmoid_scale, int drop, int seed,
+    unsigned threshold, float scale, cudaStream_t stream) {
+  Dims d{batch, t, c, h, n_layers, taps, dilation_rate,
+         make_dropout(drop, seed, n_layers, threshold, scale), nullptr, 0};
+  d.bf16 = 1;
+  d.skip = skip;
+  const WnWeights wn{w_in, b_in, w_rs, b_rs, g_all, g_stride};
+  return block_fwd_chain(d, x, mask, a, ba, w_s, b_s, w_e, b_e, wn, sigmoid_scale, z, ld,
+                         zp, skipm, xs, th, sg, acts, logsm, ld_part, stream);
+}
+
+// x, zp, skipm, xs / th / sg, dz, dx, the five weights and their gradients
+// and dg bf16; the bias gradients, dld f32.  Scratch: one block of
+// gtt_block_bwd_bf16_scratch_floats(..., dg != null).
+extern "C" long long gtt_block_bwd_bf16_scratch_floats(int batch, int t, int c, int h,
+                                                       int n_layers, int taps, int with_g) {
+  BwdScratch s;
+  return bwd_scratch(nullptr, batch, t, c, h, n_layers, taps, false, with_g, &s, true);
+}
+
+extern "C" int gtt_block_bwd_store_bf16(
+    const float* x, const float* mask, const float* a, const float* w_s, const float* w_e,
+    const float* b_e, const float* w_in, const float* w_rs, const float* zp,
+    const float* skipm, const float* xs, const float* th, const float* sg,
+    const float* dz, const float* dld, float* dx, float* da, float* dba,
+    float* dws, float* dbs, float* dwe, float* dbe, float* dwin, float* dbin,
+    float* dwrs, float* dbrs, float* dg, float* scratch, long long scratch_floats,
+    int batch, int t, int c, int h, int n_layers, int taps, int dilation_rate,
+    int sigmoid_scale, int drop, int seed, unsigned threshold, float scale,
+    cudaStream_t stream) {
+  BwdScratch s;
+  if (bwd_scratch(scratch, batch, t, c, h, n_layers, taps, false, dg != nullptr, &s, true) >
+      scratch_floats)
+    return (int)cudaErrorInvalidValue;
+  Dims d{batch, t, c, h, n_layers, taps, dilation_rate,
+         make_dropout(drop, seed, n_layers, threshold, scale), s.wg, s.wg_floats};
+  d.bf16 = 1;
+  const WnWalk w{mask, w_in, w_rs, xs, th, sg, s.gx, dwin, dbin, dwrs, dbrs, dg};
+  const BlockBwdArgs b{x, a, w_s, w_e, b_e, zp, skipm, dz, dld, sigmoid_scale,
+                       dx, da, dba, dws, dbs, dwe, dbe};
+  BlockBwdProducts p;
+  GTT_TRY(block_bwd_products(d, w, s, b, &p));
   return block_bwd_chain(d, w, s, p, stream);
 }

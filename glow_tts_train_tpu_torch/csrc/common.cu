@@ -50,7 +50,10 @@ constexpr int kBK = 32;
 
 // kWT: B is read through ConvGemm::w_t's per-tap transpose (a separate
 // instantiation, so the plain one keeps its loads)
-template <int kBM, bool kWT>
+// kB16: a bf16 chain's product (ConvGemm::bf16; the folded A's forward
+// product, which stays on the CUDA cores): operands read as their bits
+// say and rounded to bf16 as they are staged, the bf16 epilogue
+template <int kBM, bool kWT, bool kB16 = false>
 __global__ void __launch_bounds__(kBM * 4) conv_gemm_kernel(const ConvGemm g) {
   constexpr int kThreads = kBM * 4;
   constexpr int kALoads = kBM * kBK / kThreads;  // A elements staged per thread
@@ -104,21 +107,25 @@ __global__ void __launch_bounds__(kBM * 4) conv_gemm_kernel(const ConvGemm g) {
       float v = 0.f;
       if (k_ok && a_row0[i] >= 0 && ts >= 0 && ts < g.t) {
         const long src = (long)a_row0[i] + ts;
-        v = g.a[src * g.lda + c];
+        v = kB16 ? ld_act(g.a, src * g.lda + c, has(g.bf16, kA16)) : g.a[src * g.lda + c];
         if (g.a_mask) v *= g.a_mask[src];
       }
-      ra[i] = v;
+      ra[i] = kB16 ? round_bf16(v) : v;
     }
 #pragma unroll
     for (int i = 0; i < kBLoads; ++i) {
       const int kid = k0 + b_k0 + kBRowStep * i;
+      long at = -1;
       if (kWT) {  // B[tap * c_in + j, col] = w[tap * n + col, j]
         const int tap_b = kid / g.c_in;
-        rb[i] = (b_ok && kid < kdim)
-                    ? g.w[((long)tap_b * g.n + b_col) * g.c_in + (kid - tap_b * g.c_in)]
-                    : 0.f;
+        if (b_ok && kid < kdim) at = ((long)tap_b * g.n + b_col) * g.c_in + (kid - tap_b * g.c_in);
       } else {
-        rb[i] = (b_ok && kid < kdim) ? g.w[(long)kid * ldb + b_col] : 0.f;
+        if (b_ok && kid < kdim) at = (long)kid * ldb + b_col;
+      }
+      if (kB16) {
+        rb[i] = at < 0 ? 0.f : round_bf16(ld_act(g.w, at, has(g.bf16, kW16)));
+      } else {
+        rb[i] = at < 0 ? 0.f : g.w[at];
       }
     }
   };
@@ -171,7 +178,9 @@ __global__ void __launch_bounds__(kBM * 4) conv_gemm_kernel(const ConvGemm g) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + ty * 4 + i;
-    if (m < rows) epilogue_row<4>(g, m, n0 + tx * 4, acc[i]);
+    if (m >= rows) continue;
+    if (kB16) epilogue_row_bf16<4>(g, m, n0 + tx * 4, acc[i]);
+    else epilogue_row<4>(g, m, n0 + tx * 4, acc[i]);
   }
 }
 
@@ -266,7 +275,7 @@ __global__ void __launch_bounds__(256) wgrad_kernel(const WGrad w, int rows_per_
 // One column per threadIdx.x, 8 row groups per column, summed in a fixed
 // order through shared memory.
 __global__ void col_sum_kernel(const float* x, int ld, int n, const float* mask, int T,
-                               float* out, int ldo) {
+                               float* out, int ldo, int x_bf16, int out_bf16) {
   __shared__ float part[8][33];
   const int j = blockIdx.x * 32 + threadIdx.x;
   const int s = blockIdx.y;
@@ -274,7 +283,7 @@ __global__ void col_sum_kernel(const float* x, int ld, int n, const float* mask,
   if (j < n) {
     for (int r = threadIdx.y; r < T; r += 8) {
       const long row = (long)s * T + r;
-      float e = x[row * ld + j];
+      float e = ld_act(x, row * ld + j, x_bf16 != 0);
       if (mask) e *= mask[row];
       v += e;
     }
@@ -285,7 +294,7 @@ __global__ void col_sum_kernel(const float* x, int ld, int n, const float* mask,
     float total = 0.f;
 #pragma unroll
     for (int y = 0; y < 8; ++y) total += part[y][threadIdx.x];
-    out[(long)s * ldo + j] = total;
+    st_act(out, (long)s * ldo + j, total, out_bf16 != 0);
   }
 }
 
@@ -297,7 +306,7 @@ constexpr int kSumCols = 8, kSumGroups = 128;
 
 __global__ void __launch_bounds__(kSumCols * kSumGroups)
     column_sums_kernel(const float* x, int ld, int n, const float* mul, int rows, float* out,
-                       float* out2) {
+                       float* out2, int x_bf16) {
   __shared__ float part[2][kSumGroups][kSumCols + 1];
   const int j = blockIdx.x * kSumCols + threadIdx.x;
   float a8[8] = {}, b8[8] = {};
@@ -308,7 +317,7 @@ __global__ void __launch_bounds__(kSumCols * kSumGroups)
       for (int i = 0; i < 8; ++i) {
         const bool ok = r0 + i < rows;
         const long at = (long)(r0 + i) * ld + j;
-        v[i] = ok ? x[at] : 0.f;
+        v[i] = ok ? ld_act(x, at, x_bf16 != 0) : 0.f;
         m[i] = ok && mul ? mul[at] : 1.f;
       }
 #pragma unroll
@@ -342,8 +351,9 @@ __global__ void layer_norm_kernel(const LayerNorm a) {
   if (row >= a.rows) return;
   const long base = (long)row * a.n;
   const float xm = a.x_mask ? a.x_mask[row] : 1.f;
+  const bool x16 = has(a.bf16, kA16), out16 = has(a.bf16, kOut16);
   auto load = [&](int c) {
-    float v = a.x[base + c] * xm;
+    float v = ld_act(a.x, base + c, x16) * xm;
     if (a.resid) v += a.resid[base + c];
     if (a.relu_before) v = fmaxf(v, 0.f);
     return v;
@@ -366,7 +376,7 @@ __global__ void layer_norm_kernel(const LayerNorm a) {
     float y = xh * a.gamma[c] + a.beta[c];
     if (a.relu_after) y = fmaxf(y, 0.f);
     y = site_drop(a.drop, b, tr, a.n, c, y);
-    if (a.out) a.out[base + c] = y;
+    if (a.out) st_act(a.out, base + c, y, out16);
     if (a.out_masked) a.out_masked[base + c] = y * a.out_mask[row];
   }
 }
@@ -378,8 +388,9 @@ __global__ void layer_norm_bwd_kernel(const LayerNormBwd a) {
   const long base = (long)row * a.n;
   const int b = a.t > 0 ? row / a.t : 0;
   const int tr = row - b * a.t;
+  const bool dy16 = has(a.bf16, kAux16);
   auto dy_eff = [&](int c) {
-    float v = site_drop(a.drop, b, tr, a.n, c, a.dy[base + c]);
+    float v = site_drop(a.drop, b, tr, a.n, c, ld_act(a.dy, base + c, dy16));
     if (a.relu_after && a.xhat[base + c] * a.gamma[c] + a.beta[c] <= 0.f) v = 0.f;
     return v;
   };
@@ -419,11 +430,19 @@ long long& product_splits() {
 cudaError_t conv_gemm(const ConvGemm& g, cudaStream_t stream) {
   const int rows = g.batch * g.t;
   if (rows <= 0 || g.n <= 0) return cudaSuccess;
+  if (g.bf16 != 0 && !has(g.bf16, kBf16Core)) return conv_gemm_bf16(g, stream);
   int dev = 0, sms = 0;  // SM count of the caller's current device
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
+  if (g.bf16 != 0) {  // a bf16 chain's product kept on the CUDA cores
+    ++product_counts().core_gemm;
+    const dim3 grid((g.n + kBN - 1) / kBN, (rows + 63) / 64);
+    if (g.w_t) conv_gemm_kernel<64, true, true><<<grid, 256, 0, stream>>>(g);
+    else conv_gemm_kernel<64, false, true><<<grid, 256, 0, stream>>>(g);
+    return cudaGetLastError();
+  }
   if (g.tc_scratch != nullptr || g.w_split != nullptr) {  // the chain asks
     if (conv_gemm_tc_fits(g, sms)) {
       ++product_counts().tc_gemm;
@@ -446,25 +465,26 @@ cudaError_t conv_gemm(const ConvGemm& g, cudaStream_t stream) {
 }
 
 cudaError_t col_sum(const float* x, int ld, int n, const float* mask, int n_seg,
-                    int T, float* out, int ldo, cudaStream_t stream) {
+                    int T, float* out, int ldo, cudaStream_t stream, bool x_bf16,
+                    bool out_bf16) {
   if (n <= 0 || n_seg <= 0) return cudaSuccess;
   col_sum_kernel<<<dim3((n + 31) / 32, n_seg), dim3(32, 8), 0, stream>>>(
-      x, ld, n, mask, T, out, ldo);
+      x, ld, n, mask, T, out, ldo, x_bf16 ? 1 : 0, out_bf16 ? 1 : 0);
   return cudaGetLastError();
 }
 
 cudaError_t column_sums(const float* x, int ld, int n, const float* mul, int rows, float* out,
-                        float* out2, cudaStream_t stream) {
+                        float* out2, cudaStream_t stream, bool x_bf16) {
   if (n <= 0 || rows <= 0) return cudaSuccess;
   column_sums_kernel<<<(n + kSumCols - 1) / kSumCols, dim3(kSumCols, kSumGroups), 0, stream>>>(
-      x, ld, n, mul, rows, out, out2);
+      x, ld, n, mul, rows, out, out2, x_bf16 ? 1 : 0);
   return cudaGetLastError();
 }
 
 cudaError_t bias_grad(const float* x, int ld, int n, const float* mask,
                       int batch, int t, float* part, float* out,
-                      cudaStream_t stream) {
-  cudaError_t err = col_sum(x, ld, n, mask, batch, t, part, n, stream);
+                      cudaStream_t stream, bool x_bf16) {
+  cudaError_t err = col_sum(x, ld, n, mask, batch, t, part, n, stream, x_bf16);
   if (err != cudaSuccess) return err;
   return col_sum(part, n, n, nullptr, 1, batch, out, n, stream);
 }
@@ -473,6 +493,7 @@ cudaError_t wgrad(const WGrad& w, cudaStream_t stream) {
   const int rows = w.batch * w.t;
   const int kdim = w.taps * w.c_in;
   if (kdim <= 0 || w.n <= 0) return cudaSuccess;
+  if (w.bf16 != 0) return wgrad_bf16(w, stream);
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -518,22 +539,24 @@ void wn_layer_products(const WnLayers& a, int l, int dilation, ConvGemm* in, Con
   const int h = a.h;
   const long rh = (long)a.batch * a.t * h;
   const bool save = a.th != nullptr;
-  float* x_l = save ? a.x + l * rh : a.x;
+  const bool b16 = a.bf16 != 0;
+  float* x_l = save ? elem_at(a.x, l * rh, b16) : a.x;
   const bool last = l == a.n_layers - 1;
   {  // acts = tanh(u + g_u) * sigmoid(v + g_v), [u | v] = drop(conv(x_l) + b_in)
     ConvGemm& g = *in = ConvGemm();
     g.a = x_l; g.lda = h; g.c_in = h; g.taps = a.taps; g.dilation = dilation;
     g.batch = a.batch; g.t = a.t;
-    g.w = a.w_in + (long)l * a.taps * h * 2 * h; g.bias = a.b_in + l * 2 * h;
+    g.w = elem_at(a.w_in, (long)l * a.taps * h * 2 * h, b16); g.bias = a.b_in + l * 2 * h;
     g.n = 2 * h; g.split = h; g.epilogue = kGate; g.out = a.acts; g.ldo = h;
     if (save) {
-      g.out2 = a.th + l * rh; g.ldo2 = h;
-      g.out3 = a.sg + l * rh; g.ldo3 = h;
+      g.out2 = elem_at(a.th, l * rh, b16); g.ldo2 = h;
+      g.out3 = elem_at(a.sg, l * rh, b16); g.ldo3 = h;
     }
     if (a.g_all) {
-      g.aux = a.g_all + l * 2 * h;
+      g.aux = elem_at(a.g_all, l * 2L * h, b16);
       g.ld_aux = a.g_stride;
     }
+    if (b16) g.bf16 = kBf16 | kA16 | kW16 | kOut2_16 | kOut3_16 | kAux16;
     g.drop = a.drop.at(l);
     g.tc_scratch = a.tc_scratch; g.tc_scratch_floats = a.tc_scratch_floats;
     if (a.w_in_split) g.w_split = a.w_in_split + (long)l * 2 * a.taps * h * 2 * h;
@@ -542,13 +565,17 @@ void wn_layer_products(const WnLayers& a, int l, int dilation, ConvGemm* in, Con
   {  // x_next = (x_l + rs[:, :h]) * mask; skip += rs[:, h:]
     ConvGemm& g = *rs = ConvGemm();
     g.a = a.acts; g.lda = h; g.c_in = h; g.batch = a.batch; g.t = a.t;
-    g.w = a.w_rs + (long)l * h * 2 * h; g.bias = a.b_rs + l * 2 * h;
+    g.w = elem_at(a.w_rs, (long)l * h * 2 * h, b16); g.bias = a.b_rs + l * 2 * h;
     g.n = 2 * h; g.split = h; g.epilogue = kResSkip;
-    g.out = save && !last ? x_l + rh : x_l; g.ldo = h; g.mask = a.mask;
+    g.out = save && !last ? elem_at(x_l, rh, b16) : x_l; g.ldo = h; g.mask = a.mask;
     g.aux = x_l; g.ld_aux = h; g.out2 = a.skip; g.ldo2 = h;
     g.flag = !last;  // the last layer's residual half is zero
     g.skip_mask = last && a.skip_mask;
     g.skip_init = l == 0;
+    if (b16) {  // acts f32; x bf16; skipm written beside the f32 sum
+      g.bf16 = kBf16 | kW16 | kOut16 | kAux16 | kOut3_16;
+      g.out3 = a.skipm; g.ldo3 = h;
+    }
     g.tc_scratch = a.tc_scratch; g.tc_scratch_floats = a.tc_scratch_floats;
     if (a.w_rs_split) g.w_split = a.w_rs_split + (long)l * 2 * h * 2 * h;
     g.part = a.part; g.small_batch = a.small_batch; g.tma_ring = a.tma_ring;

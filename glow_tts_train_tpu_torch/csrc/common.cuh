@@ -47,9 +47,66 @@
 // conv-GEMM lays each out K-major, split in two TF32 parts, per product.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace gtt {
+
+// bf16 chains (fp16_run; the JAX kernels with dtype bf16).  A chain's
+// tensors at its entry point (activations, saves, the products' weights
+// and their gradients) are bf16; what the JAX kernel keeps in f32 stays
+// f32, and so does the chain's scratch.  Every product takes the bf16
+// kernels (bf16_gemm.cu; the flow block's folded A the CUDA-core kernel,
+// kBf16Core): each operand element is rounded to bf16 as it is staged (the
+// JAX kernel's ``.astype(bf16)`` before its dot; a no-op on a bf16 tensor)
+// and multiplied on the tensor cores with f32 accumulation.
+// A descriptor's ``bf16`` word holds kBf16 and one bit per operand stored
+// as bf16 (the pointers stay float*: the bit says the elements are
+// 2-byte); its epilogue then rounds where the JAX kernel casts.
+enum Bf16Bits : unsigned {
+  kBf16 = 1u << 31,      // a bf16 chain's descriptor
+  kBf16Core = 1u << 30,  // ... whose product stays on the CUDA cores
+  kRoundOut = 1u << 29,  // round an f32 `out` of the plain epilogues to bf16
+  kA16 = 1u << 0,        // ConvGemm/WGrad a, LayerNorm x
+  kW16 = 1u << 1,        // ConvGemm w
+  kOut16 = 1u << 2,      // out (LayerNorm out, WGrad out)
+  kOut2_16 = 1u << 3,
+  kOut3_16 = 1u << 4,
+  kAux16 = 1u << 5,      // aux (LayerNormBwd dy, WGrad dy)
+  kAux2_16 = 1u << 6,
+};
+
+__host__ __device__ __forceinline__ bool has(unsigned bits, unsigned bit) {
+  return (bits & bit) != 0;
+}
+
+// Element i of a tensor stored as f32 or (b16) bf16, as f32.
+__device__ __forceinline__ float ld_act(const float* p, long i, bool b16) {
+  return b16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i]) : p[i];
+}
+
+// Store v as element i of a tensor stored as f32 or (b16) bf16 (round to
+// nearest even).
+__device__ __forceinline__ void st_act(float* p, long i, float v, bool b16) {
+  if (b16) {
+    reinterpret_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
+  } else {
+    p[i] = v;
+  }
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// A pointer `elems` elements past p in a tensor of f32 or (b16) bf16.
+template <class T>
+__host__ __device__ __forceinline__ T* elem_at(T* p, long elems, bool b16) {
+  using Byte = typename std::conditional<std::is_const<T>::value, const char, char>::type;
+  return p ? reinterpret_cast<T*>(reinterpret_cast<Byte*>(p) + elems * (b16 ? 2 : 4)) : p;
+}
 
 struct Dropout {
   int on = 0;
@@ -215,9 +272,14 @@ struct ConvGemm {
   // mbarrier ring, B shareable by a cluster of row tiles); its weights are
   // split in tile order (WeightSplit::pair)
   int tma_ring = 0;
+  // a bf16 chain's product (Bf16Bits): kBf16 and its operands' bits
+  unsigned bf16 = 0;
 };
 
 cudaError_t conv_gemm(const ConvGemm& g, cudaStream_t stream);
+// The bf16 chains' conv-GEMM on the tensor cores (bf16_gemm.cu): any shape,
+// every ConvGemm gather (taps, tap_sign, a_mask, w_t), the bf16 epilogue.
+cudaError_t conv_gemm_bf16(const ConvGemm& g, cudaStream_t stream);
 
 // The K-major 3xTF32 split of weight matrices in one launch
 // (tc_gemm.cu): big and small [n, kdim] of B [kdim, n], B being w [kdim, n]
@@ -311,9 +373,14 @@ struct WGrad {
   // still given, for the CUDA-core kernel.  Not with either mask.
   const float* dy_t = nullptr;
   long ldt = 0;
+  // a bf16 chain's weight gradient (Bf16Bits: kA16 a, kAux16 dy, kOut16
+  // out); the bias gradient stays f32
+  unsigned bf16 = 0;
 };
 
 cudaError_t wgrad(const WGrad& w, cudaStream_t stream);
+// The bf16 chains' weight gradient on the tensor cores (bf16_gemm.cu).
+cudaError_t wgrad_bf16(const WGrad& w, cudaStream_t stream);
 
 // The tensor-core weight-gradient GEMM (tc_gemm.cu).  `can`: c_in, lda, n
 // and ldy multiples of 4 with 16-byte aligned operands, a_mask only
@@ -333,6 +400,7 @@ struct ProductCounts {
   long long declined_gemm = 0, declined_wgrad = 0;
   long long tap_staged_gemm = 0, bias_wgrad = 0, split_dy_wgrad = 0;
   long long tma_gemm = 0;
+  long long bf16_gemm = 0, bf16_wgrad = 0;  // the bf16 chains' tensor-core products
 };
 ProductCounts& product_counts();
 
@@ -343,20 +411,21 @@ long long& product_splits();
 // out[s * ldo + j] = sum_{r < T} x[(s * T + r) * ld + j] * mask[s * T + r]
 // (mask optional), for segments s < n_seg and columns j < n; fixed order.
 cudaError_t col_sum(const float* x, int ld, int n, const float* mask, int n_seg,
-                    int T, float* out, int ldo, cudaStream_t stream);
+                    int T, float* out, int ldo, cudaStream_t stream, bool x_bf16 = false,
+                    bool out_bf16 = false);
 
 // Column sums over all batch * t rows (a bias gradient), through the
 // per-sample partial sums part [batch, n].
 cudaError_t bias_grad(const float* x, int ld, int n, const float* mask,
                       int batch, int t, float* part, float* out,
-                      cudaStream_t stream);
+                      cudaStream_t stream, bool x_bf16 = false);
 
 // Column sums over all `rows` rows in one launch, in a fixed order:
 // out[j] = sum_r x[r, j] * mul[r, j] (mul null: x alone) and, when out2 is
 // given, out2[j] = sum_r x[r, j].  A bias gradient (mul null) or a norm's
 // dgamma and dbeta (mul = xhat) without per-sample partials.
 cudaError_t column_sums(const float* x, int ld, int n, const float* mul, int rows, float* out,
-                        float* out2, cudaStream_t stream);
+                        float* out2, cudaStream_t stream, bool x_bf16 = false);
 
 // The WN stack's layers: per layer the dilated in-conv with the gate (its
 // pre-gate tensor dropped at site l, then + g_all), then the 1x1 res/skip,
@@ -401,6 +470,11 @@ struct WnLayers {
   // the training chains: the products may take the TMA-fed kernel
   // (ConvGemm::tma_ring)
   int tma_ring = 0;
+  // a bf16 chain: x, th and sg bf16, g_all bf16, skip the f32 sum and
+  // skipm [batch * t, h] (bf16) the masked, rounded sum the last layer
+  // writes when skip_mask
+  int bf16 = 0;
+  float* skipm = nullptr;
 };
 
 cudaError_t wn_layers(const WnLayers& a, cudaStream_t stream);
@@ -431,6 +505,7 @@ struct LayerNorm {
   // a second copy of the result times out_mask [rows], or null
   float* out_masked = nullptr;
   const float* out_mask = nullptr;
+  unsigned bf16 = 0;  // kA16: x bf16; kOut16: out bf16
 };
 
 cudaError_t layer_norm(const LayerNorm& a, cudaStream_t stream);
@@ -460,6 +535,7 @@ struct LayerNormBwd {
   int t = 0;
   int relu_after = 0;
   Dropout drop;
+  unsigned bf16 = 0;  // kAux16: dy bf16
 };
 
 cudaError_t layer_norm_bwd(const LayerNormBwd& a, cudaStream_t stream);

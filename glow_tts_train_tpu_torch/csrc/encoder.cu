@@ -63,6 +63,11 @@ constexpr int kTcSmem = (kTcQ + 4 * kTcKeys) * kTcStride * 4 + 2 * kTcQ * kMaxBa
 // % 2) .. + 15 and every other key tile (key group w / 2), so four warps
 // walk the keys in half the steps; the two key groups' online-softmax
 // states are merged at the end.
+// kB16 (the bf16 layer): q, k, v hold bf16 values and the rel-pos tables
+// are bf16; the products take one TF32 pass, the probabilities rounded to
+// bf16 for the p.v product (the JAX kernel's pd.astype(bf16); here the
+// running, unnormalised ones of the online softmax), the band terms f32.
+template <bool kB16>
 __global__ void __launch_bounds__(128)
     attention_tc_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
                         const float* __restrict__ rel_k, const float* __restrict__ rel_v,
@@ -104,7 +109,7 @@ __global__ void __launch_bounds__(128)
     const int r = i / nb, o = i - (i / nb) * nb;
     const int qi = q0 + r;
     qrel[r * kMaxBand + o] =
-        qi < t ? row_dot(base + (long)qi * ld + hd * d, rel_k + o * d, d) : 0.f;
+        qi < t ? rel_dot<kB16>(base + (long)qi * ld + hd * d, rel_k, o, d) : 0.f;
   }
 
   // this thread's fragment rows: r_lo = 16 rg + g and r_lo + 8
@@ -139,7 +144,7 @@ __global__ void __launch_bounds__(128)
 
     // scores of 16 rows x 32 keys: four n-tiles of 8 keys
     float sc[4][4];
-    tile_scores(sc, qt, kt, rloc[0], g, qd, nd);
+    tile_scores<kB16>(sc, qt, kt, rloc[0], g, qd, nd);
 
     // band terms, masks, the online softmax (element e of n-tile n: row
     // e / 2, key k0 + 8 n + 2 qd + e % 2)
@@ -189,6 +194,10 @@ __global__ void __launch_bounds__(128)
     uint32_t pbig[4][4], psmall[4][4];
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
+      if (kB16) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = round_bf16(sc[n][e]);
+      }
       split_tf32(sc[n][0], pbig[n][0], psmall[n][0]);
       split_tf32(sc[n][2], pbig[n][1], psmall[n][1]);
       split_tf32(sc[n][1], pbig[n][2], psmall[n][2]);
@@ -200,7 +209,7 @@ __global__ void __launch_bounds__(128)
 #pragma unroll
       for (int e = 0; e < 4; ++e) po[j][e] = 0.f;
 #pragma unroll
-    for (int pass = 0; pass < 2; ++pass)
+    for (int pass = kB16 ? 1 : 0; pass < 2; ++pass)
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
         const int vr = (n * 8 + 2 * qd) * kTcStride + g;
@@ -295,8 +304,8 @@ __global__ void __launch_bounds__(128)
       const int c = j * 8 + 2 * qd;
       float v0 = acc[j][2 * row] * inv[row], v1 = acc[j][2 * row + 1] * inv[row];
       for (int o = 0; o < nb; ++o) {
-        v0 = fmaf(pbr[o], rel_v[o * d + c], v0);
-        v1 = fmaf(pbr[o], rel_v[o * d + c + 1], v1);
+        v0 = fmaf(pbr[o], rel_at<kB16>(rel_v, o, d, c), v0);
+        v1 = fmaf(pbr[o], rel_at<kB16>(rel_v, o, d, c + 1), v1);
       }
       orow[c] = v0;
       orow[c + 1] = v1;
@@ -318,7 +327,7 @@ long round4(long floats) { return (floats + 3) / 4 * 4; }
 }  // namespace
 
 long encoder_scratch(float* base, const EncoderDims& d, bool backward, float* ffn,
-                     EncoderScratch* s) {
+                     EncoderScratch* s, bool bf16) {
   long used = 0;
   auto take = [&](float*& p, long floats) {
     p = base ? base + used : nullptr;
@@ -341,6 +350,7 @@ long encoder_scratch(float* base, const EncoderDims& d, bool backward, float* ff
   s->tc_floats = 2 * (2 * (4 * h * h + 2L * d.taps * h * f) + 4 * 16);
   take(s->tc, s->tc_floats);
   take(s->part, kSplitKCols * rows);
+  if (bf16) take(s->y, rows * h);
   if (backward) {
     const long stats = (long)d.batch * d.n_heads * d.t;
     take(s->xhat1, rows * h);
@@ -382,6 +392,9 @@ cudaError_t encoder_forward(const EncoderArgs& a, cudaStream_t stream) {
   const int rows = batch * t;
   const EncoderScratch& s = a.s;
   cudaError_t err;
+  const unsigned bf = a.bf16 ? kBf16 | kW16 : 0u;  // the products' bits in a bf16 call
+  // the branches' f32 outputs: staged in `out` (f32), in s.y (bf16)
+  float* y = a.bf16 ? s.y : a.out;
 
   // the four products, their weights split for the tensor cores in one
   // launch (those that take them)
@@ -389,20 +402,24 @@ cudaError_t encoder_forward(const EncoderArgs& a, cudaStream_t stream) {
   qkv.a = a.x; qkv.lda = h; qkv.c_in = h; qkv.a_mask = a.mask; qkv.batch = batch; qkv.t = t;
   qkv.w = a.wqkv; qkv.bias = a.bqkv; qkv.n = 3 * h;
   qkv.epilogue = kBias; qkv.out = s.qkv; qkv.ldo = 3 * h;
-  ConvGemm proj = text_product(s);  // y = drop(att @ wo + bo), staged in `out`
+  qkv.bf16 = bf ? bf | kA16 | kRoundOut : 0u;  // q, k, v rounded (JAX qh = q.astype(bf16))
+  ConvGemm proj = text_product(s);  // y = drop(att @ wo + bo)
   proj.a = s.att; proj.lda = h; proj.c_in = h; proj.batch = batch; proj.t = t;
-  proj.w = a.wo; proj.bias = a.bo; proj.n = h; proj.epilogue = kBias; proj.out = a.out;
+  proj.w = a.wo; proj.bias = a.bo; proj.n = h; proj.epilogue = kBias; proj.out = y;
   proj.ldo = h; proj.drop = a.drop.at(H);
+  proj.bf16 = bf;
   ConvGemm ffn1 = text_product(s);  // ffn = drop(relu(conv(x1 * mask) + c1)) * mask
   ffn1.a = s.x1m; ffn1.lda = h; ffn1.c_in = h; ffn1.taps = dm.taps;
   ffn1.batch = batch; ffn1.t = t; ffn1.w = a.w1; ffn1.bias = a.c1; ffn1.n = dm.f;
   ffn1.epilogue = kBiasReluMask; ffn1.out = s.ffn; ffn1.ldo = dm.f; ffn1.mask = a.mask;
   ffn1.drop = a.drop.at(H + 1);
-  ConvGemm ffn2 = text_product(s);  // y2 = drop((conv(ffn) + c2) * mask), staged in `out`
+  ffn1.bf16 = bf;
+  ConvGemm ffn2 = text_product(s);  // y2 = drop((conv(ffn) + c2) * mask)
   ffn2.a = s.ffn; ffn2.lda = dm.f; ffn2.c_in = dm.f; ffn2.taps = dm.taps;
   ffn2.batch = batch; ffn2.t = t; ffn2.w = a.w2; ffn2.bias = a.c2; ffn2.n = h;
-  ffn2.epilogue = kBiasMask; ffn2.out = a.out; ffn2.ldo = h; ffn2.mask = a.mask;
+  ffn2.epilogue = kBiasMask; ffn2.out = y; ffn2.ldo = h; ffn2.mask = a.mask;
   ffn2.drop = a.drop.at(H + 2);
+  ffn2.bf16 = bf;
   ConvGemm* const products[4] = {&qkv, &proj, &ffn1, &ffn2};
   if ((err = presplit_weights(products, 4, s.tc, s.tc_floats / 2, stream)) != cudaSuccess)
     return err;
@@ -410,21 +427,24 @@ cudaError_t encoder_forward(const EncoderArgs& a, cudaStream_t stream) {
   if ((err = conv_gemm(qkv, stream)) != cudaSuccess) return err;
   float* stat_m = a.save ? s.stat_m : nullptr;
   float* stat_linv = a.save ? s.stat_linv : nullptr;
-  if ((err = cudaFuncSetAttribute(attention_tc_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem)) !=
-      cudaSuccess)
-    return err;
-  attention_tc_kernel<<<dim3((t + kTcQ - 1) / kTcQ, H, batch), 128, kTcSmem, stream>>>(
-      s.qkv, a.mask, a.rel_k, a.rel_v, s.att, stat_m, stat_linv, t, H, d, dm.window,
-      1.f / sqrtf((float)d), a.drop);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  {
+    auto kernel = a.bf16 ? attention_tc_kernel<true> : attention_tc_kernel<false>;
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    kTcSmem)) != cudaSuccess)
+      return err;
+    kernel<<<dim3((t + kTcQ - 1) / kTcQ, H, batch), 128, kTcSmem, stream>>>(
+        s.qkv, a.mask, a.rel_k, a.rel_v, s.att, stat_m, stat_linv, t, H, d, dm.window,
+        1.f / sqrtf((float)d), a.drop);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
 
   if ((err = conv_gemm(proj, stream)) != cudaSuccess) return err;
   {  // x1 = LN(x * mask + y), and x1 * mask for the FFN
     LayerNorm ln;
-    ln.x = a.x; ln.x_mask = a.mask; ln.resid = a.out; ln.gamma = a.gamma1;
+    ln.x = a.x; ln.x_mask = a.mask; ln.resid = y; ln.gamma = a.gamma1;
     ln.beta = a.beta1; ln.out = s.x1; ln.rows = rows; ln.n = h;
     ln.out_masked = s.x1m; ln.out_mask = a.mask;
+    ln.bf16 = a.bf16 ? kA16 : 0u;
     if (a.save) { ln.xhat = s.xhat1; ln.rstd = s.rstd1; }
     if ((err = layer_norm(ln, stream)) != cudaSuccess) return err;
   }
@@ -432,8 +452,9 @@ cudaError_t encoder_forward(const EncoderArgs& a, cudaStream_t stream) {
   if ((err = conv_gemm(ffn2, stream)) != cudaSuccess) return err;
   {  // out = LN(x1 + y2)
     LayerNorm ln;
-    ln.x = s.x1; ln.resid = a.out; ln.gamma = a.gamma2; ln.beta = a.beta2;
+    ln.x = s.x1; ln.resid = y; ln.gamma = a.gamma2; ln.beta = a.beta2;
     ln.out = a.out; ln.rows = rows; ln.n = h;
+    ln.bf16 = a.bf16 ? kOut16 : 0u;
     if (a.save) { ln.xhat = s.xhat2; ln.rstd = s.rstd2; }
     if ((err = layer_norm(ln, stream)) != cudaSuccess) return err;
   }
@@ -454,14 +475,40 @@ gtt::EncoderDims encoder_dims(int batch, int t, int h, int n_heads, int window, 
 }  // namespace
 
 // Floats of one call's scratch block (backward 0: gtt_encoder_layer, 1:
-// gtt_encoder_layer_bwd).
+// gtt_encoder_layer_bwd; bf16 1: their bf16 versions).
 extern "C" long long gtt_encoder_scratch_floats(int batch, int t, int h, int n_heads, int window,
-                                                int f, int taps, int backward) {
+                                                int f, int taps, int backward, int bf16) {
   gtt::EncoderScratch s;
   float ffn_given = 0.f;
   return gtt::encoder_scratch(nullptr, encoder_dims(batch, t, h, n_heads, window, f, taps),
-                              backward != 0, backward ? &ffn_given : nullptr, &s);
+                              backward != 0, backward ? &ffn_given : nullptr, &s, bf16 != 0);
 }
+
+namespace {
+
+int encoder_entry(
+    const float* x, const float* mask, const float* wqkv, const float* bqkv, const float* wo,
+    const float* bo, const float* rel_k, const float* rel_v, const float* gamma1,
+    const float* beta1, const float* gamma2, const float* beta2, const float* w1,
+    const float* c1, const float* w2, const float* c2, float* out, float* scratch,
+    long long scratch_floats, int batch, int t, int h, int n_heads, int window, int f,
+    int taps, int drop, int seed, unsigned threshold, float scale, bool bf16,
+    cudaStream_t stream) {
+  gtt::EncoderArgs a;
+  a.bf16 = bf16;
+  a.x = x; a.mask = mask; a.wqkv = wqkv; a.bqkv = bqkv; a.wo = wo; a.bo = bo;
+  a.rel_k = rel_k; a.rel_v = rel_v;
+  a.gamma1 = gamma1; a.beta1 = beta1; a.gamma2 = gamma2; a.beta2 = beta2;
+  a.w1 = w1; a.c1 = c1; a.w2 = w2; a.c2 = c2; a.out = out;
+  a.dims = encoder_dims(batch, t, h, n_heads, window, f, taps);
+  if (gtt::encoder_scratch(scratch, a.dims, false, nullptr, &a.s, bf16) > scratch_floats)
+    return (int)cudaErrorInvalidValue;
+  a.drop = gtt::make_dropout(drop, seed, n_heads + 3, threshold, scale);
+  const cudaError_t err = gtt::encoder_forward(a, stream);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+}  // namespace
 
 extern "C" int gtt_encoder_layer(
     const float* x, const float* mask, const float* wqkv, const float* bqkv, const float* wo,
@@ -470,15 +517,20 @@ extern "C" int gtt_encoder_layer(
     const float* c1, const float* w2, const float* c2, float* out, float* scratch,
     long long scratch_floats, int batch, int t, int h, int n_heads, int window, int f,
     int taps, int drop, int seed, unsigned threshold, float scale, cudaStream_t stream) {
-  gtt::EncoderArgs a;
-  a.x = x; a.mask = mask; a.wqkv = wqkv; a.bqkv = bqkv; a.wo = wo; a.bo = bo;
-  a.rel_k = rel_k; a.rel_v = rel_v;
-  a.gamma1 = gamma1; a.beta1 = beta1; a.gamma2 = gamma2; a.beta2 = beta2;
-  a.w1 = w1; a.c1 = c1; a.w2 = w2; a.c2 = c2; a.out = out;
-  a.dims = encoder_dims(batch, t, h, n_heads, window, f, taps);
-  if (gtt::encoder_scratch(scratch, a.dims, false, nullptr, &a.s) > scratch_floats)
-    return (int)cudaErrorInvalidValue;
-  a.drop = gtt::make_dropout(drop, seed, n_heads + 3, threshold, scale);
-  const cudaError_t err = gtt::encoder_forward(a, stream);
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+  return encoder_entry(x, mask, wqkv, bqkv, wo, bo, rel_k, rel_v, gamma1, beta1, gamma2, beta2,
+                       w1, c1, w2, c2, out, scratch, scratch_floats, batch, t, h, n_heads,
+                       window, f, taps, drop, seed, threshold, scale, false, stream);
+}
+
+// The same in bf16 (EncoderArgs::bf16).
+extern "C" int gtt_encoder_layer_bf16(
+    const float* x, const float* mask, const float* wqkv, const float* bqkv, const float* wo,
+    const float* bo, const float* rel_k, const float* rel_v, const float* gamma1,
+    const float* beta1, const float* gamma2, const float* beta2, const float* w1,
+    const float* c1, const float* w2, const float* c2, float* out, float* scratch,
+    long long scratch_floats, int batch, int t, int h, int n_heads, int window, int f,
+    int taps, int drop, int seed, unsigned threshold, float scale, cudaStream_t stream) {
+  return encoder_entry(x, mask, wqkv, bqkv, wo, bo, rel_k, rel_v, gamma1, beta1, gamma2, beta2,
+                       w1, c1, w2, c2, out, scratch, scratch_floats, batch, t, h, n_heads,
+                       window, f, taps, drop, seed, threshold, scale, true, stream);
 }

@@ -26,6 +26,9 @@ struct EncoderScratch {
   float *stat_m = nullptr, *stat_linv = nullptr;
   float *tc = nullptr, *part = nullptr;
   long tc_floats = 0;
+  // bf16: the attention and FFN branches' f32 outputs (the f32 layer
+  // stages them in its output)
+  float* y = nullptr;
   // backward
   float *da = nullptr, *db = nullptr, *dc = nullptr, *datt = nullptr, *dffn = nullptr;
   float *dqkv = nullptr, *dqrel = nullptr, *pb = nullptr;
@@ -37,7 +40,7 @@ struct EncoderScratch {
 // base null, only count.  `ffn` given: the FFN activation lives there
 // (the backward hands it out) instead of in the scratch.
 long encoder_scratch(float* base, const EncoderDims& d, bool backward, float* ffn,
-                     EncoderScratch* s);
+                     EncoderScratch* s, bool bf16 = false);
 
 // What the attention cores (tensor cores, mma.sync) take: a head width
 // that is a multiple of 8 and at most kAttnMaxD, 2 * window + 1 <=
@@ -66,6 +69,10 @@ struct EncoderArgs {
   // n_sites = n_heads + 3: site hd on head hd's probabilities [t, t], then
   // the attention output [t, h], the FFN's ReLU [t, f] and its output [t, h]
   Dropout drop;
+  // bf16 (fp16_run; encoder_pallas with dtype bf16): x, out, the weights
+  // and the rel-pos tables bf16 (and in the backward dout, dx and the
+  // weights' and tables' gradients); the rest and the scratch f32
+  bool bf16 = false;
 };
 
 cudaError_t encoder_forward(const EncoderArgs& a, cudaStream_t stream);

@@ -107,6 +107,12 @@ constexpr int kScoresSmem = (2 * kTcQ + 2 * kTcKeys) * kTcStride * 4 +
 // (blockIdx.x = query tile * chunks + chunk): the pairs are independent,
 // so more blocks, and no combining.  dqrel and pb start at zero (the
 // caller clears them); a block writes the band entries whose key it owns.
+// kB16 (the bf16 layer, encoder_pallas._bwd_kernel with dtype bf16): the
+// rel-pos tables bf16; dout rounded to bf16 for its product with v (the
+// JAX kernel's dout_ht), not for its band term; q, k, v hold bf16 values;
+// the products one TF32 pass; the band probabilities pb rounded (the JAX
+// kernel's drv reads pdt).
+template <bool kB16>
 __global__ void __launch_bounds__(64) attn_bwd_scores_tc_kernel(const AttnBwd a) {
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);  // [kTcQ][kTcStride]
@@ -145,6 +151,15 @@ __global__ void __launch_bounds__(64) attn_bwd_scores_tc_kernel(const AttnBwd a)
 
   stage_rows(base + hd * d, ld, q0, kTcQ, t, d, qt, tid, 64);
   stage_rows(dbase + hd * d, h, q0, kTcQ, t, d, ot, tid, 64);
+  if (kB16) {  // dout rounded for its product with v
+    __syncthreads();
+    const int d4 = d / 4;
+    for (int i = tid; i < kTcQ * d4; i += 64) {
+      float* at = ot + (i / d4) * kTcStride + 4 * (i % d4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) at[e] = round_bf16(at[e]);
+    }
+  }
   // per row (CUDA cores, a lane a (row, offset)): q . rel_k and dout . rel_v
   // where the band's key lies in this chunk; dsum = dout . out, two lanes a row
   for (int i = lane; i < 16 * nb; i += 32) {
@@ -152,8 +167,8 @@ __global__ void __launch_bounds__(64) attn_bwd_scores_tc_kernel(const AttnBwd a)
     const int qi = q0 + r, key = qi + o - a.window;
     float pk = 0.f, pv = 0.f;
     if (qi < t && key >= key_lo && key < key_hi) {
-      pk = row_dot(base + (long)qi * ld + hd * d, a.rel_k + o * d, d);
-      pv = row_dot(dbase + (long)qi * h + hd * d, a.rel_v + o * d, d);
+      pk = rel_dot<kB16>(base + (long)qi * ld + hd * d, a.rel_k, o, d);
+      pv = rel_dot<kB16>(dbase + (long)qi * h + hd * d, a.rel_v, o, d);
     }
     qrel[r * kAttnMaxBand + o] = pk;
     dorv[r * kAttnMaxBand + o] = pv;
@@ -193,8 +208,8 @@ __global__ void __launch_bounds__(64) attn_bwd_scores_tc_kernel(const AttnBwd a)
     if (tid < kTcKeys) kmask[tid] = k0 + tid < t ? mrow[k0 + tid] : 0.f;
     __syncthreads();
     float qk[4][4], dv[4][4];
-    tile_scores(qk, qt, kt, rloc[0], g, qd, nd);
-    tile_scores(dv, ot, vt, rloc[0], g, qd, nd);
+    tile_scores<kB16>(qk, qt, kt, rloc[0], g, qd, nd);
+    tile_scores<kB16>(dv, ot, vt, rloc[0], g, qd, nd);
 #pragma unroll
     for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -212,7 +227,7 @@ __global__ void __launch_bounds__(64) attn_bwd_scores_tc_kernel(const AttnBwd a)
                   qm[row] != 0.f && kmask[key - k0] != 0.f, pd, ds);
         if (in_band) {  // one thread per (row, offset) over the whole walk
           dqr[r * kAttnMaxBand + o] = ds * a.scale;
-          pbs[r * kAttnMaxBand + o] = pd;
+          pbs[r * kAttnMaxBand + o] = kB16 ? round_bf16(pd) : pd;
         }
         const long at = (long)qi[row] * t + key;
         ds_out[at] = ds;
@@ -241,6 +256,10 @@ constexpr int kPM = 64, kPN = 32, kPK = 32;
 constexpr int kPAStride = 36;  // A [m][k] as it lies; transposed [k][m] at 72
 constexpr int kPBStride = 40;  // B [k][n]
 
+// kB16: every operand rounded to bf16 as it is staged (ds, pd, k, q and
+// dout: the JAX kernel's dst, pdt, kh, qh and dout_ht), one TF32 pass; the
+// rel-k table bf16.
+template <bool kB16>
 __global__ void __launch_bounds__(128) attn_bwd_products_kernel(const AttnBwd a) {
   __shared__ uint32_t a_big[kPM * kPAStride], a_small[kPM * kPAStride];
   __shared__ uint32_t b_big[kPK * kPBStride], b_small[kPK * kPBStride];
@@ -283,16 +302,19 @@ __global__ void __launch_bounds__(128) attn_bwd_products_kernel(const AttnBwd a)
       if (trans) {  // read along m: A[m][k] = src[k][m]
         mm = i % kPM; kk = i / kPM;
         if (m0 + mm < t && k0 + kk < t) v = src_a[(long)(k0 + kk) * t + m0 + mm];
+        if (kB16) v = round_bf16(v);
         split_tf32(v, a_big[kk * 72 + mm], a_small[kk * 72 + mm]);
       } else {
         mm = i / kPK; kk = i % kPK;
         if (m0 + mm < t && k0 + kk < t) v = src_a[(long)(m0 + mm) * t + k0 + kk];
+        if (kB16) v = round_bf16(v);
         split_tf32(v, a_big[mm * kPAStride + kk], a_small[mm * kPAStride + kk]);
       }
     }
     for (int i = tid; i < kPK * kPN; i += 128) {
       const int kk = i / kPN, nn = i % kPN;
-      const float v = k0 + kk < t && n0 + nn < d ? src_b[(long)(k0 + kk) * ldb + n0 + nn] : 0.f;
+      float v = k0 + kk < t && n0 + nn < d ? src_b[(long)(k0 + kk) * ldb + n0 + nn] : 0.f;
+      if (kB16) v = round_bf16(v);
       split_tf32(v, b_big[kk * kPBStride + nn], b_small[kk * kPBStride + nn]);
     }
     __syncthreads();
@@ -302,7 +324,7 @@ __global__ void __launch_bounds__(128) attn_bwd_products_kernel(const AttnBwd a)
 #pragma unroll
       for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
 #pragma unroll
-    for (int pass = 0; pass < 2; ++pass)
+    for (int pass = kB16 ? 1 : 0; pass < 2; ++pass)
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
         const int kc = ks * 8 + qd;
@@ -345,7 +367,8 @@ __global__ void __launch_bounds__(128) attn_bwd_products_kernel(const AttnBwd a)
       const long row = (long)b * t + m;
       float v = acc[n][e] * sc;
       if (product == 0)
-        for (int o = 0; o < nb; ++o) v = fmaf(a.dqrel[row * hb + hd * nb + o], a.rel_k[o * d + c], v);
+        for (int o = 0; o < nb; ++o)
+          v = fmaf(a.dqrel[row * hb + hd * nb + o], rel_at<kB16>(a.rel_k, o, d, c), v);
       a.dqkv[row * 3 * h + product * h + hd * d + c] = v;
     }
 }
@@ -358,7 +381,7 @@ __global__ void __launch_bounds__(128) attn_bwd_products_kernel(const AttnBwd a)
 constexpr int kRelCols = 8, kRelGroups = 128;
 
 __global__ void __launch_bounds__(kRelCols * kRelGroups)
-    rel_grads_kernel(const AttnBwd a, int rows, float* drk, float* drv) {
+    rel_grads_kernel(const AttnBwd a, int rows, float* drk, float* drv, int out_bf16) {
   __shared__ float part[kRelGroups][kRelCols + 1];
   const int H = a.n_heads, d = a.d, h = H * d;
   const int nb = 2 * a.window + 1;
@@ -390,7 +413,7 @@ __global__ void __launch_bounds__(kRelCols * kRelGroups)
     float total = 0.f;
 #pragma unroll 8
     for (int y = 0; y < kRelGroups; ++y) total += part[y][threadIdx.x];
-    (table ? drv : drk)[o * d + c] = total;
+    st_act(table ? drv : drk, (long)o * d + c, total, out_bf16 != 0);
   }
 }
 
@@ -401,8 +424,10 @@ __global__ void __launch_bounds__(kRelCols * kRelGroups)
   } while (0)
 
 WGrad text_wgrad(const EncoderScratch& s, const float* a, int lda, int c_in, const float* a_mask,
-                 int taps, int batch, int t, const float* dy, int ldy, int n, float* out) {
+                 int taps, int batch, int t, const float* dy, int ldy, int n, float* out,
+                 unsigned bf16 = 0) {
   WGrad w;
+  w.bf16 = bf16;
   w.a = a; w.lda = lda; w.c_in = c_in; w.a_mask = a_mask; w.taps = taps;
   w.batch = batch; w.t = t; w.dy = dy; w.ldy = ldy; w.n = n; w.out = out;
   w.scratch = s.wg; w.scratch_floats = s.wg_floats; w.tc = 1;
@@ -418,7 +443,11 @@ WGrad text_wgrad(const EncoderScratch& s, const float* a, int lda, int c_in, con
 // dropped, masked ReLU output; the backward's ReLU gates are where it is
 // positive).  Scratch: one block of gtt_encoder_scratch_floats(..., 1)
 // floats.
-extern "C" int gtt_encoder_layer_bwd(
+namespace {
+
+// bf16 (EncoderArgs::bf16): x, dout, dx, out, the weights, the tables and
+// their gradients bf16; ffn and the bias and norm gradients f32.
+int encoder_bwd_entry(
     const float* x, const float* mask, const float* wqkv, const float* bqkv, const float* wo,
     const float* bo, const float* rel_k, const float* rel_v, const float* gamma1,
     const float* beta1, const float* gamma2, const float* beta2, const float* w1,
@@ -427,13 +456,16 @@ extern "C" int gtt_encoder_layer_bwd(
     float* dbe1, float* dg2, float* dbe2, float* dw1, float* dc1, float* dw2, float* dc2,
     float* out, float* ffn, float* scratch, long long scratch_floats, int batch, int t, int h,
     int n_heads, int window, int f, int taps, int drop, int seed, unsigned threshold,
-    float scale, cudaStream_t stream) {
+    float scale, bool bf16, cudaStream_t stream) {
   using namespace gtt;
   const int H = n_heads;
   const int d = h / H;
   const int rows = batch * t;
+  const unsigned bf = bf16 ? kBf16 | kW16 : 0u;     // a transposed product's bits
+  const unsigned wbf = bf16 ? kBf16 | kOut16 : 0u;  // a weight gradient's
 
   EncoderArgs a;
+  a.bf16 = bf16;
   a.x = x; a.mask = mask; a.wqkv = wqkv; a.bqkv = bqkv; a.wo = wo; a.bo = bo;
   a.rel_k = rel_k; a.rel_v = rel_v;
   a.gamma1 = gamma1; a.beta1 = beta1; a.gamma2 = gamma2; a.beta2 = beta2;
@@ -441,7 +473,7 @@ extern "C" int gtt_encoder_layer_bwd(
   a.dims.batch = batch; a.dims.t = t; a.dims.h = h; a.dims.n_heads = H;
   a.dims.window = window; a.dims.f = f; a.dims.taps = taps;
   a.save = true;
-  if (encoder_scratch(scratch, a.dims, true, ffn, &a.s) > scratch_floats)
+  if (encoder_scratch(scratch, a.dims, true, ffn, &a.s, bf16) > scratch_floats)
     return (int)cudaErrorInvalidValue;
   a.drop = make_dropout(drop, seed, H + 3, threshold, scale);
   GTT_TRY(encoder_forward(a, stream));
@@ -454,19 +486,23 @@ extern "C" int gtt_encoder_layer_bwd(
   dffn_g.batch = batch; dffn_g.t = t; dffn_g.w = w2; dffn_g.w_t = 1; dffn_g.n = f;
   dffn_g.epilogue = kMaskReluBwd; dffn_g.out = s.dffn; dffn_g.ldo = f; dffn_g.mask = mask;
   dffn_g.aux = ffn; dffn_g.ld_aux = f; dffn_g.drop = a.drop.at(H + 1);
+  dffn_g.bf16 = bf;
   ConvGemm dx1_g = text_product(s);  // db = d(x1) = da + (conv^T dffn) * mask
   dx1_g.a = s.dffn; dx1_g.lda = f; dx1_g.c_in = f; dx1_g.taps = taps; dx1_g.tap_sign = -1;
   dx1_g.batch = batch; dx1_g.t = t; dx1_g.w = w1; dx1_g.w_t = 1; dx1_g.n = h;
   dx1_g.epilogue = kMaskAdd; dx1_g.out = s.db; dx1_g.ldo = h; dx1_g.mask = mask;
   dx1_g.aux = s.da; dx1_g.ld_aux = h;
+  dx1_g.bf16 = bf;
   ConvGemm datt_g = text_product(s);  // datt = dc wo^T
   datt_g.a = s.dc; datt_g.lda = h; datt_g.c_in = h; datt_g.batch = batch; datt_g.t = t;
   datt_g.w = wo; datt_g.w_t = 1; datt_g.n = h; datt_g.epilogue = kBias; datt_g.out = s.datt;
   datt_g.ldo = h;
+  datt_g.bf16 = bf;
   ConvGemm dx_g = text_product(s);  // dx = (da + dqkv wqkv^T) * mask
   dx_g.a = s.dqkv; dx_g.lda = 3 * h; dx_g.c_in = 3 * h; dx_g.batch = batch; dx_g.t = t;
   dx_g.w = wqkv; dx_g.w_t = 1; dx_g.n = h; dx_g.epilogue = kResidMask; dx_g.out = dx;
   dx_g.ldo = h; dx_g.mask = mask; dx_g.aux = s.da; dx_g.ld_aux = h;
+  dx_g.bf16 = bf ? bf | kOut16 : 0u;
   ConvGemm* const products[4] = {&dffn_g, &dx1_g, &datt_g, &dx_g};
   GTT_TRY(presplit_weights(products, 4, s.tc + s.tc_floats / 2, s.tc_floats / 2, stream));
 
@@ -476,15 +512,18 @@ extern "C" int gtt_encoder_layer_bwd(
     ln.dy = dout; ln.xhat = s.xhat2; ln.rstd = s.rstd2; ln.gamma = gamma2;
     ln.dx = s.da; ln.dx2 = s.db; ln.drop2 = a.drop.at(H + 2); ln.mask2 = mask;
     ln.rows = rows; ln.n = h; ln.t = t;
+    ln.bf16 = bf16 ? kAux16 : 0u;
     GTT_TRY(layer_norm_bwd(ln, stream));
   }
-  GTT_TRY(column_sums(dout, h, h, s.xhat2, rows, dg2, dbe2, stream));
+  GTT_TRY(column_sums(dout, h, h, s.xhat2, rows, dg2, dbe2, stream, bf16));
 
   // ---- FFN (ffn is masked: no input mask on its products) ----
-  GTT_TRY(wgrad(text_wgrad(s, ffn, f, f, nullptr, taps, batch, t, s.db, h, h, dw2), stream));
+  GTT_TRY(wgrad(text_wgrad(s, ffn, f, f, nullptr, taps, batch, t, s.db, h, h, dw2, wbf),
+                stream));
   GTT_TRY(column_sums(s.db, h, h, nullptr, rows, dc2, nullptr, stream));
   GTT_TRY(conv_gemm(dffn_g, stream));
-  GTT_TRY(wgrad(text_wgrad(s, s.x1m, h, h, nullptr, taps, batch, t, s.dffn, f, f, dw1), stream));
+  GTT_TRY(wgrad(text_wgrad(s, s.x1m, h, h, nullptr, taps, batch, t, s.dffn, f, f, dw1, wbf),
+                stream));
   GTT_TRY(column_sums(s.dffn, f, f, nullptr, rows, dc1, nullptr, stream));
   GTT_TRY(conv_gemm(dx1_g, stream));
 
@@ -500,7 +539,8 @@ extern "C" int gtt_encoder_layer_bwd(
 
   // ---- output projection ----
   GTT_TRY(column_sums(s.dc, h, h, nullptr, rows, dbo, nullptr, stream));
-  GTT_TRY(wgrad(text_wgrad(s, s.att, h, h, nullptr, 1, batch, t, s.dc, h, h, dwo), stream));
+  GTT_TRY(wgrad(text_wgrad(s, s.att, h, h, nullptr, 1, batch, t, s.dc, h, h, dwo, wbf),
+                stream));
   GTT_TRY(conv_gemm(datt_g, stream));
 
   // ---- attention core ----
@@ -511,26 +551,67 @@ extern "C" int gtt_encoder_layer_bwd(
     ab.dqkv = s.dqkv; ab.dqrel = s.dqrel; ab.pb = s.pb; ab.ds = s.ds; ab.pd = s.pd;
     ab.t = t; ab.n_heads = H; ab.d = d; ab.window = window;
     ab.scale = 1.f / sqrtf((float)d); ab.drop = a.drop;
-    GTT_TRY(cudaFuncSetAttribute(attn_bwd_scores_tc_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kScoresSmem));
+    auto scores = bf16 ? attn_bwd_scores_tc_kernel<true> : attn_bwd_scores_tc_kernel<false>;
+    GTT_TRY(cudaFuncSetAttribute(scores, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kScoresSmem));
     // dqrel and pb (adjacent in the scratch) start at zero
     GTT_TRY(cudaMemsetAsync(s.dqrel, 0, (s.pb - s.dqrel) * 2 * sizeof(float), stream));
     const int chunks = (t + kKeyChunk - 1) / kKeyChunk;
-    attn_bwd_scores_tc_kernel<<<dim3((t + kTcQ - 1) / kTcQ * chunks, H, batch), 64,
-                                kScoresSmem, stream>>>(ab);
+    scores<<<dim3((t + kTcQ - 1) / kTcQ * chunks, H, batch), 64, kScoresSmem, stream>>>(ab);
     GTT_TRY(cudaGetLastError());
-    attn_bwd_products_kernel<<<dim3((d + kPN - 1) / kPN, (t + kPM - 1) / kPM, 3 * batch * H),
-                               128, 0, stream>>>(ab);
+    auto products = bf16 ? attn_bwd_products_kernel<true> : attn_bwd_products_kernel<false>;
+    products<<<dim3((d + kPN - 1) / kPN, (t + kPM - 1) / kPM, 3 * batch * H), 128, 0, stream>>>(
+        ab);
     GTT_TRY(cudaGetLastError());
     // the tables are shared by the heads: one launch for both
     rel_grads_kernel<<<dim3((d + kRelCols - 1) / kRelCols, 2 * window + 1, 2),
-                       dim3(kRelCols, kRelGroups), 0, stream>>>(ab, rows, drk, drv);
+                       dim3(kRelCols, kRelGroups), 0, stream>>>(ab, rows, drk, drv, bf16 ? 1 : 0);
     GTT_TRY(cudaGetLastError());
   }
 
   // ---- the Q/K/V projection: one weight and one bias gradient ----
-  GTT_TRY(wgrad(text_wgrad(s, x, h, h, mask, 1, batch, t, s.dqkv, 3 * h, 3 * h, dwqkv), stream));
+  GTT_TRY(wgrad(text_wgrad(s, x, h, h, mask, 1, batch, t, s.dqkv, 3 * h, 3 * h, dwqkv,
+                           bf16 ? wbf | kA16 : 0u),
+                stream));
   GTT_TRY(column_sums(s.dqkv, 3 * h, 3 * h, nullptr, rows, dbqkv, nullptr, stream));
   GTT_TRY(conv_gemm(dx_g, stream));
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int gtt_encoder_layer_bwd(
+    const float* x, const float* mask, const float* wqkv, const float* bqkv, const float* wo,
+    const float* bo, const float* rel_k, const float* rel_v, const float* gamma1,
+    const float* beta1, const float* gamma2, const float* beta2, const float* w1,
+    const float* c1, const float* w2, const float* c2, const float* dout, float* dx,
+    float* dwqkv, float* dbqkv, float* dwo, float* dbo, float* drk, float* drv, float* dg1,
+    float* dbe1, float* dg2, float* dbe2, float* dw1, float* dc1, float* dw2, float* dc2,
+    float* out, float* ffn, float* scratch, long long scratch_floats, int batch, int t, int h,
+    int n_heads, int window, int f, int taps, int drop, int seed, unsigned threshold,
+    float scale, cudaStream_t stream) {
+  return encoder_bwd_entry(x, mask, wqkv, bqkv, wo, bo, rel_k, rel_v, gamma1, beta1, gamma2,
+                           beta2, w1, c1, w2, c2, dout, dx, dwqkv, dbqkv, dwo, dbo, drk, drv,
+                           dg1, dbe1, dg2, dbe2, dw1, dc1, dw2, dc2, out, ffn, scratch,
+                           scratch_floats, batch, t, h, n_heads, window, f, taps, drop, seed,
+                           threshold, scale, false, stream);
+}
+
+// The same in bf16 (EncoderArgs::bf16): x, dout, dx, out, the weights, the
+// rel-pos tables and their gradients bf16; ffn f32.
+extern "C" int gtt_encoder_layer_bwd_bf16(
+    const float* x, const float* mask, const float* wqkv, const float* bqkv, const float* wo,
+    const float* bo, const float* rel_k, const float* rel_v, const float* gamma1,
+    const float* beta1, const float* gamma2, const float* beta2, const float* w1,
+    const float* c1, const float* w2, const float* c2, const float* dout, float* dx,
+    float* dwqkv, float* dbqkv, float* dwo, float* dbo, float* drk, float* drv, float* dg1,
+    float* dbe1, float* dg2, float* dbe2, float* dw1, float* dc1, float* dw2, float* dc2,
+    float* out, float* ffn, float* scratch, long long scratch_floats, int batch, int t, int h,
+    int n_heads, int window, int f, int taps, int drop, int seed, unsigned threshold,
+    float scale, cudaStream_t stream) {
+  return encoder_bwd_entry(x, mask, wqkv, bqkv, wo, bo, rel_k, rel_v, gamma1, beta1, gamma2,
+                           beta2, w1, c1, w2, c2, dout, dx, dwqkv, dbqkv, dwo, dbo, drk, drv,
+                           dg1, dbe1, dg2, dbe2, dw1, dc1, dw2, dc2, out, ffn, scratch,
+                           scratch_floats, batch, t, h, n_heads, window, f, taps, drop, seed,
+                           threshold, scale, true, stream);
 }

@@ -222,4 +222,174 @@ __device__ __forceinline__ void epilogue_row(const ConvGemm& g, int m, int n0,
   epilogue_cols<kW>(g, epilogue_row_of(g, m), n0, acc);
 }
 
+// The bf16 chains' epilogues (ConvGemm::bf16): the same tails, each operand
+// read and written as its bit says, rounded to bf16 where the JAX kernel
+// casts with dtype bf16.  What a product alone reads is not rounded here:
+// the product rounds its operands as it stages them.
+//  * kGate: out = th * sg (acts, read by the res/skip product); out2 / out3
+//    the gates (the saves, bf16); aux the conditioning (bf16).
+//  * kResSkip: rs = bf16(acc + b) (wn_pallas._layer_fwd's rs.astype);
+//    residual half out = bf16(base + rs) * mask; skip half out2 += rs (f32)
+//    and, with skip_mask, out3 = bf16(sum) * mask (skipm, bf16).
+//  * kCouplingFwd: m, logs_raw = bf16(acc + b) (the end conv's out.astype);
+//    out (holding x1) = bf16((m + e^logs x1) * mask); out2 = logs * mask.
+//  * kCouplingBwd: logs_raw = bf16(acc + b); aux dz, aux2 zp (bf16).
+//  * kGateBwd: aux / aux2 the saved gates (bf16).
+//  * the plain ones: aux per kAux16, out per kOut16, or rounded in f32 with
+//    kRoundOut.
+template <int kW>
+__device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const EpilogueRow& r,
+                                                   int n0, const float (&acc)[kW]) {
+  const long m = r.m;
+  const float rm = r.rm;
+  const unsigned bits = g.bf16;
+  const bool out16 = has(bits, kOut16), out2_16 = has(bits, kOut2_16);
+  const bool out3_16 = has(bits, kOut3_16), aux16 = has(bits, kAux16);
+  const bool aux2_16 = has(bits, kAux2_16);
+  const long ob = m * g.ldo;  // this row's first element of out
+  switch (g.epilogue) {
+    case kGate:
+    case kCouplingFwd: {
+      for (int p = 0; p < kW / 2; ++p) {
+        const int n = n0 + 2 * p;
+        if (n >= g.n) break;
+        const int j = n >> 1;
+        float lo = acc[2 * p] + bias_at(g, j);
+        float hi = acc[2 * p + 1] + bias_at(g, j + g.split);
+        if (g.epilogue == kGate) {
+          lo = dropped(g, r, j, lo);
+          hi = dropped(g, r, j + g.split, hi);
+          if (g.aux) {
+            const long gb = (long)r.b * g.ld_aux;
+            lo += ld_act(g.aux, gb + j, aux16);
+            hi += ld_act(g.aux, gb + j + g.split, aux16);
+          }
+          const float th = tanhf(lo);
+          const float sg = sigmoidf(hi);
+          st_act(g.out, ob + j, th * sg, out16);
+          if (g.out2) {
+            st_act(g.out2, m * g.ldo2 + j, th, out2_16);
+            st_act(g.out3, m * g.ldo3 + j, sg, out3_16);
+          }
+        } else {  // kCouplingFwd: out holds x1
+          const float logs = coupling_logs(g, round_bf16(hi));
+          const float x1 = ld_act(g.out, ob + j, out16);
+          st_act(g.out, ob + j, (round_bf16(lo) + expf(logs) * x1) * rm, out16);
+          g.out2[m * g.ldo2 + j] = logs * rm;
+        }
+      }
+      break;
+    }
+    case kResSkip: {
+      for (int e = 0; e < kW; ++e) {
+        const int n = n0 + e;
+        if (n >= g.n) break;
+        const float v = round_bf16(acc[e] + bias_at(g, n));
+        if (n < g.split) {
+          if (g.flag) {
+            const float base = g.aux ? ld_act(g.aux, m * g.ld_aux + n, aux16)
+                                     : ld_act(g.out, ob + n, out16);
+            st_act(g.out, ob + n, round_bf16(base + v) * rm, out16);
+          }
+        } else {
+          float* s = g.out2 + m * g.ldo2 + n - g.split;
+          const float sum = g.skip_init ? v : *s + v;
+          *s = sum;
+          if (g.skip_mask) st_act(g.out3, m * g.ldo3 + n - g.split, round_bf16(sum) * rm, out3_16);
+        }
+      }
+      break;
+    }
+    case kCouplingBwd: {
+      const float dld = g.aux3[r.b];
+      for (int e = 0; e < kW; ++e) {
+        const int j = n0 + e;
+        if (j >= g.n) break;
+        const float raw = round_bf16(acc[e] + bias_at(g, j));
+        const float logs = coupling_logs(g, raw);
+        const float el = expf(logs);
+        const long at = m * g.ld_aux + g.split + j;
+        const float dz1m = ld_act(g.aux, at, aux16) * rm;
+        float dlogs = dz1m * el * ld_act(g.aux2, at, aux2_16) + dld * rm;
+        if (g.flag) {
+          const float sgm = sigmoidf(raw + 2.f);
+          dlogs = dlogs * (sgm * (1.f - sgm)) / (1e-6f + sgm);
+        }
+        g.out[ob + j] = dz1m;
+        g.out[ob + g.split + j] = dlogs;
+        g.out2[m * g.ldo2 + g.split + j] = dz1m * el * rm;
+      }
+      break;
+    }
+    case kGateBwd: {
+      for (int e = 0; e < kW; ++e) {
+        const int j = n0 + e;
+        if (j >= g.n) break;
+        const float da = acc[e];
+        const float th = ld_act(g.aux, m * g.ld_aux + j, aux16);
+        const float sg = ld_act(g.aux2, m * g.ld_aux + j, aux2_16);
+        const float du = da * sg * (1.f - th * th);
+        const float dv = da * th * sg * (1.f - sg);
+        if (g.out) {
+          g.out[ob + j] = du;
+          g.out[ob + g.split + j] = dv;
+        }
+        float* dx = g.out2 + m * g.ldo2;
+        dx[j] = dropped(g, r, j, du);
+        dx[g.split + j] = dropped(g, r, g.split + j, dv);
+        g.out3[m * g.ldo3 + j] = th * sg;
+      }
+      break;
+    }
+    case kAccumMask: {
+      for (int e = 0; e < kW; ++e) {
+        const int n = n0 + e;
+        if (n >= g.n) break;
+        const float v = g.out[ob + n] * rm + acc[e];
+        g.out[ob + n] = v;
+        if (g.out2) g.out2[m * g.ldo2 + n] = v * rm;
+      }
+      break;
+    }
+    case kMaskReluBwd: {
+      const float sc = g.drop.on ? g.drop.scale * rm : rm;
+      for (int e = 0; e < kW; ++e) {
+        const int n = n0 + e;
+        if (n >= g.n) break;
+        g.out[ob + n] = ld_act(g.aux, m * g.ld_aux + n, aux16) > 0.f ? acc[e] * sc : 0.f;
+      }
+      break;
+    }
+    case kMaskAdd: {
+      for (int e = 0; e < kW; ++e) {
+        const int n = n0 + e;
+        if (n >= g.n) break;
+        g.out[ob + n] = acc[e] * rm + ld_act(g.aux, m * g.ld_aux + n, aux16);
+      }
+      break;
+    }
+    case kCouplingInv:
+      break;  // serving only: never a bf16 chain's
+    default: {
+      const bool round_out = has(bits, kRoundOut);
+      for (int e = 0; e < kW; ++e) {
+        const int n = n0 + e;
+        if (n >= g.n) break;
+        float v = acc[e] + bias_at(g, n);
+        if (g.epilogue == kBiasRelu || g.epilogue == kBiasReluMask) v = fmaxf(v, 0.f);
+        if (g.epilogue == kResidMask) v = (ld_act(g.aux, m * g.ld_aux + n, aux16) + v) * rm;
+        if (g.epilogue == kBiasMask || g.epilogue == kBiasReluMask) v *= rm;
+        if (g.epilogue != kResidMask) v = site_drop(g.drop, r.b, r.tr, g.n, n, v);
+        st_act(g.out, ob + n, round_out ? round_bf16(v) : v, out16);
+      }
+    }
+  }
+}
+
+template <int kW>
+__device__ __forceinline__ void epilogue_row_bf16(const ConvGemm& g, int m, int n0,
+                                                  const float (&acc)[kW]) {
+  epilogue_cols_bf16<kW>(g, epilogue_row_of(g, m), n0, acc);
+}
+
 }  // namespace gtt

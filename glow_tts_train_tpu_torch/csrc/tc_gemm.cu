@@ -1852,6 +1852,7 @@ cudaError_t presplit_weights(ConvGemm* const* gs, int count, float* scratch, lon
   long used = 0;
   for (int i = 0; i < count; ++i) {
     ConvGemm& g = *gs[i];
+    if (g.bf16 != 0) continue;  // a bf16 chain's product reads its weights as they lie
     const long need = 2L * g.taps * g.c_in * g.n;
     if (used + need > floats || !conv_gemm_tc_fits(g, sms)) continue;
     s.job[s.count++] = split_job(g, conv_gemm_tc_plan(g, sms), scratch + used);
@@ -2167,7 +2168,7 @@ extern "C" void gtt_product_counts(long long* counts, int reset) {
   counts[0] = c.tc_gemm; counts[1] = c.tc_wgrad; counts[2] = c.core_gemm;
   counts[3] = c.core_wgrad; counts[4] = c.declined_gemm; counts[5] = c.declined_wgrad;
   counts[6] = c.tap_staged_gemm; counts[7] = c.bias_wgrad; counts[8] = c.split_dy_wgrad;
-  counts[9] = c.tma_gemm;
+  counts[9] = c.tma_gemm; counts[10] = c.bf16_gemm; counts[11] = c.bf16_wgrad;
   if (reset) c = gtt::ProductCounts();
 }
 

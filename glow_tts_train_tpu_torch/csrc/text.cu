@@ -36,17 +36,25 @@ namespace gtt {
 
 namespace {
 
-// out = x * mask over [rows, n] (the first conv's input)
 __global__ void mask_rows_kernel(const float* x, const float* mask, float* out, long rows,
-                                 int n) {
+                                 int n, int x_bf16) {
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < rows * n) out[i] = x[i] * mask[i / n];
+  if (i < rows * n) out[i] = ld_act(x, i, x_bf16 != 0) * mask[i / n];
 }
 
 // 16-byte multiples, so every carved buffer stays aligned for the tensor cores
 long round4(long floats) { return (floats + 3) / 4 * 4; }
 
 }  // namespace
+
+cudaError_t mask_rows(const float* x, const float* mask, float* out, long rows, int n,
+                      bool x_bf16, cudaStream_t stream) {
+  const long total = rows * n;
+  if (total <= 0) return cudaSuccess;
+  mask_rows_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(x, mask, out, rows, n,
+                                                                        x_bf16 ? 1 : 0);
+  return cudaGetLastError();
+}
 
 long prenet_scratch(float* base, const PrenetDims& d, bool backward, PrenetScratch* s) {
   long used = 0;
@@ -94,23 +102,23 @@ cudaError_t prenet_forward(const PrenetArgs& a, cudaStream_t stream) {
     g[l].ldo = h;
     products[l] = &g[l];
   }
+  const unsigned bf = a.bf16 ? kBf16 : 0u;  // the products' bits in a bf16 call
   for (int l = 0; l < L; ++l) {  // pre = conv(x * mask) + b
     g[l].a = l ? curm(l - 1) : s.xm; g[l].taps = d.taps;
-    g[l].w = a.w + (long)l * d.taps * h * h; g[l].bias = a.b + l * h;
+    g[l].w = elem_at(a.w, (long)l * d.taps * h * h, a.bf16); g[l].bias = a.b + l * h;
     g[l].epilogue = kBias; g[l].out = s.pre;
+    g[l].bf16 = bf ? bf | kW16 : 0u;
   }
   ConvGemm& proj = g[L];  // out = (x + cur @ wp + bp) * mask (cur masked: same rows)
   proj.a = L ? curm(L - 1) : a.x; proj.w = a.wp; proj.bias = a.bp;
   proj.epilogue = kResidMask; proj.out = a.out; proj.mask = a.mask; proj.aux = a.x;
   proj.ld_aux = h;
+  proj.bf16 = bf ? bf | kW16 | kOut16 | kAux16 | (L ? 0u : kA16) : 0u;
   cudaError_t err = presplit_weights(products, L + 1, s.tc, s.tc_floats / 2, stream);
   if (err != cudaSuccess) return err;
 
-  if (L > 0) {
-    const long n = rows * h;
-    mask_rows_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(a.x, a.mask, s.xm, rows, h);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
+  if (L > 0 && (err = mask_rows(a.x, a.mask, s.xm, rows, h, a.bf16, stream)) != cudaSuccess)
+    return err;
   for (int l = 0; l < L; ++l) {
     if ((err = conv_gemm(g[l], stream)) != cudaSuccess) return err;
     LayerNorm ln;
@@ -162,6 +170,7 @@ void duration_convs(const DurationArgs& a, ConvGemm (&g)[2]) {
     p.batch = d.batch; p.t = d.t; p.w = a.w[l]; p.bias = a.b[l]; p.n = d.f;
     p.epilogue = kBiasRelu; p.out = a.save ? a.relu + l * d.rows() * d.f : a.s.pre;
     p.ldo = d.f;
+    p.bf16 = a.bf16 ? kBf16 | kW16 : 0u;
   }
 }
 
@@ -173,10 +182,8 @@ cudaError_t duration_forward(const DurationArgs& a, const ConvGemm (&g)[2],
   const DurationScratch& s = a.s;
   const long rows = d.rows();
   cudaError_t err;
-  const long n = rows * d.c_in;
-  mask_rows_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(a.x, a.mask, s.xm, rows,
-                                                                   d.c_in);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = mask_rows(a.x, a.mask, s.xm, rows, d.c_in, a.bf16, stream)) != cudaSuccess)
+    return err;
   for (int l = 0; l < 2; ++l) {
     if ((err = conv_gemm(g[l], stream)) != cudaSuccess) return err;
     // layer 0 writes only its masked output, layer 1's conv input; layer 1
@@ -187,6 +194,7 @@ cudaError_t duration_forward(const DurationArgs& a, const ConvGemm (&g)[2],
       ln.out_masked = s.curm; ln.out_mask = a.mask;
     } else {
       ln.out = a.out;
+      ln.bf16 = a.bf16 ? kOut16 : 0u;
     }
     ln.rows = (int)rows; ln.n = d.f; ln.t = d.t; ln.drop = a.drop.at(l);
     if (a.save) { ln.xhat = s.xhat + l * rows * d.f; ln.rstd = s.rstd + l * rows; }
@@ -216,14 +224,15 @@ extern "C" long long gtt_prenet_scratch_floats(int batch, int t, int h, int n_la
                              &s);
 }
 
-// Scratch: one block of gtt_prenet_scratch_floats(..., 0) floats.
-extern "C" int gtt_prenet(const float* x, const float* mask, const float* w,
-                          const float* b, const float* gamma,
-                          const float* beta, const float* wp, const float* bp,
-                          float* out, float* scratch, long long scratch_floats, int batch,
-                          int t, int h, int n_layers, int taps, int drop, int seed,
-                          unsigned threshold, float scale, cudaStream_t stream) {
+namespace {
+
+int prenet_entry(const float* x, const float* mask, const float* w, const float* b,
+                 const float* gamma, const float* beta, const float* wp, const float* bp,
+                 float* out, float* scratch, long long scratch_floats, int batch, int t, int h,
+                 int n_layers, int taps, int drop, int seed, unsigned threshold, float scale,
+                 bool bf16, cudaStream_t stream) {
   gtt::PrenetArgs a;
+  a.bf16 = bf16;
   a.x = x; a.mask = mask; a.w = w; a.b = b; a.gamma = gamma; a.beta = beta;
   a.wp = wp; a.bp = bp; a.out = out;
   a.dims = prenet_dims(batch, t, h, n_layers, taps);
@@ -232,6 +241,30 @@ extern "C" int gtt_prenet(const float* x, const float* mask, const float* w,
   a.drop = gtt::make_dropout(drop, seed, n_layers, threshold, scale);
   const cudaError_t err = gtt::prenet_forward(a, stream);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+}  // namespace
+
+// Scratch: one block of gtt_prenet_scratch_floats(..., 0) floats.
+extern "C" int gtt_prenet(const float* x, const float* mask, const float* w,
+                          const float* b, const float* gamma,
+                          const float* beta, const float* wp, const float* bp,
+                          float* out, float* scratch, long long scratch_floats, int batch,
+                          int t, int h, int n_layers, int taps, int drop, int seed,
+                          unsigned threshold, float scale, cudaStream_t stream) {
+  return prenet_entry(x, mask, w, b, gamma, beta, wp, bp, out, scratch, scratch_floats, batch,
+                      t, h, n_layers, taps, drop, seed, threshold, scale, false, stream);
+}
+
+// The same in bf16 (x, w, wp, out bf16; PrenetArgs::bf16).
+extern "C" int gtt_prenet_bf16(const float* x, const float* mask, const float* w,
+                               const float* b, const float* gamma,
+                               const float* beta, const float* wp, const float* bp,
+                               float* out, float* scratch, long long scratch_floats, int batch,
+                               int t, int h, int n_layers, int taps, int drop, int seed,
+                               unsigned threshold, float scale, cudaStream_t stream) {
+  return prenet_entry(x, mask, w, b, gamma, beta, wp, bp, out, scratch, scratch_floats, batch,
+                      t, h, n_layers, taps, drop, seed, threshold, scale, true, stream);
 }
 
 // Floats of one call's scratch block (backward 0: gtt_duration_stack, 1:
@@ -244,17 +277,16 @@ extern "C" long long gtt_duration_scratch_floats(int batch, int t, int c_in, int
   return gtt::duration_scratch(nullptr, d, backward != 0, &s);
 }
 
-// Scratch: one block of gtt_duration_scratch_floats(..., 0) floats.
-extern "C" int gtt_duration_stack(const float* x, const float* mask,
-                                  const float* w1, const float* b1,
-                                  const float* gamma1, const float* beta1,
-                                  const float* w2, const float* b2,
-                                  const float* gamma2, const float* beta2,
-                                  float* out, float* scratch, long long scratch_floats,
-                                  int batch, int t, int c_in, int f, int taps, int drop,
-                                  int seed, unsigned threshold, float scale,
-                                  cudaStream_t stream) {
+namespace {
+
+int duration_entry(const float* x, const float* mask, const float* w1, const float* b1,
+                   const float* gamma1, const float* beta1, const float* w2, const float* b2,
+                   const float* gamma2, const float* beta2, float* out, float* scratch,
+                   long long scratch_floats, int batch, int t, int c_in, int f, int taps,
+                   int drop, int seed, unsigned threshold, float scale, bool bf16,
+                   cudaStream_t stream) {
   gtt::DurationArgs a;
+  a.bf16 = bf16;
   a.x = x; a.mask = mask;
   a.w[0] = w1; a.b[0] = b1; a.gamma[0] = gamma1; a.beta[0] = beta1;
   a.w[1] = w2; a.b[1] = b2; a.gamma[1] = gamma2; a.beta[1] = beta2;
@@ -269,4 +301,36 @@ extern "C" int gtt_duration_stack(const float* x, const float* mask,
   cudaError_t err = gtt::presplit_weights(products, 2, a.s.tc, a.s.tc_floats, stream);
   if (err == cudaSuccess) err = gtt::duration_forward(a, g, stream);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+}  // namespace
+
+// Scratch: one block of gtt_duration_scratch_floats(..., 0) floats.
+extern "C" int gtt_duration_stack(const float* x, const float* mask,
+                                  const float* w1, const float* b1,
+                                  const float* gamma1, const float* beta1,
+                                  const float* w2, const float* b2,
+                                  const float* gamma2, const float* beta2,
+                                  float* out, float* scratch, long long scratch_floats,
+                                  int batch, int t, int c_in, int f, int taps, int drop,
+                                  int seed, unsigned threshold, float scale,
+                                  cudaStream_t stream) {
+  return duration_entry(x, mask, w1, b1, gamma1, beta1, w2, b2, gamma2, beta2, out, scratch,
+                        scratch_floats, batch, t, c_in, f, taps, drop, seed, threshold, scale,
+                        false, stream);
+}
+
+// The same in bf16 (x, w1, w2, out bf16; DurationArgs::bf16).
+extern "C" int gtt_duration_stack_bf16(const float* x, const float* mask,
+                                       const float* w1, const float* b1,
+                                       const float* gamma1, const float* beta1,
+                                       const float* w2, const float* b2,
+                                       const float* gamma2, const float* beta2,
+                                       float* out, float* scratch, long long scratch_floats,
+                                       int batch, int t, int c_in, int f, int taps, int drop,
+                                       int seed, unsigned threshold, float scale,
+                                       cudaStream_t stream) {
+  return duration_entry(x, mask, w1, b1, gamma1, beta1, w2, b2, gamma2, beta2, out, scratch,
+                        scratch_floats, batch, t, c_in, f, taps, drop, seed, threshold, scale,
+                        true, stream);
 }

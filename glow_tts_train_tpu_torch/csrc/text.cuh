@@ -55,6 +55,9 @@ struct PrenetArgs {
   PrenetScratch s;
   PrenetDims dims;
   Dropout drop;  // site l of n_layers over [t, h], after layer l's ReLU
+  // bf16 (fp16_run): x, out, w and wp bf16 (and in the backward dout, dx,
+  // dw and dwp); the rest and the scratch f32
+  bool bf16 = false;
 };
 
 cudaError_t prenet_forward(const PrenetArgs& a, cudaStream_t stream);
@@ -109,6 +112,9 @@ struct DurationArgs {
   DurationScratch s;
   DurationDims dims;
   Dropout drop;  // site l of 2 over [t, f], after layer l's LayerNorm
+  // bf16 (fp16_run): x, out and w bf16 (and in the backward dout, dx and
+  // dw); the rest and the scratch f32
+  bool bf16 = false;
 };
 
 // The stack's two convs as its chain runs them: each reads its input
@@ -119,5 +125,10 @@ void duration_convs(const DurationArgs& a, ConvGemm (&g)[2]);
 
 cudaError_t duration_forward(const DurationArgs& a, const ConvGemm (&g)[2],
                              cudaStream_t stream);
+
+// out = x * mask over [rows, n] (x f32 or, x_bf16, bf16): the first conv's
+// input, stored masked
+cudaError_t mask_rows(const float* x, const float* mask, float* out, long rows, int n,
+                      bool x_bf16, cudaStream_t stream);
 
 }  // namespace gtt

@@ -59,17 +59,22 @@ using namespace gtt;
 // `out` and its layer outputs before the mask `cur` [L, rows, h] (the
 // ReLU gates: where positive).  Scratch: one block of
 // gtt_prenet_scratch_floats(..., 1) floats.
-extern "C" int gtt_prenet_bwd(
+namespace {
+
+// bf16 (PrenetArgs::bf16): x, w, wp, dout, dx, dw, dwp and out bf16.
+int prenet_bwd_entry(
     const float* x, const float* mask, const float* w, const float* b,
     const float* gamma, const float* beta, const float* wp, const float* bp,
     const float* dout, float* dx, float* dw, float* db, float* dgamma, float* dbeta,
     float* dwp, float* dbp, float* out, float* cur, float* scratch,
     long long scratch_floats, int batch, int t, int h, int n_layers, int taps, int drop,
-    int seed, unsigned threshold, float scale, cudaStream_t stream) {
+    int seed, unsigned threshold, float scale, bool bf16, cudaStream_t stream) {
   using namespace gtt;
   const long rows = (long)batch * t;
   const int L = n_layers;
+  const unsigned bf = bf16 ? kBf16 : 0u;  // the products' bits in a bf16 call
   PrenetArgs a;
+  a.bf16 = bf16;
   a.x = x; a.mask = mask; a.w = w; a.b = b; a.gamma = gamma; a.beta = beta;
   a.wp = wp; a.bp = bp; a.out = out; a.cur = cur; a.save = true;
   a.dims.batch = batch; a.dims.t = t; a.dims.h = h; a.dims.n_layers = L; a.dims.taps = taps;
@@ -97,10 +102,13 @@ extern "C" int gtt_prenet_bwd(
     products[l] = &p;
   }
   for (int l = 0; l < L; ++l) {
-    g[l].a = s.dpre; g[l].taps = taps; g[l].tap_sign = -1; g[l].w = w + (long)l * taps * h * h;
+    g[l].a = s.dpre; g[l].taps = taps; g[l].tap_sign = -1;
+    g[l].w = elem_at(w, (long)l * taps * h * h, bf16);
+    g[l].bf16 = bf ? bf | kW16 | (l == 0 ? kOut16 | kAux16 : 0u) : 0u;
   }
   ConvGemm& dproj = g[L];
   dproj.a = dout; dproj.a_mask = mask; dproj.w = wp;
+  dproj.bf16 = bf ? bf | kA16 | kW16 | (L ? 0u : kOut16 | kAux16) : 0u;
   if (L > 0) { dproj.epilogue = kBias; dproj.out = s.dcur; dproj.mask = nullptr; dproj.aux = nullptr; }
   GTT_TRY(presplit_weights(products, L + 1, s.tc + s.tc_floats / 2, s.tc_floats / 2, stream));
 
@@ -110,9 +118,10 @@ extern "C" int gtt_prenet_bwd(
     pw.a = L ? src(L) : x; pw.lda = h; pw.c_in = h; pw.batch = batch; pw.t = t;
     pw.dy = dout; pw.ldy = h; pw.n = h; pw.dy_mask = mask; pw.out = dwp;
     pw.scratch = s.wg; pw.scratch_floats = s.wg_floats; pw.tc = 1;
+    pw.bf16 = bf ? bf | kAux16 | kOut16 | (L ? 0u : kA16) : 0u;
     GTT_TRY(wgrad(pw, stream));
   }
-  GTT_TRY(bias_grad(dout, h, h, mask, batch, t, s.col_part, dbp, stream));
+  GTT_TRY(bias_grad(dout, h, h, mask, batch, t, s.col_part, dbp, stream, bf16));
   GTT_TRY(conv_gemm(dproj, stream));
   for (int l = L - 1; l >= 0; --l) {
     LayerNormBwd ln;
@@ -125,8 +134,9 @@ extern "C" int gtt_prenet_bwd(
                         stream));
     WGrad wg;
     wg.a = src(l); wg.lda = h; wg.c_in = h; wg.taps = taps; wg.batch = batch; wg.t = t;
-    wg.dy = s.dpre; wg.ldy = h; wg.n = h; wg.out = dw + (long)l * taps * h * h;
+    wg.dy = s.dpre; wg.ldy = h; wg.n = h; wg.out = elem_at(dw, (long)l * taps * h * h, bf16);
     wg.scratch = s.wg; wg.scratch_floats = s.wg_floats; wg.tc = 1;
+    wg.bf16 = bf ? bf | kOut16 : 0u;
     GTT_TRY(wgrad(wg, stream));
     GTT_TRY(column_sums(s.dpre, h, h, nullptr, (int)rows, db + l * h, nullptr, stream));
     GTT_TRY(conv_gemm(g[l], stream));
@@ -134,21 +144,53 @@ extern "C" int gtt_prenet_bwd(
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+extern "C" int gtt_prenet_bwd(
+    const float* x, const float* mask, const float* w, const float* b,
+    const float* gamma, const float* beta, const float* wp, const float* bp,
+    const float* dout, float* dx, float* dw, float* db, float* dgamma, float* dbeta,
+    float* dwp, float* dbp, float* out, float* cur, float* scratch,
+    long long scratch_floats, int batch, int t, int h, int n_layers, int taps, int drop,
+    int seed, unsigned threshold, float scale, cudaStream_t stream) {
+  return prenet_bwd_entry(x, mask, w, b, gamma, beta, wp, bp, dout, dx, dw, db, dgamma, dbeta,
+                          dwp, dbp, out, cur, scratch, scratch_floats, batch, t, h, n_layers,
+                          taps, drop, seed, threshold, scale, false, stream);
+}
+
+// The same in bf16: x, w, wp, dout, dx, dw, dwp and out bf16, `cur` f32.
+extern "C" int gtt_prenet_bwd_bf16(
+    const float* x, const float* mask, const float* w, const float* b,
+    const float* gamma, const float* beta, const float* wp, const float* bp,
+    const float* dout, float* dx, float* dw, float* db, float* dgamma, float* dbeta,
+    float* dwp, float* dbp, float* out, float* cur, float* scratch,
+    long long scratch_floats, int batch, int t, int h, int n_layers, int taps, int drop,
+    int seed, unsigned threshold, float scale, cudaStream_t stream) {
+  return prenet_bwd_entry(x, mask, w, b, gamma, beta, wp, bp, dout, dx, dw, db, dgamma, dbeta,
+                          dwp, dbp, out, cur, scratch, scratch_floats, batch, t, h, n_layers,
+                          taps, drop, seed, threshold, scale, true, stream);
+}
+
 // Outputs: dx and the 8 weight gradients, the recomputed forward's output
 // `out` and its ReLU outputs `relu` [2, rows, f] (the ReLU gates: where
 // positive).  Scratch: one block of gtt_duration_scratch_floats(..., 1)
 // floats.
-extern "C" int gtt_duration_stack_bwd(
+namespace {
+
+// bf16 (DurationArgs::bf16): x, w1, w2, dout, dx, dw1, dw2 and out bf16.
+int duration_bwd_entry(
     const float* x, const float* mask, const float* w1, const float* b1,
     const float* gamma1, const float* beta1, const float* w2, const float* b2,
     const float* gamma2, const float* beta2, const float* dout, float* dx, float* dw1,
     float* db1, float* dgamma1, float* dbeta1, float* dw2, float* db2, float* dgamma2,
     float* dbeta2, float* out, float* relu, float* scratch, long long scratch_floats,
     int batch, int t, int c_in, int f, int taps, int drop, int seed, unsigned threshold,
-    float scale, cudaStream_t stream) {
+    float scale, bool bf16, cudaStream_t stream) {
   using namespace gtt;
   const long rows = (long)batch * t;
+  const unsigned bf = bf16 ? kBf16 : 0u;
   DurationArgs a;
+  a.bf16 = bf16;
   a.x = x; a.mask = mask;
   a.w[0] = w1; a.b[0] = b1; a.gamma[0] = gamma1; a.beta[0] = beta1;
   a.w[1] = w2; a.b[1] = b2; a.gamma[1] = gamma2; a.beta[1] = beta2;
@@ -169,6 +211,7 @@ extern "C" int gtt_duration_stack_bwd(
     p.a = s.dpre; p.lda = f; p.c_in = f; p.taps = taps; p.tap_sign = -1;
     p.batch = batch; p.t = t; p.w = a.w[l]; p.w_t = 1; p.n = g[l].c_in;
     p.epilogue = kBiasMask; p.out = l ? s.dcur : dx; p.ldo = g[l].c_in; p.mask = mask;
+    p.bf16 = bf ? bf | kW16 | (l ? 0u : kOut16) : 0u;
   }
   ConvGemm* products[4] = {&g[0], &g[1], &gt[0], &gt[1]};
   GTT_TRY(presplit_weights(products, 4, s.tc, s.tc_floats, stream));
@@ -185,15 +228,48 @@ extern "C" int gtt_duration_stack_bwd(
     ln.relu_src = relu + l * rows * f;
     ln.dyeff = s.dcur; ln.dx = s.dpre; ln.rows = (int)rows; ln.n = f; ln.t = t;
     ln.drop = a.drop.at(l);
+    ln.bf16 = bf16 && l == 1 ? kAux16 : 0u;
     GTT_TRY(layer_norm_bwd(ln, stream));
     GTT_TRY(column_sums(s.dcur, f, f, ln.xhat, (int)rows, dgs[l], dbes[l], stream));
     WGrad wg;  // the conv's input, stored masked: no mask on the gather
     wg.a = g[l].a; wg.lda = g[l].lda; wg.c_in = g[l].c_in; wg.taps = taps;
     wg.batch = batch; wg.t = t; wg.dy = s.dpre; wg.ldy = f; wg.n = f; wg.out = dws[l];
     wg.scratch = s.wg; wg.scratch_floats = s.wg_floats; wg.tc = 1;
+    wg.bf16 = bf ? bf | kOut16 : 0u;
     GTT_TRY(wgrad(wg, stream));
     GTT_TRY(column_sums(s.dpre, f, f, nullptr, (int)rows, dbs[l], nullptr, stream));
     GTT_TRY(conv_gemm(gt[l], stream));
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int gtt_duration_stack_bwd(
+    const float* x, const float* mask, const float* w1, const float* b1,
+    const float* gamma1, const float* beta1, const float* w2, const float* b2,
+    const float* gamma2, const float* beta2, const float* dout, float* dx, float* dw1,
+    float* db1, float* dgamma1, float* dbeta1, float* dw2, float* db2, float* dgamma2,
+    float* dbeta2, float* out, float* relu, float* scratch, long long scratch_floats,
+    int batch, int t, int c_in, int f, int taps, int drop, int seed, unsigned threshold,
+    float scale, cudaStream_t stream) {
+  return duration_bwd_entry(x, mask, w1, b1, gamma1, beta1, w2, b2, gamma2, beta2, dout, dx,
+                            dw1, db1, dgamma1, dbeta1, dw2, db2, dgamma2, dbeta2, out, relu,
+                            scratch, scratch_floats, batch, t, c_in, f, taps, drop, seed,
+                            threshold, scale, false, stream);
+}
+
+// The same in bf16: x, w1, w2, dout, dx, dw1, dw2 and out bf16, `relu` f32.
+extern "C" int gtt_duration_stack_bwd_bf16(
+    const float* x, const float* mask, const float* w1, const float* b1,
+    const float* gamma1, const float* beta1, const float* w2, const float* b2,
+    const float* gamma2, const float* beta2, const float* dout, float* dx, float* dw1,
+    float* db1, float* dgamma1, float* dbeta1, float* dw2, float* db2, float* dgamma2,
+    float* dbeta2, float* out, float* relu, float* scratch, long long scratch_floats,
+    int batch, int t, int c_in, int f, int taps, int drop, int seed, unsigned threshold,
+    float scale, cudaStream_t stream) {
+  return duration_bwd_entry(x, mask, w1, b1, gamma1, beta1, w2, b2, gamma2, beta2, dout, dx,
+                            dw1, db1, dgamma1, dbeta1, dw2, db2, dgamma2, dbeta2, out, relu,
+                            scratch, scratch_floats, batch, t, c_in, f, taps, drop, seed,
+                            threshold, scale, true, stream);
 }

@@ -38,8 +38,8 @@ else:
 _ARCH = "arch=compute_90a,code=sm_90a"
 # sources in link order; every .cu and .cuh under csrc/ feeds the hash
 _SOURCES = (
-    "common.cu", "tc_gemm.cu", "text.cu", "text_train.cu", "encoder.cu", "encoder_train.cu",
-    "block.cu", "block_train.cu", "mas.cu",
+    "common.cu", "tc_gemm.cu", "bf16_gemm.cu", "text.cu", "text_train.cu", "encoder.cu",
+    "encoder_train.cu", "block.cu", "block_train.cu", "mas.cu",
 )
 
 # argument kinds of the C signatures: pointer, int, 64-bit int, unsigned
@@ -122,18 +122,27 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def check_operands(device: torch.device, **tensors) -> None:
-    """Raise unless every given tensor is contiguous float32 on ``device``
-    (``None`` entries are optional operands and pass)."""
+def check_operands(device: torch.device, bf16: typing.Collection[str] = (), **tensors) -> None:
+    """Raise unless every given tensor is contiguous on ``device`` and of its
+    dtype: bfloat16 for the names in ``bf16`` (a bf16 kernel's bf16
+    operands), float32 for the rest (``None`` entries are optional operands
+    and pass)."""
     for name, t in tensors.items():
         if t is None:
             continue
-        if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
+        dtype = torch.bfloat16 if name in bf16 else torch.float32
+        if t.device != device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(
-                f"{name}: the CUDA kernels take contiguous float32 tensors on "
+                f"{name}: this CUDA kernel takes a contiguous {dtype} tensor on "
                 f"{device}; got {t.dtype} on {t.device}"
                 f"{'' if t.is_contiguous() else ', not contiguous'}"
             )
+
+
+def scratch(floats: int, like: torch.Tensor) -> torch.Tensor:
+    """A kernel call's f32 scratch block of ``floats`` floats on ``like``'s
+    device (whatever ``like``'s dtype)."""
+    return torch.empty((floats,), dtype=torch.float32, device=like.device)
 
 
 def check_shape(name: str, t: torch.Tensor, shape: tuple) -> None:
@@ -164,6 +173,7 @@ class Entry:
 
     def __init__(self, symbol: str, signature: str):
         self.symbol = symbol
+        self.signature = signature
         self.argtypes = [_KINDS[k] for k in signature] + [ctypes.c_void_p]
         self.launches = 0
         self._fn = None
@@ -207,6 +217,16 @@ BLOCK_FWD_SAVE = Entry("gtt_block_fwd_save", "p" * 24 + "L" + "i" * 11 + "uf")
 BLOCK_BWD_STORE = Entry("gtt_block_bwd_store", "p" * 28 + "L" + "i" * 10 + "uf")
 BLOCK_BWD = Entry("gtt_block_bwd", "p" * 28 + "L" + "i" * 11 + "uf")
 MAS = Entry("gtt_mas", "p" * 5 + "i" * 3)
+# the bf16 chains (fp16_run): the same C signatures, bf16 operands where the
+# JAX kernels take dtype (the wrappers' check_operands say which)
+PRENET_BF16 = Entry("gtt_prenet_bf16", PRENET.signature)
+DURATION_STACK_BF16 = Entry("gtt_duration_stack_bf16", DURATION_STACK.signature)
+ENCODER_LAYER_BF16 = Entry("gtt_encoder_layer_bf16", ENCODER_LAYER.signature)
+PRENET_BWD_BF16 = Entry("gtt_prenet_bwd_bf16", PRENET_BWD.signature)
+DURATION_STACK_BWD_BF16 = Entry("gtt_duration_stack_bwd_bf16", DURATION_STACK_BWD.signature)
+ENCODER_LAYER_BWD_BF16 = Entry("gtt_encoder_layer_bwd_bf16", ENCODER_LAYER_BWD.signature)
+BLOCK_FWD_SAVE_BF16 = Entry("gtt_block_fwd_save_bf16", "p" * 24 + "i" * 11 + "uf")
+BLOCK_BWD_STORE_BF16 = Entry("gtt_block_bwd_store_bf16", BLOCK_BWD_STORE.signature)
 # the tensor-core device kernels alone (csrc/tc_gemm.cu), and the weights'
 # K-major split
 TC_CONV_GEMM = Entry("gtt_tc_conv_gemm", "p" * 5 + "L" + "i" * 10)
@@ -233,6 +253,14 @@ ENTRIES = {
     "prenet_bwd": PRENET_BWD,
     "encoder_layer_bwd": ENCODER_LAYER_BWD,
     "duration_stack_bwd": DURATION_STACK_BWD,
+    "prenet_bf16": PRENET_BF16,
+    "encoder_layer_bf16": ENCODER_LAYER_BF16,
+    "duration_stack_bf16": DURATION_STACK_BF16,
+    "block_fwd_save_bf16": BLOCK_FWD_SAVE_BF16,
+    "block_bwd_store_bf16": BLOCK_BWD_STORE_BF16,
+    "prenet_bwd_bf16": PRENET_BWD_BF16,
+    "encoder_layer_bwd_bf16": ENCODER_LAYER_BWD_BF16,
+    "duration_stack_bwd_bf16": DURATION_STACK_BWD_BF16,
     "tc_conv_gemm": TC_CONV_GEMM,
     "tc_conv_gemm_tiled": TC_CONV_GEMM_TILED,
     "tc_conv_gemm_walk": TC_CONV_GEMM_WALK,
@@ -243,7 +271,7 @@ ENTRIES = {
 
 PRODUCT_COUNT_NAMES = (
     "tc_gemm", "tc_wgrad", "core_gemm", "core_wgrad", "declined_gemm", "declined_wgrad",
-    "tap_staged_gemm", "bias_wgrad", "split_dy_wgrad", "tma_gemm",
+    "tap_staged_gemm", "bias_wgrad", "split_dy_wgrad", "tma_gemm", "bf16_gemm", "bf16_wgrad",
 )
 
 
@@ -256,14 +284,20 @@ def product_counts(reset: bool = False) -> typing.Dict[str, int]:
     walk's modes: tap-staged conv-GEMMs (``tap_staged_gemm``), weight
     gradients with a bias row (``bias_wgrad``) and reading dY's K-major
     split (``split_dy_wgrad``), and in the WN forward's: TMA-fed
-    conv-GEMMs (``tma_gemm``).  ``reset`` zeroes the counters after the
-    read."""
+    conv-GEMMs (``tma_gemm``); and the bf16 chains' tensor-core products
+    (``bf16_gemm``, ``bf16_wgrad``; their folded-A product on the CUDA
+    cores counts as ``core_gemm``), these two keys only where a bf16
+    product ran (an f32 chain's counts keep the f32 chains' keys).
+    ``reset`` zeroes the counters after the read."""
     fn = library().gtt_product_counts
     fn.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
     fn.restype = None
-    counts = (ctypes.c_longlong * len(PRODUCT_COUNT_NAMES))()
-    fn(counts, int(reset))
-    return dict(zip(PRODUCT_COUNT_NAMES, counts))
+    raw = (ctypes.c_longlong * len(PRODUCT_COUNT_NAMES))()
+    fn(raw, int(reset))
+    counts = dict(zip(PRODUCT_COUNT_NAMES, raw))
+    if not counts["bf16_gemm"] + counts["bf16_wgrad"]:
+        del counts["bf16_gemm"], counts["bf16_wgrad"]
+    return counts
 
 
 def product_splits(reset: bool = False) -> int:
@@ -293,12 +327,15 @@ def _size_query(symbol: str, *dims: int) -> int:
 
 
 def encoder_scratch_floats(
-    batch: int, t: int, h: int, n_heads: int, window: int, f: int, taps: int, backward: bool
+    batch: int, t: int, h: int, n_heads: int, window: int, f: int, taps: int, backward: bool,
+    bf16: bool = False,
 ) -> int:
     """Floats of the one scratch block a call of the encoder layer's
-    forward (or backward) entry point carves its buffers from."""
+    forward (or backward) entry point, or of its bf16 version, carves its
+    buffers from."""
     return _size_query(
-        "gtt_encoder_scratch_floats", batch, t, h, n_heads, window, f, taps, int(backward)
+        "gtt_encoder_scratch_floats", batch, t, h, n_heads, window, f, taps, int(backward),
+        int(bf16),
     )
 
 
@@ -343,6 +380,14 @@ def block_bwd_scratch_floats(batch: int, t: int, c: int, h: int, n_layers: int, 
     entry points carves its buffers from."""
     return _size_query("gtt_block_bwd_scratch_floats", batch, t, c, h, n_layers, taps,
                        int(recompute), int(with_g))
+
+
+def block_bwd_bf16_scratch_floats(batch: int, t: int, c: int, h: int, n_layers: int,
+                                  taps: int, with_g: bool) -> int:
+    """Floats of the one scratch block a call of the flow block's bf16
+    backward-store entry point carves its buffers from."""
+    return _size_query("gtt_block_bwd_bf16_scratch_floats", batch, t, c, h, n_layers, taps,
+                       int(with_g))
 
 
 def duration_scratch_floats(batch: int, t: int, c_in: int, f: int, taps: int,

@@ -435,6 +435,7 @@ def encoder_forward_train(
     g: typing.Optional[torch.Tensor] = None,
     generator: typing.Optional[torch.Generator] = None,
     seed_generator: typing.Optional[torch.Generator] = None,
+    compute_dtype: torch.dtype = torch.float32,
 ):
     """The text side on the raw param tree: prenet, encoder, projections,
     and the duration predictor on the detached encoder output (plus the
@@ -443,19 +444,32 @@ def encoder_forward_train(
     their plain versions on CPU tensors) and dropout is on when
     ``seed_generator`` (CPU) is given, one seed per stack and layer drawn
     from it; otherwise op by op with masks drawn from ``generator``.
-    Returns (x_m, x_logs, logw, x_mask)."""
+    ``compute_dtype`` bf16 (JAX ``encoder_forward``'s compute_dtype, the
+    fused stacks only): the embedding, the stacks' activations and their
+    product weights in bf16, the mask f32 (its values are 0 and 1, so a
+    masked bf16 value is the same bf16 value).  Returns (x_m, x_logs,
+    logw, x_mask)."""
     t_x = x.shape[1]
-    xh = params["emb"][x] * math.sqrt(hp.h_enc)
+    cd = compute_dtype
+    if cd == torch.float32:
+        xh = params["emb"][x] * math.sqrt(hp.h_enc)
+    else:  # JAX: a Python scalar times a bf16 array is a bf16 product
+        xh = params["emb"].to(cd)[x] * torch.tensor(math.sqrt(hp.h_enc), dtype=cd)
     x_mask = time_mask(x_lengths, t_x).contiguous()
     fused = hp.encoder_fuse
     drop = seed_generator is not None
+    if cd != torch.float32 and not fused:
+        raise NotImplementedError("bf16 runs the text side through its kernels only")
+
+    def masked(a):
+        return (a * x_mask).to(a.dtype)
 
     def rate_and_seed(p):
         on = drop and p > 0.0
         return (p, attention.draw_seed(seed_generator)) if on else (0.0, 0)
 
     if hp.prenet:
-        pw = text_cuda.prenet_weights(params["prenet"])
+        pw = text_cuda.prenet_weights(params["prenet"], cd)
         if fused:
             xh = text_cuda.prenet_train(pw, xh.contiguous(), x_mask, *rate_and_seed(0.5))
         else:
@@ -467,17 +481,17 @@ def encoder_forward_train(
     )
     x_dp = xh.detach()
     if g is not None:
-        x_dp = torch.cat([x_dp, g.expand(-1, t_x, -1)], dim=-1)
-    x_m = conv1d(xh, params["proj_m"]) * x_mask
-    x_logs = torch.zeros_like(x_m) if hp.mean_only else conv1d(xh, params["proj_s"]) * x_mask
-    dw = text_cuda.dp_weights(params["proj_w"])
+        x_dp = torch.cat([x_dp, g.expand(-1, t_x, -1).to(cd)], dim=-1)
+    x_m = masked(conv1d(xh, params["proj_m"]))
+    x_logs = torch.zeros_like(x_m) if hp.mean_only else masked(conv1d(xh, params["proj_s"]))
+    dw = text_cuda.dp_weights(params["proj_w"], cd)
     if fused:
         dp = text_cuda.duration_stack_train(
             dw, x_dp.contiguous(), x_mask, *rate_and_seed(hp.p_dropout)
         )
     else:
         dp = text_cuda.duration_stack_plain(dw, x_dp, x_mask, hp.p_dropout, generator)
-    logw = conv1d(dp * x_mask, params["proj_w"]["proj"]) * x_mask
+    logw = masked(conv1d(masked(dp), params["proj_w"]["proj"]))
     return x_m, x_logs, logw, x_mask
 
 
@@ -499,22 +513,25 @@ def forward_train(
     g_ids: typing.Optional[torch.Tensor] = None,
     generator: typing.Optional[torch.Generator] = None,
     seed_generator: typing.Optional[torch.Generator] = None,
+    compute_dtype: torch.dtype = torch.float32,
 ):
     """Training graph (JAX ``forward_train``): encoder -> flow forward ->
     f32 pairwise log-likelihood -> MAS (no gradient) -> expansion.  x [b,
     t_x] ids, y [b, t_y, n_mel].  Dropout is on when generators are given:
     ``generator`` (on x's device) draws the encoder's masks,
-    ``seed_generator`` (CPU) the flow blocks' seeds.
+    ``seed_generator`` (CPU) the flow blocks' seeds.  ``compute_dtype``
+    bf16: the text side, the mels and the flow blocks in bf16 (JAX casts
+    y, z_m and z_logs to it), logdet, logp and MAS in f32.
 
     Returns ((z, z_m, z_logs, logdet, z_mask), (x_m, x_logs, x_mask),
     (attn, logw, logw_))."""
     g = _speaker_vector(params.get("emb_g"), g_ids)
     x_m, x_logs, logw, x_mask = encoder_forward_train(
-        params, hp, x, x_lengths, g, generator, seed_generator
+        params, hp, x, x_lengths, g, generator, seed_generator, compute_dtype
     )
 
     t_y = (y.shape[1] // hp.n_sqz) * hp.n_sqz
-    y = y[:, :t_y].to(torch.float32)
+    y = y[:, :t_y].to(compute_dtype)
     y_lengths = (y_lengths // hp.n_sqz) * hp.n_sqz
     z_mask = time_mask(y_lengths, t_y)
     attn_mask = x_mask[:, :, 0][:, :, None] * z_mask[:, :, 0][:, None, :]
@@ -535,9 +552,10 @@ def forward_train(
         logp = logp1 + logp2 + logp3 + logp4
         attn = mas_cuda.maximum_path(logp.contiguous(), attn_mask.contiguous())
 
-    z_m = torch.einsum("bxy,bxd->byd", attn, x_m)
-    z_logs = torch.einsum("bxy,bxd->byd", attn, x_logs)
-    logw_ = torch.log(1e-8 + torch.sum(attn, dim=2))[:, :, None] * x_mask
+    z_m = torch.einsum("bxy,bxd->byd", attn, x_m.float()).to(compute_dtype)
+    z_logs = torch.einsum("bxy,bxd->byd", attn, x_logs.float()).to(compute_dtype)
+    attn_c = attn.to(compute_dtype)  # JAX: the path in the compute dtype
+    logw_ = (torch.log(1e-8 + torch.sum(attn_c, dim=2))[:, :, None] * x_mask).to(compute_dtype)
     return (z, z_m, z_logs, logdet, z_mask), (x_m, x_logs, x_mask), (attn, logw, logw_)
 
 

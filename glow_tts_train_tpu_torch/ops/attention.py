@@ -216,7 +216,8 @@ def encoder_apply(
         from . import encoder_cuda
 
         folded = [
-            encoder_cuda.merge_qkv(encoder_cuda.fold_encoder_layer(layer)) for layer in layers
+            encoder_cuda.merge_qkv(encoder_cuda.fold_encoder_layer(layer, x.dtype))
+            for layer in layers
         ]
         drop = seed_generator is not None and p_dropout > 0.0
         for weights in folded:
@@ -224,7 +225,7 @@ def encoder_apply(
                 weights, x, x_mask, n_heads, window_size,
                 p_dropout if drop else 0.0, draw_seed(seed_generator) if drop else 0,
             )
-        return x * x_mask
+        return (x * x_mask).to(x.dtype)
     for layer in layers:
         x = encoder_layer_apply(
             layer, x, x_mask, n_heads, window_size, block_length, p_dropout, generator

@@ -51,9 +51,10 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .conv import conv1d, weight_norm_effective
+from . import bf16
+from .conv import conv1d, im2col, weight_norm_effective
 from .wn_cuda import (
-    check_residuals, drop_args, fold_wn_weights, needs_grad, wn_stack_plain,
+    check_residuals, drop_args, fold_wn_weights, needs_grad, regen_keep, wn_stack_plain,
 )
 
 Params = typing.Dict[str, typing.Any]
@@ -221,15 +222,17 @@ def block_inverse(
 FOLD_KEYS = ("A", "bA", "W_s", "b_s", "W_e", "b_e", "W_in", "b_in", "W_rs", "b_rs")
 
 
-def fold_block_params(block: Params, n_layers: int, n_split: int) -> dict:
+def fold_block_params(block: Params, n_layers: int, n_split: int,
+                      dtype: torch.dtype = torch.float32) -> dict:
     """Block params -> the training-direction kernel weights
-    (``block_pallas.fold_block_params``), in fp32 and differentiable:
+    (``block_pallas.fold_block_params``), differentiable:
 
         zp = (x @ A + bA) * mask,  A = diag(e^logs) M^T,  bA = bias M^T
 
-    with M the dense [c, c] expansion of the s x s mix.  Autograd carries
-    the folded-weight gradients back to the actnorm logs/bias, the s x s
-    invconv weight and the weight-normed g/v."""
+    with M the dense [c, c] expansion of the s x s mix; the products'
+    weights (A, W_s, W_e, W_in, W_rs) in ``dtype``, the biases f32.
+    Autograd carries the folded-weight gradients back to the actnorm
+    logs/bias, the s x s invconv weight and the weight-normed g/v."""
     f32 = torch.float32
     an, inv, cp = block["actnorm"], block["invconv"], block["coupling"]
     ws_full = weight_norm_effective(cp["start"])  # [1, c/2, h]
@@ -238,15 +241,15 @@ def fold_block_params(block: Params, n_layers: int, n_split: int) -> dict:
     scale = torch.exp(an["logs"].to(f32))
     W_in, b_in, W_rs, b_rs = fold_wn_weights(cp["wn"], n_layers)
     return {
-        "A": (scale[:, None] * m.T).contiguous(),
+        "A": (scale[:, None] * m.T).to(dtype).contiguous(),
         "bA": (an["bias"].to(f32) @ m.T).reshape(1, c).contiguous(),
-        "W_s": ws_full[0].contiguous(),
+        "W_s": ws_full[0].to(dtype).contiguous(),
         "b_s": cp["start"]["b"].to(f32).reshape(1, -1).contiguous(),
-        "W_e": cp["end"]["w"][0].to(f32).contiguous(),
+        "W_e": cp["end"]["w"][0].to(dtype).contiguous(),
         "b_e": cp["end"]["b"].to(f32).reshape(1, -1).contiguous(),
-        "W_in": W_in,
+        "W_in": W_in.to(dtype).contiguous(),
         "b_in": b_in,
-        "W_rs": W_rs,
+        "W_rs": W_rs.to(dtype).contiguous(),
         "b_rs": b_rs,
     }
 
@@ -257,12 +260,14 @@ def fold_blocks_stacked(
     n_split: int,
     g: typing.Optional[torch.Tensor],
     hidden_channels: int,
+    dtype: torch.dtype = torch.float32,
 ) -> tuple:
     """All stacked blocks folded once per step (``block_pallas.
     fold_blocks_stacked``) -> (per-block folds, logs_sum [nb], logabsdet
-    [nb], per-block conditioning [b, L, 2h] or None).  logs_sum is the
-    actnorm logdet coefficient, logabsdet = log|det W| the invconv's
-    (slogdet: ARCHITECTURE.md, Known divergences)."""
+    [nb], per-block conditioning [b, L, 2h] or None), the products'
+    weights and the conditioning in ``dtype`` (cast once a step).
+    logs_sum is the actnorm logdet coefficient, logabsdet = log|det W| the
+    invconv's (slogdet: ARCHITECTURE.md, Known divergences)."""
     from ..tree import tree_index
 
     f32 = torch.float32
@@ -270,9 +275,9 @@ def fold_blocks_stacked(
     folded, g_all = [], []
     for i in range(n_blocks):
         bp = tree_index(blocks, i)
-        folded.append(fold_block_params(bp, n_layers, n_split))
+        folded.append(fold_block_params(bp, n_layers, n_split, dtype))
         if g is not None:
-            cond = conv1d(g, bp["coupling"]["wn"]["cond"])
+            cond = conv1d(g, bp["coupling"]["wn"]["cond"]).to(dtype)
             g_all.append(cond.reshape(g.shape[0], n_layers, 2 * hidden_channels).contiguous())
     logs_sum = torch.sum(blocks["actnorm"]["logs"].to(f32), dim=-1)
     logabsdet = torch.linalg.slogdet(blocks["invconv"]["weight"].to(f32))[1]
@@ -315,16 +320,89 @@ def block_forward_plain(
     return torch.cat([x0, z1], dim=-1), torch.sum(logs * x_mask, dim=(1, 2))
 
 
+def block_forward_plain_bf16(
+    folded: dict,
+    g_all: typing.Optional[torch.Tensor],
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    kernel_size: int,
+    dilation_rate: int,
+    sigmoid_scale: bool = False,
+    p_dropout: float = 0.0,
+    seed: int = 0,
+    saves: typing.Optional[dict] = None,
+) -> typing.Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the training forward and of its store-mode
+    backward in bf16 (x, A, W_s, W_e, W_in, W_rs and g_all bf16;
+    ``block_pallas._block_fwd_math``, ``_block_bwd_store_kernel`` and
+    ``wn_pallas._layer_fwd``, ``_reverse_walk`` with dtype bf16): zp, the
+    WN layers' inputs, acts and res/skip outputs, skipm, the end conv's
+    output and z rounded where the kernels cast; the skip sum, the gates'
+    math, ld and every cotangent in f32, rounded before its products; the
+    gates' backward and dW_rs read the gates as saved (rounded) -> (z bf16,
+    ld [b] f32).  ``saves``: as :func:`block_forward_plain`."""
+    f = {k: (v.float() if v.dtype == bf16.BF16 else v) for k, v in folded.items()}
+    c2 = x.shape[-1] // 2
+    zp = bf16.round_fwd((bf16.product(x.float(), f["A"]) + f["bA"]) * x_mask)
+    x0, x1 = zp[..., :c2], zp[..., c2:]
+    xcur = bf16.round_fwd((bf16.product(x0, f["W_s"]) + f["b_s"]) * x_mask)
+    n_layers, _, h2 = f["W_in"].shape
+    h = h2 // 2
+    batch, t = x.shape[:2]
+    g32 = None if g_all is None else g_all.float()
+    sample_seeds = seed + torch.arange(batch, dtype=torch.int64)
+    skip = 0.0
+    for l in range(n_layers):
+        if saves is not None:
+            saves.setdefault("xs", []).append(xcur)
+        xin = bf16.product(im2col(xcur, kernel_size, dilation_rate ** l), f["W_in"][l])
+        xin = xin + f["b_in"][l]
+        if p_dropout > 0.0:
+            keep = regen_keep(sample_seeds, l, n_layers, (t, h2), p_dropout, x.device)
+            xin = xin * keep * drop_args(p_dropout)[2]
+        if g32 is not None:
+            xin = xin + g32[:, l][:, None, :]
+        acts, th, sg = bf16.gate(xin[..., :h], xin[..., h:])
+        if saves is not None:
+            saves.setdefault("th", []).append(th)
+            saves.setdefault("sg", []).append(sg)
+        rs = bf16.round_fwd(bf16.product(acts, f["W_rs"][l], a_bwd=rounded_acts(th, sg))
+                            + f["b_rs"][l])
+        xcur = bf16.round_fwd(xcur + rs[..., :h]) * x_mask
+        skip = skip + rs[..., h:]
+    skipm = bf16.round_fwd(bf16.round_grad(skip) * x_mask)
+    out = bf16.round_fwd(bf16.product(skipm, f["W_e"]) + f["b_e"])
+    m, logs = out[..., :c2], out[..., c2:]
+    if sigmoid_scale:
+        logs = torch.log(1e-6 + torch.sigmoid(logs + 2.0))
+    z1 = bf16.round_fwd((m + torch.exp(logs) * x1) * x_mask)
+    if saves is not None:
+        saves["zp"], saves["skipm"] = zp, skipm
+    return torch.cat([x0, z1], dim=-1).to(bf16.BF16), torch.sum(logs * x_mask, dim=(1, 2))
+
+
+def rounded_acts(th: torch.Tensor, sg: torch.Tensor) -> torch.Tensor:
+    """The gate product the backward rebuilds from the rounded gates."""
+    return bf16.rounded(th.detach() * sg.detach())
+
+
 def _fwd_scratch(x: torch.Tensor, h: int, n_layers: int, kernel_size: int) -> torch.Tensor:
     """The one scratch block of a forward call: its products' weight splits."""
     return x.new_empty((kernels.block_fwd_scratch_floats(x.shape[-1], h, n_layers, kernel_size),))
+
+
+# a bf16 call's bf16 operands (fp16_run; block_pallas with dtype bf16)
+BF16_OPERANDS = ("x", "g_all", "A", "W_s", "W_e", "W_in", "W_rs")
 
 
 def _check_train_operands(folded, g_all, x, x_mask, kernel_size):
     batch, t, c = x.shape
     n_layers, kh, h2 = folded["W_in"].shape
     h = h2 // 2
-    kernels.check_operands(x.device, x=x, x_mask=x_mask, g_all=g_all, **folded)
+    kernels.check_operands(
+        x.device, BF16_OPERANDS if x.dtype == bf16.BF16 else (),
+        x=x, x_mask=x_mask, g_all=g_all, **folded,
+    )
     kernels.check_shape("x_mask", x_mask, (batch, t, 1))
     kernels.check_shape("W_in", folded["W_in"], (n_layers, kernel_size * h, 2 * h))
     kernels.check_shape("W_rs", folded["W_rs"], (n_layers, h, 2 * h))
@@ -351,17 +429,28 @@ def block_fwd_save(
     [b, t, c], skipm [b, t, h], xs/th/sg [L, b, t, h]."""
     batch, t, c, h, n_layers = _check_train_operands(folded, g_all, x, x_mask, kernel_size)
     z = torch.empty_like(x)
-    ld = x.new_empty((batch,))
+    ld = kernels.scratch(batch, x)
     zp = torch.empty_like(x)
     skipm = x.new_empty((batch, t, h))
     xs = x.new_empty((n_layers, batch, t, h))
     th = torch.empty_like(xs)
     sg = torch.empty_like(xs)
-    acts = x.new_empty((batch, t, h))
-    logsm = x.new_empty((batch, t, c // 2))
-    ld_part = x.new_empty((batch, c // 2))
+    acts = kernels.scratch(batch * t * h, x)
+    logsm = kernels.scratch(batch * t * (c // 2), x)
+    ld_part = kernels.scratch(batch * (c // 2), x)
     f = folded
     drop, threshold, scale = drop_args(p_dropout)
+    if x.dtype == bf16.BF16:  # the skip sum f32; no weight splits
+        skip = kernels.scratch(batch * t * h, x)
+        kernels.BLOCK_FWD_SAVE_BF16(
+            x, x_mask, f["A"], f["bA"], f["W_s"], f["b_s"], f["W_e"], f["b_e"],
+            f["W_in"], f["b_in"], f["W_rs"], f["b_rs"], g_all,
+            z, ld, zp, skipm, xs, th, sg, acts, skip, logsm, ld_part,
+            0 if g_all is None else n_layers * 2 * h,
+            batch, t, c, h, n_layers, kernel_size, dilation_rate, int(sigmoid_scale),
+            drop, int(seed), threshold, scale,
+        )
+        return z, ld, {"zp": zp, "skipm": skipm, "xs": xs, "th": th, "sg": sg}
     scratch = _fwd_scratch(x, h, n_layers, kernel_size)
     kernels.BLOCK_FWD_SAVE(
         x, x_mask, f["A"], f["bA"], f["W_s"], f["b_s"], f["W_e"], f["b_e"],
@@ -419,9 +508,13 @@ def _backward_operands(folded: dict, x: torch.Tensor, with_g: bool, kernel_size:
     grads = {"dx": torch.empty_like(x)}
     grads.update({"d" + k: torch.empty_like(folded[k]) for k in FOLD_KEYS})
     grads["dg"] = x.new_empty((batch, n_layers, h2)) if with_g else None
-    scratch = x.new_empty((kernels.block_bwd_scratch_floats(
-        batch, t, c, h2 // 2, n_layers, kernel_size, recompute, with_g),))
-    return grads, scratch
+    if x.dtype == bf16.BF16:
+        floats = kernels.block_bwd_bf16_scratch_floats(
+            batch, t, c, h2 // 2, n_layers, kernel_size, with_g)
+    else:
+        floats = kernels.block_bwd_scratch_floats(
+            batch, t, c, h2 // 2, n_layers, kernel_size, recompute, with_g)
+    return grads, kernels.scratch(floats, x)
 
 
 def block_bwd_store(
@@ -442,7 +535,10 @@ def block_bwd_store(
     of every folded weight (keys ``dx`` and ``d<name>``, each shaped as
     its primal) and ``dg`` [b, L, 2h] when ``with_g``."""
     batch, t, c, h, n_layers = _check_train_operands(folded, None, x, x_mask, kernel_size)
-    kernels.check_operands(x.device, dz=dz, dld=dld, **saves)
+    bf = x.dtype == bf16.BF16
+    kernels.check_operands(
+        x.device, ("dz", "zp", "skipm", "xs", "th", "sg") if bf else (), dz=dz, dld=dld, **saves
+    )
     kernels.check_shape("dz", dz, x.shape)
     kernels.check_shape("dld", dld, (batch,))
     kernels.check_shape("xs", saves["xs"], (n_layers, batch, t, h))
@@ -450,7 +546,7 @@ def block_bwd_store(
     grads, scratch = _backward_operands(folded, x, with_g, kernel_size, False)
     drop, threshold, scale = drop_args(p_dropout)
     s = saves
-    kernels.BLOCK_BWD_STORE(
+    (kernels.BLOCK_BWD_STORE_BF16 if bf else kernels.BLOCK_BWD_STORE)(
         x, x_mask, f["A"], f["W_s"], f["W_e"], f["b_e"], f["W_in"], f["W_rs"],
         s["zp"], s["skipm"], s["xs"], s["th"], s["sg"], dz, dld,
         grads["dx"], *(grads["d" + k] for k in FOLD_KEYS), grads["dg"],
@@ -555,12 +651,18 @@ def block_forward(
     backward kernels."""
     check_residuals(residuals)
     if kernels.route(x) == "plain":
-        return block_forward_plain(
+        plain = block_forward_plain_bf16 if x.dtype == bf16.BF16 else block_forward_plain
+        return plain(
             folded, g_all, x, x_mask, kernel_size, dilation_rate, sigmoid_scale,
             p_dropout, seed,
         )
     args = (kernel_size, dilation_rate, bool(sigmoid_scale), float(p_dropout), int(seed))
+    bf = x.dtype == bf16.BF16
+    if bf and residuals != "store":
+        raise NotImplementedError("the bf16 flow block runs in store mode only")
     if not needs_grad(x, g_all, *folded.values()):
+        if bf:  # the one bf16 forward kernel: its saves are dropped
+            return block_fwd_save(folded, g_all, x, x_mask, *args)[:2]
         return block_fwd(folded, g_all, x, x_mask, *args)
     return FlowBlockTrain.apply(
         x, x_mask, g_all, (*args, residuals), *(folded[k] for k in FOLD_KEYS)

@@ -56,11 +56,15 @@ def _shifted(x: torch.Tensor, off: int) -> torch.Tensor:
     return F.pad(x[:, : t - s], (0, 0, s, 0))
 
 
+def im2col(x: torch.Tensor, taps: int, dilation: int = 1) -> torch.Tensor:
+    """x [b, t, c] gathered at ``offsets(taps, dilation)`` -> [b, t, taps *
+    c], tap-major columns: the gather the CUDA GEMM does while staging."""
+    return torch.cat([_shifted(x, o) for o in offsets(taps, dilation)], dim=-1)
+
+
 def conv_taps(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, taps: int, dilation: int = 1
 ) -> torch.Tensor:
-    """The kernels' conv: the im2col of x [b, t, c] at ``offsets(taps,
-    dilation)`` (tap-major columns) times a folded weight [taps * c, n],
-    plus b — the same gather the CUDA GEMM does while staging."""
-    cols = torch.cat([_shifted(x, o) for o in offsets(taps, dilation)], dim=-1)
-    return cols @ w + b.reshape(-1)
+    """The kernels' conv: the im2col of x [b, t, c] times a folded weight
+    [taps * c, n], plus b."""
+    return im2col(x, taps, dilation) @ w + b.reshape(-1)

@@ -44,8 +44,9 @@ import typing
 import torch
 
 from .. import kernels
+from . import bf16
 from .attention import attention_core
-from .conv import conv_taps
+from .conv import conv_taps, im2col
 from .norms import layer_norm_affine
 from .text_cuda import plain_grads
 from .wn_cuda import drop_args, site_dropout
@@ -53,30 +54,32 @@ from .wn_cuda import drop_args, site_dropout
 Params = typing.Dict[str, typing.Any]
 
 
-def fold_encoder_layer(layer: Params) -> tuple:
+def fold_encoder_layer(layer: Params, dtype: torch.dtype = torch.float32) -> tuple:
     """Layer params -> (wq, bq, wk, bk, wv, bv, wo, bo, rel_k [2w+1, d],
     rel_v, gamma1, beta1, gamma2, beta2, W1 [K*h, f], c1, W2 [K*f, h], c2);
-    1x1 weights [h, h], vectors [1, n].  Reshapes and casts only."""
+    1x1 weights [h, h], vectors [1, n].  Reshapes and casts only: the
+    weights and the rel-pos tables in ``dtype`` (``encoder_pallas.
+    fold_encoder_layer``), the vectors f32."""
     f32 = torch.float32
     at, ffn = layer["attn"], layer["ffn"]
 
     def cw(conv):
-        return conv["w"][0].to(f32).contiguous()
+        return conv["w"][0].to(dtype).contiguous()
 
     def vec(a):
         return a.to(f32).reshape(1, -1).contiguous()
 
     def ffn_w(conv):
         w = conv["w"]
-        return w.reshape(w.shape[0] * w.shape[1], -1).to(f32).contiguous()
+        return w.reshape(w.shape[0] * w.shape[1], -1).to(dtype).contiguous()
 
     return (
         cw(at["q"]), vec(at["q"]["b"]),
         cw(at["k"]), vec(at["k"]["b"]),
         cw(at["v"]), vec(at["v"]["b"]),
         cw(at["o"]), vec(at["o"]["b"]),
-        at["emb_rel_k"][0].to(f32).contiguous(),
-        at["emb_rel_v"][0].to(f32).contiguous(),
+        at["emb_rel_k"][0].to(dtype).contiguous(),
+        at["emb_rel_v"][0].to(dtype).contiguous(),
         vec(layer["norm_1"]["gamma"]), vec(layer["norm_1"]["beta"]),
         vec(layer["norm_2"]["gamma"]), vec(layer["norm_2"]["beta"]),
         ffn_w(ffn["conv_1"]), vec(ffn["conv_1"]["b"]),
@@ -152,6 +155,79 @@ def encoder_layer_plain(
     return layer_norm_affine(x1 + y2, g2, be2)
 
 
+def _band_matrix(qrel: torch.Tensor, t: int, window: int) -> torch.Tensor:
+    """[..., t, 2w+1] band coefficients -> [..., t, t] with element (i, j)
+    = qrel[i, j - i + w] on the band |j - i| <= w, 0 off it."""
+    idx = torch.arange(t, device=qrel.device)
+    off = idx[None, :] - idx[:, None] + window
+    valid = (off >= 0) & (off <= 2 * window)
+    full = qrel.gather(-1, off.clamp(0, 2 * window).expand(*qrel.shape[:-2], t, t))
+    return full * valid
+
+
+def _band_of(p: torch.Tensor, window: int) -> torch.Tensor:
+    """[..., t, t] -> its band [..., t, 2w+1]: element (i, o) = p[i, i + o
+    - w], 0 where that key is outside [0, t)."""
+    t = p.shape[-1]
+    col = (torch.arange(t, device=p.device)[:, None]
+           + torch.arange(2 * window + 1, device=p.device)[None, :] - window)
+    valid = (col >= 0) & (col < t)
+    return p.gather(-1, col.clamp(0, t - 1).expand(*p.shape[:-2], t, 2 * window + 1)) * valid
+
+
+def encoder_layer_plain_bf16(
+    weights: tuple, x: torch.Tensor, x_mask: torch.Tensor, n_heads: int,
+    window_size: int, p_dropout: float = 0.0, seed: int = 0,
+    gates: typing.Optional[typing.Sequence[torch.Tensor]] = None,
+    saves: typing.Optional[dict] = None,
+) -> torch.Tensor:
+    """Plain version of :func:`encoder_layer` in bf16 (x and the Q/K/V,
+    output, rel-pos and FFN weights bf16; encoder_pallas.py
+    ``_layer_fwd_math`` and ``_bwd_kernel`` with dtype bf16, ``pack``
+    1): q, k, v, the dropped probabilities, the heads' outputs and the
+    FFN's inputs rounded before their products, softmax, norms and the
+    rel-pos band terms in f32, the result bf16.  ``gates``/``saves`` as
+    :func:`encoder_layer_plain`."""
+    (wqkv, bqkv, wo, bo, rel_k, rel_v,
+     g1, be1, g2, be2, w1, c1, w2, c2), _ = _kernel_layout(weights)
+    wqkv, wo, rel_k, rel_v, w1, w2 = (a.float() for a in (wqkv, wo, rel_k, rel_v, w1, w2))
+    batch, t, h = x.shape
+    H = n_heads
+    d = h // H
+    taps = w1.shape[0] // h
+    n_sites = H + 3
+    scale = 1.0 / float(d) ** 0.5
+
+    def drop(a, site):
+        return site_dropout(a, seed, site, n_sites, p_dropout)
+
+    def heads(u):
+        return bf16.round_fwd(u.reshape(batch, t, H, d).transpose(1, 2))
+
+    m = x_mask[:, :, 0]
+    xm = bf16.round_fwd(x.float() * x_mask)
+    q, k, v = (bf16.product(xm, wqkv) + bqkv).split(h, dim=-1)
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    sc = bf16.scores(qh, kh, scale) + _band_matrix(qh @ rel_k.T, t, window_size) * scale
+    attend = (m[:, None, :, None] * m[:, None, None, :]) != 0
+    sc = torch.where(attend, sc, torch.full_like(sc, -1e4))
+    pd = drop(torch.softmax(sc, dim=-1), 0)
+    out_h = bf16.product(bf16.round_fwd(pd), vh) + _band_of(pd, window_size) @ rel_v
+    att = bf16.round_fwd(out_h).transpose(1, 2).reshape(batch, t, h)
+    x1 = layer_norm_affine(xm + drop(bf16.product(att, wo) + bo, H), g1, be1)
+    a_in = bf16.round_fwd(x1 * x_mask)
+    pre = bf16.product(im2col(a_in, taps), w1) + c1
+    if gates is not None:
+        r = pre * gates[0] * drop_args(p_dropout)[2]
+    else:
+        r = drop(torch.relu(pre), H + 1)
+    if saves is not None:
+        saves["pre"], saves["gates"] = [pre.detach()], [(r * x_mask).detach() > 0]
+    rm = bf16.round_fwd(r * x_mask)
+    y2 = drop((bf16.product(im2col(rm, taps), w2) + c2) * x_mask, H + 2)
+    return layer_norm_affine(x1 + y2, g2, be2).to(bf16.BF16)
+
+
 def _check_layer(weights, x, x_mask, n_heads, window_size):
     (wqkv, bqkv, wo, bo, rel_k, rel_v, g1, be1, g2, be2, w1, c1, w2, c2) = weights
     batch, t, h = x.shape
@@ -164,7 +240,9 @@ def _check_layer(weights, x, x_mask, n_heads, window_size):
             f"128, and window <= 16; got {d} and {window_size}"
         )
     kernels.check_operands(
-        x.device, x=x, x_mask=x_mask, wqkv=wqkv, bqkv=bqkv,
+        x.device,
+        ("x", "wqkv", "wo", "rel_k", "rel_v", "w1", "w2") if x.dtype == bf16.BF16 else (),
+        x=x, x_mask=x_mask, wqkv=wqkv, bqkv=bqkv,
         wo=wo, bo=bo, rel_k=rel_k, rel_v=rel_v, g1=g1, be1=be1, g2=g2, be2=be2,
         w1=w1, c1=c1, w2=w2, c2=c2,
     )
@@ -189,14 +267,16 @@ def encoder_layer(
     (unmasked, like the JAX layer; the stack masks its output); with
     ``p_dropout`` > 0 the keep masks of ``seed``."""
     if kernels.route(x) == "plain":
-        return encoder_layer_plain(weights, x, x_mask, n_heads, window_size, p_dropout, seed)
+        plain = encoder_layer_plain_bf16 if x.dtype == bf16.BF16 else encoder_layer_plain
+        return plain(weights, x, x_mask, n_heads, window_size, p_dropout, seed)
     weights, _ = _kernel_layout(weights)
     batch, t, h, d, f, taps = _check_layer(weights, x, x_mask, n_heads, window_size)
+    bf = x.dtype == bf16.BF16
     out = torch.empty_like(x)
-    floats = kernels.encoder_scratch_floats(batch, t, h, n_heads, window_size, f, taps, False)
-    scratch = x.new_empty((floats,))
+    floats = kernels.encoder_scratch_floats(batch, t, h, n_heads, window_size, f, taps, False, bf)
+    scratch = kernels.scratch(floats, x)
     drop, threshold, scale = drop_args(p_dropout)
-    kernels.ENCODER_LAYER(
+    (kernels.ENCODER_LAYER_BF16 if bf else kernels.ENCODER_LAYER)(
         x, x_mask, *weights, out, scratch, floats,
         batch, t, h, n_heads, window_size, f, taps, drop, int(seed), threshold, scale,
     )
@@ -211,10 +291,9 @@ def encoder_layer_bwd_plain(
     """Plain version of :func:`encoder_layer_bwd`: autograd of
     :func:`encoder_layer_plain` with the same keep masks (at the given
     ``gates``, if any)."""
+    plain = encoder_layer_plain_bf16 if x.dtype == bf16.BF16 else encoder_layer_plain
     return plain_grads(
-        lambda w, xx: encoder_layer_plain(
-            w, xx, x_mask, n_heads, window_size, p_dropout, seed, gates, saves
-        ),
+        lambda w, xx: plain(w, xx, x_mask, n_heads, window_size, p_dropout, seed, gates, saves),
         weights, x, dout,
     )
 
@@ -234,15 +313,16 @@ def encoder_layer_bwd(
         )
     weights, split = _kernel_layout(weights)
     batch, t, h, d, f, taps = _check_layer(weights, x, x_mask, n_heads, window_size)
-    kernels.check_operands(x.device, dout=dout)
+    bf = x.dtype == bf16.BF16
+    kernels.check_operands(x.device, ("dout",) if bf else (), dout=dout)
     kernels.check_shape("dout", dout, x.shape)
     grads = tuple(torch.empty_like(a) for a in (x, *weights))
     out = torch.empty_like(x)
-    ffn = x.new_empty((batch, t, f))
-    floats = kernels.encoder_scratch_floats(batch, t, h, n_heads, window_size, f, taps, True)
-    scratch = x.new_empty((floats,))
+    ffn = kernels.scratch(batch * t * f, x).reshape(batch, t, f)
+    floats = kernels.encoder_scratch_floats(batch, t, h, n_heads, window_size, f, taps, True, bf)
+    scratch = kernels.scratch(floats, x)
     drop, threshold, scale = drop_args(p_dropout)
-    kernels.ENCODER_LAYER_BWD(
+    (kernels.ENCODER_LAYER_BWD_BF16 if bf else kernels.ENCODER_LAYER_BWD)(
         x, x_mask, *weights, dout, *grads, out, ffn, scratch, floats,
         batch, t, h, n_heads, window_size, f, taps, drop, int(seed), threshold, scale,
     )

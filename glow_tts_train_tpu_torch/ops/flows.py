@@ -41,7 +41,7 @@ def squeeze(
     t_trunc = (t // n_sqz) * n_sqz
     x_sqz = x[:, :t_trunc].reshape(b, t_trunc // n_sqz, n_sqz * c)
     x_mask = x_mask[:, n_sqz - 1 :: n_sqz]
-    return x_sqz * x_mask, x_mask
+    return (x_sqz * x_mask).to(x.dtype), x_mask
 
 
 def unsqueeze(
@@ -51,7 +51,7 @@ def unsqueeze(
     b, t, c = x.shape
     x_unsqz = x.reshape(b, t * n_sqz, c // n_sqz)
     x_mask = torch.repeat_interleave(x_mask, n_sqz, dim=1)
-    return x_unsqz * x_mask, x_mask
+    return (x_unsqz * x_mask).to(x.dtype), x_mask
 
 
 def decoder_store_inverse(blocks: Params, n_layers: int, n_split: int):
@@ -228,12 +228,16 @@ def decoder_fwd(
     :func:`coupling_apply`).  Dropout is on when ``seed_generator`` (a CPU
     generator) is given and ``p_dropout`` > 0: each block draws its int32
     seed from it, in either form (JAX draws it from its rng, a different
-    stream)."""
+    stream).  x bf16 (``fp16_run``): the fused blocks in bf16 (their
+    product weights and conditioning folded to bf16, as
+    ``block_pallas.fold_blocks_stacked`` does), logdet f32."""
     x, x_mask = squeeze(x, x_mask, n_sqz)
     x_mask = x_mask.contiguous()
     drop = seed_generator is not None and p_dropout > 0.0
     p_dropout = p_dropout if drop else 0.0
     n_blocks = blocks["actnorm"]["logs"].shape[0]
+    if x.dtype != torch.float32 and not (block_fuse and wn_residuals == "store"):
+        raise NotImplementedError("bf16 runs the flow blocks fused, in store mode, only")
     if not block_fuse:
         logdet = 0.0
         for i in range(n_blocks):
@@ -252,7 +256,7 @@ def decoder_fwd(
     c = x.shape[-1]
     x_len = torch.sum(x_mask.to(torch.float32), dim=(1, 2))
     folded, logs_sum, logabsdet, g_all = block_cuda.fold_blocks_stacked(
-        blocks, n_layers, n_split, g, hidden_channels
+        blocks, n_layers, n_split, g, hidden_channels, x.dtype
     )
     logdet = torch.zeros_like(x_len)
     for i, fold in enumerate(folded):

@@ -53,8 +53,9 @@ import typing
 import torch
 
 from .. import kernels
+from . import bf16
 from .attention import dropout
-from .conv import conv1d, conv_taps
+from .conv import conv1d, conv_taps, im2col
 from .norms import layer_norm_affine
 from .wn_cuda import drop_args, site_dropout
 
@@ -64,31 +65,33 @@ Params = typing.Dict[str, typing.Any]
 MAX_PRENET_LAYERS = 7
 
 
-def prenet_weights(params: Params) -> tuple:
+def prenet_weights(params: Params, dtype: torch.dtype = torch.float32) -> tuple:
     """Prenet params -> (W [L, K*h, h], b [L, h], gamma [L, h], beta [L, h],
-    W_proj [h, h], b_proj [1, h])."""
+    W_proj [h, h], b_proj [1, h]); the two product weights in ``dtype``
+    (``text_pallas.prenet_weights``), the vectors f32."""
     layers = params["layers"]
     L, K, h = layers["conv"]["w"].shape[:3]
     f32 = torch.float32
     return (
-        layers["conv"]["w"].reshape(L, K * h, -1).to(f32).contiguous(),
+        layers["conv"]["w"].reshape(L, K * h, -1).to(dtype).contiguous(),
         layers["conv"]["b"].to(f32).contiguous(),
         layers["norm"]["gamma"].to(f32).contiguous(),
         layers["norm"]["beta"].to(f32).contiguous(),
-        params["proj"]["w"][0].to(f32).contiguous(),
+        params["proj"]["w"][0].to(dtype).contiguous(),
         params["proj"]["b"].to(f32).reshape(1, -1).contiguous(),
     )
 
 
-def dp_weights(params: Params) -> tuple:
+def dp_weights(params: Params, dtype: torch.dtype = torch.float32) -> tuple:
     """Duration-predictor params -> (W1 [K*c, f], b1, gamma1, beta1,
-    W2 [K*f, f], b2, gamma2, beta2), vectors as [1, f]."""
+    W2 [K*f, f], b2, gamma2, beta2), vectors as [1, f]; the conv weights in
+    ``dtype`` (``text_pallas.dp_weights``), the vectors f32."""
     f32 = torch.float32
 
     def conv(p):
         w = p["w"]
         return (
-            w.reshape(w.shape[0] * w.shape[1], -1).to(f32).contiguous(),
+            w.reshape(w.shape[0] * w.shape[1], -1).to(dtype).contiguous(),
             p["b"].to(f32).reshape(1, -1).contiguous(),
         )
 
@@ -152,13 +155,53 @@ def prenet_plain(
     return (x + cur @ wp + bp) * x_mask
 
 
+def prenet_plain_bf16(
+    weights: tuple,
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    p_dropout: float = 0.0,
+    seed: int = 0,
+    gates: typing.Optional[typing.Sequence[torch.Tensor]] = None,
+    saves: typing.Optional[dict] = None,
+) -> torch.Tensor:
+    """Plain version of :func:`prenet` in bf16 (x and the conv and
+    projection weights bf16; text_pallas.py ``_prenet_fwd_math`` and
+    ``_prenet_bwd_kernel`` with dtype bf16): each conv input rounded, the
+    products in f32 from bf16 operands, LayerNorm, ReLU and dropout in f32,
+    each layer's output rounded; the result bf16.  ``gates``/``saves`` as
+    :func:`prenet_plain`."""
+    w, b, gamma, beta, wp, bp = weights
+    w, wp = w.float(), wp.float()
+    taps = w.shape[1] // x.shape[-1]
+    n_layers = w.shape[0]
+    x32 = x.float()
+    cur = x32
+    for l in range(n_layers):
+        xm = bf16.round_fwd(cur * x_mask)
+        pre = bf16.product(im2col(xm, taps), w[l]) + b[l]
+        y = layer_norm_affine(pre, gamma[l], beta[l])
+        if gates is not None:
+            out = y * gates[l] * drop_args(p_dropout)[2]
+        else:
+            out = site_dropout(torch.relu(y), seed, l, n_layers, p_dropout)
+        _record(saves, y, out)
+        cur = bf16.round_fwd(out)
+    return ((x32 + bf16.product(cur, wp) + bp) * x_mask).to(bf16.BF16)
+
+
+def _bf16_names(x: torch.Tensor, names: tuple) -> tuple:
+    """The operands that are bf16 in a bf16 call (x's dtype), none in f32."""
+    return names if x.dtype == bf16.BF16 else ()
+
+
 def _check_prenet(weights, x, x_mask):
     w, b, gamma, beta, wp, bp = weights
     batch, t, h = x.shape
     L = w.shape[0]
     taps = w.shape[1] // h
     kernels.check_operands(
-        x.device, x=x, x_mask=x_mask, w=w, b=b, gamma=gamma, beta=beta, wp=wp, bp=bp
+        x.device, _bf16_names(x, ("x", "w", "wp")),
+        x=x, x_mask=x_mask, w=w, b=b, gamma=gamma, beta=beta, wp=wp, bp=bp,
     )
     kernels.check_shape("x_mask", x_mask, (batch, t, 1))
     kernels.check_shape("w", w, (L, taps * h, h))
@@ -175,12 +218,15 @@ def prenet(
     """ConvReluNorm prenet, x [b, t, h], x_mask [b, t, 1] -> [b, t, h];
     with ``p_dropout`` > 0 the keep masks of ``seed``."""
     if kernels.route(x) == "plain":
+        if x.dtype == bf16.BF16:
+            return prenet_plain_bf16(weights, x, x_mask, p_dropout, seed)
         return prenet_plain(weights, x, x_mask, p_dropout, seed=seed)
     batch, t, h, L, taps = _check_prenet(weights, x, x_mask)
     out = torch.empty_like(x)
-    scratch = x.new_empty((kernels.prenet_scratch_floats(batch, t, h, L, taps, False),))
+    scratch = kernels.scratch(kernels.prenet_scratch_floats(batch, t, h, L, taps, False), x)
     drop, threshold, scale = drop_args(p_dropout)
-    kernels.PRENET(
+    entry = kernels.PRENET_BF16 if x.dtype == bf16.BF16 else kernels.PRENET
+    entry(
         x, x_mask, *weights, out, scratch, scratch.numel(), batch, t, h, L, taps,
         drop, int(seed), threshold, scale,
     )
@@ -193,10 +239,13 @@ def prenet_bwd_plain(
 ) -> tuple:
     """Plain version of :func:`prenet_bwd`: autograd of :func:`prenet_plain`
     with the same keep masks (at the given ``gates``, if any)."""
-    return plain_grads(
-        lambda w, xx: prenet_plain(w, xx, x_mask, p_dropout, seed=seed, gates=gates, saves=saves),
-        weights, x, dout,
-    )
+    if x.dtype == bf16.BF16:
+        def fn(w, xx):
+            return prenet_plain_bf16(w, xx, x_mask, p_dropout, seed, gates, saves)
+    else:
+        def fn(w, xx):
+            return prenet_plain(w, xx, x_mask, p_dropout, seed=seed, gates=gates, saves=saves)
+    return plain_grads(fn, weights, x, dout)
 
 
 def prenet_bwd(
@@ -210,14 +259,15 @@ def prenet_bwd(
     if kernels.route(x) == "plain":
         return prenet_bwd_plain(weights, x, x_mask, dout, p_dropout, seed, saves=saves)
     batch, t, h, L, taps = _check_prenet(weights, x, x_mask)
-    kernels.check_operands(x.device, dout=dout)
+    kernels.check_operands(x.device, _bf16_names(x, ("dout",)), dout=dout)
     kernels.check_shape("dout", dout, x.shape)
     grads = tuple(torch.empty_like(a) for a in (x, *weights))
     out = torch.empty_like(x)
-    cur = x.new_empty((max(L, 1), batch, t, h))
-    scratch = x.new_empty((kernels.prenet_scratch_floats(batch, t, h, L, taps, True),))
+    cur = kernels.scratch(max(L, 1) * batch * t * h, x).reshape(max(L, 1), batch, t, h)
+    scratch = kernels.scratch(kernels.prenet_scratch_floats(batch, t, h, L, taps, True), x)
     drop, threshold, scale = drop_args(p_dropout)
-    kernels.PRENET_BWD(
+    entry = kernels.PRENET_BWD_BF16 if x.dtype == bf16.BF16 else kernels.PRENET_BWD
+    entry(
         x, x_mask, *weights, dout, *grads, out, cur, scratch, scratch.numel(),
         batch, t, h, L, taps, drop, int(seed), threshold, scale,
     )
@@ -284,14 +334,38 @@ def duration_stack_plain(
     return cur
 
 
+def duration_stack_plain_bf16(
+    weights: tuple,
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    p_dropout: float = 0.0,
+    seed: int = 0,
+    gates: typing.Optional[typing.Sequence[torch.Tensor]] = None,
+    saves: typing.Optional[dict] = None,
+) -> torch.Tensor:
+    """Plain version of :func:`duration_stack` in bf16 (text_pallas.py
+    ``_dp_fwd_math`` and ``_dp_bwd_kernel`` with dtype bf16): as
+    :func:`prenet_plain_bf16`, ReLU before the norm."""
+    w1, b1, g1, be1, w2, b2, g2, be2 = weights
+    taps = w1.shape[0] // x.shape[-1]
+    cur = x.float()
+    for l, (w, b, g, be) in enumerate(((w1, b1, g1, be1), (w2, b2, g2, be2))):
+        xm = bf16.round_fwd(cur * x_mask)
+        pre = bf16.product(im2col(xm, taps), w.float()) + b.reshape(-1)
+        r = pre * gates[l] if gates is not None else torch.relu(pre)
+        _record(saves, pre, r)
+        cur = bf16.round_fwd(site_dropout(layer_norm_affine(r, g, be), seed, l, 2, p_dropout))
+    return cur.to(bf16.BF16)
+
+
 def _check_duration(weights, x, x_mask):
     w1, b1, g1, be1, w2, b2, g2, be2 = weights
     batch, t, c = x.shape
     taps = w1.shape[0] // c
     f = w1.shape[1]
     kernels.check_operands(
-        x.device, x=x, x_mask=x_mask, w1=w1, b1=b1, g1=g1, be1=be1,
-        w2=w2, b2=b2, g2=g2, be2=be2,
+        x.device, _bf16_names(x, ("x", "w1", "w2")), x=x, x_mask=x_mask, w1=w1, b1=b1,
+        g1=g1, be1=be1, w2=w2, b2=b2, g2=g2, be2=be2,
     )
     kernels.check_shape("x_mask", x_mask, (batch, t, 1))
     kernels.check_shape("w1", w1, (taps * c, f))
@@ -306,12 +380,15 @@ def duration_stack(
     """Duration-predictor conv stack, x [b, t, c] -> [b, t, f]; with
     ``p_dropout`` > 0 the keep masks of ``seed``."""
     if kernels.route(x) == "plain":
+        if x.dtype == bf16.BF16:
+            return duration_stack_plain_bf16(weights, x, x_mask, p_dropout, seed)
         return duration_stack_plain(weights, x, x_mask, p_dropout, seed=seed)
     batch, t, c, f, taps = _check_duration(weights, x, x_mask)
     out = x.new_empty((batch, t, f))
-    scratch = x.new_empty((kernels.duration_scratch_floats(batch, t, c, f, taps, False),))
+    scratch = kernels.scratch(kernels.duration_scratch_floats(batch, t, c, f, taps, False), x)
     drop, threshold, scale = drop_args(p_dropout)
-    kernels.DURATION_STACK(
+    entry = kernels.DURATION_STACK_BF16 if x.dtype == bf16.BF16 else kernels.DURATION_STACK
+    entry(
         x, x_mask, *weights, out, scratch, scratch.numel(), batch, t, c, f, taps,
         drop, int(seed), threshold, scale,
     )
@@ -325,12 +402,15 @@ def duration_stack_bwd_plain(
     """Plain version of :func:`duration_stack_bwd`: autograd of
     :func:`duration_stack_plain` with the same keep masks (at the given
     ``gates``, if any)."""
-    return plain_grads(
-        lambda w, xx: duration_stack_plain(
-            w, xx, x_mask, p_dropout, seed=seed, gates=gates, saves=saves
-        ),
-        weights, x, dout,
-    )
+    if x.dtype == bf16.BF16:
+        def fn(w, xx):
+            return duration_stack_plain_bf16(w, xx, x_mask, p_dropout, seed, gates, saves)
+    else:
+        def fn(w, xx):
+            return duration_stack_plain(
+                w, xx, x_mask, p_dropout, seed=seed, gates=gates, saves=saves
+            )
+    return plain_grads(fn, weights, x, dout)
 
 
 def duration_stack_bwd(
@@ -345,14 +425,16 @@ def duration_stack_bwd(
     if kernels.route(x) == "plain":
         return duration_stack_bwd_plain(weights, x, x_mask, dout, p_dropout, seed, saves=saves)
     batch, t, c, f, taps = _check_duration(weights, x, x_mask)
-    kernels.check_operands(x.device, dout=dout)
+    kernels.check_operands(x.device, _bf16_names(x, ("dout",)), dout=dout)
     kernels.check_shape("dout", dout, (batch, t, f))
     grads = tuple(torch.empty_like(a) for a in (x, *weights))
     out = x.new_empty((batch, t, f))
-    relu = x.new_empty((2, batch, t, f))
-    scratch = x.new_empty((kernels.duration_scratch_floats(batch, t, c, f, taps, True),))
+    relu = kernels.scratch(2 * batch * t * f, x).reshape(2, batch, t, f)
+    scratch = kernels.scratch(kernels.duration_scratch_floats(batch, t, c, f, taps, True), x)
     drop, threshold, scale = drop_args(p_dropout)
-    kernels.DURATION_STACK_BWD(
+    bf = x.dtype == bf16.BF16
+    entry = kernels.DURATION_STACK_BWD_BF16 if bf else kernels.DURATION_STACK_BWD
+    entry(
         x, x_mask, *weights, dout, *grads, out, relu, scratch, scratch.numel(),
         batch, t, c, f, taps, drop, int(seed), threshold, scale,
     )

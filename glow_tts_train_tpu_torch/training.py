@@ -14,8 +14,12 @@ op.  The decoder runs in the mode the config picks
 (``models.hyper_from_config``): ``flow_block_fuse`` (each block one kernel
 pair, the default) or op by op around the WN stack's kernels, with
 ``wn_residuals`` "store" (the default) or "recompute" (a block's residuals
-live only inside its backward).  Not ported yet, and refused with the
-ROADMAP item named by title: ``fp16_run`` (bf16 compute).  Checkpoints
+live only inside its backward).  ``fp16_run`` computes in bf16 as the
+JAX package does (bf16 activations and product operands, f32 params,
+gradients, Adam state, logdet, logp/MAS and losses) in the default mode;
+with ``encoder_fuse: false``, ``flow_block_fuse: false`` or
+``wn_residuals: "recompute"`` it is refused, naming the ROADMAP item by
+title (bf16 in the other training modes).  Checkpoints
 carry the Adam state (``checkpoint.save_checkpoint``), and ``profile_dir``
 writes a ``torch.profiler`` trace of steps 5-15.
 """
@@ -99,14 +103,25 @@ def initialize_model(config, batch: dict, device) -> GlowTTS:
 
 def check_trainable(config) -> None:
     """Refuse what this trainer does not do yet, naming the ROADMAP item
-    (``NotImplementedError``), and a decoder-mode key (``wn_impl``,
+    (``NotImplementedError``: ``fp16_run`` in a mode other than the
+    default one), and a decoder-mode key (``wn_impl``,
     ``wn_residuals``, ``flow_block_fuse``, ``flow_block_fuse_reverse``)
     whose value it cannot honour (``ValueError``)."""
-    hyper_from_config(config)
+    hp = hyper_from_config(config)
     if config.fp16_run:
-        raise NotImplementedError(
-            "fp16_run is not ported yet (ROADMAP, queue 1: bf16 training); set fp16_run to false"
-        )
+        others = [
+            name for name, off in (
+                ("encoder_fuse false", not hp.encoder_fuse),
+                ("flow_block_fuse false", not hp.block_fuse),
+                ("wn_residuals \"recompute\"", hp.wn_residuals != "store"),
+            ) if off
+        ]
+        if others:
+            raise NotImplementedError(
+                f"fp16_run with {', '.join(others)} is not ported yet (ROADMAP, queue 1: "
+                "bf16 in the other training modes); bf16 trains with encoder_fuse, "
+                "flow_block_fuse and wn_residuals at \"auto\""
+            )
     if config.checkpoint_format != "npz":
         raise ValueError(
             f"checkpoint_format {config.checkpoint_format!r}: this trainer writes .npz "
@@ -133,13 +148,16 @@ def make_train_step(config):
     accum = max(1, int(getattr(config, "grad_accum_steps", 1) or 1))
     n_sqz, n_mel = config.model.n_sqz, config.audio.mel_channels
     half_log_2pi = 0.5 * math.log(2.0 * math.pi)
+    # the JAX package's compute dtype (training.py: bf16 under fp16_run);
+    # params, gradients, Adam state, logdet, logp/MAS and the losses stay f32
+    compute_dtype = torch.bfloat16 if config.fp16_run else torch.float32
 
     def losses(params, batch, generator, seed_generator):
         g_ids = batch.get("speaker_ids") if multispeaker else None
         (z, z_m, z_logs, logdet, z_mask), _, (_, logw, logw_) = forward_train(
             unflatten(params), hp, batch["x"], batch["x_lengths"], batch["y"],
             batch["y_lengths"], g_ids=g_ids, generator=generator,
-            seed_generator=seed_generator,
+            seed_generator=seed_generator, compute_dtype=compute_dtype,
         )
         return mle_loss(z, z_m, z_logs, logdet, z_mask), duration_loss(logw, logw_, batch["x_lengths"])
 

@@ -1618,3 +1618,166 @@ def test_tma_conv_matches_float64_and_the_tap_staged_bits(dev, name):
     assert (counts["tc_gemm"], counts["tma_gemm"]) == (1, 1)
     assert torch.equal(fwd, tc_gemm.conv_product_fwd(a, w, taps, dilation, "tma",
                                                      tc_gemm.TMA_TILE_ROWS, tc_gemm.TMA_CLUSTER))
+
+
+# ---------------------------------------------------------------------------
+# bf16 (fp16_run): each bf16 kernel against its plain bf16 version
+# ---------------------------------------------------------------------------
+
+# relative to max |ref| of each output and gradient: both versions round to
+# bf16 where the JAX kernels do, and differ where an f32 sum in another
+# order rounds to the neighbouring bf16 value (chip_smoke.BF16_KERNEL_RTOL)
+BF16_RTOL = 2e-2
+BF16 = torch.bfloat16
+# device products of one call of each bf16 kernel at base width: every
+# product on the bf16 tensor-core kernels but the block's folded A, which
+# stays on the CUDA cores
+BF16_PRODUCTS = {
+    "prenet": (4, 0, 0), "prenet_bwd": (8, 4, 0), "duration_stack": (2, 0, 0),
+    "duration_stack_bwd": (4, 2, 0), "encoder_layer": (4, 0, 0), "encoder_layer_bwd": (8, 4, 0),
+    "block_fwd_save": (10, 0, 1), "block_bwd_store": (12, 11, 0),
+}
+
+
+def _bf16_held(name, port, ref):
+    port, ref = port.float(), ref.float()
+    scale = ref.abs().max().item()
+    assert scale > 0, f"{name}: zero in the plain version"
+    err = (port - ref).abs().max().item()
+    assert err <= BF16_RTOL * scale, f"{name}: {err} vs max |ref| {scale}"
+
+
+def _bf16_products(fn):
+    kernels.product_counts(reset=True)
+    out = fn()
+    torch.cuda.synchronize()
+    c = kernels.product_counts(reset=True)
+    return out, (c["bf16_gemm"], c["bf16_wgrad"], c["core_gemm"])
+
+
+def _bf16_text_inputs(dev, width, t=64, b=4, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.tensor([t, t - 9, t // 2, 5])[:b]
+    mask = (torch.arange(t)[None, :] < lengths[:, None]).float()[..., None]
+    x = (torch.randn(b, t, width, generator=g) * mask).to(BF16)
+    return x.to(dev), mask.to(dev), g
+
+
+@pytest.mark.parametrize("name", ["prenet", "duration_stack", "encoder_layer"])
+def test_bf16_text_kernels_match_plain(dev, name):
+    """The text side's bf16 kernels at base width (h 192, f 768, f_dp 256)
+    against their plain bf16 versions on the card, dropout on: the
+    forward's output, the backward's dx and weight gradients at the
+    kernel's own ReLU gates, each within BF16_RTOL of its max; the
+    gradients of bf16 weights come back bf16; every product on the bf16
+    kernels (BF16_PRODUCTS)."""
+    h, f, f_dp, heads, window = 192, 768, 256, 2, 4
+    x, mask, g = _bf16_text_inputs(dev, h)
+
+    def r(*shape, scale=1.0, off=0.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g) * scale + off).to(dtype).to(dev)
+
+    if name == "prenet":
+        weights = (r(3, 5 * h, h, scale=(5 * h) ** -0.5, dtype=BF16), r(3, h, scale=0.1),
+                   r(3, h, scale=0.1, off=1.0), r(3, h, scale=0.1),
+                   r(h, h, scale=h ** -0.5, dtype=BF16), r(1, h, scale=0.1))
+        cfg = (0.5, 11)
+        fwd, plain, bwd, plain_bwd = (text_cuda.prenet, text_cuda.prenet_plain_bf16,
+                                      text_cuda.prenet_bwd, text_cuda.prenet_bwd_plain)
+        out_width = h
+    elif name == "duration_stack":
+        weights = (r(3 * h, f_dp, scale=(3 * h) ** -0.5, dtype=BF16), r(1, f_dp, scale=0.1),
+                   r(1, f_dp, scale=0.1, off=1.0), r(1, f_dp, scale=0.1),
+                   r(3 * f_dp, f_dp, scale=(3 * f_dp) ** -0.5, dtype=BF16),
+                   r(1, f_dp, scale=0.1), r(1, f_dp, scale=0.1, off=1.0), r(1, f_dp, scale=0.1))
+        cfg = (0.1, 12)
+        fwd, plain, bwd, plain_bwd = (text_cuda.duration_stack, text_cuda.duration_stack_plain_bf16,
+                                      text_cuda.duration_stack_bwd,
+                                      text_cuda.duration_stack_bwd_plain)
+        out_width = f_dp
+    else:
+        d = h // heads
+        weights = (r(h, 3 * h, scale=h ** -0.5, dtype=BF16), r(1, 3 * h, scale=0.1),
+                   r(h, h, scale=h ** -0.5, dtype=BF16), r(1, h, scale=0.1),
+                   r(2 * window + 1, d, scale=d ** -0.5, dtype=BF16),
+                   r(2 * window + 1, d, scale=d ** -0.5, dtype=BF16),
+                   r(1, h, scale=0.1, off=1.0), r(1, h, scale=0.1),
+                   r(1, h, scale=0.1, off=1.0), r(1, h, scale=0.1),
+                   r(3 * h, f, scale=(3 * h) ** -0.5, dtype=BF16), r(1, f, scale=0.1),
+                   r(3 * f, h, scale=(3 * f) ** -0.5, dtype=BF16), r(1, h, scale=0.1))
+        cfg = (heads, window, 0.1, 13)
+        fwd, plain, bwd, plain_bwd = (encoder_cuda.encoder_layer,
+                                      encoder_cuda.encoder_layer_plain_bf16,
+                                      encoder_cuda.encoder_layer_bwd,
+                                      encoder_cuda.encoder_layer_bwd_plain)
+        out_width = h
+    out, products = _bf16_products(lambda: fwd(weights, x, mask, *cfg))
+    assert out.dtype == BF16 and products == BF16_PRODUCTS[name]
+    _bf16_held(name, out, plain(weights, x, mask, *cfg))
+    dout = r(*x.shape[:2], out_width, dtype=BF16)
+    saves = {}
+    grads, products = _bf16_products(lambda: bwd(weights, x, mask, dout, *cfg, saves=saves))
+    assert products == BF16_PRODUCTS[name + "_bwd"]
+    ref = plain_bwd(weights, x, mask, dout, *cfg, gates=saves["gates"])
+    for i, (a, b) in enumerate(zip(grads, ref)):
+        assert a.dtype == b.dtype, i
+        _bf16_held(f"{name}_bwd [{i}]", a, b)
+
+
+def test_bf16_flow_block_matches_plain(dev):
+    """The flow block's bf16 forward-save and backward-store at base width
+    (c 160, h 192, 4 WN layers, taps 5) against the plain bf16 forward and
+    its autograd, dropout on: z, ld, dx and every folded weight's gradient
+    within BF16_RTOL of its max; the saves bf16; the products as
+    BF16_PRODUCTS says."""
+    torch.manual_seed(0)
+    c, h, L, taps = 160, 192, 4, 5
+    b, t = 4, 96
+    lengths = torch.tensor([t, t - 13, t // 2, 7])
+    mask = (torch.arange(t)[None, :] < lengths[:, None]).float()[..., None].to(dev)
+    x = (torch.randn(b, t, c, device=dev) * mask).to(BF16)
+    f32 = {"A": torch.eye(c) + 0.05 * torch.randn(c, c), "bA": 0.1 * torch.randn(1, c),
+           "W_s": torch.randn(c // 2, h) * (c // 2) ** -0.5, "b_s": 0.1 * torch.randn(1, h),
+           "W_e": 0.05 * torch.randn(h, c), "b_e": 0.05 * torch.randn(1, c),
+           "W_in": torch.randn(L, taps * h, 2 * h) * (taps * h) ** -0.5,
+           "b_in": 0.1 * torch.randn(L, 2 * h),
+           "W_rs": torch.randn(L, h, 2 * h) * h ** -0.5, "b_rs": 0.1 * torch.randn(L, 2 * h)}
+    f32["W_rs"][-1, :, :h] = 0.0
+    folded = {k: v.to(dev).to(BF16 if k in block_cuda.BF16_OPERANDS else torch.float32)
+              for k, v in f32.items()}
+    cfg = (taps, 1, False, 0.05, 21)
+    (z, ld, saves), products = _bf16_products(
+        lambda: block_cuda.block_fwd_save(folded, None, x, mask, *cfg))
+    assert products == BF16_PRODUCTS["block_fwd_save"]
+    assert z.dtype == BF16 and all(s.dtype == BF16 for s in saves.values())
+    z_p, ld_p = block_cuda.block_forward_plain_bf16(folded, None, x, mask, *cfg)
+    _bf16_held("z", z, z_p)
+    _bf16_held("ld", ld, ld_p)
+    dz = torch.randn(z.shape, device=dev).to(BF16)
+    dld = torch.randn(ld.shape, device=dev)
+    grads, products = _bf16_products(
+        lambda: block_cuda.block_bwd_store(folded, False, x, mask, saves, dz, dld, *cfg))
+    assert products == BF16_PRODUCTS["block_bwd_store"]
+    leaves = {k: v.detach().requires_grad_(True) for k, v in folded.items()}
+    xl = x.detach().requires_grad_(True)
+    zz, ll = block_cuda.block_forward_plain_bf16(leaves, None, xl, mask, *cfg)
+    ref = torch.autograd.grad((zz, ll), [xl, *leaves.values()], (dz, dld))
+    for name, r in zip(["dx"] + ["d" + k for k in leaves], ref):
+        assert grads[name].dtype == r.dtype, name
+        _bf16_held(name, grads[name], r)
+
+
+def test_bf16_refuses_what_it_does_not_take(dev):
+    """A bf16 call the kernels cannot take raises (no f32 detour): an f32
+    weight beside a bf16 x, and the block in recompute mode."""
+    x, mask, g = _bf16_text_inputs(dev, 16)
+    weights = text_cuda.prenet_weights({
+        "layers": {"conv": {"w": torch.randn(3, 5, 16, 16), "b": torch.zeros(3, 16)},
+                   "norm": {"gamma": torch.ones(3, 16), "beta": torch.zeros(3, 16)}},
+        "proj": {"w": torch.randn(1, 16, 16), "b": torch.zeros(16)},
+    })
+    weights = tuple(w.to(dev) for w in weights)
+    with pytest.raises(ValueError, match="bfloat16"):
+        text_cuda.prenet(weights, x, mask)
+    with pytest.raises(NotImplementedError):
+        block_cuda.block_forward({}, None, x, mask, 5, 1, residuals="recompute")

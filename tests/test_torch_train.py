@@ -301,9 +301,12 @@ def test_train_cli_fresh_init_with_ddi(corpus):
 
 
 def test_train_cli_cuda_without_gpu_and_unported_options_exit_non_zero(corpus, tmp_path):
-    """--platform cuda (the default) never drops to the CPU; fp16_run is
-    refused with the ROADMAP item named (by its title, "bf16 training"),
-    and grad_accum_steps > 1, refused until it was ported, trains."""
+    """--platform cuda (the default) never drops to the CPU; fp16_run
+    (refused until bf16 training was ported) trains in bf16 with the text
+    kernels and writes checkpoints the JAX loader reads; fp16_run in a mode
+    without bf16 kernels (``encoder_fuse: false``, the corpus config's) is
+    refused with the ROADMAP item named by its title; grad_accum_steps > 1,
+    refused until it was ported, trains."""
     probe = subprocess.run(
         [sys.executable, "-c", "import torch; print(torch.cuda.is_available())"],
         capture_output=True, text=True, env=_env(), timeout=120,
@@ -311,17 +314,35 @@ def test_train_cli_cuda_without_gpu_and_unported_options_exit_non_zero(corpus, t
     if probe.stdout.strip() != "True":
         proc = _train("glow_tts_train_tpu_torch", corpus, "nogpu")
         assert proc.returncode == 2 and "no CUDA device" in proc.stderr
-    for key, value, refused in (("fp16_run", True, True), ("grad_accum_steps", 2, False)):
-        override = tmp_path / f"{key}.json"
-        override.write_text(json.dumps({key: value}))
-        proc = _train("glow_tts_train_tpu_torch", corpus, key, "--platform", "cpu",
+    cases = (
+        ("fp16_run", {"fp16_run": True, "encoder_fuse": "auto"}, False),
+        ("fp16_run_op_by_op", {"fp16_run": True}, True),
+        ("grad_accum_steps", {"grad_accum_steps": 2}, False),
+    )
+    for tag, over, refused in cases:
+        override = tmp_path / f"{tag}.json"
+        override.write_text(json.dumps(over))
+        proc = _train("glow_tts_train_tpu_torch", corpus, tag, "--platform", "cpu",
                       "--config", str(override))
         if refused:
             assert proc.returncode == 2, proc.stderr[-2000:]
-            assert "ROADMAP, queue 1: bf16 training" in proc.stderr, proc.stderr[-2000:]
+            assert "ROADMAP, queue 1: bf16 in the other training modes" in proc.stderr, \
+                proc.stderr[-2000:]
         else:
             assert proc.returncode == 0 and "ROADMAP" not in proc.stderr, proc.stderr[-2000:]
-            assert len(open(corpus / f"{key}.jsonl").readlines()) == 2
+            lines = [json.loads(l) for l in open(corpus / f"{tag}.jsonl")]
+            assert len(lines) == 2 and all(np.isfinite(l["avg_loss"]) for l in lines)
+    # the bf16 run's last checkpoint through the JAX package's loader
+    ckpt = max((corpus / "fp16_run").glob("checkpoint_*.npz"),
+               key=lambda p: int(p.stem.split("_")[1]))
+    from glow_tts_train_tpu.config import TrainingConfig
+
+    config = TrainingConfig.load_and_merge(
+        TrainingConfig(), [corpus / "config.json", tmp_path / "fp16_run.json"])
+    assert config.fp16_run
+    loaded = jax_checkpoint.load_checkpoint(ckpt, config, load_optimizer=False)
+    flat = jax_checkpoint._flatten(loaded.params, "")
+    assert flat and all(np.isfinite(np.asarray(v)).all() for v in flat.values())
 
 
 @pytest.mark.parametrize("encoder_fuse", [True, "auto"])
