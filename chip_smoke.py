@@ -111,10 +111,14 @@ Phases, each fatal on failure:
     layers', the prenet's and the duration stack's forward and backward)
     and no f32 training kernel; 1 epoch, its checkpoint and 1 resumed
     epoch equal to the 2-epoch run bit for bit; one profiled bf16 step
-    (its products all on the bf16 kernels but the 12 folded-A products);
+    (its products all on the bf16 kernels but the 12 folded-A products,
+    every product of the flow block's chains on the TMA-fed wgmma ones);
     each bf16 kernel against its plain bf16 version on the last step's
     inputs within BF16_KERNEL_RTOL (backwards at the kernel's own ReLU
-    gates), timed, with its bound at the dense BF16 peak; then the bf16
+    gates), timed, its device time from a trace bracketed by spin
+    kernels, with its bound at the dense BF16 peak, the flow block's two
+    rows also with their products on the mma.sync kernels and on
+    the TMA-fed ones in turns; then the bf16
     step against the f32 step from one init, on the same batches and
     dropout seeds, step by step on the f32 step's alignment (losses within
     BF16_LOSS_RTOL, the grad norm within BF16_GRAD_NORM_RTOL, bf16's own
@@ -416,20 +420,26 @@ def bound(name: str, args, kwargs, outputs, fn=None) -> dict:
     }
 
 
+BF16_PRODUCT_KEYS = ("bf16_gemm", "bf16_wgrad", "bf16_tma_gemm", "bf16_tma_wgrad")
+
+
 def bf16_bound(name: str, args, kwargs, outputs, fn) -> dict:
     """``bound`` of a bf16 kernel (``<name>_bf16``): its products run on the
-    tensor cores in bf16 (``bf16_gemm``, ``bf16_wgrad``), so the operations'
-    time is at the dense BF16 peak; the bytes are its bf16 and f32
-    tensors as they are."""
+    tensor cores in bf16 (the mma.sync kernels, ``bf16_gemm`` and
+    ``bf16_wgrad``, or the TMA-fed wgmma ones, ``bf16_tma_gemm`` and
+    ``bf16_tma_wgrad``), so the operations' time is at the dense BF16 peak;
+    the bytes are its bf16 and f32 tensors as they are.  Its device time:
+    one call's operations in a trace bracketed by spin kernels."""
     roof = bound(name[: -len("_bf16")], args, kwargs, outputs, fn)
     products = roof.get("products") or {}
-    if not products.get("bf16_gemm", 0) + products.get("bf16_wgrad", 0):
+    if not sum(products.get(k, 0) for k in BF16_PRODUCT_KEYS):
         fail(f"{name}: no product ran on the bf16 kernels: {products}")
     by_flops = roof["flops"] / PEAK_BF16_FLOPS * 1e3
     by_bytes = roof["bytes"] / PEAK_BYTES_PER_S * 1e3
     roof["bound_ms"] = max(by_bytes, by_flops)
     roof["bound_by"] = "bytes" if by_bytes >= by_flops else "operations, bf16"
-    device, operations = device_profile(lambda: fn(*args, **kwargs))
+    ops = bracketed_trace(lambda: fn(*args, **kwargs), calls=1)
+    device, operations = sum(us for _, us in ops) / 1e3, len(ops)
     roof["device_operations"] = operations
     # below the bound: a trace short of records
     roof["device_ms"] = device if device is not None and device >= roof["bound_ms"] else None
@@ -2101,6 +2111,95 @@ def text_kernels(recorders: dict, launches: dict, entry) -> list:
     return forward_rows
 
 
+# the flow block's bf16 products alone (bf16 rows 10 and 12, base width) at
+# the bf16 run's batch shape: (name, c_in, taps, dilation, tap_sign, n, w_t)
+# for a conv-GEMM, (name, c_in, taps, dilation, n) for a weight gradient
+BF16_PRODUCT_ROWS = (32, 704)
+BF16_CONV_PRODUCTS = (
+    ("start", 80, 1, 1, 1, 192, False), ("in_conv_d1", 192, 5, 1, 1, 384, False),
+    ("res_skip", 192, 1, 1, 1, 384, False), ("coupling", 192, 1, 1, 1, 160, False),
+    ("coupling_bwd", 192, 1, 1, 1, 80, False), ("dskip", 160, 1, 1, 1, 192, True),
+    ("gate_bwd", 384, 1, 1, 1, 192, True), ("transposed_d1", 384, 5, 1, -1, 192, True),
+    ("dzp", 192, 1, 1, 1, 80, True), ("dx", 160, 1, 1, 1, 160, True),
+)
+BF16_WGRAD_PRODUCTS = (
+    ("dW_e", 192, 1, 1, 160), ("dW_rs", 192, 1, 1, 384), ("dW_in_d1", 192, 5, 1, 384),
+    ("dW_s", 80, 1, 1, 192), ("dA", 160, 1, 1, 160),
+)
+# a bare bf16 product against float64 of the same bf16 operands, relative to
+# max |ref|: f32 sums over K up to 1,920 (conv) or 22,528 rows (weight
+# gradient) in another order
+BF16_PRODUCT_RTOL = 1e-5
+
+
+def bf16_block_products(device_line: str) -> list:
+    """Each product of the flow block's bf16 rows alone (bare epilogue, f32
+    out, random bf16 operands from a seed) at BF16_PRODUCT_ROWS on the
+    mma.sync kernel and on the TMA-fed wgmma one: both against
+    float64 within BF16_PRODUCT_RTOL, then each one's device time (a
+    bracketed trace of 5 calls, the weight gradient's splits' sum
+    included; mma.sync, TMA, TMA, mma.sync) and TFLOP/s against the dense
+    BF16 peak (``product bf16`` lines)."""
+    import torch
+
+    from glow_tts_train_tpu_torch import kernels
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(13)
+    batch, t = BF16_PRODUCT_ROWS
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(torch.bfloat16).to(dev)
+
+    cases = []
+    for name, c_in, taps, dil, sign, n, w_t in BF16_CONV_PRODUCTS:
+        a = r(batch, t, c_in)
+        w = r(*((taps * n, c_in) if w_t else (taps * c_in, n)), scale=(taps * c_in) ** -0.5)
+        cases.append(("conv", name, [batch * t, taps * c_in, n],
+                      lambda u, a=a, w=w, taps=taps, dil=dil, sign=sign, w_t=w_t:
+                      tc_gemm.bf16_conv_product(a, w, taps, dil, sign, w_t, u),
+                      tc_gemm.conv_product_plain(a.double(), w.double(), taps, dil, sign, w_t=w_t)))
+    for name, c_in, taps, dil, n in BF16_WGRAD_PRODUCTS:
+        a, dy = r(batch, t, c_in), r(batch, t, n)
+        cases.append(("wgrad", name, [taps * c_in, batch * t, n],
+                      lambda u, a=a, dy=dy, taps=taps, dil=dil:
+                      tc_gemm.bf16_weight_gradient(a, dy, taps, dil, u),
+                      tc_gemm.weight_gradient_plain(a.double(), dy.double(), taps, dil)))
+    rows = []
+    for kind, name, shape, run, ref in cases:
+        scale = ref.abs().max().item()
+        errs = {}
+        for unit in ("mma", "tma"):
+            kernels.product_counts(reset=True)
+            out = run(unit)
+            torch.cuda.synchronize()
+            counts = kernels.product_counts(reset=True)
+            key = ("bf16_tma_" if unit == "tma" else "bf16_") + ("gemm" if kind == "conv" else "wgrad")
+            if counts[key] != 1:
+                fail(f"product bf16 {kind} {name}: {unit} counts {counts}")
+            errs[unit] = (out.double() - ref).abs().max().item()
+            if not (math.isfinite(errs[unit]) and errs[unit] <= BF16_PRODUCT_RTOL * scale):
+                fail(f"product bf16 {kind} {name} ({unit}): max abs err {errs[unit]} vs float64, "
+                     f"max |ref| {scale} (tolerance {BF16_PRODUCT_RTOL} relative)")
+        us = {"mma": [], "tma": []}
+        for unit in ("mma", "tma", "tma", "mma"):
+            ops = bracketed_trace(lambda: run(unit), calls=5)
+            us[unit].append(sum(op_us for _, op_us in ops) / 5)
+        flops = 2.0 * shape[0] * shape[1] * shape[2]
+        row = {"kernel": "bf16_" + kind, "name": name, "shape": shape, "max_abs_ref": scale,
+               "max_abs_err_f64": errs, "device_us": {u: min(v) for u, v in us.items()},
+               "device_us_turns": us}
+        row["tflops"] = {u: flops / (v * 1e-6) / 1e12 for u, v in row["device_us"].items()}
+        print(f"product bf16 {kind} {name} {shape}: err (max |ref| {scale:.3g}) mma.sync "
+              f"{errs['mma']:.2e}, TMA {errs['tma']:.2e}; device us mma.sync "
+              f"{row['device_us']['mma']:.1f}, TMA {row['device_us']['tma']:.1f} (turns {us}); "
+              f"TFLOP/s mma.sync {row['tflops']['mma']:.1f}, TMA {row['tflops']['tma']:.1f} of "
+              f"{PEAK_BF16_FLOPS / 1e12:.0f} [{device_line}]")
+        rows.append(row)
+    return rows
+
+
 # a bf16 kernel against its plain bf16 version on the same inputs, relative
 # to max |ref| of each output and gradient: both round to bf16 at the JAX
 # kernels' casts, so they differ where an f32 sum in another order rounds to
@@ -2196,7 +2295,9 @@ def bf16_kernels(recorders: dict, launches: dict, device_line: str) -> list:
     plain_ms = time_ms(block_cuda.block_forward_plain_bf16, (folded, g_all, x, x_mask, *cfg), {},
                        runs=3, warmup=1)
     roof = bf16_bound("block_fwd_save_bf16", args, kwargs, (z_k, ld_k, saves), fwd)
-    entry("block_fwd_save_bf16", err, scale, ms, plain_ms, list(x.shape), roof)
+    turns = units_in_turns("block_fwd_save_bf16", lambda: fwd(*args, **kwargs), device_line)
+    entry("block_fwd_save_bf16", err, scale, ms, plain_ms, list(x.shape), roof,
+          device_ms_in_turns=turns)
 
     bargs, bkwargs = recorders["block_bwd_store"].args
     bwd = recorders["block_bwd_store"].fn
@@ -2220,9 +2321,29 @@ def bf16_kernels(recorders: dict, launches: dict, device_line: str) -> list:
 
     plain_ms = time_ms(plain_bwd_store, (), {}, runs=3, warmup=1)
     roof = bf16_bound("block_bwd_store_bf16", call, {}, grads_k, bwd)
+    turns = units_in_turns("block_bwd_store_bf16", lambda: bwd(*call), device_line)
     entry("block_bwd_store_bf16", worst * scale, scale, ms, plain_ms, list(x.shape), roof,
-          worst_relative=worst)
+          worst_relative=worst, device_ms_in_turns=turns)
     return report
+
+
+def units_in_turns(name: str, fn, device_line: str, calls: int = 3) -> dict:
+    """The device's time of one call of a flow-block bf16 row with its
+    products on the mma.sync kernels (``kernels.bf16_mma_only``)
+    and on the TMA-fed wgmma ones, in turns (mma.sync, TMA, TMA, mma.sync;
+    ``calls`` calls a bracketed trace) -> {"mma_sync": ms, "tma": ms}, the
+    smaller of each unit's two."""
+    from glow_tts_train_tpu_torch import kernels
+
+    got = {"mma_sync": [], "tma": []}
+    for unit in ("mma_sync", "tma", "tma", "mma_sync"):
+        with kernels.bf16_mma_only() if unit == "mma_sync" else contextlib.nullcontext():
+            ops = bracketed_trace(fn, calls)
+        got[unit].append(sum(us for _, us in ops) / calls / 1e3)
+    out = {unit: min(v) for unit, v in got.items()}
+    print(f"kernel {name} in turns: device ms a call, products on the mma.sync kernels "
+          f"{got['mma_sync']}, on the TMA-fed wgmma kernels {got['tma']} [{device_line}]")
+    return out
 
 
 # bf16 training (fp16_run): configs/base.json as shipped (fp16_run true,
@@ -2300,7 +2421,7 @@ def bf16_train(workdir: Path, config_path: Path, device_line: str) -> tuple:
                          {k: v for k, v in want.items() if v}, device_line,
                          override=BF16_OVERRIDE, n_steps=BF16_STEPS, main_tag="bf16",
                          tag="bf16_", corpus_symbols=False)
-    profile = profile_bf16_step(last, device_line)
+    profile = profile_bf16_step(last, device_line, n_blocks)
     report = bf16_kernels(recorders, launches, device_line)
     del recorders, last
     against = bf16_against_f32(workdir, config_path, device_line)
@@ -2308,10 +2429,12 @@ def bf16_train(workdir: Path, config_path: Path, device_line: str) -> tuple:
                     "profiled_step": profile, "against_f32": against}
 
 
-def profile_bf16_step(last: dict, device_line: str) -> dict:
+def profile_bf16_step(last: dict, device_line: str, n_blocks: int) -> dict:
     """One more bf16 step on the last batch under torch.profiler: its device
-    products (every one on the bf16 kernels but the 12 folded-A products),
-    wall, device busy, idle share, device operations, top kernels."""
+    products (every one on the bf16 kernels but the 12 folded-A products;
+    the flow blocks' 10 + 12 conv-GEMMs and 11 weight gradients a block on
+    the TMA-fed wgmma kernels), wall, device busy, idle share, device
+    operations, top kernels."""
     from glow_tts_train_tpu_torch import kernels
 
     def step():
@@ -2321,9 +2444,12 @@ def profile_bf16_step(last: dict, device_line: str) -> dict:
     step()
     products = kernels.product_counts(reset=True)
     unexpected = {k: v for k, v in products.items()
-                  if v and k not in ("bf16_gemm", "bf16_wgrad", "core_gemm")}
-    if unexpected or not products.get("bf16_gemm") or not products.get("bf16_wgrad"):
-        fail(f"train bf16 step: device products {products}")
+                  if v and k not in BF16_PRODUCT_KEYS + ("core_gemm",)}
+    blocks = {"core_gemm": n_blocks, "bf16_tma_gemm": 22 * n_blocks,
+              "bf16_tma_wgrad": 11 * n_blocks}
+    if (unexpected or not products.get("bf16_gemm") or not products.get("bf16_wgrad")
+            or {k: products.get(k) for k in blocks} != blocks):
+        fail(f"train bf16 step: device products {products}, the blocks' expected {blocks}")
     wall_ms, by_kernel, launches = profiled(step)
     busy_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
@@ -2888,7 +3014,8 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
     from glow_tts_train_tpu_torch.models import encoder_forward, forward_gen, store_inverse
     from glow_tts_train_tpu_torch.ops import block_cuda, encoder_cuda, text_cuda
 
-    products = bare_products(device_line) + text_products(device_line)
+    products = (bare_products(device_line) + text_products(device_line)
+                + bf16_block_products(device_line))
     ckpt, config, hp = make_checkpoint(workdir, config_path)
     stdin_text = requests()
 

@@ -1,22 +1,54 @@
 // The bf16 chains' products (fp16_run): the conv-GEMM and the weight
 // gradient as the JAX kernels compute them with dtype bf16,
 // jnp.dot(a.astype(bf16), w, preferred_element_type=f32): each operand
-// element rounded to bf16 as it is staged, bf16 x bf16 products on the
-// tensor cores (mma.sync m16n8k16, f32 accumulation), the epilogue of the
-// f32 chains with the bf16 roundings (epilogue.cuh, epilogue_cols_bf16).
+// element rounded to bf16 once, bf16 x bf16 products on the tensor cores
+// with f32 accumulation, the epilogue of the f32 chains with the bf16
+// roundings (epilogue.cuh, epilogue_cols_bf16).  They replace the products
+// inside block_pallas.py's _block_fwd_save_kernel and _block_bwd_store_kernel
+// (and wn_pallas.py's _layer_fwd / _reverse_walk they call), and inside the
+// text kernels' (text_pallas.py, encoder_pallas.py) with dtype bf16.  Two
+// units:
 //
-// Every product of the bf16 chains takes these two kernels: A gathered as
-// im2col while staging (taps, dilation, tap_sign, a_mask, as
-// conv_gemm_kernel does), B read as it lies or through w_t's per-tap
-// transpose, each of A, B and the epilogue's operands f32 or bf16
-// (ConvGemm::bf16).  The f32 chains' tensor-core kernels (tc_gemm.cu) copy
-// operands as they lie (cp.async, TMA) into the 3xTF32 layout; a bf16
-// operand needs neither the split nor that layout, and an f32 operand of a
-// bf16 chain (a cotangent) must be rounded on its way in, so these kernels
-// stage through registers, 8 elements a load (16 bytes of bf16, or 32 of
-// f32 rounded as they are packed): they take operands whose rows hold whole
-// groups of 8 (conv_fits, wgrad_fits; every product at the shipped widths),
-// and refuse the rest.
+// The TMA-fed wgmma kernels (conv_gemm_bf16_tma_kernel,
+// wgrad_bf16_tma_kernel), for the flow block's chains, which ask for them
+// (ConvGemm::tma_ring, WGrad::tma_ring) and give every product bf16
+// operands (an f32 cotangent through the bf16 copy its writer rounds).
+// What bounds them: their operations at the dense BF16 peak (989 TFLOP/s)
+// against the L2 traffic of their tiles' operands and the epilogue's loads
+// and stores, which the K walk does not hide.  The design:
+//  * TMA (cp.async.bulk.tensor) brings 64 x 64 bf16 boxes in the 128-byte
+//    swizzle into an mbarrier ring (full: the producer's arrival and the
+//    stage's bytes; empty: every consumer warp, after a proxy fence); one
+//    producer thread in a warpgroup that gives its registers to the
+//    consumers (setmaxnreg); wgmma m64nNk16 with both operands from shared
+//    memory, one instruction of the tile's whole width (N = 64 to 192) a
+//    16-deep step, one group left in flight while the next stage is waited
+//    for.
+//  * Activations are 3-D tensor maps [batch, t, c]: a tile or a row slice
+//    never crosses a sample, so a tap's shifted box reads zeros past the
+//    sample's edge (TMA's fill): the im2col gather and the zero padding
+//    cost nothing.  Weights are read as they lie: a forward [K, N] as
+//    wgmma's transposed (N-major) B in 64-column chunks (a paired
+//    epilogue's tile one chunk of each half, so a pair sits in one
+//    thread), a transposed product's w [taps * n, c_in] K-major.
+//  * The conv-GEMM: 64-row tiles, one consumer warpgroup, 96 KB of stages,
+//    two blocks an SM (one's epilogue under the other's K walk); the
+//    accumulators through shared memory to the epilogue, 4 columns a call.
+//  * The weight gradient: 128 im2col columns (two consumer warpgroups) by
+//    64 to 192 dY columns a block over its split of the 64-row slices, both
+//    operands MN-major (the slice's rows are wgmma's K); the splits'
+//    partial sums added in split order by a second pass (no atomics).
+//
+// The mma.sync kernels (conv_gemm_bf16_kernel, wgrad_bf16_kernel), for the
+// text side's chains and for shapes the TMA-fed ones do not take (below 64
+// channels or columns): A gathered as im2col while staging (taps,
+// dilation, tap_sign, a_mask, as conv_gemm_kernel does), B read as it lies
+// or through w_t's per-tap transpose, each of A, B and the epilogue's
+// operands f32 or bf16 (ConvGemm::bf16), staged through registers 8
+// elements a load (16 bytes of bf16, or 32 of f32 rounded as they are
+// packed): they take operands whose rows hold whole groups of 8
+// (conv_fits, wgrad_fits; every product at the shipped widths), and
+// refuse the rest.
 //
 // conv_gemm_bf16_kernel: a 64 x 64 output tile per block of 128 threads (a
 // warp 32 x 32: 2 x 4 mma tiles), 32-deep K slices double-buffered in
@@ -31,14 +63,17 @@
 // [row][n]) and read transposed by ldmatrix.trans (the mma's k is the row
 // axis); the splits' partial sums added in split order by a second pass,
 // which writes the gradient in the weight's dtype (the JAX kernels'
-// ``g.astype(w.dtype)``).  Its bias gradient is bias_grad of dY (f32: the
-// unrounded cotangent, as the JAX kernels sum it).
+// ``g.astype(w.dtype)``).
+//
+// Either unit's bias gradient is bias_grad of dY (f32: the unrounded
+// cotangent, as the JAX kernels sum it).
 #include <stdint.h>
 
 #include <algorithm>
 
 #include "common.cuh"
 #include "epilogue.cuh"
+#include "tma.cuh"
 
 namespace gtt {
 namespace {
@@ -459,11 +494,537 @@ __global__ void split_sum_kernel(const float* __restrict__ part, long per_split,
   st_act(out, i, v, out_bf16 != 0);
 }
 
+// ---------------------------------------------------------------------------
+// the TMA-fed wgmma products (the flow block's bf16 chains)
+// ---------------------------------------------------------------------------
+
+constexpr int kRingChunk = 64 * 128;  // one 64 x 64 16-bit chunk: 64 rows of 128 bytes
+
+// A ring of kStages stages in dynamic shared memory, each the A operand's kA
+// chunks (64 rows of a conv's tile, or 64 im2col columns of a weight
+// gradient's, 64 deep) then B's kNB chunks of 64 columns; then each stage's
+// full and empty barrier.  The conv-GEMM: a 64-row tile, one consumer
+// warpgroup, 96 KB of stages, two blocks an SM (one's epilogue under the
+// other's K walk); the weight gradient: 128 im2col columns, two consumer
+// warpgroups, 4 stages, one block an SM.
+template <int kA, int kNB, int kStages>
+struct Ring {
+  static constexpr int kStageBytes = (kA + kNB) * kRingChunk;
+  static constexpr int kSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;
+  static constexpr int kConsumers = 128 * kA;  // a warpgroup per A chunk
+  static constexpr int kDepth = kStages;
+  uint32_t base;  // 1024-byte aligned
+  __device__ uint32_t a_chunk(int s, int i) const {
+    return base + s * kStageBytes + i * kRingChunk;
+  }
+  __device__ uint32_t b_chunk(int s, int j) const {
+    return base + s * kStageBytes + (kA + j) * kRingChunk;
+  }
+  __device__ uint32_t full(int s) const { return base + kStages * kStageBytes + 8 * s; }
+  __device__ uint32_t empty(int s) const { return full(kStages + s); }
+  __device__ int stage(int step) const { return step % kStages; }
+  __device__ uint32_t phase(int step) const { return (step / kStages) & 1; }
+};
+
+template <int kNB>
+using ConvRing = Ring<1, kNB, 12 / (1 + kNB)>;
+template <int kNB>
+using WgradRing = Ring<2, kNB, 4>;
+
+// The ring in the block's dynamic shared memory, its barriers initialised
+// (full: the producer's arrival and the stage's bytes; empty: every
+// consumer warp) before any copy or wait.
+template <class R>
+__device__ __forceinline__ R ring_setup(unsigned char* smem_raw) {
+  const R r{(smem_addr(smem_raw) + 1023u) & ~1023u};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R::kDepth; ++s) {
+      mbar_init(r.full(s), 1);
+      mbar_init(r.empty(s), R::kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return r;
+}
+
+// d += A [64 x 16] B [16 x 64 kNB], both from shared memory in the
+// 128-byte swizzle: kTA / kTB 0 K-major (16 k of a 128-byte row), 1
+// MN-major (16 rows of 64 elements, wgmma's transposed 16-bit operand; B's
+// 64-column chunks kRingChunk apart, the descriptor's leading offset).
+// d[j][4 i + {0, 1}]: row 16 warp + lane / 4, columns 64 j + 8 i + 2 (lane
+// % 4) + {0, 1}; d[j][4 i + {2, 3}]: the same columns 8 rows down.
+template <int kNB>
+struct WgmmaBf16;
+
+template <>
+struct WgmmaBf16<1> {
+  template <int kTA, int kTB>
+  static __device__ __forceinline__ void run(float (&d)[1][32], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n"
+        "}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[0][4]), "+f"(d[0][5]), "+f"(d[0][6]), "+f"(d[0][7]),
+          "+f"(d[0][8]), "+f"(d[0][9]), "+f"(d[0][10]), "+f"(d[0][11]),
+          "+f"(d[0][12]), "+f"(d[0][13]), "+f"(d[0][14]), "+f"(d[0][15]),
+          "+f"(d[0][16]), "+f"(d[0][17]), "+f"(d[0][18]), "+f"(d[0][19]),
+          "+f"(d[0][20]), "+f"(d[0][21]), "+f"(d[0][22]), "+f"(d[0][23]),
+          "+f"(d[0][24]), "+f"(d[0][25]), "+f"(d[0][26]), "+f"(d[0][27]),
+          "+f"(d[0][28]), "+f"(d[0][29]), "+f"(d[0][30]), "+f"(d[0][31])
+        : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
+  }
+};
+
+template <>
+struct WgmmaBf16<2> {
+  template <int kTA, int kTB>
+  static __device__ __forceinline__ void run(float (&d)[2][32], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n"
+        "}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[0][4]), "+f"(d[0][5]), "+f"(d[0][6]), "+f"(d[0][7]),
+          "+f"(d[0][8]), "+f"(d[0][9]), "+f"(d[0][10]), "+f"(d[0][11]),
+          "+f"(d[0][12]), "+f"(d[0][13]), "+f"(d[0][14]), "+f"(d[0][15]),
+          "+f"(d[0][16]), "+f"(d[0][17]), "+f"(d[0][18]), "+f"(d[0][19]),
+          "+f"(d[0][20]), "+f"(d[0][21]), "+f"(d[0][22]), "+f"(d[0][23]),
+          "+f"(d[0][24]), "+f"(d[0][25]), "+f"(d[0][26]), "+f"(d[0][27]),
+          "+f"(d[0][28]), "+f"(d[0][29]), "+f"(d[0][30]), "+f"(d[0][31]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[1][4]), "+f"(d[1][5]), "+f"(d[1][6]), "+f"(d[1][7]),
+          "+f"(d[1][8]), "+f"(d[1][9]), "+f"(d[1][10]), "+f"(d[1][11]),
+          "+f"(d[1][12]), "+f"(d[1][13]), "+f"(d[1][14]), "+f"(d[1][15]),
+          "+f"(d[1][16]), "+f"(d[1][17]), "+f"(d[1][18]), "+f"(d[1][19]),
+          "+f"(d[1][20]), "+f"(d[1][21]), "+f"(d[1][22]), "+f"(d[1][23]),
+          "+f"(d[1][24]), "+f"(d[1][25]), "+f"(d[1][26]), "+f"(d[1][27]),
+          "+f"(d[1][28]), "+f"(d[1][29]), "+f"(d[1][30]), "+f"(d[1][31])
+        : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
+  }
+};
+
+template <>
+struct WgmmaBf16<3> {
+  template <int kTA, int kTB>
+  static __device__ __forceinline__ void run(float (&d)[3][32], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %98, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+        "}, %96, %97, p, 1, 1, %99, %100;\n"
+        "}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[0][4]), "+f"(d[0][5]), "+f"(d[0][6]), "+f"(d[0][7]),
+          "+f"(d[0][8]), "+f"(d[0][9]), "+f"(d[0][10]), "+f"(d[0][11]),
+          "+f"(d[0][12]), "+f"(d[0][13]), "+f"(d[0][14]), "+f"(d[0][15]),
+          "+f"(d[0][16]), "+f"(d[0][17]), "+f"(d[0][18]), "+f"(d[0][19]),
+          "+f"(d[0][20]), "+f"(d[0][21]), "+f"(d[0][22]), "+f"(d[0][23]),
+          "+f"(d[0][24]), "+f"(d[0][25]), "+f"(d[0][26]), "+f"(d[0][27]),
+          "+f"(d[0][28]), "+f"(d[0][29]), "+f"(d[0][30]), "+f"(d[0][31]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[1][4]), "+f"(d[1][5]), "+f"(d[1][6]), "+f"(d[1][7]),
+          "+f"(d[1][8]), "+f"(d[1][9]), "+f"(d[1][10]), "+f"(d[1][11]),
+          "+f"(d[1][12]), "+f"(d[1][13]), "+f"(d[1][14]), "+f"(d[1][15]),
+          "+f"(d[1][16]), "+f"(d[1][17]), "+f"(d[1][18]), "+f"(d[1][19]),
+          "+f"(d[1][20]), "+f"(d[1][21]), "+f"(d[1][22]), "+f"(d[1][23]),
+          "+f"(d[1][24]), "+f"(d[1][25]), "+f"(d[1][26]), "+f"(d[1][27]),
+          "+f"(d[1][28]), "+f"(d[1][29]), "+f"(d[1][30]), "+f"(d[1][31]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[2][4]), "+f"(d[2][5]), "+f"(d[2][6]), "+f"(d[2][7]),
+          "+f"(d[2][8]), "+f"(d[2][9]), "+f"(d[2][10]), "+f"(d[2][11]),
+          "+f"(d[2][12]), "+f"(d[2][13]), "+f"(d[2][14]), "+f"(d[2][15]),
+          "+f"(d[2][16]), "+f"(d[2][17]), "+f"(d[2][18]), "+f"(d[2][19]),
+          "+f"(d[2][20]), "+f"(d[2][21]), "+f"(d[2][22]), "+f"(d[2][23]),
+          "+f"(d[2][24]), "+f"(d[2][25]), "+f"(d[2][26]), "+f"(d[2][27]),
+          "+f"(d[2][28]), "+f"(d[2][29]), "+f"(d[2][30]), "+f"(d[2][31])
+        : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
+  }
+};
+
+// The consumers' K walk: per step, wait for its stage, issue its 4 wgmmas
+// (this warpgroup's A chunk against all of B's chunks; none where a_on is
+// false), and release the previous step's stage once its wgmmas are done
+// (one group left in flight).  Every warp releases each stage, after a
+// proxy fence that orders its reads before the producer's next copy into
+// it.  Columns of chunks a stage did not fill (past n) hold stale values:
+// their outputs are never written.
+template <int kTA, int kTB, int kNB, class R>
+__device__ __forceinline__ void ring_products(const R& r, int n_steps, bool a_on,
+                                              float (&acc)[kNB][32]) {
+  const int wg = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31;
+  auto release = [&](int s) {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncwarp();
+    if (lane == 0) mbar_arrive(r.empty(r.stage(s)));
+  };
+#pragma unroll
+  for (int j = 0; j < kNB; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+  for (int s = 0; s < n_steps; ++s) {
+    const int st = r.stage(s);
+    mbar_wait(r.full(st), r.phase(s));
+    if (a_on) {
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const uint64_t da = sw128_descriptor(r.a_chunk(st, wg) + ks * (kTA ? 2048 : 32));
+        // an MN-major B's 64-column chunks are kRingChunk apart
+        const uint64_t db = sw128_descriptor(r.b_chunk(st, 0) + ks * (kTB ? 2048 : 32),
+                                             kTB ? kRingChunk : 16);
+        WgmmaBf16<kNB>::template run<kTA, kTB>(acc, da, db);
+      }
+      wgmma_commit();
+    }
+    wgmma_wait<1>();
+    if (s > 0) release(s - 1);
+  }
+  wgmma_wait<0>();
+  if (n_steps > 0) release(n_steps - 1);
+}
+
+// The bf16 conv-GEMM fed by TMA (ConvGemm::tma_ring in a bf16 chain): a
+// 64-row x 64 kNB-column tile of one sample's rows per block (the tiles of
+// a sample end at its last row, so a tap's rows outside the sample are
+// TMA's zero fill), K walked tap outer, 64-channel slice inner.  A stage: A
+// one box [64 rows x 64 channels] of the [batch, t, c_in] tensor map at the
+// tap's shifted time index (K-major); B either the per-tap transposed
+// weights of w_t as they lie (w [taps * n, c_in]: one K-major box of 64 kNB
+// rows) or w [K, n] as it lies (N-major, wgmma's transposed B: a box of 64
+// columns by 64 K rows per chunk; a paired epilogue's tile takes the
+// columns j0 .. j0 + 63 and split + j0 .. split + j0 + 63, so that the
+// thread holding column c of the first chunk holds its pair in the second).
+// One producer thread issues the copies, one consumer warpgroup runs the
+// wgmmas, and two blocks share an SM, so that one block's epilogue runs
+// under the other's K walk (with one block of two consumer warpgroups an
+// SM, 128-row tiles, the chains' epilogues added 40-130% to the bare
+// products: the gate backward's loads wait with nothing else in flight).
+// The accumulators go through shared memory to the epilogue
+// (epilogue_cols_bf16, 4 neighbouring columns a call: inlined once, where
+// straight from the fragments each kernel held it 48 times and nvcc took
+// minutes).
+template <int kWT, int kNB>
+__global__ void __launch_bounds__(256, 2)
+    conv_gemm_bf16_tma_kernel(const ConvGemm g, const __grid_constant__ CUtensorMap a_map,
+                              const __grid_constant__ CUtensorMap b_map) {
+  using R = ConvRing<kNB>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const R r = ring_setup<R>(smem_raw);
+  const int tid = threadIdx.x;
+  const int tiles_t = (g.t + 63) / 64;
+  const int b = blockIdx.y / tiles_t;
+  const int t0 = (blockIdx.y - b * tiles_t) * 64;
+  const bool pair = paired(g.epilogue);
+  const int j0 = blockIdx.x * 64;        // paired: the tile's first column of each half
+  const int n0 = blockIdx.x * 64 * kNB;  // else the tile's first column
+  int nb_on = kNB;  // chunks holding a column below n
+  if (!pair)
+    while (nb_on > 1 && n0 + 64 * (nb_on - 1) >= g.n) --nb_on;
+  const int slices = (g.c_in + 63) / 64;
+  const int n_steps = g.taps * slices;
+
+  if (tid >= R::kConsumers) {  // the producer warpgroup: one thread copies
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == R::kConsumers) {
+      const uint32_t bytes = (1 + (kWT ? kNB : nb_on)) * kRingChunk;
+      for (int s = 0; s < n_steps; ++s) {
+        const int tap = s / slices, c0 = (s - tap * slices) * 64;
+        const int st = r.stage(s);
+        mbar_wait(r.empty(st), r.phase(s) ^ 1);
+        mbar_expect_tx(r.full(st), bytes);
+        const int off = g.tap_sign * (tap - g.taps / 2) * g.dilation;
+        tma_load_3d(r.a_chunk(st, 0), &a_map, r.full(st), c0, t0 + off, b);
+        if (kWT) {
+          tma_load_3d(r.b_chunk(st, 0), &b_map, r.full(st), c0, tap * g.n + n0, 0);
+        } else {
+          for (int j = 0; j < nb_on; ++j) {
+            const int col = pair ? j0 + j * g.split : n0 + 64 * j;
+            tma_load_3d(r.b_chunk(st, j), &b_map, r.full(st), col, tap * g.c_in + c0, 0);
+          }
+        }
+      }
+    }
+    return;
+  }
+  // the block's 32,768 registers: 40 a producer thread, 216 a consumer's
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n" ::: "memory");
+  float acc[kNB][32];
+  ring_products<0, kWT ? 0 : 1, kNB>(r, n_steps, true, acc);
+
+  // the accumulators through shared memory (the ring is free once every
+  // consumer's wgmmas are done: each copy it holds has landed), then each
+  // thread takes 4 neighbouring logical columns of a row to the epilogue
+  constexpr int kStride = 64 * kNB + 8;  // floats a tile row
+  float* tile = reinterpret_cast<float*>(smem_raw + (r.base - smem_addr(smem_raw)));
+  const int lane = tid & 31;
+  const int frag_row = ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const int col = 2 * (lane & 3);
+  asm volatile("bar.sync 1, %0;\n" ::"n"(R::kConsumers) : "memory");
+#pragma unroll
+  for (int j = 0; j < kNB; ++j)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float* at = tile + frag_row * kStride + 64 * j + 8 * i + col;
+      *reinterpret_cast<float2*>(at) = make_float2(acc[j][4 * i], acc[j][4 * i + 1]);
+      *reinterpret_cast<float2*>(at + 8 * kStride) = make_float2(acc[j][4 * i + 2], acc[j][4 * i + 3]);
+    }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(R::kConsumers) : "memory");
+  const int groups = 16 * kNB;  // of 4 columns a row (a paired tile's: 2 pairs)
+#pragma unroll 1
+  for (int it = tid; it < 64 * groups; it += R::kConsumers) {
+    const int row = it / groups, q = it - row * groups;
+    const int tt = t0 + row;
+    if (tt >= g.t) continue;
+    const float* tr = tile + row * kStride;
+    if (pair) {  // pairs (2q, 64 + 2q) and (2q + 1, 65 + 2q): logical 2 (j0 + 2q) ..
+      const float v[4] = {tr[2 * q], tr[64 + 2 * q], tr[2 * q + 1], tr[65 + 2 * q]};
+      epilogue_row_bf16<4>(g, b * g.t + tt, 2 * (j0 + 2 * q), v);
+    } else {
+      const float4 f = *reinterpret_cast<const float4*>(tr + 4 * q);
+      const float v[4] = {f.x, f.y, f.z, f.w};
+      epilogue_row_bf16<4>(g, b * g.t + tt, n0 + 4 * q, v);
+    }
+  }
+}
+
+// The bf16 weight gradient fed by TMA (WGrad::tma_ring in a bf16 chain):
+// out[kk, n] = sum over rows of im2col(A)[row, kk] * dY[row, n], a block's
+// tile 128 im2col columns (64 a consumer warpgroup) by 64 kNB dY columns
+// over its split of the row slices (64 rows of one sample each, in a fixed
+// order; rows past the sample's end are TMA's zero fill).  A stage: per
+// warpgroup one box [64 rows x 64 channels] of A's [batch, t, c_in] map at
+// the tap's shifted time index, and per chunk one box [64 rows x 64
+// columns] of dY's bf16 copy; both MN-major (wgmma's transposed operands:
+// the slice's rows are the product's K).  The tile goes to dst (the
+// gradient, or the split's partial sums [splits, kdim, n] that
+// split_sum_kernel adds in split order) straight from the accumulators.
+template <int kNB>
+__global__ void __launch_bounds__(384, 1)
+    wgrad_bf16_tma_kernel(const WGrad w, const __grid_constant__ CUtensorMap a_map,
+                          const __grid_constant__ CUtensorMap dy_map, int splits, float* dst,
+                          int dst_bf16) {
+  using R = WgradRing<kNB>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const R r = ring_setup<R>(smem_raw);
+  const int tid = threadIdx.x;
+  const int kdim = w.taps * w.c_in;
+  const int n0 = blockIdx.x * 64 * kNB, kk0 = blockIdx.y * 128;
+  int nb_on = kNB;
+  while (nb_on > 1 && n0 + 64 * (nb_on - 1) >= w.n) --nb_on;
+  const int per_sample = (w.t + 63) / 64;
+  const long slices = (long)w.batch * per_sample;
+  const long s_begin = slices * blockIdx.z / splits, s_end = slices * (blockIdx.z + 1) / splits;
+  const int n_steps = (int)(s_end - s_begin);
+
+  if (tid >= R::kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == R::kConsumers) {
+      const int a_chunks = kk0 + 64 < kdim ? 2 : 1;
+      const uint32_t bytes = (a_chunks + nb_on) * kRingChunk;
+      for (int s = 0; s < n_steps; ++s) {
+        const long gs = s_begin + s;
+        const int b = (int)(gs / per_sample);
+        const int t0 = (int)(gs - (long)b * per_sample) * 64;
+        const int st = r.stage(s);
+        mbar_wait(r.empty(st), r.phase(s) ^ 1);
+        mbar_expect_tx(r.full(st), bytes);
+        for (int i = 0; i < a_chunks; ++i) {
+          const int kk = kk0 + 64 * i;
+          const int tap = kk / w.c_in;
+          tma_load_3d(r.a_chunk(st, i), &a_map, r.full(st), kk - tap * w.c_in,
+                      t0 + (tap - w.taps / 2) * w.dilation, b);
+        }
+        for (int j = 0; j < nb_on; ++j)
+          tma_load_3d(r.b_chunk(st, j), &dy_map, r.full(st), n0 + 64 * j, t0, b);
+      }
+    }
+    return;
+  }
+  // 40 registers a producer thread, 232 a consumer's: 64,512 of the SM's
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = tid >> 7;
+  float acc[kNB][32];
+  ring_products<1, 1, kNB>(r, n_steps, kk0 + 64 * wg < kdim, acc);
+
+  const int lane = tid & 31;
+  const int frag_row = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const int col = 2 * (lane & 3);
+  const long base = (long)blockIdx.z * kdim * w.n;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int kk = kk0 + frag_row + 8 * h;
+    if (kk >= kdim) continue;
+#pragma unroll
+    for (int j = 0; j < kNB; ++j)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int n = n0 + 64 * j + 8 * i + col;  // n + 1 < w.n with it: n is a multiple of 8
+        if (j >= nb_on || n >= w.n) continue;
+        const long at = base + (long)kk * w.n + n;
+        const float v0 = acc[j][4 * i + 2 * h], v1 = acc[j][4 * i + 2 * h + 1];
+        if (dst_bf16) {
+          *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(dst) + at) =
+              __floats2bfloat162_rn(v0, v1);
+        } else {
+          *reinterpret_cast<float2*>(dst + at) = make_float2(v0, v1);
+        }
+      }
+  }
+}
+
+// A bf16 [dim2, dim1, dim0] tensor (row stride ld, plane stride ld * dim1
+// elements; dim2 1: a matrix) as a 3-D tensor map of boxes of 64 elements
+// (128 bytes) by box1 rows by 1, in the 128-byte swizzle; zeros outside.
+cudaError_t bf16_map(CUtensorMap* map, const void* base, int dim0, int dim1, int dim2, long ld,
+                     int box1) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)dim0, (cuuint64_t)dim1, (cuuint64_t)dim2};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)ld * 2 * dim1};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box1, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                          const_cast<void*>(base), dims, strides, box, unit,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <class R, class Kernel, class... Args>
+cudaError_t launch_ring(Kernel kernel, dim3 grid, cudaStream_t stream, Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, R::kSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, R::kConsumers + 128, R::kSmem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+template <int kWT, int kNB>
+cudaError_t launch_conv_ring(const ConvGemm& g, cudaStream_t stream) {
+  CUtensorMap a_map, b_map;
+  cudaError_t err = bf16_map(&a_map, g.a, g.c_in, g.t, g.batch, g.lda, 64);
+  if (err != cudaSuccess) return err;
+  if (kWT) err = bf16_map(&b_map, g.w, g.c_in, g.taps * g.n, 1, g.c_in, 64 * kNB);
+  else err = bf16_map(&b_map, g.w, g.n, g.taps * g.c_in, 1, g.ldb ? g.ldb : g.n, 64);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = paired(g.epilogue) ? (g.split + 63) / 64 : (g.n + 64 * kNB - 1) / (64 * kNB);
+  const dim3 grid(n_tiles, g.batch * ((g.t + 63) / 64));
+  return launch_ring<ConvRing<kNB>>(conv_gemm_bf16_tma_kernel<kWT, kNB>, grid, stream, g, a_map,
+                                    b_map);
+}
+
+template <int kNB>
+cudaError_t launch_wgrad_ring(const WGrad& w, int splits, float* dst, int dst_bf16,
+                              cudaStream_t stream) {
+  CUtensorMap a_map, dy_map;
+  cudaError_t err = bf16_map(&a_map, w.a, w.c_in, w.t, w.batch, w.lda, 64);
+  if (err == cudaSuccess) err = bf16_map(&dy_map, w.dy16, w.n, w.t, w.batch, w.ldy, 64);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((w.n + 64 * kNB - 1) / (64 * kNB), (w.taps * w.c_in + 127) / 128, splits);
+  return launch_ring<WgradRing<kNB>>(wgrad_bf16_tma_kernel<kNB>, grid, stream, w, a_map, dy_map,
+                                     splits, dst, dst_bf16);
+}
+
+// Whether a bf16 chain's products that ask for the TMA-fed unit may take it
+// (gtt_bf16_tma: the mma.sync kernels alone, for a measurement in turns).
+bool& tma_allowed() {
+  static bool allowed = true;
+  return allowed;
+}
+
+// The TMA-fed conv-GEMM's 64-column chunks a tile for a product of a bf16
+// chain that asks for it (ConvGemm::tma_ring), by shape alone; 0: the
+// mma.sync kernel takes it.  It reads A and B as TMA copies them: bf16,
+// rows of whole 16-byte groups (c_in, lda, ldb multiples of 8), 16-byte
+// aligned, no a_mask (a chain gives the masked copy instead), at least 64
+// channels and 64 columns (a narrower product leaves most of each box
+// empty).  A paired epilogue's tile is one chunk of each half, else up to
+// three chunks (N = 192 in one tile, 384 in two).
+int tma_conv_chunks(const ConvGemm& g) {
+  if (!g.tma_ring || !tma_allowed() || !has(g.bf16, kA16) || !has(g.bf16, kW16) || g.a_mask)
+    return 0;
+  const int ldb = g.ldb ? g.ldb : g.n;
+  const bool pair = paired(g.epilogue);
+  if (g.c_in < 64 || g.n < 64 || g.c_in % 8 || g.lda % 8 || (!g.w_t && ldb % 8) ||
+      (pair && g.w_t) || g.epilogue == kCouplingInv || g.out4 || !aligned16(g.a) ||
+      !aligned16(g.w))
+    return 0;
+  return pair ? 2 : std::min(3, (g.n + 63) / 64);
+}
+
+// The TMA-fed weight gradient's plan for a product of a bf16 chain that
+// asks for it (WGrad::tma_ring) with dY's bf16 copy (WGrad::dy16), by shape
+// alone: its chunks a tile (0: the mma.sync kernel takes it) and its row
+// splits, one wave of one block an SM at most, within the slices and the
+// scratch.
+struct TmaWgradPlan {
+  int chunks = 0, splits = 1;
+};
+
+TmaWgradPlan tma_wgrad_plan(const WGrad& w, int sms) {
+  TmaWgradPlan p;
+  const int kdim = w.taps * w.c_in;
+  if (!w.tma_ring || !tma_allowed() || !has(w.bf16, kA16) || w.dy16 == nullptr || w.a_mask ||
+      w.dy_t != nullptr)
+    return p;
+  if (kdim < 64 || w.n < 64 || w.c_in % 8 || w.lda % 8 || w.n % 8 || w.ldy % 8 ||
+      (w.taps > 1 && w.c_in % 64) || !aligned16(w.a) || !aligned16(w.dy16))
+    return p;
+  p.chunks = std::min(3, (w.n + 63) / 64);
+  const long tiles = (long)((w.n + 64 * p.chunks - 1) / (64 * p.chunks)) * ((kdim + 127) / 128);
+  const long slices = (long)w.batch * ((w.t + 63) / 64);
+  long splits = std::min(std::max(1L, sms / tiles), slices);
+  if (w.scratch == nullptr) splits = 1;
+  else splits = std::min(splits, std::max(1L, w.scratch_floats / ((long)kdim * w.n)));
+  p.splits = (int)splits;
+  return p;
+}
+
+template <int kWT>
+cudaError_t launch_conv_tma(const ConvGemm& g, int chunks, cudaStream_t stream) {
+  if (chunks == 3) return launch_conv_ring<kWT, 3>(g, stream);
+  if (chunks == 2) return launch_conv_ring<kWT, 2>(g, stream);
+  return launch_conv_ring<kWT, 1>(g, stream);
+}
+
+cudaError_t launch_wgrad_tma(const WGrad& w, const TmaWgradPlan& p, float* dst, int dst_bf16,
+                             cudaStream_t stream) {
+  if (p.chunks == 3) return launch_wgrad_ring<3>(w, p.splits, dst, dst_bf16, stream);
+  if (p.chunks == 2) return launch_wgrad_ring<2>(w, p.splits, dst, dst_bf16, stream);
+  return launch_wgrad_ring<1>(w, p.splits, dst, dst_bf16, stream);
+}
+
 }  // namespace
 
 cudaError_t conv_gemm_bf16(const ConvGemm& g, cudaStream_t stream) {
   const int rows = g.batch * g.t;
   if (rows <= 0 || g.n <= 0) return cudaSuccess;
+  if (const int chunks = tma_conv_chunks(g)) {
+    ++product_counts().bf16_tma_gemm;
+    return g.w_t ? launch_conv_tma<1>(g, chunks, stream) : launch_conv_tma<0>(g, chunks, stream);
+  }
   if ((g.epilogue == kGateBwd && g.out4) || !conv_fits(g)) return cudaErrorInvalidValue;
   ++product_counts().bf16_gemm;
   const dim3 grid((g.n + kBN - 1) / kBN, (rows + kBM - 1) / kBM);
@@ -476,12 +1037,20 @@ cudaError_t wgrad_bf16(const WGrad& w, cudaStream_t stream) {
   const int rows = w.batch * w.t;
   const int kdim = w.taps * w.c_in;
   if (kdim <= 0 || w.n <= 0) return cudaSuccess;
-  if (w.dy_t != nullptr || !wgrad_fits(w)) return cudaErrorInvalidValue;
+  // the product reads dY's bf16 copy where the chain gives one (rounded, and
+  // masked by dy_mask, by the epilogue that wrote dY); the bias gradient dY
+  WGrad p = w;
+  if (w.dy16 != nullptr) {
+    p.dy = w.dy16;
+    p.bf16 |= kAux16;
+    p.dy_mask = nullptr;
+  }
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  ++product_counts().bf16_wgrad;
+  const TmaWgradPlan plan = tma_wgrad_plan(w, sms);
+  if (w.dy_t != nullptr || (!plan.chunks && !wgrad_fits(p))) return cudaErrorInvalidValue;
   if (w.bias_out) {  // the bias gradient: the f32 column sums of dY, by sample, then added
     if (w.a_mask || w.scratch == nullptr || w.scratch_floats < (long)w.batch * w.n)
       return cudaErrorInvalidValue;
@@ -489,8 +1058,18 @@ cudaError_t wgrad_bf16(const WGrad& w, cudaStream_t stream) {
                          stream, has(w.bf16, kAux16))) != cudaSuccess)
       return err;
   }
-  const int tiles = ((w.n + kBN - 1) / kBN) * ((kdim + kBM - 1) / kBM);
+  const int out16 = has(w.bf16, kOut16) ? 1 : 0;
   const long per_split = (long)kdim * w.n;
+  if (plan.chunks) {
+    ++product_counts().bf16_tma_wgrad;
+    if (plan.splits == 1) return launch_wgrad_tma(w, plan, w.out, out16, stream);
+    if ((err = launch_wgrad_tma(w, plan, w.scratch, 0, stream)) != cudaSuccess) return err;
+    split_sum_kernel<<<(unsigned)((per_split + 255) / 256), 256, 0, stream>>>(
+        w.scratch, per_split, plan.splits, w.out, out16);
+    return cudaGetLastError();
+  }
+  ++product_counts().bf16_wgrad;
+  const int tiles = ((w.n + kBN - 1) / kBN) * ((kdim + kBM - 1) / kBM);
   // about four waves of blocks, at least 64 rows a split, within scratch
   long splits = (4 * sms + tiles - 1) / tiles;
   splits = std::min(splits, std::max(1L, (rows + 63L) / 64));
@@ -500,12 +1079,11 @@ cudaError_t wgrad_bf16(const WGrad& w, cudaStream_t stream) {
   rows_per_split = ((rows_per_split + kWRows - 1) / kWRows) * kWRows;
   splits = std::max(1, (rows + rows_per_split - 1) / rows_per_split);
   const dim3 grid((w.n + kBN - 1) / kBN, (kdim + kBM - 1) / kBM, (unsigned)splits);
-  const int out16 = has(w.bf16, kOut16) ? 1 : 0;
   if (splits == 1) {
-    wgrad_bf16_kernel<<<grid, 128, 0, stream>>>(w, rows_per_split, w.out, out16);
+    wgrad_bf16_kernel<<<grid, 128, 0, stream>>>(p, rows_per_split, w.out, out16);
     return cudaGetLastError();
   }
-  wgrad_bf16_kernel<<<grid, 128, 0, stream>>>(w, rows_per_split, w.scratch, 0);
+  wgrad_bf16_kernel<<<grid, 128, 0, stream>>>(p, rows_per_split, w.scratch, 0);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   split_sum_kernel<<<(unsigned)((per_split + 255) / 256), 256, 0, stream>>>(
       w.scratch, per_split, (int)splits, w.out, out16);
@@ -513,3 +1091,55 @@ cudaError_t wgrad_bf16(const WGrad& w, cudaStream_t stream) {
 }
 
 }  // namespace gtt
+
+// ---------------------------------------------------------------------------
+// one bf16 product alone (bare epilogue), and the units' switch, for
+// measurements
+// ---------------------------------------------------------------------------
+
+// Which unit the flow block's bf16 chains may take for their products that
+// ask for the TMA-fed kernels: 1 (the default) those kernels where the shape
+// fits, 0 the mma.sync kernels alone.  Returns the previous setting.
+extern "C" int gtt_bf16_tma(int on) {
+  const int was = gtt::tma_allowed() ? 1 : 0;
+  gtt::tma_allowed() = on != 0;
+  return was;
+}
+
+// out [batch * t, n] f32 = im2col(a) @ B, a bf16 [batch * t, c_in], w bf16
+// [taps * c_in, n] (or w_t: [taps * n, c_in], B its per-tap transpose), on
+// the TMA-fed kernel (tma 1; an error where the shape does not fit) or the
+// mma.sync one (tma 0).
+extern "C" int gtt_bf16_conv_product(const float* a, const float* w, float* out, int batch, int t,
+                                     int c_in, int taps, int dilation, int tap_sign, int n, int w_t,
+                                     int tma, cudaStream_t stream) {
+  gtt::ConvGemm g;
+  g.a = a; g.lda = c_in; g.c_in = c_in; g.taps = taps; g.dilation = dilation;
+  g.batch = batch; g.t = t; g.tap_sign = tap_sign; g.w = w; g.w_t = w_t; g.n = n;
+  g.epilogue = gtt::kBias; g.out = out; g.ldo = n;
+  g.bf16 = gtt::kBf16 | gtt::kA16 | gtt::kW16;
+  g.tma_ring = tma;
+  if (tma && !gtt::tma_conv_chunks(g)) return (int)cudaErrorInvalidValue;
+  return (int)gtt::conv_gemm_bf16(g, stream);
+}
+
+// out [taps * c_in, n] f32 = im2col(a)^T dy over all batch * t rows, a bf16
+// [batch * t, c_in], dy bf16 [batch * t, n]; scratch: the row splits'
+// partial sums.  tma: as above.
+extern "C" int gtt_bf16_wgrad_product(const float* a, const float* dy, float* out, float* scratch,
+                                      long long scratch_floats, int batch, int t, int c_in,
+                                      int taps, int dilation, int n, int tma,
+                                      cudaStream_t stream) {
+  gtt::WGrad w;
+  w.a = a; w.lda = c_in; w.c_in = c_in; w.taps = taps; w.dilation = dilation;
+  w.batch = batch; w.t = t; w.dy = dy; w.dy16 = dy; w.ldy = n; w.n = n; w.out = out;
+  w.scratch = scratch; w.scratch_floats = scratch_floats;
+  w.bf16 = gtt::kBf16 | gtt::kA16 | gtt::kAux16;
+  w.tma_ring = tma;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (tma && !gtt::tma_wgrad_plan(w, sms).chunks) return (int)cudaErrorInvalidValue;
+  return (int)gtt::wgrad_bf16(w, stream);
+}

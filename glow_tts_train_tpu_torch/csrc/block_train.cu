@@ -89,6 +89,17 @@
 // product streams its operands through L2 and only the [rows, h] /
 // [rows, 2h] activations and the saved residuals reach device memory.
 //
+// The bf16 chains (gtt_block_fwd_save_bf16, gtt_block_bwd_store_bf16;
+// block_pallas with dtype bf16): every product but the folded A asks for
+// the TMA-fed wgmma bf16 kernels (bf16_gemm.cu, ConvGemm::tma_ring,
+// WGrad::tma_ring), which copy operands as they lie, so every operand they
+// read is bf16: the gate product acts is written bf16, and each f32
+// cotangent (g_rs, d_xin, dout, d_pre = gx * mask, dzp) has a bf16 copy
+// that the epilogue writing it rounds beside it (ConvGemm::out_c, out2_c),
+// the JAX kernels' one ``.astype(bf16)`` before their two dots; the bias
+// gradients sum the f32 values.  Bound: the same operations over the dense
+// BF16 peak (989 TFLOP/s).
+//
 // The forward's design: every product's weights of a call are split in
 // one presplit_weights launch, its first operation, into the caller's one
 // scratch block (fwd_split_floats); the WN layers' products ask for the
@@ -220,6 +231,7 @@ void block_fwd_products(const Dims& d, const float* x, const float* mask, const 
   }
   ConvGemm start = rows_gemm(d, zp, c, c / 2, w_s, b_s, h, kBiasMask, xs, h, mask);
   start.bf16 = b16(d, kA16 | kW16 | kOut16);
+  start.tma_ring = d.bf16;
   out->push_back(start);
   // bf16: the skip sum in f32 (d.skip), skipm its masked, rounded copy
   WnLayers layers = wn_stack(d, wn, mask, xs, th, sg, acts, d.bf16 ? d.skip : skipm, 1);
@@ -257,6 +269,7 @@ int block_fwd_chain(const Dims& d, const float* x, const float* mask,
                          c, mask);
   e.split = c2; e.flag = sigmoid_scale; e.out2 = logsm; e.ldo2 = c2;
   e.bf16 = b16(d, kA16 | kW16 | kOut16);
+  e.tma_ring = d.bf16;
   std::vector<ConvGemm*> list;
   add_products(&list, &fwd);
   list.push_back(&e);
@@ -285,12 +298,19 @@ int block_fwd_chain(const Dims& d, const float* x, const float* mask,
 // c] and the stack-input cotangent gx [rows, h]; a recompute's forward
 // residuals xs / th / sg [L, rows, h] and the block's zp [rows, c] and
 // skipm [rows, h].
+//
+// A bf16 call's f32 cotangents also have bf16 copies, written by the
+// epilogues that produce them and read by their products: g_rs16 [rows,
+// 2h], dxin16 [rows, 2h], and for the block dout16, dzp16 [rows, c] and
+// gx16 [rows, h] (gx * mask); its acts [rows, h] are bf16.
 struct BwdScratch {
   float *g_rs = nullptr, *dia = nullptr, *dxin = nullptr, *dxin_t = nullptr, *acts = nullptr;
   float *wg = nullptr, *splits = nullptr;
   long ldt = 0, wg_floats = 0, split_floats = 0;
   float *dout = nullptr, *dzp = nullptr, *gx = nullptr;
   float *xs = nullptr, *th = nullptr, *sg = nullptr, *zp = nullptr, *skipm = nullptr;
+  float *g_rs16 = nullptr, *dxin16 = nullptr, *dout16 = nullptr, *dzp16 = nullptr,
+        *gx16 = nullptr;
 };
 
 // c 0: the WN stack alone.
@@ -325,6 +345,15 @@ long bwd_scratch(float* base, int batch, int t, int c, int h, int n_layers, int 
     take(s->dout, rows * c);
     take(s->dzp, rows * c);
     take(s->gx, rows * h);
+  }
+  if (bf16) {  // bf16 copies: two elements a float
+    take(s->g_rs16, rows * h);
+    take(s->dxin16, rows * h);
+    if (c > 0) {
+      take(s->dout16, rows * c2);
+      take(s->dzp16, rows * c2);
+      take(s->gx16, (rows * h + 1) / 2);
+    }
   }
   if (recompute) {
     take(s->xs, L * rows * h);
@@ -366,33 +395,44 @@ cudaError_t walk_products(const Dims& d, const WnWalk& w, const BwdScratch& s, W
   int dilation = 1;
   for (int l = 0; l < d.n_layers; ++l) {
     {  // da = g_rs @ W_rs^T, the gate backward in the epilogue
-      ConvGemm g = rows_gemm(d, s.g_rs, h2, h2, elem_at(w.w_rs, (long)l * h * h2, bf), nullptr,
-                             h, kGateBwd, w.dg ? s.dia : nullptr, h2, nullptr);
+      ConvGemm g = rows_gemm(d, bf ? s.g_rs16 : s.g_rs, h2, h2,
+                             elem_at(w.w_rs, (long)l * h * h2, bf), nullptr, h, kGateBwd,
+                             w.dg ? s.dia : nullptr, h2, nullptr);
       g.w_t = 1;
       g.split = h; g.aux = elem_at(w.th, l * rh, bf); g.aux2 = elem_at(w.sg, l * rh, bf);
       g.ld_aux = h;
       g.out2 = s.dxin; g.ldo2 = h2; g.out3 = s.acts; g.ldo3 = h;
       g.drop = d.drop.at(l);
-      g.bf16 = b16(d, kW16 | kAux16 | kAux2_16);
+      g.bf16 = b16(d, kA16 | kW16 | kAux16 | kAux2_16 | kOut3_16);
+      g.out2_c = s.dxin16; g.tma_ring = bf;
       p->gate.push_back(g);
     }
     {  // gx = gx * mask + transposed conv of d_xin; g_rs[:, :h] = gx * mask
-      ConvGemm g = rows_gemm(d, s.dxin, h2, h2, elem_at(w.w_in, (long)l * taps * h * h2, bf),
-                             nullptr, h, kAccumMask, w.gx, h, w.mask);
+      ConvGemm g = rows_gemm(d, bf ? s.dxin16 : s.dxin, h2, h2,
+                             elem_at(w.w_in, (long)l * taps * h * h2, bf), nullptr, h, kAccumMask,
+                             w.gx, h, w.mask);
       g.w_t = 1; g.taps = taps; g.dilation = dilation; g.tap_sign = -1; g.tap_staged = 1;
       g.out2 = s.g_rs; g.ldo2 = h2;
-      g.bf16 = b16(d, kW16);
+      g.bf16 = b16(d, kA16 | kW16);
+      g.tma_ring = bf;
+      if (bf && l == 0 && s.gx16) {  // the block's d_pre = gx * mask, for dW_s and dzp
+        g.out2 = s.gx16; g.ldo2 = h; g.bf16 |= kOut2_16;
+      } else {
+        g.out2_c = s.g_rs16;
+      }
       p->tconv.push_back(g);
     }
     WGrad rs = wgrad_of(s.acts, h, h, batch, t, s.g_rs, h2, h2,
                         elem_at(w.dwrs, (long)l * h * h2, bf), s.wg, s.wg_floats);
     rs.bias_out = w.dbrs + l * h2;
-    rs.bf16 = b16(d, kOut16);
+    rs.bf16 = b16(d, kA16 | kOut16);
+    rs.dy16 = s.g_rs16; rs.tma_ring = bf;
     p->drs.push_back(rs);
     WGrad in = wgrad_of(elem_at(w.xs, l * rh, bf), h, h, batch, t, s.dxin, h2, h2,
                         elem_at(w.dwin, (long)l * taps * h * h2, bf), s.wg, s.wg_floats);
     in.taps = taps; in.dilation = dilation; in.bias_out = w.dbin + l * h2;
     in.bf16 = b16(d, kA16 | kOut16);
+    in.dy16 = s.dxin16; in.tma_ring = bf;
     p->din.push_back(in);
     dilation *= d.dilation_rate;
   }
@@ -471,30 +511,40 @@ cudaError_t block_bwd_products(const Dims& d, const WnWalk& w, const BwdScratch&
     g.ldb = c; g.split = c2; g.flag = b.sigmoid_scale;
     g.aux = b.dz; g.ld_aux = c; g.aux2 = b.zp; g.aux3 = b.dld; g.out2 = s.dzp; g.ldo2 = c;
     g.bf16 = b16(d, kA16 | kW16 | kAux16 | kAux2_16);
+    g.out_c = s.dout16; g.out2_c = s.dzp16;
   }
   {  // -> the skip half of g_rs (bf16: rounded, as the walk takes it)
-    ConvGemm& g = p->dskip =
-        rows_gemm(d, s.dout, c, c, b.w_e, nullptr, h, kBiasMask, s.g_rs + h, h2, mask);
+    ConvGemm& g = p->dskip = rows_gemm(d, bf ? s.dout16 : s.dout, c, c, b.w_e, nullptr, h,
+                                       kBiasMask, s.g_rs + h, h2, mask);
     g.w_t = 1;
-    g.bf16 = b16(d, kW16 | kRoundOut);
+    g.bf16 = b16(d, kA16 | kW16 | kRoundOut);
+    g.out_c = elem_at(s.g_rs16, h, true);
   }
-  {  // dzp[:, :c2] = (dz0 + d_pre @ W_s^T) * mask
-    ConvGemm& g = p->dzp = rows_gemm(d, s.gx, h, h, b.w_s, nullptr, c2, kResidMask, s.dzp, c, mask);
-    g.w_t = 1; g.a_mask = mask; g.aux = b.dz; g.ld_aux = c;
-    g.bf16 = b16(d, kW16 | kAux16);
+  {  // dzp[:, :c2] = (dz0 + d_pre @ W_s^T) * mask (bf16: d_pre's masked copy)
+    ConvGemm& g = p->dzp =
+        rows_gemm(d, bf ? s.gx16 : s.gx, h, h, b.w_s, nullptr, c2, kResidMask, s.dzp, c, mask);
+    g.w_t = 1; g.a_mask = bf ? nullptr : mask; g.aux = b.dz; g.ld_aux = c;
+    g.bf16 = b16(d, kA16 | kW16 | kAux16);
+    g.out_c = s.dzp16;
   }
   {
-    ConvGemm& g = p->dx = rows_gemm(d, s.dzp, c, c, b.a, nullptr, c, kBias, b.dx, c, nullptr);
+    ConvGemm& g = p->dx =
+        rows_gemm(d, bf ? s.dzp16 : s.dzp, c, c, b.a, nullptr, c, kBias, b.dx, c, nullptr);
     g.w_t = 1;
-    g.bf16 = b16(d, kW16 | kOut16);
+    g.bf16 = b16(d, kA16 | kW16 | kOut16);
   }
   p->dwe = wgrad_of(b.skipm, h, h, batch, t, s.dout, c, c, b.dwe, s.wg, s.wg_floats);
   p->dwe.bias_out = b.dbe;
+  p->dwe.dy16 = s.dout16;
   p->dws = wgrad_of(b.zp, c, c2, batch, t, s.gx, h, h, b.dws, s.wg, s.wg_floats);
   p->dws.dy_mask = mask; p->dws.bias_out = b.dbs;
+  p->dws.dy16 = s.gx16;
   p->da = wgrad_of(b.x, c, c, batch, t, s.dzp, c, c, b.da, s.wg, s.wg_floats);
   p->da.bias_out = b.dba;
+  p->da.dy16 = s.dzp16;
   p->dwe.bf16 = p->dws.bf16 = p->da.bf16 = b16(d, kA16 | kOut16);
+  for (ConvGemm* g : {&p->coupling, &p->dskip, &p->dzp, &p->dx}) g->tma_ring = bf;
+  for (WGrad* g : {&p->dwe, &p->dws, &p->da}) g->tma_ring = bf;
   return walk_products(d, w, s, &p->walk);
 }
 
@@ -512,6 +562,7 @@ int block_bwd_chain(const Dims& d, const WnWalk& w, const BwdScratch& s,
                     const BlockBwdProducts& p, cudaStream_t stream) {
   const int rows = d.batch * d.t;
   GTT_TRY(cudaMemsetAsync(s.g_rs, 0, sizeof(float) * rows * 2 * d.h, stream));
+  if (d.bf16) GTT_TRY(cudaMemsetAsync(s.g_rs16, 0, 2L * rows * 2 * d.h, stream));
   GTT_TRY(cudaMemsetAsync(s.gx, 0, sizeof(float) * rows * d.h, stream));
   GTT_TRY(conv_gemm(p.coupling, stream));
   GTT_TRY(wgrad(p.dwe, stream));
@@ -791,10 +842,11 @@ extern "C" int gtt_block_bwd(
 // entry points (block_pallas with dtype bf16)
 // ---------------------------------------------------------------------------
 
-// x, z, zp, skipm, xs / th / sg, g_all and A, W_s, W_e, W_in, W_rs bf16;
-// the biases, mask, ld and the f32 buffers acts and skip [rows, h] (the
-// skip sum), logsm [rows, c / 2], ld_part [batch, c / 2]: no scratch (the
-// products read their weights as they lie).
+// x, z, zp, skipm, xs / th / sg, g_all and A, W_s, W_e, W_in, W_rs bf16,
+// and the buffer acts [rows, h] (the gate product); the biases, mask, ld and
+// the f32 buffers skip [rows, h] (the skip sum), logsm [rows, c / 2],
+// ld_part [batch, c / 2]: no scratch (the products read their weights as
+// they lie).
 extern "C" int gtt_block_fwd_save_bf16(
     const float* x, const float* mask, const float* a, const float* ba,
     const float* w_s, const float* b_s, const float* w_e, const float* b_e,

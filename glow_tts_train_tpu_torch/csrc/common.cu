@@ -556,7 +556,7 @@ void wn_layer_products(const WnLayers& a, int l, int dilation, ConvGemm* in, Con
       g.aux = elem_at(a.g_all, l * 2L * h, b16);
       g.ld_aux = a.g_stride;
     }
-    if (b16) g.bf16 = kBf16 | kA16 | kW16 | kOut2_16 | kOut3_16 | kAux16;
+    if (b16) g.bf16 = kBf16 | kA16 | kW16 | kOut16 | kOut2_16 | kOut3_16 | kAux16;
     g.drop = a.drop.at(l);
     g.tc_scratch = a.tc_scratch; g.tc_scratch_floats = a.tc_scratch_floats;
     if (a.w_in_split) g.w_split = a.w_in_split + (long)l * 2 * a.taps * h * 2 * h;
@@ -572,8 +572,8 @@ void wn_layer_products(const WnLayers& a, int l, int dilation, ConvGemm* in, Con
     g.flag = !last;  // the last layer's residual half is zero
     g.skip_mask = last && a.skip_mask;
     g.skip_init = l == 0;
-    if (b16) {  // acts f32; x bf16; skipm written beside the f32 sum
-      g.bf16 = kBf16 | kW16 | kOut16 | kAux16 | kOut3_16;
+    if (b16) {  // acts and x bf16; skipm written beside the f32 sum
+      g.bf16 = kBf16 | kA16 | kW16 | kOut16 | kAux16 | kOut3_16;
       g.out3 = a.skipm; g.ldo3 = h;
     }
     g.tc_scratch = a.tc_scratch; g.tc_scratch_floats = a.tc_scratch_floats;

@@ -59,9 +59,13 @@ namespace gtt {
 // and their gradients) are bf16; what the JAX kernel keeps in f32 stays
 // f32, and so does the chain's scratch.  Every product takes the bf16
 // kernels (bf16_gemm.cu; the flow block's folded A the CUDA-core kernel,
-// kBf16Core): each operand element is rounded to bf16 as it is staged (the
-// JAX kernel's ``.astype(bf16)`` before its dot; a no-op on a bf16 tensor)
-// and multiplied on the tensor cores with f32 accumulation.
+// kBf16Core): bf16 x bf16 on the tensor cores with f32 accumulation, each
+// operand element rounded to bf16 once (the JAX kernel's ``.astype(bf16)``
+// before its dot).  The mma.sync kernels round an f32 operand as they stage
+// it; the flow block's chains give every product bf16 operands instead (an
+// f32 cotangent's bf16 copy, written beside it by the epilogue that
+// produces it: ConvGemm::out_c, WGrad::dy16) and ask for the TMA-fed
+// kernels (tma_ring).
 // A descriptor's ``bf16`` word holds kBf16 and one bit per operand stored
 // as bf16 (the pointers stay float*: the bit says the elements are
 // 2-byte); its epilogue then rounds where the JAX kernel casts.
@@ -270,15 +274,24 @@ struct ConvGemm {
   // tensor-core kernel where conv_gemm_tc_plan takes it (conv_gemm_tma_kernel:
   // the same K order as the tap-staged one, B and A brought by TMA into an
   // mbarrier ring, B shareable by a cluster of row tiles); its weights are
-  // split in tile order (WeightSplit::pair)
+  // split in tile order (WeightSplit::pair).  In a bf16 chain (the flow
+  // block's): the TMA-fed wgmma bf16 kernel where the shape fits
+  // (bf16_gemm.cu, conv_gemm_bf16_tma_kernel), else the mma.sync one.
   int tma_ring = 0;
   // a bf16 chain's product (Bf16Bits): kBf16 and its operands' bits
   unsigned bf16 = 0;
+  // a bf16 chain's f32 cotangents: bf16 copies of out and out2 (rounded to
+  // nearest even; the same leading dimensions), written beside them by the
+  // epilogue for the products that read them; or null
+  float* out_c = nullptr;
+  float* out2_c = nullptr;
 };
 
 cudaError_t conv_gemm(const ConvGemm& g, cudaStream_t stream);
-// The bf16 chains' conv-GEMM on the tensor cores (bf16_gemm.cu): any shape,
-// every ConvGemm gather (taps, tap_sign, a_mask, w_t), the bf16 epilogue.
+// The bf16 chains' conv-GEMM on the tensor cores (bf16_gemm.cu): the
+// TMA-fed wgmma kernel where the chain asks (tma_ring) and the shape fits,
+// else the mma.sync kernel (every ConvGemm gather: taps, tap_sign, a_mask,
+// w_t); the bf16 epilogue.
 cudaError_t conv_gemm_bf16(const ConvGemm& g, cudaStream_t stream);
 
 // The K-major 3xTF32 split of weight matrices in one launch
@@ -376,6 +389,14 @@ struct WGrad {
   // a bf16 chain's weight gradient (Bf16Bits: kA16 a, kAux16 dy, kOut16
   // out); the bias gradient stays f32
   unsigned bf16 = 0;
+  // a bf16 chain's dY copy in bf16 (rounded, and masked by dy_mask, by the
+  // epilogue that wrote dY), which the product reads; dy (f32) feeds the
+  // bias gradient.  Or null.
+  const float* dy16 = nullptr;
+  // set by the flow block's bf16 chains: the TMA-fed wgmma bf16 kernel
+  // where the shape fits (wgrad_bf16_tma_kernel; it reads dy16), else the
+  // mma.sync one
+  int tma_ring = 0;
 };
 
 cudaError_t wgrad(const WGrad& w, cudaStream_t stream);
@@ -394,13 +415,16 @@ cudaError_t wgrad_tc(const WGrad& w, int sms, cudaStream_t stream);
 // those whose caller had asked for the tensor-core kernel; of the
 // tensor-core ones, those in the WN reverse walk's modes: tap-staged
 // conv-GEMMs, weight gradients with a bias row, weight gradients reading
-// dY's K-major split; and those in the WN forward's: TMA-fed conv-GEMMs.
+// dY's K-major split; and those in the WN forward's: TMA-fed conv-GEMMs;
+// and the bf16 chains' products on the mma.sync kernels and on the TMA-fed
+// wgmma ones.
 struct ProductCounts {
   long long tc_gemm = 0, tc_wgrad = 0, core_gemm = 0, core_wgrad = 0;
   long long declined_gemm = 0, declined_wgrad = 0;
   long long tap_staged_gemm = 0, bias_wgrad = 0, split_dy_wgrad = 0;
   long long tma_gemm = 0;
-  long long bf16_gemm = 0, bf16_wgrad = 0;  // the bf16 chains' tensor-core products
+  long long bf16_gemm = 0, bf16_wgrad = 0;
+  long long bf16_tma_gemm = 0, bf16_tma_wgrad = 0;
 };
 ProductCounts& product_counts();
 

@@ -234,9 +234,19 @@ __device__ __forceinline__ void epilogue_row(const ConvGemm& g, int m, int n0,
 //  * kCouplingFwd: m, logs_raw = bf16(acc + b) (the end conv's out.astype);
 //    out (holding x1) = bf16((m + e^logs x1) * mask); out2 = logs * mask.
 //  * kCouplingBwd: logs_raw = bf16(acc + b); aux dz, aux2 zp (bf16).
-//  * kGateBwd: aux / aux2 the saved gates (bf16).
+//  * kGateBwd: aux / aux2 the saved gates (bf16); out3 (acts) per kOut3_16.
+//  * kAccumMask: out2 per kOut2_16.
 //  * the plain ones: aux per kAux16, out per kOut16, or rounded in f32 with
 //    kRoundOut.
+// Where the chain gives out_c / out2_c, the f32 cotangents written to out
+// and out2 (dout and dzp's second half by kCouplingBwd, d_xin by kGateBwd,
+// the masked gx by kAccumMask, the plain ones' out) are also written there
+// in bf16: the copy a product reads, rounded once as the JAX kernel's
+// ``.astype(bf16)`` before its dots.
+__device__ __forceinline__ void st_copy(float* p, long i, float v) {
+  if (p) st_act(p, i, v, true);
+}
+
 template <int kW>
 __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const EpilogueRow& r,
                                                    int n0, const float (&acc)[kW]) {
@@ -247,22 +257,42 @@ __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const Epil
   const bool out3_16 = has(bits, kOut3_16), aux16 = has(bits, kAux16);
   const bool aux2_16 = has(bits, kAux2_16);
   const long ob = m * g.ldo;  // this row's first element of out
+  // Each case loads every operand of its columns before it stores a result
+  // (a load cannot move above a store to a pointer that may alias it): the
+  // loads of a call are in flight together, one latency a call, not one a
+  // column.  cnt: the columns below n.
+  const int cnt = g.n - n0 < kW ? g.n - n0 : kW;
   switch (g.epilogue) {
     case kGate:
     case kCouplingFwd: {
-      for (int p = 0; p < kW / 2; ++p) {
-        const int n = n0 + 2 * p;
-        if (n >= g.n) break;
-        const int j = n >> 1;
-        float lo = acc[2 * p] + bias_at(g, j);
-        float hi = acc[2 * p + 1] + bias_at(g, j + g.split);
+      constexpr int kP = kW / 2;  // pairs (j, j + split) at columns n0 + 2p, + 1
+      float b_lo[kP], b_hi[kP], in_lo[kP], in_hi[kP];
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        if (2 * p >= cnt) break;
+        const int j = (n0 >> 1) + p;
+        b_lo[p] = bias_at(g, j);
+        b_hi[p] = bias_at(g, j + g.split);
+        if (g.epilogue == kCouplingFwd) {  // out holds x1
+          in_lo[p] = ld_act(g.out, ob + j, out16);
+        } else if (g.aux) {  // the conditioning
+          const long gb = (long)r.b * g.ld_aux;
+          in_lo[p] = ld_act(g.aux, gb + j, aux16);
+          in_hi[p] = ld_act(g.aux, gb + j + g.split, aux16);
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        if (2 * p >= cnt) break;
+        const int j = (n0 >> 1) + p;
+        float lo = acc[2 * p] + b_lo[p];
+        float hi = acc[2 * p + 1] + b_hi[p];
         if (g.epilogue == kGate) {
           lo = dropped(g, r, j, lo);
           hi = dropped(g, r, j + g.split, hi);
           if (g.aux) {
-            const long gb = (long)r.b * g.ld_aux;
-            lo += ld_act(g.aux, gb + j, aux16);
-            hi += ld_act(g.aux, gb + j + g.split, aux16);
+            lo += in_lo[p];
+            hi += in_hi[p];
           }
           const float th = tanhf(lo);
           const float sg = sigmoidf(hi);
@@ -271,30 +301,38 @@ __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const Epil
             st_act(g.out2, m * g.ldo2 + j, th, out2_16);
             st_act(g.out3, m * g.ldo3 + j, sg, out3_16);
           }
-        } else {  // kCouplingFwd: out holds x1
+        } else {
           const float logs = coupling_logs(g, round_bf16(hi));
-          const float x1 = ld_act(g.out, ob + j, out16);
-          st_act(g.out, ob + j, (round_bf16(lo) + expf(logs) * x1) * rm, out16);
+          st_act(g.out, ob + j, (round_bf16(lo) + expf(logs) * in_lo[p]) * rm, out16);
           g.out2[m * g.ldo2 + j] = logs * rm;
         }
       }
       break;
     }
     case kResSkip: {
+      float bias[kW], in[kW];
+#pragma unroll
       for (int e = 0; e < kW; ++e) {
+        if (e >= cnt) break;
         const int n = n0 + e;
-        if (n >= g.n) break;
-        const float v = round_bf16(acc[e] + bias_at(g, n));
+        bias[e] = bias_at(g, n);
+        if (n < g.split) {  // the residual's base
+          if (g.flag)
+            in[e] = g.aux ? ld_act(g.aux, m * g.ld_aux + n, aux16) : ld_act(g.out, ob + n, out16);
+        } else if (!g.skip_init) {  // the skip sum so far
+          in[e] = g.out2[m * g.ldo2 + n - g.split];
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < kW; ++e) {
+        if (e >= cnt) break;
+        const int n = n0 + e;
+        const float v = round_bf16(acc[e] + bias[e]);
         if (n < g.split) {
-          if (g.flag) {
-            const float base = g.aux ? ld_act(g.aux, m * g.ld_aux + n, aux16)
-                                     : ld_act(g.out, ob + n, out16);
-            st_act(g.out, ob + n, round_bf16(base + v) * rm, out16);
-          }
+          if (g.flag) st_act(g.out, ob + n, round_bf16(in[e] + v) * rm, out16);
         } else {
-          float* s = g.out2 + m * g.ldo2 + n - g.split;
-          const float sum = g.skip_init ? v : *s + v;
-          *s = sum;
+          const float sum = g.skip_init ? v : in[e] + v;
+          g.out2[m * g.ldo2 + n - g.split] = sum;
           if (g.skip_mask) st_act(g.out3, m * g.ldo3 + n - g.split, round_bf16(sum) * rm, out3_16);
         }
       }
@@ -302,52 +340,82 @@ __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const Epil
     }
     case kCouplingBwd: {
       const float dld = g.aux3[r.b];
+      float bias[kW], dz[kW], x1[kW];
+#pragma unroll
       for (int e = 0; e < kW; ++e) {
+        if (e >= cnt) break;
+        const long at = m * g.ld_aux + g.split + n0 + e;
+        bias[e] = bias_at(g, n0 + e);
+        dz[e] = ld_act(g.aux, at, aux16);
+        x1[e] = ld_act(g.aux2, at, aux2_16);
+      }
+#pragma unroll
+      for (int e = 0; e < kW; ++e) {
+        if (e >= cnt) break;
         const int j = n0 + e;
-        if (j >= g.n) break;
-        const float raw = round_bf16(acc[e] + bias_at(g, j));
+        const float raw = round_bf16(acc[e] + bias[e]);
         const float logs = coupling_logs(g, raw);
         const float el = expf(logs);
-        const long at = m * g.ld_aux + g.split + j;
-        const float dz1m = ld_act(g.aux, at, aux16) * rm;
-        float dlogs = dz1m * el * ld_act(g.aux2, at, aux2_16) + dld * rm;
+        const float dz1m = dz[e] * rm;
+        float dlogs = dz1m * el * x1[e] + dld * rm;
         if (g.flag) {
           const float sgm = sigmoidf(raw + 2.f);
           dlogs = dlogs * (sgm * (1.f - sgm)) / (1e-6f + sgm);
         }
+        const float dx1 = dz1m * el * rm;
         g.out[ob + j] = dz1m;
         g.out[ob + g.split + j] = dlogs;
-        g.out2[m * g.ldo2 + g.split + j] = dz1m * el * rm;
+        g.out2[m * g.ldo2 + g.split + j] = dx1;
+        st_copy(g.out_c, ob + j, dz1m);
+        st_copy(g.out_c, ob + g.split + j, dlogs);
+        st_copy(g.out2_c, m * g.ldo2 + g.split + j, dx1);
       }
       break;
     }
     case kGateBwd: {
+      float th[kW], sg[kW];
+#pragma unroll
       for (int e = 0; e < kW; ++e) {
+        if (e >= cnt) break;
+        th[e] = ld_act(g.aux, m * g.ld_aux + n0 + e, aux16);
+        sg[e] = ld_act(g.aux2, m * g.ld_aux + n0 + e, aux2_16);
+      }
+#pragma unroll
+      for (int e = 0; e < kW; ++e) {
+        if (e >= cnt) break;
         const int j = n0 + e;
-        if (j >= g.n) break;
         const float da = acc[e];
-        const float th = ld_act(g.aux, m * g.ld_aux + j, aux16);
-        const float sg = ld_act(g.aux2, m * g.ld_aux + j, aux2_16);
-        const float du = da * sg * (1.f - th * th);
-        const float dv = da * th * sg * (1.f - sg);
+        const float du = da * sg[e] * (1.f - th[e] * th[e]);
+        const float dv = da * th[e] * sg[e] * (1.f - sg[e]);
         if (g.out) {
           g.out[ob + j] = du;
           g.out[ob + g.split + j] = dv;
         }
-        float* dx = g.out2 + m * g.ldo2;
-        dx[j] = dropped(g, r, j, du);
-        dx[g.split + j] = dropped(g, r, g.split + j, dv);
-        g.out3[m * g.ldo3 + j] = th * sg;
+        const long dx = m * g.ldo2;
+        const float du_x = dropped(g, r, j, du), dv_x = dropped(g, r, g.split + j, dv);
+        g.out2[dx + j] = du_x;
+        g.out2[dx + g.split + j] = dv_x;
+        st_copy(g.out2_c, dx + j, du_x);
+        st_copy(g.out2_c, dx + g.split + j, dv_x);
+        st_act(g.out3, m * g.ldo3 + j, th[e] * sg[e], out3_16);
       }
       break;
     }
     case kAccumMask: {
+      float prev[kW];
+#pragma unroll
+      for (int e = 0; e < kW; ++e)
+        if (e < cnt) prev[e] = g.out[ob + n0 + e];
+#pragma unroll
       for (int e = 0; e < kW; ++e) {
+        if (e >= cnt) break;
         const int n = n0 + e;
-        if (n >= g.n) break;
-        const float v = g.out[ob + n] * rm + acc[e];
+        const float v = prev[e] * rm + acc[e];
         g.out[ob + n] = v;
-        if (g.out2) g.out2[m * g.ldo2 + n] = v * rm;
+        if (g.out2) {
+          st_act(g.out2, m * g.ldo2 + n, v * rm, out2_16);
+          st_copy(g.out2_c, m * g.ldo2 + n, v * rm);
+        }
       }
       break;
     }
@@ -372,15 +440,25 @@ __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const Epil
       break;  // serving only: never a bf16 chain's
     default: {
       const bool round_out = has(bits, kRoundOut);
+      float bias[kW], res[kW];
+#pragma unroll
       for (int e = 0; e < kW; ++e) {
+        if (e >= cnt) break;
+        bias[e] = bias_at(g, n0 + e);
+        if (g.epilogue == kResidMask) res[e] = ld_act(g.aux, m * g.ld_aux + n0 + e, aux16);
+      }
+#pragma unroll
+      for (int e = 0; e < kW; ++e) {
+        if (e >= cnt) break;
         const int n = n0 + e;
-        if (n >= g.n) break;
-        float v = acc[e] + bias_at(g, n);
+        float v = acc[e] + bias[e];
         if (g.epilogue == kBiasRelu || g.epilogue == kBiasReluMask) v = fmaxf(v, 0.f);
-        if (g.epilogue == kResidMask) v = (ld_act(g.aux, m * g.ld_aux + n, aux16) + v) * rm;
+        if (g.epilogue == kResidMask) v = (res[e] + v) * rm;
         if (g.epilogue == kBiasMask || g.epilogue == kBiasReluMask) v *= rm;
         if (g.epilogue != kResidMask) v = site_drop(g.drop, r.b, r.tr, g.n, n, v);
-        st_act(g.out, ob + n, round_out ? round_bf16(v) : v, out16);
+        if (round_out) v = round_bf16(v);
+        st_act(g.out, ob + n, v, out16);
+        st_copy(g.out_c, ob + n, v);
       }
     }
   }

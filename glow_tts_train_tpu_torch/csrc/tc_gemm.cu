@@ -146,13 +146,10 @@
 #include "common.cuh"
 #include "epilogue.cuh"
 #include "mma.cuh"
+#include "tma.cuh"
 
 namespace gtt {
 namespace {
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16-byte asynchronous copy global -> shared; `bytes` 0 fills zeros.
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
@@ -297,26 +294,6 @@ struct Wgmma<128> {
   }
 };
 
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Shared-memory descriptor of a K-major B tile in the 128-byte swizzle:
-// start address, leading offset 1 (unused by this layout), 1024 bytes
-// between 8-row groups, layout type 1 (128-byte swizzle).
-__device__ __forceinline__ uint64_t b_descriptor(uint32_t addr) {
-  return (uint64_t)((addr & 0x3ffffu) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
 
 // The block's kTM x kBN output tile from the accumulators (the fragment
 // layout of conv_gemm_tc_kernel's wgmmas) through shared memory at
@@ -570,8 +547,8 @@ __global__ void __launch_bounds__(2 * kTM, 1)
   auto step = [&](int slice, uint32_t (&big)[4][4], uint32_t (&small)[4][4],
                   uint32_t (&next_big)[4][4], uint32_t (&next_small)[4][4]) {
     const int stage = slice % kStages;
-    const uint64_t d_big = b_descriptor(b_base + (stage * 2) * kBTileBytes);
-    const uint64_t d_small = b_descriptor(b_base + (stage * 2 + 1) * kBTileBytes);
+    const uint64_t d_big = sw128_descriptor(b_base + (stage * 2) * kBTileBytes);
+    const uint64_t d_small = sw128_descriptor(b_base + (stage * 2 + 1) * kBTileBytes);
     wgmma_fence();
     // The slice's eight small products first, then its four big ones: each
     // addition into the accumulator rounds toward zero by up to an ulp of
@@ -799,8 +776,8 @@ __global__ void __launch_bounds__(2 * kTM, 1)
   auto step = [&](int s, uint32_t (&big)[4][4], uint32_t (&small)[4][4],
                   uint32_t (&next_big)[4][4], uint32_t (&next_small)[4][4]) {
     const int stage = s % kStages;
-    const uint64_t d_big = b_descriptor(b_base + (stage * 2) * kBTileBytes);
-    const uint64_t d_small = b_descriptor(b_base + (stage * 2 + 1) * kBTileBytes);
+    const uint64_t d_big = sw128_descriptor(b_base + (stage * 2) * kBTileBytes);
+    const uint64_t d_small = sw128_descriptor(b_base + (stage * 2 + 1) * kBTileBytes);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
@@ -858,37 +835,6 @@ cudaError_t launch_conv_gemm_tap(const ConvGemm& g, const float* big, cudaStream
 // the TMA-fed conv-GEMM (the WN training forward chains' products)
 // ---------------------------------------------------------------------------
 
-// Mbarriers in shared memory (PTX mbarrier.*), each 8 bytes.
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-// this thread's arrival, and `bytes` more that copies will complete
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// until the phase of the given parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
 // an arrival on the barrier at the same offset in CTA `rank` of the cluster
 __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
   asm volatile(
@@ -901,18 +847,8 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank)
       : "memory");
 }
 
-// One box of a 2-D tensor map at (c0 along the rows, c1 rows) into shared
-// memory, its bytes completed on `bar`; multicast: into the same offset of
-// every CTA of the cluster in `ctas`, each completing its own `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
+// tma_load multicast into the same offset of every CTA of the cluster in
+// `ctas`, each completing its own `bar`.
 __device__ __forceinline__ void tma_load_multicast(uint32_t dst, const CUtensorMap* map,
                                                    uint32_t bar, int c0, int c1,
                                                    uint16_t ctas) {
@@ -1118,8 +1054,8 @@ __global__ void __launch_bounds__(2 * kTM + 128, kTM == 64 ? 2 : 1)
                   uint32_t (&next_big)[4][4], uint32_t (&next_small)[4][4]) {
     const int st = s % kStages;
     mbar_wait(full_b(st), (s / kStages) & 1);
-    const uint64_t d_big = b_descriptor(b_base + st * kStageBytes);
-    const uint64_t d_small = b_descriptor(b_base + st * kStageBytes + kBTileBytes);
+    const uint64_t d_big = sw128_descriptor(b_base + st * kStageBytes);
+    const uint64_t d_small = sw128_descriptor(b_base + st * kStageBytes + kBTileBytes);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
@@ -1150,29 +1086,6 @@ __global__ void __launch_bounds__(2 * kTM + 128, kTM == 64 ? 2 : 1)
   // every consumer's last wgmmas are done before the epilogue's staging
   // overwrites the B ring (no copy is left in flight into it)
   tile_epilogue<kBN, kTM, true>(g, acc, smem_raw, smem_base, nullptr, m0, n0, frag_row, frag_col);
-}
-
-// cuTensorMapEncodeTiled, a driver function, through the runtime's entry
-// point query: the library links the CUDA runtime alone.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // A row-major f32 [rows, cols] of row stride ld floats as boxes of 32
@@ -1425,8 +1338,8 @@ __global__ void __launch_bounds__(256, 1)
   auto step = [&](int slice, uint32_t (&big)[4][4], uint32_t (&small)[4][4],
                   uint32_t (&next_big)[4][4], uint32_t (&next_small)[4][4]) {
     const int buf = slice & 1;
-    const uint64_t d_big = b_descriptor(smem_base + (buf * 2) * kBTileBytes);
-    const uint64_t d_small = b_descriptor(smem_base + (buf * 2 + 1) * kBTileBytes);
+    const uint64_t d_big = sw128_descriptor(smem_base + (buf * 2) * kBTileBytes);
+    const uint64_t d_small = sw128_descriptor(smem_base + (buf * 2 + 1) * kBTileBytes);
     cp_async_wait<1>();
     __syncthreads();
     wgmma_fence();
@@ -1576,8 +1489,8 @@ __global__ void __launch_bounds__(256, 1)
   auto step = [&](int slice, uint32_t (&big)[4][4], uint32_t (&small)[4][4],
                   uint32_t (&next_big)[4][4], uint32_t (&next_small)[4][4]) {
     const int stage = slice % kStages;
-    const uint64_t d_big = b_descriptor(b_base + (stage * 2) * kBTileBytes);
-    const uint64_t d_small = b_descriptor(b_base + (stage * 2 + 1) * kBTileBytes);
+    const uint64_t d_big = sw128_descriptor(b_base + (stage * 2) * kBTileBytes);
+    const uint64_t d_small = sw128_descriptor(b_base + (stage * 2 + 1) * kBTileBytes);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
@@ -2169,6 +2082,7 @@ extern "C" void gtt_product_counts(long long* counts, int reset) {
   counts[3] = c.core_wgrad; counts[4] = c.declined_gemm; counts[5] = c.declined_wgrad;
   counts[6] = c.tap_staged_gemm; counts[7] = c.bias_wgrad; counts[8] = c.split_dy_wgrad;
   counts[9] = c.tma_gemm; counts[10] = c.bf16_gemm; counts[11] = c.bf16_wgrad;
+  counts[12] = c.bf16_tma_gemm; counts[13] = c.bf16_tma_wgrad;
   if (reset) c = gtt::ProductCounts();
 }
 

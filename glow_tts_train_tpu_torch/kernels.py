@@ -16,6 +16,7 @@ outputs and scratch with ``torch.empty``.  :class:`Entry` holds one entry
 point's signature and its launch count.
 """
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -235,6 +236,10 @@ TC_CONV_GEMM_WALK = Entry("gtt_tc_conv_gemm_walk", "p" * 4 + "L" + "i" * 8)
 TC_CONV_GEMM_FWD = Entry("gtt_tc_conv_gemm_fwd", "p" * 4 + "L" + "i" * 10)
 TC_WGRAD = Entry("gtt_tc_wgrad", "p" * 8 + "i" * 11)
 SPLIT_WEIGHTS = Entry("gtt_split_weights", "p" * 3 + "i" * 3)
+# one bf16 product alone (csrc/bf16_gemm.cu), on the TMA-fed wgmma kernel or
+# the mma.sync one
+BF16_CONV_PRODUCT = Entry("gtt_bf16_conv_product", "p" * 3 + "i" * 9)
+BF16_WGRAD_PRODUCT = Entry("gtt_bf16_wgrad_product", "p" * 4 + "L" + "i" * 7)
 
 ENTRIES = {
     "prenet": PRENET,
@@ -267,12 +272,16 @@ ENTRIES = {
     "tc_conv_gemm_fwd": TC_CONV_GEMM_FWD,
     "tc_wgrad": TC_WGRAD,
     "split_weights": SPLIT_WEIGHTS,
+    "bf16_conv_product": BF16_CONV_PRODUCT,
+    "bf16_wgrad_product": BF16_WGRAD_PRODUCT,
 }
 
 PRODUCT_COUNT_NAMES = (
     "tc_gemm", "tc_wgrad", "core_gemm", "core_wgrad", "declined_gemm", "declined_wgrad",
     "tap_staged_gemm", "bias_wgrad", "split_dy_wgrad", "tma_gemm", "bf16_gemm", "bf16_wgrad",
+    "bf16_tma_gemm", "bf16_tma_wgrad",
 )
+BF16_COUNT_NAMES = PRODUCT_COUNT_NAMES[-4:]
 
 
 def product_counts(reset: bool = False) -> typing.Dict[str, int]:
@@ -285,19 +294,37 @@ def product_counts(reset: bool = False) -> typing.Dict[str, int]:
     gradients with a bias row (``bias_wgrad``) and reading dY's K-major
     split (``split_dy_wgrad``), and in the WN forward's: TMA-fed
     conv-GEMMs (``tma_gemm``); and the bf16 chains' tensor-core products
-    (``bf16_gemm``, ``bf16_wgrad``; their folded-A product on the CUDA
-    cores counts as ``core_gemm``), these two keys only where a bf16
-    product ran (an f32 chain's counts keep the f32 chains' keys).
-    ``reset`` zeroes the counters after the read."""
+    on the mma.sync kernels (``bf16_gemm``, ``bf16_wgrad``) and on the
+    TMA-fed wgmma ones (``bf16_tma_gemm``, ``bf16_tma_wgrad``; the flow
+    block's folded-A product on the CUDA cores counts as ``core_gemm``),
+    these four keys only where a bf16 product ran (an f32 chain's counts
+    keep the f32 chains' keys).  ``reset`` zeroes the counters after the
+    read."""
     fn = library().gtt_product_counts
     fn.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
     fn.restype = None
     raw = (ctypes.c_longlong * len(PRODUCT_COUNT_NAMES))()
     fn(raw, int(reset))
     counts = dict(zip(PRODUCT_COUNT_NAMES, raw))
-    if not counts["bf16_gemm"] + counts["bf16_wgrad"]:
-        del counts["bf16_gemm"], counts["bf16_wgrad"]
+    if not any(counts[k] for k in BF16_COUNT_NAMES):
+        for k in BF16_COUNT_NAMES:
+            del counts[k]
     return counts
+
+
+@contextlib.contextmanager
+def bf16_mma_only():
+    """Within the block, the flow block's bf16 chains run every product on
+    the mma.sync kernels (``gtt_bf16_tma(0)``), for a measurement of both
+    units in turns; the TMA-fed kernels are the default."""
+    fn = library().gtt_bf16_tma
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    was = fn(0)
+    try:
+        yield
+    finally:
+        fn(was)
 
 
 def product_splits(reset: bool = False) -> int:

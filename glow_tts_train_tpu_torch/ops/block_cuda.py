@@ -435,12 +435,12 @@ def block_fwd_save(
     xs = x.new_empty((n_layers, batch, t, h))
     th = torch.empty_like(xs)
     sg = torch.empty_like(xs)
-    acts = kernels.scratch(batch * t * h, x)
     logsm = kernels.scratch(batch * t * (c // 2), x)
     ld_part = kernels.scratch(batch * (c // 2), x)
     f = folded
     drop, threshold, scale = drop_args(p_dropout)
-    if x.dtype == bf16.BF16:  # the skip sum f32; no weight splits
+    if x.dtype == bf16.BF16:  # acts bf16, the skip sum f32; no weight splits
+        acts = x.new_empty((batch * t * h,))
         skip = kernels.scratch(batch * t * h, x)
         kernels.BLOCK_FWD_SAVE_BF16(
             x, x_mask, f["A"], f["bA"], f["W_s"], f["b_s"], f["W_e"], f["b_e"],
@@ -451,6 +451,7 @@ def block_fwd_save(
             drop, int(seed), threshold, scale,
         )
         return z, ld, {"zp": zp, "skipm": skipm, "xs": xs, "th": th, "sg": sg}
+    acts = kernels.scratch(batch * t * h, x)
     scratch = _fwd_scratch(x, h, n_layers, kernel_size)
     kernels.BLOCK_FWD_SAVE(
         x, x_mask, f["A"], f["bA"], f["W_s"], f["b_s"], f["W_e"], f["b_e"],

@@ -555,6 +555,184 @@ def duration_products(
                               [(taps * f, c_in), (taps * f, f)])
 
 
+# the TMA-fed wgmma bf16 products (csrc/bf16_gemm.cu): a stage's 64 x 64
+# chunks of 128-byte rows; the conv-GEMM's tile rows (one consumer
+# warpgroup, two blocks an SM), the weight gradient's im2col columns (two
+# consumer warpgroups) and row slice
+BF16_CHUNK_BYTES, BF16_CONV_TILE, BF16_WGRAD_TILE, BF16_SLICE = 64 * 128, 64, 128, 64
+
+
+def bf16_ring(kind: str, chunks: int) -> typing.Tuple[int, int]:
+    """(stages, shared memory) of a TMA-fed bf16 kernel whose B tile is
+    ``chunks`` 64-column chunks (``ConvRing``, ``WgradRing``): a
+    conv-GEMM's stage holds A's one chunk and B's, 96 KB of stages (two
+    blocks an SM); a weight gradient's A's two chunks and B's, 4 stages;
+    then the stages' full and empty barriers and the room to align."""
+    a, stages = (1, 12 // (1 + chunks)) if kind == "conv_gemm" else (2, 4)
+    return stages, stages * (a + chunks) * BF16_CHUNK_BYTES + 2 * stages * 8 + 1024
+
+
+def bf16_conv_chunks(c_in: int, n: int, lda: int, ldb: int, w_t: bool, paired: bool,
+                     b_offset: int = 0) -> int:
+    """``tma_conv_chunks`` of a bf16 chain's conv-GEMM that asks for the
+    TMA-fed kernel: 64-column chunks a tile (a paired epilogue's one of each
+    half, else up to 3), or 0 where the mma.sync kernel takes it: fewer
+    than 64 channels or columns, rows (c_in, lda, ldb) not whole 16-byte
+    groups, or B starting ``b_offset`` elements into its tensor off a
+    16-byte boundary."""
+    if (c_in < 64 or n < 64 or c_in % 8 or lda % 8 or (not w_t and ldb % 8)
+            or b_offset % 8 or (paired and w_t)):
+        return 0
+    return 2 if paired else min(3, -(-n // 64))
+
+
+def bf16_wgrad_plan(batch: int, t: int, c_in: int, taps: int, n: int, lda: int, sms: int,
+                    scratch_floats: int = WALK_WG_FLOATS) -> typing.Tuple[int, int]:
+    """``tma_wgrad_plan`` of a bf16 chain's weight gradient that asks for
+    the TMA-fed kernel over ``batch`` samples of ``t`` rows -> (chunks
+    a tile, 0 where the mma.sync kernel takes it; row splits): at least 64
+    im2col columns and 64 dY columns, whole 16-byte groups, channels in
+    whole 64-wide boxes where there are taps; the row slices (64 rows of
+    one sample) split for one wave of one block an SM at most, within the
+    scratch."""
+    kdim = taps * c_in
+    if (kdim < 64 or n < 64 or c_in % 8 or lda % 8 or n % 8 or (taps > 1 and c_in % 64)):
+        return 0, 1
+    chunks = min(3, -(-n // 64))
+    tiles = -(-n // (64 * chunks)) * -(-kdim // BF16_WGRAD_TILE)
+    slices = batch * -(-t // BF16_SLICE)
+    splits = min(max(1, sms // tiles), slices)
+    splits = min(splits, max(1, scratch_floats // (kdim * n)))
+    return chunks, splits
+
+
+def bf16_block_products(
+    batch: int, t: int, c: int, h: int, n_layers: int, taps: int, dilation_rate: int, sms: int,
+    backward: bool = False, with_g: bool = False,
+) -> typing.Dict[str, typing.Any]:
+    """The plan of one call of the flow block's bf16 forward-save
+    (``gtt_block_fwd_save_bf16``, bf16 row 10) or backward-store
+    (``gtt_block_bwd_store_bf16``, bf16 row 12) over ``batch`` samples of
+    ``t`` rows (csrc/block_train.cu, csrc/bf16_gemm.cu): the plain version
+    of its products' dispatch.  -> {"products": per product its name, kind
+    ("conv_gemm"/"wgrad"), shape ([rows, K, N]; a weight gradient's [K,
+    rows, N]), unit ("tma": the TMA-fed wgmma kernel, "mma": the mma.sync
+    kernel, "core": the folded A's CUDA-core product), chunks (64-column
+    chunks a tile), tiles (blocks of a launch), stages, shared memory (a
+    block's), row splits and launches; "launches": the device operations of a call;
+    "counts": ``kernels.product_counts`` of a call}."""
+    rows, c2, h2 = batch * t, c // 2, 2 * h
+    products: typing.List[dict] = []
+
+    def conv(name, c_in, n, lda, ldb=0, w_t=False, paired=False, k_taps=1, b_offset=0,
+             core=False):
+        chunks = 0 if core else bf16_conv_chunks(c_in, n, lda, ldb or n, w_t, paired, b_offset)
+        n_tiles = (-(-(n // 2) // 64) if paired else -(-n // (64 * chunks))) if chunks else 0
+        stages, smem = bf16_ring("conv_gemm", chunks) if chunks else (0, 0)
+        products.append({
+            "name": name, "kind": "conv_gemm", "shape": [rows, k_taps * c_in, n],
+            "unit": "core" if core else ("tma" if chunks else "mma"), "chunks": chunks,
+            "tiles": n_tiles * batch * -(-t // BF16_CONV_TILE), "stages": stages,
+            "smem": smem, "splits": 1, "launches": 1})
+
+    def wgrad(name, c_in, n, lda, k_taps=1):
+        chunks, splits = bf16_wgrad_plan(batch, t, c_in, k_taps, n, lda, sms)
+        tiles = (-(-n // (64 * chunks)) * -(-(k_taps * c_in) // BF16_WGRAD_TILE) * splits
+                 if chunks else 0)
+        stages, smem = bf16_ring("wgrad", chunks) if chunks else (0, 0)
+        products.append({
+            "name": name, "kind": "wgrad", "shape": [k_taps * c_in, rows, n],
+            "unit": "tma" if chunks else "mma", "chunks": chunks, "tiles": tiles,
+            "stages": stages, "smem": smem, "splits": splits,
+            # the bias gradient's two column sums, the product, the splits' sum
+            "launches": 3 + int(chunks > 0 and splits > 1)})
+
+    if not backward:
+        conv("zp", c, c, c, core=True)
+        conv("start", c2, h, c)
+        for l in range(n_layers):
+            conv(f"in_{l}", h, h2, h, paired=True, k_taps=taps)
+            conv(f"res_skip_{l}", h, h2, h)
+        conv("coupling", h, c, h, paired=True)
+        fixed = 3  # z <- zp, ld's two sums
+    else:
+        conv("coupling", h, c2, h, ldb=c, b_offset=c2)
+        wgrad("dW_e", h, c, h)
+        conv("dskip", c, h, c, w_t=True)
+        for l in reversed(range(n_layers)):
+            conv(f"gate_{l}", h2, h, h2, w_t=True)
+            wgrad(f"dW_rs_{l}", h, h2, h)
+            wgrad(f"dW_in_{l}", h, h2, h, k_taps=taps)
+            conv(f"transposed_{l}", h2, h, h2, w_t=True, k_taps=taps)
+        wgrad("dW_s", c2, h, c)
+        conv("dzp", h, c2, h, w_t=True)
+        wgrad("dA", c, c, c)
+        conv("dx", c, c, c, w_t=True)
+        fixed = 3 + (n_layers if with_g else 0)  # g_rs, its copy and gx zeroed; dg's sums
+    counts = {"core_gemm": 0, "bf16_gemm": 0, "bf16_wgrad": 0, "bf16_tma_gemm": 0,
+              "bf16_tma_wgrad": 0}
+    for p in products:
+        if p["unit"] == "core":
+            counts["core_gemm"] += 1
+        else:
+            tma = "_tma" if p["unit"] == "tma" else ""
+            counts[f"bf16{tma}_{'gemm' if p['kind'] == 'conv_gemm' else 'wgrad'}"] += 1
+    return {"products": products, "launches": fixed + sum(p["launches"] for p in products),
+            "counts": counts}
+
+
+def bf16_conv_product_plain(a, w, taps=1, dilation=1, tap_sign=1, w_t=False) -> torch.Tensor:
+    """Plain version of :func:`bf16_conv_product`: bf16 operands, exact
+    products summed in f32."""
+    return conv_product_plain(a.float(), w.float(), taps, dilation, tap_sign, w_t=w_t)
+
+
+def bf16_conv_product(
+    a: torch.Tensor, w: torch.Tensor, taps: int = 1, dilation: int = 1, tap_sign: int = 1,
+    w_t: bool = False, unit: str = "tma",
+) -> torch.Tensor:
+    """a [b, t, c] bf16, w bf16 [taps * c, n] (or with ``w_t`` a forward
+    conv's [taps * n, c], B its per-tap transpose) -> im2col(a) @ B [b, t,
+    n] f32 by one bf16 product on ``unit``: "tma" the TMA-fed wgmma kernel
+    (an error where the shape does not fit), "mma" the mma.sync one.  CPU
+    tensors take the plain version."""
+    if kernels.route(a) == "plain":
+        return bf16_conv_product_plain(a, w, taps, dilation, tap_sign, w_t)
+    batch, t, c = a.shape
+    kernels.check_operands(a.device, ("a", "w"), a=a, w=w)
+    n = w.shape[0] // taps if w_t else w.shape[1]
+    kernels.check_shape("w", w, (taps * n, c) if w_t else (taps * c, n))
+    out = torch.empty((batch, t, n), dtype=torch.float32, device=a.device)
+    kernels.BF16_CONV_PRODUCT(a, w, out, batch, t, c, taps, dilation, tap_sign, n, int(w_t),
+                              int(unit == "tma"))
+    return out
+
+
+def bf16_weight_gradient_plain(a, dy, taps=1, dilation=1) -> torch.Tensor:
+    """Plain version of :func:`bf16_weight_gradient`."""
+    return weight_gradient_plain(a.float(), dy.float(), taps, dilation)
+
+
+def bf16_weight_gradient(
+    a: torch.Tensor, dy: torch.Tensor, taps: int = 1, dilation: int = 1, unit: str = "tma"
+) -> torch.Tensor:
+    """a [b, t, c], dy [b, t, n], both bf16 -> im2col(a)^T @ dy [taps * c, n]
+    f32 over all b * t rows by one bf16 weight gradient on ``unit`` (as
+    :func:`bf16_conv_product`), its row splits added in a fixed order.  CPU
+    tensors take the plain version."""
+    if kernels.route(a) == "plain":
+        return bf16_weight_gradient_plain(a, dy, taps, dilation)
+    batch, t, c = a.shape
+    n = dy.shape[-1]
+    kernels.check_operands(a.device, ("a", "dy"), a=a, dy=dy)
+    kernels.check_shape("dy", dy, (batch, t, n))
+    out = torch.empty((taps * c, n), dtype=torch.float32, device=a.device)
+    scratch = kernels.scratch(WALK_WG_FLOATS, a)
+    kernels.BF16_WGRAD_PRODUCT(a, dy, out, scratch, scratch.numel(), batch, t, c, taps, dilation,
+                               n, int(unit == "tma"))
+    return out
+
+
 def split_weights_plain(w: torch.Tensor, pair: int = 0) -> torch.Tensor:
     """w [K, N] -> [2, N, K]: the K-major layout the tensor-core conv-GEMM
     reads, ``[0]`` the big and ``[1]`` the small TF32 part; with ``pair`` (a

@@ -1629,13 +1629,15 @@ def test_tma_conv_matches_float64_and_the_tap_staged_bits(dev, name):
 # order rounds to the neighbouring bf16 value (chip_smoke.BF16_KERNEL_RTOL)
 BF16_RTOL = 2e-2
 BF16 = torch.bfloat16
-# device products of one call of each bf16 kernel at base width: every
-# product on the bf16 tensor-core kernels but the block's folded A, which
-# stays on the CUDA cores
+# device products of one call of each bf16 kernel at base width, as
+# (bf16_gemm, bf16_wgrad, core_gemm, bf16_tma_gemm, bf16_tma_wgrad): the text
+# side's on the mma.sync kernels, the flow block's on the TMA-fed wgmma ones
+# but its folded A, which stays on the CUDA cores
 BF16_PRODUCTS = {
-    "prenet": (4, 0, 0), "prenet_bwd": (8, 4, 0), "duration_stack": (2, 0, 0),
-    "duration_stack_bwd": (4, 2, 0), "encoder_layer": (4, 0, 0), "encoder_layer_bwd": (8, 4, 0),
-    "block_fwd_save": (10, 0, 1), "block_bwd_store": (12, 11, 0),
+    "prenet": (4, 0, 0, 0, 0), "prenet_bwd": (8, 4, 0, 0, 0), "duration_stack": (2, 0, 0, 0, 0),
+    "duration_stack_bwd": (4, 2, 0, 0, 0), "encoder_layer": (4, 0, 0, 0, 0),
+    "encoder_layer_bwd": (8, 4, 0, 0, 0), "block_fwd_save": (0, 0, 1, 10, 0),
+    "block_bwd_store": (0, 0, 0, 12, 11),
 }
 
 
@@ -1652,7 +1654,8 @@ def _bf16_products(fn):
     out = fn()
     torch.cuda.synchronize()
     c = kernels.product_counts(reset=True)
-    return out, (c["bf16_gemm"], c["bf16_wgrad"], c["core_gemm"])
+    return out, tuple(c[k] for k in ("bf16_gemm", "bf16_wgrad", "core_gemm", "bf16_tma_gemm",
+                                     "bf16_tma_wgrad"))
 
 
 def _bf16_text_inputs(dev, width, t=64, b=4, seed=0):
@@ -1724,16 +1727,11 @@ def test_bf16_text_kernels_match_plain(dev, name):
         _bf16_held(f"{name}_bwd [{i}]", a, b)
 
 
-def test_bf16_flow_block_matches_plain(dev):
-    """The flow block's bf16 forward-save and backward-store at base width
-    (c 160, h 192, 4 WN layers, taps 5) against the plain bf16 forward and
-    its autograd, dropout on: z, ld, dx and every folded weight's gradient
-    within BF16_RTOL of its max; the saves bf16; the products as
-    BF16_PRODUCTS says."""
+def _bf16_block(dev, c=160, h=192, b=4, t=96, L=4, taps=5):
+    """A flow block's bf16 operands at base width (c 160, h 192, 4 WN
+    layers, taps 5) over [b, t], three of four samples ragged."""
     torch.manual_seed(0)
-    c, h, L, taps = 160, 192, 4, 5
-    b, t = 4, 96
-    lengths = torch.tensor([t, t - 13, t // 2, 7])
+    lengths = torch.tensor([t, t - 13, t // 2, 7])[:b]
     mask = (torch.arange(t)[None, :] < lengths[:, None]).float()[..., None].to(dev)
     x = (torch.randn(b, t, c, device=dev) * mask).to(BF16)
     f32 = {"A": torch.eye(c) + 0.05 * torch.randn(c, c), "bA": 0.1 * torch.randn(1, c),
@@ -1745,6 +1743,16 @@ def test_bf16_flow_block_matches_plain(dev):
     f32["W_rs"][-1, :, :h] = 0.0
     folded = {k: v.to(dev).to(BF16 if k in block_cuda.BF16_OPERANDS else torch.float32)
               for k, v in f32.items()}
+    return folded, x, mask, taps
+
+
+def test_bf16_flow_block_matches_plain(dev):
+    """The flow block's bf16 forward-save and backward-store at base width
+    (c 160, h 192, 4 WN layers, taps 5) against the plain bf16 forward and
+    its autograd, dropout on: z, ld, dx and every folded weight's gradient
+    within BF16_RTOL of its max; the saves bf16; the products as
+    BF16_PRODUCTS says."""
+    folded, x, mask, taps = _bf16_block(dev)
     cfg = (taps, 1, False, 0.05, 21)
     (z, ld, saves), products = _bf16_products(
         lambda: block_cuda.block_fwd_save(folded, None, x, mask, *cfg))
@@ -1765,6 +1773,127 @@ def test_bf16_flow_block_matches_plain(dev):
     for name, r in zip(["dx"] + ["d" + k for k in leaves], ref):
         assert grads[name].dtype == r.dtype, name
         _bf16_held(name, grads[name], r)
+
+
+def test_bf16_block_units_agree_and_repeat_bits(dev):
+    """Rows 10 and 12 in bf16 at [4, 704], dropout on: on the TMA-fed
+    kernels and, in the same process, on the mma.sync ones (every product
+    declined by kernels.bf16_mma_only: the plan's counts both ways) within
+    BF16_RTOL of each other (both round each operand once, the same bits;
+    only the f32 sums' order differs); and 50 repeats of each row on the
+    TMA-fed kernels give the same bits (fixed-order sums, no atomics)."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    folded, x, mask, taps = _bf16_block(dev, t=704)
+    b, t, c = x.shape
+    h = folded["W_s"].shape[1]
+    cfg = (taps, 1, False, 0.05, 21)
+    dz = torch.randn(x.shape, device=dev).to(BF16)
+    dld = torch.randn((b,), device=dev)
+    plan = {bw: tc_gemm.bf16_block_products(b, t, c, h, 4, taps, 1, 132, backward=bw)["counts"]
+            for bw in (False, True)}
+    runs = {}
+    for unit in ("tma", "mma"):
+        kernels.product_counts(reset=True)
+        if unit == "mma":
+            with kernels.bf16_mma_only():
+                z, ld, saves = block_cuda.block_fwd_save(folded, None, x, mask, *cfg)
+                grads = block_cuda.block_bwd_store(folded, False, x, mask, saves, dz, dld, *cfg)
+        else:
+            z, ld, saves = block_cuda.block_fwd_save(folded, None, x, mask, *cfg)
+            grads = block_cuda.block_bwd_store(folded, False, x, mask, saves, dz, dld, *cfg)
+        torch.cuda.synchronize()
+        counts = kernels.product_counts(reset=True)
+        want = {k: plan[False][k] + plan[True][k] for k in plan[False]}
+        if unit == "mma":
+            want = {"core_gemm": 1, "bf16_gemm": 22, "bf16_wgrad": 11, "bf16_tma_gemm": 0,
+                    "bf16_tma_wgrad": 0}
+        assert {k: counts[k] for k in want} == want, (unit, counts)
+        runs[unit] = {"z": z, "ld": ld, **saves, **{k: v for k, v in grads.items() if v is not None}}
+    for name, ref in runs["mma"].items():
+        _bf16_held(f"{name} tma vs mma", runs["tma"][name], ref)
+    first = runs["tma"]
+    for _ in range(50):
+        z, ld, saves = block_cuda.block_fwd_save(folded, None, x, mask, *cfg)
+        grads = block_cuda.block_bwd_store(folded, False, x, mask, _saves_of(first), dz, dld, *cfg)
+        again = {"z": z, "ld": ld, **saves, **{k: v for k, v in grads.items() if v is not None}}
+        assert all(torch.equal(again[k], v) for k, v in first.items())
+
+
+def _saves_of(run):
+    return {k: run[k] for k in ("zp", "skipm", "xs", "th", "sg")}
+
+
+@pytest.mark.parametrize("name,c_in,taps,dilation,tap_sign,n,w_t", [
+    ("start", 80, 1, 1, 1, 192, False), ("in_conv", 192, 5, 4, 1, 384, False),
+    ("res_skip", 192, 1, 1, 1, 384, False), ("coupling", 192, 1, 1, 1, 160, False),
+    ("coupling_bwd", 192, 1, 1, 1, 80, False), ("dskip", 160, 1, 1, 1, 192, True),
+    ("gate_bwd", 384, 1, 1, 1, 192, True), ("transposed", 384, 5, 2, -1, 192, True),
+    ("dzp", 192, 1, 1, 1, 80, True), ("dx", 160, 1, 1, 1, 160, True),
+])
+def test_bf16_tma_conv_product_matches_plain(dev, name, c_in, taps, dilation, tap_sign, n, w_t):
+    """Each conv-GEMM of bf16 rows 10 and 12 alone on the TMA-fed kernel at
+    base width over [3, 200] (ragged tiles: 200 rows a sample against 128
+    a tile), taps with dilation and the transposed conv's tap_sign -1, B as
+    it lies or per-tap transposed: against float64 of the same bf16
+    operands within 1e-5 of max |ref| (f32 sums over K up to 1,920), and
+    bit for bit the same on a second call."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    g = torch.Generator().manual_seed(1)
+    a = torch.randn(3, 200, c_in, generator=g).to(BF16).to(dev)
+    shape = (taps * n, c_in) if w_t else (taps * c_in, n)
+    w = (torch.randn(*shape, generator=g) * (taps * c_in) ** -0.5).to(BF16).to(dev)
+    ref = tc_gemm.conv_product_plain(a.double(), w.double(), taps, dilation, tap_sign, w_t=w_t)
+    kernels.product_counts(reset=True)
+    got = tc_gemm.bf16_conv_product(a, w, taps, dilation, tap_sign, w_t, unit="tma")
+    torch.cuda.synchronize()
+    assert kernels.product_counts(reset=True)["bf16_tma_gemm"] == 1
+    assert (got.double() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item(), name
+    assert torch.equal(got, tc_gemm.bf16_conv_product(a, w, taps, dilation, tap_sign, w_t))
+
+
+@pytest.mark.parametrize("name,c_in,taps,dilation,n", [
+    ("dW_e", 192, 1, 1, 160), ("dW_rs", 192, 1, 1, 384), ("dW_in", 192, 5, 2, 384),
+    ("dW_s", 80, 1, 1, 192), ("dA", 160, 1, 1, 160),
+])
+def test_bf16_tma_wgrad_matches_plain(dev, name, c_in, taps, dilation, n):
+    """Each weight gradient of bf16 row 12 alone on the TMA-fed kernel at
+    base width over [5, 333] (a sample's last 64-row slice partial, a tap's
+    rows past the sample's edge zero): against float64 within 1e-5 of max
+    |ref|, the same bits on a second call."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    g = torch.Generator().manual_seed(2)
+    a = torch.randn(5, 333, c_in, generator=g).to(BF16).to(dev)
+    dy = torch.randn(5, 333, n, generator=g).to(BF16).to(dev)
+    ref = tc_gemm.weight_gradient_plain(a.double(), dy.double(), taps, dilation)
+    kernels.product_counts(reset=True)
+    got = tc_gemm.bf16_weight_gradient(a, dy, taps, dilation, unit="tma")
+    torch.cuda.synchronize()
+    assert kernels.product_counts(reset=True)["bf16_tma_wgrad"] == 1
+    assert (got.double() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item(), name
+    assert torch.equal(got, tc_gemm.bf16_weight_gradient(a, dy, taps, dilation))
+
+
+def test_bf16_tma_declines_narrow_widths(dev):
+    """Below 64 channels or columns the chains' products take the mma.sync
+    kernels, as the plan (``tc_gemm.bf16_block_products``) says, and the
+    bare TMA-fed entry refuses the shape."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    folded, x, mask, taps = _bf16_block(dev, c=16, h=48, L=2)
+    b, t, c = x.shape
+    cfg = (taps, 1, False, 0.0, 0)
+    kernels.product_counts(reset=True)
+    z, ld, saves = block_cuda.block_fwd_save(folded, None, x, mask, *cfg)
+    torch.cuda.synchronize()
+    counts = kernels.product_counts(reset=True)
+    plan = tc_gemm.bf16_block_products(b, t, c, 48, 2, taps, 1, 132)["counts"]
+    assert {k: counts[k] for k in plan} == plan and plan["bf16_tma_gemm"] == 0
+    a = torch.zeros(1, 64, 48, dtype=BF16, device=dev)
+    with pytest.raises(RuntimeError, match="gtt_bf16_conv_product"):
+        tc_gemm.bf16_conv_product(a, torch.zeros(48, 96, dtype=BF16, device=dev), unit="tma")
 
 
 def test_bf16_refuses_what_it_does_not_take(dev):
