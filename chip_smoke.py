@@ -21,7 +21,11 @@ Phases, each fatal on failure:
    whole K walk, what the chain takes: split-K where it makes fewer waves,
    for the serving chain at any row count and in 64-row tiles where
    128-row ones are too few blocks, and the CUDA cores), each against
-   float64 (max and mean signed error) with its device time;
+   float64 (max and mean signed error) with its device time; and the bf16
+   products of the flow block's rows at [32, 704] and of the encoder
+   layer's at [32, 192] (the latter by the text chains' plan: chunks a
+   tile and split-K shares), each on the mma.sync kernel and on the
+   TMA-fed wgmma one, against float64, with device us and TFLOP/s;
 2. writes a checkpoint at the full width of ``configs/base.json`` in the
    JAX package's ``.npz`` format, with random non-zero weights from a
    numpy seed (duration bias log 6: about 6 frames per phoneme);
@@ -112,13 +116,15 @@ Phases, each fatal on failure:
     and no f32 training kernel; 1 epoch, its checkpoint and 1 resumed
     epoch equal to the 2-epoch run bit for bit; one profiled bf16 step
     (its products all on the bf16 kernels but the 12 folded-A products,
-    every product of the flow block's chains on the TMA-fed wgmma ones);
+    every product of the flow block's and the encoder layer's chains on
+    the TMA-fed wgmma ones, the prenet's and the duration stack's on the
+    mma.sync ones);
     each bf16 kernel against its plain bf16 version on the last step's
     inputs within BF16_KERNEL_RTOL (backwards at the kernel's own ReLU
     gates), timed, its device time from a trace bracketed by spin
-    kernels, with its bound at the dense BF16 peak, the flow block's two
-    rows also with their products on the mma.sync kernels and on
-    the TMA-fed ones in turns; then the bf16
+    kernels, with its bound at the dense BF16 peak, the flow block's and
+    the encoder layer's two rows also with their products on the
+    mma.sync kernels and on the TMA-fed ones in turns; then the bf16
     step against the f32 step from one init, on the same batches and
     dropout seeds, step by step on the f32 step's alignment (losses within
     BF16_LOSS_RTOL, the grad norm within BF16_GRAD_NORM_RTOL, bf16's own
@@ -1728,6 +1734,48 @@ def bracketed_trace(fn, calls: int) -> list:
          f"(spins before, operations, spins after): {seen}")
 
 
+def bracketed_groups(fns, calls: int) -> list:
+    """The device operations of ``calls`` calls of each of ``fns`` in
+    launch order, [[(name, device us)] for each fn], from one trace under
+    torch.profiler in which each fn's calls stand between spin kernels (16
+    before the first, 4 between two, 16 after the last): many short
+    measurements in one trace, where a trace each would add a trace each
+    to a script whose late traces come back short of records (see
+    bracketed_trace).  A trace counts only where every group is there."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:
+        fn()
+    seen = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(16):
+                torch.cuda._sleep(1000)
+            for i, fn in enumerate(fns):
+                for _ in range(calls):
+                    fn()
+                for _ in range(4 if i + 1 < len(fns) else 16):
+                    torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        ops = sorted((e for e in prof.events() if e.device_type.name == "CUDA"),
+                     key=lambda e: e.time_range.start)
+        groups, run = [], []
+        for e in ops:
+            if "spin" in e.name:
+                if run:
+                    groups.append(run)
+                run = []
+            else:
+                run.append((e.name, e.time_range.elapsed_us()))
+        if ops and "spin" in ops[0].name and not run and len(groups) == len(fns):
+            return groups
+        seen.append((len(ops), len(groups)))
+    fail(f"bracketed groups: no trace of 4 held {len(fns)} groups of operations between spin "
+         f"kernels (operations, groups): {seen}")
+
+
 def walk_trace(fn, operations: int, calls: int = 3) -> list:
     """``calls`` calls of ``fn`` in one bracketed trace -> each call's
     device operations in launch order, [(name, device us)] a call.  Fails
@@ -2126,20 +2174,35 @@ BF16_WGRAD_PRODUCTS = (
     ("dW_e", 192, 1, 1, 160), ("dW_rs", 192, 1, 1, 384), ("dW_in_d1", 192, 5, 1, 384),
     ("dW_s", 80, 1, 1, 192), ("dA", 160, 1, 1, 160),
 )
+# the text encoder layer's bf16 products alone (bf16 rows 2 and 13, base
+# width) at the bf16 run's longest text bucket, as the rows above; its
+# conv-GEMMs by the text chains' plan (split-K)
+BF16_TEXT_PRODUCT_ROWS = (32, 192)
+BF16_TEXT_CONV_PRODUCTS = (
+    ("qkv", 192, 1, 1, 1, 576, False), ("out_proj", 192, 1, 1, 1, 192, False),
+    ("ffn1", 192, 3, 1, 1, 768, False), ("ffn2", 768, 3, 1, 1, 192, False),
+    ("dffn", 192, 3, 1, -1, 768, True), ("dx1", 768, 3, 1, -1, 192, True),
+    ("datt", 192, 1, 1, 1, 192, True), ("dx", 576, 1, 1, 1, 192, True),
+)
+BF16_TEXT_WGRAD_PRODUCTS = (
+    ("dW2", 768, 3, 1, 192), ("dW1", 192, 3, 1, 768), ("dWo", 192, 1, 1, 192),
+    ("dW_qkv", 192, 1, 1, 576),
+)
 # a bare bf16 product against float64 of the same bf16 operands, relative to
-# max |ref|: f32 sums over K up to 1,920 (conv) or 22,528 rows (weight
+# max |ref|: f32 sums over K up to 2,304 (conv) or 22,528 rows (weight
 # gradient) in another order
 BF16_PRODUCT_RTOL = 1e-5
 
 
-def bf16_block_products(device_line: str) -> list:
+def bf16_block_products(device_line: str, text: bool = False) -> list:
     """Each product of the flow block's bf16 rows alone (bare epilogue, f32
-    out, random bf16 operands from a seed) at BF16_PRODUCT_ROWS on the
-    mma.sync kernel and on the TMA-fed wgmma one: both against
-    float64 within BF16_PRODUCT_RTOL, then each one's device time (a
-    bracketed trace of 5 calls, the weight gradient's splits' sum
-    included; mma.sync, TMA, TMA, mma.sync) and TFLOP/s against the dense
-    BF16 peak (``product bf16`` lines)."""
+    out, random bf16 operands from a seed) at BF16_PRODUCT_ROWS (``text``:
+    the encoder layer's at BF16_TEXT_PRODUCT_ROWS, its conv-GEMMs by the
+    text chains' plan) on the mma.sync kernel and on the TMA-fed wgmma one:
+    both against float64 within BF16_PRODUCT_RTOL, then each one's device
+    time (a bracketed trace of 5 calls, the weight gradient's splits' sum
+    and the split-K shares' pass included; mma.sync, TMA, TMA, mma.sync)
+    and TFLOP/s against the dense BF16 peak (``product bf16`` lines)."""
     import torch
 
     from glow_tts_train_tpu_torch import kernels
@@ -2147,29 +2210,32 @@ def bf16_block_products(device_line: str) -> list:
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(13)
-    batch, t = BF16_PRODUCT_ROWS
+    batch, t = BF16_TEXT_PRODUCT_ROWS if text else BF16_PRODUCT_ROWS
+    conv_unit = {"mma": "mma", "tma": "text" if text else "tma"}
 
     def r(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(torch.bfloat16).to(dev)
 
     cases = []
-    for name, c_in, taps, dil, sign, n, w_t in BF16_CONV_PRODUCTS:
+    for name, c_in, taps, dil, sign, n, w_t in (BF16_TEXT_CONV_PRODUCTS if text
+                                                else BF16_CONV_PRODUCTS):
         a = r(batch, t, c_in)
         w = r(*((taps * n, c_in) if w_t else (taps * c_in, n)), scale=(taps * c_in) ** -0.5)
         cases.append(("conv", name, [batch * t, taps * c_in, n],
                       lambda u, a=a, w=w, taps=taps, dil=dil, sign=sign, w_t=w_t:
-                      tc_gemm.bf16_conv_product(a, w, taps, dil, sign, w_t, u),
+                      tc_gemm.bf16_conv_product(a, w, taps, dil, sign, w_t, conv_unit[u]),
                       tc_gemm.conv_product_plain(a.double(), w.double(), taps, dil, sign, w_t=w_t)))
-    for name, c_in, taps, dil, n in BF16_WGRAD_PRODUCTS:
+    for name, c_in, taps, dil, n in BF16_TEXT_WGRAD_PRODUCTS if text else BF16_WGRAD_PRODUCTS:
         a, dy = r(batch, t, c_in), r(batch, t, n)
         cases.append(("wgrad", name, [taps * c_in, batch * t, n],
                       lambda u, a=a, dy=dy, taps=taps, dil=dil:
                       tc_gemm.bf16_weight_gradient(a, dy, taps, dil, u),
                       tc_gemm.weight_gradient_plain(a.double(), dy.double(), taps, dil)))
-    rows = []
+    checked = []  # (errors by unit, max |ref|) of each case
     for kind, name, shape, run, ref in cases:
         scale = ref.abs().max().item()
         errs = {}
+        checked.append((errs, scale))
         for unit in ("mma", "tma"):
             kernels.product_counts(reset=True)
             out = run(unit)
@@ -2182,16 +2248,22 @@ def bf16_block_products(device_line: str) -> list:
             if not (math.isfinite(errs[unit]) and errs[unit] <= BF16_PRODUCT_RTOL * scale):
                 fail(f"product bf16 {kind} {name} ({unit}): max abs err {errs[unit]} vs float64, "
                      f"max |ref| {scale} (tolerance {BF16_PRODUCT_RTOL} relative)")
-        us = {"mma": [], "tma": []}
-        for unit in ("mma", "tma", "tma", "mma"):
-            ops = bracketed_trace(lambda: run(unit), calls=5)
-            us[unit].append(sum(op_us for _, op_us in ops) / 5)
+    # every product's 5 calls in one trace a turn
+    turns = {"mma": [], "tma": []}
+    for unit in ("mma", "tma", "tma", "mma"):
+        groups = bracketed_groups([lambda run=case[3]: run(unit) for case in cases], calls=5)
+        turns[unit].append([sum(op_us for _, op_us in ops) / 5 for ops in groups])
+    rows = []
+    for i, ((kind, name, shape, run, ref), (errs, scale)) in enumerate(zip(cases, checked)):
+        us = {unit: [turn[i] for turn in got] for unit, got in turns.items()}
         flops = 2.0 * shape[0] * shape[1] * shape[2]
-        row = {"kernel": "bf16_" + kind, "name": name, "shape": shape, "max_abs_ref": scale,
+        row = {"kernel": "bf16_" + kind, "row": "encoder_layer" if text else "flow_block",
+               "name": name, "shape": shape, "max_abs_ref": scale,
                "max_abs_err_f64": errs, "device_us": {u: min(v) for u, v in us.items()},
                "device_us_turns": us}
         row["tflops"] = {u: flops / (v * 1e-6) / 1e12 for u, v in row["device_us"].items()}
-        print(f"product bf16 {kind} {name} {shape}: err (max |ref| {scale:.3g}) mma.sync "
+        print(f"product bf16 {kind} {'text ' if text else ''}{name} {shape}: err (max |ref| "
+              f"{scale:.3g}) mma.sync "
               f"{errs['mma']:.2e}, TMA {errs['tma']:.2e}; device us mma.sync "
               f"{row['device_us']['mma']:.1f}, TMA {row['device_us']['tma']:.1f} (turns {us}); "
               f"TFLOP/s mma.sync {row['tflops']['mma']:.1f}, TMA {row['tflops']['tma']:.1f} of "
@@ -2262,7 +2334,12 @@ def bf16_kernels(recorders: dict, launches: dict, device_line: str) -> list:
             ms = time_ms(kernel_fn, args, kwargs, runs=10, warmup=2)
             plain_ms = time_ms(plain_fwd[name], args, kwargs, runs=3, warmup=1)
             roof = bf16_bound(name + "_bf16", args, kwargs, out_k, kernel_fn)
-        entry(name + "_bf16", err, scale, ms, plain_ms, list(x.shape), roof)
+        extra = {}
+        if name == "encoder_layer":  # its products on either unit (bf16 rows 2 and 13)
+            with torch.inference_mode():
+                extra["device_ms_in_turns"] = units_in_turns(
+                    name + "_bf16", lambda: kernel_fn(*args, **kwargs), device_line)
+        entry(name + "_bf16", err, scale, ms, plain_ms, list(x.shape), roof, **extra)
 
         bname = name + "_bwd"
         bargs, bkwargs = recorders[bname].args
@@ -2279,8 +2356,11 @@ def bf16_kernels(recorders: dict, launches: dict, device_line: str) -> list:
         plain_ms = time_ms(lambda *a: plain_bwd[name](*a, gates=saves["gates"]), call, {},
                            runs=3, warmup=1)
         roof = bf16_bound(bname + "_bf16", call, {}, grads_k, bkernel)
+        if name == "encoder_layer":
+            extra["device_ms_in_turns"] = units_in_turns(bname + "_bf16", lambda: bkernel(*call),
+                                                         device_line)
         entry(bname + "_bf16", worst * scale, scale, ms, plain_ms, list(x.shape), roof,
-              worst_relative=worst)
+              worst_relative=worst, **extra)
 
     # the flow block: forward-save, then backward-store from its saves
     args, kwargs = recorders["block_fwd_save"].args
@@ -2328,7 +2408,8 @@ def bf16_kernels(recorders: dict, launches: dict, device_line: str) -> list:
 
 
 def units_in_turns(name: str, fn, device_line: str, calls: int = 3) -> dict:
-    """The device's time of one call of a flow-block bf16 row with its
+    """The device's time of one call of a bf16 row whose chains ask for the
+    TMA-fed kernels (the flow block's, the encoder layer's) with its
     products on the mma.sync kernels (``kernels.bf16_mma_only``)
     and on the TMA-fed wgmma ones, in turns (mma.sync, TMA, TMA, mma.sync;
     ``calls`` calls a bracketed trace) -> {"mma_sync": ms, "tma": ms}, the
@@ -2421,7 +2502,7 @@ def bf16_train(workdir: Path, config_path: Path, device_line: str) -> tuple:
                          {k: v for k, v in want.items() if v}, device_line,
                          override=BF16_OVERRIDE, n_steps=BF16_STEPS, main_tag="bf16",
                          tag="bf16_", corpus_symbols=False)
-    profile = profile_bf16_step(last, device_line, n_blocks)
+    profile = profile_bf16_step(last, device_line, n_blocks, n_layers)
     report = bf16_kernels(recorders, launches, device_line)
     del recorders, last
     against = bf16_against_f32(workdir, config_path, device_line)
@@ -2429,12 +2510,14 @@ def bf16_train(workdir: Path, config_path: Path, device_line: str) -> tuple:
                     "profiled_step": profile, "against_f32": against}
 
 
-def profile_bf16_step(last: dict, device_line: str, n_blocks: int) -> dict:
+def profile_bf16_step(last: dict, device_line: str, n_blocks: int, n_layers: int) -> dict:
     """One more bf16 step on the last batch under torch.profiler: its device
     products (every one on the bf16 kernels but the 12 folded-A products;
-    the flow blocks' 10 + 12 conv-GEMMs and 11 weight gradients a block on
-    the TMA-fed wgmma kernels), wall, device busy, idle share, device
-    operations, top kernels."""
+    the flow blocks' 10 + 12 conv-GEMMs and 11 weight gradients a block and
+    the encoder layers' 4 + 8 and 4 a layer on the TMA-fed wgmma kernels,
+    the prenet's 4 + 8 and 4 and the duration stack's 2 + 4 and 2 on the
+    mma.sync ones), wall, device busy, idle share, device operations, top
+    kernels."""
     from glow_tts_train_tpu_torch import kernels
 
     def step():
@@ -2445,11 +2528,11 @@ def profile_bf16_step(last: dict, device_line: str, n_blocks: int) -> dict:
     products = kernels.product_counts(reset=True)
     unexpected = {k: v for k, v in products.items()
                   if v and k not in BF16_PRODUCT_KEYS + ("core_gemm",)}
-    blocks = {"core_gemm": n_blocks, "bf16_tma_gemm": 22 * n_blocks,
-              "bf16_tma_wgrad": 11 * n_blocks}
-    if (unexpected or not products.get("bf16_gemm") or not products.get("bf16_wgrad")
-            or {k: products.get(k) for k in blocks} != blocks):
-        fail(f"train bf16 step: device products {products}, the blocks' expected {blocks}")
+    want = {"core_gemm": n_blocks, "bf16_tma_gemm": 22 * n_blocks + 12 * n_layers,
+            "bf16_tma_wgrad": 11 * n_blocks + 4 * n_layers, "bf16_gemm": 12 + 6,
+            "bf16_wgrad": 4 + 2}
+    if unexpected or {k: products.get(k) for k in want} != want:
+        fail(f"train bf16 step: device products {products}, expected {want}")
     wall_ms, by_kernel, launches = profiled(step)
     busy_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
@@ -3015,7 +3098,7 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
     from glow_tts_train_tpu_torch.ops import block_cuda, encoder_cuda, text_cuda
 
     products = (bare_products(device_line) + text_products(device_line)
-                + bf16_block_products(device_line))
+                + bf16_block_products(device_line) + bf16_block_products(device_line, text=True))
     ckpt, config, hp = make_checkpoint(workdir, config_path)
     stdin_text = requests()
 

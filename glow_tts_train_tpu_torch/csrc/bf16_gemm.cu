@@ -10,9 +10,10 @@
 // units:
 //
 // The TMA-fed wgmma kernels (conv_gemm_bf16_tma_kernel,
-// wgrad_bf16_tma_kernel), for the flow block's chains, which ask for them
-// (ConvGemm::tma_ring, WGrad::tma_ring) and give every product bf16
-// operands (an f32 cotangent through the bf16 copy its writer rounds).
+// wgrad_bf16_tma_kernel), for the flow block's and the text encoder
+// layer's chains, which ask for them (ConvGemm::tma_ring, WGrad::tma_ring)
+// and give every product bf16 operands (each the bf16 copy its writer
+// rounds).
 // What bounds them: their operations at the dense BF16 peak (989 TFLOP/s)
 // against the L2 traffic of their tiles' operands and the epilogue's loads
 // and stores, which the K walk does not hide.  The design:
@@ -34,17 +35,21 @@
 //  * The conv-GEMM: 64-row tiles, one consumer warpgroup, 96 KB of stages,
 //    two blocks an SM (one's epilogue under the other's K walk); the
 //    accumulators through shared memory to the epilogue, 4 columns a call.
+//    For a text chain's short, deep products (ConvGemm::part) the plan
+//    (tma_conv_plan) also picks the chunks a tile and split-K shares: each
+//    share's partial sums to scratch, added in split order by a pass that
+//    runs the epilogue (conv_split_sum_bf16_kernel).
 //  * The weight gradient: 128 im2col columns (two consumer warpgroups) by
 //    64 to 192 dY columns a block over its split of the 64-row slices, both
 //    operands MN-major (the slice's rows are wgmma's K); the splits'
 //    partial sums added in split order by a second pass (no atomics).
 //
 // The mma.sync kernels (conv_gemm_bf16_kernel, wgrad_bf16_kernel), for the
-// text side's chains and for shapes the TMA-fed ones do not take (below 64
-// channels or columns): A gathered as im2col while staging (taps,
-// dilation, tap_sign, a_mask, as conv_gemm_kernel does), B read as it lies
-// or through w_t's per-tap transpose, each of A, B and the epilogue's
-// operands f32 or bf16 (ConvGemm::bf16), staged through registers 8
+// prenet's and the duration stack's chains and for shapes the TMA-fed ones
+// do not take (below 64 channels or columns): A gathered as im2col while
+// staging (taps, dilation, tap_sign, a_mask, as conv_gemm_kernel does), B
+// read as it lies or through w_t's per-tap transpose, each of A, B and the
+// epilogue's operands f32 or bf16 (ConvGemm::bf16), staged through registers 8
 // elements a load (16 bytes of bf16, or 32 of f32 rounded as they are
 // packed): they take operands whose rows hold whole groups of 8
 // (conv_fits, wgrad_fits; every product at the shipped widths), and
@@ -73,6 +78,7 @@
 
 #include "common.cuh"
 #include "epilogue.cuh"
+#include "mma.cuh"
 #include "tma.cuh"
 
 namespace gtt {
@@ -80,19 +86,6 @@ namespace {
 
 constexpr int kBM = 64, kBN = 64, kBK = 32;
 constexpr int kSK = kBK + 8;  // bf16 a shared-memory row: 80 bytes, conflict-free fragments
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pair_at(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // acc (2 m16 x 4 n8 tiles of this warp's 32 x 32) += the slice's product:
 // as [m][k] and bs [n][k] (k contiguous), the warp's rows from wm, columns
@@ -148,11 +141,6 @@ constexpr int kWRows = 32;  // rows a slice of the weight gradient
 
 constexpr int kSN = kBN + 8;  // a [k][n] bf16 row: 144 bytes, conflict-free ldmatrix rows
 
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ float2 unpack2(uint32_t u) {
   __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&u);
   return __bfloat1622float2(v);
@@ -181,18 +169,6 @@ __device__ __forceinline__ uint4 load8(const float* p, long i, bool b16, float m
   r.z = pack2(b.x * m, b.y * m);
   r.w = pack2(b.z * m, b.w * m);
   return r;
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const __nv_bfloat16* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
 }
 
 // acc += the slice's product, A [m][k] (stride kSK) read by pairs, B either
@@ -743,16 +719,22 @@ __global__ void __launch_bounds__(256, 2)
   if (!pair)
     while (nb_on > 1 && n0 + 64 * (nb_on - 1) >= g.n) --nb_on;
   const int slices = (g.c_in + 63) / 64;
-  const int n_steps = g.taps * slices;
+  // split-K (gridDim.z shares, tma_conv_plan): this block's share of the
+  // K walk's steps, `per` a share
+  const int steps = g.taps * slices;
+  const int per = (steps + gridDim.z - 1) / gridDim.z;
+  const int s0 = blockIdx.z * per;
+  const int n_steps = min(steps, s0 + per) - s0;
 
   if (tid >= R::kConsumers) {  // the producer warpgroup: one thread copies
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == R::kConsumers) {
       const uint32_t bytes = (1 + (kWT ? kNB : nb_on)) * kRingChunk;
-      for (int s = 0; s < n_steps; ++s) {
+      for (int i = 0; i < n_steps; ++i) {
+        const int s = s0 + i;
         const int tap = s / slices, c0 = (s - tap * slices) * 64;
-        const int st = r.stage(s);
-        mbar_wait(r.empty(st), r.phase(s) ^ 1);
+        const int st = r.stage(i);
+        mbar_wait(r.empty(st), r.phase(i) ^ 1);
         mbar_expect_tx(r.full(st), bytes);
         const int off = g.tap_sign * (tap - g.taps / 2) * g.dilation;
         tma_load_3d(r.a_chunk(st, 0), &a_map, r.full(st), c0, t0 + off, b);
@@ -792,13 +774,19 @@ __global__ void __launch_bounds__(256, 2)
     }
   asm volatile("bar.sync 1, %0;\n" ::"n"(R::kConsumers) : "memory");
   const int groups = 16 * kNB;  // of 4 columns a row (a paired tile's: 2 pairs)
+  const long rows = (long)g.batch * g.t;
 #pragma unroll 1
   for (int it = tid; it < 64 * groups; it += R::kConsumers) {
     const int row = it / groups, q = it - row * groups;
     const int tt = t0 + row;
     if (tt >= g.t) continue;
     const float* tr = tile + row * kStride;
-    if (pair) {  // pairs (2q, 64 + 2q) and (2q + 1, 65 + 2q): logical 2 (j0 + 2q) ..
+    if (gridDim.z > 1) {  // a share's partial sums, for conv_split_sum_bf16_kernel
+      const int n = n0 + 4 * q;
+      if (n < g.n)
+        *reinterpret_cast<float4*>(g.part + ((long)blockIdx.z * rows + b * g.t + tt) * g.n + n) =
+            *reinterpret_cast<const float4*>(tr + 4 * q);
+    } else if (pair) {  // pairs (2q, 64 + 2q) and (2q + 1, 65 + 2q): logical 2 (j0 + 2q) ..
       const float v[4] = {tr[2 * q], tr[64 + 2 * q], tr[2 * q + 1], tr[65 + 2 * q]};
       epilogue_row_bf16<4>(g, b * g.t + tt, 2 * (j0 + 2 * q), v);
     } else {
@@ -807,6 +795,28 @@ __global__ void __launch_bounds__(256, 2)
       epilogue_row_bf16<4>(g, b * g.t + tt, n0 + 4 * q, v);
     }
   }
+}
+
+// The split-K shares of a TMA-fed conv-GEMM (part [splits, rows, n])
+// added in split order, then the bf16 epilogue: a thread owns 4
+// neighbouring columns of a row.
+__global__ void conv_split_sum_bf16_kernel(const ConvGemm g, int splits) {
+  const long rows = (long)g.batch * g.t;
+  const int groups = g.n / 4;
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows * groups) return;
+  const long m = i / groups;
+  const int n0 = (int)(i - m * groups) * 4;
+  float4 v = *reinterpret_cast<const float4*>(g.part + m * g.n + n0);
+  for (int s = 1; s < splits; ++s) {
+    const float4 p = *reinterpret_cast<const float4*>(g.part + (s * rows + m) * g.n + n0);
+    v.x += p.x;
+    v.y += p.y;
+    v.z += p.z;
+    v.w += p.w;
+  }
+  const float acc[4] = {v.x, v.y, v.z, v.w};
+  epilogue_row_bf16<4>(g, (int)m, n0, acc);
 }
 
 // The bf16 weight gradient fed by TMA (WGrad::tma_ring in a bf16 chain):
@@ -922,7 +932,7 @@ cudaError_t launch_ring(Kernel kernel, dim3 grid, cudaStream_t stream, Args... a
 }
 
 template <int kWT, int kNB>
-cudaError_t launch_conv_ring(const ConvGemm& g, cudaStream_t stream) {
+cudaError_t launch_conv_ring(const ConvGemm& g, int splits, cudaStream_t stream) {
   CUtensorMap a_map, b_map;
   cudaError_t err = bf16_map(&a_map, g.a, g.c_in, g.t, g.batch, g.lda, 64);
   if (err != cudaSuccess) return err;
@@ -930,7 +940,7 @@ cudaError_t launch_conv_ring(const ConvGemm& g, cudaStream_t stream) {
   else err = bf16_map(&b_map, g.w, g.n, g.taps * g.c_in, 1, g.ldb ? g.ldb : g.n, 64);
   if (err != cudaSuccess) return err;
   const int n_tiles = paired(g.epilogue) ? (g.split + 63) / 64 : (g.n + 64 * kNB - 1) / (64 * kNB);
-  const dim3 grid(n_tiles, g.batch * ((g.t + 63) / 64));
+  const dim3 grid(n_tiles, g.batch * ((g.t + 63) / 64), splits);
   return launch_ring<ConvRing<kNB>>(conv_gemm_bf16_tma_kernel<kWT, kNB>, grid, stream, g, a_map,
                                     b_map);
 }
@@ -961,7 +971,7 @@ bool& tma_allowed() {
 // aligned, no a_mask (a chain gives the masked copy instead), at least 64
 // channels and 64 columns (a narrower product leaves most of each box
 // empty).  A paired epilogue's tile is one chunk of each half, else up to
-// three chunks (N = 192 in one tile, 384 in two).
+// three chunks (N = 192 in one tile, 384 in two): the most a tile takes.
 int tma_conv_chunks(const ConvGemm& g) {
   if (!g.tma_ring || !tma_allowed() || !has(g.bf16, kA16) || !has(g.bf16, kW16) || g.a_mask)
     return 0;
@@ -1002,11 +1012,68 @@ TmaWgradPlan tma_wgrad_plan(const WGrad& w, int sms) {
   return p;
 }
 
+// The TMA-fed conv-GEMM's plan, by shape alone: its chunks a tile (0: the
+// mma.sync kernel takes it) and its split-K shares.  A chain that gives no
+// split-K scratch (the flow block's) takes tma_conv_chunks' tile and the
+// whole K walk a block.  The text chains (ConvGemm::part) take the pair of
+// chunks (1 to tma_conv_chunks') and shares (at most kTmaMaxShares, each
+// at least kTmaMinSlices 64-deep slices, shares * n within kTmaSplitCols)
+// whose waves of blocks (two an SM) times slices a block is least; ties to
+// more chunks, then fewer shares.  A sample's tiles end at its last row, so
+// the tiles count each sample's ragged last one.  The partial sums' round
+// trip is the shares' cost, which the K walk's waves do not count: at [32,
+// 192] two shares of the FFN's 768 columns saved 23 us of the first conv's
+// K walk and their pass took 44 us (its epilogue's loads and stores of
+// rows 768 wide), so a row's partial sums stay within 768 floats.
+constexpr int kTmaMaxShares = 4, kTmaMinSlices = 2, kTmaSplitCols = 768;
+
+struct TmaConvPlan {
+  int chunks = 0, splits = 1;
+};
+
+int device_sms(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)err;
+}
+
+// Whether the plan weighs the card's SMs (a text chain's product).
+bool tma_plan_needs_sms(const ConvGemm& g) {
+  return g.part && !paired(g.epilogue) && tma_conv_chunks(g);
+}
+
+TmaConvPlan tma_conv_plan(const ConvGemm& g, int sms) {
+  TmaConvPlan p;
+  const int most = tma_conv_chunks(g);
+  p.chunks = most;
+  if (!tma_plan_needs_sms(g)) return p;
+  const long row_tiles = (long)g.batch * ((g.t + 63) / 64);
+  const int steps = g.taps * ((g.c_in + 63) / 64);
+  const long slots = 2L * sms;
+  long best = -1;
+  for (int c = most; c >= 1; --c) {
+    const long tiles = row_tiles * ((g.n + 64 * c - 1) / (64 * c));
+    for (int s = 1; s <= kTmaMaxShares; ++s) {
+      const int per = (steps + s - 1) / s;
+      if (s > 1 && (per < kTmaMinSlices || (long)s * g.n > kTmaSplitCols)) break;
+      if ((steps + per - 1) / per != s) continue;  // folds to fewer shares
+      const long cost = (tiles * s + slots - 1) / slots * per;
+      if (best < 0 || cost < best) {
+        best = cost;
+        p.chunks = c;
+        p.splits = s;
+      }
+    }
+  }
+  return p;
+}
+
 template <int kWT>
-cudaError_t launch_conv_tma(const ConvGemm& g, int chunks, cudaStream_t stream) {
-  if (chunks == 3) return launch_conv_ring<kWT, 3>(g, stream);
-  if (chunks == 2) return launch_conv_ring<kWT, 2>(g, stream);
-  return launch_conv_ring<kWT, 1>(g, stream);
+cudaError_t launch_conv_tma(const ConvGemm& g, const TmaConvPlan& p, cudaStream_t stream) {
+  if (p.chunks == 3) return launch_conv_ring<kWT, 3>(g, p.splits, stream);
+  if (p.chunks == 2) return launch_conv_ring<kWT, 2>(g, p.splits, stream);
+  return launch_conv_ring<kWT, 1>(g, p.splits, stream);
 }
 
 cudaError_t launch_wgrad_tma(const WGrad& w, const TmaWgradPlan& p, float* dst, int dst_bf16,
@@ -1021,9 +1088,19 @@ cudaError_t launch_wgrad_tma(const WGrad& w, const TmaWgradPlan& p, float* dst, 
 cudaError_t conv_gemm_bf16(const ConvGemm& g, cudaStream_t stream) {
   const int rows = g.batch * g.t;
   if (rows <= 0 || g.n <= 0) return cudaSuccess;
-  if (const int chunks = tma_conv_chunks(g)) {
+  int sms = 0;
+  if (tma_plan_needs_sms(g)) {
+    if (const int err = device_sms(&sms)) return (cudaError_t)err;
+  }
+  const TmaConvPlan plan = tma_conv_plan(g, sms);
+  if (plan.chunks) {
     ++product_counts().bf16_tma_gemm;
-    return g.w_t ? launch_conv_tma<1>(g, chunks, stream) : launch_conv_tma<0>(g, chunks, stream);
+    cudaError_t err = g.w_t ? launch_conv_tma<1>(g, plan, stream) : launch_conv_tma<0>(g, plan, stream);
+    if (err != cudaSuccess || plan.splits == 1) return err;
+    const long threads = (long)rows * (g.n / 4);
+    conv_split_sum_bf16_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
+        g, plan.splits);
+    return cudaGetLastError();
   }
   if ((g.epilogue == kGateBwd && g.out4) || !conv_fits(g)) return cudaErrorInvalidValue;
   ++product_counts().bf16_gemm;
@@ -1121,6 +1198,42 @@ extern "C" int gtt_bf16_conv_product(const float* a, const float* w, float* out,
   g.tma_ring = tma;
   if (tma && !gtt::tma_conv_chunks(g)) return (int)cudaErrorInvalidValue;
   return (int)gtt::conv_gemm_bf16(g, stream);
+}
+
+// The same product by the text chains' plan (tma_conv_plan with split-K
+// scratch `part`, at least kSplitKCols floats a row): on the TMA-fed kernel
+// in its chunks and shares, the shares added in split order by the bias
+// epilogue's pass; an error where the plan declines the TMA-fed kernel.
+extern "C" int gtt_bf16_text_product(const float* a, const float* w, float* out, float* part,
+                                     long long part_floats, int batch, int t, int c_in, int taps,
+                                     int tap_sign, int n, int w_t, cudaStream_t stream) {
+  gtt::ConvGemm g;
+  g.a = a; g.lda = c_in; g.c_in = c_in; g.taps = taps; g.batch = batch; g.t = t;
+  g.tap_sign = tap_sign; g.w = w; g.w_t = w_t; g.n = n;
+  g.epilogue = gtt::kBias; g.out = out; g.ldo = n;
+  g.bf16 = gtt::kBf16 | gtt::kA16 | gtt::kW16;
+  g.tma_ring = 1;
+  g.part = part;
+  if (part_floats < (long long)gtt::kSplitKCols * batch * t || !gtt::tma_plan_needs_sms(g))
+    return (int)cudaErrorInvalidValue;
+  return (int)gtt::conv_gemm_bf16(g, stream);
+}
+
+// tma_conv_plan of a bf16 conv-GEMM of c_in channels, taps and n columns
+// over batch samples of t rows (text 1: a text chain's, with split-K
+// scratch; w_t the transposed product's B) on `sms` SMs, as chunks * 100 +
+// shares (0: the mma.sync kernel).
+extern "C" int gtt_bf16_tma_conv_plan(int batch, int t, int c_in, int taps, int n, int w_t,
+                                      int text, int sms) {
+  gtt::ConvGemm g;
+  static float dummy[4] __attribute__((aligned(16)));
+  g.a = dummy; g.lda = c_in; g.c_in = c_in; g.taps = taps; g.batch = batch; g.t = t;
+  g.w = dummy; g.w_t = w_t; g.n = n; g.epilogue = gtt::kBias;
+  g.bf16 = gtt::kBf16 | gtt::kA16 | gtt::kW16;
+  g.tma_ring = 1;
+  g.part = text ? dummy : nullptr;
+  const gtt::TmaConvPlan p = gtt::tma_conv_plan(g, sms);
+  return p.chunks * 100 + p.splits;
 }
 
 // out [taps * c_in, n] f32 = im2col(a)^T dy over all batch * t rows, a bf16

@@ -304,11 +304,12 @@ __global__ void col_sum_kernel(const float* x, int ld, int n, const float* mask,
 // in a fixed order.
 constexpr int kSumCols = 8, kSumGroups = 128;
 
-__global__ void __launch_bounds__(kSumCols * kSumGroups)
-    column_sums_kernel(const float* x, int ld, int n, const float* mul, int rows, float* out,
-                       float* out2, int x_bf16) {
+// The sums of the 8 columns from column block `cb` of one job.
+__device__ __forceinline__ void column_block_sums(const float* x, int ld, int n, const float* mul,
+                                                  int rows, float* out, float* out2, int x_bf16,
+                                                  int cb) {
   __shared__ float part[2][kSumGroups][kSumCols + 1];
-  const int j = blockIdx.x * kSumCols + threadIdx.x;
+  const int j = cb * kSumCols + threadIdx.x;
   float a8[8] = {}, b8[8] = {};
   if (j < n)
     for (int r0 = 8 * threadIdx.y; r0 < rows; r0 += 8 * kSumGroups) {
@@ -339,6 +340,25 @@ __global__ void __launch_bounds__(kSumCols * kSumGroups)
   }
 }
 
+__global__ void __launch_bounds__(kSumCols * kSumGroups)
+    column_sums_kernel(const float* x, int ld, int n, const float* mul, int rows, float* out,
+                       float* out2, int x_bf16) {
+  column_block_sums(x, ld, n, mul, rows, out, out2, x_bf16, blockIdx.x);
+}
+
+// Several jobs' column sums in one launch: block b belongs to the job whose
+// column blocks it falls in (each job's sums those of its own launch).
+__global__ void __launch_bounds__(kSumCols * kSumGroups)
+    column_sums_jobs_kernel(const ColumnSumJobs jobs, int rows) {
+  int cb = blockIdx.x, i = 0;
+  while (cb >= (jobs.job[i].n + kSumCols - 1) / kSumCols) {
+    cb -= (jobs.job[i].n + kSumCols - 1) / kSumCols;
+    ++i;
+  }
+  const ColumnSumJob& j = jobs.job[i];
+  column_block_sums(j.x, j.ld, j.n, j.mul, rows, j.out, j.out2, j.x_bf16, cb);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -352,6 +372,7 @@ __global__ void layer_norm_kernel(const LayerNorm a) {
   const long base = (long)row * a.n;
   const float xm = a.x_mask ? a.x_mask[row] : 1.f;
   const bool x16 = has(a.bf16, kA16), out16 = has(a.bf16, kOut16);
+  const bool outm16 = has(a.bf16, kOutM16);
   auto load = [&](int c) {
     float v = ld_act(a.x, base + c, x16) * xm;
     if (a.resid) v += a.resid[base + c];
@@ -377,7 +398,7 @@ __global__ void layer_norm_kernel(const LayerNorm a) {
     if (a.relu_after) y = fmaxf(y, 0.f);
     y = site_drop(a.drop, b, tr, a.n, c, y);
     if (a.out) st_act(a.out, base + c, y, out16);
-    if (a.out_masked) a.out_masked[base + c] = y * a.out_mask[row];
+    if (a.out_masked) st_act(a.out_masked, base + c, y * a.out_mask[row], outm16);
   }
 }
 
@@ -411,7 +432,11 @@ __global__ void layer_norm_bwd_kernel(const LayerNormBwd a) {
     if (a.relu_src && a.relu_src[base + c] <= 0.f) dx = 0.f;
     if (a.dyeff) a.dyeff[base + c] = de;
     a.dx[base + c] = dx;
-    if (a.dx2) a.dx2[base + c] = site_drop(a.drop2, b, tr, a.n, c, dx) * rm2;
+    if (a.dx2) {
+      const float v = site_drop(a.drop2, b, tr, a.n, c, dx) * rm2;
+      a.dx2[base + c] = v;
+      if (a.dx2_c) st_act(a.dx2_c, base + c, v, true);
+    }
   }
 }
 
@@ -478,6 +503,14 @@ cudaError_t column_sums(const float* x, int ld, int n, const float* mul, int row
   if (n <= 0 || rows <= 0) return cudaSuccess;
   column_sums_kernel<<<(n + kSumCols - 1) / kSumCols, dim3(kSumCols, kSumGroups), 0, stream>>>(
       x, ld, n, mul, rows, out, out2, x_bf16 ? 1 : 0);
+  return cudaGetLastError();
+}
+
+cudaError_t column_sums(const ColumnSumJobs& jobs, int rows, cudaStream_t stream) {
+  int blocks = 0;
+  for (int i = 0; i < jobs.count; ++i) blocks += (jobs.job[i].n + kSumCols - 1) / kSumCols;
+  if (blocks <= 0 || rows <= 0) return cudaSuccess;
+  column_sums_jobs_kernel<<<blocks, dim3(kSumCols, kSumGroups), 0, stream>>>(jobs, rows);
   return cudaGetLastError();
 }
 

@@ -62,10 +62,11 @@ namespace gtt {
 // kBf16Core): bf16 x bf16 on the tensor cores with f32 accumulation, each
 // operand element rounded to bf16 once (the JAX kernel's ``.astype(bf16)``
 // before its dot).  The mma.sync kernels round an f32 operand as they stage
-// it; the flow block's chains give every product bf16 operands instead (an
-// f32 cotangent's bf16 copy, written beside it by the epilogue that
-// produces it: ConvGemm::out_c, WGrad::dy16) and ask for the TMA-fed
-// kernels (tma_ring).
+// it; the flow block's and the encoder layer's chains give every product
+// bf16 operands instead (an f32 value's bf16 copy, written beside it by the
+// kernel that produces it: ConvGemm::out_c, LayerNorm's out_masked,
+// LayerNormBwd::dx2_c, WGrad::dy16) and ask for the TMA-fed kernels
+// (tma_ring).
 // A descriptor's ``bf16`` word holds kBf16 and one bit per operand stored
 // as bf16 (the pointers stay float*: the bit says the elements are
 // 2-byte); its epilogue then rounds where the JAX kernel casts.
@@ -80,6 +81,7 @@ enum Bf16Bits : unsigned {
   kOut3_16 = 1u << 4,
   kAux16 = 1u << 5,      // aux (LayerNormBwd dy, WGrad dy)
   kAux2_16 = 1u << 6,
+  kOutM16 = 1u << 7,     // LayerNorm out_masked
 };
 
 __host__ __device__ __forceinline__ bool has(unsigned bits, unsigned bit) {
@@ -243,8 +245,9 @@ struct ConvGemm {
   float* tc_scratch = nullptr;
   long tc_scratch_floats = 0;
   // Set by a chain (the text side's, the serving inverse's) to allow
-  // split-K on the tensor cores (conv_gemm_tc_plan): room for the partial
-  // sums, kSplitKCols floats a row ([splits, batch * t, n], splits * n <=
+  // split-K on the tensor cores (conv_gemm_tc_plan; in a bf16 chain the
+  // TMA-fed kernel's, tma_conv_plan): room for the partial sums,
+  // kSplitKCols floats a row ([splits, batch * t, n], splits * n <=
   // kSplitKCols).  Null: the whole K walk a block, as the flow training
   // chains run it.
   float* part = nullptr;
@@ -450,6 +453,22 @@ cudaError_t bias_grad(const float* x, int ld, int n, const float* mask,
 // dgamma and dbeta (mul = xhat) without per-sample partials.
 cudaError_t column_sums(const float* x, int ld, int n, const float* mul, int rows, float* out,
                         float* out2, cudaStream_t stream, bool x_bf16 = false);
+// Up to kMaxSumJobs column_sums over the same rows in one launch, each job
+// summed as its own launch would sum it.
+constexpr int kMaxSumJobs = 6;
+struct ColumnSumJob {
+  const float* x = nullptr;
+  int ld = 0, n = 0;
+  const float* mul = nullptr;
+  float* out = nullptr;
+  float* out2 = nullptr;
+  int x_bf16 = 0;
+};
+struct ColumnSumJobs {
+  ColumnSumJob job[kMaxSumJobs];
+  int count = 0;
+};
+cudaError_t column_sums(const ColumnSumJobs& jobs, int rows, cudaStream_t stream);
 
 // The WN stack's layers: per layer the dilated in-conv with the gate (its
 // pre-gate tensor dropped at site l, then + g_all), then the 1x1 res/skip,
@@ -529,7 +548,7 @@ struct LayerNorm {
   // a second copy of the result times out_mask [rows], or null
   float* out_masked = nullptr;
   const float* out_mask = nullptr;
-  unsigned bf16 = 0;  // kA16: x bf16; kOut16: out bf16
+  unsigned bf16 = 0;  // kA16: x bf16; kOut16: out bf16; kOutM16: out_masked bf16
 };
 
 cudaError_t layer_norm(const LayerNorm& a, cudaStream_t stream);
@@ -554,6 +573,7 @@ struct LayerNormBwd {
   float* dx2 = nullptr;
   Dropout drop2;
   const float* mask2 = nullptr;  // [rows] or null
+  float* dx2_c = nullptr;        // a bf16 copy of dx2 (rounded), or null
   int rows = 0;
   int n = 0;
   int t = 0;

@@ -27,13 +27,23 @@ struct EncoderScratch {
   float *tc = nullptr, *part = nullptr;
   long tc_floats = 0;
   // bf16: the attention and FFN branches' f32 outputs (the f32 layer
-  // stages them in its output)
+  // stages them in its output); qkv and x1m are bf16, and each operand of
+  // the products has its bf16 copy, written by the kernel that produces it
+  // (masked where the product reads it masked): xm16 = x * mask, att16 the
+  // heads' outputs, rm16 the FFN's dropped, masked ReLU output (ffn holds
+  // it in f32 for the backward's gates)
   float* y = nullptr;
+  float *xm16 = nullptr, *att16 = nullptr, *rm16 = nullptr;
   // backward
   float *da = nullptr, *db = nullptr, *dc = nullptr, *datt = nullptr, *dffn = nullptr;
   float *dqkv = nullptr, *dqrel = nullptr, *pb = nullptr;
   float *ds = nullptr, *pd = nullptr, *wg = nullptr;
   long wg_floats = 0;
+  // bf16 backward: ds and pd are bf16, and the cotangents' bf16 copies
+  // (db: the FFN's output cotangent dconv2, dc: the attention output's dy,
+  // datt: dout of the heads, dffn, dqkv)
+  float *db16 = nullptr, *dc16 = nullptr, *datt16 = nullptr, *dffn16 = nullptr;
+  float* dqkv16 = nullptr;
 };
 
 // Carve `base` (16-byte aligned) into s and return the floats used; with
@@ -41,6 +51,13 @@ struct EncoderScratch {
 // (the backward hands it out) instead of in the scratch.
 long encoder_scratch(float* base, const EncoderDims& d, bool backward, float* ffn,
                      EncoderScratch* s, bool bf16 = false);
+
+// The bf16 attention core's launch: the heads' outputs bf16 (out16) and,
+// where out is given, f32; the softmax's statistics where given.
+cudaError_t attention_bf16(const float* qkv16, const float* mask, const float* rel_k,
+                           const float* rel_v, float* out, float* out16, float* stat_m,
+                           float* stat_linv, int batch, int t, int n_heads, int d, int window,
+                           const Dropout& drop, cudaStream_t stream);
 
 // What the attention cores (tensor cores, mma.sync) take: a head width
 // that is a multiple of 8 and at most kAttnMaxD, 2 * window + 1 <=
@@ -78,7 +95,8 @@ struct EncoderArgs {
 cudaError_t encoder_forward(const EncoderArgs& a, cudaStream_t stream);
 
 // A product of the text chains: on the tensor cores where the shape fits,
-// split-K allowed (conv_gemm_tc_plan).
-ConvGemm text_product(const EncoderScratch& s);
+// split-K allowed (conv_gemm_tc_plan; bf16: the TMA-fed wgmma kernel by
+// tma_conv_plan, its operands bf16).
+ConvGemm text_product(const EncoderScratch& s, bool bf16 = false);
 
 }  // namespace gtt

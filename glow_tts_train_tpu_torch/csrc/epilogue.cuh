@@ -240,7 +240,8 @@ __device__ __forceinline__ void epilogue_row(const ConvGemm& g, int m, int n0,
 //    kRoundOut.
 // Where the chain gives out_c / out2_c, the f32 cotangents written to out
 // and out2 (dout and dzp's second half by kCouplingBwd, d_xin by kGateBwd,
-// the masked gx by kAccumMask, the plain ones' out) are also written there
+// the masked gx by kAccumMask, dpre by kMaskReluBwd, the plain ones' out:
+// the text chains' dout_h, and rm by kBiasReluMask) are also written there
 // in bf16: the copy a product reads, rounded once as the JAX kernel's
 // ``.astype(bf16)`` before its dots.
 __device__ __forceinline__ void st_copy(float* p, long i, float v) {
@@ -424,7 +425,9 @@ __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const Epil
       for (int e = 0; e < kW; ++e) {
         const int n = n0 + e;
         if (n >= g.n) break;
-        g.out[ob + n] = ld_act(g.aux, m * g.ld_aux + n, aux16) > 0.f ? acc[e] * sc : 0.f;
+        const float v = ld_act(g.aux, m * g.ld_aux + n, aux16) > 0.f ? acc[e] * sc : 0.f;
+        g.out[ob + n] = v;
+        st_copy(g.out_c, ob + n, v);
       }
       break;
     }

@@ -240,6 +240,12 @@ SPLIT_WEIGHTS = Entry("gtt_split_weights", "p" * 3 + "i" * 3)
 # the mma.sync one
 BF16_CONV_PRODUCT = Entry("gtt_bf16_conv_product", "p" * 3 + "i" * 9)
 BF16_WGRAD_PRODUCT = Entry("gtt_bf16_wgrad_product", "p" * 4 + "L" + "i" * 7)
+# ... and a conv-GEMM by the text chains' plan (chunks a tile, split-K shares)
+BF16_TEXT_PRODUCT = Entry("gtt_bf16_text_product", "p" * 4 + "L" + "i" * 7)
+# the bf16 encoder layer's attention core alone, forward and backward
+# (csrc/encoder.cu, csrc/encoder_train.cu), for the GPU tests
+BF16_ATTENTION = Entry("gtt_bf16_attention", "p" * 8 + "i" * 7 + "uf")
+BF16_ATTENTION_BWD = Entry("gtt_bf16_attention_bwd", "p" * 14 + "L" + "i" * 7 + "uf")
 
 ENTRIES = {
     "prenet": PRENET,
@@ -274,6 +280,9 @@ ENTRIES = {
     "split_weights": SPLIT_WEIGHTS,
     "bf16_conv_product": BF16_CONV_PRODUCT,
     "bf16_wgrad_product": BF16_WGRAD_PRODUCT,
+    "bf16_text_product": BF16_TEXT_PRODUCT,
+    "bf16_attention": BF16_ATTENTION,
+    "bf16_attention_bwd": BF16_ATTENTION_BWD,
 }
 
 PRODUCT_COUNT_NAMES = (
@@ -312,9 +321,23 @@ def product_counts(reset: bool = False) -> typing.Dict[str, int]:
     return counts
 
 
+def bf16_tma_conv_plan(batch: int, t: int, c_in: int, taps: int, n: int, w_t: bool, text: bool,
+                       sms: int) -> typing.Tuple[int, int]:
+    """The library's plan of a bf16 conv-GEMM that asks for the TMA-fed
+    kernel (``tma_conv_plan``; ``text``: a text chain's, with split-K
+    scratch) -> (chunks a tile, 0 for the mma.sync kernel; split-K
+    shares), for holding ``ops.tc_gemm``'s plain version to it."""
+    fn = library().gtt_bf16_tma_conv_plan
+    fn.argtypes = [ctypes.c_int] * 8
+    fn.restype = ctypes.c_int
+    got = fn(batch, t, c_in, taps, n, int(w_t), int(text), sms)
+    return got // 100, got % 100
+
+
 @contextlib.contextmanager
 def bf16_mma_only():
-    """Within the block, the flow block's bf16 chains run every product on
+    """Within the block, the bf16 chains that ask for the TMA-fed kernels
+    (the flow block's and the text encoder layer's) run every product on
     the mma.sync kernels (``gtt_bf16_tma(0)``), for a measurement of both
     units in turns; the TMA-fed kernels are the default."""
     fn = library().gtt_bf16_tma
@@ -351,6 +374,12 @@ def _size_query(symbol: str, *dims: int) -> int:
     """A size that depends on the shapes alone (and, for MAS, on the
     current device's shared memory: its index is one of ``dims``)."""
     return int(_size_fn(symbol, len(dims))(*dims))
+
+
+def bf16_attention_bwd_scratch_floats(batch: int, t: int, n_heads: int, window: int) -> int:
+    """Floats of the scratch ``BF16_ATTENTION_BWD`` carves its band sums
+    and its bf16 ds and pd from."""
+    return _size_query("gtt_bf16_attention_bwd_scratch_floats", batch, t, n_heads, window)
 
 
 def encoder_scratch_floats(

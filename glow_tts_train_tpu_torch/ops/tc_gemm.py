@@ -586,6 +586,45 @@ def bf16_conv_chunks(c_in: int, n: int, lda: int, ldb: int, w_t: bool, paired: b
     return 2 if paired else min(3, -(-n // 64))
 
 
+# the text chains' split-K on the TMA-fed conv-GEMM (csrc/bf16_gemm.cu
+# kTmaMaxShares, kTmaMinSlices, kTmaSplitCols): shares, 64-deep slices a
+# share at least, partial sums a row over all shares
+TMA_MAX_SHARES, TMA_MIN_SLICES, TMA_SPLIT_COLS = 4, 2, 768
+# the bf16 product units a bare product may take (bf16_conv_product)
+BF16_UNITS = ("mma", "tma", "text")
+
+
+def bf16_text_conv_plan(batch: int, t: int, c_in: int, taps: int, n: int, sms: int,
+                        lda: int = 0, ldb: int = 0, w_t: bool = False) -> typing.Tuple[int, int]:
+    """``tma_conv_plan`` of a text chain's bf16 conv-GEMM (split-K scratch
+    given) over ``batch`` samples of ``t`` rows -> (chunks a tile, 0 where
+    the mma.sync kernel takes it; split-K shares): among 1 to
+    :func:`bf16_conv_chunks`' chunks and 1 to TMA_MAX_SHARES shares (each
+    at least TMA_MIN_SLICES 64-deep slices, shares * n within
+    TMA_SPLIT_COLS), the pair whose waves of blocks (two an SM, a sample's
+    64-row tiles ending at its last row) times slices a block is least;
+    ties to more chunks, then fewer shares."""
+    most = bf16_conv_chunks(c_in, n, lda or c_in, ldb or n, w_t, False)
+    if not most:
+        return 0, 1
+    row_tiles = batch * -(-t // BF16_CONV_TILE)
+    steps = taps * -(-c_in // 64)
+    slots = 2 * sms
+    best, plan = None, (most, 1)
+    for chunks in range(most, 0, -1):
+        tiles = row_tiles * -(-n // (64 * chunks))
+        for shares in range(1, TMA_MAX_SHARES + 1):
+            per = -(-steps // shares)
+            if shares > 1 and (per < TMA_MIN_SLICES or shares * n > TMA_SPLIT_COLS):
+                break
+            if -(-steps // per) != shares:
+                continue
+            cost = -(-(tiles * shares) // slots) * per
+            if best is None or cost < best:
+                best, plan = cost, (chunks, shares)
+    return plan
+
+
 def bf16_wgrad_plan(batch: int, t: int, c_in: int, taps: int, n: int, lda: int, sms: int,
                     scratch_floats: int = WALK_WG_FLOATS) -> typing.Tuple[int, int]:
     """``tma_wgrad_plan`` of a bf16 chain's weight gradient that asks for
@@ -681,6 +720,76 @@ def bf16_block_products(
             "counts": counts}
 
 
+def bf16_encoder_products(batch: int, t: int, h: int, f: int, taps: int, sms: int,
+                          backward: bool = False) -> typing.Dict[str, typing.Any]:
+    """The plan of one call of the text encoder layer's bf16 forward
+    (``gtt_encoder_layer_bf16``, bf16 row 2) or backward
+    (``gtt_encoder_layer_bwd_bf16``, bf16 row 13, which runs the forward's
+    chain first) over ``batch`` samples of ``t`` rows at width ``h``, FFN
+    width ``f`` and ``taps`` (csrc/encoder.cu, csrc/encoder_train.cu,
+    csrc/bf16_gemm.cu): the plain version of its products' dispatch.  ->
+    {"products": per product its name, kind ("conv_gemm"/"wgrad"), shape
+    ([rows, K, N]; a weight gradient's [K, rows, N]), unit ("tma" the
+    TMA-fed wgmma kernel, "mma" the mma.sync kernel), chunks (64-column
+    chunks a tile), shares (a conv-GEMM's split-K) or splits (a weight
+    gradient's row splits), tiles (blocks of a launch), stages, shared
+    memory (a block's) and launches (a split product's sum pass
+    included); "launches": the device operations of a call; "counts":
+    ``kernels.product_counts`` of a call}."""
+    rows = batch * t
+    products: typing.List[dict] = []
+
+    def conv(name, c_in, n, k_taps=1, w_t=False):
+        chunks, shares = bf16_text_conv_plan(batch, t, c_in, k_taps, n, sms, w_t=w_t)
+        stages, smem = bf16_ring("conv_gemm", chunks) if chunks else (0, 0)
+        tiles = (batch * -(-t // BF16_CONV_TILE) * -(-n // (64 * chunks)) * shares if chunks
+                 else -(-rows // 64) * -(-n // 64))
+        products.append({
+            "name": name, "kind": "conv_gemm", "shape": [rows, k_taps * c_in, n],
+            "unit": "tma" if chunks else "mma", "chunks": chunks, "shares": shares,
+            "tiles": tiles, "stages": stages, "smem": smem,
+            "launches": 1 + int(shares > 1)})
+
+    def wgrad(name, c_in, n, k_taps=1):
+        chunks, splits = bf16_wgrad_plan(batch, t, c_in, k_taps, n, c_in, sms,
+                                         max(WALK_WG_FLOATS, taps * h * f))
+        tiles = (-(-n // (64 * chunks)) * -(-(k_taps * c_in) // BF16_WGRAD_TILE) * splits
+                 if chunks else 0)
+        stages, smem = bf16_ring("wgrad", chunks) if chunks else (0, 0)
+        products.append({
+            "name": name, "kind": "wgrad", "shape": [k_taps * c_in, rows, n],
+            "unit": "tma" if chunks else "mma", "chunks": chunks, "splits": splits,
+            "tiles": tiles, "stages": stages, "smem": smem,
+            # the product and, split, its splits' sum (the bias gradients
+            # are the chain's column sums)
+            "launches": 1 + int(chunks > 0 and splits > 1)})
+
+    conv("qkv", h, 3 * h)
+    conv("out_proj", h, h)
+    conv("ffn1", h, f, taps)
+    conv("ffn2", f, h, taps)
+    fixed = 4  # xm's masked copy, the attention core, the two norms
+    if backward:
+        wgrad("dW2", f, h, taps)
+        conv("dffn", h, f, taps, w_t=True)
+        wgrad("dW1", h, f, taps)
+        conv("dx1", f, h, taps, w_t=True)
+        wgrad("dWo", h, h)
+        conv("datt", h, h, w_t=True)
+        wgrad("dW_qkv", h, 3 * h)
+        conv("dx", 3 * h, h, w_t=True)
+        # the norms' backwards, dc2's column sums and the other five bias
+        # and norm gradients' in one launch, the attention backward's score
+        # pass and products, the rel-pos tables' partial sums and their sum
+        fixed += 8
+    counts = {"bf16_gemm": 0, "bf16_wgrad": 0, "bf16_tma_gemm": 0, "bf16_tma_wgrad": 0}
+    for p in products:
+        tma = "_tma" if p["unit"] == "tma" else ""
+        counts[f"bf16{tma}_{'gemm' if p['kind'] == 'conv_gemm' else 'wgrad'}"] += 1
+    return {"products": products, "launches": fixed + sum(p["launches"] for p in products),
+            "counts": counts}
+
+
 def bf16_conv_product_plain(a, w, taps=1, dilation=1, tap_sign=1, w_t=False) -> torch.Tensor:
     """Plain version of :func:`bf16_conv_product`: bf16 operands, exact
     products summed in f32."""
@@ -694,15 +803,27 @@ def bf16_conv_product(
     """a [b, t, c] bf16, w bf16 [taps * c, n] (or with ``w_t`` a forward
     conv's [taps * n, c], B its per-tap transpose) -> im2col(a) @ B [b, t,
     n] f32 by one bf16 product on ``unit``: "tma" the TMA-fed wgmma kernel
-    (an error where the shape does not fit), "mma" the mma.sync one.  CPU
-    tensors take the plain version."""
+    over the whole K walk a block (an error where the shape does not fit),
+    "text" the same kernel by the text chains' plan (:func:`bf16_text_conv_plan`:
+    chunks a tile and split-K shares, added in split order by the
+    epilogue's pass; dilation 1), "mma" the mma.sync one.  CPU tensors take
+    the plain version."""
     if kernels.route(a) == "plain":
         return bf16_conv_product_plain(a, w, taps, dilation, tap_sign, w_t)
+    if unit not in BF16_UNITS:
+        raise ValueError(f"unit {unit!r}: one of {BF16_UNITS}")
     batch, t, c = a.shape
     kernels.check_operands(a.device, ("a", "w"), a=a, w=w)
     n = w.shape[0] // taps if w_t else w.shape[1]
     kernels.check_shape("w", w, (taps * n, c) if w_t else (taps * c, n))
     out = torch.empty((batch, t, n), dtype=torch.float32, device=a.device)
+    if unit == "text":
+        if dilation != 1:
+            raise ValueError("the text chains' products have dilation 1")
+        part = kernels.scratch(SPLIT_K_COLS * batch * t, a)
+        kernels.BF16_TEXT_PRODUCT(a, w, out, part, part.numel(), batch, t, c, taps, tap_sign, n,
+                                  int(w_t))
+        return out
     kernels.BF16_CONV_PRODUCT(a, w, out, batch, t, c, taps, dilation, tap_sign, n, int(w_t),
                               int(unit == "tma"))
     return out

@@ -28,6 +28,8 @@ themselves are compared, see ``ops/text_cuda.py``); two runs of a backward
 kernel give the same bits (fixed-order reductions, no atomics).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1630,13 +1632,14 @@ def test_tma_conv_matches_float64_and_the_tap_staged_bits(dev, name):
 BF16_RTOL = 2e-2
 BF16 = torch.bfloat16
 # device products of one call of each bf16 kernel at base width, as
-# (bf16_gemm, bf16_wgrad, core_gemm, bf16_tma_gemm, bf16_tma_wgrad): the text
-# side's on the mma.sync kernels, the flow block's on the TMA-fed wgmma ones
-# but its folded A, which stays on the CUDA cores
+# (bf16_gemm, bf16_wgrad, core_gemm, bf16_tma_gemm, bf16_tma_wgrad): the
+# prenet's and the duration stack's on the mma.sync kernels, the encoder
+# layer's and the flow block's on the TMA-fed wgmma ones but the block's
+# folded A, which stays on the CUDA cores
 BF16_PRODUCTS = {
     "prenet": (4, 0, 0, 0, 0), "prenet_bwd": (8, 4, 0, 0, 0), "duration_stack": (2, 0, 0, 0, 0),
-    "duration_stack_bwd": (4, 2, 0, 0, 0), "encoder_layer": (4, 0, 0, 0, 0),
-    "encoder_layer_bwd": (8, 4, 0, 0, 0), "block_fwd_save": (0, 0, 1, 10, 0),
+    "duration_stack_bwd": (4, 2, 0, 0, 0), "encoder_layer": (0, 0, 0, 4, 0),
+    "encoder_layer_bwd": (0, 0, 0, 8, 4), "block_fwd_save": (0, 0, 1, 10, 0),
     "block_bwd_store": (0, 0, 0, 12, 11),
 }
 
@@ -1910,3 +1913,225 @@ def test_bf16_refuses_what_it_does_not_take(dev):
         text_cuda.prenet(weights, x, mask)
     with pytest.raises(NotImplementedError):
         block_cuda.block_forward({}, None, x, mask, 5, 1, residuals="recompute")
+
+
+# ---------------------------------------------------------------------------
+# the bf16 text encoder layer (bf16 rows 2 and 13): its products on the
+# TMA-fed wgmma kernels by the text chains' plan, its attention cores on
+# mma.sync m16n8k16 bf16
+# ---------------------------------------------------------------------------
+
+ENC_H, ENC_F, ENC_TAPS, ENC_HEADS, ENC_WINDOW = 192, 768, 3, 2, 4
+# (name, c_in, taps, tap_sign, n, w_t) of the layer's conv-GEMMs at base width
+ENC_CONV = [
+    ("qkv", 192, 1, 1, 576, False), ("out_proj", 192, 1, 1, 192, False),
+    ("ffn1", 192, 3, 1, 768, False), ("ffn2", 768, 3, 1, 192, False),
+    ("dffn", 192, 3, -1, 768, True), ("dx1", 768, 3, -1, 192, True),
+    ("datt", 192, 1, 1, 192, True), ("dx", 576, 1, 1, 192, True),
+]
+# (name, c_in, taps, n) of its weight gradients -> [taps * c_in, n]
+ENC_WGRAD = [("dW2", 768, 3, 192), ("dW1", 192, 3, 768), ("dWo", 192, 1, 192),
+             ("dW_qkv", 192, 1, 576)]
+
+
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.parametrize("name,c_in,taps,tap_sign,n,w_t", ENC_CONV)
+def test_bf16_text_product_matches_plain(dev, name, c_in, taps, tap_sign, n, w_t):
+    """Each conv-GEMM of bf16 rows 2 and 13 alone at [32, 192] by the text
+    chains' plan: the library's chunks and split-K shares those of
+    tc_gemm.bf16_text_conv_plan, on the TMA-fed kernel (taps, tap_sign -1,
+    w_t); against float64 of the same bf16 operands within 1e-5 of max
+    |ref| (the shares added in split order), the same bits twice."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    plan = tc_gemm.bf16_text_conv_plan(32, 192, c_in, taps, n, _sms(), w_t=w_t)
+    assert plan[0] > 0 and kernels.bf16_tma_conv_plan(32, 192, c_in, taps, n, w_t, True,
+                                                      _sms()) == plan
+    g = torch.Generator().manual_seed(3)
+    a = torch.randn(32, 192, c_in, generator=g).to(BF16).to(dev)
+    shape = (taps * n, c_in) if w_t else (taps * c_in, n)
+    w = (torch.randn(*shape, generator=g) * (taps * c_in) ** -0.5).to(BF16).to(dev)
+    ref = tc_gemm.conv_product_plain(a.double(), w.double(), taps, 1, tap_sign, w_t=w_t)
+    kernels.product_counts(reset=True)
+    got = tc_gemm.bf16_conv_product(a, w, taps, 1, tap_sign, w_t, unit="text")
+    torch.cuda.synchronize()
+    assert kernels.product_counts(reset=True)["bf16_tma_gemm"] == 1
+    err = (got.double() - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), (name, plan, err)
+    assert torch.equal(got, tc_gemm.bf16_conv_product(a, w, taps, 1, tap_sign, w_t, unit="text"))
+
+
+@pytest.mark.parametrize("name,c_in,taps,n", ENC_WGRAD)
+def test_bf16_text_wgrad_matches_plain(dev, name, c_in, taps, n):
+    """Each weight gradient of bf16 row 13 alone at [32, 192] on the TMA-fed
+    kernel (its row splits by tc_gemm.bf16_wgrad_plan): against float64 of
+    the same bf16 operands within 1e-5 of max |ref|."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    g = torch.Generator().manual_seed(4)
+    a = torch.randn(32, 192, c_in, generator=g).to(BF16).to(dev)
+    dy = torch.randn(32, 192, n, generator=g).to(BF16).to(dev)
+    ref = tc_gemm.weight_gradient_plain(a.double(), dy.double(), taps)
+    kernels.product_counts(reset=True)
+    got = tc_gemm.bf16_weight_gradient(a, dy, taps, unit="tma")
+    torch.cuda.synchronize()
+    assert kernels.product_counts(reset=True)["bf16_tma_wgrad"] == 1
+    assert (got.double() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item(), name
+
+
+def _attention_plain(qkv, mask, rel_k, rel_v, n_heads, window, p, seed):
+    """encoder_layer_plain_bf16's attention core on q, k, v (bf16 values):
+    the heads' outputs [b, t, h] in f32, before their rounding."""
+    from glow_tts_train_tpu_torch.ops import bf16 as bf16_ops
+
+    b, t, h3 = qkv.shape
+    h = h3 // 3
+    d = h // n_heads
+    scale = d ** -0.5
+    q, k, v = (u.reshape(b, t, n_heads, d).transpose(1, 2) for u in qkv.split(h, dim=-1))
+    sc = (bf16_ops.scores(q, k, scale)
+          + encoder_cuda._band_matrix(q @ rel_k.float().T, t, window) * scale)
+    m = mask[:, :, 0]
+    attend = (m[:, None, :, None] * m[:, None, None, :]) != 0
+    sc = torch.where(attend, sc, torch.full_like(sc, -1e4))
+    pd = wn_cuda.site_dropout(torch.softmax(sc, dim=-1), seed, 0, n_heads + 3, p)
+    out_h = (bf16_ops.product(bf16_ops.round_fwd(pd), v)
+             + encoder_cuda._band_of(pd, window) @ rel_v.float())
+    return out_h.transpose(1, 2).reshape(b, t, h)
+
+
+@pytest.mark.parametrize("t", [64, 192, 93])
+def test_bf16_attention_kernels_match_plain(dev, t):
+    """The three bf16 attention kernels alone (attention_bf16_kernel, the
+    score pass and the products kernel, with rel_grads_kernel) at base
+    width (2 heads of 96, window 4, dropout 0.1) over [4, t], three samples
+    ragged: the heads' outputs against the plain bf16 attention core, and
+    dq, dk, dv and both tables' gradients against its autograd, each within
+    BF16_RTOL of its max; the bf16 copies are the f32 values rounded."""
+    b, h, d = 4, ENC_H, ENC_H // ENC_HEADS
+    g = torch.Generator().manual_seed(t)
+    lengths = torch.tensor([t, t - 9, t // 2, 5])
+    mask = (torch.arange(t)[None, :] < lengths[:, None]).float()[..., None].to(dev)
+    qkv = (torch.randn(b, t, 3 * h, generator=g) * 0.7).to(BF16).to(dev)
+    rel_k, rel_v = ((torch.randn(2 * ENC_WINDOW + 1, d, generator=g) * d ** -0.5).to(BF16).to(dev)
+                    for _ in range(2))
+    datt = torch.randn(b, t, h, generator=g).to(dev)
+    p, seed = 0.1, 7
+    drop, threshold, scale = wn_cuda.drop_args(p)
+    att = torch.empty(b, t, h, device=dev)
+    att16 = torch.empty(b, t, h, dtype=BF16, device=dev)
+    stat_m = torch.empty(b, ENC_HEADS, t, device=dev)
+    stat_linv = torch.empty_like(stat_m)
+    kernels.BF16_ATTENTION(qkv, mask, rel_k, rel_v, att, att16, stat_m, stat_linv, b, t,
+                           ENC_HEADS, d, ENC_WINDOW, drop, seed, threshold, scale)
+    datt16 = datt.to(BF16)
+    dqkv = torch.empty(b, t, 3 * h, device=dev)
+    dqkv16 = torch.empty(b, t, 3 * h, dtype=BF16, device=dev)
+    drk, drv = torch.empty_like(rel_k), torch.empty_like(rel_v)
+    floats = kernels.bf16_attention_bwd_scratch_floats(b, t, ENC_HEADS, ENC_WINDOW)
+    scratch = kernels.scratch(floats, qkv)
+    kernels.BF16_ATTENTION_BWD(qkv, mask, rel_k, rel_v, att, stat_m, stat_linv, datt, datt16,
+                               dqkv, dqkv16, drk, drv, scratch, floats, b, t, ENC_HEADS, d,
+                               ENC_WINDOW, drop, seed, threshold, scale)
+    torch.cuda.synchronize()
+    leaves = [a.float().requires_grad_(True) for a in (qkv, rel_k, rel_v)]
+    ref = _attention_plain(*leaves[:1], mask, *leaves[1:], ENC_HEADS, ENC_WINDOW, p, seed)
+    _bf16_held("att", att, ref.detach())
+    assert torch.equal(att16, att.to(BF16))
+    grads = torch.autograd.grad(ref, leaves, datt)
+    for name, got, want in zip(("dqkv", "drk", "drv"), (dqkv, drk, drv), grads):
+        _bf16_held(name, got, want)
+    assert torch.equal(dqkv16, dqkv.to(BF16))
+
+
+def _enc_layer(dev, t, b=4, seed=0):
+    """The encoder layer's bf16 weights at base width and inputs over [b, t],
+    three samples ragged (as test_bf16_text_kernels_match_plain's)."""
+    h, f, heads, window = ENC_H, ENC_F, ENC_HEADS, ENC_WINDOW
+    d = h // heads
+    x, mask, g = _bf16_text_inputs(dev, h, t=t, b=b, seed=seed)
+
+    def r(*shape, scale=1.0, off=0.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g) * scale + off).to(dtype).to(dev)
+
+    weights = (r(h, 3 * h, scale=h ** -0.5, dtype=BF16), r(1, 3 * h, scale=0.1),
+               r(h, h, scale=h ** -0.5, dtype=BF16), r(1, h, scale=0.1),
+               r(2 * window + 1, d, scale=d ** -0.5, dtype=BF16),
+               r(2 * window + 1, d, scale=d ** -0.5, dtype=BF16),
+               r(1, h, scale=0.1, off=1.0), r(1, h, scale=0.1),
+               r(1, h, scale=0.1, off=1.0), r(1, h, scale=0.1),
+               r(ENC_TAPS * h, f, scale=(ENC_TAPS * h) ** -0.5, dtype=BF16), r(1, f, scale=0.1),
+               r(ENC_TAPS * f, h, scale=(ENC_TAPS * f) ** -0.5, dtype=BF16), r(1, h, scale=0.1))
+    dout = r(b, t, h, dtype=BF16)
+    return weights, x, mask, dout, (heads, window, 0.1, 13)
+
+
+@pytest.mark.parametrize("t", [64, 96, 192, 93])
+def test_bf16_encoder_rows_match_plain(dev, t):
+    """bf16 rows 2 and 13 at base width over [4, t] (three samples ragged; t
+    93 leaves a sample's last tile part empty and its rows odd), dropout
+    on: the forward's output and every gradient (at the kernel's own ReLU
+    gates) within BF16_RTOL of the plain bf16 version's max; every product
+    on the TMA-fed kernels, as tc_gemm.bf16_encoder_products counts them."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    weights, x, mask, dout, cfg = _enc_layer(dev, t)
+    plan = {bw: tc_gemm.bf16_encoder_products(4, t, ENC_H, ENC_F, ENC_TAPS, _sms(), bw)["counts"]
+            for bw in (False, True)}
+    assert plan[True] == {"bf16_gemm": 0, "bf16_wgrad": 0, "bf16_tma_gemm": 8,
+                          "bf16_tma_wgrad": 4}
+    kernels.product_counts(reset=True)
+    out = encoder_cuda.encoder_layer(weights, x, mask, *cfg)
+    torch.cuda.synchronize()
+    counts = kernels.product_counts(reset=True)
+    assert {k: counts[k] for k in plan[False]} == plan[False]
+    _bf16_held(f"row 2 t {t}", out, encoder_cuda.encoder_layer_plain_bf16(weights, x, mask, *cfg))
+    saves = {}
+    grads = encoder_cuda.encoder_layer_bwd(weights, x, mask, dout, *cfg, saves=saves)
+    torch.cuda.synchronize()
+    counts = kernels.product_counts(reset=True)
+    assert {k: counts[k] for k in plan[True]} == plan[True]
+    assert torch.equal(saves["out"], out)  # the recompute is the forward's bits
+    ref = encoder_cuda.encoder_layer_bwd_plain(weights, x, mask, dout, *cfg, gates=saves["gates"])
+    for i, (a, b) in enumerate(zip(grads, ref)):
+        assert a.dtype == b.dtype, i
+        _bf16_held(f"row 13 t {t} [{i}]", a, b)
+
+
+def test_bf16_encoder_rows_units_agree_and_repeat_bits(dev):
+    """Rows 2 and 13 in bf16 at [4, 192], dropout on: on the TMA-fed kernels
+    and, in the same process, on the mma.sync ones (every product declined
+    by kernels.bf16_mma_only): the forward's outputs within BF16_RTOL of
+    each other (both read the same bf16 operands; only the f32 sums' order
+    differs), each unit's gradients within BF16_RTOL of the plain bf16
+    version at that unit's own ReLU gates (a ReLU input within rounding of
+    zero opens under one unit only, which moves a weight gradient by a few
+    percent of its max); 50 repeats of each row on the TMA-fed kernels give
+    the same bits (split-K shares and row splits added in a fixed order, no
+    atomics)."""
+    weights, x, mask, dout, cfg = _enc_layer(dev, 192)
+    runs = {}
+    for unit in ("tma", "mma"):
+        with kernels.bf16_mma_only() if unit == "mma" else contextlib.nullcontext():
+            kernels.product_counts(reset=True)
+            out = encoder_cuda.encoder_layer(weights, x, mask, *cfg)
+            saves = {}
+            grads = encoder_cuda.encoder_layer_bwd(weights, x, mask, dout, *cfg, saves=saves)
+            torch.cuda.synchronize()
+            counts = kernels.product_counts(reset=True)
+        want = (12, 4, 0, 0) if unit == "mma" else (0, 0, 12, 4)
+        assert tuple(counts[k] for k in ("bf16_gemm", "bf16_wgrad", "bf16_tma_gemm",
+                                         "bf16_tma_wgrad")) == want, (unit, counts)
+        ref = encoder_cuda.encoder_layer_bwd_plain(weights, x, mask, dout, *cfg,
+                                                   gates=saves["gates"])
+        for i, (a, b) in enumerate(zip(grads, ref)):
+            _bf16_held(f"{unit} row 13 [{i}]", a, b)
+        runs[unit] = (out, *grads)
+    _bf16_held("row 2 tma vs mma", runs["tma"][0], runs["mma"][0])
+    for _ in range(50):
+        again = (encoder_cuda.encoder_layer(weights, x, mask, *cfg),
+                 *encoder_cuda.encoder_layer_bwd(weights, x, mask, dout, *cfg))
+        assert all(torch.equal(a, b) for a, b in zip(again, runs["tma"]))
