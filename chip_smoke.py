@@ -22,9 +22,10 @@ Phases, each fatal on failure:
    for the serving chain at any row count and in 64-row tiles where
    128-row ones are too few blocks, and the CUDA cores), each against
    float64 (max and mean signed error) with its device time; and the bf16
-   products of the flow block's rows at [32, 704] and of the encoder
-   layer's at [32, 192] (the latter by the text chains' plan: chunks a
-   tile and split-K shares), each on the mma.sync kernel and on the
+   products of the flow block's rows at [32, 704] and of the text rows
+   (the encoder layer's, the prenet's, the duration stack's) at [32, 192]
+   (the latter by the text chains' plan: chunks a tile and split-K
+   shares), each on the mma.sync kernel and on the
    TMA-fed wgmma one, against float64, with device us and TFLOP/s;
 2. writes a checkpoint at the full width of ``configs/base.json`` in the
    JAX package's ``.npz`` format, with random non-zero weights from a
@@ -116,16 +117,17 @@ Phases, each fatal on failure:
     and no f32 training kernel; 1 epoch, its checkpoint and 1 resumed
     epoch equal to the 2-epoch run bit for bit; one profiled bf16 step
     (its products all on the bf16 kernels but the 12 folded-A products,
-    every product of the flow block's and the encoder layer's chains on
-    the TMA-fed wgmma ones, the prenet's and the duration stack's on the
+    every product of the flow block's, the encoder layer's, the prenet's
+    and the duration stack's chains on the TMA-fed wgmma ones, none on the
     mma.sync ones);
     each bf16 kernel against its plain bf16 version on the last step's
     inputs within BF16_KERNEL_RTOL (backwards at the kernel's own ReLU
     gates), timed, its device time from a trace bracketed by spin
-    kernels, with its bound at the dense BF16 peak, the flow block's and
-    the encoder layer's two rows also with their products on the
-    mma.sync kernels and on the TMA-fed ones in turns; then the bf16
-    step against the f32 step from one init, on the same batches and
+    kernels, with its bound at the dense BF16 peak, every bf16 row also
+    with its products on the mma.sync kernels and on the TMA-fed ones in
+    turns, the text rows' product counts and device operations held to
+    their plan and BF16_REPEATS calls of each giving the same bits; then
+    the bf16 step against the f32 step from one init, on the same batches and
     dropout seeds, step by step on the f32 step's alignment (losses within
     BF16_LOSS_RTOL, the grad norm within BF16_GRAD_NORM_RTOL, bf16's own
     alignment within BF16_PATH_SCORE_RTOL of f32's optimum), and both steps in turns at batch
@@ -2174,20 +2176,33 @@ BF16_WGRAD_PRODUCTS = (
     ("dW_e", 192, 1, 1, 160), ("dW_rs", 192, 1, 1, 384), ("dW_in_d1", 192, 5, 1, 384),
     ("dW_s", 80, 1, 1, 192), ("dA", 160, 1, 1, 160),
 )
-# the text encoder layer's bf16 products alone (bf16 rows 2 and 13, base
-# width) at the bf16 run's longest text bucket, as the rows above; its
-# conv-GEMMs by the text chains' plan (split-K)
+# the text rows' bf16 products alone (base width) at the bf16 run's longest
+# text bucket, as the rows above, their conv-GEMMs by the text chains' plan
+# (split-K): the encoder layer's (bf16 rows 2 and 13), then the prenet's
+# (rows 1 and 14, "prenet_"; its 1x1 projection and that product's
+# transpose are out_proj's and datt's shapes) and the duration stack's
+# (rows 3 and 15, "dp_")
 BF16_TEXT_PRODUCT_ROWS = (32, 192)
 BF16_TEXT_CONV_PRODUCTS = (
     ("qkv", 192, 1, 1, 1, 576, False), ("out_proj", 192, 1, 1, 1, 192, False),
     ("ffn1", 192, 3, 1, 1, 768, False), ("ffn2", 768, 3, 1, 1, 192, False),
     ("dffn", 192, 3, 1, -1, 768, True), ("dx1", 768, 3, 1, -1, 192, True),
     ("datt", 192, 1, 1, 1, 192, True), ("dx", 576, 1, 1, 1, 192, True),
+    ("prenet_conv", 192, 5, 1, 1, 192, False), ("prenet_transposed", 192, 5, 1, -1, 192, True),
+    ("dp_conv_0", 192, 3, 1, 1, 256, False), ("dp_conv_1", 256, 3, 1, 1, 256, False),
+    ("dp_transposed_1", 256, 3, 1, -1, 256, True), ("dp_transposed_0", 256, 3, 1, -1, 192, True),
 )
 BF16_TEXT_WGRAD_PRODUCTS = (
     ("dW2", 768, 3, 1, 192), ("dW1", 192, 3, 1, 768), ("dWo", 192, 1, 1, 192),
-    ("dW_qkv", 192, 1, 1, 576),
+    ("dW_qkv", 192, 1, 1, 576), ("prenet_dW", 192, 5, 1, 192), ("dp_dW_0", 192, 3, 1, 256),
+    ("dp_dW_1", 256, 3, 1, 256),
 )
+
+
+def text_product_row(name: str) -> str:
+    """The bf16 text row pair a product of BF16_TEXT_*_PRODUCTS belongs to."""
+    return ("prenet" if name.startswith("prenet_") else
+            "duration_stack" if name.startswith("dp_") else "encoder_layer")
 # a bare bf16 product against float64 of the same bf16 operands, relative to
 # max |ref|: f32 sums over K up to 2,304 (conv) or 22,528 rows (weight
 # gradient) in another order
@@ -2197,7 +2212,7 @@ BF16_PRODUCT_RTOL = 1e-5
 def bf16_block_products(device_line: str, text: bool = False) -> list:
     """Each product of the flow block's bf16 rows alone (bare epilogue, f32
     out, random bf16 operands from a seed) at BF16_PRODUCT_ROWS (``text``:
-    the encoder layer's at BF16_TEXT_PRODUCT_ROWS, its conv-GEMMs by the
+    the text rows' at BF16_TEXT_PRODUCT_ROWS, their conv-GEMMs by the
     text chains' plan) on the mma.sync kernel and on the TMA-fed wgmma one:
     both against float64 within BF16_PRODUCT_RTOL, then each one's device
     time (a bracketed trace of 5 calls, the weight gradient's splits' sum
@@ -2257,7 +2272,7 @@ def bf16_block_products(device_line: str, text: bool = False) -> list:
     for i, ((kind, name, shape, run, ref), (errs, scale)) in enumerate(zip(cases, checked)):
         us = {unit: [turn[i] for turn in got] for unit, got in turns.items()}
         flops = 2.0 * shape[0] * shape[1] * shape[2]
-        row = {"kernel": "bf16_" + kind, "row": "encoder_layer" if text else "flow_block",
+        row = {"kernel": "bf16_" + kind, "row": text_product_row(name) if text else "flow_block",
                "name": name, "shape": shape, "max_abs_ref": scale,
                "max_abs_err_f64": errs, "device_us": {u: min(v) for u, v in us.items()},
                "device_us_turns": us}
@@ -2281,6 +2296,34 @@ def bf16_block_products(device_line: str, text: bool = False) -> list:
 # where JAX rounds the final ones.  The JAX package's own bf16 against f32
 # is 4.8e-3 to 6.3e-3 of max |z| on the CPU (tests/test_torch_bf16.py).
 BF16_KERNEL_RTOL = 2e-2
+# calls of each bf16 text row that must give the same bits (split-K shares
+# and row splits added in a fixed order, no atomics)
+BF16_REPEATS = 50
+
+
+def bf16_text_plan(name: str, weights: tuple, x, backward: bool) -> dict:
+    """The plan of one call of a bf16 text row on these inputs
+    (``tc_gemm.bf16_{encoder,prenet,duration}_products``: its
+    ``kernels.product_counts`` and device operations)."""
+    import torch
+
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    batch, t, c = x.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if name == "prenet":
+        w = weights[0]
+        plan = tc_gemm.bf16_prenet_products(batch, t, c, w.shape[0], w.shape[1] // c, sms,
+                                            backward)
+    elif name == "duration_stack":
+        w = weights[0]
+        plan = tc_gemm.bf16_duration_products(batch, t, c, w.shape[1], w.shape[0] // c, sms,
+                                              backward)
+    else:  # the FFN's first conv: the last four of the 14 or the JAX fold's 18
+        w1 = weights[-4]
+        plan = tc_gemm.bf16_encoder_products(batch, t, c, w1.shape[1], w1.shape[0] // c, sms,
+                                             backward)
+    return plan
 
 
 def bf16_kernels(recorders: dict, launches: dict, device_line: str) -> list:
@@ -2289,12 +2332,41 @@ def bf16_kernels(recorders: dict, launches: dict, device_line: str) -> list:
     first call of each wrapper): the forwards (dropout on, equal keep
     masks), the backwards at the kernel's own ReLU gates with the
     cotangent scaled to max 1; each within BF16_KERNEL_RTOL, timed against
-    its plain version, with its bound at the BF16 peak."""
+    its plain version, with its bound at the BF16 peak and its device time
+    with its products on either unit in turns; a text row's products held
+    to its plan (product counts, device operations a call) and
+    BF16_REPEATS calls of it to the first call's bits."""
     import torch
 
+    from glow_tts_train_tpu_torch import kernels
     from glow_tts_train_tpu_torch.ops import block_cuda, encoder_cuda, text_cuda
 
     report = []
+
+    def counted(name, backward, weights, x, fn):
+        """fn() with its device products held to the row's plan."""
+        kernels.product_counts(reset=True)
+        out = fn()
+        torch.cuda.synchronize()
+        counts = kernels.product_counts(reset=True)
+        want = bf16_text_plan(name, weights, x, backward)["counts"]
+        if {k: counts[k] for k in want} != want:
+            fail(f"{name}{'_bwd' if backward else ''}_bf16: device products {counts}, "
+                 f"expected {want}")
+        return out
+
+    def held_operations(name, backward, weights, x, roof):
+        want = bf16_text_plan(name, weights, x, backward)["launches"]
+        if roof["device_operations"] != want:
+            fail(f"{name}{'_bwd' if backward else ''}_bf16: {roof['device_operations']} device "
+                 f"operations a call, its plan {want}")
+
+    def repeats_bits(name, fn, first):
+        for _ in range(BF16_REPEATS):
+            again = fn()
+            if not all(torch.equal(a, b) for a, b in zip(again, first)):
+                fail(f"{name}: {BF16_REPEATS} calls did not all give the first call's bits")
+
     entry = entry_writer(report, launches, device_line)
 
     def unit(t):  # a backward is linear in its cotangent
@@ -2326,20 +2398,22 @@ def bf16_kernels(recorders: dict, launches: dict, device_line: str) -> list:
         kernel_fn = recorders[name].fn
         x = args[1]
         with torch.inference_mode():
-            out_k = kernel_fn(*args, **kwargs)
+            out_k = counted(name, False, args[0], x, lambda: kernel_fn(*args, **kwargs))
             out_p = plain_fwd[name](*args, **kwargs)
+            repeats_bits(name + "_bf16", lambda: (kernel_fn(*args, **kwargs),), (out_k,))
         torch.cuda.synchronize()
         err, scale = rel_err(f"{name}_bf16", out_k.float(), out_p.float(), BF16_KERNEL_RTOL)
         with torch.inference_mode():
             ms = time_ms(kernel_fn, args, kwargs, runs=10, warmup=2)
             plain_ms = time_ms(plain_fwd[name], args, kwargs, runs=3, warmup=1)
             roof = bf16_bound(name + "_bf16", args, kwargs, out_k, kernel_fn)
-        extra = {}
-        if name == "encoder_layer":  # its products on either unit (bf16 rows 2 and 13)
-            with torch.inference_mode():
-                extra["device_ms_in_turns"] = units_in_turns(
-                    name + "_bf16", lambda: kernel_fn(*args, **kwargs), device_line)
-        entry(name + "_bf16", err, scale, ms, plain_ms, list(x.shape), roof, **extra)
+            held_operations(name, False, args[0], x, roof)
+            # its products on either unit
+            turns = units_in_turns(name + "_bf16", lambda: kernel_fn(*args, **kwargs),
+                                   device_line)
+        entry(name + "_bf16", err, scale, ms, plain_ms, list(x.shape), roof,
+              device_ms_in_turns=turns, products_held_to_plan=True,
+              same_bits_repeats=BF16_REPEATS)
 
         bname = name + "_bwd"
         bargs, bkwargs = recorders[bname].args
@@ -2347,20 +2421,21 @@ def bf16_kernels(recorders: dict, launches: dict, device_line: str) -> list:
         weights, x, x_mask, dout, *cfg = bargs
         dout = unit(dout)
         saves = {}
-        grads_k = bkernel(weights, x, x_mask, dout, *cfg, saves=saves)
+        call = (weights, x, x_mask, dout, *cfg)
+        grads_k = counted(name, True, weights, x, lambda: bkernel(*call, saves=saves))
         grads_p = plain_bwd[name](weights, x, x_mask, dout, *cfg, gates=saves["gates"])
+        repeats_bits(bname + "_bf16", lambda: bkernel(*call), grads_k)
         torch.cuda.synchronize()
         worst, scale = held_all(name + "_bwd_bf16", grads_k, grads_p)
-        call = (weights, x, x_mask, dout, *cfg)
         ms = time_ms(bkernel, call, {}, runs=10, warmup=2)
         plain_ms = time_ms(lambda *a: plain_bwd[name](*a, gates=saves["gates"]), call, {},
                            runs=3, warmup=1)
         roof = bf16_bound(bname + "_bf16", call, {}, grads_k, bkernel)
-        if name == "encoder_layer":
-            extra["device_ms_in_turns"] = units_in_turns(bname + "_bf16", lambda: bkernel(*call),
-                                                         device_line)
+        held_operations(name, True, weights, x, roof)
+        turns = units_in_turns(bname + "_bf16", lambda: bkernel(*call), device_line)
         entry(bname + "_bf16", worst * scale, scale, ms, plain_ms, list(x.shape), roof,
-              worst_relative=worst, **extra)
+              worst_relative=worst, device_ms_in_turns=turns, products_held_to_plan=True,
+              same_bits_repeats=BF16_REPEATS)
 
     # the flow block: forward-save, then backward-store from its saves
     args, kwargs = recorders["block_fwd_save"].args
@@ -2408,9 +2483,9 @@ def bf16_kernels(recorders: dict, launches: dict, device_line: str) -> list:
 
 
 def units_in_turns(name: str, fn, device_line: str, calls: int = 3) -> dict:
-    """The device's time of one call of a bf16 row whose chains ask for the
-    TMA-fed kernels (the flow block's, the encoder layer's) with its
-    products on the mma.sync kernels (``kernels.bf16_mma_only``)
+    """The device's time of one call of a bf16 row (every bf16 chain asks
+    for the TMA-fed kernels) with its products on the mma.sync kernels
+    (``kernels.bf16_mma_only``)
     and on the TMA-fed wgmma ones, in turns (mma.sync, TMA, TMA, mma.sync;
     ``calls`` calls a bracketed trace) -> {"mma_sync": ms, "tma": ms}, the
     smaller of each unit's two."""
@@ -2513,11 +2588,11 @@ def bf16_train(workdir: Path, config_path: Path, device_line: str) -> tuple:
 def profile_bf16_step(last: dict, device_line: str, n_blocks: int, n_layers: int) -> dict:
     """One more bf16 step on the last batch under torch.profiler: its device
     products (every one on the bf16 kernels but the 12 folded-A products;
-    the flow blocks' 10 + 12 conv-GEMMs and 11 weight gradients a block and
-    the encoder layers' 4 + 8 and 4 a layer on the TMA-fed wgmma kernels,
-    the prenet's 4 + 8 and 4 and the duration stack's 2 + 4 and 2 on the
-    mma.sync ones), wall, device busy, idle share, device operations, top
-    kernels."""
+    the flow blocks' 10 + 12 conv-GEMMs and 11 weight gradients a block,
+    the encoder layers' 4 + 8 and 4 a layer, the prenet's 4 + 8 and 4 and
+    the duration stack's 2 + 4 and 2 on the TMA-fed wgmma kernels, none on
+    the mma.sync ones), wall, device busy, idle share, device operations,
+    top kernels."""
     from glow_tts_train_tpu_torch import kernels
 
     def step():
@@ -2528,9 +2603,9 @@ def profile_bf16_step(last: dict, device_line: str, n_blocks: int, n_layers: int
     products = kernels.product_counts(reset=True)
     unexpected = {k: v for k, v in products.items()
                   if v and k not in BF16_PRODUCT_KEYS + ("core_gemm",)}
-    want = {"core_gemm": n_blocks, "bf16_tma_gemm": 22 * n_blocks + 12 * n_layers,
-            "bf16_tma_wgrad": 11 * n_blocks + 4 * n_layers, "bf16_gemm": 12 + 6,
-            "bf16_wgrad": 4 + 2}
+    want = {"core_gemm": n_blocks, "bf16_tma_gemm": 22 * n_blocks + 12 * n_layers + 12 + 6,
+            "bf16_tma_wgrad": 11 * n_blocks + 4 * n_layers + 4 + 2, "bf16_gemm": 0,
+            "bf16_wgrad": 0}
     if unexpected or {k: products.get(k) for k in want} != want:
         fail(f"train bf16 step: device products {products}, expected {want}")
     wall_ms, by_kernel, launches = profiled(step)

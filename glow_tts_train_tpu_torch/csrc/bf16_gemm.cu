@@ -10,10 +10,10 @@
 // units:
 //
 // The TMA-fed wgmma kernels (conv_gemm_bf16_tma_kernel,
-// wgrad_bf16_tma_kernel), for the flow block's and the text encoder
-// layer's chains, which ask for them (ConvGemm::tma_ring, WGrad::tma_ring)
-// and give every product bf16 operands (each the bf16 copy its writer
-// rounds).
+// wgrad_bf16_tma_kernel), for every bf16 chain (the flow block's, the text
+// encoder layer's, the prenet's and the duration stack's), which asks for
+// them (ConvGemm::tma_ring, WGrad::tma_ring) and gives every product bf16
+// operands (each the bf16 copy its writer rounds).
 // What bounds them: their operations at the dense BF16 peak (989 TFLOP/s)
 // against the L2 traffic of their tiles' operands and the epilogue's loads
 // and stores, which the K walk does not hide.  The design:
@@ -44,9 +44,9 @@
 //    operands MN-major (the slice's rows are wgmma's K); the splits'
 //    partial sums added in split order by a second pass (no atomics).
 //
-// The mma.sync kernels (conv_gemm_bf16_kernel, wgrad_bf16_kernel), for the
-// prenet's and the duration stack's chains and for shapes the TMA-fed ones
-// do not take (below 64 channels or columns): A gathered as im2col while
+// The mma.sync kernels (conv_gemm_bf16_kernel, wgrad_bf16_kernel), for
+// shapes the TMA-fed ones do not take (below 64 channels or columns) and
+// for measurements in turns (gtt_bf16_tma): A gathered as im2col while
 // staging (taps, dilation, tap_sign, a_mask, as conv_gemm_kernel does), B
 // read as it lies or through w_t's per-tap transpose, each of A, B and the
 // epilogue's operands f32 or bf16 (ConvGemm::bf16), staged through registers 8
@@ -471,7 +471,7 @@ __global__ void split_sum_kernel(const float* __restrict__ part, long per_split,
 }
 
 // ---------------------------------------------------------------------------
-// the TMA-fed wgmma products (the flow block's bf16 chains)
+// the TMA-fed wgmma products (the bf16 chains')
 // ---------------------------------------------------------------------------
 
 constexpr int kRingChunk = 64 * 128;  // one 64 x 64 16-bit chunk: 64 rows of 128 bytes
@@ -1019,7 +1019,9 @@ TmaWgradPlan tma_wgrad_plan(const WGrad& w, int sms) {
 // chunks (1 to tma_conv_chunks') and shares (at most kTmaMaxShares, each
 // at least kTmaMinSlices 64-deep slices, shares * n within kTmaSplitCols)
 // whose waves of blocks (two an SM) times slices a block is least; ties to
-// more chunks, then fewer shares.  A sample's tiles end at its last row, so
+// the fewest columns past n in the last column tile (a tile's wgmma runs
+// its whole width: 256 columns in 192-wide tiles compute 384), then more
+// chunks, then fewer shares.  A sample's tiles end at its last row, so
 // the tiles count each sample's ragged last one.  The partial sums' round
 // trip is the shares' cost, which the K walk's waves do not count: at [32,
 // 192] two shares of the FFN's 768 columns saved 23 us of the first conv's
@@ -1052,15 +1054,19 @@ TmaConvPlan tma_conv_plan(const ConvGemm& g, int sms) {
   const int steps = g.taps * ((g.c_in + 63) / 64);
   const long slots = 2L * sms;
   long best = -1;
+  int best_pad = 0;
   for (int c = most; c >= 1; --c) {
-    const long tiles = row_tiles * ((g.n + 64 * c - 1) / (64 * c));
+    const int col_tiles = (g.n + 64 * c - 1) / (64 * c);
+    const long tiles = row_tiles * col_tiles;
+    const int pad = col_tiles * 64 * c - g.n;
     for (int s = 1; s <= kTmaMaxShares; ++s) {
       const int per = (steps + s - 1) / s;
       if (s > 1 && (per < kTmaMinSlices || (long)s * g.n > kTmaSplitCols)) break;
       if ((steps + per - 1) / per != s) continue;  // folds to fewer shares
       const long cost = (tiles * s + slots - 1) / slots * per;
-      if (best < 0 || cost < best) {
+      if (best < 0 || cost < best || (cost == best && pad < best_pad)) {
         best = cost;
+        best_pad = pad;
         p.chunks = c;
         p.splits = s;
       }
@@ -1174,9 +1180,9 @@ cudaError_t wgrad_bf16(const WGrad& w, cudaStream_t stream) {
 // measurements
 // ---------------------------------------------------------------------------
 
-// Which unit the flow block's bf16 chains may take for their products that
-// ask for the TMA-fed kernels: 1 (the default) those kernels where the shape
-// fits, 0 the mma.sync kernels alone.  Returns the previous setting.
+// Which unit the bf16 chains may take for their products that ask for the
+// TMA-fed kernels: 1 (the default) those kernels where the shape fits, 0
+// the mma.sync kernels alone.  Returns the previous setting.
 extern "C" int gtt_bf16_tma(int on) {
   const int was = gtt::tma_allowed() ? 1 : 0;
   gtt::tma_allowed() = on != 0;

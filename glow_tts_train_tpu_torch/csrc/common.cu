@@ -432,6 +432,7 @@ __global__ void layer_norm_bwd_kernel(const LayerNormBwd a) {
     if (a.relu_src && a.relu_src[base + c] <= 0.f) dx = 0.f;
     if (a.dyeff) a.dyeff[base + c] = de;
     a.dx[base + c] = dx;
+    if (a.dx_c) st_act(a.dx_c, base + c, dx, true);
     if (a.dx2) {
       const float v = site_drop(a.drop2, b, tr, a.n, c, dx) * rm2;
       a.dx2[base + c] = v;

@@ -62,11 +62,11 @@ namespace gtt {
 // kBf16Core): bf16 x bf16 on the tensor cores with f32 accumulation, each
 // operand element rounded to bf16 once (the JAX kernel's ``.astype(bf16)``
 // before its dot).  The mma.sync kernels round an f32 operand as they stage
-// it; the flow block's and the encoder layer's chains give every product
-// bf16 operands instead (an f32 value's bf16 copy, written beside it by the
-// kernel that produces it: ConvGemm::out_c, LayerNorm's out_masked,
-// LayerNormBwd::dx2_c, WGrad::dy16) and ask for the TMA-fed kernels
-// (tma_ring).
+// it; every bf16 chain (the flow block's, the encoder layer's, the
+// prenet's and the duration stack's) gives its products bf16 operands
+// instead (an f32 value's bf16 copy, written beside it by the kernel that
+// produces it: ConvGemm::out_c, LayerNorm's out_masked, LayerNormBwd::dx_c
+// and dx2_c, WGrad::dy16) and asks for the TMA-fed kernels (tma_ring).
 // A descriptor's ``bf16`` word holds kBf16 and one bit per operand stored
 // as bf16 (the pointers stay float*: the bit says the elements are
 // 2-byte); its epilogue then rounds where the JAX kernel casts.
@@ -277,8 +277,8 @@ struct ConvGemm {
   // tensor-core kernel where conv_gemm_tc_plan takes it (conv_gemm_tma_kernel:
   // the same K order as the tap-staged one, B and A brought by TMA into an
   // mbarrier ring, B shareable by a cluster of row tiles); its weights are
-  // split in tile order (WeightSplit::pair).  In a bf16 chain (the flow
-  // block's): the TMA-fed wgmma bf16 kernel where the shape fits
+  // split in tile order (WeightSplit::pair).  In a bf16 chain (every
+  // one asks): the TMA-fed wgmma bf16 kernel where the shape fits
   // (bf16_gemm.cu, conv_gemm_bf16_tma_kernel), else the mma.sync one.
   int tma_ring = 0;
   // a bf16 chain's product (Bf16Bits): kBf16 and its operands' bits
@@ -396,7 +396,7 @@ struct WGrad {
   // epilogue that wrote dY), which the product reads; dy (f32) feeds the
   // bias gradient.  Or null.
   const float* dy16 = nullptr;
-  // set by the flow block's bf16 chains: the TMA-fed wgmma bf16 kernel
+  // set by every bf16 chain: the TMA-fed wgmma bf16 kernel
   // where the shape fits (wgrad_bf16_tma_kernel; it reads dy16), else the
   // mma.sync one
   int tma_ring = 0;
@@ -568,6 +568,7 @@ struct LayerNormBwd {
   const float* relu_src = nullptr;  // [rows, n] or null
   float* dyeff = nullptr;           // [rows, n] or null; may alias dy
   float* dx = nullptr;              // [rows, n]; may alias dy
+  float* dx_c = nullptr;            // a bf16 copy of dx (rounded), or null
   // optional second result dx2 = dx * keep2 * scale2 * mask2 (the cotangent
   // of a dropped, masked branch that fed the norm's input)
   float* dx2 = nullptr;

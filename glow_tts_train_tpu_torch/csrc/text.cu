@@ -24,6 +24,17 @@
 // two convs' weights split in one launch, split-K by the text chains' plan,
 // one scratch block a call (gtt_duration_scratch_floats).
 //
+// The bf16 chains (fp16_run; text_pallas.py with dtype bf16) run every
+// product on the TMA-fed wgmma kernel (bf16_gemm.cu, ConvGemm::tma_ring,
+// by tma_conv_plan: chunks a tile and split-K shares for the short, deep
+// text shapes; narrower than 64 channels or columns the mma.sync kernel,
+// by shape alone), as the encoder layer's do.  TMA copies bytes as they
+// lie, so each operand is a bf16 tensor that the kernel producing it
+// writes, rounded once where the JAX kernel casts (xm = (x * mask).astype
+// (dtype)): mask_rows writes x * mask in bf16 (exact: x is bf16 and the
+// mask 0 or 1), each LayerNorm its masked output (out_masked, kOutM16);
+// the weights are read as they lie.  No weights are split.
+//
 // Training dropout is the TPU kernels' per-site keep mask, applied in the
 // LayerNorm's store: the prenet's site l (of L) drops layer l's ReLU output
 // [t, h]; the duration stack's site l (of 2) drops layer l's LayerNorm
@@ -37,51 +48,61 @@ namespace gtt {
 namespace {
 
 __global__ void mask_rows_kernel(const float* x, const float* mask, float* out, long rows,
-                                 int n, int x_bf16) {
+                                 int n, int b16) {
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < rows * n) out[i] = ld_act(x, i, x_bf16 != 0) * mask[i / n];
+  if (i < rows * n) st_act(out, i, ld_act(x, i, b16 != 0) * mask[i / n], b16 != 0);
 }
 
 // 16-byte multiples, so every carved buffer stays aligned for the tensor cores
 long round4(long floats) { return (floats + 3) / 4 * 4; }
 
+// A carver of one scratch block: take(p, floats) or, for a bf16 buffer,
+// take16(p, elements); with base null it only counts.
+struct Carver {
+  float* base;
+  long used = 0;
+  void take(float*& p, long floats) {
+    p = base ? base + used : nullptr;
+    used += round4(floats);
+  }
+  void take16(float*& p, long elems) { take(p, (elems + 1) / 2); }
+};
+
 }  // namespace
 
 cudaError_t mask_rows(const float* x, const float* mask, float* out, long rows, int n,
-                      bool x_bf16, cudaStream_t stream) {
+                      bool bf16, cudaStream_t stream) {
   const long total = rows * n;
   if (total <= 0) return cudaSuccess;
   mask_rows_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(x, mask, out, rows, n,
-                                                                        x_bf16 ? 1 : 0);
+                                                                        bf16 ? 1 : 0);
   return cudaGetLastError();
 }
 
 long prenet_scratch(float* base, const PrenetDims& d, bool backward, PrenetScratch* s) {
-  long used = 0;
-  auto take = [&](float*& p, long floats) {
-    p = base ? base + used : nullptr;
-    used += round4(floats);
-  };
+  Carver c{base};
   const long rows = d.rows(), h = d.h, L = d.n_layers;
-  take(s->xm, rows * h);
-  take(s->pre, rows * h);
-  take(s->curm, (backward ? std::max(L, 1L) : 1) * rows * h);
+  c.take(s->xm, rows * h);
+  c.take(s->pre, rows * h);
+  c.take(s->curm, (backward ? std::max(L, 1L) : 1) * rows * h);
   // the K-major splits of the L convs' and the projection's weights, for
   // the forward's products and the backward's transposed ones (16 floats of
   // alignment each), and the split-K partial sums
   s->tc_floats = 2 * (2 * (L * d.taps * h * h + h * h) + (L + 1) * 16);
-  take(s->tc, s->tc_floats);
-  take(s->part, kSplitKCols * rows);
+  c.take(s->tc, s->tc_floats);
+  c.take(s->part, kSplitKCols * rows);
   if (backward) {
-    take(s->xhat, std::max(L, 1L) * rows * h);
-    take(s->rstd, std::max(L, 1L) * rows);
-    take(s->dcur, rows * h);
-    take(s->dpre, rows * h);
-    take(s->col_part, (long)d.batch * h);
+    c.take(s->xhat, std::max(L, 1L) * rows * h);
+    c.take(s->rstd, std::max(L, 1L) * rows);
+    c.take(s->dcur, rows * h);
+    c.take(s->dpre, rows * h);
+    c.take(s->col_part, (long)d.batch * h);
     s->wg_floats = std::max(1L << 22, d.taps * h * h);
-    take(s->wg, s->wg_floats);
+    c.take(s->wg, s->wg_floats);
+    c.take16(s->dpre16, rows * h);
+    c.take16(s->dout16, rows * h);
   }
-  return used;
+  return c.used;
 }
 
 // ConvReluNorm prenet: n_layers x [conv(x * mask) -> LN -> ReLU -> drop],
@@ -97,25 +118,29 @@ cudaError_t prenet_forward(const PrenetArgs& a, cudaStream_t stream) {
   ConvGemm g[kMaxPrenetLayers + 1];
   ConvGemm* products[kMaxPrenetLayers + 1];
   for (int l = 0; l <= L; ++l) {
-    g[l] = text_chain_product(s);
+    g[l] = text_chain_product(s, a.bf16);
     g[l].lda = h; g[l].c_in = h; g[l].batch = d.batch; g[l].t = d.t; g[l].n = h;
     g[l].ldo = h;
     products[l] = &g[l];
   }
-  const unsigned bf = a.bf16 ? kBf16 : 0u;  // the products' bits in a bf16 call
+  // a bf16 call's products: bf16 operands (the masked inputs' copies) and
+  // weights
+  const unsigned bf = a.bf16 ? kBf16 | kA16 | kW16 : 0u;
   for (int l = 0; l < L; ++l) {  // pre = conv(x * mask) + b
     g[l].a = l ? curm(l - 1) : s.xm; g[l].taps = d.taps;
     g[l].w = elem_at(a.w, (long)l * d.taps * h * h, a.bf16); g[l].bias = a.b + l * h;
     g[l].epilogue = kBias; g[l].out = s.pre;
-    g[l].bf16 = bf ? bf | kW16 : 0u;
+    g[l].bf16 = bf;
   }
   ConvGemm& proj = g[L];  // out = (x + cur @ wp + bp) * mask (cur masked: same rows)
   proj.a = L ? curm(L - 1) : a.x; proj.w = a.wp; proj.bias = a.bp;
   proj.epilogue = kResidMask; proj.out = a.out; proj.mask = a.mask; proj.aux = a.x;
   proj.ld_aux = h;
-  proj.bf16 = bf ? bf | kW16 | kOut16 | kAux16 | (L ? 0u : kA16) : 0u;
-  cudaError_t err = presplit_weights(products, L + 1, s.tc, s.tc_floats / 2, stream);
-  if (err != cudaSuccess) return err;
+  proj.bf16 = bf ? bf | kOut16 | kAux16 : 0u;
+  cudaError_t err = cudaSuccess;
+  if (!a.bf16 &&
+      (err = presplit_weights(products, L + 1, s.tc, s.tc_floats / 2, stream)) != cudaSuccess)
+    return err;
 
   if (L > 0 && (err = mask_rows(a.x, a.mask, s.xm, rows, h, a.bf16, stream)) != cudaSuccess)
     return err;
@@ -125,6 +150,7 @@ cudaError_t prenet_forward(const PrenetArgs& a, cudaStream_t stream) {
     ln.x = s.pre; ln.gamma = a.gamma + l * h; ln.beta = a.beta + l * h;
     ln.out = a.save ? a.cur + l * rows * h : nullptr;
     ln.out_masked = curm(l); ln.out_mask = a.mask;
+    ln.bf16 = a.bf16 ? kOutM16 : 0u;  // xm = (xcur * mask).astype(bf16)
     ln.rows = (int)rows; ln.n = h; ln.relu_after = 1;
     ln.t = d.t; ln.drop = a.drop.at(l);
     if (a.save) { ln.xhat = s.xhat + l * rows * h; ln.rstd = s.rstd + l * rows; }
@@ -134,43 +160,40 @@ cudaError_t prenet_forward(const PrenetArgs& a, cudaStream_t stream) {
 }
 
 long duration_scratch(float* base, const DurationDims& d, bool backward, DurationScratch* s) {
-  long used = 0;
-  auto take = [&](float*& p, long floats) {
-    p = base ? base + used : nullptr;
-    used += round4(floats);
-  };
+  Carver c{base};
   const long rows = d.rows(), f = d.f;
   const long conv_weights = (long)d.taps * (d.c_in + f) * f;
-  take(s->xm, rows * d.c_in);
-  take(s->pre, rows * f);
-  take(s->curm, rows * f);
+  c.take(s->xm, rows * d.c_in);
+  c.take(s->pre, rows * f);
+  c.take(s->curm, rows * f);
   // the K-major splits of the two convs' weights, and in the backward of
   // the two transposed convs' too (16 floats of alignment each), and the
   // split-K partial sums
   s->tc_floats = 2 * (2 * conv_weights + 2 * 16);
-  take(s->tc, s->tc_floats);
-  take(s->part, kSplitKCols * rows);
+  c.take(s->tc, s->tc_floats);
+  c.take(s->part, kSplitKCols * rows);
   if (backward) {
-    take(s->xhat, 2 * rows * f);
-    take(s->rstd, 2 * rows);
-    take(s->dcur, rows * f);
-    take(s->dpre, rows * f);
+    c.take(s->xhat, 2 * rows * f);
+    c.take(s->rstd, 2 * rows);
+    c.take(s->dcur, rows * f);
+    c.take(s->dpre, rows * f);
     s->wg_floats = std::max(1L << 22, (long)d.taps * std::max(d.c_in, d.f) * f);
-    take(s->wg, s->wg_floats);
+    c.take(s->wg, s->wg_floats);
+    c.take16(s->dpre16, rows * f);
   }
-  return used;
+  return c.used;
 }
 
 void duration_convs(const DurationArgs& a, ConvGemm (&g)[2]) {
   const DurationDims& d = a.dims;
   for (int l = 0; l < 2; ++l) {  // relu = max(conv(input * mask) + b, 0)
     const int width = l ? d.f : d.c_in;
-    ConvGemm& p = g[l] = text_chain_product(a.s);
+    ConvGemm& p = g[l] = text_chain_product(a.s, a.bf16);
     p.a = l ? a.s.curm : a.s.xm; p.lda = width; p.c_in = width; p.taps = d.taps;
     p.batch = d.batch; p.t = d.t; p.w = a.w[l]; p.bias = a.b[l]; p.n = d.f;
     p.epilogue = kBiasRelu; p.out = a.save ? a.relu + l * d.rows() * d.f : a.s.pre;
     p.ldo = d.f;
-    p.bf16 = a.bf16 ? kBf16 | kW16 : 0u;
+    p.bf16 = a.bf16 ? kBf16 | kA16 | kW16 : 0u;  // bf16: the masked inputs' copies
   }
 }
 
@@ -192,6 +215,7 @@ cudaError_t duration_forward(const DurationArgs& a, const ConvGemm (&g)[2],
     ln.x = g[l].out; ln.gamma = a.gamma[l]; ln.beta = a.beta[l];
     if (l == 0) {
       ln.out_masked = s.curm; ln.out_mask = a.mask;
+      ln.bf16 = a.bf16 ? kOutM16 : 0u;
     } else {
       ln.out = a.out;
       ln.bf16 = a.bf16 ? kOut16 : 0u;
@@ -298,7 +322,8 @@ int duration_entry(const float* x, const float* mask, const float* w1, const flo
   gtt::ConvGemm g[2];
   gtt::duration_convs(a, g);
   gtt::ConvGemm* products[2] = {&g[0], &g[1]};
-  cudaError_t err = gtt::presplit_weights(products, 2, a.s.tc, a.s.tc_floats, stream);
+  cudaError_t err =
+      bf16 ? cudaSuccess : gtt::presplit_weights(products, 2, a.s.tc, a.s.tc_floats, stream);
   if (err == cudaSuccess) err = gtt::duration_forward(a, g, stream);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -12,7 +12,10 @@ namespace gtt {
 // conv's raw output, the layers' masked outputs (one [rows, h] buffer, or
 // [L, rows, h] when saving: layer l at curm + l * rows * h) and the
 // products' tensor-core scratch; the backward adds the norms' saves, its
-// own buffers and the transposed products' weight splits.
+// own buffers and the transposed products' weight splits.  The scratch is
+// f32 but for the products' operands in a bf16 call: xm and curm then hold
+// bf16 elements (the first half of each buffer), and the backward's bf16
+// buffers dpre16 (dpre's copy) and dout16 (dout * mask) serve it alone.
 struct PrenetDims {
   int batch = 0, t = 0, h = 0, n_layers = 0, taps = 1;
   long rows() const { return (long)batch * t; }
@@ -26,6 +29,7 @@ struct PrenetScratch {
   float *xhat = nullptr, *rstd = nullptr, *dcur = nullptr, *dpre = nullptr;
   float *col_part = nullptr, *wg = nullptr;
   long wg_floats = 0;
+  float *dpre16 = nullptr, *dout16 = nullptr;
 };
 
 // Carve `base` (16-byte aligned) into s and return the floats used; with
@@ -56,7 +60,8 @@ struct PrenetArgs {
   PrenetDims dims;
   Dropout drop;  // site l of n_layers over [t, h], after layer l's ReLU
   // bf16 (fp16_run): x, out, w and wp bf16 (and in the backward dout, dx,
-  // dw and dwp); the rest and the scratch f32
+  // dw and dwp), and the products' operands in the scratch (PrenetScratch);
+  // the rest f32
   bool bf16 = false;
 };
 
@@ -68,7 +73,9 @@ cudaError_t prenet_forward(const PrenetArgs& a, cudaStream_t stream);
 // saving), layer 0's masked output (layer 1's conv input), the products'
 // tensor-core scratch (the K-major splits of the two convs' weights and,
 // for the backward, of its two transposed convs) and the split-K partial
-// sums; the backward adds the norms' saves and its own buffers.
+// sums; the backward adds the norms' saves and its own buffers.  As the
+// prenet's: xm and curm hold bf16 elements in a bf16 call, and the
+// backward's bf16 dpre16 serves it alone.
 struct DurationDims {
   int batch = 0, t = 0, c_in = 0, f = 0, taps = 1;
   long rows() const { return (long)batch * t; }
@@ -81,18 +88,21 @@ struct DurationScratch {
   // backward
   float *xhat = nullptr, *rstd = nullptr, *dcur = nullptr, *dpre = nullptr, *wg = nullptr;
   long wg_floats = 0;
+  float* dpre16 = nullptr;
 };
 
 long duration_scratch(float* base, const DurationDims& d, bool backward, DurationScratch* s);
 
 // A product of the prenet's or the duration stack's chains: on the tensor
-// cores where the shape fits, split-K allowed (conv_gemm_tc_plan).
+// cores where the shape fits, split-K allowed (conv_gemm_tc_plan; bf16: the
+// TMA-fed wgmma kernel by tma_conv_plan, its operands bf16).
 template <class Scratch>
-ConvGemm text_chain_product(const Scratch& s) {
+ConvGemm text_chain_product(const Scratch& s, bool bf16) {
   ConvGemm g;
   g.tc_scratch = s.tc;
   g.tc_scratch_floats = s.tc_floats;
   g.part = s.part;
+  g.tma_ring = bf16 ? 1 : 0;
   return g;
 }
 
@@ -113,22 +123,25 @@ struct DurationArgs {
   DurationDims dims;
   Dropout drop;  // site l of 2 over [t, f], after layer l's LayerNorm
   // bf16 (fp16_run): x, out and w bf16 (and in the backward dout, dx and
-  // dw); the rest and the scratch f32
+  // dw), and the products' operands in the scratch (DurationScratch); the
+  // rest f32
   bool bf16 = false;
 };
 
 // The stack's two convs as its chain runs them: each reads its input
 // stored masked (x * mask, then layer 0's masked output), on the tensor
-// cores where the shape fits, split-K allowed.  The caller splits their
-// weights (presplit_weights) before duration_forward runs them.
+// cores where the shape fits, split-K allowed.  In an f32 call the caller
+// splits their weights (presplit_weights) before duration_forward runs
+// them.
 void duration_convs(const DurationArgs& a, ConvGemm (&g)[2]);
 
 cudaError_t duration_forward(const DurationArgs& a, const ConvGemm (&g)[2],
                              cudaStream_t stream);
 
-// out = x * mask over [rows, n] (x f32 or, x_bf16, bf16): the first conv's
-// input, stored masked
+// out = x * mask over [rows, n], x and out f32 or (bf16) both bf16 (exact:
+// the mask is 0 or 1): the first conv's input, stored masked, and the
+// prenet backward's dout * mask
 cudaError_t mask_rows(const float* x, const float* mask, float* out, long rows, int n,
-                      bool x_bf16, cudaStream_t stream);
+                      bool bf16, cudaStream_t stream);
 
 }  // namespace gtt

@@ -29,12 +29,25 @@
 // the forward's masked layer inputs, so no input mask on the gather) and
 // the transposed convs, which read the forward's weights as they lie
 // (ConvGemm::w_t); every buffer comes from the caller's one scratch block
-// (prenet_scratch, duration_scratch).  The prenet splits its transposed
-// products' weights in one launch after its forward's; the duration stack
-// splits all four of its products' weights in one launch before the
-// recompute.  The sums stay on the CUDA cores: the norms' dgamma = sum dy
-// * xhat and dbeta and the bias gradients (column_sums, one launch each),
+// (prenet_scratch, duration_scratch).  The f32 prenet splits its
+// transposed products' weights in one launch after its forward's; the f32
+// duration stack splits all four of its products' weights in one launch
+// before the recompute.  The sums stay on the CUDA cores: the norms'
+// dgamma = sum dy * xhat and dbeta and the bias gradients (layer_sums),
 // where a tensor-core product's lean would show.
+//
+// The bf16 chains (text_pallas.py _conv_bwd with dtype bf16) run every
+// product on the TMA-fed wgmma kernels (ConvGemm::tma_ring,
+// WGrad::tma_ring; the mma.sync ones below 64 channels or columns, by
+// shape alone), each operand a bf16 tensor written by the kernel that
+// produces it: the recompute's masked layer inputs (text.cu), which the
+// weight gradients read as A; the LayerNorm backward's dpre copy (dx_c:
+// JAX's dpret = dpre.astype(dtype)), the transposed conv's A and the
+// weight gradient's dY; the prenet's dout * mask (mask_rows: JAX's
+// dmasked.astype(dtype), exact), the projection's transposed product's A
+// and its weight gradient's dY.  The bias gradients sum the f32 values
+// (jnp.sum(dpre), the f32 dmasked); a layer's norm and bias sums go in one
+// launch.
 //
 // Bound on the card: the operations of three products per layer (the
 // recompute, the weight gradient, the transposed conv) at K = 5 * 192 or
@@ -52,6 +65,26 @@ using namespace gtt;
     const cudaError_t err_ = (expr);                \
     if (err_ != cudaSuccess) return (int)err_;      \
   } while (0)
+
+// A layer's norm and bias gradients, column sums of the f32 values over
+// `rows` rows of n: dgamma = sum dyeff * xhat, dbeta = sum dyeff, db = sum
+// dpre.  A bf16 chain runs both sums in one launch (each job's bits its own
+// launch's: a sum of 192 columns alone is 24 blocks, most of the card
+// idle); the f32 chain one launch each.
+cudaError_t layer_sums(const float* dyeff, const float* xhat, const float* dpre, int n, int rows,
+                       float* dgamma, float* dbeta, float* db, bool one_launch,
+                       cudaStream_t stream) {
+  if (!one_launch) {
+    const cudaError_t err = column_sums(dyeff, n, n, xhat, rows, dgamma, dbeta, stream);
+    return err != cudaSuccess ? err : column_sums(dpre, n, n, nullptr, rows, db, nullptr, stream);
+  }
+  ColumnSumJobs sums;
+  ColumnSumJob& norm = sums.job[sums.count++];
+  norm.x = dyeff; norm.ld = n; norm.n = n; norm.mul = xhat; norm.out = dgamma; norm.out2 = dbeta;
+  ColumnSumJob& bias = sums.job[sums.count++];
+  bias.x = dpre; bias.ld = n; bias.n = n; bias.out = db;
+  return column_sums(sums, rows, stream);
+}
 
 }  // namespace
 
@@ -72,7 +105,9 @@ int prenet_bwd_entry(
   using namespace gtt;
   const long rows = (long)batch * t;
   const int L = n_layers;
-  const unsigned bf = bf16 ? kBf16 : 0u;  // the products' bits in a bf16 call
+  // a bf16 call's products: bf16 operands (each written by its producer)
+  // and weights
+  const unsigned bf = bf16 ? kBf16 | kA16 | kW16 : 0u;
   PrenetArgs a;
   a.bf16 = bf16;
   a.x = x; a.mask = mask; a.w = w; a.b = b; a.gamma = gamma; a.beta = beta;
@@ -84,17 +119,18 @@ int prenet_bwd_entry(
   GTT_TRY(prenet_forward(a, stream));
   const PrenetScratch& s = a.s;
   // layer l's input, masked: x * mask, then the layers' masked outputs
+  // (bf16 in a bf16 call)
   auto src = [&](int l) { return l ? s.curm + (l - 1) * rows * h : s.xm; };
 
   // the transposed products (reading the forward's weights as they lie),
-  // their weights split for the tensor cores in one launch: per layer
-  // d(input) = (transposed conv of dpre) * mask, plus dout * mask at layer
-  // 0; the projection's dcur = (dout * mask) @ wp^T (with no layers dx =
-  // (dcur + dout) * mask)
+  // their weights split for the tensor cores in one launch (the f32
+  // chain's): per layer d(input) = (transposed conv of dpre) * mask, plus
+  // dout * mask at layer 0; the projection's dcur = (dout * mask) @ wp^T
+  // (with no layers dx = (dcur + dout) * mask)
   ConvGemm g[kMaxPrenetLayers + 1];
   ConvGemm* products[kMaxPrenetLayers + 1];
   for (int l = 0; l <= L; ++l) {
-    ConvGemm& p = g[l] = text_chain_product(s);
+    ConvGemm& p = g[l] = text_chain_product(s, bf16);
     p.lda = h; p.c_in = h; p.batch = batch; p.t = t; p.w_t = 1; p.n = h; p.ldo = h;
     p.mask = mask;
     p.epilogue = l == 0 ? kResidMask : kBiasMask; p.out = l == 0 ? dx : s.dcur;
@@ -102,15 +138,23 @@ int prenet_bwd_entry(
     products[l] = &p;
   }
   for (int l = 0; l < L; ++l) {
-    g[l].a = s.dpre; g[l].taps = taps; g[l].tap_sign = -1;
+    g[l].a = bf16 ? s.dpre16 : s.dpre; g[l].taps = taps; g[l].tap_sign = -1;
     g[l].w = elem_at(w, (long)l * taps * h * h, bf16);
-    g[l].bf16 = bf ? bf | kW16 | (l == 0 ? kOut16 | kAux16 : 0u) : 0u;
+    g[l].bf16 = bf ? bf | (l == 0 ? kOut16 | kAux16 : 0u) : 0u;
   }
   ConvGemm& dproj = g[L];
-  dproj.a = dout; dproj.a_mask = mask; dproj.w = wp;
-  dproj.bf16 = bf ? bf | kA16 | kW16 | (L ? 0u : kOut16 | kAux16) : 0u;
+  dproj.w = wp;
+  if (bf16) {  // dmasked.astype(bf16)
+    dproj.a = s.dout16;
+    dproj.bf16 = bf | (L ? 0u : kOut16 | kAux16);
+  } else {
+    dproj.a = dout; dproj.a_mask = mask;
+  }
   if (L > 0) { dproj.epilogue = kBias; dproj.out = s.dcur; dproj.mask = nullptr; dproj.aux = nullptr; }
-  GTT_TRY(presplit_weights(products, L + 1, s.tc + s.tc_floats / 2, s.tc_floats / 2, stream));
+  if (!bf16)
+    GTT_TRY(presplit_weights(products, L + 1, s.tc + s.tc_floats / 2, s.tc_floats / 2, stream));
+  else
+    GTT_TRY(mask_rows(dout, mask, s.dout16, rows, h, true, stream));
 
   // the residual projection: out = (x + xl @ wp + bp) * mask
   {
@@ -118,7 +162,11 @@ int prenet_bwd_entry(
     pw.a = L ? src(L) : x; pw.lda = h; pw.c_in = h; pw.batch = batch; pw.t = t;
     pw.dy = dout; pw.ldy = h; pw.n = h; pw.dy_mask = mask; pw.out = dwp;
     pw.scratch = s.wg; pw.scratch_floats = s.wg_floats; pw.tc = 1;
-    pw.bf16 = bf ? bf | kAux16 | kOut16 | (L ? 0u : kA16) : 0u;
+    if (bf16) {
+      pw.bf16 = kBf16 | kA16 | kAux16 | kOut16;
+      pw.dy16 = s.dout16;
+      pw.tma_ring = 1;
+    }
     GTT_TRY(wgrad(pw, stream));
   }
   GTT_TRY(bias_grad(dout, h, h, mask, batch, t, s.col_part, dbp, stream, bf16));
@@ -129,16 +177,20 @@ int prenet_bwd_entry(
     ln.gamma = gamma + l * h; ln.beta = beta + l * h;
     ln.dyeff = s.dcur; ln.dx = s.dpre; ln.rows = (int)rows; ln.n = h; ln.t = t;
     ln.relu_after = 1; ln.drop = a.drop.at(l);
+    ln.dx_c = bf16 ? s.dpre16 : nullptr;  // dpret = dpre.astype(bf16)
     GTT_TRY(layer_norm_bwd(ln, stream));
-    GTT_TRY(column_sums(s.dcur, h, h, ln.xhat, (int)rows, dgamma + l * h, dbeta + l * h,
-                        stream));
+    GTT_TRY(layer_sums(s.dcur, ln.xhat, s.dpre, h, (int)rows, dgamma + l * h, dbeta + l * h,
+                       db + l * h, bf16, stream));
     WGrad wg;
     wg.a = src(l); wg.lda = h; wg.c_in = h; wg.taps = taps; wg.batch = batch; wg.t = t;
     wg.dy = s.dpre; wg.ldy = h; wg.n = h; wg.out = elem_at(dw, (long)l * taps * h * h, bf16);
     wg.scratch = s.wg; wg.scratch_floats = s.wg_floats; wg.tc = 1;
-    wg.bf16 = bf ? bf | kOut16 : 0u;
+    if (bf16) {
+      wg.bf16 = kBf16 | kA16 | kOut16;
+      wg.dy16 = s.dpre16;
+      wg.tma_ring = 1;
+    }
     GTT_TRY(wgrad(wg, stream));
-    GTT_TRY(column_sums(s.dpre, h, h, nullptr, (int)rows, db + l * h, nullptr, stream));
     GTT_TRY(conv_gemm(g[l], stream));
   }
   return (int)cudaGetLastError();
@@ -188,7 +240,9 @@ int duration_bwd_entry(
     float scale, bool bf16, cudaStream_t stream) {
   using namespace gtt;
   const long rows = (long)batch * t;
-  const unsigned bf = bf16 ? kBf16 : 0u;
+  // a bf16 call's products: bf16 operands (each written by its producer)
+  // and weights
+  const unsigned bf = bf16 ? kBf16 | kA16 | kW16 : 0u;
   DurationArgs a;
   a.bf16 = bf16;
   a.x = x; a.mask = mask;
@@ -203,18 +257,19 @@ int duration_bwd_entry(
 
   // the recompute's two convs and the two transposed convs, reading the
   // forward's weights as they lie: d(input) = (transposed conv of dpre) *
-  // mask, into dcur (layer 1) or dx; all four weights split in one launch
+  // mask, into dcur (layer 1) or dx; the f32 chain splits all four weights
+  // in one launch
   ConvGemm g[2], gt[2];
   duration_convs(a, g);
   for (int l = 0; l < 2; ++l) {
-    ConvGemm& p = gt[l] = text_chain_product(s);
-    p.a = s.dpre; p.lda = f; p.c_in = f; p.taps = taps; p.tap_sign = -1;
+    ConvGemm& p = gt[l] = text_chain_product(s, bf16);
+    p.a = bf16 ? s.dpre16 : s.dpre; p.lda = f; p.c_in = f; p.taps = taps; p.tap_sign = -1;
     p.batch = batch; p.t = t; p.w = a.w[l]; p.w_t = 1; p.n = g[l].c_in;
     p.epilogue = kBiasMask; p.out = l ? s.dcur : dx; p.ldo = g[l].c_in; p.mask = mask;
-    p.bf16 = bf ? bf | kW16 | (l ? 0u : kOut16) : 0u;
+    p.bf16 = bf ? bf | (l ? 0u : kOut16) : 0u;
   }
   ConvGemm* products[4] = {&g[0], &g[1], &gt[0], &gt[1]};
-  GTT_TRY(presplit_weights(products, 4, s.tc, s.tc_floats, stream));
+  if (!bf16) GTT_TRY(presplit_weights(products, 4, s.tc, s.tc_floats, stream));
   GTT_TRY(duration_forward(a, g, stream));
 
   float* dws[2] = {dw1, dw2};
@@ -229,15 +284,20 @@ int duration_bwd_entry(
     ln.dyeff = s.dcur; ln.dx = s.dpre; ln.rows = (int)rows; ln.n = f; ln.t = t;
     ln.drop = a.drop.at(l);
     ln.bf16 = bf16 && l == 1 ? kAux16 : 0u;
+    ln.dx_c = bf16 ? s.dpre16 : nullptr;  // dpret = dpre.astype(bf16), dpre = dr * [pre > 0]
     GTT_TRY(layer_norm_bwd(ln, stream));
-    GTT_TRY(column_sums(s.dcur, f, f, ln.xhat, (int)rows, dgs[l], dbes[l], stream));
+    GTT_TRY(layer_sums(s.dcur, ln.xhat, s.dpre, f, (int)rows, dgs[l], dbes[l], dbs[l], bf16,
+                       stream));
     WGrad wg;  // the conv's input, stored masked: no mask on the gather
     wg.a = g[l].a; wg.lda = g[l].lda; wg.c_in = g[l].c_in; wg.taps = taps;
     wg.batch = batch; wg.t = t; wg.dy = s.dpre; wg.ldy = f; wg.n = f; wg.out = dws[l];
     wg.scratch = s.wg; wg.scratch_floats = s.wg_floats; wg.tc = 1;
-    wg.bf16 = bf ? bf | kOut16 : 0u;
+    if (bf16) {
+      wg.bf16 = kBf16 | kA16 | kOut16;
+      wg.dy16 = s.dpre16;
+      wg.tma_ring = 1;
+    }
     GTT_TRY(wgrad(wg, stream));
-    GTT_TRY(column_sums(s.dpre, f, f, nullptr, (int)rows, dbs[l], nullptr, stream));
     GTT_TRY(conv_gemm(gt[l], stream));
   }
   return (int)cudaGetLastError();

@@ -603,7 +603,8 @@ def bf16_text_conv_plan(batch: int, t: int, c_in: int, taps: int, n: int, sms: i
     at least TMA_MIN_SLICES 64-deep slices, shares * n within
     TMA_SPLIT_COLS), the pair whose waves of blocks (two an SM, a sample's
     64-row tiles ending at its last row) times slices a block is least;
-    ties to more chunks, then fewer shares."""
+    ties to the fewest columns past ``n`` in the last column tile (a tile's
+    wgmma runs its whole width), then more chunks, then fewer shares."""
     most = bf16_conv_chunks(c_in, n, lda or c_in, ldb or n, w_t, False)
     if not most:
         return 0, 1
@@ -612,14 +613,16 @@ def bf16_text_conv_plan(batch: int, t: int, c_in: int, taps: int, n: int, sms: i
     slots = 2 * sms
     best, plan = None, (most, 1)
     for chunks in range(most, 0, -1):
-        tiles = row_tiles * -(-n // (64 * chunks))
+        col_tiles = -(-n // (64 * chunks))
+        tiles = row_tiles * col_tiles
+        pad = col_tiles * 64 * chunks - n
         for shares in range(1, TMA_MAX_SHARES + 1):
             per = -(-steps // shares)
             if shares > 1 and (per < TMA_MIN_SLICES or shares * n > TMA_SPLIT_COLS):
                 break
             if -(-steps // per) != shares:
                 continue
-            cost = -(-(tiles * shares) // slots) * per
+            cost = (-(-(tiles * shares) // slots) * per, pad)
             if best is None or cost < best:
                 best, plan = cost, (chunks, shares)
     return plan
@@ -720,6 +723,54 @@ def bf16_block_products(
             "counts": counts}
 
 
+class _Bf16TextChain:
+    """The products of one call of a text chain's bf16 dispatch over
+    ``batch`` samples of ``t`` rows (csrc/bf16_gemm.cu): each conv-GEMM by
+    :func:`bf16_text_conv_plan`, each weight gradient by
+    :func:`bf16_wgrad_plan` within ``wg_floats`` of scratch."""
+
+    def __init__(self, batch: int, t: int, sms: int, wg_floats: int):
+        self.batch, self.t, self.sms, self.wg_floats = batch, t, sms, wg_floats
+        self.products: typing.List[dict] = []
+
+    def conv(self, name, c_in, n, k_taps=1, w_t=False):
+        batch, t = self.batch, self.t
+        chunks, shares = bf16_text_conv_plan(batch, t, c_in, k_taps, n, self.sms, w_t=w_t)
+        stages, smem = bf16_ring("conv_gemm", chunks) if chunks else (0, 0)
+        tiles = (batch * -(-t // BF16_CONV_TILE) * -(-n // (64 * chunks)) * shares if chunks
+                 else -(-(batch * t) // 64) * -(-n // 64))
+        self.products.append({
+            "name": name, "kind": "conv_gemm", "shape": [batch * t, k_taps * c_in, n],
+            "unit": "tma" if chunks else "mma", "chunks": chunks, "shares": shares,
+            "tiles": tiles, "stages": stages, "smem": smem,
+            "launches": 1 + int(shares > 1)})
+
+    def wgrad(self, name, c_in, n, k_taps=1):
+        chunks, splits = bf16_wgrad_plan(self.batch, self.t, c_in, k_taps, n, c_in, self.sms,
+                                         self.wg_floats)
+        tiles = (-(-n // (64 * chunks)) * -(-(k_taps * c_in) // BF16_WGRAD_TILE) * splits
+                 if chunks else 0)
+        stages, smem = bf16_ring("wgrad", chunks) if chunks else (0, 0)
+        self.products.append({
+            "name": name, "kind": "wgrad", "shape": [k_taps * c_in, self.batch * self.t, n],
+            "unit": "tma" if chunks else "mma", "chunks": chunks, "splits": splits,
+            "tiles": tiles, "stages": stages, "smem": smem,
+            # the product and, split, its splits' sum (the bias gradients
+            # are the chain's column sums)
+            "launches": 1 + int(chunks > 0 and splits > 1)})
+
+    def plan(self, fixed: int) -> typing.Dict[str, typing.Any]:
+        """-> {"products", "launches": ``fixed`` device operations besides
+        the products' plus theirs, "counts"}."""
+        counts = {"bf16_gemm": 0, "bf16_wgrad": 0, "bf16_tma_gemm": 0, "bf16_tma_wgrad": 0}
+        for p in self.products:
+            tma = "_tma" if p["unit"] == "tma" else ""
+            counts[f"bf16{tma}_{'gemm' if p['kind'] == 'conv_gemm' else 'wgrad'}"] += 1
+        return {"products": self.products,
+                "launches": fixed + sum(p["launches"] for p in self.products),
+                "counts": counts}
+
+
 def bf16_encoder_products(batch: int, t: int, h: int, f: int, taps: int, sms: int,
                           backward: bool = False) -> typing.Dict[str, typing.Any]:
     """The plan of one call of the text encoder layer's bf16 forward
@@ -736,34 +787,8 @@ def bf16_encoder_products(batch: int, t: int, h: int, f: int, taps: int, sms: in
     memory (a block's) and launches (a split product's sum pass
     included); "launches": the device operations of a call; "counts":
     ``kernels.product_counts`` of a call}."""
-    rows = batch * t
-    products: typing.List[dict] = []
-
-    def conv(name, c_in, n, k_taps=1, w_t=False):
-        chunks, shares = bf16_text_conv_plan(batch, t, c_in, k_taps, n, sms, w_t=w_t)
-        stages, smem = bf16_ring("conv_gemm", chunks) if chunks else (0, 0)
-        tiles = (batch * -(-t // BF16_CONV_TILE) * -(-n // (64 * chunks)) * shares if chunks
-                 else -(-rows // 64) * -(-n // 64))
-        products.append({
-            "name": name, "kind": "conv_gemm", "shape": [rows, k_taps * c_in, n],
-            "unit": "tma" if chunks else "mma", "chunks": chunks, "shares": shares,
-            "tiles": tiles, "stages": stages, "smem": smem,
-            "launches": 1 + int(shares > 1)})
-
-    def wgrad(name, c_in, n, k_taps=1):
-        chunks, splits = bf16_wgrad_plan(batch, t, c_in, k_taps, n, c_in, sms,
-                                         max(WALK_WG_FLOATS, taps * h * f))
-        tiles = (-(-n // (64 * chunks)) * -(-(k_taps * c_in) // BF16_WGRAD_TILE) * splits
-                 if chunks else 0)
-        stages, smem = bf16_ring("wgrad", chunks) if chunks else (0, 0)
-        products.append({
-            "name": name, "kind": "wgrad", "shape": [k_taps * c_in, rows, n],
-            "unit": "tma" if chunks else "mma", "chunks": chunks, "splits": splits,
-            "tiles": tiles, "stages": stages, "smem": smem,
-            # the product and, split, its splits' sum (the bias gradients
-            # are the chain's column sums)
-            "launches": 1 + int(chunks > 0 and splits > 1)})
-
+    chain = _Bf16TextChain(batch, t, sms, max(WALK_WG_FLOATS, taps * h * f))
+    conv, wgrad = chain.conv, chain.wgrad
     conv("qkv", h, 3 * h)
     conv("out_proj", h, h)
     conv("ffn1", h, f, taps)
@@ -782,12 +807,57 @@ def bf16_encoder_products(batch: int, t: int, h: int, f: int, taps: int, sms: in
         # and norm gradients' in one launch, the attention backward's score
         # pass and products, the rel-pos tables' partial sums and their sum
         fixed += 8
-    counts = {"bf16_gemm": 0, "bf16_wgrad": 0, "bf16_tma_gemm": 0, "bf16_tma_wgrad": 0}
-    for p in products:
-        tma = "_tma" if p["unit"] == "tma" else ""
-        counts[f"bf16{tma}_{'gemm' if p['kind'] == 'conv_gemm' else 'wgrad'}"] += 1
-    return {"products": products, "launches": fixed + sum(p["launches"] for p in products),
-            "counts": counts}
+    return chain.plan(fixed)
+
+
+def bf16_prenet_products(batch: int, t: int, h: int, n_layers: int, taps: int, sms: int,
+                         backward: bool = False) -> typing.Dict[str, typing.Any]:
+    """The plan of one call of the prenet's bf16 forward
+    (``gtt_prenet_bf16``, bf16 row 1) or backward (``gtt_prenet_bwd_bf16``,
+    bf16 row 14, which runs the forward's chain first) over ``batch``
+    samples of ``t`` rows at width ``h`` (csrc/text.cu, csrc/text_train.cu,
+    csrc/bf16_gemm.cu): the plain version of its products' dispatch, as
+    :func:`bf16_encoder_products` gives it."""
+    chain = _Bf16TextChain(batch, t, sms, max(WALK_WG_FLOATS, taps * h * h))
+    conv, wgrad = chain.conv, chain.wgrad
+    for l in range(n_layers):
+        conv(f"conv_{l}", h, h, taps)
+    conv("proj", h, h)
+    # x * mask's bf16 copy (with layers), a norm a layer
+    fixed = int(n_layers > 0) + n_layers
+    if backward:
+        wgrad("dWp", h, h)
+        conv("dproj", h, h, w_t=True)
+        for l in reversed(range(n_layers)):
+            wgrad(f"dW_{l}", h, h, taps)
+            conv(f"transposed_{l}", h, h, taps, w_t=True)
+        # dout * mask's bf16 copy, dbp's two sums; a layer its norm's
+        # backward and one launch of its norm's and bias's column sums
+        fixed += 3 + 2 * n_layers
+    return chain.plan(fixed)
+
+
+def bf16_duration_products(batch: int, t: int, c_in: int, f: int, taps: int, sms: int,
+                           backward: bool = False) -> typing.Dict[str, typing.Any]:
+    """The plan of one call of the duration stack's bf16 forward
+    (``gtt_duration_stack_bf16``, bf16 row 3) or backward
+    (``gtt_duration_stack_bwd_bf16``, bf16 row 15, which runs the forward's
+    chain first) over ``batch`` samples of ``t`` rows, ``c_in`` input
+    channels and width ``f`` (csrc/text.cu, csrc/text_train.cu,
+    csrc/bf16_gemm.cu): the plain version of its products' dispatch, as
+    :func:`bf16_encoder_products` gives it."""
+    chain = _Bf16TextChain(batch, t, sms, max(WALK_WG_FLOATS, taps * max(c_in, f) * f))
+    conv, wgrad = chain.conv, chain.wgrad
+    conv("conv_0", c_in, f, taps)
+    conv("conv_1", f, f, taps)
+    fixed = 3  # x * mask's bf16 copy, the two norms
+    if backward:
+        wgrad("dW_1", f, f, taps)
+        conv("transposed_1", f, f, taps, w_t=True)
+        wgrad("dW_0", c_in, f, taps)
+        conv("transposed_0", f, c_in, taps, w_t=True)
+        fixed += 2 * 2  # a layer its norm's backward and one launch of column sums
+    return chain.plan(fixed)
 
 
 def bf16_conv_product_plain(a, w, taps=1, dilation=1, tap_sign=1, w_t=False) -> torch.Tensor:

@@ -34,6 +34,10 @@ they lie, and each call takes one scratch block
 (``kernels.prenet_scratch_floats``, ``kernels.duration_scratch_floats``).
 A lone short sentence (b=1) stays on the CUDA cores, where latency and
 per-block occupancy, not FLOPs, bound it (``tc_gemm.text_product_plan``).
+In bf16 (``fp16_run``) every product of both stacks runs on the TMA-fed
+wgmma kernels, each operand a bf16 copy that the kernel producing it
+writes (the plan: ``tc_gemm.bf16_prenet_products``,
+``bf16_duration_products``).
 
 A ReLU whose input is within rounding of zero may open in one version
 and not in the other, and its gradient then differs by a whole term, so a

@@ -53,20 +53,22 @@ BASE_H, BASE_F, BASE_TAPS = 192, 768, 3
 def _brute_plan(batch, t, c_in, taps, n, sms):
     """Every (chunks, shares) pair the text chains' limits allow and its
     waves of two blocks an SM times 64-deep slices a block; the least cost,
-    ties to more chunks, then fewer shares."""
+    ties to the fewest columns past n in the last column tile, then more
+    chunks, then fewer shares."""
     steps = taps * math.ceil(c_in / 64)
     row_tiles = batch * math.ceil(t / 64)
     found = []
     for chunks in range(1, min(3, math.ceil(n / 64)) + 1):
         tiles = row_tiles * math.ceil(n / (64 * chunks))
+        pad = math.ceil(n / (64 * chunks)) * 64 * chunks - n
         for shares in range(1, tc_gemm.TMA_MAX_SHARES + 1):
             per = math.ceil(steps / shares)
             if math.ceil(steps / per) != shares:
                 continue
             if shares > 1 and (per < tc_gemm.TMA_MIN_SLICES or shares * n > tc_gemm.TMA_SPLIT_COLS):
                 continue
-            found.append((math.ceil(tiles * shares / (2 * sms)) * per, -chunks, shares))
-    cost, neg_chunks, shares = min(found)
+            found.append((math.ceil(tiles * shares / (2 * sms)) * per, pad, -chunks, shares))
+    cost, pad, neg_chunks, shares = min(found)
     return -neg_chunks, shares
 
 

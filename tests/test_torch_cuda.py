@@ -1632,13 +1632,12 @@ def test_tma_conv_matches_float64_and_the_tap_staged_bits(dev, name):
 BF16_RTOL = 2e-2
 BF16 = torch.bfloat16
 # device products of one call of each bf16 kernel at base width, as
-# (bf16_gemm, bf16_wgrad, core_gemm, bf16_tma_gemm, bf16_tma_wgrad): the
-# prenet's and the duration stack's on the mma.sync kernels, the encoder
-# layer's and the flow block's on the TMA-fed wgmma ones but the block's
-# folded A, which stays on the CUDA cores
+# (bf16_gemm, bf16_wgrad, core_gemm, bf16_tma_gemm, bf16_tma_wgrad): every
+# one on the TMA-fed wgmma kernels but the flow block's folded A, which
+# stays on the CUDA cores
 BF16_PRODUCTS = {
-    "prenet": (4, 0, 0, 0, 0), "prenet_bwd": (8, 4, 0, 0, 0), "duration_stack": (2, 0, 0, 0, 0),
-    "duration_stack_bwd": (4, 2, 0, 0, 0), "encoder_layer": (0, 0, 0, 4, 0),
+    "prenet": (0, 0, 0, 4, 0), "prenet_bwd": (0, 0, 0, 8, 4), "duration_stack": (0, 0, 0, 2, 0),
+    "duration_stack_bwd": (0, 0, 0, 4, 2), "encoder_layer": (0, 0, 0, 4, 0),
     "encoder_layer_bwd": (0, 0, 0, 8, 4), "block_fwd_save": (0, 0, 1, 10, 0),
     "block_bwd_store": (0, 0, 0, 12, 11),
 }
@@ -1932,16 +1931,26 @@ ENC_CONV = [
 # (name, c_in, taps, n) of its weight gradients -> [taps * c_in, n]
 ENC_WGRAD = [("dW2", 768, 3, 192), ("dW1", 192, 3, 768), ("dWo", 192, 1, 192),
              ("dW_qkv", 192, 1, 576)]
+# the same of the prenet's and the duration stack's chains (bf16 rows 1, 14,
+# 3 and 15) where their shapes are not the encoder layer's (their 1x1
+# projection and its transposed product are out_proj's and datt's)
+STACK_CONV = [
+    ("prenet_conv", 192, 5, 1, 192, False), ("prenet_transposed", 192, 5, -1, 192, True),
+    ("dp_conv_0", 192, 3, 1, 256, False), ("dp_conv_1", 256, 3, 1, 256, False),
+    ("dp_transposed_1", 256, 3, -1, 256, True), ("dp_transposed_0", 256, 3, -1, 192, True),
+]
+STACK_WGRAD = [("dW_prenet", 192, 5, 192), ("dW_dp_0", 192, 3, 256), ("dW_dp_1", 256, 3, 256)]
 
 
 def _sms():
     return torch.cuda.get_device_properties(0).multi_processor_count
 
 
-@pytest.mark.parametrize("name,c_in,taps,tap_sign,n,w_t", ENC_CONV)
+@pytest.mark.parametrize("name,c_in,taps,tap_sign,n,w_t", ENC_CONV + STACK_CONV)
 def test_bf16_text_product_matches_plain(dev, name, c_in, taps, tap_sign, n, w_t):
-    """Each conv-GEMM of bf16 rows 2 and 13 alone at [32, 192] by the text
-    chains' plan: the library's chunks and split-K shares those of
+    """Each conv-GEMM of the bf16 text rows (the encoder layer's, the
+    prenet's, the duration stack's) alone at [32, 192] by the text chains'
+    plan: the library's chunks and split-K shares those of
     tc_gemm.bf16_text_conv_plan, on the TMA-fed kernel (taps, tap_sign -1,
     w_t); against float64 of the same bf16 operands within 1e-5 of max
     |ref| (the shares added in split order), the same bits twice."""
@@ -1964,9 +1973,10 @@ def test_bf16_text_product_matches_plain(dev, name, c_in, taps, tap_sign, n, w_t
     assert torch.equal(got, tc_gemm.bf16_conv_product(a, w, taps, 1, tap_sign, w_t, unit="text"))
 
 
-@pytest.mark.parametrize("name,c_in,taps,n", ENC_WGRAD)
+@pytest.mark.parametrize("name,c_in,taps,n", ENC_WGRAD + STACK_WGRAD)
 def test_bf16_text_wgrad_matches_plain(dev, name, c_in, taps, n):
-    """Each weight gradient of bf16 row 13 alone at [32, 192] on the TMA-fed
+    """Each weight gradient of the bf16 text rows (13, 14, 15) alone at [32,
+    192] on the TMA-fed
     kernel (its row splits by tc_gemm.bf16_wgrad_plan): against float64 of
     the same bf16 operands within 1e-5 of max |ref|."""
     from glow_tts_train_tpu_torch.ops import tc_gemm
@@ -2134,4 +2144,113 @@ def test_bf16_encoder_rows_units_agree_and_repeat_bits(dev):
     for _ in range(50):
         again = (encoder_cuda.encoder_layer(weights, x, mask, *cfg),
                  *encoder_cuda.encoder_layer_bwd(weights, x, mask, dout, *cfg))
+        assert all(torch.equal(a, b) for a, b in zip(again, runs["tma"]))
+
+
+# ---------------------------------------------------------------------------
+# the bf16 prenet and duration stack (bf16 rows 1, 14, 3 and 15): their
+# chains' products on the TMA-fed wgmma kernels by the text chains' plan
+# ---------------------------------------------------------------------------
+
+STACK_F = 256  # the duration stack's width at base width
+BF16_STACKS = {
+    "prenet": (text_cuda.prenet, text_cuda.prenet_plain_bf16, text_cuda.prenet_bwd,
+               text_cuda.prenet_bwd_plain),
+    "duration_stack": (text_cuda.duration_stack, text_cuda.duration_stack_plain_bf16,
+                       text_cuda.duration_stack_bwd, text_cuda.duration_stack_bwd_plain),
+}
+
+
+def _stack(dev, stack, t, b=4, seed=0):
+    """A text stack's bf16 weights at base width (the prenet's 3 layers of 5
+    taps at h 192; the duration stack's 2 layers of 3 taps from 192
+    channels at f 256) and inputs over [b, t], three samples ragged."""
+    h, f = ENC_H, STACK_F
+    x, mask, g = _bf16_text_inputs(dev, h, t=t, b=b, seed=seed)
+
+    def r(*shape, scale=1.0, off=0.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g) * scale + off).to(dtype).to(dev)
+
+    if stack == "prenet":
+        weights = (r(3, 5 * h, h, scale=(5 * h) ** -0.5, dtype=BF16), r(3, h, scale=0.1),
+                   r(3, h, scale=0.1, off=1.0), r(3, h, scale=0.1),
+                   r(h, h, scale=h ** -0.5, dtype=BF16), r(1, h, scale=0.1))
+        return weights, x, mask, r(b, t, h, dtype=BF16), (0.5, 11)
+    weights = (r(3 * h, f, scale=(3 * h) ** -0.5, dtype=BF16), r(1, f, scale=0.1),
+               r(1, f, scale=0.1, off=1.0), r(1, f, scale=0.1),
+               r(3 * f, f, scale=(3 * f) ** -0.5, dtype=BF16),
+               r(1, f, scale=0.1), r(1, f, scale=0.1, off=1.0), r(1, f, scale=0.1))
+    return weights, x, mask, r(b, t, f, dtype=BF16), (0.1, 12)
+
+
+def _stack_plan(stack, b, t, backward):
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    if stack == "prenet":
+        return tc_gemm.bf16_prenet_products(b, t, ENC_H, 3, 5, _sms(), backward)["counts"]
+    return tc_gemm.bf16_duration_products(b, t, ENC_H, STACK_F, 3, _sms(), backward)["counts"]
+
+
+@pytest.mark.parametrize("stack", sorted(BF16_STACKS))
+@pytest.mark.parametrize("t", [64, 96, 192, 93])
+def test_bf16_stack_rows_match_plain(dev, stack, t):
+    """bf16 rows 1 and 14 (the prenet) and 3 and 15 (the duration stack) at
+    base width over [4, t] (three samples ragged; t 93 leaves a sample's
+    last tile part empty, where the prenet's 5-tap boxes reach two rows
+    past it), dropout on: the forward's output and every gradient (at the
+    kernel's own ReLU gates) within BF16_RTOL of the plain bf16 version's
+    max; every product on the TMA-fed kernels, as the plan counts them; the
+    backward's recompute the forward's bits."""
+    fwd, plain, bwd, plain_bwd = BF16_STACKS[stack]
+    weights, x, mask, dout, cfg = _stack(dev, stack, t)
+    plan = {bw: _stack_plan(stack, 4, t, bw) for bw in (False, True)}
+    assert plan[True]["bf16_gemm"] == plan[True]["bf16_wgrad"] == 0
+    kernels.product_counts(reset=True)
+    out = fwd(weights, x, mask, *cfg)
+    torch.cuda.synchronize()
+    counts = kernels.product_counts(reset=True)
+    assert {k: counts[k] for k in plan[False]} == plan[False]
+    _bf16_held(f"{stack} t {t}", out, plain(weights, x, mask, *cfg))
+    saves = {}
+    grads = bwd(weights, x, mask, dout, *cfg, saves=saves)
+    torch.cuda.synchronize()
+    counts = kernels.product_counts(reset=True)
+    assert {k: counts[k] for k in plan[True]} == plan[True]
+    assert torch.equal(saves["out"], out)  # the recompute is the forward's bits
+    ref = plain_bwd(weights, x, mask, dout, *cfg, gates=saves["gates"])
+    for i, (a, b) in enumerate(zip(grads, ref)):
+        assert a.dtype == b.dtype, i
+        _bf16_held(f"{stack}_bwd t {t} [{i}]", a, b)
+
+
+@pytest.mark.parametrize("stack", sorted(BF16_STACKS))
+def test_bf16_stack_rows_units_agree_and_repeat_bits(dev, stack):
+    """A stack's bf16 rows at [4, 192], dropout on, on the TMA-fed kernels
+    and, in the same process, on the mma.sync ones (kernels.bf16_mma_only):
+    the forward's outputs within BF16_RTOL of each other, each unit's
+    gradients within BF16_RTOL of the plain bf16 version at that unit's own
+    ReLU gates; 50 repeats of each row on the TMA-fed kernels give the same
+    bits (split-K shares and row splits added in a fixed order)."""
+    fwd, _, bwd, plain_bwd = BF16_STACKS[stack]
+    weights, x, mask, dout, cfg = _stack(dev, stack, 192)
+    plan = [_stack_plan(stack, 4, 192, bw) for bw in (False, True)]
+    want = tuple(plan[0][k] + plan[1][k] for k in ("bf16_tma_gemm", "bf16_tma_wgrad"))
+    runs = {}
+    for unit in ("tma", "mma"):
+        with kernels.bf16_mma_only() if unit == "mma" else contextlib.nullcontext():
+            kernels.product_counts(reset=True)
+            out = fwd(weights, x, mask, *cfg)
+            saves = {}
+            grads = bwd(weights, x, mask, dout, *cfg, saves=saves)
+            torch.cuda.synchronize()
+            counts = kernels.product_counts(reset=True)
+        key = "bf16_" if unit == "mma" else "bf16_tma_"
+        assert (counts[key + "gemm"], counts[key + "wgrad"]) == want, (unit, counts)
+        ref = plain_bwd(weights, x, mask, dout, *cfg, gates=saves["gates"])
+        for i, (a, b) in enumerate(zip(grads, ref)):
+            _bf16_held(f"{unit} {stack}_bwd [{i}]", a, b)
+        runs[unit] = (out, *grads)
+    _bf16_held(f"{stack} tma vs mma", runs["tma"][0], runs["mma"][0])
+    for _ in range(50):
+        again = (fwd(weights, x, mask, *cfg), *bwd(weights, x, mask, dout, *cfg))
         assert all(torch.equal(a, b) for a, b in zip(again, runs["tma"]))
