@@ -131,7 +131,25 @@ Phases, each fatal on failure:
     dropout seeds, step by step on the f32 step's alignment (losses within
     BF16_LOSS_RTOL, the grad norm within BF16_GRAD_NORM_RTOL, bf16's own
     alignment within BF16_PATH_SCORE_RTOL of f32's optimum), and both steps in turns at batch
-    32: step ms quartiles, peak device memory, a profiled step each.
+    32: step ms quartiles, peak device memory, a profiled step each;
+13. (after 12) trains in bf16 in all four decoder modes through the train
+    CLI, ``configs/base.json`` as shipped but its warm-up cut to 200 steps
+    (BF16_MODE_OVERRIDE), 2 epochs of 2 steps from one init: each mode's
+    bf16 decoder kernels launched 12 times a step and no other decoder
+    kernel (DDI's f32 WN forward aside), the MLE loss falling, fused recompute's
+    losses fused store's and op-by-op recompute's op-by-op store's to the
+    bit, op by op's first step within MODE_LOSS_RTOL_BF16 of fused (its MLE
+    loss within MODE_MLE_RTOL_BF16); each run's checkpoint serves; each of the
+    six bf16 kernels of those modes (rows 5-9, 11) against its plain bf16
+    version on the inputs of its run's last step, a forward that saves
+    nothing against the forward-save's bits and a recompute backward against
+    the store backward's, timed, its device time and operations from a
+    bracketed trace held to ``tc_gemm.bf16_block_products``, its bound at
+    the dense BF16 peak; then the four bf16 modes from one init in one
+    process, in turns (as 11, as shipped): 34 steps each, recompute's losses
+    store's to the bit (the bf16 TMA kernels' second path), op by op's first
+    4 within the same bounds of fused, step ms, peak memory over resident
+    and device busy of each.
 
 The profiled train step also counts its device products: every product the
 block chains send to the tensor cores must run there (10 conv-GEMMs per
@@ -231,6 +249,17 @@ DECODER_KERNELS = ("wn_forward", "wn_fwd_save", "wn_bwd_store", "wn_bwd",
 # so it is held over the first steps only
 MODE_LOSS_RTOL = 1e-4
 MODE_LOSS_STEPS = 4
+# ... in bf16 (fp16_run): the op-by-op decoder rounds its bijectors in bf16
+# where the fused block folds them (ActNorm's bias and scale of a log-mel's
+# large mean cancel in bf16, inside the folded product in f32), and the
+# alignment's near-ties move the duration loss with z; so its losses are
+# held to the fused block's within three times JAX's own bf16 op by op
+# against fused, measured on the CPU at base width on four batches of two
+# corpus utterances (tests/test_torch_bf16_modes.py: at most 1.5e-2 of the
+# loss and 2.6e-3 of the MLE loss, the port's MLE within a tenth of JAX's
+# on every batch)
+MODE_LOSS_RTOL_BF16 = 4.5e-2
+MODE_MLE_RTOL_BF16 = 8e-3
 # step time and peak memory of the four modes: turns of MODE_TURN_STEPS steps,
 # MODE_ROUNDS rounds of (a, b, c, d, d, c, b, a), after 2 warm-up steps each
 MODE_TURN_STEPS = 4
@@ -312,7 +341,8 @@ KERNEL_META = {
 # the bf16 versions (fp16_run): the same TPU kernels with dtype bf16, their
 # products in csrc/bf16_gemm.cu
 BF16_KERNELS = ("prenet", "encoder_layer", "duration_stack", "block_fwd_save",
-                "prenet_bwd", "encoder_layer_bwd", "duration_stack_bwd", "block_bwd_store")
+                "prenet_bwd", "encoder_layer_bwd", "duration_stack_bwd", "block_bwd_store",
+                *DECODER_KERNELS[:4], "block_fwd", "block_bwd")
 KERNEL_META.update({name + "_bf16": KERNEL_META[name] for name in BF16_KERNELS})
 
 
@@ -1403,7 +1433,8 @@ def serve_trained(ckpt: Path, config: Path, n_mel: int) -> None:
     mel = np.asarray(json.loads(out.getvalue().splitlines()[0])["mel"], np.float32)
     if mel.ndim != 2 or mel.shape[0] != n_mel or not np.isfinite(mel).all():
         fail(f"serving the trained checkpoint: mel shape {mel.shape}")
-    print(f"train: the trained checkpoint {ckpt.name} serves a 12-phoneme request: mel {list(mel.shape)}")
+    print(f"train: the trained checkpoint {ckpt.parent.name}/{ckpt.name} serves a 12-phoneme "
+          f"request: mel {list(mel.shape)}")
 
 
 def entry_writer(report: list, launches: dict, device_line: str):
@@ -2368,20 +2399,7 @@ def bf16_kernels(recorders: dict, launches: dict, device_line: str) -> list:
                 fail(f"{name}: {BF16_REPEATS} calls did not all give the first call's bits")
 
     entry = entry_writer(report, launches, device_line)
-
-    def unit(t):  # a backward is linear in its cotangent
-        return (t / t.abs().max().clamp_min(1e-30)).to(t.dtype).contiguous()
-
-    def held_all(name, port, ref):
-        worst, scale = 0.0, 0.0
-        for i, (a, b) in enumerate(zip(port, ref)):
-            if b is None:
-                continue
-            e, sc = rel_err(f"{name} [{i}]", a.float(), b.float(), BF16_KERNEL_RTOL)
-            if i and b.abs().max().item() == 0.0:
-                fail(f"{name} [{i}] is zero in the plain version: nothing was compared")
-            worst, scale = max(worst, e / max(sc, 1e-6)), max(scale, sc)
-        return worst, scale
+    unit = unit_bf16
 
     plain_fwd = {
         "prenet": text_cuda.prenet_plain_bf16,
@@ -2426,7 +2444,7 @@ def bf16_kernels(recorders: dict, launches: dict, device_line: str) -> list:
         grads_p = plain_bwd[name](weights, x, x_mask, dout, *cfg, gates=saves["gates"])
         repeats_bits(bname + "_bf16", lambda: bkernel(*call), grads_k)
         torch.cuda.synchronize()
-        worst, scale = held_all(name + "_bwd_bf16", grads_k, grads_p)
+        worst, scale = held_bf16(name + "_bwd_bf16", grads_k, grads_p)
         ms = time_ms(bkernel, call, {}, runs=10, warmup=2)
         plain_ms = time_ms(lambda *a: plain_bwd[name](*a, gates=saves["gates"]), call, {},
                            runs=3, warmup=1)
@@ -2466,7 +2484,7 @@ def bf16_kernels(recorders: dict, launches: dict, device_line: str) -> list:
         z, ld = block_cuda.block_forward_plain_bf16(leaves, None, xl, x_mask, *cfg)
         ref = torch.autograd.grad((z, ld), [xl, *leaves.values()], (dz, dld))
     names = ["dx"] + ["d" + k for k in leaves]
-    worst, scale = held_all("block_bwd_store_bf16", [grads_k[n] for n in names], ref)
+    worst, scale = held_bf16("block_bwd_store_bf16", [grads_k[n] for n in names], ref)
     ms = time_ms(bwd, call, {}, runs=10, warmup=2)
 
     def plain_bwd_store():  # autograd of the plain forward: the plain backward's cost
@@ -2502,6 +2520,14 @@ def units_in_turns(name: str, fn, device_line: str, calls: int = 3) -> dict:
     return out
 
 
+# the decoder's bf16 kernels the default mode (fused store) launches
+BF16_DECODER_FS = ("block_fwd_save_bf16", "block_bwd_store_bf16")
+# the four decoder modes in bf16 through the train CLI: the bf16 run's
+# config, its warm-up cut to 200 steps so that 4 steps move the MLE loss (as
+# shipped, 4000, the lr of step 4 is 1.1e-6 and the loss moves by dropout
+# alone; at 50, as TRAIN_OVERRIDE cuts f32's, the duration loss of the
+# long bucket overshot at step 4, 2.85 -> 4.82 in the fused store run)
+BF16_MODE_OVERRIDE = {"epochs": 2, "warmup_steps": 200}
 # bf16 training (fp16_run): configs/base.json as shipped (fp16_run true,
 # batch 32, full width), its epochs cut to 2: 64 utterances at batch 32
 # are 2 steps an epoch
@@ -2559,7 +2585,8 @@ def bf16_train(workdir: Path, config_path: Path, device_line: str) -> tuple:
                 "prenet_bwd": 1, "encoder_layer": n_layers, "encoder_layer_bwd": n_layers,
                 "duration_stack": 1, "duration_stack_bwd": 1}
     want = {"wn_forward": n_blocks, "mas": BF16_STEPS,
-            **{k + "_bf16": v * BF16_STEPS for k, v in per_step.items()}, **dict.fromkeys(per_step, 0)}
+            **{k + "_bf16": v * BF16_STEPS for k, v in per_step.items()}, **dict.fromkeys(per_step, 0),
+            **{k + "_bf16": 0 for k in DECODER_KERNELS if k + "_bf16" not in BF16_DECODER_FS}}
     got = {k: launches[k] for k in want}
     if got != want:
         fail(f"train bf16: launches {got}, expected {want}")
@@ -2747,18 +2774,19 @@ def bf16_against_f32(workdir: Path, config_path: Path, device_line: str) -> dict
     return out
 
 
-def held_losses(name: str, losses: list, ref: list, exact: bool) -> float:
+def held_losses(name: str, losses: list, ref: list, exact: bool,
+                rtol: float = MODE_LOSS_RTOL, n_steps: int = MODE_LOSS_STEPS) -> float:
     """The per-step losses of one decoder mode against another's from the
     same init, batches and dropout seeds -> the largest relative
     difference.  ``exact``: every step to the bit; else the first
-    MODE_LOSS_STEPS steps within MODE_LOSS_RTOL."""
+    ``n_steps`` steps within ``rtol``."""
     if len(losses) != len(ref):
         fail(f"{name}: {len(losses)} steps against {len(ref)}")
-    n = len(ref) if exact else MODE_LOSS_STEPS
+    n = len(ref) if exact else n_steps
     worst = max(abs(a - b) / abs(b) for a, b in zip(losses[:n], ref[:n]))
-    if not worst <= (0.0 if exact else MODE_LOSS_RTOL):
+    if not worst <= (0.0 if exact else rtol):
         fail(f"{name}: the loss differs by {worst} relative in the first {n} steps "
-             f"({'equal bits expected' if exact else MODE_LOSS_RTOL}): {losses[:n]} vs {ref[:n]}")
+             f"({'equal bits expected' if exact else rtol}): {losses[:n]} vs {ref[:n]}")
     return worst
 
 
@@ -3019,25 +3047,352 @@ def decoder_mode_kernels(recorders: dict, launches_by_mode: dict, device_line: s
     return report
 
 
-def decoder_mode_steps(workdir: Path, config_path: Path, device_line: str) -> dict:
+def bf16_decoder_modes(workdir: Path, config_path: Path, device_line: str) -> tuple:
+    """bf16 training in all four decoder modes (``configs/base.json`` as
+    shipped, batch 32, dropout on; epochs cut to 2 and the warm-up to 200
+    steps, BF16_MODE_OVERRIDE) through the train CLI from one init, on the
+    same batches and dropout seeds: only the mode's bf16 decoder kernels
+    launched (12 a step each), the MLE loss (the flow decoder's, the
+    objective the modes compute) falling over the epochs, every
+    step's losses against the fused store run's (recompute to the bit; op
+    by op the first step's within MODE_LOSS_RTOL_BF16 and its MLE loss
+    within MODE_MLE_RTOL_BF16) and op-by-op recompute's against op-by-op
+    store's to the bit; each run's last checkpoint serves one request ->
+    (launch counts by mode, recorders of the modes' kernels, the per-mode
+    rows)."""
+    from glow_tts_train_tpu_torch.config import load_config
+    from glow_tts_train_tpu_torch.ops import block_cuda, wn_cuda
+
+    corpus = workdir / "corpus"
+    manifest = json.loads((corpus / "manifest.json").read_text())
+    config = load_config([config_path])
+    n_blocks, n_layers = config.model.n_blocks_dec, config.model.n_layers_enc
+    recorded = {
+        "fused_store": {},
+        "fused_recompute": {"block_fwd_bf16": (block_cuda, "block_fwd"),
+                            "block_bwd_bf16": (block_cuda, "block_bwd")},
+        "unfused_store": {"wn_fwd_save_bf16": (wn_cuda, "wn_fwd_save"),
+                          "wn_bwd_store_bf16": (wn_cuda, "wn_bwd_store")},
+        "unfused_recompute": {"wn_forward_bf16": (wn_cuda, "wn_stack"),
+                              "wn_bwd_bf16": (wn_cuda, "wn_bwd")},
+    }
+    # each mode against its reference: (mode, the losses' bound, the MLE
+    # loss's); op by op against fused the first step only, the forward's
+    # rounding on equal parameters: the updates of this warm-up part the
+    # trajectories after it (the 34 steps of decoder_mode_steps, as shipped,
+    # hold the first 4)
+    against = {"fused_recompute": ("fused_store", 0.0, 0.0),
+               "unfused_store": ("fused_store", MODE_LOSS_RTOL_BF16, MODE_MLE_RTOL_BF16),
+               "unfused_recompute": ("unfused_store", 0.0, 0.0)}
+    text = {"prenet": 1, "prenet_bwd": 1, "encoder_layer": n_layers,
+            "encoder_layer_bwd": n_layers, "duration_stack": 1, "duration_stack_bwd": 1}
+    modes = {"fused_store": {"flow_block_fuse": True, "wn_residuals": "store"}, **DECODER_MODES}
+    launches_by_mode, recorders, rows = {}, {}, {}
+    for mode, keys in modes.items():
+        recs = {name: Recorder(module, attr) for name, (module, attr) in recorded[mode].items()}
+        launches, steps, _, out, seconds = run_train_cli(
+            workdir, corpus, manifest, config_path, dict(BF16_MODE_OVERRIDE, **keys),
+            "bf16_" + mode, BF16_STEPS, recs, corpus_symbols=False,
+        )
+        for name, rec in recs.items():
+            if rec.args is None:
+                fail(f"train bf16 {mode}: no call of {name} was recorded in the last step")
+        # DDI's WN forward in f32 (as in JAX), then only bf16 kernels
+        want = {"wn_forward": n_blocks, "mas": BF16_STEPS,
+                **{k: 0 for k in DECODER_KERNELS[1:] + tuple(text)},
+                **{k + "_bf16": v * BF16_STEPS for k, v in text.items()},
+                **{k + "_bf16": MODE_LAUNCHES[mode].get(k, 0) * n_blocks * BF16_STEPS
+                   for k in DECODER_KERNELS}}
+        got = {k: launches[k] for k in want}
+        epochs = [json.loads(line) for line in
+                  (workdir / f"bf16_{mode}.jsonl").read_text().splitlines()]
+        half = BF16_STEPS // 2
+        row = {"config": keys, "steps": steps, "launches": got,
+               "epoch_avg_loss": [e["avg_loss"] for e in epochs],
+               "epoch_mle_loss": [statistics.mean(r["mle_loss"] for r in steps[:half]),
+                                  statistics.mean(r["mle_loss"] for r in steps[half:])]}
+        line = (f"train bf16 {mode} {keys}: {BF16_STEPS} steps in {seconds:.1f} s (DDI and "
+                f"checkpoints included), losses {[r['loss'] for r in steps]}, mle "
+                f"{[r['mle_loss'] for r in steps]}, step ms "
+                f"{[round(r['seconds'] * 1e3, 1) for r in steps]}, epochs' loss "
+                f"{row['epoch_avg_loss']} and MLE loss {row['epoch_mle_loss']}")
+        if mode in against:
+            ref, rtol, mle_rtol = against[mode]
+            rel = [{k: abs(a[k] - b[k]) / abs(b[k]) for k in ("loss", "mle_loss", "duration_loss")}
+                   for a, b in zip(steps, rows[ref]["steps"])]
+            diff = {k: max(r[k] for r in rel) for k in rel[0]}
+            row.update(against=ref, rel_diff_first_step=rel[0], rel_diff=diff, loss_rtol=rtol,
+                       mle_rtol=mle_rtol)
+            line += (f"; against {ref}, relative difference of the first step {rel[0]} (bounds: "
+                     f"the loss {rtol}, MLE {mle_rtol}), largest over the {BF16_STEPS} steps "
+                     f"{diff}")
+        print(f"{line}; launches {got} [{device_line}]")
+        if got != want:
+            fail(f"train bf16 {mode}: launches {got}, expected {want}")
+        ckpt = out / f"checkpoint_{1 + BF16_STEPS}.npz"
+        if len(epochs) != 2 or not ckpt.exists():
+            fail(f"train bf16 {mode}: {len(epochs)} epoch lines, checkpoint {ckpt.name} exists: "
+                 f"{ckpt.exists()}")
+        if not row["epoch_mle_loss"][1] < row["epoch_mle_loss"][0]:
+            fail(f"train bf16 {mode}: the MLE loss did not fall over the epochs: "
+                 f"{row['epoch_mle_loss']}")
+        if mode in against:
+            ref, rtol, mle_rtol = against[mode]
+            held_losses(f"train bf16 {mode} vs {ref}", [r["loss"] for r in steps],
+                        [r["loss"] for r in rows[ref]["steps"]], exact=rtol == 0.0, rtol=rtol,
+                        n_steps=1)
+            held_losses(f"train bf16 {mode} vs {ref}, MLE", [r["mle_loss"] for r in steps],
+                        [r["mle_loss"] for r in rows[ref]["steps"]], exact=rtol == 0.0,
+                        rtol=mle_rtol, n_steps=1)
+        serve_trained(ckpt, out / f"config_{1 + BF16_STEPS}.json", config.audio.mel_channels)
+        launches_by_mode[mode] = launches
+        recorders.update(recs)
+        rows[mode] = row
+    return launches_by_mode, recorders, rows
+
+
+def unit_bf16(t):
+    """A cotangent scaled to max 1 in its own dtype (a backward is linear in
+    its cotangent)."""
+    return (t / t.abs().max().clamp_min(1e-30)).to(t.dtype).contiguous()
+
+
+def held_bf16(name: str, port: list, ref: list) -> tuple:
+    """Each of ``port`` against ``ref`` within BF16_KERNEL_RTOL of its max
+    |ref| (None entries skipped) -> (the worst error over its max, the
+    largest max)."""
+    worst, scale = 0.0, 0.0
+    for i, (a, b) in enumerate(zip(port, ref)):
+        if b is None:
+            continue
+        e, sc = rel_err(f"{name} [{i}]", a.float(), b.float(), BF16_KERNEL_RTOL)
+        if i and b.abs().max().item() == 0.0:
+            fail(f"{name} [{i}] is zero in the plain version: nothing was compared")
+        worst, scale = max(worst, e / max(sc, 1e-6)), max(scale, sc)
+    return worst, scale
+
+
+def bf16_decoder_mode_kernels(recorders: dict, launches_by_mode: dict, device_line: str) -> list:
+    """The six bf16 kernels of the decoder's other modes (bf16 rows 5-9 and
+    11) on the inputs their runs recorded in the last step, dropout on: each
+    against its plain bf16 version (``wn_stack_plain_bf16``,
+    ``block_forward_plain_bf16``; a backward against its autograd with the
+    cotangent scaled to max 1) within BF16_KERNEL_RTOL, a forward that saves
+    nothing against the forward-save's bits and a recompute backward
+    against the store backward's on the same inputs; timed with events
+    against its plain version, its device time and operations from a trace
+    bracketed by spin kernels, its bound at the dense BF16 peak, its device
+    operations and products held to ``tc_gemm.bf16_block_products``."""
+    import torch
+
+    from glow_tts_train_tpu_torch import kernels
+    from glow_tts_train_tpu_torch.ops import block_cuda, tc_gemm, wn_cuda
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    by_mode = {"block_fwd": "fused_recompute", "block_bwd": "fused_recompute",
+               "wn_fwd_save": "unfused_store", "wn_bwd_store": "unfused_store",
+               "wn_forward": "unfused_recompute", "wn_bwd": "unfused_recompute"}
+    launches = {k + "_bf16": launches_by_mode[m][k + "_bf16"] for k, m in by_mode.items()}
+    report: list = []
+    entry = entry_writer(report, launches, device_line)
+    unit = unit_bf16
+
+    def held_plan(name, fn, roof, x, c, folded_in, taps, **kw):
+        """The call's products and device operations as the plan says."""
+        b, t = x.shape[:2]
+        L, _, h2 = folded_in.shape
+        plan = tc_gemm.bf16_block_products(b, t, c, h2 // 2, L, taps, 1, sms, **kw)
+        kernels.product_counts(reset=True)
+        fn()
+        torch.cuda.synchronize()
+        counts = kernels.product_counts(reset=True)
+        if {k: counts.get(k, 0) for k in plan["counts"]} != plan["counts"]:
+            fail(f"{name}: device products {counts}, its plan {plan['counts']}")
+        if roof["device_operations"] != plan["launches"]:
+            fail(f"{name}: {roof['device_operations']} device operations a call, its plan "
+                 f"{plan['launches']}")
+        return plan["launches"]
+
+    def dropout_on(name, p_dropout):
+        if not p_dropout > 0.0:
+            fail(f"{name}: the recorded training call has no dropout")
+
+    # ---- row 9: the block forward that saves nothing ----
+    args, kwargs = recorders["block_fwd_bf16"].args
+    folded, g_all, x, x_mask, *cfg = args
+    dropout_on("block_fwd_bf16", cfg[3])
+    with torch.no_grad():
+        z, ld = block_cuda.block_fwd(*args, **kwargs)
+        z_s, ld_s, _ = block_cuda.block_fwd_save(*args, **kwargs)
+        if not (torch.equal(z, z_s) and torch.equal(ld, ld_s)):
+            fail("block_fwd_bf16: z or ld differ from the forward-save kernel's bits")
+        worst, scale = held_bf16("block_fwd_bf16", [z, ld],
+                                 block_cuda.block_forward_plain_bf16(*args, **kwargs))
+        ms = time_ms(block_cuda.block_fwd, args, kwargs, runs=10, warmup=2)
+        plain_ms = time_ms(block_cuda.block_forward_plain_bf16, args, kwargs, runs=3, warmup=1)
+        roof = bf16_bound("block_fwd_bf16", args, kwargs, (z, ld), block_cuda.block_fwd)
+        ops = held_plan("block_fwd_bf16", lambda: block_cuda.block_fwd(*args, **kwargs), roof, x,
+                        x.shape[2], folded["W_in"], cfg[0], saves=False)
+    entry("block_fwd_bf16", worst * scale, scale, ms, plain_ms, list(x.shape), roof,
+          worst_relative=worst, p_dropout=cfg[3], equals_fwd_save=True,
+          device_operations_plan=ops)
+
+    # ---- row 11: the block's recompute backward ----
+    args, kwargs = recorders["block_bwd_bf16"].args
+    folded, g_all, x, x_mask, dz, dld, *cfg = args
+    dropout_on("block_bwd_bf16", cfg[3])
+    args = (folded, g_all, x, x_mask, unit(dz), unit(dld), *cfg)
+    dz, dld = args[4], args[5]
+    grads = block_cuda.block_bwd(*args, **kwargs)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in folded.items()}
+    xl = x.detach().requires_grad_(True)
+
+    def plain_bwd():  # autograd of the plain forward: the plain backward
+        with torch.enable_grad():
+            zz, ll = block_cuda.block_forward_plain_bf16(leaves, g_all, xl, x_mask, *cfg)
+            return torch.autograd.grad((zz, ll), [xl, *leaves.values()], (dz, dld))
+
+    names = ["dx"] + ["d" + k for k in leaves]
+    worst, scale = held_bf16("block_bwd_bf16", [grads[n] for n in names], plain_bwd())
+    _, _, saves = block_cuda.block_fwd_save(folded, g_all, x, x_mask, *cfg)
+    store = block_cuda.block_bwd_store(folded, g_all is not None, x, x_mask, saves, dz, dld, *cfg)
+    for n in names:
+        if not torch.equal(grads[n], store[n]):
+            fail(f"block_bwd_bf16: {n} differs from the store backward's bits")
+    ms = time_ms(block_cuda.block_bwd, args, kwargs, runs=10, warmup=2)
+    plain_ms = time_ms(plain_bwd, (), {}, runs=3, warmup=1)
+    roof = bf16_bound("block_bwd_bf16", args, kwargs, grads, block_cuda.block_bwd)
+    ops = held_plan("block_bwd_bf16", lambda: block_cuda.block_bwd(*args, **kwargs), roof, x,
+                    x.shape[2], folded["W_in"], cfg[0], backward=True, recompute=True,
+                    with_g=g_all is not None)
+    entry("block_bwd_bf16", worst * scale, scale, ms, plain_ms, list(x.shape), roof,
+          worst_relative=worst, p_dropout=cfg[3], equals_store=True, device_operations_plan=ops)
+    del saves, store, grads, leaves
+
+    # ---- rows 6 and 5: the WN stack's forward-save and forward ----
+    def wn_forward_row(name, fn, args, kwargs, saves):
+        wn, g_all, x, x_mask, *cfg = args
+        dropout_on(name, cfg[2])
+        with torch.no_grad():
+            got = fn(*args, **kwargs)
+            out = got[0] if saves else got
+            ref_saves: dict = {}
+            ref = wn_cuda.wn_stack_plain_bf16(*args, saves=ref_saves, **kwargs)
+            port, plain = [out], [ref]
+            if saves:
+                port += [got[1][k] for k in ("xs", "th", "sg")]
+                plain += [torch.stack(ref_saves[k]) for k in ("xs", "th", "sg")]
+            worst, scale = held_bf16(name, port, plain)
+            del ref_saves
+            ms = time_ms(fn, args, kwargs, runs=10, warmup=2)
+            plain_ms = time_ms(wn_cuda.wn_stack_plain_bf16, args, kwargs, runs=3, warmup=1)
+            roof = bf16_bound(name, args, kwargs, got, fn)
+            ops = held_plan(name, lambda: fn(*args, **kwargs), roof, x, 0, wn[0], cfg[0],
+                            saves=saves)
+        entry(name, worst * scale, scale, ms, plain_ms, list(x.shape), roof, worst_relative=worst,
+              p_dropout=cfg[2], device_operations_plan=ops)
+        return out
+
+    fwd_args, fwd_kwargs = recorders["wn_fwd_save_bf16"].args
+    out6 = wn_forward_row("wn_fwd_save_bf16", wn_cuda.wn_fwd_save, fwd_args, fwd_kwargs, True)
+    args, kwargs = recorders["wn_forward_bf16"].args
+    out5 = wn_forward_row("wn_forward_bf16", wn_cuda.wn_stack, args, kwargs, False)
+    with torch.no_grad():
+        if not torch.equal(out5, wn_cuda.wn_fwd_save(*args, **kwargs)[0]):
+            fail("wn_forward_bf16: its output differs from the forward-save kernel's bits")
+    del out5, out6
+
+    def wn_plain_bwd(wn, g_all, x, x_mask, dout, cfg):
+        """Autograd of the plain bf16 stack -> (its gradients' function, names)."""
+        wp = [w.detach().requires_grad_(True) for w in wn]
+        xp = x.detach().requires_grad_(True)
+        gp = None if g_all is None else g_all.detach().requires_grad_(True)
+        inputs = [xp, *wp] + ([] if gp is None else [gp])
+
+        def grads():
+            with torch.enable_grad():
+                o = wn_cuda.wn_stack_plain_bf16(tuple(wp), gp, xp, x_mask, *cfg)
+                return torch.autograd.grad(o, inputs, dout)
+
+        return grads, ["dx", "dW_in", "db_in", "dW_rs", "db_rs"] + ([] if gp is None else ["dg"])
+
+    # ---- row 8: the WN backward-store on the residuals of the recorded
+    # forward (the step's first block) with the recorded backward's
+    # cotangent (its last), scaled ----
+    wn, g_all, x, x_mask, *cfg = fwd_args
+    (_, _, with_g, _, _, dout, *bwd_cfg), kwargs = recorders["wn_bwd_store_bf16"].args
+    if list(bwd_cfg[:3]) != list(cfg[:3]) or dout.shape != x.shape:
+        fail(f"wn_bwd_store_bf16: recorded with {bwd_cfg} at {list(dout.shape)}, the forward "
+             f"with {cfg}")
+    dout = unit(dout)
+    with torch.no_grad():
+        _, saves = wn_cuda.wn_fwd_save(wn, g_all, x, x_mask, *cfg)
+    args = (wn[0], wn[2], g_all is not None, x_mask, saves, dout, *cfg)
+    grads = wn_cuda.wn_bwd_store(*args, **kwargs)
+    plain, names = wn_plain_bwd(wn, g_all, x, x_mask, dout, cfg)
+    worst, scale = held_bf16("wn_bwd_store_bf16", [grads[n] for n in names], plain())
+    again = wn_cuda.wn_bwd_store(*args, **kwargs)
+    if not all(torch.equal(grads[n], again[n]) for n in names):
+        fail("wn_bwd_store_bf16: two runs gave different bits")
+    ms = time_ms(wn_cuda.wn_bwd_store, args, kwargs, runs=10, warmup=2)
+    plain_ms = time_ms(plain, (), {}, runs=3, warmup=1)
+    roof = bf16_bound("wn_bwd_store_bf16", args, kwargs, grads, wn_cuda.wn_bwd_store)
+    ops = held_plan("wn_bwd_store_bf16", lambda: wn_cuda.wn_bwd_store(*args, **kwargs), roof, x,
+                    0, wn[0], cfg[0], backward=True, with_g=g_all is not None)
+    entry("wn_bwd_store_bf16", worst * scale, scale, ms, plain_ms, list(x.shape), roof,
+          worst_relative=worst, p_dropout=cfg[2], same_bits_twice=True,
+          device_operations_plan=ops)
+    del saves, grads, again
+
+    # ---- row 7: the WN recompute backward ----
+    args, kwargs = recorders["wn_bwd_bf16"].args
+    wn, g_all, x, x_mask, dout, *cfg = args
+    dropout_on("wn_bwd_bf16", cfg[2])
+    dout = unit(dout)
+    args = (wn, g_all, x, x_mask, dout, *cfg)
+    grads = wn_cuda.wn_bwd(*args, **kwargs)
+    plain, names = wn_plain_bwd(wn, g_all, x, x_mask, dout, cfg)
+    worst, scale = held_bf16("wn_bwd_bf16", [grads[n] for n in names], plain())
+    with torch.no_grad():
+        _, saves = wn_cuda.wn_fwd_save(wn, g_all, x, x_mask, *cfg)
+    store = wn_cuda.wn_bwd_store(wn[0], wn[2], g_all is not None, x_mask, saves, dout, *cfg)
+    for n in names:
+        if not torch.equal(grads[n], store[n]):
+            fail(f"wn_bwd_bf16: {n} differs from the store backward's bits")
+    ms = time_ms(wn_cuda.wn_bwd, args, kwargs, runs=10, warmup=2)
+    plain_ms = time_ms(plain, (), {}, runs=3, warmup=1)
+    roof = bf16_bound("wn_bwd_bf16", args, kwargs, grads, wn_cuda.wn_bwd)
+    ops = held_plan("wn_bwd_bf16", lambda: wn_cuda.wn_bwd(*args, **kwargs), roof, x, 0, wn[0],
+                    cfg[0], backward=True, recompute=True, with_g=g_all is not None)
+    entry("wn_bwd_bf16", worst * scale, scale, ms, plain_ms, list(x.shape), roof,
+          worst_relative=worst, p_dropout=cfg[2], equals_store=True, device_operations_plan=ops)
+    return report
+
+
+def decoder_mode_steps(workdir: Path, config_path: Path, device_line: str,
+                       fp16: bool = False) -> dict:
     """Train-step wall time and peak device memory of the four decoder
     configurations in one process: each from the same fresh init (DDI on
-    the first batch) on the 64-utterance corpus's four batch shapes, 2
+    the first batch) on the 64-utterance corpus's batch shapes, 2
     warm-up steps, then turns of MODE_TURN_STEPS steps in the order a, b,
     c, d, d, c, b, a, a device sync on each side of a step.  Peak memory is
     ``max_memory_allocated`` of a step (reset before it), also over what
     was allocated when the step began (all four models and their Adam
     moments stay resident).  Every mode takes the same steps (batches,
     dropout seeds), so the loss trajectories are held together
-    (``held_losses``): recompute against store in either form, and the
-    op-by-op decoder against the fused block."""
+    (``held_losses``): recompute against store in either form, to the bit
+    over all 34 steps (for the TMA-fed kernels a second path: a race in
+    one shows as a differing bit), and the op-by-op decoder against the
+    fused block.  ``fp16``: the bf16 run's config (``configs/base.json`` as
+    shipped, batch 32) and its kernels; else the f32 run's (batch 16)."""
     import torch
 
     from glow_tts_train_tpu_torch import data, kernels, training
     from glow_tts_train_tpu_torch.config import load_config
 
     corpus = workdir / "corpus"
-    config = load_config([config_path, workdir / "fused_override.json"])
+    tag, suffix = ("bf16 ", "_bf16") if fp16 else ("", "")
+    config = load_config([config_path, workdir / f"{'bf16' if fp16 else 'fused'}_override.json"])
     dataset = data.build_dataset(
         [data.SpeakerSource(0, corpus / "phonemes.csv", corpus / "mels")], config,
         mels_are_dirs=True, skip_missing_mels=False, multispeaker=False,
@@ -3055,7 +3410,7 @@ def decoder_mode_steps(workdir: Path, config_path: Path, device_line: str) -> di
             "state": training.TrainState(training.initialize_model(cfg, batches[0], PLATFORM)),
             "generator": torch.Generator(device=PLATFORM).manual_seed(cfg.seed),
             "seeds": torch.Generator().manual_seed(cfg.seed),
-            "n": 0, "ms": [], "peak": [], "over_resident": [], "loss": [],
+            "n": 0, "ms": [], "peak": [], "over_resident": [], "loss": [], "mle": [],
         }
 
     def run_step(v, timed=True):
@@ -3071,15 +3426,21 @@ def decoder_mode_steps(workdir: Path, config_path: Path, device_line: str) -> di
             v["ms"].append((time.perf_counter() - start) * 1e3)
             v["peak"].append(torch.cuda.max_memory_allocated())
             v["over_resident"].append(torch.cuda.max_memory_allocated() - resident)
-        return float(metrics["loss"])
+        return metrics
+
+    def trajectory_step(v, timed=True):
+        metrics = run_step(v, timed)
+        v["loss"].append(float(metrics["loss"]))
+        v["mle"].append(float(metrics["mle_loss"]))
 
     for v in variants.values():  # the warm-up steps are the trajectory's first
-        v["loss"] += [run_step(v, timed=False), run_step(v, timed=False)]
+        trajectory_step(v, timed=False)
+        trajectory_step(v, timed=False)
     order = list(variants)
     for _ in range(MODE_ROUNDS):
         for name in order + order[::-1]:
             for _ in range(MODE_TURN_STEPS):
-                variants[name]["loss"].append(run_step(variants[name]))
+                trajectory_step(variants[name])
     out = {"gpu": device_line, "batch_shapes": [[list(b["x"].shape), list(b["y"].shape)] for b in batches],
            "steps_per_turn": MODE_TURN_STEPS, "turns": 2 * MODE_ROUNDS, "modes": {}}
     largest = max(range(len(batches)), key=lambda i: batches[i]["y"].shape[1])
@@ -3087,19 +3448,29 @@ def decoder_mode_steps(workdir: Path, config_path: Path, device_line: str) -> di
         if not all(math.isfinite(x) for x in v["loss"]):
             fail(f"decoder mode {name}: non-finite loss {v['loss']}")
     ref = variants["fused_store"]["loss"]
+    rtol = MODE_LOSS_RTOL_BF16 if fp16 else MODE_LOSS_RTOL
     loss_rel_diff = {
-        "fused_recompute": held_losses("decoder mode fused_recompute vs fused_store",
+        "fused_recompute": held_losses(f"decoder mode {tag}fused_recompute vs fused_store",
                                        variants["fused_recompute"]["loss"], ref, exact=True),
-        "unfused_recompute": held_losses("decoder mode unfused_recompute vs unfused_store",
+        "unfused_recompute": held_losses(f"decoder mode {tag}unfused_recompute vs unfused_store",
                                          variants["unfused_recompute"]["loss"],
                                          variants["unfused_store"]["loss"], exact=True),
-        "unfused_store": held_losses("decoder mode unfused_store vs fused_store",
-                                     variants["unfused_store"]["loss"], ref, exact=False),
+        "unfused_store": held_losses(f"decoder mode {tag}unfused_store vs fused_store",
+                                     variants["unfused_store"]["loss"], ref, exact=False,
+                                     rtol=rtol),
     }
+    if fp16:  # and the MLE loss, the flow decoder's own
+        loss_rel_diff["unfused_store_mle"] = held_losses(
+            f"decoder mode {tag}unfused_store vs fused_store, MLE", variants["unfused_store"]["mle"],
+            variants["fused_store"]["mle"], exact=False, rtol=MODE_MLE_RTOL_BF16)
+        out["op_by_op_mle_rtol"] = MODE_MLE_RTOL_BF16
     out["loss_rel_diff"] = loss_rel_diff
-    print(f"decoder modes: {len(ref)} steps each; largest relative loss difference, recompute "
+    out["op_by_op_loss_rtol"] = rtol
+    print(f"decoder modes {tag}: {len(ref)} steps each; largest relative loss difference, recompute "
           f"against store over all steps and op by op against fused over the first "
-          f"{MODE_LOSS_STEPS}: {loss_rel_diff}; fused_store losses {ref}")
+          f"{MODE_LOSS_STEPS} (bound {rtol}"
+          f"{f', the MLE loss {MODE_MLE_RTOL_BF16}' if fp16 else ''}): {loss_rel_diff}; "
+          f"fused_store losses {ref} [{device_line}]")
     for name, v in variants.items():
         before = kernels.launch_counts()
         v["n"] = largest  # one more step on the largest batch, then the same under the profiler
@@ -3120,11 +3491,12 @@ def decoder_mode_steps(workdir: Path, config_path: Path, device_line: str) -> di
             "largest_batch_memory_over_resident": largest_peak,
             "profiled_wall_ms": wall_ms, "device_busy_ms": sum(by_kernel.values()),
             "device_operations": operations,
-            "decoder_launches_per_step": {k: after[k] - before[k] for k in DECODER_KERNELS
-                                          if after[k] != before[k]},
+            "decoder_launches_per_step": {k + suffix: after[k + suffix] - before[k + suffix]
+                                          for k in DECODER_KERNELS
+                                          if after[k + suffix] != before[k + suffix]},
         }
         row = out["modes"][name]
-        print(f"decoder mode {name}: median step {row['median_step_ms']:.1f} ms (turns "
+        print(f"decoder mode {tag}{name}: median step {row['median_step_ms']:.1f} ms (turns "
               f"{[round(t, 1) for t in row['turn_median_ms']]}), max_memory_allocated "
               f"{row['max_memory_allocated'] / 2**20:.0f} MiB ({row['max_memory_over_resident'] / 2**20:.0f} "
               f"MiB over what was resident), launches per step {row['decoder_launches_per_step']}; "
@@ -3341,6 +3713,16 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
     report += bf16_report
     torch.cuda.empty_cache()
 
+    # ---- main path 5: bf16 training in the decoder's other modes ----
+    bf16_launches, bf16_recorders, bf16_mode_rows = bf16_decoder_modes(
+        workdir, config_path, device_line
+    )
+    report += bf16_decoder_mode_kernels(bf16_recorders, bf16_launches, device_line)
+    del bf16_recorders
+    torch.cuda.empty_cache()
+    bf16_mode_steps = decoder_mode_steps(workdir, config_path, device_line, fp16=True)
+    torch.cuda.empty_cache()
+
     # ---- main path 3: the decoder's other training modes ----
     launches_by_mode, mode_recorders, mode_rows = decoder_modes(
         workdir, config_path, steps, device_line
@@ -3356,6 +3738,7 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
                                 "profiled_step": train_profile, **train_phases}}))
     print(json.dumps({"decoder_modes": {"runs": mode_rows, "steps": mode_steps}}))
     print(json.dumps({"train_bf16": bf16_row}))
+    print(json.dumps({"decoder_modes_bf16": {"runs": bf16_mode_rows, "steps": bf16_mode_steps}}))
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,12 @@
 //  * gtt_block_bwd_store <- ops/block_pallas.py::_block_bwd_store_kernel
 //  * gtt_block_bwd       <- ops/block_pallas.py::_block_bwd_kernel (recompute)
 //
-// All eight are assemblies of three launch chains, as the TPU kernels are
+// and each in bf16 (fp16_run; the TPU kernels with dtype bf16):
+// gtt_wn_forward_bf16, gtt_wn_fwd_save_bf16, gtt_wn_bwd_store_bf16,
+// gtt_wn_bwd_bf16, gtt_block_fwd_bf16, gtt_block_fwd_save_bf16,
+// gtt_block_bwd_store_bf16 and gtt_block_bwd_bf16.
+//
+// All sixteen are assemblies of three launch chains, as the TPU kernels are
 // of _layer_fwd, _reverse_walk and _block_bwd_math: the forward chain
 // (with or without the saves), the WN reverse walk, and the block backward
 // around it.  A recompute backward runs the forward-save chain into scratch
@@ -89,16 +94,24 @@
 // product streams its operands through L2 and only the [rows, h] /
 // [rows, 2h] activations and the saved residuals reach device memory.
 //
-// The bf16 chains (gtt_block_fwd_save_bf16, gtt_block_bwd_store_bf16;
-// block_pallas with dtype bf16): every product but the folded A asks for
+// The bf16 chains (the *_bf16 entry points; wn_pallas and block_pallas
+// with dtype bf16): every product but the folded A asks for
 // the TMA-fed wgmma bf16 kernels (bf16_gemm.cu, ConvGemm::tma_ring,
 // WGrad::tma_ring), which copy operands as they lie, so every operand they
 // read is bf16: the gate product acts is written bf16, and each f32
 // cotangent (g_rs, d_xin, dout, d_pre = gx * mask, dzp) has a bf16 copy
 // that the epilogue writing it rounds beside it (ConvGemm::out_c, out2_c),
 // the JAX kernels' one ``.astype(bf16)`` before their two dots; the bias
-// gradients sum the f32 values.  Bound: the same operations over the dense
-// BF16 peak (989 TFLOP/s).
+// gradients sum the f32 values.  The WN stack alone sums its skip in f32
+// and writes one rounded, masked bf16 output (the last layer's skipm: JAX's
+// ``skip.astype(bf16) * x_mask``); its backward takes the output's bf16
+// cotangent into g_rs's skip half in f32 and in the bf16 copy, keeps gx in
+// f32 and returns it rounded (the last transposed conv's out_c).  A
+// recompute call (gtt_block_bwd_bf16, gtt_wn_bwd_bf16) runs the bf16
+// forward-save chain into its scratch, bf16 saves on 16-byte boundaries as
+// the TMA tensor maps read them, g_rs its f32 skip sum, then the store
+// backward's chain: its gradients are the store call's bit for bit.
+// Bound: the same operations over the dense BF16 peak (989 TFLOP/s).
 //
 // The forward's design: every product's weights of a call are split in
 // one presplit_weights launch, its first operation, into the caller's one
@@ -186,6 +199,7 @@ WnLayers wn_stack(const Dims& d, const WnWeights& w, const float* mask, float* x
   a.taps = d.taps; a.dilation_rate = d.dilation_rate; a.drop = d.drop;
   a.tc_scratch = d.tc_scratch; a.tc_scratch_floats = d.tc_scratch_floats;
   a.tma_ring = 1;
+  a.bf16 = d.bf16;
   return a;
 }
 
@@ -235,7 +249,6 @@ void block_fwd_products(const Dims& d, const float* x, const float* mask, const 
   out->push_back(start);
   // bf16: the skip sum in f32 (d.skip), skipm its masked, rounded copy
   WnLayers layers = wn_stack(d, wn, mask, xs, th, sg, acts, d.bf16 ? d.skip : skipm, 1);
-  layers.bf16 = d.bf16;
   layers.skipm = skipm;
   wn_products(layers, out);
 }
@@ -302,7 +315,9 @@ int block_fwd_chain(const Dims& d, const float* x, const float* mask,
 // A bf16 call's f32 cotangents also have bf16 copies, written by the
 // epilogues that produce them and read by their products: g_rs16 [rows,
 // 2h], dxin16 [rows, 2h], and for the block dout16, dzp16 [rows, c] and
-// gx16 [rows, h] (gx * mask); its acts [rows, h] are bf16.
+// gx16 [rows, h] (gx * mask); its acts [rows, h] are bf16, and so are a
+// recompute's residuals (two elements a float).  The WN stack alone in
+// bf16 keeps gx [rows, h] in f32 here too (its dx is gx rounded).
 struct BwdScratch {
   float *g_rs = nullptr, *dia = nullptr, *dxin = nullptr, *dxin_t = nullptr, *acts = nullptr;
   float *wg = nullptr, *splits = nullptr;
@@ -323,6 +338,8 @@ long bwd_scratch(float* base, int batch, int t, int c, int h, int n_layers, int 
     p = base ? base + used : nullptr;
     used += round4(floats);
   };
+  // a bf16 call's residuals: two elements a float
+  auto res = [&](long elems) { return bf16 ? (elems + 1) / 2 : elems; };
   s->ldt = round4(rows);
   // the splits, product by product as presplit_weights lays them out
   long splits = L * (round4(2 * h2 * h) + round4(2 * taps * h2 * h));
@@ -344,8 +361,8 @@ long bwd_scratch(float* base, int batch, int t, int c, int h, int n_layers, int 
   if (c > 0) {
     take(s->dout, rows * c);
     take(s->dzp, rows * c);
-    take(s->gx, rows * h);
   }
+  if (c > 0 || bf16) take(s->gx, rows * h);
   if (bf16) {  // bf16 copies: two elements a float
     take(s->g_rs16, rows * h);
     take(s->dxin16, rows * h);
@@ -356,12 +373,12 @@ long bwd_scratch(float* base, int batch, int t, int c, int h, int n_layers, int 
     }
   }
   if (recompute) {
-    take(s->xs, L * rows * h);
-    take(s->th, L * rows * h);
-    take(s->sg, L * rows * h);
+    take(s->xs, res(L * rows * h));
+    take(s->th, res(L * rows * h));
+    take(s->sg, res(L * rows * h));
     if (c > 0) {
-      take(s->zp, rows * c);
-      take(s->skipm, rows * h);
+      take(s->zp, res(rows * c));
+      take(s->skipm, res(rows * h));
     }
   }
   return used;
@@ -374,6 +391,9 @@ struct WnWalk {
   const float *mask, *w_in, *w_rs, *xs, *th, *sg;
   float* gx;
   float *dwin, *dbin, *dwrs, *dbrs, *dg;  // dg null: unconditioned
+  // the WN stack alone in bf16: dx [rows, h] bf16, gx rounded by the last
+  // transposed conv's epilogue
+  float* dx16 = nullptr;
 };
 
 // The walk's products, by layer: the gate backward and the transposed conv
@@ -420,6 +440,7 @@ cudaError_t walk_products(const Dims& d, const WnWalk& w, const BwdScratch& s, W
       } else {
         g.out2_c = s.g_rs16;
       }
+      if (bf && l == 0) g.out_c = w.dx16;
       p->tconv.push_back(g);
     }
     WGrad rs = wgrad_of(s.acts, h, h, batch, t, s.g_rs, h2, h2,
@@ -469,12 +490,40 @@ int wn_reverse_walk(const Dims& d, const WnWalk& w, const BwdScratch& s, const W
   return (int)cudaGetLastError();
 }
 
+// g_rs [rows, 2h] = [0 | dout * mask] in f32 and in its bf16 copy g_rs16,
+// from the bf16 cotangent dout [rows, h] of the WN stack's masked output
+// (JAX's ``dout.astype(f32)`` after the caller's ``* x_mask``, and the
+// walk's ``g_rs.astype(bf16)``): two elements a thread.
+__global__ void walk_cotangent_kernel(const __nv_bfloat162* dout, const float* mask, float2* g_rs,
+                                      __nv_bfloat162* g_rs16, long pairs, int row_pairs) {
+  const long i = blockIdx.x * (long)blockDim.x + threadIdx.x;
+  if (i >= pairs) return;
+  const long r = i / row_pairs;
+  const int j = (int)(i - r * row_pairs);  // columns 2j, 2j + 1 of [0 | dout]
+  const int half = row_pairs / 2;          // dout's pairs a row
+  const __nv_bfloat162 v = j < half || mask[r] == 0.f ? __float2bfloat162_rn(0.f)
+                                                      : dout[r * half + j - half];
+  g_rs[i] = __bfloat1622float2(v);
+  g_rs16[i] = v;
+}
+
 // The WN stack's backward from per-layer residuals: dout [rows, h] is the
-// skip sum's cotangent into g_rs's skip half; w.gx the returned dx.
+// skip sum's cotangent into g_rs's skip half (bf16: the masked output's
+// bf16 cotangent, masked into g_rs and its copy); w.gx the returned dx
+// (bf16: rounded into w.dx16 by the walk).
 int wn_bwd_chain(const Dims& d, const WnWalk& w, const BwdScratch& s, const WalkProducts& p,
                  const float* dout, cudaStream_t stream) {
   const int rows = d.batch * d.t;
   const int h = d.h;
+  if (d.bf16) {
+    const long pairs = (long)rows * h;  // [rows, 2h] in pairs, h a row; h is even
+    walk_cotangent_kernel<<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(
+        reinterpret_cast<const __nv_bfloat162*>(dout), w.mask, reinterpret_cast<float2*>(s.g_rs),
+        reinterpret_cast<__nv_bfloat162*>(s.g_rs16), pairs, h);
+    GTT_TRY(cudaGetLastError());
+    GTT_TRY(cudaMemsetAsync(w.gx, 0, sizeof(float) * rows * h, stream));
+    return wn_reverse_walk(d, w, s, p, stream);
+  }
   GTT_TRY(cudaMemsetAsync(s.g_rs, 0, sizeof(float) * rows * 2 * h, stream));
   GTT_TRY(cudaMemsetAsync(w.gx, 0, sizeof(float) * rows * h, stream));
   GTT_TRY(cudaMemcpy2DAsync(s.g_rs + h, sizeof(float) * 2 * h, dout, sizeof(float) * h,
@@ -588,17 +637,21 @@ namespace {
 
 // The WN stack's forward: its products' weights split in one launch, the
 // input copied into the layers' state (x, or xs's slice 0), the products.
+// bf16 (out16 set): skip is the f32 sum and the last layer writes out16 =
+// bf16(skip) * mask, the stack's output.
 int wn_fwd_chain(const Dims& d, const WnWeights& wn, const float* x, const float* mask,
-                 float* state, float* th, float* sg, float* acts, float* skip,
+                 float* state, float* th, float* sg, float* acts, float* skip, float* out16,
                  cudaStream_t stream) {
+  WnLayers layers = wn_stack(d, wn, mask, state, th, sg, acts, skip, out16 != nullptr);
+  layers.skipm = out16;
   std::vector<ConvGemm> fwd;
-  wn_products(wn_stack(d, wn, mask, state, th, sg, acts, skip, 0), &fwd);
+  wn_products(layers, &fwd);
   std::vector<ConvGemm*> list;
   add_products(&list, &fwd);
   GTT_TRY(presplit_weights(list.data(), (int)list.size(), d.tc_scratch, d.tc_scratch_floats,
                            stream));
   const long rh = (long)d.batch * d.t * d.h;
-  GTT_TRY(cudaMemcpyAsync(state, x, sizeof(float) * rh, cudaMemcpyDeviceToDevice, stream));
+  GTT_TRY(cudaMemcpyAsync(state, x, (d.bf16 ? 2 : 4) * rh, cudaMemcpyDeviceToDevice, stream));
   {
     const int err = run_products(fwd, stream);
     if (err != 0) return err;
@@ -631,7 +684,7 @@ extern "C" int gtt_wn_forward(
   const Dims d{batch, t, 0, h, n_layers, taps, dilation_rate,
                make_dropout(drop, seed, n_layers, threshold, scale), scratch, need};
   const WnWeights wn{w_in, b_in, w_rs, b_rs, g_all, g_stride};
-  return wn_fwd_chain(d, wn, x, mask, xcur, nullptr, nullptr, acts, skip, stream);
+  return wn_fwd_chain(d, wn, x, mask, xcur, nullptr, nullptr, acts, skip, nullptr, stream);
 }
 
 extern "C" int gtt_wn_fwd_save(
@@ -646,7 +699,7 @@ extern "C" int gtt_wn_fwd_save(
   const Dims d{batch, t, 0, h, n_layers, taps, dilation_rate,
                make_dropout(drop, seed, n_layers, threshold, scale), scratch, need};
   const WnWeights wn{w_in, b_in, w_rs, b_rs, g_all, g_stride};
-  return wn_fwd_chain(d, wn, x, mask, xs, th, sg, acts, skip, stream);
+  return wn_fwd_chain(d, wn, x, mask, xs, th, sg, acts, skip, nullptr, stream);
 }
 
 // Floats of the one scratch block a call of the WN stack's backward
@@ -865,13 +918,36 @@ extern "C" int gtt_block_fwd_save_bf16(
                          zp, skipm, xs, th, sg, acts, logsm, ld_part, stream);
 }
 
+// Forward without saves (block_pallas._block_fwd_kernel, bf16 row 9): the
+// forward-save chain's products with xcur [rows, h] the WN state and z
+// holding zp; skipm [rows, h] bf16, skip [rows, h] f32.  Its z and ld are
+// gtt_block_fwd_save_bf16's bit for bit.
+extern "C" int gtt_block_fwd_bf16(
+    const float* x, const float* mask, const float* a, const float* ba,
+    const float* w_s, const float* b_s, const float* w_e, const float* b_e,
+    const float* w_in, const float* b_in, const float* w_rs, const float* b_rs,
+    const float* g_all, float* z, float* ld, float* skipm, float* xcur,
+    float* acts, float* skip, float* logsm, float* ld_part,
+    int g_stride, int batch, int t, int c, int h, int n_layers, int taps,
+    int dilation_rate, int sigmoid_scale, int drop, int seed,
+    unsigned threshold, float scale, cudaStream_t stream) {
+  Dims d{batch, t, c, h, n_layers, taps, dilation_rate,
+         make_dropout(drop, seed, n_layers, threshold, scale), nullptr, 0};
+  d.bf16 = 1;
+  d.skip = skip;
+  const WnWeights wn{w_in, b_in, w_rs, b_rs, g_all, g_stride};
+  return block_fwd_chain(d, x, mask, a, ba, w_s, b_s, w_e, b_e, wn, sigmoid_scale, z, ld,
+                         z, skipm, xcur, nullptr, nullptr, acts, logsm, ld_part, stream);
+}
+
 // x, zp, skipm, xs / th / sg, dz, dx, the five weights and their gradients
 // and dg bf16; the bias gradients, dld f32.  Scratch: one block of
-// gtt_block_bwd_bf16_scratch_floats(..., dg != null).
+// gtt_block_bwd_bf16_scratch_floats(..., recompute, dg != null).
 extern "C" long long gtt_block_bwd_bf16_scratch_floats(int batch, int t, int c, int h,
-                                                       int n_layers, int taps, int with_g) {
+                                                       int n_layers, int taps, int recompute,
+                                                       int with_g) {
   BwdScratch s;
-  return bwd_scratch(nullptr, batch, t, c, h, n_layers, taps, false, with_g, &s, true);
+  return bwd_scratch(nullptr, batch, t, c, h, n_layers, taps, recompute, with_g, &s, true);
 }
 
 extern "C" int gtt_block_bwd_store_bf16(
@@ -897,4 +973,146 @@ extern "C" int gtt_block_bwd_store_bf16(
   BlockBwdProducts p;
   GTT_TRY(block_bwd_products(d, w, s, b, &p));
   return block_bwd_chain(d, w, s, p, stream);
+}
+
+// Recompute (block_pallas._block_bwd_kernel, bf16 row 11): the bf16
+// forward-save chain into scratch (zp, skipm, xs / th / sg bf16; g_rs its
+// f32 skip sum; no z, no ld), then the store backward's chain on it.
+// gtt_block_bwd's arguments, bf16 as gtt_block_bwd_store_bf16's.  Scratch:
+// one block of gtt_block_bwd_bf16_scratch_floats(..., 1, dg != null).
+extern "C" int gtt_block_bwd_bf16(
+    const float* x, const float* mask, const float* a, const float* ba,
+    const float* w_s, const float* b_s, const float* w_e, const float* b_e,
+    const float* w_in, const float* b_in, const float* w_rs, const float* b_rs,
+    const float* g_all, const float* dz, const float* dld,
+    float* dx, float* da, float* dba, float* dws, float* dbs, float* dwe,
+    float* dbe, float* dwin, float* dbin, float* dwrs, float* dbrs, float* dg,
+    float* scratch, long long scratch_floats, int g_stride,
+    int batch, int t, int c, int h, int n_layers, int taps, int dilation_rate,
+    int sigmoid_scale, int drop, int seed, unsigned threshold, float scale,
+    cudaStream_t stream) {
+  BwdScratch s;
+  if (bwd_scratch(scratch, batch, t, c, h, n_layers, taps, true, dg != nullptr, &s, true) >
+      scratch_floats)
+    return (int)cudaErrorInvalidValue;
+  Dims d{batch, t, c, h, n_layers, taps, dilation_rate,
+         make_dropout(drop, seed, n_layers, threshold, scale), s.wg, s.wg_floats};
+  d.bf16 = 1;
+  Dims fd = d;  // the forward as gtt_block_fwd_save_bf16 runs it
+  fd.tc_scratch = nullptr;
+  fd.tc_scratch_floats = 0;
+  fd.skip = s.g_rs;
+  const WnWeights wn{w_in, b_in, w_rs, b_rs, g_all, g_stride};
+  std::vector<ConvGemm> fwd;
+  block_fwd_products(fd, x, mask, a, ba, w_s, b_s, wn, s.zp, s.skipm, s.xs, s.th, s.sg, s.acts,
+                     &fwd);
+  const WnWalk w{mask, w_in, w_rs, s.xs, s.th, s.sg, s.gx, dwin, dbin, dwrs, dbrs, dg};
+  const BlockBwdArgs b{x, a, w_s, w_e, b_e, s.zp, s.skipm, dz, dld, sigmoid_scale,
+                       dx, da, dba, dws, dbs, dwe, dbe};
+  BlockBwdProducts p;
+  GTT_TRY(block_bwd_products(d, w, s, b, &p));
+  {
+    const int err = run_products(fwd, stream);
+    if (err != 0) return err;
+  }
+  return block_bwd_chain(d, w, s, p, stream);
+}
+
+// ---------------------------------------------------------------------------
+// the WN stack alone in bf16 (the op-by-op decoder under fp16_run;
+// wn_pallas with dtype bf16): x, out, xs / th / sg, g_all, W_in, W_rs, dx,
+// dW_in, dW_rs and dg bf16; the biases, the mask, the bias gradients and
+// the f32 buffers (skip [rows, h], the skip sum) f32; acts [rows, h] bf16
+// ---------------------------------------------------------------------------
+
+// bf16 row 5 (_fwd_kernel): out = bf16(skip sum) * mask, xcur the state.
+extern "C" int gtt_wn_forward_bf16(
+    const float* x, const float* mask, const float* w_in, const float* b_in,
+    const float* w_rs, const float* b_rs, const float* g_all, float* out, float* xcur,
+    float* acts, float* skip, int g_stride, int batch, int t, int h, int n_layers, int taps,
+    int dilation_rate, int drop, int seed, unsigned threshold, float scale,
+    cudaStream_t stream) {
+  Dims d{batch, t, 0, h, n_layers, taps, dilation_rate,
+         make_dropout(drop, seed, n_layers, threshold, scale), nullptr, 0};
+  d.bf16 = 1;
+  const WnWeights wn{w_in, b_in, w_rs, b_rs, g_all, g_stride};
+  return wn_fwd_chain(d, wn, x, mask, xcur, nullptr, nullptr, acts, skip, out, stream);
+}
+
+// bf16 row 6 (_fwd_save_kernel): the same, saving xs / th / sg [L, rows, h].
+extern "C" int gtt_wn_fwd_save_bf16(
+    const float* x, const float* mask, const float* w_in, const float* b_in,
+    const float* w_rs, const float* b_rs, const float* g_all, float* out, float* xs,
+    float* th, float* sg, float* acts, float* skip, int g_stride, int batch, int t, int h,
+    int n_layers, int taps, int dilation_rate, int drop, int seed, unsigned threshold,
+    float scale, cudaStream_t stream) {
+  Dims d{batch, t, 0, h, n_layers, taps, dilation_rate,
+         make_dropout(drop, seed, n_layers, threshold, scale), nullptr, 0};
+  d.bf16 = 1;
+  const WnWeights wn{w_in, b_in, w_rs, b_rs, g_all, g_stride};
+  return wn_fwd_chain(d, wn, x, mask, xs, th, sg, acts, skip, out, stream);
+}
+
+extern "C" long long gtt_wn_bwd_bf16_scratch_floats(int batch, int t, int h, int n_layers,
+                                                    int taps, int recompute, int with_g) {
+  BwdScratch s;
+  return bwd_scratch(nullptr, batch, t, 0, h, n_layers, taps, recompute, with_g, &s, true);
+}
+
+// bf16 row 8 (_bwd_store_kernel): gtt_wn_bwd_store's arguments; dout the
+// output's bf16 cotangent.  Scratch: one block of
+// gtt_wn_bwd_bf16_scratch_floats(..., 0, dg != null).
+extern "C" int gtt_wn_bwd_store_bf16(
+    const float* mask, const float* w_in, const float* w_rs, const float* xs,
+    const float* th, const float* sg, const float* dout, float* dx, float* dwin,
+    float* dbin, float* dwrs, float* dbrs, float* dg, float* scratch, long long scratch_floats,
+    int batch, int t, int h, int n_layers, int taps, int dilation_rate, int drop, int seed,
+    unsigned threshold, float scale, cudaStream_t stream) {
+  BwdScratch s;
+  if (bwd_scratch(scratch, batch, t, 0, h, n_layers, taps, false, dg != nullptr, &s, true) >
+      scratch_floats)
+    return (int)cudaErrorInvalidValue;
+  Dims d{batch, t, 0, h, n_layers, taps, dilation_rate,
+         make_dropout(drop, seed, n_layers, threshold, scale), s.wg, s.wg_floats};
+  d.bf16 = 1;
+  WnWalk w{mask, w_in, w_rs, xs, th, sg, s.gx, dwin, dbin, dwrs, dbrs, dg};
+  w.dx16 = dx;
+  WalkProducts p;
+  GTT_TRY(walk_products(d, w, s, &p));
+  return wn_bwd_chain(d, w, s, p, dout, stream);
+}
+
+// bf16 row 7 (_bwd_kernel): the bf16 forward-save chain into scratch (xs /
+// th / sg bf16, g_rs the skip sum), then the same walk.  gtt_wn_bwd's
+// arguments.  Scratch: one block of gtt_wn_bwd_bf16_scratch_floats(..., 1,
+// dg != null).
+extern "C" int gtt_wn_bwd_bf16(
+    const float* x, const float* mask, const float* w_in, const float* b_in,
+    const float* w_rs, const float* b_rs, const float* g_all, const float* dout, float* dx,
+    float* dwin, float* dbin, float* dwrs, float* dbrs, float* dg, float* scratch,
+    long long scratch_floats, int g_stride, int batch, int t, int h, int n_layers, int taps,
+    int dilation_rate, int drop, int seed, unsigned threshold, float scale, cudaStream_t stream) {
+  BwdScratch s;
+  if (bwd_scratch(scratch, batch, t, 0, h, n_layers, taps, true, dg != nullptr, &s, true) >
+      scratch_floats)
+    return (int)cudaErrorInvalidValue;
+  Dims d{batch, t, 0, h, n_layers, taps, dilation_rate,
+         make_dropout(drop, seed, n_layers, threshold, scale), s.wg, s.wg_floats};
+  d.bf16 = 1;
+  Dims fd = d;  // the forward as gtt_wn_fwd_save_bf16 runs it
+  fd.tc_scratch = nullptr;
+  fd.tc_scratch_floats = 0;
+  const WnWeights wn{w_in, b_in, w_rs, b_rs, g_all, g_stride};
+  std::vector<ConvGemm> fwd;
+  wn_products(wn_stack(fd, wn, mask, s.xs, s.th, s.sg, s.acts, s.g_rs, 0), &fwd);
+  WnWalk w{mask, w_in, w_rs, s.xs, s.th, s.sg, s.gx, dwin, dbin, dwrs, dbrs, dg};
+  w.dx16 = dx;
+  WalkProducts p;
+  GTT_TRY(walk_products(d, w, s, &p));
+  GTT_TRY(cudaMemcpyAsync(s.xs, x, 2L * batch * t * h, cudaMemcpyDeviceToDevice, stream));
+  {
+    const int err = run_products(fwd, stream);
+    if (err != 0) return err;
+  }
+  return wn_bwd_chain(d, w, s, p, dout, stream);
 }

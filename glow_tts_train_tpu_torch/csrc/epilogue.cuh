@@ -235,7 +235,8 @@ __device__ __forceinline__ void epilogue_row(const ConvGemm& g, int m, int n0,
 //    out (holding x1) = bf16((m + e^logs x1) * mask); out2 = logs * mask.
 //  * kCouplingBwd: logs_raw = bf16(acc + b); aux dz, aux2 zp (bf16).
 //  * kGateBwd: aux / aux2 the saved gates (bf16); out3 (acts) per kOut3_16.
-//  * kAccumMask: out2 per kOut2_16.
+//  * kAccumMask: out2 per kOut2_16; out_c, where given, out's bf16 copy
+//    (the WN stack's dx: its last layer's gx, rounded).
 //  * the plain ones: aux per kAux16, out per kOut16, or rounded in f32 with
 //    kRoundOut.
 // Where the chain gives out_c / out2_c, the f32 cotangents written to out
@@ -413,6 +414,7 @@ __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const Epil
         const int n = n0 + e;
         const float v = prev[e] * rm + acc[e];
         g.out[ob + n] = v;
+        st_copy(g.out_c, ob + n, v);
         if (g.out2) {
           st_act(g.out2, m * g.ldo2 + n, v * rm, out2_16);
           st_copy(g.out2_c, m * g.ldo2 + n, v * rm);

@@ -228,6 +228,12 @@ DURATION_STACK_BWD_BF16 = Entry("gtt_duration_stack_bwd_bf16", DURATION_STACK_BW
 ENCODER_LAYER_BWD_BF16 = Entry("gtt_encoder_layer_bwd_bf16", ENCODER_LAYER_BWD.signature)
 BLOCK_FWD_SAVE_BF16 = Entry("gtt_block_fwd_save_bf16", "p" * 24 + "i" * 11 + "uf")
 BLOCK_BWD_STORE_BF16 = Entry("gtt_block_bwd_store_bf16", BLOCK_BWD_STORE.signature)
+BLOCK_FWD_BF16 = Entry("gtt_block_fwd_bf16", "p" * 21 + "i" * 11 + "uf")
+BLOCK_BWD_BF16 = Entry("gtt_block_bwd_bf16", BLOCK_BWD.signature)
+WN_FORWARD_BF16 = Entry("gtt_wn_forward_bf16", "p" * 11 + "i" * 9 + "uf")
+WN_FWD_SAVE_BF16 = Entry("gtt_wn_fwd_save_bf16", "p" * 13 + "i" * 9 + "uf")
+WN_BWD_STORE_BF16 = Entry("gtt_wn_bwd_store_bf16", WN_BWD_STORE.signature)
+WN_BWD_BF16 = Entry("gtt_wn_bwd_bf16", WN_BWD.signature)
 # the tensor-core device kernels alone (csrc/tc_gemm.cu), and the weights'
 # K-major split
 TC_CONV_GEMM = Entry("gtt_tc_conv_gemm", "p" * 5 + "L" + "i" * 10)
@@ -269,6 +275,12 @@ ENTRIES = {
     "duration_stack_bf16": DURATION_STACK_BF16,
     "block_fwd_save_bf16": BLOCK_FWD_SAVE_BF16,
     "block_bwd_store_bf16": BLOCK_BWD_STORE_BF16,
+    "block_fwd_bf16": BLOCK_FWD_BF16,
+    "block_bwd_bf16": BLOCK_BWD_BF16,
+    "wn_forward_bf16": WN_FORWARD_BF16,
+    "wn_fwd_save_bf16": WN_FWD_SAVE_BF16,
+    "wn_bwd_store_bf16": WN_BWD_STORE_BF16,
+    "wn_bwd_bf16": WN_BWD_BF16,
     "prenet_bwd_bf16": PRENET_BWD_BF16,
     "encoder_layer_bwd_bf16": ENCODER_LAYER_BWD_BF16,
     "duration_stack_bwd_bf16": DURATION_STACK_BWD_BF16,
@@ -439,11 +451,20 @@ def block_bwd_scratch_floats(batch: int, t: int, c: int, h: int, n_layers: int, 
 
 
 def block_bwd_bf16_scratch_floats(batch: int, t: int, c: int, h: int, n_layers: int,
-                                  taps: int, with_g: bool) -> int:
+                                  taps: int, recompute: bool, with_g: bool) -> int:
     """Floats of the one scratch block a call of the flow block's bf16
-    backward-store entry point carves its buffers from."""
+    backward entry points (from saves, or recomputing the forward) carves
+    its buffers from."""
     return _size_query("gtt_block_bwd_bf16_scratch_floats", batch, t, c, h, n_layers, taps,
-                       int(with_g))
+                       int(recompute), int(with_g))
+
+
+def wn_bwd_bf16_scratch_floats(batch: int, t: int, h: int, n_layers: int, taps: int,
+                               recompute: bool, with_g: bool) -> int:
+    """Floats of the one scratch block a call of the WN stack's bf16
+    backward entry points carves its buffers from."""
+    return _size_query("gtt_wn_bwd_bf16_scratch_floats", batch, t, h, n_layers, taps,
+                       int(recompute), int(with_g))
 
 
 def duration_scratch_floats(batch: int, t: int, c_in: int, f: int, taps: int,

@@ -30,6 +30,13 @@ equal store mode's bit for bit, and at most one block's residuals are
 alive at a time: 3 L b t h floats, where store mode holds every block's
 from its forward to its backward).
 
+x bf16 (``fp16_run``; ``block_pallas`` with dtype bf16): the four bf16
+entry points in either mode (``gtt_block_fwd_save_bf16`` /
+``gtt_block_bwd_store_bf16``, ``gtt_block_fwd_bf16`` /
+``gtt_block_bwd_bf16``), with :func:`block_forward_plain_bf16` the plain
+version of all four; the recompute pair's z, ld and gradients are the
+store pair's bit for bit, as in f32.
+
 Bound on the card: the operations of the in-layer conv GEMMs (80% of the
 block's: rows = batch * t_y/2, K = 5 * 192, N = 384; backward runs three
 such products per layer), on the tensor cores by the 3xTF32 split
@@ -52,9 +59,9 @@ import torch
 
 from .. import kernels
 from . import bf16
-from .conv import conv1d, im2col, weight_norm_effective
+from .conv import conv1d, weight_norm_effective
 from .wn_cuda import (
-    check_residuals, drop_args, fold_wn_weights, needs_grad, regen_keep, wn_stack_plain,
+    check_residuals, drop_args, fold_wn_weights, needs_grad, wn_layers_plain_bf16, wn_stack_plain,
 )
 
 Params = typing.Dict[str, typing.Any]
@@ -346,31 +353,10 @@ def block_forward_plain_bf16(
     zp = bf16.round_fwd((bf16.product(x.float(), f["A"]) + f["bA"]) * x_mask)
     x0, x1 = zp[..., :c2], zp[..., c2:]
     xcur = bf16.round_fwd((bf16.product(x0, f["W_s"]) + f["b_s"]) * x_mask)
-    n_layers, _, h2 = f["W_in"].shape
-    h = h2 // 2
-    batch, t = x.shape[:2]
-    g32 = None if g_all is None else g_all.float()
-    sample_seeds = seed + torch.arange(batch, dtype=torch.int64)
-    skip = 0.0
-    for l in range(n_layers):
-        if saves is not None:
-            saves.setdefault("xs", []).append(xcur)
-        xin = bf16.product(im2col(xcur, kernel_size, dilation_rate ** l), f["W_in"][l])
-        xin = xin + f["b_in"][l]
-        if p_dropout > 0.0:
-            keep = regen_keep(sample_seeds, l, n_layers, (t, h2), p_dropout, x.device)
-            xin = xin * keep * drop_args(p_dropout)[2]
-        if g32 is not None:
-            xin = xin + g32[:, l][:, None, :]
-        acts, th, sg = bf16.gate(xin[..., :h], xin[..., h:])
-        if saves is not None:
-            saves.setdefault("th", []).append(th)
-            saves.setdefault("sg", []).append(sg)
-        rs = bf16.round_fwd(bf16.product(acts, f["W_rs"][l], a_bwd=rounded_acts(th, sg))
-                            + f["b_rs"][l])
-        xcur = bf16.round_fwd(xcur + rs[..., :h]) * x_mask
-        skip = skip + rs[..., h:]
-    skipm = bf16.round_fwd(bf16.round_grad(skip) * x_mask)
+    skipm = wn_layers_plain_bf16(
+        (f["W_in"], f["b_in"], f["W_rs"], f["b_rs"]), None if g_all is None else g_all.float(),
+        xcur, x_mask, kernel_size, dilation_rate, p_dropout, seed, saves,
+    )
     out = bf16.round_fwd(bf16.product(skipm, f["W_e"]) + f["b_e"])
     m, logs = out[..., :c2], out[..., c2:]
     if sigmoid_scale:
@@ -379,11 +365,6 @@ def block_forward_plain_bf16(
     if saves is not None:
         saves["zp"], saves["skipm"] = zp, skipm
     return torch.cat([x0, z1], dim=-1).to(bf16.BF16), torch.sum(logs * x_mask, dim=(1, 2))
-
-
-def rounded_acts(th: torch.Tensor, sg: torch.Tensor) -> torch.Tensor:
-    """The gate product the backward rebuilds from the rounded gates."""
-    return bf16.rounded(th.detach() * sg.detach())
 
 
 def _fwd_scratch(x: torch.Tensor, h: int, n_layers: int, kernel_size: int) -> torch.Tensor:
@@ -478,14 +459,25 @@ def block_fwd(
     """The forward kernel that saves nothing, on CUDA tensors -> (z, ld [b])."""
     batch, t, c, h, n_layers = _check_train_operands(folded, g_all, x, x_mask, kernel_size)
     z = torch.empty_like(x)
-    ld = x.new_empty((batch,))
+    ld = kernels.scratch(batch, x)
     skipm = x.new_empty((batch, t, h))
     xcur = x.new_empty((batch, t, h))
     acts = x.new_empty((batch, t, h))
-    logsm = x.new_empty((batch, t, c // 2))
-    ld_part = x.new_empty((batch, c // 2))
+    logsm = kernels.scratch(batch * t * (c // 2), x)
+    ld_part = kernels.scratch(batch * (c // 2), x)
     f = folded
     drop, threshold, scale = drop_args(p_dropout)
+    if x.dtype == bf16.BF16:  # the skip sum f32; no weight splits
+        skip = kernels.scratch(batch * t * h, x)
+        kernels.BLOCK_FWD_BF16(
+            x, x_mask, f["A"], f["bA"], f["W_s"], f["b_s"], f["W_e"], f["b_e"],
+            f["W_in"], f["b_in"], f["W_rs"], f["b_rs"], g_all,
+            z, ld, skipm, xcur, acts, skip, logsm, ld_part,
+            0 if g_all is None else n_layers * 2 * h,
+            batch, t, c, h, n_layers, kernel_size, dilation_rate, int(sigmoid_scale),
+            drop, int(seed), threshold, scale,
+        )
+        return z, ld
     scratch = _fwd_scratch(x, h, n_layers, kernel_size)
     kernels.BLOCK_FWD(
         x, x_mask, f["A"], f["bA"], f["W_s"], f["b_s"], f["W_e"], f["b_e"],
@@ -509,12 +501,9 @@ def _backward_operands(folded: dict, x: torch.Tensor, with_g: bool, kernel_size:
     grads = {"dx": torch.empty_like(x)}
     grads.update({"d" + k: torch.empty_like(folded[k]) for k in FOLD_KEYS})
     grads["dg"] = x.new_empty((batch, n_layers, h2)) if with_g else None
-    if x.dtype == bf16.BF16:
-        floats = kernels.block_bwd_bf16_scratch_floats(
-            batch, t, c, h2 // 2, n_layers, kernel_size, with_g)
-    else:
-        floats = kernels.block_bwd_scratch_floats(
-            batch, t, c, h2 // 2, n_layers, kernel_size, recompute, with_g)
+    size = (kernels.block_bwd_bf16_scratch_floats if x.dtype == bf16.BF16
+            else kernels.block_bwd_scratch_floats)
+    floats = size(batch, t, c, h2 // 2, n_layers, kernel_size, recompute, with_g)
     return grads, kernels.scratch(floats, x)
 
 
@@ -575,13 +564,14 @@ def block_bwd(
     that lives for this call only, then the backward -> the gradients of
     :func:`block_bwd_store`."""
     batch, t, c, h, n_layers = _check_train_operands(folded, g_all, x, x_mask, kernel_size)
-    kernels.check_operands(x.device, dz=dz, dld=dld)
+    bf = x.dtype == bf16.BF16
+    kernels.check_operands(x.device, ("dz",) if bf else (), dz=dz, dld=dld)
     kernels.check_shape("dz", dz, x.shape)
     kernels.check_shape("dld", dld, (batch,))
     f = folded
     grads, scratch = _backward_operands(folded, x, g_all is not None, kernel_size, True)
     drop, threshold, scale = drop_args(p_dropout)
-    kernels.BLOCK_BWD(
+    (kernels.BLOCK_BWD_BF16 if bf else kernels.BLOCK_BWD)(
         x, x_mask, f["A"], f["bA"], f["W_s"], f["b_s"], f["W_e"], f["b_e"],
         f["W_in"], f["b_in"], f["W_rs"], f["b_rs"], g_all, dz, dld,
         grads["dx"], *(grads["d" + k] for k in FOLD_KEYS), grads["dg"],
@@ -599,7 +589,8 @@ class FlowBlockTrain(torch.autograd.Function):
     backward-store kernel backward; the saved residuals live from forward
     to backward only (freed with the graph).  "recompute": the forward
     kernel that saves nothing, keeping x, the mask, the weights and g_all,
-    and the recompute backward kernel."""
+    and the recompute backward kernel.  x bf16: the bf16 kernels of either
+    mode."""
 
     @staticmethod
     def forward(ctx, x, x_mask, g_all, cfg, *weights):
@@ -658,12 +649,7 @@ def block_forward(
             p_dropout, seed,
         )
     args = (kernel_size, dilation_rate, bool(sigmoid_scale), float(p_dropout), int(seed))
-    bf = x.dtype == bf16.BF16
-    if bf and residuals != "store":
-        raise NotImplementedError("the bf16 flow block runs in store mode only")
     if not needs_grad(x, g_all, *folded.values()):
-        if bf:  # the one bf16 forward kernel: its saves are dropped
-            return block_fwd_save(folded, g_all, x, x_mask, *args)[:2]
         return block_fwd(folded, g_all, x, x_mask, *args)
     return FlowBlockTrain.apply(
         x, x_mask, g_all, (*args, residuals), *(folded[k] for k in FOLD_KEYS)

@@ -15,7 +15,12 @@ and invconv logdets (weights and lengths only) kept outside, as JAX's
 InvConvNear and the coupling under autograd, the coupling's WN stack
 through :func:`wn_cuda.wn_stack_train` (the WN kernels for CUDA tensors).
 ``wn_residuals`` picks the backward of either form's kernels: "store" or
-"recompute".
+"recompute".  x bf16 (``fp16_run``) runs either form in bf16, as JAX's
+decoder does: the fused blocks' bf16 kernels, or the bijectors in bf16
+(products and elementwise math rounding as XLA's bf16 ops do, logdets in
+f32) around the WN stack's bf16 kernels; the mask stays f32, and a masked
+bf16 value is cast back to bf16 (its values are those of the bf16 mask's
+product).
 :func:`decoder_ddi` is data-dependent actnorm init: the forward bijectors
 op by op, the WN stack through :func:`wn_cuda.wn_stack`.
 """
@@ -97,9 +102,16 @@ def decoder_inv(
     return x
 
 
+def _masked(a: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
+    """a * mask in a's dtype (the f32 mask would promote a bf16 a)."""
+    return (a * x_mask).to(a.dtype)
+
+
 def actnorm_fwd(params: Params, x: torch.Tensor, x_mask: torch.Tensor):
-    """z = (bias + exp(logs) * x) * mask; logdet = sum(logs) * frames."""
-    z = (params["bias"] + torch.exp(params["logs"]) * x) * x_mask
+    """z = (bias + exp(logs) * x) * mask, logs and bias in x's dtype;
+    logdet = sum(logs) * frames in f32."""
+    logs, bias = params["logs"].to(x.dtype), params["bias"].to(x.dtype)
+    z = _masked(bias + torch.exp(logs) * x, x_mask)
     x_len = torch.sum(x_mask.to(torch.float32), dim=(1, 2))
     return z, torch.sum(params["logs"].to(torch.float32)) * x_len
 
@@ -117,15 +129,16 @@ def actnorm_ddi_stats(x: torch.Tensor, x_mask: torch.Tensor) -> Params:
 
 
 def invconv_apply(params: Params, x: torch.Tensor, x_mask: torch.Tensor):
-    """InvConvNear: the s x s group mix as its dense [c, c] map; logdet =
-    log|det W| * (c / s) * frames."""
+    """InvConvNear: the s x s group mix as its dense [c, c] map (in x's
+    dtype, the product a plain matmul); logdet = log|det W| * (c / s) *
+    frames."""
     c = x.shape[-1]
     w = params["weight"].to(torch.float32)
     s = w.shape[0]
     x_len = torch.sum(x_mask.to(torch.float32), dim=(1, 2))
     logdet = torch.linalg.slogdet(w)[1] * (c / s) * x_len
     m = block_cuda.invconv_dense(w, c, s).to(x.dtype)
-    return (x @ m.T) * x_mask, logdet
+    return _masked(x @ m.T, x_mask), logdet
 
 
 def coupling_apply(
@@ -144,27 +157,28 @@ def coupling_apply(
 ):
     """Affine coupling, identity on the first half: start 1x1 of x0, the WN
     stack, end 1x1 -> (m, logs); z1 = (m + e^logs * x1) * mask with logdet
-    = sum(logs * mask).  The stack runs through
+    = sum(logs * mask) in f32.  The stack runs through
     :func:`wn_cuda.wn_stack_train` (the WN kernels on CUDA tensors,
     backward per ``wn_residuals``) and drops its pre-gate tensors with the
-    portable keep masks of ``seed`` when ``p_dropout`` > 0."""
+    portable keep masks of ``seed`` when ``p_dropout`` > 0.  x bf16: the
+    convs, the conditioning and the stack's weights in bf16."""
     c2 = x.shape[-1] // 2
     x0, x1 = x[..., :c2], x[..., c2:]
-    hidden = (conv1d(x0, params["start"]) * x_mask).contiguous()
+    hidden = _masked(conv1d(x0, params["start"]), x_mask).contiguous()
     wn = params["wn"]
     g_all = None
     if g is not None:
         g_all = conv1d(g, wn["cond"]).reshape(g.shape[0], n_layers, 2 * hidden_channels)
-        g_all = g_all.contiguous()
+        g_all = g_all.to(x.dtype).contiguous()
     skip = wn_cuda.wn_stack_train(
-        wn_cuda.fold_wn_weights(wn, n_layers), g_all, hidden, x_mask, kernel_size,
+        wn_cuda.fold_wn_weights(wn, n_layers, x.dtype), g_all, hidden, x_mask, kernel_size,
         dilation_rate, p_dropout, seed, wn_residuals,
     )
-    out = conv1d(skip * x_mask, params["end"])
+    out = conv1d(_masked(skip, x_mask), params["end"])
     m, logs = out[..., :c2], out[..., c2:]
     if sigmoid_scale:
         logs = torch.log(1e-6 + torch.sigmoid(logs + 2.0))
-    z1 = (m + torch.exp(logs) * x1) * x_mask
+    z1 = _masked(m + torch.exp(logs) * x1, x_mask)
     logdet = torch.sum(logs.to(torch.float32) * x_mask.to(torch.float32), dim=(1, 2))
     return torch.cat([x0, z1], dim=-1), logdet
 
@@ -228,16 +242,15 @@ def decoder_fwd(
     :func:`coupling_apply`).  Dropout is on when ``seed_generator`` (a CPU
     generator) is given and ``p_dropout`` > 0: each block draws its int32
     seed from it, in either form (JAX draws it from its rng, a different
-    stream).  x bf16 (``fp16_run``): the fused blocks in bf16 (their
-    product weights and conditioning folded to bf16, as
-    ``block_pallas.fold_blocks_stacked`` does), logdet f32."""
+    stream).  x bf16 (``fp16_run``): the blocks in bf16 in either form and
+    residual mode (the fused blocks' product weights and conditioning
+    folded to bf16, as ``block_pallas.fold_blocks_stacked`` does), logdet
+    f32."""
     x, x_mask = squeeze(x, x_mask, n_sqz)
     x_mask = x_mask.contiguous()
     drop = seed_generator is not None and p_dropout > 0.0
     p_dropout = p_dropout if drop else 0.0
     n_blocks = blocks["actnorm"]["logs"].shape[0]
-    if x.dtype != torch.float32 and not (block_fuse and wn_residuals == "store"):
-        raise NotImplementedError("bf16 runs the flow blocks fused, in store mode, only")
     if not block_fuse:
         logdet = 0.0
         for i in range(n_blocks):

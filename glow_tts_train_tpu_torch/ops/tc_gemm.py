@@ -650,19 +650,27 @@ def bf16_wgrad_plan(batch: int, t: int, c_in: int, taps: int, n: int, lda: int, 
 
 def bf16_block_products(
     batch: int, t: int, c: int, h: int, n_layers: int, taps: int, dilation_rate: int, sms: int,
-    backward: bool = False, with_g: bool = False,
+    backward: bool = False, with_g: bool = False, recompute: bool = False, saves: bool = True,
 ) -> typing.Dict[str, typing.Any]:
-    """The plan of one call of the flow block's bf16 forward-save
-    (``gtt_block_fwd_save_bf16``, bf16 row 10) or backward-store
-    (``gtt_block_bwd_store_bf16``, bf16 row 12) over ``batch`` samples of
+    """The plan of one call of a bf16 chain of the flow block (``c``
+    channels) or of the WN stack alone (``c`` 0) over ``batch`` samples of
     ``t`` rows (csrc/block_train.cu, csrc/bf16_gemm.cu): the plain version
-    of its products' dispatch.  -> {"products": per product its name, kind
-    ("conv_gemm"/"wgrad"), shape ([rows, K, N]; a weight gradient's [K,
-    rows, N]), unit ("tma": the TMA-fed wgmma kernel, "mma": the mma.sync
-    kernel, "core": the folded A's CUDA-core product), chunks (64-column
-    chunks a tile), tiles (blocks of a launch), stages, shared memory (a
-    block's), row splits and launches; "launches": the device operations of a call;
-    "counts": ``kernels.product_counts`` of a call}."""
+    of its products' dispatch.  A forward (``backward`` False) with
+    ``saves`` is the forward-save call (``gtt_block_fwd_save_bf16``, bf16
+    row 10; ``gtt_wn_fwd_save_bf16``, row 6), without it the forward that
+    saves nothing (``gtt_block_fwd_bf16``, row 9; ``gtt_wn_forward_bf16``,
+    row 5): the same products.  A backward from saves
+    (``gtt_block_bwd_store_bf16``, row 12; ``gtt_wn_bwd_store_bf16``, row
+    8) or, ``recompute``, recomputing the forward (``gtt_block_bwd_bf16``,
+    row 11; ``gtt_wn_bwd_bf16``, row 7): the forward-save chain's products
+    (the block's up to skipm, no coupling) and then the store backward's.
+    -> {"products": per product its name, kind ("conv_gemm"/"wgrad"), shape
+    ([rows, K, N]; a weight gradient's [K, rows, N]), unit ("tma": the
+    TMA-fed wgmma kernel, "mma": the mma.sync kernel, "core": the folded
+    A's CUDA-core product), chunks (64-column chunks a tile), tiles (blocks
+    of a launch), stages, shared memory (a block's), row splits and
+    launches; "launches": the device operations of a call; "counts":
+    ``kernels.product_counts`` of a call}."""
     rows, c2, h2 = batch * t, c // 2, 2 * h
     products: typing.List[dict] = []
 
@@ -689,28 +697,42 @@ def bf16_block_products(
             # the bias gradient's two column sums, the product, the splits' sum
             "launches": 3 + int(chunks > 0 and splits > 1)})
 
-    if not backward:
-        conv("zp", c, c, c, core=True)
-        conv("start", c2, h, c)
+    def forward(coupling):
+        if c:
+            conv("zp", c, c, c, core=True)
+            conv("start", c2, h, c)
         for l in range(n_layers):
             conv(f"in_{l}", h, h2, h, paired=True, k_taps=taps)
             conv(f"res_skip_{l}", h, h2, h)
-        conv("coupling", h, c, h, paired=True)
-        fixed = 3  # z <- zp, ld's two sums
+        if c and coupling:
+            conv("coupling", h, c, h, paired=True)
+
+    if not backward:
+        forward(True)
+        # the block: ld's two sums and, saving, z <- zp; the stack: x's copy
+        fixed = 2 + int(saves) if c else 1
     else:
-        conv("coupling", h, c2, h, ldb=c, b_offset=c2)
-        wgrad("dW_e", h, c, h)
-        conv("dskip", c, h, c, w_t=True)
+        fixed = 0
+        if recompute:
+            forward(False)
+            fixed += 0 if c else 1  # the stack: x's copy into xs
+        if c:
+            conv("coupling", h, c2, h, ldb=c, b_offset=c2)
+            wgrad("dW_e", h, c, h)
+            conv("dskip", c, h, c, w_t=True)
         for l in reversed(range(n_layers)):
             conv(f"gate_{l}", h2, h, h2, w_t=True)
             wgrad(f"dW_rs_{l}", h, h2, h)
             wgrad(f"dW_in_{l}", h, h2, h, k_taps=taps)
             conv(f"transposed_{l}", h2, h, h2, w_t=True, k_taps=taps)
-        wgrad("dW_s", c2, h, c)
-        conv("dzp", h, c2, h, w_t=True)
-        wgrad("dA", c, c, c)
-        conv("dx", c, c, c, w_t=True)
-        fixed = 3 + (n_layers if with_g else 0)  # g_rs, its copy and gx zeroed; dg's sums
+        if c:
+            wgrad("dW_s", c2, h, c)
+            conv("dzp", h, c2, h, w_t=True)
+            wgrad("dA", c, c, c)
+            conv("dx", c, c, c, w_t=True)
+        # the block: g_rs, its copy and gx zeroed; the stack: g_rs and its
+        # copy from dout in one launch, gx zeroed; dg's sums
+        fixed += (3 if c else 2) + (n_layers if with_g else 0)
     counts = {"core_gemm": 0, "bf16_gemm": 0, "bf16_wgrad": 0, "bf16_tma_gemm": 0,
               "bf16_tma_wgrad": 0}
     for p in products:

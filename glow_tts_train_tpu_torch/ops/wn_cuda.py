@@ -36,6 +36,18 @@ weight gradients, stages the transposed conv's A once for all taps and
 reads d_xin's K-major split in dW_in; its plan is
 ``tc_gemm.walk_products``.
 
+bf16 (``fp16_run``; ``wn_pallas`` with dtype bf16): x, the weights W_in
+and W_rs (:func:`fold_wn_weights` with ``dtype``), the conditioning, the
+saves, dx and the weight and conditioning gradients bf16; the biases and
+their gradients f32.  The bf16 entry points (``gtt_wn_forward_bf16``,
+``gtt_wn_fwd_save_bf16``, ``gtt_wn_bwd_store_bf16``, ``gtt_wn_bwd_bf16``)
+run the same chains on the bf16 product kernels, sum the skip in f32 and
+write one rounded, masked bf16 output (JAX's ``skip.astype(bf16) *
+x_mask``); the backward masks the output's bf16 cotangent into the walk
+and returns dx rounded.  Their plain version is :func:`wn_stack_plain_bf16`
+(rounding where ``wn_pallas._layer_fwd`` and ``_reverse_walk`` round), whose
+layers the flow block's plain bf16 version shares.
+
 Dropout keep masks are the JAX kernels' portable counter hash, bit for
 bit, in its site form (``encoder_pallas._drop_keep``): the bits of flat
 index ``row * n_cols + col`` of one sample's padded ``[t, n_cols]``
@@ -52,7 +64,8 @@ import typing
 import torch
 
 from .. import kernels
-from .conv import conv_taps, weight_norm_effective
+from . import bf16
+from .conv import conv_taps, im2col, weight_norm_effective
 
 Params = typing.Dict[str, typing.Any]
 
@@ -124,12 +137,14 @@ def site_dropout(
     return x * keep * (1.0 / (1.0 - p))
 
 
-def fold_wn_weights(params: Params, n_layers: int) -> tuple:
+def fold_wn_weights(params: Params, n_layers: int, dtype: torch.dtype = torch.float32) -> tuple:
     """Stacked WN params -> (W_in [L, K*h, 2h], b_in [L, 2h],
-    W_rs [L, h, 2h], b_rs [L, 2h]) in fp32, weight norm folded; the last
-    layer's h-wide res/skip conv is padded to 2h with zeros on the
-    residual half.  Differentiable: autograd carries the folded-weight
-    gradients back to v, g and b (the padding gets none)."""
+    W_rs [L, h, 2h], b_rs [L, 2h]), weight norm folded in fp32, the two
+    weights cast to ``dtype`` and the biases fp32 (``wn_pallas.
+    fold_wn_weights``); the last layer's h-wide res/skip conv is padded to
+    2h with zeros on the residual half.  Differentiable: autograd carries
+    the folded-weight gradients back to v, g and b (the padding gets
+    none)."""
 
     def fold(p):
         return (weight_norm_effective(p) if "v" in p else p["w"]), p["b"]
@@ -154,9 +169,9 @@ def fold_wn_weights(params: Params, n_layers: int) -> tuple:
     rb_list.append(torch.cat([b_last.new_zeros((h,)), b_last]))
     f32 = torch.float32
     return (
-        torch.stack(w_list).to(f32).contiguous(),
+        torch.stack(w_list).to(f32).to(dtype).contiguous(),
         torch.stack(b_list).to(f32).contiguous(),
-        torch.stack(rs_list).to(f32).contiguous(),
+        torch.stack(rs_list).to(f32).to(dtype).contiguous(),
         torch.stack(rb_list).to(f32).contiguous(),
     )
 
@@ -229,12 +244,89 @@ def wn_stack_plain(
     return skip
 
 
+def rounded_acts(th: torch.Tensor, sg: torch.Tensor) -> torch.Tensor:
+    """The gate product the backward rebuilds from the rounded gates."""
+    return bf16.rounded(th.detach() * sg.detach())
+
+
+def wn_layers_plain_bf16(
+    folded: tuple,
+    g_all: typing.Optional[torch.Tensor],
+    xcur: torch.Tensor,
+    x_mask: torch.Tensor,
+    kernel_size: int,
+    dilation_rate: int,
+    p_dropout: float = 0.0,
+    seed: int = 0,
+    saves: typing.Optional[dict] = None,
+) -> torch.Tensor:
+    """The WN layers in bf16 on f32 tensors that hold bf16 values
+    (``wn_pallas._layer_fwd`` and ``_reverse_walk`` with dtype bf16): each
+    layer's input, acts and res/skip output rounded where the kernels cast,
+    the gates' math and the skip sum in f32, every cotangent in f32 and
+    rounded before its products, the gates' backward and dW_rs reading the
+    gates as saved (rounded) -> skipm = bf16(skip) * mask (f32 holding bf16
+    values; its cotangent rounded as it enters the walk).  ``folded``'s
+    weights f32 (bf16 values), g_all f32 or None; ``saves`` as
+    :func:`wn_stack_plain`."""
+    w_in, b_in, w_rs, b_rs = folded
+    n_layers, _, h2 = w_in.shape
+    h = h2 // 2
+    batch, t = xcur.shape[:2]
+    sample_seeds = seed + torch.arange(batch, dtype=torch.int64)
+    skip = 0.0
+    for l in range(n_layers):
+        if saves is not None:
+            saves.setdefault("xs", []).append(xcur)
+        xin = bf16.product(im2col(xcur, kernel_size, dilation_rate ** l), w_in[l]) + b_in[l]
+        if p_dropout > 0.0:
+            keep = regen_keep(sample_seeds, l, n_layers, (t, h2), p_dropout, xcur.device)
+            xin = xin * keep * drop_args(p_dropout)[2]
+        if g_all is not None:
+            xin = xin + g_all[:, l][:, None, :]
+        acts, th, sg = bf16.gate(xin[..., :h], xin[..., h:])
+        if saves is not None:
+            saves.setdefault("th", []).append(th)
+            saves.setdefault("sg", []).append(sg)
+        rs = bf16.round_fwd(bf16.product(acts, w_rs[l], a_bwd=rounded_acts(th, sg)) + b_rs[l])
+        xcur = bf16.round_fwd(xcur + rs[..., :h]) * x_mask
+        skip = skip + rs[..., h:]
+    return bf16.round_fwd(bf16.round_grad(skip) * x_mask)
+
+
+def wn_stack_plain_bf16(
+    folded: tuple,
+    g_all: typing.Optional[torch.Tensor],
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    kernel_size: int,
+    dilation_rate: int,
+    p_dropout: float = 0.0,
+    seed: int = 0,
+    saves: typing.Optional[dict] = None,
+) -> torch.Tensor:
+    """Plain version of the bf16 WN kernels, forward and (by autograd) both
+    backwards: x [b, t, h], W_in, W_rs and g_all bf16 -> bf16(skip sum) *
+    mask [b, t, h] bf16 (:func:`wn_layers_plain_bf16`)."""
+    w_in, b_in, w_rs, b_rs = folded
+    f32 = (w_in.float(), b_in, w_rs.float(), b_rs)
+    g32 = None if g_all is None else g_all.float()
+    out = wn_layers_plain_bf16(f32, g32, x.float(), x_mask, kernel_size, dilation_rate,
+                               p_dropout, seed, saves)
+    return out.to(bf16.BF16)
+
+
+# a bf16 call's bf16 operands (fp16_run; wn_pallas with dtype bf16)
+BF16_OPERANDS = ("x", "g_all", "w_in", "w_rs", "dout", "xs", "th", "sg")
+
+
 def _check_wn_operands(folded, g_all, x, x_mask, kernel_size):
     w_in, b_in, w_rs, b_rs = folded
     batch, t, h = x.shape
     n_layers = w_in.shape[0]
     kernels.check_operands(
-        x.device, x=x, x_mask=x_mask, g_all=g_all, w_in=w_in, b_in=b_in, w_rs=w_rs, b_rs=b_rs
+        x.device, BF16_OPERANDS if x.dtype == bf16.BF16 else (),
+        x=x, x_mask=x_mask, g_all=g_all, w_in=w_in, b_in=b_in, w_rs=w_rs, b_rs=b_rs,
     )
     kernels.check_shape("x_mask", x_mask, (batch, t, 1))
     kernels.check_shape("w_in", w_in, (n_layers, kernel_size * h, 2 * h))
@@ -256,23 +348,29 @@ def wn_stack(
 ) -> torch.Tensor:
     """The WN stack forward, not differentiable: x [b, t, h], x_mask
     [b, t, 1], g_all [b, L, 2h] or None -> skip sum [b, t, h] (not
-    masked).  ``p_dropout`` > 0 drops each layer's pre-gate tensor with the
-    portable keep masks of ``seed``."""
+    masked; bf16: bf16(skip) * mask).  ``p_dropout`` > 0 drops each layer's
+    pre-gate tensor with the portable keep masks of ``seed``."""
     if kernels.route(x) == "plain":
-        return wn_stack_plain(
-            folded, g_all, x, x_mask, kernel_size, dilation_rate, p_dropout, seed
-        )
+        plain = wn_stack_plain_bf16 if x.dtype == bf16.BF16 else wn_stack_plain
+        return plain(folded, g_all, x, x_mask, kernel_size, dilation_rate, p_dropout, seed)
     batch, t, h, n_layers = _check_wn_operands(folded, g_all, x, x_mask, kernel_size)
     w_in, b_in, w_rs, b_rs = folded
     skip = torch.empty_like(x)
     xcur = torch.empty_like(x)
     acts = torch.empty_like(x)
     drop, threshold, scale = drop_args(p_dropout)
+    g_stride = 0 if g_all is None else n_layers * 2 * h
+    if x.dtype == bf16.BF16:  # the output bf16, the skip sum f32; no weight splits
+        total = kernels.scratch(batch * t * h, x)
+        kernels.WN_FORWARD_BF16(
+            x, x_mask, w_in, b_in, w_rs, b_rs, g_all, skip, xcur, acts, total, g_stride,
+            batch, t, h, n_layers, kernel_size, dilation_rate, drop, int(seed), threshold, scale,
+        )
+        return skip
     scratch = x.new_empty((kernels.wn_fwd_scratch_floats(h, n_layers, kernel_size),))
     kernels.WN_FORWARD(
         x, x_mask, w_in, b_in, w_rs, b_rs, g_all, skip, xcur, acts, scratch,
-        scratch.numel(), 0 if g_all is None else n_layers * 2 * h,
-        batch, t, h, n_layers, kernel_size, dilation_rate,
+        scratch.numel(), g_stride, batch, t, h, n_layers, kernel_size, dilation_rate,
         drop, int(seed), threshold, scale,
     )
     return skip
@@ -289,7 +387,8 @@ def wn_fwd_save(
     seed: int = 0,
 ) -> typing.Tuple[torch.Tensor, dict]:
     """The forward-save kernel on CUDA tensors -> (skip sum [b, t, h], not
-    masked; saves: xs/th/sg [L, b, t, h], the per-layer inputs and gates)."""
+    masked, bf16: bf16(skip) * mask; saves: xs/th/sg [L, b, t, h], the
+    per-layer inputs and gates)."""
     batch, t, h, n_layers = _check_wn_operands(folded, g_all, x, x_mask, kernel_size)
     w_in, b_in, w_rs, b_rs = folded
     skip = torch.empty_like(x)
@@ -298,27 +397,42 @@ def wn_fwd_save(
     sg = torch.empty_like(xs)
     acts = torch.empty_like(x)
     drop, threshold, scale = drop_args(p_dropout)
+    g_stride = 0 if g_all is None else n_layers * 2 * h
+    if x.dtype == bf16.BF16:
+        total = kernels.scratch(batch * t * h, x)
+        kernels.WN_FWD_SAVE_BF16(
+            x, x_mask, w_in, b_in, w_rs, b_rs, g_all, skip, xs, th, sg, acts, total, g_stride,
+            batch, t, h, n_layers, kernel_size, dilation_rate, drop, int(seed), threshold, scale,
+        )
+        return skip, {"xs": xs, "th": th, "sg": sg}
     scratch = x.new_empty((kernels.wn_fwd_scratch_floats(h, n_layers, kernel_size),))
     kernels.WN_FWD_SAVE(
         x, x_mask, w_in, b_in, w_rs, b_rs, g_all, skip, xs, th, sg, acts, scratch,
-        scratch.numel(), 0 if g_all is None else n_layers * 2 * h,
-        batch, t, h, n_layers, kernel_size, dilation_rate,
+        scratch.numel(), g_stride, batch, t, h, n_layers, kernel_size, dilation_rate,
         drop, int(seed), threshold, scale,
     )
     return skip, {"xs": xs, "th": th, "sg": sg}
 
 
 def _wn_grads(folded_like: tuple, x_like: torch.Tensor, with_g: bool) -> dict:
+    """The gradient tensors, each of its primal's dtype: dx and dg of x's,
+    dW_in and dW_rs of the weights', the bias gradients f32."""
     w_in, w_rs = folded_like
     n_layers, _, h2 = w_in.shape
     return {
         "dx": torch.empty_like(x_like),
         "dW_in": torch.empty_like(w_in),
-        "db_in": w_in.new_empty((n_layers, h2)),
+        "db_in": kernels.scratch(n_layers * h2, w_in).reshape(n_layers, h2),
         "dW_rs": torch.empty_like(w_rs),
-        "db_rs": w_in.new_empty((n_layers, h2)),
+        "db_rs": kernels.scratch(n_layers * h2, w_in).reshape(n_layers, h2),
         "dg": x_like.new_empty((x_like.shape[0], n_layers, h2)) if with_g else None,
     }
+
+
+def _bwd_scratch(like: torch.Tensor, batch, t, h, n_layers, kernel_size, recompute, with_g):
+    size = (kernels.wn_bwd_bf16_scratch_floats if like.dtype == bf16.BF16
+            else kernels.wn_bwd_scratch_floats)
+    return kernels.scratch(size(batch, t, h, n_layers, kernel_size, recompute, with_g), like)
 
 
 def wn_bwd_store(
@@ -334,11 +448,13 @@ def wn_bwd_store(
     seed: int = 0,
 ) -> dict:
     """The backward-store kernel on CUDA tensors: from the saved per-layer
-    inputs and gates and the skip sum's cotangent ``dout`` [b, t, h] -> the
-    gradients ``dx``, ``dW_in``, ``db_in``, ``dW_rs``, ``db_rs`` and ``dg``
-    [b, L, 2h] (None unless ``with_g``)."""
+    inputs and gates and the skip sum's cotangent ``dout`` [b, t, h] (bf16:
+    the masked output's) -> the gradients ``dx``, ``dW_in``, ``db_in``,
+    ``dW_rs``, ``db_rs`` and ``dg`` [b, L, 2h] (None unless ``with_g``)."""
     n_layers, batch, t, h = saves["xs"].shape
-    kernels.check_operands(dout.device, x_mask=x_mask, w_in=w_in, w_rs=w_rs, dout=dout, **saves)
+    bf = dout.dtype == bf16.BF16
+    kernels.check_operands(dout.device, BF16_OPERANDS if bf else (),
+                           x_mask=x_mask, w_in=w_in, w_rs=w_rs, dout=dout, **saves)
     kernels.check_shape("x_mask", x_mask, (batch, t, 1))
     kernels.check_shape("dout", dout, (batch, t, h))
     kernels.check_shape("w_in", w_in, (n_layers, kernel_size * h, 2 * h))
@@ -346,10 +462,9 @@ def wn_bwd_store(
     for k in ("th", "sg"):
         kernels.check_shape(k, saves[k], (n_layers, batch, t, h))
     grads = _wn_grads((w_in, w_rs), dout, with_g)
-    scratch = dout.new_empty(
-        (kernels.wn_bwd_scratch_floats(batch, t, h, n_layers, kernel_size, False, with_g),))
+    scratch = _bwd_scratch(dout, batch, t, h, n_layers, kernel_size, False, with_g)
     drop, threshold, scale = drop_args(p_dropout)
-    kernels.WN_BWD_STORE(
+    (kernels.WN_BWD_STORE_BF16 if bf else kernels.WN_BWD_STORE)(
         x_mask, w_in, w_rs, saves["xs"], saves["th"], saves["sg"], dout,
         grads["dx"], grads["dW_in"], grads["db_in"], grads["dW_rs"], grads["db_rs"], grads["dg"],
         scratch, scratch.numel(), batch, t, h, n_layers, kernel_size, dilation_rate,
@@ -373,14 +488,14 @@ def wn_bwd(
     from its inputs into scratch that lives for this call only, then the
     walk -> the gradients of :func:`wn_bwd_store`."""
     batch, t, h, n_layers = _check_wn_operands(folded, g_all, x, x_mask, kernel_size)
-    kernels.check_operands(x.device, dout=dout)
+    bf = x.dtype == bf16.BF16
+    kernels.check_operands(x.device, BF16_OPERANDS if bf else (), dout=dout)
     kernels.check_shape("dout", dout, x.shape)
     w_in, b_in, w_rs, b_rs = folded
     grads = _wn_grads((w_in, w_rs), x, g_all is not None)
-    scratch = x.new_empty((kernels.wn_bwd_scratch_floats(
-        batch, t, h, n_layers, kernel_size, True, g_all is not None),))
+    scratch = _bwd_scratch(x, batch, t, h, n_layers, kernel_size, True, g_all is not None)
     drop, threshold, scale = drop_args(p_dropout)
-    kernels.WN_BWD(
+    (kernels.WN_BWD_BF16 if bf else kernels.WN_BWD)(
         x, x_mask, w_in, b_in, w_rs, b_rs, g_all, dout,
         grads["dx"], grads["dW_in"], grads["db_in"], grads["dW_rs"], grads["db_rs"], grads["dg"],
         scratch, scratch.numel(), 0 if g_all is None else n_layers * 2 * h,
@@ -396,7 +511,7 @@ class WNStackTrain(torch.autograd.Function):
     kernel, keeping W_in, W_rs, the mask and xs/th/sg (not x, the biases or
     g_all) until the backward-store kernel has run; "recompute": the plain
     forward kernel, keeping only the inputs, and the recompute backward
-    kernel."""
+    kernel.  x bf16: the bf16 kernels of either mode."""
 
     @staticmethod
     def forward(ctx, x, x_mask, g_all, cfg, w_in, b_in, w_rs, b_rs):
@@ -453,16 +568,15 @@ def wn_stack_train(
     seed: int = 0,
     residuals: str = "store",
 ) -> torch.Tensor:
-    """The differentiable WN stack -> skip sum [b, t, h] (not masked; the
-    caller multiplies).  CUDA tensors run :class:`WNStackTrain` (or, when
-    nothing is differentiated, :func:`wn_stack`); CPU tensors the plain
-    version, whose autograd backward is the plain version of both backward
-    kernels."""
+    """The differentiable WN stack -> skip sum [b, t, h] (not masked, the
+    caller multiplies; x bf16: bf16(skip) * mask, from the bf16 kernels).
+    CUDA tensors run :class:`WNStackTrain` (or, when nothing is
+    differentiated, :func:`wn_stack`); CPU tensors the plain version, whose
+    autograd backward is the plain version of both backward kernels."""
     check_residuals(residuals)
     if kernels.route(x) == "plain":
-        return wn_stack_plain(
-            folded, g_all, x, x_mask, kernel_size, dilation_rate, p_dropout, seed
-        )
+        plain = wn_stack_plain_bf16 if x.dtype == bf16.BF16 else wn_stack_plain
+        return plain(folded, g_all, x, x_mask, kernel_size, dilation_rate, p_dropout, seed)
     if not needs_grad(x, g_all, *folded):
         return wn_stack(folded, g_all, x, x_mask, kernel_size, dilation_rate, p_dropout, seed)
     cfg = (kernel_size, dilation_rate, float(p_dropout), int(seed), residuals)

@@ -16,10 +16,10 @@ pair, the default) or op by op around the WN stack's kernels, with
 ``wn_residuals`` "store" (the default) or "recompute" (a block's residuals
 live only inside its backward).  ``fp16_run`` computes in bf16 as the
 JAX package does (bf16 activations and product operands, f32 params,
-gradients, Adam state, logdet, logp/MAS and losses) in the default mode;
-with ``encoder_fuse: false``, ``flow_block_fuse: false`` or
-``wn_residuals: "recompute"`` it is refused, naming the ROADMAP item by
-title (bf16 in the other training modes).  Checkpoints
+gradients, Adam state, logdet, logp/MAS and losses) in each of the
+decoder's four modes; with ``encoder_fuse: false`` (the op-by-op text
+side) it is refused, naming the ROADMAP item by title (bf16 in the other
+training modes).  Checkpoints
 carry the Adam state (``checkpoint.save_checkpoint``), and ``profile_dir``
 writes a ``torch.profiler`` trace of steps 5-15.
 """
@@ -103,25 +103,17 @@ def initialize_model(config, batch: dict, device) -> GlowTTS:
 
 def check_trainable(config) -> None:
     """Refuse what this trainer does not do yet, naming the ROADMAP item
-    (``NotImplementedError``: ``fp16_run`` in a mode other than the
-    default one), and a decoder-mode key (``wn_impl``,
-    ``wn_residuals``, ``flow_block_fuse``, ``flow_block_fuse_reverse``)
-    whose value it cannot honour (``ValueError``)."""
+    (``NotImplementedError``: ``fp16_run`` with ``encoder_fuse: false``),
+    and a decoder-mode key (``wn_impl``, ``wn_residuals``,
+    ``flow_block_fuse``, ``flow_block_fuse_reverse``) whose value it cannot
+    honour (``ValueError``)."""
     hp = hyper_from_config(config)
-    if config.fp16_run:
-        others = [
-            name for name, off in (
-                ("encoder_fuse false", not hp.encoder_fuse),
-                ("flow_block_fuse false", not hp.block_fuse),
-                ("wn_residuals \"recompute\"", hp.wn_residuals != "store"),
-            ) if off
-        ]
-        if others:
-            raise NotImplementedError(
-                f"fp16_run with {', '.join(others)} is not ported yet (ROADMAP, queue 1: "
-                "bf16 in the other training modes); bf16 trains with encoder_fuse, "
-                "flow_block_fuse and wn_residuals at \"auto\""
-            )
+    if config.fp16_run and not hp.encoder_fuse:
+        raise NotImplementedError(
+            "fp16_run with encoder_fuse false is not ported yet (ROADMAP, queue 1: "
+            "bf16 in the other training modes); bf16 trains the text side through its "
+            "kernels (encoder_fuse \"auto\"), in any decoder mode"
+        )
     if config.checkpoint_format != "npz":
         raise ValueError(
             f"checkpoint_format {config.checkpoint_format!r}: this trainer writes .npz "

@@ -1826,6 +1826,120 @@ def _saves_of(run):
     return {k: run[k] for k in ("zp", "skipm", "xs", "th", "sg")}
 
 
+def _plan_counts(*plans):
+    keys = ("bf16_gemm", "bf16_wgrad", "core_gemm", "bf16_tma_gemm", "bf16_tma_wgrad")
+    return tuple(sum(p["counts"][k] for p in plans) for k in keys)
+
+
+def _bf16_g_all(dev, b, L, h, with_g):
+    if not with_g:
+        return None
+    return (0.3 * torch.randn(b, L, 2 * h, device=dev)).to(BF16)
+
+
+@pytest.mark.parametrize("with_g", [False, True], ids=["no_g", "g"])
+def test_bf16_flow_block_recompute_rows_match_plain(dev, with_g):
+    """bf16 rows 9 and 11 (the flow block's forward that saves nothing and
+    its recompute backward) at base width, dropout on, with and without the
+    conditioning: z and ld bit for bit those of row 10 (the forward-save),
+    every gradient bit for bit row 12's (the backward-store on row 10's
+    saves), and within BF16_RTOL of the plain bf16 forward and its
+    autograd; each call's products as ``tc_gemm.bf16_block_products``
+    plans them."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    folded, x, mask, taps = _bf16_block(dev)
+    b, t, c = x.shape
+    L, _, h2 = folded["W_in"].shape
+    h = h2 // 2
+    g_all = _bf16_g_all(dev, b, L, h, with_g)
+    cfg = (taps, 1, False, 0.05, 21)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = {k: tc_gemm.bf16_block_products(b, t, c, h, L, taps, 1, sms, **kw) for k, kw in {
+        "fwd": {"saves": False}, "bwd": {"backward": True, "recompute": True, "with_g": with_g},
+    }.items()}
+    (z, ld), products = _bf16_products(lambda: block_cuda.block_fwd(folded, g_all, x, mask, *cfg))
+    assert products == _plan_counts(plan["fwd"])
+    z_s, ld_s, saves = block_cuda.block_fwd_save(folded, g_all, x, mask, *cfg)
+    assert torch.equal(z, z_s) and torch.equal(ld, ld_s)
+    z_p, ld_p = block_cuda.block_forward_plain_bf16(folded, g_all, x, mask, *cfg)
+    _bf16_held("z", z, z_p)
+    _bf16_held("ld", ld, ld_p)
+    dz = torch.randn(z.shape, device=dev).to(BF16)
+    dld = torch.randn(ld.shape, device=dev)
+    grads, products = _bf16_products(
+        lambda: block_cuda.block_bwd(folded, g_all, x, mask, dz, dld, *cfg))
+    assert products == _plan_counts(plan["bwd"])
+    store = block_cuda.block_bwd_store(folded, with_g, x, mask, saves, dz, dld, *cfg)
+    for k, v in store.items():
+        assert (v is None) == (grads[k] is None) and (v is None or torch.equal(grads[k], v)), k
+    leaves = {k: v.detach().requires_grad_(True) for k, v in folded.items()}
+    xl = x.detach().requires_grad_(True)
+    gl = g_all.detach().requires_grad_(True) if with_g else None
+    zz, ll = block_cuda.block_forward_plain_bf16(leaves, gl, xl, mask, *cfg)
+    inputs = [xl, *leaves.values()] + ([gl] if with_g else [])
+    ref = torch.autograd.grad((zz, ll), inputs, (dz, dld))
+    names = ["dx"] + ["d" + k for k in leaves] + (["dg"] if with_g else [])
+    for name, r in zip(names, ref):
+        assert grads[name].dtype == r.dtype, name
+        _bf16_held(name, grads[name], r)
+
+
+@pytest.mark.parametrize("with_g", [False, True], ids=["no_g", "g"])
+def test_bf16_wn_rows_match_plain(dev, with_g):
+    """bf16 rows 5-8 (the WN stack alone: the forward, the forward-save, the
+    backward-store and the recompute backward) at base width (h 192, 4
+    layers, taps 5), dropout on, with and without the conditioning: the
+    output bf16(skip) * mask and the saves against ``wn_stack_plain_bf16``,
+    every gradient against its autograd with a bf16 cotangent (dx, dW_in,
+    dW_rs and dg bf16, the bias gradients f32), each within BF16_RTOL; row
+    5's output equal to row 6's bits and row 7's gradients to row 8's; each
+    call's products as the plan says."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    folded, _, mask, taps = _bf16_block(dev)
+    wn = tuple(folded[k] for k in ("W_in", "b_in", "W_rs", "b_rs"))
+    L, _, h2 = wn[0].shape
+    h = h2 // 2
+    b, t = mask.shape[:2]
+    x = (torch.randn(b, t, h, device=dev) * mask).to(BF16)
+    g_all = _bf16_g_all(dev, b, L, h, with_g)
+    cfg = (taps, 1, 0.05, 21)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = {k: tc_gemm.bf16_block_products(b, t, 0, h, L, taps, 1, sms, **kw) for k, kw in {
+        "fwd": {}, "store": {"backward": True, "with_g": with_g},
+        "recompute": {"backward": True, "recompute": True, "with_g": with_g},
+    }.items()}
+    out, products = _bf16_products(lambda: wn_cuda.wn_stack(wn, g_all, x, mask, *cfg))
+    assert out.dtype == BF16 and products == _plan_counts(plan["fwd"])
+    (out_s, saves), products = _bf16_products(
+        lambda: wn_cuda.wn_fwd_save(wn, g_all, x, mask, *cfg))
+    assert products == _plan_counts(plan["fwd"]) and torch.equal(out, out_s)
+    ref_saves = {}
+    _bf16_held("out", out, wn_cuda.wn_stack_plain_bf16(wn, g_all, x, mask, *cfg, saves=ref_saves))
+    for k in ("xs", "th", "sg"):
+        assert saves[k].dtype == BF16
+        _bf16_held(k, saves[k], torch.stack(ref_saves[k]))
+    dout = torch.randn(x.shape, device=dev).to(BF16)
+    store, products = _bf16_products(
+        lambda: wn_cuda.wn_bwd_store(wn[0], wn[2], with_g, mask, saves, dout, *cfg))
+    assert products == _plan_counts(plan["store"])
+    grads, products = _bf16_products(lambda: wn_cuda.wn_bwd(wn, g_all, x, mask, dout, *cfg))
+    assert products == _plan_counts(plan["recompute"])
+    for k, v in store.items():
+        assert (v is None) == (grads[k] is None) and (v is None or torch.equal(grads[k], v)), k
+    leaves = [w.detach().requires_grad_(True) for w in wn]
+    xl = x.detach().requires_grad_(True)
+    gl = g_all.detach().requires_grad_(True) if with_g else None
+    o = wn_cuda.wn_stack_plain_bf16(tuple(leaves), gl, xl, mask, *cfg)
+    inputs = [xl, *leaves] + ([gl] if with_g else [])
+    ref = torch.autograd.grad(o, inputs, dout)
+    names = ["dx", "dW_in", "db_in", "dW_rs", "db_rs"] + (["dg"] if with_g else [])
+    for name, r in zip(names, ref):
+        assert grads[name].dtype == r.dtype, name
+        _bf16_held(name, grads[name], r)
+
+
 @pytest.mark.parametrize("name,c_in,taps,dilation,tap_sign,n,w_t", [
     ("start", 80, 1, 1, 1, 192, False), ("in_conv", 192, 5, 4, 1, 384, False),
     ("res_skip", 192, 1, 1, 1, 384, False), ("coupling", 192, 1, 1, 1, 160, False),
@@ -1900,7 +2014,8 @@ def test_bf16_tma_declines_narrow_widths(dev):
 
 def test_bf16_refuses_what_it_does_not_take(dev):
     """A bf16 call the kernels cannot take raises (no f32 detour): an f32
-    weight beside a bf16 x, and the block in recompute mode."""
+    weight beside a bf16 x, in the text kernels and in either residual mode
+    of the flow block and of the WN stack alone."""
     x, mask, g = _bf16_text_inputs(dev, 16)
     weights = text_cuda.prenet_weights({
         "layers": {"conv": {"w": torch.randn(3, 5, 16, 16), "b": torch.zeros(3, 16)},
@@ -1910,8 +2025,16 @@ def test_bf16_refuses_what_it_does_not_take(dev):
     weights = tuple(w.to(dev) for w in weights)
     with pytest.raises(ValueError, match="bfloat16"):
         text_cuda.prenet(weights, x, mask)
-    with pytest.raises(NotImplementedError):
-        block_cuda.block_forward({}, None, x, mask, 5, 1, residuals="recompute")
+    folded, xb, mb, taps = _bf16_block(dev, c=16, h=16, L=2)
+    folded["W_in"] = folded["W_in"].float()
+    wn = tuple(folded[k] for k in ("W_in", "b_in", "W_rs", "b_rs"))
+    xw = xb[..., :16].contiguous().requires_grad_(True)
+    for residuals in ("store", "recompute"):
+        with pytest.raises(ValueError, match="bfloat16"):
+            block_cuda.block_forward(folded, None, xb.requires_grad_(True), mb, taps, 1,
+                                     residuals=residuals)
+        with pytest.raises(ValueError, match="bfloat16"):
+            wn_cuda.wn_stack_train(wn, None, xw, mb, taps, 1, residuals=residuals)
 
 
 # ---------------------------------------------------------------------------
