@@ -149,7 +149,21 @@ Phases, each fatal on failure:
     process, in turns (as 11, as shipped): 34 steps each, recompute's losses
     store's to the bit (the bf16 TMA kernels' second path), op by op's first
     4 within the same bounds of fused, step ms, peak memory over resident
-    and device busy of each.
+    and device busy of each;
+14. (last) exports the trained checkpoint of 7 through the export CLI in
+    its three formats (``pt2``, ``onnx``, ``torch``; the ``.pt2`` checked
+    on the card by the CLI) and holds what serves them against the infer
+    CLI on the checkpoint, all at noise 0: the 4 requests through
+    ``infer_export`` on the ``.pt2`` on the card and through the ``.pth``
+    in the infer CLI (bit for bit), the 48-phoneme one through the
+    ``.onnx`` on the host, each mel within EXPORT_MEL_RTOL of max |mel|
+    with the live path's frame count; counts the live path's four serving
+    kernels (once a request each) and the artifacts' (none: plain graphs);
+    the ``.pt2``'s seed contract at noise 0.667, its load time, and its ms
+    a request against the live path's; then a multispeaker voice at the
+    width of ``configs/multispeaker.json`` (random weights, speaker
+    EXPORT_SPEAKER baked into a ``.pt2``) against live ``infer --speaker``
+    on the card.
 
 The profiled train step also counts its device products: every product the
 block chains send to the tensor cores must run there (10 conv-GEMMs per
@@ -177,8 +191,8 @@ these functions (a whole conv/LayerNorm stack, a layer with rel-pos band
 terms, a flow block, a monotonic alignment).
 
 Prints the GPU's name and power limit, a ``{"products": [...]}``, a
-``{"decoder_modes": {...}}``, a ``{"train_bf16": {...}}`` and a
-``{"kernels": [...]}`` JSON line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU
+``{"decoder_modes": {...}}``, a ``{"train_bf16": {...}}``, an
+``{"export": {...}}`` and a ``{"kernels": [...]}`` JSON line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU
 or outside a checkout of the repository.
 """
 
@@ -215,6 +229,12 @@ SERVE_BATCHES = {
 }
 SYNTH_RUNS = 10
 PROFILED = ("b1_48", "b1_250", "b4_mix")
+# exported voices against the live kernel path at noise 0: the serving
+# tolerance (PERF.md section 2) of max |mel|; a request's time, median of
+# this many calls by CUDA events; the speaker baked into the multispeaker voice
+EXPORT_MEL_RTOL = 1e-3
+EXPORT_TIMED_RUNS = 10
+EXPORT_SPEAKER = 7
 
 # training: 64 utterances, batch 16, 2 epochs -> 8 steps after DDI
 TRAIN_UTTERANCES = 64
@@ -275,6 +295,9 @@ GATE_TIE_RTOL = 1e-5
 # 495 TFLOP/s of dense TF32)
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# traces taken at most for one bracketed device time (a trace that lost
+# its edge records does not count)
+BRACKET_TRACES = 8
 # a shape the TPU kernel streams through VMEM (mas_pallas.py :254/:264)
 MAS_LONG = (2, 400, 2600)
 # MAS past the short path's shared-memory ring (t_x 1,345 on): the long path,
@@ -746,13 +769,13 @@ def make_checkpoint(workdir: Path, config_path: Path):
     return path, config, hp
 
 
-def requests() -> str:
+def requests(num_symbols: int = 130) -> str:
     import numpy as np
 
     rng = np.random.default_rng(SEED)
     lines = []
     for i, n in enumerate(REQUEST_LENGTHS):
-        ids = rng.integers(1, 130, size=n)
+        ids = rng.integers(1, num_symbols, size=n)
         lines.append(f"utt{i}|{' '.join(map(str, ids))}")
     return "\n".join(lines) + "\n"
 
@@ -933,6 +956,210 @@ def serving_times(ckpt: Path, config, hp, device_line: str) -> list:
                   f"device operations ({row['split_weights_launches']} weight-split launches), "
                   f"top {row['top_kernels_ms']}")
     return rows
+
+
+def cli_mels(main, argv: list, stdin_text: str) -> dict:
+    """One CLI run in-process on ``stdin_text`` (``--csv`` lines) -> mels by id."""
+    import numpy as np
+    import torch
+
+    out = io.StringIO()
+    old_stdin = sys.stdin
+    sys.stdin = io.StringIO(stdin_text)
+    try:
+        with contextlib.redirect_stdout(out):
+            main(argv)
+        torch.cuda.synchronize()
+    finally:
+        sys.stdin = old_stdin
+    return {obj["id"]: np.asarray(obj["mel"], np.float32)
+            for obj in map(json.loads, out.getvalue().splitlines())}
+
+
+def held_mels(name: str, got: dict, want: dict, exact: bool = False) -> dict:
+    """Each request's mel of an artifact against the live path's: the same
+    frame count (fails on a mismatch of mel_lengths), then within
+    EXPORT_MEL_RTOL of max |mel| (``exact``: bit for bit)."""
+    import numpy as np
+
+    rows = {}
+    if sorted(got) != sorted(want):
+        fail(f"export {name}: mels for {sorted(got)}, expected {sorted(want)}")
+    for utt, ref in want.items():
+        mel = got[utt]
+        if mel.shape != ref.shape:
+            fail(f"export {name} {utt}: mel {mel.shape} vs the live path's {ref.shape} "
+                 "(mel_lengths differ)")
+        err = float(np.abs(mel - ref).max())
+        scale = float(np.abs(ref).max())
+        bound = 0.0 if exact else EXPORT_MEL_RTOL * scale
+        if not np.isfinite(mel).all() or not err <= bound:
+            fail(f"export {name} {utt}: max abs err {err} against the bound {bound} "
+                 f"(max |mel| {scale})")
+        rows[utt] = {"frames": mel.shape[1], "max_abs_err": err, "max_abs_mel": scale,
+                     "bound": bound}
+    return rows
+
+
+def events_ms(fn, runs: int = EXPORT_TIMED_RUNS, warmup: int = 2) -> float:
+    """Median of ``runs`` calls of ``fn`` by CUDA events, after ``warmup``."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def serving_launches(hp) -> dict:
+    """Launches of the four serving kernels when the infer CLI serves the
+    requests one at a time."""
+    n = len(REQUEST_LENGTHS)
+    return {"prenet": int(hp.prenet) * n, "encoder_layer": hp.n_layers_enc * n,
+            "duration_stack": n, "block_inverse": hp.n_blocks_dec * n}
+
+
+def export_artifacts(ckpt: Path, config_path: Path, out: Path, formats, extra=()) -> dict:
+    """The export CLI once per format -> {format: (dir, bytes, seconds)}."""
+    from glow_tts_train_tpu_torch import export
+
+    names = {"pt2": export.ARTIFACT_NAME, "onnx": export.ONNX_NAME, "torch": export.TORCH_NAME}
+    made = {}
+    for fmt in formats:
+        start = time.perf_counter()
+        export.main([str(ckpt), str(out / fmt), "--config", str(config_path), "--format", fmt,
+                     "--platform", PLATFORM, *extra])
+        seconds = time.perf_counter() - start
+        made[fmt] = (out / fmt, (out / fmt / names[fmt]).stat().st_size, seconds)
+    return made
+
+
+def export_phase(workdir: Path, repo: Path, ckpt: Path, config_path: Path,
+                 device_line: str) -> dict:
+    """The export CLI's three formats from the trained base checkpoint and
+    what serves them, against the live kernel path; then a multispeaker
+    voice at the width of configs/multispeaker.json."""
+    import numpy as np
+    import torch
+
+    from glow_tts_train_tpu_torch import checkpoint, infer, infer_export, kernels
+    from glow_tts_train_tpu_torch.config import load_config
+    from glow_tts_train_tpu_torch.infer import build_synthesizer
+    from glow_tts_train_tpu_torch.models import hyper_from_config, store_inverse
+
+    config = load_config([config_path])
+    hp = hyper_from_config(config)
+    # the trained model's vocabulary is the corpus's
+    stdin_text = requests(config.model.num_symbols)
+    first = stdin_text.splitlines()[0] + "\n"
+    made = export_artifacts(ckpt, config_path, workdir / "export", ("pt2", "onnx", "torch"))
+    for fmt, (_, size, seconds) in made.items():
+        print(f"export {fmt}: {size} bytes in {seconds:.2f} s (the CLI, checkpoint load and, "
+              f"for pt2, the trace and a check run on the card included) [{device_line}]")
+    live_argv = [str(ckpt), "--config", str(config_path), "--csv", "--noise-scale", "0",
+                 "--platform", PLATFORM]
+    want = serving_launches(hp)
+    kernels.reset_launch_counts()
+    live = cli_mels(infer.main, live_argv, stdin_text)
+    got = {k: kernels.launch_counts()[k] for k in want}
+    if got != want:
+        fail(f"export: the live path launched {got}, expected {want}")
+    # the artifacts are plain graphs: no kernel of this package runs in them
+    pt2_dir, onnx_dir, pth_dir = (made[f][0] for f in ("pt2", "onnx", "torch"))
+    kernels.reset_launch_counts()
+    pt2 = cli_mels(infer_export.main, [str(pt2_dir), "--csv", "--noise-scale", "0",
+                                       "--platform", PLATFORM], stdin_text)
+    start = time.perf_counter()
+    onnx = cli_mels(infer_export.main, [str(onnx_dir / "generator.onnx"), "--csv",
+                                        "--noise-scale", "0", "--platform", PLATFORM], first)
+    onnx_s = time.perf_counter() - start
+    if any(kernels.launch_counts().values()):
+        fail(f"export: an artifact launched kernels: {kernels.launch_counts()}")
+    pth = cli_mels(infer.main, [str(pth_dir / "generator.pth"), *live_argv[1:]], stdin_text)
+    rows = {"pt2": held_mels("pt2", pt2, live),
+            "onnx": held_mels("onnx", onnx, {k: live[k] for k in onnx}),
+            "pth": held_mels("pth", pth, live, exact=True)}
+    for name, held in rows.items():
+        print(f"export {name} vs the live kernel path at noise 0: " + ", ".join(
+            f"{u} {r['frames']} frames err {r['max_abs_err']:.3e} (bound {r['bound']:.3e})"
+            for u, r in held.items()))
+
+    # the .pt2 loaded on the card, its seed contract, and its time a request
+    # against the live path's
+    start = time.perf_counter()
+    artifact = infer_export.load_artifact(pt2_dir, PLATFORM, seed=5)
+    load_s = time.perf_counter() - start
+    rng = np.random.default_rng(SEED)
+    ids = {n: rng.integers(1, config.model.num_symbols, size=n).tolist() for n in REQUEST_LENGTHS}
+    short = ids[min(REQUEST_LENGTHS)]
+    a = artifact.call(short, [0.667, 1.0])
+    b = artifact.call(short, [0.667, 1.0])
+    other = infer_export.load_artifact(pt2_dir, PLATFORM, seed=6).call(short, [0.667, 1.0])
+    n = min(a.shape[1], other.shape[1])
+    seed_diff = float(np.abs(a[:, :n] - other[:, :n]).max())
+    if not np.array_equal(a, b) or not seed_diff > 1e-2:
+        fail(f"export pt2 seed: same seed equal {np.array_equal(a, b)}, another seed differs "
+             f"by {seed_diff}")
+    model, _ = checkpoint.load_checkpoint(ckpt, hp)
+    synth = build_synthesizer(store_inverse(model, hp).to(PLATFORM), hp, config,
+                              noise_scale=0.0, length_scale=1.0)
+    timing = {}
+    for n_ph, phonemes in ids.items():
+        timing[str(n_ph)] = {
+            "pt2_ms": events_ms(lambda: artifact.call(phonemes, [0.0, 1.0])),
+            "live_ms": events_ms(lambda: synth([phonemes])),
+        }
+    print(f"export pt2: loaded on the card in {load_s:.2f} s; ms a request (events, median of "
+          f"{EXPORT_TIMED_RUNS}, the mel copied to the host) by phonemes, .pt2 against the "
+          f"live kernel path: {timing}; same seed equal, another seed max diff {seed_diff:.3f}; "
+          f"onnx on the host {onnx_s:.2f} s for the {min(REQUEST_LENGTHS)}-phoneme request "
+          f"[{device_line}]")
+
+    # a multispeaker voice at the width of configs/multispeaker.json
+    ms_config_path = repo / "configs" / "multispeaker.json"
+    ms_hp = hyper_from_config(load_config([ms_config_path]))
+    flat = checkpoint.random_params(ms_hp, SEED)
+    flat["model/proj_w/proj/w"] *= np.float32(0.1)
+    flat["model/proj_w/proj/b"][:] = math.log(6.0)
+    ms_ckpt = workdir / "checkpoint_multispeaker.npz"
+    checkpoint.save_npz(ms_ckpt, flat)
+    ms_made = export_artifacts(ms_ckpt, ms_config_path, workdir / "export_ms", ("pt2",),
+                               ("--speaker", str(EXPORT_SPEAKER)))
+    ms_argv = ["--config", str(ms_config_path), "--csv", "--noise-scale", "0",
+               "--platform", PLATFORM]
+    kernels.reset_launch_counts()
+    ms_text = requests(ms_hp.n_vocab)
+    ms_live = cli_mels(infer.main, [str(ms_ckpt), *ms_argv, "--speaker", str(EXPORT_SPEAKER)],
+                       ms_text)
+    ms_want = serving_launches(ms_hp)
+    ms_launches = {k: kernels.launch_counts()[k] for k in ms_want}
+    if ms_launches != ms_want:
+        fail(f"export multispeaker: the live path launched {ms_launches}, expected {ms_want}")
+    ms_pt2 = cli_mels(infer_export.main, [str(ms_made["pt2"][0]), "--csv", "--noise-scale", "0",
+                                          "--platform", PLATFORM], ms_text)
+    rows["multispeaker_pt2"] = held_mels("multispeaker pt2", ms_pt2, ms_live)
+    print(f"export multispeaker ({ms_hp.n_speakers} speakers, gin {ms_hp.gin_channels}, "
+          f"--speaker {EXPORT_SPEAKER}): pt2 "
+          f"{ms_made['pt2'][1]} bytes in {ms_made['pt2'][2]:.2f} s; against live infer "
+          f"--speaker {EXPORT_SPEAKER} on the card (launches {ms_launches}): " + ", ".join(
+              f"{u} {r['frames']} frames err {r['max_abs_err']:.3e} (bound {r['bound']:.3e})"
+              for u, r in rows["multispeaker_pt2"].items()) + f" [{device_line}]")
+    return {
+        "artifacts": {fmt: {"bytes": size, "export_s": sec} for fmt, (_, size, sec) in made.items()},
+        "multispeaker_pt2": {"bytes": ms_made["pt2"][1], "export_s": ms_made["pt2"][2],
+                             "speaker": EXPORT_SPEAKER},
+        "pt2_load_s": load_s, "ms_per_request": timing, "onnx_host_s": onnx_s,
+        "seed": {"same_seed_equal": True, "other_seed_max_diff": seed_diff},
+        "errors": rows, "live_launches": got, "device": device_line,
+    }
 
 
 def rel_err(name: str, port, ref, rtol: float) -> tuple:
@@ -1736,15 +1963,16 @@ def bracketed_trace(fn, calls: int) -> list:
     [(name, device us)], from one trace under torch.profiler in which they
     stand between spin kernels (``torch.cuda._sleep``), 16 launched before
     the calls and 16 after.  Traces late in this script come back short of
-    records at an edge (1 to 4 seen, the first or the last ones), so a
-    trace counts only where a spin kernel is left on each side of the
-    calls' operations (up to 4 are taken)."""
+    records at an edge (1 to 4 seen, the first or the last ones) or with
+    none (3 traces of 4 in a row seen), so a trace counts only where a spin
+    kernel is left on each side of the calls' operations (up to
+    BRACKET_TRACES are taken)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     seen = []
-    for _ in range(4):
+    for _ in range(BRACKET_TRACES):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(16):
@@ -1763,8 +1991,8 @@ def bracketed_trace(fn, calls: int) -> list:
                 return [(ops[i].name, ops[i].time_range.elapsed_us()) for i in inner]
         seen.append((sum(spin[:inner[0]]) if inner else sum(spin), len(inner),
                      sum(spin[inner[-1]:]) if inner else 0))
-    fail("bracketed trace: no trace of 4 held a spin kernel on each side of the calls' operations "
-         f"(spins before, operations, spins after): {seen}")
+    fail(f"bracketed trace: no trace of {BRACKET_TRACES} held a spin kernel on each side of the "
+         f"calls' operations (spins before, operations, spins after): {seen}")
 
 
 def bracketed_groups(fns, calls: int) -> list:
@@ -1781,7 +2009,7 @@ def bracketed_groups(fns, calls: int) -> list:
     for fn in fns:
         fn()
     seen = []
-    for _ in range(4):
+    for _ in range(BRACKET_TRACES):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(16):
@@ -1805,8 +2033,8 @@ def bracketed_groups(fns, calls: int) -> list:
         if ops and "spin" in ops[0].name and not run and len(groups) == len(fns):
             return groups
         seen.append((len(ops), len(groups)))
-    fail(f"bracketed groups: no trace of 4 held {len(fns)} groups of operations between spin "
-         f"kernels (operations, groups): {seen}")
+    fail(f"bracketed groups: no trace of {BRACKET_TRACES} held {len(fns)} groups of operations "
+         f"between spin kernels (operations, groups): {seen}")
 
 
 def walk_trace(fn, operations: int, calls: int = 3) -> list:
@@ -3731,6 +3959,10 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
     del mode_recorders
     torch.cuda.empty_cache()
     mode_steps = decoder_mode_steps(workdir, config_path, device_line)
+    torch.cuda.empty_cache()
+
+    # ---- main path 6: export, and the exported voices served ----
+    export_row = export_phase(workdir, repo, trained, trained_config, device_line)
 
     print(json.dumps({"products": products}))
     print(json.dumps({"serve": serve_rows}))
@@ -3739,6 +3971,7 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
     print(json.dumps({"decoder_modes": {"runs": mode_rows, "steps": mode_steps}}))
     print(json.dumps({"train_bf16": bf16_row}))
     print(json.dumps({"decoder_modes_bf16": {"runs": bf16_mode_rows, "steps": bf16_mode_steps}}))
+    print(json.dumps({"export": export_row}))
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

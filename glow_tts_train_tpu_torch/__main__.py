@@ -10,10 +10,11 @@ plus ``--platform {cuda,cpu}``.
 kernels and exits with an error when no GPU is present; ``--platform
 cpu`` runs their plain PyTorch versions.  Without --checkpoint the model
 is initialised fresh and ActNorm data-dependently on the first batch.  A
---checkpoint (``.npz``) resumes: its params merge into a fresh init (a
-missing or mis-shaped key keeps its fresh value, an unused one is left
-out, each with a warning), its Adam moments and count (and with them the
-Noam schedule) and its global step carry over, and the data order and
+--checkpoint (a ``.npz`` of either package, or a reference PyTorch
+Glow-TTS ``.pth`` to fine-tune from) resumes: its params merge into a
+fresh init (a missing or mis-shaped key keeps its fresh value, an unused
+one is left out, each with a warning), its Adam moments and count (and
+with them the Noam schedule) and its global step carry over, and the data order and
 the dropout seeds continue where the run that wrote it stopped.  Optimizer
 state that does not match this config (keys, shapes or ``opt_treedef``)
 is dropped with a warning and Adam starts fresh, as in the JAX CLI.
@@ -50,7 +51,9 @@ def main(argv=None):
     )
     parser.add_argument("--config", action="append", help="Path to JSON configuration file(s)")
     parser.add_argument("--batch-size", type=int, help="Batch size (default: use config)")
-    parser.add_argument("--checkpoint", help="Path to a checkpoint (.npz) to start from")
+    parser.add_argument(
+        "--checkpoint", help="Path to a checkpoint to start from (.npz, or a reference .pth)"
+    )
     parser.add_argument("--git-commit", help="Git commit to store in config")
     parser.add_argument(
         "--checkpoint-epochs", type=int, default=1, help="Number of epochs between checkpoints"
@@ -77,7 +80,7 @@ def main(argv=None):
 
     import torch
 
-    from .checkpoint import merge_into, read_npz, restore_opt_state
+    from .checkpoint import merge_into, read_checkpoint, restore_opt_state
     from .config import load_config
     from .data import (
         CorpusError,
@@ -140,7 +143,10 @@ def main(argv=None):
 
     if args.checkpoint:
         saved_opt: dict = {}
-        flat, meta = read_npz(Path(args.checkpoint), saved_opt)
+        try:
+            flat, meta = read_checkpoint(Path(args.checkpoint), config, saved_opt)
+        except ValueError as err:
+            parser.error(str(err))
         fresh = init_model(hp, torch.Generator().manual_seed(config.seed))
         model = trainable_model(merge_into(fresh, flat), hp, device)
         state = TrainState(model, step=int(meta.get("global_step", 1)))

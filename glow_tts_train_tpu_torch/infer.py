@@ -12,8 +12,12 @@ stdout, the same contract as ``python -m glow_tts_train_tpu.infer``:
 ``--platform cuda`` (the default) runs the hand-written CUDA kernels and
 exits with an error when no GPU is present; ``--platform cpu`` runs their
 plain PyTorch versions.  Each inverse flow block is one kernel:
-``flow_block_fuse_reverse: false`` in the config is refused.  Only ``.npz``
-checkpoints load.
+``flow_block_fuse_reverse: false`` in the config is refused.  The
+checkpoint is a ``.npz`` of either package, a reference ``.pth``, or an
+export directory (``export.py``), which runs its artifact through
+``infer_export.run`` on ``--platform`` (the speaker is baked into an
+artifact, so ``--speaker`` is refused there; one utterance a call, so
+``--batch-size`` is ignored with a warning).
 """
 
 import argparse
@@ -77,7 +81,10 @@ def build_synthesizer(weights, hp, config, noise_scale: float, length_scale: flo
 
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="glow-tts-infer-torch")
-    parser.add_argument("checkpoint", help="Path to a model checkpoint (.npz)")
+    parser.add_argument(
+        "checkpoint",
+        help="Path to a model checkpoint (.npz or a reference .pth) or an export directory",
+    )
     parser.add_argument(
         "--numpy-dir", help="Output numpy files to a directory instead of JSONL"
     )
@@ -117,6 +124,25 @@ def main(argv=None):
         parser.error("--platform cuda: no CUDA device is available")
     device = torch.device(args.platform)
 
+    checkpoint = Path(args.checkpoint)
+    if checkpoint.is_dir():
+        from . import infer_export
+        from .export import ARTIFACT_NAME, ONNX_NAME
+
+        if not any((checkpoint / name).exists() for name in (ARTIFACT_NAME, ONNX_NAME)):
+            parser.error(f"{checkpoint}: a directory holds no {ARTIFACT_NAME} or {ONNX_NAME}")
+        if args.speaker is not None:
+            parser.error(
+                "--speaker is baked into exported artifacts; re-export with the desired "
+                "speaker or run from a checkpoint"
+            )
+        if args.batch_size != 1:
+            _LOGGER.warning("--batch-size is ignored for exported artifacts (one utterance per call)")
+        return infer_export.run(
+            checkpoint, numpy_dir=args.numpy_dir, csv=args.csv, noise_scale=args.noise_scale,
+            length_scale=args.length_scale, platform=args.platform,
+        )
+
     from .checkpoint import load_checkpoint
     from .config import load_config
     from .models import hyper_from_config, store_inverse
@@ -135,7 +161,7 @@ def main(argv=None):
     except ValueError as err:  # a decoder-mode key the port cannot honour
         parser.error(str(err))
     start_time = time.perf_counter()
-    model, meta = load_checkpoint(Path(args.checkpoint), hp)
+    model, meta = load_checkpoint(checkpoint, hp)
     weights = store_inverse(model, hp).to(device)
     _LOGGER.info(
         "Loaded checkpoint from %s in %s second(s) (global step=%s)",

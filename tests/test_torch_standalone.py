@@ -29,9 +29,9 @@ def _env():
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
-    """A fresh process imports every module of the port and runs both CLIs'
-    --help; sys.modules then holds no jax* and no glow_tts_train_tpu or
-    glow_tts_train_tpu.* key."""
+    """A fresh process imports every module of the port and runs its four
+    CLIs' --help (train, infer, export, infer_export); sys.modules then
+    holds no jax* and no glow_tts_train_tpu or glow_tts_train_tpu.* key."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import glow_tts_train_tpu_torch as pkg\n"
@@ -39,10 +39,12 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "for want in ('config', 'data.dataset', 'data.corpus', 'utils.stdio', 'ops.text_cuda',\n"
-        "             'ops.wn_cuda', 'ops.block_cuda', 'ops.flows', 'models.glow_tts', 'training'):\n"
+        "             'ops.wn_cuda', 'ops.block_cuda', 'ops.flows', 'models.glow_tts', 'training',\n"
+        "             'export', 'infer_export', 'onnx.proto', 'onnx.builder', 'onnx.check',\n"
+        "             'onnx.runtime', 'onnx.export'):\n"
         "    assert pkg.__name__ + '.' + want in names, (want, names)\n"
-        "from glow_tts_train_tpu_torch import __main__ as train_cli, infer\n"
-        "for main in (train_cli.main, infer.main):\n"
+        "from glow_tts_train_tpu_torch import __main__ as train_cli, export, infer, infer_export\n"
+        "for main in (train_cli.main, infer.main, export.main, infer_export.main):\n"
         "    try:\n"
         "        main(['--help'])\n"
         "    except SystemExit as e:\n"
@@ -57,7 +59,20 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         timeout=300, cwd=REPO,
     )
     assert proc.returncode == 0, proc.stdout[-1000:] + proc.stderr[-2000:]
-    assert "--platform" in proc.stdout
+    assert proc.stdout.count("--platform") >= 4
+    for prog in ("glow-tts-export-torch", "glow-tts-infer-export-torch"):
+        assert prog in proc.stdout
+
+
+@pytest.mark.parametrize(
+    "name", sorted(p.name for p in (REPO / "glow_tts_train_tpu" / "onnx").glob("*.py"))
+)
+def test_onnx_copy_equals_the_original(name):
+    """Each module of the port's ``onnx/`` is the JAX package's, with only
+    the package name changed (in logger names and doc strings)."""
+    original = (REPO / "glow_tts_train_tpu" / "onnx" / name).read_text()
+    copy = (REPO / "glow_tts_train_tpu_torch" / "onnx" / name).read_text()
+    assert copy == original.replace("glow_tts_train_tpu", "glow_tts_train_tpu_torch")
 
 
 @pytest.mark.parametrize(
