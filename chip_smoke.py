@@ -150,7 +150,7 @@ Phases, each fatal on failure:
     store's to the bit (the bf16 TMA kernels' second path), op by op's first
     4 within the same bounds of fused, step ms, peak memory over resident
     and device busy of each;
-14. (last) exports the trained checkpoint of 7 through the export CLI in
+14. exports the trained checkpoint of 7 through the export CLI in
     its three formats (``pt2``, ``onnx``, ``torch``; the ``.pt2`` checked
     on the card by the CLI) and holds what serves them against the infer
     CLI on the checkpoint, all at noise 0: the 4 requests through
@@ -163,7 +163,31 @@ Phases, each fatal on failure:
     a request against the live path's; then a multispeaker voice at the
     width of ``configs/multispeaker.json`` (random weights, speaker
     EXPORT_SPEAKER baked into a ``.pt2``) against live ``infer --speaker``
-    on the card.
+    on the card;
+15. trains ``configs/large.json`` (h 256, f 1024, 16 blocks, batch 16: the
+    attention's head width 128, the FFN's K 3,072) and
+    ``configs/multispeaker.json`` (108 speakers, gin 256, batch 32: the
+    duration stack on 448 channels, every block with g) as shipped in bf16
+    through the train CLI on their own corpora (multispeaker's two, speaker
+    ids 0 and EXPORT_SPEAKER): DDI and WIDTH_STEPS steps, each kernel's
+    launches, the speaker embedding's Adam moments nonzero at exactly the
+    trained ids; every kernel of the run against its plain version on the
+    last step's inputs (f32 to KERNEL_RTOL, bf16 to BF16_KERNEL_RTOL, MAS
+    bit for bit, the block backward's speaker gradient too), each row's
+    products and device operations held to its plan; one more step with its
+    products held to the rows' plans, its peak memory over resident and a
+    profile; then the checkpoint through the infer CLI at batch 1 and 4
+    (``--speaker`` for multispeaker), kernel path against the plain path on
+    the card, the four serving kernels against their plain versions and
+    each mel within MEL_RTOL of max |mel|;
+16. (last) trains in bf16 with the text side op by op: ``configs/base.json``
+    as shipped with ``encoder_fuse: false`` against the text kernels from
+    one init, in turns (``text_ops_in_turns``: losses within
+    TEXT_OPS_LOSS_RTOL_BF16 and TEXT_OPS_MLE_RTOL_BF16, three times JAX's
+    own op-by-op-vs-fused gap), then ``window_size: null`` and
+    ``block_length: 4`` through the train CLI (no text kernel launched), each
+    checkpoint serving one request on the card (its encoder layers op by
+    op) against the CPU.
 
 The profiled train step also counts its device products: every product the
 block chains send to the tensor cores must run there (10 conv-GEMMs per
@@ -192,7 +216,8 @@ terms, a flow block, a monotonic alignment).
 
 Prints the GPU's name and power limit, a ``{"products": [...]}``, a
 ``{"decoder_modes": {...}}``, a ``{"train_bf16": {...}}``, an
-``{"export": {...}}`` and a ``{"kernels": [...]}`` JSON line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU
+``{"export": {...}}``, a ``{"widths": {...}}``, a ``{"text_ops_bf16": {...}}``
+and a ``{"kernels": [...]}`` JSON line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU
 or outside a checkout of the repository.
 """
 
@@ -780,15 +805,17 @@ def requests(num_symbols: int = 130) -> str:
     return "\n".join(lines) + "\n"
 
 
-def serve(ckpt: Path, config_path: Path, stdin_text: str, batch_size: int, n_mel: int):
-    """One pass of the inference CLI in-process -> (mels by id, seconds)."""
+def serve(ckpt: Path, config_path: Path, stdin_text: str, batch_size: int, n_mel: int,
+          extra=()):
+    """One pass of the inference CLI in-process (``extra``: more of its
+    arguments) -> (mels by id, seconds)."""
     import numpy as np
     import torch
 
     from glow_tts_train_tpu_torch import infer
 
     argv = [str(ckpt), "--config", str(config_path), "--csv",
-            "--batch-size", str(batch_size), "--platform", PLATFORM]
+            "--batch-size", str(batch_size), "--platform", PLATFORM, *extra]
     out = io.StringIO()
     old_stdin = sys.stdin
     sys.stdin = io.StringIO(stdin_text)
@@ -1174,17 +1201,18 @@ def rel_err(name: str, port, ref, rtol: float) -> tuple:
 TEXT_KERNELS = ("prenet", "encoder_layer", "duration_stack")
 
 
-def make_corpus(workdir: Path, repo: Path) -> tuple:
-    corpus = workdir / "corpus"
+def make_corpus(workdir: Path, repo: Path, name: str = "corpus",
+                utterances: int = TRAIN_UTTERANCES, seed: int = SEED) -> tuple:
+    corpus = workdir / name
     proc = subprocess.run(
         [sys.executable, str(repo / "scripts" / "make-synthetic-corpus.py"), str(corpus),
-         str(TRAIN_UTTERANCES), str(SEED)],
+         str(utterances), str(seed)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:
         fail(f"make-synthetic-corpus.py: {proc.stderr[-2000:]}")
     manifest = json.loads((corpus / "manifest.json").read_text())
-    print(f"train: corpus {manifest['n_utterances']} utterances, phonemes "
+    print(f"train: {name} {manifest['n_utterances']} utterances (seed {seed}), phonemes "
           f"{manifest['phonemes_min_max']}, frames {manifest['frames_min_max']}")
     return corpus, manifest
 
@@ -2585,20 +2613,24 @@ def bf16_text_plan(name: str, weights: tuple, x, backward: bool) -> dict:
     return plan
 
 
-def bf16_kernels(recorders: dict, launches: dict, device_line: str) -> list:
+def bf16_kernels(recorders: dict, launches: dict, device_line: str, turns: bool = True) -> list:
     """Each bf16 kernel of the main path against its plain bf16 version on
     the card, on the inputs it got in the bf16 run (``recorders``: the
-    first call of each wrapper): the forwards (dropout on, equal keep
-    masks), the backwards at the kernel's own ReLU gates with the
-    cotangent scaled to max 1; each within BF16_KERNEL_RTOL, timed against
-    its plain version, with its bound at the BF16 peak and its device time
-    with its products on either unit in turns; a text row's products held
-    to its plan (product counts, device operations a call) and
-    BF16_REPEATS calls of it to the first call's bits."""
+    first call of each wrapper; the block forward-save's also its last,
+    the block the backward takes first): the forwards (dropout on, equal
+    keep masks), the backwards at the kernel's own ReLU gates with the
+    cotangent scaled to max 1, with the speaker conditioning's gradient
+    where the blocks take one; each within BF16_KERNEL_RTOL, timed against
+    its plain version, with its bound at the BF16 peak; each row's
+    products held to its plan (product counts, device operations a call);
+    with ``turns``, its device time with its products on either unit in
+    turns and BF16_REPEATS calls of a text row to the first call's bits."""
     import torch
 
     from glow_tts_train_tpu_torch import kernels
-    from glow_tts_train_tpu_torch.ops import block_cuda, encoder_cuda, text_cuda
+    from glow_tts_train_tpu_torch.ops import block_cuda, encoder_cuda, tc_gemm, text_cuda
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     report = []
 
@@ -2620,7 +2652,25 @@ def bf16_kernels(recorders: dict, launches: dict, device_line: str) -> list:
             fail(f"{name}{'_bwd' if backward else ''}_bf16: {roof['device_operations']} device "
                  f"operations a call, its plan {want}")
 
+    def held_block_plan(name, fn, roof, x, folded, taps, **kw):
+        """A block row's products and device operations as its plan says."""
+        L, _, h2 = folded["W_in"].shape
+        plan = tc_gemm.bf16_block_products(x.shape[0], x.shape[1], x.shape[2], h2 // 2, L, taps,
+                                           1, sms, **kw)
+        kernels.product_counts(reset=True)
+        fn()
+        torch.cuda.synchronize()
+        counts = kernels.product_counts(reset=True)
+        if {k: counts.get(k, 0) for k in plan["counts"]} != plan["counts"]:
+            fail(f"{name}: device products {counts}, its plan {plan['counts']}")
+        if roof["device_operations"] != plan["launches"]:
+            fail(f"{name}: {roof['device_operations']} device operations a call, its plan "
+                 f"{plan['launches']}")
+        return plan["launches"]
+
     def repeats_bits(name, fn, first):
+        if not turns:
+            return
         for _ in range(BF16_REPEATS):
             again = fn()
             if not all(torch.equal(a, b) for a, b in zip(again, first)):
@@ -2628,6 +2678,9 @@ def bf16_kernels(recorders: dict, launches: dict, device_line: str) -> list:
 
     entry = entry_writer(report, launches, device_line)
     unit = unit_bf16
+
+    def units(name, fn):
+        return units_in_turns(name, fn, device_line) if turns else None
 
     plain_fwd = {
         "prenet": text_cuda.prenet_plain_bf16,
@@ -2655,11 +2708,10 @@ def bf16_kernels(recorders: dict, launches: dict, device_line: str) -> list:
             roof = bf16_bound(name + "_bf16", args, kwargs, out_k, kernel_fn)
             held_operations(name, False, args[0], x, roof)
             # its products on either unit
-            turns = units_in_turns(name + "_bf16", lambda: kernel_fn(*args, **kwargs),
-                                   device_line)
+            in_turns = units(name + "_bf16", lambda: kernel_fn(*args, **kwargs))
         entry(name + "_bf16", err, scale, ms, plain_ms, list(x.shape), roof,
-              device_ms_in_turns=turns, products_held_to_plan=True,
-              same_bits_repeats=BF16_REPEATS)
+              device_ms_in_turns=in_turns, products_held_to_plan=True,
+              same_bits_repeats=BF16_REPEATS if turns else 0)
 
         bname = name + "_bwd"
         bargs, bkwargs = recorders[bname].args
@@ -2678,10 +2730,10 @@ def bf16_kernels(recorders: dict, launches: dict, device_line: str) -> list:
                            runs=3, warmup=1)
         roof = bf16_bound(bname + "_bf16", call, {}, grads_k, bkernel)
         held_operations(name, True, weights, x, roof)
-        turns = units_in_turns(bname + "_bf16", lambda: bkernel(*call), device_line)
+        in_turns = units(bname + "_bf16", lambda: bkernel(*call))
         entry(bname + "_bf16", worst * scale, scale, ms, plain_ms, list(x.shape), roof,
-              worst_relative=worst, device_ms_in_turns=turns, products_held_to_plan=True,
-              same_bits_repeats=BF16_REPEATS)
+              worst_relative=worst, device_ms_in_turns=in_turns, products_held_to_plan=True,
+              same_bits_repeats=BF16_REPEATS if turns else 0)
 
     # the flow block: forward-save, then backward-store from its saves
     args, kwargs = recorders["block_fwd_save"].args
@@ -2696,9 +2748,11 @@ def bf16_kernels(recorders: dict, launches: dict, device_line: str) -> list:
     plain_ms = time_ms(block_cuda.block_forward_plain_bf16, (folded, g_all, x, x_mask, *cfg), {},
                        runs=3, warmup=1)
     roof = bf16_bound("block_fwd_save_bf16", args, kwargs, (z_k, ld_k, saves), fwd)
-    turns = units_in_turns("block_fwd_save_bf16", lambda: fwd(*args, **kwargs), device_line)
+    ops = held_block_plan("block_fwd_save_bf16", lambda: fwd(*args, **kwargs), roof, x, folded,
+                          cfg[0])
+    in_turns = units("block_fwd_save_bf16", lambda: fwd(*args, **kwargs))
     entry("block_fwd_save_bf16", err, scale, ms, plain_ms, list(x.shape), roof,
-          device_ms_in_turns=turns)
+          device_ms_in_turns=in_turns, device_operations_plan=ops, with_g=g_all is not None)
 
     bargs, bkwargs = recorders["block_bwd_store"].args
     bwd = recorders["block_bwd_store"].fn
@@ -2706,25 +2760,35 @@ def bf16_kernels(recorders: dict, launches: dict, device_line: str) -> list:
     dz, dld = unit(dz), unit(dld)
     call = (folded, with_g, x, x_mask, saves, dz, dld, *cfg)
     grads_k = bwd(*call)
+    g_leaf = []
+    if with_g:  # the conditioning of the block the backward takes first: the forward's last
+        (_, g_last, x_last, *_), _ = recorders["block_fwd_save"].last
+        if not torch.equal(x_last, x):
+            fail("block_bwd_store_bf16: its first call's x is not the last forward call's")
+        g_leaf = [g_last.detach().requires_grad_(True)]
     with torch.enable_grad():
         leaves = {k: v.detach().requires_grad_(True) for k, v in folded.items()}
         xl = x.detach().requires_grad_(True)
-        z, ld = block_cuda.block_forward_plain_bf16(leaves, None, xl, x_mask, *cfg)
-        ref = torch.autograd.grad((z, ld), [xl, *leaves.values()], (dz, dld))
-    names = ["dx"] + ["d" + k for k in leaves]
+        z, ld = block_cuda.block_forward_plain_bf16(leaves, *(g_leaf or [None]), xl, x_mask, *cfg)
+        ref = torch.autograd.grad((z, ld), [xl, *leaves.values(), *g_leaf], (dz, dld))
+    names = ["dx"] + ["d" + k for k in leaves] + ["dg"] * len(g_leaf)
     worst, scale = held_bf16("block_bwd_store_bf16", [grads_k[n] for n in names], ref)
     ms = time_ms(bwd, call, {}, runs=10, warmup=2)
 
     def plain_bwd_store():  # autograd of the plain forward: the plain backward's cost
         with torch.enable_grad():
-            z, ld = block_cuda.block_forward_plain_bf16(leaves, None, xl, x_mask, *cfg)
-            return torch.autograd.grad((z, ld), [xl, *leaves.values()], (dz, dld))
+            z, ld = block_cuda.block_forward_plain_bf16(leaves, *(g_leaf or [None]), xl, x_mask,
+                                                        *cfg)
+            return torch.autograd.grad((z, ld), [xl, *leaves.values(), *g_leaf], (dz, dld))
 
     plain_ms = time_ms(plain_bwd_store, (), {}, runs=3, warmup=1)
     roof = bf16_bound("block_bwd_store_bf16", call, {}, grads_k, bwd)
-    turns = units_in_turns("block_bwd_store_bf16", lambda: bwd(*call), device_line)
+    ops = held_block_plan("block_bwd_store_bf16", lambda: bwd(*call), roof, x, folded, cfg[0],
+                          backward=True, with_g=with_g)
+    in_turns = units("block_bwd_store_bf16", lambda: bwd(*call))
     entry("block_bwd_store_bf16", worst * scale, scale, ms, plain_ms, list(x.shape), roof,
-          worst_relative=worst, device_ms_in_turns=turns)
+          worst_relative=worst, device_ms_in_turns=in_turns, device_operations_plan=ops,
+          with_g=with_g)
     return report
 
 
@@ -2804,7 +2868,8 @@ def bf16_train(workdir: Path, config_path: Path, device_line: str) -> tuple:
                "prenet": text_cuda, "prenet_bwd": text_cuda, "duration_stack": text_cuda,
                "duration_stack_bwd": text_cuda, "encoder_layer": encoder_cuda,
                "encoder_layer_bwd": encoder_cuda}
-    recorders = {name: Recorder(module, name) for name, module in modules.items()}
+    recorders = {name: Recorder(module, name, keep_last=name == "block_fwd_save")
+                 for name, module in modules.items()}
     launches, steps, last, out, seconds = run_train_cli(
         workdir, corpus, manifest, config_path, BF16_OVERRIDE, "bf16", BF16_STEPS, recorders,
         corpus_symbols=False,
@@ -3733,6 +3798,452 @@ def decoder_mode_steps(workdir: Path, config_path: Path, device_line: str,
     return out
 
 
+# the shipped widths: configs/large.json and configs/multispeaker.json, each
+# trained as shipped (fp16_run, its batch, full width, its epochs cut to 1)
+# through the train CLI on corpora of WIDTH_UTTERANCES utterances, one a
+# speaker id (the first from seed WIDTH_SEED, the next from the seed after):
+# 2 steps at large's batch 16 and at multispeaker's 32 over its two corpora
+WIDTH_CONFIGS = {"large": (0,), "multispeaker": (0, EXPORT_SPEAKER)}
+WIDTH_UTTERANCES = 32
+WIDTH_SEED = SEED + 10
+WIDTH_OVERRIDE = {"epochs": 1}
+WIDTH_STEPS = 2
+# the four serving kernels' launches in one synthesis
+SERVING_KERNELS = ("prenet", "encoder_layer", "duration_stack", "block_inverse")
+
+
+def step_plan_counts(batch: dict, model, sms: int) -> dict:
+    """The device products of one bf16 train step on ``batch`` by the rows'
+    plans (``tc_gemm.bf16_{block,prenet,encoder,duration}_products``): each
+    block's forward-save and backward-store chain, each encoder layer's
+    pair, the prenet's and the duration stack's."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    b, t_x = batch["x"].shape
+    t_y = batch["y"].shape[1] // model.n_sqz
+    c, h, with_g = batch["y"].shape[2] * model.n_sqz, model.hidden_channels_dec, model.n_speakers > 1
+    h_enc, c_dp = model.hidden_channels_enc, model.hidden_channels_enc + model.gin_channels * with_g
+    plans = [(model.n_blocks_dec, tc_gemm.bf16_block_products(
+                b, t_y, c, h, model.n_block_layers, model.kernel_size_dec, model.dilation_rate,
+                sms, backward=bwd, with_g=with_g)) for bwd in (False, True)]
+    for bwd in (False, True):
+        plans += [(int(model.prenet), tc_gemm.bf16_prenet_products(b, t_x, h_enc, 3, 5, sms, bwd)),
+                  (model.n_layers_enc, tc_gemm.bf16_encoder_products(
+                      b, t_x, h_enc, model.filter_channels, model.kernel_size, sms, bwd)),
+                  (1, tc_gemm.bf16_duration_products(b, t_x, c_dp, model.filter_channels_dp,
+                                                     model.kernel_size, sms, bwd))]
+    counts: dict = {}
+    for n, plan in plans:
+        for k, v in plan["counts"].items():
+            counts[k] = counts.get(k, 0) + n * v
+    return counts
+
+
+def width_step(last: dict, model, device_line: str, name: str) -> dict:
+    """One more bf16 step of a width's run on its last batch: its device
+    products held to the rows' plans (``step_plan_counts``), its peak device
+    memory over what was resident before it, then one profiled step: wall,
+    device busy, idle share, device operations, top kernels."""
+    import torch
+
+    from glow_tts_train_tpu_torch import kernels
+
+    def step():
+        last["step_fn"](last["state"], last["batch"], *last["args"])
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.product_counts(reset=True)
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    products = kernels.product_counts(reset=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = step_plan_counts(last["batch"], model, sms)
+    if {k: products.get(k, 0) for k in want} != want:
+        fail(f"widths {name} step: device products {products}, by the rows' plans {want}")
+    wall_ms, by_kernel, operations = profiled(step)
+    busy_ms = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    row = {"batch_x": list(last["batch"]["x"].shape), "batch_y": list(last["batch"]["y"].shape),
+           "peak_bytes": peak, "over_resident_bytes": peak - resident, "wall_ms": wall_ms,
+           "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
+           "device_operations": operations, "device_products": products,
+           "top_ms": {k[:70]: v for k, v in top}}
+    print(f"widths {name} profiled step: x {row['batch_x']} y {row['batch_y']} peak "
+          f"{peak / 2 ** 30:.2f} GiB ({(peak - resident) / 2 ** 30:.2f} over resident), wall "
+          f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle share {row['idle_share']}, "
+          f"{operations} device operations, products {products} as the plans have them "
+          f"[{device_line}]")
+    return row
+
+
+def width_f32_kernels(recorders: dict, launches: dict, device_line: str) -> list:
+    """The f32 kernels of a width's training run on its recorded inputs:
+    DDI's WN forward (with the speaker conditioning where the model has
+    it) within KERNEL_RTOL and its products and device operations held to
+    ``tc_gemm.forward_products``; MAS of the last step bit for bit."""
+    import torch
+
+    from glow_tts_train_tpu_torch.ops import mas_cuda, wn_cuda
+
+    report: list = []
+    entry = entry_writer(report, launches, device_line)
+    rec = recorders["wn_forward"]
+    args, kwargs = rec.args
+    with torch.no_grad():
+        skip = rec.fn(*args, **kwargs)
+        err, scale = rel_err("wn_forward", skip, wn_cuda.wn_stack_plain(*args, **kwargs),
+                             KERNEL_RTOL)
+        roof = bound("wn_forward", args, kwargs, skip, rec.fn)
+        wn, g_all, x, _, *cfg = args
+        plan = held_forward_plan("wn_forward", lambda: rec.fn(*args, **kwargs), roof,
+                                 x.shape[0] * x.shape[1], 0, wn[0], cfg[0], cfg[1], False)
+        entry("wn_forward", err, scale, time_ms(rec.fn, args, kwargs, runs=10, warmup=2),
+              time_ms(wn_cuda.wn_stack_plain, args, kwargs, runs=3, warmup=1), list(x.shape),
+              roof, device_operations_plan=plan["launches"], with_g=g_all is not None)
+    args, kwargs = recorders["mas"].args
+    path = recorders["mas"].fn(*args, **kwargs)
+    if not torch.equal(path, mas_cuda.maximum_path_plain(*args, **kwargs)):
+        fail(f"mas: path differs from the plain version at {list(args[0].shape)}")
+    roof = bound("mas", args, kwargs, path, recorders["mas"].fn)
+    entry("mas", 0.0, 1.0, time_ms(recorders["mas"].fn, args, kwargs, runs=10, warmup=2),
+          time_ms(mas_cuda.maximum_path_plain, args, kwargs, runs=2, warmup=0),
+          list(args[0].shape), roof)
+    return report
+
+
+def width_serving(ckpt: Path, config_path: Path, model, n_mel: int, extra, name: str,
+                  device_line: str) -> dict:
+    """The trained checkpoint through the infer CLI at noise 0, at batch 1
+    and batch 4 (``extra``: ``--speaker``), each on the kernel path and
+    then the plain path on the card: the four serving kernels launched as a
+    synthesis launches them, each against its plain version on the b=4
+    pass's inputs within KERNEL_RTOL, and each mel within MEL_RTOL of the
+    plain path's max |mel|, with its frame count."""
+    import numpy as np
+    import torch
+
+    from glow_tts_train_tpu_torch import kernels
+    from glow_tts_train_tpu_torch.ops import block_cuda, encoder_cuda, text_cuda
+
+    stdin_text = requests(model.num_symbols)
+    extra = ("--noise-scale", "0", *extra)
+    modules = {"prenet": text_cuda, "encoder_layer": encoder_cuda,
+               "duration_stack": text_cuda, "block_inverse": block_cuda}
+    plains = {"prenet": text_cuda.prenet_plain, "encoder_layer": encoder_cuda.encoder_layer_plain,
+              "duration_stack": text_cuda.duration_stack_plain,
+              "block_inverse": block_cuda.block_inverse_plain}
+    per_synth = {"prenet": int(model.prenet), "encoder_layer": model.n_layers_enc,
+                 "duration_stack": 1, "block_inverse": model.n_blocks_dec}
+    row = {}
+    for batch_size in (1, 4):
+        recorders = {k: Recorder(mod, k) for k, mod in modules.items()}
+        for rec in recorders.values():
+            rec.armed = batch_size == 4
+        kernels.reset_launch_counts()
+        try:
+            mels, seconds = serve(ckpt, config_path, stdin_text, batch_size, n_mel, extra)
+        finally:
+            for rec in recorders.values():
+                rec.restore()
+        got = {k: kernels.launch_counts()[k] for k in per_synth}
+        syntheses = len(REQUEST_LENGTHS) // batch_size
+        if got != {k: v * syntheses for k, v in per_synth.items()}:
+            fail(f"widths {name} serve b={batch_size}: launches {got}, "
+                 f"{syntheses} x {per_synth} expected")
+        with plain_path_on_card():
+            plain, plain_seconds = serve(ckpt, config_path, stdin_text, batch_size, n_mel, extra)
+        errs = {}
+        for utt, ref in plain.items():
+            mel = mels[utt]
+            if mel.shape != ref.shape:
+                fail(f"widths {name} serve b={batch_size} {utt}: mel {mel.shape}, the plain "
+                     f"path's {ref.shape}")
+            err, scale = float(np.abs(mel - ref).max()), float(np.abs(ref).max())
+            if not err <= MEL_RTOL * scale:
+                fail(f"widths {name} serve b={batch_size} {utt}: max abs err {err} against "
+                     f"{MEL_RTOL} x max |mel| {scale}")
+            errs[utt] = {"frames": mel.shape[1], "max_abs_err": err, "max_abs_mel": scale}
+        row[f"b{batch_size}"] = {"seconds": seconds, "plain_seconds": plain_seconds,
+                                 "launches": got, "mels": errs}
+        print(f"widths {name} serve b={batch_size}: {seconds:.3f} s (plain path on the card "
+              f"{plain_seconds:.3f} s), launches {got}, mels against the plain path {errs} "
+              f"[{device_line}]")
+        if batch_size == 1:
+            continue
+        rows = {}
+        for k, rec in recorders.items():
+            args, kwargs = rec.args
+            with torch.inference_mode():
+                out_k = rec.fn(*args, **kwargs)
+                err, scale = rel_err(f"widths {name} {k}", out_k, plains[k](*args, **kwargs),
+                                     KERNEL_RTOL)
+                ms = time_ms(rec.fn, args, kwargs, runs=10, warmup=2)
+                plain_ms = time_ms(plains[k], args, kwargs, runs=3, warmup=1)
+                roof = bound(k, args, kwargs, out_k, rec.fn)
+            held_to_bound(k, ms, roof)
+            x = args[2] if k == "block_inverse" else args[1]  # after g_all / the weights
+            rows[k] = {"shape": list(x.shape), "max_abs_err": err, "max_abs_ref": scale, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": roof["bound_ms"],
+                       "bound_by": roof["bound_by"], "device_ms": roof.get("device_ms"),
+                       "products": roof.get("products")}
+            print(f"widths {name} kernel {k}: x {list(x.shape)} err {err:.3e} (max|ref| "
+                  f"{scale:.3f}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{roof['bound_ms']:.4f} ms by {roof['bound_by']} [{device_line}]")
+        row["kernels"] = rows
+    return row
+
+
+def width_phase(workdir: Path, repo: Path, name: str, device_line: str) -> dict:
+    """``configs/<name>.json`` as shipped on the card: its corpora
+    (WIDTH_CONFIGS), DDI and WIDTH_STEPS bf16 steps through the train CLI
+    (each kernel's launches: the f32 WN forward once a block in DDI, per
+    step each bf16 row as a step launches it, MAS once), the speaker
+    embedding's Adam moments nonzero at the speakers trained and zero
+    elsewhere, every kernel against its plain version on the last step's
+    inputs (``width_f32_kernels``, ``bf16_kernels`` without the units in
+    turns), one more step (``width_step``), and the checkpoint served
+    (``width_serving``) -> the phase's row."""
+    import torch
+
+    from glow_tts_train_tpu_torch.config import load_config
+    from glow_tts_train_tpu_torch.ops import block_cuda, encoder_cuda, mas_cuda, text_cuda, wn_cuda
+
+    config_path = repo / "configs" / f"{name}.json"
+    config = load_config([config_path])
+    m = config.model
+    speakers = WIDTH_CONFIGS[name]
+    if not config.fp16_run or (m.n_speakers > 1) != (len(speakers) > 1):
+        fail(f"{config_path}: fp16_run {config.fp16_run}, {m.n_speakers} speakers: not the "
+             "shipped config this phase trains")
+    corpora = [make_corpus(workdir, repo, f"corpus_{name}_{s}", WIDTH_UTTERANCES, WIDTH_SEED + i)
+               for i, s in enumerate(speakers)]
+    extra = [a for s, (c, _) in zip(speakers[1:], corpora[1:])
+             for a in ("--dataset", str(s), str(c / "phonemes.csv"), str(c / "mels"))]
+    modules = {"block_fwd_save": block_cuda, "block_bwd_store": block_cuda,
+               "prenet": text_cuda, "prenet_bwd": text_cuda, "duration_stack": text_cuda,
+               "duration_stack_bwd": text_cuda, "encoder_layer": encoder_cuda,
+               "encoder_layer_bwd": encoder_cuda}
+    recorders = {k: Recorder(mod, k, keep_last=k == "block_fwd_save") for k, mod in modules.items()}
+    recorders["wn_forward"] = Recorder(wn_cuda, "wn_stack")
+    recorders["wn_forward"].armed = True  # DDI, before the first step
+    recorders["mas"] = Recorder(mas_cuda, "maximum_path")
+    tag = f"width_{name}"
+    launches, steps, last, out, seconds = run_train_cli(
+        workdir, corpora[0][0], corpora[0][1], config_path, WIDTH_OVERRIDE, tag, WIDTH_STEPS,
+        recorders, extra=extra, corpus_symbols=False,
+    )
+    n_blocks, n_layers = m.n_blocks_dec, m.n_layers_enc
+    per_step = {"block_fwd_save": n_blocks, "block_bwd_store": n_blocks, "prenet": 1,
+                "prenet_bwd": 1, "encoder_layer": n_layers, "encoder_layer_bwd": n_layers,
+                "duration_stack": 1, "duration_stack_bwd": 1}
+    want = {"wn_forward": n_blocks, "mas": WIDTH_STEPS,
+            **{k + "_bf16": v * WIDTH_STEPS for k, v in per_step.items()},
+            **dict.fromkeys(per_step, 0)}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"widths {name}: launches {got}, expected {want}")
+    for i, row in enumerate(steps):
+        print(f"widths {name} step {i + 1}: x {row['shape'][0]} y {row['shape'][1]} loss "
+              f"{row['loss']:.4f} (mle {row['mle_loss']:.4f}, dur {row['duration_loss']:.4f}) "
+              f"grad_norm {row['grad_norm']:.4f}, {row['seconds'] * 1e3:.1f} ms [{device_line}]")
+    speaker_rows = None
+    if m.n_speakers > 1:  # Adam's first moment of emb_g: nonzero exactly at the trained ids
+        mu = last["state"].opt.mu["emb_g"].abs().sum(dim=1)
+        speaker_rows = [int(i) for i in torch.nonzero(mu).flatten()]
+        if speaker_rows != sorted(speakers):
+            fail(f"widths {name}: emb_g's Adam moment is nonzero at rows {speaker_rows}, "
+                 f"the corpora's speakers are {sorted(speakers)}")
+    print(f"widths {name}: CLI {seconds:.1f} s ({config_path.name} as shipped, batch "
+          f"{config.batch_size}, epochs cut to 1: DDI and {WIDTH_STEPS} steps), speakers "
+          f"{list(speakers)}, emb_g's moments nonzero at {speaker_rows}; launches {got} "
+          f"[{device_line}]")
+    report = width_f32_kernels(recorders, launches, device_line)
+    report += bf16_kernels(recorders, launches, device_line, turns=False)
+    del recorders
+    step = width_step(last, m, device_line, name)
+    del last
+    torch.cuda.empty_cache()
+    ckpt = out / f"checkpoint_{1 + WIDTH_STEPS}.npz"
+    serve_extra = ("--speaker", str(speakers[-1])) if m.n_speakers > 1 else ()
+    serving = width_serving(ckpt, out / f"config_{1 + WIDTH_STEPS}.json", m,
+                            config.audio.mel_channels, serve_extra, name, device_line)
+    return {"config": config_path.name, "batch_size": config.batch_size, "steps": steps,
+            "cli_seconds": seconds, "launches": got, "speaker_rows_trained": speaker_rows,
+            "kernels": report, "step": step, "serve": serving}
+
+
+# the bf16 text side op by op (JAX's XLA path where its text kernels do not
+# run): configs/base.json as shipped with encoder_fuse false against the
+# text kernels, from one init (DDI on the first batch), TEXT_OPS_STEPS steps
+# each in turns on the 64-utterance corpus's batches, dropout off (the
+# kernels hash their masks, op by op draws them from a generator); each
+# step's loss and MLE loss within three times JAX's own op-by-op-vs-fused
+# gap at base width (tests/test_torch_bf16_text_ops.py: 3.2e-3 of the loss,
+# 7.4e-5 of the MLE loss, two utterances a batch)
+TEXT_OPS_LOSS_RTOL_BF16 = 1e-2
+TEXT_OPS_MLE_RTOL_BF16 = 2.5e-4
+TEXT_OPS_STEPS = 4
+# the encoder configurations the encoder kernel does not take, each
+# configs/base.json as shipped with this override: 1 epoch of 2 bf16 steps
+# through the train CLI, then one request served on the card and on the CPU
+TEXT_OPS_CONFIGS = {
+    "window_null": {"epochs": 1, "model": {"window_size": None}},
+    "block_length4": {"epochs": 1, "model": {"block_length": 4}},
+}
+TEXT_OPS_CLI_STEPS = 2
+TEXT_OPS_REQUEST = 48
+TEXT_BF16_KERNELS = tuple(k + s + "_bf16" for k in TEXT_KERNELS for s in ("", "_bwd"))
+
+
+def text_ops_in_turns(workdir: Path, config_path: Path, device_line: str) -> dict:
+    """``configs/base.json`` as shipped in bf16 with the text side op by op
+    (``encoder_fuse: false``) and through its kernels, from one init, in
+    turns (kernels, op by op; then op by op first), TEXT_OPS_STEPS steps
+    each on the same batches, dropout off: each step's losses held within
+    TEXT_OPS_LOSS_RTOL_BF16 and TEXT_OPS_MLE_RTOL_BF16 of the kernels', the
+    op-by-op steps launching no text kernel and each bf16 block pair once
+    a block, both runs' step ms."""
+    import torch
+
+    from glow_tts_train_tpu_torch import data, kernels, training
+    from glow_tts_train_tpu_torch.config import load_config
+    from glow_tts_train_tpu_torch.models import hyper_from_config
+
+    corpus = workdir / "corpus"
+    config = load_config([config_path])
+    dataset = data.build_dataset(
+        [data.SpeakerSource(0, corpus / "phonemes.csv", corpus / "mels")], config,
+        mels_are_dirs=True, skip_missing_mels=False, multispeaker=False,
+    )
+    batches = [training.batch_to(b, PLATFORM)
+               for b in data.DataPipeline(dataset, config, batch_size=config.batch_size).batches()]
+    flat = {k: v.detach().clone()
+            for k, v in training.initialize_model(config, batches[0], PLATFORM).flat().items()}
+    runs = {}
+    for name, fuse in (("kernels", "auto"), ("op_by_op", False)):
+        cfg = copy.deepcopy(config)
+        cfg.encoder_fuse = fuse
+        hp = hyper_from_config(cfg)
+        if hp.encoder_fuse != (name == "kernels"):
+            fail(f"text op by op bf16: encoder_fuse {fuse} resolved to {hp.encoder_fuse}")
+        runs[name] = {"step": training.make_train_step(cfg),
+                      "state": training.TrainState(training.trainable_model(flat, hp, PLATFORM)),
+                      "loss": [], "mle": [], "ms": [], "launches": []}
+    n_blocks = config.model.n_blocks_dec
+    for i in range(TEXT_OPS_STEPS):
+        for name in (("kernels", "op_by_op") if i % 2 == 0 else ("op_by_op", "kernels")):
+            run = runs[name]
+            before = kernels.launch_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            metrics = run["step"](run["state"], batches[i % len(batches)])
+            torch.cuda.synchronize()
+            run["ms"].append((time.perf_counter() - start) * 1e3)
+            after = kernels.launch_counts()
+            run["launches"].append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+            run["loss"].append(float(metrics["loss"]))
+            run["mle"].append(float(metrics["mle_loss"]))
+    want = {"mas": 1, "block_fwd_save_bf16": n_blocks, "block_bwd_store_bf16": n_blocks}
+    for got in runs["op_by_op"]["launches"]:
+        if got != want:
+            fail(f"text op by op bf16: an op-by-op step launched {got}, expected {want} (no "
+                 "text kernel)")
+    for got in runs["kernels"]["launches"]:
+        if not all(got.get(k) for k in TEXT_BF16_KERNELS):
+            fail(f"text op by op bf16: a kernel step launched {got}")
+    rel = {k: [abs(a - b) / abs(b) for a, b in zip(runs["op_by_op"][k], runs["kernels"][k])]
+           for k in ("loss", "mle")}
+    for k, rtol in (("loss", TEXT_OPS_LOSS_RTOL_BF16), ("mle", TEXT_OPS_MLE_RTOL_BF16)):
+        if not all(math.isfinite(x) and x <= rtol for x in rel[k]):
+            fail(f"text op by op bf16: {k} relative to the kernels' {rel[k]}, bound {rtol}; "
+                 f"op by op {runs['op_by_op'][k]}, kernels {runs['kernels'][k]}")
+    row = {"batch_shapes": [[list(b["x"].shape), list(b["y"].shape)] for b in batches],
+           "loss_rel_diff": rel["loss"], "mle_rel_diff": rel["mle"],
+           "loss_rtol": TEXT_OPS_LOSS_RTOL_BF16, "mle_rtol": TEXT_OPS_MLE_RTOL_BF16,
+           **{name: {"loss": r["loss"], "mle": r["mle"], "step_ms": r["ms"]}
+              for name, r in runs.items()}}
+    print(f"text op by op bf16: {config_path.name} as shipped, encoder_fuse false against the text "
+          f"kernels from one init, {TEXT_OPS_STEPS} steps each in turns, dropout off: losses "
+          f"{runs['op_by_op']['loss']} against {runs['kernels']['loss']} (relative {rel['loss']}, "
+          f"bound {TEXT_OPS_LOSS_RTOL_BF16}; MLE {rel['mle']}, bound {TEXT_OPS_MLE_RTOL_BF16}); "
+          f"step ms op by op {[round(x, 1) for x in runs['op_by_op']['ms']]}, kernels "
+          f"{[round(x, 1) for x in runs['kernels']['ms']]}; op-by-op launches a step {want} "
+          f"[{device_line}]")
+    return row
+
+
+def text_ops_bf16_phase(workdir: Path, repo: Path, device_line: str) -> dict:
+    """bf16 with the text side op by op: ``text_ops_in_turns``, then each of
+    TEXT_OPS_CONFIGS through the train CLI (DDI, TEXT_OPS_CLI_STEPS bf16
+    steps: no text kernel launched, each bf16 block pair once a block a
+    step) and its checkpoint serving one TEXT_OPS_REQUEST-phoneme request
+    through the infer CLI at noise 0 on the card (no encoder-layer launch:
+    the layers op by op) against the CPU plain path, within MEL_RTOL of max
+    |mel| -> the phase's row."""
+    import numpy as np
+
+    from glow_tts_train_tpu_torch import infer, kernels
+    from glow_tts_train_tpu_torch.config import load_config
+
+    config_path = repo / "configs" / "base.json"
+    corpus = workdir / "corpus"
+    if (corpus / "manifest.json").exists():
+        manifest = json.loads((corpus / "manifest.json").read_text())
+    else:
+        corpus, manifest = make_corpus(workdir, repo)
+    row = {"in_turns": text_ops_in_turns(workdir, config_path, device_line), "configs": {}}
+    n_blocks = load_config([config_path]).model.n_blocks_dec
+    rng = np.random.default_rng(SEED + 4)
+    stdin_text = "utt0|" + " ".join(map(str, rng.integers(1, 130, size=TEXT_OPS_REQUEST))) + "\n"
+    for name, override in TEXT_OPS_CONFIGS.items():
+        launches, steps, _, out, seconds = run_train_cli(
+            workdir, corpus, manifest, config_path, override, f"text_ops_{name}",
+            TEXT_OPS_CLI_STEPS, {}, corpus_symbols=False,
+        )
+        want = {"wn_forward": n_blocks, "mas": TEXT_OPS_CLI_STEPS,
+                "block_fwd_save_bf16": n_blocks * TEXT_OPS_CLI_STEPS,
+                "block_bwd_store_bf16": n_blocks * TEXT_OPS_CLI_STEPS,
+                **dict.fromkeys(TEXT_BF16_KERNELS, 0)}
+        got = {k: launches[k] for k in want}
+        if got != want:
+            fail(f"text op by op bf16 {name}: launches {got}, expected {want}")
+        ckpt = out / f"checkpoint_{1 + TEXT_OPS_CLI_STEPS}.npz"
+        config = out / f"config_{1 + TEXT_OPS_CLI_STEPS}.json"
+        mels = {}
+        for platform in (PLATFORM, "cpu"):
+            kernels.reset_launch_counts()
+            mels[platform] = cli_mels(infer.main, [str(ckpt), "--config", str(config), "--csv",
+                                                   "--noise-scale", "0", "--platform", platform],
+                                      stdin_text)["utt0"]
+            if platform == PLATFORM:
+                served = {k: kernels.launch_counts()[k] for k in SERVING_KERNELS}
+        want_served = {"prenet": 1, "encoder_layer": 0, "duration_stack": 1,
+                       "block_inverse": n_blocks}
+        if served != want_served:
+            fail(f"text op by op bf16 {name} serve: launches {served}, expected {want_served}")
+        card, cpu = mels[PLATFORM], mels["cpu"]
+        if card.shape != cpu.shape:
+            fail(f"text op by op bf16 {name} serve: mel {card.shape} on the card, {cpu.shape} on "
+                 "the CPU")
+        err, scale = float(np.abs(card - cpu).max()), float(np.abs(cpu).max())
+        if not (np.isfinite(card).all() and err <= MEL_RTOL * scale):
+            fail(f"text op by op bf16 {name} serve: max abs err {err} against {MEL_RTOL} x max "
+                 f"|mel| {scale}")
+        row["configs"][name] = {"override": override, "steps": steps, "cli_seconds": seconds,
+                                "launches": got, "serve_launches": served,
+                                "mel_frames": card.shape[1], "mel_max_abs_err": err,
+                                "mel_max_abs": scale}
+        print(f"text op by op bf16 {name}: {override['model']}, CLI {seconds:.1f} s (DDI, "
+              f"{TEXT_OPS_CLI_STEPS} steps), losses {[round(r['loss'], 4) for r in steps]}, "
+              f"launches {got}; served {TEXT_OPS_REQUEST} phonemes on the card (launches {served}) "
+              f"against the CPU: {card.shape[1]} frames, max abs err {err:.3e} (max |mel| "
+              f"{scale:.3f}) [{device_line}]")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -3963,6 +4474,16 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
 
     # ---- main path 6: export, and the exported voices served ----
     export_row = export_phase(workdir, repo, trained, trained_config, device_line)
+    torch.cuda.empty_cache()
+
+    # ---- main path 7: configs/large.json and configs/multispeaker.json as shipped ----
+    widths = {}
+    for name in WIDTH_CONFIGS:
+        widths[name] = width_phase(workdir, repo, name, device_line)
+        torch.cuda.empty_cache()
+
+    # ---- main path 8: bf16 with the text side op by op ----
+    text_ops = text_ops_bf16_phase(workdir, repo, device_line)
 
     print(json.dumps({"products": products}))
     print(json.dumps({"serve": serve_rows}))
@@ -3972,6 +4493,8 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
     print(json.dumps({"train_bf16": bf16_row}))
     print(json.dumps({"decoder_modes_bf16": {"runs": bf16_mode_rows, "steps": bf16_mode_steps}}))
     print(json.dumps({"export": export_row}))
+    print(json.dumps({"widths": widths}))
+    print(json.dumps({"text_ops_bf16": text_ops}))
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

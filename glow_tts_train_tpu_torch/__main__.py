@@ -100,7 +100,7 @@ def main(argv=None):
     # refused up front, before the corpus loads or a kernel builds
     try:
         check_trainable(config)
-    except (NotImplementedError, ValueError) as err:
+    except ValueError as err:
         parser.error(str(err))
     if args.platform == "cuda" and not torch.cuda.is_available():
         parser.error("--platform cuda: no CUDA device is available")

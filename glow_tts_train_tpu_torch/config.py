@@ -130,7 +130,7 @@ class TrainingConfig:
     bucket_size_text: int = 32
     bucket_size_mel: int = 128
     mesh_axis: str = "data"
-    # Microbatches per optimizer step (the port refuses values above 1).
+    # Microbatches per optimizer step: exact accumulation over row slices.
     grad_accum_steps: int = 1
     unroll_blocks: typing.Union[bool, str] = "auto"
     remat_blocks: typing.Union[bool, str] = "auto"

@@ -20,8 +20,8 @@ Device rule, in place of the JAX package's TPU resolvers: each kernel
 wrapper (``ops/*_cuda.py``) launches its CUDA kernel for CUDA tensors and
 runs its plain PyTorch version for CPU tensors.  Encoder configurations
 the kernel does not take (``window_size=None`` or ``block_length`` set)
-run op by op: in training on either device, as in the JAX package; in
-serving on the CPU only (CUDA raises).
+run their encoder layers op by op on either device, in training and in
+serving, as in the JAX package.
 """
 
 import dataclasses
@@ -289,15 +289,9 @@ def encoder_forward(
                 layer, xh, x_mask, hp.n_heads, hp.window_size
             )
         xh = xh * x_mask
-    elif xh.device.type == "cpu":
+    else:  # the JAX package's op-by-op encoder, on either device
         xh = attention.encoder_apply(
             w.encoder, xh, x_mask, hp.n_heads, hp.window_size, hp.block_length
-        )
-    else:
-        raise NotImplementedError(
-            "the CUDA encoder kernel needs window_size set and block_length "
-            "unset; other encoder configurations run on the CPU only "
-            "(ROADMAP, queue 1: encoder configurations)"
         )
     x_dp = xh
     if g is not None:
@@ -441,14 +435,17 @@ def encoder_forward_train(
     and the duration predictor on the detached encoder output (plus the
     speaker vector).  With ``hp.encoder_fuse`` each stack runs its kernel
     pair (``PrenetTrain``, ``EncoderLayerTrain``, ``DurationStackTrain``;
-    their plain versions on CPU tensors) and dropout is on when
-    ``seed_generator`` (CPU) is given, one seed per stack and layer drawn
-    from it; otherwise op by op with masks drawn from ``generator``.
-    ``compute_dtype`` bf16 (JAX ``encoder_forward``'s compute_dtype, the
-    fused stacks only): the embedding, the stacks' activations and their
-    product weights in bf16, the mask f32 (its values are 0 and 1, so a
-    masked bf16 value is the same bf16 value).  Returns (x_m, x_logs,
-    logw, x_mask)."""
+    their plain versions on CPU tensors; the encoder layers op by op where
+    the encoder kernel does not take the configuration, as in JAX) and
+    dropout is on when ``seed_generator`` (CPU) is given, one seed per
+    stack and layer drawn from it; otherwise each stack op by op
+    (``attention.prenet_apply``, ``encoder_apply``,
+    ``duration_predictor_apply``) with masks drawn from ``generator``.
+    ``compute_dtype`` bf16 (JAX ``encoder_forward``'s compute_dtype): the
+    embedding, the stacks' activations and their product weights in bf16,
+    rounded as the kernels round them or, op by op, as XLA does; the mask
+    f32 (its values are 0 and 1, so a masked bf16 value is the same bf16
+    value).  Returns (x_m, x_logs, logw, x_mask)."""
     t_x = x.shape[1]
     cd = compute_dtype
     if cd == torch.float32:
@@ -458,8 +455,6 @@ def encoder_forward_train(
     x_mask = time_mask(x_lengths, t_x).contiguous()
     fused = hp.encoder_fuse
     drop = seed_generator is not None
-    if cd != torch.float32 and not fused:
-        raise NotImplementedError("bf16 runs the text side through its kernels only")
 
     def masked(a):
         return (a * x_mask).to(a.dtype)
@@ -469,11 +464,11 @@ def encoder_forward_train(
         return (p, attention.draw_seed(seed_generator)) if on else (0.0, 0)
 
     if hp.prenet:
-        pw = text_cuda.prenet_weights(params["prenet"], cd)
         if fused:
+            pw = text_cuda.prenet_weights(params["prenet"], cd)
             xh = text_cuda.prenet_train(pw, xh.contiguous(), x_mask, *rate_and_seed(0.5))
         else:
-            xh = text_cuda.prenet_plain(pw, xh, x_mask, 0.5, generator)
+            xh = attention.prenet_apply(params["prenet"], xh, x_mask, 0.5, generator)
     layers = [tree_index(params["encoder"], i) for i in range(hp.n_layers_enc)]
     xh = attention.encoder_apply(
         layers, xh.contiguous(), x_mask, hp.n_heads, hp.window_size, hp.block_length,
@@ -484,14 +479,16 @@ def encoder_forward_train(
         x_dp = torch.cat([x_dp, g.expand(-1, t_x, -1).to(cd)], dim=-1)
     x_m = masked(conv1d(xh, params["proj_m"]))
     x_logs = torch.zeros_like(x_m) if hp.mean_only else masked(conv1d(xh, params["proj_s"]))
-    dw = text_cuda.dp_weights(params["proj_w"], cd)
     if fused:
+        dw = text_cuda.dp_weights(params["proj_w"], cd)
         dp = text_cuda.duration_stack_train(
             dw, x_dp.contiguous(), x_mask, *rate_and_seed(hp.p_dropout)
         )
+        logw = masked(conv1d(masked(dp), params["proj_w"]["proj"]))
     else:
-        dp = text_cuda.duration_stack_plain(dw, x_dp, x_mask, hp.p_dropout, generator)
-    logw = masked(conv1d(masked(dp), params["proj_w"]["proj"]))
+        logw = attention.duration_predictor_apply(
+            params["proj_w"], x_dp, x_mask, hp.p_dropout, generator
+        )
     return x_m, x_logs, logw, x_mask
 
 

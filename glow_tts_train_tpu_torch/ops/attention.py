@@ -1,20 +1,25 @@
-"""Relative-position multi-head attention, conv FFN and the text encoder
-stack, op by op (glow_tts_train_tpu ops/attention.py), on the JAX
+"""Relative-position multi-head attention, conv FFN, the text encoder
+stack, the prenet and the duration predictor, op by op
+(glow_tts_train_tpu ops/attention.py and models/glow_tts.py), on the JAX
 param layout: 1x1 convs ``{"w": [1, c, c], "b"}``, rel-pos tables
-``[heads_rel, 2w+1, d]``.
+``[heads_rel, 2w+1, d]``, the prenet's layers stacked ``[n_layers, ...]``.
 
-These are the plain paths: encoder configurations the CUDA encoder kernel
-does not take (``window_size=None``, ``block_length`` set), through
+These are the op-by-op paths: encoder configurations the CUDA encoder
+kernel does not take (``window_size=None``, ``block_length`` set), through
 :func:`attention_core` the attention of the encoder kernel's plain
-version, and the op-by-op training encoder (``encoder_fuse: false``), with
-the JAX package's dropout sites: attention probabilities, attention
-output, FFN hidden and FFN output (the training prenet and duration
-predictor are ``text_cuda``'s plain versions with :func:`dropout`).
-Masks come from an explicit ``torch.Generator`` (JAX draws from
-``jax.random``, a different stream).  :func:`encoder_apply` with
-``fused=True`` is the training encoder through the kernels.  Masked scores are filled with -1e4,
-not -inf: a fully masked (padded) query row then gets a uniform softmax
-instead of NaN.
+version, and the op-by-op training text side (``encoder_fuse: false``:
+:func:`prenet_apply`, :func:`encoder_apply`,
+:func:`duration_predictor_apply`), with the JAX package's dropout sites.
+Each runs in its input's dtype as the JAX package's XLA path does: in
+bf16 (``fp16_run``) every conv's output and bias bf16, LayerNorm in f32
+rounded back, attention scores, softmax and the probabilities' products
+accumulated in f32, the probabilities and the heads' output rounded to
+bf16; the mask multiplies in that dtype (its values are 0 and 1).  Masks
+come from an explicit ``torch.Generator`` (JAX draws from ``jax.random``,
+a different stream).  :func:`encoder_apply` with ``fused=True`` is the
+training encoder through the kernels.  Masked scores are filled with
+-1e4, not -inf: a fully masked (padded) query row then gets a uniform
+softmax instead of NaN.
 """
 
 import math
@@ -23,6 +28,7 @@ import typing
 import torch
 import torch.nn.functional as F
 
+from ..tree import tree_index
 from .conv import conv1d
 from .norms import layer_norm
 
@@ -33,12 +39,14 @@ def dropout(
     x: torch.Tensor, p: float, generator: typing.Optional[torch.Generator]
 ) -> torch.Tensor:
     """Inverted dropout (torch semantics): keep with probability 1 - p and
-    scale by 1 / (1 - p); identity when ``generator`` is None or p == 0.
-    The keep mask is drawn on ``generator``'s device."""
+    scale by 1 / (1 - p), the scale in x's dtype as JAX holds it;
+    identity when ``generator`` is None or p == 0.  The keep mask is drawn
+    on ``generator``'s device."""
     if generator is None or p == 0.0:
         return x
     keep = torch.rand(x.shape, generator=generator, device=generator.device) >= p
-    return x * keep.to(device=x.device, dtype=x.dtype) * (1.0 / (1.0 - p))
+    scale = torch.tensor(1.0 / (1.0 - p), dtype=x.dtype, device=x.device)
+    return x * keep.to(device=x.device, dtype=x.dtype) * scale
 
 
 def get_relative_embeddings(
@@ -88,18 +96,21 @@ def attention_core(
     1 = attend.  rel_k/rel_v [heads_rel, 2w+1, d] when ``window_size`` is
     set.  Dropout on the attention probabilities [b, heads, t, t]: drawn
     from ``generator``, or ``drop_probs`` applied to them (the encoder
-    kernel's per-head keep masks)."""
+    kernel's per-head keep masks).  In q's dtype: for bf16 the products
+    take bf16 values and accumulate in f32, the softmax is f32 and its
+    probabilities bf16 (JAX ``mha_apply``'s ``preferred_element_type``)."""
     b, t, ch = q.shape
     d = ch // n_heads
+    cd = q.dtype
 
     def split_heads(u):
-        return u.reshape(b, t, n_heads, d).transpose(1, 2)
+        return u.reshape(b, t, n_heads, d).transpose(1, 2).float()
 
     q, k, v = split_heads(q), split_heads(k), split_heads(v)
     scale = 1.0 / math.sqrt(d)
     scores = torch.einsum("bhtd,bhsd->bhts", q, k) * scale
     if window_size is not None:
-        rk = get_relative_embeddings(rel_k.to(q.dtype), t, window_size)
+        rk = get_relative_embeddings(rel_k.to(cd).float(), t, window_size)
         # [1, m, d] shared across heads or [h, m, d] per head
         rel_logits = torch.einsum("bhld,hmd->bhlm", q, rk.expand(n_heads, -1, -1))
         scores = scores + relative_to_absolute(rel_logits) * scale
@@ -109,16 +120,16 @@ def attention_core(
         idx = torch.arange(t, device=q.device)
         band = (idx[:, None] - idx[None, :]).abs() <= block_length
         scores = torch.where(band[None, None], scores, fill)
-    p_attn = dropout(torch.softmax(scores, dim=-1), p_dropout, generator)
+    p_attn = dropout(torch.softmax(scores, dim=-1).to(cd), p_dropout, generator)
     if drop_probs is not None:
         p_attn = drop_probs(p_attn)
-    out = torch.einsum("bhts,bhsd->bhtd", p_attn, v)
+    out = torch.einsum("bhts,bhsd->bhtd", p_attn.float(), v)
     if window_size is not None:
-        rv = get_relative_embeddings(rel_v.to(q.dtype), t, window_size)
+        rv = get_relative_embeddings(rel_v.to(cd).float(), t, window_size)
         out = out + torch.einsum(
-            "bhlm,hmd->bhld", absolute_to_relative(p_attn), rv.expand(n_heads, -1, -1)
+            "bhlm,hmd->bhld", absolute_to_relative(p_attn).float(), rv.expand(n_heads, -1, -1)
         )
-    return out.transpose(1, 2).reshape(b, t, ch)
+    return out.to(cd).transpose(1, 2).reshape(b, t, ch)
 
 
 def mha_apply(
@@ -155,8 +166,9 @@ def ffn_apply(
     p_dropout: float = 0.0,
     generator: typing.Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    x = dropout(torch.relu(conv1d(x * x_mask, params["conv_1"])), p_dropout, generator)
-    return conv1d(x * x_mask, params["conv_2"]) * x_mask
+    m = x_mask.to(x.dtype)
+    x = dropout(torch.relu(conv1d(x * m, params["conv_1"])), p_dropout, generator)
+    return conv1d(x * m, params["conv_2"]) * m
 
 
 def encoder_layer_apply(
@@ -172,7 +184,7 @@ def encoder_layer_apply(
     """One encoder layer: attention -> residual LN -> FFN -> residual LN."""
     m = x_mask[:, :, 0]
     attn_mask = m[:, None, :] * m[:, :, None]
-    x = x * x_mask
+    x = x * x_mask.to(x.dtype)
     y = mha_apply(
         params["attn"], x, attn_mask, n_heads, window_size, block_length, p_dropout, generator
     )
@@ -230,4 +242,43 @@ def encoder_apply(
         x = encoder_layer_apply(
             layer, x, x_mask, n_heads, window_size, block_length, p_dropout, generator
         )
-    return x * x_mask
+    return x * x_mask.to(x.dtype)
+
+
+def prenet_apply(
+    params: Params,
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    p_dropout: float = 0.5,
+    generator: typing.Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """The ConvReluNorm prenet op by op (JAX ``prenet_apply``): per layer
+    conv -> LayerNorm -> ReLU -> dropout, then x plus the projection of
+    the last layer's output, masked.  ``params``: ``{"layers": {"conv",
+    "norm"} stacked [n_layers, ...], "proj"}``."""
+    m = x_mask.to(x.dtype)
+    layers = params["layers"]
+    cur = x
+    for i in range(layers["conv"]["w"].shape[0]):
+        layer = tree_index(layers, i)
+        cur = layer_norm(conv1d(cur * m, layer["conv"]), layer["norm"])
+        cur = dropout(torch.relu(cur), p_dropout, generator)
+    return (x + conv1d(cur, params["proj"])) * m
+
+
+def duration_predictor_apply(
+    params: Params,
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    p_dropout: float = 0.0,
+    generator: typing.Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """The duration predictor op by op (JAX ``duration_predictor_apply``):
+    x [b, t, c] -> log-durations [b, t, 1]; per layer conv -> ReLU ->
+    LayerNorm -> dropout (the norm after the ReLU, unlike the prenet),
+    then the 1x1 projection, masked."""
+    m = x_mask.to(x.dtype)
+    for conv, norm in (("conv_1", "norm_1"), ("conv_2", "norm_2")):
+        x = layer_norm(torch.relu(conv1d(x * m, params[conv])), params[norm])
+        x = dropout(x, p_dropout, generator)
+    return conv1d(x * m, params["proj"]) * m

@@ -27,7 +27,9 @@ def conv1d(
     x: torch.Tensor, params: Params, dilation: int = 1
 ) -> torch.Tensor:
     """x [b, t, c_in] -> [b, t, c_out] with torch-style symmetric "same"
-    padding ``(k*d - d) // 2``."""
+    padding ``(k*d - d) // 2``, in x's dtype: the weight and the bias cast
+    to it.  In bf16 as XLA computes it: the product accumulated in f32 and
+    rounded to bf16, then the bias added in bf16 (a second rounding)."""
     w = weight_norm_effective(params) if "v" in params else params["w"]
     w = w.to(x.dtype)
     k = w.shape[0]
@@ -35,10 +37,12 @@ def conv1d(
     if k == 1:
         return x @ w[0] + b
     pad = (k * dilation - dilation) // 2
+    fused_bias = x.dtype == torch.float32
     out = F.conv1d(
-        x.transpose(1, 2), w.permute(2, 1, 0), b, padding=pad, dilation=dilation
-    )
-    return out.transpose(1, 2)
+        x.transpose(1, 2), w.permute(2, 1, 0), b if fused_bias else None, padding=pad,
+        dilation=dilation,
+    ).transpose(1, 2)
+    return out if fused_bias else out + b
 
 
 def offsets(kernel_size: int, dilation: int) -> typing.Tuple[int, ...]:

@@ -58,7 +58,6 @@ import torch
 
 from .. import kernels
 from . import bf16
-from .attention import dropout
 from .conv import conv1d, conv_taps, im2col
 from .norms import layer_norm_affine
 from .wn_cuda import drop_args, site_dropout
@@ -132,17 +131,15 @@ def prenet_plain(
     x: torch.Tensor,
     x_mask: torch.Tensor,
     p_dropout: float = 0.0,
-    generator: typing.Optional[torch.Generator] = None,
     seed: typing.Optional[int] = None,
     gates: typing.Optional[typing.Sequence[torch.Tensor]] = None,
     saves: typing.Optional[dict] = None,
 ) -> torch.Tensor:
     """Plain version of :func:`prenet` (text_pallas.py ``_prenet_fwd_math``);
     differentiable.  Dropout after each ReLU: the kernel's hash masks when
-    ``seed`` is given, else drawn from ``generator`` (the training encoder
-    with ``encoder_fuse: false``), else none.  ``gates`` (per layer, where
-    the dropped ReLU output is positive) replace the ReLU and the keep
-    mask; ``saves`` receives the ReLU inputs and this run's gates."""
+    ``seed`` is given, else none.  ``gates`` (per layer, where the dropped
+    ReLU output is positive) replace the ReLU and the keep mask; ``saves``
+    receives the ReLU inputs and this run's gates."""
     w, b, gamma, beta, wp, bp = weights
     taps = w.shape[1] // x.shape[-1]
     n_layers = w.shape[0]
@@ -154,7 +151,7 @@ def prenet_plain(
         elif seed is not None:
             cur = site_dropout(torch.relu(y), seed, l, n_layers, p_dropout)
         else:
-            cur = dropout(torch.relu(y), p_dropout, generator)
+            cur = torch.relu(y)
         _record(saves, y, cur)
     return (x + cur @ wp + bp) * x_mask
 
@@ -312,15 +309,13 @@ def duration_stack_plain(
     x: torch.Tensor,
     x_mask: torch.Tensor,
     p_dropout: float = 0.0,
-    generator: typing.Optional[torch.Generator] = None,
     seed: typing.Optional[int] = None,
     gates: typing.Optional[typing.Sequence[torch.Tensor]] = None,
     saves: typing.Optional[dict] = None,
 ) -> torch.Tensor:
     """Plain version of :func:`duration_stack` (text_pallas.py
     ``_dp_fwd_math``); differentiable.  Dropout after each LayerNorm: the
-    kernel's hash masks when ``seed`` is given, else drawn from
-    ``generator``, else none.  ``gates`` (per layer, where the ReLU output
+    kernel's hash masks when ``seed`` is given, else none.  ``gates`` (per layer, where the ReLU output
     is positive) replace the ReLU; ``saves`` receives the ReLU inputs and
     this run's gates."""
     w1, b1, g1, be1, w2, b2, g2, be2 = weights
@@ -333,8 +328,6 @@ def duration_stack_plain(
         cur = layer_norm_affine(r, g, be)
         if seed is not None:
             cur = site_dropout(cur, seed, l, 2, p_dropout)
-        else:
-            cur = dropout(cur, p_dropout, generator)
     return cur
 
 

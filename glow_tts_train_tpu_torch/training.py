@@ -17,9 +17,9 @@ pair, the default) or op by op around the WN stack's kernels, with
 live only inside its backward).  ``fp16_run`` computes in bf16 as the
 JAX package does (bf16 activations and product operands, f32 params,
 gradients, Adam state, logdet, logp/MAS and losses) in each of the
-decoder's four modes; with ``encoder_fuse: false`` (the op-by-op text
-side) it is refused, naming the ROADMAP item by title (bf16 in the other
-training modes).  Checkpoints
+decoder's four modes, the text side through its kernels or, with
+``encoder_fuse: false`` or an encoder configuration the encoder kernel
+does not take, op by op as XLA rounds it.  Checkpoints
 carry the Adam state (``checkpoint.save_checkpoint``), and ``profile_dir``
 writes a ``torch.profiler`` trace of steps 5-15.
 """
@@ -102,18 +102,11 @@ def initialize_model(config, batch: dict, device) -> GlowTTS:
 
 
 def check_trainable(config) -> None:
-    """Refuse what this trainer does not do yet, naming the ROADMAP item
-    (``NotImplementedError``: ``fp16_run`` with ``encoder_fuse: false``),
-    and a decoder-mode key (``wn_impl``, ``wn_residuals``,
-    ``flow_block_fuse``, ``flow_block_fuse_reverse``) whose value it cannot
-    honour (``ValueError``)."""
-    hp = hyper_from_config(config)
-    if config.fp16_run and not hp.encoder_fuse:
-        raise NotImplementedError(
-            "fp16_run with encoder_fuse false is not ported yet (ROADMAP, queue 1: "
-            "bf16 in the other training modes); bf16 trains the text side through its "
-            "kernels (encoder_fuse \"auto\"), in any decoder mode"
-        )
+    """Refuse a decoder-mode key (``wn_impl``, ``wn_residuals``,
+    ``flow_block_fuse``, ``flow_block_fuse_reverse``) whose value this
+    trainer cannot honour, and a ``checkpoint_format`` other than "npz"
+    (``ValueError``)."""
+    hyper_from_config(config)
     if config.checkpoint_format != "npz":
         raise ValueError(
             f"checkpoint_format {config.checkpoint_format!r}: this trainer writes .npz "

@@ -199,13 +199,36 @@ def test_forward_gen_kernel_path_matches_plain_path(dev, over):
     assert torch.isfinite(cu[0][0]).all()
 
 
-def test_cuda_raises_for_configs_the_encoder_kernel_does_not_take(dev):
+def test_cuda_serves_configs_the_encoder_kernel_does_not_take_op_by_op(dev):
+    """``window_size: null``, which the encoder kernel does not take, serves
+    on the card with its encoder layers op by op (no encoder-layer launch;
+    the prenet, duration stack and inverse blocks through their kernels),
+    equal to the CPU path: logw, y_lengths and the mel."""
     hp = model.hyper_from_config(tiny_config(window_size=None))
-    w = model.store_inverse(checkpoint.params_from_numpy(
-        checkpoint.random_params(hp, 0), hp), hp).to(dev)
-    x = torch.tensor([[3, 7, 12]], device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.encoder_forward(w, hp, x, torch.tensor([3], device=dev))
+    assert not hp.encoder_kernel_fits
+    w_cpu = model.store_inverse(checkpoint.params_from_numpy(
+        checkpoint.random_params(hp, 0), hp), hp)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.integers(1, hp.n_vocab, size=(2, 11)))
+    xl = torch.tensor([11, 7])
+    x[1, 7:] = 0
+    eps = torch.from_numpy(rng.standard_normal((2, 72, hp.out_channels)).astype(np.float32))
+    outs = []
+    for d, w in ((dev, w_cpu.to(dev)), (torch.device("cpu"), w_cpu)):
+        before = kernels.launch_counts()
+        outs.append(model.forward_gen(w, hp, x.to(d), xl.to(d), 72, noise_scale=0.667,
+                                      eps=eps.to(d)))
+        if d.type == "cuda":
+            after = kernels.launch_counts()
+            launched = {k: after[k] - before[k]
+                        for k in ("prenet", "encoder_layer", "duration_stack", "block_inverse")}
+            assert launched == {"prenet": 1, "encoder_layer": 0, "duration_stack": 1,
+                                "block_inverse": hp.n_blocks_dec}
+    (cu, cpu) = outs
+    assert torch.equal(cu[3].cpu(), cpu[3])
+    _close(cu[2][1], cpu[2][1])  # logw
+    _close(cu[0][0], cpu[0][0], MEL_ATOL)  # mel
+    assert torch.isfinite(cu[0][0]).all()
 
 
 def test_wrappers_check_their_operands(dev):

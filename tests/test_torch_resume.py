@@ -3,8 +3,7 @@ glow_tts_train_tpu_torch, on the CPU: the optimizer fingerprint against
 the JAX package's, Adam state carried port -> JAX and JAX -> port, a
 resumed run against an uninterrupted one (the port's own, bit for bit, and
 the JAX CLI's), the train CLI's tolerant ``--checkpoint`` merge,
-``--profile-dir``, and the refusal of ``fp16_run`` by the ROADMAP item's
-title.
+``--profile-dir``, and ``fp16_run`` accepted in every training mode.
 """
 
 import json
@@ -293,22 +292,14 @@ def test_profile_dir_writes_a_trace(corpus, tmp_path):  # noqa: F811
 @pytest.mark.parametrize("mode", [
     {}, {"encoder_fuse": False}, {"flow_block_fuse": False}, {"wn_residuals": "recompute"},
 ], ids=["default", "encoder_fuse_false", "flow_block_fuse_false", "recompute"])
-def test_fp16_refusal_names_bf16_training(mode):
-    """``fp16_run`` trains in bf16 with the text kernels in each of the
-    decoder's modes (the fused block or op by op, store or recompute):
-    ``check_trainable`` accepts them.  The op-by-op text side
-    (``encoder_fuse: false``), whose bf16 version is not ported, is
-    refused with the ROADMAP item named by its title ("bf16 in the other
-    training modes"), which a renumbering of the queue cannot make
-    wrong."""
+def test_fp16_run_trainable_in_every_mode(mode):
+    """``fp16_run`` trains in bf16 in each of the decoder's modes (the fused
+    block or op by op, store or recompute) and with the text side through
+    its kernels or op by op (``encoder_fuse: false``, as XLA rounds it):
+    ``check_trainable`` accepts them all."""
     config = tiny_config()
     config.fp16_run = True
     config.encoder_fuse = "auto"
     for key, value in mode.items():
         setattr(config, key, value)
-    if "encoder_fuse" not in mode:
-        training.check_trainable(config)
-        return
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP, queue 1: bf16 in the other training modes"):
-        training.check_trainable(config)
+    training.check_trainable(config)

@@ -303,10 +303,10 @@ def test_train_cli_fresh_init_with_ddi(corpus):
 def test_train_cli_cuda_without_gpu_and_unported_options_exit_non_zero(corpus, tmp_path):
     """--platform cuda (the default) never drops to the CPU; fp16_run
     (refused until bf16 training was ported) trains in bf16 with the text
-    kernels and writes checkpoints the JAX loader reads; fp16_run in a mode
-    without bf16 kernels (``encoder_fuse: false``, the corpus config's) is
-    refused with the ROADMAP item named by its title; grad_accum_steps > 1,
-    refused until it was ported, trains."""
+    kernels and writes checkpoints the JAX loader reads; fp16_run with the
+    text side op by op (``encoder_fuse: false``, the corpus config's;
+    refused until its bf16 version was ported) trains; grad_accum_steps >
+    1, refused until it was ported, trains."""
     probe = subprocess.run(
         [sys.executable, "-c", "import torch; print(torch.cuda.is_available())"],
         capture_output=True, text=True, env=_env(), timeout=120,
@@ -315,23 +315,18 @@ def test_train_cli_cuda_without_gpu_and_unported_options_exit_non_zero(corpus, t
         proc = _train("glow_tts_train_tpu_torch", corpus, "nogpu")
         assert proc.returncode == 2 and "no CUDA device" in proc.stderr
     cases = (
-        ("fp16_run", {"fp16_run": True, "encoder_fuse": "auto"}, False),
-        ("fp16_run_op_by_op", {"fp16_run": True}, True),
-        ("grad_accum_steps", {"grad_accum_steps": 2}, False),
+        ("fp16_run", {"fp16_run": True, "encoder_fuse": "auto"}),
+        ("fp16_run_op_by_op", {"fp16_run": True}),
+        ("grad_accum_steps", {"grad_accum_steps": 2}),
     )
-    for tag, over, refused in cases:
+    for tag, over in cases:
         override = tmp_path / f"{tag}.json"
         override.write_text(json.dumps(over))
         proc = _train("glow_tts_train_tpu_torch", corpus, tag, "--platform", "cpu",
                       "--config", str(override))
-        if refused:
-            assert proc.returncode == 2, proc.stderr[-2000:]
-            assert "ROADMAP, queue 1: bf16 in the other training modes" in proc.stderr, \
-                proc.stderr[-2000:]
-        else:
-            assert proc.returncode == 0 and "ROADMAP" not in proc.stderr, proc.stderr[-2000:]
-            lines = [json.loads(l) for l in open(corpus / f"{tag}.jsonl")]
-            assert len(lines) == 2 and all(np.isfinite(l["avg_loss"]) for l in lines)
+        assert proc.returncode == 0 and "ROADMAP" not in proc.stderr, proc.stderr[-2000:]
+        lines = [json.loads(l) for l in open(corpus / f"{tag}.jsonl")]
+        assert len(lines) == 2 and all(np.isfinite(l["avg_loss"]) for l in lines)
     # the bf16 run's last checkpoint through the JAX package's loader
     ckpt = max((corpus / "fp16_run").glob("checkpoint_*.npz"),
                key=lambda p: int(p.stem.split("_")[1]))
