@@ -180,14 +180,33 @@ Phases, each fatal on failure:
     (``--speaker`` for multispeaker), kernel path against the plain path on
     the card, the four serving kernels against their plain versions and
     each mel within MEL_RTOL of max |mel|;
-16. (last) trains in bf16 with the text side op by op: ``configs/base.json``
+16. trains in bf16 with the text side op by op: ``configs/base.json``
     as shipped with ``encoder_fuse: false`` against the text kernels from
     one init, in turns (``text_ops_in_turns``: losses within
     TEXT_OPS_LOSS_RTOL_BF16 and TEXT_OPS_MLE_RTOL_BF16, three times JAX's
     own op-by-op-vs-fused gap), then ``window_size: null`` and
     ``block_length: 4`` through the train CLI (no text kernel launched), each
     checkpoint serving one request on the card (its encoder layers op by
-    op) against the CPU.
+    op) against the CPU;
+17. (last) data parallel (``data_parallel_phase``): two ranks of this
+    script (``--data-parallel-rank``, the kernels built once before they
+    start) on card 0 over gloo (NCCL refuses two ranks on one card),
+    against one process on the concatenated batches (each rank's rows in
+    rank order): ``configs/base.json`` at full width in f32, global batch
+    16, dropout on, from one init: DDI's ActNorm within DP_DDI_RTOL /
+    DP_DDI_ATOL, then DP_STEPS steps on each rank's own MAS paths (cells
+    differing at most ACCUM_MAX_PATH_DIFF) and on the one-process run's
+    (the four metrics within the accumulation's tolerances); bf16 as
+    shipped (batch 32) DP_STEPS steps, each loss within DP_BF16_LOSS_RTOL;
+    the ranks' params equal bit for bit, each rank's launches the plan of
+    its local batch, the gradient all-reduce's bytes and ms; then the
+    train CLI through ``python -m torch.distributed.run --standalone`` over
+    NCCL on min(2, device_count) GPUs (``configs/base.json`` as shipped,
+    one epoch): rank 0 alone writes one checkpoint, its config and one
+    metrics line, and the checkpoint serves through the infer CLI at b=1
+    within MEL_RTOL of max |mel| of the plain path on the card; on a
+    machine with one GPU, two ranks on it under NCCL exit 2 (refused
+    before NCCL fails).
 
 The profiled train step also counts its device products: every product the
 block chains send to the tensor cores must run there (10 conv-GEMMs per
@@ -216,8 +235,8 @@ terms, a flow block, a monotonic alignment).
 
 Prints the GPU's name and power limit, a ``{"products": [...]}``, a
 ``{"decoder_modes": {...}}``, a ``{"train_bf16": {...}}``, an
-``{"export": {...}}``, a ``{"widths": {...}}``, a ``{"text_ops_bf16": {...}}``
-and a ``{"kernels": [...]}`` JSON line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU
+``{"export": {...}}``, a ``{"widths": {...}}``, a ``{"text_ops_bf16": {...}}``,
+a ``{"data_parallel": {...}}`` and a ``{"kernels": [...]}`` JSON line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU
 or outside a checkout of the repository.
 """
 
@@ -231,6 +250,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import typing
 from pathlib import Path
 
 SEED = 0
@@ -4244,9 +4264,551 @@ def text_ops_bf16_phase(workdir: Path, repo: Path, device_line: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# data parallel: two ranks over gloo on this card (the library), then the
+# train CLI under torch.distributed.run over NCCL
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2
+# the f32 check: configs/base.json at full width, global batch 16 (8 a rank),
+# dropout on, the main run's warm-up
+DP_F32_OVERRIDE = {"fp16_run": False, "batch_size": 16, "warmup_steps": 50}
+DP_STEPS = 3
+# DDI's ActNorm on 2 ranks against one process on the concatenated batch
+# (tests/test_parallel.py's tolerances)
+DP_DDI_RTOL, DP_DDI_ATOL = 1e-4, 1e-5
+# the f32 steps on one alignment are held to the accumulation's tolerances,
+# but for the grad norm after the first step: by then the ranks' params
+# differ from one process's where Adam's first updates took the sign of a
+# round-off gradient (lr sign(g), up to 2 lr an element), and the
+# grad norm, a sum over every element, moves with them where the losses
+# barely do (5.9e-4 relative at step 3 on four ranks, an H100 each; 7.7e-5
+# on two sharing one)
+DP_GRAD_NORM_RTOL = 2e-3
+# bf16 as shipped (batch 32, 16 a rank): each step's loss, MLE and duration
+# loss within this of the one-process run's, relative
+DP_BF16_LOSS_RTOL = 1e-2
+# the gradient all-reduce timed alone this many times, each rank
+DP_ALLREDUCE_RUNS = 10
+DP_RANK_TIMEOUT = 480
+DP_CLI_TIMEOUT = 480
+DP_METRICS = ("loss", "mle_loss", "duration_loss", "grad_norm")
+
+
+def dp_global_batches(corpus: Path, config, n: int) -> list:
+    """The first ``n`` global batches the unsharded pipeline gives for
+    ``config`` (epochs in turn), as host arrays."""
+    from glow_tts_train_tpu_torch.data import DataPipeline, SpeakerSource, build_dataset
+
+    dataset = build_dataset([SpeakerSource(0, corpus / "phonemes.csv", corpus / "mels")],
+                            config, mels_are_dirs=True, multispeaker=False)
+    pipeline = DataPipeline(dataset, config, batch_size=config.batch_size)
+    out = []
+    while len(out) < n:
+        out += list(pipeline.batches())
+    return out[:n]
+
+
+def dp_rows(batch: dict, rank: int, world: int) -> dict:
+    """Rank ``rank``'s rows of a global batch: the global batch is the
+    ranks' local batches in rank order."""
+    rows = next(iter(batch.values())).shape[0] // world
+    return {k: v[rank * rows:(rank + 1) * rows] for k, v in batch.items()}
+
+
+def dp_sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def dp_steps(config, state, batches: list, device, pinned=None, rank: int = 0,
+             world: int = 1) -> dict:
+    """DP_STEPS train steps of ``state`` on this rank's rows of ``batches``,
+    dropout on (both generators seeded as ``training.train`` seeds them),
+    each step's MAS path recorded and, given ``pinned`` (the one-process
+    run's paths a step), replaced by its rows of it after the kernel ran
+    -> metrics, step ms, paths, launches."""
+    import torch
+
+    from glow_tts_train_tpu_torch import kernels, training
+    from glow_tts_train_tpu_torch.ops import mas_cuda
+
+    step_fn = training.make_train_step(config)
+    generator, seed_generator = torch.Generator(device=device), torch.Generator()
+    kernel_mas = mas_cuda.maximum_path
+    paths, metrics, step_ms = [], [], []
+
+    def mas(logp, mask):
+        path = kernel_mas(logp, mask)
+        if pinned is not None:
+            rows = path.shape[0]
+            path = pinned[len(paths)][rank * rows:(rank + 1) * rows].to(path)
+        paths.append(path.to(torch.uint8).cpu())
+        return path
+
+    kernels.reset_launch_counts()
+    mas_cuda.maximum_path = mas
+    try:
+        for batch in batches:
+            tb = training.batch_to(dp_rows(batch, rank, world), device)
+            for g in (generator, seed_generator):
+                g.manual_seed(training.dropout_seed(config.seed, state.step))
+            dp_sync(device)
+            start = time.perf_counter()
+            m = step_fn(state, tb, generator, seed_generator)
+            dp_sync(device)
+            step_ms.append((time.perf_counter() - start) * 1e3)
+            metrics.append({k: float(m[k]) for k in DP_METRICS})
+    finally:
+        mas_cuda.maximum_path = kernel_mas
+    return {"metrics": metrics, "step_ms": step_ms, "paths": paths,
+            "launches": kernels.launch_counts()}
+
+
+def dp_params_digest(model) -> str:
+    import hashlib
+
+    digest = hashlib.sha256()
+    for key, p in model.flat().items():
+        digest.update(key.encode())
+        digest.update(p.detach().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def dp_rank_main(spec_path: str, rank: int) -> int:
+    """One rank of the data-parallel phase (``--data-parallel-rank SPEC
+    RANK``): joins the spec's group (gloo on card 0, or NCCL on card
+    ``rank``), runs each of the spec's runs
+    (DDI over the global batch where asked; DP_STEPS steps on its own MAS
+    paths and DP_STEPS on the one-process run's, each from the same
+    state), times the gradient all-reduce alone, and writes a JSON of its
+    results beside the spec."""
+    import datetime
+
+    import numpy as np
+    import torch
+
+    repo = Path(__file__).resolve().parent
+    sys.path.insert(0, str(repo))
+    from glow_tts_train_tpu_torch import kernels, parallel, training
+    from glow_tts_train_tpu_torch.config import load_config
+    from glow_tts_train_tpu_torch.models import hyper_from_config
+
+    spec = json.loads(Path(spec_path).read_text())
+    world = spec["world"]
+    local_rank = rank if spec["own_cards"] else 0
+    device = parallel.join(parallel.Launch(rank, world, local_rank, spec["init"]),
+                           spec["platform"], backend=spec["backend"],
+                           timeout=datetime.timedelta(seconds=DP_RANK_TIMEOUT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {"rank": rank, "world": parallel.world(), "device": str(device), "card": (
+        torch.cuda.get_device_name(device) if device.type == "cuda" else "host")}
+    try:
+        for run in spec["runs"]:
+            config = load_config([run["config"]])
+            hp = hyper_from_config(config)
+            with np.load(run["batches"]) as data:
+                batches = [{k.split("/", 1)[1]: data[k] for k in data.files
+                            if k.startswith(f"{i}/")} for i in range(DP_STEPS + 1)]
+            with np.load(run["params"]) as data:
+                flat = {k: data[k] for k in data.files}
+            with np.load(run["paths"]) as data:
+                pinned = [torch.from_numpy(data[str(i)]) for i in range(DP_STEPS)]
+            model = training.trainable_model(flat, hp, device)
+            row = {}
+            if run["ddi"]:
+                kernels.reset_launch_counts()
+                training.actnorm_init(model, config, training.batch_to(
+                    dp_rows(batches[0], rank, world), device))
+                dp_sync(device)
+                row["ddi_launches"] = {k: v for k, v in kernels.launch_counts().items() if v}
+                params = model.flat()
+                np.savez(Path(spec["out"]) / f"{run['name']}_ddi.rank{rank}.npz",
+                         **{n: params[f"decoder/blocks/actnorm/{n}"].detach().cpu().numpy()
+                            for n in ("logs", "bias")})
+            base = training.TrainState(model)
+            for mode, pin in (("own", None), ("pinned", pinned)):
+                state = clone_state(base, hp, device)
+                out = dp_steps(config, state, batches[1:], device, pin, rank, world)
+                differing = [int((p != q[rank * p.shape[0]:(rank + 1) * p.shape[0]]).sum())
+                             for p, q in zip(out["paths"], pinned)]
+                row[mode] = {"metrics": out["metrics"], "step_ms": out["step_ms"],
+                             "launches": {k: v for k, v in out["launches"].items() if v},
+                             "path_cells_differing": differing,
+                             "path_cells": [int(p.sum()) for p in out["paths"]],
+                             "params_sha256": dp_params_digest(state.model)}
+                if mode == "pinned" and rank == 0 and run.get("reference"):
+                    with np.load(run["reference"]) as data:
+                        diffs = {k: float(np.abs(p.detach().cpu().numpy() - data[k]).max())
+                                 for k, p in state.model.flat().items()}
+                    worst = max(diffs, key=diffs.get)
+                    row[mode]["max_param_abs_err"] = diffs[worst]
+                    row[mode]["worst_leaf"] = worst
+                print(f"data parallel rank {rank} {run['name']} {mode}: metrics "
+                      f"{out['metrics']}, step ms {[round(t, 1) for t in out['step_ms']]}, "
+                      f"path cells differing {differing}", flush=True)
+                del state
+            if run["name"] == "f32":  # the gradient all-reduce alone: every leaf's size
+                grads = [torch.ones_like(p) for p in model.flat().values()]
+                times = []
+                for _ in range(DP_ALLREDUCE_RUNS):
+                    dp_sync(device)
+                    start = time.perf_counter()
+                    summed = parallel.all_reduce_sum(grads)
+                    dp_sync(device)
+                    times.append((time.perf_counter() - start) * 1e3)
+                if not all(bool((s == world).all()) for s in summed):
+                    raise AssertionError("the all-reduce's sums are not the world size")
+                row["all_reduce"] = {"bytes": sum(g.numel() * g.element_size() for g in grads),
+                                     "tensors": len(grads), "ms": times}
+            results[run["name"]] = row
+            del model, base
+            torch.cuda.empty_cache()
+    finally:
+        parallel.leave()
+    (Path(spec["out"]) / f"rank{rank}.json").write_text(json.dumps(results))
+    return 0
+
+
+def dp_free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_start_ranks(workdir: Path, runs: list, device_line: str, cards: int) -> list:
+    """Ranks of this script (rendezvous on a free localhost port): with
+    ``cards`` 1, DP_RANKS of them on card 0 over gloo; else one a card on
+    ``cards`` cards over NCCL.  Waited for within DP_RANK_TIMEOUT -> each
+    rank's results; their output echoed."""
+    world = DP_RANKS if cards == 1 else cards
+    spec = {"init": f"tcp://localhost:{dp_free_port()}", "world": world, "platform": PLATFORM,
+            "backend": "gloo" if cards == 1 else "nccl", "own_cards": cards > 1,
+            "out": str(workdir), "runs": runs}
+    spec_path = workdir / "dp_spec.json"
+    spec_path.write_text(json.dumps(spec))
+    procs, logs = [], []
+    for r in range(world):
+        logs.append(open(workdir / f"dp_rank{r}.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--data-parallel-rank",
+             str(spec_path), str(r)], stdout=logs[-1], stderr=subprocess.STDOUT,
+        ))
+    deadline = time.monotonic() + DP_RANK_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    for r, p in enumerate(procs):
+        text = (workdir / f"dp_rank{r}.log").read_text()
+        for line in text.splitlines():
+            if line.startswith("data parallel rank"):
+                print(f"{line} [{device_line}]")
+        if p.returncode != 0:
+            fail(f"data parallel: rank {r} exited {p.returncode}: {text[-3000:]}")
+    return [json.loads((workdir / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def dp_one_process(config, params: dict, batches: list, device, name: str) -> dict:
+    """The one-process reference on the whole global batches: DDI on the
+    first (where ``params`` is a fresh init), then DP_STEPS steps with
+    dropout on -> the ActNorm, metrics, step ms, paths, the state."""
+    from glow_tts_train_tpu_torch import training
+    from glow_tts_train_tpu_torch.models import hyper_from_config
+
+    hp = hyper_from_config(config)
+    model = training.trainable_model(params, hp, device)
+    training.actnorm_init(model, config, training.batch_to(batches[0], device))
+    flat = model.flat()
+    actnorm = {n: flat[f"decoder/blocks/actnorm/{n}"].detach().cpu().numpy().copy()
+               for n in ("logs", "bias")}
+    post_ddi = {k: p.detach().cpu().numpy().copy() for k, p in flat.items()}
+    state = training.TrainState(model)
+    out = dp_steps(config, state, batches[1:], device)
+    print(f"data parallel one process {name}: metrics {out['metrics']}, step ms "
+          f"{[round(t, 1) for t in out['step_ms']]}")
+    return {"actnorm": actnorm, "post_ddi": post_ddi, "state": state, **out}
+
+
+def dp_quartiles(values: list) -> list:
+    return statistics.quantiles(values, n=4, method="inclusive") if len(values) > 1 else values
+
+
+def dp_library(workdir: Path, config_path: Path, corpus: Path, device_line: str,
+               cards: int = 1) -> dict:
+    """(a) Two ranks on this card over gloo (``cards`` > 1: a rank a card
+    over NCCL) against one process on the concatenated batches: f32
+    (``DP_F32_OVERRIDE``, from one fresh init: DDI, then DP_STEPS steps
+    with dropout on) and bf16 as shipped (from the one-process run's DDI,
+    DP_STEPS steps)."""
+    import numpy as np
+    import torch
+
+    from glow_tts_train_tpu_torch.config import load_config
+    from glow_tts_train_tpu_torch.models import hyper_from_config, init_model
+
+    device = torch.device(PLATFORM, 0)
+    override_path = workdir / "dp_f32_override.json"
+    override_path.write_text(json.dumps(DP_F32_OVERRIDE))
+    configs = {"f32": [config_path, override_path], "bf16": [config_path]}
+    refs, runs = {}, []
+    for name, paths in configs.items():
+        config = load_config(paths)
+        config_file = workdir / f"dp_{name}.json"
+        with open(config_file, "w") as f:
+            config.save(f)
+        hp = hyper_from_config(config)
+        batches = dp_global_batches(corpus, config, DP_STEPS + 1)
+        np.savez(workdir / f"dp_{name}_batches.npz",
+                 **{f"{i}/{k}": v for i, b in enumerate(batches) for k, v in b.items()})
+        init = {k: v.numpy() for k, v in
+                init_model(hp, torch.Generator().manual_seed(config.seed)).items()}
+        ref = dp_one_process(config, init, batches, device, name)
+        np.savez(workdir / f"dp_{name}_paths.npz",
+                 **{str(i): p.numpy() for i, p in enumerate(ref["paths"])})
+        run = {"name": name, "config": str(config_file), "ddi": name == "f32",
+               "batches": str(workdir / f"dp_{name}_batches.npz"),
+               "paths": str(workdir / f"dp_{name}_paths.npz")}
+        if name == "f32":
+            np.savez(workdir / "dp_f32_init.npz", **init)
+            run["params"] = str(workdir / "dp_f32_init.npz")
+            final = {k: p.detach().cpu().numpy() for k, p in ref["state"].model.flat().items()}
+            np.savez(workdir / "dp_f32_final.npz", **final)
+            run["reference"] = str(workdir / "dp_f32_final.npz")
+        else:
+            np.savez(workdir / "dp_bf16_init.npz", **ref["post_ddi"])
+            run["params"] = str(workdir / "dp_bf16_init.npz")
+        refs[name] = {"actnorm": ref["actnorm"], "metrics": ref["metrics"],
+                      "step_ms": ref["step_ms"], "shape": [list(batches[1]["x"].shape),
+                                                            list(batches[1]["y"].shape)],
+                      "hp": hp}
+        runs.append(run)
+        del ref
+        torch.cuda.empty_cache()
+    ranks = dp_start_ranks(workdir, runs, device_line, cards)
+    shared = cards == 1
+    where = (f"{len(ranks)} ranks on one card over gloo" if shared
+             else f"{len(ranks)} ranks a card each over NCCL")
+    row = {"backend": "gloo" if shared else "nccl", "world": len(ranks),
+           "devices": [r["device"] for r in ranks], "cards": [r["card"] for r in ranks],
+           "note": (f"{len(ranks)} ranks share one card (cuda:0): step times are of ranks "
+                    "sharing it, over gloo (host copies), not of a card each") if shared
+           else f"{len(ranks)} ranks, a card each, NCCL"}
+    reduce_rows = [res["f32"]["all_reduce"] for res in ranks]
+    row["gradient_all_reduce"] = {"bytes": reduce_rows[0]["bytes"],
+                                  "tensors": reduce_rows[0]["tensors"],
+                                  "ms_by_rank": [r["ms"] for r in reduce_rows],
+                                  "median_ms_by_rank": [statistics.median(r["ms"])
+                                                        for r in reduce_rows]}
+    print(f"data parallel gradient all-reduce: {reduce_rows[0]['bytes']} bytes "
+          f"({reduce_rows[0]['tensors']} f32 tensors in one flat buffer) a step, median ms by "
+          f"rank {row['gradient_all_reduce']['median_ms_by_rank']} ({where}) [{device_line}]")
+    for name, ref in refs.items():
+        hp = ref["hp"]
+        per_step = {"block_fwd_save": hp.n_blocks_dec, "block_bwd_store": hp.n_blocks_dec,
+                    "mas": 1, "prenet": 1, "prenet_bwd": 1, "encoder_layer": hp.n_layers_enc,
+                    "encoder_layer_bwd": hp.n_layers_enc, "duration_stack": 1,
+                    "duration_stack_bwd": 1}
+        if name == "bf16":
+            per_step = {k if k == "mas" else k + "_bf16": v for k, v in per_step.items()}
+        want = {k: v * DP_STEPS for k, v in per_step.items()}
+        entry = {"global_batch": ref["shape"], "steps": DP_STEPS, "one_process": {
+            "metrics": ref["metrics"], "step_ms": ref["step_ms"]}, "ranks": []}
+        for res in ranks:
+            r, rr = res["rank"], res[name]
+            for mode in ("own", "pinned"):
+                if rr[mode]["launches"] != want:
+                    fail(f"data parallel {name} rank {r} {mode}: launches "
+                         f"{rr[mode]['launches']}, the plan of its local batch {want}")
+            if name == "f32":
+                if rr["ddi_launches"] != {"wn_forward": hp.n_blocks_dec}:
+                    fail(f"data parallel DDI rank {r}: launches {rr['ddi_launches']}")
+                with np.load(workdir / f"f32_ddi.rank{r}.npz") as data:
+                    errs = {}
+                    for n, want_an in ref["actnorm"].items():
+                        got = data[n]
+                        errs[n] = float(np.abs(got - want_an).max())
+                        if not np.allclose(got, want_an, rtol=DP_DDI_RTOL, atol=DP_DDI_ATOL):
+                            fail(f"data parallel DDI rank {r}: ActNorm {n} off the one-process "
+                                 f"DDI by {errs[n]} (rtol {DP_DDI_RTOL}, atol {DP_DDI_ATOL})")
+                rr["ddi_actnorm_max_abs_err"] = errs
+                for i, (d, cells) in enumerate(zip(rr["own"]["path_cells_differing"],
+                                                   rr["own"]["path_cells"])):
+                    if not d <= ACCUM_MAX_PATH_DIFF * cells:
+                        fail(f"data parallel f32 rank {r} step {i + 1}: its own alignment "
+                             f"differs from the one-process run's in {d} of {cells} cells")
+                for i, (m, want_m) in enumerate(zip(rr["pinned"]["metrics"], ref["metrics"])):
+                    for k in DP_METRICS:
+                        rtol = (DP_GRAD_NORM_RTOL if i and k == "grad_norm"
+                                else ACCUM_METRIC_RTOL)
+                        if not abs(m[k] - want_m[k]) <= ACCUM_METRIC_ATOL + rtol * abs(want_m[k]):
+                            fail(f"data parallel f32 rank {r} step {i + 1}: {k} {m[k]} against "
+                                 f"the one-process run's {want_m[k]} on its alignment (rtol "
+                                 f"{rtol})")
+            else:
+                for mode in ("own", "pinned"):
+                    for i, (m, want_m) in enumerate(zip(rr[mode]["metrics"], ref["metrics"])):
+                        for k in ("loss", "mle_loss", "duration_loss"):
+                            if not abs(m[k] - want_m[k]) <= DP_BF16_LOSS_RTOL * abs(want_m[k]):
+                                fail(f"data parallel bf16 rank {r} {mode} step {i + 1}: {k} "
+                                     f"{m[k]} against the one-process run's {want_m[k]}")
+            entry["ranks"].append({"rank": r, **rr, "step_ms_quartiles": {
+                mode: dp_quartiles(rr[mode]["step_ms"]) for mode in ("own", "pinned")}})
+        for mode in ("own", "pinned"):
+            digests = {res[name][mode]["params_sha256"] for res in ranks}
+            if len(digests) != 1:
+                fail(f"data parallel {name} {mode}: the ranks' params differ after "
+                     f"{DP_STEPS} steps")
+        entry["params_equal_across_ranks"] = True
+        rel = {mode: max(abs(m[k] - w[k]) / abs(w[k]) for res in ranks
+                         for m, w in zip(res[name][mode]["metrics"], ref["metrics"])
+                         for k in DP_METRICS) for mode in ("own", "pinned")}
+        entry["metrics_max_rel_err"] = rel
+        row[name] = entry
+        print(f"data parallel {name}: global batch {ref['shape']}, {where} against one process: metrics max rel err own paths {rel['own']:.3e}, "
+              f"on the one-process paths {rel['pinned']:.3e}; path cells differing "
+              f"{[res[name]['own']['path_cells_differing'] for res in ranks]}; params equal "
+              f"across ranks; step ms quartiles "
+              f"{[dp_quartiles(res[name]['own']['step_ms']) for res in ranks]} ({where}), one "
+              f"process {[round(t, 1) for t in ref['step_ms']]} [{device_line}]")
+    if any(r["f32"].get("ddi_actnorm_max_abs_err") is None for r in ranks):
+        fail("data parallel: a rank's DDI was not held")
+    return row
+
+
+def dp_cli(workdir: Path, repo: Path, config_path: Path, corpus: Path, device_line: str,
+           nproc: typing.Optional[int] = None) -> dict:
+    """(b) The train CLI through ``python -m torch.distributed.run
+    --standalone`` over NCCL on ``nproc`` (default min(2, device_count))
+    GPUs: configs/base.json
+    as shipped, one epoch (DDI and the epoch's steps) on the corpus; rank 0
+    alone writes one checkpoint, its config and one metrics line; the
+    checkpoint serves through the infer CLI at b=1, the kernel path against
+    the plain path on the card within MEL_RTOL of max |mel|.  On a machine
+    with one GPU the CLI runs a world of one through the launcher, and two
+    ranks on that card are shown refused (exit 2) before NCCL fails."""
+    import os
+    import signal
+
+    import numpy as np
+    import torch
+
+    from glow_tts_train_tpu_torch.config import load_config
+
+    n_gpus = torch.cuda.device_count()
+    nproc = nproc or min(2, n_gpus)
+    config = load_config([config_path])
+    override = workdir / "dp_cli_override.json"
+    override.write_text(json.dumps({"epochs": 1}))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(repo), os.environ.get("PYTHONPATH", "")]))
+
+    def torchrun(n: int, tag: str):
+        argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", str(n), "-m", "glow_tts_train_tpu_torch",
+                "--output", str(workdir / tag), "--dataset", "0", str(corpus / "phonemes.csv"),
+                str(corpus / "mels"), "--mels-dir", "--config", str(config_path), "--config",
+                str(override), "--metrics-file", str(workdir / f"{tag}.jsonl"),
+                "--platform", PLATFORM]
+        start = time.perf_counter()
+        # a session of its own, so that a timeout stops the launcher's ranks too
+        proc = subprocess.Popen(argv, cwd=repo, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=DP_CLI_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            out, err = proc.communicate()
+            fail(f"data parallel CLI ({n} ranks): no end within {DP_CLI_TIMEOUT} s: {err[-3000:]}")
+        return (subprocess.CompletedProcess(argv, proc.returncode, out, err),
+                time.perf_counter() - start)
+
+    proc, seconds = torchrun(nproc, "dp_cli")
+    if proc.returncode != 0:
+        fail(f"data parallel CLI ({nproc} ranks): exit {proc.returncode}: "
+             f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    out = workdir / "dp_cli"
+    files = sorted(p.name for p in out.iterdir())
+    lines = [json.loads(l) for l in (workdir / "dp_cli.jsonl").read_text().splitlines()]
+    step = lines[-1]["global_step"] if lines else None
+    if len(lines) != 1 or files != [f"checkpoint_{step}.npz", f"config_{step}.json"]:
+        fail(f"data parallel CLI: wrote {files} and {len(lines)} metrics lines; one checkpoint, "
+             "its config and one line from rank 0 expected")
+    if not math.isfinite(lines[0]["avg_loss"]):
+        fail(f"data parallel CLI: epoch loss {lines[0]['avg_loss']}")
+    ckpt, cfg = out / f"checkpoint_{step}.npz", out / f"config_{step}.json"
+    stdin_text = requests(config.model.num_symbols)
+    extra = ("--noise-scale", "0")
+    mels, serve_s = serve(ckpt, cfg, stdin_text, 1, config.audio.mel_channels, extra)
+    with plain_path_on_card():
+        plain, _ = serve(ckpt, cfg, stdin_text, 1, config.audio.mel_channels, extra)
+    errs = {}
+    for utt, ref in plain.items():
+        err, scale = float(np.abs(mels[utt] - ref).max()), float(np.abs(ref).max())
+        if mels[utt].shape != ref.shape or not err <= MEL_RTOL * scale:
+            fail(f"data parallel CLI serve {utt}: {mels[utt].shape} against {ref.shape}, max "
+                 f"abs err {err} against {MEL_RTOL} x max |mel| {scale}")
+        errs[utt] = {"frames": ref.shape[1], "max_abs_err": err, "max_abs_mel": scale}
+    row = {"backend": "nccl" if nproc > 1 else "none (a world of one)", "world": nproc,
+           "devices": [f"cuda:{i}" for i in range(nproc)], "visible_gpus": n_gpus,
+           "seconds": seconds, "epoch": lines[0], "files": files, "serve_b1": errs,
+           "serve_seconds": serve_s}
+    print(f"data parallel CLI: torch.distributed.run --standalone --nproc-per-node {nproc} "
+          f"({row['backend']}, {n_gpus} visible GPU(s)): {seconds:.1f} s for DDI and "
+          f"{step - 1} steps of {config_path.name} as shipped (batch {config.batch_size}), "
+          f"epoch {lines[0]}, files {files}; served at b=1 against the plain path on the card "
+          f"{errs} [{device_line}]")
+    if n_gpus < 2:
+        refused, refused_s = torchrun(2, "dp_cli_shared")
+        text = refused.stdout + refused.stderr
+        if refused.returncode == 0 or "would share a card" not in text:
+            fail(f"data parallel CLI: 2 ranks on one card under NCCL exited {refused.returncode} "
+                 f"without the refusal: {text[-3000:]}")
+        row["two_ranks_one_card"] = {"exit": refused.returncode, "seconds": refused_s,
+                                     "refused": True}
+        print(f"data parallel CLI: 2 ranks on the one card under NCCL refused by the CLI (exit 2 "
+              f"a rank, the launcher {refused.returncode}) in {refused_s:.1f} s [{device_line}]")
+    return row
+
+
+def data_parallel_phase(workdir: Path, repo: Path, config_path: Path, device_line: str,
+                        cards: int = 1) -> dict:
+    """Phase 17: (a) ``dp_library`` and (b) ``dp_cli`` on the corpus of the
+    training phase (made here where that phase did not run).  ``cards`` >
+    1 (``scripts/torch-data-parallel-probe.py --cards``): both on that
+    many cards, a rank a card over NCCL."""
+    import torch
+
+    corpus = workdir / "corpus"
+    if not (corpus / "manifest.json").exists():
+        corpus, _ = make_corpus(workdir, repo)
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    library = dp_library(workdir, config_path, corpus, device_line, cards)
+    torch.cuda.empty_cache()
+    cli = dp_cli(workdir, repo, config_path, corpus, device_line, cards if cards > 1 else None)
+    seconds = time.perf_counter() - start
+    print(f"data parallel: phase {seconds:.1f} s [{device_line}]")
+    return {"device": device_line, "seconds": seconds, "library": library, "cli": cli}
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) > 1 and sys.argv[1] == "--data-parallel-rank":
+        return dp_rank_main(sys.argv[2], int(sys.argv[3]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -4484,6 +5046,10 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
 
     # ---- main path 8: bf16 with the text side op by op ----
     text_ops = text_ops_bf16_phase(workdir, repo, device_line)
+    torch.cuda.empty_cache()
+
+    # ---- main path 9: data parallel, two ranks over gloo, the CLI over NCCL ----
+    data_parallel = data_parallel_phase(workdir, repo, config_path, device_line)
 
     print(json.dumps({"products": products}))
     print(json.dumps({"serve": serve_rows}))
@@ -4495,6 +5061,7 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
     print(json.dumps({"export": export_row}))
     print(json.dumps({"widths": widths}))
     print(json.dumps({"text_ops_bf16": text_ops}))
+    print(json.dumps({"data_parallel": data_parallel}))
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,8 +20,23 @@ state that does not match this config (keys, shapes or ``opt_treedef``)
 is dropped with a warning and Adam starts fresh, as in the JAX CLI.
 ``grad_accum_steps`` in the config splits each batch into that many row
 slices (exact accumulation); DDI takes the whole first batch.  The corpus
-and batches come from the package's own ``data`` pipeline (numpy).  Single
-device: the mesh and multi-host flags are not taken.
+and batches come from the package's own ``data`` pipeline (numpy).
+
+Data parallel, one process a GPU: launched by ``python -m
+torch.distributed.run --nproc-per-node N -m glow_tts_train_tpu_torch ...``
+(or with the JAX CLI's --coordinator host:port, --num-processes and
+--process-id), each rank takes GPU ``LOCAL_RANK`` and joins an NCCL
+process group (gloo with ``--platform cpu``; ``parallel/mesh.py``).
+``batch_size`` is the global batch: each rank loads its strided rows of
+every global batch (``DataPipeline(num_shards, shard_index)``), DDI takes
+the global first batch's statistics, and a step is the global batch's
+step (``training.make_train_step``); rank 0 alone writes checkpoints,
+their configs, the metrics file and the profile.  A batch that the world
+size does not divide, a local batch that ``grad_accum_steps`` does not
+divide, ``--no-mesh`` under a world of more than one, and two ranks on one
+card under NCCL exit 2; ``--model-parallel`` above 1 and
+``--virtual-devices`` (tensor parallelism and XLA's virtual CPU devices)
+are not ported and exit 2.
 """
 
 import argparse
@@ -72,6 +87,26 @@ def main(argv=None):
         help="'cuda' runs the CUDA kernels (error without a GPU); 'cpu' runs "
         "their plain PyTorch versions",
     )
+    parser.add_argument(
+        "--no-mesh", action="store_true",
+        help="Run as one process; refused under a launcher that starts more than one",
+    )
+    parser.add_argument(
+        "--model-parallel", type=int, default=1, metavar="M",
+        help="Tensor parallelism: not ported, any value above 1 is refused",
+    )
+    parser.add_argument(
+        "--virtual-devices", type=int,
+        help="XLA's virtual CPU devices: not ported (refused); launch N CPU ranks with "
+        "torch.distributed.run and --platform cpu instead",
+    )
+    parser.add_argument(
+        "--coordinator",
+        help="Multi-process without torch.distributed.run: rendezvous address host:port of "
+        "rank 0 (also needs --num-processes and --process-id)",
+    )
+    parser.add_argument("--num-processes", type=int, help="With --coordinator: the world size")
+    parser.add_argument("--process-id", type=int, help="With --coordinator: this process's rank")
     parser.add_argument("--debug", action="store_true", help="Print DEBUG messages to the console")
     args = parser.parse_args(argv)
 
@@ -80,18 +115,9 @@ def main(argv=None):
 
     import torch
 
-    from .checkpoint import merge_into, read_checkpoint, restore_opt_state
+    from . import parallel
     from .config import load_config
-    from .data import (
-        CorpusError,
-        DataPipeline,
-        MissingMelsError,
-        SpeakerSource,
-        build_dataset,
-        detect_num_symbols,
-    )
-    from .models import hyper_from_config, init_model
-    from .training import TrainState, batch_to, check_trainable, initialize_model, train, trainable_model
+    from .training import check_trainable
 
     output = Path(args.output)
     config = load_config(args.config or ())
@@ -102,11 +128,68 @@ def main(argv=None):
         check_trainable(config)
     except ValueError as err:
         parser.error(str(err))
+    if args.model_parallel != 1:
+        parser.error(
+            f"--model-parallel {args.model_parallel}: tensor parallelism is not ported; the "
+            "port trains data parallel, one process a GPU"
+        )
+    if args.virtual_devices is not None:
+        parser.error(
+            "--virtual-devices: not ported; launch CPU ranks with "
+            "python -m torch.distributed.run --nproc-per-node N and --platform cpu"
+        )
+    try:
+        launch = parallel.launch_from(args.coordinator, args.num_processes, args.process_id)
+    except ValueError as err:
+        parser.error(str(err))
+    if args.no_mesh and launch.world > 1:
+        parser.error(f"--no-mesh runs one process, but the launch has {launch.world} ranks")
+    if args.batch_size is not None:
+        config.batch_size = args.batch_size
+    if config.batch_size % launch.world:
+        parser.error(
+            f"batch_size {config.batch_size} (the global batch) must divide evenly over "
+            f"{launch.world} ranks"
+        )
+    local_batch = config.batch_size // launch.world
+    accum = max(1, int(getattr(config, "grad_accum_steps", 1) or 1))
+    if local_batch % accum:
+        parser.error(
+            f"the local batch {local_batch} (batch_size {config.batch_size} over {launch.world} "
+            f"ranks) must divide by grad_accum_steps {accum}"
+        )
     if args.platform == "cuda" and not torch.cuda.is_available():
         parser.error("--platform cuda: no CUDA device is available")
-    device = torch.device(args.platform)
+    try:
+        device = parallel.join(launch, args.platform)
+    except ValueError as err:
+        parser.error(str(err))
+    try:
+        _train(args, parser, config, output, device, local_batch)
+    finally:
+        parallel.leave()
 
-    output.mkdir(parents=True, exist_ok=True)
+
+def _train(args, parser, config, output, device, local_batch):
+    import torch
+
+    from . import parallel
+    from .checkpoint import merge_into, read_checkpoint, restore_opt_state
+    from .data import (
+        CorpusError,
+        DataPipeline,
+        MissingMelsError,
+        SpeakerSource,
+        build_dataset,
+        detect_num_symbols,
+    )
+    from .models import hyper_from_config, init_model
+    from .training import TrainState, batch_to, initialize_model, train, trainable_model
+
+    if not parallel.is_chief() and not args.debug:
+        _LOGGER.setLevel(logging.WARNING)
+    if parallel.is_chief():
+        output.mkdir(parents=True, exist_ok=True)
     random.seed(config.seed)
     torch.manual_seed(config.seed)
 
@@ -136,9 +219,11 @@ def main(argv=None):
 
     if config.model.num_symbols < 1:
         config.model.num_symbols = detect_num_symbols(dataset)
-    if args.batch_size is not None:
-        config.batch_size = args.batch_size
-    pipeline = DataPipeline(dataset, config, batch_size=config.batch_size)
+    # each rank's strided rows of every global batch, padded to its shape
+    pipeline = DataPipeline(
+        dataset, config, batch_size=local_batch, num_shards=parallel.world(),
+        shard_index=parallel.rank(),
+    )
     hp = hyper_from_config(config)
 
     if args.checkpoint:
@@ -177,7 +262,10 @@ def main(argv=None):
         first_batch = batch_to(next(iter(pipeline.batches())), device)
         state = TrainState(initialize_model(config, first_batch, device))
 
-    _LOGGER.info("Training started (batch size=%s, platform=%s)", config.batch_size, args.platform)
+    _LOGGER.info(
+        "Training started (batch size=%s, %s rank(s) of %s, platform=%s)",
+        config.batch_size, parallel.world(), local_batch, args.platform,
+    )
     try:
         train(
             pipeline.batches, config, output, state, device,

@@ -86,9 +86,13 @@ class GlowTTSHyper(typing.NamedTuple):
 
     @property
     def encoder_kernel_fits(self) -> bool:
-        """The CUDA encoder kernel takes this configuration (rel-pos window
-        set, no block_length — the reference's only shipped one)."""
-        return self.window_size is not None and self.block_length is None
+        """The CUDA encoder kernel takes this configuration
+        (``encoder_cuda.kernel_takes``: a rel-pos window of at most 16, no
+        block_length, a head width that is a multiple of 8 and at most
+        128)."""
+        return encoder_cuda.kernel_takes(
+            self.h_enc, self.n_heads, self.window_size, self.block_length
+        )
 
 
 def _resolve(value, auto, choices: tuple, key: str):
@@ -113,7 +117,8 @@ def hyper_from_config(config) -> GlowTTSHyper:
     * ``wn_residuals`` -> "store": the port always unrolls its blocks, the
       case in which JAX resolves to store (``_resolve_wn_residuals``);
     * ``encoder_fuse`` -> whether the encoder kernel takes the
-      configuration (JAX ``_resolve_encoder_fuse``).
+      configuration (JAX ``_resolve_encoder_fuse``, by the port's kernel's
+      own limits: ``GlowTTSHyper.encoder_kernel_fits``).
 
     ``wn_impl`` and ``flow_block_fuse_reverse`` pick nothing here: the WN
     stack runs through the port's kernels ("pallas"; their plain versions
@@ -123,13 +128,12 @@ def hyper_from_config(config) -> GlowTTSHyper:
     A value outside the key's choices raises ``ValueError``."""
     m = config.model
     encoder_fuse = getattr(config, "encoder_fuse", "auto")
-    kernel_fits = m.window_size is not None and m.block_length is None
     flags = (True, False)
     _resolve(getattr(config, "wn_impl", "auto"), "pallas", ("pallas",), "wn_impl")
     _resolve(
         getattr(config, "flow_block_fuse_reverse", "auto"), True, (True,), "flow_block_fuse_reverse"
     )
-    return GlowTTSHyper(
+    hp = GlowTTSHyper(
         n_vocab=m.num_symbols,
         hidden_channels=m.hidden_channels,
         filter_channels=m.filter_channels,
@@ -159,8 +163,9 @@ def hyper_from_config(config) -> GlowTTSHyper:
             getattr(config, "wn_residuals", "auto"), "store", ("store", "recompute"), "wn_residuals"
         ),
         block_fuse=_resolve(getattr(config, "flow_block_fuse", "auto"), True, flags, "flow_block_fuse"),
-        encoder_fuse=kernel_fits if encoder_fuse == "auto" else bool(encoder_fuse),
     )
+    fuse = hp.encoder_kernel_fits if encoder_fuse == "auto" else bool(encoder_fuse)
+    return hp._replace(encoder_fuse=fuse)
 
 
 class _Node(nn.Module):
@@ -563,15 +568,17 @@ def ddi_init(
     y: torch.Tensor,
     y_lengths: torch.Tensor,
     g_ids: typing.Optional[torch.Tensor] = None,
+    reduce: typing.Optional[typing.Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Params:
     """Data-dependent ActNorm init from one batch's mels (JAX ``ddi_init``;
     deterministic, no dropout) -> the decoder's new actnorm
-    {"logs", "bias"} [n_blocks, c]."""
+    {"logs", "bias"} [n_blocks, c].  ``reduce``: each block's [3, c]
+    masked sums -> the global batch's (``flows.decoder_ddi``)."""
     g = _speaker_vector(params.get("emb_g"), g_ids)
     t_y = (y.shape[1] // hp.n_sqz) * hp.n_sqz
     y = y[:, :t_y].to(torch.float32)
     y_lengths = (y_lengths // hp.n_sqz) * hp.n_sqz
     z_mask = time_mask(y_lengths, t_y)
     return flows.decoder_ddi(
-        params["decoder"]["blocks"], y, z_mask, g=g, **_decoder_kwargs(hp)
+        params["decoder"]["blocks"], y, z_mask, g=g, reduce=reduce, **_decoder_kwargs(hp)
     )

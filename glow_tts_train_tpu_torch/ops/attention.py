@@ -35,16 +35,46 @@ from .norms import layer_norm
 Params = typing.Dict[str, typing.Any]
 
 
+class RowsGenerator(torch.Generator):
+    """A dropout generator for the rows ``first_row`` on of a batch of
+    ``rows`` rows: it starts from ``source``'s state, its keep masks are
+    those rows of the whole batch's (:func:`dropout` draws the whole
+    shape and takes its rows) and the kernels' seeds are offset by
+    ``first_row`` (:func:`draw_seed`; a kernel's sample i draws from seed
+    + i).  So a rank of a data-parallel step, or a slice of an
+    accumulated one, draws the masks that one process draws for those
+    rows of the global batch."""
+
+    def __new__(cls, source: torch.Generator, first_row: int, rows: int):
+        return super().__new__(cls, device=source.device)
+
+    def __init__(self, source: torch.Generator, first_row: int, rows: int):
+        self.set_state(source.get_state())
+        self.first_row, self.rows = int(first_row), int(rows)
+
+
+def rows_of(
+    generator: typing.Optional[torch.Generator], first_row: int, rows: int
+) -> typing.Optional[RowsGenerator]:
+    """:class:`RowsGenerator` of ``generator`` (None without one)."""
+    return None if generator is None else RowsGenerator(generator, first_row, rows)
+
+
 def dropout(
     x: torch.Tensor, p: float, generator: typing.Optional[torch.Generator]
 ) -> torch.Tensor:
     """Inverted dropout (torch semantics): keep with probability 1 - p and
     scale by 1 / (1 - p), the scale in x's dtype as JAX holds it;
     identity when ``generator`` is None or p == 0.  The keep mask is drawn
-    on ``generator``'s device."""
+    on ``generator``'s device; a :class:`RowsGenerator` draws it for the
+    whole batch and takes x's rows."""
     if generator is None or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=generator.device) >= p
+    rows = getattr(generator, "rows", None)
+    shape = x.shape if rows is None else (rows, *x.shape[1:])
+    keep = torch.rand(shape, generator=generator, device=generator.device) >= p
+    if rows is not None:
+        keep = keep[generator.first_row:generator.first_row + x.shape[0]]
     scale = torch.tensor(1.0 / (1.0 - p), dtype=x.dtype, device=x.device)
     return x * keep.to(device=x.device, dtype=x.dtype) * scale
 
@@ -194,11 +224,14 @@ def encoder_layer_apply(
 
 
 def draw_seed(seed_generator: typing.Optional[torch.Generator]) -> int:
-    """One int32 dropout seed for a kernel from the CPU ``seed_generator``
-    (JAX draws it from its rng, a different stream); 0 without one."""
+    """One dropout seed for a kernel from the CPU ``seed_generator`` (JAX
+    draws it from its rng, a different stream), below 2**31 and, from a
+    :class:`RowsGenerator`, plus its first row mod 2**32 (the kernels take
+    it as a uint32); 0 without one."""
     if seed_generator is None:
         return 0
-    return int(torch.randint(0, 2 ** 31 - 1, (), generator=seed_generator))
+    seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=seed_generator))
+    return (seed + getattr(seed_generator, "first_row", 0)) % 2 ** 32
 
 
 def encoder_apply(
@@ -222,11 +255,13 @@ def encoder_apply(
     concatenation, so autograd carries the kernels' folded gradients back
     to the raw params), dropout on when ``seed_generator`` (a CPU
     generator) is given, one seed per layer drawn from it.  Configurations
-    the kernel does not take (``window_size=None``, ``block_length`` set)
-    run op by op, as in the JAX package."""
-    if fused and window_size is not None and block_length is None:
-        from . import encoder_cuda
+    the kernel does not take (``encoder_cuda.kernel_takes``:
+    ``window_size=None``, ``block_length`` set, a head width over 128 or
+    not a multiple of 8, a window over 16) run op by op, as in the JAX
+    package."""
+    from . import encoder_cuda
 
+    if fused and encoder_cuda.kernel_takes(x.shape[-1], n_heads, window_size, block_length):
         folded = [
             encoder_cuda.merge_qkv(encoder_cuda.fold_encoder_layer(layer, x.dtype))
             for layer in layers

@@ -228,13 +228,26 @@ def encoder_layer_plain_bf16(
     return layer_norm_affine(x1 + y2, g2, be2).to(bf16.BF16)
 
 
+def kernel_takes(
+    h: int, n_heads: int, window_size: typing.Optional[int], block_length: typing.Optional[int]
+) -> bool:
+    """Whether the encoder kernels take an encoder configuration: a
+    rel-pos window of at most 16 and no ``block_length`` (the reference's
+    only shipped encoder), a head width ``h / n_heads`` that is a multiple
+    of 8 and at most 128 (the attention cores' tiles)."""
+    if window_size is None or block_length is not None:
+        return False
+    d = h // n_heads
+    return d <= 128 and d % 8 == 0 and window_size <= 16
+
+
 def _check_layer(weights, x, x_mask, n_heads, window_size):
     (wqkv, bqkv, wo, bo, rel_k, rel_v, g1, be1, g2, be2, w1, c1, w2, c2) = weights
     batch, t, h = x.shape
     d = h // n_heads
     taps = w1.shape[0] // h
     f = w1.shape[1]
-    if d > 128 or d % 8 or 2 * window_size + 1 > 33:
+    if not kernel_takes(h, n_heads, window_size, None):
         raise ValueError(
             f"the encoder kernel takes a head width that is a multiple of 8 and at most "
             f"128, and window <= 16; got {d} and {window_size}"

@@ -116,14 +116,26 @@ def actnorm_fwd(params: Params, x: torch.Tensor, x_mask: torch.Tensor):
     return z, torch.sum(params["logs"].to(torch.float32)) * x_len
 
 
-def actnorm_ddi_stats(x: torch.Tensor, x_mask: torch.Tensor) -> Params:
+def actnorm_ddi_stats(
+    x: torch.Tensor,
+    x_mask: torch.Tensor,
+    reduce: typing.Optional[typing.Callable[[torch.Tensor], torch.Tensor]] = None,
+) -> Params:
     """ActNorm bias/logs from the masked batch statistics of x, so that the
-    output is about N(0, 1) per channel."""
+    output is about N(0, 1) per channel.  The masked sums Σx·m, Σx²·m and
+    Σm go through ``reduce`` as one [3, c] tensor (the sum over ranks, for
+    the statistics of the global batch) before they divide."""
     xf = x.to(torch.float32)
     mf = x_mask.to(torch.float32)
-    denom = torch.sum(mf, dim=(0, 1))
-    m = torch.sum(xf * mf, dim=(0, 1)) / denom
-    m_sq = torch.sum(xf * xf * mf, dim=(0, 1)) / denom
+    sums = torch.stack([
+        torch.sum(xf * mf, dim=(0, 1)),
+        torch.sum(xf * xf * mf, dim=(0, 1)),
+        torch.sum(mf, dim=(0, 1)).expand(xf.shape[-1]),
+    ])
+    if reduce is not None:
+        sums = reduce(sums)
+    m = sums[0] / sums[2]
+    m_sq = sums[1] / sums[2]
     logs = 0.5 * torch.log(torch.clamp(m_sq - m ** 2, min=1e-6))
     return {"bias": -m * torch.exp(-logs), "logs": -logs}
 
@@ -196,16 +208,19 @@ def decoder_ddi(
     n_sqz: int,
     sigmoid_scale: bool = False,
     g: typing.Optional[torch.Tensor] = None,
+    reduce: typing.Optional[typing.Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Params:
     """Data-dependent ActNorm init: one deterministic forward pass in which
-    each block's ActNorm params become the statistics of its input.
+    each block's ActNorm params become the statistics of its input, its
+    masked sums through ``reduce`` (:func:`actnorm_ddi_stats`; one call a
+    block, each block's statistics feeding the next block's input).
     Returns {"logs": [nb, c], "bias": [nb, c]}."""
     x, x_mask = squeeze(x, x_mask, n_sqz)
     x_mask = x_mask.contiguous()
     logs, bias = [], []
     for i in range(blocks["actnorm"]["logs"].shape[0]):
         bp = tree_index(blocks, i)
-        an = actnorm_ddi_stats(x, x_mask)
+        an = actnorm_ddi_stats(x, x_mask, reduce)
         logs.append(an["logs"])
         bias.append(an["bias"])
         x, _ = actnorm_fwd(an, x, x_mask)

@@ -6,7 +6,14 @@ duration losses, backward, the global gradient norm, then value clip and
 Noam-scheduled Adam (``optimize.py``).  With ``grad_accum_steps`` n > 1 the
 batch's rows go through in n slices, each slice's loss numerators over the
 whole batch's denominators and the gradients summed, so the step equals
-the full-batch step to round-off.  On CUDA tensors the flow blocks, MAS and
+the full-batch step to round-off.  Over W ranks (``parallel``: one
+process a GPU) a step is the step of the global batch, the ranks' local
+batches in rank order: the same rule, each rank's slices over the global
+denominators, the gradients and the metrics' numerators summed over the
+ranks in one all-reduce before the norm and Adam, so every rank applies
+the same update; dropout draws each row's masks as one process draws
+them for that row of the global batch (``attention.RowsGenerator``), in
+an accumulated step too.  On CUDA tensors the flow blocks, MAS and
 (``encoder_fuse`` true, what "auto" resolves to for the shipped encoder
 configuration) the text side run the hand-written kernels, forward and
 backward, once a slice; ``encoder_fuse: false`` runs the text side op by
@@ -21,7 +28,8 @@ decoder's four modes, the text side through its kernels or, with
 ``encoder_fuse: false`` or an encoder configuration the encoder kernel
 does not take, op by op as XLA rounds it.  Checkpoints
 carry the Adam state (``checkpoint.save_checkpoint``), and ``profile_dir``
-writes a ``torch.profiler`` trace of steps 5-15.
+writes a ``torch.profiler`` trace of steps 5-15; rank 0 alone writes
+them and the metrics.
 """
 
 import json
@@ -34,6 +42,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from . import parallel
 from .checkpoint import param_shapes, save_checkpoint
 from .models.glow_tts import (
     GlowTTS,
@@ -43,6 +52,7 @@ from .models.glow_tts import (
     init_model,
 )
 from .models.losses import duration_loss, mle_loss
+from .ops.attention import rows_of
 from .optimize import AdamState, adam_init, adam_update, learning_rate_fn
 from .tree import unflatten
 
@@ -74,13 +84,16 @@ def trainable_model(flat: typing.Mapping[str, torch.Tensor], hp, device) -> Glow
 
 def batch_to(batch: typing.Mapping[str, np.ndarray], device) -> dict:
     """Host batch (numpy, from the package's ``data`` pipeline) -> tensors on
-    ``device``: ids and lengths int64, mels f32."""
+    ``device``: ids and lengths int64, mels f32.  A CUDA copy is made with
+    ``device`` current, so that a prefetch thread of rank r touches card r
+    only."""
     out = {}
     for k, v in batch.items():
         t = torch.from_numpy(np.asarray(v))
         t = t.to(torch.float32) if t.is_floating_point() else t.to(torch.int64)
         if torch.device(device).type == "cuda":
-            out[k] = t.pin_memory().to(device, non_blocking=True)
+            with torch.cuda.device(device):
+                out[k] = t.pin_memory().to(device, non_blocking=True)
         else:
             out[k] = t.to(device)
     return out
@@ -88,12 +101,21 @@ def batch_to(batch: typing.Mapping[str, np.ndarray], device) -> dict:
 
 def initialize_model(config, batch: dict, device) -> GlowTTS:
     """Fresh init from ``config.seed`` + data-dependent ActNorm init on one
-    batch (``batch_to`` tensors)."""
+    batch (``batch_to`` tensors; :func:`actnorm_init`)."""
     hp = hyper_from_config(config)
     generator = torch.Generator().manual_seed(config.seed)
-    model = trainable_model(init_model(hp, generator), hp, device)
+    return actnorm_init(trainable_model(init_model(hp, generator), hp, device), config, batch)
+
+
+def actnorm_init(model: GlowTTS, config, batch: dict) -> GlowTTS:
+    """Data-dependent ActNorm init of ``model`` in place (DDI) on one
+    batch; over W ranks ``batch`` is this rank's rows of one global batch,
+    whose statistics DDI takes (each block's masked sums summed over the
+    ranks)."""
+    hp = hyper_from_config(config)
     g_ids = batch.get("speaker_ids") if config.model.n_speakers > 1 else None
-    actnorm = ddi_init(model.tree(), hp, batch["y"], batch["y_lengths"], g_ids)
+    reduce = None if parallel.world() == 1 else (lambda t: parallel.all_reduce_sum([t])[0])
+    actnorm = ddi_init(model.tree(), hp, batch["y"], batch["y_lengths"], g_ids, reduce)
     params = model.flat()
     with torch.no_grad():
         for name, value in actnorm.items():
@@ -118,15 +140,21 @@ def make_train_step(config):
     """-> ``step_fn(state, batch, generator, seed_generator) -> metrics``:
     one optimizer step on ``state`` in place; metrics are 0-d tensors
     (loss, mle_loss, duration_loss, grad_norm).  Dropout is on when the
-    generators are given (``models.forward_train``); the slices of an
-    accumulated step draw from them in turn.
+    generators are given (``models.forward_train``).
 
     ``grad_accum_steps`` n > 1 (the JAX package's exact accumulation): the
     batch, whose size n must divide, goes through in n row slices; slice
     i's numerators (the MLE loss less its 1/2 log 2 pi times its masked
     element count, the duration loss times its phoneme count) go over the
     whole batch's denominators, the gradients are summed, and the metrics
-    are rebuilt from the summed numerators."""
+    are rebuilt from the summed numerators.  Over W > 1 ranks
+    (``parallel.world()``) ``batch`` is this rank's rows of the global
+    batch and the same rule spans the ranks: the denominators are summed
+    over them before the backward, the gradients and the numerators after
+    the slices, in one all-reduce each.  Each slice draws its dropout
+    masks from a copy of the generators' state at the step's start, as the
+    rows it holds of the global batch (``attention.rows_of``), so the
+    masks do not depend on n or W."""
     check_trainable(config)
     hp = hyper_from_config(config)
     multispeaker = config.model.n_speakers > 1
@@ -155,7 +183,8 @@ def make_train_step(config):
     def step_fn(state: TrainState, batch: dict, generator=None, seed_generator=None) -> dict:
         params = state.model.flat()
         leaves = list(params.values())
-        if accum == 1:
+        ranks = parallel.world()
+        if accum == 1 and ranks == 1:
             l_mle, l_dur = losses(params, batch, generator, seed_generator)
             loss = l_mle + l_dur
             grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
@@ -164,12 +193,18 @@ def make_train_step(config):
             if b % accum:
                 raise ValueError(f"batch_size {b} must divide by grad_accum_steps {accum}")
             mb = b // accum
-            d_mle, d_dur = den_mle(batch["y_lengths"]), den_dur(batch["x_lengths"])
+            rows, first = ranks * b, parallel.first_row(b)
+            d_mle, d_dur = parallel.all_reduce_sum([torch.stack([
+                den_mle(batch["y_lengths"]), den_dur(batch["x_lengths"])
+            ])])[0]
             grads = [None] * len(leaves)
             num_mle = num_dur = 0.0
             for i in range(accum):
                 micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                m_mle, m_dur = losses(params, micro, generator, seed_generator)
+                m_mle, m_dur = losses(
+                    params, micro, rows_of(generator, first + i * mb, rows),
+                    rows_of(seed_generator, first + i * mb, rows),
+                )
                 n_mle = (m_mle - half_log_2pi) * den_mle(micro["y_lengths"])
                 n_dur = m_dur * den_dur(micro["x_lengths"])
                 micro_grads = torch.autograd.grad(
@@ -178,6 +213,10 @@ def make_train_step(config):
                 grads = [g if acc is None else acc if g is None else acc + g
                          for acc, g in zip(grads, micro_grads)]
                 num_mle, num_dur = num_mle + n_mle.detach(), num_dur + n_dur.detach()
+            if ranks > 1:  # the gradients, then the numerators, in one buffer
+                grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+                *grads, nums = parallel.all_reduce_sum([*grads, torch.stack([num_mle, num_dur])])
+                num_mle, num_dur = nums[0], nums[1]
             l_mle = num_mle / d_mle + half_log_2pi
             l_dur = num_dur / d_dur
             loss = l_mle + l_dur
@@ -282,7 +321,9 @@ def train(
     ``lr(count)``.  ``profile_dir``: a ``torch.profiler`` trace (host and,
     on a GPU, device activity; each step a ``train_step`` range) of the
     run's 6th to 15th steps (the JAX trainer's "steps 5-15"), written there
-    as a Chrome trace when the 15th ends or the run does.
+    as a Chrome trace when the 15th ends or the run does.  Over W ranks
+    rank 0 alone writes the metrics line, the checkpoints, their configs
+    and the trace; every rank's losses are the global batch's.
 
     Dropout: before each step both generators, ``generator`` on
     ``device`` (the op-by-op text side's masks) and ``seed_generator`` on
@@ -292,6 +333,9 @@ def train(
     at step s what an uninterrupted run draws there."""
     step_fn = make_train_step(config)
     lr_at = learning_rate_fn(config)
+    chief = parallel.is_chief()
+    if not chief:
+        metrics_path = profile_dir = None
     generator = torch.Generator(device=device)
     seed_generator = torch.Generator()
 
@@ -343,7 +387,7 @@ def train(
                         metrics_file,
                     )
                     metrics_file.write("\n")
-        if epoch % checkpoint_epochs == 0:
+        if chief and epoch % checkpoint_epochs == 0:
             checkpoint_path = Path(model_dir) / f"checkpoint_{state.step}.npz"
             save_checkpoint(
                 state.model.flat(), checkpoint_path, state.step,

@@ -34,7 +34,7 @@ import numpy as np
 import pytest
 import torch
 
-from glow_tts_train_tpu_torch import checkpoint, kernels
+from glow_tts_train_tpu_torch import checkpoint, kernels, training
 from glow_tts_train_tpu_torch.config import AudioConfig, ModelConfig, TrainingConfig
 from glow_tts_train_tpu_torch.models import glow_tts as model
 from glow_tts_train_tpu_torch.ops import (
@@ -2400,3 +2400,103 @@ def test_bf16_stack_rows_units_agree_and_repeat_bits(dev, stack):
     for _ in range(50):
         again = (fwd(weights, x, mask, *cfg), *bwd(weights, x, mask, dout, *cfg))
         assert all(torch.equal(a, b) for a, b in zip(again, runs["tma"]))
+
+
+# encoder configurations outside the encoder kernel's limits: a head width
+# over 128 (384 channels, 2 heads: 192), and a window over 16
+ENCODER_LIMITS = {
+    "head_width_192": dict(hidden_channels=384, hidden_channels_enc=384, n_heads=2),
+    "window_20": dict(window_size=20),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ENCODER_LIMITS))
+def test_configs_past_the_encoder_kernels_limits_train_and_serve_on_the_card(dev, case):
+    """A config the encoder kernel does not take resolves ``encoder_fuse:
+    "auto"`` to false and trains and serves on the card with the encoder
+    layers op by op (no encoder-layer launch): forward_train and every
+    gradient against the CPU, dropout on; one train step with finite
+    metrics; a synthesis against the CPU path (logw, lengths, the mel)."""
+    config = tiny_config(**ENCODER_LIMITS[case])
+    hp, launches = _forward_train_on_both(dev, config, 0.1)
+    assert not hp.encoder_fuse and not hp.encoder_kernel_fits
+    assert launches["encoder_layer"] == launches["encoder_layer_bwd"] == 0
+    assert launches["block_fwd_save"] == launches["block_bwd_store"] == hp.n_blocks_dec
+    state = training.TrainState(training.trainable_model(
+        {k[len("model/"):]: v for k, v in checkpoint.random_params(hp, 1).items()}, hp, dev))
+    rng = np.random.default_rng(5)
+    batch = {"x": rng.integers(1, hp.n_vocab, size=(2, 11)), "x_lengths": np.array([11, 8]),
+             "y": rng.standard_normal((2, 32, hp.out_channels)).astype(np.float32),
+             "y_lengths": np.array([32, 24])}
+    metrics = training.make_train_step(config)(state, training.batch_to(batch, dev))
+    assert all(np.isfinite(float(v)) for v in metrics.values()), metrics
+    w_cpu = model.store_inverse(checkpoint.params_from_numpy(
+        checkpoint.random_params(hp, 0), hp), hp)
+    x = torch.from_numpy(rng.integers(1, hp.n_vocab, size=(2, 11)))
+    xl = torch.tensor([11, 7])
+    eps = torch.from_numpy(rng.standard_normal((2, 72, hp.out_channels)).astype(np.float32))
+    outs = []
+    for d, w in ((dev, w_cpu.to(dev)), (torch.device("cpu"), w_cpu)):
+        before = kernels.launch_counts()
+        outs.append(model.forward_gen(w, hp, x.to(d), xl.to(d), 72, noise_scale=0.667,
+                                      eps=eps.to(d)))
+        if d.type == "cuda":
+            assert kernels.launch_counts()["encoder_layer"] == before["encoder_layer"]
+    cu, cpu = outs
+    assert torch.equal(cu[3].cpu(), cpu[3])
+    _close(cu[2][1], cpu[2][1])  # logw
+    _close(cu[0][0], cpu[0][0], MEL_ATOL)
+
+
+def test_two_ranks_on_one_card_over_gloo_match_one_process(dev, tmp_path):
+    """Two ranks on this card over gloo (``tests/torch_parallel_worker.py``;
+    NCCL refuses two ranks on one device), one step each on its 4 rows of
+    a ragged global batch of 8, the kernels built once before they start:
+    the four metrics within 3e-4 of the one-process step on the card on
+    the whole batch, every param within 3e-4 relative and 2e-6 absolute
+    (``tests/test_torch_accum.py``'s accumulation tolerances), the ranks'
+    params and Adam moments equal bit for bit, and each rank's launches
+    those of a step of its local batch."""
+    import torch_parallel_worker as worker
+
+    config = tiny_config(p_dropout=0.0, p_dropout_dec=0.0)
+    hp = model.hyper_from_config(config)
+    flat = {k[len("model/"):]: v for k, v in checkpoint.random_params(hp, 1).items()}
+    np.savez(tmp_path / "params.npz", **flat)
+    rng = np.random.default_rng(1)
+    b, t_x, t_y = 8, 11, 26
+    x_lengths = np.concatenate([[t_x], rng.integers(7, t_x + 1, size=b - 1)])
+    y_lengths = np.concatenate([[t_y], rng.integers(2 * t_x, t_y + 1, size=b - 1)])
+    batch = {"x": rng.integers(1, hp.n_vocab, size=(b, t_x)) * (np.arange(t_x) < x_lengths[:, None]),
+             "x_lengths": x_lengths, "y_lengths": y_lengths,
+             "y": rng.standard_normal((b, t_y, hp.out_channels)).astype(np.float32)
+             * (np.arange(t_y) < y_lengths[:, None])[..., None]}
+    np.savez(tmp_path / "batch.npz", **{f"0/{k}": v for k, v in batch.items()})
+    with open(tmp_path / "config.json", "w") as f:
+        config.save(f)
+    kernels.build()
+    worker.run_ranks(tmp_path, [{
+        "kind": "steps", "name": "step", "config": str(tmp_path / "config.json"),
+        "params": str(tmp_path / "params.npz"), "batches": str(tmp_path / "batch.npz"),
+        "steps": 1, "dropout": False,
+    }], platform="cuda", backend="gloo", local_rank=0, timeout=600)
+    state = training.TrainState(training.trainable_model(flat, hp, dev))
+    ref = training.make_train_step(config)(state, training.batch_to(batch, dev))
+    results = []
+    for r in range(2):
+        with np.load(tmp_path / f"step.rank{r}.npz") as data:
+            results.append({k: data[k] for k in data.files})
+    per_step = {"block_fwd_save": hp.n_blocks_dec, "block_bwd_store": hp.n_blocks_dec, "mas": 1,
+                "prenet": 1, "prenet_bwd": 1, "encoder_layer": hp.n_layers_enc,
+                "encoder_layer_bwd": hp.n_layers_enc, "duration_stack": 1,
+                "duration_stack_bwd": 1}
+    for res in results:
+        for j, key in enumerate(worker.METRICS):
+            np.testing.assert_allclose(res["metrics"][0, j], float(ref[key]), rtol=3e-4,
+                                       atol=1e-6, err_msg=key)
+        assert {k: int(res[f"launches/{k}"]) for k in per_step} == per_step
+    for key, p in state.model.flat().items():
+        np.testing.assert_allclose(results[0][f"param/{key}"], p.detach().cpu().numpy(),
+                                   rtol=3e-4, atol=2e-6, err_msg=key)
+    for k in (k for k in results[0] if k.startswith(("param/", "mu/", "nu/"))):
+        np.testing.assert_array_equal(results[0][k], results[1][k], err_msg=k)

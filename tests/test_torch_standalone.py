@@ -41,7 +41,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         "for want in ('config', 'data.dataset', 'data.corpus', 'utils.stdio', 'ops.text_cuda',\n"
         "             'ops.wn_cuda', 'ops.block_cuda', 'ops.flows', 'models.glow_tts', 'training',\n"
         "             'export', 'infer_export', 'onnx.proto', 'onnx.builder', 'onnx.check',\n"
-        "             'onnx.runtime', 'onnx.export'):\n"
+        "             'onnx.runtime', 'onnx.export', 'parallel', 'parallel.mesh'):\n"
         "    assert pkg.__name__ + '.' + want in names, (want, names)\n"
         "from glow_tts_train_tpu_torch import __main__ as train_cli, export, infer, infer_export\n"
         "for main in (train_cli.main, infer.main, export.main, infer_export.main):\n"
@@ -77,13 +77,14 @@ def test_onnx_copy_equals_the_original(name):
 
 @pytest.mark.parametrize(
     "path",
-    ["chip_smoke.py", "tests/test_torch_cuda.py"]
+    ["chip_smoke.py", "tests/test_torch_cuda.py", "tests/torch_parallel_worker.py"]
     + sorted(str(p.relative_to(REPO)) for p in (REPO / "scripts").glob("torch-*.py"))
     + sorted(str(p.relative_to(REPO)) for p in (REPO / "glow_tts_train_tpu_torch").rglob("*.py")),
 )
 def test_source_names_no_jax_import(path):
     """No import statement of the port's sources, its GPU smoke script, its
-    GPU test file or its measurement scripts names jax or the JAX package
+    GPU test file, the data-parallel tests' rank worker or its measurement
+    scripts names jax or the JAX package
     (any depth: lazy imports inside functions count)."""
     tree = ast.parse((REPO / path).read_text())
     names = []

@@ -1,0 +1,171 @@
+"""One rank of a data-parallel run of glow_tts_train_tpu_torch, for the
+tests (``tests/test_torch_parallel.py``, ``tests/test_torch_cuda.py``).
+It imports torch, numpy and the port, nothing of jax or of the JAX
+package.
+
+    python tests/torch_parallel_worker.py SPEC RANK
+
+SPEC is a JSON file: ``{"init": "file://...", "world": 2, "platform":
+"cpu" | "cuda", "backend": null | "gloo", "local_rank": null | int,
+"out": DIR, "jobs": [...]}``.  The rank joins the process group
+(``parallel.join``; ``local_rank`` pins every rank to one card), then
+runs each job on its rows of the global batches (rank r holds rows
+r * b / world to (r + 1) * b / world, the global batch being the ranks'
+local batches in rank order) and writes ``DIR/<name>.rank<R>.npz``:
+
+* ``{"kind": "steps", "name", "config": path, "params": path, "batches":
+  path, "steps": n, "dropout": bool}``: the train step n times from the
+  params (an ``.npz`` of ``"a/b/c"`` keys) on batches 0..n-1 of the
+  ``.npz`` (keys ``<i>/<field>``), both dropout generators seeded before
+  each step as ``training.train`` seeds them when ``dropout`` is set ->
+  ``metrics`` [n, 4] (loss, mle_loss, duration_loss, grad_norm),
+  ``param/<key>``, ``mu/<key>``, ``nu/<key>``, ``count``, and
+  ``launches/<kernel>`` of the run;
+* ``{"kind": "ddi", "name", "config", "params", "batches"}``: DDI
+  (``training.actnorm_init``) on batch 0 -> ``logs``, ``bias``.
+"""
+
+import datetime
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from glow_tts_train_tpu_torch import kernels, parallel, training
+from glow_tts_train_tpu_torch.config import load_config
+from glow_tts_train_tpu_torch.models import hyper_from_config
+
+FIELDS = ("x", "x_lengths", "y", "y_lengths", "speaker_ids")
+METRICS = ("loss", "mle_loss", "duration_loss", "grad_norm")
+
+
+def local_batch(batches, i: int, world: int, rank: int) -> dict:
+    out = {}
+    for field in FIELDS:
+        key = f"{i}/{field}"
+        if key in batches:
+            rows = batches[key].shape[0] // world
+            out[field] = batches[key][rank * rows:(rank + 1) * rows]
+    return out
+
+
+def model_from(params_path: str, config, device):
+    with np.load(params_path) as data:
+        flat = {k: data[k] for k in data.files}
+    return training.trainable_model(flat, hyper_from_config(config), device)
+
+
+def run_steps(job: dict, device, rank: int, world: int) -> dict:
+    config = load_config([job["config"]])
+    state = training.TrainState(model_from(job["params"], config, device))
+    step_fn = training.make_train_step(config)
+    generator = torch.Generator(device=device)
+    seed_generator = torch.Generator()
+    metrics = []
+    kernels.reset_launch_counts()
+    with np.load(job["batches"]) as batches:
+        for i in range(job["steps"]):
+            batch = training.batch_to(local_batch(batches, i, world, rank), device)
+            gens = (None, None)
+            if job["dropout"]:
+                generator.manual_seed(training.dropout_seed(config.seed, state.step))
+                seed_generator.manual_seed(training.dropout_seed(config.seed, state.step))
+                gens = (generator, seed_generator)
+            m = step_fn(state, batch, *gens)
+            metrics.append([float(m[k]) for k in METRICS])
+    out = {"metrics": np.asarray(metrics, np.float64), "count": np.asarray(state.opt.count)}
+    for key, p in state.model.flat().items():
+        out[f"param/{key}"] = p.detach().cpu().numpy()
+        out[f"mu/{key}"] = state.opt.mu[key].cpu().numpy()
+        out[f"nu/{key}"] = state.opt.nu[key].cpu().numpy()
+    for name, n in kernels.launch_counts().items():
+        out[f"launches/{name}"] = np.asarray(n)
+    return out
+
+
+def run_ddi(job: dict, device, rank: int, world: int) -> dict:
+    config = load_config([job["config"]])
+    model = model_from(job["params"], config, device)
+    with np.load(job["batches"]) as batches:
+        batch = training.batch_to(local_batch(batches, 0, world, rank), device)
+    model = training.actnorm_init(model, config, batch)
+    flat = model.flat()
+    return {name: flat[f"decoder/blocks/actnorm/{name}"].detach().cpu().numpy()
+            for name in ("logs", "bias")}
+
+
+def main(spec_path: str, rank: int) -> int:
+    spec = json.loads(Path(spec_path).read_text())
+    world = spec["world"]
+    torch.set_num_threads(2)
+    local_rank = rank if spec.get("local_rank") is None else spec["local_rank"]
+    launch = parallel.Launch(rank, world, local_rank, spec["init"])
+    device = parallel.join(
+        launch, spec["platform"], backend=spec.get("backend"),
+        timeout=datetime.timedelta(seconds=120),
+    )
+    try:
+        if spec["platform"] == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        assert parallel.world() == world and parallel.rank() == rank
+        runs = {"steps": run_steps, "ddi": run_ddi}
+        for job in spec["jobs"]:
+            out = runs[job["kind"]](job, device, rank, world)
+            np.savez(Path(spec["out"]) / f"{job['name']}.rank{rank}.npz", **out)
+    finally:
+        parallel.leave()
+    return 0
+
+
+def run_ranks(workdir: Path, jobs: list, world: int = 2, platform: str = "cpu",
+              backend=None, local_rank=None, timeout: float = 300.0) -> None:
+    """Start ``world`` ranks of this module on ``jobs`` (outputs in
+    ``workdir``, rendezvous through a ``file://`` there), wait for all of
+    them within ``timeout`` seconds, kill them past it, and raise
+    ``AssertionError`` with their output if one failed."""
+    import os
+    import subprocess
+    import time
+
+    workdir = Path(workdir)
+    spec = {"init": f"file://{workdir / 'rendezvous'}", "world": world, "platform": platform,
+            "backend": backend, "local_rank": local_rank, "out": str(workdir), "jobs": jobs}
+    spec_path = workdir / "spec.json"
+    spec_path.write_text(json.dumps(spec))
+    repo = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    env["PYTHONPATH"] = os.pathsep.join([str(repo), env.get("PYTHONPATH", "")])
+    procs, logs = [], []
+    for r in range(world):
+        log = open(workdir / f"rank{r}.log", "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, __file__, str(spec_path), str(r)], cwd=repo, env=env,
+            stdout=log, stderr=subprocess.STDOUT,
+        ))
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        tails = "\n".join(f"--- rank {r} (exit {c}):\n"
+                          + (workdir / f"rank{r}.log").read_text()[-3000:]
+                          for r, c in enumerate(codes))
+        raise AssertionError(f"ranks exited {codes} (timeout {timeout} s)\n{tails}")
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1], int(sys.argv[2])))
