@@ -38,6 +38,7 @@ oracle bit for bit.
 import torch
 
 from .. import kernels
+from . import mas_native
 
 _MAX_NEG = -1e9
 
@@ -78,9 +79,11 @@ def maximum_path_plain(logp: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def maximum_path(logp: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Best monotonic alignment path: logp, mask [b, t_x, t_y] (mask 0/1,
-    rectangular per sample) -> 0/1 path [b, t_x, t_y], dtype of logp."""
+    rectangular per sample) -> 0/1 path [b, t_x, t_y], dtype of logp.  CPU
+    tensors take the host library (``mas_native.maximum_path_host``), CUDA
+    tensors the kernel."""
     if kernels.route(logp) == "plain":
-        return maximum_path_plain(logp, mask)
+        return mas_native.maximum_path_host(logp, mask)
     kernels.check_operands(logp.device, logp=logp, mask=mask)
     kernels.check_shape("mask", mask, logp.shape)
     b, t_x, t_y = logp.shape

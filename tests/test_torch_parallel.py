@@ -19,6 +19,9 @@ order (rank r holds rows 4r to 4r + 3 of 8).
 * (c) DDI on 2 ranks against JAX ``initialize_model(..., mesh=)``;
 * (d) a 3-step 2-rank trajectory against JAX ``make_train_step(...,
   mesh=)`` on the concatenated batches;
+* (d') the synced steps: before each of 3 steps the ranks load the
+  params and Adam state that the port's one process had before that
+  step, and take it on the one process's MAS path, dropout on;
 * (e) the train CLI under ``torch.distributed.run --standalone
   --nproc-per-node 2``: rank 0 alone writes, the epochs' losses and the
   final params are the one-process CLI's, and a resumed run equals an
@@ -49,6 +52,7 @@ from glow_tts_train_tpu_torch import checkpoint, parallel, training
 from glow_tts_train_tpu_torch import __main__ as train_cli
 from glow_tts_train_tpu_torch.config import load_config
 from glow_tts_train_tpu_torch.models import glow_tts as model
+from glow_tts_train_tpu_torch.ops import mas_cuda
 from glow_tts_train_tpu_torch.ops.attention import rows_of
 from glow_tts_train_tpu_torch.optimize import current_lr
 
@@ -106,6 +110,42 @@ def _mesh():
     return default_mesh(devices=jax.devices()[:2])
 
 
+def _one_process_states(config, params_path: str, batches, work: Path) -> tuple:
+    """The port's one process, ``len(batches)`` steps with dropout on from
+    the params: before each step its state is written to
+    ``work/synced_state<i>.npz`` (a checkpoint of the train CLI's, Adam
+    state included) and each step's MAS path to ``work/synced_paths.npz``
+    -> (the state paths, the paths' file, metrics [n, 4])."""
+    hp = model.hyper_from_config(config)
+    with np.load(params_path) as data:
+        flat = {k: data[k] for k in data.files}
+    state = training.TrainState(training.trainable_model(flat, hp, "cpu"))
+    step_fn = training.make_train_step(config)
+    states, paths, metrics = [], {}, []
+    kernel_mas = mas_cuda.maximum_path
+
+    def recorded(logp, mask):
+        path = kernel_mas(logp, mask)
+        paths[str(len(paths))] = path.numpy()
+        return path
+
+    mas_cuda.maximum_path = recorded
+    try:
+        for i, batch in enumerate(batches):
+            states.append(str(work / f"synced_state{i}.npz"))
+            checkpoint.save_checkpoint(state.model.flat(), states[-1], state.step,
+                                       current_lr(config, state.step), config.version, state.opt,
+                                       config.scheduler)
+            seed = training.dropout_seed(config.seed, state.step)
+            m = step_fn(state, training.batch_to(batch, "cpu"), torch.Generator().manual_seed(seed),
+                        torch.Generator().manual_seed(seed))
+            metrics.append([float(m[k]) for k in METRICS])
+    finally:
+        mas_cuda.maximum_path = kernel_mas
+    np.savez(work / "synced_paths.npz", **paths)
+    return states, str(work / "synced_paths.npz"), np.asarray(metrics)
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """One 2-rank launch running every job of (a)-(d) -> (its directory,
@@ -139,9 +179,20 @@ def ranks(tmp_path_factory):
                  "config": _write_config(traj_config, work / "trajectory.json"),
                  "params": params, "batches": _write_batches(traj_batches, work / "traj.npz"),
                  "steps": 3, "dropout": False})
+    # (d'): 3 synced steps, dropout on, the params moving between them
+    synced_config = _config(dropout=True)
+    synced_config.learning_rate = LR_TRAJECTORY
+    rng = np.random.default_rng(7)
+    synced_batches = [random_batch(synced_config, rng, b=B) for _ in range(3)]
+    states, paths, synced_metrics = _one_process_states(synced_config, params, synced_batches,
+                                                        work)
+    jobs.append({"kind": "synced", "name": "synced",
+                 "config": _write_config(synced_config, work / "synced.json"), "states": states,
+                 "batches": _write_batches(synced_batches, work / "synced_batches.npz"),
+                 "paths": paths, "dropout": True})
     run_ranks(work, jobs, timeout=240)
     inputs = {"params": params, "step_batch": step_batch, "ddi": (ddi_config, jflat),
-              "trajectory": (traj_config, traj_batches)}
+              "trajectory": (traj_config, traj_batches), "synced": (states, synced_metrics)}
     return work, inputs
 
 
@@ -287,6 +338,28 @@ def test_two_rank_trajectory_matches_jax_mesh(ranks, monkeypatch):
         np.testing.assert_allclose(res[f"mu/{k}"], np.asarray(jmu[k]), rtol=0, atol=1e-5, err_msg=k)
         np.testing.assert_allclose(res[f"nu/{k}"], np.asarray(jnu[k]), rtol=0, atol=1e-5, err_msg=k)
     _params_equal_across_ranks(results)
+
+
+def test_two_rank_synced_steps_match_one_process_at_every_step(ranks):
+    """(d'): each of 3 steps taken by 2 ranks from the port's one-process
+    state before that step (params, Adam moments and count, step) on its
+    MAS path, dropout on: loss, mle_loss, duration_loss and grad_norm
+    within 3e-4 of the one process's at every step, the grad norm too
+    (the hold the data-parallel phase of ``chip_smoke.py`` keeps on the
+    card: a drift of the trajectory is not a fault of the reduction);
+    both ranks' metrics equal bit for bit."""
+    work, inputs = ranks
+    states, ref = inputs["synced"]
+    (first, first_meta), (last, last_meta) = (checkpoint.read_npz(Path(p)) for p in
+                                              (states[0], states[-1]))
+    assert (first_meta["global_step"], last_meta["global_step"]) == (1, len(states))
+    assert not np.array_equal(first["model/decoder/blocks/coupling/end/w"],
+                              last["model/decoder/blocks/coupling/end/w"])
+    results = _rank_results(work, "synced")
+    for res in results:
+        assert res["metrics"].shape == ref.shape
+        np.testing.assert_allclose(res["metrics"], ref, rtol=METRIC_RTOL, atol=METRIC_ATOL)
+    np.testing.assert_array_equal(results[0]["metrics"], results[1]["metrics"])
 
 
 def _cli_args(corpus, out, *extra):  # noqa: F811

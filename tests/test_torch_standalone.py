@@ -5,6 +5,7 @@ configures both; one corpus and seed give the same batches)."""
 
 import ast
 import dataclasses
+import shutil
 import json
 import os
 import subprocess
@@ -41,7 +42,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         "for want in ('config', 'data.dataset', 'data.corpus', 'utils.stdio', 'ops.text_cuda',\n"
         "             'ops.wn_cuda', 'ops.block_cuda', 'ops.flows', 'models.glow_tts', 'training',\n"
         "             'export', 'infer_export', 'onnx.proto', 'onnx.builder', 'onnx.check',\n"
-        "             'onnx.runtime', 'onnx.export', 'parallel', 'parallel.mesh'):\n"
+        "             'onnx.runtime', 'onnx.export', 'parallel', 'parallel.mesh', 'ops.mas_native',\n"
+        "             'utils.flops', 'utils.text'):\n"
         "    assert pkg.__name__ + '.' + want in names, (want, names)\n"
         "from glow_tts_train_tpu_torch import __main__ as train_cli, export, infer, infer_export\n"
         "for main in (train_cli.main, infer.main, export.main, infer_export.main):\n"
@@ -62,6 +64,62 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert proc.stdout.count("--platform") >= 4
     for prog in ("glow-tts-export-torch", "glow-tts-infer-export-torch"):
         assert prog in proc.stdout
+
+
+WRAPPERS = ("glow-tts-train-torch", "glow-tts-infer-torch", "glow-tts-export-torch",
+            "glow-tts-infer-export-torch")
+
+
+def _path_with_python3(tmp_path, python3: str) -> dict:
+    """The environment with ``tmp_path/bin/python3`` (``python3``: a file
+    to link, or a script's text) first on PATH."""
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    if Path(python3).exists():
+        (bin_dir / "python3").symlink_to(python3)
+    else:
+        (bin_dir / "python3").write_text(python3)
+        (bin_dir / "python3").chmod(0o755)
+    env = _env()
+    env["PATH"] = os.pathsep.join([str(bin_dir), env.get("PATH", "")])
+    return env
+
+
+@pytest.mark.parametrize("wrapper", sorted(WRAPPERS))
+def test_bin_wrapper_help_loads_no_jax(tmp_path, wrapper):
+    """``bin/<wrapper> --help`` runs its CLI (the four names of
+    pyproject.toml's scripts, each the program name of its CLI's usage)
+    from any directory, and the process imports
+    no jax* and no glow_tts_train_tpu or glow_tts_train_tpu.* module
+    (``PYTHONPROFILEIMPORTTIME`` lists every import)."""
+    env = _path_with_python3(tmp_path, sys.executable)
+    env["PYTHONPROFILEIMPORTTIME"] = "1"
+    proc = subprocess.run([str(REPO / "bin" / wrapper), "--help"], capture_output=True,
+                          text=True, env=env, timeout=300, cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.startswith(f"usage: {wrapper} ") and "--platform" in proc.stdout
+    imported = [line.rsplit("|", 1)[1].strip() for line in proc.stderr.splitlines()
+                if line.startswith("import time:") and "|" in line]
+    assert "glow_tts_train_tpu_torch" in imported
+    bad = sorted(m for m in imported if m.split(".")[0] in ("jax", "jaxlib", "glow_tts_train_tpu"))
+    assert not bad, bad
+
+
+def test_train_wrapper_passes_the_git_commit(tmp_path):
+    """``bin/glow-tts-train-torch`` runs ``python3 -m glow_tts_train_tpu_torch
+    --git-commit <short HEAD> ARGS`` (an empty commit outside a git
+    checkout), as ``bin/glow-tts-train-tpu`` does for the JAX CLI."""
+    env = _path_with_python3(tmp_path, '#!/bin/sh\nprintf "%s\\n" "$@"\n')
+    proc = subprocess.run([str(REPO / "bin" / "glow-tts-train-torch"), "--output", "x y"],
+                          capture_output=True, text=True, env=env, timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    commit = ""
+    if shutil.which("git"):
+        head = subprocess.run(["git", "-C", str(REPO), "rev-parse", "--short", "HEAD"],
+                              capture_output=True, text=True)
+        commit = head.stdout.strip() if head.returncode == 0 else ""
+    assert proc.stdout.split("\n")[:-1] == [
+        "-m", "glow_tts_train_tpu_torch", "--git-commit", commit, "--output", "x y"]
 
 
 @pytest.mark.parametrize(

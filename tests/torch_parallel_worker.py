@@ -22,7 +22,14 @@ local batches in rank order) and writes ``DIR/<name>.rank<R>.npz``:
   ``param/<key>``, ``mu/<key>``, ``nu/<key>``, ``count``, and
   ``launches/<kernel>`` of the run;
 * ``{"kind": "ddi", "name", "config", "params", "batches"}``: DDI
-  (``training.actnorm_init``) on batch 0 -> ``logs``, ``bias``.
+  (``training.actnorm_init``) on batch 0 -> ``logs``, ``bias``;
+* ``{"kind": "synced", "name", "config", "states": [path, ...],
+  "batches", "paths": path, "dropout": bool}``: step i from the state of
+  ``states[i]`` (an ``.npz`` of ``param/<key>``, ``mu/<key>``,
+  ``nu/<key>``, ``count`` and ``step``: the one-process run's before its
+  step i) on batch i, its MAS path replaced by the rank's rows of key
+  ``<i>`` of ``paths`` (the one-process run's path at step i) ->
+  ``metrics`` [n, 4] and ``launches/<kernel>`` summed over the steps.
 """
 
 import datetime
@@ -33,9 +40,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from glow_tts_train_tpu_torch import kernels, parallel, training
+from glow_tts_train_tpu_torch import checkpoint, kernels, parallel, training
 from glow_tts_train_tpu_torch.config import load_config
 from glow_tts_train_tpu_torch.models import hyper_from_config
+from glow_tts_train_tpu_torch.ops import mas_cuda
 
 FIELDS = ("x", "x_lengths", "y", "y_lengths", "speaker_ids")
 METRICS = ("loss", "mle_loss", "duration_loss", "grad_norm")
@@ -85,6 +93,55 @@ def run_steps(job: dict, device, rank: int, world: int) -> dict:
     return out
 
 
+def load_state(path: str, config, device) -> training.TrainState:
+    """The train state of a checkpoint of the train CLI's format (params,
+    Adam moments and count, step), its Adam state whole."""
+    saved_opt: dict = {}
+    flat, meta = checkpoint.read_npz(Path(path), saved_opt)
+    model = training.trainable_model(
+        {k[len(checkpoint.PREFIX):]: v for k, v in flat.items()}, hyper_from_config(config), device
+    )
+    state = training.TrainState(model, int(meta["global_step"]))
+    state.opt, why = checkpoint.restore_opt_state(
+        saved_opt, meta.get("opt_treedef"), model.flat(), config.scheduler
+    )
+    assert state.opt is not None, why
+    return state
+
+
+def run_synced(job: dict, device, rank: int, world: int) -> dict:
+    config = load_config([job["config"]])
+    step_fn = training.make_train_step(config)
+    generator = torch.Generator(device=device)
+    seed_generator = torch.Generator()
+    metrics, launches = [], {}
+    kernel_mas = mas_cuda.maximum_path
+    with np.load(job["batches"]) as batches, np.load(job["paths"]) as paths:
+        for i, state_path in enumerate(job["states"]):
+            state = load_state(state_path, config, device)
+            batch = training.batch_to(local_batch(batches, i, world, rank), device)
+            rows = batch["x"].shape[0]
+            pinned = torch.from_numpy(paths[str(i)][rank * rows:(rank + 1) * rows])
+            gens = (None, None)
+            if job["dropout"]:
+                generator.manual_seed(training.dropout_seed(config.seed, state.step))
+                seed_generator.manual_seed(training.dropout_seed(config.seed, state.step))
+                gens = (generator, seed_generator)
+            kernels.reset_launch_counts()
+            mas_cuda.maximum_path = lambda logp, mask: pinned.to(logp)
+            try:
+                m = step_fn(state, batch, *gens)
+            finally:
+                mas_cuda.maximum_path = kernel_mas
+            metrics.append([float(m[k]) for k in METRICS])
+            for name, n in kernels.launch_counts().items():
+                launches[name] = launches.get(name, 0) + n
+    out = {"metrics": np.asarray(metrics, np.float64)}
+    for name, n in launches.items():
+        out[f"launches/{name}"] = np.asarray(n)
+    return out
+
+
 def run_ddi(job: dict, device, rank: int, world: int) -> dict:
     config = load_config([job["config"]])
     model = model_from(job["params"], config, device)
@@ -111,7 +168,7 @@ def main(spec_path: str, rank: int) -> int:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         assert parallel.world() == world and parallel.rank() == rank
-        runs = {"steps": run_steps, "ddi": run_ddi}
+        runs = {"steps": run_steps, "ddi": run_ddi, "synced": run_synced}
         for job in spec["jobs"]:
             out = runs[job["kind"]](job, device, rank, world)
             np.savez(Path(spec["out"]) / f"{job['name']}.rank{rank}.npz", **out)
