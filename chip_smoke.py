@@ -126,7 +126,9 @@ Phases, each fatal on failure:
     kernels, with its bound at the dense BF16 peak, every bf16 row also
     with its products on the mma.sync kernels and on the TMA-fed ones in
     turns, the text rows' product counts and device operations held to
-    their plan and BF16_REPEATS calls of each giving the same bits; then
+    their plan and BF16_REPEATS calls of each giving the same bits (of the
+    block's backward-store too, with its device ms and operations a call
+    printed beside its parent's, BF16_BWD_PARENT); then
     the bf16 step against the f32 step from one init, on the same batches and
     dropout seeds, step by step on the f32 step's alignment (losses within
     BF16_LOSS_RTOL, the grad norm within BF16_GRAD_NORM_RTOL, bf16's own
@@ -145,7 +147,9 @@ Phases, each fatal on failure:
     nothing against the forward-save's bits and a recompute backward against
     the store backward's, timed, its device time and operations from a
     bracketed trace held to ``tc_gemm.bf16_block_products``, its bound at
-    the dense BF16 peak; then the four bf16 modes from one init in one
+    the dense BF16 peak; each backward (rows 7, 8, 11) BF16_REPEATS calls
+    to the first call's bits, its device ms and operations a call printed
+    beside its parent's; then the four bf16 modes from one init in one
     process, in turns (as 11, as shipped): 34 steps each, recompute's losses
     store's to the bit (the bf16 TMA kernels' second path), op by op's first
     4 within the same bounds of fused, step ms, peak memory over resident
@@ -174,7 +178,10 @@ Phases, each fatal on failure:
     trained ids; every kernel of the run against its plain version on the
     last step's inputs (f32 to KERNEL_RTOL, bf16 to BF16_KERNEL_RTOL, MAS
     bit for bit, the block backward's speaker gradient too), each row's
-    products and device operations held to its plan; one more step with its
+    products and device operations held to its plan, and with the speaker
+    conditioning the block's recompute backward (row 11) on the same
+    inputs: the store backward's bits, dg too, within BF16_KERNEL_RTOL of
+    the plain version, its device operations held to its plan; one more step with its
     products held to the rows' plans, its peak memory over resident and a
     profile; then the checkpoint through the infer CLI at batch 1 and 4
     (``--speaker`` for multispeaker), kernel path against the plain path on
@@ -2647,9 +2654,49 @@ def bf16_block_products(device_line: str, text: bool = False) -> list:
 # where JAX rounds the final ones.  The JAX package's own bf16 against f32
 # is 4.8e-3 to 6.3e-3 of max |z| on the CPU (tests/test_torch_bf16.py).
 BF16_KERNEL_RTOL = 2e-2
-# calls of each bf16 text row that must give the same bits (split-K shares
-# and row splits added in a fixed order, no atomics)
+# calls of each bf16 text row and of the decoder's four bf16 backwards
+# (rows 7, 8, 11, 12) that must give the same bits (split-K shares, row
+# splits and the bias gradients' tile sums added in a fixed order, no
+# atomics)
 BF16_REPEATS = 50
+# the bf16 backwards' device time (ms) and device operations a call at
+# [32, 704] (base width) before their bias and dg sums moved into the
+# epilogues (PERF.md's bf16 table, the earlier designs' runs on an H100 at
+# 700 W), printed beside this run's
+BF16_BWD_PARENT = {"wn_bwd_bf16": (7, 2.0621, 51), "wn_bwd_store_bf16": (8, 1.2775, 42),
+                   "block_bwd_bf16": (11, 2.4622, 69), "block_bwd_store_bf16": (12, 1.5085, 59)}
+BF16_BWD_PARENT_SHAPE = {"wn": [32, 704, 192], "block": [32, 704, 160]}
+
+
+def bf16_bwd_row_line(name: str, roof: dict, shape: list, device_line: str,
+                      tag: str = "") -> dict:
+    """Prints a bf16 backward row's device ms and operations a call at
+    ``shape``, the parent's in brackets where they were taken at it
+    (BF16_BWD_PARENT) -> the pair as a dict."""
+    row, parent_ms, parent_ops = BF16_BWD_PARENT[name]
+    if shape != BF16_BWD_PARENT_SHAPE[name.split("_")[0]]:
+        parent_ms = parent_ops = None
+    ms = roof.get("device_ms")
+    before = (f"before: {parent_ms} ms, {parent_ops} operations, PERF.md" if parent_ops else
+              "before: not measured at this shape")
+    print(f"bf16 row {row} {name}{tag} {shape}: device "
+          f"{'not measured' if ms is None else f'{ms:.4f}'} ms, {roof['device_operations']} "
+          f"operations a call [{before}] [{device_line}]")
+    return {"device_ms": ms, "device_operations": roof["device_operations"],
+            "parent_device_ms": parent_ms, "parent_device_operations": parent_ops}
+
+
+def same_bits_over_calls(name: str, fn, first: dict) -> int:
+    """BF16_REPEATS calls of a backward ``fn`` -> each gradient of
+    ``first`` (a dict, None entries skipped) equal bit for bit every time."""
+    import torch
+
+    for _ in range(BF16_REPEATS):
+        again = fn()
+        for k, v in first.items():
+            if v is not None and not torch.equal(again[k], v):
+                fail(f"{name}: {k} differs from the first call's bits within {BF16_REPEATS} calls")
+    return BF16_REPEATS
 
 
 def bf16_text_plan(name: str, weights: tuple, x, backward: bool) -> dict:
@@ -2850,9 +2897,33 @@ def bf16_kernels(recorders: dict, launches: dict, device_line: str, turns: bool 
     ops = held_block_plan("block_bwd_store_bf16", lambda: bwd(*call), roof, x, folded, cfg[0],
                           backward=True, with_g=with_g)
     in_turns = units("block_bwd_store_bf16", lambda: bwd(*call))
+    tag = " (conditioned)" if with_g else ""
+    extra = {"against_parent": bf16_bwd_row_line("block_bwd_store_bf16", roof, list(x.shape),
+                                                 device_line, tag)}
+    if turns:
+        extra["same_bits_repeats"] = same_bits_over_calls("block_bwd_store_bf16",
+                                                          lambda: bwd(*call), grads_k)
+    if with_g:  # row 11 on the same inputs, conditioned: the store call's bits, dg too
+        g_cond = g_leaf[0].detach()
+        rcall = (folded, g_cond, x, x_mask, dz, dld, *cfg)
+        got = block_cuda.block_bwd(*rcall)
+        _, _, fresh = block_cuda.block_fwd_save(folded, g_cond, x, x_mask, *cfg)
+        store = bwd(folded, True, x, x_mask, fresh, dz, dld, *cfg)
+        for n in names:
+            if not torch.equal(got[n], store[n]):
+                fail(f"block_bwd_bf16 (conditioned): {n} differs from the store backward's bits")
+        del fresh, store
+        r_worst, _ = held_bf16("block_bwd_bf16 (conditioned)", [got[n] for n in names], ref)
+        r_roof = bf16_bound("block_bwd_bf16", rcall, {}, got, block_cuda.block_bwd)
+        r_ops = held_block_plan("block_bwd_bf16 (conditioned)",
+                                lambda: block_cuda.block_bwd(*rcall), r_roof, x, folded, cfg[0],
+                                backward=True, with_g=True, recompute=True)
+        extra["recompute_conditioned"] = {
+            "equals_store": True, "device_operations_plan": r_ops, "worst_relative": r_worst,
+            **bf16_bwd_row_line("block_bwd_bf16", r_roof, list(x.shape), device_line, tag)}
     entry("block_bwd_store_bf16", worst * scale, scale, ms, plain_ms, list(x.shape), roof,
           worst_relative=worst, device_ms_in_turns=in_turns, device_operations_plan=ops,
-          with_g=with_g)
+          with_g=with_g, **extra)
     return report
 
 
@@ -3623,8 +3694,12 @@ def bf16_decoder_mode_kernels(recorders: dict, launches_by_mode: dict, device_li
     ops = held_plan("block_bwd_bf16", lambda: block_cuda.block_bwd(*args, **kwargs), roof, x,
                     x.shape[2], folded["W_in"], cfg[0], backward=True, recompute=True,
                     with_g=g_all is not None)
+    repeats = same_bits_over_calls("block_bwd_bf16",
+                                   lambda: block_cuda.block_bwd(*args, **kwargs), grads)
     entry("block_bwd_bf16", worst * scale, scale, ms, plain_ms, list(x.shape), roof,
-          worst_relative=worst, p_dropout=cfg[3], equals_store=True, device_operations_plan=ops)
+          worst_relative=worst, p_dropout=cfg[3], equals_store=True, device_operations_plan=ops,
+          same_bits_repeats=repeats,
+          against_parent=bf16_bwd_row_line("block_bwd_bf16", roof, list(x.shape), device_line))
     del saves, store, grads, leaves
 
     # ---- rows 6 and 5: the WN stack's forward-save and forward ----
@@ -3697,9 +3772,13 @@ def bf16_decoder_mode_kernels(recorders: dict, launches_by_mode: dict, device_li
     roof = bf16_bound("wn_bwd_store_bf16", args, kwargs, grads, wn_cuda.wn_bwd_store)
     ops = held_plan("wn_bwd_store_bf16", lambda: wn_cuda.wn_bwd_store(*args, **kwargs), roof, x,
                     0, wn[0], cfg[0], backward=True, with_g=g_all is not None)
+    repeats = same_bits_over_calls("wn_bwd_store_bf16",
+                                   lambda: wn_cuda.wn_bwd_store(*args, **kwargs), grads)
     entry("wn_bwd_store_bf16", worst * scale, scale, ms, plain_ms, list(x.shape), roof,
           worst_relative=worst, p_dropout=cfg[2], same_bits_twice=True,
-          device_operations_plan=ops)
+          device_operations_plan=ops, same_bits_repeats=repeats,
+          against_parent=bf16_bwd_row_line("wn_bwd_store_bf16", roof, list(x.shape),
+                                           device_line))
     del saves, grads, again
 
     # ---- row 7: the WN recompute backward ----
@@ -3722,8 +3801,11 @@ def bf16_decoder_mode_kernels(recorders: dict, launches_by_mode: dict, device_li
     roof = bf16_bound("wn_bwd_bf16", args, kwargs, grads, wn_cuda.wn_bwd)
     ops = held_plan("wn_bwd_bf16", lambda: wn_cuda.wn_bwd(*args, **kwargs), roof, x, 0, wn[0],
                     cfg[0], backward=True, recompute=True, with_g=g_all is not None)
+    repeats = same_bits_over_calls("wn_bwd_bf16", lambda: wn_cuda.wn_bwd(*args, **kwargs), grads)
     entry("wn_bwd_bf16", worst * scale, scale, ms, plain_ms, list(x.shape), roof,
-          worst_relative=worst, p_dropout=cfg[2], equals_store=True, device_operations_plan=ops)
+          worst_relative=worst, p_dropout=cfg[2], equals_store=True, device_operations_plan=ops,
+          same_bits_repeats=repeats,
+          against_parent=bf16_bwd_row_line("wn_bwd_bf16", roof, list(x.shape), device_line))
     return report
 
 

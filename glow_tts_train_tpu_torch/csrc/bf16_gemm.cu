@@ -70,8 +70,14 @@
 // which writes the gradient in the weight's dtype (the JAX kernels'
 // ``g.astype(w.dtype)``).
 //
-// Either unit's bias gradient is bias_grad of dY (f32: the unrounded
-// cotangent, as the JAX kernels sum it).
+// Either unit's bias gradient (the flow chains'; the text chains take
+// their column sums themselves) comes from the tile sums of dY that the
+// epilogues writing dY keep (ConvGemm::sums: f32 sums of the unrounded
+// cotangent, as the JAX kernels sum it, per sample and 64-row tile), so no
+// f32 copy of dY is written for it: the weight gradient's one reduction
+// launch (wgrad_bf16_reduce_kernel) adds its row splits, its bias's tile sums
+// and, for dW_in, the conditioning's per-sample sums.  A weight gradient
+// is two launches.
 #include <stdint.h>
 
 #include <algorithm>
@@ -135,6 +141,37 @@ __device__ __forceinline__ void store_tile(const float (&acc)[2][4][4], float* t
 }
 
 constexpr int kTileBytes = kBM * (kBN + 1) * 4;  // the accumulator tile, for the epilogue
+
+// A cotangent epilogue's column sums over one 64-row tile (ConvGemm::sums):
+// each thread adds the values of its column group (kW columns from q kW)
+// over the rows of its phase (rows phase, phase + phases, ... of the tile)
+// in cs; stage_sums puts them in shared memory, stage [phases][4][cols];
+// then, after a barrier, flush_sums adds each column's phases in order and
+// writes the tile's sum (sample b, tile `tile`) where sum_slot says.
+template <int kW>
+__device__ __forceinline__ void stage_sums(const float (&cs)[4][kW], float* stage, int phase,
+                                           int q, int cols) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int e = 0; e < kW; ++e) stage[(phase * 4 + s) * cols + q * kW + e] = cs[s][e];
+}
+
+__device__ __forceinline__ void flush_sums(const ConvGemm& g, const float* stage, int phases,
+                                           int cols, int n0, int b, int tile, int tid,
+                                           int threads) {
+  const int slots = sum_slots(g.epilogue);
+  const long at = (long)b * ((g.t + kSumTileRows - 1) / kSumTileRows) + tile;
+  for (int i = tid; i < slots * cols; i += threads) {
+    const int s = i / cols, c = i - s * cols, n = n0 + c;
+    int col = 0;
+    const TileSums t = sum_slot(g, s, n, &col);
+    if (n >= g.n || t.p == nullptr) continue;
+    float v = 0.f;
+    for (int p = 0; p < phases; ++p) v = __fadd_rn(v, stage[(p * 4 + s) * cols + c]);
+    t.p[at * t.ld + col] = v;
+  }
+}
 
 constexpr int kWRows = 32;  // rows a slice of the weight gradient
 
@@ -206,7 +243,11 @@ __device__ __forceinline__ void slice_mma_staged(float (&acc)[2][4][4], const __
 // double-buffered A and B slices, B either way round
 constexpr int kBStage = kBK * kSN > kBN * kSK ? kBK * kSN : kBN * kSK;
 constexpr int kStageBytes = 2 * (kBM * kSK + kBStage) * 2;
-constexpr int kSmemBytes = kStageBytes > kTileBytes ? kStageBytes : kTileBytes;
+// the epilogue's tile and, after it, its column sums' stage [8][4][kBN]
+constexpr int kSumStageBytes = 8 * 4 * kBN * 4;
+constexpr int kSmemBytes = kStageBytes > kTileBytes + kSumStageBytes
+                               ? kStageBytes
+                               : kTileBytes + kSumStageBytes;
 
 template <bool kWT>
 __global__ void __launch_bounds__(128) conv_gemm_bf16_kernel(const ConvGemm g) {
@@ -215,8 +256,11 @@ __global__ void __launch_bounds__(128) conv_gemm_bf16_kernel(const ConvGemm g) {
   __nv_bfloat16* bs = as + 2 * kBM * kSK;                        // [2][kBStage]
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int rows = g.batch * g.t;
+  // a tile: 64 rows of one sample (its tiles end at its last row, so a
+  // tile's column sums are the sample's), columns from n0
+  const int tiles_t = (g.t + kBM - 1) / kBM;
+  const int b = blockIdx.y / tiles_t, ti = blockIdx.y - b * tiles_t;
+  const int t0 = ti * kBM, n0 = blockIdx.x * kBN;
   const int kdim = g.taps * g.c_in;
   const int half_taps = g.taps / 2;
   const bool a16 = has(g.bf16, kA16);
@@ -227,10 +271,8 @@ __global__ void __launch_bounds__(128) conv_gemm_bf16_kernel(const ConvGemm g) {
   int a_row0[2], a_t[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int m = m0 + (tid + 128 * i) / 4;
-    const int b = m / g.t;
-    a_row0[i] = m < rows ? b * g.t : -1;
-    a_t[i] = m - b * g.t;
+    a_t[i] = t0 + (tid + 128 * i) / 4;
+    a_row0[i] = a_t[i] < g.t ? b * g.t : -1;
   }
   uint4 ra[2], rb[2];
   auto load = [&](int k0) {
@@ -316,14 +358,20 @@ __global__ void __launch_bounds__(128) conv_gemm_bf16_kernel(const ConvGemm g) {
   float* tile = reinterpret_cast<float*>(smem);
   store_tile(acc, tile, wm, wn, lane);
   __syncthreads();
-  for (int i = tid; i < kBM * (kBN / 4); i += 128) {
-    const int r = i / (kBN / 4), c = (i % (kBN / 4)) * 4;
-    const int m = m0 + r;
-    if (m >= rows || n0 + c >= g.n) continue;
+  // a thread: 4 columns from c of rows tid / 16, + 8, ...
+  float cs[4][4] = {};
+  const int c = (tid % (kBN / 4)) * 4;
+  for (int r = tid / (kBN / 4); r < kBM; r += 128 / (kBN / 4)) {
+    if (t0 + r >= g.t || n0 + c >= g.n) continue;
     const float v[4] = {tile[r * (kBN + 1) + c], tile[r * (kBN + 1) + c + 1],
                         tile[r * (kBN + 1) + c + 2], tile[r * (kBN + 1) + c + 3]};
-    epilogue_row_bf16<4>(g, m, n0 + c, v);
+    epilogue_row_bf16<4>(g, b * g.t + t0 + r, n0 + c, v, cs);
   }
+  if (g.sums.p == nullptr) return;
+  float* stage = tile + kBM * (kBN + 1);
+  stage_sums<4>(cs, stage, tid / (kBN / 4), tid % (kBN / 4), kBN);
+  __syncthreads();
+  flush_sums(g, stage, 128 / (kBN / 4), kBN, n0, b, ti, tid, 128);
 }
 
 constexpr int kSA = kBM + 8;  // the weight gradient's [row][kk] and [row][n] bf16 rows
@@ -459,15 +507,106 @@ bool wgrad_fits(const WGrad& w) {
          w.ldy % (has(w.bf16, kAux16) ? 8 : 4) == 0 && aligned16(w.a) && aligned16(w.dy);
 }
 
-// out[i] = sum over the splits s (in order) of part[s * per_split + i],
-// written in out's dtype.
-__global__ void split_sum_kernel(const float* __restrict__ part, long per_split, int splits,
-                                 float* out, int out_bf16) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= per_split) return;
+// One weight gradient's reduction, in one launch of 256-thread blocks:
+//  * w_blocks: out[i] = sum over the row splits s (in order) of
+//    part[s * per_split + i], written in out's dtype;
+//  * b_blocks: the bias gradient bias[j], 32 columns a block: each
+//    sample's tile sums of column j (WGrad::bias_lo / bias_hi) added in
+//    tile order by one of 8 thread rows, then the samples' in order;
+//  * the rest: the conditioning's gradient dg[b * dg_ld + j] (bf16), sample
+//    b's tile sums of g added in tile order.
+// No atomics: the same bits on every call.
+struct WgradReduce {
+  const float* part = nullptr;
+  long per_split = 0;
+  int splits = 0;
+  float* out = nullptr;
+  int out_bf16 = 0;
+  float* bias = nullptr;
+  int n = 0, split = 0;  // the bias's columns, those from lo
+  TileSums lo, hi, g;
+  float* dg = nullptr;
+  long dg_ld = 0;
+  int batch = 0, tiles = 0;
+  int w_blocks = 0, b_blocks = 0;
+};
+
+constexpr int kSumRows = 8;  // a bias block's thread rows (samples b, b + 8, ...)
+
+__device__ __forceinline__ float tile_sum_at(const TileSums& s, int b, int tile, int tiles,
+                                             int j) {
+  return s.p ? s.p[((long)b * tiles + tile) * s.ld + j] : 0.f;
+}
+
+// sample b's part of column j: its tiles in order
+__device__ __forceinline__ float sample_sum(const TileSums& s, int b, int tiles, int j) {
   float v = 0.f;
-  for (int s = 0; s < splits; ++s) v += part[s * per_split + i];
-  st_act(out, i, v, out_bf16 != 0);
+  for (int i = 0; i < tiles; ++i) v += tile_sum_at(s, b, i, tiles, j);
+  return v;
+}
+
+__global__ void __launch_bounds__(256) wgrad_bf16_reduce_kernel(const WgradReduce r) {
+  extern __shared__ float by_sample[];  // [batch][32]: a bias block's samples' parts
+  const int tid = threadIdx.x;
+  int blk = blockIdx.x;
+  if (blk < r.w_blocks) {
+    const long i = (long)blk * 256 + tid;
+    if (i >= r.per_split) return;
+    float v = 0.f;
+    for (int s = 0; s < r.splits; ++s) v += r.part[s * r.per_split + i];
+    st_act(r.out, i, v, r.out_bf16 != 0);
+    return;
+  }
+  blk -= r.w_blocks;
+  if (blk < r.b_blocks) {
+    const int tx = tid % 32, ty = tid / 32;
+    const int j = blk * 32 + tx;
+    const bool on = j < r.n;
+    const TileSums src = j < r.split ? r.lo : r.hi;
+    const int col = j < r.split ? j : j - r.split;
+    for (int b = ty; b < r.batch; b += kSumRows)
+      by_sample[b * 32 + tx] = on ? sample_sum(src, b, r.tiles, col) : 0.f;
+    __syncthreads();
+    if (ty != 0 || !on) return;
+    float v = 0.f;
+    for (int b = 0; b < r.batch; ++b) v += by_sample[b * 32 + tx];
+    r.bias[j] = v;
+    return;
+  }
+  blk -= r.b_blocks;
+  const long i = (long)blk * 256 + tid;
+  if (i >= (long)r.batch * r.n) return;
+  const int b = (int)(i / r.n), j = (int)(i - (long)b * r.n);
+  st_act(r.dg, b * r.dg_ld + j, sample_sum(r.g, b, r.tiles, j), true);
+}
+
+// The reduction of weight gradient w (scratch holding its `splits` row
+// splits' partial sums where splits > 1) with its bias and conditioning
+// gradients; none of the three to do: no launch.
+cudaError_t wgrad_reduce(const WGrad& w, int splits, int out16, cudaStream_t stream) {
+  WgradReduce r;
+  const long per_split = (long)w.taps * w.c_in * w.n;
+  if (splits > 1) {
+    r.part = w.scratch; r.per_split = per_split; r.splits = splits;
+    r.out = w.out; r.out_bf16 = out16;
+    r.w_blocks = (int)((per_split + 255) / 256);
+  }
+  r.batch = w.batch; r.tiles = (w.t + kSumTileRows - 1) / kSumTileRows; r.n = w.n;
+  if (w.bias_out) {
+    r.bias = w.bias_out; r.split = w.bias_split; r.lo = w.bias_lo; r.hi = w.bias_hi;
+    r.b_blocks = (w.n + 31) / 32;
+  }
+  int g_blocks = 0;
+  if (w.dg) {
+    r.g = w.g_sums; r.dg = w.dg; r.dg_ld = w.dg_ld;
+    g_blocks = (int)(((long)w.batch * w.n + 255) / 256);
+  }
+  const int blocks = r.w_blocks + r.b_blocks + g_blocks;
+  if (blocks == 0) return cudaSuccess;
+  const size_t smem = r.b_blocks ? sizeof(float) * 32 * w.batch : 0;
+  if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  wgrad_bf16_reduce_kernel<<<blocks, 256, smem, stream>>>(r);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -681,6 +820,41 @@ __device__ __forceinline__ void ring_products(const R& r, int n_steps, bool a_on
   if (n_steps > 0) release(n_steps - 1);
 }
 
+// Whether the TMA-fed conv-GEMM's producer brings the WN walk's epilogue
+// operands into L2 while the K walk runs (prefetch_epilogue): off, as
+// shipped; gtt_bf16_prefetch turns it on, for a measurement in turns.  At
+// [32, 704] it saved nothing (the gate backward in the chain 85.6 us with
+// it, 82.8 without; PERF.md): the gate backward's time is its product's.
+bool& prefetch_allowed() {
+  static bool allowed = false;
+  return allowed;
+}
+
+// `nrows` rows from r0 of a row-major tensor with `ld` elements a row (f32,
+// or bf16 with b16) into L2, where they lie on whole 16-byte groups.
+__device__ __forceinline__ void prefetch_rows(const float* base, int ld, bool b16, long r0,
+                                              int nrows) {
+  if (base == nullptr) return;
+  const long esz = b16 ? 2 : 4;
+  const char* p = reinterpret_cast<const char*>(base) + r0 * ld * esz;
+  const uint32_t bytes = (uint32_t)(nrows * ld * esz);
+  if ((reinterpret_cast<uintptr_t>(p) & 15u) == 0 && (bytes & 15u) == 0) prefetch_l2(p, bytes);
+}
+
+// What the WN walk's epilogues read of a tile's rows (r0 .. r0 + nrows - 1,
+// contiguous): the gate backward's saved gates th and sg, the transposed
+// conv's f32 accumulator gx.  They were written long before (the forward,
+// the previous layer) and lie in device memory; the epilogue's loads of
+// them, a 64-row tile's in a row loop, were its latency.
+__device__ __forceinline__ void prefetch_epilogue(const ConvGemm& g, long r0, int nrows) {
+  if (g.epilogue == kGateBwd) {
+    prefetch_rows(g.aux, g.ld_aux, has(g.bf16, kAux16), r0, nrows);
+    prefetch_rows(g.aux2, g.ld_aux, has(g.bf16, kAux2_16), r0, nrows);
+  } else if (g.epilogue == kAccumMask) {
+    prefetch_rows(g.out, g.ldo, false, r0, nrows);
+  }
+}
+
 // The bf16 conv-GEMM fed by TMA (ConvGemm::tma_ring in a bf16 chain): a
 // 64-row x 64 kNB-column tile of one sample's rows per block (the tiles of
 // a sample end at its last row, so a tap's rows outside the sample are
@@ -698,13 +872,15 @@ __device__ __forceinline__ void ring_products(const R& r, int n_steps, bool a_on
 // SM, 128-row tiles, the chains' epilogues added 40-130% to the bare
 // products: the gate backward's loads wait with nothing else in flight).
 // The accumulators go through shared memory to the epilogue
-// (epilogue_cols_bf16, 4 neighbouring columns a call: inlined once, where
-// straight from the fragments each kernel held it 48 times and nvcc took
-// minutes).
+// (epilogue_cols_bf16, 4 neighbouring columns a call, 6 in a tile of three
+// chunks: inlined once, where straight from the fragments each kernel held
+// it 48 times and nvcc took minutes); a thread keeps one column group, so
+// a cotangent's column sums (ConvGemm::sums) add up in its registers over
+// its rows and once across threads through shared memory.
 template <int kWT, int kNB>
 __global__ void __launch_bounds__(256, 2)
     conv_gemm_bf16_tma_kernel(const ConvGemm g, const __grid_constant__ CUtensorMap a_map,
-                              const __grid_constant__ CUtensorMap b_map) {
+                              const __grid_constant__ CUtensorMap b_map, int prefetch) {
   using R = ConvRing<kNB>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const R r = ring_setup<R>(smem_raw);
@@ -729,6 +905,7 @@ __global__ void __launch_bounds__(256, 2)
   if (tid >= R::kConsumers) {  // the producer warpgroup: one thread copies
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == R::kConsumers) {
+      if (prefetch) prefetch_epilogue(g, (long)b * g.t + t0, min(64, g.t - t0));
       const uint32_t bytes = (1 + (kWT ? kNB : nb_on)) * kRingChunk;
       for (int i = 0; i < n_steps; ++i) {
         const int s = s0 + i;
@@ -757,7 +934,7 @@ __global__ void __launch_bounds__(256, 2)
 
   // the accumulators through shared memory (the ring is free once every
   // consumer's wgmmas are done: each copy it holds has landed), then each
-  // thread takes 4 neighbouring logical columns of a row to the epilogue
+  // thread takes neighbouring logical columns of a row to the epilogue
   constexpr int kStride = 64 * kNB + 8;  // floats a tile row
   float* tile = reinterpret_cast<float*>(smem_raw + (r.base - smem_addr(smem_raw)));
   const int lane = tid & 31;
@@ -773,28 +950,49 @@ __global__ void __launch_bounds__(256, 2)
       *reinterpret_cast<float2*>(at + 8 * kStride) = make_float2(acc[j][4 * i + 2], acc[j][4 * i + 3]);
     }
   asm volatile("bar.sync 1, %0;\n" ::"n"(R::kConsumers) : "memory");
-  const int groups = 16 * kNB;  // of 4 columns a row (a paired tile's: 2 pairs)
+  // a thread: kW neighbouring columns (a paired tile's: 2 pairs) of the
+  // group q, in every `phases`-th row from its phase; 32 groups a row at 2
+  // and 3 chunks, 16 at 1, so a warp covers a row's columns or two rows'
+  constexpr int kW = kNB == 3 ? 6 : 4;
+  constexpr int kGroups = 64 * kNB / kW;
+  constexpr int kPhases = R::kConsumers / kGroups;
+  const int q = tid % kGroups, phase = tid / kGroups;
   const long rows = (long)g.batch * g.t;
+  float cs[4][kW] = {};
 #pragma unroll 1
-  for (int it = tid; it < 64 * groups; it += R::kConsumers) {
-    const int row = it / groups, q = it - row * groups;
+  for (int row = phase; row < 64; row += kPhases) {
     const int tt = t0 + row;
     if (tt >= g.t) continue;
     const float* tr = tile + row * kStride;
     if (gridDim.z > 1) {  // a share's partial sums, for conv_split_sum_bf16_kernel
-      const int n = n0 + 4 * q;
-      if (n < g.n)
-        *reinterpret_cast<float4*>(g.part + ((long)blockIdx.z * rows + b * g.t + tt) * g.n + n) =
-            *reinterpret_cast<const float4*>(tr + 4 * q);
+      float* part = g.part + ((long)blockIdx.z * rows + b * g.t + tt) * g.n;
+#pragma unroll
+      for (int e = 0; e < kW; e += 2)
+        if (n0 + kW * q + e < g.n)
+          *reinterpret_cast<float2*>(part + n0 + kW * q + e) =
+              *reinterpret_cast<const float2*>(tr + kW * q + e);
     } else if (pair) {  // pairs (2q, 64 + 2q) and (2q + 1, 65 + 2q): logical 2 (j0 + 2q) ..
       const float v[4] = {tr[2 * q], tr[64 + 2 * q], tr[2 * q + 1], tr[65 + 2 * q]};
-      epilogue_row_bf16<4>(g, b * g.t + tt, 2 * (j0 + 2 * q), v);
+      float none[4][4] = {};  // the paired epilogues keep no column sums
+      epilogue_row_bf16<4>(g, b * g.t + tt, 2 * (j0 + 2 * q), v, none);
     } else {
-      const float4 f = *reinterpret_cast<const float4*>(tr + 4 * q);
-      const float v[4] = {f.x, f.y, f.z, f.w};
-      epilogue_row_bf16<4>(g, b * g.t + tt, n0 + 4 * q, v);
+      float v[kW];
+#pragma unroll
+      for (int e = 0; e < kW; e += 2) {
+        const float2 f = *reinterpret_cast<const float2*>(tr + kW * q + e);
+        v[e] = f.x;
+        v[e + 1] = f.y;
+      }
+      epilogue_row_bf16<kW>(g, b * g.t + tt, n0 + kW * q, v, cs);
     }
   }
+  if (g.sums.p == nullptr) return;
+  // the tile's column sums (paired epilogues keep none), staged after the
+  // tile: [kPhases][4][64 kNB] floats, within the ring's stages
+  float* stage = tile + 64 * kStride;
+  stage_sums<kW>(cs, stage, phase, q, 64 * kNB);
+  asm volatile("bar.sync 1, %0;\n" ::"n"(R::kConsumers) : "memory");
+  flush_sums(g, stage, kPhases, 64 * kNB, n0, b, blockIdx.y - b * tiles_t, tid, R::kConsumers);
 }
 
 // The split-K shares of a TMA-fed conv-GEMM (part [splits, rows, n])
@@ -816,7 +1014,8 @@ __global__ void conv_split_sum_bf16_kernel(const ConvGemm g, int splits) {
     v.w += p.w;
   }
   const float acc[4] = {v.x, v.y, v.z, v.w};
-  epilogue_row_bf16<4>(g, (int)m, n0, acc);
+  float cs[4][4] = {};  // a text chain's product: no column sums
+  epilogue_row_bf16<4>(g, (int)m, n0, acc, cs);
 }
 
 // The bf16 weight gradient fed by TMA (WGrad::tma_ring in a bf16 chain):
@@ -829,7 +1028,7 @@ __global__ void conv_split_sum_bf16_kernel(const ConvGemm g, int splits) {
 // columns] of dY's bf16 copy; both MN-major (wgmma's transposed operands:
 // the slice's rows are the product's K).  The tile goes to dst (the
 // gradient, or the split's partial sums [splits, kdim, n] that
-// split_sum_kernel adds in split order) straight from the accumulators.
+// wgrad_bf16_reduce_kernel adds in split order) straight from the accumulators.
 template <int kNB>
 __global__ void __launch_bounds__(384, 1)
     wgrad_bf16_tma_kernel(const WGrad w, const __grid_constant__ CUtensorMap a_map,
@@ -942,7 +1141,7 @@ cudaError_t launch_conv_ring(const ConvGemm& g, int splits, cudaStream_t stream)
   const int n_tiles = paired(g.epilogue) ? (g.split + 63) / 64 : (g.n + 64 * kNB - 1) / (64 * kNB);
   const dim3 grid(n_tiles, g.batch * ((g.t + 63) / 64), splits);
   return launch_ring<ConvRing<kNB>>(conv_gemm_bf16_tma_kernel<kWT, kNB>, grid, stream, g, a_map,
-                                    b_map);
+                                    b_map, prefetch_allowed() ? 1 : 0);
 }
 
 template <int kNB>
@@ -1099,6 +1298,8 @@ cudaError_t conv_gemm_bf16(const ConvGemm& g, cudaStream_t stream) {
     if (const int err = device_sms(&sms)) return (cudaError_t)err;
   }
   const TmaConvPlan plan = tma_conv_plan(g, sms);
+  // column sums only from whole-K tiles
+  if ((g.sums.p || g.sums2.p) && plan.splits > 1) return cudaErrorInvalidValue;
   if (plan.chunks) {
     ++product_counts().bf16_tma_gemm;
     cudaError_t err = g.w_t ? launch_conv_tma<1>(g, plan, stream) : launch_conv_tma<0>(g, plan, stream);
@@ -1110,7 +1311,7 @@ cudaError_t conv_gemm_bf16(const ConvGemm& g, cudaStream_t stream) {
   }
   if ((g.epilogue == kGateBwd && g.out4) || !conv_fits(g)) return cudaErrorInvalidValue;
   ++product_counts().bf16_gemm;
-  const dim3 grid((g.n + kBN - 1) / kBN, (rows + kBM - 1) / kBM);
+  const dim3 grid((g.n + kBN - 1) / kBN, g.batch * ((g.t + kBM - 1) / kBM));
   if (g.w_t) conv_gemm_bf16_kernel<true><<<grid, 128, 0, stream>>>(g);
   else conv_gemm_bf16_kernel<false><<<grid, 128, 0, stream>>>(g);
   return cudaGetLastError();
@@ -1134,22 +1335,18 @@ cudaError_t wgrad_bf16(const WGrad& w, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const TmaWgradPlan plan = tma_wgrad_plan(w, sms);
   if (w.dy_t != nullptr || (!plan.chunks && !wgrad_fits(p))) return cudaErrorInvalidValue;
-  if (w.bias_out) {  // the bias gradient: the f32 column sums of dY, by sample, then added
-    if (w.a_mask || w.scratch == nullptr || w.scratch_floats < (long)w.batch * w.n)
-      return cudaErrorInvalidValue;
-    if ((err = bias_grad(w.dy, w.ldy, w.n, w.dy_mask, w.batch, w.t, w.scratch, w.bias_out,
-                         stream, has(w.bf16, kAux16))) != cudaSuccess)
-      return err;
-  }
+  // the bias and conditioning gradients only from the tile sums dY's
+  // writers kept, added in the reduction's launch
+  if ((w.bias_out && (w.a_mask || w.dy16 == nullptr || !(w.bias_lo.p || w.bias_hi.p))) ||
+      (w.dg && w.g_sums.p == nullptr))
+    return cudaErrorInvalidValue;
   const int out16 = has(w.bf16, kOut16) ? 1 : 0;
   const long per_split = (long)kdim * w.n;
   if (plan.chunks) {
     ++product_counts().bf16_tma_wgrad;
-    if (plan.splits == 1) return launch_wgrad_tma(w, plan, w.out, out16, stream);
-    if ((err = launch_wgrad_tma(w, plan, w.scratch, 0, stream)) != cudaSuccess) return err;
-    split_sum_kernel<<<(unsigned)((per_split + 255) / 256), 256, 0, stream>>>(
-        w.scratch, per_split, plan.splits, w.out, out16);
-    return cudaGetLastError();
+    err = launch_wgrad_tma(w, plan, plan.splits == 1 ? w.out : w.scratch,
+                           plan.splits == 1 ? out16 : 0, stream);
+    return err != cudaSuccess ? err : wgrad_reduce(w, plan.splits, out16, stream);
   }
   ++product_counts().bf16_wgrad;
   const int tiles = ((w.n + kBN - 1) / kBN) * ((kdim + kBM - 1) / kBM);
@@ -1162,15 +1359,10 @@ cudaError_t wgrad_bf16(const WGrad& w, cudaStream_t stream) {
   rows_per_split = ((rows_per_split + kWRows - 1) / kWRows) * kWRows;
   splits = std::max(1, (rows + rows_per_split - 1) / rows_per_split);
   const dim3 grid((w.n + kBN - 1) / kBN, (kdim + kBM - 1) / kBM, (unsigned)splits);
-  if (splits == 1) {
-    wgrad_bf16_kernel<<<grid, 128, 0, stream>>>(p, rows_per_split, w.out, out16);
-    return cudaGetLastError();
-  }
-  wgrad_bf16_kernel<<<grid, 128, 0, stream>>>(p, rows_per_split, w.scratch, 0);
+  wgrad_bf16_kernel<<<grid, 128, 0, stream>>>(p, rows_per_split, splits == 1 ? w.out : w.scratch,
+                                              splits == 1 ? out16 : 0);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  split_sum_kernel<<<(unsigned)((per_split + 255) / 256), 256, 0, stream>>>(
-      w.scratch, per_split, (int)splits, w.out, out16);
-  return cudaGetLastError();
+  return wgrad_reduce(w, (int)splits, out16, stream);
 }
 
 }  // namespace gtt
@@ -1186,6 +1378,15 @@ cudaError_t wgrad_bf16(const WGrad& w, cudaStream_t stream) {
 extern "C" int gtt_bf16_tma(int on) {
   const int was = gtt::tma_allowed() ? 1 : 0;
   gtt::tma_allowed() = on != 0;
+  return was;
+}
+
+// Whether the TMA-fed conv-GEMM brings the WN walk's epilogue operands into
+// L2 during its K walk: 0 (the default) or 1, for a measurement in turns.
+// Returns the previous setting.
+extern "C" int gtt_bf16_prefetch(int on) {
+  const int was = gtt::prefetch_allowed() ? 1 : 0;
+  gtt::prefetch_allowed() = on != 0;
   return was;
 }
 

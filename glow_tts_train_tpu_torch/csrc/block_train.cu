@@ -99,17 +99,24 @@
 // the TMA-fed wgmma bf16 kernels (bf16_gemm.cu, ConvGemm::tma_ring,
 // WGrad::tma_ring), which copy operands as they lie, so every operand they
 // read is bf16: the gate product acts is written bf16, and each f32
-// cotangent (g_rs, d_xin, dout, d_pre = gx * mask, dzp) has a bf16 copy
-// that the epilogue writing it rounds beside it (ConvGemm::out_c, out2_c),
-// the JAX kernels' one ``.astype(bf16)`` before their two dots; the bias
-// gradients sum the f32 values.  The WN stack alone sums its skip in f32
-// and writes one rounded, masked bf16 output (the last layer's skipm: JAX's
-// ``skip.astype(bf16) * x_mask``); its backward takes the output's bf16
-// cotangent into g_rs's skip half in f32 and in the bf16 copy, keeps gx in
-// f32 and returns it rounded (the last transposed conv's out_c).  A
-// recompute call (gtt_block_bwd_bf16, gtt_wn_bwd_bf16) runs the bf16
-// forward-save chain into its scratch, bf16 saves on 16-byte boundaries as
-// the TMA tensor maps read them, g_rs its f32 skip sum, then the store
+// cotangent (g_rs, d_xin, dout, d_pre = gx * mask, dzp) is written as the
+// bf16 copy that the epilogue producing it rounds (ConvGemm::out_c,
+// out2_c), the JAX kernels' one ``.astype(bf16)`` before their two dots.
+// Their f32 values, which only the bias gradients (and dg) read, are not
+// written: the same epilogues keep their column sums per sample and 64-row
+// tile (ConvGemm::sums, BwdScratch), and each weight gradient's one
+// reduction launch adds its row splits, its bias's tile sums and, for
+// dW_in, dg's (WGrad::bias_lo / bias_hi / g_sums): two launches a weight
+// gradient, a fixed order, no atomics.  g_rs's skip half is the same in
+// every layer, so its sums are taken once (dskip's epilogue, or the WN
+// stack's cotangent kernel) for all L layers' db_rs.  The WN stack alone
+// sums its skip in f32 and writes one rounded, masked bf16 output (the
+// last layer's skipm: JAX's ``skip.astype(bf16) * x_mask``); its backward
+// takes the output's bf16 cotangent into g_rs's copy, keeps gx in f32 and
+// returns it rounded (the last transposed conv's out_c).  A recompute
+// call (gtt_block_bwd_bf16, gtt_wn_bwd_bf16) runs the bf16 forward-save
+// chain into its scratch, bf16 saves on 16-byte boundaries as the TMA
+// tensor maps read them, g_rs [rows, h] its f32 skip sum, then the store
 // backward's chain: its gradients are the store call's bit for bit.
 // Bound: the same operations over the dense BF16 peak (989 TFLOP/s).
 //
@@ -312,12 +319,20 @@ int block_fwd_chain(const Dims& d, const float* x, const float* mask,
 // residuals xs / th / sg [L, rows, h] and the block's zp [rows, c] and
 // skipm [rows, h].
 //
-// A bf16 call's f32 cotangents also have bf16 copies, written by the
-// epilogues that produce them and read by their products: g_rs16 [rows,
-// 2h], dxin16 [rows, 2h], and for the block dout16, dzp16 [rows, c] and
-// gx16 [rows, h] (gx * mask); its acts [rows, h] are bf16, and so are a
-// recompute's residuals (two elements a float).  The WN stack alone in
-// bf16 keeps gx [rows, h] in f32 here too (its dx is gx rounded).
+// A bf16 call's cotangents g_rs, d_xin and the block's dout, dzp are
+// written only as bf16 copies, by the epilogues that produce them, for
+// their products: g_rs16 [rows, 2h], dxin16 [rows, 2h], dout16, dzp16
+// [rows, c], and gx16 [rows, h] (gx * mask); their f32 values, which only
+// the bias and conditioning gradients read, are summed in those epilogues
+// instead (TileSums [batch, ceil(t / 64), n]): xin_sums (d_xin, 2h),
+// g_sums (d_in_act, 2h: dg), rs_sums (g_rs's res half, h, written by each
+// transposed conv for the next layer's dW_rs; the block's layer 0: gx *
+// mask, for dW_s), skip_sums (g_rs's skip half, h, once for every layer)
+// and the block's dout_sums and dzp_sums (c).  gx [rows, h] stays f32 (the
+// transposed convs accumulate it; the WN stack's dx is gx rounded); g_rs
+// is f32 [rows, h] only in a recompute call, as its forward's skip sum.
+// acts [rows, h] is bf16, and so are a recompute's residuals (two
+// elements a float).
 struct BwdScratch {
   float *g_rs = nullptr, *dia = nullptr, *dxin = nullptr, *dxin_t = nullptr, *acts = nullptr;
   float *wg = nullptr, *splits = nullptr;
@@ -326,6 +341,8 @@ struct BwdScratch {
   float *xs = nullptr, *th = nullptr, *sg = nullptr, *zp = nullptr, *skipm = nullptr;
   float *g_rs16 = nullptr, *dxin16 = nullptr, *dout16 = nullptr, *dzp16 = nullptr,
         *gx16 = nullptr;
+  float *xin_sums = nullptr, *g_sums = nullptr, *rs_sums = nullptr, *skip_sums = nullptr,
+        *dout_sums = nullptr, *dzp_sums = nullptr;
 };
 
 // c 0: the WN stack alone.
@@ -351,14 +368,18 @@ long bwd_scratch(float* base, int batch, int t, int c, int h, int n_layers, int 
   // bf16: no weight splits, and dW_in reads d_xin as it lies
   s->split_floats = bf16 ? 0 : splits;
   s->wg_floats = std::max(1L << 22, 2L * (taps * h + 1) * h2);
-  take(s->g_rs, rows * h2);
-  if (with_g) take(s->dia, rows * h2);
-  take(s->dxin, rows * h2);
-  if (!bf16) take(s->dxin_t, 2 * h2 * s->ldt);
+  if (!bf16) {
+    take(s->g_rs, rows * h2);
+    if (with_g) take(s->dia, rows * h2);
+    take(s->dxin, rows * h2);
+    take(s->dxin_t, 2 * h2 * s->ldt);
+  } else if (recompute) {
+    take(s->g_rs, rows * h);  // the forward's skip sum
+  }
   take(s->acts, rows * h);
   take(s->wg, s->wg_floats);
   take(s->splits, s->split_floats);
-  if (c > 0) {
+  if (c > 0 && !bf16) {
     take(s->dout, rows * c);
     take(s->dzp, rows * c);
   }
@@ -370,6 +391,16 @@ long bwd_scratch(float* base, int batch, int t, int c, int h, int n_layers, int 
       take(s->dout16, rows * c2);
       take(s->dzp16, rows * c2);
       take(s->gx16, (rows * h + 1) / 2);
+    }
+    // the tile sums
+    const long tiles = (long)batch * ((t + kSumTileRows - 1) / kSumTileRows);
+    take(s->xin_sums, tiles * h2);
+    if (with_g) take(s->g_sums, tiles * h2);
+    take(s->rs_sums, tiles * h);
+    take(s->skip_sums, tiles * h);
+    if (c > 0) {
+      take(s->dout_sums, tiles * c);
+      take(s->dzp_sums, tiles * c);
     }
   }
   if (recompute) {
@@ -425,6 +456,10 @@ cudaError_t walk_products(const Dims& d, const WnWalk& w, const BwdScratch& s, W
       g.drop = d.drop.at(l);
       g.bf16 = b16(d, kA16 | kW16 | kAux16 | kAux2_16 | kOut3_16);
       g.out2_c = s.dxin16; g.tma_ring = bf;
+      if (bf) {  // d_xin's and d_in_act's sums, for db_in and dg
+        g.sums = {s.xin_sums, h2};
+        if (w.dg) g.sums2 = {s.g_sums, h2};
+      }
       p->gate.push_back(g);
     }
     {  // gx = gx * mask + transposed conv of d_xin; g_rs[:, :h] = gx * mask
@@ -437,8 +472,12 @@ cudaError_t walk_products(const Dims& d, const WnWalk& w, const BwdScratch& s, W
       g.tma_ring = bf;
       if (bf && l == 0 && s.gx16) {  // the block's d_pre = gx * mask, for dW_s and dzp
         g.out2 = s.gx16; g.ldo2 = h; g.bf16 |= kOut2_16;
-      } else {
-        g.out2_c = s.g_rs16;
+        g.sums = {s.rs_sums, h};
+      } else if (bf && l > 0) {  // the next layer's g_rs res half: its copy and sums
+        g.out2 = nullptr; g.out2_c = s.g_rs16;
+        g.sums = {s.rs_sums, h};
+      } else if (bf) {  // the WN stack's layer 0: no next layer
+        g.out2 = nullptr;
       }
       if (bf && l == 0) g.out_c = w.dx16;
       p->tconv.push_back(g);
@@ -448,12 +487,27 @@ cudaError_t walk_products(const Dims& d, const WnWalk& w, const BwdScratch& s, W
     rs.bias_out = w.dbrs + l * h2;
     rs.bf16 = b16(d, kA16 | kOut16);
     rs.dy16 = s.g_rs16; rs.tma_ring = bf;
+    if (bf) {  // db_rs: the res half's sums (none at the last layer: zero), the skip half's
+      rs.dy = nullptr;
+      if (l < d.n_layers - 1) rs.bias_lo = {s.rs_sums, h};
+      rs.bias_hi = {s.skip_sums, h};
+      rs.bias_split = h;
+    }
     p->drs.push_back(rs);
     WGrad in = wgrad_of(elem_at(w.xs, l * rh, bf), h, h, batch, t, s.dxin, h2, h2,
                         elem_at(w.dwin, (long)l * taps * h * h2, bf), s.wg, s.wg_floats);
     in.taps = taps; in.dilation = dilation; in.bias_out = w.dbin + l * h2;
     in.bf16 = b16(d, kA16 | kOut16);
     in.dy16 = s.dxin16; in.tma_ring = bf;
+    if (bf) {  // db_in from d_xin's sums; dg from d_in_act's, per sample
+      in.bias_lo = {s.xin_sums, h2};
+      in.bias_split = h2;
+      if (w.dg) {
+        in.g_sums = {s.g_sums, h2};
+        in.dg = elem_at(w.dg, (long)l * h2, true);
+        in.dg_ld = (long)d.n_layers * h2;
+      }
+    }
     p->din.push_back(in);
     dilation *= d.dilation_rate;
   }
@@ -481,45 +535,57 @@ int wn_reverse_walk(const Dims& d, const WnWalk& w, const BwdScratch& s, const W
   for (int l = d.n_layers - 1; l >= 0; --l) {
     GTT_TRY(conv_gemm(p.gate[l], stream));
     GTT_TRY(wgrad(p.drs[l], stream));
-    if (w.dg)
-      GTT_TRY(col_sum(s.dia, h2, h2, nullptr, d.batch, d.t, elem_at(w.dg, (long)l * h2, d.bf16),
-                      d.n_layers * h2, stream, false, d.bf16 != 0));
+    if (w.dg && !d.bf16)  // bf16: in dW_in's reduction
+      GTT_TRY(col_sum(s.dia, h2, h2, nullptr, d.batch, d.t, elem_at(w.dg, (long)l * h2, false),
+                      d.n_layers * h2, stream));
     GTT_TRY(wgrad(p.din[l], stream));
     GTT_TRY(conv_gemm(p.tconv[l], stream));
   }
   return (int)cudaGetLastError();
 }
 
-// g_rs [rows, 2h] = [0 | dout * mask] in f32 and in its bf16 copy g_rs16,
-// from the bf16 cotangent dout [rows, h] of the WN stack's masked output
-// (JAX's ``dout.astype(f32)`` after the caller's ``* x_mask``, and the
-// walk's ``g_rs.astype(bf16)``): two elements a thread.
-__global__ void walk_cotangent_kernel(const __nv_bfloat162* dout, const float* mask, float2* g_rs,
-                                      __nv_bfloat162* g_rs16, long pairs, int row_pairs) {
-  const long i = blockIdx.x * (long)blockDim.x + threadIdx.x;
-  if (i >= pairs) return;
-  const long r = i / row_pairs;
-  const int j = (int)(i - r * row_pairs);  // columns 2j, 2j + 1 of [0 | dout]
-  const int half = row_pairs / 2;          // dout's pairs a row
-  const __nv_bfloat162 v = j < half || mask[r] == 0.f ? __float2bfloat162_rn(0.f)
-                                                      : dout[r * half + j - half];
-  g_rs[i] = __bfloat1622float2(v);
-  g_rs16[i] = v;
+// g_rs16 [rows, 2h] = [0 | dout * mask], g_rs's bf16 copy, from the bf16
+// cotangent dout [rows, h] of the WN stack's masked output (JAX's
+// ``dout.astype(f32)`` after the caller's ``* x_mask``, and the walk's
+// ``g_rs.astype(bf16)``), and the tile sums of its skip half in f32
+// (sums [batch, tiles, h], for every layer's db_rs): a block a 64-row tile
+// of one sample, a thread a pair of columns walking the tile's rows.
+__global__ void walk_cotangent_kernel(const __nv_bfloat162* dout, const float* mask,
+                                      __nv_bfloat162* g_rs16, float2* sums, int t, int h) {
+  const int tiles = (t + kSumTileRows - 1) / kSumTileRows;
+  const int b = blockIdx.x / tiles;
+  const int t0 = (blockIdx.x - b * tiles) * kSumTileRows;
+  const int t1 = min(t, t0 + kSumTileRows);
+  const int half = h / 2;  // dout's pairs a row; [0 | dout] has h
+  for (int j = threadIdx.x; j < h; j += blockDim.x) {  // columns 2j, 2j + 1 of [0 | dout]
+    float2 sum = make_float2(0.f, 0.f);
+    for (int tt = t0; tt < t1; ++tt) {
+      const long r = (long)b * t + tt;
+      const __nv_bfloat162 v = j < half || mask[r] == 0.f ? __float2bfloat162_rn(0.f)
+                                                          : dout[r * half + j - half];
+      g_rs16[r * h + j] = v;
+      const float2 f = __bfloat1622float2(v);
+      sum.x += f.x;
+      sum.y += f.y;
+    }
+    if (j >= half) sums[(long)blockIdx.x * half + j - half] = sum;
+  }
 }
 
 // The WN stack's backward from per-layer residuals: dout [rows, h] is the
 // skip sum's cotangent into g_rs's skip half (bf16: the masked output's
-// bf16 cotangent, masked into g_rs and its copy); w.gx the returned dx
-// (bf16: rounded into w.dx16 by the walk).
+// bf16 cotangent, masked into g_rs's copy, its sums kept); w.gx the
+// returned dx (bf16: rounded into w.dx16 by the walk).
 int wn_bwd_chain(const Dims& d, const WnWalk& w, const BwdScratch& s, const WalkProducts& p,
                  const float* dout, cudaStream_t stream) {
   const int rows = d.batch * d.t;
   const int h = d.h;
-  if (d.bf16) {
-    const long pairs = (long)rows * h;  // [rows, 2h] in pairs, h a row; h is even
-    walk_cotangent_kernel<<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(
-        reinterpret_cast<const __nv_bfloat162*>(dout), w.mask, reinterpret_cast<float2*>(s.g_rs),
-        reinterpret_cast<__nv_bfloat162*>(s.g_rs16), pairs, h);
+  if (d.bf16) {  // h is even
+    const int tiles = (d.t + kSumTileRows - 1) / kSumTileRows;
+    walk_cotangent_kernel<<<(unsigned)(d.batch * tiles), 128, 0, stream>>>(
+        reinterpret_cast<const __nv_bfloat162*>(dout), w.mask,
+        reinterpret_cast<__nv_bfloat162*>(s.g_rs16), reinterpret_cast<float2*>(s.skip_sums),
+        d.t, h);
     GTT_TRY(cudaGetLastError());
     GTT_TRY(cudaMemsetAsync(w.gx, 0, sizeof(float) * rows * h, stream));
     return wn_reverse_walk(d, w, s, p, stream);
@@ -554,6 +620,8 @@ cudaError_t block_bwd_products(const Dims& d, const WnWalk& w, const BwdScratch&
   const int c2 = c / 2, h2 = 2 * h;
   const float* mask = w.mask;
   const bool bf = d.bf16 != 0;
+  // bf16: dout, the skip half of g_rs and dzp written only as their bf16
+  // copies, their f32 values summed (s.dout etc. are null)
   {
     ConvGemm& g = p->coupling = rows_gemm(d, b.skipm, h, h, elem_at(b.w_e, c2, bf), b.b_e + c2,
                                           c2, kCouplingBwd, s.dout, c, mask);
@@ -561,20 +629,27 @@ cudaError_t block_bwd_products(const Dims& d, const WnWalk& w, const BwdScratch&
     g.aux = b.dz; g.ld_aux = c; g.aux2 = b.zp; g.aux3 = b.dld; g.out2 = s.dzp; g.ldo2 = c;
     g.bf16 = b16(d, kA16 | kW16 | kAux16 | kAux2_16);
     g.out_c = s.dout16; g.out2_c = s.dzp16;
+    if (bf) {
+      g.sums = {s.dout_sums, c};
+      g.sums2 = {s.dzp_sums, c};
+    }
   }
   {  // -> the skip half of g_rs (bf16: rounded, as the walk takes it)
     ConvGemm& g = p->dskip = rows_gemm(d, bf ? s.dout16 : s.dout, c, c, b.w_e, nullptr, h,
-                                       kBiasMask, s.g_rs + h, h2, mask);
+                                       kBiasMask, bf ? nullptr : s.g_rs + h, h2, mask);
     g.w_t = 1;
     g.bf16 = b16(d, kA16 | kW16 | kRoundOut);
     g.out_c = elem_at(s.g_rs16, h, true);
+    if (bf) g.sums = {s.skip_sums, h};
   }
   {  // dzp[:, :c2] = (dz0 + d_pre @ W_s^T) * mask (bf16: d_pre's masked copy)
-    ConvGemm& g = p->dzp =
-        rows_gemm(d, bf ? s.gx16 : s.gx, h, h, b.w_s, nullptr, c2, kResidMask, s.dzp, c, mask);
+    ConvGemm& g =
+        p->dzp = rows_gemm(d, bf ? s.gx16 : s.gx, h, h, b.w_s, nullptr, c2, kResidMask, s.dzp, c,
+                           mask);
     g.w_t = 1; g.a_mask = bf ? nullptr : mask; g.aux = b.dz; g.ld_aux = c;
     g.bf16 = b16(d, kA16 | kW16 | kAux16);
     g.out_c = s.dzp16;
+    if (bf) g.sums = {s.dzp_sums, c};
   }
   {
     ConvGemm& g = p->dx =
@@ -594,6 +669,14 @@ cudaError_t block_bwd_products(const Dims& d, const WnWalk& w, const BwdScratch&
   p->dwe.bf16 = p->dws.bf16 = p->da.bf16 = b16(d, kA16 | kOut16);
   for (ConvGemm* g : {&p->coupling, &p->dskip, &p->dzp, &p->dx}) g->tma_ring = bf;
   for (WGrad* g : {&p->dwe, &p->dws, &p->da}) g->tma_ring = bf;
+  if (bf) {  // the bias gradients from dout's, gx * mask's (layer 0) and dzp's sums
+    p->dwe.bias_lo = {s.dout_sums, c};
+    p->dws.bias_lo = {s.rs_sums, h};
+    p->da.bias_lo = {s.dzp_sums, c};
+    p->dwe.bias_split = p->da.bias_split = c;
+    p->dws.bias_split = h;
+    p->dwe.dy = p->dws.dy = p->da.dy = nullptr;
+  }
   return walk_products(d, w, s, &p->walk);
 }
 
@@ -610,8 +693,9 @@ void block_bwd_split_list(BlockBwdProducts* p, std::vector<ConvGemm*>* list) {
 int block_bwd_chain(const Dims& d, const WnWalk& w, const BwdScratch& s,
                     const BlockBwdProducts& p, cudaStream_t stream) {
   const int rows = d.batch * d.t;
-  GTT_TRY(cudaMemsetAsync(s.g_rs, 0, sizeof(float) * rows * 2 * d.h, stream));
+  // the last layer's res half reads zero (bf16: its copy's)
   if (d.bf16) GTT_TRY(cudaMemsetAsync(s.g_rs16, 0, 2L * rows * 2 * d.h, stream));
+  else GTT_TRY(cudaMemsetAsync(s.g_rs, 0, sizeof(float) * rows * 2 * d.h, stream));
   GTT_TRY(cudaMemsetAsync(s.gx, 0, sizeof(float) * rows * d.h, stream));
   GTT_TRY(conv_gemm(p.coupling, stream));
   GTT_TRY(wgrad(p.dwe, stream));
@@ -976,8 +1060,8 @@ extern "C" int gtt_block_bwd_store_bf16(
 }
 
 // Recompute (block_pallas._block_bwd_kernel, bf16 row 11): the bf16
-// forward-save chain into scratch (zp, skipm, xs / th / sg bf16; g_rs its
-// f32 skip sum; no z, no ld), then the store backward's chain on it.
+// forward-save chain into scratch (zp, skipm, xs / th / sg bf16; g_rs [rows,
+// h] its f32 skip sum; no z, no ld), then the store backward's chain on it.
 // gtt_block_bwd's arguments, bf16 as gtt_block_bwd_store_bf16's.  Scratch:
 // one block of gtt_block_bwd_bf16_scratch_floats(..., 1, dg != null).
 extern "C" int gtt_block_bwd_bf16(

@@ -179,8 +179,12 @@ __global__ void __launch_bounds__(kBM * 4) conv_gemm_kernel(const ConvGemm g) {
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + ty * 4 + i;
     if (m >= rows) continue;
-    if (kB16) epilogue_row_bf16<4>(g, m, n0 + tx * 4, acc[i]);
-    else epilogue_row<4>(g, m, n0 + tx * 4, acc[i]);
+    if (kB16) {
+      float cs[4][4] = {};  // no column sums: the folded A's product keeps none
+      epilogue_row_bf16<4>(g, m, n0 + tx * 4, acc[i], cs);
+    } else {
+      epilogue_row<4>(g, m, n0 + tx * 4, acc[i]);
+    }
   }
 }
 

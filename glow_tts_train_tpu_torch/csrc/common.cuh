@@ -189,6 +189,17 @@ enum Epilogue : int {
 // kBias, kBiasRelu, kBiasMask and kBiasReluMask drop their result when
 // drop.on (site drop.site over the [t, n] output).
 
+// Column sums of one cotangent that a bf16 flow chain's epilogue keeps in
+// place of the f32 values they would be taken from: per sample b and
+// 64-row tile i of its rows (tiles = ceil(t / 64): a tile never crosses a
+// sample), the sum over the tile's rows of column j at
+// p[(b * tiles + i) * ld + j]; p null: none kept (a reader takes zeros).
+constexpr int kSumTileRows = 64;
+struct TileSums {
+  float* p = nullptr;
+  int ld = 0;
+};
+
 struct ConvGemm {
   // A: rows of a channels-last source [batch * t, lda]; the im2col column
   // tap * c_in + c of row (b, i) reads source row (b, i + (tap - taps/2) *
@@ -288,6 +299,15 @@ struct ConvGemm {
   // epilogue for the products that read them; or null
   float* out_c = nullptr;
   float* out2_c = nullptr;
+  // a bf16 flow chain's cotangent epilogues (kGateBwd, kCouplingBwd,
+  // kAccumMask, kBiasMask, kResidMask): the tile sums of the f32 values
+  // they write, or would write where out / out2 is null (epilogue.cuh,
+  // sum_slot, says which column goes where): `sums` those of d_xin
+  // (kGateBwd), of out2 (kAccumMask), of out (the others); `sums2` those
+  // of d_in_act (kGateBwd: the conditioning's gradient) and of out2's
+  // second half (kCouplingBwd: dzp's).  Set only on the bf16 products'
+  // whole-K tiles (no split-K).
+  TileSums sums, sums2;
 };
 
 cudaError_t conv_gemm(const ConvGemm& g, cudaStream_t stream);
@@ -393,13 +413,24 @@ struct WGrad {
   // out); the bias gradient stays f32
   unsigned bf16 = 0;
   // a bf16 chain's dY copy in bf16 (rounded, and masked by dy_mask, by the
-  // epilogue that wrote dY), which the product reads; dy (f32) feeds the
-  // bias gradient.  Or null.
+  // epilogue that wrote dY), which the product reads (dy, f32, is then not
+  // read: the bias gradient comes from bias_lo / bias_hi).  Or null.
   const float* dy16 = nullptr;
   // set by every bf16 chain: the TMA-fed wgmma bf16 kernel
   // where the shape fits (wgrad_bf16_tma_kernel; it reads dy16), else the
   // mma.sync one
   int tma_ring = 0;
+  // a bf16 flow chain's bias gradient (bias_out) from the tile sums of dY
+  // that its writers kept (ConvGemm::sums): columns below bias_split from
+  // bias_lo, the rest from bias_hi at j - bias_split; per sample its
+  // tiles in order, then the samples in order.  And, where dg is set, the
+  // conditioning's gradient dg[b * dg_ld + j] (bf16) = sample b's part of
+  // g_sums.  Both in the one launch that adds the row splits (no
+  // column-sum launch).
+  TileSums bias_lo, bias_hi, g_sums;
+  int bias_split = 0;
+  float* dg = nullptr;
+  long dg_ld = 0;
 };
 
 cudaError_t wgrad(const WGrad& w, cudaStream_t stream);

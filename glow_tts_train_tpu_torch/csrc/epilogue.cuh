@@ -244,14 +244,40 @@ __device__ __forceinline__ void epilogue_row(const ConvGemm& g, int m, int n0,
 // the masked gx by kAccumMask, dpre by kMaskReluBwd, the plain ones' out:
 // the text chains' dout_h, and rm by kBiasReluMask) are also written there
 // in bf16: the copy a product reads, rounded once as the JAX kernel's
-// ``.astype(bf16)`` before its dots.
+// ``.astype(bf16)`` before its dots.  The flow chains' cotangents are read
+// only through that copy and their column sums (ConvGemm::sums), so their
+// f32 out / out2 are null and not written: the epilogue adds each f32
+// value into cs[slot][e] (sum_slot: which sum and column), and the kernel
+// adds cs over its tile's rows.
 __device__ __forceinline__ void st_copy(float* p, long i, float v) {
   if (p) st_act(p, i, v, true);
 }
 
+// The column sums a cotangent epilogue keeps: slots a column.
+__host__ __device__ __forceinline__ int sum_slots(int epilogue) {
+  return epilogue == kGateBwd ? 4 : epilogue == kCouplingBwd ? 3 : 1;
+}
+
+// Slot s of column n's sums: the TileSums it goes to (p null: none kept)
+// and its column there.  kGateBwd: d_xin's (du, dv) at (n, split + n) of
+// sums, d_in_act's at the same columns of sums2; kCouplingBwd: dout's (dm,
+// dlogs) at (n, split + n) of sums, dx1 at split + n of sums2 (dzp's);
+// the rest: column n of sums.  By value: an address of a member of the
+// kernel's parameter would copy the whole descriptor to local memory.
+__device__ __forceinline__ TileSums sum_slot(const ConvGemm& g, int s, int n, int* col) {
+  const bool dx1 = g.epilogue == kCouplingBwd && s == 2;
+  *col = (s & 1) || dx1 ? g.split + n : n;
+  return (g.epilogue == kGateBwd && s >= 2) || dx1 ? g.sums2 : g.sums;
+}
+
+// cs += v, never contracted into a multiply before it: a sum of the
+// values as the epilogue computes them.
+__device__ __forceinline__ void add_sum(float& cs, float v) { cs = __fadd_rn(cs, v); }
+
 template <int kW>
 __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const EpilogueRow& r,
-                                                   int n0, const float (&acc)[kW]) {
+                                                   int n0, const float (&acc)[kW],
+                                                   float (&cs)[4][kW]) {
   const long m = r.m;
   const float rm = r.rm;
   const unsigned bits = g.bf16;
@@ -365,9 +391,14 @@ __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const Epil
           dlogs = dlogs * (sgm * (1.f - sgm)) / (1e-6f + sgm);
         }
         const float dx1 = dz1m * el * rm;
-        g.out[ob + j] = dz1m;
-        g.out[ob + g.split + j] = dlogs;
-        g.out2[m * g.ldo2 + g.split + j] = dx1;
+        if (g.out) {
+          g.out[ob + j] = dz1m;
+          g.out[ob + g.split + j] = dlogs;
+        }
+        if (g.out2) g.out2[m * g.ldo2 + g.split + j] = dx1;
+        add_sum(cs[0][e], dz1m);
+        add_sum(cs[1][e], dlogs);
+        add_sum(cs[2][e], dx1);
         st_copy(g.out_c, ob + j, dz1m);
         st_copy(g.out_c, ob + g.split + j, dlogs);
         st_copy(g.out2_c, m * g.ldo2 + g.split + j, dx1);
@@ -395,8 +426,14 @@ __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const Epil
         }
         const long dx = m * g.ldo2;
         const float du_x = dropped(g, r, j, du), dv_x = dropped(g, r, g.split + j, dv);
-        g.out2[dx + j] = du_x;
-        g.out2[dx + g.split + j] = dv_x;
+        if (g.out2) {
+          g.out2[dx + j] = du_x;
+          g.out2[dx + g.split + j] = dv_x;
+        }
+        add_sum(cs[0][e], du_x);
+        add_sum(cs[1][e], dv_x);
+        add_sum(cs[2][e], du);
+        add_sum(cs[3][e], dv);
         st_copy(g.out2_c, dx + j, du_x);
         st_copy(g.out2_c, dx + g.split + j, dv_x);
         st_act(g.out3, m * g.ldo3 + j, th[e] * sg[e], out3_16);
@@ -415,10 +452,9 @@ __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const Epil
         const float v = prev[e] * rm + acc[e];
         g.out[ob + n] = v;
         st_copy(g.out_c, ob + n, v);
-        if (g.out2) {
-          st_act(g.out2, m * g.ldo2 + n, v * rm, out2_16);
-          st_copy(g.out2_c, m * g.ldo2 + n, v * rm);
-        }
+        if (g.out2) st_act(g.out2, m * g.ldo2 + n, v * rm, out2_16);
+        st_copy(g.out2_c, m * g.ldo2 + n, v * rm);
+        add_sum(cs[0][e], v * rm);
       }
       break;
     }
@@ -462,8 +498,9 @@ __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const Epil
         if (g.epilogue == kBiasMask || g.epilogue == kBiasReluMask) v *= rm;
         if (g.epilogue != kResidMask) v = site_drop(g.drop, r.b, r.tr, g.n, n, v);
         if (round_out) v = round_bf16(v);
-        st_act(g.out, ob + n, v, out16);
+        if (g.out) st_act(g.out, ob + n, v, out16);
         st_copy(g.out_c, ob + n, v);
+        add_sum(cs[0][e], v);
       }
     }
   }
@@ -471,8 +508,8 @@ __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const Epil
 
 template <int kW>
 __device__ __forceinline__ void epilogue_row_bf16(const ConvGemm& g, int m, int n0,
-                                                  const float (&acc)[kW]) {
-  epilogue_cols_bf16<kW>(g, epilogue_row_of(g, m), n0, acc);
+                                                  const float (&acc)[kW], float (&cs)[4][kW]) {
+  epilogue_cols_bf16<kW>(g, epilogue_row_of(g, m), n0, acc, cs);
 }
 
 }  // namespace gtt

@@ -362,6 +362,22 @@ def bf16_mma_only():
         fn(was)
 
 
+@contextlib.contextmanager
+def bf16_epilogue_prefetch():
+    """Within the block, the TMA-fed bf16 conv-GEMM brings the WN walk's
+    epilogue operands (the gate backward's th and sg, the transposed conv's
+    gx) into L2 during its K walk (``gtt_bf16_prefetch(1)``), for a
+    measurement of both in turns; off as shipped (it saved nothing)."""
+    fn = library().gtt_bf16_prefetch
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    was = fn(1)
+    try:
+        yield
+    finally:
+        fn(was)
+
+
 def product_splits(reset: bool = False) -> int:
     """Weight splits that tensor-core conv-GEMMs launched for themselves
     since the last reset: products whose weights were not split beforehand

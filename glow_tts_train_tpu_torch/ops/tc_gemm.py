@@ -663,7 +663,10 @@ def bf16_block_products(
     (``gtt_block_bwd_store_bf16``, row 12; ``gtt_wn_bwd_store_bf16``, row
     8) or, ``recompute``, recomputing the forward (``gtt_block_bwd_bf16``,
     row 11; ``gtt_wn_bwd_bf16``, row 7): the forward-save chain's products
-    (the block's up to skipm, no coupling) and then the store backward's.
+    (the block's up to skipm, no coupling) and then the store backward's,
+    each weight gradient two launches (the product; one reduction of its
+    row splits, its bias's tile sums and, for dW_in, the conditioning's,
+    so ``with_g`` adds none).
     -> {"products": per product its name, kind ("conv_gemm"/"wgrad"), shape
     ([rows, K, N]; a weight gradient's [K, rows, N]), unit ("tma": the
     TMA-fed wgmma kernel, "mma": the mma.sync kernel, "core": the folded
@@ -683,7 +686,8 @@ def bf16_block_products(
             "name": name, "kind": "conv_gemm", "shape": [rows, k_taps * c_in, n],
             "unit": "core" if core else ("tma" if chunks else "mma"), "chunks": chunks,
             "tiles": n_tiles * batch * -(-t // BF16_CONV_TILE), "stages": stages,
-            "smem": smem, "splits": 1, "launches": 1})
+            "smem": smem, "splits": 1, "launches": 1,
+            "sum_phases": 0 if core else bf16_sum_phases(chunks)})
 
     def wgrad(name, c_in, n, lda, k_taps=1):
         chunks, splits = bf16_wgrad_plan(batch, t, c_in, k_taps, n, lda, sms)
@@ -694,8 +698,9 @@ def bf16_block_products(
             "name": name, "kind": "wgrad", "shape": [k_taps * c_in, rows, n],
             "unit": "tma" if chunks else "mma", "chunks": chunks, "tiles": tiles,
             "stages": stages, "smem": smem, "splits": splits,
-            # the bias gradient's two column sums, the product, the splits' sum
-            "launches": 3 + int(chunks > 0 and splits > 1)})
+            # the product, then one reduction: its splits, its bias's tile
+            # sums and (dW_in) dg's
+            "launches": 2})
 
     def forward(coupling):
         if c:
@@ -730,9 +735,10 @@ def bf16_block_products(
             conv("dzp", h, c2, h, w_t=True)
             wgrad("dA", c, c, c)
             conv("dx", c, c, c, w_t=True)
-        # the block: g_rs, its copy and gx zeroed; the stack: g_rs and its
-        # copy from dout in one launch, gx zeroed; dg's sums
-        fixed += (3 if c else 2) + (n_layers if with_g else 0)
+        # the block: g_rs's copy and gx zeroed; the stack: g_rs's copy and
+        # its skip half's tile sums from dout in one launch, gx zeroed (dg
+        # in dW_in's reduction)
+        fixed += 2
     counts = {"core_gemm": 0, "bf16_gemm": 0, "bf16_wgrad": 0, "bf16_tma_gemm": 0,
               "bf16_tma_wgrad": 0}
     for p in products:
@@ -743,6 +749,59 @@ def bf16_block_products(
             counts[f"bf16{tma}_{'gemm' if p['kind'] == 'conv_gemm' else 'wgrad'}"] += 1
     return {"products": products, "launches": fixed + sum(p["launches"] for p in products),
             "counts": counts}
+
+
+# rows of a bf16 flow chain's column-sum tiles (csrc/common.cuh
+# kSumTileRows): a conv-GEMM tile of either bf16 unit, 64 rows of one sample
+BF16_SUM_TILE = 64
+
+
+def bf16_sum_phases(chunks: int) -> int:
+    """Threads that add one column group of a bf16 conv-GEMM's tile
+    (``chunks`` 64-column chunks a tile; 0: the mma.sync kernel's 64 x 64
+    tile) in its epilogue, each over every ``phases``-th row: 128 threads
+    over 16 groups of 4 columns at one chunk and on the mma.sync kernel,
+    32 groups (of 4, or of 6 at three chunks) at two and three."""
+    return 8 if chunks <= 1 else 4
+
+
+def tile_sums_plain(values: torch.Tensor, batch: int, t: int, phases: int = 4) -> torch.Tensor:
+    """The column sums a bf16 flow chain's cotangent epilogue keeps in
+    place of the f32 cotangent (csrc/bf16_gemm.cu, ``ConvGemm::sums``), in
+    its order: ``values`` [batch * t, n] -> [batch, ceil(t / 64), n] f32,
+    tile i of sample b the sum of its rows 64 i .. min(t, 64 i + 64) - 1 (a
+    tile never crosses a sample), each of ``phases`` threads adding rows
+    phase, phase + phases, ... in order, then the phases in order."""
+    n = values.shape[-1]
+    tiles = -(-t // BF16_SUM_TILE)
+    v = values.reshape(batch, t, n).float()
+    # rows past t as zeros: a sum with them added is the sum without
+    v = torch.nn.functional.pad(v, (0, 0, 0, tiles * BF16_SUM_TILE - t))
+    v = v.reshape(batch, tiles, BF16_SUM_TILE // phases, phases, n)
+    by_phase = torch.zeros(batch, tiles, phases, n)
+    for k in range(BF16_SUM_TILE // phases):
+        by_phase = by_phase + v[:, :, k]
+    out = torch.zeros(batch, tiles, n)
+    for p in range(phases):
+        out = out + by_phase[:, :, p]
+    return out
+
+
+def sums_of_tiles_plain(sums: torch.Tensor) -> typing.Tuple[torch.Tensor, torch.Tensor]:
+    """A bf16 flow chain's bias gradient and conditioning gradient from
+    tile sums [batch, tiles, n] (:func:`tile_sums_plain`), as the weight
+    gradient's reduction adds them (``wgrad_reduce_kernel``) -> (the bias
+    [n]: each sample's part, then the samples in order; the per-sample
+    parts [batch, n]: each sample's tiles in order; dg is these rounded
+    to bf16)."""
+    batch, tiles, n = sums.shape
+    per_sample = torch.zeros(batch, n)
+    for i in range(tiles):
+        per_sample = per_sample + sums[:, i]
+    total = torch.zeros(n)
+    for b in range(batch):
+        total = total + per_sample[b]
+    return total, per_sample
 
 
 class _Bf16TextChain:
@@ -759,8 +818,9 @@ class _Bf16TextChain:
         batch, t = self.batch, self.t
         chunks, shares = bf16_text_conv_plan(batch, t, c_in, k_taps, n, self.sms, w_t=w_t)
         stages, smem = bf16_ring("conv_gemm", chunks) if chunks else (0, 0)
+        # either unit's tiles: 64 rows of one sample
         tiles = (batch * -(-t // BF16_CONV_TILE) * -(-n // (64 * chunks)) * shares if chunks
-                 else -(-(batch * t) // 64) * -(-n // 64))
+                 else batch * -(-t // BF16_CONV_TILE) * -(-n // 64))
         self.products.append({
             "name": name, "kind": "conv_gemm", "shape": [batch * t, k_taps * c_in, n],
             "unit": "tma" if chunks else "mma", "chunks": chunks, "shares": shares,

@@ -26,6 +26,21 @@ kernels (the in-layer conv and the res/skip product a layer, with TFLOP/s
 and bound, the weight-split launches and the input copy a call; the
 conv-GEMMs of a call alternate in-layer conv, res/skip in either tree).
 Prints the GPU's name and power limit with the numbers.
+
+With ``--bf16`` the same eight rows' bf16 entry points (``fp16_run``: x, the
+saves and the products' weights bf16) at [``--batch``, 704] (default 32, the
+shipped batch), each with its scratch block's bytes; then the gate backward
+alone (``--gate``): the bare product [batch * 704, 384 -> 192] on the
+TMA-fed kernel by CUDA events, and the gate backward's conv-GEMM inside
+``wn_bwd_store``'s chain (its kernel's device time a layer, from a trace of
+3 calls between spin kernels: the walk's conv-GEMMs alternate gate
+backward, transposed conv), against its byte floor (g_rs's copy, th and sg
+in; d_xin's copy and acts out, bf16) at 3.35 TB/s; where the tree has
+``kernels.bf16_epilogue_prefetch``, the four backwards and the gate
+backward in the chain with the walk's epilogue operands brought into L2
+during the K walk and without (as shipped), in turns.
+
+    python scripts/torch-decoder-rows-probe.py --bf16 [--batch 32] [--repo DIR]
 """
 
 import argparse
@@ -144,9 +159,70 @@ def forward_product_lines(fn, rows: int, h: int, taps: int, n_layers: int, gpu: 
     return out
 
 
+def gate_lines(folded16: dict, row8, batch: int, t: int, h: int, n_layers: int,
+               gpu: str) -> dict:
+    """The bf16 gate backward alone and in ``wn_bwd_store``'s chain."""
+    import torch
+
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    rng = torch.Generator(device="cuda").manual_seed(5)
+    a = torch.randn(batch, t, 2 * h, generator=rng, device="cuda").to(torch.bfloat16)
+    w = folded16["W_rs"][0].contiguous()  # [h, 2h]: B = W_rs^T, read through w_t
+    bare_ms = event_ms(lambda: tc_gemm.bf16_conv_product(a, w, w_t=True))
+    calls = 3
+
+    def in_chain():
+        ops = bracketed_ops(row8, calls)
+        convs = [us for name, us in ops if "conv_gemm_bf16" in name]
+        if len(convs) != calls * 2 * n_layers:
+            raise RuntimeError(f"wn_bwd_store: {len(convs)} conv-GEMMs in {calls} calls")
+        return sum(convs[0::2]) / len(convs[0::2]), sum(convs[1::2]) / len(convs[1::2])
+
+    gate_us, tconv_us = in_chain()
+    rows = batch * t
+    floor_bytes = 2 * rows * (2 * h + h + h + 2 * h + h)  # g_rs16, th, sg in; dxin16, acts out
+    out = {"shape": [rows, 2 * h, h], "bare_us": 1e3 * bare_ms, "in_chain_us": gate_us,
+           "transposed_in_chain_us": tconv_us, "floor_bytes": floor_bytes,
+           "floor_us": floor_bytes / 3.35e12 * 1e6}
+    print(f"gate backward bf16 {out['shape']}: bare {out['bare_us']:.1f} us (events), in the "
+          f"chain {gate_us:.1f} us on the device (transposed conv {tconv_us:.1f}), floor "
+          f"{out['floor_us']:.1f} us ({floor_bytes / 1e6:.1f} MB) [{gpu}]")
+    return out
+
+
+def prefetch_turns(rows: dict, gate_fn, gpu: str) -> dict:
+    """The bf16 backwards and the gate backward in the chain with the walk's
+    epilogue operands brought into L2 during the K walk
+    (``kernels.bf16_epilogue_prefetch``) and without (as shipped), in
+    turns: on, off, off, on; the least device time of each."""
+    from glow_tts_train_tpu_torch import kernels
+
+    names = [n for n in rows if n.split()[1] in ("wn_bwd", "wn_bwd_store", "block_bwd",
+                                                 "block_bwd_store")]
+    got = {"on": [], "off": []}
+    for mode in ("on", "off", "off", "on"):
+        if mode == "on":
+            with kernels.bf16_epilogue_prefetch():
+                row = {n: device_ms(rows[n])[0] for n in names}
+                row["gate_and_transposed_us"] = gate_fn()
+        else:
+            row = {n: device_ms(rows[n])[0] for n in names}
+            row["gate_and_transposed_us"] = gate_fn()
+        got[mode].append(row)
+    out = {}
+    for mode, runs in got.items():
+        out[mode] = {k: min(r[k] for r in runs) for k in runs[0]}
+    for k in out["on"]:
+        print(f"prefetch in turns {k}: on {out['on'][k]}, off {out['off'][k]} [{gpu}]")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--repo", type=Path, default=HERE, help="the checkout to measure")
+    parser.add_argument("--bf16", action="store_true", help="the bf16 entry points")
+    parser.add_argument("--batch", type=int, default=0, help="samples (default 16, bf16 32)")
     args = parser.parse_args()
     repo = args.repo.resolve()
     sys.path.insert(0, str(repo))
@@ -187,7 +263,7 @@ def main() -> int:
     wn = tuple(folded[k] for k in ("W_in", "b_in", "W_rs", "b_rs"))
 
     rng = np.random.default_rng(3)
-    batch, t = 16, 704
+    batch, t = args.batch or (32 if args.bf16 else 16), 704
     lengths = rng.integers(200, t + 1, size=batch)
     lengths[0] = t
     mask = (torch.arange(t)[None, :] < torch.from_numpy(lengths)[:, None]).float()[..., None]
@@ -202,6 +278,23 @@ def main() -> int:
     dz, dld = randn(batch, t, c), randn(batch)
     wcfg = (taps, hp.dilation_rate, 0.05, 1234)
     bcfg = (taps, hp.dilation_rate, hp.sigmoid_scale, 0.05, 1234)
+    scratch = {}
+    if args.bf16:  # x, dout, dz and the products' weights bf16; biases, mask, dld f32
+        bf = torch.bfloat16
+        folded = {k: v.to(bf if k in block_cuda.BF16_OPERANDS else torch.float32)
+                  for k, v in folded.items()}
+        wn = (folded["W_in"], folded["b_in"], folded["W_rs"], folded["b_rs"])
+        xw, dout, x, dz = (v.to(bf) for v in (xw, dout * mask, x, dz))
+        for name, size, recompute in (
+                ("7 wn_bwd", lambda r: kernels.wn_bwd_bf16_scratch_floats(
+                    batch, t, h, L, taps, r, False), 1),
+                ("8 wn_bwd_store", lambda r: kernels.wn_bwd_bf16_scratch_floats(
+                    batch, t, h, L, taps, r, False), 0),
+                ("11 block_bwd", lambda r: kernels.block_bwd_bf16_scratch_floats(
+                    batch, t, c, h, L, taps, r, False), 1),
+                ("12 block_bwd_store", lambda r: kernels.block_bwd_bf16_scratch_floats(
+                    batch, t, c, h, L, taps, r, False), 0)):
+            scratch[name] = 4 * size(recompute)
     _, wsaves = wn_cuda.wn_fwd_save(wn, None, xw, mask, *wcfg)
     _, _, bsaves = block_cuda.block_fwd_save(folded, None, x, mask, *bcfg)
     rows = {
@@ -216,13 +309,28 @@ def main() -> int:
         "12 block_bwd_store": lambda: block_cuda.block_bwd_store(
             folded, False, x, mask, bsaves, dz, dld, *bcfg),
     }
-    out = {"repo": str(repo), "gpu": gpu, "build_s": build_s,
+    out = {"repo": str(repo), "gpu": gpu, "build_s": build_s, "bf16": args.bf16,
            "shapes": {"wn": [batch, t, h], "block": [batch, t, c]}}
     for name, fn in rows.items():
         ms = event_ms(fn)
         dev_ms, ops = device_ms(fn)
         out[name] = {"ms": ms, "device_ms": dev_ms, "device_operations": ops}
-    out["product wn_fwd"] = forward_product_lines(rows["6 wn_fwd_save"], batch * t, h, taps, L, gpu)
+        if name in scratch:
+            out[name]["scratch_bytes"] = scratch[name]
+        print(f"row {name}{' bf16' if args.bf16 else ''}: {ms:.4f} ms (events), {dev_ms:.4f} ms "
+              f"on the device, {ops:.0f} device operations a call"
+              f"{f', scratch {scratch[name] / 1e6:.1f} MB' if name in scratch else ''} [{gpu}]")
+    if args.bf16:
+        out["gate_bwd"] = gate_lines(folded, rows["8 wn_bwd_store"], batch, t, h, L, gpu)
+        if hasattr(kernels, "bf16_epilogue_prefetch"):
+            def gate_fn():
+                g = gate_lines(folded, rows["8 wn_bwd_store"], batch, t, h, L, gpu)
+                return (g["in_chain_us"], g["transposed_in_chain_us"])
+
+            out["prefetch_in_turns"] = prefetch_turns(rows, gate_fn, gpu)
+    else:
+        out["product wn_fwd"] = forward_product_lines(rows["6 wn_fwd_save"], batch * t, h, taps,
+                                                      L, gpu)
     print(json.dumps(out))
     return 0
 

@@ -6,7 +6,7 @@ CPU.
   chains' dispatch in ``csrc/bf16_gemm.cu``): at [32, 704] and [16, 704]
   at base width and at large width (h 256) every product but the folded A
   on the TMA-fed units, at narrow widths none of them (the mma.sync
-  kernels); 14 and 59 device operations a call at base width (what the
+  kernels); 14 and 36 device operations a call at base width (what the
   card's traces count); the ring's shared memory within a block's 232,448
   bytes.
 * Rounding an f32 cotangent once where it is written (masked where its
@@ -15,8 +15,9 @@ CPU.
 * An emulation of the new chains' arithmetic (every product of bf16
   operands in 64-deep K slices summed in f32, each f32 cotangent read
   through its bf16 copy, the bias gradients f32 sums of the unrounded
-  cotangents, a weight gradient's 64-row slices added split by split as
-  the plan splits them) against ``block_forward_plain_bf16`` and its
+  cotangents by 64-row tile, then by sample (``tc_gemm.tile_sums_plain``),
+  a weight gradient's 64-row slices added split by split as the plan
+  splits them) against ``block_forward_plain_bf16`` and its
   autograd at base width with dropout on (within 2e-2 of each output's
   max |ref|, the kernels' tolerance against their plain version), and,
   through ``fold_block_params``, against the JAX package's
@@ -76,14 +77,14 @@ def test_every_product_takes_the_tma_units_at_shipped_widths(batch, h):
 
 def test_device_operations_a_call_at_base_width():
     """14 device operations a forward call (the 11 products, z's copy, ld's
-    two sums) and 59 a backward call (3 fills, 12 conv-GEMMs, 11 weight
-    gradients each with its bias gradient's two column sums and, split, its
-    splits' sum; 4 more with the conditioning's gradient), as the card's
-    traces count them (``scripts/torch-bf16-block-ab.py``)."""
+    two sums) and 36 a backward call (2 fills, 12 conv-GEMMs, 11 weight
+    gradients each with one reduction of its row splits and its bias's
+    tile sums; the conditioning's gradient in dW_in's, so none more with
+    it), as the card's traces count them (``scripts/torch-bf16-block-ab.py``)."""
     args = (32, 704, 160, 192, 4, 5, 1, SMS)
     assert tc_gemm.bf16_block_products(*args)["launches"] == 14
-    assert tc_gemm.bf16_block_products(*args, backward=True)["launches"] == 59
-    assert tc_gemm.bf16_block_products(*args, backward=True, with_g=True)["launches"] == 63
+    assert tc_gemm.bf16_block_products(*args, backward=True)["launches"] == 36
+    assert tc_gemm.bf16_block_products(*args, backward=True, with_g=True)["launches"] == 36
 
 
 @pytest.mark.parametrize("c,h", [(16, 16), (8, 32), (160, 48)])
@@ -231,6 +232,14 @@ def emulate_fwd(f, x, mask, taps, dilation_rate, sigmoid_scale, p, seed):
             {k: v.to(BF16) for k, v in saves.items()})
 
 
+def _bias(dy):
+    """A bias gradient as the bf16 chains take it: the f32 cotangent's
+    tile sums as its writer keeps them (4 threads a column group at base
+    width), each sample's tiles in order, then the samples in order."""
+    batch, t, n = dy.shape
+    return tc_gemm.sums_of_tiles_plain(tc_gemm.tile_sums_plain(dy.reshape(-1, n), batch, t))[0]
+
+
 def emulate_bwd(f, x, mask, saves, dz, dld, taps, dilation_rate, sigmoid_scale, p, seed):
     """The backward-store chain from the saves: -> the gradients of x and of
     the folded weights (bf16 where the weight is, the biases' f32)."""
@@ -254,7 +263,7 @@ def emulate_bwd(f, x, mask, saves, dz, dld, taps, dilation_rate, sigmoid_scale, 
         dlogs = dlogs * (s * (1.0 - s)) / (1e-6 + s)
     dout = torch.cat([dz1m, dlogs], -1)
     dzp_hi = dz1m * el * mask
-    g["dW_e"], g["db_e"] = _wgrad(sv["skipm"], _r(dout)), dout.sum((0, 1))
+    g["dW_e"], g["db_e"] = _wgrad(sv["skipm"], _r(dout)), _bias(dout)
     g_rs = torch.cat([torch.zeros(batch, t, h), _r(_prod(_r(dout), f["W_e"].T) * mask)], -1)
     gx = torch.zeros(batch, t, h)
     dw_in, db_in, dw_rs, db_rs = [None] * n_layers, [None] * n_layers, [None] * n_layers, [None] * n_layers
@@ -265,10 +274,10 @@ def emulate_bwd(f, x, mask, saves, dz, dld, taps, dilation_rate, sigmoid_scale, 
         d_xin = torch.cat([da * sg * (1.0 - th * th), da * th * sg * (1.0 - sg)], -1)
         if drop:
             d_xin = d_xin * regen_keep(seeds, l, n_layers, (t, h2), p) * scale
-        dw_rs[l], db_rs[l] = _wgrad(_r(th * sg), _r(g_rs)), g_rs.sum((0, 1))
+        dw_rs[l], db_rs[l] = _wgrad(_r(th * sg), _r(g_rs)), _bias(g_rs)
         dil = dilation_rate ** l
         dw_in[l] = _wgrad(im2col_plain(sv["xs"][l], taps, dil), _r(d_xin))
-        db_in[l] = d_xin.sum((0, 1))
+        db_in[l] = _bias(d_xin)
         tconv = _prod(im2col_plain(_r(d_xin), taps, dil, -1),
                       transposed_weights_plain(f["W_in"][l], taps))
         gx = gx * mask + tconv
@@ -278,9 +287,9 @@ def emulate_bwd(f, x, mask, saves, dz, dld, taps, dilation_rate, sigmoid_scale, 
             gx16 = _r(gx * mask)
     g["dW_in"], g["db_in"] = torch.stack(dw_in), torch.stack(db_in)
     g["dW_rs"], g["db_rs"] = torch.stack(dw_rs), torch.stack(db_rs)
-    g["dW_s"], g["db_s"] = _wgrad(zp[..., :c2], gx16), (gx * mask).sum((0, 1))
+    g["dW_s"], g["db_s"] = _wgrad(zp[..., :c2], gx16), _bias(gx * mask)
     dzp = torch.cat([(dz[..., :c2] + _prod(gx16, f["W_s"].T)) * mask, dzp_hi], -1)
-    g["dA"], g["dbA"] = _wgrad(x.float(), _r(dzp)), dzp.sum((0, 1))
+    g["dA"], g["dbA"] = _wgrad(x.float(), _r(dzp)), _bias(dzp)
     g["dx"] = _prod(_r(dzp), f["A"].T).to(BF16)
     for k in ("db_e", "db_s", "dbA"):
         g[k] = g[k][None]
