@@ -2672,7 +2672,8 @@ def bf16_bwd_row_line(name: str, roof: dict, shape: list, device_line: str,
                       tag: str = "") -> dict:
     """Prints a bf16 backward row's device ms and operations a call at
     ``shape``, the parent's in brackets where they were taken at it
-    (BF16_BWD_PARENT) -> the pair as a dict."""
+    (BF16_BWD_PARENT: printed only, never put in the kernels line) -> this
+    run's pair as a dict."""
     row, parent_ms, parent_ops = BF16_BWD_PARENT[name]
     if shape != BF16_BWD_PARENT_SHAPE[name.split("_")[0]]:
         parent_ms = parent_ops = None
@@ -2682,8 +2683,7 @@ def bf16_bwd_row_line(name: str, roof: dict, shape: list, device_line: str,
     print(f"bf16 row {row} {name}{tag} {shape}: device "
           f"{'not measured' if ms is None else f'{ms:.4f}'} ms, {roof['device_operations']} "
           f"operations a call [{before}] [{device_line}]")
-    return {"device_ms": ms, "device_operations": roof["device_operations"],
-            "parent_device_ms": parent_ms, "parent_device_operations": parent_ops}
+    return {"device_ms": ms, "device_operations": roof["device_operations"]}
 
 
 def same_bits_over_calls(name: str, fn, first: dict) -> int:
@@ -2898,8 +2898,8 @@ def bf16_kernels(recorders: dict, launches: dict, device_line: str, turns: bool 
                           backward=True, with_g=with_g)
     in_turns = units("block_bwd_store_bf16", lambda: bwd(*call))
     tag = " (conditioned)" if with_g else ""
-    extra = {"against_parent": bf16_bwd_row_line("block_bwd_store_bf16", roof, list(x.shape),
-                                                 device_line, tag)}
+    bf16_bwd_row_line("block_bwd_store_bf16", roof, list(x.shape), device_line, tag)
+    extra = {}
     if turns:
         extra["same_bits_repeats"] = same_bits_over_calls("block_bwd_store_bf16",
                                                           lambda: bwd(*call), grads_k)
@@ -3698,8 +3698,8 @@ def bf16_decoder_mode_kernels(recorders: dict, launches_by_mode: dict, device_li
                                    lambda: block_cuda.block_bwd(*args, **kwargs), grads)
     entry("block_bwd_bf16", worst * scale, scale, ms, plain_ms, list(x.shape), roof,
           worst_relative=worst, p_dropout=cfg[3], equals_store=True, device_operations_plan=ops,
-          same_bits_repeats=repeats,
-          against_parent=bf16_bwd_row_line("block_bwd_bf16", roof, list(x.shape), device_line))
+          same_bits_repeats=repeats)
+    bf16_bwd_row_line("block_bwd_bf16", roof, list(x.shape), device_line)
     del saves, store, grads, leaves
 
     # ---- rows 6 and 5: the WN stack's forward-save and forward ----
@@ -3776,9 +3776,8 @@ def bf16_decoder_mode_kernels(recorders: dict, launches_by_mode: dict, device_li
                                    lambda: wn_cuda.wn_bwd_store(*args, **kwargs), grads)
     entry("wn_bwd_store_bf16", worst * scale, scale, ms, plain_ms, list(x.shape), roof,
           worst_relative=worst, p_dropout=cfg[2], same_bits_twice=True,
-          device_operations_plan=ops, same_bits_repeats=repeats,
-          against_parent=bf16_bwd_row_line("wn_bwd_store_bf16", roof, list(x.shape),
-                                           device_line))
+          device_operations_plan=ops, same_bits_repeats=repeats)
+    bf16_bwd_row_line("wn_bwd_store_bf16", roof, list(x.shape), device_line)
     del saves, grads, again
 
     # ---- row 7: the WN recompute backward ----
@@ -3804,8 +3803,8 @@ def bf16_decoder_mode_kernels(recorders: dict, launches_by_mode: dict, device_li
     repeats = same_bits_over_calls("wn_bwd_bf16", lambda: wn_cuda.wn_bwd(*args, **kwargs), grads)
     entry("wn_bwd_bf16", worst * scale, scale, ms, plain_ms, list(x.shape), roof,
           worst_relative=worst, p_dropout=cfg[2], equals_store=True, device_operations_plan=ops,
-          same_bits_repeats=repeats,
-          against_parent=bf16_bwd_row_line("wn_bwd_bf16", roof, list(x.shape), device_line))
+          same_bits_repeats=repeats)
+    bf16_bwd_row_line("wn_bwd_bf16", roof, list(x.shape), device_line)
     return report
 
 

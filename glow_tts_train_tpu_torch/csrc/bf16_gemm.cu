@@ -820,41 +820,6 @@ __device__ __forceinline__ void ring_products(const R& r, int n_steps, bool a_on
   if (n_steps > 0) release(n_steps - 1);
 }
 
-// Whether the TMA-fed conv-GEMM's producer brings the WN walk's epilogue
-// operands into L2 while the K walk runs (prefetch_epilogue): off, as
-// shipped; gtt_bf16_prefetch turns it on, for a measurement in turns.  At
-// [32, 704] it saved nothing (the gate backward in the chain 85.6 us with
-// it, 82.8 without; PERF.md): the gate backward's time is its product's.
-bool& prefetch_allowed() {
-  static bool allowed = false;
-  return allowed;
-}
-
-// `nrows` rows from r0 of a row-major tensor with `ld` elements a row (f32,
-// or bf16 with b16) into L2, where they lie on whole 16-byte groups.
-__device__ __forceinline__ void prefetch_rows(const float* base, int ld, bool b16, long r0,
-                                              int nrows) {
-  if (base == nullptr) return;
-  const long esz = b16 ? 2 : 4;
-  const char* p = reinterpret_cast<const char*>(base) + r0 * ld * esz;
-  const uint32_t bytes = (uint32_t)(nrows * ld * esz);
-  if ((reinterpret_cast<uintptr_t>(p) & 15u) == 0 && (bytes & 15u) == 0) prefetch_l2(p, bytes);
-}
-
-// What the WN walk's epilogues read of a tile's rows (r0 .. r0 + nrows - 1,
-// contiguous): the gate backward's saved gates th and sg, the transposed
-// conv's f32 accumulator gx.  They were written long before (the forward,
-// the previous layer) and lie in device memory; the epilogue's loads of
-// them, a 64-row tile's in a row loop, were its latency.
-__device__ __forceinline__ void prefetch_epilogue(const ConvGemm& g, long r0, int nrows) {
-  if (g.epilogue == kGateBwd) {
-    prefetch_rows(g.aux, g.ld_aux, has(g.bf16, kAux16), r0, nrows);
-    prefetch_rows(g.aux2, g.ld_aux, has(g.bf16, kAux2_16), r0, nrows);
-  } else if (g.epilogue == kAccumMask) {
-    prefetch_rows(g.out, g.ldo, false, r0, nrows);
-  }
-}
-
 // The bf16 conv-GEMM fed by TMA (ConvGemm::tma_ring in a bf16 chain): a
 // 64-row x 64 kNB-column tile of one sample's rows per block (the tiles of
 // a sample end at its last row, so a tap's rows outside the sample are
@@ -880,7 +845,7 @@ __device__ __forceinline__ void prefetch_epilogue(const ConvGemm& g, long r0, in
 template <int kWT, int kNB>
 __global__ void __launch_bounds__(256, 2)
     conv_gemm_bf16_tma_kernel(const ConvGemm g, const __grid_constant__ CUtensorMap a_map,
-                              const __grid_constant__ CUtensorMap b_map, int prefetch) {
+                              const __grid_constant__ CUtensorMap b_map) {
   using R = ConvRing<kNB>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const R r = ring_setup<R>(smem_raw);
@@ -905,7 +870,6 @@ __global__ void __launch_bounds__(256, 2)
   if (tid >= R::kConsumers) {  // the producer warpgroup: one thread copies
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == R::kConsumers) {
-      if (prefetch) prefetch_epilogue(g, (long)b * g.t + t0, min(64, g.t - t0));
       const uint32_t bytes = (1 + (kWT ? kNB : nb_on)) * kRingChunk;
       for (int i = 0; i < n_steps; ++i) {
         const int s = s0 + i;
@@ -1141,7 +1105,7 @@ cudaError_t launch_conv_ring(const ConvGemm& g, int splits, cudaStream_t stream)
   const int n_tiles = paired(g.epilogue) ? (g.split + 63) / 64 : (g.n + 64 * kNB - 1) / (64 * kNB);
   const dim3 grid(n_tiles, g.batch * ((g.t + 63) / 64), splits);
   return launch_ring<ConvRing<kNB>>(conv_gemm_bf16_tma_kernel<kWT, kNB>, grid, stream, g, a_map,
-                                    b_map, prefetch_allowed() ? 1 : 0);
+                                    b_map);
 }
 
 template <int kNB>
@@ -1381,26 +1345,22 @@ extern "C" int gtt_bf16_tma(int on) {
   return was;
 }
 
-// Whether the TMA-fed conv-GEMM brings the WN walk's epilogue operands into
-// L2 during its K walk: 0 (the default) or 1, for a measurement in turns.
-// Returns the previous setting.
-extern "C" int gtt_bf16_prefetch(int on) {
-  const int was = gtt::prefetch_allowed() ? 1 : 0;
-  gtt::prefetch_allowed() = on != 0;
-  return was;
-}
-
 // out [batch * t, n] f32 = im2col(a) @ B, a bf16 [batch * t, c_in], w bf16
 // [taps * c_in, n] (or w_t: [taps * n, c_in], B its per-tap transpose), on
 // the TMA-fed kernel (tma 1; an error where the shape does not fit) or the
-// mma.sync one (tma 0).
-extern "C" int gtt_bf16_conv_product(const float* a, const float* w, float* out, int batch, int t,
-                                     int c_in, int taps, int dilation, int tap_sign, int n, int w_t,
-                                     int tma, cudaStream_t stream) {
+// mma.sync one (tma 0).  mask [batch * t] f32 or null: out's rows times it
+// (kBiasMask).  sums [batch, ceil(t / 64), n] f32 or null: the column sums
+// of out per sample and 64-row tile, as a flow chain's cotangent epilogue
+// keeps them (ConvGemm::sums).
+extern "C" int gtt_bf16_conv_product(const float* a, const float* w, float* out,
+                                     const float* mask, float* sums, int batch, int t, int c_in,
+                                     int taps, int dilation, int tap_sign, int n, int w_t, int tma,
+                                     cudaStream_t stream) {
   gtt::ConvGemm g;
   g.a = a; g.lda = c_in; g.c_in = c_in; g.taps = taps; g.dilation = dilation;
   g.batch = batch; g.t = t; g.tap_sign = tap_sign; g.w = w; g.w_t = w_t; g.n = n;
-  g.epilogue = gtt::kBias; g.out = out; g.ldo = n;
+  g.epilogue = mask ? gtt::kBiasMask : gtt::kBias; g.out = out; g.ldo = n; g.mask = mask;
+  g.sums = {sums, n};
   g.bf16 = gtt::kBf16 | gtt::kA16 | gtt::kW16;
   g.tma_ring = tma;
   if (tma && !gtt::tma_conv_chunks(g)) return (int)cudaErrorInvalidValue;
@@ -1445,15 +1405,27 @@ extern "C" int gtt_bf16_tma_conv_plan(int batch, int t, int c_in, int taps, int 
 
 // out [taps * c_in, n] f32 = im2col(a)^T dy over all batch * t rows, a bf16
 // [batch * t, c_in], dy bf16 [batch * t, n]; scratch: the row splits'
-// partial sums.  tma: as above.
+// partial sums.  tma: as above.  bias [n] f32 or null: the bias gradient
+// from dy's tile sums (conv product's `sums`), columns below bias_split
+// from bias_lo [batch, tiles, bias_split], the rest from bias_hi [batch,
+// tiles, n - bias_split]; dg [batch, n] bf16 or null: each sample's part of
+// g_sums [batch, tiles, n].  Both in the reduction's launch, as a flow
+// chain's weight gradient takes them (WGrad::bias_lo).
 extern "C" int gtt_bf16_wgrad_product(const float* a, const float* dy, float* out, float* scratch,
+                                      const float* bias_lo, const float* bias_hi,
+                                      const float* g_sums, float* bias, float* dg,
                                       long long scratch_floats, int batch, int t, int c_in,
-                                      int taps, int dilation, int n, int tma,
+                                      int taps, int dilation, int n, int bias_split, int tma,
                                       cudaStream_t stream) {
   gtt::WGrad w;
   w.a = a; w.lda = c_in; w.c_in = c_in; w.taps = taps; w.dilation = dilation;
   w.batch = batch; w.t = t; w.dy = dy; w.dy16 = dy; w.ldy = n; w.n = n; w.out = out;
   w.scratch = scratch; w.scratch_floats = scratch_floats;
+  w.bias_out = bias; w.bias_split = bias_split;
+  w.bias_lo = {const_cast<float*>(bias_lo), bias_split};
+  w.bias_hi = {const_cast<float*>(bias_hi), n - bias_split};
+  w.g_sums = {const_cast<float*>(g_sums), n};
+  w.dg = dg; w.dg_ld = n;
   w.bf16 = gtt::kBf16 | gtt::kA16 | gtt::kAux16;
   w.tma_ring = tma;
   int dev = 0, sms = 0;

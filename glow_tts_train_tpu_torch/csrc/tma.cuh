@@ -82,13 +82,6 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
 }
 
 // The same for a 3-D tensor map at (c0, c1, c2), innermost first.
-// cp.async.bulk.prefetch.L2: `bytes` (a multiple of 16) of global memory
-// from a 16-byte aligned address into L2, by the copy engine; nothing to
-// wait for.
-__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"(bytes) : "memory");
-}
-
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1, int c2) {
   asm volatile(

@@ -244,8 +244,8 @@ TC_WGRAD = Entry("gtt_tc_wgrad", "p" * 8 + "i" * 11)
 SPLIT_WEIGHTS = Entry("gtt_split_weights", "p" * 3 + "i" * 3)
 # one bf16 product alone (csrc/bf16_gemm.cu), on the TMA-fed wgmma kernel or
 # the mma.sync one
-BF16_CONV_PRODUCT = Entry("gtt_bf16_conv_product", "p" * 3 + "i" * 9)
-BF16_WGRAD_PRODUCT = Entry("gtt_bf16_wgrad_product", "p" * 4 + "L" + "i" * 7)
+BF16_CONV_PRODUCT = Entry("gtt_bf16_conv_product", "p" * 5 + "i" * 9)
+BF16_WGRAD_PRODUCT = Entry("gtt_bf16_wgrad_product", "p" * 9 + "L" + "i" * 8)
 # ... and a conv-GEMM by the text chains' plan (chunks a tile, split-K shares)
 BF16_TEXT_PRODUCT = Entry("gtt_bf16_text_product", "p" * 4 + "L" + "i" * 7)
 # the bf16 encoder layer's attention core alone, forward and backward
@@ -356,22 +356,6 @@ def bf16_mma_only():
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_int
     was = fn(0)
-    try:
-        yield
-    finally:
-        fn(was)
-
-
-@contextlib.contextmanager
-def bf16_epilogue_prefetch():
-    """Within the block, the TMA-fed bf16 conv-GEMM brings the WN walk's
-    epilogue operands (the gate backward's th and sg, the transposed conv's
-    gx) into L2 during its K walk (``gtt_bf16_prefetch(1)``), for a
-    measurement of both in turns; off as shipped (it saved nothing)."""
-    fn = library().gtt_bf16_prefetch
-    fn.argtypes = [ctypes.c_int]
-    fn.restype = ctypes.c_int
-    was = fn(1)
     try:
         yield
     finally:

@@ -686,8 +686,7 @@ def bf16_block_products(
             "name": name, "kind": "conv_gemm", "shape": [rows, k_taps * c_in, n],
             "unit": "core" if core else ("tma" if chunks else "mma"), "chunks": chunks,
             "tiles": n_tiles * batch * -(-t // BF16_CONV_TILE), "stages": stages,
-            "smem": smem, "splits": 1, "launches": 1,
-            "sum_phases": 0 if core else bf16_sum_phases(chunks)})
+            "smem": smem, "splits": 1, "launches": 1})
 
     def wgrad(name, c_in, n, lda, k_taps=1):
         chunks, splits = bf16_wgrad_plan(batch, t, c_in, k_taps, n, lda, sms)
@@ -756,35 +755,18 @@ def bf16_block_products(
 BF16_SUM_TILE = 64
 
 
-def bf16_sum_phases(chunks: int) -> int:
-    """Threads that add one column group of a bf16 conv-GEMM's tile
-    (``chunks`` 64-column chunks a tile; 0: the mma.sync kernel's 64 x 64
-    tile) in its epilogue, each over every ``phases``-th row: 128 threads
-    over 16 groups of 4 columns at one chunk and on the mma.sync kernel,
-    32 groups (of 4, or of 6 at three chunks) at two and three."""
-    return 8 if chunks <= 1 else 4
-
-
-def tile_sums_plain(values: torch.Tensor, batch: int, t: int, phases: int = 4) -> torch.Tensor:
+def tile_sums_plain(values: torch.Tensor, batch: int, t: int) -> torch.Tensor:
     """The column sums a bf16 flow chain's cotangent epilogue keeps in
-    place of the f32 cotangent (csrc/bf16_gemm.cu, ``ConvGemm::sums``), in
-    its order: ``values`` [batch * t, n] -> [batch, ceil(t / 64), n] f32,
-    tile i of sample b the sum of its rows 64 i .. min(t, 64 i + 64) - 1 (a
-    tile never crosses a sample), each of ``phases`` threads adding rows
-    phase, phase + phases, ... in order, then the phases in order."""
+    place of the f32 cotangent (csrc/bf16_gemm.cu, ``ConvGemm::sums``):
+    ``values`` [batch * t, n] -> [batch, ceil(t / 64), n] f32, tile i of
+    sample b the sum of its rows 64 i .. min(t, 64 i + 64) - 1 (a tile
+    never crosses a sample)."""
     n = values.shape[-1]
     tiles = -(-t // BF16_SUM_TILE)
     v = values.reshape(batch, t, n).float()
     # rows past t as zeros: a sum with them added is the sum without
     v = torch.nn.functional.pad(v, (0, 0, 0, tiles * BF16_SUM_TILE - t))
-    v = v.reshape(batch, tiles, BF16_SUM_TILE // phases, phases, n)
-    by_phase = torch.zeros(batch, tiles, phases, n)
-    for k in range(BF16_SUM_TILE // phases):
-        by_phase = by_phase + v[:, :, k]
-    out = torch.zeros(batch, tiles, n)
-    for p in range(phases):
-        out = out + by_phase[:, :, p]
-    return out
+    return v.reshape(batch, tiles, BF16_SUM_TILE, n).sum(2)
 
 
 def sums_of_tiles_plain(sums: torch.Tensor) -> typing.Tuple[torch.Tensor, torch.Tensor]:
@@ -950,35 +932,48 @@ def bf16_conv_product_plain(a, w, taps=1, dilation=1, tap_sign=1, w_t=False) -> 
 
 def bf16_conv_product(
     a: torch.Tensor, w: torch.Tensor, taps: int = 1, dilation: int = 1, tap_sign: int = 1,
-    w_t: bool = False, unit: str = "tma",
-) -> torch.Tensor:
+    w_t: bool = False, unit: str = "tma", mask: typing.Optional[torch.Tensor] = None,
+    sums: bool = False,
+):
     """a [b, t, c] bf16, w bf16 [taps * c, n] (or with ``w_t`` a forward
     conv's [taps * n, c], B its per-tap transpose) -> im2col(a) @ B [b, t,
     n] f32 by one bf16 product on ``unit``: "tma" the TMA-fed wgmma kernel
     over the whole K walk a block (an error where the shape does not fit),
     "text" the same kernel by the text chains' plan (:func:`bf16_text_conv_plan`:
     chunks a tile and split-K shares, added in split order by the
-    epilogue's pass; dilation 1), "mma" the mma.sync one.  CPU tensors take
-    the plain version."""
+    epilogue's pass; dilation 1), "mma" the mma.sync one.  ``mask`` [b, t,
+    1] f32: the output's rows times it, in the epilogue.  ``sums`` ("tma"
+    and "mma"): -> (out, its tile sums [b, ceil(t / 64), n] f32 as a flow
+    chain's cotangent epilogue keeps them, :func:`tile_sums_plain`).  CPU
+    tensors take the plain version."""
     if kernels.route(a) == "plain":
-        return bf16_conv_product_plain(a, w, taps, dilation, tap_sign, w_t)
+        out = bf16_conv_product_plain(a, w, taps, dilation, tap_sign, w_t)
+        if mask is not None:
+            out = out * mask
+        return (out, tile_sums_plain(out.reshape(-1, out.shape[-1]), *a.shape[:2])) if sums else out
     if unit not in BF16_UNITS:
         raise ValueError(f"unit {unit!r}: one of {BF16_UNITS}")
     batch, t, c = a.shape
-    kernels.check_operands(a.device, ("a", "w"), a=a, w=w)
+    kernels.check_operands(a.device, ("a", "w"), a=a, w=w, mask=mask)
     n = w.shape[0] // taps if w_t else w.shape[1]
     kernels.check_shape("w", w, (taps * n, c) if w_t else (taps * c, n))
+    if mask is not None:
+        kernels.check_shape("mask", mask, (batch, t, 1))
     out = torch.empty((batch, t, n), dtype=torch.float32, device=a.device)
     if unit == "text":
         if dilation != 1:
             raise ValueError("the text chains' products have dilation 1")
+        if mask is not None or sums:
+            raise ValueError("the text chains' products keep no tile sums and take no mask")
         part = kernels.scratch(SPLIT_K_COLS * batch * t, a)
         kernels.BF16_TEXT_PRODUCT(a, w, out, part, part.numel(), batch, t, c, taps, tap_sign, n,
                                   int(w_t))
         return out
-    kernels.BF16_CONV_PRODUCT(a, w, out, batch, t, c, taps, dilation, tap_sign, n, int(w_t),
-                              int(unit == "tma"))
-    return out
+    tile_sums = (torch.empty((batch, -(-t // BF16_SUM_TILE), n), dtype=torch.float32,
+                             device=a.device) if sums else None)
+    kernels.BF16_CONV_PRODUCT(a, w, out, mask, tile_sums, batch, t, c, taps, dilation, tap_sign,
+                              n, int(w_t), int(unit == "tma"))
+    return (out, tile_sums) if sums else out
 
 
 def bf16_weight_gradient_plain(a, dy, taps=1, dilation=1) -> torch.Tensor:
@@ -987,23 +982,46 @@ def bf16_weight_gradient_plain(a, dy, taps=1, dilation=1) -> torch.Tensor:
 
 
 def bf16_weight_gradient(
-    a: torch.Tensor, dy: torch.Tensor, taps: int = 1, dilation: int = 1, unit: str = "tma"
-) -> torch.Tensor:
+    a: torch.Tensor, dy: torch.Tensor, taps: int = 1, dilation: int = 1, unit: str = "tma",
+    bias_sums: typing.Optional[typing.Tuple[torch.Tensor, torch.Tensor]] = None,
+    g_sums: typing.Optional[torch.Tensor] = None,
+):
     """a [b, t, c], dy [b, t, n], both bf16 -> im2col(a)^T @ dy [taps * c, n]
     f32 over all b * t rows by one bf16 weight gradient on ``unit`` (as
-    :func:`bf16_conv_product`), its row splits added in a fixed order.  CPU
-    tensors take the plain version."""
+    :func:`bf16_conv_product`), its row splits added in a fixed order.
+    With ``bias_sums`` (lo, hi), tile sums [b, tiles, s] and [b, tiles, n -
+    s] of dy's columns below s and from s, and/or ``g_sums`` [b, tiles, n]
+    -> (dW, the bias gradient [n] f32 or None, dg [b, n] bf16 or None), as
+    a flow chain's weight gradient takes them in its reduction's launch
+    (:func:`sums_of_tiles_plain`'s order).  CPU tensors take the plain
+    version."""
+    with_sums = bias_sums is not None or g_sums is not None
     if kernels.route(a) == "plain":
-        return bf16_weight_gradient_plain(a, dy, taps, dilation)
+        out = bf16_weight_gradient_plain(a, dy, taps, dilation)
+        if not with_sums:
+            return out
+        bias = None if bias_sums is None else sums_of_tiles_plain(torch.cat(bias_sums, -1))[0]
+        dg = None if g_sums is None else sums_of_tiles_plain(g_sums)[1].to(torch.bfloat16)
+        return out, bias, dg
     batch, t, c = a.shape
     n = dy.shape[-1]
-    kernels.check_operands(a.device, ("a", "dy"), a=a, dy=dy)
+    lo, hi = bias_sums if bias_sums is not None else (None, None)
+    kernels.check_operands(a.device, ("a", "dy"), a=a, dy=dy, lo=lo, hi=hi, g_sums=g_sums)
     kernels.check_shape("dy", dy, (batch, t, n))
+    tiles = -(-t // BF16_SUM_TILE)
+    split = 0 if lo is None else lo.shape[-1]
+    if lo is not None:
+        kernels.check_shape("bias_sums[0]", lo, (batch, tiles, split))
+        kernels.check_shape("bias_sums[1]", hi, (batch, tiles, n - split))
+    if g_sums is not None:
+        kernels.check_shape("g_sums", g_sums, (batch, tiles, n))
     out = torch.empty((taps * c, n), dtype=torch.float32, device=a.device)
+    bias = None if lo is None else torch.empty((n,), dtype=torch.float32, device=a.device)
+    dg = None if g_sums is None else torch.empty((batch, n), dtype=torch.bfloat16, device=a.device)
     scratch = kernels.scratch(WALK_WG_FLOATS, a)
-    kernels.BF16_WGRAD_PRODUCT(a, dy, out, scratch, scratch.numel(), batch, t, c, taps, dilation,
-                               n, int(unit == "tma"))
-    return out
+    kernels.BF16_WGRAD_PRODUCT(a, dy, out, scratch, lo, hi, g_sums, bias, dg, scratch.numel(),
+                               batch, t, c, taps, dilation, n, split, int(unit == "tma"))
+    return (out, bias, dg) if with_sums else out
 
 
 def split_weights_plain(w: torch.Tensor, pair: int = 0) -> torch.Tensor:

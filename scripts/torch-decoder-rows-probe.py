@@ -35,10 +35,7 @@ TMA-fed kernel by CUDA events, and the gate backward's conv-GEMM inside
 ``wn_bwd_store``'s chain (its kernel's device time a layer, from a trace of
 3 calls between spin kernels: the walk's conv-GEMMs alternate gate
 backward, transposed conv), against its byte floor (g_rs's copy, th and sg
-in; d_xin's copy and acts out, bf16) at 3.35 TB/s; where the tree has
-``kernels.bf16_epilogue_prefetch``, the four backwards and the gate
-backward in the chain with the walk's epilogue operands brought into L2
-during the K walk and without (as shipped), in turns.
+in; d_xin's copy and acts out, bf16) at 3.35 TB/s.
 
     python scripts/torch-decoder-rows-probe.py --bf16 [--batch 32] [--repo DIR]
 """
@@ -191,33 +188,6 @@ def gate_lines(folded16: dict, row8, batch: int, t: int, h: int, n_layers: int,
     return out
 
 
-def prefetch_turns(rows: dict, gate_fn, gpu: str) -> dict:
-    """The bf16 backwards and the gate backward in the chain with the walk's
-    epilogue operands brought into L2 during the K walk
-    (``kernels.bf16_epilogue_prefetch``) and without (as shipped), in
-    turns: on, off, off, on; the least device time of each."""
-    from glow_tts_train_tpu_torch import kernels
-
-    names = [n for n in rows if n.split()[1] in ("wn_bwd", "wn_bwd_store", "block_bwd",
-                                                 "block_bwd_store")]
-    got = {"on": [], "off": []}
-    for mode in ("on", "off", "off", "on"):
-        if mode == "on":
-            with kernels.bf16_epilogue_prefetch():
-                row = {n: device_ms(rows[n])[0] for n in names}
-                row["gate_and_transposed_us"] = gate_fn()
-        else:
-            row = {n: device_ms(rows[n])[0] for n in names}
-            row["gate_and_transposed_us"] = gate_fn()
-        got[mode].append(row)
-    out = {}
-    for mode, runs in got.items():
-        out[mode] = {k: min(r[k] for r in runs) for k in runs[0]}
-    for k in out["on"]:
-        print(f"prefetch in turns {k}: on {out['on'][k]}, off {out['off'][k]} [{gpu}]")
-    return out
-
-
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--repo", type=Path, default=HERE, help="the checkout to measure")
@@ -322,12 +292,6 @@ def main() -> int:
               f"{f', scratch {scratch[name] / 1e6:.1f} MB' if name in scratch else ''} [{gpu}]")
     if args.bf16:
         out["gate_bwd"] = gate_lines(folded, rows["8 wn_bwd_store"], batch, t, h, L, gpu)
-        if hasattr(kernels, "bf16_epilogue_prefetch"):
-            def gate_fn():
-                g = gate_lines(folded, rows["8 wn_bwd_store"], batch, t, h, L, gpu)
-                return (g["in_chain_us"], g["transposed_in_chain_us"])
-
-            out["prefetch_in_turns"] = prefetch_turns(rows, gate_fn, gpu)
     else:
         out["product wn_fwd"] = forward_product_lines(rows["6 wn_fwd_save"], batch * t, h, taps,
                                                       L, gpu)

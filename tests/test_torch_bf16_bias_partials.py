@@ -11,15 +11,22 @@ per-sample part).  ``tc_gemm.tile_sums_plain`` and
 ``tc_gemm.sums_of_tiles_plain`` are that arithmetic in plain PyTorch.
 
 * Against a float64 column sum within 1e-6 of max |sum| (f32 sums of a few
-  thousand rows), at t 704, 700, 37 and 1,408, batch 1 and 3, masked rows,
-  with each product's threads a column group (``bf16_sum_phases``).
+  thousand rows), at t 704, 700, 37 and 1,408, batch 1 and 3, masked rows.
 * Against the JAX kernels' own sums (``wn_pallas._reverse_walk``'s
   ``dbin_ref[l] += jnp.sum(d_xin, axis=0)`` a sample a grid step, and
   ``dg_ref[0, l] = jnp.sum(d_in_act, axis=0).astype(bf16)``): the bias
   within 1e-6 of max |sum|, dg within one bf16 step.
 * The tiles partition the rows: every row in exactly one tile, no tile
   across two samples, a tile 64 rows but the last of each sample.
-* The plan gives each bf16 conv-GEMM its threads a column group.
+* The products' wrappers on CPU tensors (``tc_gemm.bf16_conv_product`` with
+  ``sums``, ``tc_gemm.bf16_weight_gradient`` with ``bias_sums`` and
+  ``g_sums``) give the plain versions of what their kernels keep and
+  reduce: the masked product's tile sums, and from them the bias within
+  1e-6 of max |sum| of a float64 column sum and dg within one bf16 step.
+
+The kernels themselves are held to these functions on a GPU in
+``tests/test_torch_cuda.py`` (``test_bf16_product_tile_sums_and_reduction``,
+``test_bf16_flow_bias_gradients_from_tile_sums``).
 """
 
 import jax.numpy as jnp
@@ -53,19 +60,14 @@ def _held(name: str, got: torch.Tensor, want: np.ndarray) -> None:
 @pytest.mark.parametrize("t", [704, 700, 37, 1408])
 def test_tile_sums_hold_a_float64_column_sum(t, batch):
     """The bias (all rows) and the per-sample parts (dg's) from the tile
-    sums, at each thread count a column group that a bf16 conv-GEMM's
-    epilogue takes (4 or 8) and the WN stack's cotangent kernel's (1),
-    within 1e-6 of max |sum| of the float64 sums."""
+    sums within 1e-6 of max |sum| of the float64 sums."""
     n = 96
     v = _values(batch, t, n, seed=t + batch)
-    want_total = v.astype(np.float64).sum((0, 1))
-    want_per = v.astype(np.float64).sum(1)
-    for phases in sorted({tc_gemm.bf16_sum_phases(c) for c in (0, 1, 2, 3)} | {1}):
-        sums = tc_gemm.tile_sums_plain(torch.from_numpy(v).reshape(-1, n), batch, t, phases)
-        assert sums.shape == (batch, -(-t // 64), n) and sums.dtype == torch.float32
-        total, per = tc_gemm.sums_of_tiles_plain(sums)
-        _held(f"bias, {phases} phases", total, want_total)
-        _held(f"per sample, {phases} phases", per, want_per)
+    sums = tc_gemm.tile_sums_plain(torch.from_numpy(v).reshape(-1, n), batch, t)
+    assert sums.shape == (batch, -(-t // 64), n) and sums.dtype == torch.float32
+    total, per = tc_gemm.sums_of_tiles_plain(sums)
+    _held("bias", total, v.astype(np.float64).sum((0, 1)))
+    _held("per sample", per, v.astype(np.float64).sum(1))
 
 
 @pytest.mark.parametrize("t", [704, 37])
@@ -96,7 +98,7 @@ def test_tiles_cover_every_row_once_within_its_sample(t, batch):
     tile belongs to the row's sample and holds rows 64 i .. 64 i + 63 of it
     (the last one of a sample fewer), so no tile crosses a sample."""
     rows = batch * t
-    hits = tc_gemm.tile_sums_plain(torch.eye(rows), batch, t, phases=4)  # [b, tile, row]
+    hits = tc_gemm.tile_sums_plain(torch.eye(rows), batch, t)  # [b, tile, row]
     assert torch.equal(hits.sum((0, 1)), torch.ones(rows))
     b_of, tile_of, row_of = torch.nonzero(hits, as_tuple=True)
     assert torch.equal(b_of, row_of // t)
@@ -106,13 +108,29 @@ def test_tiles_cover_every_row_once_within_its_sample(t, batch):
     assert torch.all(per_tile[:, :-1] == 64) and torch.all(per_tile[:, -1] == t - 64 * (tiles - 1))
 
 
-def test_the_plan_gives_each_conv_gemm_its_column_threads():
-    """A bf16 conv-GEMM's threads a column group, by unit: 8 on the
-    mma.sync kernel and at one chunk, 4 at two and three; at base width the
-    cotangent writers of the block backward (gate, transposed conv, dskip at
-    three chunks; the coupling and dzp at two) take 4."""
-    assert [tc_gemm.bf16_sum_phases(c) for c in (0, 1, 2, 3)] == [8, 8, 4, 4]
-    plan = tc_gemm.bf16_block_products(32, 704, 160, 192, 4, 5, 1, SMS, backward=True)
-    phases = {p["name"]: p["sum_phases"] for p in plan["products"] if p["kind"] == "conv_gemm"}
-    for name in ("coupling", "dskip", "gate_0", "transposed_3", "dzp"):
-        assert phases[name] == 4, (name, phases)
+@pytest.mark.parametrize("t", [100, 37])
+def test_product_wrappers_keep_and_reduce_tile_sums_on_the_cpu(t):
+    """One masked bf16 product with its tile sums and one weight gradient
+    that reduces them, on CPU tensors (the wrappers' plain versions): the
+    product masked, its sums those of its rows, the bias from the sums
+    split at column 64 (the reduction's lo and hi) within 1e-6 of max |sum|
+    of a float64 column sum, dg within one bf16 step of each sample's,
+    the weight gradient the plain one's."""
+    batch, c_in, n = 3, 48, 96
+    rng = np.random.default_rng(t)
+    a = torch.from_numpy(rng.standard_normal((batch, t, c_in)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(rng.standard_normal((c_in, n)).astype(np.float32) * 0.2).bfloat16()
+    lengths = torch.tensor([t, t - 11, t // 3])
+    mask = (torch.arange(t)[None, :] < lengths[:, None]).float()[..., None]
+    out, sums = tc_gemm.bf16_conv_product(a, w, mask=mask, sums=True)
+    want = (a.double() @ w.double()) * mask.double()
+    assert (out.double() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert torch.equal(sums, tc_gemm.tile_sums_plain(out.reshape(-1, n), batch, t))
+    dy = out.bfloat16()
+    dw, bias, dg = tc_gemm.bf16_weight_gradient(
+        a, dy, bias_sums=(sums[..., :64].contiguous(), sums[..., 64:].contiguous()), g_sums=sums)
+    assert torch.equal(dw, tc_gemm.bf16_weight_gradient_plain(a, dy))
+    _held("bias", bias, out.double().sum((0, 1)).numpy())
+    per = out.double().sum(1).numpy()
+    assert dg.dtype == torch.bfloat16 and dg.shape == (batch, n)
+    assert np.all(np.abs(dg.double().numpy() - per) <= np.abs(per) * 2.0 ** -7)

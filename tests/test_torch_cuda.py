@@ -2015,6 +2015,171 @@ def test_bf16_tma_wgrad_matches_plain(dev, name, c_in, taps, dilation, n):
     assert torch.equal(got, tc_gemm.bf16_weight_gradient(a, dy, taps, dilation))
 
 
+@pytest.mark.parametrize("unit", ["tma", "mma"])
+@pytest.mark.parametrize("t", [100, 37])
+@pytest.mark.parametrize("name,c_in,taps,dilation,tap_sign,n,w_t", [
+    ("in_conv", 192, 5, 4, 1, 384, False), ("coupling", 192, 1, 1, 1, 160, False),
+    ("dskip", 160, 1, 1, 1, 192, True), ("transposed", 384, 5, 2, -1, 192, True),
+    ("dzp", 192, 1, 1, 1, 80, True),
+])
+def test_bf16_product_tile_sums_and_reduction(dev, name, c_in, taps, dilation, tap_sign, n, w_t,
+                                              t, unit):
+    """A bf16 conv-GEMM with a row mask keeps its output's column sums per
+    sample and 64-row tile (ConvGemm::sums, as the flow chains' cotangent
+    epilogues keep them) on either unit, at t 100 (a ragged last tile a
+    sample) and 37 (one), three samples of ragged lengths: the product
+    within 1e-5 of max |ref| of float64 (masked), the tile sums within 1e-5
+    of max |sum| of ``tc_gemm.tile_sums_plain`` of the kernel's own f32
+    output (a masked tile's sum zero); then a weight gradient's reduction
+    takes those sums (split at column 64 into its lo and hi parts, and as
+    the conditioning's): the bias gradient and dg bit for bit
+    ``tc_gemm.sums_of_tiles_plain`` of the same sums (tiles, then samples,
+    in order; dg rounded to nearest even), the weight gradient within 1e-5
+    of max |ref|; a second call the same bits."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    g = torch.Generator().manual_seed(3)
+    batch = 3
+    a = torch.randn(batch, t, c_in, generator=g).to(BF16).to(dev)
+    shape = (taps * n, c_in) if w_t else (taps * c_in, n)
+    w = (torch.randn(*shape, generator=g) * (taps * c_in) ** -0.5).to(BF16).to(dev)
+    lengths = torch.tensor([t, t - 13, t // 2 - 9])
+    mask = (torch.arange(t)[None, :] < lengths[:, None]).float()[..., None].to(dev)
+
+    def run():
+        kernels.product_counts(reset=True)
+        out, sums = tc_gemm.bf16_conv_product(a, w, taps, dilation, tap_sign, w_t, unit=unit,
+                                              mask=mask, sums=True)
+        torch.cuda.synchronize()
+        assert kernels.product_counts(reset=True)[
+            "bf16_tma_gemm" if unit == "tma" else "bf16_gemm"] == 1
+        return out, sums
+
+    out, sums = run()
+    ref = tc_gemm.conv_product_plain(a.double(), w.double(), taps, dilation, tap_sign,
+                                     w_t=w_t) * mask.double()
+    assert (out.double() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item(), name
+    tiles = -(-t // 64)
+    assert sums.shape == (batch, tiles, n)
+    want = tc_gemm.tile_sums_plain(out.cpu().reshape(-1, n), batch, t)
+    err = (sums.cpu().double() - want.double()).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), (name, err)
+    for b in range(batch):
+        for i in range(tiles):
+            if 64 * i >= lengths[b]:
+                assert torch.all(sums[b, i] == 0), (name, b, i)
+    dy = out.to(BF16)
+    wg_unit = unit if n % 64 == 0 else "mma"
+    lo, hi = sums[..., :64].contiguous(), sums[..., 64:].contiguous()
+    dw, bias, dg = tc_gemm.bf16_weight_gradient(a, dy, unit=wg_unit, bias_sums=(lo, hi),
+                                                g_sums=sums)
+    want_bias, per = tc_gemm.sums_of_tiles_plain(sums.cpu())
+    assert torch.equal(bias.cpu(), want_bias), name
+    assert dg.dtype == BF16 and torch.equal(dg.cpu(), per.to(BF16)), name
+    wref = tc_gemm.weight_gradient_plain(a.double(), dy.double())
+    assert (dw.double() - wref).abs().max().item() <= 1e-5 * wref.abs().max().item(), name
+    out2, sums2 = run()
+    assert torch.equal(out2, out) and torch.equal(sums2, sums)
+    again = tc_gemm.bf16_weight_gradient(a, dy, unit=wg_unit, bias_sums=(lo, hi), g_sums=sums)
+    assert all(torch.equal(x, y) for x, y in zip(again, (dw, bias, dg)))
+
+
+def _held_rel(name, got, ref, rtol):
+    err = (got.double() - ref.double()).abs().max().item()
+    scale = ref.double().abs().max().item()
+    assert scale > 0 and err <= rtol * scale, f"{name}: {err} against {rtol} of {scale}"
+
+
+@pytest.mark.parametrize("with_g", [False, True], ids=["no_g", "g"])
+def test_bf16_flow_bias_gradients_from_tile_sums(dev, with_g):
+    """The bias and conditioning gradients of bf16 rows 8 and 12 (and 7
+    and 11, their bits) from the epilogues' tile sums, at base width over
+    [4, 100] (t not a multiple of 64: each sample's last tile ragged),
+    three samples masked short, dropout on, one WN layer, held within 1e-5
+    of max |ref| to the column sums of the plain f32 cotangents, computed
+    in float64 from the same saves and the same bf16 operands where no bf16
+    copy of a cotangent lies between them and the sum (past such a copy,
+    or past a gate the plain forward recomputes, one value's last bit may
+    differ between the two and move a sum by more than 1e-5):
+    the WN stack's db_rs (the skip half from the stack's cotangent kernel,
+    the last layer's res half zero), db_in (the gate backward's d_xin sums,
+    dropout's keep mask and scale) and dg (its d_in_act sums, a sample's,
+    rounded to bf16: within one bf16 step); the block's db_e (the coupling
+    backward's dout sums) and the second half of dbA (its dx1 sums, dzp's),
+    with W_e one non-zero a column so that the coupling's recomputed logs
+    are exact.  Every gradient also within BF16_RTOL of the plain bf16
+    version's autograd."""
+    p, seed = 0.05, 21
+    folded, _, mask, taps = _bf16_block(dev, t=100, L=1)
+    wn = tuple(folded[k] for k in ("W_in", "b_in", "W_rs", "b_rs"))
+    L, _, h2 = wn[0].shape
+    h = h2 // 2
+    b, t = mask.shape[:2]
+    x = (torch.randn(b, t, h, device=dev) * mask).to(BF16)
+    g_all = _bf16_g_all(dev, b, L, h, with_g)
+    cfg = (taps, 1, p, seed)
+    _, saves = wn_cuda.wn_fwd_save(wn, g_all, x, mask, *cfg)
+    dout = torch.randn(x.shape, device=dev).to(BF16)
+    store = wn_cuda.wn_bwd_store(wn[0], wn[2], with_g, mask, saves, dout, *cfg)
+    again = wn_cuda.wn_bwd(wn, g_all, x, mask, dout, *cfg)
+    for k, v in store.items():
+        assert (v is None) == (again[k] is None) and (v is None or torch.equal(again[k], v)), k
+    # the walk's one layer in float64 from the saved gates: g_rs = [0, dout * mask]
+    m64 = mask.double()
+    d_skip = dout.double() * m64
+    th, sg = saves["th"][0].double(), saves["sg"][0].double()
+    d_acts = d_skip @ wn[2][0][:, h:].double().T
+    d_in_act = torch.cat([d_acts * sg * (1 - th * th), d_acts * th * sg * (1 - sg)], -1)
+    keep = wn_cuda.regen_keep(seed + torch.arange(b), 0, L, (t, h2), p, dev).double()
+    d_xin = d_in_act * keep * wn_cuda.drop_args(p)[2]
+    _held_rel("db_in", store["db_in"][0], d_xin.sum((0, 1)), 1e-5)
+    _held_rel("db_rs", store["db_rs"][0, h:], d_skip.sum((0, 1)), 1e-5)
+    assert torch.all(store["db_rs"][0, :h] == 0)
+    if with_g:
+        per = d_in_act.sum(1)
+        assert store["dg"].dtype == BF16
+        assert torch.all((store["dg"][:, 0].double() - per).abs() <= per.abs() * 2.0 ** -7), "dg"
+    leaves = [v.detach().requires_grad_(True) for v in wn]
+    gl = g_all.detach().requires_grad_(True) if with_g else None
+    o = wn_cuda.wn_stack_plain_bf16(tuple(leaves), gl, x, mask, *cfg)
+    inputs = leaves + ([gl] if with_g else [])
+    names = ["dW_in", "db_in", "dW_rs", "db_rs"] + (["dg"] if with_g else [])
+    for name, r in zip(names, torch.autograd.grad(o, inputs, dout)):
+        _bf16_held(name, store[name], r)
+
+    folded, x, mask, taps = _bf16_block(dev, t=100, L=1)
+    c = x.shape[-1]
+    c2 = c // 2
+    gen = torch.Generator().manual_seed(4)
+    w_e = torch.zeros(h, c)
+    w_e[torch.randperm(h, generator=gen)[:c], torch.arange(c)] = 0.3 * torch.randn(c, generator=gen)
+    folded["W_e"] = w_e.to(BF16).to(dev)
+    bcfg = (taps, 1, False, p, seed)
+    _, _, bsaves = block_cuda.block_fwd_save(folded, None, x, mask, *bcfg)
+    dz = torch.randn(x.shape, device=dev).to(BF16)
+    dld = torch.randn((b,), device=dev)
+    grads = block_cuda.block_bwd_store(folded, False, x, mask, bsaves, dz, dld, *bcfg)
+    again = block_cuda.block_bwd(folded, None, x, mask, dz, dld, *bcfg)
+    for k, v in grads.items():
+        assert (v is None) == (again[k] is None) and (v is None or torch.equal(again[k], v)), k
+    # the coupling backward in float64 from the saved skipm and zp: out's
+    # product exact (one term a column), its bias added and rounded as the
+    # kernel does
+    out = (bsaves["skipm"].float() @ folded["W_e"].float() + folded["b_e"]).to(BF16).double()
+    e = torch.exp(out[..., c2:])
+    m64 = mask.double()
+    dz1 = dz[..., c2:].double() * m64
+    x1 = bsaves["zp"][..., c2:].double()
+    dout_b = torch.cat([dz1, dz1 * e * x1 + dld.double()[:, None, None] * m64], -1)
+    _held_rel("db_e", grads["db_e"], dout_b.sum((0, 1)), 1e-5)
+    _held_rel("dbA second half", grads["dbA"][..., c2:], (dz1 * e).sum((0, 1)), 1e-5)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in folded.items()}
+    zz, ll = block_cuda.block_forward_plain_bf16(leaves, None, x, mask, *bcfg)
+    ref = torch.autograd.grad((zz, ll), list(leaves.values()), (dz, dld))
+    for k, r in zip(leaves, ref):
+        _bf16_held("d" + k, grads["d" + k], r)
+
+
 def test_bf16_tma_declines_narrow_widths(dev):
     """Below 64 channels or columns the chains' products take the mma.sync
     kernels, as the plan (``tc_gemm.bf16_block_products``) says, and the
