@@ -116,10 +116,12 @@ Phases, each fatal on failure:
     layers', the prenet's and the duration stack's forward and backward)
     and no f32 training kernel; 1 epoch, its checkpoint and 1 resumed
     epoch equal to the 2-epoch run bit for bit; one profiled bf16 step
-    (its products all on the bf16 kernels but the 12 folded-A products,
-    every product of the flow block's, the encoder layer's, the prenet's
-    and the duration stack's chains on the TMA-fed wgmma ones, none on the
-    mma.sync ones);
+    (its products all on the bf16 kernels, every product of the flow
+    block's (the 12 folded-A products too), the encoder layer's, the
+    prenet's and the duration stack's chains on the TMA-fed wgmma ones,
+    none on the mma.sync ones or the CUDA cores); at init, the folded A's
+    leaves' gradients on wgmma against the CUDA cores' within a tenth of
+    the card's bf16-vs-f32 gap (``train bf16 folded A`` lines);
     each bf16 kernel against its plain bf16 version on the last step's
     inputs within BF16_KERNEL_RTOL (backwards at the kernel's own ReLU
     gates), timed, its device time from a trace bracketed by spin
@@ -3042,8 +3044,8 @@ def bf16_train(workdir: Path, config_path: Path, device_line: str) -> tuple:
 
 def profile_bf16_step(last: dict, device_line: str, n_blocks: int, n_layers: int) -> dict:
     """One more bf16 step on the last batch under torch.profiler: its device
-    products (every one on the bf16 kernels but the 12 folded-A products;
-    the flow blocks' 10 + 12 conv-GEMMs and 11 weight gradients a block,
+    products (every one on the bf16 kernels, the 12 folded-A products too;
+    the flow blocks' 11 + 12 conv-GEMMs and 11 weight gradients a block,
     the encoder layers' 4 + 8 and 4 a layer, the prenet's 4 + 8 and 4 and
     the duration stack's 2 + 4 and 2 on the TMA-fed wgmma kernels, none on
     the mma.sync ones), wall, device busy, idle share, device operations,
@@ -3058,7 +3060,7 @@ def profile_bf16_step(last: dict, device_line: str, n_blocks: int, n_layers: int
     products = kernels.product_counts(reset=True)
     unexpected = {k: v for k, v in products.items()
                   if v and k not in BF16_PRODUCT_KEYS + ("core_gemm",)}
-    want = {"core_gemm": n_blocks, "bf16_tma_gemm": 22 * n_blocks + 12 * n_layers + 12 + 6,
+    want = {"core_gemm": 0, "bf16_tma_gemm": 23 * n_blocks + 12 * n_layers + 12 + 6,
             "bf16_tma_wgrad": 11 * n_blocks + 4 * n_layers + 4 + 2, "bf16_gemm": 0,
             "bf16_wgrad": 0}
     if unexpected or {k: products.get(k) for k in want} != want:
@@ -3082,10 +3084,22 @@ def profile_bf16_step(last: dict, device_line: str, n_blocks: int, n_layers: int
     return row
 
 
+# the bf16 chains' folded A (zp = x @ A) on the TMA-fed wgmma kernel, held
+# at init to the same product on the CUDA cores (the f32 chains' unit,
+# kernels.bf16_core_zp): the gradients of the leaves it carries (every
+# block's ActNorm logs and bias and InvConvNear weight, in the 2-norm over
+# the leaf) within FOLDED_A_GAP_SHARE of the card's own bf16-vs-f32 gap of
+# that leaf, all three steps on f32's alignment
+FOLDED_A_LEAVES = ("actnorm/logs", "actnorm/bias", "invconv/weight")
+FOLDED_A_GAP_SHARE = 0.1
+
+
 def bf16_against_f32(workdir: Path, config_path: Path, device_line: str) -> dict:
     """The bf16 step against the f32 step in one process, both from the same
     fresh init (DDI, f32, on the first batch) on the corpus's batches with
-    the same dropout seeds: BF16_STEPS steps (2 epochs), each pair on the
+    the same dropout seeds.  First, at init, the folded A's leaves'
+    gradients on wgmma held to the CUDA cores' (FOLDED_A_LEAVES).  Then
+    BF16_STEPS steps (2 epochs), each pair on the
     f32 step's alignment (the bf16 step's MAS kernel runs, its path is
     replaced by f32's; the cells its own path moves are counted, and its
     log-likelihood under f32's logp held within BF16_PATH_SCORE_RTOL of the
@@ -3097,7 +3111,7 @@ def bf16_against_f32(workdir: Path, config_path: Path, device_line: str) -> dict
     each (device busy, idle share, device operations)."""
     import torch
 
-    from glow_tts_train_tpu_torch import data, training
+    from glow_tts_train_tpu_torch import data, kernels, training
     from glow_tts_train_tpu_torch.config import load_config
     from glow_tts_train_tpu_torch.ops import mas_cuda
 
@@ -3121,6 +3135,57 @@ def bf16_against_f32(workdir: Path, config_path: Path, device_line: str) -> dict
             "seeds": torch.Generator().manual_seed(cfg.seed), "n": 0,
         }
     kernel_mas = mas_cuda.maximum_path
+
+    def leaf_grads(fp16, pinned=None):
+        """The folded A's leaves' gradients of one loss at init on the
+        first batch (no update), dropout on, and the MAS path it took."""
+        from glow_tts_train_tpu_torch.models import hyper_from_config
+        from glow_tts_train_tpu_torch.models.glow_tts import forward_train
+        from glow_tts_train_tpu_torch.models.losses import duration_loss, mle_loss
+        from glow_tts_train_tpu_torch.tree import unflatten
+
+        cfg, batch = configs[fp16], batches[0]
+        params = runs[fp16]["state"].model.flat()
+        keys = [k for k in params if k.endswith(FOLDED_A_LEAVES)]
+        paths = []
+
+        def mas(logp, mask):
+            path = kernel_mas(logp, mask)
+            paths.append(path)
+            return path if pinned is None else pinned
+
+        mas_cuda.maximum_path = mas
+        try:
+            (z, z_m, z_logs, logdet, z_mask), _, (_, logw, logw_) = forward_train(
+                unflatten(params), hyper_from_config(cfg), batch["x"], batch["x_lengths"],
+                batch["y"], batch["y_lengths"], g_ids=None,
+                generator=torch.Generator(device=PLATFORM).manual_seed(cfg.seed),
+                seed_generator=torch.Generator().manual_seed(cfg.seed),
+                compute_dtype=torch.bfloat16 if fp16 else torch.float32)
+            loss = (mle_loss(z, z_m, z_logs, logdet, z_mask)
+                    + duration_loss(logw, logw_, batch["x_lengths"]))
+            grads = torch.autograd.grad(loss, [params[k] for k in keys])
+        finally:
+            mas_cuda.maximum_path = kernel_mas
+        return dict(zip(keys, grads)), paths[0]
+
+    g32, path32 = leaf_grads(False)
+    g_tc, _ = leaf_grads(True, path32)
+    with kernels.bf16_core_zp():
+        g_core, _ = leaf_grads(True, path32)
+    folded_a = {}
+    for k in g32:
+        gap = torch.linalg.vector_norm(g_core[k].double() - g32[k].double()).item()
+        diff = torch.linalg.vector_norm(g_tc[k].double() - g_core[k].double()).item()
+        folded_a[k] = {"tc_vs_core": diff, "bf16_vs_f32": gap, "share": diff / gap}
+        print(f"train bf16 folded A {k}: wgmma against the CUDA cores {diff:.3e}, the card's "
+              f"bf16-vs-f32 gap {gap:.3e}: {diff / gap:.2e} of it (bound {FOLDED_A_GAP_SHARE}) "
+              f"[{device_line}]")
+        if not (math.isfinite(diff) and diff <= FOLDED_A_GAP_SHARE * gap):
+            fail(f"train bf16 folded A {k}: wgmma moves its gradient by {diff:.3e}, more than "
+                 f"{FOLDED_A_GAP_SHARE} of the bf16-vs-f32 gap {gap:.3e}")
+    if len(folded_a) != len(FOLDED_A_LEAVES):
+        fail(f"train bf16 folded A: leaves {sorted(folded_a)}")
 
     def step(fp16, pinned=None):
         r = runs[fp16]
@@ -3180,7 +3245,7 @@ def bf16_against_f32(workdir: Path, config_path: Path, device_line: str) -> dict
         timed[fp16].append({"ms": ms, "peak_bytes": peak, "over_resident_bytes": over,
                             "batch_y": shape})
     out = {"gpu": device_line, "steps": pairs, "loss_rtol": BF16_LOSS_RTOL,
-           "grad_norm_rtol": BF16_GRAD_NORM_RTOL}
+           "grad_norm_rtol": BF16_GRAD_NORM_RTOL, "folded_a": folded_a}
     for fp16, name in ((False, "f32"), (True, "bf16")):
         r = runs[fp16]
         wall_ms, by_kernel, operations = profiled(lambda: step(fp16))

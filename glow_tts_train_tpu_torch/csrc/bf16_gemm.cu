@@ -148,13 +148,18 @@ constexpr int kTileBytes = kBM * (kBN + 1) * 4;  // the accumulator tile, for th
 // in cs; stage_sums puts them in shared memory, stage [phases][4][cols];
 // then, after a barrier, flush_sums adds each column's phases in order and
 // writes the tile's sum (sample b, tile `tile`) where sum_slot says.
-template <int kW>
+// (kS 0: the group's columns are q kW .. q kW + kW - 1; else its kW / 2
+// pairs 2q + p kS, + 1, as conv_gemm_bf16_tma_kernel lays them out with
+// kPairs.)
+template <int kW, int kS = 0>
 __device__ __forceinline__ void stage_sums(const float (&cs)[4][kW], float* stage, int phase,
                                            int q, int cols) {
 #pragma unroll
   for (int s = 0; s < 4; ++s)
 #pragma unroll
-    for (int e = 0; e < kW; ++e) stage[(phase * 4 + s) * cols + q * kW + e] = cs[s][e];
+    for (int e = 0; e < kW; ++e)
+      stage[(phase * 4 + s) * cols + (kS ? 2 * q + (e >> 1) * kS + (e & 1) : q * kW + e)] =
+          cs[s][e];
 }
 
 __device__ __forceinline__ void flush_sums(const ConvGemm& g, const float* stage, int phases,
@@ -841,8 +846,15 @@ __device__ __forceinline__ void ring_products(const R& r, int n_steps, bool a_on
 // chunks: inlined once, where straight from the fragments each kernel held
 // it 48 times and nvcc took minutes); a thread keeps one column group, so
 // a cotangent's column sums (ConvGemm::sums) add up in its registers over
-// its rows and once across threads through shared memory.
-template <int kWT, int kNB>
+// its rows and once across threads through shared memory.  A thread's
+// columns: kW neighbouring ones; with kPairs (the WN walk's transposed
+// conv, whose epilogue reads and writes gx in f32) kW / 2 pairs 2 x 32
+// columns apart, so that each f32 load or store of a warp spans 64
+// neighbouring columns (at [22,528, 5 x 384 -> 192] 72 us on the device
+// against 88 with neighbouring columns; the gate backward's and res/skip's
+// bf16 epilogues took 14 and 10 us longer so: PERF.md, PR 23).  Each
+// column's rows add up in the same order either way: the same tile sums.
+template <int kWT, int kNB, bool kPairs = false>
 __global__ void __launch_bounds__(256, 2)
     conv_gemm_bf16_tma_kernel(const ConvGemm g, const __grid_constant__ CUtensorMap a_map,
                               const __grid_constant__ CUtensorMap b_map) {
@@ -920,7 +932,9 @@ __global__ void __launch_bounds__(256, 2)
   constexpr int kW = kNB == 3 ? 6 : 4;
   constexpr int kGroups = 64 * kNB / kW;
   constexpr int kPhases = R::kConsumers / kGroups;
+  constexpr int kS = kPairs ? 2 * kGroups : 2;  // the distance of a group's pairs
   const int q = tid % kGroups, phase = tid / kGroups;
+  const int c0 = kPairs ? 2 * q : kW * q;  // the group's first column in the tile
   const long rows = (long)g.batch * g.t;
   float cs[4][kW] = {};
 #pragma unroll 1
@@ -931,10 +945,11 @@ __global__ void __launch_bounds__(256, 2)
     if (gridDim.z > 1) {  // a share's partial sums, for conv_split_sum_bf16_kernel
       float* part = g.part + ((long)blockIdx.z * rows + b * g.t + tt) * g.n;
 #pragma unroll
-      for (int e = 0; e < kW; e += 2)
-        if (n0 + kW * q + e < g.n)
-          *reinterpret_cast<float2*>(part + n0 + kW * q + e) =
-              *reinterpret_cast<const float2*>(tr + kW * q + e);
+      for (int e = 0; e < kW; e += 2) {
+        const int c = c0 + (e >> 1) * kS;
+        if (n0 + c < g.n)
+          *reinterpret_cast<float2*>(part + n0 + c) = *reinterpret_cast<const float2*>(tr + c);
+      }
     } else if (pair) {  // pairs (2q, 64 + 2q) and (2q + 1, 65 + 2q): logical 2 (j0 + 2q) ..
       const float v[4] = {tr[2 * q], tr[64 + 2 * q], tr[2 * q + 1], tr[65 + 2 * q]};
       float none[4][4] = {};  // the paired epilogues keep no column sums
@@ -943,18 +958,18 @@ __global__ void __launch_bounds__(256, 2)
       float v[kW];
 #pragma unroll
       for (int e = 0; e < kW; e += 2) {
-        const float2 f = *reinterpret_cast<const float2*>(tr + kW * q + e);
+        const float2 f = *reinterpret_cast<const float2*>(tr + c0 + (e >> 1) * kS);
         v[e] = f.x;
         v[e + 1] = f.y;
       }
-      epilogue_row_bf16<kW>(g, b * g.t + tt, n0 + kW * q, v, cs);
+      epilogue_row_bf16<kW, kS>(g, b * g.t + tt, n0 + c0, v, cs);
     }
   }
   if (g.sums.p == nullptr) return;
   // the tile's column sums (paired epilogues keep none), staged after the
   // tile: [kPhases][4][64 kNB] floats, within the ring's stages
   float* stage = tile + 64 * kStride;
-  stage_sums<kW>(cs, stage, phase, q, 64 * kNB);
+  stage_sums<kW, kPairs ? kS : 0>(cs, stage, phase, q, 64 * kNB);
   asm volatile("bar.sync 1, %0;\n" ::"n"(R::kConsumers) : "memory");
   flush_sums(g, stage, kPhases, 64 * kNB, n0, b, blockIdx.y - b * tiles_t, tid, R::kConsumers);
 }
@@ -1094,7 +1109,7 @@ cudaError_t launch_ring(Kernel kernel, dim3 grid, cudaStream_t stream, Args... a
   return cudaGetLastError();
 }
 
-template <int kWT, int kNB>
+template <int kWT, int kNB, bool kPairs = false>
 cudaError_t launch_conv_ring(const ConvGemm& g, int splits, cudaStream_t stream) {
   CUtensorMap a_map, b_map;
   cudaError_t err = bf16_map(&a_map, g.a, g.c_in, g.t, g.batch, g.lda, 64);
@@ -1104,8 +1119,8 @@ cudaError_t launch_conv_ring(const ConvGemm& g, int splits, cudaStream_t stream)
   if (err != cudaSuccess) return err;
   const int n_tiles = paired(g.epilogue) ? (g.split + 63) / 64 : (g.n + 64 * kNB - 1) / (64 * kNB);
   const dim3 grid(n_tiles, g.batch * ((g.t + 63) / 64), splits);
-  return launch_ring<ConvRing<kNB>>(conv_gemm_bf16_tma_kernel<kWT, kNB>, grid, stream, g, a_map,
-                                    b_map);
+  return launch_ring<ConvRing<kNB>>(conv_gemm_bf16_tma_kernel<kWT, kNB, kPairs>, grid, stream, g,
+                                    a_map, b_map);
 }
 
 template <int kNB>
@@ -1240,6 +1255,11 @@ TmaConvPlan tma_conv_plan(const ConvGemm& g, int sms) {
 
 template <int kWT>
 cudaError_t launch_conv_tma(const ConvGemm& g, const TmaConvPlan& p, cudaStream_t stream) {
+  // the walk's transposed conv (its epilogue's f32 gx) in column pairs
+  if constexpr (kWT != 0) {
+    if (p.chunks == 3 && g.epilogue == kAccumMask)
+      return launch_conv_ring<kWT, 3, true>(g, p.splits, stream);
+  }
   if (p.chunks == 3) return launch_conv_ring<kWT, 3>(g, p.splits, stream);
   if (p.chunks == 2) return launch_conv_ring<kWT, 2>(g, p.splits, stream);
   return launch_conv_ring<kWT, 1>(g, p.splits, stream);

@@ -147,6 +147,14 @@ namespace {
 
 long round4(long floats) { return (floats + 3) / 4 * 4; }
 
+// Whether a bf16 chain's folded A stays on the CUDA cores (gtt_bf16_core_zp:
+// the f32 chains' unit, for a measurement of both in one run); default:
+// the TMA-fed wgmma kernel.
+bool& core_zp() {
+  static bool on = false;
+  return on;
+}
+
 // Sizes and the dropout of one call.
 struct Dims {
   int batch, t, c, h, n_layers, taps, dilation_rate;
@@ -241,13 +249,19 @@ void block_fwd_products(const Dims& d, const float* x, const float* mask, const 
                         float* sg, float* acts, std::vector<ConvGemm>* out) {
   const int c = d.c, h = d.h;
   {
-    // On the CUDA cores: a tensor-core product is short by about 1e-7 of
-    // each output (its accumulator rounds toward zero), all outputs alike,
-    // and the ActNorm scale's gradient is the small difference of sum(z^2)
-    // and the frame count, which turns that into 1e-3 of the gradient.
+    // f32: on the CUDA cores.  A tensor-core product is short by about 1e-7
+    // of each output (its accumulator rounds toward zero), all outputs
+    // alike, and the ActNorm scale's gradient is the small difference of
+    // sum(z^2) and the frame count, which turns that into 1e-3 of the
+    // gradient.  bf16: on the TMA-fed wgmma kernel, as JAX rounds zp to
+    // bf16 right after the product (a step of 2^-8 of it, 1e-7 is
+    // 1/20,000 of that); PERF.md holds the check of both against JAX's
+    // bf16 gap.  core_zp (gtt_bf16_core_zp, a measurement switch) keeps
+    // it on the CUDA cores in bf16 too.
     ConvGemm g = rows_gemm(d, x, c, c, a, ba, c, kBiasMask, zp, c, mask);
     g.tc_scratch = nullptr;
-    g.bf16 = b16(d, kBf16Core | kA16 | kW16 | kOut16);
+    g.bf16 = b16(d, (core_zp() ? kBf16Core : 0u) | kA16 | kW16 | kOut16);
+    g.tma_ring = d.bf16;
     out->push_back(g);
   }
   ConvGemm start = rows_gemm(d, zp, c, c / 2, w_s, b_s, h, kBiasMask, xs, h, mask);
@@ -744,6 +758,15 @@ int wn_fwd_chain(const Dims& d, const WnWeights& wn, const float* x, const float
 }
 
 }  // namespace
+
+// Whether the bf16 chains' folded A runs on the CUDA cores (on 1) or on the
+// TMA-fed wgmma kernel (on 0, the default), for a measurement of both in
+// one run.  Returns the previous setting.
+extern "C" int gtt_bf16_core_zp(int on) {
+  const int was = core_zp() ? 1 : 0;
+  core_zp() = on != 0;
+  return was;
+}
 
 // Floats of the one scratch block a forward call of the WN stack (c 0) or
 // of the flow block (c channels) takes: its products' K-major splits.

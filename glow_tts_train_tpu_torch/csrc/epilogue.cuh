@@ -274,7 +274,10 @@ __device__ __forceinline__ TileSums sum_slot(const ConvGemm& g, int s, int n, in
 // values as the epilogue computes them.
 __device__ __forceinline__ void add_sum(float& cs, float v) { cs = __fadd_rn(cs, v); }
 
-template <int kW>
+// Columns: kW / 2 pairs, pair p at n0 + p kS and n0 + p kS + 1 (kS 2:
+// kW neighbouring columns; the paired epilogues take only that); cs[s][e]
+// is element e's.
+template <int kW, int kS = 2>
 __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const EpilogueRow& r,
                                                    int n0, const float (&acc)[kW],
                                                    float (&cs)[4][kW]) {
@@ -288,8 +291,11 @@ __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const Epil
   // Each case loads every operand of its columns before it stores a result
   // (a load cannot move above a store to a pointer that may alias it): the
   // loads of a call are in flight together, one latency a call, not one a
-  // column.  cnt: the columns below n.
-  const int cnt = g.n - n0 < kW ? g.n - n0 : kW;
+  // column.  cnt: the elements whose columns lie below n.
+  auto col = [&](int e) { return n0 + (e >> 1) * kS + (e & 1); };
+  int cnt = 0;
+#pragma unroll
+  for (int e = 0; e < kW; ++e) cnt += col(e) < g.n;
   switch (g.epilogue) {
     case kGate:
     case kCouplingFwd: {
@@ -342,7 +348,7 @@ __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const Epil
 #pragma unroll
       for (int e = 0; e < kW; ++e) {
         if (e >= cnt) break;
-        const int n = n0 + e;
+        const int n = col(e);
         bias[e] = bias_at(g, n);
         if (n < g.split) {  // the residual's base
           if (g.flag)
@@ -354,7 +360,7 @@ __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const Epil
 #pragma unroll
       for (int e = 0; e < kW; ++e) {
         if (e >= cnt) break;
-        const int n = n0 + e;
+        const int n = col(e);
         const float v = round_bf16(acc[e] + bias[e]);
         if (n < g.split) {
           if (g.flag) st_act(g.out, ob + n, round_bf16(in[e] + v) * rm, out16);
@@ -372,15 +378,15 @@ __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const Epil
 #pragma unroll
       for (int e = 0; e < kW; ++e) {
         if (e >= cnt) break;
-        const long at = m * g.ld_aux + g.split + n0 + e;
-        bias[e] = bias_at(g, n0 + e);
+        const long at = m * g.ld_aux + g.split + col(e);
+        bias[e] = bias_at(g, col(e));
         dz[e] = ld_act(g.aux, at, aux16);
         x1[e] = ld_act(g.aux2, at, aux2_16);
       }
 #pragma unroll
       for (int e = 0; e < kW; ++e) {
         if (e >= cnt) break;
-        const int j = n0 + e;
+        const int j = col(e);
         const float raw = round_bf16(acc[e] + bias[e]);
         const float logs = coupling_logs(g, raw);
         const float el = expf(logs);
@@ -410,13 +416,13 @@ __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const Epil
 #pragma unroll
       for (int e = 0; e < kW; ++e) {
         if (e >= cnt) break;
-        th[e] = ld_act(g.aux, m * g.ld_aux + n0 + e, aux16);
-        sg[e] = ld_act(g.aux2, m * g.ld_aux + n0 + e, aux2_16);
+        th[e] = ld_act(g.aux, m * g.ld_aux + col(e), aux16);
+        sg[e] = ld_act(g.aux2, m * g.ld_aux + col(e), aux2_16);
       }
 #pragma unroll
       for (int e = 0; e < kW; ++e) {
         if (e >= cnt) break;
-        const int j = n0 + e;
+        const int j = col(e);
         const float da = acc[e];
         const float du = da * sg[e] * (1.f - th[e] * th[e]);
         const float dv = da * th[e] * sg[e] * (1.f - sg[e]);
@@ -444,11 +450,11 @@ __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const Epil
       float prev[kW];
 #pragma unroll
       for (int e = 0; e < kW; ++e)
-        if (e < cnt) prev[e] = g.out[ob + n0 + e];
+        if (e < cnt) prev[e] = g.out[ob + col(e)];
 #pragma unroll
       for (int e = 0; e < kW; ++e) {
         if (e >= cnt) break;
-        const int n = n0 + e;
+        const int n = col(e);
         const float v = prev[e] * rm + acc[e];
         g.out[ob + n] = v;
         st_copy(g.out_c, ob + n, v);
@@ -461,7 +467,7 @@ __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const Epil
     case kMaskReluBwd: {
       const float sc = g.drop.on ? g.drop.scale * rm : rm;
       for (int e = 0; e < kW; ++e) {
-        const int n = n0 + e;
+        const int n = col(e);
         if (n >= g.n) break;
         const float v = ld_act(g.aux, m * g.ld_aux + n, aux16) > 0.f ? acc[e] * sc : 0.f;
         g.out[ob + n] = v;
@@ -471,7 +477,7 @@ __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const Epil
     }
     case kMaskAdd: {
       for (int e = 0; e < kW; ++e) {
-        const int n = n0 + e;
+        const int n = col(e);
         if (n >= g.n) break;
         g.out[ob + n] = acc[e] * rm + ld_act(g.aux, m * g.ld_aux + n, aux16);
       }
@@ -485,13 +491,13 @@ __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const Epil
 #pragma unroll
       for (int e = 0; e < kW; ++e) {
         if (e >= cnt) break;
-        bias[e] = bias_at(g, n0 + e);
-        if (g.epilogue == kResidMask) res[e] = ld_act(g.aux, m * g.ld_aux + n0 + e, aux16);
+        bias[e] = bias_at(g, col(e));
+        if (g.epilogue == kResidMask) res[e] = ld_act(g.aux, m * g.ld_aux + col(e), aux16);
       }
 #pragma unroll
       for (int e = 0; e < kW; ++e) {
         if (e >= cnt) break;
-        const int n = n0 + e;
+        const int n = col(e);
         float v = acc[e] + bias[e];
         if (g.epilogue == kBiasRelu || g.epilogue == kBiasReluMask) v = fmaxf(v, 0.f);
         if (g.epilogue == kResidMask) v = (res[e] + v) * rm;
@@ -506,10 +512,10 @@ __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const Epil
   }
 }
 
-template <int kW>
+template <int kW, int kS = 2>
 __device__ __forceinline__ void epilogue_row_bf16(const ConvGemm& g, int m, int n0,
                                                   const float (&acc)[kW], float (&cs)[4][kW]) {
-  epilogue_cols_bf16<kW>(g, epilogue_row_of(g, m), n0, acc, cs);
+  epilogue_cols_bf16<kW, kS>(g, epilogue_row_of(g, m), n0, acc, cs);
 }
 
 }  // namespace gtt

@@ -317,7 +317,8 @@ def product_counts(reset: bool = False) -> typing.Dict[str, int]:
     conv-GEMMs (``tma_gemm``); and the bf16 chains' tensor-core products
     on the mma.sync kernels (``bf16_gemm``, ``bf16_wgrad``) and on the
     TMA-fed wgmma ones (``bf16_tma_gemm``, ``bf16_tma_wgrad``; the flow
-    block's folded-A product on the CUDA cores counts as ``core_gemm``),
+    block's folded-A product kept on the CUDA cores by
+    :func:`bf16_core_zp` counts as ``core_gemm``),
     these four keys only where a bf16 product ran (an f32 chain's counts
     keep the f32 chains' keys).  ``reset`` zeroes the counters after the
     read."""
@@ -356,6 +357,22 @@ def bf16_mma_only():
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_int
     was = fn(0)
+    try:
+        yield
+    finally:
+        fn(was)
+
+
+@contextlib.contextmanager
+def bf16_core_zp():
+    """Within the block, the bf16 flow block chains run their folded A
+    (zp = x @ A) on the CUDA cores, as the f32 chains do
+    (``gtt_bf16_core_zp(1)``), for holding the TMA-fed kernel's gradients
+    to it in one run; the TMA-fed kernel is the default."""
+    fn = library().gtt_bf16_core_zp
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    was = fn(1)
     try:
         yield
     finally:

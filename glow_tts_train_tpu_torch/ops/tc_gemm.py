@@ -667,26 +667,33 @@ def bf16_block_products(
     each weight gradient two launches (the product; one reduction of its
     row splits, its bias's tile sums and, for dW_in, the conditioning's,
     so ``with_g`` adds none).
+    Every product asks for the TMA-fed kernel, the folded A (zp) too, as
+    JAX rounds zp to bf16 right after it (the f32 chains keep it on the
+    CUDA cores: :func:`forward_products`).
     -> {"products": per product its name, kind ("conv_gemm"/"wgrad"), shape
     ([rows, K, N]; a weight gradient's [K, rows, N]), unit ("tma": the
-    TMA-fed wgmma kernel, "mma": the mma.sync kernel, "core": the folded
-    A's CUDA-core product), chunks (64-column chunks a tile), tiles (blocks
-    of a launch), stages, shared memory (a block's), row splits and
-    launches; "launches": the device operations of a call; "counts":
-    ``kernels.product_counts`` of a call}."""
+    TMA-fed wgmma kernel, "mma": the mma.sync kernel), chunks (64-column
+    chunks a tile), tiles (blocks of a launch), stages, shared memory (a
+    block's), row splits, launches and, a conv-GEMM, "column_pairs" (its
+    epilogue's columns a thread in pairs 64 apart); "launches": the device
+    operations of a call; "counts": ``kernels.product_counts`` of a
+    call}."""
     rows, c2, h2 = batch * t, c // 2, 2 * h
     products: typing.List[dict] = []
 
     def conv(name, c_in, n, lda, ldb=0, w_t=False, paired=False, k_taps=1, b_offset=0,
-             core=False):
-        chunks = 0 if core else bf16_conv_chunks(c_in, n, lda, ldb or n, w_t, paired, b_offset)
+             pairs=False):
+        chunks = bf16_conv_chunks(c_in, n, lda, ldb or n, w_t, paired, b_offset)
         n_tiles = (-(-(n // 2) // 64) if paired else -(-n // (64 * chunks))) if chunks else 0
         stages, smem = bf16_ring("conv_gemm", chunks) if chunks else (0, 0)
         products.append({
             "name": name, "kind": "conv_gemm", "shape": [rows, k_taps * c_in, n],
-            "unit": "core" if core else ("tma" if chunks else "mma"), "chunks": chunks,
+            "unit": "tma" if chunks else "mma", "chunks": chunks,
             "tiles": n_tiles * batch * -(-t // BF16_CONV_TILE), "stages": stages,
-            "smem": smem, "splits": 1, "launches": 1})
+            "smem": smem, "splits": 1, "launches": 1,
+            # the epilogue's columns: a thread's in pairs 64 apart (the
+            # transposed conv's f32 gx, on three chunks a tile) or neighbouring
+            "column_pairs": bool(pairs and chunks == 3)})
 
     def wgrad(name, c_in, n, lda, k_taps=1):
         chunks, splits = bf16_wgrad_plan(batch, t, c_in, k_taps, n, lda, sms)
@@ -703,7 +710,7 @@ def bf16_block_products(
 
     def forward(coupling):
         if c:
-            conv("zp", c, c, c, core=True)
+            conv("zp", c, c, c)
             conv("start", c2, h, c)
         for l in range(n_layers):
             conv(f"in_{l}", h, h2, h, paired=True, k_taps=taps)
@@ -728,7 +735,7 @@ def bf16_block_products(
             conv(f"gate_{l}", h2, h, h2, w_t=True)
             wgrad(f"dW_rs_{l}", h, h2, h)
             wgrad(f"dW_in_{l}", h, h2, h, k_taps=taps)
-            conv(f"transposed_{l}", h2, h, h2, w_t=True, k_taps=taps)
+            conv(f"transposed_{l}", h2, h, h2, w_t=True, k_taps=taps, pairs=True)
         if c:
             wgrad("dW_s", c2, h, c)
             conv("dzp", h, c2, h, w_t=True)
@@ -738,14 +745,12 @@ def bf16_block_products(
         # its skip half's tile sums from dout in one launch, gx zeroed (dg
         # in dW_in's reduction)
         fixed += 2
+    # core_gemm: a product on the CUDA cores (none: the folded A is on wgmma)
     counts = {"core_gemm": 0, "bf16_gemm": 0, "bf16_wgrad": 0, "bf16_tma_gemm": 0,
               "bf16_tma_wgrad": 0}
     for p in products:
-        if p["unit"] == "core":
-            counts["core_gemm"] += 1
-        else:
-            tma = "_tma" if p["unit"] == "tma" else ""
-            counts[f"bf16{tma}_{'gemm' if p['kind'] == 'conv_gemm' else 'wgrad'}"] += 1
+        tma = "_tma" if p["unit"] == "tma" else ""
+        counts[f"bf16{tma}_{'gemm' if p['kind'] == 'conv_gemm' else 'wgrad'}"] += 1
     return {"products": products, "launches": fixed + sum(p["launches"] for p in products),
             "counts": counts}
 

@@ -38,9 +38,21 @@ backward, transposed conv), against its byte floor (g_rs's copy, th and sg
 in; d_xin's copy and acts out, bf16) at 3.35 TB/s.
 
     python scripts/torch-decoder-rows-probe.py --bf16 [--batch 32] [--repo DIR]
+
+Each row's outputs (its first call's) are hashed (sha256 of every output
+tensor's bytes, in name order) and printed.  ``--save FILE`` writes them,
+with the forward-save rows' saves, to FILE; ``--against FILE`` (one tree's
+``--save``, taken in the same call) feeds the store rows (8, 12) that
+file's saves and holds every row's outputs to its: rows 5-8 and 12 bit for
+bit, rows 9-11 (whose forward holds the folded A) within 2e-2 of each
+output's max |ref|; a row that misses fails the script.
+
+    python scripts/torch-decoder-rows-probe.py --bf16 --repo PARENT --save P.pt
+    python scripts/torch-decoder-rows-probe.py --bf16 --against P.pt
 """
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -188,11 +200,73 @@ def gate_lines(folded16: dict, row8, batch: int, t: int, h: int, n_layers: int,
     return out
 
 
+# a row's outputs against another tree's on the same inputs where the folded
+# A's product moved (rows 9-11): the bf16 kernels' tolerance against their
+# plain versions, relative to each output's max |ref|
+AGAINST_RTOL = 2e-2
+# rows whose outputs do not go through the folded A: the same bits
+SAME_BITS_ROWS = ("5", "6", "7", "8", "12")
+
+
+def flat_outputs(out, prefix: str = "") -> dict:
+    """A row's outputs (a tensor, or tuples and dicts of them) -> {name:
+    tensor}, None entries left out."""
+    import torch
+
+    if isinstance(out, torch.Tensor):
+        return {prefix or "out": out.detach()}
+    items = (sorted(out.items()) if isinstance(out, dict)
+             else [(str(i), v) for i, v in enumerate(out)] if isinstance(out, (tuple, list))
+             else [])
+    flat = {}
+    for k, v in items:
+        if v is not None:
+            flat.update(flat_outputs(v, f"{prefix}/{k}" if prefix else str(k)))
+    return flat
+
+
+def digest(flat: dict) -> str:
+    """sha256 of a row's output names and bytes, in name order (16 hex digits)."""
+    import torch
+
+    h = hashlib.sha256()
+    for k in sorted(flat):
+        h.update(k.encode())
+        h.update(flat[k].contiguous().cpu().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def held_against(name: str, flat: dict, ref: dict) -> str:
+    """Row ``name``'s outputs against another tree's -> a verdict; raises
+    where a row misses (SAME_BITS_ROWS not bit for bit, the rest beyond
+    AGAINST_RTOL)."""
+    import torch
+
+    row = name.split()[0]
+    if sorted(flat) != sorted(ref):
+        raise RuntimeError(f"row {name}: outputs {sorted(flat)} against {sorted(ref)}")
+    same = all(torch.equal(flat[k].cpu(), ref[k]) for k in flat)
+    if row in SAME_BITS_ROWS:
+        if not same:
+            raise RuntimeError(f"row {name}: not the other tree's bits")
+        return "the same bits"
+    worst = 0.0
+    for k in flat:
+        r = ref[k].float()
+        err = (flat[k].cpu().float() - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
+        worst = max(worst, err)
+    if not worst <= AGAINST_RTOL:
+        raise RuntimeError(f"row {name}: {worst:.3e} of max |ref| from the other tree's")
+    return "the same bits" if same else f"within {worst:.2e} of max |ref|"
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--repo", type=Path, default=HERE, help="the checkout to measure")
     parser.add_argument("--bf16", action="store_true", help="the bf16 entry points")
     parser.add_argument("--batch", type=int, default=0, help="samples (default 16, bf16 32)")
+    parser.add_argument("--save", type=Path, help="write the rows' outputs and saves here")
+    parser.add_argument("--against", type=Path, help="hold the rows to this --save file")
     args = parser.parse_args()
     repo = args.repo.resolve()
     sys.path.insert(0, str(repo))
@@ -267,6 +341,10 @@ def main() -> int:
             scratch[name] = 4 * size(recompute)
     _, wsaves = wn_cuda.wn_fwd_save(wn, None, xw, mask, *wcfg)
     _, _, bsaves = block_cuda.block_fwd_save(folded, None, x, mask, *bcfg)
+    against = torch.load(args.against) if args.against else None
+    if against is not None:  # the store rows on the other tree's saves
+        wsaves = {k: v.cuda() for k, v in against["saves"]["wn"].items()}
+        bsaves = {k: v.cuda() for k, v in against["saves"]["block"].items()}
     rows = {
         "5 wn_forward": lambda: wn_cuda.wn_stack(wn, None, xw, mask, *wcfg),
         "6 wn_fwd_save": lambda: wn_cuda.wn_fwd_save(wn, None, xw, mask, *wcfg),
@@ -281,15 +359,30 @@ def main() -> int:
     }
     out = {"repo": str(repo), "gpu": gpu, "build_s": build_s, "bf16": args.bf16,
            "shapes": {"wn": [batch, t, h], "block": [batch, t, c]}}
+    saved = {}
     for name, fn in rows.items():
+        flat = {k: v.cpu() for k, v in flat_outputs(fn()).items()}
+        torch.cuda.synchronize()
+        saved[name] = flat
+        verdict = held_against(name, flat, against["outputs"][name]) if against else None
+        print(f"row {name}: outputs sha256 {digest(flat)}"
+              + (f"; against {args.against.name}: {verdict}" if verdict else ""))
         ms = event_ms(fn)
         dev_ms, ops = device_ms(fn)
-        out[name] = {"ms": ms, "device_ms": dev_ms, "device_operations": ops}
+        out[name] = {"ms": ms, "device_ms": dev_ms, "device_operations": ops,
+                     "outputs_sha256": digest(flat)}
+        if verdict:
+            out[name]["against"] = verdict
         if name in scratch:
             out[name]["scratch_bytes"] = scratch[name]
         print(f"row {name}{' bf16' if args.bf16 else ''}: {ms:.4f} ms (events), {dev_ms:.4f} ms "
               f"on the device, {ops:.0f} device operations a call"
               f"{f', scratch {scratch[name] / 1e6:.1f} MB' if name in scratch else ''} [{gpu}]")
+    if args.save:
+        args.save.parent.mkdir(parents=True, exist_ok=True)
+        torch.save({"saves": {"wn": {k: v.cpu() for k, v in wsaves.items()},
+                              "block": {k: v.cpu() for k, v in bsaves.items()}},
+                    "outputs": saved}, args.save)
     if args.bf16:
         out["gate_bwd"] = gate_lines(folded, rows["8 wn_bwd_store"], batch, t, h, L, gpu)
     else:

@@ -55,21 +55,24 @@ def _units(plan):
 @pytest.mark.parametrize("h", [192, 256])
 def test_every_product_takes_the_tma_units_at_shipped_widths(batch, h):
     """Base (h 192) and large (h 256) width, c 160, 4 WN layers, taps 5, at
-    [batch, 704]: the forward's 10 conv-GEMMs and the backward's 12 and 11
-    weight gradients on the TMA-fed kernels, the folded A's product on the
-    CUDA cores, nothing on the mma.sync kernels."""
+    [batch, 704]: the forward's 11 conv-GEMMs (the folded A's too) and the
+    backward's 12 and 11 weight gradients on the TMA-fed kernels, nothing
+    on the CUDA cores or the mma.sync kernels; the transposed convs'
+    epilogues in column pairs, no other product's."""
     fwd = tc_gemm.bf16_block_products(batch, 704, 160, h, 4, 5, 1, SMS)
     bwd = tc_gemm.bf16_block_products(batch, 704, 160, h, 4, 5, 1, SMS, backward=True)
-    assert fwd["counts"] == {"core_gemm": 1, "bf16_gemm": 0, "bf16_wgrad": 0,
-                             "bf16_tma_gemm": 10, "bf16_tma_wgrad": 0}
+    assert fwd["counts"] == {"core_gemm": 0, "bf16_gemm": 0, "bf16_wgrad": 0,
+                             "bf16_tma_gemm": 11, "bf16_tma_wgrad": 0}
     assert bwd["counts"] == {"core_gemm": 0, "bf16_gemm": 0, "bf16_wgrad": 0,
                              "bf16_tma_gemm": 12, "bf16_tma_wgrad": 11}
-    assert _units(fwd)["zp"] == "core"
-    assert all(u == "tma" for name, u in _units(fwd).items() if name != "zp")
+    assert all(u == "tma" for u in _units(fwd).values())
+    assert all(u == "tma" for u in _units(bwd).values())
+    assert all(p["column_pairs"] == p["name"].startswith("transposed_")
+               for p in fwd["products"] + bwd["products"] if p["kind"] == "conv_gemm")
     # the paired epilogues take one chunk of each half, the rest up to three
     chunks = {p["name"]: p["chunks"] for p in fwd["products"] + bwd["products"]}
     assert chunks["in_0"] == 2 and chunks["coupling"] == 2 and chunks["res_skip_0"] == 3
-    assert chunks["transposed_0"] == 3 and chunks["dzp"] == 2
+    assert chunks["transposed_0"] == 3 and chunks["dzp"] == 2 and chunks["zp"] == 3
     for p in bwd["products"]:
         if p["kind"] == "wgrad":  # one wave of one block an SM at most
             assert 1 <= p["tiles"] <= SMS, p
@@ -96,7 +99,7 @@ def test_narrow_widths_decline_to_mma(c, h):
     bwd = tc_gemm.bf16_block_products(4, 96, c, h, 2, 5, 1, SMS, backward=True)
     units = {**_units(fwd), **{"bwd " + k: v for k, v in _units(bwd).items()}}
     if c < 64:
-        assert set(units.values()) == {"core", "mma"}
+        assert set(units.values()) == {"mma"}
     else:
         assert units["start"] == "mma" and units["in_0"] == "mma"  # N = 2h = 96: c_in 48
         assert units["bwd dx"] == "tma" and units["bwd dA"] == "tma"  # c x c products
@@ -200,15 +203,23 @@ def _logs(raw, sigmoid_scale):
     return torch.log(1e-6 + torch.sigmoid(raw + 2.0)) if sigmoid_scale else raw
 
 
-def emulate_fwd(f, x, mask, taps, dilation_rate, sigmoid_scale, p, seed):
-    """The forward-save chain: -> z (bf16), ld (f32), saves (bf16)."""
+# a tensor-core accumulator's lean, relative, the worst measured on the
+# f32 folded A (PERF.md, PR 5): every output of the product alike
+TC_LEAN = 1e-7
+
+
+def emulate_fwd(f, x, mask, taps, dilation_rate, sigmoid_scale, p, seed, lean=0.0):
+    """The forward-save chain: -> z (bf16), ld (f32), saves (bf16).  The
+    folded A on wgmma as every other product; ``lean``: each of its
+    products times (1 - lean), before the bias and the bf16 rounding (a
+    tensor-core accumulator that rounds toward zero)."""
     f = {k: v.float() for k, v in f.items()}
     batch, t, c = x.shape
     c2, (n_layers, _, h2) = c // 2, f["W_in"].shape
     h = h2 // 2
     drop, _, scale = drop_args(p)
     seeds = seed + torch.arange(batch, dtype=torch.int64)
-    zp = _r((x.float() @ f["A"] + f["bA"]) * mask)  # on the CUDA cores
+    zp = _r((_prod(x.float(), f["A"]) * (1.0 - lean) + f["bA"]) * mask)
     xs = [_r((_prod(zp[..., :c2], f["W_s"]) + f["b_s"]) * mask)]
     th, sg, skip = [], [], 0.0
     for l in range(n_layers):
@@ -367,18 +378,19 @@ class _EmulatedBlock(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dz, dld):
         x, mask = ctx.saved_tensors
-        g = emulate_bwd(ctx.folded, x, mask, ctx.saves, dz, dld, *ctx.cfg)
+        g = emulate_bwd(ctx.folded, x, mask, ctx.saves, dz, dld, *ctx.cfg[:5])
         return (g["dx"], None, None,
                 *(g["d" + k].to(ctx.folded[k].dtype) for k in block_cuda.FOLD_KEYS))
 
 
-def test_emulated_chains_within_half_of_jax_gap(tmp_path):
-    """The emulation through ``fold_block_params`` (tiny config, no dropout)
-    against JAX ``flow_block_fused`` with x bf16 (interpret mode, store
-    residuals): z, ld and the gradients of x and of every raw block
-    parameter within half of JAX's own bf16-vs-f32 gap."""
+@pytest.fixture(scope="module")
+def jax_block(tmp_path_factory):
+    """JAX ``flow_block_fused`` (tiny config, no dropout, interpret mode,
+    store residuals) in bf16 and in f32 on one block of random weights: its
+    outputs and the gradients of x and of every raw block parameter, with
+    the inputs and cotangents that made them."""
     config = tiny_config()
-    jparams, tmodel, hp = _checkpoint(tmp_path, config)
+    jparams, tmodel, hp = _checkpoint(tmp_path_factory.mktemp("ckpt"), config)
     n_layers, h = hp.n_block_layers, hp.h_dec
     c = hp.out_channels * hp.n_sqz
     x, mask = _inputs(20, c, seed=5)
@@ -399,16 +411,44 @@ def test_emulated_chains_within_half_of_jax_gap(tmp_path):
             dld = rng.standard_normal(ld.shape).astype(np.float32)
         d_bp, d_x = vjp((jnp.asarray(dz, z.dtype), jnp.asarray(dld, ld.dtype)))
         res[dt] = {"z": z, "ld": ld, "x": d_x, **flatten(jax.tree_util.tree_map(np.asarray, d_bp))}
+    return {"res": res, "tmodel": tmodel, "hp": hp, "x": x, "mask": mask, "dz": dz, "dld": dld}
 
+
+def _emulated_gaps(jb, lean):
+    """The emulation through ``fold_block_params`` on ``jax_block``'s
+    inputs -> per output and raw parameter gradient, |port - JAX bf16| over
+    |JAX bf16 - JAX f32| (each held within half)."""
+    hp, res = jb["hp"], jb["res"]
     flat_t = {k: v.clone().requires_grad_(True)
-              for k, v in flatten(tree_index(tmodel.tree()["decoder"]["blocks"], 1)).items()}
-    xt = torch.from_numpy(x).to(BF16).requires_grad_(True)
-    folded = block_cuda.fold_block_params(unflatten(flat_t), n_layers, hp.n_split, BF16)
-    cfg = (hp.kernel_size_dec, hp.dilation_rate, hp.sigmoid_scale, 0.0, 0)
-    z_t, ld_t = _EmulatedBlock.apply(xt, torch.from_numpy(mask), cfg,
+              for k, v in flatten(tree_index(jb["tmodel"].tree()["decoder"]["blocks"], 1)).items()}
+    xt = torch.from_numpy(jb["x"]).to(BF16).requires_grad_(True)
+    folded = block_cuda.fold_block_params(unflatten(flat_t), hp.n_block_layers, hp.n_split, BF16)
+    cfg = (hp.kernel_size_dec, hp.dilation_rate, hp.sigmoid_scale, 0.0, 0, lean)
+    z_t, ld_t = _EmulatedBlock.apply(xt, torch.from_numpy(jb["mask"]), cfg,
                                      *(folded[k] for k in block_cuda.FOLD_KEYS))
     grads = torch.autograd.grad((z_t, ld_t), [*flat_t.values(), xt],
-                                (torch.from_numpy(dz).to(BF16), torch.from_numpy(dld)))
+                                (torch.from_numpy(jb["dz"]).to(BF16), torch.from_numpy(jb["dld"])))
     port = {"z": z_t, "ld": ld_t, "x": grads[-1], **dict(zip(flat_t, grads))}
-    assert max(held_to_gap(k, _np(port[k]), res[jnp.bfloat16][k], res[jnp.float32][k])
-               for k in port) < 0.5
+    return {k: held_to_gap(k, _np(port[k]), res[jnp.bfloat16][k], res[jnp.float32][k])
+            for k in port}
+
+
+def test_emulated_chains_within_half_of_jax_gap(jax_block):
+    """The emulation through ``fold_block_params`` (tiny config, no dropout)
+    against JAX ``flow_block_fused`` with x bf16 (interpret mode, store
+    residuals): z, ld and the gradients of x and of every raw block
+    parameter within half of JAX's own bf16-vs-f32 gap."""
+    assert max(_emulated_gaps(jax_block, 0.0).values()) < 0.5
+
+
+def test_emulated_chains_with_a_leaning_zp_within_half_of_jax_gap(jax_block):
+    """The check that lets the bf16 folded A onto wgmma: the emulation with
+    every zp product leaning low by a tensor-core accumulator's worst
+    measured amount (TC_LEAN, all outputs alike, before the bf16 rounding)
+    still within half of JAX's bf16-vs-f32 gap for z, ld, dx and every raw
+    block parameter's gradient, the ActNorm's ``logs`` and ``bias`` and the
+    InvConvNear's weight (the leaves the folded A carries) included."""
+    gaps = _emulated_gaps(jax_block, TC_LEAN)
+    carried = [k for k in gaps if k.startswith(("actnorm", "invconv"))]
+    assert {k.split("/")[-1] for k in carried} >= {"logs", "bias"}, sorted(gaps)
+    assert max(gaps.values()) < 0.5, gaps

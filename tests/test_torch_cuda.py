@@ -1661,7 +1661,7 @@ BF16 = torch.bfloat16
 BF16_PRODUCTS = {
     "prenet": (0, 0, 0, 4, 0), "prenet_bwd": (0, 0, 0, 8, 4), "duration_stack": (0, 0, 0, 2, 0),
     "duration_stack_bwd": (0, 0, 0, 4, 2), "encoder_layer": (0, 0, 0, 4, 0),
-    "encoder_layer_bwd": (0, 0, 0, 8, 4), "block_fwd_save": (0, 0, 1, 10, 0),
+    "encoder_layer_bwd": (0, 0, 0, 8, 4), "block_fwd_save": (0, 0, 0, 11, 0),
     "block_bwd_store": (0, 0, 0, 12, 11),
 }
 
@@ -1831,7 +1831,7 @@ def test_bf16_block_units_agree_and_repeat_bits(dev):
         counts = kernels.product_counts(reset=True)
         want = {k: plan[False][k] + plan[True][k] for k in plan[False]}
         if unit == "mma":
-            want = {"core_gemm": 1, "bf16_gemm": 22, "bf16_wgrad": 11, "bf16_tma_gemm": 0,
+            want = {"core_gemm": 0, "bf16_gemm": 23, "bf16_wgrad": 11, "bf16_tma_gemm": 0,
                     "bf16_tma_wgrad": 0}
         assert {k: counts[k] for k in want} == want, (unit, counts)
         runs[unit] = {"z": z, "ld": ld, **saves, **{k: v for k, v in grads.items() if v is not None}}
@@ -2665,3 +2665,52 @@ def test_two_ranks_on_one_card_over_gloo_match_one_process(dev, tmp_path):
                                    rtol=3e-4, atol=2e-6, err_msg=key)
     for k in (k for k in results[0] if k.startswith(("param/", "mu/", "nu/"))):
         np.testing.assert_array_equal(results[0][k], results[1][k], err_msg=k)
+
+
+def test_bf16_rows_8_and_9_at_the_shipped_batch(dev):
+    """bf16 rows 8 (``wn_bwd_store``: its transposed convs' epilogues in
+    column pairs) and 9 (``block_fwd``: the folded A on wgmma) at [32,
+    704], base width, dropout on, ragged lengths: every output within
+    BF16_RTOL of the plain bf16 version (row 8's gradients against the
+    autograd of ``wn_stack_plain_bf16``), the products as the plan says
+    (none on the CUDA cores), and 50 more calls the first call's bits."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    folded, _, _, taps = _bf16_block(dev)
+    lengths = torch.randint(200, 705, (32,), generator=torch.Generator().manual_seed(7))
+    lengths[0] = 704
+    mask = (torch.arange(704)[None, :] < lengths[:, None]).float()[..., None].to(dev)
+    x = (torch.randn(32, 704, 160, device=dev) * mask).to(BF16)
+    wn = tuple(folded[k] for k in ("W_in", "b_in", "W_rs", "b_rs"))
+    L, _, h2 = wn[0].shape
+    h = h2 // 2
+    xw = (torch.randn(32, 704, h, device=dev) * mask).to(BF16)
+    dout = torch.randn(xw.shape, device=dev).to(BF16)
+    wcfg, bcfg = (taps, 1, 0.05, 21), (taps, 1, False, 0.05, 21)
+    _, saves = wn_cuda.wn_fwd_save(wn, None, xw, mask, *wcfg)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = {
+        8: (lambda: wn_cuda.wn_bwd_store(wn[0], wn[2], False, mask, saves, dout, *wcfg),
+            tc_gemm.bf16_block_products(32, 704, 0, h, L, taps, 1, sms, backward=True)),
+        9: (lambda: block_cuda.block_fwd(folded, None, x, mask, *bcfg),
+            tc_gemm.bf16_block_products(32, 704, 160, h, L, taps, 1, sms, saves=False)),
+    }
+    first = {}
+    for row, (fn, plan) in rows.items():
+        first[row], products = _bf16_products(fn)
+        assert products == _plan_counts(plan) and plan["counts"]["core_gemm"] == 0, row
+    leaves = [v.detach().requires_grad_(True) for v in wn]
+    xl = xw.detach().requires_grad_(True)
+    ref = torch.autograd.grad(wn_cuda.wn_stack_plain_bf16(tuple(leaves), None, xl, mask, *wcfg),
+                              [xl, *leaves], dout)
+    for name, r in zip(["dx", "dW_in", "db_in", "dW_rs", "db_rs"], ref):
+        _bf16_held(f"row 8 {name}", first[8][name], r)
+    z_p, ld_p = block_cuda.block_forward_plain_bf16(folded, None, x, mask, *bcfg)
+    _bf16_held("row 9 z", first[9][0], z_p)
+    _bf16_held("row 9 ld", first[9][1], ld_p)
+    for _ in range(50):
+        grads = rows[8][0]()
+        assert all((v is None and first[8][k] is None) or torch.equal(v, first[8][k])
+                   for k, v in grads.items())
+        z, ld = rows[9][0]()
+        assert torch.equal(z, first[9][0]) and torch.equal(ld, first[9][1])
