@@ -852,7 +852,7 @@ __device__ __forceinline__ void ring_products(const R& r, int n_steps, bool a_on
 // columns apart, so that each f32 load or store of a warp spans 64
 // neighbouring columns (at [22,528, 5 x 384 -> 192] 72 us on the device
 // against 88 with neighbouring columns; the gate backward's and res/skip's
-// bf16 epilogues took 14 and 10 us longer so: PERF.md, PR 23).  Each
+// bf16 epilogues took 14 and 10 us longer so, PERF.md on an H100).  Each
 // column's rows add up in the same order either way: the same tile sums.
 template <int kWT, int kNB, bool kPairs = false>
 __global__ void __launch_bounds__(256, 2)

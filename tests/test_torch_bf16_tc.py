@@ -204,7 +204,7 @@ def _logs(raw, sigmoid_scale):
 
 
 # a tensor-core accumulator's lean, relative, the worst measured on the
-# f32 folded A (PERF.md, PR 5): every output of the product alike
+# f32 folded A (PERF.md): every output of the product alike
 TC_LEAN = 1e-7
 
 
