@@ -26,7 +26,10 @@ Phases, each fatal on failure:
    (the encoder layer's, the prenet's, the duration stack's) at [32, 192]
    (the latter by the text chains' plan: chunks a tile and split-K
    shares), each on the mma.sync kernel and on the
-   TMA-fed wgmma one, against float64, with device us and TFLOP/s;
+   TMA-fed wgmma one, against float64, with device us and TFLOP/s; and the
+   WN forward's in-layer conv and res/skip with their own epilogues on the
+   warp-specialised unit against the 64-row one, bit for bit, both timed
+   in turns (``product bf16 ws`` lines);
 2. writes a checkpoint at the full width of ``configs/base.json`` in the
    JAX package's ``.npz`` format, with random non-zero weights from a
    numpy seed (duration bias log 6: about 6 frames per phoneme);
@@ -119,7 +122,9 @@ Phases, each fatal on failure:
     (its products all on the bf16 kernels, every product of the flow
     block's (the 12 folded-A products too), the encoder layer's, the
     prenet's and the duration stack's chains on the TMA-fed wgmma ones,
-    none on the mma.sync ones or the CUDA cores); at init, the folded A's
+    the WN layers' forward products on the warp-specialised one and none
+    on the 64-row one, none on the mma.sync ones or the CUDA cores); at
+    init, the folded A's
     leaves' gradients on wgmma against the CUDA cores' within a tenth of
     the card's bf16-vs-f32 gap (``train bf16 folded A`` lines);
     each bf16 kernel against its plain bf16 version on the last step's
@@ -550,14 +555,15 @@ def bound(name: str, args, kwargs, outputs, fn=None) -> dict:
     }
 
 
-BF16_PRODUCT_KEYS = ("bf16_gemm", "bf16_wgrad", "bf16_tma_gemm", "bf16_tma_wgrad")
+BF16_PRODUCT_KEYS = ("bf16_gemm", "bf16_wgrad", "bf16_tma_gemm", "bf16_tma_wgrad", "bf16_ws_gemm")
 
 
 def bf16_bound(name: str, args, kwargs, outputs, fn) -> dict:
     """``bound`` of a bf16 kernel (``<name>_bf16``): its products run on the
     tensor cores in bf16 (the mma.sync kernels, ``bf16_gemm`` and
-    ``bf16_wgrad``, or the TMA-fed wgmma ones, ``bf16_tma_gemm`` and
-    ``bf16_tma_wgrad``), so the operations' time is at the dense BF16 peak;
+    ``bf16_wgrad``, or the TMA-fed wgmma ones, ``bf16_tma_gemm``,
+    ``bf16_tma_wgrad`` and ``bf16_ws_gemm``), so the operations' time is
+    at the dense BF16 peak;
     the bytes are its bf16 and f32 tensors as they are.  Its device time:
     one call's operations in a trace bracketed by spin kernels."""
     roof = bound(name[: -len("_bf16")], args, kwargs, outputs, fn)
@@ -2536,6 +2542,17 @@ BF16_WGRAD_PRODUCTS = (
     ("dW_e", 192, 1, 1, 160), ("dW_rs", 192, 1, 1, 384), ("dW_in_d1", 192, 5, 1, 384),
     ("dW_s", 80, 1, 1, 192), ("dA", 160, 1, 1, 160),
 )
+# a flow block's WN forward products on the warp-specialised unit in a bf16
+# step: the in-layer conv and res/skip of each of base.json's 4 layers
+BF16_WS_A_BLOCK = 8
+# the WN forward's two products alone with their own epilogues (bf16 rows 5
+# and 6, base width, dropout on, ragged lengths), on the 64-row unit and
+# the warp-specialised one: (name, kind, layer of 4, saves)
+BF16_WS_PRODUCTS = (
+    ("in_conv_saves", "gate", 0, True), ("in_conv", "gate", 0, False),
+    ("res_skip_first", "res_skip", 0, False), ("res_skip_middle", "res_skip", 1, False),
+    ("res_skip_last", "res_skip", 3, False),
+)
 # the text rows' bf16 products alone (base width) at the bf16 run's longest
 # text bucket, as the rows above, their conv-GEMMs by the text chains' plan
 # (split-K): the encoder layer's (bf16 rows 2 and 13), then the prenet's
@@ -2642,6 +2659,86 @@ def bf16_block_products(device_line: str, text: bool = False) -> list:
               f"{errs['mma']:.2e}, TMA {errs['tma']:.2e}; device us mma.sync "
               f"{row['device_us']['mma']:.1f}, TMA {row['device_us']['tma']:.1f} (turns {us}); "
               f"TFLOP/s mma.sync {row['tflops']['mma']:.1f}, TMA {row['tflops']['tma']:.1f} of "
+              f"{PEAK_BF16_FLOPS / 1e12:.0f} [{device_line}]")
+        rows.append(row)
+    return rows
+
+
+def bf16_ws_products(device_line: str) -> list:
+    """The WN forward's in-layer conv and res/skip alone with their own
+    epilogues (``tc_gemm.bf16_wn_product``: the gate with dropout, with and
+    without saves; res/skip of the first, a middle and the last of 4
+    layers, in place) at BF16_PRODUCT_ROWS, base width, ragged lengths, on
+    the 64-row TMA-fed unit and the warp-specialised one: each output the
+    64-row unit's bits, each product counted on its unit, then each one's
+    device time (a bracketed trace of 5 calls a product; 64-row,
+    warp-specialised, warp-specialised, 64-row) and TFLOP/s against the
+    dense BF16 peak (``product bf16 ws`` lines)."""
+    import torch
+
+    from glow_tts_train_tpu_torch import kernels
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(17)
+    batch, t = BF16_PRODUCT_ROWS
+    h, taps = 192, 5
+    lengths = torch.randint(200, t + 1, (batch,), generator=gen)
+    lengths[0] = t
+    mask = (torch.arange(t)[None, :] < lengths[:, None]).float()[..., None].to(dev)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    x = (r(batch, t, h) * mask).to(torch.bfloat16)
+    w_in = r(taps * h, 2 * h, scale=(taps * h) ** -0.5).to(torch.bfloat16)
+    w_rs = r(h, 2 * h, scale=h ** -0.5).to(torch.bfloat16)
+    b_in, b_rs, skip0 = r(2 * h, scale=0.1), r(2 * h, scale=0.1), r(batch, t, h)
+    cases = []
+    for name, kind, layer, saves in BF16_WS_PRODUCTS:
+        x_l, skip = x.clone(), skip0.clone()  # res/skip's state, updated in place
+        if kind == "gate":
+            run = (lambda u, saves=saves: tc_gemm.bf16_wn_product(
+                "gate", x, w_in, b_in, taps=taps, drop=(0.05, 1234, 0, 4), saves=saves, unit=u))
+            flops = 2.0 * batch * t * taps * h * 2 * h
+        else:
+            run = (lambda u, layer=layer, x_l=x_l, skip=skip: tc_gemm.bf16_wn_product(
+                "res_skip", x, w_rs, b_rs, x_l=x_l, skip=skip, mask=mask, layer=layer,
+                n_layers=4, skip_mask=True, unit=u, out=x_l))
+            flops = 2.0 * batch * t * h * (h if layer == 3 else 2 * h)
+        cases.append((name, kind, layer, run, flops, (x_l, skip)))
+    rows = []
+    for name, kind, layer, run, flops, (x_l, skip) in cases:
+        got = {}
+        for unit, key in (("tma", "bf16_tma_gemm"), ("ws", "bf16_ws_gemm")):
+            x_l.copy_(x)  # from the same x and skip sum on either unit
+            skip.copy_(skip0)
+            kernels.product_counts(reset=True)
+            out = run(unit)
+            torch.cuda.synchronize()
+            counts = kernels.product_counts(reset=True)
+            if counts.get(key) != 1 or sum(counts.get(k, 0) for k in BF16_PRODUCT_KEYS) != 1:
+                fail(f"product bf16 ws {name}: {unit} counts {counts}")
+            got[unit] = [None if o is None else o.clone() for o in out]
+        for i, (a, b) in enumerate(zip(got["ws"], got["tma"])):
+            if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+                fail(f"product bf16 ws {name}: output {i} differs from the 64-row unit's bits")
+    turns = {"tma": [], "ws": []}
+    for unit in ("tma", "ws", "ws", "tma"):
+        groups = bracketed_groups([lambda run=case[3]: run(unit) for case in cases], calls=5)
+        turns[unit].append([sum(op_us for _, op_us in ops) / 5 for ops in groups])
+    for i, (name, kind, layer, run, flops, _) in enumerate(cases):
+        us = {unit: [turn[i] for turn in got] for unit, got in turns.items()}
+        row = {"kernel": "bf16_ws", "name": name, "kind": kind, "layer": layer,
+               "shape": [batch * t, (taps if kind == "gate" else 1) * h,
+                         h if layer == 3 and kind == "res_skip" else 2 * h],
+               "equal_bits": True, "device_us": {u: min(v) for u, v in us.items()},
+               "device_us_turns": us}
+        row["tflops"] = {u: flops / (v * 1e-6) / 1e12 for u, v in row["device_us"].items()}
+        print(f"product bf16 ws {name} {row['shape']}: the 64-row unit's bits; device us "
+              f"64-row {row['device_us']['tma']:.1f}, warp-specialised "
+              f"{row['device_us']['ws']:.1f} (turns {us}); TFLOP/s 64-row "
+              f"{row['tflops']['tma']:.1f}, warp-specialised {row['tflops']['ws']:.1f} of "
               f"{PEAK_BF16_FLOPS / 1e12:.0f} [{device_line}]")
         rows.append(row)
     return rows
@@ -3048,8 +3145,10 @@ def profile_bf16_step(last: dict, device_line: str, n_blocks: int, n_layers: int
     the flow blocks' 11 + 12 conv-GEMMs and 11 weight gradients a block,
     the encoder layers' 4 + 8 and 4 a layer, the prenet's 4 + 8 and 4 and
     the duration stack's 2 + 4 and 2 on the TMA-fed wgmma kernels, none on
-    the mma.sync ones), wall, device busy, idle share, device operations,
-    top kernels."""
+    the mma.sync ones; of a block's, its WN layers' in-layer convs and
+    res/skip products, BF16_WS_A_BLOCK, on the warp-specialised unit and
+    none of them on the 64-row one), wall, device busy, idle share, device
+    operations, top kernels."""
     from glow_tts_train_tpu_torch import kernels
 
     def step():
@@ -3060,11 +3159,13 @@ def profile_bf16_step(last: dict, device_line: str, n_blocks: int, n_layers: int
     products = kernels.product_counts(reset=True)
     unexpected = {k: v for k, v in products.items()
                   if v and k not in BF16_PRODUCT_KEYS + ("core_gemm",)}
-    want = {"core_gemm": 0, "bf16_tma_gemm": 23 * n_blocks + 12 * n_layers + 12 + 6,
+    want = {"core_gemm": 0,
+            "bf16_tma_gemm": (23 - BF16_WS_A_BLOCK) * n_blocks + 12 * n_layers + 12 + 6,
             "bf16_tma_wgrad": 11 * n_blocks + 4 * n_layers + 4 + 2, "bf16_gemm": 0,
-            "bf16_wgrad": 0}
+            "bf16_wgrad": 0, "bf16_ws_gemm": BF16_WS_A_BLOCK * n_blocks}
     if unexpected or {k: products.get(k) for k in want} != want:
-        fail(f"train bf16 step: device products {products}, expected {want}")
+        fail(f"train bf16 step: device products {products}, expected {want} (no forward WN "
+             f"product on the 64-row unit)")
     wall_ms, by_kernel, launches = profiled(step)
     busy_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
@@ -5249,7 +5350,8 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
     from glow_tts_train_tpu_torch.ops import block_cuda, encoder_cuda, text_cuda
 
     products = (bare_products(device_line) + text_products(device_line)
-                + bf16_block_products(device_line) + bf16_block_products(device_line, text=True))
+                + bf16_block_products(device_line) + bf16_block_products(device_line, text=True)
+                + bf16_ws_products(device_line))
     ckpt, config, hp = make_checkpoint(workdir, config_path)
     stdin_text = requests()
 

@@ -13,7 +13,9 @@
 // wgrad_bf16_tma_kernel), for every bf16 chain (the flow block's, the text
 // encoder layer's, the prenet's and the duration stack's), which asks for
 // them (ConvGemm::tma_ring, WGrad::tma_ring) and gives every product bf16
-// operands (each the bf16 copy its writer rounds).
+// operands (each the bf16 copy its writer rounds); of their conv-GEMMs,
+// the WN forward's in-layer conv and res/skip take a warp-specialised
+// persistent kernel (conv_gemm_bf16_ws_kernel, below).
 // What bounds them: their operations at the dense BF16 peak (989 TFLOP/s)
 // against the L2 traffic of their tiles' operands and the epilogue's loads
 // and stores, which the K walk does not hide.  The design:
@@ -997,6 +999,312 @@ __global__ void conv_split_sum_bf16_kernel(const ConvGemm g, int splits) {
   epilogue_row_bf16<4>(g, (int)m, n0, acc, cs);
 }
 
+// The warp-specialised bf16 conv-GEMM (ws_plan: the WN forward's in-layer
+// conv, kGate, and res/skip, kResSkip, in a bf16 flow chain; it replaces
+// the products inside wn_pallas.py's _fwd_kernel and _fwd_save_kernel and
+// block_pallas.py's _block_fwd_kernel / _block_fwd_save_kernel WN layers).
+// The 64-row kernel above runs its epilogue on the warps that walk K, so an
+// SM's epilogue hides only under the other block's walk, and each block
+// fills its ring anew.  Here one block an SM runs a persistent loop over a
+// static order of work units (unit blockIdx.x, then every gridDim.x-th),
+// each kRows 64-row tiles (one sample's rows each: the next ones in row
+// order) by one column tile (a paired epilogue's one chunk of each half,
+// else kNB chunks from col0; ws_col_tile), and gives each role its own
+// warps:
+//  * warpgroups 0 .. kRows - 1 (MMA): a tile each, B shared from the stage
+//    (the in-layer conv's two row tiles read each weight box once: its
+//    walk is bound by its boxes' traffic from L2, PERF.md), K walked as
+//    conv_gemm_bf16_tma_kernel walks it (16-deep steps, tap outer,
+//    64-channel slice inner, one wgmma of the tile's width a step: the same
+//    sums, the same bits); then the accumulators into a buffer in shared
+//    memory, once the epilogue has emptied it, and straight on to the next
+//    unit's walk;
+//  * the next two warpgroups (epilogue): a unit's rows from its buffer,
+//    under the next unit's walk, each element's arithmetic that of
+//    epilogue_cols_bf16 (gate_values; res_skip_x, res_skip_sum), its
+//    operands and results in bf16 or f32 pairs of neighbouring columns
+//    (each warp access one span), res/skip's operands of all the thread's
+//    rows loaded before the accumulators are waited for;
+//  * the last warpgroup: one thread issues every unit's TMA copies into the
+//    ring, running ahead across units (no ring fill a tile).
+// Hand-offs by mbarrier: full / empty a stage (producer and MMA, as the
+// 64-row kernel's ring), acc_full / acc_empty a buffer (MMA and epilogue:
+// every thread arrives, so each arrival releases that thread's stores and
+// each wait acquires them).  kBufs accumulator buffers: res/skip two beside
+// a ring of three stages; the in-layer conv one (two tiles' rows) beside
+// four stages, the MMA warpgroups' registers holding the next unit
+// meanwhile.  An instance runs one epilogue (kEpi), so no other's code
+// costs it registers.  No atomics; the paired epilogues keep no column
+// sums, and neither does this unit.
+constexpr int kWsSmemMax = 232448;
+
+template <int kNB, int kRows, int kBufs>
+struct WsLayout {
+  static constexpr int kStageBytes = (kRows + kNB) * kRingChunk;
+  static constexpr int kStride = 64 * kNB + 8;  // floats an accumulator row
+  static constexpr int kBufBytes = 64 * kRows * kStride * 4;
+  static constexpr int kMma = 128 * kRows;
+  static constexpr int kEpilogue = 256;  // epilogue threads: two warpgroups
+  static constexpr int kThreads = kMma + kEpilogue + 128;
+  static constexpr int kLaunchRegs = 65536 / kThreads / 8 * 8;  // 128 or 96 a thread
+  static constexpr int kFixed = kBufs * kBufBytes + 8 * (2 * 8 + 2 * kBufs) + 1024;
+  static constexpr int kStages = (kWsSmemMax - kFixed) / kStageBytes < 8
+                                     ? (kWsSmemMax - kFixed) / kStageBytes : 8;
+  static constexpr int kSmem =
+      kStages * kStageBytes + kBufs * kBufBytes + 8 * (2 * kStages + 2 * kBufs) + 1024;
+  // registers a thread by role (setmaxnreg; each .inc waits for the
+  // registers the producer's .dec hands back, so the three must add up)
+  static constexpr int kProducerRegs = kRows == 1 ? 24 : 32;
+  static constexpr int kMmaRegs = kRows == 1 ? 152 : 104;
+  static constexpr int kEpilogueRegs = kRows == 1 ? 168 : 120;
+  static_assert(kProducerRegs * 128 + kMmaRegs * kMma + kEpilogueRegs * kEpilogue ==
+                    kLaunchRegs * kThreads,
+                "the roles' registers are the block's");
+  static_assert(kStages >= 3 && kSmem <= kWsSmemMax, "the ring within a block's shared memory");
+  uint32_t base;  // 1024-byte aligned
+  __device__ uint32_t a_chunk(int s, int i) const { return base + s * kStageBytes + i * kRingChunk; }
+  __device__ uint32_t b_chunk(int s, int j) const {
+    return base + s * kStageBytes + (kRows + j) * kRingChunk;
+  }
+  __device__ uint32_t buf(int b) const { return base + kStages * kStageBytes + b * kBufBytes; }
+  __device__ uint32_t bar(int i) const { return buf(kBufs) + 8 * i; }
+  __device__ uint32_t full(int s) const { return bar(s); }
+  __device__ uint32_t empty(int s) const { return bar(kStages + s); }
+  __device__ uint32_t acc_full(int b) const { return bar(2 * kStages + b); }
+  __device__ uint32_t acc_empty(int b) const { return bar(2 * kStages + kBufs + b); }
+};
+
+// Unit u's column tile: its row tiles are u / col_tiles, its column tile
+// turned by its round (u / gridDim.x) so that a block's units take the
+// column tiles in turn (res/skip's residual and skip halves differ in
+// cost); a bijection where gridDim.x is a multiple of col_tiles, as
+// launch_ws makes it.
+__device__ __forceinline__ int ws_col_tile(int u, int col_tiles) {
+  return (u % col_tiles + u / (int)gridDim.x) % col_tiles;
+}
+
+template <int kNB, int kRows, int kBufs, int kEpi>
+__global__ void __launch_bounds__(WsLayout<kNB, kRows, kBufs>::kThreads, 1)
+    conv_gemm_bf16_ws_kernel(const ConvGemm g, const __grid_constant__ CUtensorMap a_map,
+                             const __grid_constant__ CUtensorMap b_map, int col0) {
+  using L = WsLayout<kNB, kRows, kBufs>;
+  static_assert(kEpi == kGate || kEpi == kResSkip, "the WN forward's two epilogues");
+  constexpr int kStages = L::kStages;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const L l{(smem_addr(smem_raw) + 1023u) & ~1023u};
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(l.full(s), 1);
+      mbar_init(l.empty(s), L::kMma / 32);
+    }
+    for (int b = 0; b < kBufs; ++b) {
+      mbar_init(l.acc_full(b), L::kMma);
+      mbar_init(l.acc_empty(b), L::kEpilogue);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const bool pair = paired(g.epilogue);
+  const int tiles_t = (g.t + 63) / 64;
+  const int row_tiles = g.batch * tiles_t;
+  const int col_tiles =
+      pair ? (g.split + 63) / 64 : (g.n - col0 + 64 * kNB - 1) / (64 * kNB);
+  const int units = (row_tiles + kRows - 1) / kRows * col_tiles;
+  const int slices = (g.c_in + 63) / 64;
+  const int steps = g.taps * slices;
+
+  if (tid >= L::kMma + L::kEpilogue) {  // the producer warpgroup: one thread copies
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(L::kProducerRegs) : "memory");
+    if (tid == L::kMma + L::kEpilogue) {
+      int it = 0;  // the block's K steps so far, over its units
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int ru = u / col_tiles, ct = ws_col_tile(u, col_tiles);
+        const int n0 = col0 + ct * 64 * kNB;
+        int nb_on = kNB;  // chunks holding a column below n
+        if (!pair)
+          while (nb_on > 1 && n0 + 64 * (nb_on - 1) >= g.n) --nb_on;
+        const int rows_on = min(kRows, row_tiles - ru * kRows);
+        const uint32_t bytes = (rows_on + nb_on) * kRingChunk;
+        for (int s = 0; s < steps; ++s, ++it) {
+          const int tap = s / slices, c0 = (s - tap * slices) * 64;
+          const int st = it % kStages;
+          mbar_wait(l.empty(st), ((it / kStages) & 1) ^ 1);
+          mbar_expect_tx(l.full(st), bytes);
+          const int off = g.tap_sign * (tap - g.taps / 2) * g.dilation;
+          for (int i = 0; i < rows_on; ++i) {
+            const int rt = ru * kRows + i, b = rt / tiles_t;
+            tma_load_3d(l.a_chunk(st, i), &a_map, l.full(st), c0, (rt - b * tiles_t) * 64 + off, b);
+          }
+          for (int j = 0; j < nb_on; ++j) {
+            const int col = pair ? ct * 64 + j * g.split : n0 + 64 * j;
+            tma_load_3d(l.b_chunk(st, j), &b_map, l.full(st), col, tap * g.c_in + c0, 0);
+          }
+        }
+      }
+    }
+    return;
+  }
+  if (tid < L::kMma) {  // the MMA warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::kMmaRegs) : "memory");
+    const int wg = tid >> 7, lane = tid & 31;
+    const int frag_row = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+    const int col = 2 * (lane & 3);
+    // every MMA warp releases each stage, after a proxy fence that orders
+    // its reads before the producer's next copy into it
+    auto release = [&](int st) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) mbar_arrive(l.empty(st));
+    };
+    float acc[kNB][32];
+    int it = 0, k = 0;  // K steps and units so far
+    for (int u = blockIdx.x; u < units; u += gridDim.x, ++k) {
+      const bool a_on = (u / col_tiles) * kRows + wg < row_tiles;
+#pragma unroll
+      for (int j = 0; j < kNB; ++j)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+      for (int s = 0; s < steps; ++s, ++it) {
+        const int st = it % kStages;
+        mbar_wait(l.full(st), (it / kStages) & 1);
+        if (a_on) {
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) {
+            const uint64_t da = sw128_descriptor(l.a_chunk(st, wg) + ks * 32);
+            // B's 64-column chunks (MN-major) are kRingChunk apart
+            const uint64_t db = sw128_descriptor(l.b_chunk(st, 0) + ks * 2048, kRingChunk);
+            WgmmaBf16<kNB>::template run<0, 1>(acc, da, db);
+          }
+          wgmma_commit();
+        }
+        wgmma_wait<1>();
+        if (s > 0) release((it - 1) % kStages);
+      }
+      wgmma_wait<0>();
+      release((it - 1) % kStages);
+      const int b = k % kBufs;
+      mbar_wait(l.acc_empty(b), ((k / kBufs) & 1) ^ 1);
+      float* tile = reinterpret_cast<float*>(smem_raw + (l.buf(b) - smem_addr(smem_raw)));
+#pragma unroll
+      for (int j = 0; j < kNB; ++j)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float* at = tile + frag_row * L::kStride + 64 * j + 8 * i + col;
+          *reinterpret_cast<float2*>(at) = make_float2(acc[j][4 * i], acc[j][4 * i + 1]);
+          *reinterpret_cast<float2*>(at + 8 * L::kStride) =
+              make_float2(acc[j][4 * i + 2], acc[j][4 * i + 3]);
+        }
+      mbar_arrive(l.acc_full(b));
+    }
+    return;
+  }
+  // the epilogue warpgroups: a thread kW elements of the group q (32
+  // groups a row), in every kPhases-th row of the unit's 64 kRows from its
+  // phase
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::kEpilogueRegs) : "memory");
+  constexpr int kW = kNB == 3 ? 6 : 4;
+  constexpr int kGroups = 64 * kNB / kW;
+  constexpr int kPhases = L::kEpilogue / kGroups;
+  constexpr int kIters = 64 * kRows / kPhases;  // rows a thread a unit
+  const int et = tid - L::kMma;
+  const int q = et % kGroups, phase = et / kGroups;
+  int k = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++k) {
+    const int ru = u / col_tiles, ct = ws_col_tile(u, col_tiles);
+    const int j0 = ct * 64, n0 = col0 + ct * 64 * kNB;
+    const int b = k % kBufs;
+    if constexpr (kEpi == kResSkip) {
+      // res/skip: a thread kW / 2 column pairs kS apart (pair p at columns
+      // 2q + p kS, + 1: each load or store of a warp one span of
+      // neighbouring columns, each pair one 4- or 8-byte access); every
+      // operand of the thread's rows (its mask, x or the skip sum so far)
+      // loaded before the unit's accumulators are waited for, under the
+      // walk, all in flight together; then each row's tail
+      // (res_skip_pair_tail: res_skip_x and res_skip_sum, as
+      // epilogue_cols_bf16 computes them)
+      constexpr int kS = 64 * kNB / (kW / 2);
+      const int p0 = n0 + 2 * q;  // the thread's first column
+      int cnt = 0;
+#pragma unroll
+      for (int e = 0; e < kW; ++e) cnt += p0 + (e >> 1) * kS + (e & 1) < g.n;
+      float bias[kW], rm[kIters], in[kIters][kW];
+#pragma unroll
+      for (int e = 0; e < kW; ++e)
+        bias[e] = e < cnt ? bias_at(g, p0 + (e >> 1) * kS + (e & 1)) : 0.f;
+#pragma unroll
+      for (int i = 0; i < kIters; ++i) {
+        const int row = phase + i * kPhases;
+        const int rt = ru * kRows + row / 64, sb = rt / tiles_t;
+        const int tt = (rt - sb * tiles_t) * 64 + row % 64;
+        rm[i] = 0.f;
+        if (rt >= row_tiles || tt >= g.t) continue;
+        const long m = (long)sb * g.t + tt;
+        rm[i] = g.mask ? g.mask[m] : 1.f;
+        res_skip_pair_operands<kW, kS>(g, m, p0, cnt, in[i]);
+      }
+      mbar_wait(l.acc_full(b), (k / kBufs) & 1);
+      const float* tile =
+          reinterpret_cast<const float*>(smem_raw + (l.buf(b) - smem_addr(smem_raw)));
+#pragma unroll
+      for (int i = 0; i < kIters; ++i) {
+        const int row = phase + i * kPhases;
+        const int rt = ru * kRows + row / 64, sb = rt / tiles_t;
+        const int tt = (rt - sb * tiles_t) * 64 + row % 64;
+        if (rt >= row_tiles || tt >= g.t) continue;
+        float v[kW];
+#pragma unroll
+        for (int e = 0; e < kW; e += 2) {
+          const float2 f =
+              *reinterpret_cast<const float2*>(tile + row * L::kStride + 2 * q + (e >> 1) * kS);
+          v[e] = f.x;
+          v[e + 1] = f.y;
+        }
+        res_skip_pair_tail<kW, kS>(g, (long)sb * g.t + tt, rm[i], p0, cnt, v, bias, in[i]);
+      }
+      mbar_arrive(l.acc_empty(b));
+    } else {
+      // the in-layer conv: a thread the pairs (j, split + j) of columns j =
+      // j0 + 2q and + 1, their biases read once a unit, each output (acts
+      // and, saving, th and sg) stored as one bf16 pair; each pair's gates
+      // by gate_values, as epilogue_cols_bf16 computes them; two rows at a
+      // time (their chains independent)
+      const int j = j0 + 2 * q;
+      const float b_lo0 = bias_at(g, j), b_lo1 = bias_at(g, j + 1);
+      const float b_hi0 = bias_at(g, j + g.split), b_hi1 = bias_at(g, j + 1 + g.split);
+      mbar_wait(l.acc_full(b), (k / kBufs) & 1);
+      const float* tile =
+          reinterpret_cast<const float*>(smem_raw + (l.buf(b) - smem_addr(smem_raw)));
+#pragma unroll 2
+      for (int row = phase; row < 64 * kRows; row += kPhases) {
+        const int rt = ru * kRows + row / 64, sb = rt / tiles_t;
+        const int tt = (rt - sb * tiles_t) * 64 + row % 64;
+        if (rt >= row_tiles || tt >= g.t) continue;
+        const EpilogueRow r{sb * g.t + tt, sb, tt, 1.f};
+        const float2 u = *reinterpret_cast<const float2*>(tile + row * L::kStride + 2 * q);
+        const float2 v = *reinterpret_cast<const float2*>(tile + row * L::kStride + 64 + 2 * q);
+        float2 c_lo = make_float2(0.f, 0.f), c_hi = make_float2(0.f, 0.f);
+        if (g.aux) {  // the conditioning
+          const long gb = (long)sb * g.ld_aux;
+          c_lo = ld_pair16(g.aux, gb + j);
+          c_hi = ld_pair16(g.aux, gb + j + g.split);
+        }
+        float th0, sg0, th1, sg1;
+        gate_values(g, r, j, u.x + b_lo0, v.x + b_hi0, c_lo.x, c_hi.x, th0, sg0);
+        gate_values(g, r, j + 1, u.y + b_lo1, v.y + b_hi1, c_lo.y, c_hi.y, th1, sg1);
+        const long m = r.m;
+        st_pair16(g.out, m * g.ldo + j, th0 * sg0, th1 * sg1);
+        if (g.out2) {
+          st_pair16(g.out2, m * g.ldo2 + j, th0, th1);
+          st_pair16(g.out3, m * g.ldo3 + j, sg0, sg1);
+        }
+      }
+      mbar_arrive(l.acc_empty(b));
+    }
+  }
+}
+
 // The bf16 weight gradient fed by TMA (WGrad::tma_ring in a bf16 chain):
 // out[kk, n] = sum over rows of im2col(A)[row, kk] * dY[row, n], a block's
 // tile 128 im2col columns (64 a consumer warpgroup) by 64 kNB dY columns
@@ -1272,11 +1580,76 @@ cudaError_t launch_wgrad_tma(const WGrad& w, const TmaWgradPlan& p, float* dst, 
   return launch_wgrad_ring<1>(w, p.splits, dst, dst_bf16, stream);
 }
 
-}  // namespace
+// The warp-specialised unit's plan of a bf16 chain's conv-GEMM, by shape and
+// epilogue: its chunks a tile (0: not this unit), row tiles a unit,
+// accumulator buffers and first column.  The WN forward's products that the
+// 64-row kernel would take (tma_conv_chunks), with their bf16 operands, and
+// that keep no column sums: the in-layer conv two row tiles a unit (B's
+// boxes read once for both) and one buffer; res/skip one row tile and two
+// buffers, a last layer's (flag 0: its residual half discarded) only the
+// skip half, from split.
+struct WsPlan {
+  int chunks = 0, rows = 1, bufs = 2, col0 = 0;
+};
 
-cudaError_t conv_gemm_bf16(const ConvGemm& g, cudaStream_t stream) {
+WsPlan ws_plan(const ConvGemm& g) {
+  WsPlan p;
+  const unsigned b = g.bf16;
+  const bool gate = g.epilogue == kGate && has(b, kOut16) &&
+                    (!g.out2 || (has(b, kOut2_16) && has(b, kOut3_16))) &&
+                    (!g.aux || has(b, kAux16));
+  const bool res_skip = g.epilogue == kResSkip && has(b, kOut16) && has(b, kAux16) &&
+                        (!g.skip_mask || has(b, kOut3_16));
+  if (!(gate || res_skip) || g.part || g.w_t || g.sums.p || g.sums2.p) return p;
+  p.chunks = tma_conv_chunks(g);
+  if (gate) {
+    p.rows = 2;
+    p.bufs = 1;
+  } else if (!g.flag) {
+    p.col0 = g.split;
+  }
+  return p;
+}
+
+template <int kNB, int kRows, int kBufs, int kEpi>
+cudaError_t launch_ws(const ConvGemm& g, int col0, cudaStream_t stream) {
+  using L = WsLayout<kNB, kRows, kBufs>;
+  int sms = 0;
+  if (const int err = device_sms(&sms)) return (cudaError_t)err;
+  CUtensorMap a_map, b_map;
+  cudaError_t err = bf16_map(&a_map, g.a, g.c_in, g.t, g.batch, g.lda, 64);
+  if (err == cudaSuccess) err = bf16_map(&b_map, g.w, g.n, g.taps * g.c_in, 1, g.ldb ? g.ldb : g.n, 64);
+  if (err != cudaSuccess) return err;
+  const int row_units = (g.batch * ((g.t + 63) / 64) + kRows - 1) / kRows;
+  const int col_tiles = paired(g.epilogue) ? (g.split + 63) / 64
+                                           : (g.n - col0 + 64 * kNB - 1) / (64 * kNB);
+  const int units = row_units * col_tiles;
+  if (units <= 0) return cudaSuccess;
+  auto kernel = conv_gemm_bf16_ws_kernel<kNB, kRows, kBufs, kEpi>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+  if (err != cudaSuccess) return err;
+  // a whole number of column tiles' blocks (ws_col_tile)
+  kernel<<<std::min(units, std::max(1, sms / col_tiles) * col_tiles), L::kThreads, L::kSmem,
+           stream>>>(g, a_map, b_map, col0);
+  return cudaGetLastError();
+}
+
+// The instance of a plan: the in-layer conv's, res/skip's at 3 or 2 chunks
+// a tile.
+cudaError_t launch_ws_plan(const ConvGemm& g, const WsPlan& p, cudaStream_t stream) {
+  if (g.epilogue == kGate && p.rows == 2 && p.chunks == 2 && p.bufs == 1)
+    return launch_ws<2, 2, 1, kGate>(g, p.col0, stream);
+  if (g.epilogue == kResSkip && p.rows == 1 && p.bufs == 2) {
+    if (p.chunks == 3) return launch_ws<3, 1, 2, kResSkip>(g, p.col0, stream);
+    if (p.chunks == 2) return launch_ws<2, 1, 2, kResSkip>(g, p.col0, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// A bf16 conv-GEMM on the 64-row TMA-fed kernel (by tma_conv_plan) or the
+// mma.sync one.
+cudaError_t conv_gemm_bf16_ring(const ConvGemm& g, cudaStream_t stream) {
   const int rows = g.batch * g.t;
-  if (rows <= 0 || g.n <= 0) return cudaSuccess;
   int sms = 0;
   if (tma_plan_needs_sms(g)) {
     if (const int err = device_sms(&sms)) return (cudaError_t)err;
@@ -1299,6 +1672,34 @@ cudaError_t conv_gemm_bf16(const ConvGemm& g, cudaStream_t stream) {
   if (g.w_t) conv_gemm_bf16_kernel<true><<<grid, 128, 0, stream>>>(g);
   else conv_gemm_bf16_kernel<false><<<grid, 128, 0, stream>>>(g);
   return cudaGetLastError();
+}
+
+// One bf16 conv-GEMM on a given unit, for measurements and tests: 0 the
+// mma.sync kernel, 1 the 64-row TMA-fed one, 2 the warp-specialised one (an
+// error where the product does not fit the unit asked for).
+cudaError_t conv_gemm_bf16_on(const ConvGemm& g, int unit, cudaStream_t stream) {
+  ConvGemm h = g;
+  h.tma_ring = unit != 0;
+  if (unit == 2) {
+    const WsPlan p = ws_plan(h);
+    if (!p.chunks) return cudaErrorInvalidValue;
+    ++product_counts().bf16_ws_gemm;
+    return launch_ws_plan(h, p, stream);
+  }
+  if (unit == 1 && !tma_conv_chunks(h)) return cudaErrorInvalidValue;
+  return conv_gemm_bf16_ring(h, stream);
+}
+
+}  // namespace
+
+cudaError_t conv_gemm_bf16(const ConvGemm& g, cudaStream_t stream) {
+  if (g.batch * g.t <= 0 || g.n <= 0) return cudaSuccess;
+  const WsPlan ws = ws_plan(g);
+  if (ws.chunks) {
+    ++product_counts().bf16_ws_gemm;
+    return launch_ws_plan(g, ws, stream);
+  }
+  return conv_gemm_bf16_ring(g, stream);
 }
 
 cudaError_t wgrad_bf16(const WGrad& w, cudaStream_t stream) {
@@ -1367,8 +1768,8 @@ extern "C" int gtt_bf16_tma(int on) {
 
 // out [batch * t, n] f32 = im2col(a) @ B, a bf16 [batch * t, c_in], w bf16
 // [taps * c_in, n] (or w_t: [taps * n, c_in], B its per-tap transpose), on
-// the TMA-fed kernel (tma 1; an error where the shape does not fit) or the
-// mma.sync one (tma 0).  mask [batch * t] f32 or null: out's rows times it
+// the 64-row TMA-fed kernel (tma 1) or the mma.sync one (tma 0); an error
+// where the shape does not fit the unit.  mask [batch * t] f32 or null: out's rows times it
 // (kBiasMask).  sums [batch, ceil(t / 64), n] f32 or null: the column sums
 // of out per sample and 64-row tile, as a flow chain's cotangent epilogue
 // keeps them (ConvGemm::sums).
@@ -1382,9 +1783,41 @@ extern "C" int gtt_bf16_conv_product(const float* a, const float* w, float* out,
   g.epilogue = mask ? gtt::kBiasMask : gtt::kBias; g.out = out; g.ldo = n; g.mask = mask;
   g.sums = {sums, n};
   g.bf16 = gtt::kBf16 | gtt::kA16 | gtt::kW16;
-  g.tma_ring = tma;
-  if (tma && !gtt::tma_conv_chunks(g)) return (int)cudaErrorInvalidValue;
-  return (int)gtt::conv_gemm_bf16(g, stream);
+  return (int)gtt::conv_gemm_bf16_on(g, tma, stream);
+}
+
+// One layer's product of the bf16 WN forward (wn_layer_products) alone, on
+// `unit` (as gtt_bf16_conv_product's tma): h channels over batch * t rows.
+// kind 0, the in-layer conv: a = x bf16, w bf16 [taps * h, 2h], bias f32
+// [2h]; out = acts, out2 / out3 = th / sg (bf16, or null: no saves); aux the
+// conditioning bf16 [batch, 2h] or null; dropout of `site` of n_sites.
+// kind 1, res/skip: a = acts bf16, w bf16 [h, 2h], bias f32 [2h]; aux =
+// x_l bf16; out = the next x (bf16; may be x_l) where `flag` (not the last
+// layer); out2 = the skip sum f32 (written where skip_init, else added to);
+// with skip_mask out3 = its masked bf16 copy; mask [batch * t] f32.
+extern "C" int gtt_bf16_wn_product(const float* a, const float* w, const float* bias, float* out,
+                                   float* out2, float* out3, const float* aux, const float* mask,
+                                   int batch, int t, int h, int taps, int dilation, int kind,
+                                   int flag, int skip_init, int skip_mask, int drop_on,
+                                   int drop_seed, int n_sites, int site, unsigned threshold,
+                                   float scale, int unit, cudaStream_t stream) {
+  using namespace gtt;
+  ConvGemm g;
+  g.a = a; g.lda = h; g.c_in = h; g.batch = batch; g.t = t;
+  g.w = w; g.bias = bias; g.n = 2 * h; g.split = h;
+  g.out = out; g.ldo = h; g.out2 = out2; g.ldo2 = h; g.out3 = out3; g.ldo3 = h;
+  g.tma_ring = 1;
+  if (kind == 0) {
+    g.taps = taps; g.dilation = dilation; g.epilogue = kGate;
+    g.aux = aux; g.ld_aux = 2 * h;
+    g.drop = make_dropout(drop_on, drop_seed, n_sites, threshold, scale).at(site);
+    g.bf16 = kBf16 | kA16 | kW16 | kOut16 | kOut2_16 | kOut3_16 | kAux16;
+  } else {
+    g.epilogue = kResSkip; g.mask = mask; g.aux = aux; g.ld_aux = h;
+    g.flag = flag; g.skip_init = skip_init; g.skip_mask = skip_mask;
+    g.bf16 = kBf16 | kA16 | kW16 | kOut16 | kAux16 | kOut3_16;
+  }
+  return (int)conv_gemm_bf16_on(g, unit, stream);
 }
 
 // The same product by the text chains' plan (tma_conv_plan with split-K

@@ -450,8 +450,9 @@ cudaError_t wgrad_tc(const WGrad& w, int sms, cudaStream_t stream);
 // tensor-core ones, those in the WN reverse walk's modes: tap-staged
 // conv-GEMMs, weight gradients with a bias row, weight gradients reading
 // dY's K-major split; and those in the WN forward's: TMA-fed conv-GEMMs;
-// and the bf16 chains' products on the mma.sync kernels and on the TMA-fed
-// wgmma ones.
+// and the bf16 chains' products on the mma.sync kernels, on the TMA-fed
+// wgmma ones and, of their conv-GEMMs, on the warp-specialised unit (the
+// WN forward's in-layer conv and res/skip).
 struct ProductCounts {
   long long tc_gemm = 0, tc_wgrad = 0, core_gemm = 0, core_wgrad = 0;
   long long declined_gemm = 0, declined_wgrad = 0;
@@ -459,6 +460,7 @@ struct ProductCounts {
   long long tma_gemm = 0;
   long long bf16_gemm = 0, bf16_wgrad = 0;
   long long bf16_tma_gemm = 0, bf16_tma_wgrad = 0;
+  long long bf16_ws_gemm = 0;
 };
 ProductCounts& product_counts();
 

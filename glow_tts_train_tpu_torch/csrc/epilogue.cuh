@@ -274,6 +274,95 @@ __device__ __forceinline__ TileSums sum_slot(const ConvGemm& g, int s, int n, in
 // values as the epilogue computes them.
 __device__ __forceinline__ void add_sum(float& cs, float v) { cs = __fadd_rn(cs, v); }
 
+// kGate's gates of the pair (j, split + j) of row r from its
+// pre-activations lo, hi (acc + b): dropout, the conditioning (in_lo,
+// in_hi, where aux), then th = tanh, sg = sigmoid.
+__device__ __forceinline__ void gate_values(const ConvGemm& g, const EpilogueRow& r, int j,
+                                            float lo, float hi, float in_lo, float in_hi,
+                                            float& th, float& sg) {
+  lo = dropped(g, r, j, lo);
+  hi = dropped(g, r, j + g.split, hi);
+  if (g.aux) {
+    lo += in_lo;
+    hi += in_hi;
+  }
+  th = tanhf(lo);
+  sg = sigmoidf(hi);
+}
+
+// kResSkip's value of one element, rs = bf16(acc + b): the residual half's
+// next x, bf16(base + rs) * mask (its store rounds it), and the skip half's
+// sum (+= rs; rs where it starts the sum).
+__device__ __forceinline__ float res_skip_x(float base, float acc, float bias, float rm) {
+  return round_bf16(base + round_bf16(acc + bias)) * rm;
+}
+
+__device__ __forceinline__ float res_skip_sum(const ConvGemm& g, float so_far, float acc,
+                                              float bias) {
+  const float v = round_bf16(acc + bias);
+  return g.skip_init ? v : so_far + v;
+}
+
+// Elements i and i + 1 of a bf16 tensor (i even) as one 4-byte access.
+__device__ __forceinline__ float2 ld_pair16(const float* p, long i) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+      reinterpret_cast<const __nv_bfloat16*>(p) + i));
+}
+
+__device__ __forceinline__ void st_pair16(float* p, long i, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(p) + i) =
+      __floats2bfloat162_rn(a, b);
+}
+
+// kResSkip's operands and tail of one row's kW / 2 column pairs, pair p at
+// n0 + p kS and + 1 (cnt elements below n), each operand loaded and each
+// result stored as one pair (bf16x2 or float2): a bf16 chain's res/skip
+// (x and skipm bf16, the skip sum f32) on the warp-specialised unit.  in:
+// each element's base, the residual half's x (where the layer updates it)
+// or the skip half's sum so far (where it adds to it); the tail: the
+// residual half out = res_skip_x, the skip half out2 = res_skip_sum and,
+// with skip_mask, out3 = bf16(sum) * mask.
+template <int kW, int kS>
+__device__ __forceinline__ void res_skip_pair_operands(const ConvGemm& g, long m, int n0,
+                                                       int cnt, float (&in)[kW]) {
+#pragma unroll
+  for (int e = 0; e < kW; e += 2) {
+    if (e >= cnt) break;
+    const int n = n0 + (e >> 1) * kS;
+    float2 v = make_float2(0.f, 0.f);
+    if (n < g.split) {
+      if (g.flag) v = ld_pair16(g.aux ? g.aux : g.out, m * (g.aux ? g.ld_aux : g.ldo) + n);
+    } else if (!g.skip_init) {
+      v = *reinterpret_cast<const float2*>(g.out2 + m * g.ldo2 + n - g.split);
+    }
+    in[e] = v.x;
+    in[e + 1] = v.y;
+  }
+}
+
+template <int kW, int kS>
+__device__ __forceinline__ void res_skip_pair_tail(const ConvGemm& g, long m, float rm, int n0,
+                                                   int cnt, const float (&acc)[kW],
+                                                   const float (&bias)[kW],
+                                                   const float (&in)[kW]) {
+#pragma unroll
+  for (int e = 0; e < kW; e += 2) {
+    if (e >= cnt) break;
+    const int n = n0 + (e >> 1) * kS;
+    if (n < g.split) {
+      if (g.flag)
+        st_pair16(g.out, m * g.ldo + n, res_skip_x(in[e], acc[e], bias[e], rm),
+                  res_skip_x(in[e + 1], acc[e + 1], bias[e + 1], rm));
+    } else {
+      const float s0 = res_skip_sum(g, in[e], acc[e], bias[e]);
+      const float s1 = res_skip_sum(g, in[e + 1], acc[e + 1], bias[e + 1]);
+      *reinterpret_cast<float2*>(g.out2 + m * g.ldo2 + n - g.split) = make_float2(s0, s1);
+      if (g.skip_mask)
+        st_pair16(g.out3, m * g.ldo3 + n - g.split, round_bf16(s0) * rm, round_bf16(s1) * rm);
+    }
+  }
+}
+
 // Columns: kW / 2 pairs, pair p at n0 + p kS and n0 + p kS + 1 (kS 2:
 // kW neighbouring columns; the paired epilogues take only that); cs[s][e]
 // is element e's.
@@ -313,6 +402,8 @@ __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const Epil
           const long gb = (long)r.b * g.ld_aux;
           in_lo[p] = ld_act(g.aux, gb + j, aux16);
           in_hi[p] = ld_act(g.aux, gb + j + g.split, aux16);
+        } else {
+          in_lo[p] = in_hi[p] = 0.f;  // not read
         }
       }
 #pragma unroll
@@ -322,14 +413,8 @@ __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const Epil
         float lo = acc[2 * p] + b_lo[p];
         float hi = acc[2 * p + 1] + b_hi[p];
         if (g.epilogue == kGate) {
-          lo = dropped(g, r, j, lo);
-          hi = dropped(g, r, j + g.split, hi);
-          if (g.aux) {
-            lo += in_lo[p];
-            hi += in_hi[p];
-          }
-          const float th = tanhf(lo);
-          const float sg = sigmoidf(hi);
+          float th, sg;
+          gate_values(g, r, j, lo, hi, in_lo[p], in_hi[p], th, sg);
           st_act(g.out, ob + j, th * sg, out16);
           if (g.out2) {
             st_act(g.out2, m * g.ldo2 + j, th, out2_16);
@@ -361,11 +446,10 @@ __device__ __forceinline__ void epilogue_cols_bf16(const ConvGemm& g, const Epil
       for (int e = 0; e < kW; ++e) {
         if (e >= cnt) break;
         const int n = col(e);
-        const float v = round_bf16(acc[e] + bias[e]);
         if (n < g.split) {
-          if (g.flag) st_act(g.out, ob + n, round_bf16(in[e] + v) * rm, out16);
+          if (g.flag) st_act(g.out, ob + n, res_skip_x(in[e], acc[e], bias[e], rm), out16);
         } else {
-          const float sum = g.skip_init ? v : in[e] + v;
+          const float sum = res_skip_sum(g, in[e], acc[e], bias[e]);
           g.out2[m * g.ldo2 + n - g.split] = sum;
           if (g.skip_mask) st_act(g.out3, m * g.ldo3 + n - g.split, round_bf16(sum) * rm, out3_16);
         }

@@ -2082,7 +2082,7 @@ extern "C" void gtt_product_counts(long long* counts, int reset) {
   counts[3] = c.core_wgrad; counts[4] = c.declined_gemm; counts[5] = c.declined_wgrad;
   counts[6] = c.tap_staged_gemm; counts[7] = c.bias_wgrad; counts[8] = c.split_dy_wgrad;
   counts[9] = c.tma_gemm; counts[10] = c.bf16_gemm; counts[11] = c.bf16_wgrad;
-  counts[12] = c.bf16_tma_gemm; counts[13] = c.bf16_tma_wgrad;
+  counts[12] = c.bf16_tma_gemm; counts[13] = c.bf16_tma_wgrad; counts[14] = c.bf16_ws_gemm;
   if (reset) c = gtt::ProductCounts();
 }
 

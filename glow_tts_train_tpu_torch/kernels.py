@@ -248,6 +248,9 @@ BF16_CONV_PRODUCT = Entry("gtt_bf16_conv_product", "p" * 5 + "i" * 9)
 BF16_WGRAD_PRODUCT = Entry("gtt_bf16_wgrad_product", "p" * 9 + "L" + "i" * 8)
 # ... and a conv-GEMM by the text chains' plan (chunks a tile, split-K shares)
 BF16_TEXT_PRODUCT = Entry("gtt_bf16_text_product", "p" * 4 + "L" + "i" * 7)
+# ... and one layer's product of the bf16 WN forward with its own epilogue
+# (the in-layer conv's gate, res/skip's), on a given unit
+BF16_WN_PRODUCT = Entry("gtt_bf16_wn_product", "p" * 8 + "i" * 13 + "uf" + "i")
 # the bf16 encoder layer's attention core alone, forward and backward
 # (csrc/encoder.cu, csrc/encoder_train.cu), for the GPU tests
 BF16_ATTENTION = Entry("gtt_bf16_attention", "p" * 8 + "i" * 7 + "uf")
@@ -293,6 +296,7 @@ ENTRIES = {
     "bf16_conv_product": BF16_CONV_PRODUCT,
     "bf16_wgrad_product": BF16_WGRAD_PRODUCT,
     "bf16_text_product": BF16_TEXT_PRODUCT,
+    "bf16_wn_product": BF16_WN_PRODUCT,
     "bf16_attention": BF16_ATTENTION,
     "bf16_attention_bwd": BF16_ATTENTION_BWD,
 }
@@ -300,9 +304,9 @@ ENTRIES = {
 PRODUCT_COUNT_NAMES = (
     "tc_gemm", "tc_wgrad", "core_gemm", "core_wgrad", "declined_gemm", "declined_wgrad",
     "tap_staged_gemm", "bias_wgrad", "split_dy_wgrad", "tma_gemm", "bf16_gemm", "bf16_wgrad",
-    "bf16_tma_gemm", "bf16_tma_wgrad",
+    "bf16_tma_gemm", "bf16_tma_wgrad", "bf16_ws_gemm",
 )
-BF16_COUNT_NAMES = PRODUCT_COUNT_NAMES[-4:]
+BF16_COUNT_NAMES = PRODUCT_COUNT_NAMES[-5:]
 
 
 def product_counts(reset: bool = False) -> typing.Dict[str, int]:
@@ -315,11 +319,12 @@ def product_counts(reset: bool = False) -> typing.Dict[str, int]:
     gradients with a bias row (``bias_wgrad``) and reading dY's K-major
     split (``split_dy_wgrad``), and in the WN forward's: TMA-fed
     conv-GEMMs (``tma_gemm``); and the bf16 chains' tensor-core products
-    on the mma.sync kernels (``bf16_gemm``, ``bf16_wgrad``) and on the
-    TMA-fed wgmma ones (``bf16_tma_gemm``, ``bf16_tma_wgrad``; the flow
-    block's folded-A product kept on the CUDA cores by
-    :func:`bf16_core_zp` counts as ``core_gemm``),
-    these four keys only where a bf16 product ran (an f32 chain's counts
+    on the mma.sync kernels (``bf16_gemm``, ``bf16_wgrad``), on the
+    64-row TMA-fed wgmma ones (``bf16_tma_gemm``, ``bf16_tma_wgrad``) and
+    on the warp-specialised TMA-fed unit (``bf16_ws_gemm``: the WN
+    forward's in-layer conv and res/skip; the flow block's folded-A
+    product kept on the CUDA cores by :func:`bf16_core_zp` counts as
+    ``core_gemm``), these five keys only where a bf16 product ran (an f32 chain's counts
     keep the f32 chains' keys).  ``reset`` zeroes the counters after the
     read."""
     fn = library().gtt_product_counts

@@ -590,8 +590,79 @@ def bf16_conv_chunks(c_in: int, n: int, lda: int, ldb: int, w_t: bool, paired: b
 # kTmaMaxShares, kTmaMinSlices, kTmaSplitCols): shares, 64-deep slices a
 # share at least, partial sums a row over all shares
 TMA_MAX_SHARES, TMA_MIN_SLICES, TMA_SPLIT_COLS = 4, 2, 768
-# the bf16 product units a bare product may take (bf16_conv_product)
-BF16_UNITS = ("mma", "tma", "text")
+# the bf16 product units a bare product may take: the mma.sync kernel, the
+# 64-row TMA-fed one, the text chains' plan on it (bf16_conv_product), the
+# warp-specialised one (the WN forward's epilogues: bf16_wn_product)
+BF16_UNITS = ("mma", "tma", "text", "ws")
+_BF16_UNIT_CODE = {"mma": 0, "tma": 1, "ws": 2}
+
+# the warp-specialised unit (csrc/bf16_gemm.cu WsLayout): a block's shared
+# memory, at most 8 ring stages
+WS_SMEM_MAX, WS_MAX_STAGES = 232448, 8
+
+
+def bf16_ws_layout(chunks: int, rows: int, bufs: int) -> typing.Dict[str, int]:
+    """``WsLayout`` of the warp-specialised bf16 conv-GEMM whose units are
+    ``rows`` 64-row tiles by ``chunks`` 64-column chunks with ``bufs``
+    accumulator buffers: a stage (the rows' A boxes and B's chunks), an
+    accumulator buffer (f32 rows of 64 chunks + 8), the ring's stages (as
+    many as fit, at most 8), the block's shared memory and threads."""
+    stage = (rows + chunks) * BF16_CHUNK_BYTES
+    buf = 64 * rows * (64 * chunks + 8) * 4
+    fixed = bufs * buf + 8 * (2 * WS_MAX_STAGES + 2 * bufs) + 1024
+    stages = min(WS_MAX_STAGES, (WS_SMEM_MAX - fixed) // stage)
+    return {"stage_bytes": stage, "buf_bytes": buf, "stages": stages,
+            "smem": stages * stage + bufs * buf + 8 * (2 * stages + 2 * bufs) + 1024,
+            "threads": 128 * rows + 256 + 128}
+
+
+def bf16_ws_plan(batch: int, t: int, c_in: int, n: int, sms: int, gate: bool,
+                 last: bool = False, taps: int = 1) -> typing.Dict[str, typing.Any]:
+    """``ws_plan`` and the launch of a bf16 flow chain's WN forward product
+    on the warp-specialised unit (csrc/bf16_gemm.cu): the in-layer conv
+    (``gate``: the paired epilogue over ``n`` = 2h columns) or res/skip
+    (``last``: only the skip half, from column n / 2) -> {"chunks" (0: the
+    64-row unit's shape rules refuse it, :func:`bf16_conv_chunks`), "rows"
+    (64-row tiles a unit: two for the gate, B read once for both),
+    "bufs" (accumulator buffers), "col0", "n" (the columns computed),
+    "col_tiles", "units", "blocks" (one an SM at most, a whole number of
+    column tiles' blocks), the layout's "stages" and "smem", and "steps"
+    (K steps a unit)}."""
+    chunks = bf16_conv_chunks(c_in, n, c_in, n, False, gate)
+    plan: typing.Dict[str, typing.Any] = {"chunks": chunks}
+    if not chunks:
+        return plan
+    rows, bufs = (2, 1) if gate else (1, 2)
+    col0 = n // 2 if last and not gate else 0
+    col_tiles = -(-(n // 2) // 64) if gate else -(-(n - col0) // (64 * chunks))
+    row_tiles = batch * -(-t // BF16_CONV_TILE)
+    units = -(-row_tiles // rows) * col_tiles
+    layout = bf16_ws_layout(chunks, rows, bufs)
+    plan.update(rows=rows, bufs=bufs, col0=col0, n=n - col0, col_tiles=col_tiles, units=units,
+                blocks=min(units, max(1, sms // col_tiles) * col_tiles),
+                stages=layout["stages"], smem=layout["smem"],
+                threads=layout["threads"], steps=taps * -(-c_in // 64))
+    return plan
+
+
+def bf16_ws_order(batch: int, t: int, plan: typing.Dict[str, typing.Any]) -> typing.List[list]:
+    """The warp-specialised unit's static order: per block (``plan``'s
+    "blocks"), its units in order (unit ``b``, then every blocks-th), each
+    as its row tiles [(sample, first row)] and its column tile (the
+    kernels' loops over ``blockIdx.x + i * gridDim.x``; ``ws_col_tile``:
+    the column tile turned by the unit's round)."""
+    tiles_t = -(-t // BF16_CONV_TILE)
+    row_tiles, rows, col_tiles = batch * tiles_t, plan["rows"], plan["col_tiles"]
+    order = []
+    for blk in range(plan["blocks"]):
+        units = []
+        for u in range(blk, plan["units"], plan["blocks"]):
+            ru, ct = u // col_tiles, (u % col_tiles + u // plan["blocks"]) % col_tiles
+            tiles = [(rt // tiles_t, (rt % tiles_t) * BF16_CONV_TILE)
+                     for rt in range(ru * rows, min(row_tiles, (ru + 1) * rows))]
+            units.append((tiles, ct))
+        order.append(units)
+    return order
 
 
 def bf16_text_conv_plan(batch: int, t: int, c_in: int, taps: int, n: int, sms: int,
@@ -667,19 +738,38 @@ def bf16_block_products(
     each weight gradient two launches (the product; one reduction of its
     row splits, its bias's tile sums and, for dW_in, the conditioning's,
     so ``with_g`` adds none).
-    Every product asks for the TMA-fed kernel, the folded A (zp) too, as
+    Every product asks for the TMA-fed kernels, the folded A (zp) too, as
     JAX rounds zp to bf16 right after it (the f32 chains keep it on the
-    CUDA cores: :func:`forward_products`).
+    CUDA cores: :func:`forward_products`); the WN forward's in-layer conv
+    and res/skip take the warp-specialised unit (:func:`bf16_ws_plan`; a
+    last layer's res/skip only its skip half, N = h), the rest the 64-row
+    one.
     -> {"products": per product its name, kind ("conv_gemm"/"wgrad"), shape
     ([rows, K, N]; a weight gradient's [K, rows, N]), unit ("tma": the
-    TMA-fed wgmma kernel, "mma": the mma.sync kernel), chunks (64-column
-    chunks a tile), tiles (blocks of a launch), stages, shared memory (a
-    block's), row splits, launches and, a conv-GEMM, "column_pairs" (its
-    epilogue's columns a thread in pairs 64 apart); "launches": the device
-    operations of a call; "counts": ``kernels.product_counts`` of a
-    call}."""
+    64-row TMA-fed wgmma kernel, "ws": the warp-specialised one, "mma": the
+    mma.sync kernel), chunks (64-column chunks a tile), tiles (blocks of a
+    launch), stages, shared memory (a block's), row splits, launches and,
+    a conv-GEMM, "column_pairs" (its epilogue's columns a thread in pairs
+    64 apart); on "ws" also its row tiles a unit, accumulator buffers,
+    first column and units; "launches": the device operations of a call;
+    "counts": ``kernels.product_counts`` of a call}."""
     rows, c2, h2 = batch * t, c // 2, 2 * h
     products: typing.List[dict] = []
+
+    def ws_conv(name, n, gate, last=False):
+        """An in-layer conv (``gate``) or res/skip product on the
+        warp-specialised unit where the 64-row unit's shape rules take it."""
+        plan = bf16_ws_plan(batch, t, h, n, sms, gate, last, taps if gate else 1)
+        if not plan["chunks"]:
+            conv(name, h, n, h, paired=gate, k_taps=taps if gate else 1)
+            return
+        products.append({
+            "name": name, "kind": "conv_gemm", "shape": [rows, (taps if gate else 1) * h,
+                                                         plan["n"]],
+            "unit": "ws", "chunks": plan["chunks"], "tiles": plan["blocks"],
+            "rows": plan["rows"], "bufs": plan["bufs"], "col0": plan["col0"],
+            "units": plan["units"], "stages": plan["stages"], "smem": plan["smem"],
+            "splits": 1, "launches": 1, "column_pairs": False})
 
     def conv(name, c_in, n, lda, ldb=0, w_t=False, paired=False, k_taps=1, b_offset=0,
              pairs=False):
@@ -713,8 +803,8 @@ def bf16_block_products(
             conv("zp", c, c, c)
             conv("start", c2, h, c)
         for l in range(n_layers):
-            conv(f"in_{l}", h, h2, h, paired=True, k_taps=taps)
-            conv(f"res_skip_{l}", h, h2, h)
+            ws_conv(f"in_{l}", h2, True)
+            ws_conv(f"res_skip_{l}", h2, False, last=l == n_layers - 1)
         if c and coupling:
             conv("coupling", h, c, h, paired=True)
 
@@ -747,10 +837,10 @@ def bf16_block_products(
         fixed += 2
     # core_gemm: a product on the CUDA cores (none: the folded A is on wgmma)
     counts = {"core_gemm": 0, "bf16_gemm": 0, "bf16_wgrad": 0, "bf16_tma_gemm": 0,
-              "bf16_tma_wgrad": 0}
+              "bf16_tma_wgrad": 0, "bf16_ws_gemm": 0}
     for p in products:
-        tma = "_tma" if p["unit"] == "tma" else ""
-        counts[f"bf16{tma}_{'gemm' if p['kind'] == 'conv_gemm' else 'wgrad'}"] += 1
+        unit = {"tma": "_tma", "ws": "_ws"}.get(p["unit"], "")
+        counts[f"bf16{unit}_{'gemm' if p['kind'] == 'conv_gemm' else 'wgrad'}"] += 1
     return {"products": products, "launches": fixed + sum(p["launches"] for p in products),
             "counts": counts}
 
@@ -942,8 +1032,9 @@ def bf16_conv_product(
 ):
     """a [b, t, c] bf16, w bf16 [taps * c, n] (or with ``w_t`` a forward
     conv's [taps * n, c], B its per-tap transpose) -> im2col(a) @ B [b, t,
-    n] f32 by one bf16 product on ``unit``: "tma" the TMA-fed wgmma kernel
-    over the whole K walk a block (an error where the shape does not fit),
+    n] f32 by one bf16 product on ``unit``: "tma" the 64-row TMA-fed wgmma
+    kernel over the whole K walk a block (an error where the shape does not
+    fit),
     "text" the same kernel by the text chains' plan (:func:`bf16_text_conv_plan`:
     chunks a tile and split-K shares, added in split order by the
     epilogue's pass; dilation 1), "mma" the mma.sync one.  ``mask`` [b, t,
@@ -958,6 +1049,9 @@ def bf16_conv_product(
         return (out, tile_sums_plain(out.reshape(-1, out.shape[-1]), *a.shape[:2])) if sums else out
     if unit not in BF16_UNITS:
         raise ValueError(f"unit {unit!r}: one of {BF16_UNITS}")
+    if unit == "ws":
+        raise ValueError("the warp-specialised unit takes the WN forward's epilogues alone "
+                         "(bf16_wn_product)")
     batch, t, c = a.shape
     kernels.check_operands(a.device, ("a", "w"), a=a, w=w, mask=mask)
     n = w.shape[0] // taps if w_t else w.shape[1]
@@ -977,8 +1071,113 @@ def bf16_conv_product(
     tile_sums = (torch.empty((batch, -(-t // BF16_SUM_TILE), n), dtype=torch.float32,
                              device=a.device) if sums else None)
     kernels.BF16_CONV_PRODUCT(a, w, out, mask, tile_sums, batch, t, c, taps, dilation, tap_sign,
-                              n, int(w_t), int(unit == "tma"))
+                              n, int(w_t), _BF16_UNIT_CODE[unit])
     return (out, tile_sums) if sums else out
+
+
+def bf16_wn_product_plain(kind, a, w, bias, taps=1, dilation=1, drop=None, saves=False, g=None,
+                          x_l=None, skip=None, mask=None, layer=0, n_layers=1, skip_mask=False,
+                          out=None):
+    """Plain version of :func:`bf16_wn_product` (``skip`` updated in place
+    as the kernel updates it; ``out`` written where given)."""
+    from . import bf16, wn_cuda
+
+    batch, t, h = a.shape
+    acc = bf16_conv_product_plain(a, w, taps, dilation) + bias
+    if kind == "gate":
+        if drop is not None and drop[0] > 0.0:
+            p, seed, site, n_sites = drop
+            seeds = seed + torch.arange(batch, dtype=torch.int64)
+            keep = wn_cuda.regen_keep(seeds, site, n_sites, (t, 2 * h), p, a.device)
+            acc = acc * keep * wn_cuda.drop_args(p)[2]
+        if g is not None:
+            acc = acc + g.float()[:, None, :]
+        th, sg = torch.tanh(acc[..., :h]), torch.sigmoid(acc[..., h:])
+        acts = (th * sg).to(bf16.BF16)
+        return (acts, th.to(bf16.BF16), sg.to(bf16.BF16)) if saves else (acts,)
+    rs = acc.to(bf16.BF16).float()
+    last = layer == n_layers - 1
+    x_next = None
+    if not last:
+        x_next = ((x_l.float() + rs[..., :h]).to(bf16.BF16).float() * mask).to(bf16.BF16)
+        if out is not None:
+            out.copy_(x_next)
+            x_next = out
+    total = rs[..., h:] if layer == 0 else skip + rs[..., h:]
+    skip.copy_(total)
+    skipm = ((total.to(bf16.BF16).float() * mask).to(bf16.BF16)
+             if last and skip_mask else None)
+    return x_next, skip, skipm
+
+
+def bf16_wn_product(
+    kind: str, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, taps: int = 1,
+    dilation: int = 1, drop: typing.Optional[tuple] = None, saves: bool = False,
+    g: typing.Optional[torch.Tensor] = None, x_l: typing.Optional[torch.Tensor] = None,
+    skip: typing.Optional[torch.Tensor] = None, mask: typing.Optional[torch.Tensor] = None,
+    layer: int = 0, n_layers: int = 1, skip_mask: bool = False, unit: str = "ws",
+    out: typing.Optional[torch.Tensor] = None,
+):
+    """One layer's product of the bf16 WN forward with its own epilogue
+    (``wn_layer_products`` in csrc/common.cu), alone on ``unit`` ("ws",
+    "tma" or "mma", as :func:`bf16_conv_product`), h channels:
+
+    * ``kind`` "gate", the in-layer conv: ``a`` x [b, t, h] bf16, ``w``
+      [taps * h, 2h] bf16, ``bias`` [2h] f32; ``drop`` (p, seed, site,
+      n_sites) or None; ``g`` [b, 2h] bf16 or None -> (acts,) or, with
+      ``saves``, (acts, th, sg), each [b, t, h] bf16.
+    * "res_skip": ``a`` acts [b, t, h] bf16, ``w`` [h, 2h] bf16, ``bias``
+      [2h] f32, ``x_l`` [b, t, h] bf16, ``skip`` [b, t, h] f32 (written at
+      ``layer`` 0, else added to, in place), ``mask`` [b, t, 1] f32 ->
+      (the next x, bf16, into ``out`` where given (it may be ``x_l``), None
+      at the last layer of ``n_layers``; skip; with ``skip_mask`` at the
+      last layer its masked bf16 copy, else None).
+
+    CPU tensors take the plain version."""
+    if kind not in ("gate", "res_skip"):
+        raise ValueError(f"kind {kind!r}: 'gate' or 'res_skip'")
+    if kernels.route(a) == "plain":
+        return bf16_wn_product_plain(kind, a, w, bias, taps, dilation, drop, saves, g, x_l, skip,
+                                     mask, layer, n_layers, skip_mask, out)
+    if unit not in _BF16_UNIT_CODE:
+        raise ValueError(f"unit {unit!r}: one of {tuple(_BF16_UNIT_CODE)}")
+    batch, t, h = a.shape
+    gate = kind == "gate"
+    kernels.check_operands(a.device, ("a", "w", "g", "x_l", "out"), a=a, w=w, bias=bias, g=g,
+                           x_l=x_l, skip=skip, mask=mask, out=out)
+    kernels.check_shape("w", w, ((taps if gate else 1) * h, 2 * h))
+    kernels.check_shape("bias", bias, (2 * h,))
+    bf = torch.bfloat16
+
+    def empty():
+        return torch.empty((batch, t, h), dtype=bf, device=a.device)
+
+    if gate:
+        acts = empty()
+        th, sg = (empty(), empty()) if saves else (None, None)
+        from . import wn_cuda
+
+        p, seed, site, n_sites = drop if drop is not None else (0.0, 0, 0, 1)
+        on, threshold, scale = wn_cuda.drop_args(p)
+        if g is not None:
+            kernels.check_shape("g", g, (batch, 2 * h))
+        kernels.BF16_WN_PRODUCT(a, w, bias, acts, th, sg, g, None, batch, t, h, taps, dilation,
+                                0, 0, 0, 0, on, seed, n_sites, site, threshold, scale,
+                                _BF16_UNIT_CODE[unit])
+        return (acts, th, sg) if saves else (acts,)
+    for name, v in (("x_l", x_l), ("skip", skip)):
+        if v is None:
+            raise ValueError(f"res_skip needs {name}")
+        kernels.check_shape(name, v, (batch, t, h))
+    kernels.check_shape("mask", mask, (batch, t, 1))
+    last = layer == n_layers - 1
+    x_next = None if last else (empty() if out is None else out)
+    skipm = empty() if last and skip_mask else None
+    kernels.BF16_WN_PRODUCT(a, w, bias, x_next, skip, skipm, x_l, mask, batch, t, h, 1, 1, 1,
+                            int(not last), int(layer == 0), int(last and skip_mask), 0, 0, 1, 0,
+                            0, 1.0, _BF16_UNIT_CODE[unit])
+    return x_next, skip, skipm
+
 
 
 def bf16_weight_gradient_plain(a, dy, taps=1, dilation=1) -> torch.Tensor:

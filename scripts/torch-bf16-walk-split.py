@@ -4,19 +4,32 @@ on one GPU, as one JSON object.
 
     python scripts/torch-bf16-walk-split.py [--batch 32] [--repo DIR]
 
-Base width (``configs/base.json``: h 192, 4 WN layers, dilations 1/2/4/8,
-5 taps), block 0 of random non-zero weights, [``--batch``, 704], dropout
-0.05, ragged lengths, every operand bf16 as ``fp16_run`` gives them:
+Base width (``configs/base.json``: h 192, 4 WN layers, 5 taps, the
+dilations ``hp.dilation_rate`` gives: 1 as shipped), block 0 of random
+non-zero weights, [``--batch``, 704], dropout 0.05, ragged lengths, every
+operand bf16 as ``fp16_run`` gives them:
 
-* ``chain``: one call of ``wn_bwd_store`` (bf16 row 8) and of ``block_fwd``
-  (bf16 row 9), each from a trace of 3 calls between spin kernels: every
-  device operation of a call in launch order with its device us, and the
-  sums by kind (the walk: gate backward, transposed conv, dW_rs, dW_in,
-  their reductions, the cotangent launch and the fill; the forward: the
-  folded A, the start conv, in-layer convs, res/skip products, the
-  coupling, the rest).
+* ``chain``: one call of ``wn_bwd_store`` (bf16 row 8), of ``block_fwd``
+  (bf16 row 9) and of ``wn_fwd_save`` (bf16 row 6), each from a trace of 3
+  calls between spin kernels: every device operation of a call in launch
+  order with its device us, and the sums by kind (the walk: gate backward,
+  transposed conv, dW_rs, dW_in, their reductions, the cotangent launch
+  and the fill; the forward: the folded A, the start conv, in-layer convs,
+  res/skip products, the coupling, the rest).
+* ``switches`` (``--switches``, a build whose library exports
+  ``gtt_epilogue_switch``: a measurement build, not the repository's
+  sources): row 6's chain again with parts of the WN forward's epilogues
+  taken out, one bit each (1 the dropout hash, 2 ``tanhf`` and
+  ``sigmoidf``, 4 the gate's th / sg stores, 8 res/skip's skip-sum load,
+  16 its state load, 32 the whole epilogue, 64 every store of the two).
+* ``bare_fwd``: the WN forward's two products alone on each of ``--units``
+  with the bias epilogue and f32 out (not on "ws", which takes their own
+  epilogues alone): the in-layer conv [rows, 5 x 192 -> 384] and res/skip
+  [rows, 192 -> 384]; on a tree that has ``tc_gemm.bf16_wn_product``, also
+  with their own epilogues (the gate with saves and dropout; res/skip of a
+  middle layer and of the last).
 * ``bare``: one product alone on the TMA-fed unit (``--unit``, one of
-  ``tc_gemm.BF16_UNITS`` but ``text``), its kernel's device us (mean of 20
+  ``tc_gemm.BF16_UNITS`` but ``text`` and ``ws``), its kernel's device us (mean of 20
   calls under torch.profiler): the gate backward's [rows, 384 -> 192]
   with its bias epilogue at batch 24, 32, 48 and 72 (a sample is 11 tiles
   of 64 rows: 264, 352, 528, 792 tiles, 1, 1.33, 2 and 3 waves of the
@@ -97,11 +110,53 @@ def chain_split(probe, fn, calls: int, kind_of) -> dict:
             "device_us": sum(total.values()), "first_call": first}
 
 
+def bare_forward(units, tc_gemm, kernel_us, folded, mask, batch, t, h, taps, gpu) -> dict:
+    """The WN forward's two products alone on each unit: the bias
+    epilogue with f32 out and, where the tree has them, their own."""
+    import torch
+
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = (torch.randn(batch, t, h, generator=g, device="cuda") * mask).to(bf)
+    w_in = folded["W_in"][0].contiguous()      # [taps * h, 2h]
+    w_rs = folded["W_rs"][0].contiguous()      # [h, 2h]
+    b_in, b_rs = folded["b_in"][0].contiguous(), folded["b_rs"][0].contiguous()
+    own = getattr(tc_gemm, "bf16_wn_product", None)
+    res: dict = {}
+    for unit in units:
+        r = {}
+        if unit != "ws":  # the warp-specialised unit takes their own epilogues alone
+            r["in_conv_bias"] = kernel_us(
+                lambda: tc_gemm.bf16_conv_product(x, w_in, taps=taps, unit=unit), "conv_gemm")
+            r["res_skip_bias"] = kernel_us(
+                lambda: tc_gemm.bf16_conv_product(x, w_rs, unit=unit), "conv_gemm")
+        if own is not None:
+            skip = torch.randn(batch, t, h, generator=g, device="cuda")
+            drop = (0.05, 1234, 0, 4)
+            r["in_conv_gate_saves"] = kernel_us(
+                lambda: own("gate", x, w_in, b_in, taps=taps, drop=drop, saves=True, unit=unit),
+                "conv_gemm")
+            r["res_skip_middle"] = kernel_us(
+                lambda: own("res_skip", x, w_rs, b_rs, x_l=x, skip=skip, mask=mask, layer=1,
+                            n_layers=4, unit=unit), "conv_gemm")
+            r["res_skip_last"] = kernel_us(
+                lambda: own("res_skip", x, w_rs, b_rs, x_l=x, skip=skip, mask=mask, layer=3,
+                            n_layers=4, unit=unit), "conv_gemm")
+        res[unit] = r
+        print(f"bare forward {unit}: " + ", ".join(f"{k} {v:.1f} us" for k, v in r.items())
+              + f" [{gpu}]")
+    return res
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--repo", type=Path, default=HERE, help="the checkout to measure")
     parser.add_argument("--batch", type=int, default=32)
     parser.add_argument("--unit", default="tma", help="the bf16 unit of the bare products")
+    parser.add_argument("--units", default="tma",
+                        help="comma-separated bf16 units of the forward's bare products")
+    parser.add_argument("--switches", default="",
+                        help="comma-separated epilogue switch words for row 6's chain")
     args = parser.parse_args()
     repo = args.repo.resolve()
     sys.path.insert(0, str(repo))
@@ -168,10 +223,32 @@ def main() -> int:
             return "in_conv" if gemm_index % 2 == 0 else "res_skip"
         return "other"
 
+    row6 = lambda: wn_cuda.wn_fwd_save(wn, None, xw, mask, *wcfg)  # noqa: E731
+
+    def wn_kind(name: str, gemm_index: int) -> str:
+        if "conv_gemm" in name:
+            return "in_conv" if gemm_index % 2 == 0 else "res_skip"
+        return "other"
+
     out = {"repo": str(repo), "gpu": gpu, "shape": [batch, t, h]}
     out["row8_chain"] = chain_split(probe, row8, 3, walk_kind)
     out["row9_chain"] = chain_split(probe, row9, 3, fwd_kind)
-    for row in ("row8_chain", "row9_chain"):
+    out["row6_chain"] = chain_split(probe, row6, 3, wn_kind)
+    if args.switches:
+        import ctypes
+
+        switch = kernels.library().gtt_epilogue_switch
+        switch.argtypes = [ctypes.c_int]
+        out["switches"] = {}
+        for word in (int(w) for w in args.switches.split(",")):
+            switch(word)
+            r = chain_split(probe, row6, 3, wn_kind)
+            out["switches"][word] = r["by_kind_us"]
+            print(f"switch {word}: row 6 {r['device_us']:.1f} us: " + ", ".join(
+                f"{k} {v / (L if k != 'other' else 1):.1f}" for k, v in r["by_kind_us"].items())
+                + f" a layer [{gpu}]")
+        switch(0)
+    for row in ("row8_chain", "row9_chain", "row6_chain"):
         r = out[row]
         print(f"{row}: {r['device_us']:.1f} us on the device in {r['device_operations']} "
               f"operations: " + ", ".join(f"{k} {v:.1f}" for k, v in r["by_kind_us"].items())
@@ -205,6 +282,8 @@ def main() -> int:
         print(f"bare {unit}: " + ", ".join(f"{k} {v:.1f} us" for k, v in res.items())
               + f" [{gpu}]")
     out["bare_us"] = bare
+    out["bare_fwd_us"] = bare_forward(args.units.split(","), tc_gemm, kernel_us, folded, mask,
+                                      batch, t, h, taps, gpu)
     print(json.dumps(out))
     return 0
 

@@ -264,7 +264,8 @@ def test_plan_of_the_six_entry_points(with_g):
     products but the coupling, then row 12's; the WN stack's rows 5 and 6
     the block forward's WN products after one copy of x, rows 7 and 8 the
     walk (row 7 after rows 6's products), with one launch that takes the
-    output's cotangent into g_rs; every product on the TMA-fed kernels, the folded A's too; the device operations a call."""
+    output's cotangent into g_rs; every product on the TMA-fed kernels, the folded A's too (the WN
+    layers' forward products on the warp-specialised one); the device operations a call."""
     base = (32, 704, 160, 192, 4, 5, 1, SMS)
     wn = (32, 704, 0, 192, 4, 5, 1, SMS)
     plan = {
@@ -298,15 +299,17 @@ def test_plan_of_the_six_entry_points(with_g):
         assert all(p["launches"] == 2 for p in plan[r]["products"] if p["kind"] == "wgrad")
     counts = {r: p["counts"] for r, p in plan.items()}
     assert counts[9] == counts[10] == {"core_gemm": 0, "bf16_gemm": 0, "bf16_wgrad": 0,
-                                       "bf16_tma_gemm": 11, "bf16_tma_wgrad": 0}
+                                       "bf16_tma_gemm": 3, "bf16_tma_wgrad": 0,
+                                       "bf16_ws_gemm": 8}
     assert counts[11] == {"core_gemm": 0, "bf16_gemm": 0, "bf16_wgrad": 0,
-                          "bf16_tma_gemm": 22, "bf16_tma_wgrad": 11}
+                          "bf16_tma_gemm": 14, "bf16_tma_wgrad": 11, "bf16_ws_gemm": 8}
     assert counts[5] == counts[6] == {"core_gemm": 0, "bf16_gemm": 0, "bf16_wgrad": 0,
-                                      "bf16_tma_gemm": 8, "bf16_tma_wgrad": 0}
+                                      "bf16_tma_gemm": 0, "bf16_tma_wgrad": 0,
+                                      "bf16_ws_gemm": 8}
     assert counts[8] == {"core_gemm": 0, "bf16_gemm": 0, "bf16_wgrad": 0,
-                         "bf16_tma_gemm": 8, "bf16_tma_wgrad": 8}
+                         "bf16_tma_gemm": 8, "bf16_tma_wgrad": 8, "bf16_ws_gemm": 0}
     assert counts[7] == {"core_gemm": 0, "bf16_gemm": 0, "bf16_wgrad": 0,
-                         "bf16_tma_gemm": 16, "bf16_tma_wgrad": 8}
+                         "bf16_tma_gemm": 8, "bf16_tma_wgrad": 8, "bf16_ws_gemm": 8}
 
 
 def test_plan_declines_narrow_widths_in_every_row():
@@ -316,5 +319,6 @@ def test_plan_declines_narrow_widths_in_every_row():
         for kw in ({}, {"saves": False}, {"backward": True},
                    {"backward": True, "recompute": True}):
             plan = tc_gemm.bf16_block_products(4, 96, c, 48, 2, 5, 1, SMS, **kw)
-            assert plan["counts"]["bf16_tma_gemm"] == plan["counts"]["bf16_tma_wgrad"] == 0
+            assert (plan["counts"]["bf16_tma_gemm"] == plan["counts"]["bf16_tma_wgrad"]
+                    == plan["counts"]["bf16_ws_gemm"] == 0)
             assert all(p["unit"] in ("mma", "core") for p in plan["products"]), (c, kw)

@@ -56,16 +56,18 @@ def _units(plan):
 def test_every_product_takes_the_tma_units_at_shipped_widths(batch, h):
     """Base (h 192) and large (h 256) width, c 160, 4 WN layers, taps 5, at
     [batch, 704]: the forward's 11 conv-GEMMs (the folded A's too) and the
-    backward's 12 and 11 weight gradients on the TMA-fed kernels, nothing
-    on the CUDA cores or the mma.sync kernels; the transposed convs'
-    epilogues in column pairs, no other product's."""
+    backward's 12 and 11 weight gradients on the TMA-fed kernels (the WN
+    layers' 8 forward products on the warp-specialised one, the rest on the
+    64-row one), nothing on the CUDA cores or the mma.sync kernels; the
+    transposed convs' epilogues in column pairs, no other product's."""
     fwd = tc_gemm.bf16_block_products(batch, 704, 160, h, 4, 5, 1, SMS)
     bwd = tc_gemm.bf16_block_products(batch, 704, 160, h, 4, 5, 1, SMS, backward=True)
     assert fwd["counts"] == {"core_gemm": 0, "bf16_gemm": 0, "bf16_wgrad": 0,
-                             "bf16_tma_gemm": 11, "bf16_tma_wgrad": 0}
+                             "bf16_tma_gemm": 3, "bf16_tma_wgrad": 0, "bf16_ws_gemm": 8}
     assert bwd["counts"] == {"core_gemm": 0, "bf16_gemm": 0, "bf16_wgrad": 0,
-                             "bf16_tma_gemm": 12, "bf16_tma_wgrad": 11}
-    assert all(u == "tma" for u in _units(fwd).values())
+                             "bf16_tma_gemm": 12, "bf16_tma_wgrad": 11, "bf16_ws_gemm": 0}
+    assert all(u == ("ws" if k.startswith(("in_", "res_skip_")) else "tma")
+               for k, u in _units(fwd).items())
     assert all(u == "tma" for u in _units(bwd).values())
     assert all(p["column_pairs"] == p["name"].startswith("transposed_")
                for p in fwd["products"] + bwd["products"] if p["kind"] == "conv_gemm")

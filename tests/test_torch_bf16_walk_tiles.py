@@ -45,12 +45,15 @@ def _plans(batch, h):
 def test_column_pairs_and_device_operations_at_shipped_shapes(batch, h):
     """The plan of the eight bf16 decoder rows at the shipped shapes: the
     transposed convs' epilogues in column pairs (three chunks a tile),
-    nothing else's; every product TMA-fed within a block's shared memory;
-    the device operations a call as before."""
+    nothing else's; every product TMA-fed within a block's shared memory
+    (the WN forward's in-layer convs and res/skip products on the
+    warp-specialised unit, the rest on the 64-row one); the device
+    operations a call as before."""
     plans = _plans(batch, h)
     for row, plan in plans.items():
         for p in plan["products"]:
-            assert p["unit"] == "tma" and p["smem"] <= MAX_BLOCK_SMEM, (row, p)
+            unit = "ws" if p["name"].startswith(("in_", "res_skip_")) else "tma"
+            assert p["unit"] == unit and p["smem"] <= MAX_BLOCK_SMEM, (row, p)
             if p["kind"] == "conv_gemm":
                 assert p["column_pairs"] == p["name"].startswith("transposed_"), (row, p)
                 assert not p["column_pairs"] or p["chunks"] == 3

@@ -1655,14 +1655,16 @@ def test_tma_conv_matches_float64_and_the_tap_staged_bits(dev, name):
 BF16_RTOL = 2e-2
 BF16 = torch.bfloat16
 # device products of one call of each bf16 kernel at base width, as
-# (bf16_gemm, bf16_wgrad, core_gemm, bf16_tma_gemm, bf16_tma_wgrad): every
-# one on the TMA-fed wgmma kernels but the flow block's folded A, which
-# stays on the CUDA cores
+# (bf16_gemm, bf16_wgrad, core_gemm, bf16_tma_gemm, bf16_tma_wgrad,
+# bf16_ws_gemm): every one on the TMA-fed wgmma kernels, the WN forward's
+# in-layer convs and res/skip products on the warp-specialised one
+BF16_COUNT_KEYS = ("bf16_gemm", "bf16_wgrad", "core_gemm", "bf16_tma_gemm", "bf16_tma_wgrad",
+                   "bf16_ws_gemm")
 BF16_PRODUCTS = {
-    "prenet": (0, 0, 0, 4, 0), "prenet_bwd": (0, 0, 0, 8, 4), "duration_stack": (0, 0, 0, 2, 0),
-    "duration_stack_bwd": (0, 0, 0, 4, 2), "encoder_layer": (0, 0, 0, 4, 0),
-    "encoder_layer_bwd": (0, 0, 0, 8, 4), "block_fwd_save": (0, 0, 0, 11, 0),
-    "block_bwd_store": (0, 0, 0, 12, 11),
+    "prenet": (0, 0, 0, 4, 0, 0), "prenet_bwd": (0, 0, 0, 8, 4, 0),
+    "duration_stack": (0, 0, 0, 2, 0, 0), "duration_stack_bwd": (0, 0, 0, 4, 2, 0),
+    "encoder_layer": (0, 0, 0, 4, 0, 0), "encoder_layer_bwd": (0, 0, 0, 8, 4, 0),
+    "block_fwd_save": (0, 0, 0, 3, 0, 8), "block_bwd_store": (0, 0, 0, 12, 11, 0),
 }
 
 
@@ -1679,8 +1681,7 @@ def _bf16_products(fn):
     out = fn()
     torch.cuda.synchronize()
     c = kernels.product_counts(reset=True)
-    return out, tuple(c[k] for k in ("bf16_gemm", "bf16_wgrad", "core_gemm", "bf16_tma_gemm",
-                                     "bf16_tma_wgrad"))
+    return out, tuple(c[k] for k in BF16_COUNT_KEYS)
 
 
 def _bf16_text_inputs(dev, width, t=64, b=4, seed=0):
@@ -1850,8 +1851,7 @@ def _saves_of(run):
 
 
 def _plan_counts(*plans):
-    keys = ("bf16_gemm", "bf16_wgrad", "core_gemm", "bf16_tma_gemm", "bf16_tma_wgrad")
-    return tuple(sum(p["counts"][k] for p in plans) for k in keys)
+    return tuple(sum(p["counts"][k] for p in plans) for k in BF16_COUNT_KEYS)
 
 
 def _bf16_g_all(dev, b, L, h, with_g):
@@ -2714,3 +2714,150 @@ def test_bf16_rows_8_and_9_at_the_shipped_batch(dev):
                    for k, v in grads.items())
         z, ld = rows[9][0]()
         assert torch.equal(z, first[9][0]) and torch.equal(ld, first[9][1])
+
+
+# ---------------------------------------------------------------------------
+# the WN forward's two bf16 products on the warp-specialised unit (bf16 rows
+# 5 and 6, and the forwards of rows 7, 9, 10 and 11): the 64-row unit's bits
+# ---------------------------------------------------------------------------
+
+# (batch, t): every 64-row tile full, ragged last tiles, one tile a sample;
+# odd row-tile counts leave the in-layer conv's last unit one tile short
+WS_SHAPES = [(3, 704), (5, 100), (7, 37)]
+WS_GATE = {"saves": (True, False), "no_saves": (False, False), "g": (True, True),
+           "g_no_saves": (False, True)}
+WS_RES_SKIP = {"first": (0, False), "middle": (1, False), "last": (3, False),
+               "last_skip_mask": (3, True)}
+
+
+def _ws_operands(dev, b, t, h=192, taps=5, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(1, t + 1, (b,), generator=g)
+    lengths[0] = t
+    mask = (torch.arange(t)[None, :] < lengths[:, None]).float()[..., None]
+    x = (torch.randn(b, t, h, generator=g) * mask).to(BF16)
+    w_in = (torch.randn(taps * h, 2 * h, generator=g) * (taps * h) ** -0.5).to(BF16)
+    w_rs = (torch.randn(h, 2 * h, generator=g) * h ** -0.5).to(BF16)
+    b_in, b_rs = 0.1 * torch.randn(2 * h, generator=g), 0.1 * torch.randn(2 * h, generator=g)
+    cond = (0.3 * torch.randn(b, 2 * h, generator=g)).to(BF16)
+    skip = torch.randn(b, t, h, generator=g)
+    return {k: v.to(dev) for k, v in dict(x=x, mask=mask, w_in=w_in, w_rs=w_rs, b_in=b_in,
+                                          b_rs=b_rs, cond=cond, skip=skip).items()}
+
+
+def _ws_runs(fn):
+    """fn(unit) on the 64-row unit and on the warp-specialised one, each
+    counted once on its own unit."""
+    got = {}
+    for unit, key in (("tma", "bf16_tma_gemm"), ("ws", "bf16_ws_gemm")):
+        kernels.product_counts(reset=True)
+        got[unit] = fn(unit)
+        torch.cuda.synchronize()
+        counts = kernels.product_counts(reset=True)
+        assert counts[key] == 1 and sum(counts[k] for k in BF16_COUNT_KEYS) == 1, (unit, counts)
+    return got
+
+
+@pytest.mark.parametrize("b,t", WS_SHAPES)
+@pytest.mark.parametrize("case", sorted(WS_GATE))
+def test_bf16_ws_in_layer_conv_equals_64_row_unit(dev, case, b, t):
+    """The in-layer conv (5 taps at dilation 2, the gate epilogue, dropout
+    on) on the warp-specialised unit: acts and, with saves, th and sg the
+    64-row unit's bits, with and without the conditioning, and within
+    BF16_RTOL of the plain version."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    saves, with_g = WS_GATE[case]
+    o = _ws_operands(dev, b, t)
+    kw = dict(taps=5, dilation=2, drop=(0.05, 1234, 1, 4), saves=saves,
+              g=o["cond"] if with_g else None)
+    got = _ws_runs(lambda unit: tc_gemm.bf16_wn_product("gate", o["x"], o["w_in"], o["b_in"],
+                                                        unit=unit, **kw))
+    for i, (w, ref) in enumerate(zip(got["ws"], got["tma"])):
+        assert torch.equal(w, ref), (case, i)
+    plain = tc_gemm.bf16_wn_product_plain("gate", *(v.cpu() for v in (o["x"], o["w_in"],
+                                                                      o["b_in"])),
+                                          **{**kw, "g": None if kw["g"] is None else
+                                             kw["g"].cpu()})
+    for i, (w, ref) in enumerate(zip(got["ws"], plain)):
+        _bf16_held(f"{case} [{i}]", w.cpu(), ref)
+
+
+@pytest.mark.parametrize("b,t", WS_SHAPES)
+@pytest.mark.parametrize("case", sorted(WS_RES_SKIP))
+def test_bf16_ws_res_skip_equals_64_row_unit(dev, case, b, t):
+    """res/skip of the first, a middle and the last of 4 layers (the last's
+    skip half only, with and without skip_mask) on the warp-specialised
+    unit: the next x (in place, as the forward that saves nothing writes
+    it), the f32 skip sum and skipm the 64-row unit's bits, and within
+    BF16_RTOL of the plain version."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    layer, skip_mask = WS_RES_SKIP[case]
+    o = _ws_operands(dev, b, t)
+
+    def run(unit):
+        x_l, skip = o["x"].clone(), o["skip"].clone()
+        return tc_gemm.bf16_wn_product("res_skip", o["x"], o["w_rs"], o["b_rs"], x_l=x_l,
+                                       skip=skip, mask=o["mask"], layer=layer, n_layers=4,
+                                       skip_mask=skip_mask, unit=unit, out=x_l)
+
+    got = _ws_runs(run)
+    for i, (w, ref) in enumerate(zip(got["ws"], got["tma"])):
+        assert (w is None) == (ref is None) and (w is None or torch.equal(w, ref)), (case, i)
+    cpu = {k: v.cpu() for k, v in o.items()}
+    x_l, skip = cpu["x"].clone(), cpu["skip"].clone()
+    plain = tc_gemm.bf16_wn_product_plain("res_skip", cpu["x"], cpu["w_rs"], cpu["b_rs"],
+                                          x_l=x_l, skip=skip, mask=cpu["mask"], layer=layer,
+                                          n_layers=4, skip_mask=skip_mask, out=x_l)
+    for i, (w, ref) in enumerate(zip(got["ws"], plain)):
+        if ref is not None:
+            _bf16_held(f"{case} [{i}]", w.cpu(), ref)
+
+
+def test_bf16_ws_refuses_what_it_does_not_take(dev):
+    """The warp-specialised unit takes the WN forward's two epilogues
+    alone: a bare bias product on it raises, and so does either product
+    below 64 channels (the 64-row unit's shape rules)."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    a = torch.zeros(5, 100, 192, dtype=BF16, device=dev)
+    with pytest.raises(ValueError, match="warp-specialised"):
+        tc_gemm.bf16_conv_product(a, torch.zeros(192, 384, dtype=BF16, device=dev), unit="ws")
+    x = torch.zeros(2, 64, 48, dtype=BF16, device=dev)
+    w = torch.zeros(5 * 48, 96, dtype=BF16, device=dev)
+    with pytest.raises(RuntimeError, match="gtt_bf16_wn_product"):
+        tc_gemm.bf16_wn_product("gate", x, w, torch.zeros(96, device=dev), taps=5, unit="ws")
+
+
+@pytest.mark.parametrize("with_g", [False, True], ids=["no_g", "g"])
+def test_bf16_ws_wn_rows_repeat_bits(dev, with_g):
+    """Rows 6 and 5 at [32, 704] (ragged), dropout on: their forward WN
+    products on the warp-specialised unit only (the plan's counts), row
+    5's output row 6's bits, within BF16_RTOL of the plain bf16 stack, and
+    50 calls of each the first call's bits (the mbarrier hand-offs under
+    load: a race shows as moved bits)."""
+    from glow_tts_train_tpu_torch.ops import tc_gemm
+
+    o = _ws_operands(dev, 32, 704)
+    L, h, taps = 4, 192, 5
+    g = torch.Generator().manual_seed(9)
+    wn = ((torch.randn(L, taps * h, 2 * h, generator=g) * (taps * h) ** -0.5).to(BF16).to(dev),
+          (0.1 * torch.randn(L, 2 * h, generator=g)).to(dev),
+          (torch.randn(L, h, 2 * h, generator=g) * h ** -0.5).to(BF16).to(dev),
+          (0.1 * torch.randn(L, 2 * h, generator=g)).to(dev))
+    g_all = _bf16_g_all(dev, 32, L, h, with_g)
+    cfg = (taps, 1, 0.05, 21)
+    plan = tc_gemm.bf16_block_products(32, 704, 0, h, L, taps, 1, _sms())
+    assert plan["counts"]["bf16_ws_gemm"] == 2 * L and plan["counts"]["bf16_tma_gemm"] == 0
+    (out6, saves), products = _bf16_products(
+        lambda: wn_cuda.wn_fwd_save(wn, g_all, o["x"], o["mask"], *cfg))
+    assert products == _plan_counts(plan)
+    out5, products = _bf16_products(lambda: wn_cuda.wn_stack(wn, g_all, o["x"], o["mask"], *cfg))
+    assert products == _plan_counts(plan) and torch.equal(out5, out6)
+    _bf16_held("row 6", out6, wn_cuda.wn_stack_plain_bf16(wn, g_all, o["x"], o["mask"], *cfg))
+    for _ in range(50):
+        again, again_saves = wn_cuda.wn_fwd_save(wn, g_all, o["x"], o["mask"], *cfg)
+        assert torch.equal(again, out6)
+        assert all(torch.equal(again_saves[k], saves[k]) for k in ("xs", "th", "sg"))
+        assert torch.equal(wn_cuda.wn_stack(wn, g_all, o["x"], o["mask"], *cfg), out6)
