@@ -1268,36 +1268,56 @@ __global__ void __launch_bounds__(WsLayout<kNB, kRows, kBufs>::kThreads, 1)
       // the in-layer conv: a thread the pairs (j, split + j) of columns j =
       // j0 + 2q and + 1, their biases read once a unit, each output (acts
       // and, saving, th and sg) stored as one bf16 pair; each pair's gates
-      // by gate_values, as epilogue_cols_bf16 computes them; two rows at a
-      // time (their chains independent)
+      // by gate_values, as epilogue_cols_bf16 computes them.  kGateRows
+      // rows at a time, every load of the group before any of its stores
+      // (a load cannot pass a store that may alias it), so the rows'
+      // chains run side by side
+      constexpr int kGateRows = 2;
       const int j = j0 + 2 * q;
       const float b_lo0 = bias_at(g, j), b_lo1 = bias_at(g, j + 1);
       const float b_hi0 = bias_at(g, j + g.split), b_hi1 = bias_at(g, j + 1 + g.split);
       mbar_wait(l.acc_full(b), (k / kBufs) & 1);
       const float* tile =
           reinterpret_cast<const float*>(smem_raw + (l.buf(b) - smem_addr(smem_raw)));
-#pragma unroll 2
-      for (int row = phase; row < 64 * kRows; row += kPhases) {
-        const int rt = ru * kRows + row / 64, sb = rt / tiles_t;
-        const int tt = (rt - sb * tiles_t) * 64 + row % 64;
-        if (rt >= row_tiles || tt >= g.t) continue;
-        const EpilogueRow r{sb * g.t + tt, sb, tt, 1.f};
-        const float2 u = *reinterpret_cast<const float2*>(tile + row * L::kStride + 2 * q);
-        const float2 v = *reinterpret_cast<const float2*>(tile + row * L::kStride + 64 + 2 * q);
-        float2 c_lo = make_float2(0.f, 0.f), c_hi = make_float2(0.f, 0.f);
-        if (g.aux) {  // the conditioning
-          const long gb = (long)sb * g.ld_aux;
-          c_lo = ld_pair16(g.aux, gb + j);
-          c_hi = ld_pair16(g.aux, gb + j + g.split);
+#pragma unroll 1
+      for (int row0 = phase; row0 < 64 * kRows; row0 += kGateRows * kPhases) {
+        EpilogueRow r[kGateRows];
+        float2 u[kGateRows], v[kGateRows], c_lo[kGateRows], c_hi[kGateRows];
+#pragma unroll
+        for (int i = 0; i < kGateRows; ++i) {
+          const int row = row0 + i * kPhases;
+          const int rt = ru * kRows + row / 64, sb = rt / tiles_t;
+          const int tt = (rt - sb * tiles_t) * 64 + row % 64;
+          r[i] = EpilogueRow{-1, sb, tt, 1.f};
+          if (row >= 64 * kRows || rt >= row_tiles || tt >= g.t) continue;
+          r[i].m = sb * g.t + tt;
+          u[i] = *reinterpret_cast<const float2*>(tile + row * L::kStride + 2 * q);
+          v[i] = *reinterpret_cast<const float2*>(tile + row * L::kStride + 64 + 2 * q);
+          c_lo[i] = c_hi[i] = make_float2(0.f, 0.f);
+          if (g.aux) {  // the conditioning
+            const long gb = (long)sb * g.ld_aux;
+            c_lo[i] = ld_pair16(g.aux, gb + j);
+            c_hi[i] = ld_pair16(g.aux, gb + j + g.split);
+          }
         }
-        float th0, sg0, th1, sg1;
-        gate_values(g, r, j, u.x + b_lo0, v.x + b_hi0, c_lo.x, c_hi.x, th0, sg0);
-        gate_values(g, r, j + 1, u.y + b_lo1, v.y + b_hi1, c_lo.y, c_hi.y, th1, sg1);
-        const long m = r.m;
-        st_pair16(g.out, m * g.ldo + j, th0 * sg0, th1 * sg1);
-        if (g.out2) {
-          st_pair16(g.out2, m * g.ldo2 + j, th0, th1);
-          st_pair16(g.out3, m * g.ldo3 + j, sg0, sg1);
+        float th0[kGateRows], sg0[kGateRows], th1[kGateRows], sg1[kGateRows];
+#pragma unroll
+        for (int i = 0; i < kGateRows; ++i) {
+          if (r[i].m < 0) continue;
+          gate_values(g, r[i], j, u[i].x + b_lo0, v[i].x + b_hi0, c_lo[i].x, c_hi[i].x, th0[i],
+                      sg0[i]);
+          gate_values(g, r[i], j + 1, u[i].y + b_lo1, v[i].y + b_hi1, c_lo[i].y, c_hi[i].y,
+                      th1[i], sg1[i]);
+        }
+#pragma unroll
+        for (int i = 0; i < kGateRows; ++i) {
+          if (r[i].m < 0) continue;
+          const long m = r[i].m;
+          st_pair16(g.out, m * g.ldo + j, th0[i] * sg0[i], th1[i] * sg1[i]);
+          if (g.out2) {
+            st_pair16(g.out2, m * g.ldo2 + j, th0[i], th1[i]);
+            st_pair16(g.out3, m * g.ldo3 + j, sg0[i], sg1[i]);
+          }
         }
       }
       mbar_arrive(l.acc_empty(b));
