@@ -1271,11 +1271,15 @@ __global__ void __launch_bounds__(WsLayout<kNB, kRows, kBufs>::kThreads, 1)
       // by gate_values, as epilogue_cols_bf16 computes them.  kGateRows
       // rows at a time, every load of the group before any of its stores
       // (a load cannot pass a store that may alias it), so the rows'
-      // chains run side by side
+      // chains run side by side.  A last column tile may reach past split
+      // (h not a multiple of 64): its pairs from split on are not the
+      // product's (split a multiple of 8, so a pair is all in or all out)
       constexpr int kGateRows = 2;
       const int j = j0 + 2 * q;
-      const float b_lo0 = bias_at(g, j), b_lo1 = bias_at(g, j + 1);
-      const float b_hi0 = bias_at(g, j + g.split), b_hi1 = bias_at(g, j + 1 + g.split);
+      const bool col_on = j < g.split;
+      const float b_lo0 = col_on ? bias_at(g, j) : 0.f, b_lo1 = col_on ? bias_at(g, j + 1) : 0.f;
+      const float b_hi0 = col_on ? bias_at(g, j + g.split) : 0.f;
+      const float b_hi1 = col_on ? bias_at(g, j + 1 + g.split) : 0.f;
       mbar_wait(l.acc_full(b), (k / kBufs) & 1);
       const float* tile =
           reinterpret_cast<const float*>(smem_raw + (l.buf(b) - smem_addr(smem_raw)));
@@ -1289,7 +1293,7 @@ __global__ void __launch_bounds__(WsLayout<kNB, kRows, kBufs>::kThreads, 1)
           const int rt = ru * kRows + row / 64, sb = rt / tiles_t;
           const int tt = (rt - sb * tiles_t) * 64 + row % 64;
           r[i] = EpilogueRow{-1, sb, tt, 1.f};
-          if (row >= 64 * kRows || rt >= row_tiles || tt >= g.t) continue;
+          if (!col_on || row >= 64 * kRows || rt >= row_tiles || tt >= g.t) continue;
           r[i].m = sb * g.t + tt;
           u[i] = *reinterpret_cast<const float2*>(tile + row * L::kStride + 2 * q);
           v[i] = *reinterpret_cast<const float2*>(tile + row * L::kStride + 64 + 2 * q);
@@ -1601,15 +1605,13 @@ cudaError_t launch_wgrad_tma(const WGrad& w, const TmaWgradPlan& p, float* dst, 
 }
 
 // The warp-specialised unit's plan of a bf16 chain's conv-GEMM, by shape and
-// epilogue: its chunks a tile (0: not this unit), row tiles a unit,
-// accumulator buffers and first column.  The WN forward's products that the
-// 64-row kernel would take (tma_conv_chunks), with their bf16 operands, and
-// that keep no column sums: the in-layer conv two row tiles a unit (B's
-// boxes read once for both) and one buffer; res/skip one row tile and two
-// buffers, a last layer's (flag 0: its residual half discarded) only the
-// skip half, from split.
+// epilogue: its chunks a tile (0: not this unit) and first column.  The WN
+// forward's products that the 64-row kernel would take (tma_conv_chunks),
+// with their bf16 operands, and that keep no column sums; a last layer's
+// res/skip (flag 0: its residual half discarded) only the skip half, from
+// split.
 struct WsPlan {
-  int chunks = 0, rows = 1, bufs = 2, col0 = 0;
+  int chunks = 0, col0 = 0;
 };
 
 WsPlan ws_plan(const ConvGemm& g) {
@@ -1622,12 +1624,7 @@ WsPlan ws_plan(const ConvGemm& g) {
                         (!g.skip_mask || has(b, kOut3_16));
   if (!(gate || res_skip) || g.part || g.w_t || g.sums.p || g.sums2.p) return p;
   p.chunks = tma_conv_chunks(g);
-  if (gate) {
-    p.rows = 2;
-    p.bufs = 1;
-  } else if (!g.flag) {
-    p.col0 = g.split;
-  }
+  if (res_skip && !g.flag) p.col0 = g.split;
   return p;
 }
 
@@ -1654,15 +1651,16 @@ cudaError_t launch_ws(const ConvGemm& g, int col0, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The instance of a plan: the in-layer conv's, res/skip's at 3 or 2 chunks
-// a tile.
+// The instance of a plan, its row tiles a unit and accumulator buffers by
+// the epilogue: the in-layer conv two row tiles a unit (B's boxes read once
+// for both) and one buffer; res/skip one row tile and two buffers, at 3 or
+// 2 chunks a tile.
 cudaError_t launch_ws_plan(const ConvGemm& g, const WsPlan& p, cudaStream_t stream) {
-  if (g.epilogue == kGate && p.rows == 2 && p.chunks == 2 && p.bufs == 1)
-    return launch_ws<2, 2, 1, kGate>(g, p.col0, stream);
-  if (g.epilogue == kResSkip && p.rows == 1 && p.bufs == 2) {
-    if (p.chunks == 3) return launch_ws<3, 1, 2, kResSkip>(g, p.col0, stream);
-    if (p.chunks == 2) return launch_ws<2, 1, 2, kResSkip>(g, p.col0, stream);
-  }
+  if (g.epilogue == kGate && p.chunks == 2) return launch_ws<2, 2, 1, kGate>(g, p.col0, stream);
+  if (g.epilogue == kResSkip && p.chunks == 3)
+    return launch_ws<3, 1, 2, kResSkip>(g, p.col0, stream);
+  if (g.epilogue == kResSkip && p.chunks == 2)
+    return launch_ws<2, 1, 2, kResSkip>(g, p.col0, stream);
   return cudaErrorInvalidValue;
 }
 

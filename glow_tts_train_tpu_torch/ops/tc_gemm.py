@@ -590,10 +590,11 @@ def bf16_conv_chunks(c_in: int, n: int, lda: int, ldb: int, w_t: bool, paired: b
 # kTmaMaxShares, kTmaMinSlices, kTmaSplitCols): shares, 64-deep slices a
 # share at least, partial sums a row over all shares
 TMA_MAX_SHARES, TMA_MIN_SLICES, TMA_SPLIT_COLS = 4, 2, 768
-# the bf16 product units a bare product may take: the mma.sync kernel, the
-# 64-row TMA-fed one, the text chains' plan on it (bf16_conv_product), the
-# warp-specialised one (the WN forward's epilogues: bf16_wn_product)
-BF16_UNITS = ("mma", "tma", "text", "ws")
+# the bf16 product units a bare product may take (bf16_conv_product): the
+# mma.sync kernel, the 64-row TMA-fed one, the text chains' plan on it; and
+# the codes of the units a WN forward product may take (bf16_wn_product):
+# those two kernels and the warp-specialised one
+BF16_UNITS = ("mma", "tma", "text")
 _BF16_UNIT_CODE = {"mma": 0, "tma": 1, "ws": 2}
 
 # the warp-specialised unit (csrc/bf16_gemm.cu WsLayout): a block's shared
@@ -1049,9 +1050,6 @@ def bf16_conv_product(
         return (out, tile_sums_plain(out.reshape(-1, out.shape[-1]), *a.shape[:2])) if sums else out
     if unit not in BF16_UNITS:
         raise ValueError(f"unit {unit!r}: one of {BF16_UNITS}")
-    if unit == "ws":
-        raise ValueError("the warp-specialised unit takes the WN forward's epilogues alone "
-                         "(bf16_wn_product)")
     batch, t, c = a.shape
     kernels.check_operands(a.device, ("a", "w"), a=a, w=w, mask=mask)
     n = w.shape[0] // taps if w_t else w.shape[1]

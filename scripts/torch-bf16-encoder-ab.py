@@ -161,9 +161,7 @@ def products(spec, batch, t, gen):
     def r(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(torch.bfloat16).to(dev)
 
-    # the text chains' units (the warp-specialised one takes the WN
-    # forward's products, not these)
-    units = [u for u in tc_gemm.BF16_UNITS if u != "ws"]
+    units = list(tc_gemm.BF16_UNITS)
     cases = []
     for name, c_in, taps, sign, n, w_t in spec.conv:
         a = r(batch, t, c_in)

@@ -2,7 +2,7 @@
 """Where the bf16 WN walk's and the bf16 block forward's device time goes,
 on one GPU, as one JSON object.
 
-    python scripts/torch-bf16-walk-split.py [--batch 32] [--repo DIR]
+    python scripts/torch-bf16-walk-split.py [--batch 32] [--unit tma,ws] [--repo DIR]
 
 Base width (``configs/base.json``: h 192, 4 WN layers, 5 taps, the
 dilations ``hp.dilation_rate`` gives: 1 as shipped), block 0 of random
@@ -16,20 +16,14 @@ operand bf16 as ``fp16_run`` gives them:
   transposed conv, dW_rs, dW_in, their reductions, the cotangent launch
   and the fill; the forward: the folded A, the start conv, in-layer convs,
   res/skip products, the coupling, the rest).
-* ``switches`` (``--switches``, a build whose library exports
-  ``gtt_epilogue_switch``: a measurement build, not the repository's
-  sources): row 6's chain again with parts of the WN forward's epilogues
-  taken out, one bit each (1 the dropout hash, 2 ``tanhf`` and
-  ``sigmoidf``, 4 the gate's th / sg stores, 8 res/skip's skip-sum load,
-  16 its state load, 32 the whole epilogue, 64 every store of the two).
-* ``bare_fwd``: the WN forward's two products alone on each of ``--units``
-  with the bias epilogue and f32 out (not on "ws", which takes their own
-  epilogues alone): the in-layer conv [rows, 5 x 192 -> 384] and res/skip
+* ``bare_fwd``: the WN forward's two products alone on each unit of
+  ``--unit`` with the bias epilogue and f32 out (not on "ws", which takes
+  their own epilogues alone): the in-layer conv [rows, 5 x 192 -> 384] and res/skip
   [rows, 192 -> 384]; on a tree that has ``tc_gemm.bf16_wn_product``, also
   with their own epilogues (the gate with saves and dropout; res/skip of a
   middle layer and of the last).
-* ``bare``: one product alone on the TMA-fed unit (``--unit``, one of
-  ``tc_gemm.BF16_UNITS`` but ``text`` and ``ws``), its kernel's device us (mean of 20
+* ``bare``: one product alone on each unit of ``--unit`` that is one of
+  ``tc_gemm.BF16_UNITS`` but ``text``, its kernel's device us (mean of 20
   calls under torch.profiler): the gate backward's [rows, 384 -> 192]
   with its bias epilogue at batch 24, 32, 48 and 72 (a sample is 11 tiles
   of 64 rows: 264, 352, 528, 792 tiles, 1, 1.33, 2 and 3 waves of the
@@ -152,11 +146,8 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--repo", type=Path, default=HERE, help="the checkout to measure")
     parser.add_argument("--batch", type=int, default=32)
-    parser.add_argument("--unit", default="tma", help="the bf16 unit of the bare products")
-    parser.add_argument("--units", default="tma",
-                        help="comma-separated bf16 units of the forward's bare products")
-    parser.add_argument("--switches", default="",
-                        help="comma-separated epilogue switch words for row 6's chain")
+    parser.add_argument("--unit", default="tma",
+                        help="comma-separated bf16 units of the bare products (mma, tma, ws)")
     args = parser.parse_args()
     repo = args.repo.resolve()
     sys.path.insert(0, str(repo))
@@ -234,32 +225,18 @@ def main() -> int:
     out["row8_chain"] = chain_split(probe, row8, 3, walk_kind)
     out["row9_chain"] = chain_split(probe, row9, 3, fwd_kind)
     out["row6_chain"] = chain_split(probe, row6, 3, wn_kind)
-    if args.switches:
-        import ctypes
-
-        switch = kernels.library().gtt_epilogue_switch
-        switch.argtypes = [ctypes.c_int]
-        out["switches"] = {}
-        for word in (int(w) for w in args.switches.split(",")):
-            switch(word)
-            r = chain_split(probe, row6, 3, wn_kind)
-            out["switches"][word] = r["by_kind_us"]
-            print(f"switch {word}: row 6 {r['device_us']:.1f} us: " + ", ".join(
-                f"{k} {v / (L if k != 'other' else 1):.1f}" for k, v in r["by_kind_us"].items())
-                + f" a layer [{gpu}]")
-        switch(0)
     for row in ("row8_chain", "row9_chain", "row6_chain"):
         r = out[row]
         print(f"{row}: {r['device_us']:.1f} us on the device in {r['device_operations']} "
               f"operations: " + ", ".join(f"{k} {v:.1f}" for k, v in r["by_kind_us"].items())
               + f" [{gpu}]")
 
-    units = [args.unit]
+    units = args.unit.split(",")
     g = torch.Generator(device="cuda").manual_seed(5)
     w_rs = folded["W_rs"][0].contiguous()                # [h, 2h]: B = W_rs^T
     w_in = folded["W_in"][0].contiguous()                # [taps * h, 2h]: the tconv's B
     bare: dict = {}
-    for unit in units:
+    for unit in (u for u in units if u in tc_gemm.BF16_UNITS and u != "text"):
         res: dict = {}
         for b in (24, 32, 48, 72):
             a = torch.randn(b, t, 2 * h, generator=g, device="cuda").to(bf)
@@ -282,8 +259,8 @@ def main() -> int:
         print(f"bare {unit}: " + ", ".join(f"{k} {v:.1f} us" for k, v in res.items())
               + f" [{gpu}]")
     out["bare_us"] = bare
-    out["bare_fwd_us"] = bare_forward(args.units.split(","), tc_gemm, kernel_us, folded, mask,
-                                      batch, t, h, taps, gpu)
+    out["bare_fwd_us"] = bare_forward(units, tc_gemm, kernel_us, folded, mask, batch, t, h, taps,
+                                      gpu)
     print(json.dumps(out))
     return 0
 

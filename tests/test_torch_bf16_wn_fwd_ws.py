@@ -35,6 +35,9 @@ TAPS = 5
 # (batch, t, h, gin): base [32, 704], large [16, 704] at h 256, a long
 # bucket [32, 1408], and the multispeaker width's conditioning
 SHAPES = [(32, 704, 192, 0), (16, 704, 256, 0), (32, 1408, 192, 0), (32, 704, 192, 256)]
+# widths that are not a multiple of 64: the unit takes them too (its last
+# column tile reaches past h, and the kernel's epilogues write nothing there)
+ODD_WIDTHS = [(32, 704, 160, 0), (32, 704, 96, 256)]
 
 
 def _plans(batch, t, h, c=160, with_g=False):
@@ -50,18 +53,20 @@ def _plans(batch, t, h, c=160, with_g=False):
     }
 
 
-@pytest.mark.parametrize("batch,t,h,gin", SHAPES)
+@pytest.mark.parametrize("batch,t,h,gin", SHAPES + ODD_WIDTHS)
 def test_forward_products_take_the_ws_unit(batch, t, h, gin):
     """Every in-layer conv and res/skip product of the eight bf16 rows on
     the warp-specialised unit, two row tiles a unit and one buffer for the
     in-layer conv, one and two for res/skip; the folded A, the start conv,
     the coupling and the walk's products on the 64-row TMA-fed unit; the
-    counts by unit."""
+    counts by unit (at a width that is not a multiple of 64 a weight
+    gradient of the walk may take the mma.sync kernel, as before)."""
     plans = _plans(batch, t, h, with_g=gin > 0)
     for row, plan in plans.items():
         for p in plan["products"]:
             wn_forward = p["name"].startswith(("in_", "res_skip_"))
-            assert p["unit"] == ("ws" if wn_forward else "tma"), (row, p)
+            others = ("tma", "mma") if h % 64 and p["kind"] == "wgrad" else ("tma",)
+            assert p["unit"] == "ws" if wn_forward else p["unit"] in others, (row, p)
             if p["name"].startswith("in_"):
                 assert (p["chunks"], p["rows"], p["bufs"]) == (2, 2, 1)
                 assert p["shape"] == [batch * t, TAPS * h, 2 * h]
@@ -115,7 +120,7 @@ def test_static_order_puts_every_tile_in_one_slot(batch, t, kind):
     in-layer conv two tiles but the last where the count is odd; no more
     blocks than SMs or units, a whole number of column tiles' blocks; a
     block's units taking the column tiles in turn."""
-    for h in (192, 256):
+    for h in (96, 160, 192, 256):
         gate, last = kind == "in_conv", kind == "res_skip_last"
         plan = tc_gemm.bf16_ws_plan(batch, t, h, 2 * h, SMS, gate, last, TAPS if gate else 1)
         order = tc_gemm.bf16_ws_order(batch, t, plan)
@@ -141,7 +146,7 @@ def test_static_order_puts_every_tile_in_one_slot(batch, t, kind):
         assert len(short) == plan["col_tiles"] * ((batch * tiles_t) % plan["rows"])
 
 
-@pytest.mark.parametrize("h", [64, 192, 256])
+@pytest.mark.parametrize("h", [64, 96, 160, 192, 256])
 def test_shared_memory_within_a_block(h):
     """The unit's ring, accumulator buffers and barriers within a block's
     232,448 bytes: the in-layer conv four stages of two A boxes and two B
@@ -159,7 +164,7 @@ def test_shared_memory_within_a_block(h):
         assert 3 <= layout["stages"] <= 8 and layout["smem"] <= MAX_BLOCK_SMEM
 
 
-@pytest.mark.parametrize("h", [192, 256])
+@pytest.mark.parametrize("h", [96, 160, 192, 256])
 def test_last_res_skip_computes_the_skip_half(h):
     """The last layer's res/skip (its residual half discarded) takes only
     B's skip columns: N = h from column h, half the middle layers' units."""

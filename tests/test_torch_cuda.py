@@ -2728,6 +2728,9 @@ WS_GATE = {"saves": (True, False), "no_saves": (False, False), "g": (True, True)
            "g_no_saves": (False, True)}
 WS_RES_SKIP = {"first": (0, False), "middle": (1, False), "last": (3, False),
                "last_skip_mask": (3, True)}
+# h: the shipped base width, and two that are not a multiple of 64, whose
+# last column tile reaches past h
+WS_WIDTHS = [192, 160, 96]
 
 
 def _ws_operands(dev, b, t, h=192, taps=5, seed=3):
@@ -2758,17 +2761,20 @@ def _ws_runs(fn):
     return got
 
 
+@pytest.mark.parametrize("h", WS_WIDTHS)
 @pytest.mark.parametrize("b,t", WS_SHAPES)
 @pytest.mark.parametrize("case", sorted(WS_GATE))
-def test_bf16_ws_in_layer_conv_equals_64_row_unit(dev, case, b, t):
+def test_bf16_ws_in_layer_conv_equals_64_row_unit(dev, case, b, t, h):
     """The in-layer conv (5 taps at dilation 2, the gate epilogue, dropout
     on) on the warp-specialised unit: acts and, with saves, th and sg the
     64-row unit's bits, with and without the conditioning, and within
-    BF16_RTOL of the plain version."""
+    BF16_RTOL of the plain version; at h 160 and 96 the last column tile's
+    pairs past h write nothing (a write past a row would land in the next
+    row's first columns, or past the tensor's end)."""
     from glow_tts_train_tpu_torch.ops import tc_gemm
 
     saves, with_g = WS_GATE[case]
-    o = _ws_operands(dev, b, t)
+    o = _ws_operands(dev, b, t, h)
     kw = dict(taps=5, dilation=2, drop=(0.05, 1234, 1, 4), saves=saves,
               g=o["cond"] if with_g else None)
     got = _ws_runs(lambda unit: tc_gemm.bf16_wn_product("gate", o["x"], o["w_in"], o["b_in"],
@@ -2783,18 +2789,19 @@ def test_bf16_ws_in_layer_conv_equals_64_row_unit(dev, case, b, t):
         _bf16_held(f"{case} [{i}]", w.cpu(), ref)
 
 
+@pytest.mark.parametrize("h", WS_WIDTHS)
 @pytest.mark.parametrize("b,t", WS_SHAPES)
 @pytest.mark.parametrize("case", sorted(WS_RES_SKIP))
-def test_bf16_ws_res_skip_equals_64_row_unit(dev, case, b, t):
+def test_bf16_ws_res_skip_equals_64_row_unit(dev, case, b, t, h):
     """res/skip of the first, a middle and the last of 4 layers (the last's
     skip half only, with and without skip_mask) on the warp-specialised
     unit: the next x (in place, as the forward that saves nothing writes
     it), the f32 skip sum and skipm the 64-row unit's bits, and within
-    BF16_RTOL of the plain version."""
+    BF16_RTOL of the plain version, at h 192, 160 and 96."""
     from glow_tts_train_tpu_torch.ops import tc_gemm
 
     layer, skip_mask = WS_RES_SKIP[case]
-    o = _ws_operands(dev, b, t)
+    o = _ws_operands(dev, b, t, h)
 
     def run(unit):
         x_l, skip = o["x"].clone(), o["skip"].clone()
@@ -2822,7 +2829,7 @@ def test_bf16_ws_refuses_what_it_does_not_take(dev):
     from glow_tts_train_tpu_torch.ops import tc_gemm
 
     a = torch.zeros(5, 100, 192, dtype=BF16, device=dev)
-    with pytest.raises(ValueError, match="warp-specialised"):
+    with pytest.raises(ValueError, match="unit 'ws'"):
         tc_gemm.bf16_conv_product(a, torch.zeros(192, 384, dtype=BF16, device=dev), unit="ws")
     x = torch.zeros(2, 64, 48, dtype=BF16, device=dev)
     w = torch.zeros(5 * 48, 96, dtype=BF16, device=dev)
