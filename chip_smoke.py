@@ -225,7 +225,25 @@ Phases, each fatal on failure:
     within MEL_RTOL of max |mel| of the plain path on the card; on a
     machine with one GPU, two ranks on it under NCCL exit 2 (refused
     before NCCL fails);
-18. (last) host MAS (``host_mas_phase``): the host library
+18. model parallel (``model_parallel_phase``): two ranks of this script
+    (``--model-parallel-rank``) on card 0 over gloo as one model group
+    (``--model-parallel`` MP_SIZE: each keeps its slice of the last
+    dimension of 39 of the 54 leaves and of their Adam moments, and the
+    group gathers the whole weights by ``all_gather_into_tensor``),
+    ``configs/base.json`` at full width in f32 (as in 17) and in bf16 as
+    shipped, each from one fresh init twice: DDI and DP_STEPS steps with
+    dropout on data parallel, then sharded; the sharded run equals the
+    data-parallel one bit for bit (the four metrics, params, both moments
+    gathered whole, DDI's and the steps' launch counts) and each rank's
+    moment bytes are the partition plan's; the lines give each rank's
+    moment bytes against the data-parallel rank's, the gather's bytes and
+    ms a step and the step ms both ways; then the train CLI through
+    ``python -m torch.distributed.run --standalone --nproc-per-node 2
+    ... --model-parallel 2 --dist-backend gloo`` (both ranks on this card,
+    ``configs/base.json`` as shipped, one epoch): rank 0 alone writes one
+    checkpoint of whole params and moments, and one process resumes from
+    it with its Adam state;
+19. (last) host MAS (``host_mas_phase``): the host library
     (``ops/mas_native.py``, ``csrc/mas_host.cpp`` built by g++), which
     CPU tensors take, held bit for bit against the CUDA kernel and the
     plain version at HOST_MAS_SHAPES (the training shape, [2, 400, 2600],
@@ -260,7 +278,8 @@ terms, a flow block, a monotonic alignment).
 Prints the GPU's name and power limit, a ``{"products": [...]}``, a
 ``{"decoder_modes": {...}}``, a ``{"train_bf16": {...}}``, an
 ``{"export": {...}}``, a ``{"widths": {...}}``, a ``{"text_ops_bf16": {...}}``,
-a ``{"data_parallel": {...}}``, a ``{"host_mas": {...}}`` and a
+a ``{"data_parallel": {...}}``, a ``{"model_parallel": {...}}``, a
+``{"host_mas": {...}}`` and a
 ``{"kernels": [...]}`` JSON line, and last ``{"ok": true, "device":
 {...}}``.  Each profiled train step's line (f32, bf16, the widths') also
 prints the step's model FLOPs at its padded shape (``utils.flops``) and
@@ -4693,34 +4712,33 @@ def dp_load_state(path: str, hp, config, device):
     return state
 
 
-def dp_params_digest(model) -> str:
+def dp_digest(tensors: typing.Mapping[str, typing.Any]) -> str:
+    """sha256 of tensors by key (params, moments): their bits in order."""
     import hashlib
 
     digest = hashlib.sha256()
-    for key, p in model.flat().items():
+    for key, p in tensors.items():
         digest.update(key.encode())
         digest.update(p.detach().cpu().numpy().tobytes())
     return digest.hexdigest()
 
 
-def dp_rank_main(spec_path: str, rank: int) -> int:
-    """One rank of the data-parallel phase (``--data-parallel-rank SPEC
-    RANK``): joins the spec's group (gloo on card 0, or NCCL on card
-    ``rank``), runs each of the spec's runs
-    (DDI over the global batch where asked; DP_STEPS steps on its own MAS
-    paths and DP_STEPS on the one-process run's, each from the same
-    state; where the run names ``states``, the synced mode: each step
-    from the one-process run's state before it, on its path), times the
-    gradient all-reduce alone, and writes a JSON of its results beside
-    the spec."""
+def rank_main(spec_path: str, rank: int, model_parallel: int, one_run) -> int:
+    """One rank of the data- or model-parallel phase (``RANK_ROLES``'s
+    flag, SPEC RANK): joins the spec's group (gloo on card 0, or NCCL on
+    card ``rank``; model groups of ``model_parallel``), TF32 off, then for
+    each of the spec's runs loads its config, its DP_STEPS + 1 global
+    batches and its init params and calls ``one_run(run, config, hp,
+    batches, params, device, rank, world)`` (the run given the spec's
+    ``out``) -> the run's results; writes a JSON of them beside the
+    spec."""
     import datetime
 
     import numpy as np
     import torch
 
-    repo = Path(__file__).resolve().parent
-    sys.path.insert(0, str(repo))
-    from glow_tts_train_tpu_torch import kernels, parallel, training
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from glow_tts_train_tpu_torch import parallel
     from glow_tts_train_tpu_torch.config import load_config
     from glow_tts_train_tpu_torch.models import hyper_from_config
 
@@ -4729,92 +4747,110 @@ def dp_rank_main(spec_path: str, rank: int) -> int:
     local_rank = rank if spec["own_cards"] else 0
     device = parallel.join(parallel.Launch(rank, world, local_rank, spec["init"]),
                            spec["platform"], backend=spec["backend"],
-                           timeout=datetime.timedelta(seconds=DP_RANK_TIMEOUT))
+                           timeout=datetime.timedelta(seconds=DP_RANK_TIMEOUT),
+                           model_parallel=model_parallel)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    results = {"rank": rank, "world": parallel.world(), "device": str(device), "card": (
-        torch.cuda.get_device_name(device) if device.type == "cuda" else "host")}
+    results = {"rank": rank, "world": parallel.world(), "model_rank": parallel.model_rank(),
+               "device": str(device), "card": (
+                   torch.cuda.get_device_name(device) if device.type == "cuda" else "host")}
     try:
         for run in spec["runs"]:
             config = load_config([run["config"]])
-            hp = hyper_from_config(config)
             with np.load(run["batches"]) as data:
                 batches = [{k.split("/", 1)[1]: data[k] for k in data.files
                             if k.startswith(f"{i}/")} for i in range(DP_STEPS + 1)]
             with np.load(run["params"]) as data:
                 flat = {k: data[k] for k in data.files}
-            with np.load(run["paths"]) as data:
-                pinned = [torch.from_numpy(data[str(i)]) for i in range(DP_STEPS)]
-            model = training.trainable_model(flat, hp, device)
-            row = {}
-            if run["ddi"]:
-                kernels.reset_launch_counts()
-                training.actnorm_init(model, config, training.batch_to(
-                    dp_rows(batches[0], rank, world), device))
-                dp_sync(device)
-                row["ddi_launches"] = {k: v for k, v in kernels.launch_counts().items() if v}
-                params = model.flat()
-                np.savez(Path(spec["out"]) / f"{run['name']}_ddi.rank{rank}.npz",
-                         **{n: params[f"decoder/blocks/actnorm/{n}"].detach().cpu().numpy()
-                            for n in ("logs", "bias")})
-            base = training.TrainState(model)
-            for mode, pin in (("own", None), ("pinned", pinned)):
-                state = clone_state(base, hp, device)
-                out = dp_steps(config, state, batches[1:], device, pin, rank, world)
-                differing = [int((p != q[rank * p.shape[0]:(rank + 1) * p.shape[0]]).sum())
-                             for p, q in zip(out["paths"], pinned)]
-                row[mode] = {"metrics": out["metrics"], "step_ms": out["step_ms"],
-                             "launches": {k: v for k, v in out["launches"].items() if v},
-                             "path_cells_differing": differing,
-                             "path_cells": [int(p.sum()) for p in out["paths"]],
-                             "params_sha256": dp_params_digest(state.model)}
-                if mode == "pinned" and rank == 0 and run.get("reference"):
-                    with np.load(run["reference"]) as data:
-                        diffs = {k: float(np.abs(p.detach().cpu().numpy() - data[k]).max())
-                                 for k, p in state.model.flat().items()}
-                    worst = max(diffs, key=diffs.get)
-                    row[mode]["max_param_abs_err"] = diffs[worst]
-                    row[mode]["worst_leaf"] = worst
-                print(f"data parallel rank {rank} {run['name']} {mode}: metrics "
-                      f"{out['metrics']}, step ms {[round(t, 1) for t in out['step_ms']]}, "
-                      f"path cells differing {differing}", flush=True)
-                del state
-            if run.get("states"):  # synced: every step from the one process's state
-                synced = {"metrics": [], "step_ms": [], "launches": {}}
-                for i, state_path in enumerate(run["states"]):
-                    state = dp_load_state(state_path, hp, config, device)
-                    out = dp_steps(config, state, batches[1 + i:2 + i], device, pinned[i:i + 1],
-                                   rank, world)
-                    synced["metrics"] += out["metrics"]
-                    synced["step_ms"] += out["step_ms"]
-                    for k, v in out["launches"].items():
-                        if v:
-                            synced["launches"][k] = synced["launches"].get(k, 0) + v
-                    del state
-                row["synced"] = synced
-                print(f"data parallel rank {rank} {run['name']} synced: metrics "
-                      f"{synced['metrics']}, step ms "
-                      f"{[round(t, 1) for t in synced['step_ms']]}", flush=True)
-            if run["name"] == "f32":  # the gradient all-reduce alone: every leaf's size
-                grads = [torch.ones_like(p) for p in model.flat().values()]
-                times = []
-                for _ in range(DP_ALLREDUCE_RUNS):
-                    dp_sync(device)
-                    start = time.perf_counter()
-                    summed = parallel.all_reduce_sum(grads)
-                    dp_sync(device)
-                    times.append((time.perf_counter() - start) * 1e3)
-                if not all(bool((s == world).all()) for s in summed):
-                    raise AssertionError("the all-reduce's sums are not the world size")
-                row["all_reduce"] = {"bytes": sum(g.numel() * g.element_size() for g in grads),
-                                     "tensors": len(grads), "ms": times}
-            results[run["name"]] = row
-            del model, base
+            results[run["name"]] = one_run({**run, "out": spec["out"]}, config,
+                                           hyper_from_config(config), batches, flat, device,
+                                           rank, world)
             torch.cuda.empty_cache()
     finally:
         parallel.leave()
-    (Path(spec["out"]) / f"rank{rank}.json").write_text(json.dumps(results))
+    (Path(spec["out"]) / f"{spec['tag']}_rank{rank}.json").write_text(json.dumps(results))
     return 0
+
+
+def dp_one_run(run: dict, config, hp, batches: list, flat: dict, device, rank: int,
+               world: int) -> dict:
+    """A run of a data-parallel rank (``rank_main``): DDI over the global
+    batch where asked; DP_STEPS steps on its own MAS paths and DP_STEPS on
+    the one-process run's, each from the same state; where the run names
+    ``states``, the synced mode: each step from the one-process run's
+    state before it, on its path; for f32 the gradient all-reduce timed
+    alone."""
+    import numpy as np
+    import torch
+
+    from glow_tts_train_tpu_torch import kernels, parallel, training
+
+    with np.load(run["paths"]) as data:
+        pinned = [torch.from_numpy(data[str(i)]) for i in range(DP_STEPS)]
+    model = training.trainable_model(flat, hp, device)
+    row = {}
+    if run["ddi"]:
+        kernels.reset_launch_counts()
+        training.actnorm_init(model, config, training.batch_to(
+            dp_rows(batches[0], rank, world), device))
+        dp_sync(device)
+        row["ddi_launches"] = {k: v for k, v in kernels.launch_counts().items() if v}
+        params = model.flat()
+        np.savez(Path(run["out"]) / f"{run['name']}_ddi.rank{rank}.npz",
+                 **{n: params[f"decoder/blocks/actnorm/{n}"].detach().cpu().numpy()
+                    for n in ("logs", "bias")})
+    base = training.TrainState(model)
+    for mode, pin in (("own", None), ("pinned", pinned)):
+        state = clone_state(base, hp, device)
+        out = dp_steps(config, state, batches[1:], device, pin, rank, world)
+        differing = [int((p != q[rank * p.shape[0]:(rank + 1) * p.shape[0]]).sum())
+                     for p, q in zip(out["paths"], pinned)]
+        row[mode] = {"metrics": out["metrics"], "step_ms": out["step_ms"],
+                     "launches": {k: v for k, v in out["launches"].items() if v},
+                     "path_cells_differing": differing,
+                     "path_cells": [int(p.sum()) for p in out["paths"]],
+                     "params_sha256": dp_digest(state.model.flat())}
+        if mode == "pinned" and rank == 0 and run.get("reference"):
+            with np.load(run["reference"]) as data:
+                diffs = {k: float(np.abs(p.detach().cpu().numpy() - data[k]).max())
+                         for k, p in state.model.flat().items()}
+            worst = max(diffs, key=diffs.get)
+            row[mode]["max_param_abs_err"] = diffs[worst]
+            row[mode]["worst_leaf"] = worst
+        print(f"data parallel rank {rank} {run['name']} {mode}: metrics "
+              f"{out['metrics']}, step ms {[round(t, 1) for t in out['step_ms']]}, "
+              f"path cells differing {differing}", flush=True)
+        del state
+    if run.get("states"):  # synced: every step from the one process's state
+        synced = {"metrics": [], "step_ms": [], "launches": {}}
+        for i, state_path in enumerate(run["states"]):
+            state = dp_load_state(state_path, hp, config, device)
+            out = dp_steps(config, state, batches[1 + i:2 + i], device, pinned[i:i + 1],
+                           rank, world)
+            synced["metrics"] += out["metrics"]
+            synced["step_ms"] += out["step_ms"]
+            for k, v in out["launches"].items():
+                if v:
+                    synced["launches"][k] = synced["launches"].get(k, 0) + v
+            del state
+        row["synced"] = synced
+        print(f"data parallel rank {rank} {run['name']} synced: metrics "
+              f"{synced['metrics']}, step ms "
+              f"{[round(t, 1) for t in synced['step_ms']]}", flush=True)
+    if run["name"] == "f32":  # the gradient all-reduce alone: every leaf's size
+        grads = [torch.ones_like(p) for p in model.flat().values()]
+        times = []
+        for _ in range(DP_ALLREDUCE_RUNS):
+            dp_sync(device)
+            start = time.perf_counter()
+            summed = parallel.all_reduce_sum(grads)
+            dp_sync(device)
+            times.append((time.perf_counter() - start) * 1e3)
+        if not all(bool((s == world).all()) for s in summed):
+            raise AssertionError("the all-reduce's sums are not the world size")
+        row["all_reduce"] = {"bytes": sum(g.numel() * g.element_size() for g in grads),
+                             "tensors": len(grads), "ms": times}
+    return row
 
 
 def dp_free_port() -> int:
@@ -4825,23 +4861,31 @@ def dp_free_port() -> int:
         return s.getsockname()[1]
 
 
-def dp_start_ranks(workdir: Path, runs: list, device_line: str, cards: int) -> list:
-    """Ranks of this script (rendezvous on a free localhost port): with
-    ``cards`` 1, DP_RANKS of them on card 0 over gloo; else one a card on
-    ``cards`` cards over NCCL.  Waited for within DP_RANK_TIMEOUT -> each
-    rank's results; their output echoed."""
+# the ranks' roles: their flag to this script, the prefix of their lines
+RANK_ROLES = {"dp": ("--data-parallel-rank", "data parallel"),
+              "mp": ("--model-parallel-rank", "model parallel")}
+
+
+def dp_start_ranks(workdir: Path, runs: list, device_line: str, cards: int,
+                   tag: str = "dp") -> list:
+    """Ranks of this script in the role ``tag`` (``RANK_ROLES``;
+    rendezvous on a free localhost port): with ``cards`` 1, DP_RANKS of
+    them on card 0 over gloo; else one a card on ``cards`` cards over
+    NCCL.  Waited for within DP_RANK_TIMEOUT -> each rank's results; their
+    output echoed."""
+    flag, name = RANK_ROLES[tag]
     world = DP_RANKS if cards == 1 else cards
     spec = {"init": f"tcp://localhost:{dp_free_port()}", "world": world, "platform": PLATFORM,
             "backend": "gloo" if cards == 1 else "nccl", "own_cards": cards > 1,
-            "out": str(workdir), "runs": runs}
-    spec_path = workdir / "dp_spec.json"
+            "out": str(workdir), "tag": tag, "runs": runs}
+    spec_path = workdir / f"{tag}_spec.json"
     spec_path.write_text(json.dumps(spec))
     procs, logs = [], []
     for r in range(world):
-        logs.append(open(workdir / f"dp_rank{r}.log", "w"))
+        logs.append(open(workdir / f"{tag}_rank{r}.log", "w"))
         procs.append(subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--data-parallel-rank",
-             str(spec_path), str(r)], stdout=logs[-1], stderr=subprocess.STDOUT,
+            [sys.executable, str(Path(__file__).resolve()), flag, str(spec_path), str(r)],
+            stdout=logs[-1], stderr=subprocess.STDOUT,
         ))
     deadline = time.monotonic() + DP_RANK_TIMEOUT
     try:
@@ -4857,13 +4901,13 @@ def dp_start_ranks(workdir: Path, runs: list, device_line: str, cards: int) -> l
         for log in logs:
             log.close()
     for r, p in enumerate(procs):
-        text = (workdir / f"dp_rank{r}.log").read_text()
+        text = (workdir / f"{tag}_rank{r}.log").read_text()
         for line in text.splitlines():
-            if line.startswith("data parallel rank"):
+            if line.startswith(f"{name} rank"):
                 print(f"{line} [{device_line}]")
         if p.returncode != 0:
-            fail(f"data parallel: rank {r} exited {p.returncode}: {text[-3000:]}")
-    return [json.loads((workdir / f"rank{r}.json").read_text()) for r in range(world)]
+            fail(f"{name}: rank {r} exited {p.returncode}: {text[-3000:]}")
+    return [json.loads((workdir / f"{tag}_rank{r}.json").read_text()) for r in range(world)]
 
 
 def dp_one_process(config, params: dict, batches: list, device, name: str,
@@ -5084,6 +5128,62 @@ def dp_hold_margins(ranks: list, refs: dict, device_line: str) -> dict:
     return holds
 
 
+def torchrun_argv(nproc: int) -> list:
+    """``python -m torch.distributed.run --standalone`` with ``nproc``
+    ranks: the launcher a train CLI run goes under."""
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+            str(nproc)]
+
+
+def spawn_train_cli(workdir: Path, repo: Path, config_path: Path, corpus: Path,
+                    launcher: list, tag: str, what: str, *extra,
+                    must_pass: bool = True) -> tuple:
+    """The train CLI under ``launcher`` (``torchrun_argv``, or the
+    interpreter alone) on the corpus, ``config_path`` for one epoch, its
+    output in ``workdir / tag`` and its metrics in ``tag``.jsonl, with
+    ``extra`` flags; in a session of its own, so that a timeout stops the
+    launcher's ranks too.  Fails past DP_CLI_TIMEOUT and, with
+    ``must_pass``, on a nonzero exit -> (the finished process, seconds)."""
+    import os
+    import signal
+
+    override = workdir / "cli_one_epoch.json"
+    override.write_text(json.dumps({"epochs": 1}))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(repo), os.environ.get("PYTHONPATH", "")]))
+    argv = [*launcher, "-m", "glow_tts_train_tpu_torch", "--output", str(workdir / tag),
+            "--dataset", "0", str(corpus / "phonemes.csv"), str(corpus / "mels"), "--mels-dir",
+            "--config", str(config_path), "--config", str(override), "--metrics-file",
+            str(workdir / f"{tag}.jsonl"), "--platform", PLATFORM, *extra]
+    start = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=repo, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=DP_CLI_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        fail(f"{what} {tag}: no end within {DP_CLI_TIMEOUT} s: {err[-3000:]}")
+    if must_pass and proc.returncode != 0:
+        fail(f"{what} {tag}: exit {proc.returncode}: {out[-2000:]}{err[-4000:]}")
+    return (subprocess.CompletedProcess(argv, proc.returncode, out, err),
+            time.perf_counter() - start)
+
+
+def one_epoch_written(workdir: Path, tag: str, what: str) -> tuple:
+    """The CLI run ``tag`` wrote one checkpoint, its config and one
+    metrics line (rank 0 alone) with a finite epoch loss, else fails ->
+    (its files, that line, its global step)."""
+    files = sorted(p.name for p in (workdir / tag).iterdir())
+    lines = [json.loads(l) for l in (workdir / f"{tag}.jsonl").read_text().splitlines()]
+    step = lines[-1]["global_step"] if lines else None
+    if len(lines) != 1 or files != [f"checkpoint_{step}.npz", f"config_{step}.json"]:
+        fail(f"{what}: wrote {files} and {len(lines)} metrics lines; one checkpoint, "
+             "its config and one line from rank 0 expected")
+    if not math.isfinite(lines[0]["avg_loss"]):
+        fail(f"{what}: epoch loss {lines[0]['avg_loss']}")
+    return files, lines[0], step
+
+
 def dp_cli(workdir: Path, repo: Path, config_path: Path, corpus: Path, device_line: str,
            nproc: typing.Optional[int] = None) -> dict:
     """(b) The train CLI through ``python -m torch.distributed.run
@@ -5095,9 +5195,6 @@ def dp_cli(workdir: Path, repo: Path, config_path: Path, corpus: Path, device_li
     the plain path on the card within MEL_RTOL of max |mel|.  On a machine
     with one GPU the CLI runs a world of one through the launcher, and two
     ranks on that card are shown refused (exit 2) before NCCL fails."""
-    import os
-    import signal
-
     import numpy as np
     import torch
 
@@ -5106,43 +5203,11 @@ def dp_cli(workdir: Path, repo: Path, config_path: Path, corpus: Path, device_li
     n_gpus = torch.cuda.device_count()
     nproc = nproc or min(2, n_gpus)
     config = load_config([config_path])
-    override = workdir / "dp_cli_override.json"
-    override.write_text(json.dumps({"epochs": 1}))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(repo), os.environ.get("PYTHONPATH", "")]))
-
-    def torchrun(n: int, tag: str):
-        argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-                "--nproc-per-node", str(n), "-m", "glow_tts_train_tpu_torch",
-                "--output", str(workdir / tag), "--dataset", "0", str(corpus / "phonemes.csv"),
-                str(corpus / "mels"), "--mels-dir", "--config", str(config_path), "--config",
-                str(override), "--metrics-file", str(workdir / f"{tag}.jsonl"),
-                "--platform", PLATFORM]
-        start = time.perf_counter()
-        # a session of its own, so that a timeout stops the launcher's ranks too
-        proc = subprocess.Popen(argv, cwd=repo, env=env, stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True, start_new_session=True)
-        try:
-            out, err = proc.communicate(timeout=DP_CLI_TIMEOUT)
-        except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, signal.SIGKILL)
-            out, err = proc.communicate()
-            fail(f"data parallel CLI ({n} ranks): no end within {DP_CLI_TIMEOUT} s: {err[-3000:]}")
-        return (subprocess.CompletedProcess(argv, proc.returncode, out, err),
-                time.perf_counter() - start)
-
-    proc, seconds = torchrun(nproc, "dp_cli")
-    if proc.returncode != 0:
-        fail(f"data parallel CLI ({nproc} ranks): exit {proc.returncode}: "
-             f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    what = f"data parallel CLI ({nproc} ranks)"
+    _, seconds = spawn_train_cli(workdir, repo, config_path, corpus, torchrun_argv(nproc),
+                                 "dp_cli", what)
+    files, epoch, step = one_epoch_written(workdir, "dp_cli", what)
     out = workdir / "dp_cli"
-    files = sorted(p.name for p in out.iterdir())
-    lines = [json.loads(l) for l in (workdir / "dp_cli.jsonl").read_text().splitlines()]
-    step = lines[-1]["global_step"] if lines else None
-    if len(lines) != 1 or files != [f"checkpoint_{step}.npz", f"config_{step}.json"]:
-        fail(f"data parallel CLI: wrote {files} and {len(lines)} metrics lines; one checkpoint, "
-             "its config and one line from rank 0 expected")
-    if not math.isfinite(lines[0]["avg_loss"]):
-        fail(f"data parallel CLI: epoch loss {lines[0]['avg_loss']}")
     ckpt, cfg = out / f"checkpoint_{step}.npz", out / f"config_{step}.json"
     stdin_text = requests(config.model.num_symbols)
     extra = ("--noise-scale", "0")
@@ -5158,15 +5223,17 @@ def dp_cli(workdir: Path, repo: Path, config_path: Path, corpus: Path, device_li
         errs[utt] = {"frames": ref.shape[1], "max_abs_err": err, "max_abs_mel": scale}
     row = {"backend": "nccl" if nproc > 1 else "none (a world of one)", "world": nproc,
            "devices": [f"cuda:{i}" for i in range(nproc)], "visible_gpus": n_gpus,
-           "seconds": seconds, "epoch": lines[0], "files": files, "serve_b1": errs,
+           "seconds": seconds, "epoch": epoch, "files": files, "serve_b1": errs,
            "serve_seconds": serve_s}
     print(f"data parallel CLI: torch.distributed.run --standalone --nproc-per-node {nproc} "
           f"({row['backend']}, {n_gpus} visible GPU(s)): {seconds:.1f} s for DDI and "
           f"{step - 1} steps of {config_path.name} as shipped (batch {config.batch_size}), "
-          f"epoch {lines[0]}, files {files}; served at b=1 against the plain path on the card "
+          f"epoch {epoch}, files {files}; served at b=1 against the plain path on the card "
           f"{errs} [{device_line}]")
     if n_gpus < 2:
-        refused, refused_s = torchrun(2, "dp_cli_shared")
+        refused, refused_s = spawn_train_cli(
+            workdir, repo, config_path, corpus, torchrun_argv(2), "dp_cli_shared",
+            "data parallel CLI (2 ranks)", must_pass=False)
         text = refused.stdout + refused.stderr
         if refused.returncode == 0 or "would share a card" not in text:
             fail(f"data parallel CLI: 2 ranks on one card under NCCL exited {refused.returncode} "
@@ -5196,6 +5263,263 @@ def data_parallel_phase(workdir: Path, repo: Path, config_path: Path, device_lin
     cli = dp_cli(workdir, repo, config_path, corpus, device_line, cards if cards > 1 else None)
     seconds = time.perf_counter() - start
     print(f"data parallel: phase {seconds:.1f} s [{device_line}]")
+    return {"device": device_line, "seconds": seconds, "library": library, "cli": cli}
+
+
+# ---------------------------------------------------------------------------
+# model parallel: two ranks as one model group (--model-parallel 2) on this
+# card over gloo, against the same ranks' data-parallel steps; then the
+# train CLI under torch.distributed.run with --model-parallel 2
+# ---------------------------------------------------------------------------
+
+MP_SIZE = 2
+# the gather of the whole weights from the master slices, timed alone this
+# many times a rank
+MP_GATHER_RUNS = 10
+
+
+def mp_one_run(run: dict, config, hp, batches: list, flat: dict, device, rank: int,
+               world: int) -> dict:
+    """A run of a model-parallel rank (``rank_main``, model groups of
+    MP_SIZE), f32 or bf16, twice from the same fresh init: DDI on its rows
+    of the first global batch, then DP_STEPS steps with dropout on, first
+    data parallel (``TrainState(model_parallel=1)``), then sharded
+    (MP_SIZE).  Records the metrics, step ms, launches, digests of the
+    params and of the moments gathered whole, this rank's moment and
+    master bytes, and the gather of the whole weights timed alone."""
+    import torch
+
+    from glow_tts_train_tpu_torch import kernels, training
+
+    row = {}
+    for mode, size in (("data", 1), ("model", MP_SIZE)):
+        model = training.trainable_model(flat, hp, device)
+        kernels.reset_launch_counts()
+        training.actnorm_init(model, config, training.batch_to(
+            dp_rows(batches[0], rank, world), device))
+        ddi_launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        state = training.TrainState(model, model_parallel=size)
+        out = dp_steps(config, state, batches[1:], device, None, rank, world)
+        whole = state.whole_opt()
+        moments = list(state.opt.mu.values()) + list(state.opt.nu.values())
+        entry = {
+            "metrics": out["metrics"], "step_ms": out["step_ms"],
+            "launches": {k: v for k, v in out["launches"].items() if v},
+            "ddi_launches": ddi_launches,
+            "params_sha256": dp_digest(state.model.flat()),
+            "mu_sha256": dp_digest(whole.mu), "nu_sha256": dp_digest(whole.nu),
+            "moment_bytes": sum(t.numel() * t.element_size() for t in moments),
+            "master_bytes": sum(t.numel() * t.element_size() for t in state.master.values()),
+            "sharded_leaves": len(state.sharded),
+            "own_moment_shapes_ok": all(
+                tuple(state.opt.mu[k].shape) == (*p.shape[:-1], p.shape[-1] // size)
+                for k, p in state.model.flat().items() if k in set(state.sharded)),
+        }
+        if size > 1:
+            slices = [state.master[k] for k in state.sharded]
+            times = []
+            for _ in range(MP_GATHER_RUNS):
+                dp_sync(device)
+                start = time.perf_counter()
+                state.gather()
+                dp_sync(device)
+                times.append((time.perf_counter() - start) * 1e3)
+            entry["gather"] = {
+                "slice_bytes": sum(t.numel() * t.element_size() for t in slices),
+                "whole_bytes": sum(t.numel() * t.element_size() for t in slices) * size,
+                "tensors": len(slices), "ms": times,
+                "params_unchanged": dp_digest(state.model.flat()) == entry["params_sha256"],
+            }
+        row[mode] = entry
+        print(f"model parallel rank {rank} {run['name']} {mode}: metrics {out['metrics']}, "
+              f"step ms {[round(t, 1) for t in out['step_ms']]}, moment bytes "
+              f"{entry['moment_bytes']}", flush=True)
+        del state, model, whole, moments
+        torch.cuda.empty_cache()
+    return row
+
+
+def mp_library(workdir: Path, config_path: Path, corpus: Path, device_line: str,
+               cards: int = 1) -> dict:
+    """(a) MP_SIZE ranks on this card over gloo as one model group
+    (``cards`` > 1: a rank a card over NCCL, groups of MP_SIZE), f32
+    (``DP_F32_OVERRIDE``) and bf16 as shipped, each from one fresh init:
+    DDI, then DP_STEPS steps with dropout on, data parallel and then
+    sharded.  Holds the sharded run to the data-parallel one bit for bit
+    (metrics, params, both moments gathered whole), the launch counts
+    equal, each rank's moment bytes to the partition plan's, and prints
+    the bytes, the gather's ms and the step ms."""
+    import numpy as np
+    import torch
+
+    from glow_tts_train_tpu_torch.config import load_config
+    from glow_tts_train_tpu_torch.models import hyper_from_config, init_model
+    from glow_tts_train_tpu_torch.parallel import partitioning
+
+    override_path = workdir / "mp_f32_override.json"
+    override_path.write_text(json.dumps(DP_F32_OVERRIDE))
+    runs, shapes = [], {}
+    for name, paths in {"f32": [config_path, override_path], "bf16": [config_path]}.items():
+        config = load_config(paths)
+        config_file = workdir / f"mp_{name}.json"
+        with open(config_file, "w") as f:
+            config.save(f)
+        hp = hyper_from_config(config)
+        batches = dp_global_batches(corpus, config, DP_STEPS + 1)
+        np.savez(workdir / f"mp_{name}_batches.npz",
+                 **{f"{i}/{k}": v for i, b in enumerate(batches) for k, v in b.items()})
+        init = init_model(hp, torch.Generator().manual_seed(config.seed))
+        shapes[name] = {k: tuple(v.shape) for k, v in init.items()}
+        np.savez(workdir / f"mp_{name}_init.npz", **{k: v.numpy() for k, v in init.items()})
+        runs.append({"name": name, "config": str(config_file),
+                     "batches": str(workdir / f"mp_{name}_batches.npz"),
+                     "params": str(workdir / f"mp_{name}_init.npz"),
+                     "global_batch": [list(batches[1]["x"].shape), list(batches[1]["y"].shape)]})
+    ranks = dp_start_ranks(workdir, runs, device_line, cards, "mp")
+    shared = cards == 1
+    where = (f"{len(ranks)} ranks on one card over gloo" if shared
+             else f"{len(ranks)} ranks a card each over NCCL")
+    row = {"backend": "gloo" if shared else "nccl", "world": len(ranks),
+           "model_parallel": MP_SIZE, "devices": [r["device"] for r in ranks],
+           "collective": "all_gather_into_tensor",
+           "note": (f"{len(ranks)} ranks share one card (cuda:0): step and gather times are of "
+                    "ranks sharing it, over gloo (host copies), not of a card each") if shared
+           else f"{len(ranks)} ranks, a card each, NCCL"}
+    for run in runs:
+        name = run["name"]
+        numel = {k: int(np.prod(v)) for k, v in shapes[name].items()}
+        sharded = partitioning.sharded_keys(shapes[name], MP_SIZE)
+        whole_moments = 8 * sum(numel.values())
+        want_moments = whole_moments - 8 * sum(numel[k] for k in sharded) * (MP_SIZE - 1) // MP_SIZE
+        entry = {"global_batch": run["global_batch"], "steps": DP_STEPS,
+                 "sharded_leaves": len(sharded), "leaves": len(numel), "ranks": []}
+        for res in ranks:
+            r, data, model = res["rank"], res[name]["data"], res[name]["model"]
+            for k in ("metrics", "launches", "ddi_launches", "params_sha256", "mu_sha256",
+                      "nu_sha256"):
+                if model[k] != data[k]:
+                    fail(f"model parallel {name} rank {r}: {k} differ from the data-parallel "
+                         f"run's: {model[k]} against {data[k]}")
+            if data["moment_bytes"] != whole_moments or model["moment_bytes"] != want_moments:
+                fail(f"model parallel {name} rank {r}: moment bytes {model['moment_bytes']} "
+                     f"(data parallel {data['moment_bytes']}), the plan's {want_moments} "
+                     f"({whole_moments})")
+            if not model["own_moment_shapes_ok"] or model["sharded_leaves"] != len(sharded):
+                fail(f"model parallel {name} rank {r}: its moments are not its slices")
+            if not model["gather"]["params_unchanged"]:
+                fail(f"model parallel {name} rank {r}: a gather changed the whole weights")
+            if not any(v for k, v in data["launches"].items()):
+                fail(f"model parallel {name} rank {r}: no kernel launched")
+            entry["ranks"].append({
+                "rank": r, "model_rank": res["model_rank"], "metrics": model["metrics"],
+                "launches": model["launches"],
+                "moment_bytes": {"model": model["moment_bytes"], "data": data["moment_bytes"]},
+                "master_bytes": model["master_bytes"],
+                "step_ms": {"model": model["step_ms"], "data": data["step_ms"]},
+                "gather": model["gather"],
+                "median_gather_ms": statistics.median(model["gather"]["ms"])})
+        for mode in ("data", "model"):
+            if len({res[name][mode]["params_sha256"] for res in ranks}) != 1:
+                fail(f"model parallel {name} {mode}: the ranks' params differ")
+        entry["bit_for_bit"] = True
+        row[name] = entry
+        g = entry["ranks"][0]["gather"]
+        print(f"model parallel {name}: global batch {run['global_batch']}, {where}, "
+              f"--model-parallel {MP_SIZE}: {DP_STEPS} steps from one init (DDI, dropout on) "
+              f"equal the same ranks' data-parallel steps bit for bit (metrics, params, both "
+              f"moments gathered whole, launches {entry['ranks'][0]['launches']}); "
+              f"{len(sharded)} of {len(numel)} leaves sharded [{device_line}]")
+        print(f"model parallel {name}: moment bytes a rank {[e['moment_bytes']['model'] for e in entry['ranks']]} "
+              f"against the data-parallel rank's {[e['moment_bytes']['data'] for e in entry['ranks']]}; "
+              f"master bytes {[e['master_bytes'] for e in entry['ranks']]} [{device_line}]")
+        print(f"model parallel {name}: all-gather of the whole weights {g['slice_bytes']} bytes a "
+              f"rank in ({g['whole_bytes']} gathered, {g['tensors']} f32 slices in one flat "
+              f"buffer) a step, median ms by rank "
+              f"{[round(e['median_gather_ms'], 2) for e in entry['ranks']]} ({where}) "
+              f"[{device_line}]")
+        after = {mode: [statistics.median(e["step_ms"][mode][1:]) for e in entry["ranks"]]
+                 for mode in ("model", "data")}
+        entry["median_step_ms_after_first"] = after
+        print(f"model parallel {name}: step ms by rank, sharded "
+              f"{[[round(t, 1) for t in e['step_ms']['model']] for e in entry['ranks']]} against "
+              f"data parallel {[[round(t, 1) for t in e['step_ms']['data']] for e in entry['ranks']]}"
+              f"; median after the first {[round(t, 1) for t in after['model']]} against "
+              f"{[round(t, 1) for t in after['data']]} ({where}) [{device_line}]")
+    return row
+
+
+def mp_cli(workdir: Path, repo: Path, config_path: Path, corpus: Path, device_line: str,
+           cards: int = 1) -> dict:
+    """(b) The train CLI through ``python -m torch.distributed.run
+    --standalone --nproc-per-node N ... --model-parallel MP_SIZE``: on one
+    card N = MP_SIZE ranks sharing it over gloo (``--dist-backend
+    gloo``), on ``cards`` > 1 a rank a card over NCCL; configs/base.json
+    as shipped, one epoch.  Rank 0 alone writes one checkpoint (params and
+    Adam moments whole), its config and one metrics line; then one
+    process resumes from it for one epoch and restores its Adam state."""
+    import numpy as np
+
+    from glow_tts_train_tpu_torch.checkpoint import param_shapes, read_npz
+    from glow_tts_train_tpu_torch.config import load_config
+    from glow_tts_train_tpu_torch.models import hyper_from_config
+
+    nproc = MP_SIZE if cards == 1 else cards
+    backend = "gloo" if cards == 1 else "nccl"
+    what = "model parallel CLI"
+    _, seconds = spawn_train_cli(workdir, repo, config_path, corpus, torchrun_argv(nproc),
+                                 "mp_cli", what, "--model-parallel", str(MP_SIZE),
+                                 "--dist-backend", backend)
+    files, epoch, step = one_epoch_written(workdir, "mp_cli", what)
+    out = workdir / "mp_cli"
+    ckpt = out / f"checkpoint_{step}.npz"
+    saved: dict = {}
+    flat, _ = read_npz(ckpt, saved)
+    shapes = param_shapes(hyper_from_config(load_config([out / f"config_{step}.json"])))
+    for key, shape in shapes.items():
+        moments = [saved.get(f"1/{m}/{key[len('model/'):]}") for m in ("mu", "nu")]
+        if tuple(flat[key].shape) != shape or any(
+                m is None or tuple(m.shape) != shape or not np.isfinite(m).all() for m in moments):
+            fail(f"model parallel CLI: {key} or its moments not whole in {ckpt.name}")
+    if int(saved["1/count"]) != step - 1:
+        fail(f"model parallel CLI: Adam count {int(saved['1/count'])} after {step - 1} steps")
+    resumed_proc, resume_s = spawn_train_cli(workdir, repo, config_path, corpus,
+                                             [sys.executable], "mp_cli_resumed", what,
+                                             "--checkpoint", str(ckpt))
+    text = resumed_proc.stdout + resumed_proc.stderr
+    want = f"Restored Adam state (count={step - 1})"
+    resumed = sorted(p.name for p in (workdir / "mp_cli_resumed").iterdir())
+    if want not in text or len(resumed) != 2:
+        fail(f"model parallel CLI: the one-process resume from {ckpt.name} wrote {resumed}, "
+             f"without {want!r}: {text[-3000:]}")
+    row = {"backend": backend, "world": nproc, "model_parallel": MP_SIZE, "seconds": seconds,
+           "epoch": epoch, "files": files, "resumed_one_process": {
+               "seconds": resume_s, "files": resumed, "adam_count": step - 1}}
+    print(f"model parallel CLI: torch.distributed.run --standalone --nproc-per-node {nproc} "
+          f"--model-parallel {MP_SIZE} ({backend}): {seconds:.1f} s for DDI and {step - 1} steps "
+          f"of {config_path.name} as shipped, epoch {epoch}, files {files} (params and Adam "
+          f"moments whole); one process resumed from it ({want}) in {resume_s:.1f} s, wrote "
+          f"{resumed} [{device_line}]")
+    return row
+
+
+def model_parallel_phase(workdir: Path, repo: Path, config_path: Path, device_line: str,
+                         cards: int = 1) -> dict:
+    """Phase 18: (a) ``mp_library`` and (b) ``mp_cli`` on the corpus of
+    the training phase (made here where that phase did not run).
+    ``cards`` > 1 (``scripts/torch-model-parallel-probe.py --cards``,
+    even): both on that many cards, a rank a card over NCCL."""
+    import torch
+
+    corpus = workdir / "corpus"
+    if not (corpus / "manifest.json").exists():
+        corpus, _ = make_corpus(workdir, repo)
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    library = mp_library(workdir, config_path, corpus, device_line, cards)
+    torch.cuda.empty_cache()
+    cli = mp_cli(workdir, repo, config_path, corpus, device_line, cards)
+    seconds = time.perf_counter() - start
+    print(f"model parallel: phase {seconds:.1f} s [{device_line}]")
     return {"device": device_line, "seconds": seconds, "library": library, "cli": cli}
 
 
@@ -5312,7 +5636,9 @@ def main() -> int:
     import torch
 
     if len(sys.argv) > 1 and sys.argv[1] == "--data-parallel-rank":
-        return dp_rank_main(sys.argv[2], int(sys.argv[3]))
+        return rank_main(sys.argv[2], int(sys.argv[3]), 1, dp_one_run)
+    if len(sys.argv) > 1 and sys.argv[1] == "--model-parallel-rank":
+        return rank_main(sys.argv[2], int(sys.argv[3]), MP_SIZE, mp_one_run)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -5556,6 +5882,9 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
     # ---- main path 9: data parallel, two ranks over gloo, the CLI over NCCL ----
     data_parallel = data_parallel_phase(workdir, repo, config_path, device_line)
 
+    # ---- main path 10: model parallel, two ranks as one model group ----
+    model_parallel = model_parallel_phase(workdir, repo, config_path, device_line)
+
     # ---- host MAS: the library CPU tensors take, against the kernel ----
     host_mas = host_mas_phase(device_line)
 
@@ -5570,6 +5899,7 @@ def run(workdir: Path, repo: Path, config_path: Path, device_line: str) -> int:
     print(json.dumps({"widths": widths}))
     print(json.dumps({"text_ops_bf16": text_ops}))
     print(json.dumps({"data_parallel": data_parallel}))
+    print(json.dumps({"model_parallel": model_parallel}))
     print(json.dumps({"host_mas": host_mas}))
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,7 @@
 <speaker_id> <phonemes_csv> <mels>, --mels-dir, --config (repeatable,
 merged in order), --batch-size, --checkpoint, --checkpoint-epochs,
 --skip-missing-mels, --metrics-file, --profile-dir, --git-commit, --debug,
-plus ``--platform {cuda,cpu}``.
+plus ``--platform {cuda,cpu}`` and ``--dist-backend {nccl,gloo}``.
 
 ``--platform cuda`` (the default) trains with the hand-written CUDA
 kernels and exits with an error when no GPU is present; ``--platform
@@ -34,9 +34,22 @@ step (``training.make_train_step``); rank 0 alone writes checkpoints,
 their configs, the metrics file and the profile.  A batch that the world
 size does not divide, a local batch that ``grad_accum_steps`` does not
 divide, ``--no-mesh`` under a world of more than one, and two ranks on one
-card under NCCL exit 2; ``--model-parallel`` above 1 and
-``--virtual-devices`` (tensor parallelism and XLA's virtual CPU devices)
-are not ported and exit 2.
+card under NCCL exit 2; ``--virtual-devices`` (XLA's virtual CPU devices)
+is not ported and exits 2.  ``--dist-backend gloo`` takes gloo on the
+GPUs too, which lets ranks share a card (NCCL refuses that): a test's
+setting, for one card; with one rank a GPU the default is the one to use.
+
+Tensor parallelism, ``--model-parallel M`` (the JAX CLI's flag): the W
+ranks form a (W / M, M) grid, the model axis innermost, and each row of
+M ranks is a model group (``parallel/mesh.py``).  The batch still splits
+over all W ranks and the gradients still sum over all W; each rank keeps
+its slice of the last dimension of every weight that shards
+(``parallel/partitioning.py``, JAX's rule) and of that weight's Adam
+moments, updates it, and the group gathers the whole weights that the
+kernels read.  A step gives the bits of the W-rank data-parallel step;
+checkpoints hold whole params and moments (gathered, rank 0 writes) and
+resume under any M.  An M below 1, one that does not divide the world,
+and ``--no-mesh`` with M above 1 exit 2 before any rendezvous.
 """
 
 import argparse
@@ -93,7 +106,16 @@ def main(argv=None):
     )
     parser.add_argument(
         "--model-parallel", type=int, default=1, metavar="M",
-        help="Tensor parallelism: not ported, any value above 1 is refused",
+        help="Tensor parallelism: lay the ranks out as a 2-D (data, model) grid of shape "
+        "(n_ranks/M, M); weights and Adam moments shard over the model axis, each rank "
+        "updating its slice and the model group gathering the whole weights "
+        "(parallel/partitioning.py).  Default 1 = pure data parallelism",
+    )
+    parser.add_argument(
+        "--dist-backend", choices=("nccl", "gloo"),
+        help="Process-group backend (default nccl with --platform cuda, gloo with cpu). "
+        "gloo with --platform cuda is for ranks that share one card (tests); with one "
+        "rank a GPU leave the default",
     )
     parser.add_argument(
         "--virtual-devices", type=int,
@@ -128,11 +150,6 @@ def main(argv=None):
         check_trainable(config)
     except ValueError as err:
         parser.error(str(err))
-    if args.model_parallel != 1:
-        parser.error(
-            f"--model-parallel {args.model_parallel}: tensor parallelism is not ported; the "
-            "port trains data parallel, one process a GPU"
-        )
     if args.virtual_devices is not None:
         parser.error(
             "--virtual-devices: not ported; launch CPU ranks with "
@@ -144,6 +161,12 @@ def main(argv=None):
         parser.error(str(err))
     if args.no_mesh and launch.world > 1:
         parser.error(f"--no-mesh runs one process, but the launch has {launch.world} ranks")
+    if args.no_mesh and args.model_parallel > 1:
+        parser.error(f"--model-parallel {args.model_parallel} requires a mesh (--no-mesh)")
+    try:
+        parallel.check_model_parallel(launch.world, args.model_parallel)
+    except ValueError as err:
+        parser.error(f"--model-parallel {args.model_parallel}: {err}")
     if args.batch_size is not None:
         config.batch_size = args.batch_size
     if config.batch_size % launch.world:
@@ -161,7 +184,8 @@ def main(argv=None):
     if args.platform == "cuda" and not torch.cuda.is_available():
         parser.error("--platform cuda: no CUDA device is available")
     try:
-        device = parallel.join(launch, args.platform)
+        device = parallel.join(launch, args.platform, backend=args.dist_backend,
+                               model_parallel=args.model_parallel)
     except ValueError as err:
         parser.error(str(err))
     try:
@@ -246,7 +270,7 @@ def _train(args, parser, config, output, device, local_batch):
                     args.checkpoint, len(saved_opt), why,
                 )
             else:
-                state.opt = opt
+                state.take_opt(opt)  # under --model-parallel this rank's slices
                 _LOGGER.info("Restored Adam state (count=%s)", opt.count)
         # continue the data order: epoch e shuffles with seed + e, and a
         # fresh run spent the epoch-0 draw on its DDI batch
@@ -263,8 +287,9 @@ def _train(args, parser, config, output, device, local_batch):
         state = TrainState(initialize_model(config, first_batch, device))
 
     _LOGGER.info(
-        "Training started (batch size=%s, %s rank(s) of %s, platform=%s)",
-        config.batch_size, parallel.world(), local_batch, args.platform,
+        "Training started (batch size=%s, %s rank(s) of %s, model parallel %s, platform=%s)",
+        config.batch_size, parallel.world(), local_batch, parallel.model_parallel(),
+        args.platform,
     )
     try:
         train(

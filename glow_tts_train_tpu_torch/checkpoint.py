@@ -20,6 +20,11 @@ mappers (:func:`read_pth`, :func:`save_torch_checkpoint`): its state dict
 to and from the ``model/`` arrays, its ``torch.optim.Adam`` state to and
 from the ``opt/`` arrays.  :func:`read_checkpoint` takes either format.
 
+A checkpoint holds whole leaves whatever the training's tensor
+parallelism: the trainer gathers the Adam moments over each model group
+(``training.TrainState.whole_opt``) before rank 0 writes, and a rank that
+resumes keeps its slices of them (``training.TrainState.take_opt``).
+
 Loading for serving is strict (:func:`load_checkpoint`: a missing, extra
 or mis-shaped ``model/`` key raises); the train CLI's ``--checkpoint``
 merges tolerantly into a fresh init (:func:`merge_into`).

@@ -11,6 +11,11 @@ step rounds as the optax formula does:
 (``torch.optim.Adam`` places eps after the bias-corrected square root
 differently.)  The schedule is evaluated at count + 1, as the reference's
 step numbering starts at 1.
+
+Every operation is element by element, so Adam on a slice of a leaf
+(tensor parallelism: a rank's contiguous slice of the weight and of its
+moments, the same slice of the whole gradient) gives each element the
+bits it gets on the whole leaf.
 """
 
 import typing
@@ -53,6 +58,7 @@ class AdamState(typing.NamedTuple):
 
 
 def adam_init(params: typing.Mapping[str, torch.Tensor]) -> AdamState:
+    """Zero moments shaped as ``params`` (whole leaves or a rank's slices)."""
     zeros = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
     return AdamState(zeros, {k: z.clone() for k, z in zeros.items()}, 0)
 
@@ -65,7 +71,9 @@ def adam_update(
     config,
 ) -> AdamState:
     """Clip, Adam and the scheduled step, applied to ``params`` in place;
-    returns the new moments (updated in place too) and count."""
+    returns the new moments (updated in place too) and count.  ``params``,
+    ``grads`` and the moments may be slices of the leaves, each key's
+    three of one shape."""
     b1, b2 = config.betas
     count = state.count + 1
     lr = learning_rate_fn(config)(state.count)

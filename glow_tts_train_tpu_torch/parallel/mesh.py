@@ -1,5 +1,5 @@
-"""Data parallelism over processes, one a GPU: the counterpart of the JAX
-package's ``parallel/mesh.py``.
+"""Data and tensor parallelism over processes, one a GPU: the counterpart
+of the JAX package's ``parallel/mesh.py``.
 
 The JAX package builds a 1-D mesh over every device it sees, shards the
 global batch along it and lets XLA insert the gradient all-reduce.  The
@@ -21,6 +21,16 @@ and :func:`all_reduce_sum` the identity, the single-device path.  The
 mesh and sharding names of the JAX module (``default_mesh``,
 ``batch_sharding``, ``replicated``, ``shard_batch``) have no meaning for
 a process group and have no counterpart here.
+
+``model_parallel`` M > 1 (``default_mesh(model_parallel=M)``) lays the W
+ranks out as JAX reshapes its devices, a (W / M, M) grid with the model
+axis innermost: rank r = d * M + m sits in row d, and the M ranks of a
+row form its model group (:func:`join` makes every group, on every rank,
+in one order).  A rank keeps its slice of the sharded weights and of
+their Adam moments (``partitioning.py``, ``training.TrainState``) and
+:func:`all_gather_shards` makes them whole again over the group.  The
+batch still splits over all W ranks and the gradients still sum over
+all W.
 """
 
 import dataclasses
@@ -33,6 +43,9 @@ import torch.distributed as dist
 
 # how long a collective waits for a rank before the run fails
 TIMEOUT = datetime.timedelta(minutes=10)
+
+# this rank's model group and its size (model_parallel), set by join
+_MODEL: typing.Dict[str, typing.Any] = {"size": 1, "group": None}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,11 +93,31 @@ def launch_from(
     return Launch(rank_, world_size, int(environ.get("LOCAL_RANK", rank_)), "env://")
 
 
+def check_model_parallel(world_size: int, model_parallel: int) -> None:
+    """``ValueError`` where ``model_parallel`` is below 1 or does not
+    divide ``world_size`` (the JAX mesh's assert)."""
+    if model_parallel < 1:
+        raise ValueError(f"model_parallel={model_parallel} is below 1")
+    if world_size % model_parallel:
+        raise ValueError(
+            f"{world_size} devices do not split into model_parallel={model_parallel}"
+        )
+
+
+def model_groups(world_size: int, model_parallel: int) -> typing.List[typing.List[int]]:
+    """The model groups of a (world / M, M) grid: row d holds ranks d * M
+    to d * M + M - 1 (the model axis innermost, as JAX's reshape)."""
+    check_model_parallel(world_size, model_parallel)
+    return [list(range(d * model_parallel, (d + 1) * model_parallel))
+            for d in range(world_size // model_parallel)]
+
+
 def join(
     launch: Launch,
     platform: str,
     backend: typing.Optional[str] = None,
     timeout: datetime.timedelta = TIMEOUT,
+    model_parallel: int = 1,
 ) -> torch.device:
     """Take this rank's device and join the process group -> the device.
 
@@ -94,7 +127,11 @@ def join(
     ``backend`` (default NCCL for "cuda", gloo for "cpu").  Under NCCL the
     ranks compare their cards (over a gloo side group, before NCCL's first
     collective) and a card that two ranks would share raises
-    ``ValueError`` on every rank, after leaving the group."""
+    ``ValueError`` on every rank, after leaving the group.
+    ``model_parallel`` M > 1 then makes the model groups
+    (:func:`model_groups`); an M that does not divide the world raises
+    ``ValueError`` before anything is joined."""
+    check_model_parallel(launch.world, model_parallel)
     if platform == "cuda":
         count = torch.cuda.device_count()
         if count == 0:
@@ -112,6 +149,11 @@ def join(
     )
     if backend == "nccl":
         _refuse_shared_cards(device)
+    if model_parallel > 1:
+        for ranks in model_groups(launch.world, model_parallel):
+            group = dist.new_group(ranks)
+            if launch.rank in ranks:
+                _MODEL.update(size=model_parallel, group=group)
     return device
 
 
@@ -134,6 +176,7 @@ def _refuse_shared_cards(device: torch.device) -> None:
 
 def leave() -> None:
     """Leave the process group, if this process joined one."""
+    _MODEL.update(size=1, group=None)
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
 
@@ -173,3 +216,42 @@ def all_reduce_sum(tensors: typing.Sequence[torch.Tensor]) -> typing.List[torch.
     dist.all_reduce(flat)
     parts = torch.split(flat, [t.numel() for t in tensors])
     return [p.view(t.shape) for p, t in zip(parts, tensors)]
+
+
+def model_parallel() -> int:
+    """M, the ranks of a model group; 1 without one."""
+    return _MODEL["size"]
+
+
+def model_rank() -> int:
+    """This rank's place in its model group (rank modulo M): which slice
+    of each sharded leaf it keeps."""
+    return rank() % model_parallel()
+
+
+def all_gather_shards(
+    slices: typing.Sequence[torch.Tensor], wholes: typing.Sequence[torch.Tensor]
+) -> None:
+    """Fill ``wholes`` (f32, one device) from the model group's slices of
+    them, in one collective through a single flat buffer: rank m of the
+    group holds ``slices[i]``, columns m * c to (m + 1) * c of the last
+    dimension of ``wholes[i]`` (c = its last dimension over M).  Every
+    rank of the group gets the same bits; a failed collective raises.
+    The collective is ``all_gather_into_tensor`` under NCCL and under
+    gloo, on the host and on CUDA tensors alike (two ranks sharing one
+    card: gloo copies through the host).  Called only in a model group
+    (M > 1) and with at least one slice."""
+    slices, wholes = list(slices), list(wholes)
+    size = model_parallel()
+    assert size > 1 and slices, "all_gather_shards needs a model group and a slice"
+    flat = torch.cat([s.reshape(-1) for s in slices])
+    n = flat.numel()
+    out = torch.empty(size * n, dtype=flat.dtype, device=flat.device)
+    dist.all_gather_into_tensor(out, flat, group=_MODEL["group"])
+    out = out.view(size, n)
+    offset = 0
+    for s, w in zip(slices, wholes):
+        count = s.numel()
+        part = out[:, offset:offset + count].reshape(size, *s.shape)
+        w.copy_(torch.movedim(part, 0, -2).reshape(w.shape))
+        offset += count

@@ -17,7 +17,12 @@ an accumulated step too.  On CUDA tensors the flow blocks, MAS and
 (``encoder_fuse`` true, what "auto" resolves to for the shipped encoder
 configuration) the text side run the hand-written kernels, forward and
 backward, once a slice; ``encoder_fuse: false`` runs the text side op by
-op.  The decoder runs in the mode the config picks
+op.  Under tensor parallelism (``--model-parallel`` M, a model group of M
+ranks: ``parallel``) the step is the same, the gradients reduced over all
+W ranks and the norm taken on them whole; then each rank runs Adam on its
+slices of the sharded leaves (:class:`TrainState`) and the model group
+gathers the whole weights, so a step gives the bits of the W-rank
+data-parallel step.  The decoder runs in the mode the config picks
 (``models.hyper_from_config``): ``flow_block_fuse`` (each block one kernel
 pair, the default) or op by op around the WN stack's kernels, with
 ``wn_residuals`` "store" (the default) or "recompute" (a block's residuals
@@ -54,6 +59,7 @@ from .models.glow_tts import (
 from .models.losses import duration_loss, mle_loss
 from .ops.attention import rows_of
 from .optimize import AdamState, adam_init, adam_update, learning_rate_fn
+from .parallel import partitioning
 from .tree import unflatten
 
 _LOGGER = logging.getLogger("glow_tts_train_tpu_torch")
@@ -62,12 +68,76 @@ _LOG_EVERY = 10
 
 
 class TrainState:
-    """Trainable model, Adam moments and the 1-indexed global step."""
+    """Trainable model, Adam moments and the 1-indexed global step.
 
-    def __init__(self, model: GlowTTS, step: int = 1):
+    ``model_parallel`` M > 1 (default ``parallel.model_parallel()``, the
+    M the process joined with; 1 trains data parallel in any group): the
+    model keeps the whole weights, which the kernels read; ``sharded``
+    names the leaves whose last dimension shards over the model group
+    (``partitioning.sharded_keys``), ``master`` holds this rank's
+    contiguous slice of each of them and the model's own tensor of every
+    other leaf, and ``opt`` the moments of ``master``.  Adam updates
+    ``master`` and :meth:`gather` makes the weights whole again; a state
+    is made from whole weights, so take whole moments with
+    :meth:`take_opt` and give them with :meth:`whole_opt`.
+
+    Under M > 1 a sharded weight lives twice, in ``master`` and in the
+    model, and ``master`` is the one that counts: a write to the model's
+    tensor of a sharded leaf after the state is made (a merge, a weight
+    load) is undone by the next :meth:`gather`.  So write weights first
+    and make the state after, as the train CLI does; DDI may run at any
+    time, since ActNorm's leaves are replicated (``master`` holds the
+    model's own tensors of those)."""
+
+    def __init__(self, model: GlowTTS, step: int = 1, model_parallel: typing.Optional[int] = None):
+        size = parallel.model_parallel() if model_parallel is None else int(model_parallel)
+        if size not in (1, parallel.model_parallel()):
+            raise ValueError(f"model_parallel {size}: this process joined model groups of "
+                             f"{parallel.model_parallel()}")
         self.model = model
-        self.opt: AdamState = adam_init(model.flat())
         self.step = step
+        self.model_parallel = size
+        params = model.flat()
+        self.sharded = partitioning.sharded_keys({k: p.shape for k, p in params.items()}, size)
+        self.master = self.shard(params, detach=True)
+        self.opt: AdamState = adam_init(self.master)
+
+    def shard(self, whole: typing.Mapping[str, torch.Tensor], detach: bool = False) -> dict:
+        """This rank's slices of ``whole`` ({key: tensor} over every leaf)
+        where the leaf is sharded (contiguous copies), the tensor itself
+        elsewhere."""
+        sharded, rank_ = set(self.sharded), parallel.model_rank()
+        return {k: partitioning.take_slice(v.detach() if detach else v, self.model_parallel, rank_)
+                if k in sharded else v for k, v in whole.items()}
+
+    @torch.no_grad()
+    def gather(self) -> None:
+        """The model's whole weights from the model group's master slices."""
+        params = self.model.flat()
+        parallel.all_gather_shards([self.master[k] for k in self.sharded],
+                                   [params[k].detach() for k in self.sharded])
+
+    def take_opt(self, opt: AdamState) -> None:
+        """Adopt Adam state of whole moments (a checkpoint's): this rank
+        keeps its slices."""
+        self.opt = AdamState(self.shard(opt.mu), self.shard(opt.nu), opt.count)
+
+    @torch.no_grad()
+    def whole_opt(self) -> AdamState:
+        """The Adam state with whole moments; under M > 1 a collective over
+        the model group, which every rank of it must call."""
+        if not self.sharded:
+            return self.opt
+        whole = []
+        for moments in (self.opt.mu, self.opt.nu):
+            out = dict(moments)
+            for k in self.sharded:
+                shape = (*moments[k].shape[:-1], moments[k].shape[-1] * self.model_parallel)
+                out[k] = moments[k].new_empty(shape)
+            parallel.all_gather_shards([moments[k] for k in self.sharded],
+                                       [out[k] for k in self.sharded])
+            whole.append(out)
+        return AdamState(whole[0], whole[1], self.opt.count)
 
 
 def trainable_model(flat: typing.Mapping[str, torch.Tensor], hp, device) -> GlowTTS:
@@ -225,7 +295,11 @@ def make_train_step(config):
             for (k, p), g in zip(params.items(), grads)
         }
         grad_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
-        state.opt = adam_update(params, grads, state.opt, config)
+        if state.sharded:  # Adam on this rank's slices, then the whole weights
+            state.opt = adam_update(state.master, state.shard(grads), state.opt, config)
+            state.gather()
+        else:
+            state.opt = adam_update(params, grads, state.opt, config)
         state.step += 1
         return {
             "loss": loss.detach(), "mle_loss": l_mle.detach(),
@@ -323,7 +397,9 @@ def train(
     run's 6th to 15th steps (the JAX trainer's "steps 5-15"), written there
     as a Chrome trace when the 15th ends or the run does.  Over W ranks
     rank 0 alone writes the metrics line, the checkpoints, their configs
-    and the trace; every rank's losses are the global batch's.
+    and the trace; every rank's losses are the global batch's.  Under
+    tensor parallelism every rank takes part in a checkpoint's gather of
+    the Adam moments (:meth:`TrainState.whole_opt`).
 
     Dropout: before each step both generators, ``generator`` on
     ``device`` (the op-by-op text side's masks) and ``seed_generator`` on
@@ -387,15 +463,15 @@ def train(
                         metrics_file,
                     )
                     metrics_file.write("\n")
-        if chief and epoch % checkpoint_epochs == 0:
-            checkpoint_path = Path(model_dir) / f"checkpoint_{state.step}.npz"
-            save_checkpoint(
-                state.model.flat(), checkpoint_path, state.step,
-                lr_at(state.opt.count), config.version, state.opt, config.scheduler,
-            )
-            with open(Path(model_dir) / f"config_{state.step}.json", "w") as config_file:
-                config.save(config_file)
-            _LOGGER.info("Saved checkpoint to %s", checkpoint_path)
+        if epoch % checkpoint_epochs == 0:
+            opt = state.whole_opt()  # every rank: the moments may be gathered
+            if chief:
+                checkpoint_path = Path(model_dir) / f"checkpoint_{state.step}.npz"
+                save_checkpoint(state.model.flat(), checkpoint_path, state.step,
+                                lr_at(state.opt.count), config.version, opt, config.scheduler)
+                with open(Path(model_dir) / f"config_{state.step}.json", "w") as config_file:
+                    config.save(config_file)
+                _LOGGER.info("Saved checkpoint to %s", checkpoint_path)
     if profiler is not None:
         _stop_profiler(profiler, profile_dir, device)  # the run ended mid-capture
     return state

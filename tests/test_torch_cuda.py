@@ -2667,6 +2667,60 @@ def test_two_ranks_on_one_card_over_gloo_match_one_process(dev, tmp_path):
         np.testing.assert_array_equal(results[0][k], results[1][k], err_msg=k)
 
 
+@pytest.mark.parametrize("fp16", [False, True], ids=["f32", "bf16"])
+def test_model_parallel_on_one_card_over_gloo_equals_data_parallel(dev, tmp_path, fp16):
+    """Two ranks on this card over gloo as one model group (``--model-parallel
+    2``: the gather is gloo's ``all_gather_into_tensor`` on CUDA tensors),
+    2 steps with dropout on against the same two ranks' data-parallel
+    steps in the same launch: the four metrics, every param and both Adam
+    moments (gathered whole) bit for bit, the launch counts equal, and
+    each rank's moments its half of every sharded leaf."""
+    import torch_parallel_worker as worker
+
+    from glow_tts_train_tpu_torch.parallel import partitioning
+
+    config = tiny_config(p_dropout_dec=0.5)
+    config.fp16_run = fp16
+    hp = model.hyper_from_config(config)
+    flat = {k[len("model/"):]: v for k, v in checkpoint.random_params(hp, 1).items()}
+    np.savez(tmp_path / "params.npz", **flat)
+    rng = np.random.default_rng(3)
+    b, t_x, t_y = 8, 11, 26
+    batches = {}
+    for i in range(2):
+        x_lengths = np.concatenate([[t_x], rng.integers(7, t_x + 1, size=b - 1)])
+        y_lengths = np.concatenate([[t_y], rng.integers(2 * t_x, t_y + 1, size=b - 1)])
+        batch = {"x": rng.integers(1, hp.n_vocab, size=(b, t_x))
+                 * (np.arange(t_x) < x_lengths[:, None]),
+                 "x_lengths": x_lengths, "y_lengths": y_lengths,
+                 "y": rng.standard_normal((b, t_y, hp.out_channels)).astype(np.float32)
+                 * (np.arange(t_y) < y_lengths[:, None])[..., None]}
+        batches.update({f"{i}/{k}": v for k, v in batch.items()})
+    np.savez(tmp_path / "batches.npz", **batches)
+    with open(tmp_path / "config.json", "w") as f:
+        config.save(f)
+    kernels.build()
+    job = {"kind": "steps", "config": str(tmp_path / "config.json"),
+           "params": str(tmp_path / "params.npz"), "batches": str(tmp_path / "batches.npz"),
+           "steps": 2, "dropout": True}
+    worker.run_ranks(tmp_path, [dict(job, name="dp", model_parallel=1),
+                                dict(job, name="mp", model_parallel=2)],
+                     platform="cuda", backend="gloo", local_rank=0, timeout=600, model_parallel=2)
+    sharded = set(partitioning.sharded_keys({k: v.shape for k, v in flat.items()}, 2))
+    assert len(sharded) > 20
+    for r in range(2):
+        with np.load(tmp_path / f"dp.rank{r}.npz") as d, np.load(tmp_path / f"mp.rank{r}.npz") as m:
+            np.testing.assert_array_equal(m["metrics"], d["metrics"])
+            launches = [k for k in d.files if k.startswith("launches/")]
+            assert sum(int(d[k]) for k in launches) > 0
+            assert {k: int(m[k]) for k in launches} == {k: int(d[k]) for k in launches}
+            for k in (k for k in d.files if k.startswith(("param/", "mu/", "nu/"))):
+                np.testing.assert_array_equal(m[k].view(np.uint8), d[k].view(np.uint8), err_msg=k)
+            for key in sharded:
+                c = flat[key].shape[-1] // 2
+                np.testing.assert_array_equal(m[f"rank_mu/{key}"], m[f"mu/{key}"][..., r * c:(r + 1) * c])
+
+
 def test_bf16_rows_8_and_9_at_the_shipped_batch(dev):
     """bf16 rows 8 (``wn_bwd_store``: its transposed convs' epilogues in
     column pairs) and 9 (``block_fwd``: the folded A on wgmma) at [32,

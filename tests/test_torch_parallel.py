@@ -473,7 +473,7 @@ def test_launch_from_flags_and_environment(monkeypatch, case):
 REFUSALS = {
     "indivisible_batch": ("--batch-size", "7"),
     "accum_over_local_batch": ("--batch-size", "6", "--config", "ACCUM2"),
-    "model_parallel": ("--model-parallel", "2"),
+    "model_parallel": ("--model-parallel", "3"),
     "no_mesh_under_a_launcher": ("--no-mesh",),
     "virtual_devices": ("--virtual-devices", "4"),
 }
@@ -484,9 +484,10 @@ def test_train_cli_refusals(corpus, tmp_path, monkeypatch, capsys, case):  # noq
     """(f): under a launcher's ``WORLD_SIZE`` 2 the train CLI exits 2,
     naming the cause and creating no output, for a global batch that 2
     ranks do not divide, a local batch (6 over 2) that
-    ``grad_accum_steps`` 2 does not divide, ``--model-parallel 2``,
-    ``--no-mesh`` and ``--virtual-devices``; each before any rendezvous
-    (no process group is joined: the run has no peer)."""
+    ``grad_accum_steps`` 2 does not divide, ``--model-parallel 3`` (model
+    groups of 3 do not divide 2 ranks), ``--no-mesh`` and
+    ``--virtual-devices``; each before any rendezvous (no process group
+    is joined: the run has no peer)."""
     accum = tmp_path / "accum.json"
     accum.write_text(json.dumps({"grad_accum_steps": 2}))
     for key, value in (("WORLD_SIZE", "2"), ("RANK", "0"), ("LOCAL_RANK", "0")):
@@ -497,7 +498,8 @@ def test_train_cli_refusals(corpus, tmp_path, monkeypatch, capsys, case):  # noq
     assert exc.value.code == 2
     err = capsys.readouterr().err
     want = {"indivisible_batch": "divide evenly over 2 ranks",
-            "accum_over_local_batch": "grad_accum_steps 2", "model_parallel": "--model-parallel",
+            "accum_over_local_batch": "grad_accum_steps 2",
+            "model_parallel": "2 devices do not split into model_parallel=3",
             "no_mesh_under_a_launcher": "--no-mesh", "virtual_devices": "--virtual-devices"}
     assert want[case] in err, err
     assert not (corpus / f"refused_{case}").exists()
